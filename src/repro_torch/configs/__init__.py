@@ -1,0 +1,27 @@
+"""Config registry of the port: ``get_config(arch_id, smoke=False)``.
+
+Lists only the architectures the port runs.  The JAX package knows ten; the
+others raise until the slice that ports their model family lands.
+"""
+import importlib
+
+from .base import ModelConfig, SparseConfig, validate_sparse_kernel
+
+__all__ = ["ModelConfig", "SparseConfig", "validate_sparse_kernel",
+           "get_config", "ARCH_IDS"]
+
+_MODULES = {
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _MODULES:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported yet (the PyTorch port runs "
+            f"{', '.join(ARCH_IDS)})"
+        )
+    mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
+    return mod.SMOKE if smoke else mod.CONFIG

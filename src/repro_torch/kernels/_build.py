@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes, no PyTorch headers).
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into
+``build/kernels/<name>-<hash>.so`` at the repository root, with a plain C
+interface that the kernel modules load through ``ctypes``.  The hash covers
+the source, the shared headers in ``csrc/`` and the flags, so an edited
+kernel rebuilds and an unchanged one is reused.  ``build()`` starts every
+missing compile at once and waits for all of them.  Nothing is compiled or
+loaded when a module is imported: the first launch on a CUDA tensor builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["KERNELS", "build", "load", "check"]
+
+_PKG = Path(__file__).resolve().parents[1]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+KERNELS = ("block_sparse_fwd", "flash_fwd")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH): the CUDA kernels "
+            "build on a machine with the CUDA toolkit"
+        )
+    return found
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update((SRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> dict[str, float]:
+    """Compile every kernel of ``names`` whose library is missing, all in
+    parallel.  Returns {name: seconds} for the ones compiled; raises with
+    the compiler's output when one fails.  ptxas's register and shared
+    memory report lands in ``<library>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = lib_path(n)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(SRC_DIR / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out, time.perf_counter())
+    secs, errors = {}, []
+    for n, (p, tmp, out, t0) in procs.items():
+        log, _ = p.communicate()
+        secs[n] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu (exit {p.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's loaded library, built first if it is missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` returned by a C entry."""
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,184 @@
+"""Serving driver of the port: the continuous-batching engine on the GPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --kernel block_sparse --block 128 --attn-kernel flash_tight
+
+Port of the JAX package's ``launch/serve.py`` (engine mode), with the same
+flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs the plain
+versions of the kernels, for smoke configs).  With ``--kernel block_sparse``
+every projection of prefill and decode runs the block-sparse CUDA kernel on
+the serve state's PackState, packed once; with ``--attn-kernel flash_tight``
+prefill attention runs the flash CUDA kernel on the prompt's AttnSchedule.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..configs import get_config, validate_sparse_kernel
+from ..core.distributions import sparsity_map
+from ..core.masks import apply_masks, init_masks, tree_paths
+from ..core.pack import build_pack_state
+from ..device import resolve_device
+from ..models.model import init_lm
+from ..serving.engine import ServeEngine
+from ..serving.queue import Request, poisson_arrivals
+
+__all__ = ["configure_kernel", "staggered_requests", "init_serving_state", "main"]
+
+
+def staggered_requests(cfg, n: int, *, prompt_lens=(16, 32),
+                       gen_lens=(8, 16, 32, 64), arrival_rate: float = 0.0,
+                       seed: int = 0, temperature: float = 0.0, top_k: int = 0):
+    """Synthetic staggered-length workload, the same requests as the
+    reference's for the same arguments: request i cycles through
+    ``prompt_lens``/``gen_lens`` with Poisson arrival offsets at
+    ``arrival_rate`` req/s (0 => burst at t=0)."""
+    rng = np.random.default_rng(seed)
+    arrivals = poisson_arrivals(n, arrival_rate, seed)
+    return [
+        Request(
+            rid=i,
+            tokens=rng.integers(
+                0, cfg.vocab_size, size=int(prompt_lens[i % len(prompt_lens)])
+            ).astype(np.int32),
+            max_new_tokens=int(gen_lens[i % len(gen_lens)]),
+            temperature=temperature, top_k=top_k, seed=seed + i,
+            arrival=float(arrivals[i]),
+        )
+        for i in range(n)
+    ]
+
+
+def configure_kernel(cfg, *, kernel=None, block=None, attn_kernel=None):
+    """Apply CLI kernel overrides to cfg.sparse; block_sparse couples
+    block_shape to the kernel tiles (bk, bn) = (block, block)."""
+    sp = cfg.sparse
+    if kernel == "block_sparse":
+        e = block or sp.kernel_block[2]
+        sp = dataclasses.replace(
+            sp, kernel="block_sparse", block_shape=(e, e),
+            kernel_block=(sp.kernel_block[0], e, e),
+        )
+    elif kernel is not None:
+        sp = dataclasses.replace(sp, kernel=kernel)
+    if attn_kernel is not None:
+        sp = dataclasses.replace(sp, attn_kernel=attn_kernel)
+    return dataclasses.replace(cfg, sparse=sp)
+
+
+def init_serving_state(cfg, seed: int = 0, *, device=None):
+    """Fresh weights ready to serve -> (params, masks, pack).
+
+    ``init_lm`` -> ERK ``sparsity_map`` -> ``init_masks`` (block-aligned
+    under block_sparse) -> ``apply_masks`` -> ``build_pack_state``.
+    Kernel-dispatch modes serve the masked weights with their masks (and
+    the pack under block_sparse); dense mode serves pre-masked weights with
+    masks and pack None, as the reference.  On ``device`` (default cuda).
+    """
+    sp = cfg.sparse
+    validate_sparse_kernel(sp)
+    if sp.kernel == "masked":
+        raise NotImplementedError("kernel='masked' is not ported yet")
+    dev = resolve_device(device)
+    params, flags = init_lm(cfg, seed, device=dev)
+    masks = None
+    if sp.sparsity > 0.0:
+        smap = sparsity_map(cfg, params, flags)
+        if sp.kernel == "block_sparse":
+            flat = tree_paths(params)
+            bad = [n for n in smap if flat[n].dim() != 2
+                   or flat[n].shape[0] % sp.block_shape[0]
+                   or flat[n].shape[1] % sp.block_shape[1]]
+            if bad:
+                raise ValueError(
+                    f"block_shape={sp.block_shape} does not tile the "
+                    f"sparsifiable layers {bad}"
+                )
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        masks = init_masks(gen, params, smap, block_shape=sp.block_shape)
+        params = apply_masks(params, masks)
+    if sp.kernel != "block_sparse" or masks is None:
+        return params, None, None
+    pack = build_pack_state(masks, sp.block_shape,
+                            slack=sp.pack_width_slack, device=dev)
+    return params, masks, pack
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="h2o-danube-1.8b")
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    p.add_argument("--capacity", type=int, default=4,
+                   help="engine slot-pool size (the decode batch)")
+    p.add_argument("--requests", type=int, default=16,
+                   help="number of staggered-length requests to serve")
+    p.add_argument("--arrival-rate", type=float, default=0.0,
+                   help="Poisson arrival rate, req/s (0 = burst at t=0)")
+    p.add_argument("--max-len", type=int, default=128,
+                   help="per-slot cache length (prompt + generation bound)")
+    p.add_argument("--queue-limit", type=int, default=None,
+                   help="max queued requests before submit sheds")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="admission deadline in seconds from arrival")
+    p.add_argument("--max-retries", type=int, default=0,
+                   help="quarantine-retry budget per request")
+    p.add_argument("--paged", action="store_true", help="not ported yet")
+    p.add_argument("--page-size", type=int, default=16, help="not ported yet")
+    p.add_argument("--n-blocks", type=int, default=None, help="not ported yet")
+    p.add_argument("--prefix-cache", type=int, default=0, help="not ported yet")
+    p.add_argument("--lockstep", action="store_true", help="not ported yet")
+    p.add_argument("--batch", type=int, default=4, help="lockstep only")
+    p.add_argument("--prompt-len", type=int, default=48, help="lockstep only")
+    p.add_argument("--gen", type=int, default=32, help="lockstep only")
+    p.add_argument("--kernel", default=None,
+                   choices=["dense", "masked", "block_sparse"],
+                   help="override cfg.sparse.kernel for serving")
+    p.add_argument("--block", type=int, default=None,
+                   help="block edge for --kernel block_sparse")
+    p.add_argument("--attn-kernel", default=None,
+                   choices=["dense", "flash", "flash_tight"],
+                   help="override cfg.sparse.attn_kernel")
+    p.add_argument("--trace-out", default=None, help="not ported yet")
+    p.add_argument("--metrics-out", default=None, help="not ported yet")
+    args = p.parse_args(argv)
+    if args.lockstep:
+        raise NotImplementedError("--lockstep (serve_session) is not ported yet")
+    if args.trace_out or args.metrics_out:
+        raise NotImplementedError("--trace-out/--metrics-out are not ported yet")
+    cfg = configure_kernel(
+        get_config(args.arch, smoke=args.smoke), kernel=args.kernel,
+        block=args.block, attn_kernel=args.attn_kernel,
+    )
+    params, masks, pack = init_serving_state(cfg, device=args.device)
+    engine = ServeEngine(
+        cfg, params, capacity=args.capacity, max_len=args.max_len,
+        masks=masks, pack=pack, queue_limit=args.queue_limit,
+        deadline=args.deadline, max_retries=args.max_retries,
+        paged=args.paged, page_size=args.page_size, n_blocks=args.n_blocks,
+        prefix_cache=args.prefix_cache,
+    )
+    n_shed = sum(
+        not engine.submit(r)
+        for r in staggered_requests(cfg, args.requests,
+                                    arrival_rate=args.arrival_rate)
+    )
+    if n_shed:
+        print(f"backpressure: {n_shed} requests shed at submit "
+              f"(--queue-limit {args.queue_limit})")
+    stats = engine.run()
+    print(f"engine  kernel={cfg.sparse.kernel}  "
+          f"attn_kernel={cfg.sparse.attn_kernel}  capacity={args.capacity}  "
+          f"device={engine.device}")
+    for k, v in stats.items():
+        print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

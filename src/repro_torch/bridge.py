@@ -1,13 +1,16 @@
-"""Bridge from the JAX package's serving state to the port's tensors.
+"""Bridge from the JAX package's serving and train states to the port's
+tensors.
 
 The JAX side hands over numpy arrays keyed by ``path_name`` strings
 (``layers/0/attn/wq/w``), the naming both packages share; this module never
 imports JAX.  ``params_from_flat`` rebuilds the params tree,
 ``masks_from_flat`` and ``pack_from_flat`` rebuild trees that mirror it
-(``None`` where the reference has no mask or entry).  Pack entries drop the
-Top-KAST superset view (``bidx``/``bcnt``/``bnnz``), which only the wgrad
-kernel reads.  ``flat_of`` and ``pack_flat_of`` go the other way, so the
-tests can round-trip a state.
+(``None`` where the reference has no mask or entry; pack entries keep the
+Top-KAST superset view ``bidx``/``bcnt``/``bnnz`` when the reference's
+carry one).  ``train_state_from_flat`` assembles a whole train state
+(params, masks, backward supersets, pack, optimizer state, step and the
+non-finite counter).  ``flat_of`` and ``pack_flat_of`` go the other way, so
+the tests can round-trip a state.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ from .core.masks import tree_map, tree_paths
 from .core.pack import pack_entries
 
 __all__ = ["params_from_flat", "masks_from_flat", "pack_from_flat",
-           "flat_of", "pack_flat_of"]
+           "train_state_from_flat", "flat_of", "pack_flat_of"]
 
-_PACK_ARRAYS = ("idx", "cnt", "ridx", "rcnt")
+_PACK_ARRAYS = ("idx", "cnt", "ridx", "rcnt", "bidx", "bcnt")
+_PACK_INTS = ("nnz", "nkb", "bnnz")
 
 
 def _unflatten(flat: Mapping[str, Any]):
@@ -69,11 +73,36 @@ def pack_from_flat(flat: Mapping[str, Mapping[str, Any]], params, device):
         if e is None:
             return None
         out = {k: torch.from_numpy(np.array(e[k], np.int32)).to(device)
-               for k in _PACK_ARRAYS}
-        out["nnz"], out["nkb"] = int(e["nnz"]), int(e["nkb"])
+               for k in _PACK_ARRAYS if k in e}
+        out.update({k: int(e[k]) for k in _PACK_INTS if k in e})
         return out
 
     return tree_map(entry, params)
+
+
+def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
+                          step: int = 0, nonfinite_steps: int = 0, seed: int = 0,
+                          device):
+    """A reference train state, flattened, -> the port's train state
+    (``training/steps.py`` layout).  ``opt`` is ``{"momentum": flat}`` (sgd)
+    or ``{"m": flat, "v": flat, "count": int}`` (adam); ``seed`` seeds the
+    port's own later draws (supersets, masks), which are not the
+    reference's threefry streams."""
+    p = params_from_flat(params, device)
+    state = {
+        "step": int(step), "seed": int(seed), "params": p,
+        "masks": masks_from_flat(masks, p, device),
+        "nonfinite_steps": torch.tensor(int(nonfinite_steps), dtype=torch.int32,
+                                        device=device),
+        "opt": {k: (torch.tensor(int(v), dtype=torch.int32, device=device)
+                    if k == "count" else params_from_flat(v, device))
+                for k, v in opt.items()},
+    }
+    if bwd_masks is not None:
+        state["bwd_masks"] = masks_from_flat(bwd_masks, p, device)
+    if pack is not None:
+        state["pack"] = pack_from_flat(pack, p, device)
+    return state
 
 
 def flat_of(tree) -> dict[str, np.ndarray]:

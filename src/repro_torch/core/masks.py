@@ -25,6 +25,7 @@ __all__ = [
     "block_mask_of",
     "init_masks",
     "apply_masks",
+    "mask_stats",
 ]
 
 
@@ -49,20 +50,24 @@ def tree_paths(tree) -> dict[str, Any]:
     return {path_name(p): v for p, v in _walk(tree, ()) if v is not None}
 
 
-def tree_map(fn: Callable, tree, *rest, _prefix: tuple = ()):
+def tree_map(fn: Callable, tree, *rest, is_leaf=None, _prefix: tuple = ()):
     """Structure-preserving map; ``fn(name, leaf, *rest_leaves)``.
 
-    ``rest`` trees mirror ``tree`` (``None`` leaves included).
+    ``rest`` trees mirror ``tree`` (``None`` leaves included).  ``is_leaf``
+    marks containers to hand to ``fn`` whole (as ``jax.tree_util``'s).
     """
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path_name(_prefix), tree, *rest)
     if isinstance(tree, dict):
         return {
-            k: tree_map(fn, tree[k], *(r[k] for r in rest),
+            k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf,
                         _prefix=_prefix + (k,))
             for k in tree
         }
     if isinstance(tree, (list, tuple)):
         return [
-            tree_map(fn, v, *(r[i] for r in rest), _prefix=_prefix + (i,))
+            tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf,
+                     _prefix=_prefix + (i,))
             for i, v in enumerate(tree)
         ]
     return fn(path_name(_prefix), tree, *rest)
@@ -131,3 +136,19 @@ def apply_masks(params, masks):
     return tree_map(
         lambda _, w, m: w if m is None else w * m.to(w.dtype), params, masks
     )
+
+
+def mask_stats(masks) -> dict[str, Any]:
+    """Per-layer and overall sparsity bookkeeping (host-side; one device
+    sync per layer)."""
+    out: dict[str, Any] = {"layers": {}}
+    total = active = 0
+    for name, m in tree_paths(masks).items():
+        size, a = int(m.numel()), int(m.sum())
+        out["layers"][name] = {"size": size, "nnz": a, "sparsity": 1.0 - a / size}
+        total += size
+        active += a
+    out["total"] = total
+    out["nnz"] = active
+    out["sparsity"] = 1.0 - active / total if total else 0.0
+    return out

@@ -1,27 +1,30 @@
-"""PackState: the host-packed block topology the block-sparse kernel runs on.
+"""PackState: the host-packed block topology the block-sparse kernels run on.
 
-Port of the JAX package's ``core/pack.py`` for serving.  The block-sparse
-forward kernel (``kernels/block_sparse_matmul.py``) is driven by a CSC
-packing of a layer's block-activity mask: per N-block column, the ids of its
-active K-blocks (``idx (N/bn, width) int32``) and how many are real
-(``cnt (N/bn,)``).  ``width`` is the largest count (tight), so a kernel's
-loop runs over the true active blocks.  The packing is computed once on the
-host from concrete masks and reused by every prefill and decode step.
+Port of the JAX package's ``core/pack.py``.  The block-sparse kernels
+(``kernels/block_sparse_matmul.py``) are driven by packings of a layer's
+block-activity mask: per N-block column, the ids of its active K-blocks
+(CSC ``idx (N/bn, width) int32`` and ``cnt (N/bn,)``: the forward K1) and
+per K-block row the ids of its active N-blocks (CSR ``ridx``/``rcnt``: the
+dgrad K2).  Widths are the largest counts (tight), so a kernel's loop runs
+over the true active blocks.  Packs are computed on the host from concrete
+masks: once for serving, and after every topology update in training
+(``refresh_pack_state``: widths never shrink).
 
 Entry layout (one per packable 2-D mask leaf under ``attn``/``mlp``, ``None``
 elsewhere), the same keys as the reference:
 
-  {"idx":  (N/bn, width) int32 tensor,   # CSC: forward kernel
+  {"idx":  (N/bn, width) int32 tensor,   # CSC: forward (K1)
    "cnt":  (N/bn,) int32 tensor,
-   "ridx": (K/bk, row_width) int32,      # CSR: the dgrad kernel's view
-   "rcnt": (K/bk,) int32,                #   (kept for parity and checks)
+   "ridx": (K/bk, row_width) int32,      # CSR: dgrad (K2)
+   "rcnt": (K/bk,) int32,
    "nnz":  int,                          # total active blocks
-   "nkb":  int}                          # K/bk
+   "nkb":  int,                          # K/bk
+   # with backward masks (Top-KAST superset B ⊇ A, core/rigl.py):
+   "bidx": (N/bn, bwidth) int32,         # superset CSC: wgrad (K3)
+   "bcnt": (N/bn,) int32,
+   "bnnz": int}
 
-The reference's Top-KAST superset view (``bidx``/``bcnt``/``bnnz``) feeds
-only the wgrad kernel; serving never differentiates, so the port leaves it
-out.  Grouped (3-D) banks belong to model families the port does not run
-yet.
+Grouped (3-D) banks belong to model families the port does not run yet.
 """
 from __future__ import annotations
 
@@ -38,7 +41,9 @@ __all__ = [
     "is_pack_entry",
     "pack_entry",
     "pack_entries",
+    "pack_mismatch",
     "pack_np",
+    "refresh_pack_state",
     "slack_width",
     "validate_pack",
 ]
@@ -92,19 +97,28 @@ def slack_width(width: int, worst: int, slack: float) -> int:
     return min(-(-width // step) * step, worst)
 
 
-def pack_entry(mask, block_shape, *, slack: float = 0.0, name: str = "?",
-               device=None) -> dict:
-    """Pack ONE 2-D mask leaf into a PackState entry (CSC + CSR views).
-
-    Raises when the layer has no active block at all: the kernel would
-    output zeros for the whole layer.  Single all-zero COLUMNS are fine (the
-    kernel writes zeros for them).
-    """
+def _block_np(mask, block_shape):
     bm = block_mask_of(mask, block_shape)
     if isinstance(bm, torch.Tensor):
-        device = bm.device if device is None else device
         bm = bm.cpu().numpy()
-    bm = np.asarray(bm, bool)
+    return np.asarray(bm, bool)
+
+
+def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
+               slack: float = 0.0, name: str = "?", device=None, bwd_mask=None,
+               min_bwd_width: int = 0) -> dict:
+    """Pack ONE 2-D mask leaf into a PackState entry (CSC + CSR views, and
+    the superset CSC of ``bwd_mask`` when given).
+
+    Raises when the layer has no active block at all (the kernel would
+    output zeros for the whole layer), and when ``bwd_mask`` does not
+    contain the forward mask (wgrad would zero forward-active blocks).
+    Single all-zero COLUMNS are fine (the kernel writes zeros for them).
+    ``min_*`` floors keep refreshed widths from shrinking.
+    """
+    if device is None and isinstance(mask, torch.Tensor):
+        device = mask.device
+    bm = _block_np(mask, block_shape)
     if bm.ndim != 2:
         raise NotImplementedError(
             f"PackState: layer {name!r} has a {bm.ndim}-D block mask; grouped "
@@ -117,31 +131,88 @@ def pack_entry(mask, block_shape, *, slack: float = 0.0, name: str = "?",
             f"PackState: layer {name!r} has ZERO active blocks — the "
             "block-sparse kernel would output all-zeros for it"
         )
-    width = slack_width(max(int(bm.sum(axis=0).max()), 1), nkb, slack)
-    row_width = slack_width(max(int(bm.sum(axis=1).max()), 1), nnb, slack)
+    width = slack_width(max(int(bm.sum(axis=0).max()), 1, min_width), nkb, slack)
+    row_width = slack_width(max(int(bm.sum(axis=1).max()), 1, min_row_width),
+                            nnb, slack)
     idx, cnt = pack_np(bm, width)
     ridx, rcnt = pack_np(bm.T, row_width)
     t = lambda a: torch.from_numpy(a).to(device or "cpu")
-    return {"idx": t(idx), "cnt": t(cnt), "ridx": t(ridx), "rcnt": t(rcnt),
-            "nnz": total, "nkb": nkb}
+    entry = {"idx": t(idx), "cnt": t(cnt), "ridx": t(ridx), "rcnt": t(rcnt),
+             "nnz": total, "nkb": nkb}
+    if bwd_mask is not None:
+        bbm = _block_np(bwd_mask, block_shape)
+        if np.any(bm & ~bbm):
+            raise PackIntegrityError(
+                f"PackState: layer {name!r} backward superset does not contain "
+                "its forward topology — wgrad would silently zero "
+                "forward-active blocks"
+            )
+        bwidth = slack_width(max(int(bbm.sum(axis=0).max()), 1, min_bwd_width),
+                             nkb, slack)
+        bidx, bcnt = pack_np(bbm, bwidth)
+        entry |= {"bidx": t(bidx), "bcnt": t(bcnt), "bnnz": int(bbm.sum())}
+    return entry
 
 
-def build_pack_state(masks, block_shape, *, slack: float = 0.0, device=None):
+def build_pack_state(masks, block_shape, *, slack: float = 0.0, device=None,
+                     prev=None, bwd_masks=None):
     """Mask tree -> PackState tree (same structure; entry or None leaves).
 
     Entries live on ``device`` (default: the mask's device), where the
-    kernels read them.
+    kernels read them.  ``prev``: a previous PackState whose widths are
+    floors (never shrink).  ``bwd_masks``: Top-KAST supersets mirroring
+    ``masks``; entries then carry the superset CSC (``bidx``/``bcnt``).
     """
     bk, bn = block_shape
 
-    def pack(name, m):
+    def pack(name, m, bw, pe):
         if (m is None or m.ndim != 2 or m.shape[0] % bk or m.shape[1] % bn
                 or not _dispatched(name)):
             return None
-        return pack_entry(m, block_shape, slack=slack, name=name,
-                          device=device)
+        floor = lambda k: int(pe[k].shape[-1]) if pe is not None and k in pe else 0
+        return pack_entry(m, block_shape, slack=slack, name=name, device=device,
+                          min_width=floor("idx"), min_row_width=floor("ridx"),
+                          bwd_mask=bw, min_bwd_width=floor("bidx"))
 
-    return tree_map(pack, masks)
+    none = tree_map(lambda *_: None, masks)
+    return tree_map(pack, masks, none if bwd_masks is None else bwd_masks,
+                    none if prev is None else prev)
+
+
+def refresh_pack_state(masks, block_shape, *, prev, slack: float = 0.0,
+                       bwd_masks=None, device=None):
+    """Re-pack after a topology update (right after every RigL update).
+    ``prev`` is required: widths never shrink, as in the reference."""
+    return build_pack_state(masks, block_shape, slack=slack, device=device,
+                            prev=prev, bwd_masks=bwd_masks)
+
+
+def pack_mismatch(masks, pack, block_shape, bwd_masks=None) -> torch.Tensor:
+    """#blocks where the pack disagrees with the masks (and, for entries
+    with a superset view, with ``bwd_masks``), as a 0-d int32 tensor on the
+    masks' device, computed without a host sync.  Nonzero means a topology
+    update ran without ``refresh_pack_state``: the kernels would execute a
+    stale topology."""
+    from ..kernels.block_sparse_matmul import unpack_block_mask
+
+    total = []
+
+    def count(name, m, e, bw):
+        if e is None or m is None:
+            return None
+        bm = block_mask_of(m, block_shape)
+        total.append((unpack_block_mask(e["idx"], e["cnt"], bm.shape[0]) != bm).sum())
+        if bw is not None and "bidx" in e:
+            bbm = block_mask_of(bw, block_shape)
+            total.append((unpack_block_mask(e["bidx"], e["bcnt"], bbm.shape[0])
+                          != bbm).sum())
+        return None
+
+    none = tree_map(lambda *_: None, masks)
+    tree_map(count, masks, pack, none if bwd_masks is None else bwd_masks)
+    if not total:
+        return torch.zeros((), dtype=torch.int32)
+    return torch.stack(total).sum().to(torch.int32)
 
 
 def pack_entries(pack, prefix=""):
@@ -163,8 +234,10 @@ def validate_pack(pack, *, where: str = "pack") -> int:
     Per entry: ``cnt`` matches ``idx`` minus its width dim (same for
     ``rcnt``/``ridx``), the CSR has ``nkb`` rows, counts lie in
     ``[0, width]``, every live index lies inside the block grid, and
-    ``sum(cnt) == nnz == sum(rcnt)``.  Raises ``PackIntegrityError`` naming
-    the layer; returns the number of entries checked.
+    ``sum(cnt) == nnz == sum(rcnt)``.  A superset view (``bidx``/``bcnt``)
+    is held to the same invariants, to ``sum(bcnt) == bnnz >= nnz`` and to
+    containing every forward-active block.  Raises ``PackIntegrityError``
+    naming the layer; returns the number of entries checked.
     """
     if pack is None:
         return 0
@@ -209,5 +282,29 @@ def validate_pack(pack, *, where: str = "pack") -> int:
         if csum != nnz or rsum != nnz:
             fail(f"nnz inconsistency: sum(cnt)={csum}, sum(rcnt)={rsum}, "
                  f"recorded nnz={nnz}")
+        if "bidx" in e:  # Top-KAST superset CSC: same invariants, wider view
+            bidx, bcnt = (torch.as_tensor(e[k]).cpu().numpy() for k in ("bidx", "bcnt"))
+            bnnz, bwidth = int(e["bnnz"]), bidx.shape[-1]
+            if bidx.shape[:-1] != bcnt.shape:
+                fail(f"bidx {bidx.shape} does not extend bcnt {bcnt.shape}")
+            if bcnt.size and (bcnt.min() < 0 or bcnt.max() > bwidth):
+                fail(f"bcnt out of range [0, bwidth={bwidth}] (max {int(bcnt.max())})")
+            blive = np.arange(bwidth) < bcnt[..., None]
+            if np.any(blive & ((bidx < 0) | (bidx >= nkb))):
+                fail(f"live superset index outside the K-block grid [0, {nkb})")
+            if int(bcnt.sum()) != bnnz:
+                fail(f"superset nnz inconsistency: sum(bcnt)={int(bcnt.sum())}, "
+                     f"recorded bnnz={bnnz}")
+            if bnnz < nnz:
+                fail(f"superset smaller than forward topology (bnnz={bnnz} < "
+                     f"nnz={nnz}) — B must contain A")
+            # containment: padded slots scatter into a dummy trailing column
+            fwd = np.zeros((*cnt.shape, nkb + 1), bool)
+            np.put_along_axis(fwd, np.where(live, idx, nkb), live, axis=-1)
+            sup = np.zeros((*bcnt.shape, nkb + 1), bool)
+            np.put_along_axis(sup, np.where(blive, bidx, nkb), blive, axis=-1)
+            if np.any(fwd[..., :nkb] & ~sup[..., :nkb]):
+                fail("forward-active block missing from the backward superset "
+                     "CSC — B does not contain A")
         checked += 1
     return checked

@@ -23,7 +23,7 @@ __all__ = ["KERNELS", "build", "load", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-KERNELS = ("block_sparse_fwd", "flash_fwd")
+KERNELS = ("block_sparse_fwd", "block_sparse_bwd", "flash_fwd", "flash_bwd")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

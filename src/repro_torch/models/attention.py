@@ -163,8 +163,7 @@ def attention(p, x, cfg, *, kind: str = "global", positions=None, masks=None,
         )
     else:
         raise ValueError(f"unknown sparse.attn_kernel {attn_kernel!r}")
-    out = linear(p["wo"], o.reshape(B, S, -1), compute_dtype(cfg),
-                 **_linear_kw(cfg, masks, "wo", pack))
+    out = linear(p["wo"], o.reshape(B, S, -1), **_linear_kw(cfg, masks, "wo", pack))
     return out, (k, v)
 
 
@@ -247,6 +246,5 @@ def attn_decode(p, x_t, cache, pos, cfg, *, kind: str = "global", masks=None,
         valid = (arange <= int(pos))[None, :]
     o = _softmax_attend(q, cache["k"], cache["v"],
                         valid[:, None, None, None, :], cfg)
-    out = linear(p["wo"], o.reshape(B, 1, -1), compute_dtype(cfg),
-                 **_linear_kw(cfg, masks, "wo", pack))
+    out = linear(p["wo"], o.reshape(B, 1, -1), **_linear_kw(cfg, masks, "wo", pack))
     return out, cache

@@ -24,6 +24,7 @@ __all__ = [
     "linear",
     "rmsnorm_init",
     "rmsnorm",
+    "assert_total_dispatch",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -106,3 +107,31 @@ def rmsnorm(p, x, eps: float = 1e-6):
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
+
+
+def assert_total_dispatch(masks, *, kernel=None, where: str = "?", pack=None):
+    """Loud guard against a silent fallback of the weight gradients (the
+    reference's ``layers.assert_total_dispatch`` with ``require_bwd``).
+
+    Under kernel dispatch with backward supersets (rigl), every mask leaf's
+    ``pack`` entry must carry the superset view ``bidx``, so its weight
+    gradient runs on the superset's blocks (the grow scores' channel) and
+    not on the forward topology.  The reference's per-submodule mode (every
+    mask leaf consumed by a dispatched matmul) belongs with the model
+    families that need it (MoE, xLSTM, hymba), not ported yet.
+    """
+    if masks is None or kernel in (None, "dense"):
+        return
+    from ..core.masks import tree_map
+
+    missing = []
+    tree_map(lambda n, m, e: missing.append(n) if m is not None and not (
+        isinstance(e, dict) and "bidx" in e) else None,
+        masks, pack if pack is not None else tree_map(lambda *_: None, masks))
+    if missing:
+        raise RuntimeError(
+            f"{where}: mask leaves {sorted(missing)} have no backward-superset "
+            "pack view (bidx): their weight gradient would fall back to the "
+            "forward topology instead of the (k+Δ) superset; rebuild the "
+            "pack with bwd_masks= (core/pack.py)"
+        )

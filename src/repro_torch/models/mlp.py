@@ -1,5 +1,6 @@
 """Feed-forward block (SwiGLU) of the port: ``models/mlp.py`` of the JAX
-package, with every projection through ``layers.linear``."""
+package, with every projection through ``layers.linear`` in the input's
+dtype (the f32 residual stream's, as in the reference)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
@@ -21,7 +22,7 @@ def mlp_init(gen, d: int, d_ff: int, kind: str = "swiglu", *,
 
 
 def mlp(p, x, kind: str = "swiglu", *, masks=None, kernel=None,
-        block=(128, 128, 128), pack=None, compute_dtype=None):
+        block=(128, 128, 128), pack=None):
     """SwiGLU: wo(silu(wg x) * wi x).  ``pack`` mirrors ``masks`` and sizes
     the block-sparse kernel's loops to the true active-block count."""
     if kind != "swiglu":
@@ -34,6 +35,6 @@ def mlp(p, x, kind: str = "swiglu", *, masks=None, kernel=None,
             pack=None if pack is None else pack[name]["w"],
         )
 
-    h = linear(p["wi"], x, compute_dtype, **kw("wi"))
-    h = F.silu(linear(p["wg"], x, compute_dtype, **kw("wg"))) * h
-    return linear(p["wo"], h, compute_dtype, **kw("wo"))
+    h = linear(p["wi"], x, **kw("wi"))
+    h = F.silu(linear(p["wg"], x, **kw("wg"))) * h
+    return linear(p["wo"], h, **kw("wo"))

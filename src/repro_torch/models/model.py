@@ -1,23 +1,27 @@
-"""Dense-family transformer LM of the port: init, prefill and decode.
+"""Dense-family transformer LM of the port: init, loss, prefill and decode.
 
-Port of the JAX package's ``models/model.py`` for serving the transformer
-family (h2o-danube-1.8b).  Every weight matmul goes through
-``layers.linear`` (the block-sparse kernel under
-``cfg.sparse.kernel='block_sparse'``), prefill attention through the flash
-kernel, decode attention and the LM head are plain PyTorch.
+Port of the JAX package's ``models/model.py`` for training and serving the
+transformer family (h2o-danube-1.8b).  Every weight matmul goes through
+``layers.linear`` (the block-sparse kernels under
+``cfg.sparse.kernel='block_sparse'``, forward and backward), full-sequence
+attention through the flash kernels, decode attention and the LM head are
+plain PyTorch.  ``lm_loss`` is differentiable; with ``cfg.remat`` each
+group of ``cfg.remat_group`` blocks is a ``torch.utils.checkpoint`` region
+(the reference's ``jax.checkpoint``): it changes memory, not numbers.
 
 Dtypes follow the reference's actual flow: the embedding is gathered in the
 compute dtype and scaled by sqrt(d_model) into an f32 residual stream
 (NumPy's float64 scalar promotes it there in the reference), rmsnorm keeps
-the residual's dtype, and the LM head runs in the residual's f32.  One
-deliberate difference: every projection of attention AND the MLP runs in
-``cfg.dtype``; the reference's MLP inherits the f32 residual, while the
-block-sparse CUDA kernel takes bf16.
+the residual's dtype, the attention projections cast to ``cfg.dtype`` (and
+``wo`` inherits the attention output's dtype), while the MLP and the LM head
+inherit the residual's f32.  Under a bf16 config the MLP's block-sparse
+matmuls therefore run in f32, forward and backward, as in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as A
@@ -37,6 +41,7 @@ __all__ = [
     "init_lm",
     "serving_weights",
     "lm_forward",
+    "lm_loss",
     "init_caches",
     "lm_prefill",
     "lm_prefill_into",
@@ -96,20 +101,17 @@ def init_lm(cfg, seed: int = 0, *, device=None):
 
 
 def serving_weights(params, cfg):
-    """The params with the embedding table and every attention/MLP weight
-    cast to the compute dtype, ONCE.  The reference casts the f32 masters
-    inside every call (``layers.linear``, the embedding gather); casting once
-    gives the same bits without re-reading f32 weights on every decode
-    step.  Norm scales and the LM head stay f32: the reference computes them
-    in the f32 residual's dtype."""
+    """The params with the embedding table and the attention weights cast to
+    the compute dtype, ONCE.  The reference casts the f32 masters inside
+    every call (``layers.linear``, the embedding gather); casting once gives
+    the same bits without re-reading f32 weights on every decode step.  The
+    MLP weights, norm scales and the LM head stay f32: the reference
+    computes them in the f32 residual's dtype."""
     dt = compute_dtype(cfg)
     out = dict(params)
     out["embed"] = {"table": params["embed"]["table"].to(dt)}
     out["layers"] = [
-        dict(lp, **{
-            sub: {name: {"w": w["w"].to(dt)} for name, w in lp[sub].items()}
-            for sub in ("attn", "mlp")
-        })
+        dict(lp, attn={name: {"w": w["w"].to(dt)} for name, w in lp["attn"].items()})
         for lp in params["layers"]
     ]
     return out
@@ -141,7 +143,6 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None):
         p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.mlp_kind,
         masks=_sub(masks, "mlp"), kernel=cfg.sparse.kernel,
         block=cfg.sparse.kernel_block, pack=_sub(pack, "mlp"),
-        compute_dtype=compute_dtype(cfg),
     )
     return x + ff_out, kv
 
@@ -151,24 +152,68 @@ def _logits(params, cfg, h):
     if cfg.final_softcap:
         c = cfg.final_softcap
         out = c * torch.tanh(out / c)
-    if out.shape[-1] != cfg.vocab_size:  # mask vocab-padding slots
-        out[..., cfg.vocab_size:] = -1e30
+    pad = out.shape[-1] - cfg.vocab_size
+    if pad:  # mask vocab-padding slots (out of place: autograd may need out)
+        out = torch.cat([out[..., :cfg.vocab_size],
+                         out.new_full((*out.shape[:-1], pad), -1e30)], dim=-1)
     return out
 
 
-def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None):
-    """Full-sequence forward -> (hidden (B, S, d), per-layer (k, v))."""
+def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
+               collect_states: bool = True):
+    """Full-sequence forward -> (hidden (B, S, d), per-layer (k, v)).
+
+    Without ``collect_states`` (the loss) and with ``cfg.remat`` under
+    autograd, each group of ``cfg.remat_group`` blocks runs as one
+    checkpoint region: only its input is saved and its forward reruns in
+    the backward (so the forward kernels launch twice per step).  The
+    states list is then empty, as in the reference."""
     _check_ported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
+    layers = list(zip(params["layers"], _per_layer(masks, cfg), _per_layer(pack, cfg)))
     states = []
-    for i, (p, m, pk) in enumerate(zip(params["layers"], _per_layer(masks, cfg),
-                                       _per_layer(pack, cfg))):
-        x, kv = _block(p, x, cfg, i, positions=positions, masks=m, pack=pk)
-        states.append(kv)
+    if cfg.remat and not collect_states and torch.is_grad_enabled():
+        g = max(cfg.remat_group, 1)
+
+        def region(i0, x_):
+            for j, (p, m, pk) in enumerate(layers[i0:i0 + g]):
+                x_, _ = _block(p, x_, cfg, i0 + j, positions=positions, masks=m, pack=pk)
+            return x_
+
+        for i0 in range(0, cfg.n_layers, g):
+            x = checkpoint(region, i0, x, use_reentrant=False)
+    else:
+        for i, (p, m, pk) in enumerate(layers):
+            x, kv = _block(p, x, cfg, i, positions=positions, masks=m, pack=pk)
+            if collect_states:
+                states.append(kv)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), states
+
+
+def lm_loss(params, cfg, batch, masks=None, pack=None):
+    """Mean next-token cross-entropy (chunked over the sequence by
+    ``cfg.loss_chunks`` to bound the logits buffer), as the reference's
+    ``lm_loss``.  With ``masks`` the params are RAW and the topology is
+    enforced inside the kernels, so autograd of this w.r.t. the params
+    yields the sparse (or superset-supported) gradient directly."""
+    h, _ = lm_forward(params, cfg, batch, masks=masks, pack=pack,
+                      collect_states=False)
+    targets = batch["targets"]
+    B, S, _ = h.shape
+    n_chunks = max(1, cfg.loss_chunks)
+    if S % n_chunks:
+        raise ValueError(f"lm_loss: seq {S} does not split into {n_chunks} chunks")
+    step = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, S, step):
+        logits = _logits(params, cfg, h[:, s:s + step])
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, targets[:, s:s + step, None].long())[..., 0]
+        total = total + (lse - picked).sum()
+    return total / (B * S)
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
@@ -236,6 +281,5 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
             p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.mlp_kind,
             masks=_sub(m, "mlp"), kernel=cfg.sparse.kernel,
             block=cfg.sparse.kernel_block, pack=_sub(pk, "mlp"),
-            compute_dtype=compute_dtype(cfg),
         )
     return _logits(params, cfg, rmsnorm(params["ln_f"], x, cfg.norm_eps)), caches

@@ -147,7 +147,9 @@ def test_bridge_round_trips(jax_state):
     back = bridge.pack_flat_of(tk)
     assert back.keys() == flat_k.keys()
     for n, e in back.items():
-        assert set(e) == {"idx", "cnt", "ridx", "rcnt", "nnz", "nkb"}
+        # the reference's rigl state carries the Top-KAST superset view too
+        assert set(e) == {"idx", "cnt", "ridx", "rcnt", "nnz", "nkb",
+                          "bidx", "bcnt", "bnnz"}
         for k, v in e.items():
             np.testing.assert_array_equal(v, flat_k[n][k], err_msg=f"{n}/{k}")
     assert validate_pack(tk) == len(flat_k)
@@ -179,4 +181,61 @@ def test_validate_pack_rejects_truncation():
     e["cnt"] = e["cnt"].clone()
     e["cnt"][0] = e["idx"].shape[1] + 1
     with pytest.raises(PackIntegrityError, match="truncated|out of range"):
+        validate_pack(pack)
+
+
+def test_superset_pack_and_refresh_match_reference(jax_state):
+    """The Top-KAST superset view: packing the reference's masks and
+    backward supersets gives its bidx/bcnt/bnnz; a refresh after a layer
+    loses blocks keeps every width (never shrink) as the reference's does;
+    and validate_pack / pack_entry reject a superset that misses a forward
+    block."""
+    from repro.core.pack import refresh_pack_state as j_refresh
+
+    from repro_torch.core.pack import pack_entry, refresh_pack_state
+
+    _, st, _ = jax_state
+    flat_m = {n: np.asarray(v) for n, v in j_tree_paths(st["masks"]).items()}
+    flat_b = {n: np.asarray(v) for n, v in j_tree_paths(st["bwd_masks"]).items()}
+    tp = bridge.params_from_flat(
+        {n: np.asarray(v) for n, v in j_tree_paths(st["params"]).items()}, "cpu")
+    masks = bridge.masks_from_flat(flat_m, tp, "cpu")
+    bwd = bridge.masks_from_flat(flat_b, tp, "cpu")
+    keys = ("idx", "cnt", "ridx", "rcnt", "nnz", "nkb", "bidx", "bcnt", "bnnz")
+
+    def same(got, want):
+        assert got.keys() == want.keys() and got
+        for name, e in want.items():
+            for k in keys:
+                np.testing.assert_array_equal(got[name][k], e[k], err_msg=f"{name}/{k}")
+
+    pack = build_pack_state(masks, (BLOCK, BLOCK), bwd_masks=bwd)
+    same(bridge.pack_flat_of(pack), _jax_pack_flat(st["pack"]))
+
+    # layer 0's MLP input projection keeps only its first active block row
+    name = "layers/0/mlp/wi/w"
+    m = flat_m[name].copy()
+    rows = np.flatnonzero(m.reshape(m.shape[0] // BLOCK, BLOCK, -1).any(axis=(1, 2)))
+    m[(rows[0] + 1) * BLOCK:] = False
+    j_masks = jax.tree_util.tree_map(lambda x: x, st["masks"])
+    j_masks["layers"][0]["mlp"]["wi"]["w"] = m
+    want = _jax_pack_flat(j_refresh(j_masks, (BLOCK, BLOCK), prev=st["pack"],
+                                    bwd_masks=st["bwd_masks"]))
+    t_masks = bridge.masks_from_flat(dict(flat_m, **{name: m}), tp, "cpu")
+    got = refresh_pack_state(t_masks, (BLOCK, BLOCK), prev=pack, bwd_masks=bwd)
+    same(bridge.pack_flat_of(got), want)
+    e_old, e_new = dict(pack_entries(pack))[name], dict(pack_entries(got))[name]
+    assert all(e_new[k].shape == e_old[k].shape for k in ("idx", "ridx", "bidx"))
+
+    with pytest.raises(PackIntegrityError, match="contain"):
+        pack_entry(flat_m[name], (BLOCK, BLOCK), bwd_mask=np.zeros_like(flat_m[name]))
+    e = dict(pack_entries(pack))[name]
+    j = int(np.flatnonzero(e["cnt"].numpy())[0])
+    live = set(e["idx"][j, :int(e["cnt"][j])].tolist())
+    outside = next(b for b in range(e["nkb"]) if b not in live
+                   and b not in e["bidx"][j, :int(e["bcnt"][j])].tolist())
+    s = int(np.flatnonzero(np.isin(e["bidx"][j].numpy(), list(live)))[0])
+    e["bidx"] = e["bidx"].clone()
+    e["bidx"][j, s] = outside
+    with pytest.raises(PackIntegrityError, match="B does not contain A"):
         validate_pack(pack)

@@ -7,7 +7,8 @@ imports JAX.  ``params_from_flat`` rebuilds the params tree,
 ``masks_from_flat`` and ``pack_from_flat`` rebuild trees that mirror it
 (``None`` where the reference has no mask or entry; pack entries keep the
 Top-KAST superset view ``bidx``/``bcnt``/``bnnz`` when the reference's
-carry one).  ``train_state_from_flat`` assembles a whole train state
+carry one, and the masked kernel's ``{"bwd_mask": B}`` carrier entries
+come across as bool tensors).  ``train_state_from_flat`` assembles a whole train state
 (params, masks, backward supersets, pack, optimizer state, step and the
 non-finite counter).  ``flat_of`` and ``pack_flat_of`` go the other way, so
 the tests can round-trip a state.
@@ -48,11 +49,17 @@ def _unflatten(flat: Mapping[str, Any]):
     return listify(root)
 
 
+def _tensor(a) -> torch.Tensor:
+    """numpy array -> tensor; bf16 arrays (ml_dtypes) keep their bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_flat(flat: Mapping[str, np.ndarray], device):
     """{path_name: array} -> params tree of tensors on ``device``."""
-    return _unflatten({
-        n: torch.from_numpy(np.array(a)).to(device) for n, a in flat.items()
-    })
+    return _unflatten({n: _tensor(a).to(device) for n, a in flat.items()})
 
 
 def masks_from_flat(flat: Mapping[str, np.ndarray], params, device):
@@ -66,12 +73,15 @@ def masks_from_flat(flat: Mapping[str, np.ndarray], params, device):
 
 def pack_from_flat(flat: Mapping[str, Mapping[str, Any]], params, device):
     """{path_name: reference pack entry} -> PackState tree mirroring
-    ``params`` (int32 tensors on ``device``; nnz and nkb as ints)."""
+    ``params`` (int32 tensors on ``device``; nnz and nkb as ints; a
+    carrier's ``bwd_mask`` as a bool tensor)."""
 
     def entry(n, _):
         e = flat.get(n)
         if e is None:
             return None
+        if "bwd_mask" in e:
+            return {"bwd_mask": torch.from_numpy(np.array(e["bwd_mask"], bool)).to(device)}
         out = {k: torch.from_numpy(np.array(e[k], np.int32)).to(device)
                for k in _PACK_ARRAYS if k in e}
         out.update({k: int(e[k]) for k in _PACK_INTS if k in e})
@@ -84,8 +94,9 @@ def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
                           step: int = 0, nonfinite_steps: int = 0, seed: int = 0,
                           device):
     """A reference train state, flattened, -> the port's train state
-    (``training/steps.py`` layout).  ``opt`` is ``{"momentum": flat}`` (sgd)
-    or ``{"m": flat, "v": flat, "count": int}`` (adam); ``seed`` seeds the
+    (``training/steps.py`` layout).  ``opt`` is ``{"momentum": flat}`` (sgd,
+    f32 or bf16 arrays: the dtype comes across) or ``{"m": flat, "v": flat,
+    "count": int}`` (adam); ``seed`` seeds the
     port's own later draws (supersets, masks), which are not the
     reference's threefry streams."""
     p = params_from_flat(params, device)
@@ -106,8 +117,10 @@ def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
 
 
 def flat_of(tree) -> dict[str, np.ndarray]:
-    """Tree of tensors -> {path_name: numpy array} (None leaves dropped)."""
-    return {n: t.detach().cpu().numpy() for n, t in tree_paths(tree).items()}
+    """Tree of tensors -> {path_name: numpy array} (None leaves dropped;
+    bf16 tensors as float32 arrays, which hold their values exactly)."""
+    return {n: (t.detach().float() if t.dtype == torch.bfloat16 else t.detach())
+            .cpu().numpy() for n, t in tree_paths(tree).items()}
 
 
 def pack_flat_of(pack) -> dict[str, dict[str, Any]]:

@@ -5,8 +5,9 @@ Own copies of ``SparseConfig``, ``validate_sparse_kernel`` and
 with the same defaults, so one configuration means the same model in both
 packages and the parity tests can build both from one set of arguments.
 The docstrings describe the reference's TPU execution paths; the port runs
-``kernel='dense'`` and ``kernel='block_sparse'`` (hand-written CUDA kernel,
-``kernels/block_sparse_matmul.py``) and every ``attn_kernel`` value (the
+every ``kernel`` value (hand-written CUDA kernels:
+``kernels/block_sparse_matmul.py``, ``kernels/masked_matmul.py``), the fused
+epilogue under ``kernel='masked'`` and every ``attn_kernel`` value (the
 flash modes through ``kernels/flash_attention.py``).
 """
 from __future__ import annotations

@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "path_name",
+    "flat_index",
     "tree_paths",
     "tree_map",
     "random_mask",
@@ -48,6 +49,13 @@ def _walk(tree, prefix: tuple) -> Iterator[tuple[tuple, Any]]:
 def tree_paths(tree) -> dict[str, Any]:
     """Flatten a tree into {path_string: leaf}; ``None`` leaves vanish."""
     return {path_name(p): v for p, v in _walk(tree, ()) if v is not None}
+
+
+def flat_index(tree) -> dict[str, int]:
+    """{path_name: i}, i the leaf's position in the reference's
+    ``jax.tree_util.tree_flatten(tree, is_leaf=lambda x: x is None)``:
+    sorted dict keys, list order, ``None`` leaves counted."""
+    return {path_name(p): i for i, (p, _) in enumerate(_walk(tree, ()))}
 
 
 def tree_map(fn: Callable, tree, *rest, is_leaf=None, _prefix: tuple = ()):

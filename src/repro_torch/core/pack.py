@@ -24,7 +24,10 @@ elsewhere), the same keys as the reference:
    "bcnt": (N/bn,) int32,
    "bnnz": int}
 
-Grouped (3-D) banks belong to model families the port does not run yet.
+Under kernel='masked' the masks need no packing: the Top-KAST superset
+rides along as the carrier ``{"bwd_mask": bool (K, N)}`` per dispatched
+leaf (``build_bwd_carrier``).  Grouped (3-D) banks belong to model families
+the port does not run yet.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from .masks import block_mask_of, tree_map
 
 __all__ = [
     "PackIntegrityError",
+    "build_bwd_carrier",
     "build_pack_state",
     "is_pack_entry",
     "pack_entry",
@@ -58,7 +62,10 @@ class PackIntegrityError(ValueError):
 
 
 def is_pack_entry(x) -> bool:
-    return x is None or (isinstance(x, dict) and "idx" in x and "cnt" in x)
+    """Leaf predicate of pack trees: None, a block-sparse entry, the masked
+    kernel's superset carrier, or a fused-epilogue entry (``"mom"``)."""
+    return x is None or (isinstance(x, dict) and (
+        ("idx" in x and "cnt" in x) or "bwd_mask" in x or "mom" in x))
 
 
 def _dispatched(name: str) -> bool:
@@ -179,6 +186,16 @@ def build_pack_state(masks, block_shape, *, slack: float = 0.0, device=None,
                     none if prev is None else prev)
 
 
+def build_bwd_carrier(bwd_masks):
+    """Backward supersets -> the masked kernel's carrier pack (the
+    reference's ``core/pack.py::build_bwd_carrier``): ``{"bwd_mask": B}``
+    for every dispatched leaf (the same bool tensor, not a copy), ``None``
+    elsewhere; ``layers.linear`` routes such an entry to the Top-KAST
+    masked VJP."""
+    return tree_map(lambda n, m: None if m is None or not _dispatched(n)
+                    else {"bwd_mask": m.bool()}, bwd_masks)
+
+
 def refresh_pack_state(masks, block_shape, *, prev, slack: float = 0.0,
                        bwd_masks=None, device=None):
     """Re-pack after a topology update (right after every RigL update).
@@ -236,8 +253,9 @@ def validate_pack(pack, *, where: str = "pack") -> int:
     ``[0, width]``, every live index lies inside the block grid, and
     ``sum(cnt) == nnz == sum(rcnt)``.  A superset view (``bidx``/``bcnt``)
     is held to the same invariants, to ``sum(bcnt) == bnnz >= nnz`` and to
-    containing every forward-active block.  Raises ``PackIntegrityError``
-    naming the layer; returns the number of entries checked.
+    containing every forward-active block.  A masked carrier entry is held
+    to a bool ``bwd_mask``.  Raises ``PackIntegrityError`` naming the
+    layer; returns the number of entries checked.
     """
     if pack is None:
         return 0
@@ -251,6 +269,11 @@ def validate_pack(pack, *, where: str = "pack") -> int:
                 "block-sparse kernel would execute a corrupted topology"
             )
 
+        if "bwd_mask" in e and "idx" not in e:  # masked carrier: no CSC fields
+            if e["bwd_mask"].dtype != torch.bool:
+                fail("bwd_mask carrier is not a bool tensor")
+            checked += 1
+            continue
         for k in ("idx", "cnt", "ridx", "rcnt", "nnz", "nkb"):
             if k not in e:
                 fail(f"entry is missing field {k!r}")

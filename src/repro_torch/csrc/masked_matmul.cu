@@ -1,0 +1,328 @@
+// Masked matmul with the elementwise mask fused in, forward and backward:
+// K13, K14, K15 and the fused SGD wgrad epilogue K19.
+//
+// Replaces four TPU kernels of repro/kernels/masked_matmul.py:
+//   K13 _fwd_kernel (pallas_call in _fwd_call)     y  = x @ (w * m)
+//   K14 _dx_kernel (_dx_call)                      dx = g @ (w * m)^T
+//   K15 _dw_kernel (_dw_call)                      dw = (x^T @ g) * m
+//   K19 _dw_fused_kernel (_dw_fused_call)          m_new = (mu * mom + x^T @ g
+//                                                   + wd * w) * m, optionally
+//                                                   stochastically rounded to
+//                                                   the bf16 grid (sr_to_bf16)
+// m is a bool (one byte, 0 or 1) mask of w's shape (K, N): any pattern.
+//
+// Design.  The masked weight never exists in device memory: each kernel
+// stages a slab of w and the same slab of m, multiplies them while writing
+// the slab to shared memory (v * float(m), as the reference's
+// w * m.astype(w.dtype): an inf or NaN weight under a zero mask gives NaN),
+// and feeds the product to the tile MMA (tile_mma.cuh: wmma for bf16,
+// full-precision FFMA for f32, f32 accumulation, one rounding to the output
+// type).  K14 stages the masked slab transposed, as K2 stages W^T.  K15 and
+// K19 apply the mask at the store.  No atomics, every sum in a fixed order:
+//  * K13: one CTA per (bn-column tile, bm-row tile), looping over all K in
+//    slabs of 32 (16 when K is not a multiple of 32);
+//  * K14: one CTA per (bk-column tile of dx, bm-row tile), looping over N;
+//  * K15/K19: one CTA per (bk x bn) tile of dw, looping over all M rows in
+//    one CTA (the TPU kernel carried the sum across its innermost grid axis).
+// K19's epilogue reads mom and w at the store; with sr it hashes the
+// element's id gid = row * N + col (wrapping uint32; N is the padded width
+// the wrapper hands in) with the seed, as the reference's sr_to_bf16.
+//
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s f32 FFMA):
+// decode (16 padded rows) reads every weight and its mask byte once, far
+// below the ridge: bytes bound it.  The training shapes (M = 2048) do the
+// dense work, 2 * M * K * N flops per call: in bf16 near the ridge, in f32
+// (the reference's MLP) the FFMA peak bounds them.  This first version uses
+// synchronous loads and wmma/FFMA (no cp.async/TMA pipeline, no wgmma);
+// its times against the bound are in PERF.md.
+#include "common.cuh"
+#include "tile_mma.cuh"
+
+namespace {
+
+template <int Per> struct MaskVec;
+template <> struct MaskVec<8> { using V = uint2; };
+template <> struct MaskVec<4> { using V = unsigned int; };
+
+template <typename T>
+__device__ inline T masked(T v, uint8_t m) {
+  return tile::from_float<T>(tile::to_float(v) * static_cast<float>(m));
+}
+
+// dst[r * ldd + c] = src[r * lds + c] * msk[r * lds + c]; 16 bytes of src
+// and 16 / sizeof(T) mask bytes per thread per step.
+template <typename T>
+__device__ inline void stage_masked_rows(T* dst, int ldd, const T* src,
+                                         const uint8_t* msk, size_t lds,
+                                         int rows, int cols) {
+  constexpr int per = 16 / sizeof(T);
+  using MV = typename MaskVec<per>::V;
+  const int vpr = cols / per;
+  for (int t = threadIdx.x; t < rows * vpr; t += tile::kThreads) {
+    const int r = t / vpr, c = (t % vpr) * per;
+    uint4 raw = *reinterpret_cast<const uint4*>(src + r * lds + c);
+    const MV mv = *reinterpret_cast<const MV*>(msk + r * lds + c);
+    T* vals = reinterpret_cast<T*>(&raw);
+    const uint8_t* mb = reinterpret_cast<const uint8_t*>(&mv);
+#pragma unroll
+    for (int e = 0; e < per; ++e) vals[e] = masked(vals[e], mb[e]);
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) = raw;
+  }
+}
+
+// Transposed: dst[c * ldd + r] = src[r * lds + c] * msk[r * lds + c].
+template <typename T>
+__device__ inline void stage_masked_cols(T* dst, int ldd, const T* src,
+                                         const uint8_t* msk, size_t lds,
+                                         int rows, int cols) {
+  constexpr int per = 16 / sizeof(T);
+  using MV = typename MaskVec<per>::V;
+  const int vpr = cols / per;
+  for (int t = threadIdx.x; t < rows * vpr; t += tile::kThreads) {
+    const int r = t / vpr, c = (t % vpr) * per;
+    uint4 raw = *reinterpret_cast<const uint4*>(src + r * lds + c);
+    const MV mv = *reinterpret_cast<const MV*>(msk + r * lds + c);
+    const T* vals = reinterpret_cast<const T*>(&raw);
+    const uint8_t* mb = reinterpret_cast<const uint8_t*>(&mv);
+#pragma unroll
+    for (int e = 0; e < per; ++e) dst[(c + e) * ldd + r] = masked(vals[e], mb[e]);
+  }
+}
+
+// The reference's sr_to_bf16 on one f32 value (uint32 arithmetic wraps).
+__device__ inline float sr_to_bf16(float v, unsigned seed, unsigned gid) {
+  if (!isfinite(v)) return v;
+  unsigned h = gid ^ seed;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  const unsigned bits = __float_as_uint(v);
+  return __uint_as_float((bits + (h & 0xFFFFu)) & 0xFFFF0000u);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tile::kThreads)
+masked_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                  const uint8_t* __restrict__ m, T* __restrict__ y, int K, int N,
+                  int bm, int bn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int xld = tile::kSlab + tile::pad<T>(), wld = bn + tile::pad<T>();
+  T* xs = reinterpret_cast<T*>(smem);  // bm x xld
+  T* ws = xs + bm * xld;               // kSlab x wld: the masked w slab
+  float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
+
+  const int n0 = blockIdx.x * bn, m0 = blockIdx.y * bm;
+  const int slab = (K % tile::kSlab == 0) ? tile::kSlab : 16;
+
+  tile::Acc<T> acc;
+  acc.zero();
+  for (int k0 = 0; k0 < K; k0 += slab) {
+    __syncthreads();  // the previous slab is consumed
+    tile::stage_rows(xs, xld, x + (size_t)m0 * K + k0, K, bm, slab);
+    stage_masked_rows(ws, wld, w + (size_t)k0 * N + n0, m + (size_t)k0 * N + n0, N,
+                      slab, bn);
+    __syncthreads();
+    acc.mma(xs, xld, ws, wld, bm, bn, slab);
+  }
+  acc.store(scratch, bm, bn, [&](int r, int c, float v) {
+    y[(size_t)(m0 + r) * N + n0 + c] = tile::from_float<T>(v);
+  });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tile::kThreads)
+masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
+                 const uint8_t* __restrict__ m, T* __restrict__ dx, int K, int N,
+                 int bm, int bk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int gld = tile::kSlab + tile::pad<T>(), wld = bk + tile::pad<T>();
+  T* gs = reinterpret_cast<T*>(smem);  // bm x gld
+  T* ws = gs + bm * gld;               // kSlab x wld: (w * m)^T slab
+  float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
+
+  const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm;
+  const int slab = (N % tile::kSlab == 0) ? tile::kSlab : 16;
+
+  tile::Acc<T> acc;
+  acc.zero();
+  for (int n0 = 0; n0 < N; n0 += slab) {
+    __syncthreads();
+    tile::stage_rows(gs, gld, g + (size_t)m0 * N + n0, N, bm, slab);
+    // ws[l][c] = w[k0 + c][n0 + l] * m[k0 + c][n0 + l]
+    stage_masked_cols(ws, wld, w + (size_t)k0 * N + n0, m + (size_t)k0 * N + n0, N,
+                      bk, slab);
+    __syncthreads();
+    acc.mma(gs, gld, ws, wld, bm, bk, slab);
+  }
+  acc.store(scratch, bm, bk, [&](int r, int c, float v) {
+    dx[(size_t)(m0 + r) * K + k0 + c] = tile::from_float<T>(v);
+  });
+}
+
+// x^T @ g over all Mp rows for the (bk x bn) tile at (k0, n0), in acc.
+template <typename T>
+__device__ inline void xtg_tile(tile::Acc<T>& acc, T* xs, T* gs, const T* x,
+                                const T* g, int Mp, int K, int N, int k0, int n0,
+                                int bn, int bk) {
+  const int xld = tile::kSlab + tile::pad<T>(), gld = bn + tile::pad<T>();
+  const int slab = (Mp % tile::kSlab == 0) ? tile::kSlab : 16;
+  acc.zero();
+  for (int i = 0; i < Mp; i += slab) {
+    __syncthreads();
+    // xs[r][l] = x[i + l][k0 + r]
+    tile::stage_cols(xs, xld, x + (size_t)i * K + k0, K, slab, bk);
+    tile::stage_rows(gs, gld, g + (size_t)i * N + n0, N, slab, bn);
+    __syncthreads();
+    acc.mma(xs, xld, gs, gld, bk, bn, slab);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tile::kThreads)
+masked_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                 const uint8_t* __restrict__ m, T* __restrict__ dw, int Mp, int K,
+                 int N, int bn, int bk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);               // bk x (kSlab + pad): x^T slab
+  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());  // kSlab x (bn + pad)
+  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
+  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+
+  tile::Acc<T> acc;
+  xtg_tile(acc, xs, gs, x, g, Mp, K, N, k0, n0, bn, bk);
+  acc.store(scratch, bk, bn, [&](int r, int c, float v) {
+    const size_t i = (size_t)(k0 + r) * N + n0 + c;
+    dw[i] = tile::from_float<T>(v * static_cast<float>(m[i]));
+  });
+}
+
+// K19: x, g and w in T, mom in TM, the new momentum in TO (w's type on the
+// training path; f32 lets a check read the value before its rounding).
+template <typename T, typename TM, typename TO>
+__global__ void __launch_bounds__(tile::kThreads)
+masked_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                       const uint8_t* __restrict__ wgm, const T* __restrict__ w,
+                       const TM* __restrict__ mom, TO* __restrict__ out, int Mp,
+                       int K, int N, int bn, int bk, unsigned seed, float mu,
+                       float wd, int sr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());
+  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
+  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+
+  tile::Acc<T> acc;
+  xtg_tile(acc, xs, gs, x, g, Mp, K, N, k0, n0, bn, bk);
+  acc.store(scratch, bk, bn, [&](int r, int c, float v) {
+    const size_t i = (size_t)(k0 + r) * N + n0 + c;
+    // (mu * mom + acc + wd * w) * m, left to right, no contraction: the
+    // reference's order of f32 operations
+    float mn = __fadd_rn(__fmul_rn(mu, tile::to_float(mom[i])), v);
+    mn = __fadd_rn(mn, __fmul_rn(wd, tile::to_float(w[i])));
+    mn = __fmul_rn(mn, static_cast<float>(wgm[i]));
+    if (sr) {
+      mn = sr_to_bf16(mn, seed, static_cast<unsigned>(k0 + r) * static_cast<unsigned>(N) +
+                                    static_cast<unsigned>(n0 + c));
+    }
+    out[i] = tile::from_float<TO>(mn);
+  });
+}
+
+template <typename T>
+size_t smem_bytes(int rows, int cols) {
+  return sizeof(T) * (rows * (tile::kSlab + tile::pad<T>()) +
+                      tile::kSlab * (cols + tile::pad<T>())) +
+         tile::epilogue_bytes<T>();
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* w, const void* m, void* y, int Mp, int K,
+               int N, int bm, int bn, void* stream) {
+  const dim3 grid(N / bn, Mp / bm);
+  masked_fwd_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bm, bn),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const uint8_t*>(m), static_cast<T*>(y), K, N, bm, bn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dx(const void* g, const void* w, const void* m, void* dx, int Mp, int K,
+              int N, int bm, int bk, void* stream) {
+  const dim3 grid(K / bk, Mp / bm);
+  masked_dx_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bm, bk),
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const T*>(w),
+      static_cast<const uint8_t*>(m), static_cast<T*>(dx), K, N, bm, bk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw(const void* x, const void* g, const void* m, void* dw, int Mp, int K,
+              int N, int bn, int bk, void* stream) {
+  const dim3 grid(N / bn, K / bk);
+  masked_dw_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bk, bn),
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const uint8_t*>(m), static_cast<T*>(dw), Mp, K, N, bn, bk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TM, typename TO>
+int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
+                 const void* mom, void* out, int Mp, int K, int N, int bn, int bk,
+                 unsigned seed, float mu, float wd, int sr, void* stream) {
+  const dim3 grid(N / bn, K / bk);
+  masked_dw_fused_kernel<T, TM, TO><<<grid, tile::kThreads, smem_bytes<T>(bk, bn),
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const uint8_t*>(wgm), static_cast<const T*>(w),
+      static_cast<const TM*>(mom), static_cast<TO*>(out), Mp, K, N, bn, bk, seed, mu,
+      wd, sr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Row-major operands in the entry's element type, m one byte per element
+// (0 or 1) of w's shape (K, N).  The wrappers check Mp % bm == 0,
+// N % bn == 0, K % bk == 0, K and N multiples of 16, bm, bn, bk multiples of
+// 16 in [16, 128], 16-byte alignment.
+#define MASKED_ENTRIES(S, T)                                                        \
+  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,       \
+                                void* y, int Mp, int K, int N, int bm, int bn,      \
+                                void* stream) {                                     \
+    return launch_fwd<T>(x, w, m, y, Mp, K, N, bm, bn, stream);                     \
+  }                                                                                 \
+  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,        \
+                               void* dx, int Mp, int K, int N, int bm, int bk,      \
+                               void* stream) {                                      \
+    return launch_dx<T>(g, w, m, dx, Mp, K, N, bm, bk, stream);                     \
+  }                                                                                 \
+  extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,        \
+                               void* dw, int Mp, int K, int N, int bn, int bk,      \
+                               void* stream) {                                      \
+    return launch_dw<T>(x, g, m, dw, Mp, K, N, bn, bk, stream);                     \
+  }
+
+MASKED_ENTRIES(bf16, __nv_bfloat16)
+MASKED_ENTRIES(f32, float)
+
+// K19: masked_dw_fused_<x/g/w type>_<mom type>_<output type>.
+#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                           \
+  extern "C" int masked_dw_fused_##S##_##SM##_##SO(                                 \
+      const void* x, const void* g, const void* wgm, const void* w,                 \
+      const void* mom, void* out, int Mp, int K, int N, int bn, int bk,             \
+      unsigned seed, float mu, float wd, int sr, void* stream) {                    \
+    return launch_fused<T, TM, TO>(x, g, wgm, w, mom, out, Mp, K, N, bn, bk, seed,  \
+                                   mu, wd, sr, stream);                             \
+  }
+
+FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+FUSED_ENTRY(bf16, __nv_bfloat16, f32, float, bf16, __nv_bfloat16)
+FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, f32, float)
+FUSED_ENTRY(bf16, __nv_bfloat16, f32, float, f32, float)
+FUSED_ENTRY(f32, float, bf16, __nv_bfloat16, f32, float)
+FUSED_ENTRY(f32, float, f32, float, f32, float)

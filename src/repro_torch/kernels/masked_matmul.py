@@ -1,0 +1,353 @@
+"""Masked matmul y = x @ (w * m) with an elementwise mask, forward and
+backward, and the fused SGD wgrad epilogue.
+
+Replaces four TPU kernels of ``repro/kernels/masked_matmul.py`` with
+hand-written CUDA kernels for Hopper (sm_90a), all in
+csrc/masked_matmul.cu (the design and its bound are described there):
+
+  K13 ``_fwd_kernel`` (``_fwd_call``)     y = x @ (w * m)
+  K14 ``_dx_kernel`` (``_dx_call``)       dx = g @ (w * m)^T
+  K15 ``_dw_kernel`` (``_dw_call``)       dw = (x^T @ g) * m
+  K19 ``_dw_fused_kernel`` (``_dw_fused_call``)
+        m_new = (mu * mom + x^T @ g + wd * w) * m, stochastically rounded
+        onto the bf16 grid (``sr_to_bf16``) when ``sr``
+
+Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
+reference's MLP computes in the f32 residual's dtype), accumulating in f32
+and rounding once to the output type.  The mask multiplies the weight (an
+inf weight under a zero mask gives NaN, as the reference's
+``w * m.astype(w.dtype)``); it is never a select.
+
+Every wrapper launches its kernel for CUDA tensors and takes its plain
+PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
+``dx_launches``, ``dw_launches`` and ``fused_launches`` count kernel
+launches.  ``MaskedMatmul``, ``TopkastMaskedMatmul`` and
+``FusedMaskedMatmul`` are the differentiable forms (the reference's custom
+VJPs ``_mm_fwd/_mm_bwd``, ``_tkm_fwd/_tkm_bwd`` and ``_fmm_fwd/_fmm_bwd``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .block_sparse_matmul import _SUFFIX, _stream, _suffix, matmul_error_bound
+
+__all__ = [
+    "FusedMaskedMatmul",
+    "MaskedMatmul",
+    "TopkastMaskedMatmul",
+    "dx_launches",
+    "dw_launches",
+    "fused_error_bound",
+    "fused_launches",
+    "launches",
+    "masked_dw",
+    "masked_dw_fused",
+    "masked_dw_fused_plain",
+    "masked_dw_plain",
+    "masked_dx",
+    "masked_dx_plain",
+    "masked_matmul",
+    "masked_matmul_plain",
+    "matmul_error_bound",
+    "sr_to_bf16",
+]
+
+# kernel launches since import (or since a caller reset them)
+launches = 0        # K13
+dx_launches = 0     # K14
+dw_launches = 0     # K15
+fused_launches = 0  # K19
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 ``a`` in [0, 2**32): split so that no
+    product leaves int64's range."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def sr_to_bf16(v: torch.Tensor, seed: int, gid: torch.Tensor) -> torch.Tensor:
+    """Stochastically round f32 values onto the bf16 grid (f32 result whose
+    values are bf16-representable); bit for bit the reference's
+    ``repro/kernels/masked_matmul.py::sr_to_bf16``.
+
+    A murmur-style finaliser of ``gid ^ seed`` supplies 16 uniform bits
+    added below the bf16 mantissa cut; truncation then lands on the lower or
+    upper bf16 neighbour with probability equal to the distance (a mantissa
+    carry moves into the exponent: the round-up to the next binade).
+    Non-finite values pass through.  ``seed``: an int, taken as uint32;
+    ``gid``: integer element ids (taken mod 2**32).  The uint32 arithmetic
+    runs in int64, masked to 32 bits after every step.
+    """
+    h = (gid.to(torch.int64) ^ (int(seed) & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    v32 = v.to(torch.float32)
+    bits = v32.view(torch.int32).to(torch.int64) & _M32
+    r = (bits + (h & 0xFFFF)) & 0xFFFF0000
+    r = torch.where(r >= 2**31, r - 2**32, r).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isfinite(v32), r, v32)
+
+
+def _gid(K: int, N: int, device) -> torch.Tensor:
+    """Element ids row * N + col of a (K, N) array (the reference's gid)."""
+    return (torch.arange(K, device=device, dtype=torch.int64)[:, None] * N
+            + torch.arange(N, device=device, dtype=torch.int64)[None, :])
+
+
+def masked_matmul_plain(x, w, mask):
+    """Plain K13: ``x @ (w * m)`` with f32 accumulation, rounded once to
+    x.dtype (the mask multiplies in w's dtype, as the reference)."""
+    wm = w * mask.to(w.dtype)
+    return (x.float() @ wm.float()).to(x.dtype)
+
+
+def masked_dx_plain(g, w, mask):
+    """Plain K14: ``g @ (w * m)^T`` in f32, rounded once to g.dtype."""
+    wm = w * mask.to(w.dtype)
+    return (g.float() @ wm.float().T).to(g.dtype)
+
+
+def masked_dw_plain(x, g, mask):
+    """Plain K15: ``(x^T @ g) * m`` in f32, rounded once to x.dtype."""
+    return ((x.float().T @ g.float()) * mask.float()).to(x.dtype)
+
+
+def masked_dw_fused_plain(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
+                          sr: bool, out_dtype=None):
+    """Plain K19: ``m_new = (mu * mom + x^T @ g + wd * w) * wgm`` in f32,
+    left to right as the reference; ``sr`` rounds it with ``sr_to_bf16``
+    (gid = row * N + col of the (K, N) array); rounded once to
+    ``out_dtype`` (default w.dtype)."""
+    acc = x.float().T @ g.float()
+    m_new = (mu * mom.float() + acc + wd * w.float()) * wgm.float()
+    if sr:
+        m_new = sr_to_bf16(m_new, seed, _gid(*m_new.shape, m_new.device))
+    return m_new.to(out_dtype or w.dtype)
+
+
+def fused_error_bound(out_plain, abs_prod, n: int, mu: float, wd: float, mom, w,
+                      acc_plain, wgm):
+    """Per-element bound on |K19 - plain| without ``sr``: the two x^T @ g
+    sums differ by ``matmul_error_bound`` at most; the epilogue's three f32
+    additions and products round on each side at partial sums no larger
+    than |mu mom| + |acc| + |wd w|, one 2**-24 relative each, a bf16 output
+    one rounding more (inside ``matmul_error_bound``)."""
+    m = wgm.float()
+    epi = (mu * mom.float()).abs() + acc_plain.float().abs() + (wd * w.float()).abs()
+    return matmul_error_bound(out_plain, abs_prod * m, n) + 8 * 2.0**-24 * epi * m
+
+
+def _check_cuda(what, dense, masks, blocks, tiles, same):
+    """Device, dtype, mask type, contiguity, tiling and alignment of one
+    launch: ``dense`` the float operands, ``masks`` the bool ones; ``tiles``
+    (extent, block) pairs that must divide, ``same`` (extent, extent) pairs
+    that must be equal."""
+    dev = dense[0].device
+    for t in (*dense, *masks):
+        if t.device != dev:
+            raise ValueError(f"{what}: operands on {t.device} and {dev}")
+    suffix = _suffix(what, *dense)
+    if any(m.dtype != torch.bool for m in masks):
+        raise TypeError(f"{what}: masks must be bool")
+    if not all(t.is_contiguous() for t in (*dense, *masks)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    for name, blk in blocks.items():
+        if blk % 16 or not 16 <= blk <= 128:
+            raise ValueError(f"{what}: {name}={blk} must be a multiple of 16 in [16, 128]")
+    if any(e % blk for e, blk in tiles) or any(e != f for e, f in same):
+        raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in dense]} do not "
+                         f"match or do not tile by the blocks {blocks} (K and N "
+                         "must be multiples of 16)")
+    if any(t.data_ptr() % 16 for t in (*dense, *masks)):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
+    return suffix
+
+
+def _fn(name: str, argtypes):
+    lib = _build.load("masked_matmul")
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = _I
+    return lib, fn
+
+
+def _device(what, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def masked_matmul(x, w, mask, *, bm: int, bn: int):
+    """K13: x (M, K) @ (w * mask) (K, N) -> (M, N) in x.dtype.  M must be a
+    multiple of ``bm`` (``kernels/ops.py`` pads rows).  CUDA tensors run the
+    kernel or raise; CPU tensors run the plain version."""
+    global launches
+    if x.device.type == "cpu":
+        return masked_matmul_plain(x, w, mask)
+    _device("masked_matmul", x)
+    (M, K), N = x.shape, w.shape[1]
+    s = _check_cuda("masked_matmul", (x, w), (mask,), {"bm": bm, "bn": bn},
+                    [(M, bm), (N, bn), (K, 16)], [(w.shape[0], K), (mask.shape, w.shape)])
+    lib, fn = _fn(f"masked_fwd_{s}", [_P] * 4 + [_I] * 5 + [_P])
+    y = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
+                M, K, N, bm, bn, _stream(x))
+    _build.check(lib, rc, "masked_fwd launch")
+    launches += 1
+    return y
+
+
+def masked_dx(g, w, mask, *, bm: int, bk: int):
+    """K14: g (M, N) @ (w * mask)^T -> dx (M, K) in g.dtype; M a multiple
+    of ``bm``."""
+    global dx_launches
+    if g.device.type == "cpu":
+        return masked_dx_plain(g, w, mask)
+    _device("masked_dx", g)
+    (M, N), K = g.shape, w.shape[0]
+    s = _check_cuda("masked_dx", (g, w), (mask,), {"bm": bm, "bk": bk},
+                    [(M, bm), (K, bk), (N, 16)], [(w.shape[1], N), (mask.shape, w.shape)])
+    lib, fn = _fn(f"masked_dx_{s}", [_P] * 4 + [_I] * 5 + [_P])
+    dx = torch.empty(M, K, dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = fn(g.data_ptr(), w.data_ptr(), mask.data_ptr(), dx.data_ptr(),
+                M, K, N, bm, bk, _stream(g))
+    _build.check(lib, rc, "masked_dx launch")
+    dx_launches += 1
+    return dx
+
+
+def _dw_checks(what, x, g, masks, bn, bk, extra=()):
+    (M, K), N = x.shape, g.shape[1]
+    return _check_cuda(what, (x, g, *extra), masks, {"bn": bn, "bk": bk},
+                       [(M, 16), (K, bk), (N, bn)],
+                       [(g.shape[0], M)] + [(m.shape, (K, N)) for m in masks])
+
+
+def masked_dw(x, g, mask, *, bn: int, bk: int):
+    """K15: dw (K, N) = (x^T @ g) * mask in x.dtype; x (M, K), g (M, N), M
+    a multiple of 16 (``kernels/ops.py`` pads rows)."""
+    global dw_launches
+    if x.device.type == "cpu":
+        return masked_dw_plain(x, g, mask)
+    _device("masked_dw", x)
+    (M, K), N = x.shape, g.shape[1]
+    s = _dw_checks("masked_dw", x, g, (mask,), bn, bk)
+    lib, fn = _fn(f"masked_dw_{s}", [_P] * 4 + [_I] * 5 + [_P])
+    dw = torch.empty(K, N, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), mask.data_ptr(), dw.data_ptr(),
+                M, K, N, bn, bk, _stream(x))
+    _build.check(lib, rc, "masked_dw launch")
+    dw_launches += 1
+    return dw
+
+
+def masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float, sr: bool,
+                    bn: int, bk: int, out_dtype=None):
+    """K19: the new SGD momentum ``(mu * mom + x^T @ g + wd * w) * wgm``
+    (K, N) in ``out_dtype`` (default w.dtype), stochastically rounded onto
+    the bf16 grid when ``sr`` with the uint32 ``seed``.  x, g, w of one
+    dtype; mom bf16 or f32."""
+    global fused_launches
+    out_dtype = out_dtype or w.dtype
+    if x.device.type == "cpu":
+        return masked_dw_fused_plain(x, g, wgm, w, mom, seed, mu=mu, wd=wd, sr=sr,
+                                     out_dtype=out_dtype)
+    _device("masked_dw_fused", x)
+    (M, K), N = x.shape, g.shape[1]
+    s = _dw_checks("masked_dw_fused", x, g, (wgm,), bn, bk, extra=(w,))
+    if w.shape != (K, N) or mom.shape != (K, N) or mom.device != x.device:
+        raise ValueError(f"masked_dw_fused: w {tuple(w.shape)} / mom {tuple(mom.shape)} "
+                         f"on {mom.device} do not match ({K}, {N}) on {x.device}")
+    if mom.dtype not in _SUFFIX or not mom.is_contiguous() or mom.data_ptr() % 16:
+        raise TypeError(f"masked_dw_fused: mom must be contiguous bf16 or f32 "
+                        f"(got {mom.dtype})")
+    if out_dtype not in _SUFFIX or (s == "f32" and out_dtype != torch.float32):
+        raise TypeError(f"masked_dw_fused: no {s} entry with {out_dtype} output")
+    name = f"masked_dw_fused_{s}_{_SUFFIX[mom.dtype]}_{_SUFFIX[out_dtype]}"
+    lib, fn = _fn(name, [_P] * 6 + [_I] * 5
+                  + [ctypes.c_uint32, ctypes.c_float, ctypes.c_float, _I, _P])
+    out = torch.empty(K, N, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), wgm.data_ptr(), w.data_ptr(),
+                mom.data_ptr(), out.data_ptr(), M, K, N, bn, bk,
+                int(seed) & _M32, float(mu), float(wd), int(bool(sr)), _stream(x))
+    _build.check(lib, rc, "masked_dw_fused launch")
+    fused_launches += 1
+    return out
+
+
+class MaskedMatmul(torch.autograd.Function):
+    """y = x @ (w * m); backward dx (K14) and dw (K15) on the same mask, as
+    the reference's ``_mm_fwd/_mm_bwd``.  The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, bm, bn, bk):
+        ctx.save_for_backward(x, w, mask)
+        ctx.blocks = (bm, bn, bk)
+        return masked_matmul(x, w, mask, bm=bm, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask = ctx.saved_tensors
+        return _backward(ctx, g, x, w, mask, mask) + (None,) * 4
+
+
+class TopkastMaskedMatmul(torch.autograd.Function):
+    """Forward and dx on the forward mask A, dw on the Top-KAST superset
+    B ⊇ A, as the reference's ``_tkm_fwd/_tkm_bwd``: dw is the dense
+    gradient restricted to B."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, bwd_mask, bm, bn, bk):
+        ctx.save_for_backward(x, w, mask, bwd_mask)
+        ctx.blocks = (bm, bn, bk)
+        return masked_matmul(x, w, mask, bm=bm, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 5
+
+
+class FusedMaskedMatmul(torch.autograd.Function):
+    """``MaskedMatmul`` whose weight cotangent IS the new SGD momentum
+    ``(mu * mom + x^T @ g + wd * w) * wgm`` (K19), as the reference's
+    ``_fmm_fwd/_fmm_bwd``; mom's cotangent is a discarded zero (None)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, wgm, mom, seed, mu, wd, sr, bm, bn, bk):
+        ctx.save_for_backward(x, w, mask, wgm, mom)
+        ctx.blocks = (bm, bn, bk)
+        ctx.epilogue = (int(seed), float(mu), float(wd), bool(sr))
+        return masked_matmul(x, w, mask, bm=bm, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask, wgm, mom = ctx.saved_tensors
+        bm, bn, bk = ctx.blocks
+        seed, mu, wd, sr = ctx.epilogue
+        g = g.contiguous()
+        dx = masked_dx(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
+        m_new = masked_dw_fused(x, g, wgm, w, mom, seed, mu=mu, wd=wd, sr=sr,
+                                bn=bn, bk=bk)
+        return (dx, m_new) + (None,) * 10
+
+
+def _backward(ctx, g, x, w, mask, dmask):
+    bm, bn, bk = ctx.blocks
+    g = g.contiguous()
+    dx = masked_dx(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
+    dw = masked_dw(x, g, dmask, bn=bn, bk=bk) if ctx.needs_input_grad[1] else None
+    return dx, dw

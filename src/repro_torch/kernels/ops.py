@@ -1,11 +1,15 @@
-"""Dispatch wrapper around the block-sparse kernels: row padding and packs.
+"""Dispatch wrappers around the block-sparse and masked kernels: padding
+and packs.
 
-Port of ``_row_tile``, ``_pad_rows`` and the pack-entry path of
-``block_sparse_linear`` from the JAX package's ``kernels/ops.py``.  Leading
-dims of x are flattened and the rows zero-padded to the row tile (a small
-batch shrinks the tile to its 16-padded row count instead of padding to
-bm), then trimmed after; autograd drops the padded rows' gradients.  K and
-N must be tile-aligned: the block grid is defined by them.
+Port of ``_row_tile``, ``_pad_rows``, the pack-entry path of
+``block_sparse_linear`` and ``masked_linear``, ``topkast_masked_linear``
+and ``fused_masked_linear`` from the JAX package's ``kernels/ops.py``.
+Leading dims of x are flattened and the rows zero-padded to the row tile (a
+small batch shrinks the tile to its 16-padded row count instead of padding
+to bm), then trimmed after; autograd drops the padded rows' gradients.  For
+block_sparse K and N must be tile-aligned (the block grid is defined by
+them); the masked wrappers zero-pad K and N up to their clamped tiles
+(masks with zeros, so A ⊆ B still holds) and trim the output.
 """
 from __future__ import annotations
 
@@ -13,8 +17,14 @@ import torch
 import torch.nn.functional as F
 
 from .block_sparse_matmul import BlockSparseMatmul, TopkastBlockSparseMatmul
+from .masked_matmul import FusedMaskedMatmul, MaskedMatmul, TopkastMaskedMatmul
 
-__all__ = ["block_sparse_linear"]
+__all__ = [
+    "block_sparse_linear",
+    "fused_masked_linear",
+    "masked_linear",
+    "topkast_masked_linear",
+]
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -65,3 +75,63 @@ def block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
     else:
         out = BlockSparseMatmul.apply(x2, w, idx, cnt, ridx, rcnt, bm_eff, bn, bk)
     return out[:M].reshape(*lead, N)
+
+
+def _masked_operands(x, w, masks, block):
+    """Flatten and pad x's rows to the row tile and K/N to the clamped tiles
+    (``w`` and every tensor of ``masks`` with zeros) -> (x2, w, masks, M,
+    lead, (bm_eff, bn, bk))."""
+    bm, bn, bk = block
+    *lead, K = x.shape
+    N = w.shape[1]
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    bm_eff, Mp = _row_tile(M, bm)
+    x2 = _pad_rows(x2, Mp)
+    # pad K/N up to their (clamped) tiles; zero pad-weights contribute nothing
+    Kp = _round_up(K, min(bk, K))
+    Np = _round_up(N, min(bn, N))
+    if Kp != K:
+        x2 = F.pad(x2, (0, Kp - K))
+    if (Kp, Np) != (K, N):
+        w = F.pad(w, (0, Np - N, 0, Kp - K))
+        masks = [F.pad(m, (0, Np - N, 0, Kp - K)) for m in masks]
+    blocks = (bm_eff, min(bn, Np), min(bk, Kp))
+    return (x2.contiguous(), w.contiguous(), [m.contiguous() for m in masks], M,
+            lead, blocks)
+
+
+def masked_linear(x, w, mask, *, block=(128, 128, 128)):
+    """out = x @ (w * mask) with the mask fused into the kernels (K13
+    forward, K14 dgrad and K15 wgrad on the same mask): any pattern, the
+    masked weight never written to device memory.  block: (bm, bn, bk)."""
+    N = w.shape[1]
+    x2, w, (mask,), M, lead, blk = _masked_operands(x, w, [mask], block)
+    out = MaskedMatmul.apply(x2, w, mask, *blk)
+    return out[:M, :N].reshape(*lead, N)
+
+
+def topkast_masked_linear(x, w, mask, bwd_mask, *, block=(128, 128, 128)):
+    """out = x @ (w * mask), weight gradient masked by ``bwd_mask`` ⊇ mask
+    (the Top-KAST split: forward and dgrad on A, wgrad K15 on B)."""
+    N = w.shape[1]
+    x2, w, (mask, bwd_mask), M, lead, blk = _masked_operands(x, w, [mask, bwd_mask],
+                                                            block)
+    out = TopkastMaskedMatmul.apply(x2, w, mask, bwd_mask, *blk)
+    return out[:M, :N].reshape(*lead, N)
+
+
+def fused_masked_linear(x, w, mask, mom, seed: int, *, mu: float, wd: float,
+                        sr: bool, bwd_mask=None, block=(128, 128, 128)):
+    """``masked_linear`` whose weight cotangent is the new SGD momentum
+    ``(mu * mom + x^T g + wd * w) * wgrad_mask`` (K19), where wgrad_mask is
+    ``bwd_mask`` (the Top-KAST superset) when given, else ``mask``.  mom
+    rides the same zero padding as w; the pad's backward trims the
+    cotangent back to (K, N).  ``sr`` stochastically rounds the momentum
+    onto the bf16 grid in the kernel, with the uint32 ``seed``."""
+    N = w.shape[1]
+    wgm = mask if bwd_mask is None else bwd_mask
+    x2, w, (mask, wgm, mom), M, lead, blk = _masked_operands(x, w, [mask, wgm, mom],
+                                                            block)
+    out = FusedMaskedMatmul.apply(x2, w, mask, wgm, mom, seed, mu, wd, sr, *blk)
+    return out[:M, :N].reshape(*lead, N)

@@ -7,7 +7,9 @@ Port of the JAX package's ``launch/serve.py`` (engine mode), with the same
 flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs the plain
 versions of the kernels, for smoke configs).  With ``--kernel block_sparse``
 every projection of prefill and decode runs the block-sparse CUDA kernel on
-the serve state's PackState, packed once; with ``--attn-kernel flash_tight``
+the serve state's PackState, packed once; with ``--kernel masked`` the
+masked kernel (K13) on the weights and their elementwise masks; with
+``--attn-kernel flash_tight``
 prefill attention runs the flash CUDA kernel on the prompt's AttnSchedule.
 """
 from __future__ import annotations
@@ -76,13 +78,12 @@ def init_serving_state(cfg, seed: int = 0, *, device=None):
     ``init_lm`` -> ERK ``sparsity_map`` -> ``init_masks`` (block-aligned
     under block_sparse) -> ``apply_masks`` -> ``build_pack_state``.
     Kernel-dispatch modes serve the masked weights with their masks (and
-    the pack under block_sparse); dense mode serves pre-masked weights with
-    masks and pack None, as the reference.  On ``device`` (default cuda).
+    the pack under block_sparse; ``None`` under masked, whose forward needs
+    no superset carrier); dense mode serves pre-masked weights with masks
+    and pack None, as the reference.  On ``device`` (default cuda).
     """
     sp = cfg.sparse
     validate_sparse_kernel(sp)
-    if sp.kernel == "masked":
-        raise NotImplementedError("kernel='masked' is not ported yet")
     dev = resolve_device(device)
     params, flags = init_lm(cfg, seed, device=dev)
     masks = None
@@ -101,6 +102,8 @@ def init_serving_state(cfg, seed: int = 0, *, device=None):
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         masks = init_masks(gen, params, smap, block_shape=sp.block_shape)
         params = apply_masks(params, masks)
+    if sp.kernel == "masked" and masks is not None:
+        return params, masks, None
     if sp.kernel != "block_sparse" or masks is None:
         return params, None, None
     pack = build_pack_state(masks, sp.block_shape,

@@ -11,7 +11,11 @@ update, the pack's staleness checked at log cadence) plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the plain versions of the kernels,
 for smoke configs).  With ``--kernel block_sparse`` every projection runs
 the block-sparse CUDA kernels forward (K1), dgrad (K2) and wgrad on the
-Top-KAST superset (K3); ``cfg.sparse.attn_kernel='flash_tight'`` (set in
+Top-KAST superset (K3); with ``--kernel masked`` (elementwise masks, the
+paper's unstructured RigL) the masked kernels forward (K13), dgrad (K14)
+and wgrad on the superset (K15), or with ``sparse.fused_epilogue`` (a
+config field, as in the reference: SGD) the fused wgrad epilogue (K19);
+``cfg.sparse.attn_kernel='flash_tight'`` (set in
 the config, as the reference's tests do: the CLI has no flag for it) runs
 attention through the flash kernels K9, K10 and K11.
 
@@ -94,7 +98,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
                 rec["lr"] = float(m["lr"])
                 rec["grad_norm"] = float(m["grad_norm"])
                 rec["nonfinite_steps"] = int(m["nonfinite_steps"])
-            if "pack" in state:
+            if "pack" in state and sp.kernel == "block_sparse":
                 # a nonzero count means the kernels run a STALE topology (a
                 # topology update without refresh_pack): fail, don't mistrain
                 rec["pack_stale"] = stale = int(pack_mismatch(
@@ -136,8 +140,7 @@ def main(argv=None):
     p.add_argument("--alpha", type=float, default=0.3)
     p.add_argument("--kernel", default="dense",
                    choices=["dense", "masked", "block_sparse"],
-                   help="execution path for sparsifiable matmuls ('masked' is "
-                        "not ported yet)")
+                   help="execution path for sparsifiable matmuls")
     p.add_argument("--block", type=int, default=128,
                    help="block edge for --kernel block_sparse (sets block_shape + tiles)")
     p.add_argument("--workdir", default="/tmp/repro_torch_train")

@@ -13,7 +13,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels.ops import block_sparse_linear
+from ..kernels.ops import (
+    block_sparse_linear,
+    fused_masked_linear,
+    masked_linear,
+    topkast_masked_linear,
+)
 
 __all__ = [
     "P",
@@ -73,14 +78,26 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
            block=(128, 128, 128), pack=None):
     """y = x @ w in ``compute_dtype`` (None inherits x.dtype).
 
-    ``kernel='block_sparse'`` with a mask runs the block-sparse kernel on
-    the layer's PackState entry ``pack`` (the weights are already zero
-    outside the mask's blocks, so whole active blocks run unmasked).  Other
-    kernels, or ``mask=None``, compute ``x @ (w * mask)`` densely.
+    Kernel dispatch, with a mask (the reference's ``layers.linear``):
+      kernel='block_sparse'  the block-sparse kernels on the layer's
+                             PackState entry ``pack`` (the weights are zero
+                             outside the mask's blocks, so whole active
+                             blocks run unmasked);
+      kernel='masked'        x @ (w * m) with the mask fused into the masked
+                             kernels; ``pack`` is None, a Top-KAST carrier
+                             ``{"bwd_mask": B}`` (the wgrad runs on B) or a
+                             fused-epilogue entry carrying ``"mom"`` (the
+                             weight cotangent is the new SGD momentum).
+    Other kernels, or ``mask=None``, compute ``x @ (w * mask)`` densely.
     """
     dt = compute_dtype or x.dtype
     w = p["w"].to(dt)
     if mask is not None and kernel == "block_sparse":
+        if isinstance(pack, dict) and "mom" in pack:
+            raise NotImplementedError(
+                "linear: the fused epilogue on block_sparse (kernel K7) is not "
+                "ported yet"
+            )
         if pack is None:
             raise NotImplementedError(
                 "linear: block_sparse without a PackState entry (packing the "
@@ -88,10 +105,15 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
             )
         return block_sparse_linear(x.to(dt), w, pack=pack, block=block)
     if mask is not None and kernel == "masked":
-        raise NotImplementedError(
-            "linear: kernel='masked' (the fused-mask matmul kernels) is not "
-            "ported yet"
-        )
+        xc = x.to(dt)
+        if isinstance(pack, dict) and "mom" in pack:
+            return fused_masked_linear(
+                xc, w, mask, pack["mom"], pack["seed"], mu=pack["mu"],
+                wd=pack["wd"], sr=pack["sr"], bwd_mask=pack.get("bwd_mask"),
+                block=block)
+        if isinstance(pack, dict) and "bwd_mask" in pack:
+            return topkast_masked_linear(xc, w, mask, pack["bwd_mask"], block=block)
+        return masked_linear(xc, w, mask, block=block)
     if mask is not None:
         w = w * mask.to(dt)
     return x.to(dt) @ w
@@ -114,24 +136,26 @@ def assert_total_dispatch(masks, *, kernel=None, where: str = "?", pack=None):
     reference's ``layers.assert_total_dispatch`` with ``require_bwd``).
 
     Under kernel dispatch with backward supersets (rigl), every mask leaf's
-    ``pack`` entry must carry the superset view ``bidx``, so its weight
-    gradient runs on the superset's blocks (the grow scores' channel) and
-    not on the forward topology.  The reference's per-submodule mode (every
-    mask leaf consumed by a dispatched matmul) belongs with the model
-    families that need it (MoE, xLSTM, hymba), not ported yet.
+    ``pack`` entry must carry the superset view — ``bidx`` (block_sparse)
+    or the masked carrier's ``bwd_mask`` — so its weight gradient runs on
+    the superset (the grow scores' channel) and not on the forward
+    topology.  The reference's per-submodule mode (every mask leaf consumed
+    by a dispatched matmul) belongs with the model families that need it
+    (MoE, xLSTM, hymba), not ported yet.
     """
     if masks is None or kernel in (None, "dense"):
         return
     from ..core.masks import tree_map
 
+    view = "bwd_mask" if kernel == "masked" else "bidx"
     missing = []
     tree_map(lambda n, m, e: missing.append(n) if m is not None and not (
-        isinstance(e, dict) and "bidx" in e) else None,
+        isinstance(e, dict) and view in e) else None,
         masks, pack if pack is not None else tree_map(lambda *_: None, masks))
     if missing:
         raise RuntimeError(
             f"{where}: mask leaves {sorted(missing)} have no backward-superset "
-            "pack view (bidx): their weight gradient would fall back to the "
+            f"pack view ({view}): their weight gradient would fall back to the "
             "forward topology instead of the (k+Δ) superset; rebuild the "
             "pack with bwd_masks= (core/pack.py)"
         )

@@ -3,7 +3,8 @@
 Port of the JAX package's ``models/model.py`` for training and serving the
 transformer family (h2o-danube-1.8b).  Every weight matmul goes through
 ``layers.linear`` (the block-sparse kernels under
-``cfg.sparse.kernel='block_sparse'``, forward and backward), full-sequence
+``cfg.sparse.kernel='block_sparse'``, the masked kernels under
+``kernel='masked'``, forward and backward), full-sequence
 attention through the flash kernels, decode attention and the LM head are
 plain PyTorch.  ``lm_loss`` is differentiable; with ``cfg.remat`` each
 group of ``cfg.remat_group`` blocks is a ``torch.utils.checkpoint`` region
@@ -14,8 +15,9 @@ compute dtype and scaled by sqrt(d_model) into an f32 residual stream
 (NumPy's float64 scalar promotes it there in the reference), rmsnorm keeps
 the residual's dtype, the attention projections cast to ``cfg.dtype`` (and
 ``wo`` inherits the attention output's dtype), while the MLP and the LM head
-inherit the residual's f32.  Under a bf16 config the MLP's block-sparse
-matmuls therefore run in f32, forward and backward, as in the reference.
+inherit the residual's f32.  Under a bf16 config the MLP's block-sparse or
+masked matmuls therefore run in f32, forward and backward, as in the
+reference.
 """
 from __future__ import annotations
 

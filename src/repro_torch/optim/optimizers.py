@@ -7,8 +7,9 @@ connections a RigL update just grew.  Trees are the port's nested dicts and
 lists of tensors (``None`` leaves pass through).  ``apply_opt`` updates in
 place (see its docstring); the reset functions return new trees.
 
-``apply_opt_fused`` (the fused SGD epilogue of the wgrad kernels) belongs
-with the fused kernels K7/K19, which are not ported yet.
+``apply_opt_fused`` is the optimizer half of the fused SGD epilogue: the
+masked wgrad kernel K19 already emits the new momentum as the weight
+gradient (``kernels/masked_matmul.py``).
 """
 from __future__ import annotations
 
@@ -87,9 +88,7 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
     if cfg.grad_clip:
         gnorm = global_norm(grads) if gnorm is None else gnorm
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-
-    def put(dst, new):
-        dst.copy_(new if ok is None else torch.where(ok, new, dst))
+    put = lambda dst, new: _put(dst, new, ok)
 
     def clipped(g):
         return g if scale is None else g * scale
@@ -120,6 +119,10 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
     raise ValueError(cfg.kind)
 
 
+def _put(dst, new, ok):
+    dst.copy_(new if ok is None else torch.where(ok, new, dst))
+
+
 def _sgd(cfg, g, m, p, lr):
     g = g.float() + cfg.weight_decay * p.float()
     m_new = cfg.momentum * m + g
@@ -136,11 +139,32 @@ def _adam(cfg, g, m, v, p, lr, b1c, b2c):
     return (p - lr * step).to(p.dtype), m_new, v_new
 
 
-def apply_opt_fused(*args, **kwargs):
-    raise NotImplementedError(
-        "apply_opt_fused (the SGD epilogue fused into the wgrad kernels, "
-        "K7/K19) is not ported yet"
-    )
+def apply_opt_fused(cfg: OptConfig, grads, opt_state, params, lr, fused_flags,
+                    *, ok=None):
+    """SGD update of the fused-epilogue path, IN PLACE (the reference's
+    ``apply_opt_fused``).  ``fused_flags`` mirrors ``grads`` with Python
+    bools.  A flagged leaf arrives as the new momentum m_new = mu*mom + dw
+    + wd*w (the fused kernel's weight cotangent, re-masked by the train
+    step), so its update is ``p -= lr*g; momentum := g``; other leaves
+    (embeddings, norms, the head) get the plain SGD-momentum update with
+    ``cfg.weight_decay``, as ``apply_opt``.  ``ok``: the non-finite guard,
+    as in ``apply_opt``.  Plain SGD only (no Nesterov, no clipping)."""
+    if cfg.kind != "sgd" or cfg.nesterov or cfg.grad_clip:
+        raise ValueError("apply_opt_fused: plain SGD only (no nesterov, no grad_clip)")
+
+    def upd(_, g, m, p, fused):
+        g32 = g.float()
+        if fused:
+            m_new = g32
+        else:
+            g32 = g32 + cfg.weight_decay * p.float()
+            m_new = cfg.momentum * m + g32
+        p_new = (p - lr * m_new).to(p.dtype)
+        _put(p, p_new, ok)
+        _put(m, m_new.to(m.dtype), ok)
+
+    tree_map(upd, grads, opt_state["momentum"], params, fused_flags)
+    return params, opt_state
 
 
 def reset_connections(opt_state, where_masks):

@@ -11,10 +11,16 @@ JAX package for the transformer family, methods 'rigl' and 'static'.
               grown connections' optimizer state; no optimizer step.
 
 Under kernel dispatch with method='rigl' the state carries Top-KAST
-backward supersets ``bwd_masks`` (B ⊇ A) and the pack's ``bidx`` view, so
-the wgrad kernel returns the dense gradient restricted to B: the grow
-scores' side channel, with no dense matmul anywhere.  ``refresh_pack``
-redraws B and re-packs after every update.
+backward supersets ``bwd_masks`` (B ⊇ A) and the pack's superset view (the
+``bidx`` CSC under block_sparse, the ``{"bwd_mask": B}`` carrier under
+masked), so the wgrad kernel returns the dense gradient restricted to B:
+the grow scores' side channel, with no dense matmul anywhere.
+``refresh_pack`` redraws B and re-packs after every update.
+
+With ``sparse.fused_epilogue`` (kernel='masked', plain SGD) every
+dispatched leaf's pack entry also carries its momentum, a seed and the SGD
+constants; the masked wgrad kernel K19 then emits the NEW momentum as the
+weight gradient and ``apply_opt_fused`` finishes the update.
 
 Differences from the reference, each for the card:
   * The step updates params and optimizer state IN PLACE (the reference's
@@ -31,7 +37,8 @@ Differences from the reference, each for the card:
     from (seed, purpose, step), not the reference's threefry keys.
 
 Not ported yet (they raise): methods set/snfs/topkast/pruning/snip, the
-fused SGD epilogue (K7/K19), kernel='masked', bf16 params or gradients.
+fused epilogue on block_sparse (K7), bf16 params or gradients, bf16 Adam
+state.
 """
 from __future__ import annotations
 
@@ -41,8 +48,13 @@ import torch
 
 from ..configs import validate_sparse_kernel
 from ..core.distributions import sparsity_map
-from ..core.masks import apply_masks, init_masks, tree_map, tree_paths
-from ..core.pack import build_pack_state, refresh_pack_state, validate_pack
+from ..core.masks import apply_masks, flat_index, init_masks, tree_map, tree_paths
+from ..core.pack import (
+    build_bwd_carrier,
+    build_pack_state,
+    refresh_pack_state,
+    validate_pack,
+)
 from ..core.rigl import (
     SparseAlgo,
     dense_to_sparse_grad,
@@ -53,7 +65,13 @@ from ..core.schedules import UpdateSchedule
 from ..device import resolve_device
 from ..models.layers import assert_total_dispatch
 from ..models.model import init_lm, lm_loss
-from ..optim.optimizers import apply_opt, global_norm, init_opt, reset_new_connections
+from ..optim.optimizers import (
+    apply_opt,
+    apply_opt_fused,
+    global_norm,
+    init_opt,
+    reset_new_connections,
+)
 
 __all__ = [
     "make_algo",
@@ -63,6 +81,7 @@ __all__ = [
     "refresh_pack",
     "make_train_step",
     "make_rigl_step",
+    "fused_seed",
 ]
 
 _PORTED_METHODS = ("rigl", "static")
@@ -107,14 +126,58 @@ def _check_ported(cfg, opt_cfg=None):
     sp = cfg.sparse
     if sp.method not in _PORTED_METHODS:
         raise _not_ported(f"method {sp.method!r} (the port trains 'rigl' and 'static')")
-    if sp.kernel == "masked":
-        raise _not_ported("kernel='masked' (the fused-mask matmul kernels)")
-    if sp.fused_epilogue:
-        raise _not_ported("sparse.fused_epilogue (apply_opt_fused, kernels K7/K19)")
+    if sp.fused_epilogue and sp.kernel == "block_sparse":
+        raise _not_ported("sparse.fused_epilogue with kernel='block_sparse' (K7)")
     if cfg.param_dtype != "float32" or cfg.bf16_grads:
         raise _not_ported("bf16 params or gradients")
-    if opt_cfg is not None and opt_cfg.state_dtype != "float32":
-        raise _not_ported("bf16 optimizer state")
+    # bf16 SGD momentum updates as the reference's (rounded to the state's
+    # dtype every step); the reference's Adam returns f32 moments from a
+    # bf16 state, which the port's in-place update cannot mirror
+    if (opt_cfg is not None and opt_cfg.state_dtype != "float32"
+            and opt_cfg.kind != "sgd"):
+        raise _not_ported(f"bf16 optimizer state with {opt_cfg.kind!r}")
+
+
+def _check_fused(cfg, opt_cfg, dispatch: bool):
+    """The reference's gating of ``sparse.fused_epilogue``: the kernel's
+    weight cotangent is the new momentum, which exists only for plain SGD
+    single-microbatch steps; anything else raises with the reference's
+    wording."""
+    bad = []
+    if not dispatch:
+        bad.append("kernel dispatch off (sparse.kernel is dense/None)")
+    if opt_cfg.kind != "sgd":
+        bad.append(f"optimizer kind {opt_cfg.kind!r} (need plain sgd)")
+    if opt_cfg.nesterov:
+        bad.append("nesterov (the kernel epilogue emits plain momentum)")
+    if opt_cfg.grad_clip:
+        bad.append("grad_clip (the raw gradient never exists to clip)")
+    if max(cfg.microbatches, 1) != 1:
+        bad.append("microbatches > 1 (the epilogue folds mom ONCE/step)")
+    if cfg.sparse.method == "snfs":
+        bad.append("method='snfs' (its dense-momentum buffer needs the "
+                   "raw superset gradient every step)")
+    if cfg.bf16_grads:
+        bad.append("bf16_grads (cotangent dtype must match the weights)")
+    if cfg.dtype != "float32" and opt_cfg.state_dtype != "bfloat16":
+        bad.append(
+            f"compute dtype {cfg.dtype!r} with f32 optimizer state (the "
+            "kernel would nearest-round momentum to the compute dtype; "
+            "use dtype='float32', or opt in to bf16 momentum via "
+            "OptConfig.state_dtype='bfloat16' for in-kernel stochastic "
+            "rounding)"
+        )
+    if bad:
+        raise ValueError("sparse.fused_epilogue=True is unsupported with: "
+                         + "; ".join(bad))
+
+
+def fused_seed(step: int, leaf: int) -> int:
+    """K19's seed for one leaf at one step, as the reference's
+    ``state["step"] * int32(1000003) + int32(i)``: int32 arithmetic that
+    wraps (past step 2147), read as uint32.  ``leaf`` is the leaf's index
+    in the reference's flatten order of the mask tree (``flat_index``)."""
+    return (step * 1000003 + leaf) & 0xFFFFFFFF
 
 
 def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
@@ -164,6 +227,10 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
         state["pack"] = build_pack_state(
             masks, sp.block_shape, slack=sp.pack_width_slack, device=dev,
             bwd_masks=state.get("bwd_masks"))
+    elif sp.kernel == "masked" and "bwd_masks" in state:
+        # the masked kernels take elementwise masks: the superset rides
+        # along as the carrier the Top-KAST masked VJP fuses
+        state["pack"] = build_bwd_carrier(state["bwd_masks"])
     return state, flags
 
 
@@ -182,10 +249,13 @@ def refresh_superset(state, cfg):
 
 def refresh_pack(state, cfg):
     """Refresh the superset, then re-pack ``state["pack"]`` from the masks
-    (widths never shrink) and validate it.  No-op without a pack."""
+    (widths never shrink) and validate it, or under kernel='masked' rebuild
+    the superset carrier.  No-op without a pack."""
     state = refresh_superset(state, cfg)
     if "pack" not in state:
         return state
+    if cfg.sparse.kernel == "masked":
+        return dict(state, pack=build_bwd_carrier(state["bwd_masks"]))
     pack = refresh_pack_state(
         state["masks"], cfg.sparse.block_shape, prev=state["pack"],
         slack=cfg.sparse.pack_width_slack, bwd_masks=state.get("bwd_masks"),
@@ -216,10 +286,25 @@ def _default_loss(cfg):
     return lambda p, b, masks=None, pack=None: lm_loss(p, cfg, b, masks=masks, pack=pack)
 
 
-def _loss_fn(loss_fn, state, dispatch):
+def _loss_fn(loss_fn, state, dispatch, pack=None):
     if not dispatch:
         return lambda p, b: loss_fn(p, b)
-    return lambda p, b: loss_fn(p, b, masks=state["masks"], pack=state.get("pack"))
+    pack = state.get("pack") if pack is None else pack
+    return lambda p, b: loss_fn(p, b, masks=state["masks"], pack=pack)
+
+
+def _fused_pack(state, opt_cfg):
+    """The state's pack with the SGD epilogue's operands merged into every
+    mask leaf's entry: ``{"mom", "seed", "mu", "wd", "sr"}`` (the
+    reference's per-trace fused entries; sr when the state is bf16)."""
+    index = flat_index(state["masks"])
+    consts = {"mu": opt_cfg.momentum, "wd": opt_cfg.weight_decay,
+              "sr": opt_cfg.state_dtype == "bfloat16"}
+    pack = state.get("pack") or tree_map(lambda *_: None, state["masks"])
+    return tree_map(
+        lambda n, m, pe, mo: None if m is None else dict(
+            pe or {}, mom=mo, seed=fused_seed(state["step"], index[n]), **consts),
+        state["masks"], pack, state["opt"]["momentum"])
 
 
 def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
@@ -228,8 +313,11 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
     metrics are device tensors: reading them is the caller's sync.
     ``loss_fn(params, batch, masks=None, pack=None)`` defaults to
     ``lm_loss``, as in the reference."""
-    _check_ported(cfg, opt_cfg)
     dispatch = cfg.sparse.kernel not in (None, "dense")
+    fused = dispatch and cfg.sparse.fused_epilogue
+    if cfg.sparse.fused_epilogue:
+        _check_fused(cfg, opt_cfg, dispatch)
+    _check_ported(cfg, opt_cfg)
     if dispatch:
         validate_sparse_kernel(cfg.sparse)
     mb = max(cfg.microbatches, 1)
@@ -237,9 +325,9 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
     opt_nowd = dataclasses.replace(opt_cfg, weight_decay=0.0)
     loss_fn = loss_fn or _default_loss(cfg)
 
-    def grads(state, batch):
+    def grads(state, batch, pack=None):
         src = state["params"] if dispatch else apply_masks(state["params"], state["masks"])
-        fn = _loss_fn(loss_fn, state, dispatch)
+        fn = _loss_fn(loss_fn, state, dispatch, pack)
         if mb == 1:
             return _value_and_grad(fn, src, batch)
         bsz = batch["tokens"].shape[0] // mb
@@ -261,18 +349,28 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
         if dispatch and needs_bwd_masks(cfg.sparse):
             assert_total_dispatch(state["masks"], kernel=cfg.sparse.kernel,
                                   where="train_step", pack=state.get("pack"))
-        loss, g = grads(state, batch)
+        # fused: the dispatched leaves' gradients come back as the NEW
+        # momentum m_new = mu*mom + dw + wd*w (K19), masked to the wgrad
+        # support; the raw gradient never exists
+        loss, g = grads(state, batch, _fused_pack(state, opt_cfg) if fused else None)
         g = dense_to_sparse_grad(g, state["masks"])
         if opt_cfg.weight_decay:
-            # decay on the ACTIVE weights only (inactive must stay untouched)
+            # decay on the ACTIVE weights only (inactive must stay
+            # untouched); folded into the kernel's epilogue on fused leaves
             wd = opt_cfg.weight_decay
-            tree_map(lambda _, g_, w, m: g_.add_(wd * (w if m is None else
-                                                       w * m.to(w.dtype)).to(g_.dtype)),
-                     g, state["params"], state["masks"])
+            tree_map(lambda _, g_, w, m: None if fused and m is not None else g_.add_(
+                wd * (w if m is None else w * m.to(w.dtype)).to(g_.dtype)),
+                g, state["params"], state["masks"])
         lr = lr_sched(state["step"])
+        # fused: the norm of the momentum update on the fused leaves (the
+        # reference's too); finite iff the gradient contribution is
         gnorm = global_norm(g)
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        apply_opt(opt_nowd, g, state["opt"], state["params"], lr, ok=ok, gnorm=gnorm)
+        if fused:
+            flags = tree_map(lambda _, m: m is not None, state["masks"])
+            apply_opt_fused(opt_nowd, g, state["opt"], state["params"], lr, flags, ok=ok)
+        else:
+            apply_opt(opt_nowd, g, state["opt"], state["params"], lr, ok=ok, gnorm=gnorm)
         nonfinite = state["nonfinite_steps"] + (~ok).to(torch.int32)
         state = dict(state, step=state["step"] + 1, nonfinite_steps=nonfinite)
         return state, {"loss": loss, "lr": lr, "grad_norm": gnorm,

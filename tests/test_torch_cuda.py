@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 (bf16 and f32), K2, K3, K9, K10 and K11, and one training step.
+K1 (bf16 and f32), K2, K3, K9, K10, K11, the masked K13, K14, K15 and the
+fused epilogue K19, and training steps through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode.  The file imports no JAX, so it runs on a machine that has
@@ -13,7 +14,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.pack import pack_np  # noqa: E402
 from repro_torch.kernels import block_sparse_matmul as tbsm  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
-from repro_torch.kernels.ops import block_sparse_linear  # noqa: E402
+from repro_torch.kernels import masked_matmul as tmm  # noqa: E402
+from repro_torch.kernels.ops import block_sparse_linear, masked_linear  # noqa: E402
 
 FLASH_CASES = {
     # name: (Sq, Sk, causal, window, softcap, kv_groups)
@@ -243,3 +245,170 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree
+
+
+# (M, K, N, bm, bn, bk): decode rows padded to 16, a 128-tile case, small
+# 16/32 tiles; K and N multiples of 16, M of the row tile
+MASKED_SHAPES = [(16, 256, 384, 16, 128, 128), (256, 512, 256, 128, 128, 128),
+                 (48, 96, 64, 16, 16, 16), (64, 64, 160, 32, 32, 32)]
+
+
+def _assert_within(got, want, abs_prod, n):
+    """Element by element within ``matmul_error_bound``, on the card."""
+    bound = tmm.matmul_error_bound(want, abs_prod, n)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bound).all()), float((diff / bound.clamp_min(1e-30)).max())
+
+
+def _masked_problem(shape, dtype, dev, seed=7):
+    """x, w, g in ``dtype``, an elementwise mask with an empty row and an
+    empty column, a superset of it, on ``dev``."""
+    M, K, N = shape[:3]
+    rng = np.random.default_rng(seed)
+    m = rng.random((K, N)) < 0.2
+    m[3, :] = False
+    m[:, 5] = False
+    b = m | (rng.random((K, N)) < 0.1)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (f(rng.standard_normal((M, K))), f(rng.standard_normal((K, N)) / np.sqrt(K)),
+            f(rng.standard_normal((M, N))), t(m), t(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MASKED_SHAPES)
+def test_cuda_masked_matches_plain(shape, dtype):
+    """K13 forward, K14 dx and K15 dw (on the superset) element by element
+    within ``matmul_error_bound`` of their plain versions on the same card;
+    exact zeros off the wgrad mask; the launch counters move."""
+    dev = _cuda()
+    M, K, N, bm, bn, bk = shape
+    x, w, g, m, b = _masked_problem(shape, dtype, dev)
+    n = [tmm.launches, tmm.dx_launches, tmm.dw_launches]
+    y = tmm.masked_matmul(x, w, m, bm=bm, bn=bn)
+    dx = tmm.masked_dx(g, w, m, bm=bm, bk=bk)
+    dw = tmm.masked_dw(x, g, b, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert [tmm.launches, tmm.dx_launches, tmm.dw_launches] == [c + 1 for c in n]
+    wm = (w * m).float().abs()
+    _assert_within(y, tmm.masked_matmul_plain(x, w, m), x.float().abs() @ wm, K)
+    _assert_within(dx, tmm.masked_dx_plain(g, w, m), g.float().abs() @ wm.T, N)
+    _assert_within(dw, tmm.masked_dw_plain(x, g, b),
+                   (x.float().abs().T @ g.float().abs()) * b, M)
+    assert y.dtype == dx.dtype == dw.dtype == dtype
+    assert not dw[~b].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.bfloat16),
+                                   (torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("shape", MASKED_SHAPES[1:3])
+def test_cuda_fused_dw_matches_plain(shape, types):
+    """K19 without sr within ``fused_error_bound`` of its plain version;
+    with sr bit for bit the plain ``sr_to_bf16`` of the kernel's own f32
+    m_new (the f32-output entry, sr off), on the bf16 grid, zero off the
+    wgrad mask; a seed with the sign bit set."""
+    dev = _cuda()
+    wdt, mdt = types
+    M, K, N, bm, bn, bk = shape
+    x, w, g, _, b = _masked_problem(shape, wdt, dev)
+    mom = (torch.randn(K, N, device=dev) * 0.1).to(mdt)
+    kw = dict(mu=0.9, wd=1e-4, bn=bn, bk=bk)
+    seed = 0x9E3779B9
+    got = tmm.masked_dw_fused(x, g, b, w, mom, seed, sr=False, **kw)
+    want = tmm.masked_dw_fused_plain(x, g, b, w, mom, seed, mu=0.9, wd=1e-4, sr=False)
+    acc = x.float().T @ g.float()
+    absp = x.float().abs().T @ g.float().abs()
+    bound = tmm.fused_error_bound(want, absp, M, 0.9, 1e-4, mom, w, acc, b)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bound).all()), float((diff / bound.clamp_min(1e-30)).max())
+    raw = tmm.masked_dw_fused(x, g, b, w, mom, seed, sr=False, out_dtype=torch.float32, **kw)
+    sr = tmm.masked_dw_fused(x, g, b, w, mom, seed, sr=True, **kw)
+    want_sr = tmm.sr_to_bf16(raw, seed, tmm._gid(K, N, dev)).to(wdt)
+    torch.cuda.synchronize()
+    assert torch.equal(sr.view(torch.int16 if wdt == torch.bfloat16 else torch.int32),
+                       want_sr.view(torch.int16 if wdt == torch.bfloat16 else torch.int32))
+    assert torch.equal(sr.float(), sr.to(torch.bfloat16).float())
+    assert not sr[~b].any() and not got[~b].any()
+
+
+@pytest.mark.cuda
+def test_cuda_masked_wrappers_raise_instead_of_falling_back():
+    """A CUDA tensor the masked kernels do not take raises (f16, mixed
+    dtypes, a non-bool mask, K not a multiple of 16); nothing falls back to
+    the plain version."""
+    dev = _cuda()
+    x = torch.zeros(16, 64, device=dev, dtype=torch.float16)
+    w = torch.zeros(64, 64, device=dev, dtype=torch.float16)
+    m = torch.ones(64, 64, device=dev, dtype=torch.bool)
+    n = [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches]
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        masked_linear(x, w, m, block=(16, 16, 16))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tmm.masked_dx(x.float(), w.bfloat16(), m, bm=16, bk=16)
+    with pytest.raises(TypeError, match="bool"):
+        tmm.masked_dw(x.float(), x.float(), m.float(), bn=16, bk=16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tmm.masked_matmul(torch.zeros(16, 40, device=dev), torch.zeros(40, 64, device=dev),
+                          torch.ones(40, 64, device=dev, dtype=torch.bool), bm=16, bn=16)
+    with pytest.raises(TypeError, match="mom"):
+        tmm.masked_dw_fused(x.float(), x.float(), m, w.float(), w.double(), 0, mu=0.9,
+                            wd=0.0, sr=False, bn=16, bk=16)
+    assert [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_masked_training_step_runs_the_kernels(fused):
+    """A danube SMOKE train step under kernel='masked' (RigL with the
+    superset carrier; bf16 attention, f32 MLP) on the card launches K13,
+    K14 and K15, or with the fused SGD epilogue (bf16 state, sr) K13, K14
+    and K19 and no K15; it agrees with the same step on the CPU (plain
+    versions) within bf16 tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import SparseConfig, get_config
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training import steps
+
+    dev = _cuda()
+    cfg = dataclasses.replace(
+        get_config("h2o-danube-1.8b", smoke=True),
+        sparse=SparseConfig(sparsity=0.8, kernel="masked", kernel_block=(128, 16, 16),
+                            attn_kernel="flash_tight", fused_epilogue=fused))
+    opt = (OptConfig(kind="sgd", momentum=0.9, weight_decay=1e-4, state_dtype="bfloat16")
+           if fused else OptConfig(kind="adam", weight_decay=0.0, grad_clip=1.0))
+    lr = LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 32)))
+    batch = {"tokens": toks, "targets": (toks * 3 + 7) % 128}
+    read = lambda: [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches]
+    losses = []
+    for device in ("cpu", dev):
+        st, _ = steps.init_train_state(cfg, opt, seed=0, device="cpu")
+        st = {k: _to(v, device) for k, v in st.items()}
+        before = read()
+        st, m = steps.make_train_step(cfg, opt, lr)(
+            st, {k: v.to(device) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        after = read()
+    n_proj = 7 * cfg.n_layers
+    delta = [b - a for a, b in zip(before, after)]
+    assert delta == ([n_proj, n_proj, 0, n_proj] if fused else [n_proj, n_proj, n_proj, 0])
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0])
+    if fused:
+        assert all(t.dtype == torch.bfloat16 for t in _leaves(st["opt"]["momentum"]))
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)

@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the main paths' shapes, with the stated tolerance; each case
                 timed with CUDA events (kernel, plain version, one PyTorch
                 library call as a yardstick) beside its roofline bound:
-                K1 (bf16, and f32 at the MLP shapes) and K9
+                K1 (bf16, and f32 at the MLP shapes) and K9 (danube's and
+                mistral-large's attention shapes)
   4. serve   -- serve h2o-danube-1.8b at full width and depth
                 (block_sparse, block 128, flash_tight, ERK sparsity 0.8,
                 seed 0): 8 staggered greedy requests x 32 tokens through
@@ -50,7 +51,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                 stochastic rounding), 2 steps: 168 K19 and no K15 launch per
                 step, bf16 momentum within the reference's bound of the
                 unfused step's
-  9. report  -- one JSON line of per-kernel numbers (all ten kernels), the
+  9. paged serve -- K12 (the paged-prefix flash kernel) against its plain
+                version at mistral-large's widths (Sq 16 and 128, ctx 0 to
+                4096 over 256 pages of 16, a softcap case), timed; then serve
+                mistral-large-123b at its published widths, 4 of 88 layers
+                (block_sparse, flash_tight, ERK 0.8, seed 0) through the
+                paged engine with the prefix cache: 8 requests on one
+                512-token template, 2 of them sampled (temperature 0.8, top-k
+                40): every request DONE, 1 prefix miss and 7 hits, clean pool
+                books, exactly 28 K12 launches; a suffix prefill's logits
+                against the full prefill's; paged and contiguous engines'
+                greedy streams identical; K1 on layer 0's served packs
+ 10. report  -- one JSON line of per-kernel numbers (all eleven kernels), the
                 card line, and last {"ok": true, "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -226,15 +238,14 @@ def packed_projections(engine, layer):
                        leaf["w"])
 
 
-def k1_served_cases(torch, timer, bsm, engine):
+def k1_served_cases(torch, timer, bsm, engine, rows=(4, 1024)):
     """K1 on the served model's own ERK packs (layer 0: every projection
     shape at its ERK density; bf16 attention, f32 MLP as served), at a
-    decode step's 4 rows and at the 1024 rows of the longest prompt
-    bucket."""
+    decode step's 4 rows and at the rows of the longest prompt bucket."""
     blk = engine.cfg.sparse.kernel_block[2]
     out = []
     for name, w, e in packed_projections(engine, 0):
-        for M in (4, 1024):
+        for M in rows:
             x = torch.randn(M, w.shape[0], device="cuda").to(w.dtype)
             out.append(k1_case(torch, timer, bsm, f"served layer0 {name}", x, w,
                                e["idx"], e["cnt"], blk)[0])
@@ -278,21 +289,24 @@ def graph_ms(torch, fn):
 
 
 def k9_cases(torch, timer, fa, sched_for):
-    """K9 at danube's attention shapes: 32 query heads over 8 KV heads
-    (G = 4), head_dim 80, bf16.  The yardstick is PyTorch's
+    """K9 at danube's attention shapes (32 query heads over 8 KV heads,
+    G = 4, head_dim 80) and at mistral-large's on the paged-serve path (96
+    over 8, G = 12, head_dim 128: the full prefill's 592 positions and a
+    suffix's 16), bf16.  The yardstick is PyTorch's
     scaled_dot_product_attention with the same boolean mask (none for the
     softcap case: that call has no softcap)."""
     F = torch.nn.functional
-    BH, G, d = 32, 4, 80
-    cases = (  # (name, S, window, softcap)
-        ("S=512 causal", 512, 0, 0.0),
-        ("S=1024 window=4096 (main-path bucket)", 1024, 4096, 0.0),
-        ("S=6144 window=4096", 6144, 4096, 0.0),
-        ("S=300 ragged causal", 300, 0, 0.0),
-        ("S=512 causal softcap=30", 512, 0, 30.0),
+    cases = (  # (name, BH, G, d, S, window, softcap)
+        ("S=512 causal", 32, 4, 80, 512, 0, 0.0),
+        ("S=1024 window=4096 (main-path bucket)", 32, 4, 80, 1024, 4096, 0.0),
+        ("S=6144 window=4096", 32, 4, 80, 6144, 4096, 0.0),
+        ("S=300 ragged causal", 32, 4, 80, 300, 0, 0.0),
+        ("S=512 causal softcap=30", 32, 4, 80, 512, 0, 30.0),
+        ("S=592 causal (paged-serve full prefill)", 96, 12, 128, 592, 0, 0.0),
+        ("S=16 causal (paged-serve suffix self phase)", 96, 12, 128, 16, 0, 0.0),
     )
     out = []
-    for name, S, window, softcap in cases:
+    for name, BH, G, d, S, window, softcap in cases:
         q = torch.randn(BH, S, d, device="cuda").to(torch.bfloat16)
         k = torch.randn(BH // G, S, d, device="cuda").to(torch.bfloat16)
         v = torch.randn(BH // G, S, d, device="cuda").to(torch.bfloat16)
@@ -447,17 +461,21 @@ def main_path(torch, timer, bsm, fa):
     return stats, launches, served
 
 
-def decode_device_ms(torch, engine, lm_decode):
+def decode_device_ms(torch, engine, lm_decode, label="main"):
     """Device time of one full-capacity decode step against its host-clock
     time.  The step is captured once in a CUDA graph; a replay runs the same
     kernels back to back with no host work between them, so the events
     around it time the step's device work alone.  Runs after the served
-    requests: it only rewrites cache slots past their end."""
+    requests: it only rewrites cache slots past their end (a paged engine's
+    released slots hold sentinel tables, so their writes drop; the step
+    gathers and attends the same shapes)."""
     dev = engine.device
     tok = torch.from_numpy(engine.cur_tok[:, None]).to(dev)
     pos = torch.from_numpy(engine.pos).to(dev)
+    tables = ({g: torch.from_numpy(t).to(dev) for g, t in engine.tables.items()}
+              if engine.paged else None)
     step = lambda: lm_decode(engine.params, engine.cfg, engine.caches, tok, pos,
-                             masks=engine.masks, pack=engine.pack)
+                             masks=engine.masks, pack=engine.pack, tables=tables)
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -465,7 +483,7 @@ def decode_device_ms(torch, engine, lm_decode):
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     dev_ms = graph_ms(torch, step)
-    print(f"main: decode step at capacity 4: {dev_ms:.2f} ms device time "
+    print(f"{label}: decode step at capacity 4: {dev_ms:.2f} ms device time "
           f"(CUDA-graph replay), {wall_ms:.2f} ms host clock, card idle "
           f"{1 - dev_ms / wall_ms:.1%} of the host-driven step")
     return dev_ms
@@ -1185,6 +1203,271 @@ def fused_train(torch, mm):
     return {"steps": log, "tokens_per_step": MASKED_BATCH * TRAIN_SEQ}, launches
 
 
+# ---------------------------------------------------------------------------
+# paged serving: mistral-large-123b, the prefix cache, K12, the sampler
+# ---------------------------------------------------------------------------
+
+PAGED_LAYERS = 4  # of 88: the full model's f32 masters (490 GB) fit no card
+PAGED_ENGINE = dict(capacity=4, max_len=592, paged=True, page_size=16)
+PREFIX_LEN = 512  # the shared template (a multiple of the page size)
+
+
+def paged_config():
+    """mistral-large-123b at its published widths, 4 layers deep,
+    block_sparse (128x128 blocks) with flash_tight attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("mistral-large-123b"), kernel="block_sparse",
+                           block=128, attn_kernel="flash_tight")
+    return dataclasses.replace(cfg, n_layers=PAGED_LAYERS)
+
+
+def prefix_requests(cfg, n=8, gen=32, seed=0, sampled=(2, 5)):
+    """The reference's shared-prefix scenario (benchmarks/serve_bench.py::
+    _prefix_requests): ``n`` requests on one ``PREFIX_LEN``-token template
+    plus 4-11 random suffix tokens, ``gen`` new tokens each, declaring the
+    template as shared; the requests of ``sampled`` draw at temperature 0.8
+    with top-k 40, the others are greedy."""
+    import numpy as np
+    from repro_torch.serving.queue import Request
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, size=PREFIX_LEN).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        suffix = rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 12))).astype(np.int32)
+        hot = i in sampled
+        reqs.append(Request(rid=i, tokens=np.concatenate([prefix, suffix]),
+                            max_new_tokens=gen, share_prefix_len=PREFIX_LEN,
+                            temperature=0.8 if hot else 0.0, top_k=40 if hot else 0,
+                            seed=seed + i))
+    return reqs
+
+
+def k12_cases(torch, timer, fa):
+    """K12 against its plain version at mistral-large's attention widths: 4
+    rows of suffix queries (96 heads over 8 KV heads, head_dim 128, bf16),
+    Sq 16 and 128, a table of 256 pages of 16 per row into a pool of 1024
+    shuffled pages, ctx 0, 100 (inside a page), 2047 and 4096 (the whole
+    table) with sentinel tails, and a softcap case.  o element by element
+    within ``fa.o_error_bound`` (the kernel rounds p to bf16, both round o),
+    lse within 1e-3 (f32 in both) and exactly -1e30 where ctx = 0.  The
+    yardstick is scaled_dot_product_attention on the table-gathered prefix
+    with a key-padding mask, timed alone (the gather outside its events).
+    A last case runs the paged-serve path's own shape: one 16-row suffix
+    over a 37-page table at ctx 512."""
+    import numpy as np
+
+    F = torch.nn.functional
+    B, H, KV, d, bs, T, N = 4, 96, 8, 128, 16, 256, 1024
+    ctxs = [0, 100, 2047, 4096]
+    rng = np.random.default_rng(12)
+    table = np.full((B, T), N, np.int32)
+    perm = rng.permutation(N)
+    for b, c in enumerate(ctxs):
+        n = -(-c // bs)
+        table[b, :n] = perm[:n]
+        perm = perm[n:]
+    table = torch.from_numpy(table).cuda()
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    pk = torch.randn(N, bs, KV, d, device="cuda").to(torch.bfloat16)
+    pv = torch.randn(N, bs, KV, d, device="cuda").to(torch.bfloat16)
+    out = []
+    for Sq, softcap in ((16, 0.0), (128, 0.0), (16, 30.0), (16, None)):
+        if softcap is None:  # the paged-serve path's own shape: one suffix
+            # of 16 (padded) over its 37-page table, ctx 512
+            softcap, B, ctxs, T, N = 0.0, 1, [PREFIX_LEN], 37, 148
+            table = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+            ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+            pk, pv = pk[:N], pv[:N]
+        live_keys = sum(-(-c // bs) * bs for c in ctxs)
+        q = torch.randn(B, H, Sq, d, device="cuda").to(torch.bfloat16)
+        o, lse = fa.flash_attention_paged(q, pk, pv, table, ctx, softcap=softcap)
+        po, plse = fa.flash_attention_paged_plain(q, pk, pv, table, ctx, softcap=softcap)
+        pa, _ = fa.flash_attention_paged_plain(q, pk, pv.abs(), table, ctx, softcap=softcap)
+        diff = (o.float() - po.float()).abs()
+        bound = fa.o_error_bound(po, pa)
+        ratio = (diff / bound.clamp_min(1e-30)).max().item()
+        live = plse > -1e29
+        err_l = (lse[live] - plse[live]).abs().max().item()
+        empty_ok = bool((lse[~live] == -1e30).all()) and \
+            int((~live).sum()) == H * Sq * ctxs.count(0)
+        if not (bool((diff <= bound).all()) and err_l <= 1e-3 and empty_ok):
+            raise AssertionError(
+                f"K12 Sq={Sq} softcap={softcap}: o over its bound {ratio:.3g}x "
+                f"(max err {diff.max().item()}), lse err {err_l}, ctx=0 rows ok {empty_ok}")
+        # bytes: q and o once, lse, the live K/V pages once per KV head, the
+        # table and ctx; operations: 4 d per (query, live key) pair
+        n_bytes = 2 * 2 * B * H * Sq * d + 4 * B * H * Sq + 2 * 2 * live_keys * KV * d \
+            + 4 * (table.numel() + B)
+        b_ms, by = bound_ms(n_bytes, 4.0 * d * Sq * sum(ctxs) * H)
+        lib_ms = None
+        if not softcap:  # SDPA has no softcap
+            tab = table.long().clamp(0, N - 1)
+            kg = pk[tab].reshape(B, T * bs, KV, d).transpose(1, 2)
+            vg = pv[tab].reshape(B, T * bs, KV, d).transpose(1, 2)
+            mask = (torch.arange(T * bs, device="cuda")[None, :] < ctx[:, None].long())
+            mask = mask[:, None, None, :]
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=mask, enable_gqa=True), reps=5)
+        case = {
+            "case": f"Sq={Sq} softcap={softcap} B={B} H={H} KV={KV} d={d} "
+                    f"pages {T}x{bs} ctx={ctxs}",
+            "max_abs_err": diff.max().item(), "lse_err": err_l, "lse_tol": 1e-3,
+            "tol": "2**-7 |o| + 1.25 * 2**-8 (p @ |v|) / l, per element",
+            "err_over_tol": ratio,
+            "ms": timer(lambda: fa.flash_attention_paged(q, pk, pv, table, ctx,
+                                                         softcap=softcap), reps=5),
+            "plain_ms": timer(lambda: fa.flash_attention_paged_plain(
+                q, pk, pv, table, ctx, softcap=softcap), reps=2, warmup=1),
+            "library_ms": lib_ms, "library": "SDPA on the gathered prefix, alone",
+            "bound_ms": b_ms, "bound_by": by,
+        }
+        print("K12", json.dumps(case))
+        out.append(case)
+    return out
+
+
+def paged_serve(torch, timer, bsm, fa):
+    """Serve mistral-large-123b (4 layers, full width, block_sparse,
+    flash_tight, ERK 0.8, seed 0) through the paged engine with the prefix
+    cache: 8 requests on one 512-token template, 2 of them sampled; every
+    request DONE with 32 tokens, 1 prefix miss and 7 hits, the pool books
+    clean, exactly 28 K12 launches (7 suffix prefills x 4 layers), K9 and
+    K1 launched.  Then: the first-token logits of a suffix prefill against
+    a full paged prefill of the same prompt; the greedy streams of a paged
+    engine without the prefix cache and of the contiguous engine, which
+    must be the same; K1 on layer 0's served packs."""
+    import numpy as np
+    from repro_torch.launch.serve import init_serving_state
+    from repro_torch.models.model import (
+        init_paged_caches,
+        lm_decode,
+        lm_prefill_into,
+        lm_prefill_suffix,
+    )
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    cfg = paged_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg, seed=0, device="cuda")
+    kw = dict(masks=masks, pack=pack, **PAGED_ENGINE)
+    engine = ServeEngine(cfg, params, prefix_cache=4, **kw)
+    del params
+    torch.cuda.synchronize()
+    print(f"paged serve: mistral-large-123b ({cfg.n_layers} of 88 layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}) "
+          f"initialised in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    params = engine.params
+    # warm-up on another template (a miss and a hit), before the counted run
+    for r in prefix_requests(cfg, 2, gen=2, seed=1, sampled=(1,)):
+        engine.submit(r)
+    engine.run()
+
+    reqs = prefix_requests(cfg)
+    engine = ServeEngine(cfg, params, prefix_cache=4, **kw)
+    for r in reqs:
+        engine.submit(r)
+    fa.paged_launches = fa.launches = bsm.launches = 0
+    stats = engine.run()
+    launches = {"paged_flash_fwd": fa.paged_launches, "flash_fwd": fa.launches,
+                "block_sparse_fwd": bsm.launches}
+    engine.check_pool_accounting()
+    n_full = stats["prefills"] - stats["suffix_prefills"]
+    stats["full_prefill_ms"] = 1e3 * (stats["prefill_s"] - stats["suffix_prefill_s"]) / max(n_full, 1)
+    stats["suffix_prefill_ms"] = 1e3 * stats["suffix_prefill_s"] / max(stats["suffix_prefills"], 1)
+    stats["decode_step_ms"] = 1e3 * stats["decode_step_s"]
+    print("paged serve: engine", json.dumps({k: stats[k] for k in (
+        "requests", "tokens", "decode_steps", "prefills", "suffix_prefills",
+        "prefix_hits", "prefix_misses", "kv_forks", "pages_live", "quarantined",
+        "failed", "wall_s", "tok_per_s")}))
+    for r in reqs:
+        if r.status is not Status.DONE or len(r.generated) != 32:
+            raise AssertionError(f"paged request {r.rid}: {r.status} with "
+                                 f"{len(r.generated)} tokens")
+    if stats["quarantined"] or stats["failed"]:
+        raise AssertionError(f"paged serve: quarantined/failed slots: {stats}")
+    if (stats["prefix_misses"], stats["prefix_hits"]) != (1, 7):
+        raise AssertionError(f"paged serve: {stats['prefix_misses']} misses and "
+                             f"{stats['prefix_hits']} hits, expected 1 and 7")
+    if launches["paged_flash_fwd"] != 7 * cfg.n_layers or not all(launches.values()):
+        raise AssertionError(f"paged serve: launches {launches}, expected "
+                             f"{7 * cfg.n_layers} K12")
+
+    # a suffix prefill's first-token logits against a full paged prefill of
+    # the same prompt (the same prefix pages, written by the full prefill)
+    req = reqs[0]
+    L, ctx, bs = req.prompt_len, PREFIX_LEN, PAGED_ENGINE["page_size"]
+    max_len = PAGED_ENGINE["max_len"]
+    T = max_len // bs
+    caches = init_paged_caches(cfg, {"global": 2 * T}, bs, "cuda")
+    full_tab = torch.arange(T, dtype=torch.int32, device="cuda")
+    sfx_tab = full_tab.clone()
+    sfx_tab[ctx // bs:] += T  # fresh pages after the shared prefix
+    pad = lambda a, n: torch.from_numpy(np.pad(a, (0, n - len(a))).astype(np.int64))[None].cuda()
+    full, _ = lm_prefill_into(params, cfg, caches, {"tokens": pad(req.tokens, max_len)}, 0,
+                              max_len, masks=masks, pack=pack, n_valid=L,
+                              tables={"global": full_tab})
+    n0 = fa.paged_launches
+    sfx, _ = lm_prefill_suffix(params, cfg, caches, {"tokens": pad(req.tokens[ctx:], 16)},
+                               sfx_tab, ctx, masks=masks, pack=pack, n_valid=L - ctx)
+    V = cfg.vocab_size
+    a, b = sfx.float()[..., :V], full.float()[..., :V]
+    if not bool(torch.isfinite(a).all()) or a.shape != (1, 1, V) \
+            or fa.paged_launches - n0 != cfg.n_layers:
+        raise AssertionError("suffix logits not finite, of the wrong shape, or K12 not run")
+    err, tol = (a - b).abs().max().item(), 2e-2 * b.abs().max().item()
+    stats["suffix_vs_full_logit_err"], stats["suffix_vs_full_logit_tol"] = err, tol
+    print(f"paged serve: suffix vs full prefill logits: max err {err:.4g} (tol "
+          f"{tol:.4g}); top-1 {int(a.argmax())} vs {int(b.argmax())}")
+    if err > tol:
+        raise AssertionError("suffix prefill logits differ from the full prefill")
+    del caches
+
+    # paged (no prefix cache) against contiguous decode: the greedy streams
+    streams = {}
+    for name, extra in (("paged", {}), ("contiguous", {"paged": False})):
+        eng = ServeEngine(cfg, params, **dict(kw, **extra))
+        rs = prefix_requests(cfg)
+        for r in rs:
+            eng.submit(r)
+        st = eng.run()
+        stats[f"{name}_no_prefix_tok_per_s"] = st["tok_per_s"]
+        streams[name] = rs
+    greedy = [i for i, r in enumerate(reqs) if r.temperature <= 0.0]
+    same = [streams["paged"][i].generated == streams["contiguous"][i].generated
+            for i in range(len(reqs))]
+    stats["greedy_streams_identical"] = all(same[i] for i in greedy)
+    stats["sampled_streams_identical"] = all(same[i] for i in range(len(reqs)) if i not in greedy)
+    stats["prefix_vs_no_prefix_identical"] = [
+        reqs[i].generated == streams["paged"][i].generated for i in range(len(reqs))]
+    print(f"paged serve: paged vs contiguous engine, greedy streams identical "
+          f"{stats['greedy_streams_identical']}, sampled "
+          f"{stats['sampled_streams_identical']}; prefix-cache vs paged streams "
+          f"identical {stats['prefix_vs_no_prefix_identical']}")
+    if not stats["greedy_streams_identical"]:
+        raise AssertionError("paged greedy streams differ from the contiguous engine's")
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode,
+                                                      "paged serve")
+    k1_ms, n_calls = k1_decode_ms(torch, bsm, engine)
+    stats["k1_decode_step_ms"] = k1_ms
+    print(f"paged serve: K1 in one decode step: {n_calls} launches, {k1_ms:.2f} ms "
+          f"device time (CUDA-graph replay), "
+          f"{k1_ms / stats['decode_step_device_ms']:.1%} of the step's device time")
+    print(f"paged serve: prefill {stats['full_prefill_ms']:.2f} ms per full and "
+          f"{stats['suffix_prefill_ms']:.2f} ms per suffix admission, decode "
+          f"{stats['decode_step_ms']:.2f} ms/step (capacity 4), "
+          f"{stats['tok_per_s']:.2f} tok/s end to end, peak {stats['peak_gib']:.1f} GiB; "
+          f"launches {launches}")
+    served = k1_served_cases(torch, timer, bsm, engine, rows=(4, max_len))
+    return stats, launches, served
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -1262,10 +1545,15 @@ def main() -> int:
     done("masked train")
     fused_stats, fused_launches = fused_train(torch, mm)
     done("fused train")
+    k12 = k12_cases(torch, timer, fa)
+    done("parity K12")
+    paged_stats, paged_launches, k1_paged = paged_serve(torch, timer, bsm, fa)
+    k1 += k1_paged
+    done("paged serve")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
-             "fused_train": fused_launches}
+             "fused_train": fused_launches, "paged_serve": paged_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -1306,6 +1594,8 @@ def main() -> int:
                 mcases["K15"]),
         summary("masked_dw_fused", csrc + "masked_matmul.cu", kern + "masked_matmul.py:498",
                 mcases["K19"]),
+        summary("paged_flash_fwd", csrc + "flash_paged.cu", kern + "flash_attention.py:317",
+                k12),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1314,6 +1604,7 @@ def main() -> int:
          "k10": k10, "k11": k11, "engine": serve_stats, "train": train_stats,
          "masked_cases": mcases, "masked_engine": masked_serve_stats,
          "masked_train": masked_train_stats, "fused_train": fused_stats,
+         "k12": k12, "paged_engine": paged_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -3,7 +3,8 @@
 Own copy (numpy only) of the JAX package's ``core/attn_sched.py``: the
 arrays must be equal element by element, since the flash kernel of each
 package walks exactly ``kv_idx[qb, :kv_cnt[qb]]``.  The paged-prefix
-schedule and the brute-force rasterizer are not ported yet.
+schedule (``paged_prefix_schedule``) is copied too; the brute-force
+rasterizer is not ported.
 
 The flash-attention kernel (kernels/flash_attention.py) tiles the score matrix
 into (bq x bk) blocks.  For causal and sliding-window masks most of those
@@ -42,7 +43,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-__all__ = ["live_block_mask", "build_attn_schedule", "sched_for"]
+__all__ = ["live_block_mask", "build_attn_schedule", "sched_for",
+           "paged_prefix_schedule"]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -159,3 +161,24 @@ def sched_for(
     return build_attn_schedule(
         sq, sk, bq, bk, causal=causal, window=window, q_offset=q_offset
     )
+
+
+@functools.lru_cache(maxsize=256)
+def paged_prefix_schedule(sq: int, n_pages: int, bq: int, page_size: int):
+    """Walk of the paged-prefix phase of a suffix prefill (the reference's
+    ``paged_prefix_schedule``).  Page liveness depends on the per-row
+    prefix length ``ctx``, which the host schedule does not know, so
+    ``kv_idx`` is the identity walk over all ``n_pages`` table entries for
+    every q-block; the kernel clips it at ``ceil(ctx / page_size)`` pages."""
+    n_q = _cdiv(sq, bq)
+    kv_idx = np.broadcast_to(
+        np.arange(n_pages, dtype=np.int32)[None, :], (n_q, n_pages)
+    ).copy()
+    return {
+        "sq": sq,
+        "n_pages": n_pages,
+        "bq": bq,
+        "page_size": page_size,
+        "width": n_pages,
+        "kv_idx": kv_idx,
+    }

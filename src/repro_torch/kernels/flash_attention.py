@@ -9,6 +9,9 @@ the sources:
   K10 ``_dq_kernel`` (``_dq_call``)    dq on the same walk -> csrc/flash_bwd.cu
   K11 ``_dkv_kernel`` (``_dkv_call``)  dk and dv on the transposed walk
       ``q_idx[kb, :q_cnt[kb]]``, summed over each GQA group -> csrc/flash_bwd.cu
+  K12 ``_paged_kernel`` (``_paged_call``)  the prefix phase of a suffix
+      prefill: suffix queries over the live pages of a paged KV pool,
+      through a block table, o and lse              -> csrc/flash_paged.cu
 
 The walks come from a host-built AttnSchedule (``core/attn_sched.py``); the
 causal, sliding-window, ``q_offset`` and padded-key masks are applied in the
@@ -21,10 +24,12 @@ training lengths the work is 4*d (forward), 6*d (dq) and 8*d (dk/dv) flops
 per live (q, k) pair against q, k, v, o, do and the row statistics read
 once, so the bound is usually the tensor cores.
 
-``flash_fwd``, ``flash_dq`` and ``flash_dkv`` launch their kernels for CUDA
-tensors (bf16 only) and take the plain versions (``flash_attention_plain``,
-``flash_bwd_plain``) only for CPU tensors.  ``launches``, ``dq_launches``
-and ``dkv_launches`` count kernel launches.  ``flash_attention`` is the
+``flash_fwd``, ``flash_dq``, ``flash_dkv`` and ``flash_attention_paged``
+launch their kernels for CUDA tensors (bf16 only) and take the plain
+versions (``flash_attention_plain``, ``flash_bwd_plain``,
+``flash_attention_paged_plain``) only for CPU tensors.  ``launches``,
+``dq_launches``, ``dkv_launches`` and ``paged_launches`` count kernel
+launches.  ``flash_attention`` is the
 public wrapper of the reference (``flash_attention.py:666``): block
 clamping, padding to (bq, bk), the AttnSchedule of those shapes and the
 ``FlashAttention`` autograd Function (the reference's ``_flash`` custom VJP:
@@ -39,13 +44,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.attn_sched import sched_for
+from ..core.attn_sched import paged_prefix_schedule, sched_for
 from . import _build
 
 __all__ = [
     "FlashAttention",
     "effective_blocks",
     "flash_attention",
+    "flash_attention_paged",
+    "flash_attention_paged_plain",
     "flash_attention_plain",
     "flash_bwd",
     "flash_bwd_plain",
@@ -56,6 +63,7 @@ __all__ = [
     "launches",
     "dq_launches",
     "dkv_launches",
+    "paged_launches",
     "o_error_bound",
 ]
 
@@ -66,6 +74,7 @@ EPS = 1e-30
 launches = 0      # K9
 dq_launches = 0   # K10
 dkv_launches = 0  # K11
+paged_launches = 0  # K12
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -478,3 +487,97 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         o, lse = flash_fwd(q, k, v, sched[0], sched[1], **kw)
         return o[:, :Sq], lse[:, :Sq]
     return FlashAttention.apply(q, k, v, sched, kw)[:, :Sq]
+
+
+def flash_attention_paged_plain(q, pool_k, pool_v, table, ctx, *,
+                                softcap: float = 0.0):
+    """Plain K12: the full masked softmax in f32 over the keys the table
+    gathers.  Same arguments and outputs as ``flash_attention_paged``; key
+    kpos of row b is live iff kpos < ctx[b] (the schedule's walk over all
+    T pages, clipped by ctx); rows with no live key give o = 0 and
+    lse = -1e30."""
+    B, H, Sq, d = q.shape
+    N, bs, KV, _ = pool_k.shape
+    T = table.shape[1]
+    G = H // KV
+    walk = torch.as_tensor(paged_prefix_schedule(Sq, T, Sq, bs)["kv_idx"][0],
+                           device=q.device).long()
+    tab = table.long()[:, walk].clamp(0, N - 1)  # the sentinel N reads page N - 1
+    live = torch.arange(T * bs, device=q.device)[None, :] < ctx.long()[:, None]
+    scale = float(1.0 / np.sqrt(d))
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        k = pool_k[tab[b]].reshape(T * bs, KV, d).float().permute(1, 2, 0)
+        v = pool_v[tab[b]].reshape(T * bs, KV, d).float().transpose(0, 1)
+        s = q[b].float().reshape(KV, G * Sq, d) @ k * scale  # (KV, G Sq, T bs)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~live[b], NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m).masked_fill(~live[b], 0.0)
+        l = p.sum(-1, keepdim=True)
+        o[b] = ((p @ v) / l.clamp_min(EPS)).reshape(H, Sq, d).to(q.dtype)
+        lse[b] = torch.where(l > 0, m + torch.log(l.clamp_min(EPS)),
+                             NEG_INF).reshape(H, Sq)
+    return o, lse
+
+
+def flash_attention_paged(q, pool_k, pool_v, table, ctx, *,
+                          softcap: float = 0.0):
+    """K12: suffix queries attending a paged KV prefix through a block
+    table (the reference's ``flash_attention_paged``).
+
+    q (B, H, Sq, d) roped suffix queries; pool_k/pool_v (N, bs, KV, d)
+    (``models/attention.py::init_kv_pool``); table (B, T) int32 physical
+    page ids (the sentinel N marks unowned entries); ctx (B,) int32 valid
+    prefix lengths, on q's device.  Returns (o (B, H, Sq, d) in q's dtype,
+    lse (B, H, Sq) f32); rows with ctx == 0 give o = 0 and lse = -1e30.
+    CUDA tensors launch the kernel (bf16) or raise; CPU tensors run the
+    plain version.  The reference's q-tile ``bq`` has no counterpart: the
+    kernel tiles the G * Sq rows of each KV head by 64.  Nothing here reads
+    ctx or the table on the host.
+    """
+    global paged_launches
+    if not _on_device("flash_attention_paged", q):
+        return flash_attention_paged_plain(q, pool_k, pool_v, table, ctx,
+                                           softcap=softcap)
+    B, H, Sq, d = q.shape
+    N, bs, KV, _ = pool_k.shape
+    what = "flash_attention_paged"
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v), ("table", table),
+                    ("ctx", ctx)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
+    if not all(t.dtype == torch.bfloat16 for t in (q, pool_k, pool_v)):
+        raise TypeError(f"{what}: the CUDA kernel takes bf16 q and pools (got "
+                        f"{q.dtype}, {pool_k.dtype}, {pool_v.dtype})")
+    if table.dtype != torch.int32 or ctx.dtype != torch.int32:
+        raise TypeError(f"{what}: table and ctx must be int32")
+    if (pool_v.shape != pool_k.shape or pool_k.shape[3] != d or H % KV
+            or table.dim() != 2 or table.shape[0] != B or ctx.shape != (B,)):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(pool_k.shape)}, table {tuple(table.shape)}, "
+                         f"ctx {tuple(ctx.shape)} do not match")
+    if d % 16 or d > 128:
+        raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 up to 128")
+    if not all(t.is_contiguous() for t in (q, pool_k, pool_v, table, ctx)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError(f"{what}: q and the pools must be 16-byte aligned")
+    lib = _build.load("flash_paged")
+    fn = lib.flash_paged
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                table.data_ptr(), ctx.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                B, H, Sq, N, bs, KV, table.shape[1], d,
+                float(1.0 / np.sqrt(d)), float(softcap),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_paged launch")
+    paged_launches += 1
+    return o, lse

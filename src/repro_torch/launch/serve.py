@@ -11,6 +11,10 @@ the serve state's PackState, packed once; with ``--kernel masked`` the
 masked kernel (K13) on the weights and their elementwise masks; with
 ``--attn-kernel flash_tight``
 prefill attention runs the flash CUDA kernel on the prompt's AttnSchedule.
+``--paged`` pages the KV caches and ``--prefix-cache N`` shares prompt
+prefixes (a hit's suffix prefill runs the paged flash kernel K12), as in
+the reference.  Sampling is reached through the ``Request`` fields
+(``staggered_requests(temperature=, top_k=)``), as in the reference CLI.
 """
 from __future__ import annotations
 
@@ -131,10 +135,19 @@ def main(argv=None):
                    help="admission deadline in seconds from arrival")
     p.add_argument("--max-retries", type=int, default=0,
                    help="quarantine-retry budget per request")
-    p.add_argument("--paged", action="store_true", help="not ported yet")
-    p.add_argument("--page-size", type=int, default=16, help="not ported yet")
-    p.add_argument("--n-blocks", type=int, default=None, help="not ported yet")
-    p.add_argument("--prefix-cache", type=int, default=0, help="not ported yet")
+    p.add_argument("--paged", action="store_true",
+                   help="page the KV caches: per-slot block tables over "
+                   "shared page pools")
+    p.add_argument("--page-size", type=int, default=16,
+                   help="tokens per KV page (must divide --max-len and each "
+                   "local ring length)")
+    p.add_argument("--n-blocks", type=int, default=None,
+                   help="global page-pool size (default: capacity * max_len "
+                   "/ page_size, i.e. no oversubscription)")
+    p.add_argument("--prefix-cache", type=int, default=0,
+                   help="max LRU-registered shared prefixes for copy-on-write "
+                   "prefix reuse (0 = off; needs --paged and an all-global "
+                   "config)")
     p.add_argument("--lockstep", action="store_true", help="not ported yet")
     p.add_argument("--batch", type=int, default=4, help="lockstep only")
     p.add_argument("--prompt-len", type=int, default=48, help="lockstep only")
@@ -177,7 +190,7 @@ def main(argv=None):
     stats = engine.run()
     print(f"engine  kernel={cfg.sparse.kernel}  "
           f"attn_kernel={cfg.sparse.attn_kernel}  capacity={args.capacity}  "
-          f"device={engine.device}")
+          f"paged={args.paged}  device={engine.device}")
     for k, v in stats.items():
         print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}")
     return stats

@@ -1,5 +1,5 @@
 """GQA attention of the port: RoPE, sliding window, flash prefill, KV-cache
-decode.
+decode, paged KV pools.
 
 Port of the JAX package's ``models/attention.py`` for serving.  Prefill
 attention with ``attn_kernel`` 'flash' or 'flash_tight' runs the flash
@@ -7,6 +7,16 @@ kernel (``kernels/flash_attention.py``), which walks the AttnSchedule of
 the prompt length; 'dense' runs the plain masked softmax.  Decode
 attention is plain PyTorch, as it is plain jnp in the reference: one query
 per slot over the window-bounded cache has no dead score block to skip.
+
+Paged caches (``init_kv_pool``): one pool of (N, page_size, KV, hd) pages
+per layer, addressed through per-slot block tables whose unowned entries
+hold the sentinel id N.  The reference's XLA gathers clip N and its
+scatters drop it (``mode='drop'``); torch indexing has neither, so reads
+clamp the table to N - 1 and writes go through ``_scatter_drop``, which
+never indexes with N and needs no host sync.  A suffix prefill over a
+cached prefix (``attention(history=)``) runs the paged flash kernel K12 for
+the prefix and the causal flash kernel K9 for the suffix, merged by
+logsumexp as in the reference.
 
 Caches are updated in place (the reference returns new arrays): the serving
 engine owns one batched cache for its lifetime, and in-place writes keep a
@@ -19,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_paged
 from .layers import P, compute_dtype, linear
 
 __all__ = [
@@ -27,7 +37,11 @@ __all__ = [
     "attention",
     "attn_decode",
     "fill_kv_cache",
+    "fill_kv_pool",
+    "fill_kv_pool_suffix",
+    "gather_kv_pool",
     "init_kv_cache",
+    "init_kv_pool",
     "rope",
 ]
 
@@ -141,11 +155,17 @@ def _flash_attend(q, k, v, cfg, *, causal, window):
 
 
 def attention(p, x, cfg, *, kind: str = "global", positions=None, masks=None,
-              pack=None):
+              pack=None, history=None):
     """Full-sequence attention (prefill).  Returns (out, (k, v)).
 
     kind: 'global' or 'local' (sliding window ``cfg.window``).  ``masks`` /
     ``pack`` route the projections through ``layers.linear``.
+
+    history: suffix-only prefill over a paged prefix, as the reference:
+    {"pool": init_kv_pool leaves, "table": (B, T) int32 page ids, "ctx":
+    (B,) int32 valid prefix lengths on x's device}.  ``x`` is then the
+    suffix (``positions`` carry its absolute offsets) and every query also
+    attends the first ``ctx`` cached positions.  Global causal layers only.
     """
     B, S, _ = x.shape
     if positions is None:
@@ -155,16 +175,69 @@ def attention(p, x, cfg, *, kind: str = "global", positions=None, masks=None,
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else 0
     attn_kernel = cfg.sparse.attn_kernel
-    if attn_kernel in ("flash", "flash_tight"):
+    if attn_kernel not in ("dense", "flash", "flash_tight"):
+        raise ValueError(f"unknown sparse.attn_kernel {attn_kernel!r}")
+    if history is not None:
+        if kind != "global" or window or not cfg.causal:
+            raise ValueError(
+                "attention: history (shared-prefix suffix prefill) supports "
+                "global causal layers only"
+            )
+        o = _attend_with_history(q, k, v, history, cfg,
+                                 flash=attn_kernel != "dense")
+    elif attn_kernel in ("flash", "flash_tight"):
         o = _flash_attend(q, k, v, cfg, causal=cfg.causal, window=window)
-    elif attn_kernel == "dense":
+    else:
         o = _softmax_attend(
             q, k, v, _make_mask(S, S, cfg.causal, window, x.device), cfg
         )
-    else:
-        raise ValueError(f"unknown sparse.attn_kernel {attn_kernel!r}")
     out = linear(p["wo"], o.reshape(B, S, -1), **_linear_kw(cfg, masks, "wo", pack))
     return out, (k, v)
+
+
+def _attend_with_history(q, k, v, history, cfg, *, flash: bool):
+    """Suffix-only prefill attention: paged prefix + causal self block.
+
+    q/k/v: (B, S, H|KV, hd) for the suffix positions ctx..ctx+S-1.  Each
+    query attends [prefix keys gathered through the table, live iff kpos <
+    ctx] ++ [suffix keys, j <= i]: the keys a full prefill's rows ctx.. see.
+    dense: one masked softmax over the concatenation.  flash: K12
+    (``flash_attention_paged``) over the prefix pages and K9 (causal, with
+    its lse) over the suffix, merged by logsumexp in f32; K12's rows with
+    no live key have lse = -1e30, so their weight underflows to exactly 0.
+    """
+    B, S, H, hd = q.shape
+    pool, table, ctx = history["pool"], history["table"], history["ctx"]
+    if not flash:
+        view = gather_kv_pool(pool, table)
+        Hlen = view["k"].shape[1]
+        hist_m = torch.arange(Hlen, device=q.device)[None, :] < ctx[:, None]
+        self_m = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        mask = torch.cat([hist_m[:, None, :].expand(B, S, Hlen),
+                          self_m[None].expand(B, S, S)], dim=-1)
+        return _softmax_attend(
+            q, torch.cat([view["k"].to(k.dtype), k], dim=1),
+            torch.cat([view["v"].to(v.dtype), v], dim=1),
+            mask[:, None, None], cfg,
+        )
+    softcap = float(cfg.logit_softcap or 0.0)
+    KV = k.shape[2]
+    o_hist, l_hist = flash_attention_paged(
+        q.transpose(1, 2).contiguous(), pool["k"], pool["v"], table, ctx,
+        softcap=softcap,
+    )  # (B, H, S, hd), (B, H, S)
+    fold = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], S, hd)
+    o_self, l_self = flash_attention(
+        fold(q), fold(k), fold(v), causal=True, window=0, return_lse=True,
+        softcap=softcap, kv_groups=H // KV,
+    )
+    o_self = o_self.reshape(B, H, S, hd)
+    l_self = l_self.reshape(B, H, S)  # finite: every row attends itself
+    m = torch.maximum(l_hist, l_self)
+    w1 = torch.exp(l_hist - m)[..., None]
+    w2 = torch.exp(l_self - m)[..., None]
+    o = (w1 * o_hist.float() + w2 * o_self.float()) / (w1 + w2)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def init_kv_cache(cfg, kind: str, batch: int, max_len: int, dtype, device):
@@ -173,6 +246,74 @@ def init_kv_cache(cfg, kind: str, batch: int, max_len: int, dtype, device):
     shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_kv_pool(cfg, n_blocks: int, page_size: int, dtype, device):
+    """One layer's paged cache: ``n_blocks`` pages of (page_size, KV, hd),
+    shared by every slot through its block table; page ids are group-wide
+    (``serving/block_pool.py``)."""
+    shape = (n_blocks, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gather_kv_pool(pool, table):
+    """Slot-major contiguous view {"k"/"v": (B, T * bs, KV, hd)} of the
+    pages ``table`` (B, T) names.  The sentinel N reads page N - 1 (the
+    reference's clip): junk lanes every consumer masks, like the stale
+    positions of a recycled contiguous slot."""
+    B, T = table.shape
+    N, bs = pool["k"].shape[:2]
+    tab = table.long().clamp(0, N - 1)
+    return {n: leaf[tab].reshape(B, T * bs, *leaf.shape[2:])
+            for n, leaf in pool.items()}
+
+
+def _scatter_drop(leaf, target, vals, keep):
+    """``leaf[target[e]] = vals[e]`` where ``keep[e]``, in place: the
+    reference's scatter with ``mode='drop'``.  target (E,) indexes leaf's
+    first dim and must lie in range for kept entries; the others are
+    clamped and write what their slot will hold anyway (the value of the
+    first kept entry of the same target, else the slot's own content), so
+    every duplicate index writes the same bits and no sync is needed."""
+    tgt = target.long().clamp(0, leaf.shape[0] - 1)
+    match = (tgt[:, None] == tgt[None, :]) & keep[None, :]  # (E, E)
+    first = match.long().argmax(1)
+    has = match.any(1).view(-1, *([1] * (vals.dim() - 1)))
+    leaf[tgt] = torch.where(has, vals[first].to(leaf.dtype), leaf[tgt])
+
+
+def fill_kv_pool(pool, row, table):
+    """Scatter one prefilled contiguous cache row {"k"/"v": (1, size, KV,
+    hd)} into the pool through ``table`` (T,) int32 (T * page_size ==
+    size), in place.  Sentinel entries are dropped, so a partly allocated
+    table never clobbers a page."""
+    N, bs = pool["k"].shape[:2]
+    T = table.shape[0]
+    keep = table < N
+    for n, leaf in pool.items():
+        _scatter_drop(leaf, table, row[n][0].reshape(T, bs, *leaf.shape[2:]), keep)
+    return pool
+
+
+def fill_kv_pool_suffix(pool, k, v, table, start, n_valid):
+    """Scatter suffix K/V (1, S, KV, hd), already roped, at positions
+    start..start+S-1 through ``table`` (T,): position p lands at
+    (table[p // bs], p % bs).  Positions at or past ``n_valid`` (bucket
+    padding) and sentinel pages are dropped.  Global (linear) caches only,
+    in place."""
+    N, bs = pool["k"].shape[:2]
+    S = k.shape[1]
+    ar = torch.arange(S, device=k.device)
+    posv = start + ar
+    pg = table[torch.clamp(torch.div(posv, bs, rounding_mode="floor"),
+                           max=table.shape[0] - 1)].long()
+    keep = (ar < n_valid) & (pg < N)
+    flat = pg.clamp(0, N - 1) * bs + posv % bs
+    for n, t in (("k", k), ("v", v)):
+        leaf = pool[n].view(N * bs, *pool[n].shape[2:])
+        _scatter_drop(leaf, flat, t[0], keep)
+    return pool
 
 
 def fill_kv_cache(cache, k, v, start: int = 0, n_valid=None):
@@ -209,12 +350,20 @@ def fill_kv_cache(cache, k, v, start: int = 0, n_valid=None):
 
 
 def attn_decode(p, x_t, cache, pos, cfg, *, kind: str = "global", masks=None,
-                pack=None, active=None):
+                pack=None, active=None, table=None):
     """One decode step.  x_t: (B, 1, d); pos: int, or a (B,) tensor giving
     every slot its own position (the serving engine).  ``active`` (B,) bool
     (needs per-slot pos): inactive rows leave the cache as it was; their
     output is garbage the engine never reads.  Returns (out, cache) with
     the cache updated in place.
+
+    ``table`` (B, T) int32 switches to paged addressing (needs per-slot
+    pos): ``cache`` is a pool (``init_kv_pool``), position p writes at
+    (table[b, slot // bs], slot % bs) with the contiguous path's ring or
+    linear ``slot``, and attention runs on the gathered view
+    (``gather_kv_pool``) of length T * bs, whose bytes are the contiguous
+    cache's: paged decode is token-identical to contiguous decode.
+    Inactive rows' writes are dropped.
     """
     B = x_t.shape[0]
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
@@ -226,6 +375,28 @@ def attn_decode(p, x_t, cache, pos, cfg, *, kind: str = "global", masks=None,
     k = rope(k, posv, cfg.rope_theta)
 
     ring = kind == "local" and cfg.window
+    if table is not None:
+        if not per_slot:
+            raise ValueError("attn_decode: paged cache requires pos: (B,)")
+        N, bs = cache["k"].shape[:2]
+        size = table.shape[1] * bs
+        slots = torch.remainder(pos, size) if ring else pos
+        rows = torch.arange(B, device=x_t.device)
+        pg = table[rows, torch.clamp(torch.div(slots, bs, rounding_mode="floor"),
+                                     0, table.shape[1] - 1)].long()
+        keep = pg < N
+        if active is not None:  # dead slots' writes drop
+            keep = keep & active
+        flat = pg.clamp(0, N - 1) * bs + slots % bs
+        for name, t in (("k", k), ("v", v)):
+            leaf = cache[name].view(N * bs, *cache[name].shape[2:])
+            _scatter_drop(leaf, flat, t[:, 0], keep)
+        view = gather_kv_pool(cache, table)
+        valid = torch.arange(size, device=x_t.device)[None, :] <= pos[:, None]
+        o = _softmax_attend(q, view["k"], view["v"],
+                            valid[:, None, None, None, :], cfg)
+        out = linear(p["wo"], o.reshape(B, 1, -1), **_linear_kw(cfg, masks, "wo", pack))
+        return out, cache
     size = cache["k"].shape[1]
     arange = torch.arange(size, device=x_t.device)
     if per_slot:

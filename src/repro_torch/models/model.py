@@ -45,8 +45,11 @@ __all__ = [
     "lm_forward",
     "lm_loss",
     "init_caches",
+    "cache_group",
+    "init_paged_caches",
     "lm_prefill",
     "lm_prefill_into",
+    "lm_prefill_suffix",
     "lm_decode",
     "logits_all_finite",
 ]
@@ -132,13 +135,16 @@ def _embed(params, cfg, tokens):
     return x.float() * float(np.float32(np.sqrt(cfg.d_model)))
 
 
-def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None):
-    """Full-sequence block (prefill).  Returns (x, (k, v))."""
+def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
+           history=None):
+    """Full-sequence block (prefill).  Returns (x, (k, v)).  ``history``:
+    this layer's paged-prefix dict for a suffix prefill
+    (``attention(history=)``)."""
     kind = cfg.layer_kind(i)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, kv = A.attention(
         p["attn"], h, cfg, kind=kind, positions=positions,
-        masks=_sub(masks, "attn"), pack=_sub(pack, "attn"),
+        masks=_sub(masks, "attn"), pack=_sub(pack, "attn"), history=history,
     )
     x = x + attn_out
     ff_out = mlp(
@@ -162,15 +168,22 @@ def _logits(params, cfg, h):
 
 
 def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
-               collect_states: bool = True):
+               collect_states: bool = True, histories=None):
     """Full-sequence forward -> (hidden (B, S, d), per-layer (k, v)).
 
     Without ``collect_states`` (the loss) and with ``cfg.remat`` under
     autograd, each group of ``cfg.remat_group`` blocks runs as one
     checkpoint region: only its input is saved and its forward reruns in
     the backward (so the forward kernels launch twice per step).  The
-    states list is then empty, as in the reference."""
+    states list is then empty, as in the reference.
+
+    ``positions``: absolute RoPE positions ((S,) or (B, S)), default
+    arange(S).  ``histories``: per-layer paged-prefix dicts for a suffix
+    prefill (``lm_prefill_suffix``); ``batch`` is then the suffix and
+    ``positions`` carry its offsets."""
     _check_ported(cfg)
+    if histories is not None and not collect_states:
+        raise ValueError("lm_forward: histories (suffix prefill) collect states")
     x = _embed(params, cfg, batch["tokens"])
     S = x.shape[1]
     if positions is None:
@@ -188,8 +201,10 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
         for i0 in range(0, cfg.n_layers, g):
             x = checkpoint(region, i0, x, use_reentrant=False)
     else:
+        hist = histories if histories is not None else [None] * cfg.n_layers
         for i, (p, m, pk) in enumerate(layers):
-            x, kv = _block(p, x, cfg, i, positions=positions, masks=m, pack=pk)
+            x, kv = _block(p, x, cfg, i, positions=positions, masks=m, pack=pk,
+                           history=hist[i])
             if collect_states:
                 states.append(kv)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), states
@@ -227,6 +242,27 @@ def init_caches(cfg, batch: int, max_len: int, device):
     ]
 
 
+def cache_group(cfg, i: int) -> str:
+    """The page-pool group of layer i's KV cache: 'local' (a ring of
+    min(window, max_len)) or 'global' (max_len).  Layers of one group share
+    one page id space (``serving/block_pool.py``)."""
+    return "local" if (cfg.layer_kind(i) == "local" and cfg.window) else "global"
+
+
+def init_paged_caches(cfg, n_blocks: dict, page_size: int, device):
+    """Paged ``init_caches``: each layer's KV leaves are a page pool of
+    ``n_blocks[cache_group(cfg, i)]`` pages (``attention.init_kv_pool``);
+    the serving engine owns the tables.  The reference also takes the batch
+    and max_len for its recurrent families' per-slot states, which the
+    dense-family stack does not have."""
+    dt = compute_dtype(cfg)
+    return [
+        {"kv": A.init_kv_pool(cfg, n_blocks[cache_group(cfg, i)], page_size,
+                              dt, device)}
+        for i in range(cfg.n_layers)
+    ]
+
+
 def lm_prefill(params, cfg, batch, max_len: int, *, masks=None, pack=None,
                n_valid=None):
     """Run the prompt -> (last-position logits (B, 1, V), filled caches).
@@ -244,17 +280,60 @@ def lm_prefill(params, cfg, batch, max_len: int, *, masks=None, pack=None,
 
 
 def lm_prefill_into(params, cfg, caches, batch, slot: int, max_len: int, *,
-                    masks=None, pack=None, n_valid=None):
+                    masks=None, pack=None, n_valid=None, tables=None):
     """Prefill ONE prompt (B=1) and write its cache row into ``caches`` at
     ``slot``, in place; stale positions beyond the prompt stay, since decode
     never attends a position before the write that owns it.  Returns
-    (logits (1, 1, V), caches)."""
+    (logits (1, 1, V), caches).
+
+    ``tables`` ({'global'/'local': (T_g,) int32} page tables of this
+    request's row, on the device) switches ``caches`` to the paged layout
+    (``init_paged_caches``): the same B=1 prefill, then its row scatters
+    page by page through the group's table (``attention.fill_kv_pool``),
+    which is what makes paged admission token-identical to contiguous."""
     logits, row = lm_prefill(params, cfg, batch, max_len, masks=masks,
                              pack=pack, n_valid=n_valid)
-    for c, r in zip(caches, row):
+    for i, (c, r) in enumerate(zip(caches, row)):
+        if tables is not None:
+            A.fill_kv_pool(c["kv"], r["kv"], tables[cache_group(cfg, i)])
+            continue
         for name in ("k", "v"):
             c["kv"][name][slot] = r["kv"][name][0]
     return logits, caches
+
+
+def lm_prefill_suffix(params, cfg, caches, batch, table, ctx: int, *,
+                      masks=None, pack=None, n_valid=None):
+    """Prefill only the SUFFIX of a prompt whose first ``ctx`` positions are
+    already in the paged pools (shared-prefix admission): the shared pages'
+    K/V are never recomputed.
+
+    caches: paged (``init_paged_caches``); table: (T,) int32 global-group
+    page table of the request on the device (shared or forked prefix pages
+    first, unowned tail = sentinel); ctx: the cached prefix length, a host
+    int (the engine knows it); batch: B=1 suffix tokens from position ctx,
+    bucket-padded, ``n_valid`` of them true.  Suffix queries attend [the
+    table's prefix, causal self] (``attention._attend_with_history``) with
+    RoPE at ctx + arange(S); the suffix K/V then scatter at positions ctx..
+    (``attention.fill_kv_pool_suffix``), in place.  Returns (logits at
+    suffix position n_valid - 1, caches).  All-global causal transformer
+    stacks only."""
+    if not cfg.causal or any(cache_group(cfg, i) != "global"
+                             for i in range(cfg.n_layers)):
+        raise ValueError("lm_prefill_suffix: all-global causal stacks only")
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    dev = tokens.device
+    positions = ctx + torch.arange(S, device=dev)
+    ctx_d = torch.full((1,), ctx, dtype=torch.int32, device=dev)
+    histories = [{"pool": c["kv"], "table": table[None], "ctx": ctx_d}
+                 for c in caches]
+    h, states = lm_forward(params, cfg, batch, masks=masks, pack=pack,
+                           positions=positions, histories=histories)
+    n = S if n_valid is None else n_valid
+    for c, (k, v) in zip(caches, states):
+        A.fill_kv_pool_suffix(c["kv"], k, v, table, ctx, n)
+    return _logits(params, cfg, h[:, n - 1:n]), caches
 
 
 def logits_all_finite(logits):
@@ -264,10 +343,12 @@ def logits_all_finite(logits):
 
 
 def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
-              active=None):
+              active=None, tables=None):
     """One decode step.  tokens: (B, 1) int; pos: int or (B,) tensor;
-    ``active`` (B,) bool leaves inactive rows' caches untouched.  Returns
-    (logits (B, 1, V), caches updated in place)."""
+    ``active`` (B,) bool leaves inactive rows' caches untouched.
+    ``tables`` ({group: (B, T_g) int32} on the device) switches to the
+    paged layout (``attention.attn_decode(table=)``).  Returns (logits
+    (B, 1, V), caches updated in place)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
     for i, (p, m, pk, c) in enumerate(zip(
@@ -277,6 +358,7 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
         attn_out, c["kv"] = A.attn_decode(
             p["attn"], h, c["kv"], pos, cfg, kind=cfg.layer_kind(i),
             masks=_sub(m, "attn"), pack=_sub(pk, "attn"), active=active,
+            table=None if tables is None else tables[cache_group(cfg, i)],
         )
         x = x + attn_out
         x = x + mlp(

@@ -1,1 +1,2 @@
-"""Continuous-batching serving of the port (contiguous caches, greedy)."""
+"""Continuous-batching serving of the port: contiguous or paged caches, the
+copy-on-write prefix cache, greedy and sampled decoding."""

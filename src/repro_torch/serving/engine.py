@@ -1,8 +1,7 @@
-"""Continuous-batching serving engine of the port: per-slot greedy decode
-over recycled KV slots.
+"""Continuous-batching serving engine of the port: per-slot decode over
+recycled KV slots, contiguous or paged, with a copy-on-write prefix cache.
 
-Port of the JAX package's ``serving/engine.py`` for the contiguous cache
-layout and greedy decoding:
+Port of the JAX package's ``serving/engine.py``:
 
   * a fixed-capacity SLOT POOL owns one batched cache
     (``models/model.py::init_caches`` at batch=capacity) for the engine's
@@ -18,14 +17,31 @@ layout and greedy decoding:
     the pack is validated at construction (``core/pack.py::validate_pack``);
   * failure edges as in the reference: depth-bounded queue and admission
     deadlines shed, a per-slot ``finite`` flag quarantines only the faulty
-    request (retry with backoff or FAILED).
+    request (retry with backoff or FAILED);
+  * sampling per request (greedy, temperature, top-k, seed) on the
+    reference's threefry streams (``serving/sampler.py``); steps whose
+    active slots are all greedy take a plain argmax;
+  * ``paged=True``: the KV caches are page pools (``init_paged_caches``)
+    addressed through per-slot block tables of one ``BlockPool`` per cache
+    group; pages are allocated at admission and returned at release;
+  * ``prefix_cache=N``: an LRU table of up to N page-aligned prompt
+    prefixes (sha1 of their tokens).  A hit maps the prefix pages into the
+    new slot's table (refcount++; a partly shared boundary page is forked
+    and copied) and prefills only the suffix (``lm_prefill_suffix``: the
+    paged flash kernel K12 over the prefix).  All-global causal
+    transformer configs only, as in the reference.
 
-Not ported yet (raise ``NotImplementedError``): paged caches and the prefix
-cache, the fault injector, observability hooks, and temperature/top-k
-sampling, whose reference streams are ``jax.random`` threefry keys.
+The slot state (tokens, positions, active mask, sampling keys and
+parameters) and the block tables have device copies that advance on the
+device and are re-uploaded only when an admission or release changes the
+host mirrors: a host-to-device copy synchronises the stream.
+
+Not ported yet (raise ``NotImplementedError``): the fault injector and
+observability hooks.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import NamedTuple, Optional
 
@@ -34,13 +50,18 @@ import torch
 
 from ..core.pack import validate_pack
 from ..models.model import (
+    cache_group,
     init_caches,
+    init_paged_caches,
     lm_decode,
     lm_prefill_into,
+    lm_prefill_suffix,
     logits_all_finite,
     serving_weights,
 )
+from .block_pool import BlockPool
 from .queue import Request, RequestQueue, Status, percentile
+from .sampler import request_key, sample_tokens, step_keys
 
 __all__ = ["ServeEngine", "QuarantineRecord"]
 
@@ -77,6 +98,25 @@ def _not_ported(what: str):
     return NotImplementedError(f"ServeEngine: {what} is not ported yet")
 
 
+class _PrefixEntry:
+    """One registered shared prefix: its page-aligned token count and the
+    global-pool pages the cache holds a reference on."""
+
+    __slots__ = ("plen", "pages")
+
+    def __init__(self, plen: int, pages: list):
+        self.plen = plen
+        self.pages = pages
+
+
+def _pick(logits, temp, topk, keys, greedy: bool):
+    """Tokens of (B, V) logits: argmax when every row is greedy, else the
+    sampler on each row's step key."""
+    if greedy:
+        return logits.argmax(-1)
+    return sample_tokens(logits, keys, temp, topk)
+
+
 class ServeEngine:
     """Fixed-capacity continuous-batching engine over one cache.
 
@@ -88,6 +128,13 @@ class ServeEngine:
     projection dispatches through ``cfg.sparse.kernel`` and ``pack``
     carries the block-sparse topology.  queue_limit, deadline and
     max_retries are the reference's fault-tolerance knobs.
+
+    Paged knobs, as the reference: ``paged`` (page pools and block tables),
+    ``page_size`` (must divide max_len and each local ring length),
+    ``n_blocks`` (global pool size in pages; None = capacity * max_len /
+    page_size; local ring pools are always full), ``prefix_cache`` (max
+    registered shared prefixes, 0 = off; needs ``paged`` and an all-global
+    causal transformer).
     """
 
     def __init__(self, cfg, params, *, capacity: int, max_len: int,
@@ -98,8 +145,6 @@ class ServeEngine:
                  obs=None):
         if faults is not None:
             raise _not_ported("fault injection (faults=)")
-        if paged or prefix_cache:
-            raise _not_ported("the paged KV cache and prefix cache")
         if obs is not None:
             raise _not_ported("observability (obs=)")
         if not cfg.causal:
@@ -117,11 +162,60 @@ class ServeEngine:
         self.deadline = deadline
         self.max_retries = max_retries
         self.queue = RequestQueue(max_depth=queue_limit)
-        self.caches = init_caches(cfg, capacity, max_len, self.device)
+        self.paged = paged
+        self.page_size = page_size
+        self.prefix_cache = prefix_cache
+        # sharing replays nothing: every layer's cache must be plain
+        # position-indexed KV with no ring wrap
+        share_ok = all(cache_group(cfg, i) == "global"
+                       for i in range(cfg.n_layers))
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache needs paged=True (sharing is a "
+                             "property of the page tables)")
+        if prefix_cache and not share_ok:
+            raise ValueError(
+                "prefix_cache requires an all-global config: a sliding-window "
+                f"ring cache cannot share pages (config {cfg.name!r})"
+            )
+        self._spans: dict[str, int] = {}
+        self.pools: dict[str, BlockPool] = {}
+        self.tables: dict[str, np.ndarray] = {}
+        self.slot_pages: list[dict[str, list]] = [{} for _ in range(capacity)]
+        self._prefix_entries: dict[bytes, _PrefixEntry] = {}
+        if paged:
+            # one pool and one table per cache group: global layers share a
+            # page id space sized in max_len rows, local ring layers a dense
+            # ring pool
+            for i in range(cfg.n_layers):
+                g = cache_group(cfg, i)
+                self._spans[g] = min(cfg.window, max_len) if g == "local" else max_len
+            for g, span in self._spans.items():
+                if span % page_size:
+                    raise ValueError(f"page_size {page_size} must divide the "
+                                     f"{g} cache length {span}")
+                t = span // page_size
+                n = capacity * t if g == "local" or n_blocks is None else n_blocks
+                self.pools[g] = BlockPool(n, page_size)
+                self.tables[g] = np.full((capacity, t), n, np.int32)
+            self.caches = init_paged_caches(
+                cfg, {g: p.n_blocks for g, p in self.pools.items()}, page_size,
+                self.device)
+        else:
+            self.caches = init_caches(cfg, capacity, max_len, self.device)
+        self.n_prefix_hits = 0
+        self.n_prefix_misses = 0
+        # per-slot host mirrors; the decode step consumes device copies,
+        # re-uploaded only when an admission or release changes a mirror
         self.active = np.zeros(capacity, bool)
         self.pos = np.zeros(capacity, np.int64)
         self.cur_tok = np.zeros(capacity, np.int64)
+        self.base_keys = np.zeros((capacity, 2), np.uint32)
+        self.gen_idx = np.zeros(capacity, np.int64)
+        self.temp = np.zeros(capacity, np.float32)
+        self.topk = np.zeros(capacity, np.int64)
         self.slot_req: list[Optional[Request]] = [None] * capacity
+        self._device_state: Optional[dict] = None  # None => mirrors changed
+        self._device_tables: Optional[dict] = None  # None => a table changed
         self.n_steps = 0
         self.n_prefills = 0
         self.n_quarantined = 0
@@ -132,6 +226,8 @@ class ServeEngine:
         # a device-to-host copy, so they include the device work
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        self.suffix_prefill_s = 0.0
+        self.n_suffix_prefills = 0
 
     # -- admission ---------------------------------------------------------
 
@@ -142,20 +238,189 @@ class ServeEngine:
 
     def submit(self, req: Request) -> bool:
         """Enqueue; False (request SHED) when the queue is full.  Invalid
-        requests (oversize, max_new_tokens < 1, sampling) raise."""
+        requests (oversize, more pages than the global pool, patches)
+        raise."""
         need = req.prompt_len + req.max_new_tokens
         if need > self.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + max_new_tokens "
                 f"{req.max_new_tokens} needs {need} > max_len {self.max_len}"
             )
-        if req.temperature > 0.0 or req.top_k:
-            raise _not_ported("temperature/top-k sampling (greedy only)")
-        if req.share_prefix_len or req.patches is not None:
-            raise _not_ported("shared prefixes and patch prompts")
+        if "global" in self.pools:
+            # the paged bound is PAGES: a request the global pool could never
+            # hold is rejected here rather than deferred forever
+            pages = -(-need // self.page_size)
+            if pages > self.pools["global"].n_blocks:
+                raise ValueError(
+                    f"request {req.rid}: needs {pages} KV pages "
+                    f"(page_size {self.page_size}) but the global block "
+                    f"pool only has {self.pools['global'].n_blocks}"
+                )
+        if req.patches is not None:
+            raise _not_ported("patch prompts")
         if req.ttl is None:
             req.ttl = self.deadline
         return self.queue.submit(req)
+
+    # -- paged-pool bookkeeping (host-side; serving/block_pool.py) ---------
+
+    def _prefix_key(self, req: Request):
+        """(key, plen) of an eligible shared-prefix probe, (None, 0) when the
+        request shares nothing page-aligned: plen is the declared prefix
+        floored to a page multiple, the key the sha1 of those tokens."""
+        bs = self.page_size
+        if not (self.prefix_cache and req.share_prefix_len >= bs):
+            return None, 0
+        plen = (min(req.share_prefix_len, req.prompt_len) // bs) * bs
+        if plen < bs:
+            return None, 0
+        key = hashlib.sha1(
+            np.ascontiguousarray(req.tokens[:plen], np.int32).tobytes()
+        ).digest()
+        return key, plen
+
+    def _evict_prefix(self) -> None:
+        """Drop the least-recently-used prefix: the cache's page references
+        go; pages live slots still reference stay."""
+        key = next(iter(self._prefix_entries))
+        self.pools["global"].free(self._prefix_entries.pop(key).pages)
+
+    def _ensure_free(self, want: dict) -> bool:
+        """True once every group can allocate its ``want`` pages, evicting
+        LRU prefixes under global-pool pressure."""
+        ok = lambda: all(self.pools[g].can_alloc(n) for g, n in want.items())
+        while not ok() and self._prefix_entries:
+            self._evict_prefix()
+        return ok()
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Device copy-on-write: a forked global page takes the shared
+        page's K/V in every layer's pool."""
+        for c in self.caches:
+            for leaf in c["kv"].values():
+                leaf[dst].copy_(leaf[src])
+
+    def _alloc_pages(self, req: Request, s: int) -> Optional[int]:
+        """Allocate slot ``s``'s pages for ``req`` and write its table rows.
+
+        Returns the shared-prefix length ``ctx`` (0 = full prefill), or None
+        when the pools cannot hold the request even after LRU eviction (the
+        caller re-queues; a release frees pages).  On a prefix hit the
+        leading ``ctx // page_size`` pages are mapped (refcount++), a partly
+        shared boundary page is forked and copied (or written in place when
+        eviction left this slot its only holder), and only the rest is
+        newly allocated.
+        """
+        bs = self.page_size
+        need = req.prompt_len + req.max_new_tokens
+        want = {g: -(-min(span, need) // bs) for g, span in self._spans.items()}
+        key, _ = self._prefix_key(req)
+        entry = self._prefix_entries.get(key) if key is not None else None
+        pool = self.pools.get("global")
+        if entry is None:
+            if key is not None:
+                self.n_prefix_misses += 1
+            if not self._ensure_free(want):
+                return None
+            rows = {g: self.pools[g].alloc(n) for g, n in want.items()}
+            ctx = 0
+        else:
+            # never a zero-token suffix: the first token's logits come from
+            # a real forward of at least the last prompt token
+            ctx = min(entry.plen, req.prompt_len - 1)
+            n_keep = ctx // bs
+            boundary = ctx % bs != 0
+            self._prefix_entries[key] = self._prefix_entries.pop(key)  # LRU
+            shared = [int(p) for p in entry.pages[: n_keep + boundary]]
+            pool.incref(shared)  # hold the pages before any eviction below
+            if not self._ensure_free({"global": want["global"] - n_keep}):
+                pool.free(shared)
+                return None
+            row = shared[:n_keep]
+            n_fresh = want["global"] - n_keep
+            if boundary:
+                bp = shared[-1]
+                if pool.refcount[bp] >= 2:  # still shared: fork and copy
+                    new_bp = pool.fork(bp)
+                    self._copy_page(bp, new_bp)
+                    row.append(new_bp)
+                else:  # eviction left it to this slot alone
+                    row.append(bp)
+                n_fresh -= 1
+            row += pool.alloc(n_fresh)
+            rows = {"global": row}
+            self.n_prefix_hits += 1
+        for g, pages in rows.items():
+            self.tables[g][s] = self.pools[g].sentinel
+            self.tables[g][s, : len(pages)] = pages
+        self.slot_pages[s] = rows
+        self._device_tables = None
+        return ctx
+
+    def _free_slot_pages(self, s: int) -> None:
+        """Return slot ``s``'s page references (shared pages live on through
+        the prefix cache's or other slots' references)."""
+        for g, pages in self.slot_pages[s].items():
+            self.pools[g].free(pages)
+            self.tables[g][s] = self.pools[g].sentinel
+        if self.slot_pages[s]:
+            self.slot_pages[s] = {}
+            self._device_tables = None
+
+    def _register_prefix(self, req: Request, s: int) -> None:
+        """After a finite FULL prefill: publish the request's page-aligned
+        prefix pages (the cache takes its own references), evicting LRU
+        entries past the limit."""
+        key, plen = self._prefix_key(req)
+        if key is None or key in self._prefix_entries:
+            return
+        pages = [int(p) for p in self.tables["global"][s][: plen // self.page_size]]
+        self.pools["global"].incref(pages)
+        self._prefix_entries[key] = _PrefixEntry(plen, pages)
+        while len(self._prefix_entries) > self.prefix_cache:
+            self._evict_prefix()
+
+    def check_pool_accounting(self) -> None:
+        """Audit every pool against the books: live pages are exactly the
+        slot-table references plus the prefix-cache holds
+        (``BlockPool.check``)."""
+        for g, pool in self.pools.items():
+            refs = [p for sp in self.slot_pages for p in sp.get(g, ())]
+            if g == "global":
+                for e in self._prefix_entries.values():
+                    refs.extend(e.pages)
+            pool.check(refs)
+
+    def _prefill(self, req: Request, s: int, ctx: int):
+        """Run the admission prefill of ``req`` into slot ``s`` -> (first
+        token, finite) on the host.  ctx > 0: only the suffix after the
+        cached prefix runs (``lm_prefill_suffix``)."""
+        dev = self.device
+        slen = req.prompt_len - ctx
+        padded = self._padded_len(slen)
+        toks = np.zeros(padded, np.int64)
+        toks[:slen] = req.tokens[ctx:]
+        batch = {"tokens": torch.from_numpy(toks)[None].to(dev)}
+        tables = ({g: torch.from_numpy(t[s]).to(dev) for g, t in self.tables.items()}
+                  if self.paged else None)
+        if ctx:
+            logits, self.caches = lm_prefill_suffix(
+                self.params, self.cfg, self.caches, batch, tables["global"],
+                ctx, masks=self.masks, pack=self.pack, n_valid=slen)
+        else:
+            logits, self.caches = lm_prefill_into(
+                self.params, self.cfg, self.caches, batch, s, self.max_len,
+                masks=self.masks, pack=self.pack, n_valid=slen, tables=tables)
+        last = logits[:, -1]
+        greedy = req.temperature <= 0.0
+        keys = None if greedy else step_keys(
+            torch.from_numpy(request_key(req.seed)[None].astype(np.int64)).to(dev),
+            torch.zeros(1, dtype=torch.int64, device=dev))
+        tok = _pick(last, torch.full((1,), req.temperature, device=dev),
+                    torch.full((1,), req.top_k, device=dev), keys, greedy)
+        tok, fin = (int(x) for x in torch.stack(
+            [tok[0], logits_all_finite(last)[0].long()]).cpu())
+        return tok, bool(fin)
 
     def _admit(self, now: float, finished: list, clock=None) -> None:
         while True:
@@ -167,25 +432,30 @@ class ServeEngine:
                 return
             s = int(free[0])
             req.status = Status.PREFILL
-            padded = self._padded_len(req.prompt_len)
-            toks = np.zeros(padded, np.int64)
-            toks[: req.prompt_len] = req.tokens
-            batch = {"tokens": torch.from_numpy(toks)[None].to(self.device)}
+            ctx = 0
+            if self.paged:
+                got = self._alloc_pages(req, s)
+                if got is None:
+                    # pools exhausted by outstanding slots: hand the request
+                    # back; a release frees pages and a later step retries
+                    self.queue.requeue(req)
+                    return
+                ctx = got
             t0 = time.perf_counter()
-            logits, self.caches = lm_prefill_into(
-                self.params, self.cfg, self.caches, batch, s, self.max_len,
-                masks=self.masks, pack=self.pack,
-                n_valid=req.prompt_len,
-            )
-            last = logits[0, -1]
-            tok, fin = (int(x) for x in torch.stack(
-                [last.argmax(), torch.isfinite(last).all().long()]).cpu())
-            self.prefill_s += time.perf_counter() - t0
+            tok, fin = self._prefill(req, s, ctx)
+            dt = time.perf_counter() - t0
+            self.prefill_s += dt
             self.n_prefills += 1
+            if ctx:
+                self.suffix_prefill_s += dt
+                self.n_suffix_prefills += 1
             t = clock() if clock is not None else now
             if not fin:
                 self._quarantine(req, s, t, finished, where="prefill")
                 continue
+            if self.paged and not ctx:
+                # publish the finite-verified prefix pages for reuse
+                self._register_prefix(req, s)
             req.generated.append(tok)
             req.slot = s
             req.status = Status.DECODE
@@ -195,6 +465,11 @@ class ServeEngine:
             self.active[s] = True
             self.pos[s] = req.prompt_len
             self.cur_tok[s] = tok
+            self.base_keys[s] = request_key(req.seed)
+            self.gen_idx[s] = 1
+            self.temp[s] = req.temperature
+            self.topk[s] = req.top_k
+            self._device_state = None
             if self._is_finished(req, tok):
                 self._release(req, t)
                 finished.append(req)
@@ -207,20 +482,26 @@ class ServeEngine:
     def _release(self, req: Request, now: float) -> None:
         s = req.slot
         self.queue.finish(req, now)
+        if self.paged:
+            self._free_slot_pages(s)
         self.active[s] = False
         self.slot_req[s] = None
+        self._device_state = None
 
     def _quarantine(self, req: Request, slot: int, now: float,
                     finished: list, *, where: str) -> None:
         """Non-finite logits on ``req``'s slot: drop the token, free the slot
-        (the next admission overwrites the row), then re-queue with
-        exponential backoff or land the request FAILED."""
+        and its pages (the next admission overwrites the row), then
+        re-queue with exponential backoff or land the request FAILED."""
         self.n_quarantined += 1
         self.quarantine_log.append(
             QuarantineRecord(self.n_steps, req.rid, slot, req.n_retries, where)
         )
+        if self.paged:
+            self._free_slot_pages(slot)
         self.active[slot] = False
         self.slot_req[slot] = None
+        self._device_state = None
         limit = self.max_retries if req.max_retries is None else req.max_retries
         if req.n_retries < limit:
             req.n_retries += 1
@@ -240,6 +521,24 @@ class ServeEngine:
 
     # -- stepping ----------------------------------------------------------
 
+    def _device_carry(self) -> dict:
+        """Device copies of the slot mirrors and tables, uploaded when a
+        mirror changed since the last step."""
+        dev = self.device
+        if self._device_state is None:
+            up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            self._device_state = {
+                "tok": up(self.cur_tok[:, None]), "pos": up(self.pos),
+                "active": up(self.active),
+                "keys": up(self.base_keys.astype(np.int64)),
+                "gen": up(self.gen_idx), "temp": up(self.temp),
+                "topk": up(self.topk),
+            }
+        if self.paged and self._device_tables is None:
+            self._device_tables = {g: torch.from_numpy(t).to(dev)
+                                   for g, t in self.tables.items()}
+        return self._device_state
+
     def step(self, now: float = 0.0, clock=None) -> list[Request]:
         """Shed expired queue entries, admit what fits, then decode one
         token on every active slot.  Returns the requests that reached a
@@ -249,17 +548,23 @@ class ServeEngine:
         self._admit(now, finished, clock)
         if not self.active.any():
             return finished
-        dev = self.device
         t0 = time.perf_counter()
+        st = self._device_carry()
         logits, self.caches = lm_decode(
-            self.params, self.cfg, self.caches,
-            torch.from_numpy(self.cur_tok[:, None]).to(dev),
-            torch.from_numpy(self.pos).to(dev),
-            masks=self.masks, pack=self.pack,
-            active=torch.from_numpy(self.active).to(dev),
+            self.params, self.cfg, self.caches, st["tok"], st["pos"],
+            masks=self.masks, pack=self.pack, active=st["active"],
+            tables=self._device_tables if self.paged else None,
         )
         last = logits[:, -1]
-        out = torch.stack([last.argmax(-1), logits_all_finite(last).long()]).cpu()
+        # all-greedy steps skip the sampler (no (B, V) sort, no noise)
+        greedy = not bool(np.any(self.temp[self.active] > 0.0))
+        keys = None if greedy else step_keys(st["keys"], st["gen"])
+        nxt = _pick(last, st["temp"], st["topk"], keys, greedy)
+        act = st["active"]
+        st["tok"] = torch.where(act[:, None], nxt[:, None], st["tok"])
+        st["pos"] = st["pos"] + act
+        st["gen"] = st["gen"] + act
+        out = torch.stack([nxt, logits_all_finite(last).long()]).cpu()
         nxt, finite = out[0].numpy(), out[1].numpy().astype(bool)
         self.decode_s += time.perf_counter() - t0
         t = clock() if clock is not None else now
@@ -271,6 +576,7 @@ class ServeEngine:
             tok = int(nxt[s])
             req.generated.append(tok)
             self.pos[s] += 1
+            self.gen_idx[s] += 1
             self.cur_tok[s] = tok
             if self._is_finished(req, tok):
                 self._release(req, t)
@@ -296,14 +602,15 @@ class ServeEngine:
     def stats(self, wall_s: float) -> dict:
         """Aggregate summary: the reference's keys, minus its jit retrace
         count (the port compiles nothing per shape), plus the host-clock
-        prefill total and mean decode-step time."""
+        prefill totals (all, and suffix-only admissions) and the mean
+        decode-step time."""
         by = lambda st: [r for r in self.queue.done if r.status is st]
         done = by(Status.DONE)
         toks = sum(len(r.generated) for r in done)
         lat = [r.latency for r in done if r.latency is not None]
         waits = [r.t_admitted - r.arrival for r in self.queue.done
                  if r.t_admitted is not None]
-        return {
+        out = {
             "requests": len(done),
             "shed": len(by(Status.SHED)),
             "failed": len(by(Status.FAILED)),
@@ -320,4 +627,14 @@ class ServeEngine:
             "latency_p95_s": percentile(lat, 95),
             "queue_wait_p50_s": percentile(waits, 50),
             "queue_wait_p95_s": percentile(waits, 95),
+            "suffix_prefills": self.n_suffix_prefills,
+            "suffix_prefill_s": self.suffix_prefill_s,
         }
+        if self.paged:
+            out["prefix_hits"] = self.n_prefix_hits
+            out["prefix_misses"] = self.n_prefix_misses
+            out["prefix_entries"] = len(self._prefix_entries)
+            out["kv_forks"] = sum(p.n_forks for p in self.pools.values())
+            out["pages_free"] = {g: p.n_free for g, p in self.pools.items()}
+            out["pages_live"] = {g: p.n_live for g, p in self.pools.items()}
+        return out

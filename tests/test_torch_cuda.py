@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 (bf16 and f32), K2, K3, K9, K10, K11, the masked K13, K14, K15 and the
-fused epilogue K19, and training steps through them.
+K1 (bf16 and f32), K2, K3, K9, K10, K11, the paged-prefix K12, the masked
+K13, K14, K15 and the fused epilogue K19, training steps and paged serving
+through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode.  The file imports no JAX, so it runs on a machine that has
@@ -412,3 +413,106 @@ def _leaves(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _leaves(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,softcap", [(16, 0.0), (128, 0.0), (16, 30.0)])
+def test_cuda_paged_flash_matches_plain(Sq, softcap):
+    """K12 at mistral-large's attention widths (96 heads over 8 KV heads,
+    head_dim 128) on 256 pages of 16 per row, ctx 0, 100 (inside a page),
+    2047 and 4096 with sentinel table tails: o element by element within
+    ``o_error_bound``, lse within 1e-3 and exactly -1e30 (o = 0) where
+    ctx = 0."""
+    dev = _cuda()
+    B, H, KV, d, bs, T, N = 4, 96, 8, 128, 16, 256, 1024
+    rng = np.random.default_rng(Sq)
+    ctxs = [0, 100, 2047, 4096]
+    table = np.full((B, T), N, np.int32)
+    perm = rng.permutation(N)
+    for b, c in enumerate(ctxs):
+        n = -(-c // bs)
+        table[b, :n], perm = perm[:n], perm[n:]
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16).to(dev)
+    q, pk, pv = f(B, H, Sq, d), f(N, bs, KV, d), f(N, bs, KV, d)
+    table = torch.from_numpy(table).to(dev)
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    n0 = tfa.paged_launches
+    o, lse = tfa.flash_attention_paged(q, pk, pv, table, ctx, softcap=softcap)
+    assert tfa.paged_launches == n0 + 1
+    po, plse = tfa.flash_attention_paged_plain(q, pk, pv, table, ctx, softcap=softcap)
+    pa, _ = tfa.flash_attention_paged_plain(q, pk, pv.abs(), table, ctx, softcap=softcap)
+    assert bool(((o.float() - po.float()).abs() <= tfa.o_error_bound(po, pa)).all())
+    live = plse > -1e29
+    assert (lse[live] - plse[live]).abs().max().item() <= 1e-3
+    assert bool((lse[0] == -1e30).all()) and bool((o[0] == 0).all())
+    assert int((~live).sum()) == H * Sq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 592])
+def test_cuda_flash_d128_g12_matches_plain(S):
+    """K9 at mistral-large's head_dim 128 and 12 query heads per KV head:
+    the paged-serve path's full prefill (592) and suffix self phase (16)."""
+    dev = _cuda()
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, S, 128)).astype(np.float32))
+               .to(torch.bfloat16) for n in (24, 2, 2))
+    kw = dict(causal=True, window=0, kv_groups=12, return_lse=True)
+    o, lse = tfa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    po, plse = tfa.flash_attention(q, k, v, **kw)
+    pa, _ = tfa.flash_attention(q, k, v.abs(), **kw)
+    assert bool(((o.float().cpu() - po.float()).abs() <= tfa.o_error_bound(po, pa)).all())
+    assert (lse.cpu() - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_paged_flash_raises_instead_of_falling_back():
+    dev = _cuda()
+    q = torch.zeros(1, 4, 8, 64, device=dev)
+    pool = torch.zeros(4, 16, 2, 64, device=dev)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    ctx = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        tfa.flash_attention_paged(q, pool, pool, table, ctx)
+    qb, pb = q.bfloat16(), pool.bfloat16()
+    with pytest.raises(TypeError, match="int32"):
+        tfa.flash_attention_paged(qb, pb, pb, table.long(), ctx)
+    with pytest.raises(ValueError, match="on cpu"):
+        tfa.flash_attention_paged(qb, pb, pb, table.cpu(), ctx)
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_engine_runs_k12():
+    """The paged engine with the prefix cache on mistral-large SMOKE
+    (block_sparse, block 16, flash_tight, bf16) on the card: one miss then
+    hits, each suffix prefill one K12 launch per layer, clean pool books."""
+    import dataclasses
+
+    from repro_torch.configs import SparseConfig, get_config
+    from repro_torch.launch.serve import init_serving_state
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Request, Status
+
+    dev = _cuda()
+    cfg = dataclasses.replace(
+        get_config("mistral-large-123b", smoke=True),
+        sparse=SparseConfig(sparsity=0.8, kernel="block_sparse", block_shape=(16, 16),
+                            kernel_block=(128, 16, 16), attn_kernel="flash_tight"))
+    params, masks, pack = init_serving_state(cfg, seed=0, device=dev)
+    eng = ServeEngine(cfg, params, capacity=2, max_len=64, masks=masks, pack=pack,
+                      paged=True, page_size=16, prefix_cache=2)
+    rng = np.random.default_rng(0)
+    tmpl = rng.integers(0, 128, 32)
+    reqs = [Request(rid=i, tokens=np.concatenate([tmpl, rng.integers(0, 128, 3 + i)]),
+                    max_new_tokens=5, share_prefix_len=32, temperature=0.8 * (i % 2),
+                    top_k=10, seed=i) for i in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    n0 = tfa.paged_launches
+    while len(eng.queue) or eng.active.any():
+        eng.step(now=0.0)
+    assert all(r.status is Status.DONE and len(r.generated) == 5 for r in reqs)
+    assert (eng.n_prefix_misses, eng.n_prefix_hits) == (1, 3)
+    assert tfa.paged_launches - n0 == 3 * cfg.n_layers
+    eng.check_pool_accounting()

@@ -121,12 +121,18 @@ def test_engine_eos_matches_jax(engines_state):
 
 
 def test_engine_rejects_unported_features(engines_state):
+    """Paged caches, the prefix cache and sampling are ported
+    (tests/test_torch_paged.py, tests/test_torch_sampler.py); the fault
+    injector, observability and patch prompts still raise."""
     _, (cfg, params, masks, pack) = engines_state
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TEngine(cfg, params, capacity=1, max_len=16, paged=True)
+        TEngine(cfg, params, capacity=1, max_len=16, faults=object())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        TEngine(cfg, params, capacity=1, max_len=16, obs=object())
     engine = TEngine(cfg, params, capacity=1, max_len=16, masks=masks, pack=pack)
-    req = t_requests(cfg, 1, prompt_lens=(4,), gen_lens=(2,), temperature=0.7)[0]
-    with pytest.raises(NotImplementedError, match="sampling"):
+    req = t_requests(cfg, 1, prompt_lens=(4,), gen_lens=(2,))[0]
+    req.patches = np.zeros((1, 1), np.float32)
+    with pytest.raises(NotImplementedError, match="patch"):
         engine.submit(req)
 
 

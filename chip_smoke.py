@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the main paths' shapes, with the stated tolerance; each case
                 timed with CUDA events (kernel, plain version, one PyTorch
                 library call as a yardstick) beside its roofline bound:
-                K1 (bf16, and f32 at the MLP shapes) and K9 (danube's and
-                mistral-large's attention shapes)
+                K1 (bf16, and f32 at the MLP shapes) and K9 (danube's,
+                mistral-large's and qwen2-moe's attention shapes)
   4. serve   -- serve h2o-danube-1.8b at full width and depth
                 (block_sparse, block 128, flash_tight, ERK sparsity 0.8,
                 seed 0): 8 staggered greedy requests x 32 tokens through
@@ -62,8 +62,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                 books, exactly 28 K12 launches; a suffix prefill's logits
                 against the full prefill's; paged and contiguous engines'
                 greedy streams identical; K1 on layer 0's served packs
- 10. report  -- one JSON line of per-kernel numbers (all eleven kernels), the
-                card line, and last {"ok": true, "device": {...}}
+ 10. moe serve -- serve qwen2-moe-a2.7b at its published widths, 12 of 24
+                layers (block_sparse, 128x128 blocks, flash_tight, ERK 0.8,
+                seed 0): the 8 requests of phase 4 through the engine (exact
+                length prefills); every request DONE, exactly 36 K4 (the 60
+                experts' banks wi/wg/wo) and 84 K1 launches per prefill and
+                decode step; active logits bit-identical under changed dead
+                slots; the share of routing decisions that agree with the
+                plain dense path (at least 95%), the logits of the prompts
+                whose routing agreed everywhere, and of every prompt with
+                the dense path's routing pinned to the kernel path's; the decode step's device time and K4's
+                share; then K4 against its plain version (layer 0's ERK
+                packs, a uniform and a dead-expert topology; 4 and 84 rows;
+                f32 and bf16), timed
+ 11. moe masked serve -- the same model under kernel='masked': 4 requests
+                (prompts 100/300, 16 tokens), exactly 36 K16 and 84 K13
+                launches per step, the same checks; then K16 against its
+                plain version on layer 0's elementwise masks, timed
+ 12. report  -- one JSON line of per-kernel numbers (all thirteen kernels),
+                the card line, and last {"ok": true, "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
 JAX and nothing of the JAX package.
@@ -290,9 +307,10 @@ def graph_ms(torch, fn):
 
 def k9_cases(torch, timer, fa, sched_for):
     """K9 at danube's attention shapes (32 query heads over 8 KV heads,
-    G = 4, head_dim 80) and at mistral-large's on the paged-serve path (96
+    G = 4, head_dim 80), at mistral-large's on the paged-serve path (96
     over 8, G = 12, head_dim 128: the full prefill's 592 positions and a
-    suffix's 16), bf16.  The yardstick is PyTorch's
+    suffix's 16) and at qwen2-moe-a2.7b's (16 over 16, G = 1, head_dim 128:
+    prompts of 100 and 1000), bf16.  The yardstick is PyTorch's
     scaled_dot_product_attention with the same boolean mask (none for the
     softcap case: that call has no softcap)."""
     F = torch.nn.functional
@@ -304,6 +322,8 @@ def k9_cases(torch, timer, fa, sched_for):
         ("S=512 causal softcap=30", 32, 4, 80, 512, 0, 30.0),
         ("S=592 causal (paged-serve full prefill)", 96, 12, 128, 592, 0, 0.0),
         ("S=16 causal (paged-serve suffix self phase)", 96, 12, 128, 16, 0, 0.0),
+        ("S=100 causal (moe-serve prefill)", 16, 1, 128, 100, 0, 0.0),
+        ("S=1000 causal (moe-serve prefill)", 16, 1, 128, 1000, 0, 0.0),
     )
     out = []
     for name, BH, G, d, S, window, softcap in cases:
@@ -836,7 +856,7 @@ def masked_config(**sparse_kw):
         cfg.sparse, method="rigl", delta_t=DELTA_T, **sparse_kw))
 
 
-def masked_case(torch, timer, kernel, label, run, plain, library, check, n_bytes,
+def kernel_case(torch, timer, kernel, label, run, plain, library, check, n_bytes,
                 flops, dtype):
     """One kernel case: the check against the plain version, then the
     kernel, the plain version and the library call (None: no one PyTorch
@@ -888,7 +908,7 @@ def masked_cases(torch, timer, mm, params, masks):
             x = torch.randn(M, K, device="cuda").to(dt)
             bm, Mp = _row_tile(M, 128)
             xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - M))
-            out["K13"].append(masked_case(
+            out["K13"].append(kernel_case(
                 torch, timer, "K13", f"{tag} M={M}->{Mp}",
                 lambda: mm.masked_matmul(xp, w, m, bm=bm, bn=128),
                 lambda: mm.masked_matmul_plain(xp, w, m), lambda: x @ wm,
@@ -900,7 +920,7 @@ def masked_cases(torch, timer, mm, params, masks):
         M = 2048
         x = torch.randn(M, K, device="cuda").to(dt)
         g = torch.randn(M, N, device="cuda").to(dt)
-        out["K14"].append(masked_case(
+        out["K14"].append(kernel_case(
             torch, timer, "K14", f"{tag} M={M}",
             lambda: mm.masked_dx(g, w, m, bm=128, bk=128),
             lambda: mm.masked_dx_plain(g, w, m), lambda: g @ wm.T,
@@ -909,7 +929,7 @@ def masked_cases(torch, timer, mm, params, masks):
                                                   g.float().abs() @ awm.T, N)),
             es * (M * N + M * K) + (es + 1) * K * N, 2.0 * M * nnz, dt))
         absp = x.float().abs().T @ g.float().abs()
-        out["K15"].append(masked_case(
+        out["K15"].append(kernel_case(
             torch, timer, "K15", f"{tag} M={M} superset density={bnnz / (K * N):.3f}",
             lambda: mm.masked_dw(x, g, b, bn=128, bk=128),
             lambda: mm.masked_dw_plain(x, g, b), lambda: (x.T @ g) * b,
@@ -940,7 +960,7 @@ def masked_cases(torch, timer, mm, params, masks):
                                          "the kernel's own m_new, or off the bf16 grid")
                 return (got.float() - want.float()).abs().max().item(), 0.0, 0.0
 
-            out["K19"].append(masked_case(
+            out["K19"].append(kernel_case(
                 torch, timer, "K19", f"{tag} M={M} sr={sr} mom bf16",
                 fused, plain, None, check,
                 es * (M * K + M * N) + K * N * (1 + 2 * es + 2), 2.0 * M * bnnz, dt))
@@ -1468,6 +1488,424 @@ def paged_serve(torch, timer, bsm, fa):
     return stats, launches, served
 
 
+# ---------------------------------------------------------------------------
+# MoE serving: qwen2-moe-a2.7b, the grouped kernels K4 (block-sparse) and K16
+# (masked) over the 60 experts' banks
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 12  # of 24: init holds the f32 masters twice while applying masks
+MOE_ENGINE = dict(capacity=4, max_len=2048)
+MOE_BANKS = ("wi", "wg", "wo")
+MOE_PROJ = 7  # K1/K13 launches per layer: wq, wk, wv, wo and the shared MLP's 3
+
+
+def moe_config(kernel):
+    """qwen2-moe-a2.7b at its published widths, 12 layers deep, ERK 0.8,
+    flash_tight; block_sparse in 128x128 blocks or masked."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("qwen2-moe-a2.7b"), kernel=kernel,
+                           block=128 if kernel == "block_sparse" else None,
+                           attn_kernel="flash_tight")
+    return dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+
+
+def _check_within(torch, tag, got, want, absp, n, dtype):
+    """Element by element within ``matmul_error_bound``; bf16 also within one
+    ulp of the largest output (both sides round once)."""
+    from repro_torch.kernels.block_sparse_matmul import matmul_error_bound
+
+    ok, ratio, tol = within(torch, got, want, matmul_error_bound(want, absp, n))
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        ok = ok and err <= 2.0**-7 * want.float().abs().max().item()
+    if not ok:
+        raise AssertionError(f"{tag}: err {err} exceeds its bound ({ratio:.3g}x)")
+    return err, ratio, tol
+
+
+def k4_cases(torch, timer, bsm, engine):
+    """K4 against its plain version at the MoE path's shapes: the 60-expert
+    banks (2048 -> 1408, as wi/wg, and 1408 -> 2048, as wo) at C = 4 rows
+    (a capacity-4 decode step, padded to 16) and C = 84 (a 1000-token
+    prefill, padded to 96), f32 (the path's dtype) and bf16, on three
+    topologies: layer 0's served ERK packs, a uniform 20% block mask with
+    one empty column, and the uniform mask with two dead experts.  Bytes:
+    x, the active blocks and y once; operations: 2 C bk bn per active
+    block.  Library: torch.bmm on the zero-filled dense bank (TF32 off)."""
+    import numpy as np
+    from repro_torch.core.pack import pack_entry
+    from repro_torch.kernels.ops import _row_tile, grouped_block_sparse_linear
+
+    rng = np.random.default_rng(4)
+    blk = engine.cfg.sparse.kernel_block[2]
+    lay = engine.params["layers"][0]["moe"]
+    pk = engine.pack["layers"][0]["moe"]
+    out = []
+    for bank in ("wi", "wo"):
+        w_erk = lay[bank]["w"]
+        G, K, N = w_erk.shape
+        bm_u = np.stack([uniform_blocks(rng, K, N, blk) for _ in range(G)])
+        dead_ids = [G // 12, 2 * G // 3]  # experts 5 and 40 of 60
+        dead = bm_u.copy()
+        dead[dead_ids] = False
+        dense_of = lambda b: torch.from_numpy(np.repeat(np.repeat(b, blk, 1), blk, 2)).cuda()
+        w_rand = torch.randn(G, K, N, device="cuda") / K**0.5
+        topo = [("layer0 ERK", w_erk, pk[bank]["w"])]
+        for tname, b in (("uniform 20%", bm_u), (f"uniform 20% experts {dead_ids} dead", dead)):
+            topo.append((tname, w_rand * dense_of(b), pack_entry(dense_of(b), (blk, blk))))
+        for tname, w32, e in topo:
+            idx, cnt = e["idx"], e["cnt"]
+            nnz = int(cnt.sum())
+            for dt in (torch.float32, torch.bfloat16):
+                w = w32.to(dt)
+                for C in (4, 84):
+                    x = torch.randn(G, C, K, device="cuda").to(dt)
+                    bm, Mp = _row_tile(C, 128)
+                    xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - C))
+                    tag = f"K4 {bank} {tname} {str(dt)[6:]}"
+                    plain = lambda: bsm.grouped_block_sparse_matmul_plain(xp, w, idx, cnt,
+                                                                           blk, blk)
+
+                    def check():
+                        got = grouped_block_sparse_linear(x, w, pack=e, block=(128, blk, blk))
+                        want = plain()[:, :C]
+                        absp = bsm.grouped_block_sparse_matmul_plain(
+                            xp.abs().float(), w.abs().float(), idx, cnt, blk, blk)[:, :C]
+                        res = _check_within(torch, tag, got, want, absp, K, dt)
+                        if tname != "layer0 ERK" and \
+                                got[:, :, blk:2 * blk].float().abs().max().item() != 0:
+                            raise AssertionError(f"{tag}: the empty column is not zero")
+                        if "dead" in tname and got[dead_ids].float().abs().max().item() != 0:
+                            raise AssertionError(f"{tag}: a dead expert's output is not zero")
+                        return res
+
+                    es = x.element_size()
+                    out.append(kernel_case(
+                        torch, timer, "K4",
+                        f"{tag} G={G} C={C}->{Mp} K={K} N={N} "
+                        f"blocks={nnz}/{G * (K // blk) * (N // blk)} width={idx.shape[-1]}",
+                        lambda: bsm.grouped_block_sparse_matmul(xp, w, idx, cnt, bm=bm, bn=blk,
+                                                                bk=blk),
+                        plain, lambda: torch.bmm(x, w), check,
+                        es * (G * C * K + nnz * blk * blk + G * C * N)
+                        + 4 * (idx.numel() + cnt.numel()),
+                        2.0 * C * nnz * blk * blk, dt))
+    return out
+
+
+def k16_cases(torch, timer, mm, engine):
+    """K16 against its plain version on layer 0's served banks and
+    elementwise ERK masks (wi 2048 -> 1408, wo 1408 -> 2048), at C = 4 (->
+    16) and 84 (-> 96) rows, f32 and bf16.  Bytes: x, y, w and its 1-byte
+    mask once; operations: 2 C per active weight.  Library: torch.bmm on the
+    pre-masked bank (TF32 off)."""
+    from repro_torch.kernels.ops import _row_tile, grouped_masked_linear
+
+    blk = engine.cfg.sparse.kernel_block[2]
+    out = []
+    for bank in ("wi", "wo"):
+        w32 = engine.params["layers"][0]["moe"][bank]["w"]
+        m = engine.masks["layers"][0]["moe"][bank]["w"]
+        G, K, N = w32.shape
+        nnz = int(m.sum())
+        for dt in (torch.float32, torch.bfloat16):
+            w = w32.to(dt)
+            wm = w * m
+            for C in (4, 84):
+                x = torch.randn(G, C, K, device="cuda").to(dt)
+                bm, Mp = _row_tile(C, 128)
+                xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - C))
+                tag = f"K16 {bank} layer0 ERK {str(dt)[6:]}"
+                plain = lambda: mm.grouped_masked_matmul_plain(xp, w, m)
+
+                def check():
+                    got = grouped_masked_linear(x, w, m, block=(128, blk, blk))
+                    want = plain()[:, :C]
+                    absp = mm.grouped_masked_matmul_plain(xp.abs().float(), w.abs().float(),
+                                                          m)[:, :C]
+                    return _check_within(torch, tag, got, want, absp, K, dt)
+
+                es = x.element_size()
+                out.append(kernel_case(
+                    torch, timer, "K16",
+                    f"{tag} G={G} C={C}->{Mp} K={K} N={N} density={nnz / m.numel():.4f}",
+                    lambda: mm.grouped_masked_matmul(xp, w, m, bm=bm, bn=blk), plain,
+                    lambda: torch.bmm(x, wm), check,
+                    es * (G * C * K + G * C * N) + (es + 1) * G * K * N,
+                    2.0 * C * nnz, dt))
+    return out
+
+
+def patch_route(record=None, force=None):
+    """Wrap ``models/moe.py::route`` for one run: ``record`` (a list) gets
+    every call's top-k expert ids (T, K); ``force`` (the ids a run
+    recorded, in call order) replaces the picks, the gates renormalised
+    over the forced experts' own probabilities.  Returns the restore."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.route
+    forced = None if force is None else iter(force)
+
+    def route(p, xt, cfg):
+        probs, gates, eidx = real(p, xt, cfg)
+        if forced is not None:
+            eidx = next(forced)
+            gates = probs.gather(1, eidx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        if record is not None:
+            record.append(eidx)
+        return probs, gates, eidx
+
+    moe_mod.route = route
+    return lambda: setattr(moe_mod, "route", real)
+
+
+def moe_vs_dense(torch, cfg, params, masks, pack, prompts, probes, label):
+    """Each prompt's prefill (exact length) and one decode step on the
+    kernel path and on the plain dense path (dense matmuls on w * m, plain
+    attention) over the same weights.  Routing is discrete: where the two
+    paths' residuals (bf16 flash vs plain attention, one bf16 rounding
+    apart here and there) straddle a near tie of the 4th and 5th expert, a
+    top-4 set differs and that token's output moves by O(1).  So:
+
+      * the share of (token, layer) top-4 sets that agree is reported and
+        must be at least 95% (a broken router agrees on a few per cent);
+      * the logits of every prompt (served or a 4-token probe) whose
+        routing agreed at every token and layer are held within 2e-2 of
+        the largest logit (the block-sparse serving phase's tolerance);
+        at least one must qualify;
+      * each served prompt is also run on the dense path with its routing
+        pinned to the kernel path's picks: all of their logits within the
+        same tolerance."""
+    import numpy as np
+    from repro_torch.models.model import lm_decode, lm_prefill
+
+    dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
+        cfg.sparse, kernel="dense", attn_kernel="dense"))
+    V = cfg.vocab_size
+
+    def run(c, t, record=None, force=None):
+        restore = patch_route(record, force)
+        try:
+            logits, caches = lm_prefill(params, c, {"tokens": t}, t.shape[1] + 1,
+                                        masks=masks, pack=pack)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            step, _ = lm_decode(params, c, caches, nxt, t.shape[1], masks=masks, pack=pack)
+        finally:
+            restore()
+        out = (logits.float()[..., :V], step.float()[..., :V])
+        if any(not bool(torch.isfinite(a).all()) or a.shape != (1, 1, V) for a in out):
+            raise AssertionError(f"{label}: logits not finite or of the wrong shape")
+        return out
+
+    def held(a_pair, b_pair, what):
+        worst = 0.0
+        for a, b in zip(a_pair, b_pair):
+            err, tol = (a - b).abs().max().item(), 2e-2 * b.abs().max().item()
+            worst = max(worst, err / tol)
+            if err > tol:
+                raise AssertionError(f"{label}: {what} logits err {err} > {tol}")
+        return worst
+
+    agree = total = 0
+    lens_agree, worst_agree, worst_pinned = [], 0.0, 0.0
+    for i, toks in enumerate(list(prompts) + list(probes)):
+        t = torch.from_numpy(np.asarray(toks)).long().cuda()[None]
+        rk, rd = [], []
+        kern = run(cfg, t, record=rk)
+        dens = run(dense, t, record=rd)
+        rows = torch.cat([(a.sort(-1).values == b.sort(-1).values).all(-1)
+                          for a, b in zip(rk, rd)])
+        agree += int(rows.sum())
+        total += rows.numel()
+        if bool(rows.all()):
+            lens_agree.append((len(toks), i < len(prompts)))
+            worst_agree = max(worst_agree, held(kern, dens, "routing-agreeing prompt's"))
+        if i < len(prompts):
+            pinned = run(dense, t, force=rk)
+            worst_pinned = max(worst_pinned, held(kern, pinned, "pinned-routing"))
+    out = {"routing_agreement": agree / total, "routing_decisions": total,
+           "prompts": len(prompts), "probes": len(probes),
+           "served_all_agree": [n for n, served in lens_agree if served],
+           "probes_all_agree": sum(not served for _, served in lens_agree),
+           "all_agree_err_over_tol": worst_agree, "pinned_err_over_tol": worst_pinned}
+    print(f"{label}: routing vs the dense path: {agree}/{total} (token, layer) top-4 "
+          f"sets agree ({agree / total:.4%}); served prompts that agreed everywhere: "
+          f"lengths {out['served_all_agree']} of {[len(p) for p in prompts]}, probes "
+          f"{out['probes_all_agree']} of {len(probes)}; their logits at "
+          f"{worst_agree:.3g} of the 2e-2 tolerance; the served prompts "
+          f"with the dense path's routing pinned to the kernel path's: "
+          f"{worst_pinned:.3g} of it")
+    if agree / total < 0.95 or not lens_agree:
+        raise AssertionError(f"{label}: routing agreement {agree / total:.4f} < 0.95 or "
+                             "no prompt agreed in every layer")
+    return out
+
+
+def dead_slot_check(torch, cfg, params, masks, pack, label):
+    """The dead-slot invariant on the card: capacity 8 (C = 4 binds), active
+    requests in slots 4-7, dead slots 0-3 holding varied stale tokens and
+    positions: the active rows' logits are bit-identical."""
+    import numpy as np
+    from repro_torch.models.model import init_caches, lm_decode, lm_prefill_into
+    from repro_torch.models.moe import capacity
+
+    cap, max_len = 8, 16
+    if capacity(cap, cfg) >= cap:
+        raise AssertionError("dead-slot check: C does not bind")
+    caches = init_caches(cfg, cap, max_len, "cuda")
+    pos = np.zeros(cap, np.int64)
+    active = np.zeros(cap, bool)
+    cur = np.zeros(cap, np.int64)
+    for i in range(4):
+        t = np.random.default_rng(40 + i).integers(0, cfg.vocab_size, (1, 4))
+        logits, caches = lm_prefill_into(params, cfg, caches,
+                                         {"tokens": torch.from_numpy(t).cuda()}, 4 + i,
+                                         max_len, masks=masks, pack=pack)
+        cur[4 + i], pos[4 + i], active[4 + i] = int(logits[0, -1].argmax()), 4, True
+
+    def active_logits(dead_tok, dead_pos):
+        tok, p = cur.copy(), pos.copy()
+        tok[:4], p[:4] = dead_tok, dead_pos
+        logits, _ = lm_decode(params, cfg, caches, torch.from_numpy(tok)[:, None].cuda(),
+                              torch.from_numpy(p).cuda(), masks=masks, pack=pack,
+                              active=torch.from_numpy(active).cuda())
+        return logits[4:, -1].clone()
+
+    ref = active_logits(0, 0)
+    same = all(torch.equal(active_logits(t, p), ref)
+               for t, p in ((1, 0), (97, 3), (cfg.vocab_size - 1, 9)))
+    print(f"{label}: active logits bit-identical under changed dead slots: {same}")
+    if not same:
+        raise AssertionError(f"{label}: dead-slot contents leaked into active logits")
+    return same
+
+
+def moe_serve(torch, timer, bsm, mm, fa, kernel):
+    """Serve qwen2-moe-a2.7b (12 of 24 layers, full width, ERK 0.8, seed 0,
+    flash_tight) under ``kernel``: block_sparse (128x128 blocks, K4 for the
+    banks, K1 for attention and the shared MLP) with slice 1's scenario (8
+    staggered greedy requests, prompts 100/300/1000, 32 tokens, capacity
+    4), or masked (K16 and K13) with 4 requests of prompts 100/300, 16
+    tokens.  Checks: every request DONE, nothing quarantined; the exact
+    launches of the run (per prefill and per decode step: 3 grouped x 12,
+    7 projections x 12, and K9 12 per prefill) and of one decode step; the
+    dead-slot invariant; routing agreement and logits against the plain
+    dense path.  Then the decode step's device time (CUDA graph), the
+    grouped kernel's share of it, the kernel cases on layer 0."""
+    import numpy as np
+    from repro_torch.core.pack import pack_stats
+    from repro_torch.launch.serve import init_serving_state, staggered_requests
+    from repro_torch.models.model import lm_decode
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    label = f"moe serve {kernel}"
+    bs = kernel == "block_sparse"
+    gmod, pmod = (bsm, bsm) if bs else (mm, mm)
+    gname, pname = ("grouped_block_sparse_fwd", "block_sparse_fwd") if bs else \
+        ("grouped_masked_fwd", "masked_fwd")
+    cfg = moe_config(kernel)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg, seed=0, device="cuda")
+    engine = ServeEngine(cfg, params, masks=masks, pack=pack, **MOE_ENGINE)
+    del params
+    torch.cuda.synchronize()
+    print(f"{label}: qwen2-moe-a2.7b ({cfg.n_layers} of 24 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, "
+          f"{cfg.n_shared_experts} shared) initialised in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    stats = {}
+    if bs:
+        banks = {n: v for n, v in pack_stats(pack)["layers"].items() if "/moe/w" in n}
+        widths = [v["width"] for v in banks.values()]
+        means = [v["nnz_blocks"] / (v["groups"] * v["cols"]) for v in banks.values()]
+        stats["bank_width"] = {"min": min(widths), "max": max(widths),
+                               "mean": sum(widths) / len(widths)}
+        stats["bank_mean_active_per_column"] = sum(means) / len(means)
+        stats["bank_worst_case"] = sorted({v["worst_case"] for v in banks.values()})
+        print(f"{label}: bank pack widths {stats['bank_width']} (worst cases "
+              f"{stats['bank_worst_case']}) against a mean of "
+              f"{stats['bank_mean_active_per_column']:.3f} active blocks per column")
+    for r in staggered_requests(cfg, 2, prompt_lens=(100,), gen_lens=(2,), seed=1):
+        engine.submit(r)
+    engine.run()
+
+    n_req, lens, gen = (8, (100, 300, 1000), 32) if bs else (4, (100, 300), 16)
+    reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    engine = ServeEngine(cfg, engine.params, masks=masks, pack=pack, **MOE_ENGINE)
+    for r in reqs:
+        engine.submit(r)
+    fa.launches = gmod.g_launches = pmod.launches = 0
+    stats.update(engine.run())
+    launches = {gname: gmod.g_launches, pname: pmod.launches, "flash_fwd": fa.launches}
+    print(f"{label}: engine", json.dumps({k: stats[k] for k in (
+        "requests", "tokens", "decode_steps", "prefills", "quarantined", "failed",
+        "wall_s", "tok_per_s", "prefill_s", "decode_step_s")}))
+    for r in reqs:
+        if r.status is not Status.DONE or len(r.generated) != gen:
+            raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
+                                 f"{len(r.generated)} tokens")
+    if stats["quarantined"] or stats["failed"]:
+        raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
+    L, calls = cfg.n_layers, stats["decode_steps"] + stats["prefills"]
+    expect = {gname: len(MOE_BANKS) * L * calls, pname: MOE_PROJ * L * calls,
+              "flash_fwd": L * stats["prefills"]}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+    n0, p0 = gmod.g_launches, pmod.launches
+    step = lambda: lm_decode(engine.params, cfg, engine.caches,
+                             torch.from_numpy(engine.cur_tok[:, None]).cuda(),
+                             torch.from_numpy(engine.pos).cuda(), masks=masks, pack=pack)
+    step()
+    stats["grouped_launches_per_decode_step"] = gmod.g_launches - n0
+    stats["proj_launches_per_decode_step"] = pmod.launches - p0
+    if (stats["grouped_launches_per_decode_step"], stats["proj_launches_per_decode_step"]) \
+            != (len(MOE_BANKS) * L, MOE_PROJ * L):
+        raise AssertionError(f"{label}: one decode step launched {gname} "
+                             f"{stats['grouped_launches_per_decode_step']} and {pname} "
+                             f"{stats['proj_launches_per_decode_step']} times")
+    stats["prefill_ms"] = 1e3 * stats["prefill_s"] / stats["prefills"]
+    stats["decode_step_ms"] = 1e3 * stats["decode_step_s"]
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    stats["dead_slots_bit_identical"] = dead_slot_check(torch, cfg, engine.params, masks,
+                                                        pack, label)
+    rng = np.random.default_rng(7)
+    probes = [rng.integers(0, cfg.vocab_size, 4) for _ in range(32)]
+    stats["vs_dense"] = moe_vs_dense(torch, cfg, engine.params, masks, pack,
+                                     [r.tokens for r in reqs], probes, label)
+
+    stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode, label)
+    calls = []
+    for layer in range(L):
+        lay = engine.params["layers"][layer]["moe"]
+        for b in MOE_BANKS:
+            w = lay[b]["w"]
+            x = torch.randn(w.shape[0], 16, w.shape[1], device="cuda")
+            if bs:
+                e = pack["layers"][layer]["moe"][b]["w"]
+                calls.append((x, w, e["idx"], e["cnt"]))
+            else:
+                calls.append((x, w, masks["layers"][layer]["moe"][b]["w"]))
+    blk = cfg.sparse.kernel_block[2]
+    run = (lambda: [bsm.grouped_block_sparse_matmul(*c, bm=16, bn=blk, bk=blk) for c in calls]) \
+        if bs else (lambda: [mm.grouped_masked_matmul(*c, bm=16, bn=blk) for c in calls])
+    stats["grouped_decode_step_ms"] = graph_ms(torch, run)
+    share = stats["grouped_decode_step_ms"] / stats["decode_step_device_ms"]
+    print(f"{label}: {gname} in one decode step: {len(calls)} launches, "
+          f"{stats['grouped_decode_step_ms']:.2f} ms device time (CUDA-graph replay), "
+          f"{share:.1%} of the step's device time; prefill {stats['prefill_ms']:.2f} ms "
+          f"per admission, decode {stats['decode_step_ms']:.2f} ms/step host clock "
+          f"(capacity 4), {stats['tok_per_s']:.2f} tok/s end to end, peak "
+          f"{stats['peak_gib']:.1f} GiB; launches {launches}")
+    cases = k4_cases(torch, timer, bsm, engine) if bs else k16_cases(torch, timer, mm, engine)
+    return stats, launches, cases
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -1550,10 +1988,15 @@ def main() -> int:
     paged_stats, paged_launches, k1_paged = paged_serve(torch, timer, bsm, fa)
     k1 += k1_paged
     done("paged serve")
+    moe_stats, moe_launches, k4 = moe_serve(torch, timer, bsm, mm, fa, "block_sparse")
+    done("moe serve, parity K4")
+    moe_m_stats, moe_m_launches, k16 = moe_serve(torch, timer, bsm, mm, fa, "masked")
+    done("moe masked serve, parity K16")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
-             "fused_train": fused_launches, "paged_serve": paged_launches}
+             "fused_train": fused_launches, "paged_serve": paged_launches,
+             "moe_serve": moe_launches, "moe_masked_serve": moe_m_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -1596,6 +2039,10 @@ def main() -> int:
                 mcases["K19"]),
         summary("paged_flash_fwd", csrc + "flash_paged.cu", kern + "flash_attention.py:317",
                 k12),
+        summary("grouped_block_sparse_fwd", csrc + "block_sparse_grouped.cu",
+                kern + "block_sparse_matmul.py:491", k4),
+        summary("grouped_masked_fwd", csrc + "masked_matmul.cu",
+                kern + "masked_matmul.py:239", k16),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1604,7 +2051,8 @@ def main() -> int:
          "k10": k10, "k11": k11, "engine": serve_stats, "train": train_stats,
          "masked_cases": mcases, "masked_engine": masked_serve_stats,
          "masked_train": masked_train_stats, "fused_train": fused_stats,
-         "k12": k12, "paged_engine": paged_stats,
+         "k12": k12, "paged_engine": paged_stats, "k4": k4, "k16": k16,
+         "moe_engine": moe_stats, "moe_masked_engine": moe_m_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -7,8 +7,9 @@ imports JAX.  ``params_from_flat`` rebuilds the params tree,
 ``masks_from_flat`` and ``pack_from_flat`` rebuild trees that mirror it
 (``None`` where the reference has no mask or entry; pack entries keep the
 Top-KAST superset view ``bidx``/``bcnt``/``bnnz`` when the reference's
-carry one, and the masked kernel's ``{"bwd_mask": B}`` carrier entries
-come across as bool tensors).  ``train_state_from_flat`` assembles a whole train state
+carry one, a grouped bank's stacked entries (``idx (G, N/bn, width)``,
+the MoE experts') keep their leading group dim, and the masked kernel's
+``{"bwd_mask": B}`` carrier entries come across as bool tensors).  ``train_state_from_flat`` assembles a whole train state
 (params, masks, backward supersets, pack, optimizer state, step and the
 non-finite counter).  ``flat_of`` and ``pack_flat_of`` go the other way, so
 the tests can round-trip a state.

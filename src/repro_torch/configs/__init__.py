@@ -13,6 +13,7 @@ __all__ = ["ModelConfig", "SparseConfig", "validate_sparse_kernel",
 _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mistral-large-123b": "mistral_large_123b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

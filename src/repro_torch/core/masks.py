@@ -95,13 +95,15 @@ def random_block_mask(gen: torch.Generator, shape, sparsity: float,
                       block_shape) -> torch.Tensor:
     """Block-aligned random mask: EXACT count of active (bk, bn) blocks.
 
-    Blocks tile the trailing two dims.  Falls back to an elementwise mask
-    when the block does not tile the shape; such layers must not go to the
-    block-sparse kernel (``launch/serve.py::init_serving_state`` rejects
-    them).
+    Blocks tile the trailing two dims: a 3-D weight bank (MoE experts
+    (E, d, ff)) draws ONE exact count over all its groups' blocks, so one
+    expert may hold more blocks than another.  Falls back to an elementwise
+    mask for other ranks or when the block does not tile the shape; such
+    layers must not go to the block-sparse kernel
+    (``launch/serve.py::init_serving_state`` rejects them).
     """
     bk, bn = block_shape
-    if len(shape) < 2 or shape[-2] % bk or shape[-1] % bn:
+    if len(shape) not in (2, 3) or shape[-2] % bk or shape[-1] % bn:
         return random_mask(gen, shape, sparsity)
     blk = random_mask(
         gen, (*shape[:-2], shape[-2] // bk, shape[-1] // bn), sparsity

@@ -10,8 +10,8 @@ over the true active blocks.  Packs are computed on the host from concrete
 masks: once for serving, and after every topology update in training
 (``refresh_pack_state``: widths never shrink).
 
-Entry layout (one per packable 2-D mask leaf under ``attn``/``mlp``, ``None``
-elsewhere), the same keys as the reference:
+Entry layout (one per packable mask leaf under ``attn``/``mlp``/``moe``,
+``None`` elsewhere), the same keys as the reference:
 
   {"idx":  (N/bn, width) int32 tensor,   # CSC: forward (K1)
    "cnt":  (N/bn,) int32 tensor,
@@ -24,10 +24,16 @@ elsewhere), the same keys as the reference:
    "bcnt": (N/bn,) int32,
    "bnnz": int}
 
+Grouped weight banks (3-D masks: the MoE experts' (E, d, ff)) carry the
+same entry with a leading group dim on idx/cnt/ridx/rcnt (and bidx/bcnt):
+per-group CSC/CSR at ONE shared width over all groups, so one grouped
+kernel launch (K4) covers the bank.  A group with no active block (a dead
+expert) is legal: its counts are all zero and the kernel writes zeros for
+it; only an all-zero BANK raises.
+
 Under kernel='masked' the masks need no packing: the Top-KAST superset
 rides along as the carrier ``{"bwd_mask": bool (K, N)}`` per dispatched
-leaf (``build_bwd_carrier``).  Grouped (3-D) banks belong to model families
-the port does not run yet.
+leaf (``build_bwd_carrier``).
 """
 from __future__ import annotations
 
@@ -46,14 +52,17 @@ __all__ = [
     "pack_entry",
     "pack_entries",
     "pack_mismatch",
+    "pack_group_mask",
+    "pack_group_mask_rows",
     "pack_np",
+    "pack_stats",
     "refresh_pack_state",
     "slack_width",
     "validate_pack",
 ]
 
-# Param subtrees whose weights go through layers.linear (transformer family).
-DISPATCHED_SUBTREES = ("attn", "mlp")
+# Param subtrees whose weights go through layers.linear / grouped_linear.
+DISPATCHED_SUBTREES = ("attn", "mlp", "moe")
 
 
 class PackIntegrityError(ValueError):
@@ -95,6 +104,33 @@ def pack_np(bm, max_count: Optional[int] = None):
     return idx, counts
 
 
+def pack_group_mask(block_masks, max_count: Optional[int] = None):
+    """Stacked per-group CSC pack of a (G, K/bk, N/bn) bool block-mask stack
+    (the reference's ``block_sparse_matmul.py::pack_group_mask``).
+
+    Returns (idx (G, N/bn, width), cnt (G, N/bn)) int32 numpy arrays at ONE
+    shared ``width`` (``max_count``, or the largest active-K count over all
+    groups and columns) so a single grouped kernel grid covers every group.
+    A group with no active block is legal (all its counts are zero); a
+    ``max_count`` below some column's count raises (``pack_np``).
+    """
+    bms = np.asarray(block_masks, bool)
+    if bms.ndim != 3:
+        raise ValueError(f"pack_group_mask: expected a (G, K/bk, N/bn) stack, "
+                         f"got shape {bms.shape}")
+    if max_count is None:
+        max_count = max(int(bms.sum(axis=1).max(initial=0)), 1)
+    packed = [pack_np(b, max_count) for b in bms]
+    return (np.stack([i for i, _ in packed]).astype(np.int32),
+            np.stack([c for _, c in packed]).astype(np.int32))
+
+
+def pack_group_mask_rows(block_masks, max_count: Optional[int] = None):
+    """Stacked per-group CSR pack (the grouped dgrad's view): per K-block
+    row of each group, its active N-block ids."""
+    return pack_group_mask(np.asarray(block_masks).transpose(0, 2, 1), max_count)
+
+
 def slack_width(width: int, worst: int, slack: float) -> int:
     """Round a packed width UP to the next multiple of ``ceil(slack*worst)``,
     capped at ``worst`` (``SparseConfig.pack_width_slack``; 0 keeps it)."""
@@ -114,35 +150,39 @@ def _block_np(mask, block_shape):
 def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
                slack: float = 0.0, name: str = "?", device=None, bwd_mask=None,
                min_bwd_width: int = 0) -> dict:
-    """Pack ONE 2-D mask leaf into a PackState entry (CSC + CSR views, and
-    the superset CSC of ``bwd_mask`` when given).
+    """Pack ONE mask leaf into a PackState entry (CSC + CSR views, and the
+    superset CSC of ``bwd_mask`` when given).
 
-    Raises when the layer has no active block at all (the kernel would
-    output zeros for the whole layer), and when ``bwd_mask`` does not
-    contain the forward mask (wgrad would zero forward-active blocks).
-    Single all-zero COLUMNS are fine (the kernel writes zeros for them).
-    ``min_*`` floors keep refreshed widths from shrinking.
+    2-D masks pack per layer; 3-D masks (grouped weight banks) pack PER
+    GROUP over the trailing two dims, stacked at one shared width
+    (``idx (G, N/bn, width)`` etc.: ``pack_group_mask``).  Raises when the
+    layer (the whole bank) has no active block at all (the kernel would
+    output zeros for all of it), and when ``bwd_mask`` does not contain the
+    forward mask (wgrad would zero forward-active blocks).  Single all-zero
+    COLUMNS are fine (the kernel writes zeros for them), and so is an
+    all-zero GROUP: a dead expert outputs zeros.  ``min_*`` floors keep
+    refreshed widths from shrinking.
     """
     if device is None and isinstance(mask, torch.Tensor):
         device = mask.device
     bm = _block_np(mask, block_shape)
-    if bm.ndim != 2:
-        raise NotImplementedError(
-            f"PackState: layer {name!r} has a {bm.ndim}-D block mask; grouped "
-            "banks are not ported yet"
-        )
-    nkb, nnb = bm.shape
+    if bm.ndim not in (2, 3):
+        raise ValueError(f"PackState: layer {name!r} has a {bm.ndim}-D block mask")
+    grouped = bm.ndim == 3
+    nkb, nnb = bm.shape[-2:]
     total = int(bm.sum())
     if total == 0:
         raise ValueError(
             f"PackState: layer {name!r} has ZERO active blocks — the "
             "block-sparse kernel would output all-zeros for it"
         )
-    width = slack_width(max(int(bm.sum(axis=0).max()), 1, min_width), nkb, slack)
-    row_width = slack_width(max(int(bm.sum(axis=1).max()), 1, min_row_width),
+    csc, csr = ((pack_group_mask, pack_group_mask_rows) if grouped else
+                (pack_np, lambda b, w: pack_np(b.T, w)))
+    width = slack_width(max(int(bm.sum(axis=-2).max()), 1, min_width), nkb, slack)
+    row_width = slack_width(max(int(bm.sum(axis=-1).max()), 1, min_row_width),
                             nnb, slack)
-    idx, cnt = pack_np(bm, width)
-    ridx, rcnt = pack_np(bm.T, row_width)
+    idx, cnt = csc(bm, width)
+    ridx, rcnt = csr(bm, row_width)
     t = lambda a: torch.from_numpy(a).to(device or "cpu")
     entry = {"idx": t(idx), "cnt": t(cnt), "ridx": t(ridx), "rcnt": t(rcnt),
              "nnz": total, "nkb": nkb}
@@ -154,9 +194,9 @@ def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
                 "its forward topology — wgrad would silently zero "
                 "forward-active blocks"
             )
-        bwidth = slack_width(max(int(bbm.sum(axis=0).max()), 1, min_bwd_width),
+        bwidth = slack_width(max(int(bbm.sum(axis=-2).max()), 1, min_bwd_width),
                              nkb, slack)
-        bidx, bcnt = pack_np(bbm, bwidth)
+        bidx, bcnt = csc(bbm, bwidth)
         entry |= {"bidx": t(bidx), "bcnt": t(bcnt), "bnnz": int(bbm.sum())}
     return entry
 
@@ -173,8 +213,8 @@ def build_pack_state(masks, block_shape, *, slack: float = 0.0, device=None,
     bk, bn = block_shape
 
     def pack(name, m, bw, pe):
-        if (m is None or m.ndim != 2 or m.shape[0] % bk or m.shape[1] % bn
-                or not _dispatched(name)):
+        if (m is None or m.ndim not in (2, 3) or m.shape[-2] % bk
+                or m.shape[-1] % bn or not _dispatched(name)):
             return None
         floor = lambda k: int(pe[k].shape[-1]) if pe is not None and k in pe else 0
         return pack_entry(m, block_shape, slack=slack, name=name, device=device,
@@ -218,10 +258,10 @@ def pack_mismatch(masks, pack, block_shape, bwd_masks=None) -> torch.Tensor:
         if e is None or m is None:
             return None
         bm = block_mask_of(m, block_shape)
-        total.append((unpack_block_mask(e["idx"], e["cnt"], bm.shape[0]) != bm).sum())
+        total.append((unpack_block_mask(e["idx"], e["cnt"], bm.shape[-2]) != bm).sum())
         if bw is not None and "bidx" in e:
             bbm = block_mask_of(bw, block_shape)
-            total.append((unpack_block_mask(e["bidx"], e["bcnt"], bbm.shape[0])
+            total.append((unpack_block_mask(e["bidx"], e["bcnt"], bbm.shape[-2])
                           != bbm).sum())
         return None
 
@@ -245,13 +285,50 @@ def pack_entries(pack, prefix=""):
             yield from pack_entries(v, f"{prefix}/{i}" if prefix else str(i))
 
 
+def pack_stats(pack) -> dict:
+    """Host-side bookkeeping of a PackState (the reference's
+    ``core/pack.py::pack_stats``): per entry its grid width against the
+    worst case K/bk, the live forward blocks over the whole (groups x cols
+    x nkb) block grid (``density``; ``superset_density`` likewise for the
+    Top-KAST superset, None without one), and the totals."""
+    out: dict = {"layers": {}}
+    tight = padded = nnz_total = bnnz_total = cells_total = bcells_total = 0
+    for name, e in pack_entries(pack):
+        if "idx" not in e:  # masked carrier: nothing packed
+            continue
+        width, nkb, nnz = int(e["idx"].shape[-1]), int(e["nkb"]), int(e["nnz"])
+        groups = int(e["idx"].shape[0]) if e["idx"].dim() == 3 else 1
+        cols = int(e["cnt"].shape[-1])
+        cells = nkb * cols * groups
+        bnnz = int(e["bnnz"]) if "bidx" in e else None
+        out["layers"][name] = {
+            "width": width, "worst_case": nkb, "grid_fraction": width / nkb,
+            "row_width": int(e["ridx"].shape[-1]), "nnz_blocks": nnz,
+            "cols": cols, "groups": groups, "density": nnz / cells,
+            "superset_density": None if bnnz is None else bnnz / cells,
+        }
+        tight += width * groups
+        padded += nkb * groups
+        nnz_total += nnz
+        cells_total += cells
+        if bnnz is not None:
+            bnnz_total += bnnz
+            bcells_total += cells
+    out["grid_iters_tight"] = tight
+    out["grid_iters_padded"] = padded
+    out["grid_fraction"] = tight / padded if padded else 1.0
+    out["density"] = nnz_total / cells_total if cells_total else 0.0
+    out["superset_density"] = bnnz_total / bcells_total if bcells_total else None
+    return out
+
+
 def validate_pack(pack, *, where: str = "pack") -> int:
     """Host-side CSC/CSR integrity check over every PackState entry.
 
-    Per entry: ``cnt`` matches ``idx`` minus its width dim (same for
-    ``rcnt``/``ridx``), the CSR has ``nkb`` rows, counts lie in
-    ``[0, width]``, every live index lies inside the block grid, and
-    ``sum(cnt) == nnz == sum(rcnt)``.  A superset view (``bidx``/``bcnt``)
+    Per entry, 2-D and grouped 3-D alike: ``cnt`` matches ``idx`` minus
+    its width dim (same for ``rcnt``/``ridx``), the CSR has ``nkb`` rows,
+    counts lie in ``[0, width]``, every live index lies inside the block
+    grid, and ``sum(cnt) == nnz == sum(rcnt)``.  A superset view (``bidx``/``bcnt``)
     is held to the same invariants, to ``sum(bcnt) == bnnz >= nnz`` and to
     containing every forward-active block.  A masked carrier entry is held
     to a bool ``bwd_mask``.  Raises ``PackIntegrityError`` naming the

@@ -1,8 +1,12 @@
 // Masked matmul with the elementwise mask fused in, forward and backward:
-// K13, K14, K15 and the fused SGD wgrad epilogue K19.
+// K13, its grouped twin K16, K14, K15 and the fused SGD wgrad epilogue K19.
 //
-// Replaces four TPU kernels of repro/kernels/masked_matmul.py:
+// Replaces five TPU kernels of repro/kernels/masked_matmul.py:
 //   K13 _fwd_kernel (pallas_call in _fwd_call)     y  = x @ (w * m)
+//   K16 _g_fwd_kernel (_g_fwd_call)                y[g] = x[g] @ (w[g] * m[g])
+//                                                   for every group g of a
+//                                                   weight bank (the MoE
+//                                                   experts), one launch
 //   K14 _dx_kernel (_dx_call)                      dx = g @ (w * m)^T
 //   K15 _dw_kernel (_dw_call)                      dw = (x^T @ g) * m
 //   K19 _dw_fused_kernel (_dw_fused_call)          m_new = (mu * mom + x^T @ g
@@ -20,7 +24,9 @@
 // type).  K14 stages the masked slab transposed, as K2 stages W^T.  K15 and
 // K19 apply the mask at the store.  No atomics, every sum in a fixed order:
 //  * K13: one CTA per (bn-column tile, bm-row tile), looping over all K in
-//    slabs of 32 (16 when K is not a multiple of 32);
+//    slabs of 32 (16 when K is not a multiple of 32); K16 is the same kernel
+//    with the bank's group as the grid's third dimension (K13 is the bank
+//    of one);
 //  * K14: one CTA per (bk-column tile of dx, bm-row tile), looping over N;
 //  * K15/K19: one CTA per (bk x bn) tile of dw, looping over all M rows in
 //    one CTA (the TPU kernel carried the sum across its innermost grid axis).
@@ -102,11 +108,13 @@ __device__ inline float sr_to_bf16(float v, unsigned seed, unsigned gid) {
   return __uint_as_float((bits + (h & 0xFFFFu)) & 0xFFFF0000u);
 }
 
+// K13 and K16: group g = blockIdx.z of x (G, Mp, K), w and m (G, K, N),
+// y (G, Mp, N).
 template <typename T>
 __global__ void __launch_bounds__(tile::kThreads)
 masked_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const uint8_t* __restrict__ m, T* __restrict__ y, int K, int N,
-                  int bm, int bn) {
+                  const uint8_t* __restrict__ m, T* __restrict__ y, int Mp, int K,
+                  int N, int bm, int bn) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int xld = tile::kSlab + tile::pad<T>(), wld = bn + tile::pad<T>();
   T* xs = reinterpret_cast<T*>(smem);  // bm x xld
@@ -114,20 +122,25 @@ masked_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
 
   const int n0 = blockIdx.x * bn, m0 = blockIdx.y * bm;
+  const size_t g = blockIdx.z;
+  const T* xg = x + g * Mp * K;
+  const T* wg = w + g * K * N;
+  const uint8_t* mg = m + g * K * N;
+  T* yg = y + g * Mp * N;
   const int slab = (K % tile::kSlab == 0) ? tile::kSlab : 16;
 
   tile::Acc<T> acc;
   acc.zero();
   for (int k0 = 0; k0 < K; k0 += slab) {
     __syncthreads();  // the previous slab is consumed
-    tile::stage_rows(xs, xld, x + (size_t)m0 * K + k0, K, bm, slab);
-    stage_masked_rows(ws, wld, w + (size_t)k0 * N + n0, m + (size_t)k0 * N + n0, N,
+    tile::stage_rows(xs, xld, xg + (size_t)m0 * K + k0, K, bm, slab);
+    stage_masked_rows(ws, wld, wg + (size_t)k0 * N + n0, mg + (size_t)k0 * N + n0, N,
                       slab, bn);
     __syncthreads();
     acc.mma(xs, xld, ws, wld, bm, bn, slab);
   }
   acc.store(scratch, bm, bn, [&](int r, int c, float v) {
-    y[(size_t)(m0 + r) * N + n0 + c] = tile::from_float<T>(v);
+    yg[(size_t)(m0 + r) * N + n0 + c] = tile::from_float<T>(v);
   });
 }
 
@@ -238,13 +251,13 @@ size_t smem_bytes(int rows, int cols) {
 }
 
 template <typename T>
-int launch_fwd(const void* x, const void* w, const void* m, void* y, int Mp, int K,
-               int N, int bm, int bn, void* stream) {
-  const dim3 grid(N / bn, Mp / bm);
+int launch_fwd(const void* x, const void* w, const void* m, void* y, int G, int Mp,
+               int K, int N, int bm, int bn, void* stream) {
+  const dim3 grid(N / bn, Mp / bm, G);
   masked_fwd_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bm, bn),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const uint8_t*>(m), static_cast<T*>(y), K, N, bm, bn);
+      static_cast<const uint8_t*>(m), static_cast<T*>(y), Mp, K, N, bm, bn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,14 +300,21 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
 }  // namespace
 
 // Row-major operands in the entry's element type, m one byte per element
-// (0 or 1) of w's shape (K, N).  The wrappers check Mp % bm == 0,
+// (0 or 1) of w's shape (K, N); the grouped K16 entry takes x (G, Mp, K), w
+// and m (G, K, N), y (G, Mp, N).  The wrappers check Mp % bm == 0,
 // N % bn == 0, K % bk == 0, K and N multiples of 16, bm, bn, bk multiples of
 // 16 in [16, 128], 16-byte alignment.
 #define MASKED_ENTRIES(S, T)                                                        \
   extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,       \
                                 void* y, int Mp, int K, int N, int bm, int bn,      \
                                 void* stream) {                                     \
-    return launch_fwd<T>(x, w, m, y, Mp, K, N, bm, bn, stream);                     \
+    return launch_fwd<T>(x, w, m, y, 1, Mp, K, N, bm, bn, stream);                  \
+  }                                                                                 \
+  extern "C" int masked_fwd_grouped_##S(const void* x, const void* w,              \
+                                        const void* m, void* y, int G, int Mp,      \
+                                        int K, int N, int bm, int bn,               \
+                                        void* stream) {                             \
+    return launch_fwd<T>(x, w, m, y, G, Mp, K, N, bm, bn, stream);                  \
   }                                                                                 \
   extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,        \
                                void* dx, int Mp, int K, int N, int bm, int bk,      \

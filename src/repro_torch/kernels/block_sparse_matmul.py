@@ -11,6 +11,10 @@ are described in the sources:
      ``ridx[k, :rcnt[k]]``                     -> csrc/block_sparse_bwd.cu
   K3 ``_dw_kernel`` (``_dw_call``)    dw = x^T @ g on the active blocks of
      a CSC pack, zeros elsewhere               -> csrc/block_sparse_bwd.cu
+  K4 ``_g_fwd_kernel`` (``_g_fwd_call``)  y[g] = x[g] @ W[g] for every group
+     of a (G, K, N) weight bank over the stacked CSC ``idx[g, j, :cnt[g, j]]``
+     (the MoE experts), one launch            -> csrc/block_sparse_grouped.cu
+                                                (K1's kernel, block_sparse_fwd.cuh)
 
 Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
 reference's MLP computes in the f32 residual's dtype), accumulating in f32
@@ -23,10 +27,12 @@ bytes there, and the training shapes (M = 2048) sit below the bf16 ridge.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
-``dx_launches`` and ``dw_launches`` count kernel launches, so a run can show
-that its path went through the kernels.  ``BlockSparseMatmul`` and
-``TopkastBlockSparseMatmul`` are the differentiable forms (the reference's
-custom VJPs ``_bs_fwd/_bs_bwd`` and ``_tk_fwd/_tk_bwd``).
+``dx_launches``, ``dw_launches`` and ``g_launches`` count kernel launches,
+so a run can show that its path went through the kernels.
+``BlockSparseMatmul`` and ``TopkastBlockSparseMatmul`` are the
+differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd`` and
+``_tk_fwd/_tk_bwd``); ``GroupedBlockSparseMatmul`` is K4's, whose backward
+(the grouped K5/K6) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from . import _build
 
 __all__ = [
     "BlockSparseMatmul",
+    "GroupedBlockSparseMatmul",
     "TopkastBlockSparseMatmul",
     "block_sparse_dw",
     "block_sparse_dw_plain",
@@ -48,6 +55,9 @@ __all__ = [
     "csr_of",
     "dx_launches",
     "dw_launches",
+    "g_launches",
+    "grouped_block_sparse_matmul",
+    "grouped_block_sparse_matmul_plain",
     "launches",
     "matmul_error_bound",
     "unpack_block_mask",
@@ -57,6 +67,7 @@ __all__ = [
 launches = 0     # K1
 dx_launches = 0  # K2
 dw_launches = 0  # K3
+g_launches = 0   # K4
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
@@ -66,13 +77,14 @@ _I = ctypes.c_int
 def unpack_block_mask(idx: torch.Tensor, cnt: torch.Tensor,
                       n_rows: int) -> torch.Tensor:
     """CSC ``(idx, cnt)`` -> (n_rows, n_cols) bool block mask, without a
-    host sync: padded slots scatter into a dummy trailing row."""
-    n_cols, width = idx.shape
-    live = torch.arange(width, device=idx.device)[None, :] < cnt[:, None]
+    host sync: padded slots scatter into a dummy trailing row.  A stacked
+    grouped pack (``idx (G, n_cols, width)``) gives (G, n_rows, n_cols)."""
+    *lead, n_cols, width = idx.shape
+    live = torch.arange(width, device=idx.device) < cnt[..., None]
     rows = torch.where(live, idx.long(), n_rows)
-    bm = torch.zeros(n_cols, n_rows + 1, dtype=torch.bool, device=idx.device)
-    bm.scatter_(1, rows, True)
-    return bm[:, :n_rows].T.contiguous()
+    bm = torch.zeros(*lead, n_cols, n_rows + 1, dtype=torch.bool, device=idx.device)
+    bm.scatter_(-1, rows, True)
+    return bm[..., :n_rows].transpose(-1, -2).contiguous()
 
 
 def csr_of(idx: torch.Tensor, cnt: torch.Tensor, n_rows: int):
@@ -88,7 +100,7 @@ def csr_of(idx: torch.Tensor, cnt: torch.Tensor, n_rows: int):
 
 def _dense_mask(idx, cnt, n_rows: int, bk: int, bn: int) -> torch.Tensor:
     mask = unpack_block_mask(idx, cnt, n_rows)
-    return mask.repeat_interleave(bk, 0).repeat_interleave(bn, 1)
+    return mask.repeat_interleave(bk, -2).repeat_interleave(bn, -1)
 
 
 def block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
@@ -96,6 +108,14 @@ def block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
     ``x @ (w * mask)`` with f32 accumulation, rounded once to x.dtype."""
     mask = _dense_mask(idx, cnt, w.shape[0] // bk, bk, bn)
     return (x.float() @ (w.float() * mask)).to(x.dtype)
+
+
+def grouped_block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
+    """Plain K4: per group ``x[g] @ (w[g] * mask[g])`` with f32
+    accumulation, rounded once to x.dtype; a group whose counts are all
+    zero (a dead expert) gives zeros."""
+    mask = _dense_mask(idx, cnt, w.shape[-2] // bk, bk, bn)
+    return torch.bmm(x.float(), w.float() * mask).to(x.dtype)
 
 
 def block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
@@ -197,6 +217,38 @@ def block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int):
     return y
 
 
+def grouped_block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int):
+    """K4: x (G, M, K) @ block-sparse w (G, K, N) -> (G, M, N) in x.dtype,
+    every group in one launch, over the stacked CSC pack ``idx (G, N/bn,
+    width)`` / ``cnt (G, N/bn)``.  M must be a multiple of ``bm``
+    (``kernels/ops.py`` pads rows).  CUDA tensors run the kernel or raise;
+    CPU tensors run the plain version."""
+    global g_launches
+    if x.device.type == "cpu":
+        return grouped_block_sparse_matmul_plain(x, w, idx, cnt, bk, bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_block_sparse_matmul: unsupported device {x.device}")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"grouped_block_sparse_matmul: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be (G, M, K) and (G, K, N)")
+    (G, M, K), N = x.shape, w.shape[2]
+    s = _check_cuda("grouped_block_sparse_matmul", x, w, {"idx": idx, "cnt": cnt},
+                    {"bm": bm, "bn": bn, "bk": bk},
+                    [(M, bm), (K, bk), (N, bn)], [(w.shape[0], G), (w.shape[1], K)])
+    if idx.dim() != 3 or idx.shape[:2] != (G, N // bn) or cnt.shape != (G, N // bn):
+        raise ValueError(f"grouped_block_sparse_matmul: pack idx {tuple(idx.shape)} / "
+                         f"cnt {tuple(cnt.shape)} does not match (G, N/bn) = "
+                         f"({G}, {N // bn})")
+    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_fwd_{s}", 5, 8)
+    y = torch.empty(G, M, N, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                y.data_ptr(), G, M, K, N, idx.shape[2], bm, bn, bk, _stream(x))
+    _build.check(lib, rc, "block_sparse_grouped_fwd launch")
+    g_launches += 1
+    return y
+
+
 def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
     """K2: g (M, N) @ block-sparse w (K, N)^T -> dx (M, K) in g.dtype, over
     the CSR pack ``ridx (K/bk, row_width)`` / ``rcnt (K/bk,)``.  M must be a
@@ -280,6 +332,24 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 9
+
+
+class GroupedBlockSparseMatmul(torch.autograd.Function):
+    """y[g] = x[g] @ W[g] over a bank's stacked CSC pack (K4), as the
+    reference's ``_gbs_fwd``.  Its backward, the grouped dgrad and wgrad
+    kernels K5 and K6, belongs to MoE training, which the port does not run
+    yet: it raises on every device, so no CPU run differentiates through a
+    path the card could not."""
+
+    @staticmethod
+    def forward(ctx, x, w, idx, cnt, bm, bn, bk):
+        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "grouped_block_sparse_matmul: the backward (grouped dgrad and wgrad, "
+            "kernels K5/K6) is not ported yet")
 
 
 def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt):

@@ -1,11 +1,13 @@
 """Masked matmul y = x @ (w * m) with an elementwise mask, forward and
 backward, and the fused SGD wgrad epilogue.
 
-Replaces four TPU kernels of ``repro/kernels/masked_matmul.py`` with
+Replaces five TPU kernels of ``repro/kernels/masked_matmul.py`` with
 hand-written CUDA kernels for Hopper (sm_90a), all in
 csrc/masked_matmul.cu (the design and its bound are described there):
 
   K13 ``_fwd_kernel`` (``_fwd_call``)     y = x @ (w * m)
+  K16 ``_g_fwd_kernel`` (``_g_fwd_call``) y[g] = x[g] @ (w[g] * m[g]) for
+        every group of a (G, K, N) weight bank (the MoE experts), one launch
   K14 ``_dx_kernel`` (``_dx_call``)       dx = g @ (w * m)^T
   K15 ``_dw_kernel`` (``_dw_call``)       dw = (x^T @ g) * m
   K19 ``_dw_fused_kernel`` (``_dw_fused_call``)
@@ -20,10 +22,12 @@ inf weight under a zero mask gives NaN, as the reference's
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
-``dx_launches``, ``dw_launches`` and ``fused_launches`` count kernel
-launches.  ``MaskedMatmul``, ``TopkastMaskedMatmul`` and
+``g_launches``, ``dx_launches``, ``dw_launches`` and ``fused_launches``
+count kernel launches.  ``MaskedMatmul``, ``TopkastMaskedMatmul`` and
 ``FusedMaskedMatmul`` are the differentiable forms (the reference's custom
-VJPs ``_mm_fwd/_mm_bwd``, ``_tkm_fwd/_tkm_bwd`` and ``_fmm_fwd/_fmm_bwd``).
+VJPs ``_mm_fwd/_mm_bwd``, ``_tkm_fwd/_tkm_bwd`` and ``_fmm_fwd/_fmm_bwd``);
+``GroupedMaskedMatmul`` is K16's, whose backward (the grouped K17/K18) is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -36,12 +40,16 @@ from .block_sparse_matmul import _SUFFIX, _stream, _suffix, matmul_error_bound
 
 __all__ = [
     "FusedMaskedMatmul",
+    "GroupedMaskedMatmul",
     "MaskedMatmul",
     "TopkastMaskedMatmul",
     "dx_launches",
     "dw_launches",
     "fused_error_bound",
     "fused_launches",
+    "g_launches",
+    "grouped_masked_matmul",
+    "grouped_masked_matmul_plain",
     "launches",
     "masked_dw",
     "masked_dw_fused",
@@ -57,6 +65,7 @@ __all__ = [
 
 # kernel launches since import (or since a caller reset them)
 launches = 0        # K13
+g_launches = 0      # K16
 dx_launches = 0     # K14
 dw_launches = 0     # K15
 fused_launches = 0  # K19
@@ -110,6 +119,13 @@ def masked_matmul_plain(x, w, mask):
     x.dtype (the mask multiplies in w's dtype, as the reference)."""
     wm = w * mask.to(w.dtype)
     return (x.float() @ wm.float()).to(x.dtype)
+
+
+def grouped_masked_matmul_plain(x, w, mask):
+    """Plain K16: per group ``x[g] @ (w[g] * m[g])`` with f32 accumulation,
+    rounded once to x.dtype."""
+    wm = w * mask.to(w.dtype)
+    return torch.bmm(x.float(), wm.float()).to(x.dtype)
 
 
 def masked_dx_plain(g, w, mask):
@@ -205,6 +221,32 @@ def masked_matmul(x, w, mask, *, bm: int, bn: int):
                 M, K, N, bm, bn, _stream(x))
     _build.check(lib, rc, "masked_fwd launch")
     launches += 1
+    return y
+
+
+def grouped_masked_matmul(x, w, mask, *, bm: int, bn: int):
+    """K16: x (G, M, K) @ (w * mask) (G, K, N) -> (G, M, N) in x.dtype,
+    every group in one launch.  M must be a multiple of ``bm``
+    (``kernels/ops.py`` pads rows).  CUDA tensors run the kernel or raise;
+    CPU tensors run the plain version."""
+    global g_launches
+    if x.device.type == "cpu":
+        return grouped_masked_matmul_plain(x, w, mask)
+    _device("grouped_masked_matmul", x)
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"grouped_masked_matmul: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be (G, M, K) and (G, K, N)")
+    (G, M, K), N = x.shape, w.shape[2]
+    s = _check_cuda("grouped_masked_matmul", (x, w), (mask,), {"bm": bm, "bn": bn},
+                    [(M, bm), (N, bn), (K, 16)],
+                    [(w.shape[0], G), (w.shape[1], K), (mask.shape, w.shape)])
+    lib, fn = _fn(f"masked_fwd_grouped_{s}", [_P] * 4 + [_I] * 6 + [_P])
+    y = torch.empty(G, M, N, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
+                G, M, K, N, bm, bn, _stream(x))
+    _build.check(lib, rc, "masked_fwd_grouped launch")
+    g_launches += 1
     return y
 
 
@@ -343,6 +385,23 @@ class FusedMaskedMatmul(torch.autograd.Function):
         m_new = masked_dw_fused(x, g, wgm, w, mom, seed, mu=mu, wd=wd, sr=sr,
                                 bn=bn, bk=bk)
         return (dx, m_new) + (None,) * 10
+
+
+class GroupedMaskedMatmul(torch.autograd.Function):
+    """y[g] = x[g] @ (w[g] * m[g]) over a weight bank (K16), as the
+    reference's ``_gmm_fwd``.  Its backward, the grouped dgrad and wgrad
+    kernels K17 and K18, belongs to MoE training, which the port does not
+    run yet: it raises on every device."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, bm, bn):
+        return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "grouped_masked_matmul: the backward (grouped dgrad and wgrad, "
+            "kernels K17/K18) is not ported yet")
 
 
 def _backward(ctx, g, x, w, mask, dmask):

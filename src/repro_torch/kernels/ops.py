@@ -2,26 +2,41 @@
 and packs.
 
 Port of ``_row_tile``, ``_pad_rows``, the pack-entry path of
-``block_sparse_linear`` and ``masked_linear``, ``topkast_masked_linear``
-and ``fused_masked_linear`` from the JAX package's ``kernels/ops.py``.
-Leading dims of x are flattened and the rows zero-padded to the row tile (a
-small batch shrinks the tile to its 16-padded row count instead of padding
-to bm), then trimmed after; autograd drops the padded rows' gradients.  For
-block_sparse K and N must be tile-aligned (the block grid is defined by
-them); the masked wrappers zero-pad K and N up to their clamped tiles
-(masks with zeros, so A ⊆ B still holds) and trim the output.
+``block_sparse_linear`` and ``masked_linear``, ``topkast_masked_linear``,
+``fused_masked_linear`` and the weight-bank twins
+``grouped_block_sparse_linear`` (pack-entry path) and
+``grouped_masked_linear`` from the JAX package's ``kernels/ops.py``.  The
+grouped Top-KAST and fused variants belong to MoE training, not ported
+yet.  Leading dims of x are flattened (the grouped wrappers keep the group
+dim) and the rows zero-padded to the row tile (a small batch shrinks the
+tile to its 16-padded row count instead of padding to bm), then trimmed
+after; autograd drops the padded rows' gradients.  For block_sparse K and
+N must be tile-aligned (the block grid is defined by them); the masked
+wrappers zero-pad K and N up to their clamped tiles (masks with zeros, so
+A ⊆ B still holds) and trim the output.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .block_sparse_matmul import BlockSparseMatmul, TopkastBlockSparseMatmul
-from .masked_matmul import FusedMaskedMatmul, MaskedMatmul, TopkastMaskedMatmul
+from .block_sparse_matmul import (
+    BlockSparseMatmul,
+    GroupedBlockSparseMatmul,
+    TopkastBlockSparseMatmul,
+)
+from .masked_matmul import (
+    FusedMaskedMatmul,
+    GroupedMaskedMatmul,
+    MaskedMatmul,
+    TopkastMaskedMatmul,
+)
 
 __all__ = [
     "block_sparse_linear",
     "fused_masked_linear",
+    "grouped_block_sparse_linear",
+    "grouped_masked_linear",
     "masked_linear",
     "topkast_masked_linear",
 ]
@@ -135,3 +150,50 @@ def fused_masked_linear(x, w, mask, mom, seed: int, *, mu: float, wd: float,
                                                             block)
     out = FusedMaskedMatmul.apply(x2, w, mask, wgm, mom, seed, mu, wd, sr, *blk)
     return out[:M, :N].reshape(*lead, N)
+
+
+def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
+    """out[g] = x[g] @ w_blocksparse[g] for every group of a (G, K, N) weight
+    bank, ONE launch (K4), visiting only each group's active blocks.
+
+    x: (G, M, K) -> (G, M, N).  pack: a grouped PackState entry
+    (``idx (G, N/bn, width)`` etc., per-group CSC at one shared width,
+    core/pack.py) or a bare stacked ``(idx, cnt)`` tuple, on x's device; an
+    entry's Top-KAST superset view, if any, only steers the wgrad, so the
+    forward ignores it.  A group with no active block (a dead expert)
+    outputs zeros.  M is padded to the row tile; K and N must be
+    tile-aligned.  Differentiating raises: the grouped backward (K5/K6)
+    belongs to MoE training.
+    """
+    bm, bn, bk = block
+    G, M, K = x.shape
+    N = w.shape[2]
+    bk, bn = min(bk, K), min(bn, N)
+    idx, cnt = (pack["idx"], pack["cnt"]) if isinstance(pack, dict) else pack
+    bm_eff, Mp = _row_tile(M, bm)
+    if Mp != M:
+        x = F.pad(x, (0, 0, 0, Mp - M))
+    out = GroupedBlockSparseMatmul.apply(x.contiguous(), w, idx, cnt, bm_eff, bn, bk)
+    return out[:, :M]
+
+
+def grouped_masked_linear(x, w, mask, *, block=(128, 128, 128)):
+    """out[g] = x[g] @ (w[g] * mask[g]) for every group, ONE launch (K16),
+    the mask fused into the kernel (any pattern; w * m never written to
+    device memory).  x: (G, M, K); w, mask: (G, K, N) -> (G, M, N).  M is
+    padded to the row tile and K/N to their clamped tiles (zeros), as in
+    ``masked_linear``.  Differentiating raises: the grouped backward
+    (K17/K18) belongs to MoE training."""
+    bm, bn, bk = block
+    G, M, K = x.shape
+    N = w.shape[2]
+    bm_eff, Mp = _row_tile(M, bm)
+    Kp = _round_up(K, min(bk, K))
+    Np = _round_up(N, min(bn, N))
+    x = F.pad(x, (0, Kp - K, 0, Mp - M)) if (Mp, Kp) != (M, K) else x
+    if (Kp, Np) != (K, N):
+        w = F.pad(w, (0, Np - N, 0, Kp - K))
+        mask = F.pad(mask, (0, Np - N, 0, Kp - K))
+    out = GroupedMaskedMatmul.apply(x.contiguous(), w.contiguous(),
+                                    mask.contiguous(), bm_eff, min(bn, Np))
+    return out[:, :M, :N]

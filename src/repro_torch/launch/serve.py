@@ -7,8 +7,10 @@ Port of the JAX package's ``launch/serve.py`` (engine mode), with the same
 flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs the plain
 versions of the kernels, for smoke configs).  With ``--kernel block_sparse``
 every projection of prefill and decode runs the block-sparse CUDA kernel on
-the serve state's PackState, packed once; with ``--kernel masked`` the
-masked kernel (K13) on the weights and their elementwise masks; with
+the serve state's PackState, packed once, and an MoE config's expert banks
+(``--arch qwen2-moe-a2.7b``) the grouped kernel K4 on their stacked
+per-expert packs; with ``--kernel masked`` the masked kernels (K13, and
+K16 for the banks) on the weights and their elementwise masks; with
 ``--attn-kernel flash_tight``
 prefill attention runs the flash CUDA kernel on the prompt's AttnSchedule.
 ``--paged`` pages the KV caches and ``--prefix-cache N`` shares prompt
@@ -95,9 +97,10 @@ def init_serving_state(cfg, seed: int = 0, *, device=None):
         smap = sparsity_map(cfg, params, flags)
         if sp.kernel == "block_sparse":
             flat = tree_paths(params)
-            bad = [n for n in smap if flat[n].dim() != 2
-                   or flat[n].shape[0] % sp.block_shape[0]
-                   or flat[n].shape[1] % sp.block_shape[1]]
+            # a 3-D weight bank (MoE experts) tiles by its trailing two dims
+            bad = [n for n in smap if flat[n].dim() not in (2, 3)
+                   or flat[n].shape[-2] % sp.block_shape[0]
+                   or flat[n].shape[-1] % sp.block_shape[1]]
             if bad:
                 raise ValueError(
                     f"block_shape={sp.block_shape} does not tile the "

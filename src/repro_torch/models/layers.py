@@ -1,9 +1,10 @@
 """Parameter primitives of the port: init bundles, ``linear``, ``rmsnorm``.
 
-Port of the JAX package's ``models/layers.py`` for the dense-family
-transformer.  Params are nested dicts of tensors; at init every leaf is a
-``P`` bundle (value, sparsifiable) and ``split_params`` separates the two
-trees.  The reference's logical sharding axes are not ported.
+Port of the JAX package's ``models/layers.py`` for the transformer and
+MoE families (``grouped_linear`` is the weight-bank twin of ``linear``).
+Params are nested dicts of tensors; at init every leaf is a ``P`` bundle
+(value, sparsifiable) and ``split_params`` separates the two trees.  The
+reference's logical sharding axes are not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch
 from ..kernels.ops import (
     block_sparse_linear,
     fused_masked_linear,
+    grouped_block_sparse_linear,
+    grouped_masked_linear,
     masked_linear,
     topkast_masked_linear,
 )
@@ -27,6 +30,8 @@ __all__ = [
     "truncated_normal_init",
     "linear_init",
     "linear",
+    "grouped_linear",
+    "dispatch_kw",
     "rmsnorm_init",
     "rmsnorm",
     "assert_total_dispatch",
@@ -119,6 +124,54 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
     return x.to(dt) @ w
 
 
+def grouped_linear(w, x, compute_dtype=None, *, mask=None, kernel=None,
+                   block=(128, 128, 128), pack=None):
+    """Grouped matmul: x (G, M, K) @ w (G, K, N) -> (G, M, N), the
+    weight-BANK twin of ``linear`` (the reference's
+    ``layers.grouped_linear``): the MoE experts' ``ecd,edf->ecf`` banks.
+
+    Dispatch mirrors ``linear``, with a mask:
+      kernel='block_sparse'  one launch over the bank on its grouped
+                             PackState entry ``pack`` (K4);
+      kernel='masked'        one launch with the mask fused in (K16).
+    Other kernels, or ``mask=None``, compute the batched product on
+    ``w * mask`` densely.  A Top-KAST superset view in ``pack`` (``bidx``,
+    the masked carrier's ``bwd_mask``) steers only the weight gradient, so
+    the forward runs as without it; differentiating raises, as does a
+    fused-epilogue entry: the grouped backward kernels belong to MoE
+    training, not ported yet.
+    """
+    dt = compute_dtype or x.dtype
+    w = w.to(dt)
+    if mask is not None and kernel in ("masked", "block_sparse"):
+        if isinstance(pack, dict) and "mom" in pack:
+            raise NotImplementedError(
+                "grouped_linear: the grouped fused epilogue (kernels K8/K20, "
+                "MoE training) is not ported yet")
+        if kernel == "masked":
+            return grouped_masked_linear(x.to(dt), w, mask, block=block)
+        if pack is None:
+            raise NotImplementedError(
+                "grouped_linear: block_sparse without a PackState entry (packing "
+                "the mask per call) is not ported yet; pass pack=")
+        return grouped_block_sparse_linear(x.to(dt), w, pack=pack, block=block)
+    if mask is not None:
+        w = w * mask.to(dt)
+    return torch.bmm(x.to(dt), w)
+
+
+def dispatch_kw(cfg, masks, name, pack=None):
+    """Kernel-dispatch kwargs of one sparsifiable projection or bank
+    ``name`` of a submodule (the reference's ``layers.dispatch_kw``): its
+    ``{"w": ...}``-bundled mask and pack leaves and the config's kernel."""
+    return dict(
+        mask=None if masks is None else masks[name]["w"],
+        kernel=cfg.sparse.kernel,
+        block=cfg.sparse.kernel_block,
+        pack=None if pack is None else pack[name]["w"],
+    )
+
+
 def rmsnorm_init(d: int, device):
     return {"scale": P(torch.ones(d, dtype=torch.float32, device=device))}
 
@@ -131,22 +184,38 @@ def rmsnorm(p, x, eps: float = 1e-6):
 
 
 
-def assert_total_dispatch(masks, *, kernel=None, where: str = "?", pack=None):
-    """Loud guard against a silent fallback of the weight gradients (the
-    reference's ``layers.assert_total_dispatch`` with ``require_bwd``).
+def assert_total_dispatch(masks, consumed=None, *, kernel=None, where: str = "?",
+                          pack=None):
+    """Loud guard against a silent dense fallback (the reference's
+    ``layers.assert_total_dispatch``), in its two modes.
 
-    Under kernel dispatch with backward supersets (rigl), every mask leaf's
-    ``pack`` entry must carry the superset view — ``bidx`` (block_sparse)
-    or the masked carrier's ``bwd_mask`` — so its weight gradient runs on
-    the superset (the grow scores' channel) and not on the forward
-    topology.  The reference's per-submodule mode (every mask leaf consumed
-    by a dispatched matmul) belongs with the model families that need it
-    (MoE, xLSTM, hymba), not ported yet.
+    ``consumed`` given (per submodule, the MoE layer): under kernel
+    dispatch every non-None mask leaf of the submodule's mask subtree must
+    sit under one of the ``consumed`` keys, the ones the caller routes
+    through ``linear``/``grouped_linear``; a leftover leaf would fall back
+    to ``w * m`` in device memory, so this raises.
+
+    ``consumed`` None (the train step with backward supersets, the
+    reference's ``require_bwd``): every mask leaf's ``pack`` entry must
+    carry the superset view — ``bidx`` (block_sparse) or the masked
+    carrier's ``bwd_mask`` — so its weight gradient runs on the superset
+    (the grow scores' channel) and not on the forward topology.
     """
     if masks is None or kernel in (None, "dense"):
         return
-    from ..core.masks import tree_map
+    from ..core.masks import tree_map, tree_paths
 
+    if consumed is not None:
+        leftovers = sorted(n for n in tree_paths(masks)
+                           if n.split("/")[0] not in consumed)
+        if leftovers:
+            raise RuntimeError(
+                f"{where}: mask leaves {leftovers} have no kernel-dispatched "
+                "consumer — they would silently fall back to dense w*m; route "
+                "them through layers.linear/grouped_linear or keep the weights "
+                "dense"
+            )
+        return
     view = "bwd_mask" if kernel == "masked" else "bidx"
     missing = []
     tree_map(lambda n, m, e: missing.append(n) if m is not None and not (

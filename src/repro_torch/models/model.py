@@ -1,9 +1,11 @@
-"""Dense-family transformer LM of the port: init, loss, prefill and decode.
+"""Transformer LM of the port: init, loss, prefill and decode.
 
 Port of the JAX package's ``models/model.py`` for training and serving the
-transformer family (h2o-danube-1.8b).  Every weight matmul goes through
-``layers.linear`` (the block-sparse kernels under
-``cfg.sparse.kernel='block_sparse'``, the masked kernels under
+transformer family (h2o-danube-1.8b, mistral-large-123b) and serving its
+MoE family (qwen2-moe-a2.7b: ``models/moe.py`` in place of the MLP, its
+expert banks through ``layers.grouped_linear``).  Every weight matmul goes
+through ``layers.linear`` or ``grouped_linear`` (the block-sparse kernels
+under ``cfg.sparse.kernel='block_sparse'``, the masked kernels under
 ``kernel='masked'``, forward and backward), full-sequence
 attention through the flash kernels, decode attention and the LM head are
 plain PyTorch.  ``lm_loss`` is differentiable; with ``cfg.remat`` each
@@ -15,9 +17,9 @@ compute dtype and scaled by sqrt(d_model) into an f32 residual stream
 (NumPy's float64 scalar promotes it there in the reference), rmsnorm keeps
 the residual's dtype, the attention projections cast to ``cfg.dtype`` (and
 ``wo`` inherits the attention output's dtype), while the MLP and the LM head
-inherit the residual's f32.  Under a bf16 config the MLP's block-sparse or
-masked matmuls therefore run in f32, forward and backward, as in the
-reference.
+inherit the residual's f32.  Under a bf16 config the MLP's (and the MoE's
+banks, router and shared MLP) block-sparse or masked matmuls therefore run
+in f32, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from .layers import (
     split_params,
 )
 from .mlp import mlp, mlp_init
+from .moe import moe, moe_init
 
 __all__ = [
     "padded_vocab",
@@ -63,7 +66,6 @@ def padded_vocab(cfg) -> int:
 def _check_ported(cfg) -> None:
     unported = {
         "block_type": cfg.block_type != "transformer",
-        "n_experts": bool(cfg.n_experts),
         "frontend": cfg.frontend != "none",
         "parallel_block": cfg.parallel_block,
         "post_norms": cfg.post_norms,
@@ -76,18 +78,25 @@ def _check_ported(cfg) -> None:
     if bad:
         raise NotImplementedError(
             f"config {cfg.name!r}: {', '.join(bad)} not ported yet (the port "
-            "serves the dense-family causal transformer)"
+            "runs the causal transformer and its MoE variant)"
         )
 
 
 def init_lm(cfg, seed: int = 0, *, device=None):
     """Random weights from ``seed`` -> (params, sparse_flags) trees, f32
     masters on ``device`` (default ``cuda``).  Layout as the reference's
-    ``init_lm``; the draws are torch's, not ``jax.random``'s."""
+    ``init_lm``; the draws are torch's, not ``jax.random``'s.  An MoE
+    config's layers hold ``moe`` (``models/moe.py``) in place of ``mlp``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, pv = cfg.d_model, padded_vocab(cfg)
+
+    def ff():
+        if cfg.n_experts:
+            return {"moe": moe_init(gen, cfg)}
+        return {"mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind)}
+
     tree = {
         "embed": {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))},
         "layers": [
@@ -95,7 +104,7 @@ def init_lm(cfg, seed: int = 0, *, device=None):
                 "ln1": rmsnorm_init(d, dev),
                 "attn": A.attn_init(gen, cfg),
                 "ln2": rmsnorm_init(d, dev),
-                "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind),
+                **ff(),
             }
             for _ in range(cfg.n_layers)
         ],
@@ -110,8 +119,9 @@ def serving_weights(params, cfg):
     the compute dtype, ONCE.  The reference casts the f32 masters inside
     every call (``layers.linear``, the embedding gather); casting once gives
     the same bits without re-reading f32 weights on every decode step.  The
-    MLP weights, norm scales and the LM head stay f32: the reference
-    computes them in the f32 residual's dtype."""
+    MLP weights (an MoE's banks, router and shared MLP too), norm scales
+    and the LM head stay f32: the reference computes them in the f32
+    residual's dtype."""
     dt = compute_dtype(cfg)
     out = dict(params)
     out["embed"] = {"table": params["embed"]["table"].to(dt)}
@@ -135,10 +145,22 @@ def _embed(params, cfg, tokens):
     return x.float() * float(np.float32(np.sqrt(cfg.d_model)))
 
 
+def _ff(p, x, cfg, masks, pack, active=None):
+    """The block's feed-forward: ``moe`` for an MoE config (-> (out, aux)),
+    else the MLP (aux 0.0).  ``active`` reaches the MoE's routing."""
+    if cfg.n_experts:
+        return moe(p["moe"], x, cfg, masks=_sub(masks, "moe"),
+                   pack=_sub(pack, "moe"), active=active)
+    return mlp(p["mlp"], x, cfg.mlp_kind, masks=_sub(masks, "mlp"),
+               kernel=cfg.sparse.kernel, block=cfg.sparse.kernel_block,
+               pack=_sub(pack, "mlp")), 0.0
+
+
 def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
            history=None):
-    """Full-sequence block (prefill).  Returns (x, (k, v)).  ``history``:
-    this layer's paged-prefix dict for a suffix prefill
+    """Full-sequence block (prefill).  Returns (x, (k, v), aux): aux is the
+    MoE's load-balancing loss (0.0 without experts).  ``history``: this
+    layer's paged-prefix dict for a suffix prefill
     (``attention(history=)``)."""
     kind = cfg.layer_kind(i)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -147,12 +169,8 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
         masks=_sub(masks, "attn"), pack=_sub(pack, "attn"), history=history,
     )
     x = x + attn_out
-    ff_out = mlp(
-        p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.mlp_kind,
-        masks=_sub(masks, "mlp"), kernel=cfg.sparse.kernel,
-        block=cfg.sparse.kernel_block, pack=_sub(pack, "mlp"),
-    )
-    return x + ff_out, kv
+    ff_out, aux = _ff(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, masks, pack)
+    return x + ff_out, kv, aux
 
 
 def _logits(params, cfg, h):
@@ -169,7 +187,8 @@ def _logits(params, cfg, h):
 
 def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
                collect_states: bool = True, histories=None):
-    """Full-sequence forward -> (hidden (B, S, d), per-layer (k, v)).
+    """Full-sequence forward -> (hidden (B, S, d), per-layer (k, v), aux):
+    aux sums the MoE layers' load-balancing losses (0.0 without experts).
 
     Without ``collect_states`` (the loss) and with ``cfg.remat`` under
     autograd, each group of ``cfg.remat_group`` blocks runs as one
@@ -190,34 +209,41 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
         positions = torch.arange(S, device=x.device)
     layers = list(zip(params["layers"], _per_layer(masks, cfg), _per_layer(pack, cfg)))
     states = []
+    aux = 0.0
     if cfg.remat and not collect_states and torch.is_grad_enabled():
         g = max(cfg.remat_group, 1)
 
         def region(i0, x_):
+            aux_ = 0.0
             for j, (p, m, pk) in enumerate(layers[i0:i0 + g]):
-                x_, _ = _block(p, x_, cfg, i0 + j, positions=positions, masks=m, pack=pk)
-            return x_
+                x_, _, a = _block(p, x_, cfg, i0 + j, positions=positions, masks=m,
+                                  pack=pk)
+                aux_ = aux_ + a
+            return x_, aux_
 
         for i0 in range(0, cfg.n_layers, g):
-            x = checkpoint(region, i0, x, use_reentrant=False)
+            x, a = checkpoint(region, i0, x, use_reentrant=False)
+            aux = aux + a
     else:
         hist = histories if histories is not None else [None] * cfg.n_layers
         for i, (p, m, pk) in enumerate(layers):
-            x, kv = _block(p, x, cfg, i, positions=positions, masks=m, pack=pk,
-                           history=hist[i])
+            x, kv, a = _block(p, x, cfg, i, positions=positions, masks=m, pack=pk,
+                              history=hist[i])
+            aux = aux + a
             if collect_states:
                 states.append(kv)
-    return rmsnorm(params["ln_f"], x, cfg.norm_eps), states
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), states, aux
 
 
 def lm_loss(params, cfg, batch, masks=None, pack=None):
     """Mean next-token cross-entropy (chunked over the sequence by
     ``cfg.loss_chunks`` to bound the logits buffer), as the reference's
-    ``lm_loss``.  With ``masks`` the params are RAW and the topology is
-    enforced inside the kernels, so autograd of this w.r.t. the params
+    ``lm_loss``, plus 0.01 times the MoE layers' load-balancing loss (0
+    without experts).  With ``masks`` the params are RAW and the topology
+    is enforced inside the kernels, so autograd of this w.r.t. the params
     yields the sparse (or superset-supported) gradient directly."""
-    h, _ = lm_forward(params, cfg, batch, masks=masks, pack=pack,
-                      collect_states=False)
+    h, _, aux = lm_forward(params, cfg, batch, masks=masks, pack=pack,
+                           collect_states=False)
     targets = batch["targets"]
     B, S, _ = h.shape
     n_chunks = max(1, cfg.loss_chunks)
@@ -230,7 +256,7 @@ def lm_loss(params, cfg, batch, masks=None, pack=None):
         lse = torch.logsumexp(logits, dim=-1)
         picked = logits.gather(-1, targets[:, s:s + step, None].long())[..., 0]
         total = total + (lse - picked).sum()
-    return total / (B * S)
+    return total / (B * S) + 0.01 * aux
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
@@ -271,7 +297,7 @@ def lm_prefill(params, cfg, batch, max_len: int, *, masks=None, pack=None,
     prompt lengths): their K/V writes are dropped and the logits come from
     position n_valid - 1.  Exact for causal attention stacks.
     """
-    h, states = lm_forward(params, cfg, batch, masks=masks, pack=pack)
+    h, states, _ = lm_forward(params, cfg, batch, masks=masks, pack=pack)
     caches = init_caches(cfg, h.shape[0], max_len, h.device)
     for c, (k, v) in zip(caches, states):
         A.fill_kv_cache(c["kv"], k, v, 0, n_valid=n_valid)
@@ -328,8 +354,8 @@ def lm_prefill_suffix(params, cfg, caches, batch, table, ctx: int, *,
     ctx_d = torch.full((1,), ctx, dtype=torch.int32, device=dev)
     histories = [{"pool": c["kv"], "table": table[None], "ctx": ctx_d}
                  for c in caches]
-    h, states = lm_forward(params, cfg, batch, masks=masks, pack=pack,
-                           positions=positions, histories=histories)
+    h, states, _ = lm_forward(params, cfg, batch, masks=masks, pack=pack,
+                              positions=positions, histories=histories)
     n = S if n_valid is None else n_valid
     for c, (k, v) in zip(caches, states):
         A.fill_kv_pool_suffix(c["kv"], k, v, table, ctx, n)
@@ -345,7 +371,8 @@ def logits_all_finite(logits):
 def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
               active=None, tables=None):
     """One decode step.  tokens: (B, 1) int; pos: int or (B,) tensor;
-    ``active`` (B,) bool leaves inactive rows' caches untouched.
+    ``active`` (B,) bool leaves inactive rows' caches untouched and keeps
+    them out of an MoE's routing (a parked slot takes no expert capacity).
     ``tables`` ({group: (B, T_g) int32} on the device) switches to the
     paged layout (``attention.attn_decode(table=)``).  Returns (logits
     (B, 1, V), caches updated in place)."""
@@ -361,9 +388,5 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
             table=None if tables is None else tables[cache_group(cfg, i)],
         )
         x = x + attn_out
-        x = x + mlp(
-            p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.mlp_kind,
-            masks=_sub(m, "mlp"), kernel=cfg.sparse.kernel,
-            block=cfg.sparse.kernel_block, pack=_sub(pk, "mlp"),
-        )
+        x = x + _ff(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, m, pk, active)[0]
     return _logits(params, cfg, rmsnorm(params["ln_f"], x, cfg.norm_eps)), caches

@@ -9,8 +9,10 @@ Port of the JAX package's ``serving/engine.py``:
   * queued requests are admitted into free slots by a B=1 prefill written
     into the slot row (``lm_prefill_into``); prompt lengths pad to the next
     power of two (the reference's trace buckets: the same padded shapes, so
-    the same flash schedules and row tiles), and the prefill logits give the
-    request's first token, so a gen-N request costs N-1 decode steps;
+    the same flash schedules and row tiles), except under an MoE config,
+    which prefills at the exact prompt length (pad tokens would take expert
+    capacity); the prefill logits give the request's first token, so a
+    gen-N request costs N-1 decode steps;
   * all active slots step together in ONE ``lm_decode`` with per-slot
     ``pos`` and an ``active`` mask;
   * ``masks`` and the PackState are engine-level and reused by every call;
@@ -29,7 +31,7 @@ Port of the JAX package's ``serving/engine.py``:
     new slot's table (refcount++; a partly shared boundary page is forked
     and copied) and prefills only the suffix (``lm_prefill_suffix``: the
     paged flash kernel K12 over the prefix).  All-global causal
-    transformer configs only, as in the reference.
+    transformer configs without experts only, as in the reference.
 
 The slot state (tokens, positions, active mask, sampling keys and
 parameters) and the block tables have device copies that advance on the
@@ -165,17 +167,23 @@ class ServeEngine:
         self.paged = paged
         self.page_size = page_size
         self.prefix_cache = prefix_cache
+        # prompt-length bucketing is exact only where end padding cannot
+        # leak into state: MoE routing would let pad tokens take expert
+        # capacity, so MoE configs prefill at the exact prompt length
+        self._pad_prompts = not cfg.n_experts
         # sharing replays nothing: every layer's cache must be plain
-        # position-indexed KV with no ring wrap
-        share_ok = all(cache_group(cfg, i) == "global"
-                       for i in range(cfg.n_layers))
+        # position-indexed KV with no ring wrap, and admission routing-free
+        # (no MoE capacity over suffix pads)
+        share_ok = not cfg.n_experts and all(
+            cache_group(cfg, i) == "global" for i in range(cfg.n_layers))
         if prefix_cache and not paged:
             raise ValueError("prefix_cache needs paged=True (sharing is a "
                              "property of the page tables)")
         if prefix_cache and not share_ok:
             raise ValueError(
-                "prefix_cache requires an all-global config: a sliding-window "
-                f"ring cache cannot share pages (config {cfg.name!r})"
+                "prefix_cache requires an all-global config without experts: a "
+                "sliding-window ring cache cannot share pages, and MoE routing "
+                f"over suffix pads is not exact (config {cfg.name!r})"
             )
         self._spans: dict[str, int] = {}
         self.pools: dict[str, BlockPool] = {}
@@ -232,7 +240,10 @@ class ServeEngine:
     # -- admission ---------------------------------------------------------
 
     def _padded_len(self, prompt_len: int) -> int:
-        """Next power of two, capped so the padded prompt fits a cache row."""
+        """Next power of two, capped so the padded prompt fits a cache row;
+        the exact length for an MoE config."""
+        if not self._pad_prompts:
+            return prompt_len
         return _chunk_capped_len(_bucket_len(prompt_len), self.max_len,
                                  prompt_len, self.cfg.q_chunk)
 

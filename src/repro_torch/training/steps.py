@@ -124,6 +124,9 @@ def needs_bwd_masks(sp) -> bool:
 
 def _check_ported(cfg, opt_cfg=None):
     sp = cfg.sparse
+    if cfg.n_experts:
+        raise _not_ported("MoE training (the grouped backward kernels K5/K6, "
+                          "K17/K18)")
     if sp.method not in _PORTED_METHODS:
         raise _not_ported(f"method {sp.method!r} (the port trains 'rigl' and 'static')")
     if sp.fused_epilogue and sp.kernel == "block_sparse":

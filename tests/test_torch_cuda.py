@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 (bf16 and f32), K2, K3, K9, K10, K11, the paged-prefix K12, the masked
-K13, K14, K15 and the fused epilogue K19, training steps and paged serving
-through them.
+K1 (bf16 and f32), K2, K3, the grouped K4, K9, K10, K11, the paged-prefix
+K12, the masked K13, K14, K15, the grouped masked K16 and the fused
+epilogue K19, training steps, paged serving and MoE serving through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode.  The file imports no JAX, so it runs on a machine that has
@@ -516,3 +516,158 @@ def test_cuda_prefix_engine_runs_k12():
     assert (eng.n_prefix_misses, eng.n_prefix_hits) == (1, 3)
     assert tfa.paged_launches - n0 == 3 * cfg.n_layers
     eng.check_pool_accounting()
+
+
+# (G, M, K, N, blk, dead experts): a small bank with dead experts, and the
+# qwen2-moe-a2.7b banks wi/wg (2048 -> 1408) and wo (1408 -> 2048) at a
+# capacity-4 decode step's 16 padded rows
+GROUPED_SHAPES = [(5, 5, 64, 96, 16, (1, 3)), (60, 16, 2048, 1408, 128, (7,)),
+                  (60, 16, 1408, 2048, 128, ())]
+
+
+def _grouped_problem(shape, seed=9, density=0.2):
+    G, M, K, N, blk, dead = shape
+    rng = np.random.default_rng(seed)
+    bm = rng.random((G, K // blk, N // blk)) < density
+    bm[:, :, 0] = False  # an empty column in every expert
+    for g in dead:
+        bm[g] = False
+    dense = torch.from_numpy(np.repeat(np.repeat(bm, blk, 1), blk, 2))
+    w = torch.randn(G, K, N) / K ** 0.5 * dense
+    return torch.randn(G, M, K), w, dense
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_cuda_grouped_block_sparse_matches_plain(shape, dtype):
+    """K4 against its plain version on the card, element by element within
+    ``matmul_error_bound`` (bf16 also within one ulp of the largest
+    output); dead experts and empty columns come out zero; one launch."""
+    from repro_torch.core.pack import pack_entry
+    from repro_torch.kernels.ops import grouped_block_sparse_linear
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    G, M, K, N, blk, dead = shape
+    x, w, dense = _grouped_problem(shape)
+    x, w = x.to(dev, dt), w.to(dev, dt)
+    e = pack_entry(dense, (blk, blk), device=dev)
+    n0 = tbsm.g_launches
+    got = grouped_block_sparse_linear(x, w, pack=e, block=(128, blk, blk))
+    assert tbsm.g_launches == n0 + 1
+    Mp = -(-M // 16) * 16
+    xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - M))
+    want = tbsm.grouped_block_sparse_matmul_plain(xp, w, e["idx"], e["cnt"], blk, blk)[:, :M]
+    absp = tbsm.grouped_block_sparse_matmul_plain(xp.abs().float(), w.abs().float(),
+                                                  e["idx"], e["cnt"], blk, blk)[:, :M]
+    bound = tbsm.matmul_error_bound(want, absp, K)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+    if dt == torch.bfloat16:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+    assert not got[:, :, :blk].float().any()
+    for g in dead:
+        assert not got[g].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_cuda_grouped_masked_matches_plain(shape, dtype):
+    """K16 against its plain version on an elementwise mask (density 0.12,
+    dead experts fully masked), element by element within
+    ``matmul_error_bound``; one launch."""
+    from repro_torch.kernels.ops import grouped_masked_linear
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    G, M, K, N, blk, dead = shape
+    x = torch.randn(G, M, K, device=dev).to(dt)
+    w = (torch.randn(G, K, N, device=dev) / K ** 0.5).to(dt)
+    m = torch.rand(G, K, N, device=dev) < 0.12
+    for g in dead:
+        m[g] = False
+    n0 = tmm.g_launches
+    got = grouped_masked_linear(x, w, m, block=(128, blk, blk))
+    assert tmm.g_launches == n0 + 1
+    want = tmm.grouped_masked_matmul_plain(x, w, m)
+    absp = tmm.grouped_masked_matmul_plain(x.abs().float(), w.abs().float(), m)
+    bound = tmm.matmul_error_bound(want, absp, K)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+    for g in dead:
+        assert not got[g].float().any()
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_wrappers_raise_instead_of_falling_back():
+    dev = _cuda()
+    x = torch.zeros(2, 16, 32, device=dev, dtype=torch.float16)
+    w = torch.zeros(2, 32, 32, device=dev, dtype=torch.float16)
+    idx = torch.zeros(2, 2, 1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tbsm.grouped_block_sparse_matmul(x, w, idx, cnt, bm=16, bn=16, bk=16)
+    xf, wf = x.float(), w.float()
+    with pytest.raises(ValueError, match="does not match"):
+        tbsm.grouped_block_sparse_matmul(xf, wf, idx[:1], cnt[:1], bm=16, bn=16, bk=16)
+    with pytest.raises(ValueError, match="on cpu"):
+        tbsm.grouped_block_sparse_matmul(xf, wf, idx.cpu(), cnt.cpu(), bm=16, bn=16, bk=16)
+    m = torch.ones(2, 32, 32, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tmm.grouped_masked_matmul(x, w, m, bm=16, bn=16)
+    with pytest.raises(TypeError, match="bool"):
+        tmm.grouped_masked_matmul(xf, wf, m.float(), bm=16, bn=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [100, 1000])
+def test_cuda_flash_d128_g1_matches_plain(S):
+    """K9 at qwen2-moe-a2.7b's attention: 16 query heads over 16 KV heads
+    (G = 1), head_dim 128, a 100- and a 1000-token prefill."""
+    dev = _cuda()
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal((16, S, 128)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    kw = dict(causal=True, window=0, kv_groups=1, return_lse=True)
+    o, lse = tfa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    po, plse = tfa.flash_attention(q, k, v, **kw)
+    pa, _ = tfa.flash_attention(q, k, v.abs(), **kw)
+    assert bool(((o.float().cpu() - po.float()).abs() <= tfa.o_error_bound(po, pa)).all())
+    assert (lse.cpu() - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse", "masked"])
+def test_cuda_moe_engine_runs_grouped_kernels(kernel):
+    """qwen2-moe SMOKE served on the card (block 16, flash_tight): every
+    request DONE, and each decode step launches the grouped kernel once per
+    bank and layer (3 x n_layers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel, init_serving_state
+    from repro_torch.launch.serve import staggered_requests
+    from repro_torch.models.model import lm_decode
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    dev = _cuda()
+    cfg = configure_kernel(get_config("qwen2-moe-a2.7b", smoke=True), kernel=kernel,
+                           block=16 if kernel == "block_sparse" else None,
+                           attn_kernel="flash_tight")
+    cfg = dataclasses.replace(cfg, sparse=dataclasses.replace(
+        cfg.sparse, kernel_block=(128, 16, 16)))
+    params, masks, pack = init_serving_state(cfg, seed=0, device=dev)
+    eng = ServeEngine(cfg, params, capacity=2, max_len=32, masks=masks, pack=pack)
+    reqs = staggered_requests(cfg, 3, prompt_lens=(5, 11), gen_lens=(4, 6))
+    for r in reqs:
+        eng.submit(r)
+    while len(eng.queue) or eng.active.any():
+        eng.step(now=0.0)
+    assert all(r.status is Status.DONE for r in reqs)
+    mod = tbsm if kernel == "block_sparse" else tmm
+    n0 = mod.g_launches
+    tok = torch.zeros(2, 1, dtype=torch.long, device=dev)
+    lm_decode(eng.params, cfg, eng.caches, tok, 20, masks=masks, pack=pack)
+    assert mod.g_launches - n0 == 3 * cfg.n_layers

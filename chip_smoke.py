@@ -42,7 +42,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (sr off and on) against their plain versions on layer 0's
                 served weights and masks, timed beside their bounds
   7. masked train -- RigL with elementwise masks and the Top-KAST superset
-                (Adam, batch 2 x 1024 in one microbatch, 4 steps, a
+                (Adam, batch 2 x 1024 in one microbatch, 6 steps, a
                 drop/grow at step 2): the step-0 loss and gradients against
                 the plain dense path, exact launches per step (336 K13, 168
                 K14, 168 K15), and after the update counts kept, B ⊇ A and
@@ -79,7 +79,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (prompts 100/300, 16 tokens), exactly 36 K16 and 84 K13
                 launches per step, the same checks; then K16 against its
                 plain version on layer 0's elementwise masks, timed
- 12. report  -- one JSON line of per-kernel numbers (all thirteen kernels),
+ 12. moe train -- K10/K11 at qwen2-moe's attention (G = 1, head_dim 128,
+                S = 1024) against their plain versions, timed; then train
+                qwen2-moe-a2.7b at its published widths, 3 of 24 layers
+                (block_sparse, 128x128 blocks, flash_tight, ERK 0.8, RigL
+                with the Top-KAST superset, Adam, warmup-cosine, seed 0;
+                batch 8 x 1024 in the config's 4 microbatches, 6 steps, a
+                drop/grow at step 2): first K5 and K6 against their plain
+                versions (layer 0's ERK packs and supersets, a uniform and a
+                dead-expert topology; 171 and 16 rows; f32 and bf16), timed;
+                the step-0 loss and the gradients of a bank, the shared MLP
+                and the router against the plain dense path with routing
+                pinned; then ``train_loop``: finite losses, the exact
+                launches of every kernel in every step (K4 72, K5 and K6 36
+                per train step), after the update counts kept, B ⊇ A and the
+                pack fresh; wall and device time per step, tokens per
+                second, the peak memory of the steady and the update step,
+                the busy share of the profiled step and K4-K6's share of it
+ 13. moe masked train -- the same model under kernel='masked' (batch 2 x
+                1024 in one microbatch, 6 steps, a drop/grow at step 2): K17
+                and K18 on layer 0's elementwise masks and supersets, timed;
+                the same checks, with K13-K18's exact launches
+ 14. report  -- one JSON line of per-kernel numbers (all seventeen kernels),
                 the card line, and last {"ok": true, "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -581,21 +602,23 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     return k2, k3
 
 
-def flash_bwd_cases(torch, timer, fa):
-    """K10 (dq) and K11 (dk, dv) at danube's attention shapes (32 query
-    heads per sequence over 8 KV heads, G = 4, head_dim 80, bf16): the
-    training microbatch's S = 1024 under the window 4096 (BH = 64), a 256
-    window at S = 512, a ragged causal S = 300, and a softcap-30 case
-    (parity only: PyTorch's attention has no softcap).  Each gradient
-    element by element within ``fa.grad_error_bound``; the yardstick is the
-    backward of scaled_dot_product_attention with the same mask and
-    enable_gqa, which computes dq, dk and dv together (timed as a pair)."""
+DANUBE_FLASH_BWD = (("S=1024 window=4096 (main-path shape)", 64, 1024, 4096, 0.0),
+                    ("S=512 window=256", 32, 512, 256, 0.0),
+                    ("S=300 ragged causal", 32, 300, 0, 0.0),
+                    ("S=512 causal softcap=30 (parity only)", 32, 512, 0, 30.0))
+
+
+def flash_bwd_cases(torch, timer, fa, G=4, d=80, cases=DANUBE_FLASH_BWD):
+    """K10 (dq) and K11 (dk, dv), by default at danube's attention shapes
+    (32 query heads per sequence over 8 KV heads, G = 4, head_dim 80,
+    bf16): the training microbatch's S = 1024 under the window 4096 (BH =
+    64), a 256 window at S = 512, a ragged causal S = 300, and a softcap-30
+    case (parity only: PyTorch's attention has no softcap).  ``cases``:
+    (name, query heads BH, S, window, softcap).  Each gradient element by
+    element within ``fa.grad_error_bound``; the yardstick is the backward
+    of scaled_dot_product_attention with the same mask and enable_gqa,
+    which computes dq, dk and dv together (timed as a pair)."""
     F = torch.nn.functional
-    G, d = 4, 80
-    cases = (("S=1024 window=4096 (main-path shape)", 64, 1024, 4096, 0.0),
-             ("S=512 window=256", 32, 512, 256, 0.0),
-             ("S=300 ragged causal", 32, 300, 0, 0.0),
-             ("S=512 causal softcap=30 (parity only)", 32, 512, 0, 30.0))
     k10, k11 = [], []
     for name, BH, S, window, softcap in cases:
         r = lambda n: torch.randn(n, S, d, device="cuda").to(torch.bfloat16)
@@ -670,22 +693,25 @@ def train_config():
         cfg.sparse, method="rigl", delta_t=DELTA_T))
 
 
-def train_dense_check(torch, cfg, state):
-    """The step-0 loss of one microbatch (2 x 1024) and the gradients of an
-    MLP and an attention weight of layer 0, on the kernel path, against the
-    plain dense path on the same weights (masked dense matmuls, the plain
-    masked softmax).  The kernel path's weight gradient is the dense one
-    restricted to the superset B, and exactly zero outside it."""
+def train_dense_check(torch, cfg, state, names=("layers/0/mlp/wi/w", "layers/0/attn/wq/w"),
+                      label="train"):
+    """The step-0 loss of one microbatch (2 x 1024) and the gradients of
+    ``names`` (by default an MLP and an attention weight of layer 0), on
+    the kernel path, against the plain dense path on the same weights
+    (masked dense matmuls, the plain masked softmax).  An MoE model's
+    routing on the dense path is pinned to the kernel path's picks
+    (``patch_route``; with remat the checkpoint reruns take the same picks
+    in the same order).  The kernel path's weight gradient is the dense
+    one restricted to the superset B, and exactly zero outside it."""
     from repro_torch.core.masks import apply_masks, tree_map, tree_paths
     from repro_torch.data.synthetic import batch_for
     from repro_torch.models.model import lm_loss
 
-    names = ("layers/0/mlp/wi/w", "layers/0/attn/wq/w")
     b = batch_for(cfg, 0, 2, TRAIN_SEQ, learnable=True, device="cuda")
     dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
         cfg.sparse, kernel="dense", attn_kernel="dense"))
 
-    def loss_and_grads(c, params, **kw):
+    def loss_and_grads(c, params, record=None, force=None, **kw):
         leaves = {}
 
         def pick(n, t):
@@ -693,29 +719,39 @@ def train_dense_check(torch, cfg, state):
                 t = leaves[n] = t.detach().requires_grad_(True)
             return t
 
-        loss = lm_loss(tree_map(pick, params), c, b, **kw)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        restore = patch_route(record, force)
+        try:
+            loss = lm_loss(tree_map(pick, params), c, b, **kw)
+            grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        finally:
+            restore()
         return loss.item(), dict(zip(names, grads))
 
-    lk, gk = loss_and_grads(cfg, state["params"], masks=state["masks"], pack=state["pack"])
-    ld, gd = loss_and_grads(dense, apply_masks(state["params"], state["masks"]))
+    picks = []
+    lk, gk = loss_and_grads(cfg, state["params"], record=picks, masks=state["masks"],
+                            pack=state["pack"])
+    ld, gd = loss_and_grads(dense, apply_masks(state["params"], state["masks"]),
+                            force=picks or None)
     bwd = tree_paths(state["bwd_masks"])
     out = {"loss_kernel": lk, "loss_dense": ld, "loss_rel_err": abs(lk - ld) / abs(ld)}
+    if picks:
+        out["route_calls"] = len(picks)
     # tolerances: both paths run attention in bf16 and round at other
     # points (flash's p vs the softmax weights, in another order), so the
     # loss moves by ~1e-4 relative and a weight gradient, a sum over 2048
     # rows of products of such activations, by up to ~1% in norm
     if not out["loss_rel_err"] <= 1e-3:
-        raise AssertionError(f"step-0 loss: kernel {lk} vs dense {ld}")
+        raise AssertionError(f"{label}: step-0 loss: kernel {lk} vs dense {ld}")
     for n in names:
-        ref = gd[n] * bwd[n]
+        ref = gd[n] * bwd[n] if n in bwd else gd[n]
         rel = ((gk[n] - ref).norm() / ref.norm()).item()
-        outside = gk[n][~bwd[n]].abs().max().item() if (~bwd[n]).any() else 0.0
+        outside = gk[n][~bwd[n]].abs().max().item() if n in bwd and (~bwd[n]).any() else 0.0
         out[f"{n} grad_rel_err"] = rel
         if not (rel <= 2e-2 and outside == 0.0):
-            raise AssertionError(f"step-0 gradient of {n}: rel err {rel}, "
+            raise AssertionError(f"{label}: step-0 gradient of {n}: rel err {rel}, "
                                  f"{outside} outside the superset")
-    print("train: step 0, kernel path vs dense path:", json.dumps(out))
+    print(f"{label}: step 0, kernel path vs dense path{', routing pinned' if picks else ''}:",
+          json.dumps(out))
     return out
 
 
@@ -841,7 +877,7 @@ def train_path(torch, bsm, fa, cfg):
 # masked mode: elementwise masks through K13, K14, K15 and the fused K19
 # ---------------------------------------------------------------------------
 
-MASKED_TRAIN_STEPS, MASKED_BATCH, FUSED_STEPS = 4, 2, 2
+MASKED_TRAIN_STEPS, MASKED_BATCH, FUSED_STEPS = 6, 2, 2
 MASKED_PROJ = (("attn.wq", "attn", "wq"), ("attn.wk", "attn", "wk"),
                ("mlp.wi", "mlp", "wi"), ("mlp.wo", "mlp", "wo"))
 
@@ -1058,7 +1094,7 @@ def masked_train(torch, mm, fa, bsm):
     elementwise masks and the Top-KAST superset (Δ = 10%), Adam,
     flash_tight, batch 2 x 1024 in one microbatch: first the step-0 loss
     and layer-0 gradients against the plain dense path, then ``train_loop``
-    for 4 steps (a drop/grow at step 2) with the exact launches of every
+    for 6 steps (a drop/grow at step 2) with the exact launches of every
     step, and after the update per-layer counts kept, B ⊇ A and the
     carrier holding the fresh superset."""
     from repro_torch.core.masks import tree_paths
@@ -1098,11 +1134,11 @@ def masked_train(torch, mm, fa, bsm):
             raise AssertionError(f"masked train step {step}: {rec}, expected {expect}")
         if step == 1:
             seen["masks"] = {n: int(v.sum()) for n, v in tree_paths(state["masks"]).items()}
-        if step == 3:  # the last step, a plain one after the update, is profiled
+        if step == MASKED_TRAIN_STEPS - 1:  # the last step, a plain one, is profiled
             seen["prof"] = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
             seen["prof"].__enter__()
-        elif step == 4:
+        elif step == MASKED_TRAIN_STEPS:
             seen["prof"].__exit__(None, None, None)
         print("masked train:", json.dumps(rec))
         log.append(rec)
@@ -1134,7 +1170,8 @@ def masked_train(torch, mm, fa, bsm):
     validate_pack(state["pack"], where="chip_smoke masked")
     del state
     torch.cuda.empty_cache()
-    steady = [r for r in log if "wall_s" in r and not r["update"] and r["step"] != 4]
+    steady = [r for r in log if "wall_s" in r and not r["update"]
+              and r["step"] != MASKED_TRAIN_STEPS]
     wall = sum(r["wall_s"] for r in steady) / len(steady)
     from torch.autograd import DeviceType
 
@@ -1148,6 +1185,7 @@ def masked_train(torch, mm, fa, bsm):
              "profiled_step_device_busy_ms": sum(dev_ms(e) for e in prof) or None,
              "profiled_step_top": [(e.key, dev_ms(e), e.count) for e in top],
              "total_s": total_s, "peak_mem_gib": peak_gib, "mean_train_step_wall_s": wall,
+             "steady_steps": [r["step"] for r in steady],
              "tok_per_s": MASKED_BATCH * TRAIN_SEQ / wall,
              "update_step_wall_s": [r["wall_s"] for r in log if r["update"] and "wall_s" in r],
              "losses": [r["loss"] for r in log], "step0_vs_dense": dense_check}
@@ -1525,18 +1563,58 @@ def _check_within(torch, tag, got, want, absp, n, dtype):
     return err, ratio, tol
 
 
+def bank_topologies(torch, rng, w_erk, e_erk, blk, superset=False):
+    """The topologies the grouped block-sparse kernels are held on, for one
+    (G, K, N) bank: layer 0's ERK weights and pack entry as given, a
+    uniform 20% block mask with one empty column, and that mask with
+    experts 5 and 40 of 60 dead, both on random weights.  With
+    ``superset`` their packs carry a Top-KAST superset (the mask and 10%
+    of the blocks; none for the dead experts).  Returns the dead experts'
+    ids and [(name, weights, pack entry)]."""
+    import numpy as np
+    from repro_torch.core.pack import pack_entry
+
+    G, K, N = w_erk.shape
+    bm_u = np.stack([uniform_blocks(rng, K, N, blk) for _ in range(G)])
+    sup_u = bm_u | (rng.random(bm_u.shape) < 0.1) if superset else None
+    dead_ids = [G // 12, 2 * G // 3]
+    dead = bm_u.copy()
+    dead[dead_ids] = False
+    sup_d = None
+    if superset:
+        sup_d = sup_u.copy()
+        sup_d[dead_ids] = False
+    dense_of = lambda b: torch.from_numpy(np.repeat(np.repeat(b, blk, 1), blk, 2)).cuda()
+    w_rand = torch.randn(G, K, N, device="cuda") / K**0.5
+    topo = [("layer0 ERK", w_erk, e_erk)]
+    names = ("uniform 20% + 10% superset" if superset else "uniform 20%",
+             f"uniform 20% experts {dead_ids} dead")
+    for tname, b, s_ in zip(names, (bm_u, dead), (sup_u, sup_d)):
+        kw = {} if s_ is None else {"bwd_mask": dense_of(s_)}
+        topo.append((tname, w_rand * dense_of(b), pack_entry(dense_of(b), (blk, blk), **kw)))
+    return dead_ids, topo
+
+
+def grouped_rows(torch, G, C, width, dt):
+    """A random (G, C, width) input in ``dt`` and its copy zero-padded to
+    the row tile, as the grouped wrappers pad it: (bm, Mp, t, padded)."""
+    from repro_torch.kernels.ops import _row_tile
+
+    bm, Mp = _row_tile(C, 128)
+    t = torch.randn(G, C, width, device="cuda").to(dt)
+    return bm, Mp, t, torch.nn.functional.pad(t, (0, 0, 0, Mp - C))
+
+
 def k4_cases(torch, timer, bsm, engine):
     """K4 against its plain version at the MoE path's shapes: the 60-expert
     banks (2048 -> 1408, as wi/wg, and 1408 -> 2048, as wo) at C = 4 rows
     (a capacity-4 decode step, padded to 16) and C = 84 (a 1000-token
-    prefill, padded to 96), f32 (the path's dtype) and bf16, on three
-    topologies: layer 0's served ERK packs, a uniform 20% block mask with
-    one empty column, and the uniform mask with two dead experts.  Bytes:
-    x, the active blocks and y once; operations: 2 C bk bn per active
-    block.  Library: torch.bmm on the zero-filled dense bank (TF32 off)."""
+    prefill, padded to 96), f32 (the path's dtype) and bf16, on
+    ``bank_topologies``.  Bytes: x, the active blocks and y once;
+    operations: 2 C bk bn per active block.  Library: torch.bmm on the
+    zero-filled dense bank (TF32 off)."""
     import numpy as np
-    from repro_torch.core.pack import pack_entry
-    from repro_torch.kernels.ops import _row_tile, grouped_block_sparse_linear
+    from repro_torch.kernels.ops import grouped_block_sparse_linear
 
     rng = np.random.default_rng(4)
     blk = engine.cfg.sparse.kernel_block[2]
@@ -1544,26 +1622,15 @@ def k4_cases(torch, timer, bsm, engine):
     pk = engine.pack["layers"][0]["moe"]
     out = []
     for bank in ("wi", "wo"):
-        w_erk = lay[bank]["w"]
-        G, K, N = w_erk.shape
-        bm_u = np.stack([uniform_blocks(rng, K, N, blk) for _ in range(G)])
-        dead_ids = [G // 12, 2 * G // 3]  # experts 5 and 40 of 60
-        dead = bm_u.copy()
-        dead[dead_ids] = False
-        dense_of = lambda b: torch.from_numpy(np.repeat(np.repeat(b, blk, 1), blk, 2)).cuda()
-        w_rand = torch.randn(G, K, N, device="cuda") / K**0.5
-        topo = [("layer0 ERK", w_erk, pk[bank]["w"])]
-        for tname, b in (("uniform 20%", bm_u), (f"uniform 20% experts {dead_ids} dead", dead)):
-            topo.append((tname, w_rand * dense_of(b), pack_entry(dense_of(b), (blk, blk))))
+        G, K, N = lay[bank]["w"].shape
+        dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk)
         for tname, w32, e in topo:
             idx, cnt = e["idx"], e["cnt"]
             nnz = int(cnt.sum())
             for dt in (torch.float32, torch.bfloat16):
                 w = w32.to(dt)
                 for C in (4, 84):
-                    x = torch.randn(G, C, K, device="cuda").to(dt)
-                    bm, Mp = _row_tile(C, 128)
-                    xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - C))
+                    bm, Mp, x, xp = grouped_rows(torch, G, C, K, dt)
                     tag = f"K4 {bank} {tname} {str(dt)[6:]}"
                     plain = lambda: bsm.grouped_block_sparse_matmul_plain(xp, w, idx, cnt,
                                                                            blk, blk)
@@ -1601,7 +1668,7 @@ def k16_cases(torch, timer, mm, engine):
     16) and 84 (-> 96) rows, f32 and bf16.  Bytes: x, y, w and its 1-byte
     mask once; operations: 2 C per active weight.  Library: torch.bmm on the
     pre-masked bank (TF32 off)."""
-    from repro_torch.kernels.ops import _row_tile, grouped_masked_linear
+    from repro_torch.kernels.ops import grouped_masked_linear
 
     blk = engine.cfg.sparse.kernel_block[2]
     out = []
@@ -1614,9 +1681,7 @@ def k16_cases(torch, timer, mm, engine):
             w = w32.to(dt)
             wm = w * m
             for C in (4, 84):
-                x = torch.randn(G, C, K, device="cuda").to(dt)
-                bm, Mp = _row_tile(C, 128)
-                xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - C))
+                bm, Mp, x, xp = grouped_rows(torch, G, C, K, dt)
                 tag = f"K16 {bank} layer0 ERK {str(dt)[6:]}"
                 plain = lambda: mm.grouped_masked_matmul_plain(xp, w, m)
 
@@ -1906,6 +1971,370 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
     return stats, launches, cases
 
 
+# ---------------------------------------------------------------------------
+# MoE training: qwen2-moe-a2.7b, the grouped backward kernels K5/K6
+# (block-sparse) and K17/K18 (masked)
+# ---------------------------------------------------------------------------
+
+# 3 of 24 layers: 570.6 M parameters a layer, and the port's training holds
+# ~31 bytes a parameter (f32 masters, Adam moments, gradients and their
+# accumulator, masks, supersets); 3 layers and the 0.62 B of embedding and
+# head come to ~67 GiB, 4 would pass 80 GB
+MOE_TRAIN_LAYERS = 3
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 6, 8  # 8 x 1024 in the config's 4 microbatches
+MOE_MASKED_STEPS, MOE_MASKED_BATCH = 6, 2  # 2 x 1024 in one microbatch
+MOE_ROWS = (171, 16)  # a 2048-token microbatch's capacity C, and a small input
+
+
+def moe_train_config(kernel):
+    """qwen2-moe-a2.7b at its published widths, 3 layers deep, ERK 0.8,
+    flash_tight, RigL with the Top-KAST superset (Δ = 10%) every
+    ``DELTA_T`` steps; masked in one microbatch."""
+    cfg = moe_config(kernel)
+    cfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS, sparse=dataclasses.replace(
+        cfg.sparse, method="rigl", delta_t=DELTA_T))
+    return cfg if kernel == "block_sparse" else dataclasses.replace(cfg, microbatches=1)
+
+
+def k5_k6_cases(torch, timer, bsm, state, cfg):
+    """K5 (dx on the stacked CSR) and K6 (dw on the stacked superset CSC)
+    against their plain versions on the training path's banks (60
+    experts; wi as 2048 -> 1408, wo as 1408 -> 2048) at C = 171 rows (a
+    2048-token microbatch's capacity, padded to the 128-row tile: 256) and
+    16, f32 (the path's dtype) and bf16, on ``bank_topologies`` with
+    supersets.  Bytes: g, the active weight blocks and dx once (K5); x, g
+    and the dense dw once (K6); operations 2 C bk bn per active (K5) or
+    superset (K6) block; the padded rows are zeros and count in neither.
+    Library: torch.bmm on the C rows and the zero-filled dense bank (TF32
+    off): g @ w^T and x^T @ g."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    blk = cfg.sparse.kernel_block[2]
+    lay = state["params"]["layers"][0]["moe"]
+    pk = state["pack"]["layers"][0]["moe"]
+    out = {"K5": [], "K6": []}
+    for bank in ("wi", "wo"):
+        G, K, N = lay[bank]["w"].shape
+        dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk,
+                                         superset=True)
+        for tname, w32, e in topo:
+            ridx, rcnt, bidx, bcnt = e["ridx"], e["rcnt"], e["bidx"], e["bcnt"]
+            nnz, bnnz = int(rcnt.sum()), int(bcnt.sum())
+            sup = bsm.unpack_block_mask(bidx, bcnt, K // blk)
+            for dt in (torch.float32, torch.bfloat16):
+                w = w32.to(dt)
+                es = w.element_size()
+                for C in MOE_ROWS:
+                    bm, Mp, g_c, g = grouped_rows(torch, G, C, N, dt)
+                    _, _, x_c, x = grouped_rows(torch, G, C, K, dt)
+                    tag = f"{bank} {tname} {str(dt)[6:]} G={G} C={C}->{Mp} K={K} N={N}"
+
+                    def check_dx():
+                        got = bsm.grouped_block_sparse_dx(g, w, ridx, rcnt, bm=bm, bn=blk,
+                                                          bk=blk)
+                        want = bsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk)
+                        absp = bsm.grouped_block_sparse_dx_plain(
+                            g.abs().float(), w.abs().float(), ridx, rcnt, blk, blk)
+                        res = _check_within(torch, f"K5 {tag}", got, want, absp, N, dt)
+                        if "dead" in tname and got[dead_ids].float().abs().max().item() != 0:
+                            raise AssertionError(f"K5 {tag}: a dead expert's dx is not zero")
+                        return res
+
+                    def check_dw():
+                        got = bsm.grouped_block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk)
+                        want = bsm.grouped_block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk)
+                        absp = bsm.grouped_block_sparse_dw_plain(
+                            x.abs().float(), g.abs().float(), bidx, bcnt, blk, blk)
+                        res = _check_within(torch, f"K6 {tag}", got, want, absp, Mp, dt)
+                        outside = ~sup.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+                        if got[outside].float().abs().max().item() != 0:
+                            raise AssertionError(f"K6 {tag}: dw outside the superset")
+                        return res
+
+                    out["K5"].append(kernel_case(
+                        torch, timer, "K5",
+                        f"{tag} blocks={nnz}/{G * (K // blk) * (N // blk)} "
+                        f"row_width={ridx.shape[-1]}",
+                        lambda: bsm.grouped_block_sparse_dx(g, w, ridx, rcnt, bm=bm, bn=blk,
+                                                            bk=blk),
+                        lambda: bsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk),
+                        lambda: torch.bmm(g_c, w.transpose(1, 2)), check_dx,
+                        es * (G * C * N + nnz * blk * blk + G * C * K)
+                        + 4 * (ridx.numel() + rcnt.numel()),
+                        2.0 * C * nnz * blk * blk, dt))
+                    out["K6"].append(kernel_case(
+                        torch, timer, "K6",
+                        f"{tag} superset blocks={bnnz}/{G * (K // blk) * (N // blk)} "
+                        f"width={bidx.shape[-1]}",
+                        lambda: bsm.grouped_block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk),
+                        lambda: bsm.grouped_block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk),
+                        lambda: torch.bmm(x_c.transpose(1, 2), g_c), check_dw,
+                        es * (G * C * K + G * C * N + G * K * N)
+                        + 4 * (bidx.numel() + bcnt.numel()),
+                        2.0 * C * bnnz * blk * blk, dt))
+    return out
+
+
+def k17_k18_cases(torch, timer, mm, state, cfg):
+    """K17 (dx on the forward mask) and K18 (dw masked by the superset at
+    the store) against their plain versions on layer 0's banks, elementwise
+    ERK masks and Top-KAST supersets, at C = 171 (-> 256) and 16 rows, f32
+    and bf16.  Bytes: g, dx (K17) or x, g, dw (K18) once, and the weight
+    and its 1-byte mask (K17) or the 1-byte superset (K18) once;
+    operations: 2 C per active (K17) or superset (K18) weight; the padded
+    rows count in neither.  Library on the C rows: torch.bmm on the
+    pre-masked bank, and x^T @ g masked by the superset."""
+    blk = cfg.sparse.kernel_block[2]
+    out = {"K17": [], "K18": []}
+    for bank in ("wi", "wo"):
+        w32 = state["params"]["layers"][0]["moe"][bank]["w"]
+        m = state["masks"]["layers"][0]["moe"][bank]["w"]
+        b = state["bwd_masks"]["layers"][0]["moe"][bank]["w"]
+        G, K, N = w32.shape
+        nnz, bnnz = int(m.sum()), int(b.sum())
+        for dt in (torch.float32, torch.bfloat16):
+            w = w32.to(dt)
+            wm = w * m
+            es = w.element_size()
+            for C in MOE_ROWS:
+                bm, Mp, g_c, g = grouped_rows(torch, G, C, N, dt)
+                _, _, x_c, x = grouped_rows(torch, G, C, K, dt)
+                tag = (f"{bank} layer0 ERK {str(dt)[6:]} G={G} C={C}->{Mp} K={K} N={N} "
+                       f"density={nnz / m.numel():.4f}")
+
+                def check_dx():
+                    got = mm.grouped_masked_dx(g, w, m, bm=bm, bk=blk)
+                    want = mm.grouped_masked_dx_plain(g, w, m)
+                    absp = mm.grouped_masked_dx_plain(g.abs().float(), w.abs().float(), m)
+                    return _check_within(torch, f"K17 {tag}", got, want, absp, N, dt)
+
+                def check_dw():
+                    got = mm.grouped_masked_dw(x, g, b, bn=blk, bk=blk)
+                    want = mm.grouped_masked_dw_plain(x, g, b)
+                    absp = mm.grouped_masked_dw_plain(x.abs().float(), g.abs().float(), b)
+                    return _check_within(torch, f"K18 {tag}", got, want, absp, Mp, dt)
+
+                out["K17"].append(kernel_case(
+                    torch, timer, "K17", tag,
+                    lambda: mm.grouped_masked_dx(g, w, m, bm=bm, bk=blk),
+                    lambda: mm.grouped_masked_dx_plain(g, w, m),
+                    lambda: torch.bmm(g_c, wm.transpose(1, 2)), check_dx,
+                    es * (G * C * N + G * C * K) + (es + 1) * G * K * N,
+                    2.0 * C * nnz, dt))
+                out["K18"].append(kernel_case(
+                    torch, timer, "K18", f"{tag} superset density={bnnz / b.numel():.4f}",
+                    lambda: mm.grouped_masked_dw(x, g, b, bn=blk, bk=blk),
+                    lambda: mm.grouped_masked_dw_plain(x, g, b),
+                    lambda: torch.bmm(x_c.transpose(1, 2), g_c) * b, check_dw,
+                    es * (G * C * K + G * C * N + G * K * N) + G * K * N,
+                    2.0 * C * bnnz, dt))
+    return out
+
+
+def grouped_trace_ms(path, n_groups):
+    """Device ms of the grouped kernels (grid dim z = the bank's group
+    count) in a profiler chrome trace, or None when the trace carries no
+    grid dims."""
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    if not kern or not all("grid" in e.get("args", {}) for e in kern):
+        return None
+    return sum(e["dur"] for e in kern if e["args"]["grid"][-1] == n_groups
+               and ("block_sparse" in e["name"] or "masked" in e["name"])) / 1e3
+
+
+def moe_train(torch, timer, bsm, mm, fa, kernel):
+    """Train qwen2-moe-a2.7b (full width, 3 of 24 layers, ERK 0.8,
+    flash_tight, RigL with the Top-KAST superset, Adam, warmup-cosine, seed
+    0) under ``kernel``: block_sparse (128x128 blocks; 8 x 1024 tokens in 4
+    microbatches) or masked (2 x 1024 in one microbatch), 6 steps, a
+    drop/grow at step 2.  First the grouped backward kernels against their
+    plain versions on the path's own layer 0 (K5/K6 or K17/K18) and the
+    step-0 loss and gradients against the plain dense path with routing
+    pinned; then ``train_loop`` with every launch counter set to 0 just
+    before it: finite losses, the exact launches of every kernel in every
+    step, and after the update the block (or weight) counts of every layer
+    kept, B ⊇ A, the pack (or carrier) fresh and valid.  Reports wall and
+    device time per step, tokens per second, the peak memory of each step
+    (the update step's apart), the busy share of the profiled last step
+    and the grouped kernels' share of it."""
+    from repro_torch.core.masks import block_mask_of, tree_paths
+    from repro_torch.core.pack import pack_entries, pack_mismatch, validate_pack
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state
+
+    bs = kernel == "block_sparse"
+    label = f"moe train {kernel}"
+    cfg = moe_train_config(kernel)
+    steps, batch = (MOE_TRAIN_STEPS, MOE_TRAIN_BATCH) if bs else \
+        (MOE_MASKED_STEPS, MOE_MASKED_BATCH)
+    # the run's own initial weights, masks, supersets and packs (seed 0;
+    # the draws do not depend on the optimizer, so sgd keeps this copy small)
+    state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
+    cases = (k5_k6_cases(torch, timer, bsm, state, cfg) if bs
+             else k17_k18_cases(torch, timer, mm, state, cfg))
+    dense_check = train_dense_check(
+        torch, cfg, state, label=label,
+        names=("layers/0/moe/wi/w", "layers/0/moe/shared/wi/w", "layers/0/moe/router/w"))
+    del state
+    torch.cuda.empty_cache()
+
+    counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
+                ("block_sparse_dw", bsm, "dw_launches"),
+                ("grouped_block_sparse_fwd", bsm, "g_launches"),
+                ("grouped_block_sparse_dx", bsm, "gdx_launches"),
+                ("grouped_block_sparse_dw", bsm, "gdw_launches"),
+                ("masked_fwd", mm, "launches"), ("masked_dx", mm, "dx_launches"),
+                ("masked_dw", mm, "dw_launches"), ("grouped_masked_fwd", mm, "g_launches"),
+                ("grouped_masked_dx", mm, "gdx_launches"),
+                ("grouped_masked_dw", mm, "gdw_launches"),
+                ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
+                ("flash_dkv", fa, "dkv_launches"))
+    read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
+    L, B = cfg.n_layers, len(MOE_BANKS)
+    fam, gfam = ("block_sparse", "grouped_block_sparse") if bs else ("masked", "grouped_masked")
+
+    def expected(mb):
+        # remat reruns each block's forward in the backward: the forward
+        # kernels launch twice per microbatch
+        e = {n: 0 for n, _, _ in counters}
+        e.update({f"{fam}_fwd": 2 * MOE_PROJ * L * mb, f"{fam}_dx": MOE_PROJ * L * mb,
+                  f"{fam}_dw": MOE_PROJ * L * mb, f"{gfam}_fwd": 2 * B * L * mb,
+                  f"{gfam}_dx": B * L * mb, f"{gfam}_dw": B * L * mb,
+                  "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb})
+        return e
+
+    # the update step's gradient is one pass over the full batch
+    expect = {False: expected(cfg.microbatches), True: expected(1)}
+    log, seen = [], {"counts": None, "t": None, "ev": None, "prof": None, "units": None}
+
+    def units(masks):
+        """Active blocks (block_sparse) or weights (masked) of every leaf."""
+        return {n: (block_mask_of(m, cfg.sparse.block_shape) if bs else m)
+                for n, m in tree_paths(masks).items()}
+
+    def on_step(step, is_update, state, m):
+        torch.cuda.synchronize()
+        t, ev = time.perf_counter(), torch.cuda.Event(enable_timing=True)
+        ev.record()
+        counts = read()
+        prev = seen["counts"] or {n: 0 for n in counts}
+        rec = {"step": step, "update": is_update, "loss": float(m["loss"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {n: counts[n] - prev[n] for n in counts}}
+        if seen["t"] is not None:
+            rec["wall_s"] = t - seen["t"]
+            rec["device_span_ms"] = seen["ev"].elapsed_time(ev)
+        if rec["launches"] != expect[is_update]:
+            raise AssertionError(f"{label} step {step}: launches {rec['launches']}, "
+                                 f"expected {expect[is_update]}")
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{label} step {step}: loss {rec['loss']}")
+        if step == 1:
+            seen["units"] = {n: u.cpu() for n, u in units(state["masks"]).items()}
+        if step == steps - 1:  # the last step, a plain one after the update
+            seen["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            seen["prof"].__enter__()
+        elif step == steps:
+            seen["prof"].__exit__(None, None, None)
+        print(f"{label}:", json.dumps(rec))
+        log.append(rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen.update(counts=counts, t=time.perf_counter(),
+                    ev=torch.cuda.Event(enable_timing=True))
+        seen["ev"].record()
+
+    for _, mod, a in counters:
+        setattr(mod, a, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = train_loop(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
+                          workdir=str(ROOT / "chiprun_out" / f"moe_train_{kernel}"),
+                          device="cuda", on_step=on_step, log_every=steps)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read()
+
+    after, bwd = units(state["masks"]), units(state["bwd_masks"])
+    moved = 0
+    for n, u in after.items():
+        before = seen["units"][n]
+        if int(u.sum()) != int(before.sum()):
+            raise AssertionError(f"{label}: {n}: {int(before.sum())} active units before "
+                                 f"the update, {int(u.sum())} after")
+        if (u & ~bwd[n]).any():
+            raise AssertionError(f"{label}: {n}: the superset does not contain the mask")
+        moved += int((u.cpu() & ~before).sum())
+    if moved == 0:
+        raise AssertionError(f"{label}: the drop/grow moved nothing")
+    if bs:
+        validate_pack(state["pack"], where="chip_smoke moe")
+        stale = int(pack_mismatch(state["masks"], state["pack"], cfg.sparse.block_shape,
+                                  bwd_masks=state["bwd_masks"]))
+        if stale:
+            raise AssertionError(f"{label}: pack stale after the update: {stale} blocks")
+    else:
+        carried = dict(pack_entries(state["pack"]))
+        bw = tree_paths(state["bwd_masks"])
+        if sorted(carried) != sorted(bw) or any(carried[n]["bwd_mask"] is not bw[n]
+                                                for n in bw):
+            raise AssertionError(f"{label}: the carrier does not hold the refreshed superset")
+        validate_pack(state["pack"], where="chip_smoke moe masked")
+    del state
+    torch.cuda.empty_cache()
+
+    steady = [r for r in log if "wall_s" in r and not r["update"] and r["step"] != steps]
+    wall = sum(r["wall_s"] for r in steady) / len(steady)
+    from torch.autograd import DeviceType
+
+    prof = [e for e in seen["prof"].key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = lambda e: e.self_device_time_total / 1e3
+    busy_ms = sum(dev_ms(e) for e in prof)
+    trace = ROOT / "chiprun_out" / f"moe_train_{kernel}_trace.json"
+    seen["prof"].export_chrome_trace(str(trace))
+    grouped_ms = grouped_trace_ms(trace, cfg.n_experts)
+    (ROOT / "chiprun_out" / f"moe_train_{kernel}_profile.txt").write_text(
+        seen["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    profiled = log[-1]
+    upd = [r for r in log if r["update"]]
+    stats = {
+        "layers": L, "steps": steps, "tokens_per_step": batch * TRAIN_SEQ,
+        "microbatches": cfg.microbatches, "total_s": total_s,
+        "mean_train_step_wall_s": wall, "steady_steps": [r["step"] for r in steady],
+        "mean_train_step_device_span_ms": sum(r["device_span_ms"] for r in steady) / len(steady),
+        "tok_per_s": batch * TRAIN_SEQ / wall,
+        "update_step_wall_s": [r.get("wall_s") for r in upd],
+        "steady_step_peak_gib": max(r["peak_gib"] for r in steady),
+        "update_step_peak_gib": max(r["peak_gib"] for r in upd),
+        "first_step_peak_gib": log[0]["peak_gib"],
+        "profiled_step_wall_s": profiled["wall_s"],
+        "profiled_step_device_busy_ms": busy_ms or None,
+        "profiled_step_busy_share": busy_ms / 1e3 / profiled["wall_s"] if busy_ms else None,
+        "profiled_step_grouped_ms": grouped_ms,
+        "profiled_step_grouped_share": grouped_ms / busy_ms if grouped_ms and busy_ms else None,
+        "profiled_step_top": [(e.key, dev_ms(e), e.count) for e in
+                              sorted(prof, key=dev_ms, reverse=True)[:25]],
+        "losses": [r["loss"] for r in log], "launches_per_step": [r["launches"] for r in log],
+        "units_moved": moved, "step0_vs_dense": dense_check,
+    }
+    gshare = stats["profiled_step_grouped_share"]
+    print(f"{label}: qwen2-moe-a2.7b {L} of 24 layers, {steps} steps of {batch} x "
+          f"{TRAIN_SEQ} tokens in {total_s:.1f} s; train step {wall:.3f} s wall (mean of "
+          f"{len(steady)}) = {stats['tok_per_s']:.0f} tok/s, device span "
+          f"{stats['mean_train_step_device_span_ms']:.1f} ms; peak "
+          f"{stats['steady_step_peak_gib']:.1f} GiB steady, "
+          f"{stats['update_step_peak_gib']:.1f} GiB in the update step; profiled step "
+          f"busy {busy_ms:.1f} ms of {profiled['wall_s']:.3f} s, grouped kernels "
+          f"{'not measured' if gshare is None else f'{gshare:.1%}'} of the busy time; "
+          f"{moved} {'blocks' if bs else 'weights'} moved by the drop/grow; "
+          f"launches {launches}")
+    return stats, launches, cases
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -1992,11 +2421,22 @@ def main() -> int:
     done("moe serve, parity K4")
     moe_m_stats, moe_m_launches, k16 = moe_serve(torch, timer, bsm, mm, fa, "masked")
     done("moe masked serve, parity K16")
+    k10_g1, k11_g1 = flash_bwd_cases(torch, timer, fa, G=1, d=128, cases=(
+        ("S=1024 causal (qwen2-moe train shape)", 16, 1024, 0, 0.0),))
+    k10 += k10_g1
+    k11 += k11_g1
+    moe_train_stats, moe_train_launches, k56 = moe_train(torch, timer, bsm, mm, fa,
+                                                         "block_sparse")
+    done("moe train, parity K5, K6, K10/K11 at G = 1")
+    moe_mtrain_stats, moe_mtrain_launches, k1718 = moe_train(torch, timer, bsm, mm, fa,
+                                                             "masked")
+    done("moe masked train, parity K17, K18")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
              "fused_train": fused_launches, "paged_serve": paged_launches,
-             "moe_serve": moe_launches, "moe_masked_serve": moe_m_launches}
+             "moe_serve": moe_launches, "moe_masked_serve": moe_m_launches,
+             "moe_train": moe_train_launches, "moe_masked_train": moe_mtrain_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -2043,6 +2483,14 @@ def main() -> int:
                 kern + "block_sparse_matmul.py:491", k4),
         summary("grouped_masked_fwd", csrc + "masked_matmul.cu",
                 kern + "masked_matmul.py:239", k16),
+        summary("grouped_block_sparse_dx", csrc + "block_sparse_grouped.cu",
+                kern + "block_sparse_matmul.py:511", k56["K5"]),
+        summary("grouped_block_sparse_dw", csrc + "block_sparse_grouped.cu",
+                kern + "block_sparse_matmul.py:533", k56["K6"]),
+        summary("grouped_masked_dx", csrc + "masked_matmul.cu",
+                kern + "masked_matmul.py:254", k1718["K17"]),
+        summary("grouped_masked_dw", csrc + "masked_matmul.cu",
+                kern + "masked_matmul.py:272", k1718["K18"]),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2053,6 +2501,8 @@ def main() -> int:
          "masked_train": masked_train_stats, "fused_train": fused_stats,
          "k12": k12, "paged_engine": paged_stats, "k4": k4, "k16": k16,
          "moe_engine": moe_stats, "moe_masked_engine": moe_m_stats,
+         "k10_g1": k10_g1, "k11_g1": k11_g1, "k5_k6": k56, "k17_k18": k1718,
+         "moe_train": moe_train_stats, "moe_masked_train": moe_mtrain_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

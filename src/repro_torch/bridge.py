@@ -9,9 +9,11 @@ imports JAX.  ``params_from_flat`` rebuilds the params tree,
 Top-KAST superset view ``bidx``/``bcnt``/``bnnz`` when the reference's
 carry one, a grouped bank's stacked entries (``idx (G, N/bn, width)``,
 the MoE experts') keep their leading group dim, and the masked kernel's
-``{"bwd_mask": B}`` carrier entries come across as bool tensors).  ``train_state_from_flat`` assembles a whole train state
-(params, masks, backward supersets, pack, optimizer state, step and the
-non-finite counter).  ``flat_of`` and ``pack_flat_of`` go the other way, so
+``{"bwd_mask": B}`` carrier entries come across as bool tensors).
+``train_state_from_flat`` assembles a whole train state (params, masks,
+backward supersets, pack, optimizer state, step and the non-finite
+counter), an MoE model's included: 3-D expert banks with their masks,
+supersets and grouped packs (superset view ``bidx``/``bcnt``) or carriers.  ``flat_of`` and ``pack_flat_of`` go the other way, so
 the tests can round-trip a state.
 """
 from __future__ import annotations

@@ -1,18 +1,27 @@
-// K4: grouped block-sparse forward matmul  y[g] = x[g] @ W[g]  over a weight
-// bank (the MoE experts' wi/wg/wo), all groups in one launch.
+// The grouped block-sparse kernels over a weight bank (the MoE experts'
+// wi/wg/wo), all groups in one launch each:
 //
-// Replaces the TPU kernel repro/kernels/block_sparse_matmul.py::_g_fwd_kernel
-// (pallas_call in _g_fwd_call).  The TPU kernel's grid (G, M/bm, N/bn,
-// width) walked every padded slot of the shared width with a pl.when skip;
-// here the group is the CTA grid's third dimension and each CTA loops over
-// exactly cnt[g, j] active blocks (a lopsided expert widens only the
-// packed arrays, not the other groups' loops).  The kernel, its design, its
-// traps (a dead expert writes zeros) and its bound are in
-// block_sparse_fwd.cuh, shared with K1.
+//   K4 replaces repro/kernels/block_sparse_matmul.py::_g_fwd_kernel
+//      (pallas_call in _g_fwd_call):  y[g] = x[g] @ W[g] over the stacked
+//      CSC idx[g, j, :cnt[g, j]];
+//   K5 replaces ::_g_dx_kernel (pallas_call in _g_dx_call):  dx[g] = g[g] @
+//      W[g]^T over the stacked CSR ridx[g, k, :rcnt[g, k]];
+//   K6 replaces ::_g_dw_kernel (pallas_call in _g_dw_call) and the
+//      reference's vmapped _scatter_packed_dw:  dw[g] = x[g]^T @ g[g] on the
+//      active blocks of the stacked (superset) CSC, zeros elsewhere.
+//
+// The TPU kernels' grids (G, ..., width) walked every padded slot of the
+// shared width with a pl.when skip; here the group is the CTA grid's third
+// dimension and each CTA loops over exactly its own group's count (a
+// lopsided expert widens only the packed arrays, not the other groups'
+// loops).  K4 is K1's kernel (block_sparse_fwd.cuh), K5/K6 are K2/K3's
+// (block_sparse_bwd.cuh); the designs, their traps (a dead expert writes
+// zero outputs, zero dx rows and a zero dw) and their bounds are there.
+#include "block_sparse_bwd.cuh"
 #include "block_sparse_fwd.cuh"
 
-// x (G, Mp, K), w (G, K, N) row-major in the entry's element type; idx (G,
-// N/bn, width), cnt (G, N/bn) int32; y (G, Mp, N) like x.
+// K4: x (G, Mp, K), w (G, K, N) row-major in the entry's element type; idx
+// (G, N/bn, width), cnt (G, N/bn) int32; y (G, Mp, N) like x.
 extern "C" int block_sparse_grouped_fwd_bf16(const void* x, const void* w,
                                              const void* idx, const void* cnt, void* y,
                                              int G, int Mp, int K, int N, int width,
@@ -27,4 +36,41 @@ extern "C" int block_sparse_grouped_fwd_f32(const void* x, const void* w,
                                             int bm, int bn, int bk, void* stream) {
   return launch_block_sparse_fwd<float>(x, w, idx, cnt, y, G, Mp, K, N, width, bm,
                                         bn, bk, stream);
+}
+
+// K5: g (G, Mp, N), w (G, K, N), dx (G, Mp, K) in the entry's element type;
+// ridx (G, K/bk, row_width), rcnt (G, K/bk) int32.
+extern "C" int block_sparse_grouped_dx_bf16(const void* g, const void* w,
+                                            const void* ridx, const void* rcnt,
+                                            void* dx, int G, int Mp, int K, int N,
+                                            int row_width, int bm, int bn, int bk,
+                                            void* stream) {
+  return launch_block_sparse_dx<__nv_bfloat16>(g, w, ridx, rcnt, dx, G, Mp, K, N,
+                                               row_width, bm, bn, bk, stream);
+}
+
+extern "C" int block_sparse_grouped_dx_f32(const void* g, const void* w,
+                                           const void* ridx, const void* rcnt, void* dx,
+                                           int G, int Mp, int K, int N, int row_width,
+                                           int bm, int bn, int bk, void* stream) {
+  return launch_block_sparse_dx<float>(g, w, ridx, rcnt, dx, G, Mp, K, N, row_width,
+                                       bm, bn, bk, stream);
+}
+
+// K6: x (G, Mp, K), g (G, Mp, N), dw (G, K, N) zero-filled by the caller;
+// idx (G, N/bn, width), cnt (G, N/bn) int32.  Mp % 16 == 0.
+extern "C" int block_sparse_grouped_dw_bf16(const void* x, const void* g,
+                                            const void* idx, const void* cnt, void* dw,
+                                            int G, int Mp, int K, int N, int width,
+                                            int bn, int bk, void* stream) {
+  return launch_block_sparse_dw<__nv_bfloat16>(x, g, idx, cnt, dw, G, Mp, K, N, width,
+                                               bn, bk, stream);
+}
+
+extern "C" int block_sparse_grouped_dw_f32(const void* x, const void* g, const void* idx,
+                                           const void* cnt, void* dw, int G, int Mp,
+                                           int K, int N, int width, int bn, int bk,
+                                           void* stream) {
+  return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, G, Mp, K, N, width, bn, bk,
+                                       stream);
 }

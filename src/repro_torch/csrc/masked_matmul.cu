@@ -1,14 +1,19 @@
 // Masked matmul with the elementwise mask fused in, forward and backward:
-// K13, its grouped twin K16, K14, K15 and the fused SGD wgrad epilogue K19.
+// K13, K14, K15, their grouped twins K16, K17, K18 and the fused SGD wgrad
+// epilogue K19.
 //
-// Replaces five TPU kernels of repro/kernels/masked_matmul.py:
+// Replaces seven TPU kernels of repro/kernels/masked_matmul.py:
 //   K13 _fwd_kernel (pallas_call in _fwd_call)     y  = x @ (w * m)
 //   K16 _g_fwd_kernel (_g_fwd_call)                y[g] = x[g] @ (w[g] * m[g])
 //                                                   for every group g of a
 //                                                   weight bank (the MoE
 //                                                   experts), one launch
 //   K14 _dx_kernel (_dx_call)                      dx = g @ (w * m)^T
+//   K17 _g_dx_kernel (_g_dx_call)                  dx[g] = g[g] @ (w[g] * m[g])^T
 //   K15 _dw_kernel (_dw_call)                      dw = (x^T @ g) * m
+//   K18 _g_dw_kernel (_g_dw_call)                  dw[g] = (x[g]^T @ g[g]) * m[g]
+//                                                   (m the Top-KAST superset
+//                                                   on the training path)
 //   K19 _dw_fused_kernel (_dw_fused_call)          m_new = (mu * mom + x^T @ g
 //                                                   + wd * w) * m, optionally
 //                                                   stochastically rounded to
@@ -29,7 +34,11 @@
 //    of one);
 //  * K14: one CTA per (bk-column tile of dx, bm-row tile), looping over N;
 //  * K15/K19: one CTA per (bk x bn) tile of dw, looping over all M rows in
-//    one CTA (the TPU kernel carried the sum across its innermost grid axis).
+//    one CTA (the TPU kernel carried the sum across its innermost grid axis);
+//  * K17/K18 are K14/K15 with the bank's group as the grid's third
+//    dimension, as K16 is K13's (K14/K15 are the bank of one).  A fully
+//    masked expert reads its zero mask like any other: zero dx rows and a
+//    zero dw, no empty sum.
 // K19's epilogue reads mom and w at the store; with sr it hashes the
 // element's id gid = row * N + col (wrapping uint32; N is the padded width
 // the wrapper hands in) with the seed, as the reference's sr_to_bf16.
@@ -147,8 +156,8 @@ masked_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 template <typename T>
 __global__ void __launch_bounds__(tile::kThreads)
 masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                 const uint8_t* __restrict__ m, T* __restrict__ dx, int K, int N,
-                 int bm, int bk) {
+                 const uint8_t* __restrict__ m, T* __restrict__ dx, int Mp, int K,
+                 int N, int bm, int bk) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int gld = tile::kSlab + tile::pad<T>(), wld = bk + tile::pad<T>();
   T* gs = reinterpret_cast<T*>(smem);  // bm x gld
@@ -156,21 +165,26 @@ masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
   float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
 
   const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm;
+  const size_t grp = blockIdx.z;
+  const T* gg = g + grp * Mp * N;
+  const T* wg = w + grp * K * N;
+  const uint8_t* mg = m + grp * K * N;
+  T* dxg = dx + grp * Mp * K;
   const int slab = (N % tile::kSlab == 0) ? tile::kSlab : 16;
 
   tile::Acc<T> acc;
   acc.zero();
   for (int n0 = 0; n0 < N; n0 += slab) {
     __syncthreads();
-    tile::stage_rows(gs, gld, g + (size_t)m0 * N + n0, N, bm, slab);
+    tile::stage_rows(gs, gld, gg + (size_t)m0 * N + n0, N, bm, slab);
     // ws[l][c] = w[k0 + c][n0 + l] * m[k0 + c][n0 + l]
-    stage_masked_cols(ws, wld, w + (size_t)k0 * N + n0, m + (size_t)k0 * N + n0, N,
+    stage_masked_cols(ws, wld, wg + (size_t)k0 * N + n0, mg + (size_t)k0 * N + n0, N,
                       bk, slab);
     __syncthreads();
     acc.mma(gs, gld, ws, wld, bm, bk, slab);
   }
   acc.store(scratch, bm, bk, [&](int r, int c, float v) {
-    dx[(size_t)(m0 + r) * K + k0 + c] = tile::from_float<T>(v);
+    dxg[(size_t)(m0 + r) * K + k0 + c] = tile::from_float<T>(v);
   });
 }
 
@@ -202,12 +216,15 @@ masked_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
   T* gs = xs + bk * (tile::kSlab + tile::pad<T>());  // kSlab x (bn + pad)
   float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
   const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+  const size_t grp = blockIdx.z;
+  const uint8_t* mg = m + grp * K * N;
+  T* dwg = dw + grp * K * N;
 
   tile::Acc<T> acc;
-  xtg_tile(acc, xs, gs, x, g, Mp, K, N, k0, n0, bn, bk);
+  xtg_tile(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
   acc.store(scratch, bk, bn, [&](int r, int c, float v) {
     const size_t i = (size_t)(k0 + r) * N + n0 + c;
-    dw[i] = tile::from_float<T>(v * static_cast<float>(m[i]));
+    dwg[i] = tile::from_float<T>(v * static_cast<float>(mg[i]));
   });
 }
 
@@ -262,20 +279,20 @@ int launch_fwd(const void* x, const void* w, const void* m, void* y, int G, int 
 }
 
 template <typename T>
-int launch_dx(const void* g, const void* w, const void* m, void* dx, int Mp, int K,
-              int N, int bm, int bk, void* stream) {
-  const dim3 grid(K / bk, Mp / bm);
+int launch_dx(const void* g, const void* w, const void* m, void* dx, int G, int Mp,
+              int K, int N, int bm, int bk, void* stream) {
+  const dim3 grid(K / bk, Mp / bm, G);
   masked_dx_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bm, bk),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(g), static_cast<const T*>(w),
-      static_cast<const uint8_t*>(m), static_cast<T*>(dx), K, N, bm, bk);
+      static_cast<const uint8_t*>(m), static_cast<T*>(dx), Mp, K, N, bm, bk);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_dw(const void* x, const void* g, const void* m, void* dw, int Mp, int K,
-              int N, int bn, int bk, void* stream) {
-  const dim3 grid(N / bn, K / bk);
+int launch_dw(const void* x, const void* g, const void* m, void* dw, int G, int Mp,
+              int K, int N, int bn, int bk, void* stream) {
+  const dim3 grid(N / bn, K / bk, G);
   masked_dw_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bk, bn),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
@@ -300,10 +317,11 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
 }  // namespace
 
 // Row-major operands in the entry's element type, m one byte per element
-// (0 or 1) of w's shape (K, N); the grouped K16 entry takes x (G, Mp, K), w
-// and m (G, K, N), y (G, Mp, N).  The wrappers check Mp % bm == 0,
-// N % bn == 0, K % bk == 0, K and N multiples of 16, bm, bn, bk multiples of
-// 16 in [16, 128], 16-byte alignment.
+// (0 or 1) of w's shape (K, N); the grouped entries (K16, K17, K18) take a
+// leading group dim on every operand: x (G, Mp, K), g (G, Mp, N), w and m
+// (G, K, N), y (G, Mp, N), dx (G, Mp, K), dw (G, K, N).  The wrappers check
+// Mp % bm == 0, N % bn == 0, K % bk == 0, K and N multiples of 16, bm, bn,
+// bk multiples of 16 in [16, 128], 16-byte alignment.
 #define MASKED_ENTRIES(S, T)                                                        \
   extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,       \
                                 void* y, int Mp, int K, int N, int bm, int bn,      \
@@ -319,12 +337,22 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
   extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,        \
                                void* dx, int Mp, int K, int N, int bm, int bk,      \
                                void* stream) {                                      \
-    return launch_dx<T>(g, w, m, dx, Mp, K, N, bm, bk, stream);                     \
+    return launch_dx<T>(g, w, m, dx, 1, Mp, K, N, bm, bk, stream);                  \
+  }                                                                                 \
+  extern "C" int masked_dx_grouped_##S(const void* g, const void* w, const void* m,\
+                                       void* dx, int G, int Mp, int K, int N,       \
+                                       int bm, int bk, void* stream) {              \
+    return launch_dx<T>(g, w, m, dx, G, Mp, K, N, bm, bk, stream);                  \
   }                                                                                 \
   extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,        \
                                void* dw, int Mp, int K, int N, int bn, int bk,      \
                                void* stream) {                                      \
-    return launch_dw<T>(x, g, m, dw, Mp, K, N, bn, bk, stream);                     \
+    return launch_dw<T>(x, g, m, dw, 1, Mp, K, N, bn, bk, stream);                  \
+  }                                                                                 \
+  extern "C" int masked_dw_grouped_##S(const void* x, const void* g, const void* m,\
+                                       void* dw, int G, int Mp, int K, int N,       \
+                                       int bn, int bk, void* stream) {              \
+    return launch_dw<T>(x, g, m, dw, G, Mp, K, N, bn, bk, stream);                  \
   }
 
 MASKED_ENTRIES(bf16, __nv_bfloat16)

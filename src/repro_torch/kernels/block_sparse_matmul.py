@@ -15,6 +15,11 @@ are described in the sources:
      of a (G, K, N) weight bank over the stacked CSC ``idx[g, j, :cnt[g, j]]``
      (the MoE experts), one launch            -> csrc/block_sparse_grouped.cu
                                                 (K1's kernel, block_sparse_fwd.cuh)
+  K5 ``_g_dx_kernel`` (``_g_dx_call``)  dx[g] = g[g] @ W[g]^T over the
+     stacked CSR ``ridx[g, k, :rcnt[g, k]]``   -> csrc/block_sparse_grouped.cu
+  K6 ``_g_dw_kernel`` (``_g_dw_call``)  dw[g] = x[g]^T @ g[g] on the active
+     blocks of a stacked CSC, zeros elsewhere  -> csrc/block_sparse_grouped.cu
+                                                (K2/K3's kernels, block_sparse_bwd.cuh)
 
 Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
 reference's MLP computes in the f32 residual's dtype), accumulating in f32
@@ -27,12 +32,13 @@ bytes there, and the training shapes (M = 2048) sit below the bf16 ridge.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
-``dx_launches``, ``dw_launches`` and ``g_launches`` count kernel launches,
-so a run can show that its path went through the kernels.
-``BlockSparseMatmul`` and ``TopkastBlockSparseMatmul`` are the
-differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd`` and
-``_tk_fwd/_tk_bwd``); ``GroupedBlockSparseMatmul`` is K4's, whose backward
-(the grouped K5/K6) is not ported yet and raises.
+``dx_launches``, ``dw_launches``, ``g_launches``, ``gdx_launches`` and
+``gdw_launches`` count kernel launches, so a run can show that its path
+went through the kernels.  ``BlockSparseMatmul``,
+``TopkastBlockSparseMatmul``, ``GroupedBlockSparseMatmul`` and
+``TopkastGroupedBlockSparseMatmul`` are the differentiable forms (the
+reference's custom VJPs ``_bs_fwd/_bs_bwd``, ``_tk_fwd/_tk_bwd``,
+``_gbs_fwd/_gbs_bwd`` and ``_gtk_fwd/_gtk_bwd``).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ __all__ = [
     "BlockSparseMatmul",
     "GroupedBlockSparseMatmul",
     "TopkastBlockSparseMatmul",
+    "TopkastGroupedBlockSparseMatmul",
     "block_sparse_dw",
     "block_sparse_dw_plain",
     "block_sparse_dx",
@@ -56,6 +63,12 @@ __all__ = [
     "dx_launches",
     "dw_launches",
     "g_launches",
+    "gdw_launches",
+    "gdx_launches",
+    "grouped_block_sparse_dw",
+    "grouped_block_sparse_dw_plain",
+    "grouped_block_sparse_dx",
+    "grouped_block_sparse_dx_plain",
     "grouped_block_sparse_matmul",
     "grouped_block_sparse_matmul_plain",
     "launches",
@@ -68,6 +81,8 @@ launches = 0     # K1
 dx_launches = 0  # K2
 dw_launches = 0  # K3
 g_launches = 0   # K4
+gdx_launches = 0  # K5
+gdw_launches = 0  # K6
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
@@ -90,11 +105,13 @@ def unpack_block_mask(idx: torch.Tensor, cnt: torch.Tensor,
 def csr_of(idx: torch.Tensor, cnt: torch.Tensor, n_rows: int):
     """CSC ``(idx, cnt)`` -> CSR ``(ridx, rcnt)`` at the worst-case width
     (all N-blocks), ids ascending, padded slots 0: the reference's traced
-    fallback when a bare CSC tuple comes without its CSR view."""
+    fallback when a bare CSC tuple comes without its CSR view.  A stacked
+    grouped pack gives the stacked CSR ``(G, n_rows, N/bn)``, ``(G,
+    n_rows)``."""
     bm = unpack_block_mask(idx, cnt, n_rows)
-    rcnt = bm.sum(1).to(torch.int32)
-    order = torch.argsort((~bm).to(torch.uint8), dim=1, stable=True)
-    live = torch.arange(bm.shape[1], device=bm.device)[None, :] < rcnt[:, None]
+    rcnt = bm.sum(-1).to(torch.int32)
+    order = torch.argsort((~bm).to(torch.uint8), dim=-1, stable=True)
+    live = torch.arange(bm.shape[-1], device=bm.device) < rcnt[..., None]
     return torch.where(live, order, 0).to(torch.int32).contiguous(), rcnt
 
 
@@ -116,6 +133,22 @@ def grouped_block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
     zero (a dead expert) gives zeros."""
     mask = _dense_mask(idx, cnt, w.shape[-2] // bk, bk, bn)
     return torch.bmm(x.float(), w.float() * mask).to(x.dtype)
+
+
+def grouped_block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
+    """Plain K5: per group ``g[g] @ (w[g] * mask[g])^T`` in f32 over the
+    stacked CSR's blocks, rounded once to g.dtype; a dead expert's rows
+    are zeros."""
+    mask = _dense_mask(ridx, rcnt, w.shape[-1] // bn, bn, bk).transpose(1, 2)
+    return torch.bmm(g.float(), (w.float() * mask).transpose(1, 2)).to(g.dtype)
+
+
+def grouped_block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
+    """Plain K6: per group ``(x[g]^T @ g[g]) * mask[g]`` in f32 over the
+    stacked CSC's blocks, zeros elsewhere, rounded once to x.dtype (the
+    reference's packed slots scattered by ``_scatter_packed_dw``)."""
+    mask = _dense_mask(idx, cnt, x.shape[-1] // bk, bk, bn)
+    return (torch.bmm(x.float().transpose(1, 2), g.float()) * mask).to(x.dtype)
 
 
 def block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
@@ -301,6 +334,72 @@ def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
     return dw
 
 
+def _check_grouped(what, a, b, pack, rows, blk):
+    """The grouped operands are 3-D with one group count G, and the stacked
+    pack ``(G, rows / blk, width)`` / ``(G, rows / blk)`` matches them."""
+    G = a.shape[0]
+    if a.dim() != 3 or b.dim() != 3 or b.shape[0] != G:
+        raise ValueError(f"{what}: operands {tuple(a.shape)}, {tuple(b.shape)} "
+                         "must be 3-D with one group dim")
+    idx, cnt = pack
+    n = rows // blk
+    if idx.dim() != 3 or idx.shape[:2] != (G, n) or cnt.shape != (G, n):
+        raise ValueError(f"{what}: pack {tuple(idx.shape)} / {tuple(cnt.shape)} does "
+                         f"not match (G, {rows}/{blk}) = ({G}, {n})")
+
+
+def grouped_block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
+    """K5: g (G, M, N) @ block-sparse w (G, K, N)^T -> dx (G, M, K) in
+    g.dtype, every group in one launch, over the stacked CSR ``ridx (G,
+    K/bk, row_width)`` / ``rcnt (G, K/bk)``; a dead expert's rows are
+    zeros.  M must be a multiple of ``bm``.  CUDA tensors run the kernel or
+    raise; CPU tensors run the plain version."""
+    global gdx_launches
+    if g.device.type == "cpu":
+        return grouped_block_sparse_dx_plain(g, w, ridx, rcnt, bk, bn)
+    if g.device.type != "cuda":
+        raise ValueError(f"grouped_block_sparse_dx: unsupported device {g.device}")
+    _check_grouped("grouped_block_sparse_dx", g, w, (ridx, rcnt), w.shape[1], bk)
+    (G, M, N), K = g.shape, w.shape[1]
+    s = _check_cuda("grouped_block_sparse_dx", g, w, {"ridx": ridx, "rcnt": rcnt},
+                    {"bm": bm, "bn": bn, "bk": bk},
+                    [(M, bm), (K, bk), (N, bn)], [(w.shape[2], N)])
+    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_dx_{s}", 5, 8)
+    dx = torch.empty(G, M, K, dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = fn(g.data_ptr(), w.data_ptr(), ridx.data_ptr(), rcnt.data_ptr(),
+                dx.data_ptr(), G, M, K, N, ridx.shape[2], bm, bn, bk, _stream(g))
+    _build.check(lib, rc, "block_sparse_grouped_dx launch")
+    gdx_launches += 1
+    return dx
+
+
+def grouped_block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
+    """K6: dw (G, K, N) in x.dtype holding x[g]^T @ g[g] on the active
+    blocks of the stacked CSC ``idx (G, N/bn, width)`` / ``cnt (G, N/bn)``
+    (the Top-KAST superset on the training path) and zeros elsewhere.  x
+    (G, M, K), g (G, M, N); M a multiple of 16 (``kernels/ops.py`` pads
+    rows)."""
+    global gdw_launches
+    if x.device.type == "cpu":
+        return grouped_block_sparse_dw_plain(x, g, idx, cnt, bk, bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_block_sparse_dw: unsupported device {x.device}")
+    _check_grouped("grouped_block_sparse_dw", x, g, (idx, cnt), g.shape[-1], bn)
+    (G, M, K), N = x.shape, g.shape[2]
+    s = _check_cuda("grouped_block_sparse_dw", x, g, {"idx": idx, "cnt": cnt},
+                    {"bn": bn, "bk": bk}, [(M, 16), (K, bk), (N, bn)],
+                    [(g.shape[1], M)])
+    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_dw_{s}", 5, 7)
+    dw = torch.zeros(G, K, N, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                dw.data_ptr(), G, M, K, N, idx.shape[2], bn, bk, _stream(x))
+    _build.check(lib, rc, "block_sparse_grouped_dw launch")
+    gdw_launches += 1
+    return dw
+
+
 class BlockSparseMatmul(torch.autograd.Function):
     """y = x @ W on the CSC pack; backward dx on the CSR pack (K2) and dw
     on the same CSC pack (K3), as the reference's ``_bs_fwd/_bs_bwd``.
@@ -335,31 +434,52 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
 
 
 class GroupedBlockSparseMatmul(torch.autograd.Function):
-    """y[g] = x[g] @ W[g] over a bank's stacked CSC pack (K4), as the
-    reference's ``_gbs_fwd``.  Its backward, the grouped dgrad and wgrad
-    kernels K5 and K6, belongs to MoE training, which the port does not run
-    yet: it raises on every device, so no CPU run differentiates through a
-    path the card could not."""
+    """y[g] = x[g] @ W[g] over a bank's stacked CSC pack (K4); backward dx
+    on the stacked CSR (K5) and dw on the same CSC (K6), as the reference's
+    ``_gbs_fwd/_gbs_bwd``.  ``ridx``/``rcnt`` None derives the stacked CSR
+    at the worst-case width."""
 
     @staticmethod
-    def forward(ctx, x, w, idx, cnt, bm, bn, bk):
+    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk):
+        ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
+        ctx.blocks = (bm, bn, bk)
         return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "grouped_block_sparse_matmul: the backward (grouped dgrad and wgrad, "
-            "kernels K5/K6) is not ported yet")
+        x, w, idx, cnt, ridx, rcnt = ctx.saved_tensors
+        return _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, idx, cnt,
+                         grouped=True) + (None,) * 7
 
 
-def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt):
+class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
+    """The grouped Top-KAST split, as the reference's ``_gtk_fwd/_gtk_bwd``:
+    forward (K4) and dx (K5) on each group's forward pack A, dw (K6) on the
+    stacked superset CSC ``bidx``/``bcnt`` (B ⊇ A)."""
+
+    @staticmethod
+    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk):
+        ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt)
+        ctx.blocks = (bm, bn, bk)
+        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 9
+
+
+def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, grouped=False):
+    """dx on the CSR (derived from the forward CSC when None) and dw on the
+    CSC ``didx``/``dcnt``: K2/K3, or K5/K6 for a bank."""
     bm, bn, bk = ctx.blocks
+    dx_fn, dw_fn = ((grouped_block_sparse_dx, grouped_block_sparse_dw) if grouped
+                    else (block_sparse_dx, block_sparse_dw))
     g = g.contiguous()
     dx = dw = None
     if ctx.needs_input_grad[0]:
         if ridx is None:
-            ridx, rcnt = csr_of(idx, cnt, w.shape[0] // bk)
-        dx = block_sparse_dx(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk)
+            ridx, rcnt = csr_of(idx, cnt, w.shape[-2] // bk)
+        dx = dx_fn(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk)
     if ctx.needs_input_grad[1]:
-        dw = block_sparse_dw(x, g, didx, dcnt, bn=bn, bk=bk)
+        dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk)
     return dx, dw

@@ -1,7 +1,7 @@
 """Masked matmul y = x @ (w * m) with an elementwise mask, forward and
 backward, and the fused SGD wgrad epilogue.
 
-Replaces five TPU kernels of ``repro/kernels/masked_matmul.py`` with
+Replaces seven TPU kernels of ``repro/kernels/masked_matmul.py`` with
 hand-written CUDA kernels for Hopper (sm_90a), all in
 csrc/masked_matmul.cu (the design and its bound are described there):
 
@@ -9,7 +9,9 @@ csrc/masked_matmul.cu (the design and its bound are described there):
   K16 ``_g_fwd_kernel`` (``_g_fwd_call``) y[g] = x[g] @ (w[g] * m[g]) for
         every group of a (G, K, N) weight bank (the MoE experts), one launch
   K14 ``_dx_kernel`` (``_dx_call``)       dx = g @ (w * m)^T
+  K17 ``_g_dx_kernel`` (``_g_dx_call``)   dx[g] = g[g] @ (w[g] * m[g])^T
   K15 ``_dw_kernel`` (``_dw_call``)       dw = (x^T @ g) * m
+  K18 ``_g_dw_kernel`` (``_g_dw_call``)   dw[g] = (x[g]^T @ g[g]) * m[g]
   K19 ``_dw_fused_kernel`` (``_dw_fused_call``)
         m_new = (mu * mom + x^T @ g + wd * w) * m, stochastically rounded
         onto the bf16 grid (``sr_to_bf16``) when ``sr``
@@ -22,12 +24,13 @@ inf weight under a zero mask gives NaN, as the reference's
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
-``g_launches``, ``dx_launches``, ``dw_launches`` and ``fused_launches``
-count kernel launches.  ``MaskedMatmul``, ``TopkastMaskedMatmul`` and
-``FusedMaskedMatmul`` are the differentiable forms (the reference's custom
-VJPs ``_mm_fwd/_mm_bwd``, ``_tkm_fwd/_tkm_bwd`` and ``_fmm_fwd/_fmm_bwd``);
-``GroupedMaskedMatmul`` is K16's, whose backward (the grouped K17/K18) is
-not ported yet and raises.
+``g_launches``, ``dx_launches``, ``gdx_launches``, ``dw_launches``,
+``gdw_launches`` and ``fused_launches`` count kernel launches.
+``MaskedMatmul``, ``TopkastMaskedMatmul``, ``FusedMaskedMatmul``,
+``GroupedMaskedMatmul`` and ``TopkastGroupedMaskedMatmul`` are the
+differentiable forms (the reference's custom VJPs ``_mm_fwd/_mm_bwd``,
+``_tkm_fwd/_tkm_bwd``, ``_fmm_fwd/_fmm_bwd``, ``_gmm_fwd/_gmm_bwd`` and
+``_gtkm_fwd/_gtkm_bwd``).
 """
 from __future__ import annotations
 
@@ -42,12 +45,19 @@ __all__ = [
     "FusedMaskedMatmul",
     "GroupedMaskedMatmul",
     "MaskedMatmul",
+    "TopkastGroupedMaskedMatmul",
     "TopkastMaskedMatmul",
     "dx_launches",
     "dw_launches",
     "fused_error_bound",
     "fused_launches",
     "g_launches",
+    "gdw_launches",
+    "gdx_launches",
+    "grouped_masked_dw",
+    "grouped_masked_dw_plain",
+    "grouped_masked_dx",
+    "grouped_masked_dx_plain",
     "grouped_masked_matmul",
     "grouped_masked_matmul_plain",
     "launches",
@@ -68,6 +78,8 @@ launches = 0        # K13
 g_launches = 0      # K16
 dx_launches = 0     # K14
 dw_launches = 0     # K15
+gdx_launches = 0    # K17
+gdw_launches = 0    # K18
 fused_launches = 0  # K19
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -137,6 +149,19 @@ def masked_dx_plain(g, w, mask):
 def masked_dw_plain(x, g, mask):
     """Plain K15: ``(x^T @ g) * m`` in f32, rounded once to x.dtype."""
     return ((x.float().T @ g.float()) * mask.float()).to(x.dtype)
+
+
+def grouped_masked_dx_plain(g, w, mask):
+    """Plain K17: per group ``g[g] @ (w[g] * m[g])^T`` in f32, rounded once
+    to g.dtype."""
+    wm = w * mask.to(w.dtype)
+    return torch.bmm(g.float(), wm.float().transpose(1, 2)).to(g.dtype)
+
+
+def grouped_masked_dw_plain(x, g, mask):
+    """Plain K18: per group ``(x[g]^T @ g[g]) * m[g]`` in f32, rounded once
+    to x.dtype."""
+    return (torch.bmm(x.float().transpose(1, 2), g.float()) * mask.float()).to(x.dtype)
 
 
 def masked_dw_fused_plain(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
@@ -270,6 +295,56 @@ def masked_dx(g, w, mask, *, bm: int, bk: int):
     return dx
 
 
+def _check_grouped(what, a, b, mask):
+    if a.dim() != 3 or b.dim() != 3 or mask.dim() != 3 or b.shape[0] != a.shape[0]:
+        raise ValueError(f"{what}: operands {tuple(a.shape)}, {tuple(b.shape)} and "
+                         f"mask {tuple(mask.shape)} must be 3-D with one group dim")
+
+
+def grouped_masked_dx(g, w, mask, *, bm: int, bk: int):
+    """K17: g (G, M, N) @ (w * mask) (G, K, N)^T -> dx (G, M, K) in g.dtype,
+    every group in one launch; M a multiple of ``bm``."""
+    global gdx_launches
+    if g.device.type == "cpu":
+        return grouped_masked_dx_plain(g, w, mask)
+    _device("grouped_masked_dx", g)
+    _check_grouped("grouped_masked_dx", g, w, mask)
+    (G, M, N), K = g.shape, w.shape[1]
+    s = _check_cuda("grouped_masked_dx", (g, w), (mask,), {"bm": bm, "bk": bk},
+                    [(M, bm), (K, bk), (N, 16)],
+                    [(w.shape[2], N), (mask.shape, w.shape)])
+    lib, fn = _fn(f"masked_dx_grouped_{s}", [_P] * 4 + [_I] * 6 + [_P])
+    dx = torch.empty(G, M, K, dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = fn(g.data_ptr(), w.data_ptr(), mask.data_ptr(), dx.data_ptr(),
+                G, M, K, N, bm, bk, _stream(g))
+    _build.check(lib, rc, "masked_dx_grouped launch")
+    gdx_launches += 1
+    return dx
+
+
+def grouped_masked_dw(x, g, mask, *, bn: int, bk: int):
+    """K18: dw (G, K, N) = (x[g]^T @ g[g]) * mask[g] in x.dtype; x (G, M,
+    K), g (G, M, N), M a multiple of 16 (``kernels/ops.py`` pads rows)."""
+    global gdw_launches
+    if x.device.type == "cpu":
+        return grouped_masked_dw_plain(x, g, mask)
+    _device("grouped_masked_dw", x)
+    _check_grouped("grouped_masked_dw", x, g, mask)
+    (G, M, K), N = x.shape, g.shape[2]
+    s = _check_cuda("grouped_masked_dw", (x, g), (mask,), {"bn": bn, "bk": bk},
+                    [(M, 16), (K, bk), (N, bn)],
+                    [(g.shape[1], M), (mask.shape, (G, K, N))])
+    lib, fn = _fn(f"masked_dw_grouped_{s}", [_P] * 4 + [_I] * 6 + [_P])
+    dw = torch.empty(G, K, N, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), mask.data_ptr(), dw.data_ptr(),
+                G, M, K, N, bn, bk, _stream(x))
+    _build.check(lib, rc, "masked_dw_grouped launch")
+    gdw_launches += 1
+    return dw
+
+
 def _dw_checks(what, x, g, masks, bn, bk, extra=()):
     (M, K), N = x.shape, g.shape[1]
     return _check_cuda(what, (x, g, *extra), masks, {"bn": bn, "bk": bk},
@@ -388,25 +463,44 @@ class FusedMaskedMatmul(torch.autograd.Function):
 
 
 class GroupedMaskedMatmul(torch.autograd.Function):
-    """y[g] = x[g] @ (w[g] * m[g]) over a weight bank (K16), as the
-    reference's ``_gmm_fwd``.  Its backward, the grouped dgrad and wgrad
-    kernels K17 and K18, belongs to MoE training, which the port does not
-    run yet: it raises on every device."""
+    """y[g] = x[g] @ (w[g] * m[g]) over a weight bank (K16); backward dx
+    (K17) and dw (K18) on the same mask, as the reference's
+    ``_gmm_fwd/_gmm_bwd``."""
 
     @staticmethod
-    def forward(ctx, x, w, mask, bm, bn):
+    def forward(ctx, x, w, mask, bm, bn, bk):
+        ctx.save_for_backward(x, w, mask)
+        ctx.blocks = (bm, bn, bk)
         return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "grouped_masked_matmul: the backward (grouped dgrad and wgrad, "
-            "kernels K17/K18) is not ported yet")
+        x, w, mask = ctx.saved_tensors
+        return _backward(ctx, g, x, w, mask, mask, grouped=True) + (None,) * 4
 
 
-def _backward(ctx, g, x, w, mask, dmask):
+class TopkastGroupedMaskedMatmul(torch.autograd.Function):
+    """The grouped Top-KAST split, as the reference's ``_gtkm_fwd/_gtkm_bwd``:
+    forward (K16) and dx (K17) on the forward mask A, dw (K18) on the
+    superset B ⊇ A."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, bwd_mask, bm, bn, bk):
+        ctx.save_for_backward(x, w, mask, bwd_mask)
+        ctx.blocks = (bm, bn, bk)
+        return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 5
+
+
+def _backward(ctx, g, x, w, mask, dmask, grouped=False):
+    """dx on ``mask`` and dw on ``dmask``: K14/K15, or K17/K18 for a bank."""
     bm, bn, bk = ctx.blocks
+    dx_fn, dw_fn = ((grouped_masked_dx, grouped_masked_dw) if grouped
+                    else (masked_dx, masked_dw))
     g = g.contiguous()
-    dx = masked_dx(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
-    dw = masked_dw(x, g, dmask, bn=bn, bk=bk) if ctx.needs_input_grad[1] else None
+    dx = dx_fn(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
+    dw = dw_fn(x, g, dmask, bn=bn, bk=bk) if ctx.needs_input_grad[1] else None
     return dx, dw

@@ -4,16 +4,16 @@ and packs.
 Port of ``_row_tile``, ``_pad_rows``, the pack-entry path of
 ``block_sparse_linear`` and ``masked_linear``, ``topkast_masked_linear``,
 ``fused_masked_linear`` and the weight-bank twins
-``grouped_block_sparse_linear`` (pack-entry path) and
-``grouped_masked_linear`` from the JAX package's ``kernels/ops.py``.  The
-grouped Top-KAST and fused variants belong to MoE training, not ported
-yet.  Leading dims of x are flattened (the grouped wrappers keep the group
-dim) and the rows zero-padded to the row tile (a small batch shrinks the
-tile to its 16-padded row count instead of padding to bm), then trimmed
-after; autograd drops the padded rows' gradients.  For block_sparse K and
-N must be tile-aligned (the block grid is defined by them); the masked
-wrappers zero-pad K and N up to their clamped tiles (masks with zeros, so
-A ⊆ B still holds) and trim the output.
+``grouped_block_sparse_linear`` (pack-entry path, the Top-KAST split
+included), ``grouped_masked_linear`` and ``topkast_grouped_masked_linear``
+from the JAX package's ``kernels/ops.py``.  The grouped fused variants
+(K8/K20) are not ported yet.  Leading dims of x are flattened (the grouped
+wrappers keep the group dim) and the rows zero-padded to the row tile (a
+small batch shrinks the tile to its 16-padded row count instead of padding
+to bm), then trimmed after; autograd drops the padded rows' gradients.
+For block_sparse K and N must be tile-aligned (the block grid is defined
+by them); the masked wrappers zero-pad K and N up to their clamped tiles
+(masks with zeros, so A ⊆ B still holds) and trim the output.
 """
 from __future__ import annotations
 
@@ -24,11 +24,13 @@ from .block_sparse_matmul import (
     BlockSparseMatmul,
     GroupedBlockSparseMatmul,
     TopkastBlockSparseMatmul,
+    TopkastGroupedBlockSparseMatmul,
 )
 from .masked_matmul import (
     FusedMaskedMatmul,
     GroupedMaskedMatmul,
     MaskedMatmul,
+    TopkastGroupedMaskedMatmul,
     TopkastMaskedMatmul,
 )
 
@@ -38,6 +40,7 @@ __all__ = [
     "grouped_block_sparse_linear",
     "grouped_masked_linear",
     "masked_linear",
+    "topkast_grouped_masked_linear",
     "topkast_masked_linear",
 ]
 
@@ -157,33 +160,40 @@ def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
     bank, ONE launch (K4), visiting only each group's active blocks.
 
     x: (G, M, K) -> (G, M, N).  pack: a grouped PackState entry
-    (``idx (G, N/bn, width)`` etc., per-group CSC at one shared width,
-    core/pack.py) or a bare stacked ``(idx, cnt)`` tuple, on x's device; an
-    entry's Top-KAST superset view, if any, only steers the wgrad, so the
-    forward ignores it.  A group with no active block (a dead expert)
-    outputs zeros.  M is padded to the row tile; K and N must be
-    tile-aligned.  Differentiating raises: the grouped backward (K5/K6)
-    belongs to MoE training.
+    (``idx (G, N/bn, width)`` etc., per-group CSC and CSR at one shared
+    width each, core/pack.py) or a bare stacked ``(idx, cnt)`` tuple, on x's
+    device.  Differentiable: dx on the stacked CSR (K5; a bare tuple derives
+    it at the worst-case width), dw (K6) on the stacked CSC, or, when the
+    entry carries the Top-KAST superset ``bidx``/``bcnt``, on the superset
+    (``TopkastGroupedBlockSparseMatmul``).  A group with no active block (a
+    dead expert) outputs zeros and gets zero gradients.  M is padded to the
+    row tile; K and N must be tile-aligned.
     """
     bm, bn, bk = block
     G, M, K = x.shape
     N = w.shape[2]
     bk, bn = min(bk, K), min(bn, N)
-    idx, cnt = (pack["idx"], pack["cnt"]) if isinstance(pack, dict) else pack
+    if isinstance(pack, dict):
+        idx, cnt = pack["idx"], pack["cnt"]
+        ridx, rcnt, bidx = pack.get("ridx"), pack.get("rcnt"), pack.get("bidx")
+    else:
+        (idx, cnt), ridx, rcnt, bidx = pack, None, None, None
     bm_eff, Mp = _row_tile(M, bm)
     if Mp != M:
         x = F.pad(x, (0, 0, 0, Mp - M))
-    out = GroupedBlockSparseMatmul.apply(x.contiguous(), w, idx, cnt, bm_eff, bn, bk)
+    if bidx is not None:
+        out = TopkastGroupedBlockSparseMatmul.apply(
+            x.contiguous(), w, idx, cnt, ridx, rcnt, bidx, pack["bcnt"], bm_eff, bn, bk)
+    else:
+        out = GroupedBlockSparseMatmul.apply(x.contiguous(), w, idx, cnt, ridx, rcnt,
+                                             bm_eff, bn, bk)
     return out[:, :M]
 
 
-def grouped_masked_linear(x, w, mask, *, block=(128, 128, 128)):
-    """out[g] = x[g] @ (w[g] * mask[g]) for every group, ONE launch (K16),
-    the mask fused into the kernel (any pattern; w * m never written to
-    device memory).  x: (G, M, K); w, mask: (G, K, N) -> (G, M, N).  M is
-    padded to the row tile and K/N to their clamped tiles (zeros), as in
-    ``masked_linear``.  Differentiating raises: the grouped backward
-    (K17/K18) belongs to MoE training."""
+def _grouped_masked_operands(x, w, masks, block):
+    """Pad x's rows to the row tile and K/N to the clamped tiles (``w`` and
+    every tensor of ``masks`` with zeros, so A ⊆ B still holds) -> (x, w,
+    masks, (bm_eff, bn, bk)), all contiguous."""
     bm, bn, bk = block
     G, M, K = x.shape
     N = w.shape[2]
@@ -193,7 +203,30 @@ def grouped_masked_linear(x, w, mask, *, block=(128, 128, 128)):
     x = F.pad(x, (0, Kp - K, 0, Mp - M)) if (Mp, Kp) != (M, K) else x
     if (Kp, Np) != (K, N):
         w = F.pad(w, (0, Np - N, 0, Kp - K))
-        mask = F.pad(mask, (0, Np - N, 0, Kp - K))
-    out = GroupedMaskedMatmul.apply(x.contiguous(), w.contiguous(),
-                                    mask.contiguous(), bm_eff, min(bn, Np))
+        masks = [F.pad(m, (0, Np - N, 0, Kp - K)) for m in masks]
+    return (x.contiguous(), w.contiguous(), [m.contiguous() for m in masks],
+            (bm_eff, min(bn, Np), min(bk, Kp)))
+
+
+def grouped_masked_linear(x, w, mask, *, block=(128, 128, 128)):
+    """out[g] = x[g] @ (w[g] * mask[g]) for every group, ONE launch (K16),
+    the mask fused into the kernel (any pattern; w * m never written to
+    device memory).  x: (G, M, K); w, mask: (G, K, N) -> (G, M, N).  M is
+    padded to the row tile and K/N to their clamped tiles (zeros), as in
+    ``masked_linear``.  Differentiable: dx (K17) and dw (K18) on the same
+    mask."""
+    M, N = x.shape[1], w.shape[2]
+    x, w, (mask,), blk = _grouped_masked_operands(x, w, [mask], block)
+    out = GroupedMaskedMatmul.apply(x, w, mask, *blk)
+    return out[:, :M, :N]
+
+
+def topkast_grouped_masked_linear(x, w, mask, bwd_mask, *, block=(128, 128, 128)):
+    """``grouped_masked_linear`` with the Top-KAST split: forward (K16) and
+    dx (K17) on ``mask`` (A), the weight gradient (K18) on ``bwd_mask``
+    (B ⊇ A); padding as in ``grouped_masked_linear``."""
+    M, N = x.shape[1], w.shape[2]
+    x, w, (mask, bwd_mask), blk = _grouped_masked_operands(x, w, [mask, bwd_mask],
+                                                           block)
+    out = TopkastGroupedMaskedMatmul.apply(x, w, mask, bwd_mask, *blk)
     return out[:, :M, :N]

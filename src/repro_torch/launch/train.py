@@ -17,7 +17,10 @@ and wgrad on the superset (K15), or with ``sparse.fused_epilogue`` (a
 config field, as in the reference: SGD) the fused wgrad epilogue (K19);
 ``cfg.sparse.attn_kernel='flash_tight'`` (set in
 the config, as the reference's tests do: the CLI has no flag for it) runs
-attention through the flash kernels K9, K10 and K11.
+attention through the flash kernels K9, K10 and K11.  An MoE config
+(``--arch qwen2-moe-a2.7b``) runs its expert banks through the grouped
+kernels: K4, K5 and K6 under block_sparse, K16, K17 and K18 under masked
+(the fused epilogue on banks, K8/K20, is not ported yet).
 
 Not ported yet: checkpoints and restore (``--workdir`` holds only
 ``result.json``), ``--preempt-at`` and restarts, the observability hooks

@@ -105,10 +105,15 @@ def _qkv(p, x, cfg, masks=None, pack=None):
 
 
 def _scores(q, k, cfg):
-    """q: (B, Sq, KV, G, hd); k: (B, Sk, KV, hd) -> f32 (B, KV, G, Sq, Sk).
-    q is scaled in its own dtype first, as in the reference."""
+    """q: (B, Sq, KV, G, hd); k: (B, Sk, KV, hd) -> (B, KV, G, Sq, Sk) in
+    f32, or in bf16 when ``cfg.attn_scores_dtype == "bfloat16"``.  q is
+    scaled in its own dtype first, as in the reference.  The bf16 scores
+    are the f32-accumulated product rounded once to bf16 (the reference's
+    ``preferred_element_type=bf16``); the softcap then runs in bf16."""
     q = q * float(1.0 / np.sqrt(cfg.head_dim))
     s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+    if cfg.attn_scores_dtype == "bfloat16":
+        s = s.to(torch.bfloat16)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         s = c * torch.tanh(s / c)
@@ -117,13 +122,19 @@ def _scores(q, k, cfg):
 
 def _softmax_attend(q, k, v, valid, cfg):
     """Masked softmax attention; valid broadcasts against (B, KV, G, Sq, Sk).
-    The weights are cast to v.dtype before the value product."""
+    The mask and softmax run in the scores' dtype (``_scores``), and the
+    weights are cast to v.dtype before the value product."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     s = _scores(q.reshape(B, Sq, KV, H // KV, hd), k, cfg)
     if valid is not None:
         s = s.masked_fill(~valid, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(v.dtype)
+    if s.dtype == torch.bfloat16:
+        # jax.nn.softmax's ops, each rounded to bf16 as in the reference
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        w = (e / e.sum(-1, keepdim=True)).to(v.dtype)
+    else:
+        w = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", w.float(), v.float()).to(v.dtype)
     return o.reshape(B, Sq, H, hd)
 

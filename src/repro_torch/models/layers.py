@@ -20,6 +20,7 @@ from ..kernels.ops import (
     grouped_block_sparse_linear,
     grouped_masked_linear,
     masked_linear,
+    topkast_grouped_masked_linear,
     topkast_masked_linear,
 )
 
@@ -132,23 +133,27 @@ def grouped_linear(w, x, compute_dtype=None, *, mask=None, kernel=None,
 
     Dispatch mirrors ``linear``, with a mask:
       kernel='block_sparse'  one launch over the bank on its grouped
-                             PackState entry ``pack`` (K4);
-      kernel='masked'        one launch with the mask fused in (K16).
+                             PackState entry ``pack`` (K4 forward, K5 dgrad,
+                             K6 wgrad on the entry's superset ``bidx`` when
+                             it carries one);
+      kernel='masked'        one launch with the mask fused in (K16, K17,
+                             K18); ``pack`` None or the Top-KAST carrier
+                             ``{"bwd_mask": B}`` (the wgrad runs on B).
     Other kernels, or ``mask=None``, compute the batched product on
-    ``w * mask`` densely.  A Top-KAST superset view in ``pack`` (``bidx``,
-    the masked carrier's ``bwd_mask``) steers only the weight gradient, so
-    the forward runs as without it; differentiating raises, as does a
-    fused-epilogue entry: the grouped backward kernels belong to MoE
-    training, not ported yet.
+    ``w * mask`` densely.  A fused-epilogue entry (``"mom"``) raises: the
+    grouped fused kernels K8/K20 are not ported yet.
     """
     dt = compute_dtype or x.dtype
     w = w.to(dt)
     if mask is not None and kernel in ("masked", "block_sparse"):
         if isinstance(pack, dict) and "mom" in pack:
             raise NotImplementedError(
-                "grouped_linear: the grouped fused epilogue (kernels K8/K20, "
-                "MoE training) is not ported yet")
+                "grouped_linear: the grouped fused epilogue (kernels K8/K20) is "
+                "not ported yet")
         if kernel == "masked":
+            if isinstance(pack, dict) and "bwd_mask" in pack:
+                return topkast_grouped_masked_linear(x.to(dt), w, mask, pack["bwd_mask"],
+                                                     block=block)
             return grouped_masked_linear(x.to(dt), w, mask, block=block)
         if pack is None:
             raise NotImplementedError(

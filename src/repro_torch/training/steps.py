@@ -1,5 +1,6 @@
 """Train and topology-update steps of the port: ``training/steps.py`` of the
-JAX package for the transformer family, methods 'rigl' and 'static'.
+JAX package for the transformer family and its MoE variant, methods 'rigl'
+and 'static'.
 
   train_step  every step: the loss on RAW params with the masks threaded
               into the kernels (kernel dispatch) or on pre-masked weights
@@ -37,8 +38,8 @@ Differences from the reference, each for the card:
     from (seed, purpose, step), not the reference's threefry keys.
 
 Not ported yet (they raise): methods set/snfs/topkast/pruning/snip, the
-fused epilogue on block_sparse (K7), bf16 params or gradients, bf16 Adam
-state.
+fused epilogue on block_sparse (K7) and on expert banks (K8/K20), bf16
+params or gradients, bf16 Adam state.
 """
 from __future__ import annotations
 
@@ -124,13 +125,12 @@ def needs_bwd_masks(sp) -> bool:
 
 def _check_ported(cfg, opt_cfg=None):
     sp = cfg.sparse
-    if cfg.n_experts:
-        raise _not_ported("MoE training (the grouped backward kernels K5/K6, "
-                          "K17/K18)")
     if sp.method not in _PORTED_METHODS:
         raise _not_ported(f"method {sp.method!r} (the port trains 'rigl' and 'static')")
     if sp.fused_epilogue and sp.kernel == "block_sparse":
         raise _not_ported("sparse.fused_epilogue with kernel='block_sparse' (K7)")
+    if sp.fused_epilogue and cfg.n_experts:
+        raise _not_ported("sparse.fused_epilogue on MoE expert banks (K8/K20)")
     if cfg.param_dtype != "float32" or cfg.bf16_grads:
         raise _not_ported("bf16 params or gradients")
     # bf16 SGD momentum updates as the reference's (rounded to the state's
@@ -202,10 +202,11 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
         smap = sparsity_map(cfg, params, flags)
         if sp.kernel == "block_sparse":
             validate_sparse_kernel(sp)
+            # a 3-D expert bank tiles by its trailing two dims
             flat = tree_paths(params)
-            bad = [n for n in smap if flat[n].dim() != 2
-                   or flat[n].shape[0] % sp.block_shape[0]
-                   or flat[n].shape[1] % sp.block_shape[1]]
+            bad = [n for n in smap if flat[n].dim() not in (2, 3)
+                   or flat[n].shape[-2] % sp.block_shape[0]
+                   or flat[n].shape[-1] % sp.block_shape[1]]
             if bad:
                 raise ValueError(
                     f"sparse.kernel='block_sparse' with block_shape={sp.block_shape} "

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 (bf16 and f32), K2, K3, the grouped K4, K9, K10, K11, the paged-prefix
-K12, the masked K13, K14, K15, the grouped masked K16 and the fused
-epilogue K19, training steps, paged serving and MoE serving through them.
+K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
+paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
+K18 and the fused epilogue K19, training steps, paged serving, MoE serving
+and MoE training through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode.  The file imports no JAX, so it runs on a machine that has
@@ -671,3 +672,177 @@ def test_cuda_moe_engine_runs_grouped_kernels(kernel):
     tok = torch.zeros(2, 1, dtype=torch.long, device=dev)
     lm_decode(eng.params, cfg, eng.caches, tok, 20, masks=masks, pack=pack)
     assert mod.g_launches - n0 == 3 * cfg.n_layers
+
+
+# (G, M, K, N, blk, dead experts) of the grouped backward: a small bank with
+# dead experts, and the qwen2-moe-a2.7b banks wi/wg and wo at a 2048-token
+# training microbatch's capacity (C = 171 rows, padded to the 128-row tile)
+GROUPED_BWD_SHAPES = [(5, 32, 64, 96, 16, (1, 3)), (60, 256, 2048, 1408, 128, (7,)),
+                      (60, 256, 1408, 2048, 128, ())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", GROUPED_BWD_SHAPES)
+def test_cuda_grouped_block_sparse_bwd_matches_plain(shape, dtype):
+    """K5 (dx on the stacked CSR) and K6 (dw on a stacked superset CSC with
+    its own, wider shared width) against their plain versions, element by
+    element within ``matmul_error_bound``; dead experts give zero dx rows
+    and a zero dw, dw is zero outside the superset; one launch each."""
+    from repro_torch.core.pack import pack_entry
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    G, M, K, N, blk, dead = shape
+    x, w, dense = _grouped_problem(shape)
+    sup = dense | (torch.rand(dense.shape[0], K // blk, N // blk) < 0.1).repeat_interleave(
+        blk, 1).repeat_interleave(blk, 2)
+    sup[:, :, :blk] = True  # the superset fills the forward's empty column
+    for g in dead:
+        sup[g] = False
+    e = pack_entry(dense, (blk, blk), device=dev, bwd_mask=sup)
+    assert e["bidx"].shape[-1] > e["idx"].shape[-1]
+    x, w = x.to(dev, dt), w.to(dev, dt)
+    g_ = torch.randn(G, M, N, device=dev).to(dt)
+    xr = torch.randn(G, M, K, device=dev).to(dt)
+    n0, m0 = tbsm.gdx_launches, tbsm.gdw_launches
+    dx = tbsm.grouped_block_sparse_dx(g_, w, e["ridx"], e["rcnt"], bm=min(128, M), bn=blk,
+                                      bk=blk)
+    dw = tbsm.grouped_block_sparse_dw(xr, g_, e["bidx"], e["bcnt"], bn=blk, bk=blk)
+    assert (tbsm.gdx_launches, tbsm.gdw_launches) == (n0 + 1, m0 + 1)
+    for got, want, absp, n in (
+            (dx, tbsm.grouped_block_sparse_dx_plain(g_, w, e["ridx"], e["rcnt"], blk, blk),
+             tbsm.grouped_block_sparse_dx_plain(g_.abs().float(), w.abs().float(),
+                                                e["ridx"], e["rcnt"], blk, blk), N),
+            (dw, tbsm.grouped_block_sparse_dw_plain(xr, g_, e["bidx"], e["bcnt"], blk, blk),
+             tbsm.grouped_block_sparse_dw_plain(xr.abs().float(), g_.abs().float(),
+                                                e["bidx"], e["bcnt"], blk, blk), M)):
+        assert got.dtype == dt
+        bound = tbsm.matmul_error_bound(want, absp, n)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    for g in dead:
+        assert not dx[g].float().any() and not dw[g].float().any()
+    assert not dw[~sup.to(dev)].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", GROUPED_BWD_SHAPES)
+def test_cuda_grouped_masked_bwd_matches_plain(shape, dtype):
+    """K17 (dx on the forward mask) and K18 (dw masked at the store by a
+    superset) against their plain versions on elementwise masks (density
+    0.12, dead experts fully masked), within ``matmul_error_bound``."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    G, M, K, N, blk, dead = shape
+    g_ = torch.randn(G, M, N, device=dev).to(dt)
+    x = torch.randn(G, M, K, device=dev).to(dt)
+    w = (torch.randn(G, K, N, device=dev) / K ** 0.5).to(dt)
+    m = torch.rand(G, K, N, device=dev) < 0.12
+    b = m | (torch.rand(G, K, N, device=dev) < 0.05)
+    for g in dead:
+        m[g] = b[g] = False
+    n0, m0 = tmm.gdx_launches, tmm.gdw_launches
+    dx = tmm.grouped_masked_dx(g_, w, m, bm=min(128, M), bk=blk)
+    dw = tmm.grouped_masked_dw(x, g_, b, bn=blk, bk=blk)
+    assert (tmm.gdx_launches, tmm.gdw_launches) == (n0 + 1, m0 + 1)
+    for got, want, absp, n in (
+            (dx, tmm.grouped_masked_dx_plain(g_, w, m),
+             tmm.grouped_masked_dx_plain(g_.abs().float(), w.abs().float(), m), N),
+            (dw, tmm.grouped_masked_dw_plain(x, g_, b),
+             tmm.grouped_masked_dw_plain(x.abs().float(), g_.abs().float(), b), M)):
+        bound = tmm.matmul_error_bound(want, absp, n)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    for g in dead:
+        assert not dx[g].float().any() and not dw[g].float().any()
+    assert not dw[~b].float().any()
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_bwd_wrappers_raise_instead_of_falling_back():
+    dev = _cuda()
+    g = torch.zeros(2, 16, 32, device=dev)
+    w = torch.zeros(2, 32, 32, device=dev)
+    r = torch.zeros(2, 2, 1, dtype=torch.int32, device=dev)
+    c = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tbsm.grouped_block_sparse_dx(g.half(), w.half(), r, c, bm=16, bn=16, bk=16)
+    with pytest.raises(ValueError, match="does not match"):
+        tbsm.grouped_block_sparse_dx(g, w, r[:1], c[:1], bm=16, bn=16, bk=16)
+    with pytest.raises(ValueError, match="on cpu"):
+        tbsm.grouped_block_sparse_dw(g, g, r.cpu(), c.cpu(), bn=16, bk=16)
+    m = torch.ones(2, 32, 32, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="bool"):
+        tmm.grouped_masked_dx(g, w, m.float(), bm=16, bk=16)
+    with pytest.raises(ValueError, match="3-D"):
+        tmm.grouped_masked_dw(g[0], g[0], m[0], bn=16, bk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [100, 1024])
+def test_cuda_flash_backward_d128_g1_matches_plain(S):
+    """K10 (dq) and K11 (dk, dv) at qwen2-moe-a2.7b's attention (16 query
+    heads over 16 KV heads, G = 1, head_dim 128, causal): the training
+    microbatch's S = 1024 and a ragged S = 100, element by element within
+    ``grad_error_bound``."""
+    dev = _cuda()
+    rng = np.random.default_rng(S + 1)
+    r = lambda: torch.from_numpy(rng.standard_normal((16, S, 128)).astype(np.float32)).to(
+        torch.bfloat16)
+    q, k, v, do = r(), r(), r(), r()
+    bq, bk = tfa.effective_blocks(S, S)
+    Sp = -(-S // bq) * bq
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, Sp - S))
+    q, k, v, do = pad(q), pad(k), pad(v), pad(do)
+    sched = tfa._schedule_on(torch.device("cpu"), S, S, bq, bk, True, 0, 0)
+    kw = dict(bq=bq, bk=bk, causal=True, window=0, q_offset=0, sk=S,
+              scale=128 ** -0.5, softcap=0.0, kv_groups=1)
+    o, lse = tfa.flash_fwd(q, k, v, sched[0], sched[1], **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    blocks = tfa._schedule_mask(sched[0], sched[1], Sp // bk, "cpu")
+    *want, dq_a, dk_a, dv_a, dq_e, dk_e, dv_e = tfa.flash_bwd_plain(
+        q, k, v, do, lse, delta, blocks, with_abs=True, **kw)
+    on = lambda *ts: [t.to(dev) for t in ts]
+    dq = tfa.flash_dq(*on(q, k, v, do, lse, delta, sched[0], sched[1]), **kw)
+    dk, dv = tfa.flash_dkv(*on(q, k, v, do, lse, delta, sched[2], sched[3]), **kw)
+    for name, got, w_, a, e in (("dq", dq, want[0], dq_a, dq_e),
+                                ("dk", dk, want[1], dk_a, dk_e),
+                                ("dv", dv, want[2], dv_a, dv_e)):
+        diff = (got.float().cpu() - w_.float()).abs()
+        assert bool((diff <= tfa.grad_error_bound(w_, a, e)).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse", "masked"])
+def test_cuda_moe_training_step_runs_the_grouped_backward(kernel):
+    """A qwen2-moe SMOKE train step on the card (RigL with the Top-KAST
+    superset, block 16, flash_tight, one microbatch, no remat): a finite
+    loss, and the grouped forward, dgrad and wgrad kernels each launched
+    once per bank and layer (3 x n_layers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state, make_train_step
+
+    dev = _cuda()
+    cfg = configure_kernel(get_config("qwen2-moe-a2.7b", smoke=True), kernel=kernel,
+                           block=16 if kernel == "block_sparse" else None,
+                           attn_kernel="flash_tight")
+    cfg = dataclasses.replace(cfg, microbatches=1, remat=False,
+                              sparse=dataclasses.replace(cfg.sparse, method="rigl",
+                                                         kernel_block=(128, 16, 16)))
+    opt = OptConfig(kind="adam", weight_decay=0.0, grad_clip=1.0)
+    st, _ = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, opt, LRSchedule(kind="constant", base_lr=1e-3,
+                                                warmup_steps=0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), device=dev)
+    mod = tbsm if kernel == "block_sparse" else tmm
+    counts = lambda: (mod.g_launches, mod.gdx_launches, mod.gdw_launches)
+    c0 = counts()
+    st, m = step(st, {"tokens": tok, "targets": tok.roll(-1, 1)})
+    assert np.isfinite(float(m["loss"]))
+    n = 3 * cfg.n_layers
+    assert tuple(a - b for a, b in zip(counts(), c0)) == (n, n, n)

@@ -3,10 +3,12 @@
 Covers the slice bottom up: the config copy; ERK over 3-D expert banks;
 block masks and stacked per-expert packs (a dead expert, an all-zero bank);
 the grouped kernels' plain versions (K4 block-sparse, K16 masked) against
-the reference's grouped Pallas kernels in interpret mode; ``moe`` with its
-routing decisions first, then outputs and aux; ``lm_prefill``/``lm_decode``
-logits; the serving engine's streams; the dead-slot isolation of expert
-capacity; the prefix cache refused; paged vs contiguous; training refused.
+the reference's grouped Pallas kernels in interpret mode, and their
+gradients; ``moe`` with its routing decisions first, then outputs and aux;
+``lm_prefill``/``lm_decode`` logits; the serving engine's streams; the
+dead-slot isolation of expert capacity; the prefix cache refused; paged vs
+contiguous; the fused epilogue on banks refused (training itself:
+tests/test_torch_moe_train.py).
 
 Routing is a discrete choice: a router logit that differs in its last f32
 bit between XLA and torch could flip a top-k pick and move that token's
@@ -325,20 +327,28 @@ def test_grouped_masked_matches_jax_kernel(dtype):
 
 
 def test_grouped_kernels_backward_raises():
-    """The grouped backward kernels (K5/K6, K17/K18) belong to MoE training:
-    differentiating raises on the CPU too, rather than passing a gradient
-    the card could not compute."""
+    """The grouped backward kernels (K5/K6, K17/K18, ported with MoE
+    training) give the dense product's gradients on w * m, zero outside the
+    mask; only the grouped fused epilogue (K8/K20) still raises."""
     bm = _bank_blocks(6, G=2, dead=())
     dense = torch.from_numpy(np.repeat(np.repeat(bm, BLOCK, 1), BLOCK, 2))
-    w = torch.randn(dense.shape, requires_grad=True)
-    x = torch.randn(2, 4, dense.shape[1], requires_grad=True)
+    w0 = torch.randn(dense.shape, dtype=torch.float64).float()
+    x0 = torch.randn(2, 4, dense.shape[1])
     entry = tpack.pack_entry(dense, (BLOCK, BLOCK))
-    y = tops.grouped_block_sparse_linear(x, w, pack=entry, block=(128, BLOCK, BLOCK))
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        y.sum().backward()
-    y = tops.grouped_masked_linear(x, w, dense, block=(128, BLOCK, BLOCK))
-    with pytest.raises(NotImplementedError, match="K17/K18"):
-        y.sum().backward()
+    xd, wd = x0.double().requires_grad_(True), w0.double().requires_grad_(True)
+    torch.bmm(xd, wd * dense).sum().backward()
+    for run in (lambda x, w: tops.grouped_block_sparse_linear(
+                    x, w, pack=entry, block=(128, BLOCK, BLOCK)),
+                lambda x, w: tops.grouped_masked_linear(
+                    x, w, dense, block=(128, BLOCK, BLOCK))):
+        x, w = x0.clone().requires_grad_(True), (w0 * dense).requires_grad_(True)
+        run(x, w).sum().backward()
+        _close(x.grad, xd.grad, 1e-5, "dx")
+        _close(w.grad, wd.grad, 1e-5, "dw")
+        assert (w.grad[~dense] == 0).all()
+    with pytest.raises(NotImplementedError, match="K8/K20"):
+        tl.grouped_linear(w0, x0, mask=dense, kernel="masked", block=(128, BLOCK, BLOCK),
+                          pack={"mom": torch.zeros_like(w0)})
 
 
 def test_grouped_linear_dispatch():
@@ -637,6 +647,9 @@ def test_serve_cli_runs_moe():
 
 
 def test_moe_training_refused():
-    cfg, *_ = _port_state()
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    """MoE training is ported (tests/test_torch_moe_train.py); what it still
+    refuses is the fused SGD epilogue on the expert banks (K8/K20)."""
+    cfg = dataclasses.replace(t_get_config(ARCH, smoke=True), sparse=TSparse(
+        sparsity=0.8, method="rigl", kernel="masked", fused_epilogue=True))
+    with pytest.raises(NotImplementedError, match="K8/K20"):
         t_init_train_state(cfg, None, device="cpu")

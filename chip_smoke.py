@@ -51,6 +51,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                 stochastic rounding), 2 steps: 168 K19 and no K15 launch per
                 step, bf16 momentum within the reference's bound of the
                 unfused step's
+  8b. fused block-sparse train -- K7 against its plain version on layer 0's
+                ERK packs and Top-KAST supersets (mlp.wi, mlp.wo f32,
+                attn.wq bf16; 2048 and 16 rows, sr off and on, mom bf16 and
+                f32), timed beside the unfused work it replaces (K3 and the
+                SGD update); then the same model under block_sparse (128x128
+                blocks, flash_tight, ERK 0.8, RigL with the superset) with
+                the fused SGD epilogue, 2 x 1024 tokens in one microbatch, 2
+                steps each beside an unfused step: exactly 336 K1, 168 K2,
+                168 K7, no K3 and 48/24/24 K9-K11 per fused step, the bf16
+                momentum within the reference's bound of the unfused one's
   9. paged serve -- K12 (the paged-prefix flash kernel) against its plain
                 version at mistral-large's widths (Sq 16 and 128, ctx 0 to
                 4096 over 256 pages of 16, a softcap case), timed; then serve
@@ -100,7 +110,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                 1024 in one microbatch, 6 steps, a drop/grow at step 2): K17
                 and K18 on layer 0's elementwise masks and supersets, timed;
                 the same checks, with K13-K18's exact launches
- 14. report  -- one JSON line of per-kernel numbers (all seventeen kernels),
+ 14. moe fused train -- qwen2-moe-a2.7b (3 of 24 layers) with the fused SGD
+                epilogue, 2 x 1024 tokens in one microbatch (C = 171), under
+                block_sparse: K8 against its plain version (layer 0's ERK
+                banks and supersets, a uniform topology, two groups with no
+                block; 171 and 16 rows; f32 and bf16; sr off and on) and
+                against K20 bit for bit on a block-aligned mask, K7 on layer
+                0's attn.wq (bf16) and dense shared MLP (f32) at 2048 rows,
+                sr off and on, then 2 fused steps beside unfused ones with
+                routing pinned: exactly 42 K1, 21 K2, 21 K7, 18 K4, 9 K5, 9
+                K8, no K3 or K6 and 6/3/3 K9-K11 per fused step; under
+                masked: K20 on layer 0's supersets and K19 on the same 2-D
+                projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
+                K20, no K15 or K18; the momentum bound leaf by leaf, wall
+                times, peak memory
+ 15. report  -- one JSON line of per-kernel numbers (all twenty kernels),
                 the card line, and last {"ok": true, "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -1197,68 +1221,316 @@ def masked_train(torch, mm, fa, bsm):
     return stats, launches
 
 
-def fused_train(torch, mm):
-    """The fused-epilogue train step at full size: SGD momentum 0.9, bf16
-    state (in-kernel stochastic rounding), ``sparse.fused_epilogue``,
-    masked RigL, batch 2 x 1024 in one microbatch, 2 steps, each beside
-    the unfused step on a copy of the same weights (the steps update in
-    place), in alternating order: 168 K19 and no K15 launch per fused step,
-    the stored momentum exactly bf16 and, after each step, within the
-    reference's bound (2e-2 of the largest entry:
-    tests/test_fused_epilogue.py) of the unfused momentum."""
-    from repro_torch.core.masks import tree_paths
-    from repro_torch.data.synthetic import batch_for
+FUSED_MU, FUSED_WD, FUSED_SEED = 0.9, 1e-4, 0x9E3779B9
+
+
+def fused_opt():
+    """The fused path's optimizer and LR: SGD momentum 0.9, wd 1e-4, bf16
+    state (in-kernel stochastic rounding), a constant 1e-3."""
     from repro_torch.optim.lr import LRSchedule
     from repro_torch.optim.optimizers import OptConfig
-    from repro_torch.training.steps import init_train_state, make_train_step
 
-    cfg = masked_config(fused_epilogue=True)
+    return (OptConfig(kind="sgd", momentum=FUSED_MU, weight_decay=FUSED_WD,
+                      state_dtype="bfloat16"),
+            LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0))
+
+
+def fused_steps(torch, cfg, state, counters, want, label, pin_routing=False):
+    """``FUSED_STEPS`` train steps of ``cfg`` with ``sparse.fused_epilogue``
+    on ``state``, each beside the unfused step on a copy of the same weights
+    (the steps update in place), in alternating order, batch
+    ``MASKED_BATCH`` x ``TRAIN_SEQ`` in one microbatch; the launch counters
+    set to 0 just before each step and read just after.  Checks per step:
+    the fused step's launches exactly ``want`` and the unfused step's the
+    same with every fused wgrad count moved to its unfused kernel, finite
+    losses, the momentum stored in bf16 and, leaf by leaf, within the
+    reference's bound (2e-2 of the largest entry:
+    tests/test_fused_epilogue.py) of the unfused momentum.  ``pin_routing``: the second step of a pair routes as
+    the first did (an MoE router's near ties would otherwise move a token's
+    gradient by O(1) between the two weight copies).  Returns (stats, the
+    fused steps' launches summed)."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.training.steps import make_train_step
+
+    opt, lr = fused_opt()
     unfused = dataclasses.replace(cfg, sparse=dataclasses.replace(cfg.sparse,
                                                                   fused_epilogue=False))
-    opt = OptConfig(kind="sgd", momentum=0.9, weight_decay=1e-4, state_dtype="bfloat16")
-    lr = LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0)
-    state, _ = init_train_state(cfg, opt, seed=0, device="cuda")
     copy = dict(state, params=tree_map_clone(state["params"]),
                 opt={"momentum": tree_map_clone(state["opt"]["momentum"])})
     steps = {"fused": make_train_step(cfg, opt, lr), "unfused": make_train_step(unfused, opt, lr)}
     states = {"fused": state, "unfused": copy}
     del state, copy
-    counts = lambda: (mm.launches, mm.dx_launches, mm.dw_launches, mm.fused_launches)
-    n_proj, log = 7 * cfg.n_layers, []
+    read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
+    moved = {"block_sparse_dw_fused": "block_sparse_dw",
+             "grouped_block_sparse_dw_fused": "grouped_block_sparse_dw",
+             "masked_dw_fused": "masked_dw", "grouped_masked_dw_fused": "grouped_masked_dw"}
+    want_unfused = dict(want)
+    for f, u in moved.items():
+        if f in want:
+            want_unfused[u], want_unfused[f] = want[f], 0
+    log = []
     for t in range(FUSED_STEPS):
         b = batch_for(cfg, t, MASKED_BATCH, TRAIN_SEQ, learnable=True, device="cuda")
-        rec = {"step": t}
-        for side in (("unfused", "fused") if t % 2 == 0 else ("fused", "unfused")):
-            c0 = counts()
+        rec, picks = {"step": t}, []
+        for i, side in enumerate(("unfused", "fused") if t % 2 == 0 else ("fused", "unfused")):
+            restore = patch_route(record=picks if i == 0 else None,
+                                  force=picks if i == 1 else None) if pin_routing else None
+            for _, mod, a in counters:
+                setattr(mod, a, 0)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            states[side], m = steps[side](states[side], b)
-            torch.cuda.synchronize()
+            try:
+                states[side], m = steps[side](states[side], b)
+                torch.cuda.synchronize()
+            finally:
+                if restore is not None:
+                    restore()
             rec[f"{side}_wall_s"] = time.perf_counter() - t0
+            rec[f"{side}_launches"] = read()
             rec[f"{side}_loss"] = float(m["loss"])
-            rec[f"{side}_launches"] = dict(zip(
-                ("masked_fwd", "masked_dx", "masked_dw", "masked_dw_fused"),
-                (a - b_ for a, b_ in zip(counts(), c0))))
-        want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dw": 0,
-                "masked_dw_fused": n_proj}
-        if rec["fused_launches"] != want or not math.isfinite(rec["fused_loss"]):
-            raise AssertionError(f"fused step {t}: {rec}")
+            rec[f"{side}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if rec["fused_launches"] != want or rec["unfused_launches"] != want_unfused or \
+                not (math.isfinite(rec["fused_loss"]) and math.isfinite(rec["unfused_loss"])):
+            raise AssertionError(f"{label} step {t}: {rec}, expected {want} (fused) and "
+                                 f"{want_unfused} (unfused)")
         mom, ref = (tree_paths(states[k]["opt"]["momentum"]) for k in ("fused", "unfused"))
         if any(v.dtype != torch.bfloat16 for v in mom.values()):
-            raise AssertionError("the fused step's momentum is not stored in bf16")
-        mref = max(v.float().abs().max().item() for v in ref.values())
-        diff = max((mom[n].float() - ref[n].float()).abs().max().item() for n in mom)
-        rec["momentum_vs_unfused"] = {"max_diff": diff, "max_ref": mref,
-                                      "tol": 2e-2 * max(mref, 1e-3)}
-        if not diff < 2e-2 * max(mref, 1e-3):
-            raise AssertionError(f"fused momentum vs unfused: {rec['momentum_vs_unfused']}")
+            raise AssertionError(f"{label}: the fused step's momentum is not stored in bf16")
+        # per leaf: each leaf's difference within 2e-2 of its own largest
+        # unfused entry (a leaf of small values is not hidden by another)
+        per = {n: ((mom[n].float() - ref[n].float()).abs().max().item(),
+                   ref[n].float().abs().max().item()) for n in mom}
+        worst = max(per, key=lambda n: per[n][0] / per[n][1] if per[n][1] else
+                    (math.inf if per[n][0] else 0.0))
+        rec["momentum_vs_unfused"] = {
+            "leaves": len(per), "worst_leaf": worst, "max_diff": per[worst][0],
+            "max_ref": per[worst][1], "tol": 2e-2 * per[worst][1],
+            "max_diff_all": max(d for d, _ in per.values())}
+        bad = [n for n, (d, r) in per.items() if not d <= 2e-2 * r]
+        if bad:
+            raise AssertionError(f"{label}: fused momentum vs unfused beyond 2e-2 of the "
+                                 f"leaf's largest entry in {bad[:5]}: "
+                                 f"{rec['momentum_vs_unfused']}")
         del mom, ref
-        print("fused train:", json.dumps(rec))
+        print(f"{label}:", json.dumps(rec))
         log.append(rec)
     del states
     torch.cuda.empty_cache()
-    launches = {k: sum(r["fused_launches"][k] for r in log) for k in log[0]["fused_launches"]}
-    return {"steps": log, "tokens_per_step": MASKED_BATCH * TRAIN_SEQ}, launches
+    launches = {k: sum(r["fused_launches"][k] for r in log) for k in want}
+    stats = {"steps": log, "tokens_per_step": MASKED_BATCH * TRAIN_SEQ,
+             "fused_step_wall_s": [r["fused_wall_s"] for r in log],
+             "unfused_step_wall_s": [r["unfused_wall_s"] for r in log]}
+    return stats, launches
+
+
+def fused_train(torch, mm):
+    """The fused-epilogue train step at full size: SGD momentum 0.9, bf16
+    state (in-kernel stochastic rounding), ``sparse.fused_epilogue``,
+    masked RigL, batch 2 x 1024 in one microbatch, 2 steps beside unfused
+    ones (``fused_steps``): 336 K13, 168 K14, 168 K19 and no K15 launch
+    per fused step."""
+    from repro_torch.training.steps import init_train_state
+
+    cfg = masked_config(fused_epilogue=True)
+    state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
+    counters = (("masked_fwd", mm, "launches"), ("masked_dx", mm, "dx_launches"),
+                ("masked_dw", mm, "dw_launches"), ("masked_dw_fused", mm, "fused_launches"))
+    n_proj = 7 * cfg.n_layers
+    want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dw": 0,
+            "masked_dw_fused": n_proj}
+    return fused_steps(torch, cfg, state, counters, want, "fused train")
+
+
+def fused_case(torch, timer, kernel, label, run, plain, unfused, check, n_bytes, flops,
+               dtype):
+    """``kernel_case`` for a fused wgrad epilogue: no one PyTorch call
+    computes it (library null); its yardstick is the unfused work it
+    replaces on the same inputs, the wgrad kernel then the SGD update
+    (``unfused_ms``)."""
+    case = kernel_case(torch, timer, kernel, label, run, plain, None, check, n_bytes, flops,
+                       dtype)
+    case["unfused_ms"] = timer(unfused)
+    print(kernel, "unfused", json.dumps({"case": label, "unfused_ms": case["unfused_ms"]}))
+    return case
+
+
+def fused_checks(torch, tag, run, plain, raw, gid, support, bound):
+    """The fused kernels' check: without sr (``raw`` None) every element
+    within ``bound()`` of the plain version; with sr bit for bit the plain
+    ``sr_to_bf16`` of the kernel's own f32 m_new (``raw()``, the f32-output
+    entry with sr off) and on the bf16 grid; zeros off ``support``."""
+    from repro_torch.kernels import masked_matmul as mm
+
+    got = run()
+    if raw is None:
+        want = plain()
+        ok, ratio, tol = within(torch, got, want, bound(want))
+    else:
+        want = mm.sr_to_bf16(raw(), FUSED_SEED, gid()).to(got.dtype)
+        ok = torch.equal(got.float(), want.float()) and \
+            torch.equal(got.float(), got.to(torch.bfloat16).float())
+        ratio, tol = 0.0, 0.0
+    if not ok:
+        raise AssertionError(f"{tag}: differs from its plain version ({ratio:.3g}x its bound)"
+                             if raw is None else f"{tag}: sr differs from sr_to_bf16 of the "
+                             "kernel's own m_new, or off the bf16 grid")
+    off = got[~support]  # empty where every block is in the support
+    if off.numel() and off.float().abs().max().item() != 0:
+        raise AssertionError(f"{tag}: m_new off the wgrad support")
+    return (got.float() - want.float()).abs().max().item(), ratio, tol
+
+
+def leaf(tree, path):
+    """``tree[path[0]][path[1]]...``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# (label, path under a layer, the dtype the path computes it in)
+K7_PROJ = (("mlp.wi", ("mlp", "wi"), "float32"), ("mlp.wo", ("mlp", "wo"), "float32"),
+           ("attn.wq", ("attn", "wq"), "bfloat16"))
+# qwen2-moe's 2-D projections on the fused MoE paths: attention in bf16, the
+# dense shared-expert MLP (ERK density 1.0: every pack slot active) in f32
+MOE_FUSED_PROJ = (("attn.wq", ("attn", "wq"), "bfloat16"),
+                  ("moe.shared.wi", ("moe", "shared", "wi"), "float32"),
+                  ("moe.shared.wo", ("moe", "shared", "wo"), "float32"))
+
+
+def k7_cases(torch, timer, bsm, state, cfg, proj=K7_PROJ, rows=(2048, 16),
+             moms=("bfloat16", "float32"), model="danube"):
+    """K7 against its plain version on the fused block-sparse path's own
+    layer 0: by default danube's mlp.wi and mlp.wo in f32 and attn.wq in
+    bf16 (the dtypes the path runs them in) on their Top-KAST superset
+    packs (the path's wgrad packs), at 2048 rows (one microbatch of 2 x
+    1024) and 16, sr off and on, mom in bf16 (the path's) and f32; checks
+    in ``fused_checks``, the bound ``mm.fused_error_bound``.  Bytes: x and
+    g once, w and mom read and m_new written on the superset blocks, the
+    zero fill of the rest of the dense (K, N) output; operations 2 M bk bn
+    per superset block."""
+    from repro_torch.kernels import masked_matmul as mm
+
+    blk = cfg.sparse.kernel_block[2]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD)
+    out = []
+    for label, path, dname in proj:
+        dt = getattr(torch, dname)
+        w = leaf(state["params"]["layers"][0], path)["w"].to(dt)
+        e = leaf(state["pack"]["layers"][0], path)["w"]
+        bidx, bcnt = e["bidx"], e["bcnt"]
+        K, N = w.shape
+        sup = bsm.unpack_block_mask(bidx, bcnt, K // blk)
+        sup = sup.repeat_interleave(blk, 0).repeat_interleave(blk, 1)
+        bnnz, es = int(bcnt.sum()), w.element_size()
+        for M in rows:
+            x, g = rnd(M, K).to(dt), rnd(M, N).to(dt)
+            acc = x.float().T @ g.float()
+            absp = x.float().abs().T @ g.float().abs()
+            for mdt in (getattr(torch, m) for m in moms):
+                mom = (0.01 * rnd(K, N) * sup).to(mdt)
+                for sr in (False, True):
+                    tag = (f"K7 {model} layer0 {label} {dname} M={M} K={K} N={N} superset "
+                           f"blocks={bnnz}/{K // blk * N // blk} mom {str(mdt)[6:]} sr={sr}")
+                    # each case runs and is timed before the loop moves on
+                    run = lambda: bsm.block_sparse_dw_fused(
+                        x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk, **kw)
+                    plain = lambda: bsm.block_sparse_dw_fused_plain(
+                        x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bk=blk, bn=blk, **kw)
+                    raw = None if not sr else lambda: bsm.block_sparse_dw_fused(
+                        x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
+                        out_dtype=torch.float32, **kw)
+                    unfused = lambda: (FUSED_MU * mom.float() + bsm.block_sparse_dw(
+                        x, g, bidx, bcnt, bn=blk, bk=blk).float() + FUSED_WD * w.float()
+                    ).to(dt)
+                    bound = lambda want: mm.fused_error_bound(
+                        want, absp, M, FUSED_MU, FUSED_WD, mom, w, acc, sup)
+                    check = lambda: fused_checks(torch, tag, run, plain, raw,
+                                                 lambda: mm._gid(K, N, "cuda"), sup, bound)
+                    out.append(fused_case(
+                        torch, timer, "K7", tag, run, plain, unfused, check,
+                        es * (M * K + M * N + K * N) + (es + mom.element_size()) * bnnz * blk * blk
+                        + 4 * (bidx.numel() + bcnt.numel()),
+                        2.0 * M * bnnz * blk * blk, dt))
+    return out
+
+
+def k19_moe_cases(torch, timer, mm, state, cfg, M=2048):
+    """K19 against its plain version on the fused masked MoE path's own
+    layer 0 (``MOE_FUSED_PROJ``: attn.wq in bf16, the shared MLP's wi and wo
+    in f32) on their Top-KAST supersets, at the microbatch's 2048 rows, sr
+    off and on, bf16 mom; checks in ``fused_checks``.  Bytes and
+    operations as ``masked_cases``' K19; yardstick K15 then the SGD
+    update."""
+    blk = cfg.sparse.kernel_block[2]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD, bn=blk, bk=blk)
+    out = []
+    for label, path, dname in MOE_FUSED_PROJ:
+        dt = getattr(torch, dname)
+        w = leaf(state["params"]["layers"][0], path)["w"].to(dt)
+        b = leaf(state["bwd_masks"]["layers"][0], path)["w"]
+        K, N = w.shape
+        bnnz, es = int(b.sum()), w.element_size()
+        x, g = rnd(M, K).to(dt), rnd(M, N).to(dt)
+        acc = x.float().T @ g.float()
+        absp = x.float().abs().T @ g.float().abs()
+        mom = (0.01 * rnd(K, N) * b).to(torch.bfloat16)
+        for sr in (False, True):
+            tag = (f"K19 qwen2-moe layer0 {label} {dname} M={M} K={K} N={N} superset "
+                   f"density={bnnz / b.numel():.3f} mom bfloat16 sr={sr}")
+            run = lambda: mm.masked_dw_fused(x, g, b, w, mom, FUSED_SEED, sr=sr, **kw)
+            plain = lambda: mm.masked_dw_fused_plain(x, g, b, w, mom, FUSED_SEED, sr=sr,
+                                                     mu=FUSED_MU, wd=FUSED_WD)
+            raw = None if not sr else lambda: mm.masked_dw_fused(
+                x, g, b, w, mom, FUSED_SEED, sr=False, out_dtype=torch.float32, **kw)
+            unfused = lambda: (FUSED_MU * mom.float() + mm.masked_dw(
+                x, g, b, bn=blk, bk=blk).float() + FUSED_WD * w.float()).to(dt)
+            bound = lambda want: mm.fused_error_bound(
+                want, absp, M, FUSED_MU, FUSED_WD, mom, w, acc, b)
+            check = lambda: fused_checks(torch, tag, run, plain, raw,
+                                         lambda: mm._gid(K, N, "cuda"), b, bound)
+            out.append(fused_case(
+                torch, timer, "K19", tag, run, plain, unfused, check,
+                es * (M * K + M * N) + K * N * (1 + 2 * es + 2), 2.0 * M * bnnz, dt))
+    return out
+
+
+def fused_bs_config():
+    """h2o-danube-1.8b at full width and depth, block_sparse 128x128,
+    flash_tight, ERK 0.8, RigL with the Top-KAST superset, the fused SGD
+    epilogue, 2 x 1024 tokens in one microbatch."""
+    cfg = train_config()
+    return dataclasses.replace(cfg, microbatches=1, sparse=dataclasses.replace(
+        cfg.sparse, fused_epilogue=True))
+
+
+def fused_bs_train(torch, timer, bsm, fa):
+    """K7 against its plain version on the path's layer 0 (``k7_cases``),
+    then 2 fused steps of h2o-danube-1.8b under block_sparse beside unfused
+    ones (``fused_steps``): exactly 336 K1, 168 K2, 168 K7, no K3 and
+    48/24/24 K9-K11 launches per fused step."""
+    from repro_torch.training.steps import init_train_state
+
+    cfg = fused_bs_config()
+    state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
+    cases = k7_cases(torch, timer, bsm, state, cfg)
+    counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
+                ("block_sparse_dw", bsm, "dw_launches"),
+                ("block_sparse_dw_fused", bsm, "fused_launches"),
+                ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
+                ("flash_dkv", fa, "dkv_launches"))
+    n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
+    # remat reruns each block's forward in the backward: K1 and K9 twice
+    want = {"block_sparse_fwd": 2 * n_proj, "block_sparse_dx": n_proj, "block_sparse_dw": 0,
+            "block_sparse_dw_fused": n_proj, "flash_fwd": 2 * n_attn, "flash_dq": n_attn,
+            "flash_dkv": n_attn}
+    stats, launches = fused_steps(torch, cfg, state, counters, want, "fused block-sparse train")
+    return stats, launches, cases
 
 
 # ---------------------------------------------------------------------------
@@ -2335,6 +2607,197 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
     return stats, launches, cases
 
 
+def k8_cases(torch, timer, bsm, state, cfg):
+    """K8 against its plain version on the fused block-sparse path's banks
+    (60 experts; wi as 2048 -> 1408, wo as 1408 -> 2048) at C = 171 rows
+    (-> 256) and 16, f32 (the path's dtype) and bf16, sr off and on, bf16
+    mom, on ``bank_topologies`` with supersets (layer 0's ERK banks, a
+    uniform 20% mask, two experts with no block); checks in
+    ``fused_checks``.  Bytes on the C rows: x and g once, w and mom read
+    and m_new written on the superset blocks, the zero fill of the rest of
+    the dense (G, K, N) output; operations 2 C bk bn per superset block.
+    Yardstick: K6 then the SGD update."""
+    import numpy as np
+    from repro_torch.kernels import masked_matmul as mm
+
+    rng = np.random.default_rng(6)
+    blk = cfg.sparse.kernel_block[2]
+    lay, pk = state["params"]["layers"][0]["moe"], state["pack"]["layers"][0]["moe"]
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD)
+    out = []
+    for bank in ("wi", "wo"):
+        G, K, N = lay[bank]["w"].shape
+        dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk,
+                                         superset=True)
+        for tname, w32, e in topo:
+            bidx, bcnt = e["bidx"], e["bcnt"]
+            bnnz = int(bcnt.sum())
+            sup = bsm.unpack_block_mask(bidx, bcnt, K // blk)
+            sup = sup.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+            mom = (0.01 * torch.randn(G, K, N, device="cuda") * sup).to(torch.bfloat16)
+            for dt in (torch.float32, torch.bfloat16):
+                w = w32.to(dt)
+                es = w.element_size()
+                for C in MOE_ROWS:
+                    bm, Mp, g_c, g = grouped_rows(torch, G, C, N, dt)
+                    _, _, x_c, x = grouped_rows(torch, G, C, K, dt)
+                    xt = x.float().transpose(1, 2)
+                    acc, absp = torch.bmm(xt, g.float()), torch.bmm(xt.abs(), g.float().abs())
+                    for sr in (False, True):
+                        tag = (f"K8 {bank} {tname} {str(dt)[6:]} G={G} C={C}->{Mp} K={K} "
+                               f"N={N} superset blocks={bnnz}/{G * (K // blk) * (N // blk)} "
+                               f"width={bidx.shape[-1]} sr={sr}")
+                        run = lambda: bsm.grouped_block_sparse_dw_fused(
+                            x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk, **kw)
+                        plain = lambda: bsm.grouped_block_sparse_dw_fused_plain(
+                            x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bk=blk, bn=blk, **kw)
+                        raw = None if not sr else lambda: bsm.grouped_block_sparse_dw_fused(
+                            x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
+                            out_dtype=torch.float32, **kw)
+                        unfused = lambda: (FUSED_MU * mom.float() + bsm.grouped_block_sparse_dw(
+                            x, g, bidx, bcnt, bn=blk, bk=blk).float() + FUSED_WD * w.float()
+                        ).to(dt)
+                        bound = lambda want: mm.fused_error_bound(
+                            want, absp, Mp, FUSED_MU, FUSED_WD, mom, w, acc, sup)
+
+                        def check():
+                            res = fused_checks(torch, tag, run, plain, raw,
+                                               lambda: mm._gid(K, N, "cuda", G=G), sup, bound)
+                            if "dead" in tname and run()[dead_ids].float().abs().max().item():
+                                raise AssertionError(f"{tag}: a group with no block is not zero")
+                            return res
+
+                        out.append(fused_case(
+                            torch, timer, "K8", tag, run, plain, unfused, check,
+                            es * (G * C * K + G * C * N + G * K * N) + (es + 2) * bnnz * blk * blk
+                            + 4 * (bidx.numel() + bcnt.numel()),
+                            2.0 * C * bnnz * blk * blk, dt))
+    return out
+
+
+def k20_cases(torch, timer, bsm, mm, state, cfg):
+    """K20 against its plain version on the fused masked path's banks:
+    layer 0's elementwise ERK masks' Top-KAST supersets, wi and wo, C = 171
+    (-> 256) and 16 rows, f32 and bf16, sr off and on, bf16 mom; checks in
+    ``fused_checks``.  Bytes on the C rows as K19's: x and g once, and per
+    weight its 1-byte mask, w, mom and m_new; operations 2 C per superset
+    weight.  Yardstick: K18 then the SGD update."""
+    blk = cfg.sparse.kernel_block[2]
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD)
+    out = []
+    for bank in ("wi", "wo"):
+        w32 = state["params"]["layers"][0]["moe"][bank]["w"]
+        b = state["bwd_masks"]["layers"][0]["moe"][bank]["w"]
+        G, K, N = w32.shape
+        bnnz = int(b.sum())
+        mom = (0.01 * torch.randn(G, K, N, device="cuda") * b).to(torch.bfloat16)
+        for dt in (torch.float32, torch.bfloat16):
+            w = w32.to(dt)
+            es = w.element_size()
+            for C in MOE_ROWS:
+                bm, Mp, g_c, g = grouped_rows(torch, G, C, N, dt)
+                _, _, x_c, x = grouped_rows(torch, G, C, K, dt)
+                xt = x.float().transpose(1, 2)
+                acc, absp = torch.bmm(xt, g.float()), torch.bmm(xt.abs(), g.float().abs())
+                for sr in (False, True):
+                    tag = (f"K20 {bank} layer0 ERK superset {str(dt)[6:]} G={G} C={C}->{Mp} "
+                           f"K={K} N={N} density={bnnz / b.numel():.4f} sr={sr}")
+                    run = lambda: mm.grouped_masked_dw_fused(
+                        x, g, b, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk, **kw)
+                    plain = lambda: mm.grouped_masked_dw_fused_plain(
+                        x, g, b, w, mom, FUSED_SEED, sr=sr, **kw)
+                    raw = None if not sr else lambda: mm.grouped_masked_dw_fused(
+                        x, g, b, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
+                        out_dtype=torch.float32, **kw)
+                    unfused = lambda: (FUSED_MU * mom.float() + mm.grouped_masked_dw(
+                        x, g, b, bn=blk, bk=blk).float() + FUSED_WD * w.float()).to(dt)
+                    bound = lambda want: mm.fused_error_bound(
+                        want, absp, Mp, FUSED_MU, FUSED_WD, mom, w, acc, b)
+                    check = lambda: fused_checks(torch, tag, run, plain, raw,
+                                                 lambda: mm._gid(K, N, "cuda", G=G), b, bound)
+                    out.append(fused_case(
+                        torch, timer, "K20", tag, run, plain, unfused, check,
+                        es * (G * C * K + G * C * N) + G * K * N * (1 + 2 * es + 2),
+                        2.0 * C * bnnz, dt))
+    return out
+
+
+def k8_equals_k20(torch, bsm, mm, state, cfg):
+    """K8 and K20 bit for bit on one block-aligned mask with sr on: layer
+    0's wi bank superset (the block-sparse path's masks are block-aligned),
+    f32, C = 171 -> 256 rows; K20 multiplies by its mask, so a negative
+    m_new off the support is -0.0 there (+ 0.0 maps it to 0.0)."""
+    blk = cfg.sparse.kernel_block[2]
+    w = state["params"]["layers"][0]["moe"]["wi"]["w"]
+    b = state["bwd_masks"]["layers"][0]["moe"]["wi"]["w"]
+    e = state["pack"]["layers"][0]["moe"]["wi"]["w"]
+    G, K, N = w.shape
+    _, _, _, g = grouped_rows(torch, G, MOE_ROWS[0], N, w.dtype)
+    _, _, _, x = grouped_rows(torch, G, MOE_ROWS[0], K, w.dtype)
+    mom = (0.01 * torch.randn(G, K, N, device="cuda") * b).to(torch.bfloat16)
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD, sr=True, bn=blk, bk=blk)
+    k8 = bsm.grouped_block_sparse_dw_fused(x, g, e["bidx"], e["bcnt"], w, mom, FUSED_SEED, **kw)
+    k20 = mm.grouped_masked_dw_fused(x, g, b, w, mom, FUSED_SEED, **kw)
+    same = torch.equal(k8.view(torch.int32), (k20 + 0.0).view(torch.int32))
+    print(f"moe fused train: K8 and K20 on layer 0's wi superset (sr on): bit for bit "
+          f"{same}; {int(b.sum())} weights, {int((k8 != 0).sum())} nonzero")
+    if not same:
+        raise AssertionError("K8 and K20 differ on a block-aligned mask")
+
+
+def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
+    """Train qwen2-moe-a2.7b (full width, 3 of 24 layers, ERK 0.8,
+    flash_tight, RigL with the Top-KAST superset) with the fused SGD
+    epilogue under ``kernel``, 2 x 1024 tokens in one microbatch (C = 171):
+    first K8 (block_sparse; and K8 against K20 bit for bit) or K20 (masked)
+    against its plain version on the path's own layer 0, and K7
+    (``k7_cases``) or K19 (``k19_moe_cases``) on its 2-D projections there
+    (attn.wq in bf16, the shared MLP in f32, 2048 rows), then 2 fused steps
+    beside unfused ones with routing pinned (``fused_steps``): exactly 42
+    K1, 21 K2, 21 K7, 18 K4, 9 K5, 9 K8, no K3 or K6 (block_sparse), or 42
+    K13, 21 K14, 21 K19, 18 K16, 9 K17, 9 K20, no K15 or K18 (masked), and
+    6/3/3 K9-K11 per fused step.  Returns (stats, launches, the bank
+    kernel's cases, the 2-D kernel's cases)."""
+    from repro_torch.training.steps import init_train_state
+
+    bs = kernel == "block_sparse"
+    cfg = moe_train_config(kernel)
+    cfg = dataclasses.replace(cfg, microbatches=1, sparse=dataclasses.replace(
+        cfg.sparse, fused_epilogue=True))
+    state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
+    if bs:
+        cases = k8_cases(torch, timer, bsm, state, cfg)
+        k8_equals_k20(torch, bsm, mm, state, cfg)
+        cases_2d = k7_cases(torch, timer, bsm, state, cfg, proj=MOE_FUSED_PROJ, rows=(2048,),
+                            moms=("bfloat16",), model="qwen2-moe")
+    else:
+        cases = k20_cases(torch, timer, bsm, mm, state, cfg)
+        cases_2d = k19_moe_cases(torch, timer, mm, state, cfg)
+    mod, fam = (bsm, "block_sparse") if bs else (mm, "masked")
+    counters = ((f"{fam}_fwd", mod, "launches"), (f"{fam}_dx", mod, "dx_launches"),
+                (f"{fam}_dw", mod, "dw_launches"), (f"{fam}_dw_fused", mod, "fused_launches"),
+                (f"grouped_{fam}_fwd", mod, "g_launches"),
+                (f"grouped_{fam}_dx", mod, "gdx_launches"),
+                (f"grouped_{fam}_dw", mod, "gdw_launches"),
+                (f"grouped_{fam}_dw_fused", mod, "g_fused_launches"),
+                ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
+                ("flash_dkv", fa, "dkv_launches"))
+    L, B = cfg.n_layers, len(MOE_BANKS)
+    # remat reruns each block's forward in the backward: the forward
+    # kernels launch twice
+    want = {f"{fam}_fwd": 2 * MOE_PROJ * L, f"{fam}_dx": MOE_PROJ * L, f"{fam}_dw": 0,
+            f"{fam}_dw_fused": MOE_PROJ * L, f"grouped_{fam}_fwd": 2 * B * L,
+            f"grouped_{fam}_dx": B * L, f"grouped_{fam}_dw": 0,
+            f"grouped_{fam}_dw_fused": B * L, "flash_fwd": 2 * L, "flash_dq": L,
+            "flash_dkv": L}
+    stats, launches = fused_steps(torch, cfg, state, counters, want,
+                                  f"moe fused train {kernel}", pin_routing=True)
+    stats["layers"] = L
+    stats["peak_gib"] = max(r[f"{k}_peak_gib"] for r in stats["steps"]
+                            for k in ("fused", "unfused"))
+    return stats, launches, cases, cases_2d
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -2412,6 +2875,8 @@ def main() -> int:
     done("masked train")
     fused_stats, fused_launches = fused_train(torch, mm)
     done("fused train")
+    fused_bs_stats, fused_bs_launches, k7 = fused_bs_train(torch, timer, bsm, fa)
+    done("fused block-sparse train, parity K7")
     k12 = k12_cases(torch, timer, fa)
     done("parity K12")
     paged_stats, paged_launches, k1_paged = paged_serve(torch, timer, bsm, fa)
@@ -2431,24 +2896,37 @@ def main() -> int:
     moe_mtrain_stats, moe_mtrain_launches, k1718 = moe_train(torch, timer, bsm, mm, fa,
                                                              "masked")
     done("moe masked train, parity K17, K18")
+    moe_fused_stats, moe_fused_launches, k8, k7_moe = moe_fused_train(
+        torch, timer, bsm, mm, fa, "block_sparse")
+    k7 += k7_moe
+    done("moe fused train, parity K8, K8 = K20, K7")
+    moe_mfused_stats, moe_mfused_launches, k20, k19_moe = moe_fused_train(
+        torch, timer, bsm, mm, fa, "masked")
+    mcases["K19"] += k19_moe
+    done("moe masked fused train, parity K20, K19")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
              "fused_train": fused_launches, "paged_serve": paged_launches,
              "moe_serve": moe_launches, "moe_masked_serve": moe_m_launches,
-             "moe_train": moe_train_launches, "moe_masked_train": moe_mtrain_launches}
+             "moe_train": moe_train_launches, "moe_masked_train": moe_mtrain_launches,
+             "fused_block_sparse_train": fused_bs_launches,
+             "moe_fused_train": moe_fused_launches,
+             "moe_masked_fused_train": moe_mfused_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
 
     def summary(name, source, replaces, cases):
         # cases without a library yardstick (parity only) are not timed,
-        # unless no case of the kernel has one (K19: no one PyTorch call)
+        # unless no case of the kernel has one (the fused epilogues K7, K8,
+        # K19, K20: no one PyTorch call; K7, K8 and K20 report the unfused
+        # work they replace as unfused_ms)
         timed = [c for c in cases if c["library_ms"] is not None] or cases
         total = lambda key: sum(c[key] for c in timed)
         b = sum(c["bound_ms"] for c in timed)
         by_bytes = sum(c["bound_ms"] for c in timed if c["bound_by"] == "bytes")
-        return {
+        out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "launches_by_path": by_path[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -2457,6 +2935,9 @@ def main() -> int:
             "library_ms": total("library_ms") if timed[0]["library_ms"] is not None else None,
             "cases_timed": len(timed),
         }
+        if all("unfused_ms" in c for c in timed):
+            out["unfused_ms"] = total("unfused_ms")
+        return out
 
     csrc, kern = "src/repro_torch/csrc/", "src/repro/kernels/"
     report = {"kernels": [
@@ -2491,6 +2972,12 @@ def main() -> int:
                 kern + "masked_matmul.py:254", k1718["K17"]),
         summary("grouped_masked_dw", csrc + "masked_matmul.cu",
                 kern + "masked_matmul.py:272", k1718["K18"]),
+        summary("block_sparse_dw_fused", csrc + "block_sparse_bwd.cu",
+                kern + "block_sparse_matmul.py:900", k7),
+        summary("grouped_block_sparse_dw_fused", csrc + "block_sparse_grouped.cu",
+                kern + "block_sparse_matmul.py:1078", k8),
+        summary("grouped_masked_dw_fused", csrc + "masked_matmul.cu",
+                kern + "masked_matmul.py:616", k20),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2503,6 +2990,8 @@ def main() -> int:
          "moe_engine": moe_stats, "moe_masked_engine": moe_m_stats,
          "k10_g1": k10_g1, "k11_g1": k11_g1, "k5_k6": k56, "k17_k18": k1718,
          "moe_train": moe_train_stats, "moe_masked_train": moe_mtrain_stats,
+         "fused_block_sparse_train": fused_bs_stats, "k7": k7, "k8": k8, "k20": k20,
+         "moe_fused_train": moe_fused_stats, "moe_masked_fused_train": moe_mfused_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

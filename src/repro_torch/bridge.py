@@ -98,7 +98,9 @@ def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
                           device):
     """A reference train state, flattened, -> the port's train state
     (``training/steps.py`` layout).  ``opt`` is ``{"momentum": flat}`` (sgd,
-    f32 or bf16 arrays: the dtype comes across) or ``{"m": flat, "v": flat,
+    f32 or bf16 arrays, an MoE model's 3-D bank momenta included: the dtype
+    and shape come across, so both packages can start the fused epilogue
+    from one state) or ``{"m": flat, "v": flat,
     "count": int}`` (adam); ``seed`` seeds the
     port's own later draws (supersets, masks), which are not the
     reference's threefry streams."""

@@ -1,4 +1,5 @@
-// Block-sparse backward: dgrad (K2) and packed wgrad (K3) of y = x @ W.
+// Block-sparse backward: dgrad (K2), packed wgrad (K3) and packed wgrad
+// with the fused SGD epilogue (K7) of y = x @ W.
 //
 // K2 replaces repro/kernels/block_sparse_matmul.py::_dx_kernel (pallas_call
 // in _dx_call):  dx (M, K) = g (M, N) @ W^T over the active N-blocks of each
@@ -6,9 +7,14 @@
 // K3 replaces ::_dw_kernel (pallas_call in _dw_call):  for every active
 // block (idx[j, s], j) of a CSC pack (the Top-KAST superset bidx/bcnt on the
 // training path) dw[block] = x[:, k-block]^T @ g[:, j-block], summed over
-// all M rows, written into the zeroed dense dw.  The kernels, their design,
-// their traps and their bound are in block_sparse_bwd.cuh, shared with the
-// grouped K5/K6: K2/K3 are their bank of one group.
+// all M rows, written into the zeroed dense dw.
+// K7 replaces ::_dw_fused_kernel (pallas_call in _dw_fused_call) and the
+// _scatter_packed_dw of _fbs_bwd:  the same blocks store the new SGD
+// momentum mu * mom + x^T g + wd * w instead of dw (optionally
+// stochastically rounded to the bf16 grid), so the raw dw never reaches
+// memory.  The kernels, their design, their traps and their bound are in
+// block_sparse_bwd.cuh, shared with the grouped K5/K6/K8: K2/K3/K7 are
+// their bank of one group.
 #include "block_sparse_bwd.cuh"
 
 // K2: g (Mp, N), w (K, N), dx (Mp, K) row-major in the entry's element
@@ -42,3 +48,24 @@ extern "C" int block_sparse_dw_f32(const void* x, const void* g, const void* idx
   return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, 1, Mp, K, N, width, bn, bk,
                                        stream);
 }
+
+// K7: block_sparse_dw_fused_<x/g/w type>_<mom type>_<output type>; x (Mp,
+// K), g (Mp, N), w and mom (K, N), out (K, N) zero-filled by the caller;
+// idx (N/bn, width), cnt (N/bn,) int32 (the wgrad pack: the Top-KAST
+// superset on the training path).  Mp % 16 == 0.
+#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                            \
+  extern "C" int block_sparse_dw_fused_##S##_##SM##_##SO(                            \
+      const void* x, const void* g, const void* idx, const void* cnt, const void* w, \
+      const void* mom, void* out, int Mp, int K, int N, int width, int bn, int bk,   \
+      unsigned seed, float mu, float wd, int sr, void* stream) {                     \
+    return launch_block_sparse_dw_fused<T, TM, TO>(x, g, idx, cnt, w, mom, out, 1,   \
+                                                   Mp, K, N, width, bn, bk, seed,    \
+                                                   mu, wd, sr, stream);              \
+  }
+
+FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+FUSED_ENTRY(bf16, __nv_bfloat16, f32, float, bf16, __nv_bfloat16)
+FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, f32, float)
+FUSED_ENTRY(bf16, __nv_bfloat16, f32, float, f32, float)
+FUSED_ENTRY(f32, float, bf16, __nv_bfloat16, f32, float)
+FUSED_ENTRY(f32, float, f32, float, f32, float)

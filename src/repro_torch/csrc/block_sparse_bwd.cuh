@@ -1,9 +1,12 @@
-// The block-sparse backward kernels shared by K2/K3 (block_sparse_bwd.cu,
-// one weight matrix) and K5/K6 (block_sparse_grouped.cu, a bank of G
-// matrices): the dgrad dx[g] = g[g] @ W[g]^T over a CSR pack and the packed
-// wgrad dw[g] = x[g]^T @ g[g] on the active blocks of a CSC pack, for every
-// group g of the bank (K2/K3 are the bank of one).  The grid's third
-// dimension is the group, as K4 runs K1's kernel (block_sparse_fwd.cuh).
+// The block-sparse backward kernels shared by K2/K3/K7 (block_sparse_bwd.cu,
+// one weight matrix) and K5/K6/K8 (block_sparse_grouped.cu, a bank of G
+// matrices): the dgrad dx[g] = g[g] @ W[g]^T over a CSR pack, the packed
+// wgrad dw[g] = x[g]^T @ g[g] on the active blocks of a CSC pack, and the
+// same wgrad with the fused SGD epilogue (K7/K8): each active block stores
+// the new momentum mu * mom + x^T g + wd * w (epilogue.cuh), optionally
+// stochastically rounded to the bf16 grid, for every group g of the bank
+// (K2/K3/K7 are the bank of one).  The grid's third dimension is the
+// group, as K4 runs K1's kernel (block_sparse_fwd.cuh).
 //
 // Packs (core/pack.py), stacked over the groups at one shared width each:
 // the CSR ridx[g, k, :rcnt[g, k]] lists the active N-blocks of K-block row
@@ -27,6 +30,16 @@
 //    32; A = x^T (bk x slab, staged transposed), B = the g slab (slab x bn).
 //    Slots s >= cnt[g, j] return at once: a dead expert's dw stays zero and
 //    no empty sum is taken.
+//  * fused wgrad (K7/K8): the wgrad's CTA, whose store reads the block's w
+//    and mom tiles and writes m_new in the output type (w's on the
+//    training path, f32 for a check before the rounding).  The reference
+//    wrote every slot of a packed array, zeroed the padded ones before sr
+//    and scattered them with .add into a zero (K, N); here a padded slot
+//    returns before any store into the zero-filled dense output, which is
+//    the same function.  The sr id is the element's (g * K + row) * N +
+//    col in wrapping uint32, as the reference's.  A group with no active
+//    block writes nothing (exact zeros); a dead expert whose blocks are
+//    active but which got no rows stores mu * mom + wd * w there.
 // Each CTA loops to its own group's count, never to the shared width, so a
 // lopsided expert that widens the pack costs the others nothing but the
 // early return of their padded wgrad slots.
@@ -40,12 +53,14 @@
 // 128 * 128 flops per active block and move the active weight/gradient
 // blocks plus x and g once: below the ~295 flop/byte ridge in bf16, so
 // bytes bound them there; in f32 the FFMA peak (67 TFLOP/s) bounds them at
-// M = 2048, bytes at an expert's few hundred rows.  This first version uses
+// M = 2048, bytes at an expert's few hundred rows.  K7/K8 add the reads of
+// the superset blocks' w and mom tiles (and write m_new there instead of
+// dw): a few percent more bytes, the same flops.  This first version uses
 // synchronous loads and wmma/FFMA (no cp.async/TMA, no wgmma); its times
 // against the bound are in PERF.md.
 #pragma once
 #include "common.cuh"
-#include "tile_mma.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -103,30 +118,48 @@ block_sparse_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const size_t grp = blockIdx.z, nnb = N / bn;
   if (s >= cnt[grp * nnb + j]) return;  // padded slot: dw stays zero there
   extern __shared__ __align__(128) unsigned char smem[];
-  const int xld = tile::kSlab + tile::pad<T>(), gld = bn + tile::pad<T>();
-  T* xs = reinterpret_cast<T*>(smem);  // bk x xld: x^T slab
-  T* gs = xs + bk * xld;               // kSlab x gld
-  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * gld);
+  T* xs = reinterpret_cast<T*>(smem);               // bk x (kSlab + pad): x^T slab
+  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());  // kSlab x (bn + pad)
+  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
 
-  const T* xg = x + grp * Mp * K;
-  const T* gg = g + grp * Mp * N;
   T* dwg = dw + grp * K * N;
   const int k0 = idx[(grp * nnb + j) * width + s] * bk;
   const int n0 = j * bn;
-  const int slab = (Mp % tile::kSlab == 0) ? tile::kSlab : 16;
 
   tile::Acc<T> acc;
-  acc.zero();
-  for (int m = 0; m < Mp; m += slab) {
-    __syncthreads();
-    // xs[r][l] = x[m + l][k0 + r]
-    tile::stage_cols(xs, xld, xg + (size_t)m * K + k0, K, slab, bk);
-    tile::stage_rows(gs, gld, gg + (size_t)m * N + n0, N, slab, bn);
-    __syncthreads();
-    acc.mma(xs, xld, gs, gld, bk, bn, slab);
-  }
+  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
   acc.store(scratch, bk, bn, [&](int r, int c, float v) {
     dwg[(size_t)(k0 + r) * N + n0 + c] = tile::from_float<T>(v);
+  });
+}
+
+// K7/K8: x, g and w in T, mom in TM, the new momentum in TO; out (G, K, N)
+// zero-filled by the caller.
+template <typename T, typename TM, typename TO>
+__global__ void __launch_bounds__(tile::kThreads)
+block_sparse_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             const int* __restrict__ idx, const int* __restrict__ cnt,
+                             const T* __restrict__ w, const TM* __restrict__ mom,
+                             TO* __restrict__ out, int Mp, int K, int N, int width,
+                             int bn, int bk, unsigned seed, float mu, float wd, int sr) {
+  const int j = blockIdx.x, s = blockIdx.y;
+  const size_t grp = blockIdx.z, nnb = N / bn;
+  if (s >= cnt[grp * nnb + j]) return;  // padded slot: out stays zero there
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);               // bk x (kSlab + pad): x^T slab
+  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());  // kSlab x (bn + pad)
+  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
+  const size_t off = grp * K * N;
+  const int k0 = idx[(grp * nnb + j) * width + s] * bk;
+  const int n0 = j * bn;
+
+  tile::Acc<T> acc;
+  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
+  acc.store(scratch, bk, bn, [&](int r, int c, float v) {
+    const size_t i = off + (size_t)(k0 + r) * N + n0 + c;
+    float mn = epi::momentum(mu, mom[i], v, wd, w[i]);
+    if (sr) mn = epi::sr_to_bf16(mn, seed, epi::element_id(grp, K, N, k0 + r, n0 + c));
+    out[i] = tile::from_float<TO>(mn);
   });
 }
 
@@ -163,6 +196,22 @@ int launch_block_sparse_dw(const void* x, const void* g, const void* idx,
       static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<const int*>(idx), static_cast<const int*>(cnt),
       static_cast<T*>(dw), Mp, K, N, width, bn, bk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TM, typename TO>
+int launch_block_sparse_dw_fused(const void* x, const void* g, const void* idx,
+                                 const void* cnt, const void* w, const void* mom, void* out,
+                                 int G, int Mp, int K, int N, int width, int bn, int bk,
+                                 unsigned seed, float mu, float wd, int sr, void* stream) {
+  const dim3 grid(N / bn, width, G);
+  block_sparse_dw_fused_kernel<T, TM, TO>
+      <<<grid, tile::kThreads, bwd_smem_bytes<T>(bk, bn),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const int*>(idx),
+          static_cast<const int*>(cnt), static_cast<const T*>(w),
+          static_cast<const TM*>(mom), static_cast<TO*>(out), Mp, K, N, width, bn, bk,
+          seed, mu, wd, sr);
   return static_cast<int>(cudaGetLastError());
 }
 

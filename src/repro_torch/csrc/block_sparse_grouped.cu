@@ -8,15 +8,20 @@
 //      W[g]^T over the stacked CSR ridx[g, k, :rcnt[g, k]];
 //   K6 replaces ::_g_dw_kernel (pallas_call in _g_dw_call) and the
 //      reference's vmapped _scatter_packed_dw:  dw[g] = x[g]^T @ g[g] on the
-//      active blocks of the stacked (superset) CSC, zeros elsewhere.
+//      active blocks of the stacked (superset) CSC, zeros elsewhere;
+//   K8 replaces ::_g_dw_fused_kernel (pallas_call in _g_dw_fused_call) and
+//      the vmapped scatter of _gfbs_bwd:  the same blocks store the new SGD
+//      momentum mu * mom[g] + x[g]^T g[g] + wd * w[g], optionally
+//      stochastically rounded with the element id (g * K + row) * N + col.
 //
 // The TPU kernels' grids (G, ..., width) walked every padded slot of the
 // shared width with a pl.when skip; here the group is the CTA grid's third
 // dimension and each CTA loops over exactly its own group's count (a
 // lopsided expert widens only the packed arrays, not the other groups'
-// loops).  K4 is K1's kernel (block_sparse_fwd.cuh), K5/K6 are K2/K3's
-// (block_sparse_bwd.cuh); the designs, their traps (a dead expert writes
-// zero outputs, zero dx rows and a zero dw) and their bounds are there.
+// loops).  K4 is K1's kernel (block_sparse_fwd.cuh), K5/K6/K8 are
+// K2/K3/K7's (block_sparse_bwd.cuh); the designs, their traps (a dead expert
+// writes zero outputs, zero dx rows and a zero dw; a group with no active
+// block a zero m_new) and their bounds are there.
 #include "block_sparse_bwd.cuh"
 #include "block_sparse_fwd.cuh"
 
@@ -74,3 +79,23 @@ extern "C" int block_sparse_grouped_dw_f32(const void* x, const void* g, const v
   return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, G, Mp, K, N, width, bn, bk,
                                        stream);
 }
+
+// K8: block_sparse_grouped_dw_fused_<x/g/w type>_<mom type>_<output type>;
+// x (G, Mp, K), g (G, Mp, N), w and mom (G, K, N), out (G, K, N) zero-filled
+// by the caller; idx (G, N/bn, width), cnt (G, N/bn) int32.  Mp % 16 == 0.
+#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                            \
+  extern "C" int block_sparse_grouped_dw_fused_##S##_##SM##_##SO(                    \
+      const void* x, const void* g, const void* idx, const void* cnt, const void* w, \
+      const void* mom, void* out, int G, int Mp, int K, int N, int width, int bn,    \
+      int bk, unsigned seed, float mu, float wd, int sr, void* stream) {             \
+    return launch_block_sparse_dw_fused<T, TM, TO>(x, g, idx, cnt, w, mom, out, G,   \
+                                                   Mp, K, N, width, bn, bk, seed,    \
+                                                   mu, wd, sr, stream);              \
+  }
+
+FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+FUSED_ENTRY(bf16, __nv_bfloat16, f32, float, bf16, __nv_bfloat16)
+FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, f32, float)
+FUSED_ENTRY(bf16, __nv_bfloat16, f32, float, f32, float)
+FUSED_ENTRY(f32, float, bf16, __nv_bfloat16, f32, float)
+FUSED_ENTRY(f32, float, f32, float, f32, float)

@@ -1,8 +1,8 @@
 // Masked matmul with the elementwise mask fused in, forward and backward:
-// K13, K14, K15, their grouped twins K16, K17, K18 and the fused SGD wgrad
-// epilogue K19.
+// K13, K14, K15, their grouped twins K16, K17, K18, the fused SGD wgrad
+// epilogue K19 and its grouped twin K20.
 //
-// Replaces seven TPU kernels of repro/kernels/masked_matmul.py:
+// Replaces eight TPU kernels of repro/kernels/masked_matmul.py:
 //   K13 _fwd_kernel (pallas_call in _fwd_call)     y  = x @ (w * m)
 //   K16 _g_fwd_kernel (_g_fwd_call)                y[g] = x[g] @ (w[g] * m[g])
 //                                                   for every group g of a
@@ -18,6 +18,8 @@
 //                                                   + wd * w) * m, optionally
 //                                                   stochastically rounded to
 //                                                   the bf16 grid (sr_to_bf16)
+//   K20 _g_dw_fused_kernel (_g_dw_fused_call)      K19 for every group g of a
+//                                                   bank, one launch
 // m is a bool (one byte, 0 or 1) mask of w's shape (K, N): any pattern.
 //
 // Design.  The masked weight never exists in device memory: each kernel
@@ -35,13 +37,14 @@
 //  * K14: one CTA per (bk-column tile of dx, bm-row tile), looping over N;
 //  * K15/K19: one CTA per (bk x bn) tile of dw, looping over all M rows in
 //    one CTA (the TPU kernel carried the sum across its innermost grid axis);
-//  * K17/K18 are K14/K15 with the bank's group as the grid's third
-//    dimension, as K16 is K13's (K14/K15 are the bank of one).  A fully
+//  * K17/K18/K20 are K14/K15/K19 with the bank's group as the grid's third
+//    dimension, as K16 is K13's (K14/K15/K19 are the bank of one).  A fully
 //    masked expert reads its zero mask like any other: zero dx rows and a
-//    zero dw, no empty sum.
-// K19's epilogue reads mom and w at the store; with sr it hashes the
-// element's id gid = row * N + col (wrapping uint32; N is the padded width
-// the wrapper hands in) with the seed, as the reference's sr_to_bf16.
+//    zero dw or m_new, no empty sum.
+// K19/K20's epilogue (epilogue.cuh, shared with K7/K8) reads mom and w at
+// the store; with sr it hashes the element's id gid = (g * K + row) * N +
+// col (wrapping uint32; K and N are the padded extents the wrapper hands
+// in) with the seed, as the reference's sr_to_bf16.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s f32 FFMA):
 // decode (16 padded rows) reads every weight and its mask byte once, far
@@ -51,7 +54,7 @@
 // synchronous loads and wmma/FFMA (no cp.async/TMA pipeline, no wgmma);
 // its times against the bound are in PERF.md.
 #include "common.cuh"
-#include "tile_mma.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -102,19 +105,6 @@ __device__ inline void stage_masked_cols(T* dst, int ldd, const T* src,
 #pragma unroll
     for (int e = 0; e < per; ++e) dst[(c + e) * ldd + r] = masked(vals[e], mb[e]);
   }
-}
-
-// The reference's sr_to_bf16 on one f32 value (uint32 arithmetic wraps).
-__device__ inline float sr_to_bf16(float v, unsigned seed, unsigned gid) {
-  if (!isfinite(v)) return v;
-  unsigned h = gid ^ seed;
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  const unsigned bits = __float_as_uint(v);
-  return __uint_as_float((bits + (h & 0xFFFFu)) & 0xFFFF0000u);
 }
 
 // K13 and K16: group g = blockIdx.z of x (G, Mp, K), w and m (G, K, N),
@@ -188,24 +178,6 @@ masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
   });
 }
 
-// x^T @ g over all Mp rows for the (bk x bn) tile at (k0, n0), in acc.
-template <typename T>
-__device__ inline void xtg_tile(tile::Acc<T>& acc, T* xs, T* gs, const T* x,
-                                const T* g, int Mp, int K, int N, int k0, int n0,
-                                int bn, int bk) {
-  const int xld = tile::kSlab + tile::pad<T>(), gld = bn + tile::pad<T>();
-  const int slab = (Mp % tile::kSlab == 0) ? tile::kSlab : 16;
-  acc.zero();
-  for (int i = 0; i < Mp; i += slab) {
-    __syncthreads();
-    // xs[r][l] = x[i + l][k0 + r]
-    tile::stage_cols(xs, xld, x + (size_t)i * K + k0, K, slab, bk);
-    tile::stage_rows(gs, gld, g + (size_t)i * N + n0, N, slab, bn);
-    __syncthreads();
-    acc.mma(xs, xld, gs, gld, bk, bn, slab);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(tile::kThreads)
 masked_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -221,15 +193,17 @@ masked_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
   T* dwg = dw + grp * K * N;
 
   tile::Acc<T> acc;
-  xtg_tile(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
+  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
   acc.store(scratch, bk, bn, [&](int r, int c, float v) {
     const size_t i = (size_t)(k0 + r) * N + n0 + c;
     dwg[i] = tile::from_float<T>(v * static_cast<float>(mg[i]));
   });
 }
 
-// K19: x, g and w in T, mom in TM, the new momentum in TO (w's type on the
-// training path; f32 lets a check read the value before its rounding).
+// K19 and K20: group g = blockIdx.z of x (G, Mp, K), g (G, Mp, N), wgm, w,
+// mom and out (G, K, N); x, g and w in T, mom in TM, the new momentum in TO
+// (w's type on the training path; f32 lets a check read the value before
+// its rounding).
 template <typename T, typename TM, typename TO>
 __global__ void __launch_bounds__(tile::kThreads)
 masked_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -242,20 +216,16 @@ masked_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
   T* gs = xs + bk * (tile::kSlab + tile::pad<T>());
   float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
   const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+  const size_t grp = blockIdx.z, off = grp * K * N;
 
   tile::Acc<T> acc;
-  xtg_tile(acc, xs, gs, x, g, Mp, K, N, k0, n0, bn, bk);
+  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
   acc.store(scratch, bk, bn, [&](int r, int c, float v) {
-    const size_t i = (size_t)(k0 + r) * N + n0 + c;
-    // (mu * mom + acc + wd * w) * m, left to right, no contraction: the
-    // reference's order of f32 operations
-    float mn = __fadd_rn(__fmul_rn(mu, tile::to_float(mom[i])), v);
-    mn = __fadd_rn(mn, __fmul_rn(wd, tile::to_float(w[i])));
-    mn = __fmul_rn(mn, static_cast<float>(wgm[i]));
-    if (sr) {
-      mn = sr_to_bf16(mn, seed, static_cast<unsigned>(k0 + r) * static_cast<unsigned>(N) +
-                                    static_cast<unsigned>(n0 + c));
-    }
+    const size_t i = off + (size_t)(k0 + r) * N + n0 + c;
+    // (mu * mom + acc + wd * w) * m, each step rounded on its own
+    float mn = __fmul_rn(epi::momentum(mu, mom[i], v, wd, w[i]),
+                         static_cast<float>(wgm[i]));
+    if (sr) mn = epi::sr_to_bf16(mn, seed, epi::element_id(grp, K, N, k0 + r, n0 + c));
     out[i] = tile::from_float<TO>(mn);
   });
 }
@@ -302,9 +272,9 @@ int launch_dw(const void* x, const void* g, const void* m, void* dw, int G, int 
 
 template <typename T, typename TM, typename TO>
 int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
-                 const void* mom, void* out, int Mp, int K, int N, int bn, int bk,
+                 const void* mom, void* out, int G, int Mp, int K, int N, int bn, int bk,
                  unsigned seed, float mu, float wd, int sr, void* stream) {
-  const dim3 grid(N / bn, K / bk);
+  const dim3 grid(N / bn, K / bk, G);
   masked_dw_fused_kernel<T, TM, TO><<<grid, tile::kThreads, smem_bytes<T>(bk, bn),
                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
@@ -358,14 +328,22 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
 MASKED_ENTRIES(bf16, __nv_bfloat16)
 MASKED_ENTRIES(f32, float)
 
-// K19: masked_dw_fused_<x/g/w type>_<mom type>_<output type>.
+// K19: masked_dw_fused_<x/g/w type>_<mom type>_<output type>; K20:
+// masked_dw_fused_grouped_<...>, every operand with a leading group dim.
 #define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                           \
   extern "C" int masked_dw_fused_##S##_##SM##_##SO(                                 \
       const void* x, const void* g, const void* wgm, const void* w,                 \
       const void* mom, void* out, int Mp, int K, int N, int bn, int bk,             \
       unsigned seed, float mu, float wd, int sr, void* stream) {                    \
-    return launch_fused<T, TM, TO>(x, g, wgm, w, mom, out, Mp, K, N, bn, bk, seed,  \
-                                   mu, wd, sr, stream);                             \
+    return launch_fused<T, TM, TO>(x, g, wgm, w, mom, out, 1, Mp, K, N, bn, bk,     \
+                                   seed, mu, wd, sr, stream);                       \
+  }                                                                                 \
+  extern "C" int masked_dw_fused_grouped_##S##_##SM##_##SO(                         \
+      const void* x, const void* g, const void* wgm, const void* w,                 \
+      const void* mom, void* out, int G, int Mp, int K, int N, int bn, int bk,      \
+      unsigned seed, float mu, float wd, int sr, void* stream) {                    \
+    return launch_fused<T, TM, TO>(x, g, wgm, w, mom, out, G, Mp, K, N, bn, bk,     \
+                                   seed, mu, wd, sr, stream);                       \
   }
 
 FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, bf16, __nv_bfloat16)

@@ -1,7 +1,8 @@
-// Tile products shared by the block-sparse kernels (K1 forward, K2 dgrad,
-// K3 wgrad).  A CTA of 256 threads accumulates one (R x C) tile in f32, with
-// R and C multiples of 16 up to 128, from slabs staged in shared memory as
-// A (R x L, row-major, leading dimension lda) and B (L x C, row-major, ldb).
+// Tile products shared by the block-sparse and masked kernels (forward,
+// dgrad, wgrad and the fused wgrad epilogues).  A CTA of 256 threads
+// accumulates one (R x C) tile in f32, with R and C multiples of 16 up to
+// 128, from slabs staged in shared memory as A (R x L, row-major, leading
+// dimension lda) and B (L x C, row-major, ldb).
 //
 //  * bf16: wmma 16x16x16 on the tensor cores; warp w owns the output tiles
 //    w, w + 8, ... of the (R/16) x (C/16) grid (at most 8 per warp).
@@ -167,5 +168,26 @@ template <> struct Acc<float> {
         if (i < R / 16 && j < C / 16) st(ty + 16 * i, tx + 16 * j, c[i][j]);
   }
 };
+
+// acc = x^T @ g over all Mp rows for the (bk x bn) output tile at (k0, n0),
+// x (Mp, K) and g (Mp, N) row-major: the sum of every wgrad kernel (K3, K6,
+// K7, K8, K15, K18, K19, K20), one CTA looping over the rows in slabs of 32
+// (16 when Mp is not a multiple of 32).  xs holds bk x (kSlab + pad) and gs
+// kSlab x (bn + pad) elements of shared memory.
+template <typename T>
+__device__ inline void xtg(Acc<T>& acc, T* xs, T* gs, const T* x, const T* g, int Mp,
+                           int K, int N, int k0, int n0, int bn, int bk) {
+  const int xld = kSlab + pad<T>(), gld = bn + pad<T>();
+  const int slab = (Mp % kSlab == 0) ? kSlab : 16;
+  acc.zero();
+  for (int i = 0; i < Mp; i += slab) {
+    __syncthreads();  // the previous slab is consumed
+    // xs[r][l] = x[i + l][k0 + r]
+    stage_cols(xs, xld, x + (size_t)i * K + k0, K, slab, bk);
+    stage_rows(gs, gld, g + (size_t)i * N + n0, N, slab, bn);
+    __syncthreads();
+    acc.mma(xs, xld, gs, gld, bk, bn, slab);
+  }
+}
 
 }  // namespace tile

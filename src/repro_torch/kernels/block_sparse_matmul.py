@@ -20,6 +20,11 @@ are described in the sources:
   K6 ``_g_dw_kernel`` (``_g_dw_call``)  dw[g] = x[g]^T @ g[g] on the active
      blocks of a stacked CSC, zeros elsewhere  -> csrc/block_sparse_grouped.cu
                                                 (K2/K3's kernels, block_sparse_bwd.cuh)
+  K7 ``_dw_fused_kernel`` (``_dw_fused_call``)  K3 whose blocks store the
+     new SGD momentum mu * mom + x^T @ g + wd * w, optionally stochastically
+     rounded onto the bf16 grid                -> csrc/block_sparse_bwd.cu
+  K8 ``_g_dw_fused_kernel`` (``_g_dw_fused_call``)  K7 per group of a bank
+                                               -> csrc/block_sparse_grouped.cu
 
 Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
 reference's MLP computes in the f32 residual's dtype), accumulating in f32
@@ -32,13 +37,15 @@ bytes there, and the training shapes (M = 2048) sit below the bf16 ridge.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
-``dx_launches``, ``dw_launches``, ``g_launches``, ``gdx_launches`` and
-``gdw_launches`` count kernel launches, so a run can show that its path
-went through the kernels.  ``BlockSparseMatmul``,
-``TopkastBlockSparseMatmul``, ``GroupedBlockSparseMatmul`` and
-``TopkastGroupedBlockSparseMatmul`` are the differentiable forms (the
-reference's custom VJPs ``_bs_fwd/_bs_bwd``, ``_tk_fwd/_tk_bwd``,
-``_gbs_fwd/_gbs_bwd`` and ``_gtk_fwd/_gtk_bwd``).
+``dx_launches``, ``dw_launches``, ``g_launches``, ``gdx_launches``,
+``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
+launches, so a run can show that its path went through the kernels.
+``BlockSparseMatmul``, ``TopkastBlockSparseMatmul``,
+``GroupedBlockSparseMatmul`` and ``TopkastGroupedBlockSparseMatmul`` are the
+differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd``,
+``_tk_fwd/_tk_bwd``, ``_gbs_fwd/_gbs_bwd`` and ``_gtk_fwd/_gtk_bwd``); the
+two Top-KAST forms given a momentum are also the reference's fused
+``_fbs_fwd/_fbs_bwd`` and ``_gfbs_fwd/_gfbs_bwd``.
 """
 from __future__ import annotations
 
@@ -54,6 +61,8 @@ __all__ = [
     "TopkastBlockSparseMatmul",
     "TopkastGroupedBlockSparseMatmul",
     "block_sparse_dw",
+    "block_sparse_dw_fused",
+    "block_sparse_dw_fused_plain",
     "block_sparse_dw_plain",
     "block_sparse_dx",
     "block_sparse_dx_plain",
@@ -62,10 +71,14 @@ __all__ = [
     "csr_of",
     "dx_launches",
     "dw_launches",
+    "fused_launches",
+    "g_fused_launches",
     "g_launches",
     "gdw_launches",
     "gdx_launches",
     "grouped_block_sparse_dw",
+    "grouped_block_sparse_dw_fused",
+    "grouped_block_sparse_dw_fused_plain",
     "grouped_block_sparse_dw_plain",
     "grouped_block_sparse_dx",
     "grouped_block_sparse_dx_plain",
@@ -83,6 +96,8 @@ dw_launches = 0  # K3
 g_launches = 0   # K4
 gdx_launches = 0  # K5
 gdw_launches = 0  # K6
+fused_launches = 0    # K7
+g_fused_launches = 0  # K8
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
@@ -165,6 +180,41 @@ def block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
     return ((x.float().T @ g.float()) * mask).to(x.dtype)
 
 
+def _fused_plain(acc, idx, cnt, w, mom, seed, mu, wd, sr, bk, bn, out_dtype):
+    """The fused epilogue on a wgrad sum ``acc`` (f32, w's shape): m_new =
+    mu * mom + acc + wd * w in f32, left to right, on the pack's blocks and
+    exactly zero elsewhere (the kernels never store there); ``sr`` rounds it
+    with the element ids (g * K + row) * N + col; rounded once to
+    ``out_dtype`` (default w.dtype)."""
+    from .masked_matmul import _gid, sr_to_bf16  # masked_matmul imports this module
+
+    live = _dense_mask(idx, cnt, w.shape[-2] // bk, bk, bn)
+    m_new = torch.where(live, mu * mom.float() + acc + wd * w.float(), 0.0)
+    if sr:
+        K, N = w.shape[-2:]
+        m_new = sr_to_bf16(m_new, seed, _gid(K, N, m_new.device,
+                                             G=w.shape[0] if w.dim() == 3 else None))
+    return m_new.to(out_dtype or w.dtype)
+
+
+def block_sparse_dw_fused_plain(x, g, idx, cnt, w, mom, seed: int, *, mu: float,
+                                wd: float, sr: bool, bk: int, bn: int, out_dtype=None):
+    """Plain K7: the plain dw on the CSC pack's blocks, then the fused SGD
+    epilogue (``_fused_plain``): the new momentum (K, N)."""
+    acc = x.float().T @ g.float()
+    return _fused_plain(acc, idx, cnt, w, mom, seed, mu, wd, sr, bk, bn, out_dtype)
+
+
+def grouped_block_sparse_dw_fused_plain(x, g, idx, cnt, w, mom, seed: int, *, mu: float,
+                                        wd: float, sr: bool, bk: int, bn: int,
+                                        out_dtype=None):
+    """Plain K8: per group the plain dw on the stacked CSC's blocks, then
+    the fused SGD epilogue with the bank's element ids: the new momentum
+    (G, K, N); a group with no block gives zeros."""
+    acc = torch.bmm(x.float().transpose(1, 2), g.float())
+    return _fused_plain(acc, idx, cnt, w, mom, seed, mu, wd, sr, bk, bn, out_dtype)
+
+
 def matmul_error_bound(out_plain, abs_prod, n: int):
     """Per-element bound on |kernel - plain| for an output that both sides
     compute as an f32 sum of ``n`` products and round once to
@@ -210,10 +260,32 @@ def _check_cuda(what, a, b, packs, blocks, tiles, same):
     return suffix
 
 
-def _entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
+def _fused_entry_name(what, s, shape, x, w, mom, out_dtype):
+    """Checks of a fused-epilogue launch beyond ``_check_cuda``'s (w like x,
+    mom bf16 or f32, both of the output's ``shape`` on x's device,
+    contiguous and 16-byte aligned; an f32 entry has only an f32 output)
+    -> the entry suffix ``<T>_<mom type>_<output type>``."""
+    if tuple(w.shape) != shape or tuple(mom.shape) != shape or \
+            w.device != x.device or mom.device != x.device:
+        raise ValueError(f"{what}: w {tuple(w.shape)} / mom {tuple(mom.shape)} on "
+                         f"{mom.device} do not match {shape} on {x.device}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{what}: w must be {x.dtype} like x and g (got {w.dtype})")
+    if mom.dtype not in _SUFFIX or not (w.is_contiguous() and mom.is_contiguous()) \
+            or w.data_ptr() % 16 or mom.data_ptr() % 16:
+        raise TypeError(f"{what}: mom must be contiguous bf16 or f32 and w contiguous "
+                        f"(got mom {mom.dtype})")
+    if out_dtype not in _SUFFIX or (s == "f32" and out_dtype != torch.float32):
+        raise TypeError(f"{what}: no {s} entry with {out_dtype} output")
+    return f"{s}_{_SUFFIX[mom.dtype]}_{_SUFFIX[out_dtype]}"
+
+
+def _entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int, tail=()):
+    """The C entry ``fn_name``: ``n_ptr`` pointers, ``n_int`` ints, the
+    ``tail`` types, then the stream."""
     lib = _build.load(lib_name)
     fn = getattr(lib, fn_name)
-    fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
+    fn.argtypes = [_P] * n_ptr + [_I] * n_int + list(tail) + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -334,6 +406,45 @@ def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
     return dw
 
 
+# a fused-epilogue entry's trailing arguments: seed, mu, wd, sr
+_FUSED_TAIL = (ctypes.c_uint32, ctypes.c_float, ctypes.c_float, _I)
+
+
+def block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: float, wd: float,
+                          sr: bool, bn: int, bk: int, out_dtype=None):
+    """K7: the new SGD momentum ``mu * mom + x^T @ g + wd * w`` (K, N) on the
+    active blocks of the CSC pack ``idx``/``cnt`` (the Top-KAST superset on
+    the training path) and zeros elsewhere, in ``out_dtype`` (default
+    w.dtype), stochastically rounded onto the bf16 grid when ``sr``, with
+    the uint32 ``seed``.  x (M, K), g (M, N) and w (K, N) of one dtype, mom
+    (K, N) bf16 or f32; M a multiple of 16.  CUDA tensors run the kernel or
+    raise; CPU tensors run the plain version."""
+    global fused_launches
+    out_dtype = out_dtype or w.dtype
+    if x.device.type == "cpu":
+        return block_sparse_dw_fused_plain(x, g, idx, cnt, w, mom, seed, mu=mu, wd=wd,
+                                           sr=sr, bk=bk, bn=bn, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_sparse_dw_fused: unsupported device {x.device}")
+    (M, K), N = x.shape, g.shape[1]
+    s = _check_cuda("block_sparse_dw_fused", x, g, {"idx": idx, "cnt": cnt},
+                    {"bn": bn, "bk": bk}, [(M, 16), (K, bk), (N, bn)],
+                    [(g.shape[0], M)])
+    if idx.dim() != 2 or idx.shape[0] != N // bn or cnt.shape != (N // bn,):
+        raise ValueError(f"block_sparse_dw_fused: pack idx {tuple(idx.shape)} / cnt "
+                         f"{tuple(cnt.shape)} does not match N/bn = {N // bn}")
+    e = _fused_entry_name("block_sparse_dw_fused", s, (K, N), x, w, mom, out_dtype)
+    lib, fn = _entry("block_sparse_bwd", f"block_sparse_dw_fused_{e}", 7, 6, _FUSED_TAIL)
+    out = torch.zeros(K, N, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), w.data_ptr(),
+                mom.data_ptr(), out.data_ptr(), M, K, N, idx.shape[1], bn, bk,
+                int(seed) & 0xFFFFFFFF, float(mu), float(wd), int(bool(sr)), _stream(x))
+    _build.check(lib, rc, "block_sparse_dw_fused launch")
+    fused_launches += 1
+    return out
+
+
 def _check_grouped(what, a, b, pack, rows, blk):
     """The grouped operands are 3-D with one group count G, and the stacked
     pack ``(G, rows / blk, width)`` / ``(G, rows / blk)`` matches them."""
@@ -400,6 +511,40 @@ def grouped_block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
     return dw
 
 
+def grouped_block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: float,
+                                  wd: float, sr: bool, bn: int, bk: int, out_dtype=None):
+    """K8: K7 for every group of a bank in one launch: the new momentum (G,
+    K, N) on the active blocks of the stacked CSC ``idx (G, N/bn, width)`` /
+    ``cnt (G, N/bn)``, zeros elsewhere (a group with no block: all zeros);
+    sr ids (g * K + row) * N + col.  x (G, M, K), g (G, M, N), w and mom
+    (G, K, N); M a multiple of 16."""
+    global g_fused_launches
+    out_dtype = out_dtype or w.dtype
+    if x.device.type == "cpu":
+        return grouped_block_sparse_dw_fused_plain(x, g, idx, cnt, w, mom, seed, mu=mu,
+                                                   wd=wd, sr=sr, bk=bk, bn=bn,
+                                                   out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_block_sparse_dw_fused: unsupported device {x.device}")
+    _check_grouped("grouped_block_sparse_dw_fused", x, g, (idx, cnt), g.shape[-1], bn)
+    (G, M, K), N = x.shape, g.shape[2]
+    s = _check_cuda("grouped_block_sparse_dw_fused", x, g, {"idx": idx, "cnt": cnt},
+                    {"bn": bn, "bk": bk}, [(M, 16), (K, bk), (N, bn)],
+                    [(g.shape[1], M)])
+    e = _fused_entry_name("grouped_block_sparse_dw_fused", s, (G, K, N), x, w, mom,
+                          out_dtype)
+    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_dw_fused_{e}", 7, 7,
+                     _FUSED_TAIL)
+    out = torch.zeros(G, K, N, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), w.data_ptr(),
+                mom.data_ptr(), out.data_ptr(), G, M, K, N, idx.shape[2], bn, bk,
+                int(seed) & 0xFFFFFFFF, float(mu), float(wd), int(bool(sr)), _stream(x))
+    _build.check(lib, rc, "block_sparse_grouped_dw_fused launch")
+    g_fused_launches += 1
+    return out
+
+
 class BlockSparseMatmul(torch.autograd.Function):
     """y = x @ W on the CSC pack; backward dx on the CSR pack (K2) and dw
     on the same CSC pack (K3), as the reference's ``_bs_fwd/_bs_bwd``.
@@ -420,17 +565,23 @@ class BlockSparseMatmul(torch.autograd.Function):
 class TopkastBlockSparseMatmul(torch.autograd.Function):
     """Forward and dx on the forward pack (A), dw on the Top-KAST superset
     CSC ``bidx``/``bcnt`` (B ⊇ A), as the reference's ``_tk_fwd/_tk_bwd``:
-    dw is the dense gradient restricted to B's blocks."""
+    dw is the dense gradient restricted to B's blocks.  Given ``mom``, the
+    weight cotangent IS the new SGD momentum ``mu * mom + x^T @ g + wd * w``
+    on B's blocks (K7 in K3's place), as the reference's ``_fbs_fwd/_fbs_bwd``
+    (B is the forward CSC when the entry has no superset); ``mom`` and
+    ``seed`` get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk):
-        ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt)
+    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
+                mu=0.0, wd=0.0, sr=False):
+        ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
         ctx.blocks = (bm, bn, bk)
+        ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 9
+        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 14
 
 
 class GroupedBlockSparseMatmul(torch.autograd.Function):
@@ -455,25 +606,32 @@ class GroupedBlockSparseMatmul(torch.autograd.Function):
 class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
     """The grouped Top-KAST split, as the reference's ``_gtk_fwd/_gtk_bwd``:
     forward (K4) and dx (K5) on each group's forward pack A, dw (K6) on the
-    stacked superset CSC ``bidx``/``bcnt`` (B ⊇ A)."""
+    stacked superset CSC ``bidx``/``bcnt`` (B ⊇ A).  Given ``mom``, the
+    weight cotangent is the new momentum on B's blocks (K8 in K6's place),
+    as the reference's ``_gfbs_fwd/_gfbs_bwd``: a group with no block gets
+    zeros."""
 
     @staticmethod
-    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk):
-        ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt)
+    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
+                mu=0.0, wd=0.0, sr=False):
+        ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
         ctx.blocks = (bm, bn, bk)
+        ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 9
+        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 14
 
 
-def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, grouped=False):
+def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=False):
     """dx on the CSR (derived from the forward CSC when None) and dw on the
-    CSC ``didx``/``dcnt``: K2/K3, or K5/K6 for a bank."""
+    CSC ``didx``/``dcnt``: K2/K3, or K5/K6 for a bank; with ``mom`` the
+    weight cotangent is the fused epilogue's new momentum (K7, or K8)."""
     bm, bn, bk = ctx.blocks
-    dx_fn, dw_fn = ((grouped_block_sparse_dx, grouped_block_sparse_dw) if grouped
-                    else (block_sparse_dx, block_sparse_dw))
+    dx_fn, dw_fn, fused_fn = (
+        (grouped_block_sparse_dx, grouped_block_sparse_dw, grouped_block_sparse_dw_fused)
+        if grouped else (block_sparse_dx, block_sparse_dw, block_sparse_dw_fused))
     g = g.contiguous()
     dx = dw = None
     if ctx.needs_input_grad[0]:
@@ -481,5 +639,8 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, grouped=False):
             ridx, rcnt = csr_of(idx, cnt, w.shape[-2] // bk)
         dx = dx_fn(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk)
     if ctx.needs_input_grad[1]:
-        dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk)
+        if mom is None:
+            dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk)
+        else:
+            dw = fused_fn(x, g, didx, dcnt, w, mom, bn=bn, bk=bk, **ctx.epilogue)
     return dx, dw

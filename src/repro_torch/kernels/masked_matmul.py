@@ -1,7 +1,7 @@
 """Masked matmul y = x @ (w * m) with an elementwise mask, forward and
 backward, and the fused SGD wgrad epilogue.
 
-Replaces seven TPU kernels of ``repro/kernels/masked_matmul.py`` with
+Replaces eight TPU kernels of ``repro/kernels/masked_matmul.py`` with
 hand-written CUDA kernels for Hopper (sm_90a), all in
 csrc/masked_matmul.cu (the design and its bound are described there):
 
@@ -15,6 +15,8 @@ csrc/masked_matmul.cu (the design and its bound are described there):
   K19 ``_dw_fused_kernel`` (``_dw_fused_call``)
         m_new = (mu * mom + x^T @ g + wd * w) * m, stochastically rounded
         onto the bf16 grid (``sr_to_bf16``) when ``sr``
+  K20 ``_g_dw_fused_kernel`` (``_g_dw_fused_call``)  K19 per group of a
+        bank; the sr ids gain g * K * N
 
 Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
 reference's MLP computes in the f32 residual's dtype), accumulating in f32
@@ -25,23 +27,32 @@ inf weight under a zero mask gives NaN, as the reference's
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``g_launches``, ``dx_launches``, ``gdx_launches``, ``dw_launches``,
-``gdw_launches`` and ``fused_launches`` count kernel launches.
-``MaskedMatmul``, ``TopkastMaskedMatmul``, ``FusedMaskedMatmul``,
-``GroupedMaskedMatmul`` and ``TopkastGroupedMaskedMatmul`` are the
+``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
+launches.  ``MaskedMatmul``, ``TopkastMaskedMatmul``,
+``FusedMaskedMatmul``, ``GroupedMaskedMatmul``,
+``TopkastGroupedMaskedMatmul`` and ``FusedGroupedMaskedMatmul`` are the
 differentiable forms (the reference's custom VJPs ``_mm_fwd/_mm_bwd``,
-``_tkm_fwd/_tkm_bwd``, ``_fmm_fwd/_fmm_bwd``, ``_gmm_fwd/_gmm_bwd`` and
-``_gtkm_fwd/_gtkm_bwd``).
+``_tkm_fwd/_tkm_bwd``, ``_fmm_fwd/_fmm_bwd``, ``_gmm_fwd/_gmm_bwd``,
+``_gtkm_fwd/_gtkm_bwd`` and ``_gfmm_fwd/_gfmm_bwd``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from .block_sparse_matmul import _SUFFIX, _stream, _suffix, matmul_error_bound
+from .block_sparse_matmul import (
+    _FUSED_TAIL,
+    _fused_entry_name,
+    _stream,
+    _suffix,
+    matmul_error_bound,
+)
 
 __all__ = [
+    "FusedGroupedMaskedMatmul",
     "FusedMaskedMatmul",
     "GroupedMaskedMatmul",
     "MaskedMatmul",
@@ -51,10 +62,13 @@ __all__ = [
     "dw_launches",
     "fused_error_bound",
     "fused_launches",
+    "g_fused_launches",
     "g_launches",
     "gdw_launches",
     "gdx_launches",
     "grouped_masked_dw",
+    "grouped_masked_dw_fused",
+    "grouped_masked_dw_fused_plain",
     "grouped_masked_dw_plain",
     "grouped_masked_dx",
     "grouped_masked_dx_plain",
@@ -81,6 +95,7 @@ dw_launches = 0     # K15
 gdx_launches = 0    # K17
 gdw_launches = 0    # K18
 fused_launches = 0  # K19
+g_fused_launches = 0  # K20
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _M32 = 0xFFFFFFFF
@@ -120,10 +135,14 @@ def sr_to_bf16(v: torch.Tensor, seed: int, gid: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(v32), r, v32)
 
 
-def _gid(K: int, N: int, device) -> torch.Tensor:
-    """Element ids row * N + col of a (K, N) array (the reference's gid)."""
-    return (torch.arange(K, device=device, dtype=torch.int64)[:, None] * N
-            + torch.arange(N, device=device, dtype=torch.int64)[None, :])
+def _gid(K: int, N: int, device, G=None) -> torch.Tensor:
+    """Element ids row * N + col of a (K, N) array, or (g * K + row) * N +
+    col of a (G, K, N) bank (the reference's gid), exact in int64:
+    ``sr_to_bf16`` takes them mod 2**32, which is the reference's wrapping
+    uint32 arithmetic."""
+    shape = (K, N) if G is None else (G, K, N)
+    return torch.arange(math.prod(shape), device=device,
+                        dtype=torch.int64).reshape(shape)
 
 
 def masked_matmul_plain(x, w, mask):
@@ -166,15 +185,21 @@ def grouped_masked_dw_plain(x, g, mask):
 
 def masked_dw_fused_plain(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
                           sr: bool, out_dtype=None):
-    """Plain K19: ``m_new = (mu * mom + x^T @ g + wd * w) * wgm`` in f32,
-    left to right as the reference; ``sr`` rounds it with ``sr_to_bf16``
-    (gid = row * N + col of the (K, N) array); rounded once to
-    ``out_dtype`` (default w.dtype)."""
-    acc = x.float().T @ g.float()
+    """Plain K19 (and K20 on a (G, K, N) bank, per group): ``m_new = (mu *
+    mom + x^T @ g + wd * w) * wgm`` in f32, left to right as the reference;
+    ``sr`` rounds it with ``sr_to_bf16`` on the element ids (g * K + row) *
+    N + col (g = 0 for a 2-D weight); rounded once to ``out_dtype``
+    (default w.dtype)."""
+    acc = x.float().transpose(-1, -2) @ g.float()
     m_new = (mu * mom.float() + acc + wd * w.float()) * wgm.float()
     if sr:
-        m_new = sr_to_bf16(m_new, seed, _gid(*m_new.shape, m_new.device))
+        K, N = m_new.shape[-2:]
+        m_new = sr_to_bf16(m_new, seed, _gid(K, N, m_new.device,
+                                             G=m_new.shape[0] if m_new.dim() == 3 else None))
     return m_new.to(out_dtype or w.dtype)
+
+
+grouped_masked_dw_fused_plain = masked_dw_fused_plain  # plain K20
 
 
 def fused_error_bound(out_plain, abs_prod, n: int, mu: float, wd: float, mom, w,
@@ -345,9 +370,9 @@ def grouped_masked_dw(x, g, mask, *, bn: int, bk: int):
     return dw
 
 
-def _dw_checks(what, x, g, masks, bn, bk, extra=()):
+def _dw_checks(what, x, g, masks, bn, bk):
     (M, K), N = x.shape, g.shape[1]
-    return _check_cuda(what, (x, g, *extra), masks, {"bn": bn, "bk": bk},
+    return _check_cuda(what, (x, g), masks, {"bn": bn, "bk": bk},
                        [(M, 16), (K, bk), (N, bn)],
                        [(g.shape[0], M)] + [(m.shape, (K, N)) for m in masks])
 
@@ -384,18 +409,9 @@ def masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float, sr: b
                                      out_dtype=out_dtype)
     _device("masked_dw_fused", x)
     (M, K), N = x.shape, g.shape[1]
-    s = _dw_checks("masked_dw_fused", x, g, (wgm,), bn, bk, extra=(w,))
-    if w.shape != (K, N) or mom.shape != (K, N) or mom.device != x.device:
-        raise ValueError(f"masked_dw_fused: w {tuple(w.shape)} / mom {tuple(mom.shape)} "
-                         f"on {mom.device} do not match ({K}, {N}) on {x.device}")
-    if mom.dtype not in _SUFFIX or not mom.is_contiguous() or mom.data_ptr() % 16:
-        raise TypeError(f"masked_dw_fused: mom must be contiguous bf16 or f32 "
-                        f"(got {mom.dtype})")
-    if out_dtype not in _SUFFIX or (s == "f32" and out_dtype != torch.float32):
-        raise TypeError(f"masked_dw_fused: no {s} entry with {out_dtype} output")
-    name = f"masked_dw_fused_{s}_{_SUFFIX[mom.dtype]}_{_SUFFIX[out_dtype]}"
-    lib, fn = _fn(name, [_P] * 6 + [_I] * 5
-                  + [ctypes.c_uint32, ctypes.c_float, ctypes.c_float, _I, _P])
+    s = _dw_checks("masked_dw_fused", x, g, (wgm,), bn, bk)
+    e = _fused_entry_name("masked_dw_fused", s, (K, N), x, w, mom, out_dtype)
+    lib, fn = _fn(f"masked_dw_fused_{e}", [_P] * 6 + [_I] * 5 + list(_FUSED_TAIL) + [_P])
     out = torch.empty(K, N, dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), g.data_ptr(), wgm.data_ptr(), w.data_ptr(),
@@ -403,6 +419,36 @@ def masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float, sr: b
                 int(seed) & _M32, float(mu), float(wd), int(bool(sr)), _stream(x))
     _build.check(lib, rc, "masked_dw_fused launch")
     fused_launches += 1
+    return out
+
+
+def grouped_masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
+                            sr: bool, bn: int, bk: int, out_dtype=None):
+    """K20: K19 for every group of a bank in one launch: the new momentum
+    ``(mu * mom + x^T @ g + wd * w) * wgm`` (G, K, N) in ``out_dtype``
+    (default w.dtype), sr ids (g * K + row) * N + col.  x (G, M, K), g (G,
+    M, N), wgm, w and mom (G, K, N); M a multiple of 16."""
+    global g_fused_launches
+    out_dtype = out_dtype or w.dtype
+    if x.device.type == "cpu":
+        return grouped_masked_dw_fused_plain(x, g, wgm, w, mom, seed, mu=mu, wd=wd, sr=sr,
+                                             out_dtype=out_dtype)
+    _device("grouped_masked_dw_fused", x)
+    _check_grouped("grouped_masked_dw_fused", x, g, wgm)
+    (G, M, K), N = x.shape, g.shape[2]
+    s = _check_cuda("grouped_masked_dw_fused", (x, g), (wgm,), {"bn": bn, "bk": bk},
+                    [(M, 16), (K, bk), (N, bn)],
+                    [(g.shape[1], M), (wgm.shape, (G, K, N))])
+    e = _fused_entry_name("grouped_masked_dw_fused", s, (G, K, N), x, w, mom, out_dtype)
+    lib, fn = _fn(f"masked_dw_fused_grouped_{e}",
+                  [_P] * 6 + [_I] * 6 + list(_FUSED_TAIL) + [_P])
+    out = torch.empty(G, K, N, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), wgm.data_ptr(), w.data_ptr(), mom.data_ptr(),
+                out.data_ptr(), G, M, K, N, bn, bk, int(seed) & _M32, float(mu),
+                float(wd), int(bool(sr)), _stream(x))
+    _build.check(lib, rc, "masked_dw_fused_grouped launch")
+    g_fused_launches += 1
     return out
 
 
@@ -447,19 +493,13 @@ class FusedMaskedMatmul(torch.autograd.Function):
     def forward(ctx, x, w, mask, wgm, mom, seed, mu, wd, sr, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, wgm, mom)
         ctx.blocks = (bm, bn, bk)
-        ctx.epilogue = (int(seed), float(mu), float(wd), bool(sr))
+        ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return masked_matmul(x, w, mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
         x, w, mask, wgm, mom = ctx.saved_tensors
-        bm, bn, bk = ctx.blocks
-        seed, mu, wd, sr = ctx.epilogue
-        g = g.contiguous()
-        dx = masked_dx(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
-        m_new = masked_dw_fused(x, g, wgm, w, mom, seed, mu=mu, wd=wd, sr=sr,
-                                bn=bn, bk=bk)
-        return (dx, m_new) + (None,) * 10
+        return _backward(ctx, g, x, w, mask, wgm, mom=mom) + (None,) * 10
 
 
 class GroupedMaskedMatmul(torch.autograd.Function):
@@ -495,12 +535,37 @@ class TopkastGroupedMaskedMatmul(torch.autograd.Function):
         return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 5
 
 
-def _backward(ctx, g, x, w, mask, dmask, grouped=False):
-    """dx on ``mask`` and dw on ``dmask``: K14/K15, or K17/K18 for a bank."""
+class FusedGroupedMaskedMatmul(torch.autograd.Function):
+    """``GroupedMaskedMatmul`` whose weight cotangent IS the new SGD
+    momentum ``(mu * mom + x^T @ g + wd * w) * wgm`` per group (K20), as
+    the reference's ``_gfmm_fwd/_gfmm_bwd``: forward K16, dx K17 on the
+    forward mask; mom's cotangent is a discarded zero (None)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, wgm, mom, seed, mu, wd, sr, bm, bn, bk):
+        ctx.save_for_backward(x, w, mask, wgm, mom)
+        ctx.blocks = (bm, bn, bk)
+        ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
+        return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask, wgm, mom = ctx.saved_tensors
+        return _backward(ctx, g, x, w, mask, wgm, mom=mom, grouped=True) + (None,) * 10
+
+
+def _backward(ctx, g, x, w, mask, dmask, mom=None, grouped=False):
+    """dx on ``mask`` and dw on ``dmask``: K14/K15, or K17/K18 for a bank;
+    with ``mom`` the weight cotangent is the fused epilogue's new momentum
+    masked by ``dmask`` (K19, or K20)."""
     bm, bn, bk = ctx.blocks
-    dx_fn, dw_fn = ((grouped_masked_dx, grouped_masked_dw) if grouped
-                    else (masked_dx, masked_dw))
+    dx_fn, dw_fn, fused_fn = (
+        (grouped_masked_dx, grouped_masked_dw, grouped_masked_dw_fused) if grouped
+        else (masked_dx, masked_dw, masked_dw_fused))
     g = g.contiguous()
     dx = dx_fn(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
-    dw = dw_fn(x, g, dmask, bn=bn, bk=bk) if ctx.needs_input_grad[1] else None
+    dw = None
+    if ctx.needs_input_grad[1]:
+        dw = (dw_fn(x, g, dmask, bn=bn, bk=bk) if mom is None
+              else fused_fn(x, g, dmask, w, mom, bn=bn, bk=bk, **ctx.epilogue))
     return dx, dw

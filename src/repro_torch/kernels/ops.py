@@ -2,12 +2,14 @@
 and packs.
 
 Port of ``_row_tile``, ``_pad_rows``, the pack-entry path of
-``block_sparse_linear`` and ``masked_linear``, ``topkast_masked_linear``,
-``fused_masked_linear`` and the weight-bank twins
-``grouped_block_sparse_linear`` (pack-entry path, the Top-KAST split
-included), ``grouped_masked_linear`` and ``topkast_grouped_masked_linear``
-from the JAX package's ``kernels/ops.py``.  The grouped fused variants
-(K8/K20) are not ported yet.  Leading dims of x are flattened (the grouped
+``block_sparse_linear`` and ``fused_block_sparse_linear``,
+``masked_linear``, ``topkast_masked_linear``, ``fused_masked_linear`` and
+the weight-bank twins ``grouped_block_sparse_linear`` and
+``fused_grouped_block_sparse_linear`` (pack-entry path, the Top-KAST split
+included), ``grouped_masked_linear``, ``topkast_grouped_masked_linear`` and
+``fused_grouped_masked_linear`` from the JAX package's ``kernels/ops.py``.
+The fused wrappers' weight cotangent is the new SGD momentum (K7, K8, K19,
+K20).  Leading dims of x are flattened (the grouped
 wrappers keep the group dim) and the rows zero-padded to the row tile (a
 small batch shrinks the tile to its 16-padded row count instead of padding
 to bm), then trimmed after; autograd drops the padded rows' gradients.
@@ -27,6 +29,7 @@ from .block_sparse_matmul import (
     TopkastGroupedBlockSparseMatmul,
 )
 from .masked_matmul import (
+    FusedGroupedMaskedMatmul,
     FusedMaskedMatmul,
     GroupedMaskedMatmul,
     MaskedMatmul,
@@ -36,6 +39,9 @@ from .masked_matmul import (
 
 __all__ = [
     "block_sparse_linear",
+    "fused_block_sparse_linear",
+    "fused_grouped_block_sparse_linear",
+    "fused_grouped_masked_linear",
     "fused_masked_linear",
     "grouped_block_sparse_linear",
     "grouped_masked_linear",
@@ -61,7 +67,8 @@ def _pad_rows(x2: torch.Tensor, Mp: int) -> torch.Tensor:
     return x2 if Mp == M else F.pad(x2, (0, 0, 0, Mp - M))
 
 
-def block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
+def block_sparse_linear(x, w, *, pack, block=(128, 128, 128), mom=None, seed: int = 0,
+                        mu: float = 0.0, wd: float = 0.0, sr: bool = False):
     """out = x @ w_blocksparse, visiting only the active (bk x bn) blocks.
     Differentiable: dx runs on the CSR view (K2), dw (K3) on the CSC view,
     or on the Top-KAST superset CSC when the entry carries one.
@@ -72,27 +79,46 @@ def block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
     (``TopkastBlockSparseMatmul``); a bare tuple derives its CSR at the
     worst-case width when differentiated.  block: (bm, bn, bk); bk and bn
     clamp to small layer dims as in the reference.
+
+    The fused SGD epilogue: given the (K, N) momentum ``mom``, the weight
+    cotangent is the new momentum ``mu * mom + x^T g + wd * w`` on the wgrad
+    pack's blocks (the superset, else the forward CSC) and zero elsewhere
+    (K7 in K3's place); ``sr`` stochastically rounds it onto the bf16 grid
+    in the kernel, with the uint32 ``seed``.  K and N must be tile-aligned.
     """
     bm, bn, bk = block
     *lead, K = x.shape
     N = w.shape[1]
     bk, bn = min(bk, K), min(bn, N)
-    if isinstance(pack, dict):
-        idx, cnt = pack["idx"], pack["cnt"]
-        ridx, rcnt = pack.get("ridx"), pack.get("rcnt")
-        bidx, bcnt = pack.get("bidx"), pack.get("bcnt")
-    else:
-        (idx, cnt), ridx, rcnt, bidx = pack, None, None, None
+    idx, cnt, ridx, rcnt, bidx, bcnt = _pack_views(pack)
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
     bm_eff, Mp = _row_tile(M, bm)
     x2 = _pad_rows(x2, Mp).contiguous()
-    if bidx is not None:
-        out = TopkastBlockSparseMatmul.apply(x2, w, idx, cnt, ridx, rcnt, bidx,
-                                             bcnt, bm_eff, bn, bk)
+    if bidx is not None or mom is not None:
+        didx, dcnt = (idx, cnt) if bidx is None else (bidx, bcnt)
+        out = TopkastBlockSparseMatmul.apply(x2, w, idx, cnt, ridx, rcnt, didx, dcnt,
+                                             bm_eff, bn, bk, mom, seed, mu, wd, sr)
     else:
         out = BlockSparseMatmul.apply(x2, w, idx, cnt, ridx, rcnt, bm_eff, bn, bk)
     return out[:M].reshape(*lead, N)
+
+
+def _pack_views(pack):
+    """A PackState entry or a bare ``(idx, cnt)`` CSC tuple -> (idx, cnt,
+    ridx, rcnt, bidx, bcnt), None for the views it lacks."""
+    if isinstance(pack, dict):
+        return (pack["idx"], pack["cnt"], pack.get("ridx"), pack.get("rcnt"),
+                pack.get("bidx"), pack.get("bcnt"))
+    idx, cnt = pack
+    return idx, cnt, None, None, None, None
+
+
+def fused_block_sparse_linear(x, w, mom, seed: int, *, mu: float, wd: float, sr: bool,
+                              pack, block=(128, 128, 128)):
+    """``block_sparse_linear`` with the fused SGD epilogue (K7)."""
+    return block_sparse_linear(x, w, pack=pack, block=block, mom=mom, seed=seed, mu=mu,
+                               wd=wd, sr=sr)
 
 
 def _masked_operands(x, w, masks, block):
@@ -155,7 +181,9 @@ def fused_masked_linear(x, w, mask, mom, seed: int, *, mu: float, wd: float,
     return out[:M, :N].reshape(*lead, N)
 
 
-def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
+def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128), mom=None,
+                                seed: int = 0, mu: float = 0.0, wd: float = 0.0,
+                                sr: bool = False):
     """out[g] = x[g] @ w_blocksparse[g] for every group of a (G, K, N) weight
     bank, ONE launch (K4), visiting only each group's active blocks.
 
@@ -166,28 +194,35 @@ def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128)):
     it at the worst-case width), dw (K6) on the stacked CSC, or, when the
     entry carries the Top-KAST superset ``bidx``/``bcnt``, on the superset
     (``TopkastGroupedBlockSparseMatmul``).  A group with no active block (a
-    dead expert) outputs zeros and gets zero gradients.  M is padded to the
-    row tile; K and N must be tile-aligned.
+    dead expert) outputs zeros and gets zero gradients.  Given the (G, K, N)
+    momentum ``mom``, the weight cotangent is the new SGD momentum on each
+    group's wgrad blocks (K8 in K6's place), as in ``block_sparse_linear``.
+    M is padded to the row tile; K and N must be tile-aligned.
     """
     bm, bn, bk = block
     G, M, K = x.shape
     N = w.shape[2]
     bk, bn = min(bk, K), min(bn, N)
-    if isinstance(pack, dict):
-        idx, cnt = pack["idx"], pack["cnt"]
-        ridx, rcnt, bidx = pack.get("ridx"), pack.get("rcnt"), pack.get("bidx")
-    else:
-        (idx, cnt), ridx, rcnt, bidx = pack, None, None, None
+    idx, cnt, ridx, rcnt, bidx, bcnt = _pack_views(pack)
     bm_eff, Mp = _row_tile(M, bm)
     if Mp != M:
         x = F.pad(x, (0, 0, 0, Mp - M))
-    if bidx is not None:
+    if bidx is not None or mom is not None:
+        didx, dcnt = (idx, cnt) if bidx is None else (bidx, bcnt)
         out = TopkastGroupedBlockSparseMatmul.apply(
-            x.contiguous(), w, idx, cnt, ridx, rcnt, bidx, pack["bcnt"], bm_eff, bn, bk)
+            x.contiguous(), w, idx, cnt, ridx, rcnt, didx, dcnt, bm_eff, bn, bk, mom, seed,
+            mu, wd, sr)
     else:
         out = GroupedBlockSparseMatmul.apply(x.contiguous(), w, idx, cnt, ridx, rcnt,
                                              bm_eff, bn, bk)
     return out[:, :M]
+
+
+def fused_grouped_block_sparse_linear(x, w, mom, seed: int, *, mu: float, wd: float,
+                                      sr: bool, pack, block=(128, 128, 128)):
+    """``grouped_block_sparse_linear`` with the fused SGD epilogue (K8)."""
+    return grouped_block_sparse_linear(x, w, pack=pack, block=block, mom=mom, seed=seed,
+                                       mu=mu, wd=wd, sr=sr)
 
 
 def _grouped_masked_operands(x, w, masks, block):
@@ -229,4 +264,19 @@ def topkast_grouped_masked_linear(x, w, mask, bwd_mask, *, block=(128, 128, 128)
     x, w, (mask, bwd_mask), blk = _grouped_masked_operands(x, w, [mask, bwd_mask],
                                                            block)
     out = TopkastGroupedMaskedMatmul.apply(x, w, mask, bwd_mask, *blk)
+    return out[:, :M, :N]
+
+
+def fused_grouped_masked_linear(x, w, mask, mom, seed: int, *, mu: float, wd: float,
+                                sr: bool, bwd_mask=None, block=(128, 128, 128)):
+    """``grouped_masked_linear`` whose weight cotangent is the new SGD
+    momentum ``(mu * mom + x^T g + wd * w) * wgrad_mask`` per group (K20),
+    wgrad_mask ``bwd_mask`` (the Top-KAST superset) when given, else
+    ``mask``; padding as in ``grouped_masked_linear`` (mom rides w's zero
+    padding; the sr ids are those of the padded (G, Kp, Np) bank, as the
+    reference's)."""
+    M, N = x.shape[1], w.shape[2]
+    wgm = mask if bwd_mask is None else bwd_mask
+    x, w, (mask, wgm, mom), blk = _grouped_masked_operands(x, w, [mask, wgm, mom], block)
+    out = FusedGroupedMaskedMatmul.apply(x, w, mask, wgm, mom, seed, mu, wd, sr, *blk)
     return out[:, :M, :N]

@@ -13,14 +13,15 @@ for smoke configs).  With ``--kernel block_sparse`` every projection runs
 the block-sparse CUDA kernels forward (K1), dgrad (K2) and wgrad on the
 Top-KAST superset (K3); with ``--kernel masked`` (elementwise masks, the
 paper's unstructured RigL) the masked kernels forward (K13), dgrad (K14)
-and wgrad on the superset (K15), or with ``sparse.fused_epilogue`` (a
-config field, as in the reference: SGD) the fused wgrad epilogue (K19);
+and wgrad on the superset (K15).  With ``sparse.fused_epilogue`` (a config
+field, as in the reference: plain SGD) the wgrad kernel stores the new
+momentum instead (K7 under block_sparse, K19 under masked);
 ``cfg.sparse.attn_kernel='flash_tight'`` (set in
 the config, as the reference's tests do: the CLI has no flag for it) runs
 attention through the flash kernels K9, K10 and K11.  An MoE config
 (``--arch qwen2-moe-a2.7b``) runs its expert banks through the grouped
-kernels: K4, K5 and K6 under block_sparse, K16, K17 and K18 under masked
-(the fused epilogue on banks, K8/K20, is not ported yet).
+kernels: K4, K5 and K6 under block_sparse, K16, K17 and K18 under masked,
+and the grouped fused epilogues K8 and K20.
 
 Not ported yet: checkpoints and restore (``--workdir`` holds only
 ``result.json``), ``--preempt-at`` and restarts, the observability hooks

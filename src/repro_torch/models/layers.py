@@ -16,6 +16,9 @@ import torch
 
 from ..kernels.ops import (
     block_sparse_linear,
+    fused_block_sparse_linear,
+    fused_grouped_block_sparse_linear,
+    fused_grouped_masked_linear,
     fused_masked_linear,
     grouped_block_sparse_linear,
     grouped_masked_linear,
@@ -90,33 +93,33 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
                              outside the mask's blocks, so whole active
                              blocks run unmasked);
       kernel='masked'        x @ (w * m) with the mask fused into the masked
-                             kernels; ``pack`` is None, a Top-KAST carrier
-                             ``{"bwd_mask": B}`` (the wgrad runs on B) or a
-                             fused-epilogue entry carrying ``"mom"`` (the
-                             weight cotangent is the new SGD momentum).
+                             kernels; ``pack`` is None or a Top-KAST carrier
+                             ``{"bwd_mask": B}`` (the wgrad runs on B).
+    Under either kernel an entry carrying ``"mom"`` (with ``"seed"``,
+    ``"mu"``, ``"wd"``, ``"sr"``: the train step's fused-epilogue entry)
+    routes to the fused wrappers, whose weight cotangent is the new SGD
+    momentum (K7 block-sparse, K19 masked).
     Other kernels, or ``mask=None``, compute ``x @ (w * mask)`` densely.
     """
     dt = compute_dtype or x.dtype
     w = p["w"].to(dt)
+    fused = _epilogue(pack)
     if mask is not None and kernel == "block_sparse":
-        if isinstance(pack, dict) and "mom" in pack:
-            raise NotImplementedError(
-                "linear: the fused epilogue on block_sparse (kernel K7) is not "
-                "ported yet"
-            )
         if pack is None:
             raise NotImplementedError(
                 "linear: block_sparse without a PackState entry (packing the "
                 "mask per call) is not ported yet; pass pack="
             )
+        if fused:
+            return fused_block_sparse_linear(x.to(dt), w, pack["mom"], pack["seed"],
+                                             pack=pack, block=block, **fused)
         return block_sparse_linear(x.to(dt), w, pack=pack, block=block)
     if mask is not None and kernel == "masked":
         xc = x.to(dt)
-        if isinstance(pack, dict) and "mom" in pack:
-            return fused_masked_linear(
-                xc, w, mask, pack["mom"], pack["seed"], mu=pack["mu"],
-                wd=pack["wd"], sr=pack["sr"], bwd_mask=pack.get("bwd_mask"),
-                block=block)
+        if fused:
+            return fused_masked_linear(xc, w, mask, pack["mom"], pack["seed"],
+                                       bwd_mask=pack.get("bwd_mask"), block=block,
+                                       **fused)
         if isinstance(pack, dict) and "bwd_mask" in pack:
             return topkast_masked_linear(xc, w, mask, pack["bwd_mask"], block=block)
         return masked_linear(xc, w, mask, block=block)
@@ -139,30 +142,44 @@ def grouped_linear(w, x, compute_dtype=None, *, mask=None, kernel=None,
       kernel='masked'        one launch with the mask fused in (K16, K17,
                              K18); ``pack`` None or the Top-KAST carrier
                              ``{"bwd_mask": B}`` (the wgrad runs on B).
-    Other kernels, or ``mask=None``, compute the batched product on
-    ``w * mask`` densely.  A fused-epilogue entry (``"mom"``) raises: the
-    grouped fused kernels K8/K20 are not ported yet.
+    A fused-epilogue entry (``"mom"``) routes to the grouped fused wrappers,
+    whose weight cotangent is the bank's new SGD momentum (K8 block-sparse,
+    K20 masked).  Other kernels, or ``mask=None``, compute the batched
+    product on ``w * mask`` densely.
     """
     dt = compute_dtype or x.dtype
     w = w.to(dt)
+    fused = _epilogue(pack)
     if mask is not None and kernel in ("masked", "block_sparse"):
-        if isinstance(pack, dict) and "mom" in pack:
-            raise NotImplementedError(
-                "grouped_linear: the grouped fused epilogue (kernels K8/K20) is "
-                "not ported yet")
+        xc = x.to(dt)
         if kernel == "masked":
+            if fused:
+                return fused_grouped_masked_linear(xc, w, mask, pack["mom"], pack["seed"],
+                                                   bwd_mask=pack.get("bwd_mask"),
+                                                   block=block, **fused)
             if isinstance(pack, dict) and "bwd_mask" in pack:
-                return topkast_grouped_masked_linear(x.to(dt), w, mask, pack["bwd_mask"],
+                return topkast_grouped_masked_linear(xc, w, mask, pack["bwd_mask"],
                                                      block=block)
-            return grouped_masked_linear(x.to(dt), w, mask, block=block)
+            return grouped_masked_linear(xc, w, mask, block=block)
         if pack is None:
             raise NotImplementedError(
                 "grouped_linear: block_sparse without a PackState entry (packing "
                 "the mask per call) is not ported yet; pass pack=")
-        return grouped_block_sparse_linear(x.to(dt), w, pack=pack, block=block)
+        if fused:
+            return fused_grouped_block_sparse_linear(xc, w, pack["mom"], pack["seed"],
+                                                     pack=pack, block=block, **fused)
+        return grouped_block_sparse_linear(xc, w, pack=pack, block=block)
     if mask is not None:
         w = w * mask.to(dt)
     return torch.bmm(x.to(dt), w)
+
+
+def _epilogue(pack):
+    """The SGD constants ``{"mu", "wd", "sr"}`` of a fused-epilogue entry
+    (one carrying ``"mom"``), else None."""
+    if isinstance(pack, dict) and "mom" in pack:
+        return {k: pack[k] for k in ("mu", "wd", "sr")}
+    return None
 
 
 def dispatch_kw(cfg, masks, name, pack=None):

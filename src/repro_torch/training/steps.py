@@ -18,10 +18,11 @@ masked), so the wgrad kernel returns the dense gradient restricted to B:
 the grow scores' side channel, with no dense matmul anywhere.
 ``refresh_pack`` redraws B and re-packs after every update.
 
-With ``sparse.fused_epilogue`` (kernel='masked', plain SGD) every
-dispatched leaf's pack entry also carries its momentum, a seed and the SGD
-constants; the masked wgrad kernel K19 then emits the NEW momentum as the
-weight gradient and ``apply_opt_fused`` finishes the update.
+With ``sparse.fused_epilogue`` (plain SGD) every dispatched leaf's pack
+entry also carries its momentum, a seed and the SGD constants; the fused
+wgrad kernel then emits the NEW momentum as the weight gradient (K7 under
+block_sparse, K19 under masked; K8 and K20 on an MoE model's expert banks)
+and ``apply_opt_fused`` finishes the update.
 
 Differences from the reference, each for the card:
   * The step updates params and optimizer state IN PLACE (the reference's
@@ -37,8 +38,7 @@ Differences from the reference, each for the card:
   * Random draws (masks, supersets) come from ``torch.Generator``s seeded
     from (seed, purpose, step), not the reference's threefry keys.
 
-Not ported yet (they raise): methods set/snfs/topkast/pruning/snip, the
-fused epilogue on block_sparse (K7) and on expert banks (K8/K20), bf16
+Not ported yet (they raise): methods set/snfs/topkast/pruning/snip, bf16
 params or gradients, bf16 Adam state.
 """
 from __future__ import annotations
@@ -127,10 +127,6 @@ def _check_ported(cfg, opt_cfg=None):
     sp = cfg.sparse
     if sp.method not in _PORTED_METHODS:
         raise _not_ported(f"method {sp.method!r} (the port trains 'rigl' and 'static')")
-    if sp.fused_epilogue and sp.kernel == "block_sparse":
-        raise _not_ported("sparse.fused_epilogue with kernel='block_sparse' (K7)")
-    if sp.fused_epilogue and cfg.n_experts:
-        raise _not_ported("sparse.fused_epilogue on MoE expert banks (K8/K20)")
     if cfg.param_dtype != "float32" or cfg.bf16_grads:
         raise _not_ported("bf16 params or gradients")
     # bf16 SGD momentum updates as the reference's (rounded to the state's
@@ -176,7 +172,7 @@ def _check_fused(cfg, opt_cfg, dispatch: bool):
 
 
 def fused_seed(step: int, leaf: int) -> int:
-    """K19's seed for one leaf at one step, as the reference's
+    """The fused epilogue's seed for one leaf at one step, as the reference's
     ``state["step"] * int32(1000003) + int32(i)``: int32 arithmetic that
     wraps (past step 2147), read as uint32.  ``leaf`` is the leaf's index
     in the reference's flatten order of the mask tree (``flat_index``)."""
@@ -354,8 +350,8 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
             assert_total_dispatch(state["masks"], kernel=cfg.sparse.kernel,
                                   where="train_step", pack=state.get("pack"))
         # fused: the dispatched leaves' gradients come back as the NEW
-        # momentum m_new = mu*mom + dw + wd*w (K19), masked to the wgrad
-        # support; the raw gradient never exists
+        # momentum m_new = mu*mom + dw + wd*w (K7, K8, K19 or K20), masked
+        # to the wgrad support; the raw gradient never exists
         loss, g = grads(state, batch, _fused_pack(state, opt_cfg) if fused else None)
         g = dense_to_sparse_grad(g, state["masks"])
         if opt_cfg.weight_decay:

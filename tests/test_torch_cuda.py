@@ -388,7 +388,7 @@ def test_cuda_masked_training_step_runs_the_kernels(fused):
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 32)))
     batch = {"tokens": toks, "targets": (toks * 3 + 7) % 128}
     read = lambda: [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches]
-    losses = []
+    losses, states = [], []
     for device in ("cpu", dev):
         st, _ = steps.init_train_state(cfg, opt, seed=0, device="cpu")
         st = {k: _to(v, device) for k, v in st.items()}
@@ -396,6 +396,7 @@ def test_cuda_masked_training_step_runs_the_kernels(fused):
         st, m = steps.make_train_step(cfg, opt, lr)(
             st, {k: v.to(device) for k, v in batch.items()})
         losses.append(float(m["loss"]))
+        states.append(st)
         after = read()
     n_proj = 7 * cfg.n_layers
     delta = [b - a for a, b in zip(before, after)]
@@ -403,6 +404,7 @@ def test_cuda_masked_training_step_runs_the_kernels(fused):
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0])
     if fused:
         assert all(t.dtype == torch.bfloat16 for t in _leaves(st["opt"]["momentum"]))
+        _fused_state_agrees(states[0], st, lr.base_lr)
 
 
 def _leaves(tree):
@@ -414,6 +416,63 @@ def _leaves(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _leaves(v)
+
+
+def _pairs(a, b, path=""):
+    """(path, a leaf, b leaf) over two trees of one structure."""
+    if torch.is_tensor(a):
+        yield path, a, b
+    elif isinstance(a, dict):
+        for k in a:
+            yield from _pairs(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        for i, (u, v) in enumerate(zip(a, b)):
+            yield from _pairs(u, v, f"{path}/{i}")
+
+
+def _fused_state_agrees(cpu, card, lr):
+    """The card step's new momentum and params against the CPU step's
+    (plain versions), leaf by leaf: the momentum within the reference's
+    bf16 bound, 2e-2 of the leaf's largest CPU entry
+    (tests/test_fused_epilogue.py), the params within lr times that plus
+    two f32 roundings of the leaf's largest param (p - lr * m is rounded
+    once on each side)."""
+    eps = torch.finfo(torch.float32).eps
+    params = {n: (a, b) for n, a, b in _pairs(cpu["params"], card["params"])}
+    n_mom = 0
+    for n, a, b in _pairs(cpu["opt"]["momentum"], card["opt"]["momentum"]):
+        a, b = a.float(), b.float().cpu()
+        mref = a.abs().max().item()
+        assert (a - b).abs().max().item() <= 2e-2 * mref, f"momentum {n}"
+        pa, pb = (t.float().cpu() for t in params[n])
+        tol = lr * 2e-2 * mref + 2 * eps * pa.abs().max().item()
+        assert (pa - pb).abs().max().item() <= tol, f"params {n}"
+        n_mom += 1
+    assert n_mom == len(params)
+
+
+def _pin_routing(monkeypatch):
+    """Route the second run as the first: the CPU run records every
+    ``models/moe.py::route`` call's top-k ids, the card run takes them (its
+    gates renormalised over the same experts, as ``route`` does), so a
+    router near tie cannot move a token between experts.  Returns a
+    callable that switches from recording to forcing."""
+    from repro_torch.models import moe as moe_mod
+
+    real, picks, forced = moe_mod.route, [], []
+
+    def route(p, xt, cfg):
+        probs, gates, eidx = real(p, xt, cfg)
+        if forced:
+            eidx = forced[0].pop(0).to(eidx.device)
+            gates = probs.gather(1, eidx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        else:
+            picks.append(eidx.cpu())
+        return probs, gates, eidx
+
+    monkeypatch.setattr(moe_mod, "route", route)
+    return lambda: forced.append(picks)
 
 
 @pytest.mark.cuda
@@ -846,3 +905,236 @@ def test_cuda_moe_training_step_runs_the_grouped_backward(kernel):
     assert np.isfinite(float(m["loss"]))
     n = 3 * cfg.n_layers
     assert tuple(a - b for a, b in zip(counts(), c0)) == (n, n, n)
+
+
+# (G, M, K, N, blk, dead): G = 0 is K7 (one matrix); a small bank with two
+# groups that have no block; qwen2-moe's wi bank at C = 171 -> 256 rows
+FUSED_SHAPES = [(0, 64, 96, 64, 16, ()), (0, 2048, 512, 384, 128, ()),
+                (5, 32, 64, 96, 16, (1, 3)), (60, 256, 2048, 1408, 128, (7, 40))]
+
+
+def _fused_problem(shape, dt, mdt, dev):
+    """x, g, w, mom on ``dev`` and the wgrad pack entry (a superset with its
+    own shared width; an empty column; the ``dead`` groups with no block)."""
+    from repro_torch.core.pack import pack_entry
+
+    G, M, K, N, blk, dead = shape
+    rng = np.random.default_rng(G + M + K)
+    lead = (G,) if G else ()
+    bm = rng.random((*lead, K // blk, N // blk)) < 0.2
+    bm[..., 0] = False
+    bm[..., 0, 1] = True
+    sup = bm | (rng.random(bm.shape) < 0.1)
+    sup[..., 0] = False
+    for g in dead:
+        sup[g] = bm[g] = False
+    t = lambda b: torch.from_numpy(np.repeat(np.repeat(b, blk, -2), blk, -1))
+    dense = t(sup).to(dev)
+    e = pack_entry(t(bm), (blk, blk), device=dev, bwd_mask=t(sup))
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    w = (f(*lead, K, N) / K ** 0.5 * dense).to(dt)
+    mom = (0.1 * f(*lead, K, N) * dense).to(mdt)
+    return f(*lead, M, K).to(dt), f(*lead, M, N).to(dt), w, mom, e, dense
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", [("bfloat16", "bfloat16"), ("float32", "bfloat16"),
+                                   ("float32", "float32"), ("bfloat16", "float32")])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_cuda_block_sparse_fused_dw_matches_plain(shape, types):
+    """K7 (G = 0) and K8 against their plain versions on the superset pack:
+    without sr within ``fused_error_bound``; with sr bit for bit the plain
+    ``sr_to_bf16`` of the kernel's own f32 m_new, on the bf16 grid; zero
+    off the superset and for a group with no block; one launch each."""
+    dev = _cuda()
+    dt, mdt = (getattr(torch, t) for t in types)
+    G, M, K, N, blk, dead = shape
+    x, g, w, mom, e, dense = _fused_problem(shape, dt, mdt, dev)
+    fn, plain, count = ((tbsm.grouped_block_sparse_dw_fused,
+                         tbsm.grouped_block_sparse_dw_fused_plain, "g_fused_launches")
+                        if G else (tbsm.block_sparse_dw_fused,
+                                   tbsm.block_sparse_dw_fused_plain, "fused_launches"))
+    kw = dict(mu=0.9, wd=1e-4, bn=blk, bk=blk)
+    seed = 0x9E3779B9
+    n0 = getattr(tbsm, count)
+    got = fn(x, g, e["bidx"], e["bcnt"], w, mom, seed, sr=False, **kw)
+    assert getattr(tbsm, count) == n0 + 1 and got.dtype == dt
+    want = plain(x, g, e["bidx"], e["bcnt"], w, mom, seed, mu=0.9, wd=1e-4, sr=False,
+                 bk=blk, bn=blk)
+    xt = x.float().transpose(-1, -2)
+    acc, absp = xt @ g.float(), xt.abs() @ g.float().abs()
+    bound = tmm.fused_error_bound(want, absp, M, 0.9, 1e-4, mom, w, acc, dense)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bound).all()), float((diff / bound.clamp_min(1e-30)).max())
+    raw = fn(x, g, e["bidx"], e["bcnt"], w, mom, seed, sr=False, out_dtype=torch.float32, **kw)
+    sr = fn(x, g, e["bidx"], e["bcnt"], w, mom, seed, sr=True, **kw)
+    want_sr = tmm.sr_to_bf16(raw, seed, tmm._gid(K, N, dev, G=G or None)).to(dt)
+    torch.cuda.synchronize()
+    assert torch.equal(sr.float(), want_sr.float())
+    assert torch.equal(sr.float(), sr.to(torch.bfloat16).float())
+    assert not sr[~dense].any() and not got[~dense].any()
+    for gi in dead:
+        assert not sr[gi].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", [("bfloat16", "bfloat16"), ("float32", "bfloat16"),
+                                   ("float32", "float32")])
+@pytest.mark.parametrize("shape", FUSED_SHAPES[2:])
+def test_cuda_grouped_masked_fused_dw_matches_plain(shape, types):
+    """K20 against its plain version on an elementwise superset (two fully
+    masked groups): without sr within ``fused_error_bound``, with sr bit
+    for bit ``sr_to_bf16`` of its own f32 m_new; and on a block-aligned
+    mask bit for bit K8's (the same function, sr ids included, up to the
+    sign of a zero off the mask)."""
+    dev = _cuda()
+    dt, mdt = (getattr(torch, t) for t in types)
+    G, M, K, N, blk, dead = shape
+    x, g, w, mom, e, dense = _fused_problem(shape, dt, mdt, dev)
+    b = dense | (torch.rand(G, K, N, device=dev) < 0.02)
+    for gi in dead:
+        b[gi] = False
+    kw = dict(mu=0.9, wd=1e-4, bn=blk, bk=blk)
+    seed = 0x9E3779B9
+    n0 = tmm.g_fused_launches
+    got = tmm.grouped_masked_dw_fused(x, g, b, w, mom, seed, sr=False, **kw)
+    assert tmm.g_fused_launches == n0 + 1 and got.dtype == dt
+    want = tmm.grouped_masked_dw_fused_plain(x, g, b, w, mom, seed, mu=0.9, wd=1e-4,
+                                             sr=False)
+    xt = x.float().transpose(-1, -2)
+    acc, absp = xt @ g.float(), xt.abs() @ g.float().abs()
+    bound = tmm.fused_error_bound(want, absp, M, 0.9, 1e-4, mom, w, acc, b)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bound).all()), float((diff / bound.clamp_min(1e-30)).max())
+    raw = tmm.grouped_masked_dw_fused(x, g, b, w, mom, seed, sr=False,
+                                      out_dtype=torch.float32, **kw)
+    sr = tmm.grouped_masked_dw_fused(x, g, b, w, mom, seed, sr=True, **kw)
+    want_sr = tmm.sr_to_bf16(raw, seed, tmm._gid(K, N, dev, G=G)).to(dt)
+    assert torch.equal(sr.float(), want_sr.float()) and not sr[~b].any()
+    # K8 on the block-aligned superset: the same bits (+ 0.0 maps -0.0 to 0.0)
+    k20 = tmm.grouped_masked_dw_fused(x, g, dense, w, mom, seed, sr=True, **kw)
+    k8 = tbsm.grouped_block_sparse_dw_fused(x, g, e["bidx"], e["bcnt"], w, mom, seed,
+                                            sr=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal((k20.float() + 0.0).view(torch.int32), k8.float().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_wrappers_raise_instead_of_falling_back():
+    """A CUDA tensor the fused kernels do not take raises (a mom of another
+    shape or dtype, w of another dtype than x, an f32 entry asked for a bf16
+    output); nothing falls back to the plain version."""
+    dev = _cuda()
+    x = torch.zeros(16, 32, device=dev)
+    w = torch.zeros(32, 32, device=dev)
+    idx = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    cnt = torch.ones(2, dtype=torch.int32, device=dev)
+    kw = dict(mu=0.9, wd=0.0, sr=False, bn=16, bk=16)
+    n = (tbsm.fused_launches, tbsm.g_fused_launches, tmm.g_fused_launches)
+    with pytest.raises(TypeError, match="mom"):
+        tbsm.block_sparse_dw_fused(x, x, idx, cnt, w, w.double(), 0, **kw)
+    with pytest.raises(ValueError, match="do not match"):
+        tbsm.block_sparse_dw_fused(x, x, idx, cnt, w, w[:16], 0, **kw)
+    with pytest.raises(TypeError, match="like x"):
+        tbsm.block_sparse_dw_fused(x, x, idx, cnt, w.bfloat16(), w, 0, **kw)
+    with pytest.raises(TypeError, match="output"):
+        tbsm.block_sparse_dw_fused(x, x, idx, cnt, w, w, 0, out_dtype=torch.bfloat16, **kw)
+    with pytest.raises(ValueError, match="3-D"):
+        tbsm.grouped_block_sparse_dw_fused(x, x, idx[None], cnt[None], w, w, 0, **kw)
+    m = torch.ones(2, 32, 32, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="bool"):
+        tmm.grouped_masked_dw_fused(x[None].expand(2, -1, -1).contiguous(),
+                                    x[None].expand(2, -1, -1).contiguous(), m.float(),
+                                    w[None].expand(2, -1, -1).contiguous(),
+                                    w[None].expand(2, -1, -1).contiguous(), 0, **kw)
+    assert (tbsm.fused_launches, tbsm.g_fused_launches, tmm.g_fused_launches) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen2-moe-a2.7b"])
+def test_cuda_block_sparse_fused_training_step_runs_k7(arch, monkeypatch):
+    """A SMOKE train step with the fused SGD epilogue under
+    kernel='block_sparse' (bf16 state, sr; RigL with the superset pack) on
+    the card launches K7 on every projection (and K8 on every bank) and no
+    K3 (K6); its loss, new momentum and params agree with the same step on
+    the CPU (plain versions; MoE routing pinned to the CPU run's) within
+    bf16 tolerance (``_fused_state_agrees``), the momentum stored in bf16."""
+    import dataclasses
+
+    from repro_torch.configs import SparseConfig, get_config
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training import steps
+
+    dev = _cuda()
+    cfg = dataclasses.replace(
+        get_config(arch, smoke=True), microbatches=1,
+        sparse=SparseConfig(sparsity=0.8, kernel="block_sparse", block_shape=(16, 16),
+                            kernel_block=(128, 16, 16), attn_kernel="flash_tight",
+                            fused_epilogue=True))
+    opt = OptConfig(kind="sgd", momentum=0.9, weight_decay=1e-4, state_dtype="bfloat16")
+    lr = LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 32)))
+    batch = {"tokens": toks, "targets": (toks * 3 + 7) % 128}
+    read = lambda: [tbsm.dw_launches, tbsm.fused_launches, tbsm.gdw_launches,
+                    tbsm.g_fused_launches]
+    losses, states, pin = [], [], _pin_routing(monkeypatch)
+    for device in ("cpu", dev):
+        if device != "cpu":
+            pin()
+        st, _ = steps.init_train_state(cfg, opt, seed=0, device="cpu")
+        st = {k: _to(v, device) for k, v in st.items()}
+        before = read()
+        st, m = steps.make_train_step(cfg, opt, lr)(
+            st, {k: v.to(device) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        states.append(st)
+        after = read()
+    n_banks = 3 * cfg.n_layers if cfg.n_experts else 0
+    n_proj = 7 * cfg.n_layers
+    assert [b - a for a, b in zip(before, after)] == [0, n_proj, 0, n_banks]
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0])
+    assert all(t.dtype == torch.bfloat16 for t in _leaves(st["opt"]["momentum"]))
+    _fused_state_agrees(states[0], st, lr.base_lr)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_masked_fused_training_step_runs_k20(monkeypatch):
+    """A qwen2-moe SMOKE train step with the fused SGD epilogue under
+    kernel='masked' on the card: K19 on every projection, K20 on every
+    bank, no K15/K18; its loss, new momentum and params agree with the CPU
+    step's, routing pinned to the CPU run's (``_fused_state_agrees``)."""
+    import dataclasses
+
+    from repro_torch.configs import SparseConfig, get_config
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training import steps
+
+    dev = _cuda()
+    cfg = dataclasses.replace(
+        get_config("qwen2-moe-a2.7b", smoke=True), microbatches=1,
+        sparse=SparseConfig(sparsity=0.8, kernel="masked", kernel_block=(128, 16, 16),
+                            attn_kernel="flash_tight", fused_epilogue=True))
+    opt = OptConfig(kind="sgd", momentum=0.9, weight_decay=1e-4, state_dtype="bfloat16")
+    lr = LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 128, (2, 32)))
+    batch = {"tokens": toks, "targets": (toks * 3 + 7) % 128}
+    read = lambda: [tmm.dw_launches, tmm.fused_launches, tmm.gdw_launches,
+                    tmm.g_fused_launches]
+    losses, states, pin = [], [], _pin_routing(monkeypatch)
+    for device in ("cpu", dev):
+        if device != "cpu":
+            pin()
+        st, _ = steps.init_train_state(cfg, opt, seed=0, device="cpu")
+        st = {k: _to(v, device) for k, v in st.items()}
+        before = read()
+        st, m = steps.make_train_step(cfg, opt, lr)(
+            st, {k: v.to(device) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        states.append(st)
+        after = read()
+    assert [b - a for a, b in zip(before, after)] == [0, 7 * cfg.n_layers, 0,
+                                                      3 * cfg.n_layers]
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0])
+    _fused_state_agrees(states[0], st, lr.base_lr)

@@ -3,8 +3,9 @@ masks) vs the JAX package on danube SMOKE, f32: the same initial state
 (carried across by the bridge, the masked superset carrier included) and
 the same batches give the same trajectory over 3 steps, the same masks
 after a RigL update, the same fused SGD epilogue (f32 state, and bf16 state
-with stochastic rounding), the same gating of the fused epilogue, and the
-same greedy token streams from the serving engine.
+with stochastic rounding; under kernel='block_sparse' too, K7), the same
+gating of the fused epilogue, and the same greedy token streams from the
+serving engine.
 
 On the CPU the port's masked kernels run their plain versions; the JAX side
 runs its Pallas kernels in interpret mode.
@@ -199,18 +200,29 @@ def test_fused_seed_follows_the_reference_flatten_order():
             assert tsteps.fused_seed(step, i) == int(ref.view(np.uint32)[0]), (step, i)
 
 
-@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
-def test_fused_epilogue_matches_jax_and_unfused(state_dtype):
-    """SGD with momentum through the fused epilogue (K19's plain version):
-    the port's fused trajectory against the reference's fused one, and the
-    port's fused against its unfused, at the reference's own bounds
-    (tests/test_fused_epilogue.py: params 2e-6, momentum 1e-5, loss 1e-5
-    with f32 state; bf16 state: momentum stored exactly in bf16 and within
-    2e-2 of the largest momentum entry of the unfused run)."""
+# the block-sparse pack of the smoke config: 16x16 blocks (its dims are
+# 16-multiples)
+BLOCK_SPARSE = {"kernel": "block_sparse", "block_shape": (16, 16)}
+
+
+@pytest.mark.parametrize("kernel,state_dtype", [
+    pytest.param("masked", "float32", id="float32"),
+    pytest.param("masked", "bfloat16", id="bfloat16"),
+    pytest.param("block_sparse", "float32", id="block_sparse-float32"),
+    pytest.param("block_sparse", "bfloat16", id="block_sparse-bfloat16")])
+def test_fused_epilogue_matches_jax_and_unfused(kernel, state_dtype):
+    """SGD with momentum through the fused epilogue (the plain versions of
+    K19 under masked, K7 under block_sparse): the port's fused trajectory
+    against the reference's fused one, and the port's fused against its
+    unfused, at the reference's own bounds (tests/test_fused_epilogue.py:
+    params 2e-6, momentum 1e-5, loss 1e-5 with f32 state; bf16 state:
+    momentum stored exactly in bf16 and within 2e-2 of the largest momentum
+    entry of the unfused run)."""
     jopt, topt = (C(kind="sgd", momentum=0.9, weight_decay=1e-4, grad_clip=0.0,
                     state_dtype=state_dtype) for C in (OptConfig, TOpt))
     lr_kw = dict(base_lr=3e-3, warmup_steps=0, total_steps=10)
-    jcfg, tcfg = _cfgs({"fused_epilogue": True})
+    mode = BLOCK_SPARSE if kernel == "block_sparse" else {}
+    jcfg, tcfg = _cfgs({"fused_epilogue": True, **mode})
     st, tst = _run_both(jcfg, tcfg, jopt, topt, steps=2, lr_kw=lr_kw)
     tol = TOL if state_dtype == "float32" else 2.0**-7
     _close_trees(tst["params"], st["params"], "fused params")
@@ -218,7 +230,7 @@ def test_fused_epilogue_matches_jax_and_unfused(state_dtype):
     for m in tree_paths(tst["opt"]["momentum"]).values():
         assert m.dtype == (torch.bfloat16 if state_dtype == "bfloat16" else torch.float32)
 
-    _, ucfg = _cfgs({"fused_epilogue": False})
+    _, ucfg = _cfgs({"fused_epilogue": False, **mode})
     ust, _ = tsteps.init_train_state(ucfg, topt, seed=0, device="cpu")
     fst, _ = tsteps.init_train_state(tcfg, topt, seed=0, device="cpu")
     losses = {}
@@ -273,10 +285,16 @@ def test_fused_rejects_snfs_microbatches_dense_and_bf16_compute(what):
 
 
 def test_fused_block_sparse_and_bf16_adam_state_are_not_ported():
-    _, cfg = _cfgs({"fused_epilogue": True, "kernel": "block_sparse",
-                    "block_shape": (16, 16)})
-    with pytest.raises(NotImplementedError, match=r"K7\) is not ported yet"):
-        tsteps.make_train_step(cfg, TOpt(kind="sgd", grad_clip=0.0), TLR())
+    """The fused epilogue under kernel='block_sparse' (K7) is ported: the
+    step builds and its fused leaves' pack entries carry the epilogue's
+    operands beside the superset view; bf16 Adam state is still refused."""
+    _, cfg = _cfgs({"fused_epilogue": True, **BLOCK_SPARSE})
+    opt = TOpt(kind="sgd", grad_clip=0.0)
+    tsteps.make_train_step(cfg, opt, TLR())
+    st, _ = tsteps.init_train_state(cfg, opt, seed=0, device="cpu")
+    entries = dict(pack_entries(tsteps._fused_pack(st, opt)))
+    assert sorted(entries) == sorted(tree_paths(st["masks"]))
+    assert all({"mom", "seed", "bidx", "ridx"} <= set(e) for e in entries.values())
     _, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tsteps.make_train_step(cfg, TOpt(kind="adam", state_dtype="bfloat16"), TLR())

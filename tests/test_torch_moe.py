@@ -7,8 +7,9 @@ the reference's grouped Pallas kernels in interpret mode, and their
 gradients; ``moe`` with its routing decisions first, then outputs and aux;
 ``lm_prefill``/``lm_decode`` logits; the serving engine's streams; the
 dead-slot isolation of expert capacity; the prefix cache refused; paged vs
-contiguous; the fused epilogue on banks refused (training itself:
-tests/test_torch_moe_train.py).
+contiguous; the fused epilogue on banks routed by ``grouped_linear``
+(training itself: tests/test_torch_moe_train.py and
+tests/test_torch_moe_fused.py).
 
 Routing is a discrete choice: a router logit that differs in its last f32
 bit between XLA and torch could flip a top-k pick and move that token's
@@ -326,10 +327,17 @@ def test_grouped_masked_matches_jax_kernel(dtype):
     assert (got[1] == 0).all()
 
 
+def _fused_entry(mom, entry=None):
+    """A fused-epilogue pack entry as the train step merges it (mu 0.5, wd
+    2**-4, sr off), over an optional PackState entry."""
+    return dict(entry or {}, mom=mom, seed=7, mu=0.5, wd=2.0**-4, sr=False)
+
+
 def test_grouped_kernels_backward_raises():
     """The grouped backward kernels (K5/K6, K17/K18, ported with MoE
     training) give the dense product's gradients on w * m, zero outside the
-    mask; only the grouped fused epilogue (K8/K20) still raises."""
+    mask; the grouped fused epilogue (K8/K20) gives the new momentum mu *
+    mom + dw + wd * w on the mask as the weight's cotangent."""
     bm = _bank_blocks(6, G=2, dead=())
     dense = torch.from_numpy(np.repeat(np.repeat(bm, BLOCK, 1), BLOCK, 2))
     w0 = torch.randn(dense.shape, dtype=torch.float64).float()
@@ -346,15 +354,19 @@ def test_grouped_kernels_backward_raises():
         _close(x.grad, xd.grad, 1e-5, "dx")
         _close(w.grad, wd.grad, 1e-5, "dw")
         assert (w.grad[~dense] == 0).all()
-    with pytest.raises(NotImplementedError, match="K8/K20"):
-        tl.grouped_linear(w0, x0, mask=dense, kernel="masked", block=(128, BLOCK, BLOCK),
-                          pack={"mom": torch.zeros_like(w0)})
+    mom = torch.randn(w0.shape) * dense
+    for kernel, e in (("block_sparse", entry), ("masked", None)):
+        w = (w0 * dense).requires_grad_(True)
+        tl.grouped_linear(w, x0, mask=dense, kernel=kernel, block=(128, BLOCK, BLOCK),
+                          pack=_fused_entry(mom, e)).sum().backward()
+        want = (0.5 * mom.double() + wd.grad + 2.0**-4 * w.detach().double()) * dense
+        _close(w.grad, want, 1e-5, f"{kernel} fused cotangent")
 
 
 def test_grouped_linear_dispatch():
-    """``grouped_linear`` in each mode equals the dense product on w * m,
-    and refuses what it does not run: block_sparse without a pack, a
-    fused-epilogue entry."""
+    """``grouped_linear`` in each mode equals the dense product on w * m and
+    refuses block_sparse without a pack; a fused-epilogue entry gives the
+    same product and the new momentum as w's cotangent."""
     bm = _bank_blocks(7, G=3, dead=(1,))
     m = torch.from_numpy(np.repeat(np.repeat(bm, BLOCK, 1), BLOCK, 2))
     w = torch.randn(m.shape, dtype=torch.float64).float()
@@ -367,9 +379,18 @@ def test_grouped_linear_dispatch():
         _close(got, want, 1e-5, kernel)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tl.grouped_linear(w, x, mask=m, kernel="block_sparse", block=blk)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tl.grouped_linear(w, x, mask=m, kernel="masked", block=blk,
-                          pack={"mom": torch.zeros_like(w)})
+    # a fused-epilogue entry: the same product, the new momentum as w's
+    # cotangent (K8 on the pack's blocks, K20 on the mask)
+    mom = torch.randn(m.shape) * m
+    dw = torch.bmm(x.double().transpose(1, 2), torch.ones(3, 7, m.shape[2]).double())
+    for kernel, pack in (("block_sparse", _fused_entry(mom, entry)),
+                         ("masked", _fused_entry(mom))):
+        wg = w.clone().requires_grad_(True)
+        got = tl.grouped_linear(wg, x, mask=m, kernel=kernel, block=blk, pack=pack)
+        _close(got.detach(), want, 1e-5, f"{kernel} fused")
+        got.sum().backward()
+        _close(wg.grad, (0.5 * mom.double() + dw + 2.0**-4 * w.double()) * m, 1e-5,
+               f"{kernel} fused cotangent")
 
 
 def test_assert_total_dispatch_per_submodule():
@@ -647,9 +668,15 @@ def test_serve_cli_runs_moe():
 
 
 def test_moe_training_refused():
-    """MoE training is ported (tests/test_torch_moe_train.py); what it still
-    refuses is the fused SGD epilogue on the expert banks (K8/K20)."""
+    """MoE training is ported, the fused SGD epilogue on the expert banks
+    (K8/K20) included (tests/test_torch_moe_train.py,
+    tests/test_torch_moe_fused.py); what it still refuses is bf16 Adam
+    state."""
+    from repro_torch.optim.optimizers import OptConfig as TOpt
+
     cfg = dataclasses.replace(t_get_config(ARCH, smoke=True), sparse=TSparse(
         sparsity=0.8, method="rigl", kernel="masked", fused_epilogue=True))
-    with pytest.raises(NotImplementedError, match="K8/K20"):
-        t_init_train_state(cfg, None, device="cpu")
+    st, _ = t_init_train_state(cfg, TOpt(kind="sgd", state_dtype="bfloat16"), device="cpu")
+    assert st["opt"]["momentum"]["layers"][0]["moe"]["wi"]["w"].dim() == 3
+    with pytest.raises(NotImplementedError, match="bf16 optimizer state"):
+        t_init_train_state(cfg, TOpt(kind="adam", state_dtype="bfloat16"), device="cpu")

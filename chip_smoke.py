@@ -124,7 +124,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                 projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
                 K20, no K15 or K18; the momentum bound leaf by leaf, wall
                 times, peak memory
- 15. report  -- one JSON line of per-kernel numbers (all twenty kernels),
+ 15. topk    -- K21 (the 512-bin |x| histogram) against its plain version
+                in every bin: danube's layers/0/mlp/wi/w (2560 x 6912) from
+                its seeded init, dense, masked at its ERK density and in
+                bf16, and a seeded f32 matrix of mistral-large's MLP shape
+                (12288 x 28672, 352 M elements), dense and masked; then
+                ``ops.topk_threshold`` at k = 20% and 1% of n through K21
+                (2 launches) bit for bit against the plain path, K21 on the
+                refinement's skewed input, the count kept against k, the
+                bracketing bin's occupancy and the gap to ``torch.kthvalue``;
+                K21 timed beside its byte bound, the plain version and
+                ``torch.histc``, the threshold beside ``torch.kthvalue``
+ 16. methods train -- the paper's baselines through ``train_loop`` on
+                h2o-danube-1.8b at full width and depth, 2 x 1024 tokens in
+                one microbatch, 4 steps, Adam: set, snfs and topkast under
+                block_sparse (128x128, flash_tight, ERK 0.8, a drop/grow at
+                step 2; exactly 336 K1, 168 K2, 168 K3, 48/24/24 K9-K11 per
+                step, set's update step K9-K11 alone (no superset: the
+                dense gradient); after the update block counts kept, grown
+                = dropped, the pack fresh, B ⊇ A, snfs's dense momentum
+                zero outside B, topkast's weights exactly 0 outside B), then
+                pruning and snip under masked (336 K13, 168 K14, 168 K15 per
+                step; pruning's masks monotone and at the schedule's target
+                density after its prune, snip's per-layer density the ERK
+                map's); wall s per step, tok/s, peak GiB, the update step's s
+ 17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels),
                 the card line, and last {"ok": true, "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -2798,6 +2822,327 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     return stats, launches, cases, cases_2d
 
 
+# ---------------------------------------------------------------------------
+# K21: the |x| histogram behind ops.topk_threshold
+# ---------------------------------------------------------------------------
+
+def erk_sparsity(cfg, leaf="mlp/wi"):
+    """One layer's ERK sparsity at 0.8 from the config's widths alone: the
+    seven projections of every layer as ``LayerSpec``s (the solver needs
+    shapes, not weights; ERK over identical layers does not depend on the
+    depth)."""
+    from repro_torch.core.distributions import LayerSpec, get_distribution
+
+    d, q, kv, ff = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, \
+        cfg.d_ff
+    shapes = {"attn/wq": (d, q), "attn/wk": (d, kv), "attn/wv": (d, kv), "attn/wo": (q, d),
+              "mlp/wi": (d, ff), "mlp/wg": (d, ff), "mlp/wo": (ff, d)}
+    specs = [LayerSpec(f"layers/{i}/{k}/w", s) for i in range(cfg.n_layers)
+             for k, s in shapes.items()]
+    return get_distribution("erk", specs, 0.8, dense_first=False)[f"layers/0/{leaf}/w"]
+
+
+TOPK_FRACTIONS = (0.2, 0.01)
+
+
+def topk_inputs(torch):
+    """(label, x) of the K21 cases: danube's layers/0/mlp/wi/w (2560 x 6912)
+    from its seeded init, dense, under a mask at its ERK density, and in
+    bf16; a seeded matrix of mistral-large's MLP shape (12288 x 28672, 352 M
+    elements), dense and masked at its ERK density.  The masks are
+    Bernoulli at the density (the histogram sees the zeros' skew, not the
+    pattern)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import truncated_normal_init
+
+    for arch in ("h2o-danube-1.8b", "mistral-large-123b"):
+        cfg = get_config(arch)
+        s = erk_sparsity(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        w = truncated_normal_init(gen, (cfg.d_model, cfg.d_ff), 1.0)
+        tag = f"{arch} mlp.wi {cfg.d_model}x{cfg.d_ff}"
+        yield f"{tag} f32 dense", w
+        if arch == "h2o-danube-1.8b":
+            yield f"{tag} bf16 dense", w.to(torch.bfloat16)
+        keep = torch.rand(w.shape, generator=gen, device="cuda") < (1.0 - s)
+        w.mul_(keep)
+        del keep
+        yield f"{tag} f32 masked (ERK density {1 - s:.4f})", w
+        del w
+        torch.cuda.empty_cache()
+
+
+def k21_case(torch, timer, tk, label, x, hi):
+    """K21 on one input against its plain version (the integer counts equal
+    in every bin, summing to n), timed beside its byte bound, the plain
+    version and the library yardstick ``torch.histc`` of |x| (time only:
+    its bin edges differ; a bf16 x is cast to f32 first, histc takes no
+    bf16)."""
+    n = x.numel()
+    got, want = tk.histogram_counts(x, hi), tk.histogram_counts_plain(x, hi)
+    err = (got - want).abs().max().item()
+    if err or int(got.sum()) != n:
+        raise AssertionError(f"K21 {label}: {int((got != want).sum())} bins differ from the "
+                             f"plain version, sum {int(got.sum())} of {n}")
+    hi_f = float(hi)
+    b_ms, by = bound_ms(n * x.element_size() + 8 * tk.N_BINS, 0.0)
+    case = {"case": f"{label} n={n}", "max_abs_err": err,
+            "bin0": int(got[0]), "bin511": int(got[-1]),
+            "ms": timer(lambda: tk.histogram_counts(x, hi)),
+            "plain_ms": timer(lambda: tk.histogram_counts_plain(x, hi), reps=3),
+            "library_ms": timer(lambda: torch.histc(
+                x.abs() if x.dtype == torch.float32 else x.float().abs(),
+                bins=tk.N_BINS, min=0.0, max=hi_f)),
+            "bound_ms": b_ms, "bound_by": by}
+    print("K21", json.dumps(case))
+    return case
+
+
+def topk_cases(torch, timer, tk, ops):
+    """K21 and ``ops.topk_threshold`` on every input of ``topk_inputs``.
+    Per input: K21 on the first pass's input (``k21_case``).  Per k (20% and
+    1% of n): the threshold through K21 bit for bit against the plain path
+    (both histograms of each run recorded and held bin for bin), 2 K21
+    launches; K21 on the refinement's input (every element outside the
+    bracketing bin replaced by 2 * hi: bin 511 takes almost all); the
+    count the threshold keeps against k, the bracketing bin's occupancy,
+    the gap to the exact k-th value (``torch.kthvalue``); the whole
+    threshold and ``torch.kthvalue`` timed.  Returns (K21 cases, threshold
+    cases, K21's launches in the threshold runs through it: the counter
+    read just before and just after each run)."""
+    k21, thr, path = [], [], 0
+    for label, x in topk_inputs(torch):
+        n = x.numel()
+        a = x.reshape(-1).float().abs()
+        hi = a.max() + 1e-12
+        k21.append(k21_case(torch, timer, tk, f"{label}, first pass", x, hi))
+        for frac in TOPK_FRACTIONS:
+            k = max(1, int(frac * n))
+            runs = {"kernel": [], "plain": []}
+
+            def recording(side, fn):
+                def h(xx, lim):
+                    out = fn(xx, lim)
+                    runs[side].append((xx, lim, out))
+                    return out
+                return h
+
+            before = tk.launches
+            t_k = ops.topk_threshold(x, k, histogram=recording("kernel", tk.histogram_abs))
+            launched = tk.launches - before
+            path += launched
+            t_p = ops.topk_threshold(x, k, histogram=recording("plain", tk.histogram_abs_plain))
+            if launched != 2:
+                raise AssertionError(f"topk_threshold {label}: {launched} K21 launches, not 2")
+            for (_, _, hk), (_, _, hp) in zip(runs["kernel"], runs["plain"]):
+                if not torch.equal(hk, hp):
+                    raise AssertionError(f"topk_threshold {label} k={k}: K21's histogram "
+                                         f"differs from the plain version's")
+            if t_k.view(torch.int32).item() != t_p.view(torch.int32).item():
+                raise AssertionError(f"topk_threshold {label} k={k}: {float(t_k)!r} through "
+                                     f"K21, {float(t_p)!r} on the plain path")
+            hist = runs["kernel"][0][2][0]
+            desc = torch.cumsum(hist.flip(0), 0)
+            bracket = tk.N_BINS - 1 - int(torch.argmax((desc >= k).to(torch.uint8)))
+            exact = torch.kthvalue(a, n - k + 1).values
+            kept = int((a >= t_k).sum())
+            refine_in, lim = runs["kernel"][1][:2]
+            del runs
+            k21.append(k21_case(torch, timer, tk, f"{label}, refinement input k={k}",
+                                refine_in, lim))
+            del refine_in
+            case = {"case": f"{label} k={k} ({frac:g} n)", "n": n, "k": k,
+                    "threshold": float(t_k), "kth_value": float(exact),
+                    "threshold_minus_kth": float(t_k - exact), "kept": kept,
+                    "abs_kept_minus_k": abs(kept - k), "bracket_bin": bracket,
+                    "bracket_occupancy": int(hist[bracket]),
+                    "ms": timer(lambda: ops.topk_threshold(x, k)),
+                    "kthvalue_ms": timer(lambda: torch.kthvalue(a, n - k + 1), reps=2,
+                                         warmup=1)}
+            print("topk_threshold", json.dumps(case))
+            thr.append(case)
+        del x, a
+        torch.cuda.empty_cache()
+    return k21, thr, {"histogram_abs": path}
+
+
+# ---------------------------------------------------------------------------
+# the paper's baselines: set, snfs, topkast (block-sparse), pruning, snip
+# (masked), through train_loop
+# ---------------------------------------------------------------------------
+
+METHOD_STEPS = 4  # a drop/grow at step 2 (t_end = 3/4 of 4 steps)
+
+
+def methods_config(method):
+    """h2o-danube-1.8b at full width and depth, flash_tight, ERK 0.8, 2 x
+    1024 tokens in one microbatch, a drop/grow every 2 steps: block_sparse
+    128x128 for the drop/grow methods, masked for pruning and snip."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    kernel = "masked" if method in ("pruning", "snip") else "block_sparse"
+    cfg = configure_kernel(get_config("h2o-danube-1.8b"), kernel=kernel, block=128,
+                           attn_kernel="flash_tight")
+    return dataclasses.replace(cfg, microbatches=1, sparse=dataclasses.replace(
+        cfg.sparse, method=method, delta_t=DELTA_T))
+
+
+def method_train(torch, bsm, mm, fa, tk, method):
+    """``train_loop`` (Adam, warmup-cosine, the CLI's defaults) for one
+    method at full size, 4 steps of 2 x 1024 tokens, the launch counters set
+    to 0 just before it and read after every step, each step's launches
+    exact: per step 2 * 168 forward launches (remat), 168 dgrad, 168 wgrad
+    (K1/K2/K3 under block_sparse, K13/K14/K15 under masked), 48/24/24
+    K9-K11, no K21.  SET carries no superset, so its update step takes the
+    dense gradient of the masked weights (the reference's path): K9-K11
+    only.  SNIP's one-shot gradient runs before step 0 and adds its
+    attention launches (48/24/24 K9-K11) to step 0's count.  Checks at the
+    topology change: block counts kept per layer, grown = dropped, some
+    block moved (set, snfs), the pack fresh; B ⊇ A (snfs, topkast), the
+    dense momentum zero outside B (snfs), the weights exactly 0 outside B
+    (topkast); pruning's masks monotone and at the schedule's target
+    density after its prune at step 0; SNIP's per-layer density the ERK
+    map's.  Returns (stats, launches)."""
+    from repro_torch.core.distributions import sparsity_map
+    from repro_torch.core.masks import block_mask_of, tree_map, tree_paths
+    from repro_torch.core.pack import pack_mismatch, validate_pack
+    from repro_torch.core.pruning import PruningSchedule
+    from repro_torch.launch.train import train_loop
+
+    cfg = methods_config(method)
+    masked = cfg.sparse.kernel == "masked"
+    mod = mm if masked else bsm
+    fwd, dx, dw = (("masked_fwd", "masked_dx", "masked_dw") if masked else
+                   ("block_sparse_fwd", "block_sparse_dx", "block_sparse_dw"))
+    counters = ((fwd, mod, "launches"), (dx, mod, "dx_launches"), (dw, mod, "dw_launches"),
+                ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
+                ("flash_dkv", fa, "dkv_launches"), ("histogram_abs", tk, "launches"))
+    read = lambda: {n: getattr(m, a) for n, m, a in counters}
+    n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
+    expect = {fwd: 2 * n_proj, dx: n_proj, dw: n_proj, "flash_fwd": 2 * n_attn,
+              "flash_dq": n_attn, "flash_dkv": n_attn, "histogram_abs": 0}
+    # set carries no superset: its update step takes the dense gradient on
+    # the masked weights (the reference's legacy path), attention alone on
+    # the kernels
+    update = dict(expect, **({fwd: 0, dx: 0, dw: 0} if method == "set" else {}))
+    first = dict(expect)
+    if method == "snip":
+        first.update(flash_fwd=4 * n_attn, flash_dq=2 * n_attn, flash_dkv=2 * n_attn)
+    blk = cfg.sparse.block_shape
+    units = (lambda m: m) if masked else (lambda m: block_mask_of(m, blk))
+    log, seen = [], {"counts": None, "t": None, "before": None, "checks": {}}
+    # train_loop's schedule; its one prune (step 0) goes to the target at step 1
+    prune_target = PruningSchedule(cfg.sparse.sparsity, METHOD_STEPS // 8,
+                                   int(METHOD_STEPS * 0.75), max(DELTA_T * 10, 1)).target(1)
+
+    def check_update(state):
+        masks = tree_paths(state["masks"])
+        bwd = tree_paths(state.get("bwd_masks") or state["masks"])
+        params = tree_paths(state["params"])
+        mom = tree_paths(state["dense_mom"]) if method == "snfs" else None
+        moved = 0
+        for n, m in masks.items():
+            a0, a1, b = seen["before"][n], units(m), units(bwd[n])
+            dropped, grown = int((a0 & ~a1).sum()), int((a1 & ~a0).sum())
+            moved += grown
+            if int(a1.sum()) != int(a0.sum()) or (a1 & ~b).any():
+                raise AssertionError(f"{method} {n}: {int(a0.sum())} -> {int(a1.sum())} "
+                                     "units, or the superset misses the mask")
+            if grown != dropped:
+                raise AssertionError(f"{method} {n}: grew {grown}, dropped {dropped}")
+            outside = lambda t: torch.where(bwd[n], 0.0, t).abs().max().item()
+            if method == "snfs" and outside(mom[n]) != 0.0:
+                raise AssertionError(f"snfs {n}: dense momentum outside the superset")
+            if method == "topkast" and outside(params[n]) != 0.0:
+                raise AssertionError(f"topkast {n}: weights outside the superset")
+        validate_pack(state["pack"], where=f"chip_smoke {method}")
+        stale = int(pack_mismatch(state["masks"], state["pack"], blk,
+                                  bwd_masks=state.get("bwd_masks")))
+        if stale:
+            raise AssertionError(f"{method}: pack stale after the update: {stale} blocks")
+        seen["checks"]["units_moved"] = moved
+        if moved == 0 and method in ("set", "snfs"):
+            raise AssertionError(f"{method}: the drop/grow moved no block")
+
+    def on_step(step, is_update, state, m):
+        torch.cuda.synchronize()
+        t, counts = time.perf_counter(), read()
+        prev = seen["counts"] or {n: 0 for n in counts}
+        rec = {"step": step, "update": is_update, "loss": float(m["loss"]),
+               "launches": {n: counts[n] - prev[n] for n in counts}}
+        if seen["t"] is not None:
+            rec["wall_s"] = t - seen["t"]
+        want = first if step == 1 else update if is_update else expect
+        if rec["launches"] != want or not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{method} step {step}: {rec}, expected {want}")
+        masks = tree_paths(state["masks"])
+        if step == 1 and method == "pruning":  # after the prune at step 0
+            for n, mk in masks.items():
+                want_n = int(torch.round((1.0 - prune_target) * mk.numel()))
+                if int(mk.sum()) != want_n:
+                    raise AssertionError(f"pruning {n}: {int(mk.sum())} kept, the "
+                                         f"schedule's target keeps {want_n}")
+            seen["before"] = {n: mk.clone() for n, mk in masks.items()}
+            seen["checks"]["density_after_prune"] = (
+                sum(int(mk.sum()) for mk in masks.values())
+                / sum(mk.numel() for mk in masks.values()))
+        if step == 1 and method == "snip":
+            flags = tree_map(lambda _, mk: mk is not None, state["masks"])
+            smap = sparsity_map(cfg, state["params"], flags)
+            for n, mk in masks.items():
+                if int(mk.sum()) != round((1.0 - smap[n]) * mk.numel()):
+                    raise AssertionError(f"snip {n}: {int(mk.sum())} kept at ERK "
+                                         f"sparsity {smap[n]}")
+            seen["checks"]["density_after_snip"] = (
+                sum(int(mk.sum()) for mk in masks.values())
+                / sum(mk.numel() for mk in masks.values()))
+        if step == DELTA_T and not masked:
+            seen["before"] = {n: units(mk).clone() for n, mk in masks.items()}
+        if is_update:
+            check_update(state)
+        print(f"{method} train:", json.dumps(rec))
+        log.append(rec)
+        torch.cuda.synchronize()
+        seen.update(counts=read(), t=time.perf_counter())
+
+    for _, m, a in counters:
+        setattr(m, a, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = train_loop(cfg, steps=METHOD_STEPS, batch=MASKED_BATCH, seq=TRAIN_SEQ,
+                          workdir=str(ROOT / "chiprun_out" / f"methods_{method}"),
+                          device="cuda", on_step=on_step, log_every=METHOD_STEPS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read()
+    if method == "pruning":
+        for n, mk in tree_paths(state["masks"]).items():
+            if (mk & ~seen["before"][n]).any():
+                raise AssertionError(f"pruning {n}: a pruned connection returned")
+    n_updates = sum(r["update"] for r in log)
+    if n_updates != (0 if masked else 1):
+        raise AssertionError(f"{method}: {n_updates} topology updates")
+    result = json.loads((ROOT / "chiprun_out" / f"methods_{method}" / "result.json").read_text())
+    del state
+    torch.cuda.empty_cache()
+    steady = [r for r in log if "wall_s" in r and not r["update"]]
+    wall = sum(r["wall_s"] for r in steady) / len(steady)
+    stats = {"method": method, "kernel": cfg.sparse.kernel, "steps": METHOD_STEPS,
+             "tokens_per_step": MASKED_BATCH * TRAIN_SEQ, "total_s": total_s,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "mean_train_step_wall_s": wall, "steady_steps": [r["step"] for r in steady],
+             "tok_per_s": MASKED_BATCH * TRAIN_SEQ / wall,
+             "update_step_wall_s": [r["wall_s"] for r in log if r["update"]],
+             "losses": [r["loss"] for r in log], "checks": seen["checks"],
+             "topology": result["topology"], "sparsity": result["sparsity"]}
+    print(f"{method} train ({cfg.sparse.kernel}): {METHOD_STEPS} steps of {MASKED_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {total_s:.1f} s; train step {wall:.3f} s wall = "
+          f"{stats['tok_per_s']:.0f} tok/s; update step {stats['update_step_wall_s']}; "
+          f"peak {stats['peak_mem_gib']:.1f} GiB; {seen['checks']}; launches {launches}")
+    return stats, launches
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -2904,6 +3249,16 @@ def main() -> int:
         torch, timer, bsm, mm, fa, "masked")
     mcases["K19"] += k19_moe
     done("moe masked fused train, parity K20, K19")
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_threshold as tk
+
+    k21, topk_thr, topk_launches = topk_cases(torch, timer, tk, ops)
+    done("topk: parity K21, topk_threshold")
+    methods, methods_launches = {}, {}
+    for method in ("set", "snfs", "topkast", "pruning", "snip"):
+        methods[method], methods_launches[f"methods_{method}"] = method_train(
+            torch, bsm, mm, fa, tk, method)
+        done(f"methods train: {method}")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
@@ -2912,7 +3267,8 @@ def main() -> int:
              "moe_train": moe_train_launches, "moe_masked_train": moe_mtrain_launches,
              "fused_block_sparse_train": fused_bs_launches,
              "moe_fused_train": moe_fused_launches,
-             "moe_masked_fused_train": moe_mfused_launches}
+             "moe_masked_fused_train": moe_mfused_launches, "topk": topk_launches,
+             **methods_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -2978,6 +3334,8 @@ def main() -> int:
                 kern + "block_sparse_matmul.py:1078", k8),
         summary("grouped_masked_dw_fused", csrc + "masked_matmul.cu",
                 kern + "masked_matmul.py:616", k20),
+        summary("histogram_abs", csrc + "topk_threshold.cu", kern + "topk_threshold.py:29",
+                k21),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2992,6 +3350,7 @@ def main() -> int:
          "moe_train": moe_train_stats, "moe_masked_train": moe_mtrain_stats,
          "fused_block_sparse_train": fused_bs_stats, "k7": k7, "k8": k8, "k20": k20,
          "moe_fused_train": moe_fused_stats, "moe_masked_fused_train": moe_mfused_stats,
+         "k21": k21, "topk_threshold": topk_thr, "methods": methods,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -11,8 +11,8 @@ carry one, a grouped bank's stacked entries (``idx (G, N/bn, width)``,
 the MoE experts') keep their leading group dim, and the masked kernel's
 ``{"bwd_mask": B}`` carrier entries come across as bool tensors).
 ``train_state_from_flat`` assembles a whole train state (params, masks,
-backward supersets, pack, optimizer state, step and the non-finite
-counter), an MoE model's included: 3-D expert banks with their masks,
+backward supersets, pack, optimizer state, SNFS's dense momentum, step and
+the non-finite counter), an MoE model's included: 3-D expert banks with their masks,
 supersets and grouped packs (superset view ``bidx``/``bcnt``) or carriers.  ``flat_of`` and ``pack_flat_of`` go the other way, so
 the tests can round-trip a state.
 """
@@ -94,14 +94,15 @@ def pack_from_flat(flat: Mapping[str, Mapping[str, Any]], params, device):
 
 
 def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
-                          step: int = 0, nonfinite_steps: int = 0, seed: int = 0,
-                          device):
+                          dense_mom=None, step: int = 0, nonfinite_steps: int = 0,
+                          seed: int = 0, device):
     """A reference train state, flattened, -> the port's train state
     (``training/steps.py`` layout).  ``opt`` is ``{"momentum": flat}`` (sgd,
     f32 or bf16 arrays, an MoE model's 3-D bank momenta included: the dtype
     and shape come across, so both packages can start the fused epilogue
     from one state) or ``{"m": flat, "v": flat,
-    "count": int}`` (adam); ``seed`` seeds the
+    "count": int}`` (adam); ``dense_mom`` is SNFS's dense momentum
+    ``{path_name: array}`` over every param; ``seed`` seeds the
     port's own later draws (supersets, masks), which are not the
     reference's threefry streams."""
     p = params_from_flat(params, device)
@@ -118,6 +119,8 @@ def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
         state["bwd_masks"] = masks_from_flat(bwd_masks, p, device)
     if pack is not None:
         state["pack"] = pack_from_flat(pack, p, device)
+    if dense_mom is not None:
+        state["dense_mom"] = params_from_flat(dense_mom, device)
     return state
 
 

@@ -18,11 +18,27 @@ definition), so masks after an update are bit-identical to the
 reference's on the same inputs.  Block mode pools |w| and |g| (L1) over
 aligned blocks, so masks stay block-aligned for the block-sparse kernels.
 
-Random draws (the superset's tie-break for zero weights, ``grow_init=
-'random'``) come from an explicit ``torch.Generator``; they are not the
-reference's ``jax.random`` streams, so the parity tests carry the
-reference's supersets across and check the port's own draws by their
-invariants.  Methods 'set', 'snfs' and 'topkast' are not ported yet.
+The paper's baselines share the drop and the exact counts; they differ in
+the grow score:
+  snfs    |dense momentum| (Dettmers & Zettlemoyer 2019), the state's
+          ``dense_mom`` (superset-restricted under kernel dispatch);
+  set     uniform random scores (Mocanu et al. 2018);
+  topkast magnitude top-k inside the backward superset B, no
+          re-initialisation, ``grown`` only outside B (Jayakumar et al.
+          2020; ``_topkast_update_layer``);
+and ``dsr_update`` (Mostafa & Wang 2019) drops by one global magnitude
+ranking across layers and grows at random across layers.
+
+Random draws (the superset's tie-break for zero weights, SET's and DSR's
+uniform scores, Top-KAST's tie-break, ``grow_init='random'``) come from an
+explicit ``torch.Generator``; they are not the reference's ``jax.random``
+streams.  The uniform scores and tie-breaks are drawn by the caller (leaf
+by leaf, in the masks' leaf order) and handed to the layer functions as
+tensors; ``rigl_update(draws=...)`` and ``dsr_update(draw=...)`` take
+them from outside, so the parity tests pass the reference's own draws in
+and compare masks bit for bit.  The superset draw stays the port's own:
+those tests carry the reference's supersets across and check the port's
+draws by their invariants.
 """
 from __future__ import annotations
 
@@ -32,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from .masks import tree_map
+from .masks import tree_map, tree_paths
 from .schedules import UpdateSchedule
 
 __all__ = [
@@ -42,6 +58,8 @@ __all__ = [
     "dense_to_sparse_grad",
     "topkast_superset_layer",
     "topkast_backward_masks",
+    "dsr_update",
+    "draw_uniform",
 ]
 
 
@@ -49,7 +67,7 @@ __all__ = [
 class SparseAlgo:
     """Which sparse-training method is in effect."""
 
-    method: str = "rigl"  # rigl | static (set | snfs | topkast: not ported yet)
+    method: str = "rigl"  # rigl | set | snfs | topkast | static
     schedule: UpdateSchedule = UpdateSchedule()
     grow_init: str = "zeros"  # zeros | random | gradient
     block_shape: Optional[tuple[int, int]] = None  # block-sparse mode
@@ -78,6 +96,19 @@ def _expand_blocks(xb, block_shape, shape):
     return xb.repeat_interleave(bm, -2).repeat_interleave(bn, -1).reshape(shape)
 
 
+def draw_uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) f32 draws of ``shape`` from ``gen``, on ``device``."""
+    return torch.rand(tuple(shape), generator=gen, device=gen.device).to(device)
+
+
+def _unit_shape(shape, block_shape):
+    """The shape drop/grow ranks: the weight's, or its block grid."""
+    if block_shape is None:
+        return tuple(shape)
+    *lead, m, n = shape
+    return (*lead, m // block_shape[0], n // block_shape[1])
+
+
 def _exploration_score(w, m_bool, gen, block_shape=None):
     """Ranking score for backward-superset candidates (higher joins B
     first): active units rank above everything (B contains A), then
@@ -87,7 +118,7 @@ def _exploration_score(w, m_bool, gen, block_shape=None):
     if block_shape is not None:
         mag = _pool_blocks(mag, block_shape)
         m_bool = _pool_blocks(m_bool.float(), block_shape) > 0
-    tie = torch.rand(mag.shape, generator=gen, device=gen.device).to(mag.device)
+    tie = draw_uniform(gen, mag.shape, mag.device)
     score = torch.where(mag > 0, mag + 1.0, tie)
     return torch.where(m_bool, torch.full_like(score, math.inf), score), m_bool
 
@@ -134,7 +165,8 @@ def rigl_update_layer(w, mask, grow_score, fraction, *, grow_init: str = "zeros"
                       gen=None, block_shape=None, lr: float = 0.0, grad=None):
     """One layer's drop/grow.  Returns (new_mask, new_w, grown_mask).
 
-    grow_score: the dense-side score (|g| for rigl), same shape as w.
+    grow_score: the grow score, same shape as w (|g| for rigl, |dense
+      momentum| for snfs, uniform draws for set).
     fraction: f_decay(t) as a float32 tensor.
     """
     m_bool = mask.bool()
@@ -164,33 +196,139 @@ def rigl_update_layer(w, mask, grow_score, fraction, *, grow_init: str = "zeros"
     return new_mask.to(mask.dtype), torch.where(grown, init_val, w), grown
 
 
+def _topkast_update_layer(w, mask, bwd_mask, fraction, tie, block_shape=None):
+    """Top-KAST drop/grow: magnitude top-k restricted to the superset B.
+
+    Drop the lowest-|w| actives; grow the highest-|w| candidates inside B
+    (zero weights ranked below every trained one by ``tie``, uniform draws
+    of the unit shape); candidates outside B score -inf and never win.
+    Weights are not re-initialised: a connection entering A from B\\A
+    keeps the value (and optimizer state) it earned there.  ``grown`` flags
+    only never-trained entries (outside B, zero by construction).
+    Returns (new_mask, w, grown)."""
+    m_bool, b_bool = mask.bool(), bwd_mask.bool()
+    mag = w.abs().float()
+    if block_shape is not None:
+        mag = _pool_blocks(mag, block_shape)
+        m_u = _pool_blocks(m_bool.float(), block_shape) > 0
+        b_u = _pool_blocks(b_bool.float(), block_shape) > 0
+    else:
+        m_u, b_u = m_bool, b_bool
+    score = torch.where(mag > 0, mag + 1.0, tie.to(mag.device))
+    score = torch.where(b_u, score, torch.full_like(score, -math.inf))
+    new_u, _ = _drop_grow(mag, score, m_u, fraction)
+    new_mask = new_u if block_shape is None else _expand_blocks(new_u, block_shape,
+                                                                w.shape)
+    grown = new_mask & ~m_bool & ~b_bool
+    return new_mask.to(mask.dtype), w, grown
+
+
+def _draw(algo: SparseAlgo, w, gen):
+    """One layer's uniform draws for ``algo.method``: SET's grow scores (the
+    weight's shape) or Top-KAST's tie-break (the unit shape)."""
+    if gen is None:
+        raise ValueError(f"method={algo.method!r} draws uniform scores: pass a generator "
+                         "or draws=")
+    bs = algo.block_shape if algo.method == "topkast" else None
+    return draw_uniform(gen, _unit_shape(w.shape, bs), w.device)
+
+
 def rigl_update(params, masks, dense_grads, t, algo: SparseAlgo, gen=None,
-                lr: float = 0.0):
+                lr: float = 0.0, *, dense_momentum=None, bwd_masks=None, draws=None):
     """Apply the connectivity update to every masked layer.
 
     Returns (new_params, new_masks, grown_masks); ``grown_masks`` tells the
     optimizer which per-connection state to reset.  ``method='static'`` is
     the identity.  Callers gate this on ``algo.schedule.is_update_step(t)``.
+
+    ``dense_momentum``: the state's ``dense_mom``, required for 'snfs'.
+    ``bwd_masks``: the Top-KAST supersets, required for 'topkast'.
+    ``draws``: a tree mirroring ``masks`` of uniform draws (SET's scores of
+    the weight's shape, Top-KAST's tie-breaks of the unit shape); when not
+    given each layer draws its own from ``gen`` as it comes (one layer's
+    draws live at a time).
     """
     if algo.method == "static":
         zeros = tree_map(lambda _, m: None if m is None
                          else torch.zeros_like(m, dtype=torch.bool), masks)
         return params, masks, zeros
-    if algo.method != "rigl":
-        raise NotImplementedError(
-            f"rigl_update: method {algo.method!r} is not ported yet (the port "
-            "runs 'rigl' and 'static')"
-        )
+    if algo.method not in ("rigl", "snfs", "set", "topkast"):
+        raise ValueError(algo.method)
     fraction = algo.schedule.fraction(t)
-    out = tree_map(
-        lambda _, w, m, g: (None, w, None) if m is None else rigl_update_layer(
-            w, m, g, fraction, grow_init=algo.grow_init, gen=gen,
-            block_shape=algo.block_shape, lr=lr, grad=g),
-        params, masks, dense_grads,
-    )
+    none = tree_map(lambda *_: None, masks)
+    drawing = draws is None and algo.method in ("set", "topkast")
+    draws = none if draws is None else draws
+    mom = dense_momentum if dense_momentum is not None else none
+    bwd = bwd_masks if bwd_masks is not None else none
+
+    def layer(name, w, m, g, mo, b, u):
+        if m is None:
+            return (None, w, None)
+        if drawing:
+            u = _draw(algo, w, gen)
+        if algo.method == "topkast":
+            if b is None:
+                raise ValueError(
+                    "method='topkast' needs the backward-superset masks: "
+                    f"bwd_masks is missing for leaf {name!r} — pass "
+                    "state['bwd_masks'] (built by training/steps.py::"
+                    "init_train_state, refreshed by refresh_pack) into "
+                    "rigl_update(bwd_masks=...)")
+            return _topkast_update_layer(w, m, b, fraction, u, algo.block_shape)
+        if algo.method == "snfs":
+            if mo is None:
+                raise ValueError(
+                    "method='snfs' grows by |dense momentum| but the state leaf "
+                    f"dense_momentum is missing for {name!r} — pass "
+                    "state['dense_mom'] (tracked by training/steps.py::"
+                    "make_train_step) into rigl_update(dense_momentum=...)")
+            score = mo
+        else:
+            score = u if algo.method == "set" else g
+        return rigl_update_layer(w, m, score, fraction, grow_init=algo.grow_init, gen=gen,
+                                 block_shape=algo.block_shape, lr=lr, grad=g)
+
+    out = tree_map(layer, params, masks, dense_grads, mom, bwd, draws)
     pick = lambda i: tree_map(lambda _, t_: t_[i], out,
                               is_leaf=lambda x: isinstance(x, tuple))
-    return pick(1), pick(0), pick(2)  # rigl_update_layer: (mask, w, grown)
+    return pick(1), pick(0), pick(2)  # each layer: (mask, w, grown)
+
+
+def dsr_update(params, masks, t, algo: SparseAlgo, gen=None, *, draw=None):
+    """Dynamic Sparse Reparameterization (Mostafa & Wang 2019), the paper's
+    Fig. 2-left "DSR" row: drop by one GLOBAL magnitude ranking over every
+    masked layer (per-layer budgets shift), grow at random across layers;
+    total nnz is kept, per-layer sparsity is free.  ``draw``: the uniform
+    grow scores of the layers' concatenation (masks' leaf order), drawn
+    from ``gen`` when not given.  Returns (new_params, new_masks, grown)."""
+    fraction = algo.schedule.fraction(t)
+    leaves = [(tree_paths(params)[n], m) for n, m in tree_paths(masks).items()]
+    all_mag = torch.cat([w.abs().float().reshape(-1) for w, _ in leaves])
+    all_act = torch.cat([m.reshape(-1).bool() for _, m in leaves])
+    n_active = all_act.sum(dtype=torch.int32)
+    k = torch.floor(fraction * n_active).to(torch.int32)
+    neg_inf = torch.tensor(-math.inf, dtype=torch.float32, device=all_mag.device)
+    kept = _rank_desc(torch.where(all_act, all_mag, neg_inf)) < (n_active - k)
+    if draw is None:
+        draw = draw_uniform(gen, all_mag.shape, all_mag.device)
+    grown = _rank_desc(torch.where(kept, neg_inf, draw.to(all_mag.device))) < k
+    new_all = kept | grown
+    starts, off = {}, 0
+    for n, m in tree_paths(masks).items():
+        starts[n], off = off, off + m.numel()
+
+    def split(n, w, m):
+        if m is None:
+            return (w, None, None)
+        sl = slice(starts[n], starts[n] + w.numel())
+        gr = grown[sl].reshape(w.shape)
+        return (torch.where(gr, torch.zeros_like(w), w),
+                new_all[sl].reshape(w.shape).to(m.dtype), gr)
+
+    out = tree_map(split, params, masks)
+    pick = lambda i: tree_map(lambda _, t_: t_[i], out,
+                              is_leaf=lambda x: isinstance(x, tuple))
+    return pick(0), pick(1), pick(2)
 
 
 def dense_to_sparse_grad(dense_grads, masks):

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 KERNELS = ("block_sparse_fwd", "block_sparse_bwd", "block_sparse_grouped",
-           "flash_fwd", "flash_bwd", "flash_paged", "masked_matmul")
+           "flash_fwd", "flash_bwd", "flash_paged", "masked_matmul", "topk_threshold")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -7,7 +7,8 @@ Port of ``_row_tile``, ``_pad_rows``, the pack-entry path of
 the weight-bank twins ``grouped_block_sparse_linear`` and
 ``fused_grouped_block_sparse_linear`` (pack-entry path, the Top-KAST split
 included), ``grouped_masked_linear``, ``topkast_grouped_masked_linear`` and
-``fused_grouped_masked_linear`` from the JAX package's ``kernels/ops.py``.
+``fused_grouped_masked_linear`` from the JAX package's ``kernels/ops.py``,
+and ``topk_threshold`` (the k-th-magnitude threshold from K21's histogram).
 The fused wrappers' weight cotangent is the new SGD momentum (K7, K8, K19,
 K20).  Leading dims of x are flattened (the grouped
 wrappers keep the group dim) and the rows zero-padded to the row tile (a
@@ -28,6 +29,7 @@ from .block_sparse_matmul import (
     TopkastBlockSparseMatmul,
     TopkastGroupedBlockSparseMatmul,
 )
+from .topk_threshold import N_BINS, histogram_abs
 from .masked_matmul import (
     FusedGroupedMaskedMatmul,
     FusedMaskedMatmul,
@@ -48,6 +50,7 @@ __all__ = [
     "masked_linear",
     "topkast_grouped_masked_linear",
     "topkast_masked_linear",
+    "topk_threshold",
 ]
 
 
@@ -280,3 +283,37 @@ def fused_grouped_masked_linear(x, w, mask, mom, seed: int, *, mu: float, wd: fl
     x, w, (mask, wgm, mom), blk = _grouped_masked_operands(x, w, [mask, wgm, mom], block)
     out = FusedGroupedMaskedMatmul.apply(x, w, mask, wgm, mom, seed, mu, wd, sr, *blk)
     return out[:, :M, :N]
+
+
+def topk_threshold(x, k: int, *, refine: bool = True, histogram=histogram_abs):
+    """Threshold t with |{i: |x_i| >= t}| ~= k from a streaming histogram
+    of |x| (K21), op by op in f32 as the reference's ``ops.topk_threshold``:
+    one pass, and with ``refine`` one more over the bracketing bin, so 2
+    ``histogram`` calls (1 without).  A 0-d f32 tensor on x's device; no
+    host sync.  ``histogram`` swaps in another histogram of the same
+    contract (``topk_threshold.histogram_abs_plain``, to hold the kernel's
+    path against the plain one on the card).
+
+    The refinement is reproduced as the reference has it, not improved:
+    every element outside the bracketing bin is replaced by the sentinel
+    ``2 * hi`` and so counted in the second histogram's top bin, which then
+    almost always holds ``need`` already: the refined threshold is about
+    the bracketing bin's upper edge (ROADMAP.md §C)."""
+    a = x.reshape(-1).float().abs()
+    hi = a.max() + 1e-12
+    width = hi / N_BINS
+    hist = histogram(x, hi)[0]
+    # cumulative count from the top bin down; the first bin where it is >= k
+    desc = torch.cumsum(hist.flip(0), 0)
+    bin_from_top = torch.argmax((desc >= k).to(torch.uint8))
+    lo_edge = (N_BINS - 1 - bin_from_top).to(torch.float32) * width
+    if not refine:
+        return lo_edge
+    upper = lo_edge + width
+    in_above = (a >= upper).sum()
+    sub = torch.where((a >= lo_edge) & (a < upper), a - lo_edge, -1.0)
+    hist2 = histogram(torch.where(sub >= 0, sub, 2 * hi), width)[0]
+    need = k - in_above
+    desc2 = torch.cumsum(hist2.flip(0), 0)
+    b2 = torch.argmax((desc2 >= need).to(torch.uint8))
+    return lo_edge + (N_BINS - 1 - b2).to(torch.float32) * (width / N_BINS)

@@ -1,4 +1,5 @@
-"""Training entry point of the port: RigL on the card.
+"""Training entry point of the port: RigL and the paper's baselines on the
+card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --steps 300 --method rigl --sparsity 0.8 --kernel block_sparse --block 128
@@ -23,9 +24,18 @@ attention through the flash kernels K9, K10 and K11.  An MoE config
 kernels: K4, K5 and K6 under block_sparse, K16, K17 and K18 under masked,
 and the grouped fused epilogues K8 and K20.
 
+``--method`` takes every method of the reference's CLI: rigl, set, snfs
+and topkast (a drop/grow every ``--delta-t`` steps), static and dense, and
+the dense-to-sparse baselines: gradual magnitude pruning (dense start, the
+Zhu & Gupta ramp from 1/8 to 3/4 of the run, a prune every ``10 *
+--delta-t`` steps, ``refresh_pack`` after each) and SNIP (one-shot masks
+from step 0's batch).  Every drop/grow is recorded by a ``TopologyTrace``
+(``core/topology.py``): ``result.json`` holds its ``topology`` summary and
+the per-update ``topology_updates``.
+
 Not ported yet: checkpoints and restore (``--workdir`` holds only
-``result.json``), ``--preempt-at`` and restarts, the observability hooks
-and the topology-distance telemetry.
+``result.json``), ``--preempt-at`` and restarts, and the observability
+hooks (``--trace-out``, ``--metrics-out``).
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ import time
 from ..configs import SparseConfig, get_config
 from ..core.masks import mask_stats
 from ..core.pack import pack_mismatch
+from ..core.pruning import PruningSchedule
+from ..core.topology import TopologyTrace
 from ..data.synthetic import batch_for
 from ..device import resolve_device
 from ..optim.lr import LRSchedule
@@ -45,9 +57,11 @@ from ..optim.optimizers import OptConfig
 from ..training.steps import (
     init_train_state,
     make_algo,
+    make_prune_fn,
     make_rigl_step,
     make_train_step,
     refresh_pack,
+    snip_init,
 )
 
 __all__ = ["train_loop", "main"]
@@ -63,8 +77,8 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
 
     ``on_step(step, is_update, state, metrics)``, if given, runs after every
     step (the chip smoke times steps with it).  Writes
-    ``<workdir>/result.json`` with the logged metrics and the final
-    sparsity and nnz.
+    ``<workdir>/result.json`` with the logged metrics, the final sparsity
+    and nnz, and the topology telemetry of the drop/grow updates.
     """
     dev = resolve_device(device)
     workdir = pathlib.Path(workdir)
@@ -78,8 +92,18 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
     state, _ = init_train_state(cfg, opt_cfg, seed=seed, device=dev)
     train_step = make_train_step(cfg, opt_cfg, lr_sched)
     rigl_step = make_rigl_step(cfg, algo, lr_sched)
+    prune_sched = PruningSchedule(
+        cfg.sparse.sparsity, begin_step=steps // 8, end_step=int(steps * 0.75),
+        prune_every=max(cfg.sparse.delta_t * 10, 1))
+    prune_fn = make_prune_fn(cfg, prune_sched) if cfg.sparse.method == "pruning" else None
     sp = cfg.sparse
+    if sp.method == "snip" and state["step"] == 0:
+        state = snip_init(state, cfg, batch_for(cfg, 0, batch, seq, learnable=learnable,
+                                                device=dev))
+        state = refresh_pack(state, cfg)  # snip replaced the masks
     metrics_log = []
+    topo_log = []  # per-update records, kept apart from the loss log
+    topo_trace = TopologyTrace()
     t0 = time.time()
     step = state["step"]
     while step < steps:
@@ -87,12 +111,19 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
         is_update = (sp.method in _UPDATE_METHODS and step > 0
                      and step % sp.delta_t == 0 and step < algo.schedule.t_end)
         if is_update:
+            prev_masks = topo_trace.snapshot(state["masks"])
             state, m = rigl_step(state, b)
             # the topology changed: re-pack NOW so the next steps' kernels
             # run the new active blocks (host-side, amortized over delta_t)
             state = refresh_pack(state, cfg)
+            rec = topo_trace.record(prev_masks, state["masks"], step=step)
+            del prev_masks
+            topo_log.append({"step": step, "topology": rec})
         else:
             state, m = train_step(state, b)
+        if prune_fn is not None and step % prune_sched.prune_every == 0:
+            state = prune_fn(state)
+            state = refresh_pack(state, cfg)  # pruning moved the masks too
         step = state["step"]
         if on_step is not None:
             on_step(step, is_update, state, m)
@@ -120,6 +151,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
     stats = mask_stats(state["masks"])
     (workdir / "result.json").write_text(json.dumps({
         "metrics": metrics_log, "sparsity": stats["sparsity"], "nnz": stats["nnz"],
+        "topology": topo_trace.summary(), "topology_updates": topo_log,
     }))
     return state, metrics_log
 
@@ -135,9 +167,7 @@ def main(argv=None):
     p.add_argument("--seq", type=int, default=64)
     p.add_argument("--method", default="rigl",
                    choices=["rigl", "set", "snfs", "topkast", "static", "snip",
-                            "pruning", "dense"],
-                   help="the port trains rigl, static and dense; the others "
-                        "raise 'not ported yet'")
+                            "pruning", "dense"])
     p.add_argument("--sparsity", type=float, default=0.8)
     p.add_argument("--distribution", default="erk", choices=["uniform", "er", "erk"])
     p.add_argument("--delta-t", type=int, default=100)

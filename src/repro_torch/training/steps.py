@@ -1,6 +1,7 @@
 """Train and topology-update steps of the port: ``training/steps.py`` of the
-JAX package for the transformer family and its MoE variant, methods 'rigl'
-and 'static'.
+JAX package for the transformer family and its MoE variant, with every
+method of the paper's comparison: 'rigl', 'set', 'snfs', 'topkast',
+'static', gradual magnitude 'pruning' and 'snip'.
 
   train_step  every step: the loss on RAW params with the masks threaded
               into the kernels (kernel dispatch) or on pre-masked weights
@@ -10,13 +11,22 @@ and 'static'.
   rigl_step   every delta_t steps (t < t_end): the same backward on the
               full batch, then drop/grow (core/rigl.py) and a reset of the
               grown connections' optimizer state; no optimizer step.
+  prune_fn    gradual magnitude pruning to the schedule's target (method
+              'pruning', which starts dense), at the loop's prune cadence.
+  snip_init   one-shot SNIP masks from one batch's dense gradient
+              (method 'snip', at step 0).
 
-Under kernel dispatch with method='rigl' the state carries Top-KAST
-backward supersets ``bwd_masks`` (B ⊇ A) and the pack's superset view (the
-``bidx`` CSC under block_sparse, the ``{"bwd_mask": B}`` carrier under
-masked), so the wgrad kernel returns the dense gradient restricted to B:
-the grow scores' side channel, with no dense matmul anywhere.
-``refresh_pack`` redraws B and re-packs after every update.
+Under kernel dispatch with method 'rigl' or 'snfs' the state carries
+Top-KAST backward supersets ``bwd_masks`` (B ⊇ A) and the pack's superset
+view (the ``bidx`` CSC under block_sparse, the ``{"bwd_mask": B}`` carrier
+under masked), so the wgrad kernel returns the dense gradient restricted to
+B: the grow scores' side channel (snfs folds it into its dense momentum
+``dense_mom`` every step), with no dense matmul anywhere.  Method 'topkast'
+carries B under any kernel and trains it: the optimizer and the weight
+decay run over B, and the drop/grow is by magnitude inside B.
+``refresh_pack`` redraws B and re-packs after every update; for topkast
+the weights leaving B are zeroed and their optimizer state reset, and
+snfs's ``dense_mom`` is masked to the new B.
 
 With ``sparse.fused_epilogue`` (plain SGD) every dispatched leaf's pack
 entry also carries its momentum, a seed and the SGD constants; the fused
@@ -35,11 +45,14 @@ Differences from the reference, each for the card:
   * ``pack_stale`` is not computed inside the step: ``launch/train.py``
     checks ``core.pack.pack_mismatch`` at log cadence, where the reference
     reads it (staleness is sticky until the next refresh).
-  * Random draws (masks, supersets) come from ``torch.Generator``s seeded
-    from (seed, purpose, step), not the reference's threefry keys.
+  * Random draws (masks, supersets, SET's and Top-KAST's uniform scores)
+    come from ``torch.Generator``s seeded from (seed, purpose, step), not
+    the reference's threefry keys.
+  * ``snip_init`` takes the sparse layers from the state's masks (the
+    reference re-runs ``init_lm`` for its flags; at full width that is a
+    second copy of the weights).
 
-Not ported yet (they raise): methods set/snfs/topkast/pruning/snip, bf16
-params or gradients, bf16 Adam state.
+Not ported yet (they raise): bf16 params or gradients, bf16 Adam state.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ import torch
 from ..configs import validate_sparse_kernel
 from ..core.distributions import sparsity_map
 from ..core.masks import apply_masks, flat_index, init_masks, tree_map, tree_paths
+from ..core.pruning import PruningSchedule, prune_step, snip_masks
 from ..core.pack import (
     build_bwd_carrier,
     build_pack_state,
@@ -71,6 +85,7 @@ from ..optim.optimizers import (
     apply_opt_fused,
     global_norm,
     init_opt,
+    reset_connections,
     reset_new_connections,
 )
 
@@ -83,9 +98,12 @@ __all__ = [
     "make_train_step",
     "make_rigl_step",
     "fused_seed",
+    "make_prune_fn",
+    "snip_init",
 ]
 
-_PORTED_METHODS = ("rigl", "static")
+_PORTED_METHODS = ("rigl", "static", "set", "snfs", "topkast", "pruning", "snip")
+SNFS_MOMENTUM = 0.9
 
 
 def _not_ported(what: str):
@@ -94,7 +112,8 @@ def _not_ported(what: str):
 
 def _generator(seed: int, purpose: int, step: int, device) -> torch.Generator:
     """The draw stream of one (seed, purpose, step): purpose 0 = masks,
-    1 = the initial superset, 2 = a refreshed superset, 3 = a RigL update."""
+    1 = the initial superset, 2 = a refreshed superset, 3 = a topology
+    update."""
     return torch.Generator(device=device).manual_seed(
         (seed * 1_000_003 + purpose) * 1_000_033 + step)
 
@@ -114,9 +133,9 @@ def make_algo(cfg, total_steps: int) -> SparseAlgo:
 
 def needs_bwd_masks(sp) -> bool:
     """Does this config's state carry Top-KAST backward supersets?  Yes for
-    rigl (and snfs, not ported) under kernel dispatch: the superset
-    gradient is the grow scores' dense-side channel, and for method
-    'topkast' (not ported)."""
+    rigl and snfs under kernel dispatch (the superset gradient is the grow
+    scores' dense-side channel) and for method 'topkast' under any kernel
+    (its optimizer trains B, its grow set lives in B)."""
     if sp.method == "pruning" or sp.sparsity == 0.0:
         return False
     dispatch = sp.kernel in ("masked", "block_sparse")
@@ -126,7 +145,7 @@ def needs_bwd_masks(sp) -> bool:
 def _check_ported(cfg, opt_cfg=None):
     sp = cfg.sparse
     if sp.method not in _PORTED_METHODS:
-        raise _not_ported(f"method {sp.method!r} (the port trains 'rigl' and 'static')")
+        raise ValueError(f"unknown sparse method {sp.method!r} (one of {_PORTED_METHODS})")
     if cfg.param_dtype != "float32" or cfg.bf16_grads:
         raise _not_ported("bf16 params or gradients")
     # bf16 SGD momentum updates as the reference's (rounded to the state's
@@ -183,14 +202,17 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
     """Fresh train state on ``device`` (default cuda) -> (state, sparse_flags).
 
     ``init_lm`` -> ERK sparsities -> block-aligned masks (block mode) ->
-    masked params; Top-KAST supersets when ``needs_bwd_masks``; the
-    PackState (with the superset view) under kernel='block_sparse'.
+    masked params (method 'pruning' starts dense: all-ones masks); Top-KAST
+    supersets when ``needs_bwd_masks``; the PackState (with the superset
+    view) under kernel='block_sparse'; for 'snfs' the dense momentum
+    ``dense_mom``, zeros like every param.
     """
     _check_ported(cfg, opt_cfg)
     dev = resolve_device(device)
     params, flags = init_lm(cfg, seed, device=dev)
     sp = cfg.sparse
-    if sp.sparsity == 0.0:
+    if sp.method == "pruning" or sp.sparsity == 0.0:
+        # dense start: all-ones masks on sparsifiable layers (pruning tightens)
         masks = tree_map(lambda _, p, f: torch.ones(p.shape, dtype=torch.bool,
                                                     device=dev) if f else None,
                          params, flags)
@@ -231,12 +253,19 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
         # the masked kernels take elementwise masks: the superset rides
         # along as the carrier the Top-KAST masked VJP fuses
         state["pack"] = build_bwd_carrier(state["bwd_masks"])
+    if sp.method == "snfs":
+        state["dense_mom"] = tree_map(lambda _, p: torch.zeros_like(p), params)
     return state, flags
 
 
 def refresh_superset(state, cfg):
     """Redraw the backward supersets from the CURRENT masks and params
-    (right after every topology update).  No-op without ``bwd_masks``."""
+    (right after every topology update).  For method 'topkast' the weights
+    leaving the superset (B_old \\ B_new) are zeroed (in place) and their
+    optimizer state reset, so weights outside B stay exactly 0; the snfs
+    dense momentum is masked to the new B (in place), so coordinates
+    without a gradient channel carry no stale momentum into grow scores.
+    No-op without ``bwd_masks``."""
     if "bwd_masks" not in state:
         return state
     sp = cfg.sparse
@@ -244,7 +273,17 @@ def refresh_superset(state, cfg):
     new_b = topkast_backward_masks(
         state["params"], state["masks"], sp.backward_extra,
         _generator(state["seed"], 2, state["step"], dev), block_shape=sp.block_shape)
-    return dict(state, bwd_masks=new_b)
+    new_state = dict(state, bwd_masks=new_b)
+    if sp.method == "topkast":
+        leavers = tree_map(lambda _, o, n: None if o is None else o.bool() & ~n.bool(),
+                           state["bwd_masks"], new_b)
+        tree_map(lambda _, w, lv: None if lv is None else w.masked_fill_(lv, 0),
+                 state["params"], leavers)
+        new_state["opt"] = reset_connections(state["opt"], leavers)
+    if "dense_mom" in state:
+        tree_map(lambda _, mo, b: None if b is None else mo.mul_(b.to(mo.dtype)),
+                 state["dense_mom"], new_b)
+    return new_state
 
 
 def refresh_pack(state, cfg):
@@ -312,8 +351,12 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
     tensors are updated in place (see the module docstring) and the
     metrics are device tensors: reading them is the caller's sync.
     ``loss_fn(params, batch, masks=None, pack=None)`` defaults to
-    ``lm_loss``, as in the reference."""
+    ``lm_loss``, as in the reference.  Method 'topkast' optimizes (and
+    decays) the superset B; 'snfs' folds the gradient before masking (the
+    superset gradient under dispatch) into ``dense_mom`` as ``0.9 * m +
+    g``, in place under the non-finite guard."""
     dispatch = cfg.sparse.kernel not in (None, "dense")
+    is_topkast = cfg.sparse.method == "topkast"
     fused = dispatch and cfg.sparse.fused_epilogue
     if cfg.sparse.fused_epilogue:
         _check_fused(cfg, opt_cfg, dispatch)
@@ -352,15 +395,25 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
         # fused: the dispatched leaves' gradients come back as the NEW
         # momentum m_new = mu*mom + dw + wd*w (K7, K8, K19 or K20), masked
         # to the wgrad support; the raw gradient never exists
-        loss, g = grads(state, batch, _fused_pack(state, opt_cfg) if fused else None)
-        g = dense_to_sparse_grad(g, state["masks"])
+        loss, g_dense = grads(state, batch,
+                              _fused_pack(state, opt_cfg) if fused else None)
+        # topkast trains the whole superset B; every other method A only
+        opt_masks = state["bwd_masks"] if is_topkast else state["masks"]
+        g = dense_to_sparse_grad(g_dense, opt_masks)
+        if "dense_mom" in state:
+            # the decay below adds into g in place: keep g_dense's dense
+            # leaves (which g shares) raw for the momentum
+            g = tree_map(lambda _, t, m: t.clone() if m is None else t, g, opt_masks)
+        else:
+            del g_dense
         if opt_cfg.weight_decay:
-            # decay on the ACTIVE weights only (inactive must stay
-            # untouched); folded into the kernel's epilogue on fused leaves
+            # decay on the OPTIMIZED weights only (A, or B for topkast;
+            # the others must stay untouched); folded into the kernel's
+            # epilogue on fused leaves
             wd = opt_cfg.weight_decay
             tree_map(lambda _, g_, w, m: None if fused and m is not None else g_.add_(
                 wd * (w if m is None else w * m.to(w.dtype)).to(g_.dtype)),
-                g, state["params"], state["masks"])
+                g, state["params"], opt_masks)
         lr = lr_sched(state["step"])
         # fused: the norm of the momentum update on the fused leaves (the
         # reference's too); finite iff the gradient contribution is
@@ -371,6 +424,9 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
             apply_opt_fused(opt_nowd, g, state["opt"], state["params"], lr, flags, ok=ok)
         else:
             apply_opt(opt_nowd, g, state["opt"], state["params"], lr, ok=ok, gnorm=gnorm)
+        if "dense_mom" in state:  # SNFS tracks the dense-gradient momentum
+            tree_map(lambda _, mo, gd: mo.copy_(torch.where(
+                ok, SNFS_MOMENTUM * mo + gd.to(mo.dtype), mo)), state["dense_mom"], g_dense)
         nonfinite = state["nonfinite_steps"] + (~ok).to(torch.int32)
         state = dict(state, step=state["step"] + 1, nonfinite_steps=nonfinite)
         return state, {"loss": loss, "lr": lr, "grad_norm": gnorm,
@@ -381,9 +437,10 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
 
 def make_rigl_step(cfg, algo: SparseAlgo, lr_sched):
     """Build ``rigl_step(state, batch) -> (state, metrics)``: the full-batch
-    gradient (superset-restricted under dispatch), ``rigl_update`` and the
-    reset of the grown connections' optimizer state.  Follow every call
-    with ``refresh_pack``."""
+    gradient (superset-restricted under dispatch), ``rigl_update`` (with
+    the state's dense momentum and supersets) and the reset of the grown
+    connections' optimizer state.  Follow every call with
+    ``refresh_pack``."""
     _check_ported(cfg)
     dispatch = cfg.sparse.kernel not in (None, "dense")
     loss_fn = _default_loss(cfg)
@@ -400,9 +457,36 @@ def make_rigl_step(cfg, algo: SparseAlgo, lr_sched):
         params, masks, grown = rigl_update(
             state["params"], state["masks"], g, state["step"], algo,
             _generator(state["seed"], 3, state["step"], dev),
-            lr=float(lr_sched.base_lr))
+            lr=float(lr_sched.base_lr), dense_momentum=state.get("dense_mom"),
+            bwd_masks=state.get("bwd_masks"))
         opt = reset_new_connections(state["opt"], grown)
         return dict(state, step=state["step"] + 1, params=params, masks=masks,
                     opt=opt), {"loss": loss}
 
     return rigl_step
+
+
+def make_prune_fn(cfg, sched: PruningSchedule):
+    """Build ``prune_fn(state) -> state``: gradual magnitude pruning of every
+    masked layer to ``sched.target(state["step"])``.  Follow every call
+    with ``refresh_pack``."""
+
+    def fn(state):
+        params, masks = prune_step(state["params"], state["masks"], state["step"], sched)
+        return dict(state, params=params, masks=masks)
+
+    return fn
+
+
+def snip_init(state, cfg, batch, *, loss_fn=None, saliency: str = "weight_times_grad"):
+    """Replace the masks with one-shot SNIP masks from one batch's dense
+    gradient of the loss on the current params (no masks threaded, as in
+    the reference), at the config's per-layer sparsities; the params are
+    masked.  The sparse layers are those the state's masks cover."""
+    loss_fn = loss_fn or (lambda p, b: lm_loss(p, cfg, b))
+    flags = tree_map(lambda _, m: m is not None, state["masks"])
+    smap = sparsity_map(cfg, state["params"], flags)
+    _, g = _value_and_grad(loss_fn, state["params"], batch)
+    masks = snip_masks(state["params"], g, smap, saliency=saliency)
+    del g
+    return dict(state, params=apply_masks(state["params"], masks), masks=masks)

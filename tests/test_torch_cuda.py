@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
-K18 and the fused epilogue K19, training steps, paged serving, MoE serving
-and MoE training through them.
+K18, the fused epilogue K19 and the |x| histogram K21, training steps,
+paged serving, MoE serving and MoE training through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode.  The file imports no JAX, so it runs on a machine that has
@@ -1138,3 +1138,41 @@ def test_cuda_moe_masked_fused_training_step_runs_k20(monkeypatch):
                                                       3 * cfg.n_layers]
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0])
     _fused_state_agrees(states[0], st, lr.base_lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,density", [((1000,), 1.0), ((3, 777), 1.0),
+                                           ((1027, 4099), 1.0), ((2560, 6912), 0.2)])
+def test_cuda_histogram_abs_matches_plain(shape, density, dtype):
+    """K21 against its plain version in every bin (integer counts: exact),
+    the limits above max|x| and inside the range, a NaN and an inf, a
+    misaligned view (the wrapper copies it), and a masked weight whose zeros
+    crowd bin 0; then ``topk_threshold`` through K21 bit for bit against the
+    plain path, with 2 launches (1 without the refinement)."""
+    from repro_torch.kernels import topk_threshold as ttk
+    from repro_torch.kernels.ops import topk_threshold
+
+    dev = _cuda()
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    x *= rng.random(shape) < density
+    x.reshape(-1)[[0, 5]] = np.nan, np.inf
+    x = torch.from_numpy(x).to(dev, dtype)
+    finite = x.float().nan_to_num(0.0, 0.0, 0.0).abs().max()
+    for hi in (finite + 1e-12, 0.5 * finite):
+        got = ttk.histogram_counts(x, hi)
+        assert torch.equal(got, ttk.histogram_counts_plain(x, hi))
+        assert int(got.sum()) == x.numel()
+        assert torch.equal(ttk.histogram_abs(x, hi), got.float()[None])
+    view = x.reshape(-1)[1:]
+    assert torch.equal(ttk.histogram_counts(view, finite),
+                       ttk.histogram_counts_plain(view, finite))
+    clean = torch.nan_to_num(x, 0.0, 0.0, 0.0)
+    k = max(1, clean.numel() // 100)
+    for refine, n_launch in ((True, 2), (False, 1)):
+        before = ttk.launches
+        got = topk_threshold(clean, k, refine=refine)
+        assert ttk.launches - before == n_launch
+        want = topk_threshold(clean, k, refine=refine, histogram=ttk.histogram_abs_plain)
+        assert got.view(torch.int32).item() == want.view(torch.int32).item()

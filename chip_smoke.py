@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 timed with CUDA events (kernel, plain version, one PyTorch
                 library call as a yardstick) beside its roofline bound:
                 K1 (bf16, and f32 at the MLP shapes) and K9 (danube's,
-                mistral-large's and qwen2-moe's attention shapes)
+                mistral-large's and qwen2-moe's attention shapes; with
+                K9 and K12 the achieved TFLOP/s, the share of the bound,
+                the CTAs resident per SM and K12's n_split)
   4. serve   -- serve h2o-danube-1.8b at full width and depth
                 (block_sparse, block 128, flash_tight, ERK sparsity 0.8,
                 seed 0): 8 staggered greedy requests x 32 tokens through
@@ -381,7 +383,9 @@ def k9_cases(torch, timer, fa, sched_for):
     suffix's 16) and at qwen2-moe-a2.7b's (16 over 16, G = 1, head_dim 128:
     prompts of 100 and 1000), bf16.  The yardstick is PyTorch's
     scaled_dot_product_attention with the same boolean mask (none for the
-    softcap case: that call has no softcap)."""
+    softcap case: that call has no softcap).  Each case also reports the
+    achieved TFLOP/s, its share of the bound and the launch the kernel gets
+    (CTAs resident per SM, registers, shared and spill bytes, warps)."""
     F = torch.nn.functional
     cases = (  # (name, BH, G, d, S, window, softcap)
         ("S=512 causal", 32, 4, 80, 512, 0, 0.0),
@@ -431,23 +435,26 @@ def k9_cases(torch, timer, fa, sched_for):
         if window:
             mask &= pos[None, :] > pos[:, None] - window
         live = int(mask.sum())
-        b_ms, by = bound_ms(2 * (2 * BH * S * d + 2 * (BH // G) * S * d) + 4 * BH * S,
-                            4.0 * d * live * BH)
+        flops = 4.0 * d * live * BH
+        b_ms, by = bound_ms(2 * (2 * BH * S * d + 2 * (BH // G) * S * d) + 4 * BH * S, flops)
         lib_ms = None
         if not softcap:
             q4, k4, v4 = (t.view(1, -1, S, d) for t in (q, k, v))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, enable_gqa=True), reps=5)
+        ms = timer(lambda: fa.flash_fwd(*pargs, **pkw), reps=5)
         case = {
             "case": f"{name} BH={BH} G={G} d={d}",
             "max_abs_err": err_o, "lse_err": err_l, "lse_tol": 1e-3,
             "tol": "2**-7 |o| + 1.25 * 2**-8 (p @ |v|) / l, per element",
             "err_over_tol": ratio, "mean_abs_o": po.float().abs().mean().item(),
             "mean_tol": bound.mean().item(),
-            "ms": timer(lambda: fa.flash_fwd(*pargs, **pkw), reps=5),
+            "ms": ms,
             "plain_ms": timer(lambda: fa.flash_attention_plain(*pargs, **pkw),
                               reps=2, warmup=1),
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "tflop_s": flops / ms / 1e9, "share_of_bound": b_ms / ms,
+            "launch": fa.launch_info("flash_fwd", d, int(sched["kv_idx"].shape[1])),
         }
         print("K9", json.dumps(case))
         out.append(case)
@@ -493,6 +500,7 @@ def main_path(torch, timer, bsm, fa):
     fa.launches = 0
     stats = engine.run()
     launches = {"block_sparse_fwd": bsm.launches, "flash_fwd": fa.launches}
+    stats["prefill_ms"] = 1e3 * stats["prefill_s"] / stats["prefills"]
     print("main: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "quarantined",
         "failed", "wall_s", "tok_per_s", "prefill_s", "decode_step_s")}))
@@ -911,12 +919,18 @@ def train_path(torch, bsm, fa, cfg):
     stats["profiled_step_device_busy_ms"] = busy_ms or None
     top = sorted(prof, key=dev_us, reverse=True)[:25]
     stats["profiled_step_top"] = [(e.key, dev_us(e) / 1e3, e.count) for e in top]
+    # the flash kernels' share (K9 forward, K10 + K11 backward)
+    flash_ms = {n: sum(dev_us(e) for e in prof if f"{n}_kernel" in e.key) / 1e3
+                for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    stats["profiled_step_flash_ms"] = flash_ms
+    stats["profiled_step_flash_share"] = sum(flash_ms.values()) / busy_ms if busy_ms else None
     (ROOT / "chiprun_out" / "train_profile.txt").write_text(
         seen["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
     print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
           f"{total_s:.1f} s; train step {wall:.3f} s wall = {stats['tok_per_s']:.0f} tok/s; "
           f"device busy {busy_ms:.1f} ms of the profiled step's "
-          f"{profiled['wall_s']:.3f} s; peak {peak_gib:.1f} GiB; "
+          f"{profiled['wall_s']:.3f} s (flash K9-K11 {sum(flash_ms.values()):.1f} ms "
+          f"{flash_ms}); peak {peak_gib:.1f} GiB; "
           f"{moved} blocks moved by the drop/grow; launches {launches}")
     return stats, launches
 
@@ -1610,10 +1624,13 @@ def k12_cases(torch, timer, fa):
     yardstick is scaled_dot_product_attention on the table-gathered prefix
     with a key-padding mask, timed alone (the gather outside its events).
     A last case runs the paged-serve path's own shape: one 16-row suffix
-    over a 37-page table at ctx 512."""
+    over a 37-page table at ctx 512.  Each case also reports the achieved
+    TFLOP/s, its share of the bound, the plan's n_split and the launch the
+    kernel gets (CTAs resident per SM, registers, shared and spill bytes)."""
     import numpy as np
 
     F = torch.nn.functional
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     B, H, KV, d, bs, T, N = 4, 96, 8, 128, 16, 256, 1024
     ctxs = [0, 100, 2047, 4096]
     rng = np.random.default_rng(12)
@@ -1655,7 +1672,8 @@ def k12_cases(torch, timer, fa):
         # table and ctx; operations: 4 d per (query, live key) pair
         n_bytes = 2 * 2 * B * H * Sq * d + 4 * B * H * Sq + 2 * 2 * live_keys * KV * d \
             + 4 * (table.numel() + B)
-        b_ms, by = bound_ms(n_bytes, 4.0 * d * Sq * sum(ctxs) * H)
+        flops = 4.0 * d * Sq * sum(ctxs) * H
+        b_ms, by = bound_ms(n_bytes, flops)
         lib_ms = None
         if not softcap:  # SDPA has no softcap
             tab = table.long().clamp(0, N - 1)
@@ -1665,18 +1683,22 @@ def k12_cases(torch, timer, fa):
             mask = mask[:, None, None, :]
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 q, kg, vg, attn_mask=mask, enable_gqa=True), reps=5)
+        ms = timer(lambda: fa.flash_attention_paged(q, pk, pv, table, ctx,
+                                                    softcap=softcap), reps=5)
+        n_split, _ = fa.paged_split_plan(B, KV, (H // KV) * Sq, T, bs, n_sm)
         case = {
             "case": f"Sq={Sq} softcap={softcap} B={B} H={H} KV={KV} d={d} "
                     f"pages {T}x{bs} ctx={ctxs}",
             "max_abs_err": diff.max().item(), "lse_err": err_l, "lse_tol": 1e-3,
             "tol": "2**-7 |o| + 1.25 * 2**-8 (p @ |v|) / l, per element",
             "err_over_tol": ratio,
-            "ms": timer(lambda: fa.flash_attention_paged(q, pk, pv, table, ctx,
-                                                         softcap=softcap), reps=5),
+            "ms": ms,
             "plain_ms": timer(lambda: fa.flash_attention_paged_plain(
                 q, pk, pv, table, ctx, softcap=softcap), reps=2, warmup=1),
             "library_ms": lib_ms, "library": "SDPA on the gathered prefix, alone",
             "bound_ms": b_ms, "bound_by": by,
+            "tflop_s": flops / ms / 1e9, "share_of_bound": b_ms / ms,
+            "n_split": n_split, "launch": fa.launch_info("flash_paged", d),
         }
         print("K12", json.dumps(case))
         out.append(case)

@@ -1,0 +1,327 @@
+// The online-softmax core shared by the flash forward (K9, flash_fwd.cu)
+// and the paged-prefix flash (K12, flash_paged.cu).
+//
+// One warp owns 16 query rows and walks key tiles of up to kTileKeys = 64
+// keys that the CTA stages in shared memory.  Per tile:
+//
+//  * S = Q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate), operands
+//    loaded by ldmatrix: Q's 16 x 16 A tiles from the CTA's Q rows, K's B
+//    tiles from the key rows as they lie (a key row is a column of K^T).
+//    S stays in the accumulator registers: 8 n8 tiles, 32 floats a thread.
+//  * Scale (with log2(e) folded in, so exp is one ex2), the optional softcap
+//    c * tanh(s / c) and the mask apply to the fragments in place; the mask
+//    only where the caller says the tile needs one.  Masked scores are
+//    -inf; a row with no live key so far keeps m = -inf and p = 0.
+//  * Row max and row sum: a thread holds 2 rows (g, g + 8) of the quad's
+//    16; the max is reduced over the quad with __shfl_xor_sync (1, 2) every
+//    tile, the sum l stays per thread (in f32, of the unrounded p) and is
+//    reduced once, at the finish.
+//  * p is rounded to bf16 and repacked straight into the A fragments of
+//    O += P V: the m16n8 accumulator layout of two adjacent n8 tiles is the
+//    m16k16 A layout.  V's B tiles come from ldmatrix.trans on the key rows,
+//    so V needs no transposed copy.
+//  * O stays in registers for the whole walk (D / 8 n8 tiles: 10 at d = 80,
+//    16 at d = 128), rescaled by exp(m_old - m_new) per row.
+//
+// S, P and O never touch shared memory; only the finish writes o and lse
+// (or, for a split key walk, the unnormalised partial o, m and l).  The
+// accumulation order is fixed and there are no atomics: two launches on
+// the same inputs give the same bits.
+//
+// Shared-memory rows are padded to D + 8 elements: (D + 8) * 2 bytes is an
+// odd multiple of 16 for every D that is a multiple of 16, so the 8 row
+// addresses of one ldmatrix fall in 8 distinct 16-byte bank groups.
+//
+// The CTA stages K/V tiles in a ring of two stages filled by cp.async.cg
+// 16-byte copies (key_walk below): tile t + 1's copies are in flight while
+// the warps compute tile t, with one __syncthreads a tile.
+//
+// D is a template parameter (the fragment loops unroll); EXACT = false is
+// the generic instantiation at D = 128 whose loops stop at the runtime d (a
+// multiple of 16 up to 128).
+#pragma once
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr int kTileKeys = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kEps = 1e-30f;
+
+template <int D>
+__host__ __device__ constexpr int row_pad() { return D + 8; }
+
+// Shared bytes of `rows` padded rows.
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * row_pad<D>() * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared (dst a shared-window address); valid == false
+// writes 16 zero bytes and reads nothing (the src-size 0 form).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16 x 16, row) @ b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as bf16 (round to nearest even), the lower column in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Score transform: x = s * scale (then c * tanh(x / c)), in log2 units.
+struct Scores {
+  float scale_log2;  // scale * log2(e), without a softcap
+  float inner;       // scale / c
+  float cap_log2;    // c * log2(e); 0 = no softcap
+  __device__ Scores(float scale, float softcap)
+      : scale_log2(scale * kLog2e),
+        inner(softcap != 0.0f ? scale / softcap : 0.0f),
+        cap_log2(softcap * kLog2e) {}
+  __device__ __forceinline__ float operator()(float s) const {
+    return cap_log2 != 0.0f ? cap_log2 * tanhf(s * inner) : s * scale_log2;
+  }
+};
+
+// The register state of one warp's 16 query rows: thread (g, t) = (lane / 4,
+// lane % 4) holds rows g and g + 8, columns 8 n + 2 t and 8 n + 2 t + 1 of
+// each n8 tile n.
+template <int D, bool EXACT>
+struct WarpRows {
+  static constexpr int kN8 = D / 8;
+  static constexpr int kDP = row_pad<D>();
+  float o[kN8][4];
+  float m[2];  // running max, log2 units; -inf while the row saw no live key
+  float l[2];  // this thread's share of the row sum
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < kN8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.0f;
+  }
+
+  // One key tile.  q_s: the warp's first Q row in shared memory; k_s, v_s:
+  // the stage's first key row (shared-window addresses, rows of kDP
+  // elements).  n16: the tile's 16-key groups (1-4; the rows
+  // past them are never read and their columns never live).  keep(r, c):
+  // is key column c (0..63) visible to warp row r (0..15); called only when
+  // need_mask.
+  template <typename Keep>
+  __device__ __forceinline__ void attend(uint32_t q_s, uint32_t k_s, uint32_t v_s, int d,
+                                         int n16, const Scores& sc, bool need_mask,
+                                         Keep keep) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int d16 = EXACT ? D / 16 : d / 16;
+    // ldmatrix row addresses of this lane (see the fragment layouts of
+    // mma.m16n8k16): A rows lane % 16, column half lane / 16; K rows
+    // lane % 8 + 8 (lane / 16), column half (lane / 8) % 2; V (trans) key
+    // rows lane % 8 + 8 ((lane / 8) % 2), column half lane / 16.
+    const uint32_t qa = q_s + 2 * ((lane & 15) * kDP + (lane >> 4) * 8);
+    const uint32_t ka = k_s + 2 * (((lane & 7) + ((lane >> 4) << 3)) * kDP +
+                                   ((lane >> 3) & 1) * 8);
+    const uint32_t va = v_s + 2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * kDP +
+                                   (lane >> 4) * 8);
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < D / 16; ++kt) {
+      if (EXACT || kt < d16) {
+        uint32_t a[4];
+        ldsm_x4(a, qa + kt * 32);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj < n16) {
+            uint32_t b[4];
+            ldsm_x4(b, ka + jj * 16 * kDP * 2 + kt * 32);
+            mma16816(s[2 * jj], a, b[0], b[1]);
+            mma16816(s[2 * jj + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+
+    // scale, softcap, mask (columns past the n16 groups are never live);
+    // row max over the quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool past = j >= 2 * n16;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc(s[j][e]);
+        if (past || (need_mask && !keep(g + (e >> 1) * 8, 8 * j + 2 * t + (e & 1))))
+          x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float base[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      base[h] = m_new == -INFINITY ? 0.0f : m_new;  // a row with no live key: p = 0
+      corr[h] = exp2f(m[h] - base[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int n = 0; n < kN8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    // p = exp(s - m), summed in f32 and rounded to bf16 at once (as the TPU
+    // kernel does before p @ v) into the A fragments of P: 16 registers
+    // where S took 32
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[j][e] - base[e >> 1]);
+        l[e >> 1] += p[e];
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < n16) {
+        const uint32_t (&a)[4] = pa[kk];
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          if (EXACT || n < d16) {
+            uint32_t b[4];
+            ldsm_x4_t(b, va + kk * 16 * kDP * 2 + n * 32);
+            mma16816(o[2 * n], a, b[0], b[1]);
+            mma16816(o[2 * n + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+
+  // o = acc / max(l, 1e-30) in bf16 and lse = l > 0 ? m + log(l) : empty, in
+  // natural units, for the warp rows r < valid; o_g / lse_g point at the
+  // warp's row 0 (row stride d).
+  __device__ __forceinline__ void store(__nv_bfloat16* o_g, float* lse_g, int d, int valid,
+                                        float empty) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      const float lr = quad_sum(l[h]);
+      if (r >= valid) continue;
+      const float den = fmaxf(lr, kEps);
+      __nv_bfloat16* orow = o_g + (size_t)r * d;
+#pragma unroll
+      for (int n = 0; n < kN8; ++n)
+        if (EXACT || n < d / 8)
+          *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
+              pack_bf16(o[n][2 * h] / den, o[n][2 * h + 1] / den);
+      if (t == 0) lse_g[r] = lr > 0.0f ? m[h] * kLn2 + logf(den) : empty;
+    }
+  }
+
+  // A split's partial: the unnormalised f32 acc (row stride d), m in natural
+  // units (-1e30 where l = 0) and l.
+  __device__ __forceinline__ void store_partial(float* o_g, float* m_g, float* l_g, int d,
+                                                int valid) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      const float lr = quad_sum(l[h]);
+      if (r >= valid) continue;
+      float* orow = o_g + (size_t)r * d;
+#pragma unroll
+      for (int n = 0; n < kN8; ++n)
+        if (EXACT || n < d / 8)
+          *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+              make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      if (t == 0) {
+        m_g[r] = lr > 0.0f ? m[h] * kLn2 : -1e30f;
+        l_g[r] = lr;
+      }
+    }
+  }
+};
+
+// The CTA's key walk over n_tiles tiles through a two-stage K/V ring.
+// issue(t, stage) starts tile t's cp.async copies into the stage (every
+// thread); compute(t, stage) runs after the tile has landed and is visible
+// to every warp; after(t) runs once compute(t) is done (K12 stores the
+// table rows it prefetched there).  The caller committed its prologue
+// copies (Q, and tile 0 via issue(0, 0)) as one group.  One __syncthreads
+// a tile: it makes tile t visible and tells every thread that the stage
+// tile t + 1 goes to (tile t - 1's) is no longer read.
+template <typename Issue, typename Compute, typename After>
+__device__ __forceinline__ void key_walk(int n_tiles, Issue issue, Compute compute,
+                                         After after) {
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < n_tiles) issue(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    compute(t, t & 1);
+    after(t);
+  }
+  cp_async_wait_all();  // a walk of no tile still has the prologue's copies
+}
+
+}  // namespace flash

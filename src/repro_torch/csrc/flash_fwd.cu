@@ -6,211 +6,190 @@
 // the kernel walks exactly kv_idx[qb, :kv_cnt[qb]] (core/attn_sched.py) and
 // never rebuilds the schedule.  Outputs o (BH, Sqp, d) bf16 and the per-row
 // logsumexp lse (BH, Sqp) f32; a row with no live key gets o = 0 and
-// lse = +1e30, as in the TPU kernel.
+// lse = +1e30, as in the TPU kernel.  Masks: causal kpos <= qpos, window
+// kpos > qpos - window, kpos < sk for the padded tail, with
+// qpos = q_offset + qb * bq + r; scores q.k * scale, then the optional
+// softcap c * tanh(s / c); p rounded to bf16 before p @ v as the TPU kernel
+// does, l summed from the f32 p.
 //
-// Design: one CTA of 4 warps per (bh, 64-row half of a q-block); each warp
-// owns 16 query rows.  Per live KV block the CTA stages K and V (bk x d) in
-// shared memory; each warp computes its 16 x bk scores with bf16 wmma into
-// f32, applies scale, the optional softcap c*tanh(s/c), and the mask
-// (causal kpos <= qpos, window kpos > qpos - window, kpos < sk for the
-// padded tail, qpos = q_offset + qb*bq + r), updates the running max and sum
-// in f32 with p zeroed where masked (a fully masked row of a live block
-// keeps l = 0), rounds p to bf16 as the TPU kernel does before p @ v, and
-// accumulates p @ v into an f32 tile in shared memory that is rescaled by
-// exp(m_prev - m_new) row by row.  The finish writes o = acc / max(l, 1e-30)
-// and lse = l > 0 ? m + log(l) : 1e30.
+// Bound on the H100: at prefill lengths the work is 4 d flops per live
+// (q, k) pair against q, k, v and o read or written once, so the tensor
+// cores bound it (danube's S = 6144, window 4096: 0.22 TFLOP against 5 MB).
 //
-// head_dim is a runtime parameter (a multiple of 16 up to 128; danube uses
-// 80, which is not a power of two).  At bq = bk = 128 and d = 80 the tiles
-// need ~129 KB of shared memory, so the q-block is split in halves and the
-// kernel uses dynamic shared memory after cudaFuncSetAttribute.
+// Design (csrc/flash_core.cuh holds the warp-level core shared with K12):
+// a CTA takes the rows of one (bh, q-block): 8 warps (128 rows) at
+// d <= 80, 4 warps (64 rows, so a q-block of 128 is two CTAs) at d = 128 and
+// in the generic instantiation, each warp 16 rows.  Q is copied once into
+// shared memory; its ldmatrix fragments are re-read there each tile.  The
+// CTA consumes each schedule block of bk keys as 64-key tiles (a bk = 128
+// block is two) through a two-stage cp.async ring: tile t + 1's K and V
+// rows (contiguous, at KV row bh / G) are copied while the warps run tile t
+// on the tensor cores (mma.sync m16n8k16, S, P and O in registers).  A warp
+// evaluates the element mask only on a tile that crosses the diagonal, the
+// window's edge or sk for its 16 rows.  Two CTAs are resident per SM at
+// d = 80 (16 warps: 120 registers under the launch bound's 128, 67.6 KB of
+// shared memory) and at d = 128 (8 warps: 162 registers, 87 KB); no spill.
 //
-// Bound on the H100: at prefill lengths the work is 4*d flops per live
-// (q, k) pair, tensor-core bound; the bytes are q, k, v and o once.  This
-// first version uses synchronous loads and wmma (no TMA, no wgmma, no
-// warp specialisation); its time against the bound is in PERF.md.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): the 8 timed cases
+// sum to 1.47 ms (scaled_dot_product_attention 2.32, the first version
+// 12.8); danube's S = 6144, window 4096 runs at 157 TFLOP/s, 15.9% of its
+// operations bound.  wgmma with TMA and warp specialisation is the next step
+// (PERF.md section 7).
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "flash_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // query rows per CTA
-constexpr float kNegInf = -1e30f;
-constexpr float kEps = 1e-30f;
+using bf16 = __nv_bfloat16;
+using flash::kTileKeys;
 
-struct Smem {
-  __nv_bfloat16 *q, *k, *v, *p;
-  float *s, *o, *m, *l;
-};
+template <int D>
+__host__ __device__ constexpr int warps() { return D <= 80 ? 8 : 4; }
 
-__host__ __device__ inline size_t smem_bytes(int d, int bk) {
-  const size_t dp = d + 8, sp = bk + 8;
-  return sizeof(__nv_bfloat16) * (kRows * dp + 2 * bk * dp + kRows * sp) +
-         sizeof(float) * (kRows * sp + kRows * dp + 2 * kRows);
+template <int D>
+size_t smem_bytes(int width) {
+  // Q rows, two K and two V stages, the q-block's walk
+  return (size_t)flash::tile_bytes<D>(warps<D>() * 16 + 4 * kTileKeys) +
+         sizeof(int) * (size_t)width;
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ kv_idx, const int* __restrict__ kv_cnt,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int Sqp, int Skp, int d, int bq, int bk, int width, int groups,
-                 int causal, int window, int q_offset, int sk, float scale,
-                 float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dp = d + 8, sp = bk + 8;
-  Smem sm;
-  sm.q = reinterpret_cast<__nv_bfloat16*>(smem);
-  sm.k = sm.q + kRows * dp;
-  sm.v = sm.k + bk * dp;
-  sm.p = sm.v + bk * dp;
-  sm.s = reinterpret_cast<float*>(sm.p + kRows * sp);
-  sm.o = sm.s + kRows * sp;
-  sm.m = sm.o + kRows * dp;
-  sm.l = sm.m + kRows;
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(warps<D>() * 32, 2)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ kv_idx,
+                 const int* __restrict__ kv_cnt, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Sqp, int Skp, int d_rt, int bq, int bk,
+                 int width, int groups, int causal, int window, int q_offset, int sk,
+                 float scale, float softcap) {
+  constexpr int kThreads = warps<D>() * 32;
+  constexpr int kRows = warps<D>() * 16;
+  constexpr int DP = flash::row_pad<D>();
+  constexpr int kStage = flash::tile_bytes<D>(kTileKeys);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t qs = flash::smem_addr(smem);     // kRows Q rows
+  const uint32_t ks = qs + flash::tile_bytes<D>(kRows);  // 2 K stages
+  const uint32_t vs = ks + 2 * kStage;            // 2 V stages
+  int* idx_s = reinterpret_cast<int*>(smem + flash::tile_bytes<D>(kRows + 4 * kTileKeys));
 
-  const int n_half = (bq + kRows - 1) / kRows;
-  const int qb = blockIdx.x / n_half;
-  const int row0 = (blockIdx.x % n_half) * kRows;  // first row inside the q-block
-  const int rows = min(kRows, bq - row0);          // a multiple of 16
+  const int d = EXACT ? D : d_rt;
+  const int cpr = d / 8;  // 16-byte chunks a row
+  const int n_part = (bq + kRows - 1) / kRows;
+  const int qb = blockIdx.x / n_part;
+  const int row0 = (blockIdx.x % n_part) * kRows;
+  const int rows = min(kRows, bq - row0);  // a multiple of 16
   const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool live_warp = warp * 16 < rows;
-  const int dv8 = d / 8;
+  const int warp = threadIdx.x / 32;
+  const bool live = warp * 16 < rows;
 
-  const size_t q_row0 = (size_t)bh * Sqp + (size_t)qb * bq + row0;
-  for (int t = threadIdx.x; t < kRows * dv8; t += kThreads) {
-    const int r = t / dv8, c = (t % dv8) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(q + (q_row0 + r) * d + c);
-    *reinterpret_cast<uint4*>(sm.q + r * dp + c) = val;
-  }
-  for (int t = threadIdx.x; t < kRows * dp; t += kThreads) sm.o[t] = 0.0f;
-  for (int t = threadIdx.x; t < kRows; t += kThreads) {
-    sm.m[t] = kNegInf;
-    sm.l[t] = 0.0f;
-  }
-  __syncthreads();
-
-  const __nv_bfloat16* kg = k + (size_t)(bh / groups) * Skp * d;
-  const __nv_bfloat16* vg = v + (size_t)(bh / groups) * Skp * d;
-  float* s_w = sm.s + warp * 16 * sp;
-  __nv_bfloat16* p_w = sm.p + warp * 16 * sp;
-  float* o_w = sm.o + warp * 16 * dp;
-  const __nv_bfloat16* q_w = sm.q + warp * 16 * dp;
+  // row indices (< 2^31 rows): 32-bit, so fewer registers live over the walk
+  const int q_row0 = bh * Sqp + qb * bq + row0;
+  const int kv_row0 = (bh / groups) * Skp;  // KV row bh / G
+  const int* walk = kv_idx + (size_t)qb * width;
   const int count = kv_cnt[qb];
+  const int nsub = (bk + kTileKeys - 1) / kTileKeys;
+  const int n_tiles = count * nsub;
+  for (int i = threadIdx.x; i < count; i += kThreads) idx_s[i] = walk[i];
 
-  for (int step = 0; step < count; ++step) {
-    const int kb = kv_idx[qb * width + step];
-    __syncthreads();  // the previous K/V tiles are consumed
-    for (int t = threadIdx.x; t < bk * dv8; t += kThreads) {
-      const int r = t / dv8, c = (t % dv8) * 8;
-      const size_t g = ((size_t)kb * bk + r) * d + c;
-      *reinterpret_cast<uint4*>(sm.k + r * dp + c) = *reinterpret_cast<const uint4*>(kg + g);
-      *reinterpret_cast<uint4*>(sm.v + r * dp + c) = *reinterpret_cast<const uint4*>(vg + g);
-    }
-    __syncthreads();
-    if (!live_warp) continue;
-
-    // scores: (16 x d) @ (d x bk), K read as a column-major d x bk matrix
-    for (int nt = 0; nt < bk / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kt = 0; kt < d / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, q_w + kt * 16, dp);
-        wmma::load_matrix_sync(b, sm.k + nt * 16 * dp + kt * 16, dp);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(s_w + nt * 16, acc, sp, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time; lanes split the bk <= 128 columns
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const int qpos = q_offset + qb * bq + row0 + row;
-      float vals[4];
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = lane + 32 * i;
-        ok[i] = false;
-        vals[i] = kNegInf;
-        if (c < bk) {
-          const int kpos = kb * bk + c;
-          float sv = s_w[r * sp + c] * scale;
-          if (softcap != 0.0f) sv = softcap * tanhf(sv / softcap);
-          ok[i] = kpos < sk && (!causal || kpos <= qpos) &&
-                  (!window || kpos > qpos - window);
-          vals[i] = ok[i] ? sv : kNegInf;
-          mx = fmaxf(mx, vals[i]);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sm.m[row];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = lane + 32 * i;
-        if (c < bk) {
-          const float p = ok[i] ? expf(vals[i] - m_new) : 0.0f;
-          p_w[r * sp + c] = __float2bfloat16(p);
-          sum += p;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m_prev - m_new);
-      __syncwarp();  // every lane has read m_prev
-      if (lane == 0) {
-        sm.m[row] = m_new;
-        sm.l[row] = sm.l[row] * corr + sum;
-      }
-      for (int c = lane; c < d; c += 32) o_w[r * dp + c] *= corr;
-    }
-    __syncwarp();
-
-    // o += p (16 x bk, bf16) @ v (bk x d)
-    for (int nt = 0; nt < d / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_w + nt * 16, dp, wmma::mem_row_major);
-      for (int kt = 0; kt < bk / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, p_w + kt * 16, sp);
-        wmma::load_matrix_sync(b, sm.v + kt * 16 * dp + nt * 16, dp);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(o_w + nt * 16, acc, dp, wmma::mem_row_major);
-    }
-    __syncwarp();
+  for (int c = threadIdx.x; c < kRows * cpr; c += kThreads) {
+    const int r = c / cpr, col = (c % cpr) * 8;
+    const bool ok = r < rows;
+    flash::cp_async16(qs + 2 * (r * DP + col), q + (size_t)(q_row0 + (ok ? r : 0)) * d + col,
+                      ok);
   }
+  // tile t: sub-tile t % nsub of schedule block kb = walk[t / nsub]
+  auto issue_block = [&](int t, int stage, int kb) {
+    const int sub = t % nsub;
+    const int key0 = kb * bk + sub * kTileKeys;
+    const int nk = min(kTileKeys, bk - sub * kTileKeys);
+    for (int c = threadIdx.x; c < nk * cpr; c += kThreads) {
+      const int r = c / cpr, col = (c % cpr) * 8;
+      const size_t g = (size_t)(kv_row0 + key0 + r) * d + col;
+      const uint32_t at = stage * kStage + 2 * (r * DP + col);
+      flash::cp_async16(ks + at, k + g, true);
+      flash::cp_async16(vs + at, v + g, true);
+    }
+  };
+  if (n_tiles > 0) issue_block(0, 0, walk[0]);
+  flash::cp_async_commit();
 
-  if (!live_warp) return;
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r;
-    const float l_raw = sm.l[row];
-    const float l = fmaxf(l_raw, kEps);
-    const size_t g = q_row0 + row;
-    for (int c = lane; c < d; c += 32)
-      o[g * d + c] = __float2bfloat16(o_w[r * dp + c] / l);
-    if (lane == 0) lse[g] = l_raw > 0.0f ? sm.m[row] + logf(l) : -kNegInf;
-  }
+  const int q_lo = q_offset + qb * bq + row0 + warp * 16;  // the warp's first qpos
+  const flash::Scores sc(scale, softcap);
+  flash::WarpRows<D, EXACT> acc;
+  acc.init();
+  flash::key_walk(
+      n_tiles,
+      [&](int t, int stage) { issue_block(t, stage, idx_s[t / nsub]); },
+      [&](int t, int stage) {
+        if (!live) return;
+        const int sub = t % nsub;
+        const int key0 = idx_s[t / nsub] * bk + sub * kTileKeys;
+        const int nk = min(kTileKeys, bk - sub * kTileKeys);
+        const int k_hi = key0 + nk - 1;
+        const bool inside = k_hi < sk && (!causal || k_hi <= q_lo) &&
+                            (!window || key0 > q_lo + 15 - window);
+        acc.attend(qs + warp * 16 * DP * 2, ks + stage * kStage, vs + stage * kStage, d,
+                   nk / 16, sc, !inside,
+                   [&](int r, int c) {
+                     const int kpos = key0 + c, qpos = q_lo + r;
+                     return kpos < sk && (!causal || kpos <= qpos) &&
+                            (!window || kpos > qpos - window);
+                   });
+      },
+      [](int) {});
+
+  if (live)
+    acc.store(o + (size_t)(q_row0 + warp * 16) * d, lse + q_row0 + warp * 16, d, rows - warp * 16,
+              1e30f);
+}
+
+template <int D, bool EXACT>
+cudaError_t prepare(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, EXACT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_fwd_kernel<D, EXACT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D, bool EXACT>
+int launch(const void* q, const void* k, const void* v, const void* kv_idx,
+           const void* kv_cnt, void* o, void* lse, int BH, int Sqp, int Skp, int d, int bq,
+           int bk, int width, int groups, int causal, int window, int q_offset, int sk,
+           float scale, float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>(width);
+  cudaError_t err = prepare<D, EXACT>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kRows = warps<D>() * 16;
+  const dim3 grid((Sqp / bq) * ((bq + kRows - 1) / kRows), BH);
+  flash_fwd_kernel<D, EXACT><<<grid, warps<D>() * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(kv_idx), static_cast<const int*>(kv_cnt),
+      static_cast<bf16*>(o), static_cast<float*>(lse), Sqp, Skp, d, bq, bk, width, groups,
+      causal, window, q_offset, sk, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool EXACT>
+int info(int width, int* out) {
+  const size_t smem = smem_bytes<D>(width);
+  cudaError_t err = prepare<D, EXACT>(smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<D, EXACT>);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, flash_fwd_kernel<D, EXACT>,
+                                                        warps<D>() * 32, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = ctas;
+  out[1] = attr.numRegs;
+  out[2] = (int)smem;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = warps<D>();
+  return 0;
 }
 
 }  // namespace
@@ -218,23 +197,29 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 // q (BH, Sqp, d), k/v (BH/groups, Skp, d) bf16; kv_idx (Sqp/bq, width),
 // kv_cnt (Sqp/bq,) int32; o (BH, Sqp, d) bf16, lse (BH, Sqp) f32.  The
 // wrapper checks d % 16 == 0 and d <= 128, bq and bk multiples of 16 up to
-// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.
+// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.  d = 80 and
+// d = 128 run their own instantiations; other d the generic one.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_idx, const void* kv_cnt, void* o, void* lse,
                          int BH, int Sqp, int Skp, int d, int bq, int bk, int width,
                          int groups, int causal, int window, int q_offset, int sk,
                          float scale, float softcap, void* stream) {
-  const size_t smem = smem_bytes(d, bk);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_half = (bq + kRows - 1) / kRows;
-  const dim3 grid((Sqp / bq) * n_half, BH);
-  flash_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_idx),
-      static_cast<const int*>(kv_cnt), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), Sqp, Skp, d, bq, bk, width, groups, causal, window,
-      q_offset, sk, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return launch<80, true>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
+                            groups, causal, window, q_offset, sk, scale, softcap, s);
+  if (d == 128)
+    return launch<128, true>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
+                             groups, causal, window, q_offset, sk, scale, softcap, s);
+  return launch<128, false>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
+                            groups, causal, window, q_offset, sk, scale, softcap, s);
+}
+
+// The launch the instantiation for head_dim d gets at schedule width
+// `width`: out = {CTAs resident per SM, registers a thread, dynamic shared
+// bytes, local (spill) bytes a thread, warps a CTA}.
+extern "C" int flash_fwd_info(int d, int width, int* out) {
+  if (d == 80) return info<80, true>(width, out);
+  if (d == 128) return info<128, true>(width, out);
+  return info<128, false>(width, out);
 }

@@ -11,7 +11,12 @@ the sources:
       ``q_idx[kb, :q_cnt[kb]]``, summed over each GQA group -> csrc/flash_bwd.cu
   K12 ``_paged_kernel`` (``_paged_call``)  the prefix phase of a suffix
       prefill: suffix queries over the live pages of a paged KV pool,
-      through a block table, o and lse              -> csrc/flash_paged.cu
+      through a block table, o and lse, the key walk split as
+      ``paged_split_plan`` says and merged (``merge_partials_plain`` is the
+      merge's plain version)                        -> csrc/flash_paged.cu
+
+K9 and K12 share their warp-level core (mma.sync with register-resident S,
+P and O, a two-stage cp.async ring): csrc/flash_core.cuh.
 
 The walks come from a host-built AttnSchedule (``core/attn_sched.py``); the
 causal, sliding-window, ``q_offset`` and padded-key masks are applied in the
@@ -60,15 +65,20 @@ __all__ = [
     "flash_dq",
     "flash_fwd",
     "grad_error_bound",
+    "launch_info",
     "launches",
     "dq_launches",
     "dkv_launches",
+    "merge_partials_plain",
     "paged_launches",
+    "paged_split_plan",
     "o_error_bound",
 ]
 
 NEG_INF = -1e30
 EPS = 1e-30
+PAGED_ROWS = 64    # folded query rows a K12 CTA takes (csrc/flash_paged.cu)
+SPLIT_KEYS = 128   # the unit of a K12 split's key range
 
 # kernel launches since import (or since a caller reset them)
 launches = 0      # K9
@@ -523,6 +533,64 @@ def flash_attention_paged_plain(q, pool_k, pool_v, table, ctx, *,
     return o, lse
 
 
+def paged_split_plan(B: int, KV: int, R: int, T: int, bs: int, n_sm: int):
+    """K12's split of the key walk, from shapes alone -> (n_split, ranges).
+
+    The grid without a split is ceil(R / PAGED_ROWS) * B * KV CTAs (R = G * Sq
+    folded rows of one KV head).  ``n_split`` is the smallest count that
+    gives a grid of at least ``n_sm`` CTAs, capped by the number of
+    SPLIT_KEYS-key tiles in the table's T * bs keys; split s covers the tiles
+    [s * n // n_split, (s + 1) * n // n_split) of those n, so every tile lies
+    in exactly one split, in order.  ``ranges`` lists each split's keys
+    (k0, k1), k1 clipped to T * bs; the kernel computes the same ranges and
+    clips them to the row's n_keys = min(ctx[b], T * bs) on the device."""
+    n_keys = T * bs
+    tiles = max(1, -(-n_keys // SPLIT_KEYS))
+    base = B * KV * -(-R // PAGED_ROWS)
+    n_split = min(tiles, -(-n_sm // base))
+    ranges = [((s * tiles // n_split) * SPLIT_KEYS,
+               min(((s + 1) * tiles // n_split) * SPLIT_KEYS, n_keys))
+              for s in range(n_split)]
+    return n_split, ranges
+
+
+def merge_partials_plain(o_part, m_part, l_part):
+    """Plain version of K12's merge of a split key walk: partials o_part
+    (n_split, ..., d) f32 unnormalised, m_part and l_part (n_split, ...) f32
+    (m = -1e30 where l = 0) -> (o (..., d) f32, lse (...) f32), in the
+    kernel's fixed order s = 0..n_split-1: m* = max m_s,
+    l = sum l_s e^(m_s - m*), o = sum o_s e^(m_s - m*) / max(l, 1e-30),
+    lse = l > 0 ? m* + log l : -1e30."""
+    m_all = m_part.amax(0)
+    w = torch.exp(m_part - m_all)
+    l = (l_part * w).sum(0)
+    o = (o_part * w[..., None]).sum(0) / l.clamp_min(EPS)[..., None]
+    lse = torch.where(l > 0, m_all + torch.log(l.clamp_min(EPS)),
+                      torch.full_like(l, NEG_INF))
+    return o, lse
+
+
+def launch_info(kernel: str, d: int, width: int = 1) -> dict:
+    """The launch a CUDA kernel gets at head_dim ``d`` (``kernel`` "flash_fwd"
+    at schedule width ``width``, or "flash_paged"): CTAs resident per SM,
+    registers a thread, dynamic shared bytes, local (spill) bytes a thread
+    and warps a CTA, from the CUDA runtime.  Needs a card."""
+    lib = _build.load(kernel)
+    out = (ctypes.c_int * 5)()
+    if kernel == "flash_fwd":
+        fn = lib.flash_fwd_info
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        args = (d, width, ctypes.addressof(out))
+    else:
+        fn = lib.flash_paged_info
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        args = (d, ctypes.addressof(out))
+    fn.restype = ctypes.c_int
+    _build.check(lib, fn(*args), f"{kernel} launch info")
+    return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "spill_bytes", "warps"),
+                    list(out)))
+
+
 def flash_attention_paged(q, pool_k, pool_v, table, ctx, *,
                           softcap: float = 0.0):
     """K12: suffix queries attending a paged KV prefix through a block
@@ -535,8 +603,10 @@ def flash_attention_paged(q, pool_k, pool_v, table, ctx, *,
     lse (B, H, Sq) f32); rows with ctx == 0 give o = 0 and lse = -1e30.
     CUDA tensors launch the kernel (bf16) or raise; CPU tensors run the
     plain version.  The reference's q-tile ``bq`` has no counterpart: the
-    kernel tiles the G * Sq rows of each KV head by 64.  Nothing here reads
-    ctx or the table on the host.
+    kernel tiles the G * Sq rows of each KV head by 64 and splits the key
+    walk as ``paged_split_plan`` says (the split partials go to scratch
+    allocated here; the same C call merges them).  Nothing here reads ctx or
+    the table on the host.
     """
     global paged_launches
     if not _on_device("flash_attention_paged", q):
@@ -567,15 +637,24 @@ def flash_attention_paged(q, pool_k, pool_v, table, ctx, *,
         raise ValueError(f"{what}: q and the pools must be 16-byte aligned")
     lib = _build.load("flash_paged")
     fn = lib.flash_paged
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    T = table.shape[1]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split, _ = paged_split_plan(B, KV, (H // KV) * Sq, T, bs, n_sm)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    part = (0, 0, 0)
+    if n_split > 1:
+        rows = B * H * Sq
+        o_part = torch.empty(n_split, rows, d, dtype=torch.float32, device=q.device)
+        ml = torch.empty(2, n_split, rows, dtype=torch.float32, device=q.device)
+        part = (o_part.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr())
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                 table.data_ptr(), ctx.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                B, H, Sq, N, bs, KV, table.shape[1], d,
+                *part, B, H, Sq, N, bs, KV, T, d, n_split,
                 float(1.0 / np.sqrt(d)), float(softcap),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_paged launch")

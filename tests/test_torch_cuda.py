@@ -20,13 +20,20 @@ from repro_torch.kernels import masked_matmul as tmm  # noqa: E402
 from repro_torch.kernels.ops import block_sparse_linear, masked_linear  # noqa: E402
 
 FLASH_CASES = {
-    # name: (Sq, Sk, causal, window, softcap, kv_groups)
-    "causal": (256, 256, True, 0, 0.0, 1),
-    "window": (300, 300, True, 64, 0.0, 4),
-    "ragged": (100, 100, True, 0, 0.0, 4),
-    "softcap": (256, 256, True, 0, 30.0, 4),
-    "q_offset": (64, 200, True, 0, 0.0, 2),
-    "full": (128, 128, False, 0, 0.0, 1),
+    # name: (Sq, Sk, causal, window, softcap, kv_groups, head_dim)
+    "causal": (256, 256, True, 0, 0.0, 1, 80),
+    "window": (300, 300, True, 64, 0.0, 4, 80),
+    "ragged": (100, 100, True, 0, 0.0, 4, 80),
+    "softcap": (256, 256, True, 0, 30.0, 4, 80),
+    "q_offset": (64, 200, True, 0, 0.0, 2, 80),
+    "full": (128, 128, False, 0, 0.0, 1, 80),
+    # qwen2-moe's attention (G = 1, head_dim 128) at a 1000-token prefill
+    "d128 G=1 S=1000": (1000, 1000, True, 0, 0.0, 1, 128),
+    # ragged Sq < Sk: q_offset 223, neither length a multiple of a tile
+    "ragged q_offset": (77, 300, True, 0, 0.0, 4, 80),
+    # window edges inside the 64-key tiles and the 128-row q-blocks
+    "window edge": (400, 400, True, 100, 0.0, 4, 80),
+    "window edge d128": (520, 520, True, 200, 0.0, 2, 128),
 }
 
 
@@ -123,9 +130,9 @@ def test_cuda_block_sparse_backward_matches_plain(shape, dtype):
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_cuda_flash_matches_plain(case):
     dev = _cuda()
-    Sq, Sk, causal, window, softcap, G = FLASH_CASES[case]
+    Sq, Sk, causal, window, softcap, G, d = FLASH_CASES[case]
     rng = np.random.default_rng(6)
-    q, k, v = (torch.from_numpy(rng.standard_normal((n, s, 80)).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32))
                .to(torch.bfloat16) for n, s in ((8, Sq), (8 // G, Sk), (8 // G, Sk)))
     # o, element by element: the bound of rounding p to bf16 in the kernel
     # and o to bf16 on both sides (tfa.o_error_bound); lse: f32 in both
@@ -144,18 +151,18 @@ def test_cuda_flash_backward_matches_plain(case):
     """K10 (dq) and K11 (dk, dv) against their plain versions, element by
     element within ``grad_error_bound``."""
     dev = _cuda()
-    Sq, Sk, causal, window, softcap, G = FLASH_CASES[case]
+    Sq, Sk, causal, window, softcap, G, d = FLASH_CASES[case]
     rng = np.random.default_rng(7)
-    q, k, v = (torch.from_numpy(rng.standard_normal((n, s, 80)).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32))
                .to(torch.bfloat16) for n, s in ((8, Sq), (8 // G, Sk), (8 // G, Sk)))
-    do = torch.from_numpy(rng.standard_normal((8, Sq, 80)).astype(np.float32)).to(torch.bfloat16)
+    do = torch.from_numpy(rng.standard_normal((8, Sq, d)).astype(np.float32)).to(torch.bfloat16)
     bq, bk = tfa.effective_blocks(Sq, Sk)
     Sqp, Skp = -(-Sq // bq) * bq, -(-Sk // bk) * bk
     pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[1]))
     q, do, k, v = pad(q, Sqp), pad(do, Sqp), pad(k, Skp), pad(v, Skp)
     sched = tfa._schedule_on(torch.device("cpu"), Sq, Sk, bq, bk, causal, window, Sk - Sq)
     kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=Sk - Sq, sk=Sk,
-              scale=80 ** -0.5, softcap=softcap, kv_groups=G)
+              scale=d ** -0.5, softcap=softcap, kv_groups=G)
     o, lse = tfa.flash_fwd(q, k, v, sched[0], sched[1], **kw)
     delta = (do.float() * o.float()).sum(-1)
     blocks = tfa._schedule_mask(sched[0], sched[1], Skp // bk, "cpu")
@@ -507,6 +514,60 @@ def test_cuda_paged_flash_matches_plain(Sq, softcap):
     assert (lse[live] - plse[live]).abs().max().item() <= 1e-3
     assert bool((lse[0] == -1e30).all()) and bool((o[0] == 0).all())
     assert int((~live).sum()) == H * Sq
+
+
+def _paged_path_problem(dev, seed=37):
+    """The paged-serve path's K12 shape: one 16-row suffix of mistral-large
+    (96 heads over 8 KV heads, head_dim 128) over a 37-page table of 16
+    keys in a pool of 148 shuffled pages, ctx 512 (the last 5 entries are
+    the sentinel)."""
+    B, H, KV, d, bs, T, N = 1, 96, 8, 128, 16, 37, 148
+    rng = np.random.default_rng(seed)
+    table = np.full((B, T), N, np.int32)
+    table[0, :32] = rng.permutation(N)[:32]
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16).to(dev)
+    return (f(B, H, 16, d), f(N, bs, KV, d), f(N, bs, KV, d),
+            torch.from_numpy(table).to(dev), torch.tensor([512], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_flash_split_matches_plain():
+    """K12 at the paged-serve path's shape splits its key walk (n_split > 1
+    on the card's SM count) and agrees with the plain version: o element by
+    element within ``o_error_bound``, lse within 1e-3; one launch counted."""
+    dev = _cuda()
+    q, pk, pv, table, ctx = _paged_path_problem(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, _ = tfa.paged_split_plan(1, 8, 12 * 16, table.shape[1], 16, n_sm)
+    assert n_split > 1
+    n0 = tfa.paged_launches
+    o, lse = tfa.flash_attention_paged(q, pk, pv, table, ctx)
+    assert tfa.paged_launches == n0 + 1
+    po, plse = tfa.flash_attention_paged_plain(q, pk, pv, table, ctx)
+    pa, _ = tfa.flash_attention_paged_plain(q, pk, pv.abs(), table, ctx)
+    assert bool(((o.float() - po.float()).abs() <= tfa.o_error_bound(po, pa)).all())
+    assert (lse - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_are_deterministic():
+    """Two launches of K9 (danube's d = 80, G = 4, window; qwen2-moe's
+    d = 128, G = 1) and of K12 (split and unsplit) on the same inputs give
+    identical bits."""
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    for BH, G, d, S, window in ((8, 4, 80, 700, 256), (4, 1, 128, 600, 0)):
+        q, k, v = (torch.from_numpy(rng.standard_normal((n, S, d)).astype(np.float32))
+                   .to(torch.bfloat16).to(dev) for n in (BH, BH // G, BH // G))
+        kw = dict(causal=True, window=window, kv_groups=G, return_lse=True)
+        a, b = (tfa.flash_attention(q, k, v, **kw) for _ in range(2))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    q, pk, pv, table, ctx = _paged_path_problem(dev)
+    for qq in (q, q.repeat(4, 1, 8, 1)):  # split, then Sq 128 x 4 rows: unsplit
+        tt, cc = table.repeat(qq.shape[0], 1), ctx.repeat(qq.shape[0])
+        a, b = (tfa.flash_attention_paged(qq, pk, pv, tt, cc) for _ in range(2))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda

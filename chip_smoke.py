@@ -30,7 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 warmup-cosine, batch 8 x 1024 in the config's 4 microbatches,
                 6 steps, a drop/grow at step 2): first K2, K3 (on layer 0's
                 packs and supersets) and K10, K11 against their plain
-                versions and timed; the step-0 loss and two weight gradients
+                versions and timed (TFLOP/s, share of the bound, SDPA's
+                backward masked and, where purely causal, is_causal; each
+                launch's plan, CTAs, occupancy, registers, shared and spill
+                bytes, longest walk; every candidate plan timed); the step-0
+                loss and two weight gradients
                 against the plain dense path on the same weights; then
                 ``train_loop``: finite losses, the exact launch counts of
                 every kernel per step, and after the update unchanged block
@@ -664,6 +668,40 @@ DANUBE_FLASH_BWD = (("S=1024 window=4096 (main-path shape)", 64, 1024, 4096, 0.0
                     ("S=512 causal softcap=30 (parity only)", 32, 512, 0, 30.0))
 
 
+def bwd_launch(torch, fa, kind, sched, kw, n_rows, d, Sp):
+    """The launch K10 (``kind`` "dq") or K11 ("dkv") gets at one case: its
+    plan (pair, n_split), CTAs, the longest CTA's walk in 64-row tiles,
+    and from the runtime CTAs resident per SM, registers, shared and spill
+    bytes and warps a CTA."""
+    idx, cnt = (sched["kv_idx"], sched["kv_cnt"]) if kind == "dq" else (sched["q_idx"],
+                                                                        sched["q_cnt"])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    pair, n_split = fa._bwd_plan_for(kind, Sp, Sp, d, n_rows, n_sm, **kw)
+    walks = fa.bwd_walks(kind, idx, cnt, bq=kw["bq"], bk=kw["bk"], causal=kw["causal"],
+                         window=kw["window"], q_offset=kw["q_offset"], sk=kw["sk"],
+                         groups=kw["kv_groups"], unit_rows=fa.bwd_unit_rows(kind, d),
+                         pair=pair, n_split=n_split)
+    return {"pair": pair, "n_split": n_split, "ctas": len(walks) * n_rows,
+            "longest_walk_tiles": max(sum(len(st) for _, _, st in units) for _, units in walks),
+            **fa.launch_info(f"flash_{kind}", d, int(idx.shape[1]))}
+
+
+def plan_sweep(timer, fa, fn, args, kw):
+    """ms of one K10 / K11 call under every candidate plan of
+    ``fa.bwd_plan`` (pair, n_split), with the plan forced for the timing:
+    {"pair=P split=S": ms}."""
+    chosen = fa._bwd_plan_for
+    out = {}
+    try:
+        for n_split in range(1, fa.BWD_MAX_SPLIT + 1):
+            for pair in (False, True):
+                fa._bwd_plan_for = lambda *a, **k: (pair, n_split)
+                out[f"pair={int(pair)} split={n_split}"] = timer(lambda: fn(*args, **kw), reps=5)
+    finally:
+        fa._bwd_plan_for = chosen
+    return out
+
+
 def flash_bwd_cases(torch, timer, fa, G=4, d=80, cases=DANUBE_FLASH_BWD):
     """K10 (dq) and K11 (dk, dv), by default at danube's attention shapes
     (32 query heads per sequence over 8 KV heads, G = 4, head_dim 80,
@@ -673,7 +711,14 @@ def flash_bwd_cases(torch, timer, fa, G=4, d=80, cases=DANUBE_FLASH_BWD):
     (name, query heads BH, S, window, softcap).  Each gradient element by
     element within ``fa.grad_error_bound``; the yardstick is the backward
     of scaled_dot_product_attention with the same mask and enable_gqa,
-    which computes dq, dk and dv together (timed as a pair)."""
+    which computes dq, dk and dv together (timed as a pair), and, where the
+    mask is purely causal, the same call with is_causal=True
+    (``library_causal_ms``).  Each case also reports the achieved TFLOP/s,
+    its share of the bound, the launch (``bwd_launch``) and each kernel's
+    time under every candidate plan of ``fa.bwd_plan`` (``plan_sweep``),
+    with whether the plan it chose was the fastest of them."""
+    from repro_torch.core.attn_sched import sched_for
+
     F = torch.nn.functional
     k10, k11 = [], []
     for name, BH, S, window, softcap in cases:
@@ -708,29 +753,42 @@ def flash_bwd_cases(torch, timer, fa, G=4, d=80, cases=DANUBE_FLASH_BWD):
         if window:
             mask &= pos[None, :] > pos[:, None] - window
         live = int(mask.sum())
-        lib_ms = None
+        lib_ms = lib_causal_ms = None
         if not softcap:
             q4, k4, v4 = (t.view(1, -1, S, d).detach().requires_grad_(True) for t in (q, k, v))
-            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
             do4 = do.view(1, BH, S, d)
+            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
             lib_ms = timer(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
                                                        retain_graph=True), reps=5)
+            if not window or window >= S:
+                out_c = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                       enable_gqa=True)
+                lib_causal_ms = timer(lambda: torch.autograd.grad(out_c, (q4, k4, v4), do4,
+                                                                  retain_graph=True), reps=5)
         plain_ms = timer(lambda: fa.flash_bwd_plain(*plain_args, **kw), reps=2, warmup=1)
         BKV = BH // G
-        for kernel, fn, args, what, n_bytes, flops in (
-                ("K10", fa.flash_dq, dq_args, ("dq",),
+        sched_np = sched_for(S, S, bq, bk, True, window, 0)
+        for kernel, kind, fn, args, what, n_bytes, flops in (
+                ("K10", "dq", fa.flash_dq, dq_args, ("dq",),
                  2 * (3 * BH * S * d + 2 * BKV * S * d) + 8 * BH * S, 6.0 * d * live * BH),
-                ("K11", fa.flash_dkv, dkv_args, ("dk", "dv"),
+                ("K11", "dkv", fa.flash_dkv, dkv_args, ("dk", "dv"),
                  2 * (2 * BH * S * d + 4 * BKV * S * d) + 8 * BH * S, 8.0 * d * live * BH)):
             b_ms, by = bound_ms(n_bytes, flops)
+            ms = timer(lambda: fn(*args, **kw), reps=5)
+            launch = bwd_launch(torch, fa, kind, sched_np, kw, BH if kind == "dq" else BKV, d, Sp)
+            plans = plan_sweep(timer, fa, fn, args, kw)
+            mine = f"pair={int(launch['pair'])} split={launch['n_split']}"
             case = {"case": f"{name} BH={BH} G={G} d={d}",
                     "max_abs_err": max(checks[w_][0] for w_ in what),
                     "err_over_tol": max(checks[w_][1] for w_ in what),
                     "mean_tol": {w_: checks[w_][2] for w_ in what},
-                    "ms": timer(lambda: fn(*args, **kw), reps=5),
-                    "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
-                    "library_ms": lib_ms, "library_covers": "dq, dk and dv",
-                    "bound_ms": b_ms, "bound_by": by}
+                    "ms": ms, "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+                    "library_ms": lib_ms, "library_causal_ms": lib_causal_ms,
+                    "library_covers": "dq, dk and dv",
+                    "bound_ms": b_ms, "bound_by": by,
+                    "tflop_s": flops / ms / 1e9, "share_of_bound": b_ms / ms,
+                    "launch": launch, "plans_ms": plans,
+                    "plan_is_fastest": plans[mine] == min(plans.values())}
             print(kernel, json.dumps(case))
             (k10 if kernel == "K10" else k11).append(case)
     return k10, k11
@@ -919,9 +977,10 @@ def train_path(torch, bsm, fa, cfg):
     stats["profiled_step_device_busy_ms"] = busy_ms or None
     top = sorted(prof, key=dev_us, reverse=True)[:25]
     stats["profiled_step_top"] = [(e.key, dev_us(e) / 1e3, e.count) for e in top]
-    # the flash kernels' share (K9 forward, K10 + K11 backward)
+    # the flash kernels' share (K9 forward, K10 + K11 backward and the merge
+    # of their split walks)
     flash_ms = {n: sum(dev_us(e) for e in prof if f"{n}_kernel" in e.key) / 1e3
-                for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+                for n in ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_merge")}
     stats["profiled_step_flash_ms"] = flash_ms
     stats["profiled_step_flash_share"] = sum(flash_ms.values()) / busy_ms if busy_ms else None
     (ROOT / "chiprun_out" / "train_profile.txt").write_text(

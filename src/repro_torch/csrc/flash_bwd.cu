@@ -12,355 +12,548 @@
 //
 // Rounding points as the reference's kernels: scores and do @ v^T in f32
 // from bf16 operands, p rounded to do's type before p^T @ do, ds rounded to
-// q's/k's type before ds @ k and ds^T @ q, f32 accumulators, outputs rounded
-// once.  Masked score slots (causal, window, padded keys kpos >= sk) get
-// p = 0 (the reference's exp(NEG_INF - lse) = 0); a dead query row carries
-// lse = +1e30 from the forward, so every p of it is 0, never NaN.
+// q's/k's type before ds @ k and ds^T @ q, f32 accumulators, each output
+// rounded once.  Masked score slots (causal, window, padded keys kpos >= sk)
+// get p = 0 (the reference's exp(NEG_INF - lse) = 0); a dead query row
+// carries lse = +1e30 from the forward, so every p of it is 0, never NaN.
 //
-// Design (no atomics; every sum in a fixed order, so results repeat run to
-// run): the TPU kernels carry accumulators across sequential grid axes; here
-// a loop inside one CTA takes their place.
-//  * K10: one CTA of 4 warps per (bh, 64-row half of a q-block); each warp
-//    owns 16 query rows and keeps its dq (16 x d) in wmma accumulators.  Per
-//    live KV block the CTA stages K and V (bk x d); each warp computes its
-//    scores and do @ v^T 16 columns at a time into a small f32 tile, forms
-//    ds there, and stores it as bf16 (16 x bk) for the ds @ k product.
-//  * K11: one CTA of 8 warps per (b*KV row, KV block); warp w owns KV rows
-//    16w..16w+15 and keeps their dk and dv (16 x d each) in wmma
-//    accumulators across the G group members and the live q-blocks.  Per
-//    (member, q-block) the CTA stages q, do (bq x d), lse and delta; each
-//    warp computes s^T and (do @ v^T)^T 16 q-columns at a time, forms p^T
-//    and ds^T (bf16, 16 x bq), then dv += p^T @ do and dk += ds^T @ q.
-// head_dim is a runtime multiple of 16 up to 128 (danube: 80).  Shared
-// memory at bq = bk = 128, d = 80: K10 ~92 KB, K11 ~173 KB, both above the
-// 48 KB static limit, so the entries raise it with cudaFuncSetAttribute.
+// Bound on the H100: per live (q, k) pair K10 does 6 d flops (three
+// products) and K11 8 d (four) on the tensor cores; the bytes are q, k, v,
+// do, lse, delta and the outputs once, so at training lengths the tensor
+// cores bound both.
 //
-// Bound on the H100: per live (q, k) pair K10 does 6*d flops (three
-// products) and K11 8*d (four), tensor-core work at prefill lengths; the
-// bytes are q, k, v, do, lse, delta and the outputs once.  This first
-// version uses synchronous loads and wmma (no TMA, no wgmma); its times
-// against the bound are in PERF.md.
+// Design, on the warp-level core of csrc/flash_core.cuh (mma.sync m16n8k16
+// with ldmatrix operands, shared with K9 and K12): a CTA owns one unit of
+// rows, each warp 16 of them, and keeps their gradient in registers for
+// its whole walk; the scores, dP, p and ds never touch shared memory
+// (WarpDq, WarpDkv).
+//  * K10: a unit is the query rows of one (bh, q-block): 128 (8 warps) at
+//    d = 80, 64 (4 warps, so a bq = 128 block is two units) at d = 128 and
+//    in the generic instantiation.  Q and dO are staged once; the CTA
+//    walks the live KV blocks as 64-key tiles through the two-stage
+//    cp.async ring of K and V (key_walk), sharing each tile among its
+//    warps.  dq stays in registers and is stored once.
+//  * K11: a unit is 64 KV rows of one (B*KV row, KV block), so a bk = 128
+//    block is two units (the rows of dk and dv are independent: no sum
+//    crosses CTAs but a split's).  K and V are staged once; the ring
+//    streams 64-row Q and dO tiles with their lse and delta over the G
+//    group members and the live q-blocks of the transposed schedule.
+//    lse and delta are read per column of the S^T accumulator.
+//  * The walk lists only the live 64-row sub-tiles of the schedule's live
+//    blocks: a sub-tile wholly dead for the unit (under causal, a K11
+//    unit's half of a diagonal 128 x 128 block above the diagonal; keys
+//    past sk) is skipped, and inside a tile a warp runs only its live
+//    16-row groups (a K10 warp above the diagonal skips the whole tile).  The element
+//    mask applies only where a warp's tile crosses the diagonal, the
+//    window's edge or sk.  Warp 0 builds the list in shared memory with a
+//    ballot, in schedule order.
+//  * Balance, the causal critical path: under a causal mask the walks grow
+//    linearly along the units, so a CTA may pair unit j with unit
+//    n - 1 - j (pair = 1), walking both in turn; and each unit's walk may
+//    be split over n_split CTAs (split s takes steps [s L / n_split,
+//    (s + 1) L / n_split) of its L), each storing its f32 partial, which a
+//    second kernel of this source sums in the fixed order s = 0..n_split -
+//    1 and rounds once.  The wrapper's plan
+//    (kernels/flash_attention.py::bwd_plan) picks (pair, n_split) per
+//    launch by list-scheduling each candidate's CTAs on the card's
+//    resident CTA slots.  No float atomics: two launches give the same
+//    bits.
+// head_dim is a runtime multiple of 16 up to 128; d = 80 and d = 128 run
+// their own instantiations, other d the generic one.  Resident per SM: K10
+// 2 CTAs (16 warps at d = 80 under a 128-register launch bound, 90.1 KB of
+// shared memory; 8 at d = 128, 104.5 KB), K11 3 at d = 80 (168 registers,
+// 68.7 KB) and 2 at d = 128 (105.5 KB); no spill.
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "flash_core.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kMaxD = 128;
+using flash::kTileKeys;
 
-// One masked, softcapped score slot -> (p, ds) in f32.
-struct Score {
-  int bq, bk, causal, window, q_offset, sk;
-  float scale, softcap;
+constexpr int kWarps = 4;  // a K11 CTA: 64 KV rows
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;
+constexpr int kMergeThreads = 256;
 
-  __device__ inline void operator()(float s_raw, float dp, float lse, float delta,
-                                    int qpos, int kpos, float& p, float& ds) const {
-    const float u = s_raw * scale;
-    float s = u, chain = 1.0f;
-    if (softcap != 0.0f) {
-      const float t = tanhf(u / softcap);
-      s = softcap * t;
-      chain = 1.0f - t * t;
-    }
-    const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
-                    (!window || kpos > qpos - window);
-    p = ok ? expf(s - lse) : 0.0f;
-    ds = p * (dp - delta) * scale * chain;
-  }
-};
+// Warps of a K10 CTA: 8 (a 128-row unit) at d = 80, where the step fits
+// 128 registers, so two CTAs (16 warps) are resident per SM; 4 (64 rows)
+// at d = 128 and in the generic instantiation, two CTAs by shared memory.
+template <int D>
+__host__ __device__ constexpr int dq_warps() { return D == 80 ? 8 : 4; }
 
-// Copy `rows` rows of d bf16 (16-byte vectors) into a padded tile; rows at
-// or beyond `valid` are zero.
-__device__ inline void stage(bf16* dst, int ld, const bf16* src, int rows, int valid,
-                             int d, int nthreads) {
-  const int dv8 = d / 8;
-  for (int t = threadIdx.x; t < rows * dv8; t += nthreads) {
-    const int r = t / dv8, c = (t % dv8) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * d + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
+// K11's CTAs resident per SM, by the launch bound (d = 80) or shared
+// memory.
+template <int D>
+__host__ __device__ constexpr int dkv_ctas() { return D <= 80 ? 3 : 2; }
+
+// The unit's own two operands (own_rows rows each), two ring stages of two
+// 64-row operands, for K11 two stages of 64 lse and delta, then the walk
+// list's length and entries.
+template <int D>
+size_t smem_bytes(int own_rows, int list_max, bool dkv) {
+  return (size_t)flash::tile_bytes<D>(2 * own_rows + 4 * kTileKeys) +
+         (dkv ? sizeof(float) * 4 * kTileKeys : 0) + sizeof(int) * (list_max + 1);
 }
 
-// (16 x 16) f32 = A (16 x d, row-major) @ B^T where B is (16 x d) row-major
-// (read as a column-major d x 16 matrix), stored row-major with ld 16.
-__device__ inline void rows_dot(float* out, const bf16* a, const bf16* b, int ld, int d) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.0f);
-  for (int kt = 0; kt < d / 16; ++kt) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-    wmma::load_matrix_sync(fa, a + kt * 16, ld);
-    wmma::load_matrix_sync(fb, b + kt * 16, ld);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-  wmma::store_matrix_sync(out, acc, 16, wmma::mem_row_major);
-}
-
-using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[nt] (16 x 16 column block nt of a 16 x d tile) += a (16 x n) @ b (n x d).
-__device__ inline void acc_product(Frag* acc, const bf16* a, int lda, const bf16* b,
-                                   int ldb, int n, int d) {
-#pragma unroll
-  for (int nt = 0; nt < kMaxD / 16; ++nt) {
-    if (nt < d / 16) {
-      for (int kt = 0; kt < n / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, a + kt * 16, lda);
-        wmma::load_matrix_sync(fb, b + kt * 16 * ldb + nt * 16, ldb);
-        wmma::mma_sync(acc[nt], fa, fb, acc[nt]);
-      }
+// Warp 0 compacts the live ones of n candidates into list (in candidate
+// order): entry(i, val) says whether candidate i is live and sets its
+// value.  Every thread gets the count.
+template <typename Entry>
+__device__ __forceinline__ int build_list(int n, int* list_n, int* list, Entry entry) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      int val = 0;
+      const bool live = i < n && entry(i, val);
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live) list[count + __popc(m & ((1u << lane) - 1u))] = val;
+      count += __popc(m);
     }
+    if (lane == 0) *list_n = count;
   }
-}
-
-// Round a warp's 16 x d accumulators to bf16 rows dst[r * d + c].
-__device__ inline void store_rows(bf16* dst, Frag* acc, float* tile, int d) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int nt = 0; nt < kMaxD / 16; ++nt) {
-    if (nt < d / 16) {
-      wmma::store_matrix_sync(tile, acc[nt], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        dst[(size_t)(e / 16) * d + nt * 16 + e % 16] = __float2bfloat16(tile[e]);
-      __syncwarp();
-    }
-  }
+  __syncthreads();
+  return *list_n;
 }
 
 // ---------------------------------------------------------------- K10: dq
 
-constexpr int kDqWarps = 4;
-constexpr int kDqThreads = kDqWarps * 32;
-constexpr int kDqRows = kDqWarps * 16;
-
-__host__ __device__ inline size_t dq_smem(int d, int bk) {
-  const size_t dp = d + 8, sp = bk + 8;
-  return sizeof(bf16) * (2 * kDqRows * dp + 2 * bk * dp + kDqRows * sp) +
-         sizeof(float) * (kDqWarps * 2 * 256 + 2 * kDqRows);
-}
-
-__global__ void __launch_bounds__(kDqThreads)
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(dq_warps<D>() * 32, 2)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const int* __restrict__ kv_idx, const int* __restrict__ kv_cnt,
-                bf16* __restrict__ dq, int Sqp, int Skp, int d, int width,
-                int groups, Score sc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dp = d + 8, sp = sc.bk + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kDqRows * dp;
-  bf16* ks = dos + kDqRows * dp;
-  bf16* vs = ks + sc.bk * dp;
-  bf16* dss = vs + sc.bk * dp;                             // kDqRows x sp
-  float* tiles = reinterpret_cast<float*>(dss + kDqRows * sp);  // 2 x 256 per warp
-  float* lse_s = tiles + kDqWarps * 2 * 256;
-  float* delta_s = lse_s + kDqRows;
+                bf16* __restrict__ dq, float* __restrict__ part, int Sqp, int Skp, int d_rt,
+                int bq, int bk, int width, int groups, int causal, int window, int q_offset,
+                int sk, int pair, int n_split, float scale, float softcap) {
+  constexpr int DP = flash::row_pad<D>();
+  constexpr int kStage = flash::tile_bytes<D>(kTileKeys);
+  constexpr int kDqThreads = dq_warps<D>() * 32;
+  constexpr int kDqRows = dq_warps<D>() * 16;  // the unit's query rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t qs = flash::smem_addr(smem);              // the unit's Q rows
+  const uint32_t dos = qs + flash::tile_bytes<D>(kDqRows);   // and dO rows
+  const uint32_t ks = dos + flash::tile_bytes<D>(kDqRows);   // 2 K stages
+  const uint32_t vs = ks + 2 * kStage;                     // 2 V stages
+  int* list_n =
+      reinterpret_cast<int*>(smem + flash::tile_bytes<D>(2 * kDqRows + 4 * kTileKeys));
+  int* list = list_n + 1;  // key0 of each live 64-key tile
 
-  const int n_half = (sc.bq + kDqRows - 1) / kDqRows;
-  const int qb = blockIdx.x / n_half;
-  const int row0 = (blockIdx.x % n_half) * kDqRows;
-  const int rows = min(kDqRows, sc.bq - row0);  // a multiple of 16
+  const int d = EXACT ? D : d_rt;
+  const int cpr = d / 8;  // 16-byte chunks a row
+  const int parts = (bq + kDqRows - 1) / kDqRows;
+  const int n_units = (Sqp / bq) * parts;
+  const int nsub = (bk + kTileKeys - 1) / kTileKeys;
+  const int c = blockIdx.x / n_split, split = blockIdx.x % n_split;
   const int bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool live_warp = warp * 16 < rows;
+  const int kv_row0 = (bh / groups) * Skp;  // KV row bh / G
+  const flash::BwdScores sc(scale, softcap);
+  const int mate = n_units - 1 - c;
 
-  const size_t q_row0 = (size_t)bh * Sqp + (size_t)qb * sc.bq + row0;
-  stage(qs, dp, q + q_row0 * d, kDqRows, rows, d, kDqThreads);
-  stage(dos, dp, dout + q_row0 * d, kDqRows, rows, d, kDqThreads);
-  for (int t = threadIdx.x; t < kDqRows; t += kDqThreads) {
-    lse_s[t] = t < rows ? lse[q_row0 + t] : 0.0f;
-    delta_s[t] = t < rows ? delta[q_row0 + t] : 0.0f;
-  }
+  for (int i = 0; i < (pair && mate != c ? 2 : 1); ++i) {
+    const int u = i == 0 ? c : mate;
+    const int qb = u / parts, row0 = (u % parts) * kDqRows;
+    const int rows = min(kDqRows, bq - row0);  // a multiple of 16
+    const int q_row0 = bh * Sqp + qb * bq + row0;
+    const int qpos0 = q_offset + qb * bq + row0;
+    if (i > 0) __syncthreads();  // the first unit's walk is done with Q, dO and the list
+    const int* walk = kv_idx + (size_t)qb * width;
+    const int n_live = build_list(kv_cnt[qb] * nsub, list_n, list, [&](int e, int& key0) {
+      const int sub = e % nsub;
+      key0 = walk[e / nsub] * bk + sub * kTileKeys;
+      const int k_hi = key0 + min(kTileKeys, bk - sub * kTileKeys) - 1;
+      return !(key0 >= sk || (causal && key0 > qpos0 + rows - 1) ||
+               (window && k_hi <= qpos0 - window));
+    });
+    const int t0 = (int)((long long)split * n_live / n_split);
+    const int t1 = (int)((long long)(split + 1) * n_live / n_split);
 
-  const bf16* kg = k + (size_t)(bh / groups) * Skp * d;
-  const bf16* vg = v + (size_t)(bh / groups) * Skp * d;
-  const bf16* q_w = qs + warp * 16 * dp;
-  const bf16* do_w = dos + warp * 16 * dp;
-  bf16* ds_w = dss + warp * 16 * sp;
-  float* s_t = tiles + warp * 512;
-  float* dp_t = s_t + 256;
-
-  Frag acc[kMaxD / 16];
-#pragma unroll
-  for (int i = 0; i < kMaxD / 16; ++i) wmma::fill_fragment(acc[i], 0.0f);
-
-  const int count = kv_cnt[qb];
-  for (int step = 0; step < count; ++step) {
-    const int kb = kv_idx[qb * width + step];
-    __syncthreads();  // the previous K/V tiles are consumed
-    stage(ks, dp, kg + (size_t)kb * sc.bk * d, sc.bk, sc.bk, d, kDqThreads);
-    stage(vs, dp, vg + (size_t)kb * sc.bk * d, sc.bk, sc.bk, d, kDqThreads);
-    __syncthreads();
-    if (!live_warp) continue;
-
-    for (int nt = 0; nt < sc.bk / 16; ++nt) {
-      rows_dot(s_t, q_w, ks + nt * 16 * dp, dp, d);    // q @ k^T
-      rows_dot(dp_t, do_w, vs + nt * 16 * dp, dp, d);  // do @ v^T
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = warp * 16 + e / 16, c = nt * 16 + e % 16;
-        float p, ds;
-        sc(s_t[e], dp_t[e], lse_s[r], delta_s[r],
-           sc.q_offset + qb * sc.bq + row0 + r, kb * sc.bk + c, p, ds);
-        ds_w[(e / 16) * sp + c] = __float2bfloat16(ds);
-      }
-      __syncwarp();
+    for (int x = threadIdx.x; x < kDqRows * cpr; x += kDqThreads) {
+      const int r = x / cpr, col = (x % cpr) * 8;
+      const bool ok = r < rows;
+      const size_t g = (size_t)(q_row0 + (ok ? r : 0)) * d + col;
+      flash::cp_async16(qs + 2 * (r * DP + col), q + g, ok);
+      flash::cp_async16(dos + 2 * (r * DP + col), dout + g, ok);
     }
-    acc_product(acc, ds_w, sp, ks, dp, sc.bk, d);  // dq += ds @ k
-  }
+    auto issue = [&](int t, int stage) {
+      const int key0 = list[t];
+      const int nk = min(kTileKeys, bk - key0 % bk);
+      for (int x = threadIdx.x; x < nk * cpr; x += kDqThreads) {
+        const int r = x / cpr, col = (x % cpr) * 8;
+        const size_t g = (size_t)(kv_row0 + key0 + r) * d + col;
+        const uint32_t at = stage * kStage + 2 * (r * DP + col);
+        flash::cp_async16(ks + at, k + g, true);
+        flash::cp_async16(vs + at, v + g, true);
+      }
+    };
+    if (t1 > t0) issue(t0, 0);
+    flash::cp_async_commit();
 
-  if (!live_warp) return;
-  store_rows(dq + (q_row0 + warp * 16) * d, acc, s_t, d);
+    const bool live = warp * 16 < rows;
+    const int q_lo = qpos0 + warp * 16;  // the warp's first position
+    float lse2[2] = {0.0f, 0.0f}, dlt[2] = {0.0f, 0.0f};
+    if (live) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q_row0 + warp * 16 + (lane >> 2) + 8 * h;
+        lse2[h] = lse[r] * flash::kLog2e;
+        dlt[h] = delta[r];
+      }
+    }
+    flash::WarpDq<D, EXACT> acc;
+    acc.init();
+    flash::key_walk(
+        t1 - t0, [&](int t, int stage) { issue(t0 + t, stage); },
+        [&](int t, int stage) {
+          if (!live) return;
+          const int key0 = list[t0 + t];
+          int lo, hi;
+          flash::live_groups(
+              min(kTileKeys, bk - key0 % bk) / 16,
+              [&](int j) {
+                const int k0 = key0 + 16 * j;
+                return k0 >= sk || (causal && k0 > q_lo + 15) ||
+                       (window && k0 + 15 <= q_lo - window);
+              },
+              lo, hi);
+          if (lo >= hi) return;
+          const int k_lo = key0 + 16 * lo, k_hi = key0 + 16 * hi - 1;
+          const bool inside = k_hi < sk && (!causal || k_hi <= q_lo) &&
+                              (!window || k_lo > q_lo + 15 - window);
+          acc.step(qs + warp * 16 * DP * 2, dos + warp * 16 * DP * 2, ks + stage * kStage,
+                   vs + stage * kStage, d, lo, hi, lse2, dlt, sc, !inside,
+                   [&](int r, int cc) {
+                     const int kpos = key0 + cc, qpos = q_lo + r;
+                     return kpos < sk && (!causal || kpos <= qpos) &&
+                            (!window || kpos > qpos - window);
+                   });
+        },
+        [](int) {});
+
+    if (live) {
+      const size_t at = (size_t)(q_row0 + warp * 16) * d;
+      if (n_split == 1)
+        flash::store_rows<D, EXACT>(acc.dq, dq + at, d, 16);
+      else
+        flash::store_rows<D, EXACT>(acc.dq, part + (size_t)split * gridDim.y * Sqp * d + at, d,
+                                    16);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- K11: dk, dv
 
-constexpr int kKvWarps = 8;
-constexpr int kKvThreads = kKvWarps * 32;
-
-__host__ __device__ inline size_t dkv_smem(int d, int bq, int bk) {
-  const size_t dp = d + 8, qp = bq + 8;
-  return sizeof(bf16) * (2 * bk * dp + 2 * bq * dp + kKvWarps * 2 * 16 * qp) +
-         sizeof(float) * (kKvWarps * 2 * 256 + 2 * bq);
-}
-
-__global__ void __launch_bounds__(kKvThreads)
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(kThreads, dkv_ctas<D>())
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const int* __restrict__ q_idx, const int* __restrict__ q_cnt,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sqp, int Skp,
-                 int d, int q_width, int groups, Score sc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dp = d + 8, qp = sc.bq + 8;
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + sc.bk * dp;
-  bf16* qs = vs + sc.bk * dp;
-  bf16* dos = qs + sc.bq * dp;
-  bf16* pts = dos + sc.bq * dp;               // per warp: p^T then ds^T, 16 x qp each
-  float* tiles = reinterpret_cast<float*>(pts + kKvWarps * 2 * 16 * qp);
-  float* lse_s = tiles + kKvWarps * 2 * 256;
-  float* delta_s = lse_s + sc.bq;
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dk_part,
+                 float* __restrict__ dv_part, int Sqp, int Skp, int d_rt, int bq, int bk,
+                 int q_width, int groups, int causal, int window, int q_offset, int sk,
+                 int pair, int n_split, float scale, float softcap) {
+  constexpr int DP = flash::row_pad<D>();
+  constexpr int kStage = flash::tile_bytes<D>(kTileKeys);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t ks = flash::smem_addr(smem);             // the unit's K rows
+  const uint32_t vs = ks + flash::tile_bytes<D>(kRows);   // and V rows
+  const uint32_t qs = vs + flash::tile_bytes<D>(kRows);   // 2 Q stages
+  const uint32_t dos = qs + 2 * kStage;                   // 2 dO stages
+  float* lse_s = reinterpret_cast<float*>(smem + flash::tile_bytes<D>(2 * kRows + 4 * kTileKeys));
+  float* dlt_s = lse_s + 2 * kTileKeys;  // 2 stages each
+  int* list_n = reinterpret_cast<int*>(dlt_s + 2 * kTileKeys);
+  int* list = list_n + 1;  // first row of each live 64-row q tile
+  const uint32_t lse_a = flash::smem_addr(lse_s), dlt_a = flash::smem_addr(dlt_s);
 
-  const int kb = blockIdx.x;
+  const int d = EXACT ? D : d_rt;
+  const int cpr = d / 8;
+  const int parts = (bk + kRows - 1) / kRows;
+  const int n_units = (Skp / bk) * parts;
+  const int nsub = (bq + kTileKeys - 1) / kTileKeys;
+  const int c = blockIdx.x / n_split, split = blockIdx.x % n_split;
   const int b = blockIdx.y;  // row of the (B*KV, Skp, d) layout
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool live_warp = warp * 16 < sc.bk;
+  const int warp = threadIdx.x / 32;
+  const flash::BwdScores sc(scale, softcap);
+  const int mate = n_units - 1 - c;
 
-  const size_t kv_row0 = (size_t)b * Skp + (size_t)kb * sc.bk;
-  stage(ks, dp, k + kv_row0 * d, sc.bk, sc.bk, d, kKvThreads);
-  stage(vs, dp, v + kv_row0 * d, sc.bk, sc.bk, d, kKvThreads);
+  for (int i = 0; i < (pair && mate != c ? 2 : 1); ++i) {
+    const int u = i == 0 ? c : mate;
+    const int kb = u / parts;
+    const int key0 = kb * bk + (u % parts) * kRows;
+    const int nkeys = min(kRows, bk - (u % parts) * kRows);  // a multiple of 16
+    const int kv_row0 = b * Skp + key0;
+    if (i > 0) __syncthreads();  // the first unit's walk is done with K, V and the list
+    const int* walk = q_idx + (size_t)kb * q_width;
+    const int n_q = build_list(q_cnt[kb] * nsub, list_n, list, [&](int e, int& qrow0) {
+      const int sub = e % nsub;
+      qrow0 = walk[e / nsub] * bq + sub * kTileKeys;
+      const int qp_lo = q_offset + qrow0;
+      const int qp_hi = qp_lo + min(kTileKeys, bq - sub * kTileKeys) - 1;
+      return !(key0 >= sk || (causal && key0 > qp_hi) ||
+               (window && key0 + nkeys - 1 <= qp_lo - window));
+    });
+    const int n_steps = groups * n_q;  // member gm = step / n_q, tile list[step % n_q]
+    const int t0 = (int)((long long)split * n_steps / n_split);
+    const int t1 = (int)((long long)(split + 1) * n_steps / n_split);
 
-  const bf16* k_w = ks + warp * 16 * dp;
-  const bf16* v_w = vs + warp * 16 * dp;
-  bf16* pt_w = pts + warp * 2 * 16 * qp;
-  bf16* dst_w = pt_w + 16 * qp;
-  float* s_t = tiles + warp * 512;
-  float* dp_t = s_t + 256;
-
-  Frag dk_acc[kMaxD / 16], dv_acc[kMaxD / 16];
-#pragma unroll
-  for (int i = 0; i < kMaxD / 16; ++i) {
-    wmma::fill_fragment(dk_acc[i], 0.0f);
-    wmma::fill_fragment(dv_acc[i], 0.0f);
-  }
-
-  const int count = q_cnt[kb];
-  for (int gm = 0; gm < groups; ++gm) {
-    const size_t bh = (size_t)b * groups + gm;
-    for (int step = 0; step < count; ++step) {
-      const int qb = q_idx[kb * q_width + step];
-      const size_t q_row0 = bh * Sqp + (size_t)qb * sc.bq;
-      __syncthreads();  // the previous q/do tiles are consumed
-      stage(qs, dp, q + q_row0 * d, sc.bq, sc.bq, d, kKvThreads);
-      stage(dos, dp, dout + q_row0 * d, sc.bq, sc.bq, d, kKvThreads);
-      for (int t = threadIdx.x; t < sc.bq; t += kKvThreads) {
-        lse_s[t] = lse[q_row0 + t];
-        delta_s[t] = delta[q_row0 + t];
+    for (int x = threadIdx.x; x < kRows * cpr; x += kThreads) {
+      const int r = x / cpr, col = (x % cpr) * 8;
+      const bool ok = r < nkeys;
+      const size_t g = (size_t)(kv_row0 + (ok ? r : 0)) * d + col;
+      flash::cp_async16(ks + 2 * (r * DP + col), k + g, ok);
+      flash::cp_async16(vs + 2 * (r * DP + col), v + g, ok);
+    }
+    auto issue = [&](int t, int stage) {
+      const int qrow0 = list[t % n_q];
+      const int nq = min(kTileKeys, bq - qrow0 % bq);
+      const int row = (b * groups + t / n_q) * Sqp + qrow0;
+      for (int x = threadIdx.x; x < nq * cpr; x += kThreads) {
+        const int r = x / cpr, col = (x % cpr) * 8;
+        const size_t g = (size_t)(row + r) * d + col;
+        const uint32_t at = stage * kStage + 2 * (r * DP + col);
+        flash::cp_async16(qs + at, q + g, true);
+        flash::cp_async16(dos + at, dout + g, true);
       }
-      __syncthreads();
-      if (!live_warp) continue;
-
-      for (int nt = 0; nt < sc.bq / 16; ++nt) {
-        rows_dot(s_t, k_w, qs + nt * 16 * dp, dp, d);    // (q @ k^T)^T
-        rows_dot(dp_t, v_w, dos + nt * 16 * dp, dp, d);  // (do @ v^T)^T
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = e / 16, c = nt * 16 + e % 16;
-          float p, ds;
-          sc(s_t[e], dp_t[e], lse_s[c], delta_s[c], sc.q_offset + qb * sc.bq + c,
-             kb * sc.bk + warp * 16 + r, p, ds);
-          pt_w[r * qp + c] = __float2bfloat16(p);
-          dst_w[r * qp + c] = __float2bfloat16(ds);
-        }
-        __syncwarp();
+      for (int x = threadIdx.x; x < nq / 4; x += kThreads) {
+        const uint32_t at = stage * kTileKeys * 4 + 16 * x;
+        flash::cp_async16(lse_a + at, lse + row + 4 * x, true);
+        flash::cp_async16(dlt_a + at, delta + row + 4 * x, true);
       }
-      acc_product(dv_acc, pt_w, qp, dos, dp, sc.bq, d);   // dv += p^T @ do
-      acc_product(dk_acc, dst_w, qp, qs, dp, sc.bq, d);   // dk += ds^T @ q
+    };
+    if (t1 > t0) issue(t0, 0);
+    flash::cp_async_commit();
+
+    const bool live = warp * 16 < nkeys;
+    const int kw_lo = key0 + warp * 16, kw_hi = kw_lo + 15;  // the warp's keys
+    flash::WarpDkv<D, EXACT> acc;
+    acc.init();
+    flash::key_walk(
+        t1 - t0, [&](int t, int stage) { issue(t0 + t, stage); },
+        [&](int t, int stage) {
+          if (!live) return;
+          const int qrow0 = list[(t0 + t) % n_q];
+          const int qp_lo = q_offset + qrow0;
+          int lo, hi;
+          flash::live_groups(
+              min(kTileKeys, bq - qrow0 % bq) / 16,
+              [&](int j) {
+                const int q0 = qp_lo + 16 * j;
+                return kw_lo >= sk || (causal && kw_lo > q0 + 15) ||
+                       (window && kw_hi <= q0 - window);
+              },
+              lo, hi);
+          if (lo >= hi) return;
+          const int q_lo = qp_lo + 16 * lo, q_hi = qp_lo + 16 * hi - 1;
+          const bool inside = kw_hi < sk && (!causal || kw_hi <= q_lo) &&
+                              (!window || kw_lo > q_hi - window);
+          acc.step(ks + warp * 16 * DP * 2, vs + warp * 16 * DP * 2, qs + stage * kStage,
+                   dos + stage * kStage, lse_a + stage * kTileKeys * 4,
+                   dlt_a + stage * kTileKeys * 4,
+                   d, lo, hi, sc, !inside, [&](int r, int cc) {
+                     const int kpos = kw_lo + r, qpos = qp_lo + cc;
+                     return kpos < sk && (!causal || kpos <= qpos) &&
+                            (!window || kpos > qpos - window);
+                   });
+        },
+        [](int) {});
+
+    if (live) {
+      const size_t at = (size_t)(kv_row0 + warp * 16) * d;
+      if (n_split == 1) {
+        flash::store_rows<D, EXACT>(acc.dk, dk + at, d, 16);
+        flash::store_rows<D, EXACT>(acc.dv, dv + at, d, 16);
+      } else {
+        const size_t ps = (size_t)split * gridDim.y * Skp * d;
+        flash::store_rows<D, EXACT>(acc.dk, dk_part + ps + at, d, 16);
+        flash::store_rows<D, EXACT>(acc.dv, dv_part + ps + at, d, 16);
+      }
     }
   }
+}
 
-  if (!live_warp) return;
-  store_rows(dk + (kv_row0 + warp * 16) * d, dk_acc, s_t, d);
-  store_rows(dv + (kv_row0 + warp * 16) * d, dv_acc, s_t, d);
+// out[i] = sum over s = 0..n_split-1 (in that order) of part[s * n + i],
+// rounded to bf16 once; 4 elements a thread; grid.y picks (part0, out0) or
+// (part1, out1).
+__global__ void __launch_bounds__(kMergeThreads)
+flash_bwd_merge_kernel(const float* __restrict__ part0, bf16* __restrict__ out0,
+             const float* __restrict__ part1, bf16* __restrict__ out1, size_t n, int n_split) {
+  const float* part = blockIdx.y ? part1 : part0;
+  bf16* out = blockIdx.y ? out1 : out0;
+  const size_t i = ((size_t)blockIdx.x * kMergeThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int s = 1; s < n_split; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(part + (size_t)s * n + i);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<uint2*>(out + i) =
+      make_uint2(flash::pack_bf16(acc.x, acc.y), flash::pack_bf16(acc.z, acc.w));
+}
+
+cudaError_t merge(const float* p0, bf16* o0, const float* p1, bf16* o1, size_t n, int n_split,
+                  cudaStream_t stream) {
+  const dim3 grid((unsigned)((n / 4 + kMergeThreads - 1) / kMergeThreads), p1 ? 2 : 1);
+  flash_bwd_merge_kernel<<<grid, kMergeThreads, 0, stream>>>(p0, o0, p1, o1, n, n_split);
+  return cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// CTAs along the unit axis: units pair up under `pair`.
+int unit_ctas(int n_units, int pair) { return pair ? (n_units + 1) / 2 : n_units; }
+
+template <int D, bool EXACT>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* kv_idx, const void* kv_cnt, void* dq, void* part,
+              int BH, int Sqp, int Skp, int d, int bq, int bk, int width, int groups,
+              int causal, int window, int q_offset, int sk, int pair, int n_split, float scale,
+              float softcap, cudaStream_t stream) {
+  constexpr int kDqRows = dq_warps<D>() * 16;
+  const size_t smem = smem_bytes<D>(kDqRows, width * ((bk + kTileKeys - 1) / kTileKeys), false);
+  cudaError_t err = prepare(flash_dq_kernel<D, EXACT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_units = (Sqp / bq) * ((bq + kDqRows - 1) / kDqRows);
+  const dim3 grid(unit_ctas(n_units, pair) * n_split, BH);
+  flash_dq_kernel<D, EXACT><<<grid, dq_warps<D>() * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_idx),
+      static_cast<const int*>(kv_cnt), static_cast<bf16*>(dq), static_cast<float*>(part), Sqp,
+      Skp, d, bq, bk, width, groups, causal, window, q_offset, sk, pair, n_split, scale,
+      softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  return static_cast<int>(merge(static_cast<const float*>(part), static_cast<bf16*>(dq),
+                                nullptr, nullptr, (size_t)BH * Sqp * d, n_split, stream));
+}
+
+template <int D, bool EXACT>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, const void* q_idx, const void* q_cnt, void* dk, void* dv,
+               void* dk_part, void* dv_part, int BH, int Sqp, int Skp, int d, int bq, int bk,
+               int q_width, int groups, int causal, int window, int q_offset, int sk, int pair,
+               int n_split, float scale, float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>(kRows, q_width * ((bq + kTileKeys - 1) / kTileKeys), true);
+  cudaError_t err = prepare(flash_dkv_kernel<D, EXACT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_units = (Skp / bk) * ((bk + kRows - 1) / kRows);
+  const dim3 grid(unit_ctas(n_units, pair) * n_split, BH / groups);
+  flash_dkv_kernel<D, EXACT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(q_idx),
+      static_cast<const int*>(q_cnt), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(dk_part), static_cast<float*>(dv_part), Sqp, Skp, d, bq, bk, q_width,
+      groups, causal, window, q_offset, sk, pair, n_split, scale, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  return static_cast<int>(merge(static_cast<const float*>(dk_part), static_cast<bf16*>(dk),
+                                static_cast<const float*>(dv_part), static_cast<bf16*>(dv),
+                                (size_t)(BH / groups) * Skp * d, n_split, stream));
+}
+
+template <typename Kernel>
+int info(Kernel kernel, size_t smem, int warps, int* out) {
+  cudaError_t err = prepare(kernel, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, warps * 32, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = ctas;
+  out[1] = attr.numRegs;
+  out[2] = (int)smem;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = warps;
+  return 0;
 }
 
 }  // namespace
 
 // q, do (BH, Sqp, d), k, v (BH/groups, Skp, d) bf16; lse, delta (BH, Sqp)
 // f32; kv_idx (Sqp/bq, width), kv_cnt (Sqp/bq,) int32; dq (BH, Sqp, d)
-// bf16.  The wrapper checks d % 16 == 0 and d <= 128, bq and bk multiples of
-// 16 up to 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.
+// bf16.  pair and n_split from the wrapper's plan; for n_split > 1, part is
+// (n_split, BH, Sqp, d) f32 scratch (unused, may be null, for 1).  The
+// wrapper checks d % 16 == 0 and d <= 128, bq and bk multiples of 16 up to
+// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, const void* kv_idx,
-                        const void* kv_cnt, void* dq, int BH, int Sqp, int Skp, int d,
-                        int bq, int bk, int width, int groups, int causal, int window,
-                        int q_offset, int sk, float scale, float softcap, void* stream) {
-  const size_t smem = dq_smem(d, bk);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Score sc{bq, bk, causal, window, q_offset, sk, scale, softcap};
-  const int n_half = (bq + kDqRows - 1) / kDqRows;
-  const dim3 grid((Sqp / bq) * n_half, BH);
-  flash_dq_kernel<<<grid, kDqThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_idx), static_cast<const int*>(kv_cnt),
-      static_cast<bf16*>(dq), Sqp, Skp, d, width, groups, sc);
-  return static_cast<int>(cudaGetLastError());
+                        const void* kv_cnt, void* dq, void* part, int BH, int Sqp, int Skp,
+                        int d, int bq, int bk, int width, int groups, int causal, int window,
+                        int q_offset, int sk, int pair, int n_split, float scale,
+                        float softcap, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return launch_dq<80, true>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
+                               Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
+                               pair, n_split, scale, softcap, s);
+  if (d == 128)
+    return launch_dq<128, true>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
+                                Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
+                                pair, n_split, scale, softcap, s);
+  return launch_dq<128, false>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
+                               Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
+                               pair, n_split, scale, softcap, s);
 }
 
 // Same layouts; q_idx (Skp/bk, q_width), q_cnt (Skp/bk,) int32 (the
-// transposed schedule); dk, dv (BH/groups, Skp, d) bf16.
+// transposed schedule); dk, dv (BH/groups, Skp, d) bf16; for n_split > 1,
+// dk_part and dv_part are (n_split, BH/groups, Skp, d) f32 scratch.
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, const void* q_idx,
-                         const void* q_cnt, void* dk, void* dv, int BH, int Sqp,
-                         int Skp, int d, int bq, int bk, int q_width, int groups,
-                         int causal, int window, int q_offset, int sk, float scale,
-                         float softcap, void* stream) {
-  const size_t smem = dkv_smem(d, bq, bk);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Score sc{bq, bk, causal, window, q_offset, sk, scale, softcap};
-  const dim3 grid(Skp / bk, BH / groups);
-  flash_dkv_kernel<<<grid, kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(q_idx), static_cast<const int*>(q_cnt),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sqp, Skp, d, q_width, groups, sc);
-  return static_cast<int>(cudaGetLastError());
+                         const void* q_cnt, void* dk, void* dv, void* dk_part, void* dv_part,
+                         int BH, int Sqp, int Skp, int d, int bq, int bk, int q_width,
+                         int groups, int causal, int window, int q_offset, int sk, int pair,
+                         int n_split, float scale, float softcap, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return launch_dkv<80, true>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
+                                dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
+                                window, q_offset, sk, pair, n_split, scale, softcap, s);
+  if (d == 128)
+    return launch_dkv<128, true>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
+                                 dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
+                                 window, q_offset, sk, pair, n_split, scale, softcap, s);
+  return launch_dkv<128, false>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
+                                dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
+                                window, q_offset, sk, pair, n_split, scale, softcap, s);
+}
+
+// The launch each instantiation for head_dim d gets at schedule width
+// `width`: out = {CTAs resident per SM, registers a thread, dynamic shared
+// bytes, local (spill) bytes a thread, warps a CTA}.
+extern "C" int flash_dq_info(int d, int width, int* out) {
+  if (d == 80)
+    return info(flash_dq_kernel<80, true>, smem_bytes<80>(16 * dq_warps<80>(), 2 * width, false),
+                dq_warps<80>(), out);
+  const size_t smem = smem_bytes<128>(16 * dq_warps<128>(), 2 * width, false);
+  if (d == 128) return info(flash_dq_kernel<128, true>, smem, dq_warps<128>(), out);
+  return info(flash_dq_kernel<128, false>, smem, dq_warps<128>(), out);
+}
+
+extern "C" int flash_dkv_info(int d, int width, int* out) {
+  const size_t smem = d == 80 ? smem_bytes<80>(kRows, 2 * width, true)
+                              : smem_bytes<128>(kRows, 2 * width, true);
+  if (d == 80) return info(flash_dkv_kernel<80, true>, smem, kWarps, out);
+  if (d == 128) return info(flash_dkv_kernel<128, true>, smem, kWarps, out);
+  return info(flash_dkv_kernel<128, false>, smem, kWarps, out);
 }

@@ -1,5 +1,8 @@
-// The online-softmax core shared by the flash forward (K9, flash_fwd.cu)
-// and the paged-prefix flash (K12, flash_paged.cu).
+// The warp-level core of the flash kernels: the online-softmax tile step
+// (WarpRows) shared by the flash forward (K9, flash_fwd.cu) and the
+// paged-prefix flash (K12, flash_paged.cu), and the backward's tile steps
+// (WarpDq for K10, WarpDkv for K11, flash_bwd.cu; described where they are
+// defined) on the same fragments, ldmatrix operands and cp.async ring.
 //
 // One warp owns 16 query rows and walks key tiles of up to kTileKeys = 64
 // keys that the CTA stages in shared memory.  Per tile:
@@ -86,6 +89,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// Two floats from a shared-window address.
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
 }
 
 // c += a (16 x 16, row) @ b (16 x 8, col), bf16 in, f32 accumulate.
@@ -301,6 +311,267 @@ struct WarpRows {
     }
   }
 };
+
+// ------------------------------------------------------------------ backward
+//
+// The tile steps of the flash backward (K10 and K11, flash_bwd.cu) on the
+// same mma.sync core.  p is recomputed from the forward's logsumexp, p =
+// exp(s' - lse) with s' the scaled (and capped) score, and ds = p (dp -
+// delta) scale, times 1 - t^2 under a softcap (t = tanh(s scale / c)).
+// The exponent is taken in log2 units, s scale log2(e) - lse log2(e), so p
+// is one ex2.  A dead query row carries lse = +1e30, so its p is exactly 0;
+// a masked slot gets p = 0 by select, never exp of a sentinel.
+
+// p and ds of one score slot from the raw q.k (or k.q) s and do.v dp;
+// lse2 = lse * log2(e).
+struct BwdScores {
+  float scale;       // 1 / sqrt(d)
+  float scale_log2;  // scale * log2(e), without a softcap
+  float inner;       // scale / c
+  float cap_log2;    // c * log2(e); 0 = no softcap
+  __device__ BwdScores(float scale_, float softcap)
+      : scale(scale_),
+        scale_log2(scale_ * kLog2e),
+        inner(softcap != 0.0f ? scale_ / softcap : 0.0f),
+        cap_log2(softcap * kLog2e) {}
+  __device__ __forceinline__ void operator()(float s, float dp, float lse2, float delta,
+                                             bool live, float& p, float& ds) const {
+    if (cap_log2 != 0.0f) {
+      const float t = tanhf(s * inner);
+      p = live ? exp2f(t * cap_log2 - lse2) : 0.0f;
+      ds = p * (dp - delta) * scale * (1.0f - t * t);
+    } else {
+      p = live ? exp2f(fmaf(s, scale_log2, -lse2)) : 0.0f;
+      ds = p * (dp - delta) * scale;
+    }
+  }
+};
+
+// ldmatrix lane offsets (bytes) into 16-row operand tiles of kDP-element
+// rows: an A tile (rows lane % 16, column half lane / 16), a B tile read as
+// stored rows = n (rows lane % 8 + 8 (lane / 16), column half (lane / 8) % 2;
+// each stored row is a column of B), and a B tile read transposed (stored
+// rows = k: rows lane % 8 + 8 ((lane / 8) % 2), column half lane / 16).
+template <int kDP>
+__device__ __forceinline__ uint32_t off_a(int lane) {
+  return 2 * ((lane & 15) * kDP + (lane >> 4) * 8);
+}
+template <int kDP>
+__device__ __forceinline__ uint32_t off_b(int lane) {
+  return 2 * (((lane & 7) + ((lane >> 4) << 3)) * kDP + ((lane >> 3) & 1) * 8);
+}
+template <int kDP>
+__device__ __forceinline__ uint32_t off_bt(int lane) {
+  return 2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * kDP + (lane >> 4) * 8);
+}
+
+// acc (16 x 16 as two n8 tiles) += A (16 x d, rows at a) @ B, where the 16
+// stored rows at b + 16 grp rows are B's columns, over d.
+template <int D, bool EXACT>
+__device__ __forceinline__ void rows_dot(float (&acc)[2][4], uint32_t a, uint32_t b, int d16,
+                                         int grp) {
+  constexpr int kDP = row_pad<D>();
+#pragma unroll
+  for (int kt = 0; kt < D / 16; ++kt) {
+    if (EXACT || kt < d16) {
+      uint32_t af[4], bf[4];
+      ldsm_x4(af, a + kt * 32);
+      ldsm_x4(bf, b + grp * 16 * kDP * 2 + kt * 32);
+      mma16816(acc[0], af, bf[0], bf[1]);
+      mma16816(acc[1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// out (16 x d) += A (16 x 16, from registers) @ B, where B's 16 rows (the
+// k index) are the stored rows at b + 16 grp rows, read by ldmatrix.trans.
+template <int D, bool EXACT>
+__device__ __forceinline__ void acc_product(float (&out)[D / 8][4], const uint32_t (&a)[4],
+                                            uint32_t b, int d16, int grp) {
+  constexpr int kDP = row_pad<D>();
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    if (EXACT || n < d16) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, b + grp * 16 * kDP * 2 + n * 32);
+      mma16816(out[2 * n], a, bf[0], bf[1]);
+      mma16816(out[2 * n + 1], a, bf[2], bf[3]);
+    }
+  }
+}
+
+// Round a warp's 16 x d f32 accumulator to bf16 rows (row stride d) for
+// the warp rows r < valid, or store it unrounded (a split's partial).
+template <int D, bool EXACT>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], __nv_bfloat16* out,
+                                           int d, int valid) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (EXACT || n < d / 8)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r * d + 8 * n + 2 * t) =
+            pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+template <int D, bool EXACT>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float* out, int d,
+                                           int valid) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (EXACT || n < d / 8)
+        *reinterpret_cast<float2*>(out + (size_t)r * d + 8 * n + 2 * t) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// K10's register state: one warp's 16 query rows and their dq (16 x d).
+// Per 64-key tile, one 16-key group at a time (so S and dP take 16 floats
+// a thread, and the step fits 128 registers at d = 80): S = Q K^T and dP =
+// dO V^T in accumulators (K and V B tiles by ldmatrix from the key rows as
+// they lie), p and ds in place, ds rounded to bf16 and repacked into A
+// fragments (the accumulator-to-A repack of WarpRows::attend), then dq +=
+// dS K with K's B tiles by ldmatrix.trans.  Only the tile's 16-key groups
+// g_lo..g_hi - 1 that are live for the warp's rows run (a group wholly
+// masked for them, as past the diagonal, is skipped: its p is 0).
+template <int D, bool EXACT>
+struct WarpDq {
+  static constexpr int kN8 = D / 8;
+  static constexpr int kDP = row_pad<D>();
+  float dq[kN8][4];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < kN8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+  }
+
+  // q_s, do_s: the warp's first Q and dO rows; k_s, v_s: the tile's first
+  // key rows (shared-window addresses).  lse2, dlt: the thread's rows g and
+  // g + 8.  keep(r, c): is key c (0..63) visible to warp row r; called only
+  // when need_mask.
+  template <typename Keep>
+  __device__ __forceinline__ void step(uint32_t q_s, uint32_t do_s, uint32_t k_s, uint32_t v_s,
+                                       int d, int g_lo, int g_hi, const float (&lse2)[2],
+                                       const float (&dlt)[2], const BwdScores& sc,
+                                       bool need_mask, Keep keep) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int d16 = EXACT ? D / 16 : d / 16;
+#pragma unroll
+    for (int grp = 0; grp < 4; ++grp) {
+      if (grp < g_lo || grp >= g_hi) continue;
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+      rows_dot<D, EXACT>(s, q_s + off_a<kDP>(lane), k_s + off_b<kDP>(lane), d16, grp);
+      rows_dot<D, EXACT>(dp, do_s + off_a<kDP>(lane), v_s + off_b<kDP>(lane), d16, grp);
+      uint32_t dsa[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p, ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live =
+              !need_mask || keep(g + (e >> 1) * 8, 16 * grp + 8 * j + 2 * t + (e & 1));
+          sc(s[j][e], dp[j][e], lse2[e >> 1], dlt[e >> 1], live, p, ds[e]);
+        }
+        dsa[j * 2] = pack_bf16(ds[0], ds[1]);
+        dsa[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      acc_product<D, EXACT>(dq, dsa, k_s + off_bt<kDP>(lane), d16, grp);
+    }
+  }
+};
+
+// K11's register state: one warp's 16 KV rows and their dk and dv (16 x d
+// each; 2 d / 4 floats a thread).  Per 64-row q tile, one 16-row q group
+// at a time (so S^T and dP^T take 16 floats a thread): S^T = K Q^T and
+// dP^T = V dO^T in accumulators (Q and dO B tiles by ldmatrix from the q
+// rows as they lie), lse and delta taken per column, p^T and ds^T rounded
+// to bf16 and repacked into A fragments, then dv += P^T dO and dk += dS^T Q
+// with dO's and Q's B tiles by ldmatrix.trans.  Only the q groups
+// g_lo..g_hi - 1 that are live for the warp's keys run.
+template <int D, bool EXACT>
+struct WarpDkv {
+  static constexpr int kN8 = D / 8;
+  static constexpr int kDP = row_pad<D>();
+  float dk[kN8][4], dv[kN8][4];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < kN8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  }
+
+  // k_s, v_s: the warp's first K and V rows; q_s, do_s: the tile's first q
+  // rows; lse_s, dlt_s: the tile's lse and delta (natural units), all
+  // shared-window addresses.  keep(r, c): is q row c (0..63) visible to
+  // warp key r; called only when need_mask.
+  template <typename Keep>
+  __device__ __forceinline__ void step(uint32_t k_s, uint32_t v_s, uint32_t q_s, uint32_t do_s,
+                                       uint32_t lse_s, uint32_t dlt_s, int d, int g_lo,
+                                       int g_hi, const BwdScores& sc, bool need_mask,
+                                       Keep keep) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int d16 = EXACT ? D / 16 : d / 16;
+#pragma unroll
+    for (int grp = 0; grp < 4; ++grp) {
+      if (grp < g_lo || grp >= g_hi) continue;
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+      rows_dot<D, EXACT>(s, k_s + off_a<kDP>(lane), q_s + off_b<kDP>(lane), d16, grp);
+      rows_dot<D, EXACT>(dp, v_s + off_a<kDP>(lane), do_s + off_b<kDP>(lane), d16, grp);
+      uint32_t pa[4], dsa[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = 16 * grp + 8 * j + 2 * t;
+        const float2 l = lds_f2(lse_s + 4 * c), dl = lds_f2(dlt_s + 4 * c);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = !need_mask || keep(g + (e >> 1) * 8, c + (e & 1));
+          sc(s[j][e], dp[j][e], ((e & 1) ? l.y : l.x) * kLog2e, (e & 1) ? dl.y : dl.x, live,
+             p[e], ds[e]);
+        }
+        pa[j * 2] = pack_bf16(p[0], p[1]);
+        pa[j * 2 + 1] = pack_bf16(p[2], p[3]);
+        dsa[j * 2] = pack_bf16(ds[0], ds[1]);
+        dsa[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      acc_product<D, EXACT>(dv, pa, do_s + off_bt<kDP>(lane), d16, grp);
+      acc_product<D, EXACT>(dk, dsa, q_s + off_bt<kDP>(lane), d16, grp);
+    }
+  }
+};
+
+// The live 16-row groups [lo, hi) of a tile's n16 groups for a warp, when
+// group i is dead iff dead(i) and the dead groups lie at the ends.
+template <typename Dead>
+__device__ __forceinline__ void live_groups(int n16, Dead dead, int& lo, int& hi) {
+  lo = 0;
+  while (lo < n16 && dead(lo)) ++lo;
+  hi = n16;
+  while (hi > lo && dead(hi - 1)) --hi;
+}
 
 // The CTA's key walk over n_tiles tiles through a two-stage K/V ring.
 // issue(t, stage) starts tile t's cp.async copies into the stage (every

@@ -15,8 +15,12 @@ the sources:
       ``paged_split_plan`` says and merged (``merge_partials_plain`` is the
       merge's plain version)                        -> csrc/flash_paged.cu
 
-K9 and K12 share their warp-level core (mma.sync with register-resident S,
-P and O, a two-stage cp.async ring): csrc/flash_core.cuh.
+K9, K10, K11 and K12 share their warp-level core (mma.sync with
+register-resident scores and accumulators, a two-stage cp.async ring):
+csrc/flash_core.cuh.  K10 and K11 walk units of ``bwd_unit_rows`` rows,
+paired and split as ``bwd_plan`` says from the schedule (``bwd_walks``
+lists each CTA's walk as the kernels take it; ``flash_bwd_walked_plain``
+is the plain version that follows it).
 
 The walks come from a host-built AttnSchedule (``core/attn_sched.py``); the
 causal, sliding-window, ``q_offset`` and padded-key masks are applied in the
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 
 import numpy as np
 import torch
@@ -59,8 +64,13 @@ __all__ = [
     "flash_attention_paged",
     "flash_attention_paged_plain",
     "flash_attention_plain",
+    "bwd_ctas_per_sm",
+    "bwd_plan",
+    "bwd_unit_rows",
+    "bwd_walks",
     "flash_bwd",
     "flash_bwd_plain",
+    "flash_bwd_walked_plain",
     "flash_dkv",
     "flash_dq",
     "flash_fwd",
@@ -79,6 +89,8 @@ NEG_INF = -1e30
 EPS = 1e-30
 PAGED_ROWS = 64    # folded query rows a K12 CTA takes (csrc/flash_paged.cu)
 SPLIT_KEYS = 128   # the unit of a K12 split's key range
+BWD_ROWS = 64      # rows of a K10 / K11 walk's tiles, and of a K11 unit (csrc/flash_bwd.cu)
+BWD_MAX_SPLIT = 4  # the most CTAs a K10 / K11 unit's walk is split over
 
 # kernel launches since import (or since a caller reset them)
 launches = 0      # K9
@@ -265,6 +277,175 @@ def grad_error_bound(g_plain, g_rnd, g_err) -> torch.Tensor:
             + 1.125 * (2.0**-7 * g_rnd.float() + g_err.float()))
 
 
+def bwd_unit_rows(kind: str, d: int) -> int:
+    """Rows a K10 (``kind`` "dq": query rows) or K11 ("dkv": KV rows) unit
+    owns at head_dim d: one 16-row warp each, 8 warps for K10 at d = 80,
+    4 otherwise (csrc/flash_bwd.cu)."""
+    return 128 if kind == "dq" and d == 80 else BWD_ROWS
+
+
+def bwd_ctas_per_sm(kind: str, d: int) -> int:
+    """CTAs of K10 / K11 resident per SM at head_dim d: K10 2 (at d = 80
+    by its 128-register launch bound, else by shared memory), K11 3 at
+    d = 80 (its launch bound) and 2 at d = 128 and in the generic
+    instantiation (shared memory), as csrc/flash_bwd.cu builds them."""
+    return 3 if kind == "dkv" and d == 80 else 2
+
+
+def bwd_plan(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int,
+             q_offset: int, sk: int, groups: int, unit_rows: int, n_rows: int, slots: int):
+    """How K10 (``kind`` "dq") or K11 ("dkv") balance their walks on the
+    schedule ``idx``/``cnt`` (numpy) -> (pair, n_split).
+
+    ``pair`` puts unit j and unit n_units - 1 - j in one CTA, which walks
+    both in turn (under a causal mask the walks grow linearly along the
+    units, so every pair's walk is about as long); ``n_split`` splits each
+    unit's walk of L steps into [s L // n_split, (s + 1) L // n_split), each
+    split storing an f32 partial that the merge sums in order.  Each
+    candidate, up to ``BWD_MAX_SPLIT`` splits, is scored by list scheduling its
+    CTAs (``bwd_walks``, one per unit pair or unit and split, times
+    ``n_rows`` grid rows, in launch order) onto ``slots`` resident CTAs
+    (SMs times ``bwd_ctas_per_sm``), a CTA taking one step a tile plus one
+    per unit; the shortest makespan wins, ties to fewer splits, then to no
+    pairing.  chip_smoke.py times every candidate at its cases and says
+    whether this pick was the fastest (``plans_ms``; PERF.md)."""
+    best = None
+    for n_split in range(1, BWD_MAX_SPLIT + 1):
+        for pair in (False, True):
+            walks = bwd_walks(kind, idx, cnt, bq=bq, bk=bk, causal=causal, window=window,
+                              q_offset=q_offset, sk=sk, groups=groups, unit_rows=unit_rows,
+                              pair=pair, n_split=n_split)
+            dur = [sum(1 + len(steps) for _, _, steps in units) for _, units in walks]
+            if len(dur) * n_rows <= slots:
+                span = max(dur)
+            else:
+                free = [0] * slots  # a heap of the slots' finishing times
+                for _ in range(n_rows):
+                    for t in dur:
+                        heapq.heapreplace(free, free[0] + t)
+                span = max(free)
+            if best is None or span < best[0]:
+                best = (span, pair, n_split)
+    return best[1], best[2]
+
+
+def bwd_walks(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int,
+              q_offset: int, sk: int, groups: int, unit_rows: int, pair: bool, n_split: int):
+    """The walks of one grid row of K10 (``kind`` "dq", on the forward
+    schedule ``idx``/``cnt``) or K11 ("dkv", on the transposed one), as the
+    kernels take them -> one entry per CTA in blockIdx.x order:
+    (split s, [(row0, rows, steps) for each unit the CTA walks]).
+
+    A K10 unit is the query rows [row0, row0 + rows) (``unit_rows``,
+    ``bwd_unit_rows``, or the rest of a q-block), a K11 unit the KV rows.
+    Its candidate tiles are the 64-row sub-tiles of its schedule's live
+    blocks, in schedule order; a sub-tile
+    wholly dead for the unit (every (q, k) pair masked by causality, the
+    window or k >= sk) is dropped.  K10's steps are (0, key0, keys) per key
+    tile; K11's are (member gm, q row0, rows) over the G members in turn.
+    CTA c walks unit c and, when paired, unit n_units - 1 - c; split s of a
+    unit's L steps takes [s L // n_split, (s + 1) L // n_split)."""
+    idx, cnt = np.asarray(idx), np.asarray(cnt)
+    blk, other = (bq, bk) if kind == "dq" else (bk, bq)
+    parts = -(-blk // unit_rows)
+    nsub = -(-other // BWD_ROWS)
+    n_units = idx.shape[0] * parts
+
+    def unit(u, s):
+        b, h = divmod(u, parts)
+        row0 = b * blk + h * unit_rows
+        rows = min(unit_rows, blk - h * unit_rows)
+        tiles = []
+        for step in range(int(cnt[b])):
+            for sub in range(nsub):
+                t0 = int(idx[b, step]) * other + sub * BWD_ROWS
+                n = min(BWD_ROWS, other - sub * BWD_ROWS)
+                q0, nq, k0, nk = (row0, rows, t0, n) if kind == "dq" else (t0, n, row0, rows)
+                q0 += q_offset
+                dead = (k0 >= sk or (causal and k0 > q0 + nq - 1)
+                        or (window and k0 + nk - 1 <= q0 - window))
+                if not dead:
+                    tiles.append((t0, n))
+        steps = ([(0, t0, n) for t0, n in tiles] if kind == "dq"
+                 else [(gm, t0, n) for gm in range(groups) for t0, n in tiles])
+        L = len(steps)
+        return row0, rows, steps[s * L // n_split:(s + 1) * L // n_split]
+
+    n_c = -(-n_units // 2) if pair else n_units
+    out = []
+    for x in range(n_c * n_split):
+        c, s = divmod(x, n_split)
+        mates = [c] + ([n_units - 1 - c] if pair and n_units - 1 - c != c else [])
+        out.append((s, [unit(u, s) for u in mates]))
+    return out
+
+
+def flash_bwd_walked_plain(q, k, v, do, lse, delta, dq_walks, dkv_walks, *,
+                           n_split_dq: int, n_split_dkv: int, causal: bool,
+                           window: int, q_offset: int, sk: int, scale: float,
+                           softcap: float, kv_groups: int, **_):
+    """K10 and K11's arithmetic on the CPU, tile by tile along ``bwd_walks``
+    (the walks of every grid row) -> (dq, dk, dv): per step f32 scores and
+    do @ v^T, p rounded to do's dtype and ds to q's, an f32 accumulator per
+    unit, each split's partial summed in the order s = 0..n_split - 1 and
+    rounded once.  The plain version that follows the kernels' plan (``bq``
+    and ``bk`` are in the walks)."""
+    BH, Sqp, d = q.shape
+    G = kv_groups
+    f = lambda t: t.float()
+
+    def tile(qr, kr, vr, dor, l, dl, qpos, kpos):
+        s = f(qr) @ f(kr).transpose(-1, -2) * scale
+        t = None
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        ok = kpos[None, :] < sk
+        if causal:
+            ok = ok & (kpos[None, :] <= qpos[:, None])
+        if window:
+            ok = ok & (kpos[None, :] > qpos[:, None] - window)
+        p = torch.where(ok, torch.exp(s - l[..., None]), 0.0)
+        ds = p * (f(dor) @ f(vr).transpose(-1, -2) - dl[..., None]) * scale
+        if t is not None:
+            ds = ds * (1.0 - t * t)
+        return p.to(do.dtype).float(), ds.to(q.dtype).float()
+
+    dq = torch.zeros(n_split_dq, BH, Sqp, d)
+    kv = torch.arange(BH) // G
+    for s, units in dq_walks:
+        for row0, rows, steps in units:
+            r = slice(row0, row0 + rows)
+            qpos = q_offset + torch.arange(row0, row0 + rows)
+            for _, k0, n in steps:
+                c = slice(k0, k0 + n)
+                _, ds = tile(q[:, r], k[kv, c], v[kv, c], do[:, r], lse[:, r], delta[:, r],
+                             qpos, torch.arange(k0, k0 + n))
+                dq[s, :, r] += ds @ f(k[kv, c])
+    BKV, Skp = k.shape[0], k.shape[1]
+    dk, dv = torch.zeros(n_split_dkv, BKV, Skp, d), torch.zeros(n_split_dkv, BKV, Skp, d)
+    heads = lambda t, gm: t.view(BKV, G, *t.shape[1:])[:, gm]
+    for s, units in dkv_walks:
+        for row0, rows, steps in units:
+            c = slice(row0, row0 + rows)
+            for gm, q0, n in steps:
+                r = slice(q0, q0 + n)
+                qr, dor = heads(q, gm)[:, r], heads(do, gm)[:, r]
+                p, ds = tile(qr, k[:, c], v[:, c], dor, heads(lse, gm)[:, r],
+                             heads(delta, gm)[:, r], q_offset + torch.arange(q0, q0 + n),
+                             torch.arange(row0, row0 + rows))
+                dk[s, :, c] += ds.transpose(1, 2) @ f(qr)
+                dv[s, :, c] += p.transpose(1, 2) @ f(dor)
+
+    def merged(part, like):
+        out = part[0]
+        for x in part[1:]:
+            out = out + x
+        return out.to(like.dtype)
+
+    return merged(dq, q), merged(dk, k), merged(dv, v)
+
+
 def _check_cuda(what, q, k, v, idx, cnt, n_sched, bq, bk, kv_groups, rows=()):
     """Device, dtypes, contiguity, tiling and alignment of one launch.
     ``n_sched`` is the schedule's row count; ``rows`` lists the (BH, Sqp)
@@ -355,13 +536,47 @@ def flash_fwd(q, k, v, kv_idx, kv_cnt, *, bq: int, bk: int, causal: bool,
     return o, lse
 
 
+@functools.lru_cache(maxsize=16)
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan_for(kind, Sqp, Skp, d, n_rows, n_sm, bq, bk, causal, window, q_offset, sk,
+                  kv_groups, **_):
+    """``bwd_plan`` on the schedule ``flash_attention`` builds for these
+    shapes (Sq = sk - q_offset), memoized; (False, 1) where the shapes are
+    not such a schedule's.  The plan only orders the work: any plan gives
+    the kernels' result (up to the order of f32 sums of a split)."""
+    Sq = sk - q_offset
+    if Sq < 1 or -(-Sq // bq) * bq != Sqp or -(-sk // bk) * bk != Skp:
+        return False, 1
+    sched = sched_for(Sq, sk, bq, bk, causal, window, q_offset)
+    idx, cnt = ((sched["kv_idx"], sched["kv_cnt"]) if kind == "dq"
+                else (sched["q_idx"], sched["q_cnt"]))
+    return bwd_plan(kind, idx, cnt, bq=bq, bk=bk, causal=causal, window=window,
+                    q_offset=q_offset, sk=sk, groups=kv_groups,
+                    unit_rows=bwd_unit_rows(kind, d), n_rows=n_rows,
+                    slots=n_sm * bwd_ctas_per_sm(kind, d))
+
+
+def _bwd_launch(kind, q, k, idx, kw):
+    """n_split of one K10 / K11 launch (its plan) and the C entry's
+    trailing arguments."""
+    BH, Sqp, d = q.shape
+    pair, n_split = _bwd_plan_for(kind, Sqp, k.shape[1], d,
+                                  BH if kind == "dq" else k.shape[0], _n_sm(q.device), **kw)
+    args = _mask_args(q, k, idx, **kw)
+    return n_split, args[:12] + (int(pair), int(n_split)) + args[12:]
+
+
 def flash_dq(q, k, v, do, lse, delta, kv_idx, kv_cnt, *, bq: int, bk: int,
              causal: bool, window: int, q_offset: int, sk: int, scale: float,
              softcap: float, kv_groups: int):
     """K10 on the padded layout: dq (BH, Sqp, d) in q.dtype, walking the
-    forward schedule ``kv_idx``/``kv_cnt``.  do like q; lse and delta
-    (BH, Sqp) f32.  CUDA tensors run the kernel or raise; CPU tensors run
-    the plain version."""
+    forward schedule ``kv_idx``/``kv_cnt`` as ``bwd_plan`` balances it.  do
+    like q; lse and delta (BH, Sqp) f32.  CUDA tensors run the kernel or
+    raise; CPU tensors run the plain version."""
     global dq_launches
     kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=q_offset,
               sk=sk, scale=scale, softcap=softcap, kv_groups=kv_groups)
@@ -370,12 +585,17 @@ def flash_dq(q, k, v, do, lse, delta, kv_idx, kv_cnt, *, bq: int, bk: int,
         return flash_bwd_plain(q, k, v, do, lse, delta, blocks, **kw)[0]
     _check_cuda("flash_dq", q, k, v, kv_idx, kv_cnt, q.shape[1] // bq, bq, bk,
                 kv_groups, rows=(do, lse, delta))
-    lib, fn = _entry("flash_dq", 9, 12)
+    lib, fn = _entry("flash_dq", 10, 14)
+    BH, Sqp, d = q.shape
+    n_split, args = _bwd_launch("dq", q, k, kv_idx, kw)
     dq = torch.empty_like(q)
+    part = (torch.empty(n_split, BH, Sqp, d, dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), kv_idx.data_ptr(),
-                kv_cnt.data_ptr(), dq.data_ptr(), *_mask_args(q, k, kv_idx, **kw))
+                kv_cnt.data_ptr(), dq.data_ptr(), part.data_ptr() if part is not None else 0,
+                *args)
     _build.check(lib, rc, "flash_dq launch")
     dq_launches += 1
     return dq
@@ -385,9 +605,9 @@ def flash_dkv(q, k, v, do, lse, delta, q_idx, q_cnt, *, bq: int, bk: int,
               causal: bool, window: int, q_offset: int, sk: int, scale: float,
               softcap: float, kv_groups: int):
     """K11 on the padded layout: (dk, dv) (BH/G, Skp, d) in k's dtype,
-    walking the transposed schedule ``q_idx``/``q_cnt`` and summing each KV
-    row's G query heads.  CUDA tensors run the kernel or raise; CPU tensors
-    run the plain version."""
+    walking the transposed schedule ``q_idx``/``q_cnt`` as ``bwd_plan``
+    balances it and summing each KV row's G query heads.  CUDA tensors run
+    the kernel or raise; CPU tensors run the plain version."""
     global dkv_launches
     kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=q_offset,
               sk=sk, scale=scale, softcap=softcap, kv_groups=kv_groups)
@@ -396,16 +616,20 @@ def flash_dkv(q, k, v, do, lse, delta, q_idx, q_cnt, *, bq: int, bk: int,
         return flash_bwd_plain(q, k, v, do, lse, delta, blocks, **kw)[1:]
     _check_cuda("flash_dkv", q, k, v, q_idx, q_cnt, k.shape[1] // bk, bq, bk,
                 kv_groups, rows=(do, lse, delta))
-    lib, fn = _entry("flash_dkv", 10, 12)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib, fn = _entry("flash_dkv", 12, 14)
+    BKV, Skp, d = k.shape
+    n_split, args = _bwd_launch("dkv", q, k, q_idx, kw)
+    dkv = torch.empty(2, BKV, Skp, d, dtype=k.dtype, device=k.device)
+    part = (torch.empty(2, n_split, BKV, Skp, d, dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
+    parts = (part[0].data_ptr(), part[1].data_ptr()) if part is not None else (0, 0)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), q_idx.data_ptr(),
-                q_cnt.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                *_mask_args(q, k, q_idx, **kw))
+                q_cnt.data_ptr(), dkv[0].data_ptr(), dkv[1].data_ptr(), *parts, *args)
     _build.check(lib, rc, "flash_dkv launch")
     dkv_launches += 1
-    return dk, dv
+    return dkv[0], dkv[1]
 
 
 def flash_bwd(q, k, v, o, lse, do, sched, **kw):
@@ -571,20 +795,20 @@ def merge_partials_plain(o_part, m_part, l_part):
 
 
 def launch_info(kernel: str, d: int, width: int = 1) -> dict:
-    """The launch a CUDA kernel gets at head_dim ``d`` (``kernel`` "flash_fwd"
-    at schedule width ``width``, or "flash_paged"): CTAs resident per SM,
-    registers a thread, dynamic shared bytes, local (spill) bytes a thread
-    and warps a CTA, from the CUDA runtime.  Needs a card."""
-    lib = _build.load(kernel)
+    """The launch a CUDA kernel gets at head_dim ``d`` (``kernel``
+    "flash_fwd", "flash_dq" or "flash_dkv" at schedule width ``width``, or
+    "flash_paged"): CTAs resident per SM, registers a thread, dynamic shared
+    bytes, local (spill) bytes a thread and warps a CTA, from the CUDA
+    runtime.  Needs a card."""
+    lib = _build.load("flash_bwd" if kernel in ("flash_dq", "flash_dkv") else kernel)
     out = (ctypes.c_int * 5)()
-    if kernel == "flash_fwd":
-        fn = lib.flash_fwd_info
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        args = (d, width, ctypes.addressof(out))
-    else:
-        fn = lib.flash_paged_info
+    fn = getattr(lib, f"{kernel}_info")
+    if kernel == "flash_paged":
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         args = (d, ctypes.addressof(out))
+    else:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        args = (d, width, ctypes.addressof(out))
     fn.restype = ctypes.c_int
     _build.check(lib, fn(*args), f"{kernel} launch info")
     return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "spill_bytes", "warps"),

@@ -552,9 +552,10 @@ def test_cuda_paged_flash_split_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_flash_kernels_are_deterministic():
-    """Two launches of K9 (danube's d = 80, G = 4, window; qwen2-moe's
-    d = 128, G = 1) and of K12 (split and unsplit) on the same inputs give
-    identical bits."""
+    """Two launches of K9, K10 and K11 (danube's d = 80, G = 4, window;
+    qwen2-moe's d = 128, G = 1, causal; at these sizes both backward kernels
+    split their walks, and pair their units at qwen2-moe's) and of K12
+    (split and unsplit) on the same inputs give identical bits."""
     dev = _cuda()
     rng = np.random.default_rng(11)
     for BH, G, d, S, window in ((8, 4, 80, 700, 256), (4, 1, 128, 600, 0)):
@@ -562,6 +563,20 @@ def test_cuda_flash_kernels_are_deterministic():
                    .to(torch.bfloat16).to(dev) for n in (BH, BH // G, BH // G))
         kw = dict(causal=True, window=window, kv_groups=G, return_lse=True)
         a, b = (tfa.flash_attention(q, k, v, **kw) for _ in range(2))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        do = torch.randn_like(q)
+        o, lse = tfa.flash_attention(q, k, v, **kw)
+        bq, bk = tfa.effective_blocks(S, S)
+        Sp = -(-S // bq) * bq
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, Sp - S))
+        sched = tfa._schedule_on(dev, S, S, bq, bk, True, window, 0)
+        bkw = dict(bq=bq, bk=bk, causal=True, window=window, q_offset=0, sk=S,
+                   scale=d ** -0.5, softcap=0.0, kv_groups=G)
+        args = (pad(q), pad(k), pad(v), pad(do), pad(lse[..., None])[..., 0].contiguous())
+        delta = (args[3].float() * pad(o).float()).sum(-1)
+        a, b = (tfa.flash_dq(*args, delta, sched[0], sched[1], **bkw) for _ in range(2))
+        assert torch.equal(a, b)
+        a, b = (tfa.flash_dkv(*args, delta, sched[2], sched[3], **bkw) for _ in range(2))
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     q, pk, pv, table, ctx = _paged_path_problem(dev)
     for qq in (q, q.repeat(4, 1, 8, 1)):  # split, then Sq 128 x 4 rows: unsplit
@@ -930,6 +945,92 @@ def test_cuda_flash_backward_d128_g1_matches_plain(S):
                                 ("dv", dv, want[2], dv_a, dv_e)):
         diff = (got.float().cpu() - w_.float()).abs()
         assert bool((diff <= tfa.grad_error_bound(w_, a, e)).all()), name
+
+
+def _bwd_problem(seed, BH, G, d, Sq, Sk, causal, window, softcap, blocks=None):
+    """bf16 q, k, v, do on the padded layout (CPU), the plain forward's lse
+    and delta, the schedule (CPU) and the kernels' keyword arguments."""
+    from repro_torch.core.attn_sched import sched_for
+
+    rng = np.random.default_rng(seed)
+    bq, bk = blocks or tfa.effective_blocks(Sq, Sk)
+    Sqp, Skp = -(-Sq // bq) * bq, -(-Sk // bk) * bk
+    r = lambda n, s, sp: torch.nn.functional.pad(torch.from_numpy(
+        rng.standard_normal((n, s, d)).astype(np.float32)).to(torch.bfloat16), (0, 0, 0, sp - s))
+    q, k, v, do = r(BH, Sq, Sqp), r(BH // G, Sk, Skp), r(BH // G, Sk, Skp), r(BH, Sq, Sqp)
+    s = sched_for(Sq, Sk, bq, bk, causal, window, Sk - Sq)
+    sched = [torch.from_numpy(s[n]) for n in ("kv_idx", "kv_cnt", "q_idx", "q_cnt")]
+    kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=Sk - Sq, sk=Sk,
+              scale=d ** -0.5, softcap=softcap, kv_groups=G)
+    o, lse = tfa.flash_fwd(q, k, v, sched[0], sched[1], **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    return (q, k, v, do, lse, delta), sched, kw
+
+
+# (BH, G, d, Sq, Sk, causal, window, softcap, (bq, bk) or None): the edges
+# of K10/K11's 64-row units and walks
+BWD_EDGES = {
+    # S not a multiple of 64: the last units are partly padding
+    "S=200 G=4 d=80": (8, 4, 80, 200, 200, True, 0, 0.0, None),
+    # windows 100 and 150: edges inside 64-key tiles
+    "window 100 S=400": (8, 4, 80, 400, 400, True, 100, 0.0, None),
+    "window 150 d=128 G=2": (4, 2, 128, 330, 330, True, 150, 0.0, None),
+    # 64-row blocks: 5 units (odd), so one CTA of a pairing walks alone
+    "blocks 64 S=320 (5 units)": (8, 4, 80, 320, 320, True, 0, 0.0, (64, 64)),
+    # bq = bk = 112: a 64-row and a 48-row unit per block
+    "S=100 bq=112": (8, 4, 80, 100, 100, True, 0, 0.0, None),
+    "d=128 G=1 S=520": (4, 1, 128, 520, 520, True, 0, 0.0, None),
+    "d=64 (generic instantiation)": (4, 2, 64, 300, 300, True, 0, 0.0, None),
+    "softcap 30 G=4": (8, 4, 80, 260, 260, True, 0, 30.0, None),
+    "q_offset Sq=77 Sk=300": (8, 4, 80, 77, 300, True, 0, 0.0, None),
+    "dead rows Sq=90 Sk=40": (4, 2, 80, 90, 40, True, 0, 0.0, None),
+    "no mask": (4, 2, 80, 200, 200, False, 0, 0.0, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (False, 1), (True, 1), (False, 3), (True, 2)])
+@pytest.mark.parametrize("case", sorted(BWD_EDGES))
+def test_cuda_flash_backward_edges_match_plain(case, plan, monkeypatch):
+    """K10 and K11 at the edges of their 64-row units and walks, under their
+    own plan (``bwd_plan``) and with the plan forced (pairing on and off,
+    walks split into 1-3 parts, unequal where the step count does not
+    divide), element by element within ``grad_error_bound``; one launch
+    each."""
+    dev = _cuda()
+    BH, G, d, Sq, Sk, causal, window, softcap, blocks = BWD_EDGES[case]
+    args, sched, kw = _bwd_problem(len(case), BH, G, d, Sq, Sk, causal, window, softcap,
+                                   blocks)
+    if plan is not None:
+        monkeypatch.setattr(tfa, "_bwd_plan_for", lambda *a, **k: plan)
+    visible = tfa._schedule_mask(sched[0], sched[1], args[1].shape[1] // kw["bk"], "cpu")
+    *want, dq_a, dk_a, dv_a, dq_e, dk_e, dv_e = tfa.flash_bwd_plain(
+        *args, visible, with_abs=True, **kw)
+    on = lambda *ts: [t.to(dev) for t in ts]
+    n0 = (tfa.dq_launches, tfa.dkv_launches)
+    dq = tfa.flash_dq(*on(*args, sched[0], sched[1]), **kw)
+    dk, dv = tfa.flash_dkv(*on(*args, sched[2], sched[3]), **kw)
+    assert (tfa.dq_launches, tfa.dkv_launches) == (n0[0] + 1, n0[1] + 1)
+    for name, got, w_, a, e in (("dq", dq, want[0], dq_a, dq_e),
+                                ("dk", dk, want[1], dk_a, dk_e),
+                                ("dv", dv, want[2], dv_a, dv_e)):
+        diff = (got.float().cpu() - w_.float()).abs()
+        assert bool((diff <= tfa.grad_error_bound(w_, a, e)).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 128])
+def test_cuda_flash_backward_has_no_spill(d):
+    """K10 and K11 at danube's d = 80 and qwen2-moe's d = 128 spill no
+    registers (a spill is a defect of the design) and get the warps and
+    the CTAs per SM their design and the plan count on
+    (``tfa.bwd_unit_rows``, ``tfa.bwd_ctas_per_sm``)."""
+    _cuda()
+    for kind in ("dq", "dkv"):
+        info = tfa.launch_info(f"flash_{kind}", d, 8)
+        assert info["spill_bytes"] == 0, (kind, info)
+        assert info["ctas_per_sm"] == tfa.bwd_ctas_per_sm(kind, d), (kind, info)
+        assert info["warps"] * 16 == tfa.bwd_unit_rows(kind, d), (kind, info)
 
 
 @pytest.mark.cuda

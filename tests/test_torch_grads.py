@@ -256,30 +256,78 @@ def _flash_bwd_tiles(q, k, v, do, lse, delta, sched, *, b, window, G, softcap,
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
-@pytest.mark.parametrize("fault", [None, "no_chain", "no_delta", "gqa_row",
-                                   "kv_block", "one_member"])
-def test_flash_grad_bound_holds_and_catches_faults(fault):
+def _flash_bwd_planned(q, k, v, do, lse, delta, sched, kw, *, pair, n_split, dq_rows,
+                       fault=None):
+    """The backward kernels' new walk on the CPU: K10 units of ``dq_rows``
+    query rows, K11 units of 64 KV rows, 64-row sub-tiles, dead sub-tiles
+    dropped, units paired and walks split as (pair, n_split) say
+    (``tfa.bwd_walks``), through the plain version that follows it
+    (``tfa.flash_bwd_walked_plain``).  ``fault`` plants a walk error: one
+    live sub-tile skipped in one unit of K10 and of K11, or one sub-tile
+    replaced by its neighbour."""
+    wk = dict(bq=kw["bq"], bk=kw["bk"], causal=kw["causal"], window=kw["window"],
+              q_offset=kw["q_offset"], sk=kw["sk"], groups=kw["kv_groups"], pair=pair,
+              n_split=n_split)
+    walks = [tfa.bwd_walks("dq", sched["kv_idx"], sched["kv_cnt"], unit_rows=dq_rows, **wk),
+             tfa.bwd_walks("dkv", sched["q_idx"], sched["q_cnt"], unit_rows=tfa.BWD_ROWS,
+                           **wk)]
+    if fault is not None:
+        for w in walks:
+            steps = next(st for _, units in w for _, _, st in units if st)
+            gm, t0, n = steps[0]
+            if fault == "skip_sub_tile":
+                del steps[0]
+            else:  # "wrong_sub_tile"
+                steps[0] = (gm, t0 + tfa.BWD_ROWS, n)
+    return tfa.flash_bwd_walked_plain(q, k, v, do, lse, delta, *walks, n_split_dq=n_split,
+                                      n_split_dkv=n_split, **kw)
+
+
+BOUND_FAULTS = [pytest.param("blocks", None, id="None")] + [
+    pytest.param("blocks", f, id=f) for f in ("no_chain", "no_delta", "gqa_row", "kv_block",
+                                               "one_member")] + [
+    pytest.param(plan, f, id=f"{plan}-{f}")
+    for plan in ("paired", "split3", "paired_split2")
+    for f in (None, "skip_sub_tile", "wrong_sub_tile")]
+# (pair, n_split, K10 unit rows): 128-row K10 units are d = 80's
+PLANS = {"paired": (True, 1, 128), "split3": (False, 3, 64), "paired_split2": (True, 2, 128)}
+
+
+@pytest.mark.parametrize("walk,fault", BOUND_FAULTS)
+def test_flash_grad_bound_holds_and_catches_faults(walk, fault):
     """``grad_error_bound`` (the per-element dq/dk/dv check of the CUDA
     kernels K10/K11 against the plain version) holds for the kernels' own
-    tile-by-tile arithmetic and fails for each planted fault."""
+    tile-by-tile arithmetic and fails for each planted fault: on the
+    schedule's 32-row blocks, and on the kernels' walk (128-row blocks cut
+    into 64-row sub-tiles, dead sub-tiles skipped, 64- or 128-row units
+    paired and walks split as the balanced CTA order does, f32 partials
+    merged in order) with a live sub-tile skipped or replaced."""
     from repro_torch.core.attn_sched import sched_for
 
     S, window, G, d, b, softcap = 128, 80, 2, 32, 32, 2.0
+    if walk != "blocks":  # a window edge inside 64-key tiles, S not a multiple of 128
+        S, window, b = 320, 150, 128
     rng = np.random.default_rng(13)
-    q, k, v = (torch.from_numpy(rng.standard_normal((n, S, d)).astype(np.float32))
+    Sp = -(-S // b) * b
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, Sp, d)).astype(np.float32))
                .to(torch.bfloat16) for n in (4, 4 // G, 4 // G))
-    do = torch.from_numpy(rng.standard_normal((4, S, d)).astype(np.float32)).to(torch.bfloat16)
+    do = torch.from_numpy(rng.standard_normal((4, Sp, d)).astype(np.float32)).to(torch.bfloat16)
     sched = sched_for(S, S, b, b, True, window, 0)
     idx = [torch.from_numpy(sched[n]) for n in ("kv_idx", "kv_cnt")]
     kw = dict(bq=b, bk=b, causal=True, window=window, q_offset=0, sk=S,
               scale=d ** -0.5, softcap=softcap, kv_groups=G)
     o, lse = tfa.flash_attention_plain(q, k, v, *idx, **kw)
     delta = (do.float() * o.float()).sum(-1)
-    blocks = tfa._schedule_mask(*idx, S // b, "cpu")
+    blocks = tfa._schedule_mask(*idx, Sp // b, "cpu")
     *want, rq, rk, rv, eq, ek, ev = tfa.flash_bwd_plain(q, k, v, do, lse, delta, blocks,
                                                         with_abs=True, **kw)
-    got = _flash_bwd_tiles(q, k, v, do, lse, delta, sched, b=b, window=window, G=G,
-                           softcap=softcap, fault=fault)
+    if walk == "blocks":
+        got = _flash_bwd_tiles(q, k, v, do, lse, delta, sched, b=b, window=window, G=G,
+                               softcap=softcap, fault=fault)
+    else:
+        pair, n_split, dq_rows = PLANS[walk]
+        got = _flash_bwd_planned(q, k, v, do, lse, delta, sched, kw, pair=pair,
+                                 n_split=n_split, dq_rows=dq_rows, fault=fault)
     within = all(bool(((g.float() - w.float()).abs()
                        <= tfa.grad_error_bound(w, r, e)).all())
                  for g, w, r, e in zip(got, want, (rq, rk, rv), (eq, ek, ev)))

@@ -43,16 +43,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. masked serve -- serve the same model under kernel='masked' (ERK 0.8
                 elementwise masks, flash_tight): the same 8 requests, every
                 request DONE, logits against the plain dense path, exactly
-                168 K13 launches per decode step, the decode step's device
-                time; then K13 (4 -> 16 and 2048 rows), K14, K15 and K19
-                (sr off and on) against their plain versions on layer 0's
-                served weights and masks, timed beside their bounds
+                168 K13 launches and the planned split merges per decode
+                step, the decode step's device time; then K13 (4 -> 16 and
+                2048 rows), K14, K15 and K19 (sr off and on) against their
+                plain versions on layer 0's served weights and masks, timed
+                beside their bounds; K13 also under every candidate plan
+                (whether ``fwd_plan``'s pick was the fastest, TFLOP/s, TB/s,
+                share of the bound), its f32 cases at 2048 rows against a
+                float64 product (at most 8x the plain version's RMS error),
+                and the split merge at each split pick, bit for bit
   7. masked train -- RigL with elementwise masks and the Top-KAST superset
                 (Adam, batch 2 x 1024 in one microbatch, 6 steps, a
                 drop/grow at step 2): the step-0 loss and gradients against
-                the plain dense path, exact launches per step (336 K13, 168
-                K14, 168 K15), and after the update counts kept, B ⊇ A and
-                the carrier fresh
+                the plain dense path, exact launches per step (336 K13 and
+                their planned split merges, 168 K14, 168 K15), and after the
+                update counts kept, B ⊇ A and the carrier fresh
   8. fused train -- the fused SGD epilogue (momentum 0.9, bf16 state with
                 stochastic rounding), 2 steps: 168 K19 and no K15 launch per
                 step, bf16 momentum within the reference's bound of the
@@ -93,8 +98,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 f32 and bf16), timed
  11. moe masked serve -- the same model under kernel='masked': 4 requests
                 (prompts 100/300, 16 tokens), exactly 36 K16 and 84 K13
-                launches per step, the same checks; then K16 against its
-                plain version on layer 0's elementwise masks, timed
+                launches per step and the planned split merges of a decode
+                step, the same checks; then K16 against its plain version
+                on layer 0's elementwise masks, timed, and under every
+                candidate plan
  12. moe train -- K10/K11 at qwen2-moe's attention (G = 1, head_dim 128,
                 S = 1024) against their plain versions, timed; then train
                 qwen2-moe-a2.7b at its published widths, 3 of 24 layers
@@ -154,7 +161,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step; pruning's masks monotone and at the schedule's target
                 density after its prune, snip's per-layer density the ERK
                 map's); wall s per step, tok/s, peak GiB, the update step's s
- 17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels),
+ 17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels
+                and K13/K16's split merge),
                 the card line, and last {"ok": true, "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -1023,7 +1031,7 @@ def kernel_case(torch, timer, kernel, label, run, plain, library, check, n_bytes
     case = {"case": label, "max_abs_err": err, "err_over_tol": ratio, "mean_tol": tol,
             "ms": timer(run), "plain_ms": timer(plain, reps=3),
             "library_ms": None if library is None else timer(library),
-            "bound_ms": b_ms, "bound_by": by}
+            "bound_ms": b_ms, "bound_by": by, "bytes": n_bytes, "flops": flops}
     print(kernel, json.dumps(case))
     return case
 
@@ -1036,14 +1044,17 @@ def masked_cases(torch, timer, mm, params, masks):
     2560x6912, wo 6912x2560); K15 and K19 on a superset B = A plus 10% of
     the weights.  Each output element by element within its bound
     (``mm.matmul_error_bound``, ``mm.fused_error_bound``); K19 with sr bit
-    for bit the plain ``sr_to_bf16`` of the kernel's own f32 m_new.  Bytes
+    for bit the plain ``sr_to_bf16`` of the kernel's own f32 m_new.  K13
+    also under every candidate plan (``fwd_sweep``), the f32 cases at 2048
+    rows against a float64 product (``f64_fidelity``), and the split
+    merge of each split pick (``merge_case``).  Bytes
     count every input once (w and its 1-byte mask included) and every
     output once; operations count the active weights' products (2 per
     multiply-add).  Library: cuBLAS on the pre-masked weight (TF32 off)."""
     from repro_torch.kernels.ops import _row_tile
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    out = {"K13": [], "K14": [], "K15": [], "K19": []}
+    out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": []}
     for label, sub, name in MASKED_PROJ:
         w = params["layers"][0][sub][name]["w"]
         m = masks["layers"][0][sub][name]["w"]
@@ -1065,7 +1076,7 @@ def masked_cases(torch, timer, mm, params, masks):
             x = torch.randn(M, K, device="cuda").to(dt)
             bm, Mp = _row_tile(M, 128)
             xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - M))
-            out["K13"].append(kernel_case(
+            case = kernel_case(
                 torch, timer, "K13", f"{tag} M={M}->{Mp}",
                 lambda: mm.masked_matmul(xp, w, m, bm=bm, bn=128),
                 lambda: mm.masked_matmul_plain(xp, w, m), lambda: x @ wm,
@@ -1073,7 +1084,16 @@ def masked_cases(torch, timer, mm, params, masks):
                                 mm.masked_matmul_plain(xp, w, m),
                                 mm.matmul_error_bound(mm.masked_matmul_plain(xp, w, m),
                                                       xp.float().abs() @ awm, K)),
-                es * (M * K + M * N) + (es + 1) * K * N, 2.0 * M * nnz, dt))
+                es * (M * K + M * N) + (es + 1) * K * N, 2.0 * M * nnz, dt)
+            case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_matmul(
+                xp, w, m, bm=bm, bn=128, plan=plan), Mp, K, N, 1, dt, case))
+            if dt == torch.float32 and M == 2048:
+                case["f64_rms_over_plain"] = f64_fidelity(torch, mm, xp, w, m, tag)
+            print("K13 plans", json.dumps(case))
+            out["K13"].append(case)
+            if case["plan"][2] > 1:
+                out["merge"].append(merge_case(torch, timer, mm, case["plan"][2], 1, Mp, N,
+                                               dt, f"{tag} M={M}->{Mp}"))
         M = 2048
         x = torch.randn(M, K, device="cuda").to(dt)
         g = torch.randn(M, N, device="cuda").to(dt)
@@ -1124,6 +1144,74 @@ def masked_cases(torch, timer, mm, params, masks):
     return out
 
 
+def fwd_sweep(torch, timer, mm, run, Mp, K, N, G, dt, case):
+    """K13/K16's plan at one case and every candidate plan
+    (``mm.fwd_candidates`` on the card's slots) timed with the plan forced:
+    the pick, whether it was the fastest, and the case's achieved rate
+    (TFLOP/s of the active weights' products, TB/s of the bytes its bound
+    counts) and share of the bound."""
+    bm, bn = mm.fwd_tile(Mp)
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * mm.fwd_launch_info(dt, bm, bn)["ctas_per_sm"])
+    pick = mm._fwd_plan_for(Mp, K, N, G, dt, 128, torch.cuda.current_device())
+    plans = {str(p): timer(lambda: run(p), reps=5)
+             for p in mm.fwd_candidates(Mp, K, N, G, dt, slots)}
+    return {"plan": list(pick), "slots": slots, "plans_ms": plans,
+            "plan_is_fastest": plans[str(pick)] == min(plans.values()),
+            "plan_over_fastest": plans[str(pick)] / min(plans.values()),
+            "tflop_s": case["flops"] / case["ms"] / 1e9,
+            "tb_s": case["bytes"] / case["ms"] / 1e9,
+            "share_of_bound": case["bound_ms"] / case["ms"]}
+
+
+def f64_fidelity(torch, mm, x, w, m, tag):
+    """RMS error of K13 against a float64 product over the plain f32
+    version's (3xTF32 keeps f32's digits: at most 8; one-pass TF32 ~1000)."""
+    ref = x.double() @ (w * m).double()
+    rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+    got = rms(mm.masked_matmul(x, w, m, bm=128, bn=128))
+    plain = rms(mm.masked_matmul_plain(x, w, m))
+    print(f"K13 {tag}: RMS error against float64 {got:.4g}, plain f32 {plain:.4g} "
+          f"({got / plain:.3f}x)")
+    if not got <= 8 * plain:
+        raise AssertionError(f"K13 {tag}: RMS error {got} over 8x the plain version's {plain}")
+    return got / plain
+
+
+def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag):
+    """The split merge (sum of n_split f32 partials in order, one rounding)
+    at a split pick's shape: bit for bit its plain version, timed beside
+    its byte bound and torch.sum over the split axis."""
+    part = torch.randn(n_split, G, Mp, N, device="cuda")
+    out = torch.empty(G, Mp, N, dtype=dt, device="cuda")
+
+    def check():
+        got, want = mm.fwd_merge(part, out), mm.fwd_merge_plain(part, dt)
+        if not torch.equal(got.float(), want.float()):
+            raise AssertionError(f"merge {tag}: differs from the ordered plain sum")
+        return 0.0, 0.0, 0.0
+
+    case = kernel_case(torch, timer, "merge", f"{tag} n_split={n_split}",
+                       lambda: mm.fwd_merge(part, out), lambda: mm.fwd_merge_plain(part, dt),
+                       lambda: part.sum(0).to(dt), check,
+                       4 * part.numel() + out.element_size() * out.numel(), 0.0, dt)
+    return case
+
+
+def k13_merges(torch, mm, cfg, layer, Mp):
+    """Split merges of one layer's 7 K13 launches at Mp padded rows: each
+    projection's plan (attention in the compute dtype, the MLP or shared
+    MLP in f32, as the model calls them) splits or not."""
+    from repro_torch.models.layers import compute_dtype
+
+    mlp = layer["mlp"] if "mlp" in layer else layer["moe"]["shared"]
+    shapes = ([(layer["attn"][n]["w"].shape, compute_dtype(cfg)) for n in ("wq", "wk", "wv", "wo")]
+              + [(mlp[n]["w"].shape, torch.float32) for n in ("wi", "wg", "wo")])
+    dev = torch.cuda.current_device()
+    return sum(mm._fwd_plan_for(Mp, K, N, 1, dt, cfg.sparse.kernel_block[1], dev)[2] > 1
+               for (K, N), dt in shapes)
+
+
 def masked_serve(torch, timer, mm, fa):
     """Serve full-size h2o-danube-1.8b under kernel='masked' (ERK 0.8
     elementwise masks, flash_tight): the block-sparse phase's 8 requests;
@@ -1149,10 +1237,11 @@ def masked_serve(torch, timer, mm, fa):
     engine = ServeEngine(cfg, engine.params, capacity=4, max_len=2048, masks=masks)
     for r in reqs:
         engine.submit(r)
-    mm.launches = 0
+    mm.launches = mm.fwd_merge_launches = 0
     fa.launches = 0
     stats = engine.run()
-    launches = {"masked_fwd": mm.launches, "flash_fwd": fa.launches}
+    launches = {"masked_fwd": mm.launches, "masked_fwd_merge": mm.fwd_merge_launches,
+                "flash_fwd": fa.launches}
     print("masked serve: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "quarantined", "failed",
         "wall_s", "tok_per_s", "prefill_s", "decode_step_s")}))
@@ -1164,6 +1253,7 @@ def masked_serve(torch, timer, mm, fa):
             raise AssertionError(f"masked request {r.rid}: {r.status}")
     if stats["quarantined"] or stats["failed"] or not all(launches.values()):
         raise AssertionError(f"masked serve: {stats}, launches {launches}")
+    merges = cfg.n_layers * k13_merges(torch, mm, cfg, engine.params["layers"][0], 16)
 
     dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
         cfg.sparse, kernel="dense", attn_kernel="dense"))
@@ -1172,15 +1262,20 @@ def masked_serve(torch, timer, mm, fa):
     for name, c in (("kernel", cfg), ("dense", dense)):
         logits, caches = lm_prefill(engine.params, c, {"tokens": toks}, 128, masks=masks)
         nxt = logits[:, -1].argmax(-1)[:, None]
-        n0 = mm.launches
+        n0, g0 = mm.launches, mm.fwd_merge_launches
         step, _ = lm_decode(engine.params, c, caches, nxt, toks.shape[1], masks=masks)
         if name == "kernel":
             stats["k13_launches_per_decode_step"] = mm.launches - n0
+            stats["k13_merges_per_decode_step"] = mm.fwd_merge_launches - g0
         V = cfg.vocab_size
         res[name] = (logits.float()[..., :V], step.float()[..., :V])
-    if stats["k13_launches_per_decode_step"] != 7 * cfg.n_layers:
+    if (stats["k13_launches_per_decode_step"], stats["k13_merges_per_decode_step"]) != \
+            (7 * cfg.n_layers, merges):
         raise AssertionError(f"decode step launched K13 "
-                             f"{stats['k13_launches_per_decode_step']} times")
+                             f"{stats['k13_launches_per_decode_step']} times and its merge "
+                             f"{stats['k13_merges_per_decode_step']} (plans: {merges})")
+    print(f"masked serve: one decode step: {stats['k13_launches_per_decode_step']} K13 "
+          f"launches, {stats['k13_merges_per_decode_step']} split merges")
     for i, what in enumerate(("prefill", "decode")):
         a, b = res["kernel"][i], res["dense"][i]
         if not bool(torch.isfinite(a).all()) or a.shape != (1, 1, cfg.vocab_size):
@@ -1227,10 +1322,12 @@ def masked_train(torch, mm, fa, bsm):
     cfg = masked_config()
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
     dense_check = train_dense_check(torch, cfg, state)
+    merges = k13_merges(torch, mm, cfg, state["params"]["layers"][0], MASKED_BATCH * TRAIN_SEQ)
     del state
     torch.cuda.empty_cache()
 
-    counters = (("masked_fwd", mm, "launches"), ("masked_dx", mm, "dx_launches"),
+    counters = (("masked_fwd", mm, "launches"), ("masked_fwd_merge", mm, "fwd_merge_launches"),
+                ("masked_dx", mm, "dx_launches"),
                 ("masked_dw", mm, "dw_launches"), ("masked_dw_fused", mm, "fused_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"), ("block_sparse_fwd", bsm, "launches"))
@@ -1238,7 +1335,8 @@ def masked_train(torch, mm, fa, bsm):
     n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
     # remat reruns each block's forward in the backward; one microbatch, so
     # the update step's full-batch gradient launches the same
-    expect = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dw": n_proj,
+    expect = {"masked_fwd": 2 * n_proj, "masked_fwd_merge": 2 * merges * cfg.n_layers,
+              "masked_dx": n_proj, "masked_dw": n_proj,
               "masked_dw_fused": 0, "flash_fwd": 2 * n_attn, "flash_dq": n_attn,
               "flash_dkv": n_attn, "block_sparse_fwd": 0}
     log, seen = [], {"counts": None, "t": None, "masks": None, "prof": None}
@@ -2042,8 +2140,9 @@ def k4_cases(torch, timer, bsm, engine):
 def k16_cases(torch, timer, mm, engine):
     """K16 against its plain version on layer 0's served banks and
     elementwise ERK masks (wi 2048 -> 1408, wo 1408 -> 2048), at C = 4 (->
-    16) and 84 (-> 96) rows, f32 and bf16.  Bytes: x, y, w and its 1-byte
-    mask once; operations: 2 C per active weight.  Library: torch.bmm on the
+    16) and 84 (-> 96) rows, f32 and bf16, each also under every candidate
+    plan (``fwd_sweep``).  Bytes: x, y, w and its 1-byte mask once;
+    operations: 2 C per active weight.  Library: torch.bmm on the
     pre-masked bank (TF32 off)."""
     from repro_torch.kernels.ops import grouped_masked_linear
 
@@ -2070,13 +2169,17 @@ def k16_cases(torch, timer, mm, engine):
                     return _check_within(torch, tag, got, want, absp, K, dt)
 
                 es = x.element_size()
-                out.append(kernel_case(
+                case = kernel_case(
                     torch, timer, "K16",
                     f"{tag} G={G} C={C}->{Mp} K={K} N={N} density={nnz / m.numel():.4f}",
                     lambda: mm.grouped_masked_matmul(xp, w, m, bm=bm, bn=blk), plain,
                     lambda: torch.bmm(x, wm), check,
                     es * (G * C * K + G * C * N) + (es + 1) * G * K * N,
-                    2.0 * C * nnz, dt))
+                    2.0 * C * nnz, dt)
+                case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.grouped_masked_matmul(
+                    xp, w, m, bm=bm, bn=blk, plan=plan), Mp, K, N, G, dt, case))
+                print("K16 plans", json.dumps(case))
+                out.append(case)
     return out
 
 
@@ -2281,9 +2384,10 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
     engine = ServeEngine(cfg, engine.params, masks=masks, pack=pack, **MOE_ENGINE)
     for r in reqs:
         engine.submit(r)
-    fa.launches = gmod.g_launches = pmod.launches = 0
+    fa.launches = gmod.g_launches = pmod.launches = mm.fwd_merge_launches = 0
     stats.update(engine.run())
     launches = {gname: gmod.g_launches, pname: pmod.launches, "flash_fwd": fa.launches}
+    merges_run = mm.fwd_merge_launches
     print(f"{label}: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "quarantined", "failed",
         "wall_s", "tok_per_s", "prefill_s", "decode_step_s")}))
@@ -2298,7 +2402,9 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
               "flash_fwd": L * stats["prefills"]}
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected {expect}")
-    n0, p0 = gmod.g_launches, pmod.launches
+    if not bs:
+        launches["masked_fwd_merge"] = merges_run
+    n0, p0, m0 = gmod.g_launches, pmod.launches, mm.fwd_merge_launches
     step = lambda: lm_decode(engine.params, cfg, engine.caches,
                              torch.from_numpy(engine.cur_tok[:, None]).cuda(),
                              torch.from_numpy(engine.pos).cuda(), masks=masks, pack=pack)
@@ -2310,6 +2416,17 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
         raise AssertionError(f"{label}: one decode step launched {gname} "
                              f"{stats['grouped_launches_per_decode_step']} and {pname} "
                              f"{stats['proj_launches_per_decode_step']} times")
+    if not bs:
+        # K16's banks never split (fwd_plan); K13's projections as planned
+        stats["merges_per_decode_step"] = mm.fwd_merge_launches - m0
+        want = L * k13_merges(torch, mm, cfg, engine.params["layers"][0], 16)
+        print(f"{label}: one decode step: {stats['grouped_launches_per_decode_step']} K16 and "
+              f"{stats['proj_launches_per_decode_step']} K13 launches, "
+              f"{stats['merges_per_decode_step']} split merges (plans: {want}); "
+              f"{merges_run} merges in the run")
+        if stats["merges_per_decode_step"] != want:
+            raise AssertionError(f"{label}: {stats['merges_per_decode_step']} merges in one "
+                                 f"decode step, the plans say {want}")
     stats["prefill_ms"] = 1e3 * stats["prefill_s"] / stats["prefills"]
     stats["decode_step_ms"] = 1e3 * stats["decode_step_s"]
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2552,6 +2669,9 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
     cases = (k5_k6_cases(torch, timer, bsm, state, cfg) if bs
              else k17_k18_cases(torch, timer, mm, state, cfg))
+    # K13's split merges a microbatch (K16's banks never split, fwd_plan)
+    merges = 0 if bs else cfg.n_layers * k13_merges(
+        torch, mm, cfg, state["params"]["layers"][0], batch * TRAIN_SEQ // cfg.microbatches)
     dense_check = train_dense_check(
         torch, cfg, state, label=label,
         names=("layers/0/moe/wi/w", "layers/0/moe/shared/wi/w", "layers/0/moe/router/w"))
@@ -2567,6 +2687,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                 ("masked_dw", mm, "dw_launches"), ("grouped_masked_fwd", mm, "g_launches"),
                 ("grouped_masked_dx", mm, "gdx_launches"),
                 ("grouped_masked_dw", mm, "gdw_launches"),
+                ("masked_fwd_merge", mm, "fwd_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
@@ -2580,7 +2701,8 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         e.update({f"{fam}_fwd": 2 * MOE_PROJ * L * mb, f"{fam}_dx": MOE_PROJ * L * mb,
                   f"{fam}_dw": MOE_PROJ * L * mb, f"{gfam}_fwd": 2 * B * L * mb,
                   f"{gfam}_dx": B * L * mb, f"{gfam}_dw": B * L * mb,
-                  "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb})
+                  "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb,
+                  "masked_fwd_merge": 2 * merges * mb})
         return e
 
     # the update step's gradient is one pass over the full batch
@@ -3389,6 +3511,8 @@ def main() -> int:
         summary("flash_dkv", csrc + "flash_bwd.cu", kern + "flash_attention.py:207", k11),
         summary("masked_fwd", csrc + "masked_matmul.cu", kern + "masked_matmul.py:79",
                 mcases["K13"]),
+        summary("masked_fwd_merge", csrc + "masked_matmul.cu", kern + "masked_matmul.py:79",
+                mcases["merge"]),
         summary("masked_dx", csrc + "masked_matmul.cu", kern + "masked_matmul.py:96",
                 mcases["K14"]),
         summary("masked_dw", csrc + "masked_matmul.cu", kern + "masked_matmul.py:115",

@@ -23,38 +23,51 @@
 // m is a bool (one byte, 0 or 1) mask of w's shape (K, N): any pattern.
 //
 // Design.  The masked weight never exists in device memory: each kernel
-// stages a slab of w and the same slab of m, multiplies them while writing
-// the slab to shared memory (v * float(m), as the reference's
-// w * m.astype(w.dtype): an inf or NaN weight under a zero mask gives NaN),
-// and feeds the product to the tile MMA (tile_mma.cuh: wmma for bf16,
-// full-precision FFMA for f32, f32 accumulation, one rounding to the output
-// type).  K14 stages the masked slab transposed, as K2 stages W^T.  K15 and
-// K19 apply the mask at the store.  No atomics, every sum in a fixed order:
-//  * K13: one CTA per (bn-column tile, bm-row tile), looping over all K in
-//    slabs of 32 (16 when K is not a multiple of 32); K16 is the same kernel
-//    with the bank's group as the grid's third dimension (K13 is the bank
-//    of one);
+// stages a slab of w and the same slab of m and multiplies them in shared
+// memory (v * float(m), as the reference's w * m.astype(w.dtype): an inf or
+// NaN weight under a zero mask gives NaN).  No atomics, every sum in a
+// fixed order.
+//  * K13 and K16 run on the register-resident GEMM core (gemm_core.cuh):
+//    a cp.async ring of (x, w, mask) slabs of 32, the mask applied in
+//    place by the thread that copied the chunk, mma.sync m16n8k16 for
+//    bf16 and 3xTF32 m16n8k8 for f32 (f32's digits on the tensor cores),
+//    accumulators in registers, one rounding at the store.  One CTA per
+//    (BN-column tile, BM-row tile, group x split): the host plan
+//    (kernels/masked_matmul.py::fwd_plan) picks the tile and splits K
+//    into n_split whole-slab parts where the grid alone would leave the
+//    SMs' resident slots empty (decode) or its last wave mostly idle; a
+//    split stores f32 partials
+//    into a workspace (n_split, G, Mp, N) and masked_fwd_merge_kernel
+//    sums them in split order and rounds once.  K16 is K13 with the
+//    bank's group in grid dim z (K13 is the bank of one).
+//  * K14, K15, K19 and their grouped twins still run on the tile layer
+//    (tile_mma.cuh: wmma for bf16, full-precision FFMA for f32): K14
+//    stages the masked slab transposed, as K2 stages W^T; K15 and K19
+//    apply the mask at the store.
 //  * K14: one CTA per (bk-column tile of dx, bm-row tile), looping over N;
 //  * K15/K19: one CTA per (bk x bn) tile of dw, looping over all M rows in
 //    one CTA (the TPU kernel carried the sum across its innermost grid axis);
 //  * K17/K18/K20 are K14/K15/K19 with the bank's group as the grid's third
-//    dimension, as K16 is K13's (K14/K15/K19 are the bank of one).  A fully
-//    masked expert reads its zero mask like any other: zero dx rows and a
-//    zero dw or m_new, no empty sum.
+//    dimension (K14/K15/K19 are the bank of one).  A fully masked expert
+//    reads its zero mask like any other: zero dx rows and a zero dw or
+//    m_new, no empty sum.
 // K19/K20's epilogue (epilogue.cuh, shared with K7/K8) reads mom and w at
 // the store; with sr it hashes the element's id gid = (g * K + row) * N +
 // col (wrapping uint32; K and N are the padded extents the wrapper hands
 // in) with the seed, as the reference's sr_to_bf16.
 //
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s f32 FFMA):
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 495 TF32, 67 f32 FFMA):
 // decode (16 padded rows) reads every weight and its mask byte once, far
-// below the ridge: bytes bound it.  The training shapes (M = 2048) do the
-// dense work, 2 * M * K * N flops per call: in bf16 near the ridge, in f32
-// (the reference's MLP) the FFMA peak bounds them.  This first version uses
-// synchronous loads and wmma/FFMA (no cp.async/TMA pipeline, no wgmma);
-// its times against the bound are in PERF.md.
+// below the ridge: bytes bound it, and split-K keeps enough copies in
+// flight.  The training shapes (M = 2048) do the dense work, 2 * M * K * N
+// flops per call: in bf16 near the ridge; in f32 (the reference's MLP)
+// 3xTF32 does three tensor-core products per f32 product.  The times
+// against the bound are in PERF.md.
+#include <algorithm>
+
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "gemm_core.cuh"
 
 namespace {
 
@@ -65,27 +78,6 @@ template <> struct MaskVec<4> { using V = unsigned int; };
 template <typename T>
 __device__ inline T masked(T v, uint8_t m) {
   return tile::from_float<T>(tile::to_float(v) * static_cast<float>(m));
-}
-
-// dst[r * ldd + c] = src[r * lds + c] * msk[r * lds + c]; 16 bytes of src
-// and 16 / sizeof(T) mask bytes per thread per step.
-template <typename T>
-__device__ inline void stage_masked_rows(T* dst, int ldd, const T* src,
-                                         const uint8_t* msk, size_t lds,
-                                         int rows, int cols) {
-  constexpr int per = 16 / sizeof(T);
-  using MV = typename MaskVec<per>::V;
-  const int vpr = cols / per;
-  for (int t = threadIdx.x; t < rows * vpr; t += tile::kThreads) {
-    const int r = t / vpr, c = (t % vpr) * per;
-    uint4 raw = *reinterpret_cast<const uint4*>(src + r * lds + c);
-    const MV mv = *reinterpret_cast<const MV*>(msk + r * lds + c);
-    T* vals = reinterpret_cast<T*>(&raw);
-    const uint8_t* mb = reinterpret_cast<const uint8_t*>(&mv);
-#pragma unroll
-    for (int e = 0; e < per; ++e) vals[e] = masked(vals[e], mb[e]);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = raw;
-  }
 }
 
 // Transposed: dst[c * ldd + r] = src[r * lds + c] * msk[r * lds + c].
@@ -105,42 +97,6 @@ __device__ inline void stage_masked_cols(T* dst, int ldd, const T* src,
 #pragma unroll
     for (int e = 0; e < per; ++e) dst[(c + e) * ldd + r] = masked(vals[e], mb[e]);
   }
-}
-
-// K13 and K16: group g = blockIdx.z of x (G, Mp, K), w and m (G, K, N),
-// y (G, Mp, N).
-template <typename T>
-__global__ void __launch_bounds__(tile::kThreads)
-masked_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const uint8_t* __restrict__ m, T* __restrict__ y, int Mp, int K,
-                  int N, int bm, int bn) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int xld = tile::kSlab + tile::pad<T>(), wld = bn + tile::pad<T>();
-  T* xs = reinterpret_cast<T*>(smem);  // bm x xld
-  T* ws = xs + bm * xld;               // kSlab x wld: the masked w slab
-  float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
-
-  const int n0 = blockIdx.x * bn, m0 = blockIdx.y * bm;
-  const size_t g = blockIdx.z;
-  const T* xg = x + g * Mp * K;
-  const T* wg = w + g * K * N;
-  const uint8_t* mg = m + g * K * N;
-  T* yg = y + g * Mp * N;
-  const int slab = (K % tile::kSlab == 0) ? tile::kSlab : 16;
-
-  tile::Acc<T> acc;
-  acc.zero();
-  for (int k0 = 0; k0 < K; k0 += slab) {
-    __syncthreads();  // the previous slab is consumed
-    tile::stage_rows(xs, xld, xg + (size_t)m0 * K + k0, K, bm, slab);
-    stage_masked_rows(ws, wld, wg + (size_t)k0 * N + n0, mg + (size_t)k0 * N + n0, N,
-                      slab, bn);
-    __syncthreads();
-    acc.mma(xs, xld, ws, wld, bm, bn, slab);
-  }
-  acc.store(scratch, bm, bn, [&](int r, int c, float v) {
-    yg[(size_t)(m0 + r) * N + n0 + c] = tile::from_float<T>(v);
-  });
 }
 
 template <typename T>
@@ -238,17 +194,6 @@ size_t smem_bytes(int rows, int cols) {
 }
 
 template <typename T>
-int launch_fwd(const void* x, const void* w, const void* m, void* y, int G, int Mp,
-               int K, int N, int bm, int bn, void* stream) {
-  const dim3 grid(N / bn, Mp / bm, G);
-  masked_fwd_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bm, bn),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const uint8_t*>(m), static_cast<T*>(y), Mp, K, N, bm, bn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_dx(const void* g, const void* w, const void* m, void* dx, int G, int Mp,
               int K, int N, int bm, int bk, void* stream) {
   const dim3 grid(K / bk, Mp / bm, G);
@@ -284,26 +229,192 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K13 and K16 on the GEMM core.  The (BM, BN) tiles the host plan picks
+// from (kernels/masked_matmul.py::FWD_TILES): 128 x 128 for more than 64
+// rows (128 x 64 where the caller caps the column tile), 16 x 64 for
+// decode; WM x WN warps, ring stages, resident CTAs an SM.
+template <typename T, int BM, int BN> struct FwdCfg;
+template <> struct FwdCfg<__nv_bfloat16, 128, 128> {
+  using C = gemm::Cfg<__nv_bfloat16, 128, 128, 2, 4, 4, 2>;
+};
+template <> struct FwdCfg<__nv_bfloat16, 128, 64> {
+  using C = gemm::Cfg<__nv_bfloat16, 128, 64, 4, 2, 4, 2>;
+};
+template <> struct FwdCfg<__nv_bfloat16, 16, 64> {
+  using C = gemm::Cfg<__nv_bfloat16, 16, 64, 1, 4, 4, 4>;
+};
+template <> struct FwdCfg<float, 128, 128> { using C = gemm::Cfg<float, 128, 128, 2, 4, 4, 1>; };
+template <> struct FwdCfg<float, 128, 64> { using C = gemm::Cfg<float, 128, 64, 4, 2, 3, 1>; };
+template <> struct FwdCfg<float, 16, 64> { using C = gemm::Cfg<float, 16, 64, 1, 4, 4, 4>; };
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = ptx::pack_bf16(v0, v1);
+}
+
+// K13 and K16: x (G, Mp, K), w and m (G, K, N), y (G, Mp, N); blockIdx.z =
+// g * n_split + s.  Split s walks K's slabs [s n / n_split, (s + 1) n /
+// n_split) of n = ceil(K / 32) and, when n_split > 1, stores its f32
+// partial into part (n_split, G, Mp, N) in place of y.
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::MIN_CTAS)
+masked_fwd_kernel(const typename C::Type* __restrict__ x,
+                  const typename C::Type* __restrict__ w, const uint8_t* __restrict__ m,
+                  typename C::Type* __restrict__ y, float* __restrict__ part, int G, int Mp,
+                  int K, int N, int n_split) {
+  using T = typename C::Type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = blockIdx.z / n_split, s = blockIdx.z % n_split;
+  const int n_slabs = (K + gemm::kSlab - 1) / gemm::kSlab;
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  gemm::Warp<C> warp;
+  warp.zero();
+  gemm::walk<C, gemm::MaskedRowsB>(warp, x + (size_t)g * Mp * K, w + (size_t)g * K * N,
+                                   m + (size_t)g * K * N, Mp, N, K, m0, n0,
+                                   s * n_slabs / n_split, (s + 1) * n_slabs / n_split, smem);
+  if (n_split == 1) {
+    T* yg = y + (size_t)g * Mp * N;
+    gemm::store(warp, Mp, N, m0, n0, [&](int r, int c, float v0, float v1) {
+      store2(yg + (size_t)r * N + c, v0, v1);
+    });
+  } else {
+    float* pg = part + ((size_t)s * G + g) * Mp * N;
+    gemm::store(warp, Mp, N, m0, n0, [&](int r, int c, float v0, float v1) {
+      store2(pg + (size_t)r * N + c, v0, v1);
+    });
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(ptx::pack_bf16(v.x, v.y), ptx::pack_bf16(v.z, v.w));
+}
+
+// y[i] = sum over s of part[s][i], s = 0, 1, ... in order, rounded once to
+// y's type; plane = G * Mp * N (a multiple of 4), n4 = plane / 4.
+template <typename T>
+__global__ void __launch_bounds__(256)
+masked_fwd_merge_kernel(const float* __restrict__ part, T* __restrict__ y, size_t n4,
+                        size_t plane, int n_split) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 v = reinterpret_cast<const float4*>(part)[i];
+    for (int s = 1; s < n_split; ++s) {
+      const float4 p = reinterpret_cast<const float4*>(part + s * plane)[i];
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    store4(y + 4 * i, v);
+  }
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <class C> struct Tag { using type = C; };
+
+// f(Tag<Cfg>) for the configuration of tile (bm, bn); cudaErrorInvalidValue
+// for a tile the kernel is not built for.
+template <typename T, class F>
+int with_tile(int bm, int bn, F f) {
+  if (bm == 128 && bn == 128) return f(Tag<typename FwdCfg<T, 128, 128>::C>{});
+  if (bm == 128 && bn == 64) return f(Tag<typename FwdCfg<T, 128, 64>::C>{});
+  if (bm == 16 && bn == 64) return f(Tag<typename FwdCfg<T, 16, 64>::C>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class C>
+int launch_fwd(const void* x, const void* w, const void* m, void* y, void* part, int G,
+               int Mp, int K, int N, int n_split, void* stream) {
+  using T = typename C::Type;
+  const auto kernel = masked_fwd_kernel<C>;
+  cudaError_t err = prepare(kernel, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + C::BN - 1) / C::BN, (Mp + C::BM - 1) / C::BM, G * n_split);
+  kernel<<<grid, C::kThreads, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const uint8_t*>(m),
+      static_cast<T*>(y), static_cast<float*>(part), G, Mp, K, N, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_merge(const void* part, void* y, long long plane, int n_split, void* stream) {
+  const size_t n4 = static_cast<size_t>(plane) / 4;
+  const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 132 * 8));
+  masked_fwd_merge_kernel<T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<T*>(y), n4, static_cast<size_t>(plane),
+      n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = {CTAs resident per SM, registers a thread, dynamic shared bytes,
+// local (spill) bytes a thread, threads a CTA} of configuration C.
+template <class C>
+int fwd_info(int* out) {
+  const auto kernel = masked_fwd_kernel<C>;
+  cudaError_t err = prepare(kernel, C::SMEM);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, C::kThreads, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = ctas;
+  out[1] = attr.numRegs;
+  out[2] = C::SMEM;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = C::kThreads;
+  return 0;
+}
+
 }  // namespace
 
-// Row-major operands in the entry's element type, m one byte per element
-// (0 or 1) of w's shape (K, N); the grouped entries (K16, K17, K18) take a
-// leading group dim on every operand: x (G, Mp, K), g (G, Mp, N), w and m
-// (G, K, N), y (G, Mp, N), dx (G, Mp, K), dw (G, K, N).  The wrappers check
+// K13 and K16 (the bank of G groups; K13 passes G = 1): x (G, Mp, K), w
+// and m (G, K, N), y (G, Mp, N), row-major, m one byte per element (0 or
+// 1); K and N multiples of 16, 16-byte alignment; (bm, bn) one of the built
+// tiles; with n_split > 1, part is the f32 workspace (n_split, G, Mp, N)
+// and masked_fwd_merge_<S> must follow to write y.
+#define FWD_ENTRIES(S, T)                                                          \
+  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,      \
+                                void* y, void* part, int G, int Mp, int K, int N, \
+                                int bm, int bn, int n_split, void* stream) {      \
+    return with_tile<T>(bm, bn, [&](auto tag) {                                    \
+      return launch_fwd<typename decltype(tag)::type>(x, w, m, y, part, G, Mp, K,  \
+                                                      N, n_split, stream);         \
+    });                                                                            \
+  }                                                                                \
+  extern "C" int masked_fwd_merge_##S(const void* part, void* y, long long plane, \
+                                      int n_split, void* stream) {                 \
+    return launch_merge<T>(part, y, plane, n_split, stream);                       \
+  }                                                                                \
+  extern "C" int masked_fwd_info_##S(int bm, int bn, int* out) {                  \
+    return with_tile<T>(bm, bn, [&](auto tag) {                                    \
+      return fwd_info<typename decltype(tag)::type>(out);                          \
+    });                                                                            \
+  }
+
+FWD_ENTRIES(bf16, __nv_bfloat16)
+FWD_ENTRIES(f32, float)
+
+// K14, K15 and their grouped twins: row-major operands in the entry's
+// element type, m one byte per element (0 or 1) of w's shape (K, N); the
+// grouped entries (K17, K18) take a leading group dim on every operand: g
+// (G, Mp, N), w and m (G, K, N), dx (G, Mp, K), dw (G, K, N).  The wrappers check
 // Mp % bm == 0, N % bn == 0, K % bk == 0, K and N multiples of 16, bm, bn,
 // bk multiples of 16 in [16, 128], 16-byte alignment.
 #define MASKED_ENTRIES(S, T)                                                        \
-  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,       \
-                                void* y, int Mp, int K, int N, int bm, int bn,      \
-                                void* stream) {                                     \
-    return launch_fwd<T>(x, w, m, y, 1, Mp, K, N, bm, bn, stream);                  \
-  }                                                                                 \
-  extern "C" int masked_fwd_grouped_##S(const void* x, const void* w,              \
-                                        const void* m, void* y, int G, int Mp,      \
-                                        int K, int N, int bm, int bn,               \
-                                        void* stream) {                             \
-    return launch_fwd<T>(x, w, m, y, G, Mp, K, N, bm, bn, stream);                  \
-  }                                                                                 \
   extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,        \
                                void* dx, int Mp, int K, int N, int bm, int bk,      \
                                void* stream) {                                      \

@@ -18,17 +18,24 @@ csrc/masked_matmul.cu (the design and its bound are described there):
   K20 ``_g_dw_fused_kernel`` (``_g_dw_fused_call``)  K19 per group of a
         bank; the sr ids gain g * K * N
 
-Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
-reference's MLP computes in the f32 residual's dtype), accumulating in f32
-and rounding once to the output type.  The mask multiplies the weight (an
-inf weight under a zero mask gives NaN, as the reference's
-``w * m.astype(w.dtype)``); it is never a select.
+Each runs in bf16 and in f32 (the reference's MLP computes in the f32
+residual's dtype), accumulating in f32 and rounding once to the output
+type.  K13 and K16 run on the register-resident GEMM core
+(csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32 for f32, which keeps f32's
+digits on the tensor cores); the others on the tile layer (wmma bf16,
+full-precision FFMA f32).  ``fwd_plan`` picks K13/K16's tile and splits K
+where the grid alone would leave the SMs' slots empty (decode) or its last
+wave mostly idle; a split's f32 partials are summed in order by a merge
+kernel (``fwd_merge``).  The
+mask multiplies the weight (an inf weight under a zero mask gives NaN, as
+the reference's ``w * m.astype(w.dtype)``); it is never a select.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``g_launches``, ``dx_launches``, ``gdx_launches``, ``dw_launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
-launches.  ``MaskedMatmul``, ``TopkastMaskedMatmul``,
+launches, one per call; ``fwd_merge_launches`` counts the split merges of
+K13 and K16 on their own.  ``MaskedMatmul``, ``TopkastMaskedMatmul``,
 ``FusedMaskedMatmul``, ``GroupedMaskedMatmul``,
 ``TopkastGroupedMaskedMatmul`` and ``FusedGroupedMaskedMatmul`` are the
 differentiable forms (the reference's custom VJPs ``_mm_fwd/_mm_bwd``,
@@ -38,6 +45,7 @@ differentiable forms (the reference's custom VJPs ``_mm_fwd/_mm_bwd``,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -52,6 +60,8 @@ from .block_sparse_matmul import (
 )
 
 __all__ = [
+    "FWD_SLAB",
+    "FWD_TILES",
     "FusedGroupedMaskedMatmul",
     "FusedMaskedMatmul",
     "GroupedMaskedMatmul",
@@ -62,6 +72,14 @@ __all__ = [
     "dw_launches",
     "fused_error_bound",
     "fused_launches",
+    "fwd_candidates",
+    "fwd_launch_info",
+    "fwd_merge",
+    "fwd_merge_launches",
+    "fwd_merge_plain",
+    "fwd_plan",
+    "fwd_split_ranges",
+    "fwd_tile",
     "g_fused_launches",
     "g_launches",
     "gdw_launches",
@@ -83,6 +101,7 @@ __all__ = [
     "masked_dx_plain",
     "masked_matmul",
     "masked_matmul_plain",
+    "masked_matmul_split_plain",
     "matmul_error_bound",
     "sr_to_bf16",
 ]
@@ -96,6 +115,21 @@ gdx_launches = 0    # K17
 gdw_launches = 0    # K18
 fused_launches = 0  # K19
 g_fused_launches = 0  # K20
+fwd_merge_launches = 0  # the merges of split K13 and K16 launches
+
+# K13/K16's plan (csrc/masked_matmul.cu, csrc/gemm_core.cuh)
+FWD_SLAB = 32  # K elements of one ring stage; a split walks whole slabs
+FWD_TILES = ((128, 128), (128, 64), (16, 64))  # (bm, bn) built
+FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the split counts the sweeps force
+FWD_MAX_SPLIT = 32
+FWD_MIN_SLABS = 2  # slabs a split walks at least
+# fwd_plan's model of the dense shapes: the kernel's own rate (flop/s, at
+# danube's M = 2048 shapes on an H100 80GB HBM3 at 700 W, chip_smoke.py;
+# PERF.md), the card's memory rate, the least modelled gain of a split
+FWD_RATE = {torch.bfloat16: 2.6e14, torch.float32: 4.2e13}
+FWD_BYTES_S = 3.35e12
+FWD_MIN_GAIN = 0.05
+_ELEMENT = {torch.bfloat16: 2, torch.float32: 4}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _M32 = 0xFFFFFFFF
@@ -202,6 +236,173 @@ def masked_dw_fused_plain(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
 grouped_masked_dw_fused_plain = masked_dw_fused_plain  # plain K20
 
 
+def masked_matmul_split_plain(x, w, mask, n_split: int):
+    """K13 (x (M, K)) or K16 (x (G, M, K), w and mask (G, K, N)) as a split
+    launch computes it: split s's f32 partial over K's slabs [s n //
+    n_split, (s + 1) n // n_split) of n = ceil(K / FWD_SLAB), the partials
+    summed in the order s = 0, 1, ... and rounded once to x.dtype (the mask
+    multiplies in w's dtype, as the reference)."""
+    xf, wm = x.float(), (w * mask.to(w.dtype)).float()
+    acc = None
+    for k0, k1 in fwd_split_ranges(x.shape[-1], n_split):
+        part = xf[..., k0:k1] @ wm[..., k0:k1, :]
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype)
+
+
+def fwd_split_ranges(K: int, n_split: int) -> list[tuple[int, int]]:
+    """The K range [k0, k1) each split of a K13/K16 launch walks: split s
+    takes slabs [s n // n_split, (s + 1) n // n_split) of the n = ceil(K /
+    FWD_SLAB) slabs (the last slab ends at K)."""
+    n = -(-K // FWD_SLAB)
+    return [(s * n // n_split * FWD_SLAB, min((s + 1) * n // n_split * FWD_SLAB, K))
+            for s in range(n_split)]
+
+
+def fwd_merge_plain(part, dtype):
+    """The split merge: part[0] + part[1] + ... in that order (f32), rounded
+    once to ``dtype``."""
+    acc = part[0].clone()
+    for s in range(1, part.shape[0]):
+        acc += part[s]
+    return acc.to(dtype)
+
+
+def fwd_tile(Mp: int, bn_limit: int = 128) -> tuple[int, int]:
+    """K13/K16's CTA tile (bm, bn) at Mp padded rows: 16 x 64 for at most
+    64 rows (decode: one row tile, the weight read once; 64 columns give
+    twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x 64
+    where the caller's column tile ``bn_limit`` is below 128."""
+    bm = 16 if Mp <= 64 else 128
+    return bm, 64 if bm == 16 or bn_limit < 128 else 128
+
+
+def fwd_plan(Mp: int, K: int, N: int, G: int, dtype, slots: int, *,
+             bn_limit: int = 128) -> tuple[int, int, int]:
+    """K13 (G = 1) or K16's launch on x (G, Mp, K) and w (G, K, N) of
+    ``dtype`` -> (bm, bn, n_split).  ``slots``: the CTAs the card holds at
+    once for the tile ``fwd_tile`` picks (SMs times CTAs resident per SM).
+
+    The grid has ceil(Mp / bm) ceil(N / bn) G tiles, and K's n = ceil(K /
+    FWD_SLAB) slabs may be split into n_split whole-slab parts whose f32
+    partials a merge sums (8 G Mp N bytes a split, written and read).
+
+    * Decode (bm = 16) reads every weight and mask byte once: the split
+      fills the slots in one wave, as far as three limits allow: each split
+      walks at least FWD_MIN_SLABS slabs, at most FWD_MAX_SPLIT splits, and
+      the partials stay within a quarter of the weight and mask bytes (G K
+      N (e + 1)), so n_split <= K (e + 1) / (32 Mp).
+    * Larger row counts do the dense work (bm = 128): a split of 2 is taken
+      only where the modelled makespan -- waves of ``slots`` CTAs, each
+      walking its slabs at the kernel's own rate ``FWD_RATE``, plus the
+      partials' bytes at FWD_BYTES_S -- drops by FWD_MIN_GAIN or more:
+      where the unsplit grid leaves most of its last wave idle (danube's
+      f32 MLP wo at 2048 rows: 320 CTAs on 132 slots).  K16's banks
+      (660-1320 CTAs) stay whole.
+
+    chip_smoke.py times every candidate (``fwd_candidates``) at the paths'
+    shapes and says whether this pick was the fastest."""
+    bm, bn = fwd_tile(Mp, bn_limit)
+    tiles = -(-Mp // bm) * -(-N // bn) * G
+    n_slabs = -(-K // FWD_SLAB)
+    if bm == 16:
+        cap = K * (_ELEMENT[dtype] + 1) // (32 * Mp)
+        n_split = min(slots // max(tiles, 1), n_slabs // FWD_MIN_SLABS, cap, FWD_MAX_SPLIT)
+        return bm, bn, max(1, n_split)
+    slab_s = 2.0 * bm * bn * FWD_SLAB * slots / FWD_RATE[dtype]  # one CTA's slab
+
+    def makespan(n):
+        waves = -(-tiles * n // slots)
+        merge = 8.0 * n * G * Mp * N / FWD_BYTES_S if n > 1 else 0.0
+        return waves * -(-n_slabs // n) * slab_s + merge
+
+    split = n_slabs >= 2 * FWD_MIN_SLABS and makespan(2) <= (1 - FWD_MIN_GAIN) * makespan(1)
+    return bm, bn, 2 if split else 1
+
+
+def fwd_candidates(Mp: int, K: int, N: int, G: int, dtype, slots: int, *,
+                   bn_limit: int = 128) -> list[tuple[int, int, int]]:
+    """The plans a sweep forces at one shape: every built tile of the row
+    tile ``fwd_tile`` picks whose columns the caller allows, and each of
+    FWD_SPLITS that walks at least FWD_MIN_SLABS slabs -- at decode (bm =
+    16) within twice the plan's partial cap, else 1 and 2 -- with
+    ``fwd_plan``'s own pick."""
+    bm, _ = fwd_tile(Mp, bn_limit)
+    n_slabs = -(-K // FWD_SLAB)
+    cap = 2 * (K * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else 2
+    out = [(bm, bn, n) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)
+           for n in FWD_SPLITS if n == 1 or (n <= n_slabs // FWD_MIN_SLABS and n <= cap)]
+    pick = fwd_plan(Mp, K, N, G, dtype, slots, bn_limit=bn_limit)
+    return out if pick in out else out + [pick]
+
+
+def fwd_launch_info(dtype, bm: int, bn: int) -> dict:
+    """The launch K13/K16's kernel gets at tile (bm, bn) in ``dtype``: CTAs
+    resident per SM, registers a thread, dynamic shared bytes, local (spill)
+    bytes a thread and threads a CTA, from the CUDA runtime.  Needs a card."""
+    s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    out = (ctypes.c_int * 5)()
+    lib, fn = _fn(f"masked_fwd_info_{s}", [_I, _I, _P])
+    _build.check(lib, fn(bm, bn, ctypes.addressof(out)), "masked_fwd launch info")
+    return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "spill_bytes", "threads"),
+                    list(out)))
+
+
+@functools.lru_cache(maxsize=512)
+def _fwd_plan_for(Mp, K, N, G, dtype, bn_limit, device_index):
+    """``fwd_plan`` with the card's slots (SMs times the tile's resident
+    CTAs, from the runtime), memoized."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    bm, bn = fwd_tile(Mp, bn_limit)
+    slots = sms * fwd_launch_info(dtype, bm, bn)["ctas_per_sm"]
+    return fwd_plan(Mp, K, N, G, dtype, slots, bn_limit=bn_limit)
+
+
+def fwd_merge(part, out):
+    """The merge of a split K13/K16 launch: ``out`` = part[0] + part[1] +
+    ... in order, in f32, rounded once to out.dtype; part (n_split,
+    *out.shape) f32.  CUDA tensors run the kernel (one launch, counted in
+    ``fwd_merge_launches``) or raise; CPU tensors the plain version."""
+    global fwd_merge_launches
+    if out.device.type == "cpu":
+        return out.copy_(fwd_merge_plain(part, out.dtype))
+    _device("fwd_merge", out)
+    s = _suffix("fwd_merge", out)
+    if (part.dtype != torch.float32 or part.device != out.device
+            or tuple(part.shape[1:]) != tuple(out.shape) or out.numel() % 4
+            or not (part.is_contiguous() and out.is_contiguous())):
+        raise ValueError(f"fwd_merge: part {tuple(part.shape)} {part.dtype} does not "
+                         f"hold f32 partials of out {tuple(out.shape)}")
+    lib, fn = _fn(f"masked_fwd_merge_{s}", [_P, _P, ctypes.c_longlong, _I, _P])
+    with torch.cuda.device(out.device):
+        rc = fn(part.data_ptr(), out.data_ptr(), out.numel(), part.shape[0], _stream(out))
+    _build.check(lib, rc, "masked_fwd_merge launch")
+    fwd_merge_launches += 1
+    return out
+
+
+def _fwd(what, s, x, w, mask, G, M, K, N, bn_limit, plan):
+    """One K13/K16 launch on x (G, M, K), w and mask (G, K, N) (K13: G =
+    1), with the merge after a split: y (G, M, N)."""
+    bm, bn, n_split = plan or _fwd_plan_for(M, K, N, G, x.dtype, bn_limit,
+                                            x.device.index)
+    if (bm, bn) not in FWD_TILES or not 1 <= n_split <= -(-K // FWD_SLAB):
+        raise ValueError(f"{what}: plan {(bm, bn, n_split)} is not a built tile "
+                         f"{FWD_TILES} with 1 <= n_split <= ceil(K / {FWD_SLAB})")
+    y = torch.empty(G, M, N, dtype=x.dtype, device=x.device)
+    part = (torch.empty(n_split, G, M, N, dtype=torch.float32, device=x.device)
+            if n_split > 1 else None)
+    lib, fn = _fn(f"masked_fwd_{s}", [_P] * 5 + [_I] * 7 + [_P])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
+                None if part is None else part.data_ptr(), G, M, K, N, bm, bn, n_split,
+                _stream(x))
+    _build.check(lib, rc, f"{what} launch")
+    if part is not None:
+        fwd_merge(part, y)
+    return y
+
+
 def fused_error_bound(out_plain, abs_prod, n: int, mu: float, wd: float, mom, w,
                       acc_plain, wgm):
     """Per-element bound on |K19 - plain| without ``sr``: the two x^T @ g
@@ -253,10 +454,13 @@ def _device(what, t):
         raise ValueError(f"{what}: unsupported device {t.device}")
 
 
-def masked_matmul(x, w, mask, *, bm: int, bn: int):
+def masked_matmul(x, w, mask, *, bm: int, bn: int, plan=None):
     """K13: x (M, K) @ (w * mask) (K, N) -> (M, N) in x.dtype.  M must be a
-    multiple of ``bm`` (``kernels/ops.py`` pads rows).  CUDA tensors run the
-    kernel or raise; CPU tensors run the plain version."""
+    multiple of the caller's row tile ``bm`` (``kernels/ops.py`` pads
+    rows); ``bn`` caps the column tile (``fwd_tile``).  ``fwd_plan`` picks
+    the launch, or ``plan`` = (bm, bn, n_split) forces one (one of
+    ``FWD_TILES``).  CUDA tensors run the kernel or raise; CPU tensors run
+    the plain version."""
     global launches
     if x.device.type == "cpu":
         return masked_matmul_plain(x, w, mask)
@@ -264,21 +468,17 @@ def masked_matmul(x, w, mask, *, bm: int, bn: int):
     (M, K), N = x.shape, w.shape[1]
     s = _check_cuda("masked_matmul", (x, w), (mask,), {"bm": bm, "bn": bn},
                     [(M, bm), (N, bn), (K, 16)], [(w.shape[0], K), (mask.shape, w.shape)])
-    lib, fn = _fn(f"masked_fwd_{s}", [_P] * 4 + [_I] * 5 + [_P])
-    y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
-                M, K, N, bm, bn, _stream(x))
-    _build.check(lib, rc, "masked_fwd launch")
+    y = _fwd("masked_fwd", s, x, w, mask, 1, M, K, N, bn, plan)
     launches += 1
-    return y
+    return y[0]
 
 
-def grouped_masked_matmul(x, w, mask, *, bm: int, bn: int):
+def grouped_masked_matmul(x, w, mask, *, bm: int, bn: int, plan=None):
     """K16: x (G, M, K) @ (w * mask) (G, K, N) -> (G, M, N) in x.dtype,
     every group in one launch.  M must be a multiple of ``bm``
-    (``kernels/ops.py`` pads rows).  CUDA tensors run the kernel or raise;
-    CPU tensors run the plain version."""
+    (``kernels/ops.py`` pads rows); ``bn`` and ``plan`` as for
+    ``masked_matmul``.  CUDA tensors run the kernel or raise; CPU tensors
+    run the plain version."""
     global g_launches
     if x.device.type == "cpu":
         return grouped_masked_matmul_plain(x, w, mask)
@@ -290,12 +490,7 @@ def grouped_masked_matmul(x, w, mask, *, bm: int, bn: int):
     s = _check_cuda("grouped_masked_matmul", (x, w), (mask,), {"bm": bm, "bn": bn},
                     [(M, bm), (N, bn), (K, 16)],
                     [(w.shape[0], G), (w.shape[1], K), (mask.shape, w.shape)])
-    lib, fn = _fn(f"masked_fwd_grouped_{s}", [_P] * 4 + [_I] * 6 + [_P])
-    y = torch.empty(G, M, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
-                G, M, K, N, bm, bn, _stream(x))
-    _build.check(lib, rc, "masked_fwd_grouped launch")
+    y = _fwd("masked_fwd_grouped", s, x, w, mask, G, M, K, N, bn, plan)
     g_launches += 1
     return y
 

@@ -211,6 +211,13 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
     states = []
     aux = 0.0
     if cfg.remat and not collect_states and torch.is_grad_enabled():
+        if cfg.remat_policy == "dots":
+            # the reference saves the matmul outputs of each region
+            # (jax.checkpoint_policies.checkpoint_dots); torch's checkpoint
+            # has no such policy here yet
+            raise NotImplementedError(
+                f"config {cfg.name!r}: remat_policy='dots' (save the matmul outputs "
+                "of each remat region) is not ported yet; use remat_policy='none'")
         g = max(cfg.remat_group, 1)
 
         def region(i0, x_):

@@ -181,6 +181,32 @@ def test_rigl_step_and_refresh_match_jax():
         assert b.sum() == min(b.size, a.sum() + math.ceil(0.1 * b.size))
 
 
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_remat_policy_dots_is_refused(policy):
+    """remat_policy='dots' (the reference saves each remat region's matmul
+    outputs, jax.checkpoint_policies.checkpoint_dots) is not ported: a
+    training step under remat raises, naming the field, where 'none'
+    trains.  A forward without autograd (serving) builds no remat region
+    and runs under either."""
+    _, tcfg = _cfgs()
+    tcfg = dataclasses.replace(tcfg, remat=True, remat_policy=policy)
+    opt = TOpt(kind="sgd", momentum=0.9, weight_decay=0.0)
+    st, _ = tsteps.init_train_state(tcfg, opt, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 16)))
+    batch = {"tokens": toks, "targets": (toks + 1) % tcfg.vocab_size}
+    with torch.no_grad():
+        assert math.isfinite(float(t_lm_loss(st["params"], tcfg, batch, masks=st["masks"],
+                                             pack=st.get("pack"))))
+    step = tsteps.make_train_step(tcfg, opt, TLR(kind="constant", base_lr=1e-2,
+                                                 warmup_steps=0))
+    if policy == "dots":
+        with pytest.raises(NotImplementedError, match="remat_policy"):
+            step(st, batch)
+    else:
+        st, m = step(st, batch)
+        assert math.isfinite(float(m["loss"])) and st["step"] == 1
+
+
 def test_nonfinite_batch_leaves_state_unchanged():
     """A batch whose loss is NaN (poison through the batch, as the
     reference's guard test) keeps params and optimizer state bit for bit,

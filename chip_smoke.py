@@ -47,21 +47,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step, the decode step's device time; then K13 (4 -> 16 and
                 2048 rows), K14, K15 and K19 (sr off and on) against their
                 plain versions on layer 0's served weights and masks, timed
-                beside their bounds; K13 also under every candidate plan
-                (whether ``fwd_plan``'s pick was the fastest, TFLOP/s, TB/s,
-                share of the bound), its f32 cases at 2048 rows against a
-                float64 product (at most 8x the plain version's RMS error),
-                and the split merge at each split pick, bit for bit
+                beside their bounds; K13 and K14 also under every candidate
+                plan (each within its bound; whether ``fwd_plan``'s pick was
+                the fastest, TFLOP/s, TB/s, share of the bound), their f32
+                cases at 2048 rows against a float64 product (at most 8x the
+                plain version's RMS error), and the split merge at each
+                split pick, bit for bit
   7. masked train -- RigL with elementwise masks and the Top-KAST superset
                 (Adam, batch 2 x 1024 in one microbatch, 6 steps, a
                 drop/grow at step 2): the step-0 loss and gradients against
                 the plain dense path, exact launches per step (336 K13 and
-                their planned split merges, 168 K14, 168 K15), and after the
-                update counts kept, B ⊇ A and the carrier fresh
+                168 K14, each with their planned split merges, 168 K15), and
+                after the update counts kept, B ⊇ A and the carrier fresh
   8. fused train -- the fused SGD epilogue (momentum 0.9, bf16 state with
-                stochastic rounding), 2 steps: 168 K19 and no K15 launch per
-                step, bf16 momentum within the reference's bound of the
-                unfused step's
+                stochastic rounding), 2 steps: 168 K19, 168 K14 and their
+                planned split merges and no K15 launch per step, bf16
+                momentum within the reference's bound of the unfused step's
   8b. fused block-sparse train -- K7 against its plain version on layer 0's
                 ERK packs and Top-KAST supersets (mlp.wi, mlp.wo f32,
                 attn.wq bf16; 2048 and 16 rows, sr off and on, mom bf16 and
@@ -121,8 +122,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the busy share of the profiled step and K4-K6's share of it
  13. moe masked train -- the same model under kernel='masked' (batch 2 x
                 1024 in one microbatch, 6 steps, a drop/grow at step 2): K17
-                and K18 on layer 0's elementwise masks and supersets, timed;
-                the same checks, with K13-K18's exact launches
+                and K18 on layer 0's elementwise masks and supersets, timed,
+                K17 under every candidate plan; the same checks, with
+                K13-K18's exact launches and K13's, K14's and K17's planned
+                split merges
  14. moe fused train -- qwen2-moe-a2.7b (3 of 24 layers) with the fused SGD
                 epilogue, 2 x 1024 tokens in one microbatch (C = 171), under
                 block_sparse: K8 against its plain version (layer 0's ERK
@@ -135,8 +138,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 K8, no K3 or K6 and 6/3/3 K9-K11 per fused step; under
                 masked: K20 on layer 0's supersets and K19 on the same 2-D
                 projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
-                K20, no K15 or K18; the momentum bound leaf by leaf, wall
-                times, peak memory
+                K20, the planned dx split merges, no K15 or K18; the
+                momentum bound leaf by leaf, wall times, peak memory
  15. topk    -- K21 (the 512-bin |x| histogram) against its plain version
                 in every bin: danube's layers/0/mlp/wi/w (2560 x 6912) from
                 its seeded init, dense, masked at its ERK density and in
@@ -157,13 +160,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 dense gradient); after the update block counts kept, grown
                 = dropped, the pack fresh, B ⊇ A, snfs's dense momentum
                 zero outside B, topkast's weights exactly 0 outside B), then
-                pruning and snip under masked (336 K13, 168 K14, 168 K15 per
-                step; pruning's masks monotone and at the schedule's target
-                density after its prune, snip's per-layer density the ERK
-                map's); wall s per step, tok/s, peak GiB, the update step's s
- 17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels
-                and K13/K16's split merge),
-                the card line, and last {"ok": true, "device": {...}}
+                pruning and snip under masked (336 K13, 168 K14 and their
+                planned split merges, 168 K15 per step; pruning's masks
+                monotone and at the schedule's target density after its
+                prune, snip's per-layer density the ERK map's); wall s per
+                step, tok/s, peak GiB, the update step's s
+ 17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+                K13/K16's split merge and, where a timed K14/K17 case
+                splits, theirs), the card line, and last {"ok": true,
+                "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
 JAX and nothing of the JAX package.
@@ -1045,16 +1050,17 @@ def masked_cases(torch, timer, mm, params, masks):
     the weights.  Each output element by element within its bound
     (``mm.matmul_error_bound``, ``mm.fused_error_bound``); K19 with sr bit
     for bit the plain ``sr_to_bf16`` of the kernel's own f32 m_new.  K13
-    also under every candidate plan (``fwd_sweep``), the f32 cases at 2048
-    rows against a float64 product (``f64_fidelity``), and the split
-    merge of each split pick (``merge_case``).  Bytes
+    and K14 also under every candidate plan (``fwd_sweep``: each plan
+    within the bound, then timed), the f32 cases at 2048 rows against a
+    float64 product (``f64_fidelity``), and the split merge of each split
+    pick (``merge_case``).  Bytes
     count every input once (w and its 1-byte mask included) and every
     output once; operations count the active weights' products (2 per
     multiply-add).  Library: cuBLAS on the pre-masked weight (TF32 off)."""
     from repro_torch.kernels.ops import _row_tile
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": []}
+    out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": [], "dx_merge": []}
     for label, sub, name in MASKED_PROJ:
         w = params["layers"][0][sub][name]["w"]
         m = masks["layers"][0][sub][name]["w"]
@@ -1085,10 +1091,16 @@ def masked_cases(torch, timer, mm, params, masks):
                                 mm.matmul_error_bound(mm.masked_matmul_plain(xp, w, m),
                                                       xp.float().abs() @ awm, K)),
                 es * (M * K + M * N) + (es + 1) * K * N, 2.0 * M * nnz, dt)
+            want = mm.masked_matmul_plain(xp, w, m)
+            bound = mm.matmul_error_bound(want, xp.float().abs() @ awm, K)
             case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_matmul(
-                xp, w, m, bm=bm, bn=128, plan=plan), Mp, K, N, 1, dt, case))
+                xp, w, m, bm=bm, bn=128, plan=plan), Mp, K, N, 1, dt, case,
+                check=lambda got: within_(got, want, bound)))
+            del want, bound
             if dt == torch.float32 and M == 2048:
-                case["f64_rms_over_plain"] = f64_fidelity(torch, mm, xp, w, m, tag)
+                case["f64_rms_over_plain"] = f64_fidelity(
+                    torch, f"K13 {tag}", lambda: mm.masked_matmul(xp, w, m, bm=128, bn=128),
+                    lambda: mm.masked_matmul_plain(xp, w, m), lambda: xp.double() @ wm.double())
             print("K13 plans", json.dumps(case))
             out["K13"].append(case)
             if case["plan"][2] > 1:
@@ -1097,14 +1109,29 @@ def masked_cases(torch, timer, mm, params, masks):
         M = 2048
         x = torch.randn(M, K, device="cuda").to(dt)
         g = torch.randn(M, N, device="cuda").to(dt)
-        out["K14"].append(kernel_case(
+        case = kernel_case(
             torch, timer, "K14", f"{tag} M={M}",
             lambda: mm.masked_dx(g, w, m, bm=128, bk=128),
             lambda: mm.masked_dx_plain(g, w, m), lambda: g @ wm.T,
             lambda: within_(mm.masked_dx(g, w, m, bm=128, bk=128), mm.masked_dx_plain(g, w, m),
                             mm.matmul_error_bound(mm.masked_dx_plain(g, w, m),
                                                   g.float().abs() @ awm.T, N)),
-            es * (M * N + M * K) + (es + 1) * K * N, 2.0 * M * nnz, dt))
+            es * (M * N + M * K) + (es + 1) * K * N, 2.0 * M * nnz, dt)
+        want = mm.masked_dx_plain(g, w, m)
+        bound = mm.matmul_error_bound(want, g.float().abs() @ awm.T, N)
+        case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_dx(
+            g, w, m, bm=128, bk=128, plan=plan), M, N, K, 1, dt, case, entry="dx",
+            check=lambda got: within_(got, want, bound)))
+        del want, bound
+        if dt == torch.float32:
+            case["f64_rms_over_plain"] = f64_fidelity(
+                torch, f"K14 {tag}", lambda: mm.masked_dx(g, w, m, bm=128, bk=128),
+                lambda: mm.masked_dx_plain(g, w, m), lambda: g.double() @ wm.double().T)
+        print("K14 plans", json.dumps(case))
+        out["K14"].append(case)
+        if case["plan"][2] > 1:
+            out["dx_merge"].append(merge_case(torch, timer, mm, case["plan"][2], 1, M, K, dt,
+                                              f"{tag} M={M}", entry="dx"))
         absp = x.float().abs().T @ g.float().abs()
         out["K15"].append(kernel_case(
             torch, timer, "K15", f"{tag} M={M} superset density={bnnz / (K * N):.3f}",
@@ -1144,18 +1171,24 @@ def masked_cases(torch, timer, mm, params, masks):
     return out
 
 
-def fwd_sweep(torch, timer, mm, run, Mp, K, N, G, dt, case):
-    """K13/K16's plan at one case and every candidate plan
-    (``mm.fwd_candidates`` on the card's slots) timed with the plan forced:
-    the pick, whether it was the fastest, and the case's achieved rate
-    (TFLOP/s of the active weights' products, TB/s of the bytes its bound
-    counts) and share of the bound."""
-    bm, bn = mm.fwd_tile(Mp)
+def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", check=None,
+              bn_limit=128):
+    """The GEMM core's plan at one case of ``entry`` ("fwd": K13/K16, L = K
+    and cols = N; "dx": K14/K17, L = N and cols = K) and every candidate
+    plan (``mm.fwd_candidates`` on the card's slots for that kernel) timed
+    with the plan forced, each first held to ``check`` (raises) where one
+    is given: the pick, whether it was the fastest, and the case's achieved
+    rate (TFLOP/s of the active weights' products, TB/s of the bytes its
+    bound counts) and share of the bound."""
+    bm, bn = mm.fwd_tile(Mp, bn_limit)
     slots = (torch.cuda.get_device_properties(0).multi_processor_count
-             * mm.fwd_launch_info(dt, bm, bn)["ctas_per_sm"])
-    pick = mm._fwd_plan_for(Mp, K, N, G, dt, 128, torch.cuda.current_device())
-    plans = {str(p): timer(lambda: run(p), reps=5)
-             for p in mm.fwd_candidates(Mp, K, N, G, dt, slots)}
+             * mm.fwd_launch_info(dt, bm, bn, entry)["ctas_per_sm"])
+    pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, torch.cuda.current_device(), entry)
+    plans = {}
+    for p in mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit):
+        if check is not None:
+            check(run(p))
+        plans[str(p)] = timer(lambda: run(p), reps=5)
     return {"plan": list(pick), "slots": slots, "plans_ms": plans,
             "plan_is_fastest": plans[str(pick)] == min(plans.values()),
             "plan_over_fastest": plans[str(pick)] / min(plans.values()),
@@ -1164,52 +1197,72 @@ def fwd_sweep(torch, timer, mm, run, Mp, K, N, G, dt, case):
             "share_of_bound": case["bound_ms"] / case["ms"]}
 
 
-def f64_fidelity(torch, mm, x, w, m, tag):
-    """RMS error of K13 against a float64 product over the plain f32
-    version's (3xTF32 keeps f32's digits: at most 8; one-pass TF32 ~1000)."""
-    ref = x.double() @ (w * m).double()
+def f64_fidelity(torch, tag, run, plain, ref):
+    """RMS error of a GEMM-core kernel (``run``) against a float64 product
+    (``ref``) over the plain f32 version's (3xTF32 keeps f32's digits: at
+    most 8; one-pass TF32 ~1000)."""
+    ref = ref()
     rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
-    got = rms(mm.masked_matmul(x, w, m, bm=128, bn=128))
-    plain = rms(mm.masked_matmul_plain(x, w, m))
-    print(f"K13 {tag}: RMS error against float64 {got:.4g}, plain f32 {plain:.4g} "
-          f"({got / plain:.3f}x)")
-    if not got <= 8 * plain:
-        raise AssertionError(f"K13 {tag}: RMS error {got} over 8x the plain version's {plain}")
-    return got / plain
+    got, base = rms(run()), rms(plain())
+    print(f"{tag}: RMS error against float64 {got:.4g}, plain f32 {base:.4g} "
+          f"({got / base:.3f}x)")
+    if not got <= 8 * base:
+        raise AssertionError(f"{tag}: RMS error {got} over 8x the plain version's {base}")
+    return got / base
 
 
-def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag):
+def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd"):
     """The split merge (sum of n_split f32 partials in order, one rounding)
-    at a split pick's shape: bit for bit its plain version, timed beside
-    its byte bound and torch.sum over the split axis."""
+    at a split pick's shape, after ``entry``'s kernel (``mm.fwd_merge`` or
+    ``mm.dx_merge``): bit for bit its plain version, timed beside its byte
+    bound and torch.sum over the split axis."""
+    merge = mm.fwd_merge if entry == "fwd" else mm.dx_merge
     part = torch.randn(n_split, G, Mp, N, device="cuda")
     out = torch.empty(G, Mp, N, dtype=dt, device="cuda")
 
     def check():
-        got, want = mm.fwd_merge(part, out), mm.fwd_merge_plain(part, dt)
+        got, want = merge(part, out), mm.fwd_merge_plain(part, dt)
         if not torch.equal(got.float(), want.float()):
-            raise AssertionError(f"merge {tag}: differs from the ordered plain sum")
+            raise AssertionError(f"{entry} merge {tag}: differs from the ordered plain sum")
         return 0.0, 0.0, 0.0
 
-    case = kernel_case(torch, timer, "merge", f"{tag} n_split={n_split}",
-                       lambda: mm.fwd_merge(part, out), lambda: mm.fwd_merge_plain(part, dt),
+    label = "merge" if entry == "fwd" else "dx merge"
+    case = kernel_case(torch, timer, label, f"{tag} n_split={n_split}",
+                       lambda: merge(part, out), lambda: mm.fwd_merge_plain(part, dt),
                        lambda: part.sum(0).to(dt), check,
                        4 * part.numel() + out.element_size() * out.numel(), 0.0, dt)
     return case
 
 
-def k13_merges(torch, mm, cfg, layer, Mp):
-    """Split merges of one layer's 7 K13 launches at Mp padded rows: each
-    projection's plan (attention in the compute dtype, the MLP or shared
-    MLP in f32, as the model calls them) splits or not."""
+def planned_merges(torch, mm, cfg, layer, Mp, entry="fwd"):
+    """Split merges of one layer's 7 K13 (``entry`` "fwd") or K14 ("dx")
+    launches at Mp padded rows: each projection's plan (attention in the
+    compute dtype, the MLP or shared MLP in f32, as the model calls them)
+    splits or not."""
     from repro_torch.models.layers import compute_dtype
 
     mlp = layer["mlp"] if "mlp" in layer else layer["moe"]["shared"]
     shapes = ([(layer["attn"][n]["w"].shape, compute_dtype(cfg)) for n in ("wq", "wk", "wv", "wo")]
               + [(mlp[n]["w"].shape, torch.float32) for n in ("wi", "wg", "wo")])
     dev = torch.cuda.current_device()
-    return sum(mm._fwd_plan_for(Mp, K, N, 1, dt, cfg.sparse.kernel_block[1], dev)[2] > 1
-               for (K, N), dt in shapes)
+    _, bn, bk = cfg.sparse.kernel_block
+    if entry == "fwd":
+        return sum(mm._fwd_plan_for(Mp, K, N, 1, dt, bn, dev)[2] > 1 for (K, N), dt in shapes)
+    return sum(mm._fwd_plan_for(Mp, N, K, 1, dt, bk, dev, "dx")[2] > 1 for (K, N), dt in shapes)
+
+
+def bank_dx_merges(torch, mm, cfg, layer, tokens):
+    """Split merges of one MoE layer's 3 K17 launches (wi, wg, wo) on a
+    microbatch of ``tokens`` tokens: each bank's dgrad plan at the
+    capacity's padded rows."""
+    from repro_torch.kernels.ops import _row_tile
+    from repro_torch.models.moe import capacity
+
+    _, Mp = _row_tile(capacity(tokens, cfg), cfg.sparse.kernel_block[0])
+    dev = torch.cuda.current_device()
+    return sum(mm._fwd_plan_for(Mp, N, K, G, w.dtype, cfg.sparse.kernel_block[2], dev,
+                                "dx")[2] > 1
+               for w in (layer["moe"][b]["w"] for b in MOE_BANKS) for G, K, N in [w.shape])
 
 
 def masked_serve(torch, timer, mm, fa):
@@ -1253,7 +1306,7 @@ def masked_serve(torch, timer, mm, fa):
             raise AssertionError(f"masked request {r.rid}: {r.status}")
     if stats["quarantined"] or stats["failed"] or not all(launches.values()):
         raise AssertionError(f"masked serve: {stats}, launches {launches}")
-    merges = cfg.n_layers * k13_merges(torch, mm, cfg, engine.params["layers"][0], 16)
+    merges = cfg.n_layers * planned_merges(torch, mm, cfg, engine.params["layers"][0], 16)
 
     dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
         cfg.sparse, kernel="dense", attn_kernel="dense"))
@@ -1322,12 +1375,14 @@ def masked_train(torch, mm, fa, bsm):
     cfg = masked_config()
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
     dense_check = train_dense_check(torch, cfg, state)
-    merges = k13_merges(torch, mm, cfg, state["params"]["layers"][0], MASKED_BATCH * TRAIN_SEQ)
-    del state
+    layer0 = state["params"]["layers"][0]
+    merges = planned_merges(torch, mm, cfg, layer0, MASKED_BATCH * TRAIN_SEQ)
+    dx_merges = planned_merges(torch, mm, cfg, layer0, MASKED_BATCH * TRAIN_SEQ, "dx")
+    del state, layer0
     torch.cuda.empty_cache()
 
     counters = (("masked_fwd", mm, "launches"), ("masked_fwd_merge", mm, "fwd_merge_launches"),
-                ("masked_dx", mm, "dx_launches"),
+                ("masked_dx", mm, "dx_launches"), ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("masked_dw", mm, "dw_launches"), ("masked_dw_fused", mm, "fused_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"), ("block_sparse_fwd", bsm, "launches"))
@@ -1336,7 +1391,8 @@ def masked_train(torch, mm, fa, bsm):
     # remat reruns each block's forward in the backward; one microbatch, so
     # the update step's full-batch gradient launches the same
     expect = {"masked_fwd": 2 * n_proj, "masked_fwd_merge": 2 * merges * cfg.n_layers,
-              "masked_dx": n_proj, "masked_dw": n_proj,
+              "masked_dx": n_proj, "masked_dx_merge": dx_merges * cfg.n_layers,
+              "masked_dw": n_proj,
               "masked_dw_fused": 0, "flash_fwd": 2 * n_attn, "flash_dq": n_attn,
               "flash_dkv": n_attn, "block_sparse_fwd": 0}
     log, seen = [], {"counts": None, "t": None, "masks": None, "prof": None}
@@ -1524,17 +1580,20 @@ def fused_train(torch, mm):
     """The fused-epilogue train step at full size: SGD momentum 0.9, bf16
     state (in-kernel stochastic rounding), ``sparse.fused_epilogue``,
     masked RigL, batch 2 x 1024 in one microbatch, 2 steps beside unfused
-    ones (``fused_steps``): 336 K13, 168 K14, 168 K19 and no K15 launch
-    per fused step."""
+    ones (``fused_steps``): 336 K13, 168 K14 and their planned dx merges,
+    168 K19 and no K15 launch per fused step."""
     from repro_torch.training.steps import init_train_state
 
     cfg = masked_config(fused_epilogue=True)
     state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
     counters = (("masked_fwd", mm, "launches"), ("masked_dx", mm, "dx_launches"),
+                ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("masked_dw", mm, "dw_launches"), ("masked_dw_fused", mm, "fused_launches"))
     n_proj = 7 * cfg.n_layers
-    want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dw": 0,
-            "masked_dw_fused": n_proj}
+    dx_merges = cfg.n_layers * planned_merges(torch, mm, cfg, state["params"]["layers"][0],
+                                              MASKED_BATCH * TRAIN_SEQ, "dx")
+    want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dx_merge": dx_merges,
+            "masked_dw": 0, "masked_dw_fused": n_proj}
     return fused_steps(torch, cfg, state, counters, want, "fused train")
 
 
@@ -2419,7 +2478,7 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
     if not bs:
         # K16's banks never split (fwd_plan); K13's projections as planned
         stats["merges_per_decode_step"] = mm.fwd_merge_launches - m0
-        want = L * k13_merges(torch, mm, cfg, engine.params["layers"][0], 16)
+        want = L * planned_merges(torch, mm, cfg, engine.params["layers"][0], 16)
         print(f"{label}: one decode step: {stats['grouped_launches_per_decode_step']} K16 and "
               f"{stats['proj_launches_per_decode_step']} K13 launches, "
               f"{stats['merges_per_decode_step']} split merges (plans: {want}); "
@@ -2574,13 +2633,15 @@ def k17_k18_cases(torch, timer, mm, state, cfg):
     """K17 (dx on the forward mask) and K18 (dw masked by the superset at
     the store) against their plain versions on layer 0's banks, elementwise
     ERK masks and Top-KAST supersets, at C = 171 (-> 256) and 16 rows, f32
-    and bf16.  Bytes: g, dx (K17) or x, g, dw (K18) once, and the weight
-    and its 1-byte mask (K17) or the 1-byte superset (K18) once;
-    operations: 2 C per active (K17) or superset (K18) weight; the padded
-    rows count in neither.  Library on the C rows: torch.bmm on the
-    pre-masked bank, and x^T @ g masked by the superset."""
+    and bf16; K17 also under every candidate plan (``fwd_sweep``, each plan
+    within the bound), with the split merge of a split pick.  Bytes: g, dx
+    (K17) or x, g, dw (K18) once, and the weight and its 1-byte mask (K17)
+    or the 1-byte superset (K18) once; operations: 2 C per active (K17) or
+    superset (K18) weight; the padded rows count in neither.  Library on
+    the C rows: torch.bmm on the pre-masked bank, and x^T @ g masked by the
+    superset."""
     blk = cfg.sparse.kernel_block[2]
-    out = {"K17": [], "K18": []}
+    out = {"K17": [], "K18": [], "dx_merge": []}
     for bank in ("wi", "wo"):
         w32 = state["params"]["layers"][0]["moe"][bank]["w"]
         m = state["masks"]["layers"][0]["moe"][bank]["w"]
@@ -2609,13 +2670,27 @@ def k17_k18_cases(torch, timer, mm, state, cfg):
                     absp = mm.grouped_masked_dw_plain(x.abs().float(), g.abs().float(), b)
                     return _check_within(torch, f"K18 {tag}", got, want, absp, Mp, dt)
 
-                out["K17"].append(kernel_case(
+                case = kernel_case(
                     torch, timer, "K17", tag,
                     lambda: mm.grouped_masked_dx(g, w, m, bm=bm, bk=blk),
                     lambda: mm.grouped_masked_dx_plain(g, w, m),
                     lambda: torch.bmm(g_c, wm.transpose(1, 2)), check_dx,
                     es * (G * C * N + G * C * K) + (es + 1) * G * K * N,
-                    2.0 * C * nnz, dt))
+                    2.0 * C * nnz, dt)
+                want = mm.grouped_masked_dx_plain(g, w, m)[:, :C]
+                absp = mm.grouped_masked_dx_plain(g.abs().float(), w.abs().float(), m)[:, :C]
+                case.update(fwd_sweep(
+                    torch, timer, mm, lambda plan: mm.grouped_masked_dx(
+                        g, w, m, bm=bm, bk=blk, plan=plan), Mp, N, K, G, dt, case, entry="dx",
+                    check=lambda got: _check_within(torch, f"K17 {tag}", got[:, :C], want,
+                                                    absp, N, dt),
+                    bn_limit=blk))
+                del want, absp
+                print("K17 plans", json.dumps(case))
+                out["K17"].append(case)
+                if case["plan"][2] > 1:
+                    out["dx_merge"].append(merge_case(torch, timer, mm, case["plan"][2], G, Mp,
+                                                      K, dt, tag, entry="dx"))
                 out["K18"].append(kernel_case(
                     torch, timer, "K18", f"{tag} superset density={bnnz / b.numel():.4f}",
                     lambda: mm.grouped_masked_dw(x, g, b, bn=blk, bk=blk),
@@ -2669,9 +2744,14 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
     cases = (k5_k6_cases(torch, timer, bsm, state, cfg) if bs
              else k17_k18_cases(torch, timer, mm, state, cfg))
-    # K13's split merges a microbatch (K16's banks never split, fwd_plan)
-    merges = 0 if bs else cfg.n_layers * k13_merges(
-        torch, mm, cfg, state["params"]["layers"][0], batch * TRAIN_SEQ // cfg.microbatches)
+    # the split merges a microbatch: K13's (K16's banks never split,
+    # fwd_plan), and K14's and K17's
+    tokens, layer0 = batch * TRAIN_SEQ // cfg.microbatches, state["params"]["layers"][0]
+    merges = 0 if bs else cfg.n_layers * planned_merges(torch, mm, cfg, layer0, tokens)
+    dx_merges = 0 if bs else cfg.n_layers * (
+        planned_merges(torch, mm, cfg, layer0, tokens, "dx")
+        + bank_dx_merges(torch, mm, cfg, layer0, tokens))
+    del layer0
     dense_check = train_dense_check(
         torch, cfg, state, label=label,
         names=("layers/0/moe/wi/w", "layers/0/moe/shared/wi/w", "layers/0/moe/router/w"))
@@ -2688,6 +2768,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                 ("grouped_masked_dx", mm, "gdx_launches"),
                 ("grouped_masked_dw", mm, "gdw_launches"),
                 ("masked_fwd_merge", mm, "fwd_merge_launches"),
+                ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
@@ -2702,7 +2783,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                   f"{fam}_dw": MOE_PROJ * L * mb, f"{gfam}_fwd": 2 * B * L * mb,
                   f"{gfam}_dx": B * L * mb, f"{gfam}_dw": B * L * mb,
                   "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb,
-                  "masked_fwd_merge": 2 * merges * mb})
+                  "masked_fwd_merge": 2 * merges * mb, "masked_dx_merge": dx_merges * mb})
         return e
 
     # the update step's gradient is one pass over the full batch
@@ -3010,13 +3091,20 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     L, B = cfg.n_layers, len(MOE_BANKS)
+    dx_merge = {}
+    if not bs:  # K14's and K17's planned split merges (one microbatch)
+        tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
+        counters += (("masked_dx_merge", mm, "dx_merge_launches"),)
+        dx_merge = {"masked_dx_merge": L * (planned_merges(torch, mm, cfg, layer0, tokens, "dx")
+                                            + bank_dx_merges(torch, mm, cfg, layer0, tokens))}
+        del layer0
     # remat reruns each block's forward in the backward: the forward
     # kernels launch twice
     want = {f"{fam}_fwd": 2 * MOE_PROJ * L, f"{fam}_dx": MOE_PROJ * L, f"{fam}_dw": 0,
             f"{fam}_dw_fused": MOE_PROJ * L, f"grouped_{fam}_fwd": 2 * B * L,
             f"grouped_{fam}_dx": B * L, f"grouped_{fam}_dw": 0,
             f"grouped_{fam}_dw_fused": B * L, "flash_fwd": 2 * L, "flash_dq": L,
-            "flash_dkv": L}
+            "flash_dkv": L, **dx_merge}
     stats, launches = fused_steps(torch, cfg, state, counters, want,
                                   f"moe fused train {kernel}", pin_routing=True)
     stats["layers"] = L
@@ -3196,11 +3284,12 @@ def method_train(torch, bsm, mm, fa, tk, method):
     method at full size, 4 steps of 2 x 1024 tokens, the launch counters set
     to 0 just before it and read after every step, each step's launches
     exact: per step 2 * 168 forward launches (remat), 168 dgrad, 168 wgrad
-    (K1/K2/K3 under block_sparse, K13/K14/K15 under masked), 48/24/24
-    K9-K11, no K21.  SET carries no superset, so its update step takes the
-    dense gradient of the masked weights (the reference's path): K9-K11
-    only.  SNIP's one-shot gradient runs before step 0 and adds its
-    attention launches (48/24/24 K9-K11) to step 0's count.  Checks at the
+    (K1/K2/K3 under block_sparse, K13/K14/K15 under masked, with K14's
+    planned split merges), 48/24/24 K9-K11, no K21.  SET carries no
+    superset, so its update step takes the dense gradient of the masked
+    weights (the reference's path): K9-K11 only.  SNIP's one-shot gradient
+    runs before step 0 and adds its attention launches (48/24/24 K9-K11) to
+    step 0's count.  Checks at the
     topology change: block counts kept per layer, grown = dropped, some
     block moved (set, snfs), the pack fresh; B ⊇ A (snfs, topkast), the
     dense momentum zero outside B (snfs), the weights exactly 0 outside B
@@ -3221,10 +3310,12 @@ def method_train(torch, bsm, mm, fa, tk, method):
     counters = ((fwd, mod, "launches"), (dx, mod, "dx_launches"), (dw, mod, "dw_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"), ("histogram_abs", tk, "launches"))
-    read = lambda: {n: getattr(m, a) for n, m, a in counters}
     n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
     expect = {fwd: 2 * n_proj, dx: n_proj, dw: n_proj, "flash_fwd": 2 * n_attn,
               "flash_dq": n_attn, "flash_dkv": n_attn, "histogram_abs": 0}
+    if masked:  # K14's planned split merges, set from the weights' shapes at step 1
+        counters += (("masked_dx_merge", mm, "dx_merge_launches"),)
+    read = lambda: {n: getattr(m, a) for n, m, a in counters}
     # set carries no superset: its update step takes the dense gradient on
     # the masked weights (the reference's legacy path), attention alone on
     # the kernels
@@ -3276,6 +3367,11 @@ def method_train(torch, bsm, mm, fa, tk, method):
                "launches": {n: counts[n] - prev[n] for n in counts}}
         if seen["t"] is not None:
             rec["wall_s"] = t - seen["t"]
+        if masked and "masked_dx_merge" not in expect:
+            n_merges = cfg.n_layers * planned_merges(
+                torch, mm, cfg, state["params"]["layers"][0], MASKED_BATCH * TRAIN_SEQ, "dx")
+            for d in (expect, update, first):
+                d["masked_dx_merge"] = n_merges
         want = first if step == 1 else update if is_update else expect
         if rec["launches"] != want or not math.isfinite(rec["loss"]):
             raise AssertionError(f"{method} step {step}: {rec}, expected {want}")
@@ -3499,6 +3595,7 @@ def main() -> int:
         return out
 
     csrc, kern = "src/repro_torch/csrc/", "src/repro/kernels/"
+    dx_merges = mcases["dx_merge"] + k1718["dx_merge"]
     report = {"kernels": [
         summary("block_sparse_fwd", csrc + "block_sparse_fwd.cu",
                 kern + "block_sparse_matmul.py:223", k1),
@@ -3515,6 +3612,10 @@ def main() -> int:
                 mcases["merge"]),
         summary("masked_dx", csrc + "masked_matmul.cu", kern + "masked_matmul.py:96",
                 mcases["K14"]),
+        # K14's and K17's split merge (the forward's merge kernel, counted
+        # on its own), where a timed case's plan splits
+        *([summary("masked_dx_merge", csrc + "masked_matmul.cu",
+                   kern + "masked_matmul.py:96", dx_merges)] if dx_merges else []),
         summary("masked_dw", csrc + "masked_matmul.cu", kern + "masked_matmul.py:115",
                 mcases["K15"]),
         summary("masked_dw_fused", csrc + "masked_matmul.cu", kern + "masked_matmul.py:498",

@@ -27,30 +27,36 @@
 // memory (v * float(m), as the reference's w * m.astype(w.dtype): an inf or
 // NaN weight under a zero mask gives NaN).  No atomics, every sum in a
 // fixed order.
-//  * K13 and K16 run on the register-resident GEMM core (gemm_core.cuh):
-//    a cp.async ring of (x, w, mask) slabs of 32, the mask applied in
-//    place by the thread that copied the chunk, mma.sync m16n8k16 for
-//    bf16 and 3xTF32 m16n8k8 for f32 (f32's digits on the tensor cores),
-//    accumulators in registers, one rounding at the store.  One CTA per
-//    (BN-column tile, BM-row tile, group x split): the host plan
-//    (kernels/masked_matmul.py::fwd_plan) picks the tile and splits K
+//  * K13, K14 and their grouped twins K16, K17 run one kernel body,
+//    masked_gemm_kernel, on the register-resident GEMM core
+//    (gemm_core.cuh): a cp.async ring of (A, w, mask) slabs of 32, the
+//    mask applied in place by the thread that copied the chunk, mma.sync
+//    m16n8k16 for bf16 and 3xTF32 m16n8k8 for f32 (f32's digits on the
+//    tensor cores), accumulators in registers, one rounding at the store.
+//    The forward (A = x, L = K, cols = N) stages w's rows as B
+//    (gemm::MaskedRowsB); the dgrad (A = g, L = N, cols = K) stages the w
+//    rows of dx's columns as they lie (gemm::MaskedColsB): w's contiguous
+//    axis is the contraction, so the slab is already mma.sync's n-major B
+//    operand, read by ldmatrix without .trans (f32: on 32-bit pairs), and
+//    nothing is transposed.  One CTA per (BM-row tile, BN-column tile, group
+//    x split), the forward's grid walking column tiles fastest, the
+//    dgrad's row tiles (the row tiles that read one w tile run side by
+//    side: a bank's tile comes from HBM about once).  The host plan
+//    (kernels/masked_matmul.py::fwd_plan, one plan for both directions on
+//    (rows, contraction, cols)) picks the tile and splits the contraction
 //    into n_split whole-slab parts where the grid alone would leave the
 //    SMs' resident slots empty (decode) or its last wave mostly idle; a
-//    split stores f32 partials
-//    into a workspace (n_split, G, Mp, N) and masked_fwd_merge_kernel
-//    sums them in split order and rounds once.  K16 is K13 with the
-//    bank's group in grid dim z (K13 is the bank of one).
-//  * K14, K15, K19 and their grouped twins still run on the tile layer
-//    (tile_mma.cuh: wmma for bf16, full-precision FFMA for f32): K14
-//    stages the masked slab transposed, as K2 stages W^T; K15 and K19
-//    apply the mask at the store.
-//  * K14: one CTA per (bk-column tile of dx, bm-row tile), looping over N;
-//  * K15/K19: one CTA per (bk x bn) tile of dw, looping over all M rows in
-//    one CTA (the TPU kernel carried the sum across its innermost grid axis);
-//  * K17/K18/K20 are K14/K15/K19 with the bank's group as the grid's third
-//    dimension (K14/K15/K19 are the bank of one).  A fully masked expert
-//    reads its zero mask like any other: zero dx rows and a zero dw or
-//    m_new, no empty sum.
+//    split stores f32 partials into a workspace (n_split, G, Mp, cols) and
+//    masked_merge_kernel sums them in split order and rounds once.  K16
+//    and K17 are K13 and K14 with the bank's group in grid dim z (K13 and
+//    K14 are the bank of one).
+//  * K15, K19 and their grouped twins still run on the tile layer
+//    (tile_mma.cuh: wmma for bf16, full-precision FFMA for f32) and apply
+//    the mask at the store: one CTA per (bk x bn) tile of dw, looping over
+//    all M rows in one CTA (the TPU kernel carried the sum across its
+//    innermost grid axis); K18/K20 are K15/K19 with the bank's group as the
+//    grid's third dimension.  A fully masked expert reads its zero mask
+//    like any other: zero dx rows and a zero dw or m_new, no empty sum.
 // K19/K20's epilogue (epilogue.cuh, shared with K7/K8) reads mom and w at
 // the store; with sr it hashes the element's id gid = (g * K + row) * N +
 // col (wrapping uint32; K and N are the padded extents the wrapper hands
@@ -70,69 +76,6 @@
 #include "gemm_core.cuh"
 
 namespace {
-
-template <int Per> struct MaskVec;
-template <> struct MaskVec<8> { using V = uint2; };
-template <> struct MaskVec<4> { using V = unsigned int; };
-
-template <typename T>
-__device__ inline T masked(T v, uint8_t m) {
-  return tile::from_float<T>(tile::to_float(v) * static_cast<float>(m));
-}
-
-// Transposed: dst[c * ldd + r] = src[r * lds + c] * msk[r * lds + c].
-template <typename T>
-__device__ inline void stage_masked_cols(T* dst, int ldd, const T* src,
-                                         const uint8_t* msk, size_t lds,
-                                         int rows, int cols) {
-  constexpr int per = 16 / sizeof(T);
-  using MV = typename MaskVec<per>::V;
-  const int vpr = cols / per;
-  for (int t = threadIdx.x; t < rows * vpr; t += tile::kThreads) {
-    const int r = t / vpr, c = (t % vpr) * per;
-    uint4 raw = *reinterpret_cast<const uint4*>(src + r * lds + c);
-    const MV mv = *reinterpret_cast<const MV*>(msk + r * lds + c);
-    const T* vals = reinterpret_cast<const T*>(&raw);
-    const uint8_t* mb = reinterpret_cast<const uint8_t*>(&mv);
-#pragma unroll
-    for (int e = 0; e < per; ++e) dst[(c + e) * ldd + r] = masked(vals[e], mb[e]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(tile::kThreads)
-masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                 const uint8_t* __restrict__ m, T* __restrict__ dx, int Mp, int K,
-                 int N, int bm, int bk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int gld = tile::kSlab + tile::pad<T>(), wld = bk + tile::pad<T>();
-  T* gs = reinterpret_cast<T*>(smem);  // bm x gld
-  T* ws = gs + bm * gld;               // kSlab x wld: (w * m)^T slab
-  float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
-
-  const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm;
-  const size_t grp = blockIdx.z;
-  const T* gg = g + grp * Mp * N;
-  const T* wg = w + grp * K * N;
-  const uint8_t* mg = m + grp * K * N;
-  T* dxg = dx + grp * Mp * K;
-  const int slab = (N % tile::kSlab == 0) ? tile::kSlab : 16;
-
-  tile::Acc<T> acc;
-  acc.zero();
-  for (int n0 = 0; n0 < N; n0 += slab) {
-    __syncthreads();
-    tile::stage_rows(gs, gld, gg + (size_t)m0 * N + n0, N, bm, slab);
-    // ws[l][c] = w[k0 + c][n0 + l] * m[k0 + c][n0 + l]
-    stage_masked_cols(ws, wld, wg + (size_t)k0 * N + n0, mg + (size_t)k0 * N + n0, N,
-                      bk, slab);
-    __syncthreads();
-    acc.mma(gs, gld, ws, wld, bm, bk, slab);
-  }
-  acc.store(scratch, bm, bk, [&](int r, int c, float v) {
-    dxg[(size_t)(m0 + r) * K + k0 + c] = tile::from_float<T>(v);
-  });
-}
 
 template <typename T>
 __global__ void __launch_bounds__(tile::kThreads)
@@ -194,17 +137,6 @@ size_t smem_bytes(int rows, int cols) {
 }
 
 template <typename T>
-int launch_dx(const void* g, const void* w, const void* m, void* dx, int G, int Mp,
-              int K, int N, int bm, int bk, void* stream) {
-  const dim3 grid(K / bk, Mp / bm, G);
-  masked_dx_kernel<T><<<grid, tile::kThreads, smem_bytes<T>(bm, bk),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const T*>(w),
-      static_cast<const uint8_t*>(m), static_cast<T*>(dx), Mp, K, N, bm, bk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_dw(const void* x, const void* g, const void* m, void* dw, int G, int Mp,
               int K, int N, int bn, int bk, void* stream) {
   const dim3 grid(N / bn, K / bk, G);
@@ -229,23 +161,30 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K13 and K16 on the GEMM core.  The (BM, BN) tiles the host plan picks
-// from (kernels/masked_matmul.py::FWD_TILES): 128 x 128 for more than 64
-// rows (128 x 64 where the caller caps the column tile), 16 x 64 for
-// decode; WM x WN warps, ring stages, resident CTAs an SM.
-template <typename T, int BM, int BN> struct FwdCfg;
-template <> struct FwdCfg<__nv_bfloat16, 128, 128> {
-  using C = gemm::Cfg<__nv_bfloat16, 128, 128, 2, 4, 4, 2>;
+// K13, K14, K16 and K17 on the GEMM core.  The (BM, BN) tiles the host
+// plan picks from (kernels/masked_matmul.py::FWD_TILES): 128 x 128 for more
+// than 64 rows (128 x 64 where the caller caps the column tile), 16 x 64 for
+// decode; WM x WN warps, ring stages, resident CTAs an SM.  The forward
+// (StageB = MaskedRowsB) and the dgrad (MaskedColsB) share the numbers.
+template <typename T, int BM, int BN, class StageB> struct TileCfg;
+template <class B> struct TileCfg<__nv_bfloat16, 128, 128, B> {
+  using C = gemm::Cfg<__nv_bfloat16, 128, 128, 2, 4, 4, 2, B>;
 };
-template <> struct FwdCfg<__nv_bfloat16, 128, 64> {
-  using C = gemm::Cfg<__nv_bfloat16, 128, 64, 4, 2, 4, 2>;
+template <class B> struct TileCfg<__nv_bfloat16, 128, 64, B> {
+  using C = gemm::Cfg<__nv_bfloat16, 128, 64, 4, 2, 4, 2, B>;
 };
-template <> struct FwdCfg<__nv_bfloat16, 16, 64> {
-  using C = gemm::Cfg<__nv_bfloat16, 16, 64, 1, 4, 4, 4>;
+template <class B> struct TileCfg<__nv_bfloat16, 16, 64, B> {
+  using C = gemm::Cfg<__nv_bfloat16, 16, 64, 1, 4, 4, 4, B>;
 };
-template <> struct FwdCfg<float, 128, 128> { using C = gemm::Cfg<float, 128, 128, 2, 4, 4, 1>; };
-template <> struct FwdCfg<float, 128, 64> { using C = gemm::Cfg<float, 128, 64, 4, 2, 3, 1>; };
-template <> struct FwdCfg<float, 16, 64> { using C = gemm::Cfg<float, 16, 64, 1, 4, 4, 4>; };
+template <class B> struct TileCfg<float, 128, 128, B> {
+  using C = gemm::Cfg<float, 128, 128, 2, 4, 4, 1, B>;
+};
+template <class B> struct TileCfg<float, 128, 64, B> {
+  using C = gemm::Cfg<float, 128, 64, 4, 2, 3, 1, B>;
+};
+template <class B> struct TileCfg<float, 16, 64, B> {
+  using C = gemm::Cfg<float, 16, 64, 1, 4, 4, 4, B>;
+};
 
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
@@ -254,35 +193,38 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<uint32_t*>(p) = ptx::pack_bf16(v0, v1);
 }
 
-// K13 and K16: x (G, Mp, K), w and m (G, K, N), y (G, Mp, N); blockIdx.z =
-// g * n_split + s.  Split s walks K's slabs [s n / n_split, (s + 1) n /
-// n_split) of n = ceil(K / 32) and, when n_split > 1, stores its f32
-// partial into part (n_split, G, Mp, N) in place of y.
+// K13/K16 (C::StageB = MaskedRowsB: a = x (G, Mp, L = K), w and m (G, L,
+// cols = N)) and K14/K17 (MaskedColsB: a = g (G, Mp, L = N), w and m (G,
+// cols = K, L)); out (G, Mp, cols); blockIdx.z = group * n_split + s.  Split
+// s walks L's slabs [s n / n_split, (s + 1) n / n_split) of n = ceil(L / 32)
+// and, when n_split > 1, stores its f32 partial into part (n_split, G, Mp,
+// cols) in place of out.
 template <class C>
 __global__ void __launch_bounds__(C::kThreads, C::MIN_CTAS)
-masked_fwd_kernel(const typename C::Type* __restrict__ x,
-                  const typename C::Type* __restrict__ w, const uint8_t* __restrict__ m,
-                  typename C::Type* __restrict__ y, float* __restrict__ part, int G, int Mp,
-                  int K, int N, int n_split) {
+masked_gemm_kernel(const typename C::Type* __restrict__ a,
+                   const typename C::Type* __restrict__ w, const uint8_t* __restrict__ m,
+                   typename C::Type* __restrict__ out, float* __restrict__ part, int G,
+                   int Mp, int L, int cols, int n_split) {
   using T = typename C::Type;
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.z / n_split, s = blockIdx.z % n_split;
-  const int n_slabs = (K + gemm::kSlab - 1) / gemm::kSlab;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  const int n_slabs = (L + gemm::kSlab - 1) / gemm::kSlab;
+  const bool rows_fastest = C::StageB::kRowTilesFastest;
+  const int m0 = (rows_fastest ? blockIdx.x : blockIdx.y) * C::BM;
+  const int n0 = (rows_fastest ? blockIdx.y : blockIdx.x) * C::BN;
   gemm::Warp<C> warp;
   warp.zero();
-  gemm::walk<C, gemm::MaskedRowsB>(warp, x + (size_t)g * Mp * K, w + (size_t)g * K * N,
-                                   m + (size_t)g * K * N, Mp, N, K, m0, n0,
-                                   s * n_slabs / n_split, (s + 1) * n_slabs / n_split, smem);
+  gemm::walk<C>(warp, a + (size_t)g * Mp * L, w + (size_t)g * L * cols, m + (size_t)g * L * cols,
+                Mp, cols, L, m0, n0, s * n_slabs / n_split, (s + 1) * n_slabs / n_split, smem);
   if (n_split == 1) {
-    T* yg = y + (size_t)g * Mp * N;
-    gemm::store(warp, Mp, N, m0, n0, [&](int r, int c, float v0, float v1) {
-      store2(yg + (size_t)r * N + c, v0, v1);
+    T* og = out + (size_t)g * Mp * cols;
+    gemm::store(warp, Mp, cols, m0, n0, [&](int r, int c, float v0, float v1) {
+      store2(og + (size_t)r * cols + c, v0, v1);
     });
   } else {
-    float* pg = part + ((size_t)s * G + g) * Mp * N;
-    gemm::store(warp, Mp, N, m0, n0, [&](int r, int c, float v0, float v1) {
-      store2(pg + (size_t)r * N + c, v0, v1);
+    float* pg = part + ((size_t)s * G + g) * Mp * cols;
+    gemm::store(warp, Mp, cols, m0, n0, [&](int r, int c, float v0, float v1) {
+      store2(pg + (size_t)r * cols + c, v0, v1);
     });
   }
 }
@@ -294,12 +236,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = make_uint2(ptx::pack_bf16(v.x, v.y), ptx::pack_bf16(v.z, v.w));
 }
 
-// y[i] = sum over s of part[s][i], s = 0, 1, ... in order, rounded once to
-// y's type; plane = G * Mp * N (a multiple of 4), n4 = plane / 4.
+// The split merge of K13, K14, K16 and K17: y[i] = sum over s of
+// part[s][i], s = 0, 1, ... in order, rounded once to y's type; plane = G *
+// Mp * cols (a multiple of 4), n4 = plane / 4.
 template <typename T>
 __global__ void __launch_bounds__(256)
-masked_fwd_merge_kernel(const float* __restrict__ part, T* __restrict__ y, size_t n4,
-                        size_t plane, int n_split) {
+masked_merge_kernel(const float* __restrict__ part, T* __restrict__ y, size_t n4,
+                    size_t plane, int n_split) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     float4 v = reinterpret_cast<const float4*>(part)[i];
@@ -325,27 +268,29 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <class C> struct Tag { using type = C; };
 
-// f(Tag<Cfg>) for the configuration of tile (bm, bn); cudaErrorInvalidValue
-// for a tile the kernel is not built for.
-template <typename T, class F>
+// f(Tag<Cfg>) for the configuration of tile (bm, bn) with B staged by
+// StageB; cudaErrorInvalidValue for a tile the kernel is not built for.
+template <typename T, class StageB, class F>
 int with_tile(int bm, int bn, F f) {
-  if (bm == 128 && bn == 128) return f(Tag<typename FwdCfg<T, 128, 128>::C>{});
-  if (bm == 128 && bn == 64) return f(Tag<typename FwdCfg<T, 128, 64>::C>{});
-  if (bm == 16 && bn == 64) return f(Tag<typename FwdCfg<T, 16, 64>::C>{});
+  if (bm == 128 && bn == 128) return f(Tag<typename TileCfg<T, 128, 128, StageB>::C>{});
+  if (bm == 128 && bn == 64) return f(Tag<typename TileCfg<T, 128, 64, StageB>::C>{});
+  if (bm == 16 && bn == 64) return f(Tag<typename TileCfg<T, 16, 64, StageB>::C>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <class C>
-int launch_fwd(const void* x, const void* w, const void* m, void* y, void* part, int G,
-               int Mp, int K, int N, int n_split, void* stream) {
+int launch_gemm(const void* a, const void* w, const void* m, void* out, void* part, int G,
+                int Mp, int L, int cols, int n_split, void* stream) {
   using T = typename C::Type;
-  const auto kernel = masked_fwd_kernel<C>;
+  const auto kernel = masked_gemm_kernel<C>;
   cudaError_t err = prepare(kernel, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + C::BN - 1) / C::BN, (Mp + C::BM - 1) / C::BM, G * n_split);
+  const unsigned row_tiles = (Mp + C::BM - 1) / C::BM, col_tiles = (cols + C::BN - 1) / C::BN;
+  const dim3 grid(C::StageB::kRowTilesFastest ? row_tiles : col_tiles,
+                  C::StageB::kRowTilesFastest ? col_tiles : row_tiles, G * n_split);
   kernel<<<grid, C::kThreads, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const uint8_t*>(m),
-      static_cast<T*>(y), static_cast<float*>(part), G, Mp, K, N, n_split);
+      static_cast<const T*>(a), static_cast<const T*>(w), static_cast<const uint8_t*>(m),
+      static_cast<T*>(out), static_cast<float*>(part), G, Mp, L, cols, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -353,7 +298,7 @@ template <typename T>
 int launch_merge(const void* part, void* y, long long plane, int n_split, void* stream) {
   const size_t n4 = static_cast<size_t>(plane) / 4;
   const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 132 * 8));
-  masked_fwd_merge_kernel<T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  masked_merge_kernel<T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<T*>(y), n4, static_cast<size_t>(plane),
       n_split);
   return static_cast<int>(cudaGetLastError());
@@ -362,8 +307,8 @@ int launch_merge(const void* part, void* y, long long plane, int n_split, void* 
 // out = {CTAs resident per SM, registers a thread, dynamic shared bytes,
 // local (spill) bytes a thread, threads a CTA} of configuration C.
 template <class C>
-int fwd_info(int* out) {
-  const auto kernel = masked_fwd_kernel<C>;
+int gemm_info(int* out) {
+  const auto kernel = masked_gemm_kernel<C>;
   cudaError_t err = prepare(kernel, C::SMEM);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
@@ -381,50 +326,58 @@ int fwd_info(int* out) {
 
 }  // namespace
 
-// K13 and K16 (the bank of G groups; K13 passes G = 1): x (G, Mp, K), w
-// and m (G, K, N), y (G, Mp, N), row-major, m one byte per element (0 or
-// 1); K and N multiples of 16, 16-byte alignment; (bm, bn) one of the built
-// tiles; with n_split > 1, part is the f32 workspace (n_split, G, Mp, N)
-// and masked_fwd_merge_<S> must follow to write y.
-#define FWD_ENTRIES(S, T)                                                          \
+// masked_<dir>_<S> for dir = fwd (K13, K16: B staged by MaskedRowsB) and dx
+// (K14, K17: MaskedColsB), on a bank of G groups (K13 and K14 pass G = 1),
+// row-major, m one byte per element (0 or 1); the forward takes x (G, Mp,
+// K), w and m (G, K, N) and writes y (G, Mp, N); the dgrad takes g (G, Mp,
+// N), w and m (G, K, N) and writes dx (G, Mp, K).  K and N multiples of 16,
+// 16-byte alignment; (bm, bn) one of the built tiles (bn: the tile's
+// columns, N for the forward, K for the dgrad); with n_split > 1, part is
+// the f32 workspace (n_split, G, Mp, columns) and masked_merge_<S> must
+// follow to write the output.  masked_<dir>_info_<S>: the launch of tile
+// (bm, bn).
+#define GEMM_ENTRIES(S, T)                                                         \
   extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,      \
                                 void* y, void* part, int G, int Mp, int K, int N, \
                                 int bm, int bn, int n_split, void* stream) {      \
-    return with_tile<T>(bm, bn, [&](auto tag) {                                    \
-      return launch_fwd<typename decltype(tag)::type>(x, w, m, y, part, G, Mp, K,  \
-                                                      N, n_split, stream);         \
+    return with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {                 \
+      return launch_gemm<typename decltype(tag)::type>(x, w, m, y, part, G, Mp, K, \
+                                                       N, n_split, stream);        \
     });                                                                            \
   }                                                                                \
-  extern "C" int masked_fwd_merge_##S(const void* part, void* y, long long plane, \
-                                      int n_split, void* stream) {                 \
+  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,       \
+                               void* dx, void* part, int G, int Mp, int K, int N, \
+                               int bm, int bn, int n_split, void* stream) {       \
+    return with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {                 \
+      return launch_gemm<typename decltype(tag)::type>(g, w, m, dx, part, G, Mp, N,\
+                                                       K, n_split, stream);        \
+    });                                                                            \
+  }                                                                                \
+  extern "C" int masked_merge_##S(const void* part, void* y, long long plane,     \
+                                  int n_split, void* stream) {                     \
     return launch_merge<T>(part, y, plane, n_split, stream);                       \
   }                                                                                \
   extern "C" int masked_fwd_info_##S(int bm, int bn, int* out) {                  \
-    return with_tile<T>(bm, bn, [&](auto tag) {                                    \
-      return fwd_info<typename decltype(tag)::type>(out);                          \
+    return with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {                 \
+      return gemm_info<typename decltype(tag)::type>(out);                         \
+    });                                                                            \
+  }                                                                                \
+  extern "C" int masked_dx_info_##S(int bm, int bn, int* out) {                   \
+    return with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {                 \
+      return gemm_info<typename decltype(tag)::type>(out);                         \
     });                                                                            \
   }
 
-FWD_ENTRIES(bf16, __nv_bfloat16)
-FWD_ENTRIES(f32, float)
+GEMM_ENTRIES(bf16, __nv_bfloat16)
+GEMM_ENTRIES(f32, float)
 
-// K14, K15 and their grouped twins: row-major operands in the entry's
-// element type, m one byte per element (0 or 1) of w's shape (K, N); the
-// grouped entries (K17, K18) take a leading group dim on every operand: g
-// (G, Mp, N), w and m (G, K, N), dx (G, Mp, K), dw (G, K, N).  The wrappers check
-// Mp % bm == 0, N % bn == 0, K % bk == 0, K and N multiples of 16, bm, bn,
-// bk multiples of 16 in [16, 128], 16-byte alignment.
+// K15 and its grouped twin K18: row-major operands in the entry's element
+// type, m one byte per element (0 or 1) of w's shape (K, N); the grouped
+// entry (K18) takes a leading group dim on every operand: x (G, Mp, K), g
+// (G, Mp, N), m and dw (G, K, N).  The wrappers check Mp % 16 == 0, N % bn
+// == 0, K % bk == 0, K and N multiples of 16, bn, bk multiples of 16 in
+// [16, 128], 16-byte alignment.
 #define MASKED_ENTRIES(S, T)                                                        \
-  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,        \
-                               void* dx, int Mp, int K, int N, int bm, int bk,      \
-                               void* stream) {                                      \
-    return launch_dx<T>(g, w, m, dx, 1, Mp, K, N, bm, bk, stream);                  \
-  }                                                                                 \
-  extern "C" int masked_dx_grouped_##S(const void* g, const void* w, const void* m,\
-                                       void* dx, int G, int Mp, int K, int N,       \
-                                       int bm, int bk, void* stream) {              \
-    return launch_dx<T>(g, w, m, dx, G, Mp, K, N, bm, bk, stream);                  \
-  }                                                                                 \
   extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,        \
                                void* dw, int Mp, int K, int N, int bn, int bk,      \
                                void* stream) {                                      \

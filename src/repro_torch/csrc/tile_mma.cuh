@@ -1,6 +1,6 @@
 // Tile products shared by the block-sparse kernels (forward, dgrad, wgrad
-// and the fused wgrad epilogues) and the masked dgrad, wgrad and fused
-// wgrad (the masked forward runs on gemm_core.cuh).  A CTA of 256 threads
+// and the fused wgrad epilogues) and the masked wgrad and fused wgrad (the
+// masked forward and dgrad run on gemm_core.cuh).  A CTA of 256 threads
 // accumulates one (R x C) tile in f32, with R and C multiples of 16 up to
 // 128, from slabs staged in shared memory as A (R x L, row-major, leading
 // dimension lda) and B (L x C, row-major, ldb).

@@ -20,27 +20,31 @@ csrc/masked_matmul.cu (the design and its bound are described there):
 
 Each runs in bf16 and in f32 (the reference's MLP computes in the f32
 residual's dtype), accumulating in f32 and rounding once to the output
-type.  K13 and K16 run on the register-resident GEMM core
-(csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32 for f32, which keeps f32's
-digits on the tensor cores); the others on the tile layer (wmma bf16,
-full-precision FFMA f32).  ``fwd_plan`` picks K13/K16's tile and splits K
-where the grid alone would leave the SMs' slots empty (decode) or its last
-wave mostly idle; a split's f32 partials are summed in order by a merge
-kernel (``fwd_merge``).  The
-mask multiplies the weight (an inf weight under a zero mask gives NaN, as
-the reference's ``w * m.astype(w.dtype)``); it is never a select.
+type.  K13, K14 and their grouped twins K16, K17 run on the
+register-resident GEMM core (csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32
+for f32, which keeps f32's digits on the tensor cores); the others on the
+tile layer (wmma bf16, full-precision FFMA f32).  One plan serves both
+directions of the core: ``fwd_plan`` sees a launch as rows x contraction
+-> rows x cols (the forward: L = K, cols = N; the dgrad: L = N, cols = K),
+picks the tile and splits the contraction where the grid alone would leave
+the SMs' slots empty (decode) or its last wave mostly idle; a split's f32
+partials are summed in order by a merge kernel (``fwd_merge`` after K13
+and K16, ``dx_merge`` after K14 and K17).  The mask multiplies the weight
+(an inf weight under a zero mask gives NaN, as the reference's ``w *
+m.astype(w.dtype)``); it is never a select.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``g_launches``, ``dx_launches``, ``gdx_launches``, ``dw_launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
 launches, one per call; ``fwd_merge_launches`` counts the split merges of
-K13 and K16 on their own.  ``MaskedMatmul``, ``TopkastMaskedMatmul``,
-``FusedMaskedMatmul``, ``GroupedMaskedMatmul``,
-``TopkastGroupedMaskedMatmul`` and ``FusedGroupedMaskedMatmul`` are the
-differentiable forms (the reference's custom VJPs ``_mm_fwd/_mm_bwd``,
-``_tkm_fwd/_tkm_bwd``, ``_fmm_fwd/_fmm_bwd``, ``_gmm_fwd/_gmm_bwd``,
-``_gtkm_fwd/_gtkm_bwd`` and ``_gfmm_fwd/_gfmm_bwd``).
+K13 and K16 on their own, ``dx_merge_launches`` those of K14 and K17.
+``MaskedMatmul``, ``TopkastMaskedMatmul``, ``FusedMaskedMatmul``,
+``GroupedMaskedMatmul``, ``TopkastGroupedMaskedMatmul`` and
+``FusedGroupedMaskedMatmul`` are the differentiable forms (the
+reference's custom VJPs ``_mm_fwd/_mm_bwd``, ``_tkm_fwd/_tkm_bwd``,
+``_fmm_fwd/_fmm_bwd``, ``_gmm_fwd/_gmm_bwd``, ``_gtkm_fwd/_gtkm_bwd`` and
+``_gfmm_fwd/_gfmm_bwd``).
 """
 from __future__ import annotations
 
@@ -68,8 +72,10 @@ __all__ = [
     "MaskedMatmul",
     "TopkastGroupedMaskedMatmul",
     "TopkastMaskedMatmul",
-    "dx_launches",
     "dw_launches",
+    "dx_launches",
+    "dx_merge",
+    "dx_merge_launches",
     "fused_error_bound",
     "fused_launches",
     "fwd_candidates",
@@ -99,6 +105,7 @@ __all__ = [
     "masked_dw_plain",
     "masked_dx",
     "masked_dx_plain",
+    "masked_dx_split_plain",
     "masked_matmul",
     "masked_matmul_plain",
     "masked_matmul_split_plain",
@@ -116,9 +123,11 @@ gdw_launches = 0    # K18
 fused_launches = 0  # K19
 g_fused_launches = 0  # K20
 fwd_merge_launches = 0  # the merges of split K13 and K16 launches
+dx_merge_launches = 0  # the merges of split K14 and K17 launches
 
-# K13/K16's plan (csrc/masked_matmul.cu, csrc/gemm_core.cuh)
-FWD_SLAB = 32  # K elements of one ring stage; a split walks whole slabs
+# the GEMM core's plan, K13/K16 and K14/K17 (csrc/masked_matmul.cu,
+# csrc/gemm_core.cuh)
+FWD_SLAB = 32  # contraction elements of one ring stage; a split walks whole slabs
 FWD_TILES = ((128, 128), (128, 64), (16, 64))  # (bm, bn) built
 FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the split counts the sweeps force
 FWD_MAX_SPLIT = 32
@@ -250,12 +259,27 @@ def masked_matmul_split_plain(x, w, mask, n_split: int):
     return acc.to(x.dtype)
 
 
-def fwd_split_ranges(K: int, n_split: int) -> list[tuple[int, int]]:
-    """The K range [k0, k1) each split of a K13/K16 launch walks: split s
-    takes slabs [s n // n_split, (s + 1) n // n_split) of the n = ceil(K /
-    FWD_SLAB) slabs (the last slab ends at K)."""
-    n = -(-K // FWD_SLAB)
-    return [(s * n // n_split * FWD_SLAB, min((s + 1) * n // n_split * FWD_SLAB, K))
+def masked_dx_split_plain(g, w, mask, n_split: int):
+    """K14 (g (M, N), w and mask (K, N)) or K17 (g (G, M, N), w and mask (G,
+    K, N)) as a split launch computes it: split s's f32 partial ``g @ (w *
+    m)^T`` over N's slabs ``fwd_split_ranges(N, n_split)[s]``, the partials
+    summed in the order s = 0, 1, ... and rounded once to g.dtype (the mask
+    multiplies in w's dtype, as the reference)."""
+    gf, wm = g.float(), (w * mask.to(w.dtype)).float()
+    acc = None
+    for n0, n1 in fwd_split_ranges(g.shape[-1], n_split):
+        part = gf[..., n0:n1] @ wm[..., n0:n1].transpose(-1, -2)
+        acc = part if acc is None else acc + part
+    return acc.to(g.dtype)
+
+
+def fwd_split_ranges(L: int, n_split: int) -> list[tuple[int, int]]:
+    """The contraction range [l0, l1) each split of a GEMM-core launch walks
+    (L = K for K13/K16, N for K14/K17): split s takes slabs [s n // n_split,
+    (s + 1) n // n_split) of the n = ceil(L / FWD_SLAB) slabs (the last
+    slab ends at L)."""
+    n = -(-L // FWD_SLAB)
+    return [(s * n // n_split * FWD_SLAB, min((s + 1) * n // n_split * FWD_SLAB, L))
             for s in range(n_split)]
 
 
@@ -269,138 +293,162 @@ def fwd_merge_plain(part, dtype):
 
 
 def fwd_tile(Mp: int, bn_limit: int = 128) -> tuple[int, int]:
-    """K13/K16's CTA tile (bm, bn) at Mp padded rows: 16 x 64 for at most
-    64 rows (decode: one row tile, the weight read once; 64 columns give
-    twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x 64
-    where the caller's column tile ``bn_limit`` is below 128."""
+    """The GEMM core's CTA tile (bm, bn) at Mp padded rows: 16 x 64 for at
+    most 64 rows (decode: one row tile, the weight read once; 64 columns
+    give twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x
+    64 where the caller's column tile ``bn_limit`` is below 128."""
     bm = 16 if Mp <= 64 else 128
     return bm, 64 if bm == 16 or bn_limit < 128 else 128
 
 
-def fwd_plan(Mp: int, K: int, N: int, G: int, dtype, slots: int, *,
+def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
              bn_limit: int = 128) -> tuple[int, int, int]:
-    """K13 (G = 1) or K16's launch on x (G, Mp, K) and w (G, K, N) of
-    ``dtype`` -> (bm, bn, n_split).  ``slots``: the CTAs the card holds at
-    once for the tile ``fwd_tile`` picks (SMs times CTAs resident per SM).
+    """A GEMM-core launch of Mp rows x L contraction -> Mp x cols on a bank
+    of G groups of ``dtype`` -> (bm, bn, n_split): K13 (G = 1) and K16 with
+    L = K and cols = N, K14 (G = 1) and K17 with L = N and cols = K.
+    ``slots``: the CTAs the card holds at once for the tile ``fwd_tile``
+    picks (SMs times CTAs resident per SM).
 
-    The grid has ceil(Mp / bm) ceil(N / bn) G tiles, and K's n = ceil(K /
-    FWD_SLAB) slabs may be split into n_split whole-slab parts whose f32
-    partials a merge sums (8 G Mp N bytes a split, written and read).
+    The grid has ceil(Mp / bm) ceil(cols / bn) G tiles, and the n =
+    ceil(L / FWD_SLAB) slabs may be split into n_split whole-slab parts
+    whose f32 partials a merge sums (8 G Mp cols bytes a split, written and
+    read).
 
     * Decode (bm = 16) reads every weight and mask byte once: the split
       fills the slots in one wave, as far as three limits allow: each split
       walks at least FWD_MIN_SLABS slabs, at most FWD_MAX_SPLIT splits, and
-      the partials stay within a quarter of the weight and mask bytes (G K
-      N (e + 1)), so n_split <= K (e + 1) / (32 Mp).
+      the partials stay within a quarter of the weight and mask bytes (G L
+      cols (e + 1)), so n_split <= L (e + 1) / (32 Mp).
     * Larger row counts do the dense work (bm = 128): a split of 2 is taken
       only where the modelled makespan -- waves of ``slots`` CTAs, each
       walking its slabs at the kernel's own rate ``FWD_RATE``, plus the
       partials' bytes at FWD_BYTES_S -- drops by FWD_MIN_GAIN or more:
       where the unsplit grid leaves most of its last wave idle (danube's
-      f32 MLP wo at 2048 rows: 320 CTAs on 132 slots).  K16's banks
-      (660-1320 CTAs) stay whole.
+      f32 MLP at 2048 rows: the forward of wo and the dgrad of wi and wg,
+      320 CTAs on 132 slots).  The banks (660-1320 CTAs) stay whole.
 
     chip_smoke.py times every candidate (``fwd_candidates``) at the paths'
     shapes and says whether this pick was the fastest."""
     bm, bn = fwd_tile(Mp, bn_limit)
-    tiles = -(-Mp // bm) * -(-N // bn) * G
-    n_slabs = -(-K // FWD_SLAB)
+    tiles = -(-Mp // bm) * -(-cols // bn) * G
+    n_slabs = -(-L // FWD_SLAB)
     if bm == 16:
-        cap = K * (_ELEMENT[dtype] + 1) // (32 * Mp)
+        cap = L * (_ELEMENT[dtype] + 1) // (32 * Mp)
         n_split = min(slots // max(tiles, 1), n_slabs // FWD_MIN_SLABS, cap, FWD_MAX_SPLIT)
         return bm, bn, max(1, n_split)
     slab_s = 2.0 * bm * bn * FWD_SLAB * slots / FWD_RATE[dtype]  # one CTA's slab
 
     def makespan(n):
         waves = -(-tiles * n // slots)
-        merge = 8.0 * n * G * Mp * N / FWD_BYTES_S if n > 1 else 0.0
+        merge = 8.0 * n * G * Mp * cols / FWD_BYTES_S if n > 1 else 0.0
         return waves * -(-n_slabs // n) * slab_s + merge
 
     split = n_slabs >= 2 * FWD_MIN_SLABS and makespan(2) <= (1 - FWD_MIN_GAIN) * makespan(1)
     return bm, bn, 2 if split else 1
 
 
-def fwd_candidates(Mp: int, K: int, N: int, G: int, dtype, slots: int, *,
+def fwd_candidates(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
                    bn_limit: int = 128) -> list[tuple[int, int, int]]:
-    """The plans a sweep forces at one shape: every built tile of the row
-    tile ``fwd_tile`` picks whose columns the caller allows, and each of
-    FWD_SPLITS that walks at least FWD_MIN_SLABS slabs -- at decode (bm =
-    16) within twice the plan's partial cap, else 1 and 2 -- with
-    ``fwd_plan``'s own pick."""
+    """The plans a sweep forces at one shape (``fwd_plan``'s arguments):
+    every built tile of the row tile ``fwd_tile`` picks whose columns the
+    caller allows, and each of FWD_SPLITS that walks at least FWD_MIN_SLABS
+    slabs -- at decode (bm = 16) within twice the plan's partial cap, else
+    1 and 2 -- with ``fwd_plan``'s own pick."""
     bm, _ = fwd_tile(Mp, bn_limit)
-    n_slabs = -(-K // FWD_SLAB)
-    cap = 2 * (K * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else 2
+    n_slabs = -(-L // FWD_SLAB)
+    cap = 2 * (L * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else 2
     out = [(bm, bn, n) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)
            for n in FWD_SPLITS if n == 1 or (n <= n_slabs // FWD_MIN_SLABS and n <= cap)]
-    pick = fwd_plan(Mp, K, N, G, dtype, slots, bn_limit=bn_limit)
+    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit)
     return out if pick in out else out + [pick]
 
 
-def fwd_launch_info(dtype, bm: int, bn: int) -> dict:
-    """The launch K13/K16's kernel gets at tile (bm, bn) in ``dtype``: CTAs
-    resident per SM, registers a thread, dynamic shared bytes, local (spill)
-    bytes a thread and threads a CTA, from the CUDA runtime.  Needs a card."""
+def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
+    """The launch the GEMM core's kernel gets at tile (bm, bn) in ``dtype``,
+    ``entry`` "fwd" (K13/K16) or "dx" (K14/K17): CTAs resident per SM,
+    registers a thread, dynamic shared bytes, local (spill) bytes a thread
+    and threads a CTA, from the CUDA runtime.  Needs a card."""
     s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
     out = (ctypes.c_int * 5)()
-    lib, fn = _fn(f"masked_fwd_info_{s}", [_I, _I, _P])
-    _build.check(lib, fn(bm, bn, ctypes.addressof(out)), "masked_fwd launch info")
+    lib, fn = _fn(f"masked_{entry}_info_{s}", [_I, _I, _P])
+    _build.check(lib, fn(bm, bn, ctypes.addressof(out)), f"masked_{entry} launch info")
     return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "spill_bytes", "threads"),
                     list(out)))
 
 
 @functools.lru_cache(maxsize=512)
-def _fwd_plan_for(Mp, K, N, G, dtype, bn_limit, device_index):
-    """``fwd_plan`` with the card's slots (SMs times the tile's resident
-    CTAs, from the runtime), memoized."""
+def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd"):
+    """``fwd_plan`` with the card's slots (SMs times the resident CTAs of
+    ``entry``'s kernel at the tile, from the runtime), memoized."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     bm, bn = fwd_tile(Mp, bn_limit)
-    slots = sms * fwd_launch_info(dtype, bm, bn)["ctas_per_sm"]
-    return fwd_plan(Mp, K, N, G, dtype, slots, bn_limit=bn_limit)
+    slots = sms * fwd_launch_info(dtype, bm, bn, entry)["ctas_per_sm"]
+    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit)
 
 
-def fwd_merge(part, out):
-    """The merge of a split K13/K16 launch: ``out`` = part[0] + part[1] +
-    ... in order, in f32, rounded once to out.dtype; part (n_split,
-    *out.shape) f32.  CUDA tensors run the kernel (one launch, counted in
-    ``fwd_merge_launches``) or raise; CPU tensors the plain version."""
-    global fwd_merge_launches
+def _merge(what, part, out):
+    """``out`` = part[0] + part[1] + ... in order, in f32, rounded once to
+    out.dtype; part (n_split, *out.shape) f32.  CUDA tensors run the merge
+    kernel (one launch) or raise; CPU tensors the plain version."""
     if out.device.type == "cpu":
         return out.copy_(fwd_merge_plain(part, out.dtype))
-    _device("fwd_merge", out)
-    s = _suffix("fwd_merge", out)
+    _device(what, out)
+    s = _suffix(what, out)
     if (part.dtype != torch.float32 or part.device != out.device
             or tuple(part.shape[1:]) != tuple(out.shape) or out.numel() % 4
             or not (part.is_contiguous() and out.is_contiguous())):
-        raise ValueError(f"fwd_merge: part {tuple(part.shape)} {part.dtype} does not "
+        raise ValueError(f"{what}: part {tuple(part.shape)} {part.dtype} does not "
                          f"hold f32 partials of out {tuple(out.shape)}")
-    lib, fn = _fn(f"masked_fwd_merge_{s}", [_P, _P, ctypes.c_longlong, _I, _P])
+    lib, fn = _fn(f"masked_merge_{s}", [_P, _P, ctypes.c_longlong, _I, _P])
     with torch.cuda.device(out.device):
         rc = fn(part.data_ptr(), out.data_ptr(), out.numel(), part.shape[0], _stream(out))
-    _build.check(lib, rc, "masked_fwd_merge launch")
-    fwd_merge_launches += 1
+    _build.check(lib, rc, f"{what} launch")
     return out
 
 
-def _fwd(what, s, x, w, mask, G, M, K, N, bn_limit, plan):
-    """One K13/K16 launch on x (G, M, K), w and mask (G, K, N) (K13: G =
-    1), with the merge after a split: y (G, M, N)."""
-    bm, bn, n_split = plan or _fwd_plan_for(M, K, N, G, x.dtype, bn_limit,
-                                            x.device.index)
-    if (bm, bn) not in FWD_TILES or not 1 <= n_split <= -(-K // FWD_SLAB):
+def fwd_merge(part, out):
+    """The merge of a split K13/K16 launch (``_merge``); a launch counts in
+    ``fwd_merge_launches``."""
+    global fwd_merge_launches
+    _merge("fwd_merge", part, out)
+    if out.device.type != "cpu":
+        fwd_merge_launches += 1
+    return out
+
+
+def dx_merge(part, out):
+    """The merge of a split K14/K17 launch (``_merge``); a launch counts in
+    ``dx_merge_launches``."""
+    global dx_merge_launches
+    _merge("dx_merge", part, out)
+    if out.device.type != "cpu":
+        dx_merge_launches += 1
+    return out
+
+
+def _gemm(entry, what, s, a, w, mask, G, M, L, cols, bn_limit, plan):
+    """One GEMM-core launch on a (G, M, L), w and mask (G, K, N) (G = 1 for
+    K13 and K14): ``entry`` "fwd" (K13/K16, L = K, cols = N) or "dx"
+    (K14/K17, L = N, cols = K), with the merge after a split: out (G, M,
+    cols)."""
+    bm, bn, n_split = plan or _fwd_plan_for(M, L, cols, G, a.dtype, bn_limit,
+                                            a.device.index, entry)
+    if (bm, bn) not in FWD_TILES or not 1 <= n_split <= -(-L // FWD_SLAB):
         raise ValueError(f"{what}: plan {(bm, bn, n_split)} is not a built tile "
-                         f"{FWD_TILES} with 1 <= n_split <= ceil(K / {FWD_SLAB})")
-    y = torch.empty(G, M, N, dtype=x.dtype, device=x.device)
-    part = (torch.empty(n_split, G, M, N, dtype=torch.float32, device=x.device)
+                         f"{FWD_TILES} with 1 <= n_split <= ceil({L} / {FWD_SLAB})")
+    out = torch.empty(G, M, cols, dtype=a.dtype, device=a.device)
+    part = (torch.empty(n_split, G, M, cols, dtype=torch.float32, device=a.device)
             if n_split > 1 else None)
-    lib, fn = _fn(f"masked_fwd_{s}", [_P] * 5 + [_I] * 7 + [_P])
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
+    K, N = (L, cols) if entry == "fwd" else (cols, L)
+    lib, fn = _fn(f"masked_{entry}_{s}", [_P] * 5 + [_I] * 7 + [_P])
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(), G, M, K, N, bm, bn, n_split,
-                _stream(x))
+                _stream(a))
     _build.check(lib, rc, f"{what} launch")
     if part is not None:
-        fwd_merge(part, y)
-    return y
+        (fwd_merge if entry == "fwd" else dx_merge)(part, out)
+    return out
 
 
 def fused_error_bound(out_plain, abs_prod, n: int, mu: float, wd: float, mom, w,
@@ -468,7 +516,7 @@ def masked_matmul(x, w, mask, *, bm: int, bn: int, plan=None):
     (M, K), N = x.shape, w.shape[1]
     s = _check_cuda("masked_matmul", (x, w), (mask,), {"bm": bm, "bn": bn},
                     [(M, bm), (N, bn), (K, 16)], [(w.shape[0], K), (mask.shape, w.shape)])
-    y = _fwd("masked_fwd", s, x, w, mask, 1, M, K, N, bn, plan)
+    y = _gemm("fwd", "masked_fwd", s, x, w, mask, 1, M, K, N, bn, plan)
     launches += 1
     return y[0]
 
@@ -490,14 +538,17 @@ def grouped_masked_matmul(x, w, mask, *, bm: int, bn: int, plan=None):
     s = _check_cuda("grouped_masked_matmul", (x, w), (mask,), {"bm": bm, "bn": bn},
                     [(M, bm), (N, bn), (K, 16)],
                     [(w.shape[0], G), (w.shape[1], K), (mask.shape, w.shape)])
-    y = _fwd("masked_fwd_grouped", s, x, w, mask, G, M, K, N, bn, plan)
+    y = _gemm("fwd", "masked_fwd_grouped", s, x, w, mask, G, M, K, N, bn, plan)
     g_launches += 1
     return y
 
 
-def masked_dx(g, w, mask, *, bm: int, bk: int):
+def masked_dx(g, w, mask, *, bm: int, bk: int, plan=None):
     """K14: g (M, N) @ (w * mask)^T -> dx (M, K) in g.dtype; M a multiple
-    of ``bm``."""
+    of ``bm``; ``bk`` caps the column tile (``fwd_tile``).  ``fwd_plan``
+    picks the launch (rows M, contraction N, columns K), or ``plan`` = (bm,
+    bn, n_split) forces one (one of ``FWD_TILES``).  CUDA tensors run the
+    kernel or raise; CPU tensors run the plain version."""
     global dx_launches
     if g.device.type == "cpu":
         return masked_dx_plain(g, w, mask)
@@ -505,14 +556,9 @@ def masked_dx(g, w, mask, *, bm: int, bk: int):
     (M, N), K = g.shape, w.shape[0]
     s = _check_cuda("masked_dx", (g, w), (mask,), {"bm": bm, "bk": bk},
                     [(M, bm), (K, bk), (N, 16)], [(w.shape[1], N), (mask.shape, w.shape)])
-    lib, fn = _fn(f"masked_dx_{s}", [_P] * 4 + [_I] * 5 + [_P])
-    dx = torch.empty(M, K, dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), w.data_ptr(), mask.data_ptr(), dx.data_ptr(),
-                M, K, N, bm, bk, _stream(g))
-    _build.check(lib, rc, "masked_dx launch")
+    dx = _gemm("dx", "masked_dx", s, g, w, mask, 1, M, N, K, bk, plan)
     dx_launches += 1
-    return dx
+    return dx[0]
 
 
 def _check_grouped(what, a, b, mask):
@@ -521,9 +567,11 @@ def _check_grouped(what, a, b, mask):
                          f"mask {tuple(mask.shape)} must be 3-D with one group dim")
 
 
-def grouped_masked_dx(g, w, mask, *, bm: int, bk: int):
+def grouped_masked_dx(g, w, mask, *, bm: int, bk: int, plan=None):
     """K17: g (G, M, N) @ (w * mask) (G, K, N)^T -> dx (G, M, K) in g.dtype,
-    every group in one launch; M a multiple of ``bm``."""
+    every group in one launch; M a multiple of ``bm``; ``bk`` and ``plan``
+    as for ``masked_dx``.  CUDA tensors run the kernel or raise; CPU
+    tensors run the plain version."""
     global gdx_launches
     if g.device.type == "cpu":
         return grouped_masked_dx_plain(g, w, mask)
@@ -533,12 +581,7 @@ def grouped_masked_dx(g, w, mask, *, bm: int, bk: int):
     s = _check_cuda("grouped_masked_dx", (g, w), (mask,), {"bm": bm, "bk": bk},
                     [(M, bm), (K, bk), (N, 16)],
                     [(w.shape[2], N), (mask.shape, w.shape)])
-    lib, fn = _fn(f"masked_dx_grouped_{s}", [_P] * 4 + [_I] * 6 + [_P])
-    dx = torch.empty(G, M, K, dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), w.data_ptr(), mask.data_ptr(), dx.data_ptr(),
-                G, M, K, N, bm, bk, _stream(g))
-    _build.check(lib, rc, "masked_dx_grouped launch")
+    dx = _gemm("dx", "masked_dx_grouped", s, g, w, mask, G, M, N, K, bk, plan)
     gdx_launches += 1
     return dx
 

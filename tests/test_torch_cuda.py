@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
-K18 (K13 and K16 under every plan their sweeps force, with the split
-merge), the fused epilogue K19 and the |x| histogram K21, training steps,
+K18 (K13, K14, K16 and K17 under every plan their sweeps force, with the
+split merge), the fused epilogue K19 and the |x| histogram K21, training steps,
 paged serving, MoE serving and MoE training through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
@@ -449,6 +449,119 @@ def test_cuda_masked_fwd_f32_keeps_f32_digits():
     rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
     got = rms(tmm.masked_matmul(x, w, m, bm=128, bn=128))
     assert got <= 8 * rms(tmm.masked_matmul_plain(x, w, m)), got
+
+
+# (G, M, K, N) of the dgrad g (G, M, N) @ (w * m)^T, w (G, K, N): decode
+# rows (16) with N off the 32-element slabs; an aligned shape; a grouped
+# bank at 16 rows with K off the 64-column tile; a grouped bank at 96 rows
+DX_SHAPES = [(1, 16, 384, 656), (1, 256, 384, 512), (4, 16, 208, 272), (3, 96, 256, 384)]
+
+
+def _dx_plans(G, M, K, N, dtype):
+    """Every plan the sweeps force at this dgrad shape (``fwd_candidates``
+    on rows M, contraction N, columns K and the dgrad kernel's slots) and
+    every built tile unsplit and split in 3."""
+    bm, bn = tmm.fwd_tile(M)
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * tmm.fwd_launch_info(dtype, bm, bn, "dx")["ctas_per_sm"])
+    plans = set(tmm.fwd_candidates(M, N, K, G, dtype, slots))
+    plans |= {(tbm, tbn, n) for tbm, tbn in tmm.FWD_TILES for n in (1, 3)}
+    return sorted(plans)
+
+
+def _dx(g, w, m, plan):
+    if g.dim() == 3:
+        return tmm.grouped_masked_dx(g, w, m, bm=16, bk=16, plan=plan)
+    return tmm.masked_dx(g, w, m, bm=16, bk=16, plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", DX_SHAPES)
+def test_cuda_masked_dx_every_plan_matches_plain(shape, dtype):
+    """K14 (G = 1) and K17 under every forced plan (tile, split) element by
+    element within ``matmul_error_bound`` of the plain version; a split
+    counts one K14/K17 launch and one dx merge (and no forward merge); two
+    launches of one plan give the same bits."""
+    dev = _cuda()
+    G, M, K, N = shape
+    rng = np.random.default_rng(31)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    g = f(rng.standard_normal((G, M, N)))
+    w = f(rng.standard_normal((G, K, N)) / np.sqrt(N))
+    mk = rng.random((G, K, N)) < 0.2
+    mk[:, 3, :] = False
+    mk[:, :, 5] = False
+    m = torch.from_numpy(mk).to(dev)
+    if G == 1:
+        g, w, m = g[0], w[0], m[0]
+    want = (tmm.masked_dx_plain if G == 1 else tmm.grouped_masked_dx_plain)(g, w, m)
+    absp = g.float().abs() @ (w.float() * m).abs().transpose(-1, -2)
+    for plan in _dx_plans(G, M, K, N, dtype):
+        n = [tmm.dx_launches, tmm.gdx_launches, tmm.dx_merge_launches, tmm.fwd_merge_launches]
+        got = _dx(g, w, m, plan)
+        again = _dx(g, w, m, plan)
+        torch.cuda.synchronize()
+        k = 2 if plan[2] > 1 else 0
+        assert [tmm.dx_launches, tmm.gdx_launches, tmm.dx_merge_launches,
+                tmm.fwd_merge_launches] == (
+            [n[0] + 2, n[1], n[2] + k, n[3]] if G == 1 else [n[0], n[1] + 2, n[2] + k, n[3]]), plan
+        assert got.dtype == dtype and got.shape == want.shape
+        _assert_within(got, want, absp, N)
+        iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(iv), again.view(iv)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_masked_dx_inf_under_zero_mask_is_nan(dtype):
+    """The dgrad's mask multiplies (never selects): an inf weight under a
+    zero mask gives NaN in exactly the plain version's places (dx's column
+    of the weight's row), through K14 and K17, split and unsplit; a NaN
+    weight under a one the same."""
+    dev = _cuda()
+    _, w, g, m, _ = _masked_problem((16, 256, 128), dtype, dev)
+    w[5, 7], m[5, 7] = float("inf"), False
+    w[9, 30], m[9, 30] = float("nan"), True
+    want = torch.isnan(tmm.masked_dx_plain(g, w, m))
+    assert bool(want[:, 5].all()) and bool(want[:, 9].all())
+    for plan in ((16, 64, 1), (16, 64, 2), (128, 128, 1), (128, 128, 2), (128, 64, 3)):
+        assert torch.equal(torch.isnan(tmm.masked_dx(g, w, m, bm=16, bk=128, plan=plan)),
+                           want), plan
+        got = tmm.grouped_masked_dx(g[None], w[None], m[None], bm=16, bk=128, plan=plan)
+        assert torch.equal(torch.isnan(got[0]), want), plan
+
+
+@pytest.mark.cuda
+def test_cuda_masked_dx_has_no_spill():
+    """No instantiation of the dgrad spills a register (``-Xptxas=-v``'s
+    count, read back from the runtime), and each holds as many CTAs an SM
+    as the forward's instantiation of the same tile."""
+    _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        for bm, bn in tmm.FWD_TILES:
+            info = tmm.fwd_launch_info(dtype, bm, bn, "dx")
+            fwd = tmm.fwd_launch_info(dtype, bm, bn)
+            assert info["spill_bytes"] == 0 and info["ctas_per_sm"] >= 1, (dtype, bm, bn, info)
+            assert info["ctas_per_sm"] == fwd["ctas_per_sm"], (dtype, bm, bn, info, fwd)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_dx_f32_keeps_f32_digits():
+    """3xTF32 keeps f32's digits in the dgrad too: at 2048 rows (danube's
+    wi, 2560 x 6912, density 0.165: g @ (w * m)^T contracts over 6912) the
+    kernel's RMS error against a float64 product is at most 8x the plain
+    f32 product's (one-pass TF32 would be ~1000x)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(23)
+    g = torch.randn(2048, 6912, device=dev, generator=gen)
+    w = torch.randn(2560, 6912, device=dev, generator=gen) / 6912 ** 0.5
+    m = torch.rand(2560, 6912, device=dev, generator=gen) < 0.165
+    ref = g.double() @ (w * m).double().T
+    rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+    got = rms(tmm.masked_dx(g, w, m, bm=128, bk=128))
+    assert got <= 8 * rms(tmm.masked_dx_plain(g, w, m)), got
 
 
 @pytest.mark.cuda

@@ -47,21 +47,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step, the decode step's device time; then K13 (4 -> 16 and
                 2048 rows), K14, K15 and K19 (sr off and on) against their
                 plain versions on layer 0's served weights and masks, timed
-                beside their bounds; K13 and K14 also under every candidate
-                plan (each within its bound; whether ``fwd_plan``'s pick was
-                the fastest, TFLOP/s, TB/s, share of the bound), their f32
-                cases at 2048 rows against a float64 product (at most 8x the
-                plain version's RMS error), and the split merge at each
-                split pick, bit for bit
+                beside their bounds; K13, K14 and K15 also under every
+                candidate plan (each within its bound; whether ``fwd_plan``'s
+                pick was the fastest, the pick's launch, TFLOP/s, TB/s, share
+                of the bound), their f32 cases at 2048 rows against a
+                float64 product (at most 8x the plain version's RMS error),
+                and the split merge at each split pick, bit for bit
   7. masked train -- RigL with elementwise masks and the Top-KAST superset
                 (Adam, batch 2 x 1024 in one microbatch, 6 steps, a
                 drop/grow at step 2): the step-0 loss and gradients against
-                the plain dense path, exact launches per step (336 K13 and
-                168 K14, each with their planned split merges, 168 K15), and
+                the plain dense path, exact launches per step (336 K13, 168
+                K14 and 168 K15, each with their planned split merges), and
                 after the update counts kept, B ⊇ A and the carrier fresh
   8. fused train -- the fused SGD epilogue (momentum 0.9, bf16 state with
                 stochastic rounding), 2 steps: 168 K19, 168 K14 and their
-                planned split merges and no K15 launch per step, bf16
+                planned split merges and no K15 launch or dw merge per
+                step, bf16
                 momentum within the reference's bound of the unfused step's
   8b. fused block-sparse train -- K7 against its plain version on layer 0's
                 ERK packs and Top-KAST supersets (mlp.wi, mlp.wo f32,
@@ -123,9 +124,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. moe masked train -- the same model under kernel='masked' (batch 2 x
                 1024 in one microbatch, 6 steps, a drop/grow at step 2): K17
                 and K18 on layer 0's elementwise masks and supersets, timed,
-                K17 under every candidate plan; the same checks, with
-                K13-K18's exact launches and K13's, K14's and K17's planned
-                split merges
+                each under every candidate plan, K18's f32 cases against a
+                float64 product; the same checks, with K13-K18's exact
+                launches and the planned split merges of each
  14. moe fused train -- qwen2-moe-a2.7b (3 of 24 layers) with the fused SGD
                 epilogue, 2 x 1024 tokens in one microbatch (C = 171), under
                 block_sparse: K8 against its plain version (layer 0's ERK
@@ -138,7 +139,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 K8, no K3 or K6 and 6/3/3 K9-K11 per fused step; under
                 masked: K20 on layer 0's supersets and K19 on the same 2-D
                 projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
-                K20, the planned dx split merges, no K15 or K18; the
+                K20, the planned dx split merges, no K15 or K18 and no dw
+                merge; the
                 momentum bound leaf by leaf, wall times, peak memory
  15. topk    -- K21 (the 512-bin |x| histogram) against its plain version
                 in every bin: danube's layers/0/mlp/wi/w (2560 x 6912) from
@@ -160,14 +162,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                 dense gradient); after the update block counts kept, grown
                 = dropped, the pack fresh, B ⊇ A, snfs's dense momentum
                 zero outside B, topkast's weights exactly 0 outside B), then
-                pruning and snip under masked (336 K13, 168 K14 and their
-                planned split merges, 168 K15 per step; pruning's masks
+                pruning and snip under masked (336 K13, 168 K14 and 168 K15
+                with their planned split merges per step; pruning's masks
                 monotone and at the schedule's target density after its
                 prune, snip's per-layer density the ERK map's); wall s per
                 step, tok/s, peak GiB, the update step's s
  17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
-                K13/K16's split merge and, where a timed K14/K17 case
-                splits, theirs), the card line, and last {"ok": true,
+                K13/K16's split merge and, where a timed K14/K17 or K15/K18
+                case splits, theirs), the card line, and last {"ok": true,
                 "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -1053,14 +1055,16 @@ def masked_cases(torch, timer, mm, params, masks):
     and K14 also under every candidate plan (``fwd_sweep``: each plan
     within the bound, then timed), the f32 cases at 2048 rows against a
     float64 product (``f64_fidelity``), and the split merge of each split
-    pick (``merge_case``).  Bytes
+    pick (``merge_case``); K15 likewise (its plan on rows K, contraction M,
+    columns N; its merge masks the ordered sum).  Bytes
     count every input once (w and its 1-byte mask included) and every
     output once; operations count the active weights' products (2 per
     multiply-add).  Library: cuBLAS on the pre-masked weight (TF32 off)."""
     from repro_torch.kernels.ops import _row_tile
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": [], "dx_merge": []}
+    out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": [], "dx_merge": [],
+           "dw_merge": []}
     for label, sub, name in MASKED_PROJ:
         w = params["layers"][0][sub][name]["w"]
         m = masks["layers"][0][sub][name]["w"]
@@ -1133,13 +1137,31 @@ def masked_cases(torch, timer, mm, params, masks):
             out["dx_merge"].append(merge_case(torch, timer, mm, case["plan"][2], 1, M, K, dt,
                                               f"{tag} M={M}", entry="dx"))
         absp = x.float().abs().T @ g.float().abs()
-        out["K15"].append(kernel_case(
-            torch, timer, "K15", f"{tag} M={M} superset density={bnnz / (K * N):.3f}",
+        dw_tag = f"{tag} M={M} superset density={bnnz / (K * N):.3f}"
+        case = kernel_case(
+            torch, timer, "K15", dw_tag,
             lambda: mm.masked_dw(x, g, b, bn=128, bk=128),
             lambda: mm.masked_dw_plain(x, g, b), lambda: (x.T @ g) * b,
             lambda: within_(mm.masked_dw(x, g, b, bn=128, bk=128), mm.masked_dw_plain(x, g, b),
                             mm.matmul_error_bound(mm.masked_dw_plain(x, g, b), absp * b, M)),
-            es * (M * K + M * N + K * N) + K * N, 2.0 * M * bnnz, dt))
+            es * (M * K + M * N + K * N) + K * N, 2.0 * M * bnnz, dt)
+        want = mm.masked_dw_plain(x, g, b)
+        bound = mm.matmul_error_bound(want, absp * b, M)
+        case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_dw(
+            x, g, b, bn=128, bk=128, plan=plan), K, M, N, 1, dt, case, entry="dw",
+            check=lambda got: within_(got, want, bound)))
+        case["dense_tflop_s"] = 2.0 * M * K * N / case["ms"] / 1e9
+        del want, bound
+        if dt == torch.float32:
+            case["f64_rms_over_plain"] = f64_fidelity(
+                torch, f"K15 {tag}", lambda: mm.masked_dw(x, g, b, bn=128, bk=128),
+                lambda: mm.masked_dw_plain(x, g, b),
+                lambda: (x.double().T @ g.double()) * b)
+        print("K15 plans", json.dumps(case))
+        out["K15"].append(case)
+        if case["plan"][2] > 1:
+            out["dw_merge"].append(merge_case(torch, timer, mm, case["plan"][2], 1, K, N, dt,
+                                              dw_tag, entry="dw", mask=b))
         mom = (0.01 * torch.randn(K, N, device="cuda")).to(torch.bfloat16) * b
         acc = x.float().T @ g.float()
         kw = dict(mu=0.9, wd=1e-4, bn=128, bk=128)
@@ -1174,22 +1196,25 @@ def masked_cases(torch, timer, mm, params, masks):
 def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", check=None,
               bn_limit=128):
     """The GEMM core's plan at one case of ``entry`` ("fwd": K13/K16, L = K
-    and cols = N; "dx": K14/K17, L = N and cols = K) and every candidate
-    plan (``mm.fwd_candidates`` on the card's slots for that kernel) timed
-    with the plan forced, each first held to ``check`` (raises) where one
-    is given: the pick, whether it was the fastest, and the case's achieved
-    rate (TFLOP/s of the active weights' products, TB/s of the bytes its
-    bound counts) and share of the bound."""
-    bm, bn = mm.fwd_tile(Mp, bn_limit)
-    slots = (torch.cuda.get_device_properties(0).multi_processor_count
-             * mm.fwd_launch_info(dt, bm, bn, entry)["ctas_per_sm"])
+    and cols = N; "dx": K14/K17, L = N and cols = K; "dw": K15/K18, Mp = K,
+    L = M and cols = N) and every candidate plan (``mm.fwd_candidates`` on
+    the card's slots for that kernel) timed with the plan forced, each
+    first held to ``check`` (raises) where one is given: the pick, whether
+    it was the fastest, the launch of the pick's tile (CTAs an SM,
+    registers, shared and spill bytes), and the case's achieved rate
+    (TFLOP/s of the products its bound counts, TB/s of its bytes) and share
+    of the bound."""
+    bm, bn = mm.fwd_tile(Mp, bn_limit, entry)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = sms * mm.fwd_launch_info(dt, bm, bn, entry)["ctas_per_sm"]
     pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, torch.cuda.current_device(), entry)
+    info = mm.fwd_launch_info(dt, pick[0], pick[1], entry)
     plans = {}
-    for p in mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit):
+    for p in mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry):
         if check is not None:
             check(run(p))
         plans[str(p)] = timer(lambda: run(p), reps=5)
-    return {"plan": list(pick), "slots": slots, "plans_ms": plans,
+    return {"plan": list(pick), "slots": slots, "launch": info, "plans_ms": plans,
             "plan_is_fastest": plans[str(pick)] == min(plans.values()),
             "plan_over_fastest": plans[str(pick)] / min(plans.values()),
             "tflop_s": case["flops"] / case["ms"] / 1e9,
@@ -1211,34 +1236,42 @@ def f64_fidelity(torch, tag, run, plain, ref):
     return got / base
 
 
-def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd"):
+def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=None):
     """The split merge (sum of n_split f32 partials in order, one rounding)
-    at a split pick's shape, after ``entry``'s kernel (``mm.fwd_merge`` or
-    ``mm.dx_merge``): bit for bit its plain version, timed beside its byte
-    bound and torch.sum over the split axis."""
-    merge = mm.fwd_merge if entry == "fwd" else mm.dx_merge
+    at a split pick's shape (G, Mp rows, N columns), after ``entry``'s
+    kernel (``mm.fwd_merge``, ``mm.dx_merge``, or ``mm.dw_merge``, which
+    multiplies the sum by the wgrad's ``mask``): bit for bit its plain
+    version, timed beside its byte bound and torch.sum over the split axis
+    (times the mask)."""
     part = torch.randn(n_split, G, Mp, N, device="cuda")
     out = torch.empty(G, Mp, N, dtype=dt, device="cuda")
+    if entry == "dw":
+        mask = mask.reshape(G, Mp, N)
+        merge = lambda p, o: mm.dw_merge(p, mask, o)
+        library = lambda: (part.sum(0) * mask).to(dt)
+    else:
+        merge = mm.fwd_merge if entry == "fwd" else mm.dx_merge
+        library = lambda: part.sum(0).to(dt)
+    plain = lambda: mm.fwd_merge_plain(part, dt, mask)
 
     def check():
-        got, want = merge(part, out), mm.fwd_merge_plain(part, dt)
+        got, want = merge(part, out), plain()
         if not torch.equal(got.float(), want.float()):
             raise AssertionError(f"{entry} merge {tag}: differs from the ordered plain sum")
         return 0.0, 0.0, 0.0
 
-    label = "merge" if entry == "fwd" else "dx merge"
-    case = kernel_case(torch, timer, label, f"{tag} n_split={n_split}",
-                       lambda: merge(part, out), lambda: mm.fwd_merge_plain(part, dt),
-                       lambda: part.sum(0).to(dt), check,
-                       4 * part.numel() + out.element_size() * out.numel(), 0.0, dt)
-    return case
+    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge"}[entry]
+    n_bytes = 4 * part.numel() + out.element_size() * out.numel() + (
+        0 if mask is None else mask.numel())
+    return kernel_case(torch, timer, label, f"{tag} n_split={n_split}",
+                       lambda: merge(part, out), plain, library, check, n_bytes, 0.0, dt)
 
 
 def planned_merges(torch, mm, cfg, layer, Mp, entry="fwd"):
-    """Split merges of one layer's 7 K13 (``entry`` "fwd") or K14 ("dx")
-    launches at Mp padded rows: each projection's plan (attention in the
-    compute dtype, the MLP or shared MLP in f32, as the model calls them)
-    splits or not."""
+    """Split merges of one layer's 7 K13 (``entry`` "fwd"), K14 ("dx") or
+    K15 ("dw") launches at Mp padded rows: each projection's plan
+    (attention in the compute dtype, the MLP or shared MLP in f32, as the
+    model calls them) splits or not."""
     from repro_torch.models.layers import compute_dtype
 
     mlp = layer["mlp"] if "mlp" in layer else layer["moe"]["shared"]
@@ -1248,21 +1281,27 @@ def planned_merges(torch, mm, cfg, layer, Mp, entry="fwd"):
     _, bn, bk = cfg.sparse.kernel_block
     if entry == "fwd":
         return sum(mm._fwd_plan_for(Mp, K, N, 1, dt, bn, dev)[2] > 1 for (K, N), dt in shapes)
+    if entry == "dw":
+        return sum(mm._fwd_plan_for(K, Mp, N, 1, dt, bn, dev, "dw")[2] > 1
+                   for (K, N), dt in shapes)
     return sum(mm._fwd_plan_for(Mp, N, K, 1, dt, bk, dev, "dx")[2] > 1 for (K, N), dt in shapes)
 
 
-def bank_dx_merges(torch, mm, cfg, layer, tokens):
-    """Split merges of one MoE layer's 3 K17 launches (wi, wg, wo) on a
-    microbatch of ``tokens`` tokens: each bank's dgrad plan at the
-    capacity's padded rows."""
+def bank_merges(torch, mm, cfg, layer, tokens, entry="dx"):
+    """Split merges of one MoE layer's 3 K17 (``entry`` "dx") or K18 ("dw")
+    launches (wi, wg, wo) on a microbatch of ``tokens`` tokens: each bank's
+    plan at the capacity's padded rows."""
     from repro_torch.kernels.ops import _row_tile
     from repro_torch.models.moe import capacity
 
     _, Mp = _row_tile(capacity(tokens, cfg), cfg.sparse.kernel_block[0])
     dev = torch.cuda.current_device()
-    return sum(mm._fwd_plan_for(Mp, N, K, G, w.dtype, cfg.sparse.kernel_block[2], dev,
-                                "dx")[2] > 1
-               for w in (layer["moe"][b]["w"] for b in MOE_BANKS) for G, K, N in [w.shape])
+    _, bn, bk = cfg.sparse.kernel_block
+    banks = [(w.shape, w.dtype) for w in (layer["moe"][b]["w"] for b in MOE_BANKS)]
+    if entry == "dw":
+        return sum(mm._fwd_plan_for(K, Mp, N, G, dt, bn, dev, "dw")[2] > 1
+                   for (G, K, N), dt in banks)
+    return sum(mm._fwd_plan_for(Mp, N, K, G, dt, bk, dev, "dx")[2] > 1 for (G, K, N), dt in banks)
 
 
 def masked_serve(torch, timer, mm, fa):
@@ -1378,12 +1417,14 @@ def masked_train(torch, mm, fa, bsm):
     layer0 = state["params"]["layers"][0]
     merges = planned_merges(torch, mm, cfg, layer0, MASKED_BATCH * TRAIN_SEQ)
     dx_merges = planned_merges(torch, mm, cfg, layer0, MASKED_BATCH * TRAIN_SEQ, "dx")
+    dw_merges = planned_merges(torch, mm, cfg, layer0, MASKED_BATCH * TRAIN_SEQ, "dw")
     del state, layer0
     torch.cuda.empty_cache()
 
     counters = (("masked_fwd", mm, "launches"), ("masked_fwd_merge", mm, "fwd_merge_launches"),
                 ("masked_dx", mm, "dx_launches"), ("masked_dx_merge", mm, "dx_merge_launches"),
-                ("masked_dw", mm, "dw_launches"), ("masked_dw_fused", mm, "fused_launches"),
+                ("masked_dw", mm, "dw_launches"), ("masked_dw_merge", mm, "dw_merge_launches"),
+                ("masked_dw_fused", mm, "fused_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"), ("block_sparse_fwd", bsm, "launches"))
     read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
@@ -1392,7 +1433,7 @@ def masked_train(torch, mm, fa, bsm):
     # the update step's full-batch gradient launches the same
     expect = {"masked_fwd": 2 * n_proj, "masked_fwd_merge": 2 * merges * cfg.n_layers,
               "masked_dx": n_proj, "masked_dx_merge": dx_merges * cfg.n_layers,
-              "masked_dw": n_proj,
+              "masked_dw": n_proj, "masked_dw_merge": dw_merges * cfg.n_layers,
               "masked_dw_fused": 0, "flash_fwd": 2 * n_attn, "flash_dq": n_attn,
               "flash_dkv": n_attn, "block_sparse_fwd": 0}
     log, seen = [], {"counts": None, "t": None, "masks": None, "prof": None}
@@ -1486,14 +1527,16 @@ def fused_opt():
             LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0))
 
 
-def fused_steps(torch, cfg, state, counters, want, label, pin_routing=False):
+def fused_steps(torch, cfg, state, counters, want, label, pin_routing=False,
+                unfused_merges=None):
     """``FUSED_STEPS`` train steps of ``cfg`` with ``sparse.fused_epilogue``
     on ``state``, each beside the unfused step on a copy of the same weights
     (the steps update in place), in alternating order, batch
     ``MASKED_BATCH`` x ``TRAIN_SEQ`` in one microbatch; the launch counters
     set to 0 just before each step and read just after.  Checks per step:
     the fused step's launches exactly ``want`` and the unfused step's the
-    same with every fused wgrad count moved to its unfused kernel, finite
+    same with every fused wgrad count moved to its unfused kernel, and
+    ``unfused_merges`` (the unfused wgrad's planned split merges), finite
     losses, the momentum stored in bf16 and, leaf by leaf, within the
     reference's bound (2e-2 of the largest entry:
     tests/test_fused_epilogue.py) of the unfused momentum.  ``pin_routing``: the second step of a pair routes as
@@ -1520,6 +1563,7 @@ def fused_steps(torch, cfg, state, counters, want, label, pin_routing=False):
     for f, u in moved.items():
         if f in want:
             want_unfused[u], want_unfused[f] = want[f], 0
+    want_unfused.update(unfused_merges or {})
     log = []
     for t in range(FUSED_STEPS):
         b = batch_for(cfg, t, MASKED_BATCH, TRAIN_SEQ, learnable=True, device="cuda")
@@ -1581,20 +1625,24 @@ def fused_train(torch, mm):
     state (in-kernel stochastic rounding), ``sparse.fused_epilogue``,
     masked RigL, batch 2 x 1024 in one microbatch, 2 steps beside unfused
     ones (``fused_steps``): 336 K13, 168 K14 and their planned dx merges,
-    168 K19 and no K15 launch per fused step."""
+    168 K19 and no K15 launch or dw merge per fused step."""
     from repro_torch.training.steps import init_train_state
 
     cfg = masked_config(fused_epilogue=True)
     state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
     counters = (("masked_fwd", mm, "launches"), ("masked_dx", mm, "dx_launches"),
                 ("masked_dx_merge", mm, "dx_merge_launches"),
-                ("masked_dw", mm, "dw_launches"), ("masked_dw_fused", mm, "fused_launches"))
+                ("masked_dw", mm, "dw_launches"), ("masked_dw_merge", mm, "dw_merge_launches"),
+                ("masked_dw_fused", mm, "fused_launches"))
     n_proj = 7 * cfg.n_layers
     dx_merges = cfg.n_layers * planned_merges(torch, mm, cfg, state["params"]["layers"][0],
                                               MASKED_BATCH * TRAIN_SEQ, "dx")
+    dw_merges = cfg.n_layers * planned_merges(torch, mm, cfg, state["params"]["layers"][0],
+                                              MASKED_BATCH * TRAIN_SEQ, "dw")
     want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dx_merge": dx_merges,
-            "masked_dw": 0, "masked_dw_fused": n_proj}
-    return fused_steps(torch, cfg, state, counters, want, "fused train")
+            "masked_dw": 0, "masked_dw_merge": 0, "masked_dw_fused": n_proj}
+    return fused_steps(torch, cfg, state, counters, want, "fused train",
+                       unfused_merges={"masked_dw_merge": dw_merges})
 
 
 def fused_case(torch, timer, kernel, label, run, plain, unfused, check, n_bytes, flops,
@@ -2633,15 +2681,16 @@ def k17_k18_cases(torch, timer, mm, state, cfg):
     """K17 (dx on the forward mask) and K18 (dw masked by the superset at
     the store) against their plain versions on layer 0's banks, elementwise
     ERK masks and Top-KAST supersets, at C = 171 (-> 256) and 16 rows, f32
-    and bf16; K17 also under every candidate plan (``fwd_sweep``, each plan
-    within the bound), with the split merge of a split pick.  Bytes: g, dx
+    and bf16; both also under every candidate plan (``fwd_sweep``, each
+    plan within the bound), with the split merge of a split pick, and in
+    f32 against a float64 product (``f64_fidelity``).  Bytes: g, dx
     (K17) or x, g, dw (K18) once, and the weight and its 1-byte mask (K17)
     or the 1-byte superset (K18) once; operations: 2 C per active (K17) or
     superset (K18) weight; the padded rows count in neither.  Library on
     the C rows: torch.bmm on the pre-masked bank, and x^T @ g masked by the
     superset."""
     blk = cfg.sparse.kernel_block[2]
-    out = {"K17": [], "K18": [], "dx_merge": []}
+    out = {"K17": [], "K18": [], "dx_merge": [], "dw_merge": []}
     for bank in ("wi", "wo"):
         w32 = state["params"]["layers"][0]["moe"][bank]["w"]
         m = state["masks"]["layers"][0]["moe"][bank]["w"]
@@ -2691,13 +2740,33 @@ def k17_k18_cases(torch, timer, mm, state, cfg):
                 if case["plan"][2] > 1:
                     out["dx_merge"].append(merge_case(torch, timer, mm, case["plan"][2], G, Mp,
                                                       K, dt, tag, entry="dx"))
-                out["K18"].append(kernel_case(
+                case = kernel_case(
                     torch, timer, "K18", f"{tag} superset density={bnnz / b.numel():.4f}",
                     lambda: mm.grouped_masked_dw(x, g, b, bn=blk, bk=blk),
                     lambda: mm.grouped_masked_dw_plain(x, g, b),
                     lambda: torch.bmm(x_c.transpose(1, 2), g_c) * b, check_dw,
                     es * (G * C * K + G * C * N + G * K * N) + G * K * N,
-                    2.0 * C * bnnz, dt))
+                    2.0 * C * bnnz, dt)
+                want = mm.grouped_masked_dw_plain(x, g, b)
+                absp = mm.grouped_masked_dw_plain(x.abs().float(), g.abs().float(), b)
+                case.update(fwd_sweep(
+                    torch, timer, mm, lambda plan: mm.grouped_masked_dw(
+                        x, g, b, bn=blk, bk=blk, plan=plan), K, Mp, N, G, dt, case,
+                    entry="dw", check=lambda got: _check_within(torch, f"K18 {tag}", got, want,
+                                                                absp, Mp, dt),
+                    bn_limit=blk))
+                case["dense_tflop_s"] = 2.0 * C * G * K * N / case["ms"] / 1e9
+                del want, absp
+                if dt == torch.float32:
+                    case["f64_rms_over_plain"] = f64_fidelity(
+                        torch, f"K18 {tag}", lambda: mm.grouped_masked_dw(x, g, b, bn=blk, bk=blk),
+                        lambda: mm.grouped_masked_dw_plain(x, g, b),
+                        lambda: torch.bmm(x.double().transpose(1, 2), g.double()) * b)
+                print("K18 plans", json.dumps(case))
+                out["K18"].append(case)
+                if case["plan"][2] > 1:
+                    out["dw_merge"].append(merge_case(torch, timer, mm, case["plan"][2], G, K,
+                                                      N, dt, tag, entry="dw", mask=b))
     return out
 
 
@@ -2750,7 +2819,10 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
     merges = 0 if bs else cfg.n_layers * planned_merges(torch, mm, cfg, layer0, tokens)
     dx_merges = 0 if bs else cfg.n_layers * (
         planned_merges(torch, mm, cfg, layer0, tokens, "dx")
-        + bank_dx_merges(torch, mm, cfg, layer0, tokens))
+        + bank_merges(torch, mm, cfg, layer0, tokens))
+    dw_merges = 0 if bs else cfg.n_layers * (
+        planned_merges(torch, mm, cfg, layer0, tokens, "dw")
+        + bank_merges(torch, mm, cfg, layer0, tokens, "dw"))
     del layer0
     dense_check = train_dense_check(
         torch, cfg, state, label=label,
@@ -2769,6 +2841,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                 ("grouped_masked_dw", mm, "gdw_launches"),
                 ("masked_fwd_merge", mm, "fwd_merge_launches"),
                 ("masked_dx_merge", mm, "dx_merge_launches"),
+                ("masked_dw_merge", mm, "dw_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
@@ -2783,7 +2856,8 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                   f"{fam}_dw": MOE_PROJ * L * mb, f"{gfam}_fwd": 2 * B * L * mb,
                   f"{gfam}_dx": B * L * mb, f"{gfam}_dw": B * L * mb,
                   "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb,
-                  "masked_fwd_merge": 2 * merges * mb, "masked_dx_merge": dx_merges * mb})
+                  "masked_fwd_merge": 2 * merges * mb, "masked_dx_merge": dx_merges * mb,
+                  "masked_dw_merge": dw_merges * mb})
         return e
 
     # the update step's gradient is one pass over the full batch
@@ -3091,12 +3165,17 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     L, B = cfg.n_layers, len(MOE_BANKS)
-    dx_merge = {}
-    if not bs:  # K14's and K17's planned split merges (one microbatch)
+    dx_merge, dw_merge = {}, None
+    if not bs:  # K14's and K17's planned split merges (one microbatch); K15's and
+        # K18's in the unfused step only
         tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
-        counters += (("masked_dx_merge", mm, "dx_merge_launches"),)
+        counters += (("masked_dx_merge", mm, "dx_merge_launches"),
+                     ("masked_dw_merge", mm, "dw_merge_launches"))
         dx_merge = {"masked_dx_merge": L * (planned_merges(torch, mm, cfg, layer0, tokens, "dx")
-                                            + bank_dx_merges(torch, mm, cfg, layer0, tokens))}
+                                            + bank_merges(torch, mm, cfg, layer0, tokens)),
+                    "masked_dw_merge": 0}
+        dw_merge = {"masked_dw_merge": L * (planned_merges(torch, mm, cfg, layer0, tokens, "dw")
+                                            + bank_merges(torch, mm, cfg, layer0, tokens, "dw"))}
         del layer0
     # remat reruns each block's forward in the backward: the forward
     # kernels launch twice
@@ -3106,7 +3185,8 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
             f"grouped_{fam}_dw_fused": B * L, "flash_fwd": 2 * L, "flash_dq": L,
             "flash_dkv": L, **dx_merge}
     stats, launches = fused_steps(torch, cfg, state, counters, want,
-                                  f"moe fused train {kernel}", pin_routing=True)
+                                  f"moe fused train {kernel}", pin_routing=True,
+                                  unfused_merges=dw_merge)
     stats["layers"] = L
     stats["peak_gib"] = max(r[f"{k}_peak_gib"] for r in stats["steps"]
                             for k in ("fused", "unfused"))
@@ -3284,8 +3364,8 @@ def method_train(torch, bsm, mm, fa, tk, method):
     method at full size, 4 steps of 2 x 1024 tokens, the launch counters set
     to 0 just before it and read after every step, each step's launches
     exact: per step 2 * 168 forward launches (remat), 168 dgrad, 168 wgrad
-    (K1/K2/K3 under block_sparse, K13/K14/K15 under masked, with K14's
-    planned split merges), 48/24/24 K9-K11, no K21.  SET carries no
+    (K1/K2/K3 under block_sparse, K13/K14/K15 under masked, with K14's and
+    K15's planned split merges), 48/24/24 K9-K11, no K21.  SET carries no
     superset, so its update step takes the dense gradient of the masked
     weights (the reference's path): K9-K11 only.  SNIP's one-shot gradient
     runs before step 0 and adds its attention launches (48/24/24 K9-K11) to
@@ -3313,8 +3393,9 @@ def method_train(torch, bsm, mm, fa, tk, method):
     n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
     expect = {fwd: 2 * n_proj, dx: n_proj, dw: n_proj, "flash_fwd": 2 * n_attn,
               "flash_dq": n_attn, "flash_dkv": n_attn, "histogram_abs": 0}
-    if masked:  # K14's planned split merges, set from the weights' shapes at step 1
-        counters += (("masked_dx_merge", mm, "dx_merge_launches"),)
+    if masked:  # K14's and K15's planned split merges, set from the weights' shapes at step 1
+        counters += (("masked_dx_merge", mm, "dx_merge_launches"),
+                     ("masked_dw_merge", mm, "dw_merge_launches"))
     read = lambda: {n: getattr(m, a) for n, m, a in counters}
     # set carries no superset: its update step takes the dense gradient on
     # the masked weights (the reference's legacy path), attention alone on
@@ -3368,10 +3449,11 @@ def method_train(torch, bsm, mm, fa, tk, method):
         if seen["t"] is not None:
             rec["wall_s"] = t - seen["t"]
         if masked and "masked_dx_merge" not in expect:
-            n_merges = cfg.n_layers * planned_merges(
-                torch, mm, cfg, state["params"]["layers"][0], MASKED_BATCH * TRAIN_SEQ, "dx")
+            n_merges = {e: cfg.n_layers * planned_merges(
+                torch, mm, cfg, state["params"]["layers"][0], MASKED_BATCH * TRAIN_SEQ, e)
+                for e in ("dx", "dw")}
             for d in (expect, update, first):
-                d["masked_dx_merge"] = n_merges
+                d["masked_dx_merge"], d["masked_dw_merge"] = n_merges["dx"], n_merges["dw"]
         want = first if step == 1 else update if is_update else expect
         if rec["launches"] != want or not math.isfinite(rec["loss"]):
             raise AssertionError(f"{method} step {step}: {rec}, expected {want}")
@@ -3596,6 +3678,7 @@ def main() -> int:
 
     csrc, kern = "src/repro_torch/csrc/", "src/repro/kernels/"
     dx_merges = mcases["dx_merge"] + k1718["dx_merge"]
+    dw_merges = mcases["dw_merge"] + k1718["dw_merge"]
     report = {"kernels": [
         summary("block_sparse_fwd", csrc + "block_sparse_fwd.cu",
                 kern + "block_sparse_matmul.py:223", k1),
@@ -3618,6 +3701,10 @@ def main() -> int:
                    kern + "masked_matmul.py:96", dx_merges)] if dx_merges else []),
         summary("masked_dw", csrc + "masked_matmul.cu", kern + "masked_matmul.py:115",
                 mcases["K15"]),
+        # K15's and K18's split merge (masked_dw_merge_kernel: the ordered
+        # sum times the mask), where a timed case's plan splits
+        *([summary("masked_dw_merge", csrc + "masked_matmul.cu",
+                   kern + "masked_matmul.py:115", dw_merges)] if dw_merges else []),
         summary("masked_dw_fused", csrc + "masked_matmul.cu", kern + "masked_matmul.py:498",
                 mcases["K19"]),
         summary("paged_flash_fwd", csrc + "flash_paged.cu", kern + "flash_attention.py:317",

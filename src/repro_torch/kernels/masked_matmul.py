@@ -20,25 +20,29 @@ csrc/masked_matmul.cu (the design and its bound are described there):
 
 Each runs in bf16 and in f32 (the reference's MLP computes in the f32
 residual's dtype), accumulating in f32 and rounding once to the output
-type.  K13, K14 and their grouped twins K16, K17 run on the
-register-resident GEMM core (csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32
-for f32, which keeps f32's digits on the tensor cores); the others on the
-tile layer (wmma bf16, full-precision FFMA f32).  One plan serves both
-directions of the core: ``fwd_plan`` sees a launch as rows x contraction
--> rows x cols (the forward: L = K, cols = N; the dgrad: L = N, cols = K),
-picks the tile and splits the contraction where the grid alone would leave
-the SMs' slots empty (decode) or its last wave mostly idle; a split's f32
-partials are summed in order by a merge kernel (``fwd_merge`` after K13
-and K16, ``dx_merge`` after K14 and K17).  The mask multiplies the weight
-(an inf weight under a zero mask gives NaN, as the reference's ``w *
-m.astype(w.dtype)``); it is never a select.
+type.  K13-K15 and their grouped twins K16-K18 run on the register-resident
+GEMM core (csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32 for f32, which
+keeps f32's digits on the tensor cores); K19 and K20 on the tile layer
+(wmma bf16, full-precision FFMA f32).  One plan serves the three directions
+of the core: ``fwd_plan`` sees a launch as rows x contraction -> rows x
+cols (the forward: L = K, cols = N; the dgrad: L = N, cols = K; the wgrad:
+rows = K, L = M, cols = N), picks the tile and splits the contraction where
+the grid alone would leave the SMs' slots empty (decode) or its last wave
+mostly idle (the wgrad's, ``entry="dw"``, keeps 128 rows and halves the
+tile of a one-slab walk in bf16); a split's f32 partials are summed in
+order by a merge kernel (``fwd_merge`` after K13 and K16, ``dx_merge``
+after K14 and K17, ``dw_merge`` after K15 and K18, which then multiplies by
+the mask).  The mask multiplies the weight, or in the wgrad the f32 sum (an
+inf or NaN under a zero mask gives NaN, as the reference's ``w *
+m.astype(w.dtype)`` and ``acc * m.astype(f32)``); it is never a select.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``g_launches``, ``dx_launches``, ``gdx_launches``, ``dw_launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
 launches, one per call; ``fwd_merge_launches`` counts the split merges of
-K13 and K16 on their own, ``dx_merge_launches`` those of K14 and K17.
+K13 and K16 on their own, ``dx_merge_launches`` those of K14 and K17,
+``dw_merge_launches`` those of K15 and K18.
 ``MaskedMatmul``, ``TopkastMaskedMatmul``, ``FusedMaskedMatmul``,
 ``GroupedMaskedMatmul``, ``TopkastGroupedMaskedMatmul`` and
 ``FusedGroupedMaskedMatmul`` are the differentiable forms (the
@@ -64,6 +68,7 @@ from .block_sparse_matmul import (
 )
 
 __all__ = [
+    "DW_TILES",
     "FWD_SLAB",
     "FWD_TILES",
     "FusedGroupedMaskedMatmul",
@@ -73,6 +78,8 @@ __all__ = [
     "TopkastGroupedMaskedMatmul",
     "TopkastMaskedMatmul",
     "dw_launches",
+    "dw_merge",
+    "dw_merge_launches",
     "dx_launches",
     "dx_merge",
     "dx_merge_launches",
@@ -103,6 +110,7 @@ __all__ = [
     "masked_dw_fused",
     "masked_dw_fused_plain",
     "masked_dw_plain",
+    "masked_dw_split_plain",
     "masked_dx",
     "masked_dx_plain",
     "masked_dx_split_plain",
@@ -124,11 +132,13 @@ fused_launches = 0  # K19
 g_fused_launches = 0  # K20
 fwd_merge_launches = 0  # the merges of split K13 and K16 launches
 dx_merge_launches = 0  # the merges of split K14 and K17 launches
+dw_merge_launches = 0  # the merges of split K15 and K18 launches
 
-# the GEMM core's plan, K13/K16 and K14/K17 (csrc/masked_matmul.cu,
+# the GEMM core's plan, K13/K16, K14/K17 and K15/K18 (csrc/masked_matmul.cu,
 # csrc/gemm_core.cuh)
 FWD_SLAB = 32  # contraction elements of one ring stage; a split walks whole slabs
 FWD_TILES = ((128, 128), (128, 64), (16, 64))  # (bm, bn) built
+DW_TILES = FWD_TILES[:2]  # K15/K18's (their rows are K, never a decode's)
 FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the split counts the sweeps force
 FWD_MAX_SPLIT = 32
 FWD_MIN_SLABS = 2  # slabs a split walks at least
@@ -273,39 +283,57 @@ def masked_dx_split_plain(g, w, mask, n_split: int):
     return acc.to(g.dtype)
 
 
+def masked_dw_split_plain(x, g, mask, n_split: int):
+    """K15 (x (M, K), g (M, N), mask (K, N)) or K18 (every operand with a
+    leading group dim) as a split launch computes it: split s's f32 partial
+    ``x^T @ g`` over M's slabs ``fwd_split_ranges(M, n_split)[s]``, the
+    partials summed in the order s = 0, 1, ..., then multiplied by the mask
+    and rounded once to x.dtype."""
+    xf, gf = x.float(), g.float()
+    acc = None
+    for m0, m1 in fwd_split_ranges(x.shape[-2], n_split):
+        part = xf[..., m0:m1, :].transpose(-1, -2) @ gf[..., m0:m1, :]
+        acc = part if acc is None else acc + part
+    return (acc * mask.float()).to(x.dtype)
+
+
 def fwd_split_ranges(L: int, n_split: int) -> list[tuple[int, int]]:
     """The contraction range [l0, l1) each split of a GEMM-core launch walks
-    (L = K for K13/K16, N for K14/K17): split s takes slabs [s n // n_split,
-    (s + 1) n // n_split) of the n = ceil(L / FWD_SLAB) slabs (the last
-    slab ends at L)."""
+    (L = K for K13/K16, N for K14/K17, M for K15/K18): split s takes slabs
+    [s n // n_split, (s + 1) n // n_split) of the n = ceil(L / FWD_SLAB)
+    slabs (the last slab ends at L)."""
     n = -(-L // FWD_SLAB)
     return [(s * n // n_split * FWD_SLAB, min((s + 1) * n // n_split * FWD_SLAB, L))
             for s in range(n_split)]
 
 
-def fwd_merge_plain(part, dtype):
-    """The split merge: part[0] + part[1] + ... in that order (f32), rounded
-    once to ``dtype``."""
+def fwd_merge_plain(part, dtype, mask=None):
+    """The split merge: part[0] + part[1] + ... in that order (f32), times
+    ``mask`` where one is given (the wgrad's), rounded once to ``dtype``."""
     acc = part[0].clone()
     for s in range(1, part.shape[0]):
         acc += part[s]
+    if mask is not None:
+        acc *= mask.float()
     return acc.to(dtype)
 
 
-def fwd_tile(Mp: int, bn_limit: int = 128) -> tuple[int, int]:
+def fwd_tile(Mp: int, bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int]:
     """The GEMM core's CTA tile (bm, bn) at Mp padded rows: 16 x 64 for at
     most 64 rows (decode: one row tile, the weight read once; 64 columns
     give twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x
-    64 where the caller's column tile ``bn_limit`` is below 128."""
-    bm = 16 if Mp <= 64 else 128
+    64 where the caller's column tile ``bn_limit`` is below 128.  The
+    wgrad (``entry`` "dw", rows = K) always takes 128 rows."""
+    bm = 16 if Mp <= 64 and entry != "dw" else 128
     return bm, 64 if bm == 16 or bn_limit < 128 else 128
 
 
 def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
-             bn_limit: int = 128) -> tuple[int, int, int]:
+             bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int, int]:
     """A GEMM-core launch of Mp rows x L contraction -> Mp x cols on a bank
-    of G groups of ``dtype`` -> (bm, bn, n_split): K13 (G = 1) and K16 with
-    L = K and cols = N, K14 (G = 1) and K17 with L = N and cols = K.
+    of G groups of ``dtype`` -> (bm, bn, n_split): ``entry`` "fwd" (K13 with
+    G = 1, K16) with L = K and cols = N, "dx" (K14, K17) with L = N and cols
+    = K, "dw" (K15, K18) with Mp = K, L = M and cols = N.
     ``slots``: the CTAs the card holds at once for the tile ``fwd_tile``
     picks (SMs times CTAs resident per SM).
 
@@ -319,6 +347,13 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
       walks at least FWD_MIN_SLABS slabs, at most FWD_MAX_SPLIT splits, and
       the partials stay within a quarter of the weight and mask bytes (G L
       cols (e + 1)), so n_split <= L (e + 1) / (32 Mp).
+    * A wgrad walk of one slab (M <= FWD_SLAB: qwen2-moe's 16-row expert
+      banks) in bf16 takes the 128 x 64 tile.  Such a CTA is only its
+      copies, one slab and the store; the half tile shortens that chain
+      and keeps bf16's two CTAs an SM: 0.337 against 0.356 ms and 0.357
+      against 0.368 at the two banks on an H100, while f32's 128 x 64 (one
+      CTA an SM, as its 128 x 128) took 0.653 against 0.514 (chip_smoke.py;
+      PERF.md).
     * Larger row counts do the dense work (bm = 128): a split of 2 is taken
       only where the modelled makespan -- waves of ``slots`` CTAs, each
       walking its slabs at the kernel's own rate ``FWD_RATE``, plus the
@@ -329,9 +364,11 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
 
     chip_smoke.py times every candidate (``fwd_candidates``) at the paths'
     shapes and says whether this pick was the fastest."""
-    bm, bn = fwd_tile(Mp, bn_limit)
+    bm, bn = fwd_tile(Mp, bn_limit, entry)
     tiles = -(-Mp // bm) * -(-cols // bn) * G
     n_slabs = -(-L // FWD_SLAB)
+    if entry == "dw" and n_slabs == 1 and dtype == torch.bfloat16:
+        return bm, 64, 1
     if bm == 16:
         cap = L * (_ELEMENT[dtype] + 1) // (32 * Mp)
         n_split = min(slots // max(tiles, 1), n_slabs // FWD_MIN_SLABS, cap, FWD_MAX_SPLIT)
@@ -348,26 +385,27 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
 
 
 def fwd_candidates(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
-                   bn_limit: int = 128) -> list[tuple[int, int, int]]:
+                   bn_limit: int = 128, entry: str = "fwd") -> list[tuple[int, int, int]]:
     """The plans a sweep forces at one shape (``fwd_plan``'s arguments):
     every built tile of the row tile ``fwd_tile`` picks whose columns the
     caller allows, and each of FWD_SPLITS that walks at least FWD_MIN_SLABS
     slabs -- at decode (bm = 16) within twice the plan's partial cap, else
     1 and 2 -- with ``fwd_plan``'s own pick."""
-    bm, _ = fwd_tile(Mp, bn_limit)
+    bm, _ = fwd_tile(Mp, bn_limit, entry)
     n_slabs = -(-L // FWD_SLAB)
     cap = 2 * (L * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else 2
     out = [(bm, bn, n) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)
            for n in FWD_SPLITS if n == 1 or (n <= n_slabs // FWD_MIN_SLABS and n <= cap)]
-    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit)
+    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
     return out if pick in out else out + [pick]
 
 
 def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
     """The launch the GEMM core's kernel gets at tile (bm, bn) in ``dtype``,
-    ``entry`` "fwd" (K13/K16) or "dx" (K14/K17): CTAs resident per SM,
-    registers a thread, dynamic shared bytes, local (spill) bytes a thread
-    and threads a CTA, from the CUDA runtime.  Needs a card."""
+    ``entry`` "fwd" (K13/K16), "dx" (K14/K17) or "dw" (K15/K18): CTAs
+    resident per SM, registers a thread, dynamic shared bytes, local
+    (spill) bytes a thread and threads a CTA, from the CUDA runtime.  Needs
+    a card."""
     s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
     out = (ctypes.c_int * 5)()
     lib, fn = _fn(f"masked_{entry}_info_{s}", [_I, _I, _P])
@@ -381,17 +419,18 @@ def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd"):
     """``fwd_plan`` with the card's slots (SMs times the resident CTAs of
     ``entry``'s kernel at the tile, from the runtime), memoized."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    bm, bn = fwd_tile(Mp, bn_limit)
+    bm, bn = fwd_tile(Mp, bn_limit, entry)
     slots = sms * fwd_launch_info(dtype, bm, bn, entry)["ctas_per_sm"]
-    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit)
+    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
 
 
-def _merge(what, part, out):
-    """``out`` = part[0] + part[1] + ... in order, in f32, rounded once to
-    out.dtype; part (n_split, *out.shape) f32.  CUDA tensors run the merge
-    kernel (one launch) or raise; CPU tensors the plain version."""
+def _merge(what, part, out, mask=None):
+    """``out`` = part[0] + part[1] + ... in order, in f32, times ``mask``
+    where one is given (bool, out's shape: the wgrad's merge), rounded once
+    to out.dtype; part (n_split, *out.shape) f32.  CUDA tensors run the
+    merge kernel (one launch) or raise; CPU tensors the plain version."""
     if out.device.type == "cpu":
-        return out.copy_(fwd_merge_plain(part, out.dtype))
+        return out.copy_(fwd_merge_plain(part, out.dtype, mask))
     _device(what, out)
     s = _suffix(what, out)
     if (part.dtype != torch.float32 or part.device != out.device
@@ -399,9 +438,19 @@ def _merge(what, part, out):
             or not (part.is_contiguous() and out.is_contiguous())):
         raise ValueError(f"{what}: part {tuple(part.shape)} {part.dtype} does not "
                          f"hold f32 partials of out {tuple(out.shape)}")
-    lib, fn = _fn(f"masked_merge_{s}", [_P, _P, ctypes.c_longlong, _I, _P])
+    if mask is None:
+        lib, fn = _fn(f"masked_merge_{s}", [_P, _P, ctypes.c_longlong, _I, _P])
+        args = (part.data_ptr(), out.data_ptr())
+    else:
+        if (mask.dtype != torch.bool or mask.device != out.device
+                or mask.shape != out.shape or not mask.is_contiguous()
+                or mask.data_ptr() % 4):
+            raise ValueError(f"{what}: mask {tuple(mask.shape)} {mask.dtype} is not a "
+                             f"contiguous, aligned bool mask of out {tuple(out.shape)}")
+        lib, fn = _fn(f"masked_dw_merge_{s}", [_P, _P, _P, ctypes.c_longlong, _I, _P])
+        args = (part.data_ptr(), mask.data_ptr(), out.data_ptr())
     with torch.cuda.device(out.device):
-        rc = fn(part.data_ptr(), out.data_ptr(), out.numel(), part.shape[0], _stream(out))
+        rc = fn(*args, out.numel(), part.shape[0], _stream(out))
     _build.check(lib, rc, f"{what} launch")
     return out
 
@@ -426,28 +475,45 @@ def dx_merge(part, out):
     return out
 
 
-def _gemm(entry, what, s, a, w, mask, G, M, L, cols, bn_limit, plan):
-    """One GEMM-core launch on a (G, M, L), w and mask (G, K, N) (G = 1 for
-    K13 and K14): ``entry`` "fwd" (K13/K16, L = K, cols = N) or "dx"
-    (K14/K17, L = N, cols = K), with the merge after a split: out (G, M,
-    cols)."""
-    bm, bn, n_split = plan or _fwd_plan_for(M, L, cols, G, a.dtype, bn_limit,
+def dw_merge(part, mask, out):
+    """The merge of a split K15/K18 launch (``_merge`` with the wgrad's
+    mask: the ordered sum, then times the mask, one rounding); a launch
+    counts in ``dw_merge_launches``."""
+    global dw_merge_launches
+    _merge("dw_merge", part, out, mask)
+    if out.device.type != "cpu":
+        dw_merge_launches += 1
+    return out
+
+
+def _gemm(entry, what, s, a, b, mask, G, rows, L, cols, bn_limit, plan):
+    """One GEMM-core launch, out (G, rows, cols), with the merge after a
+    split (G = 1 for K13-K15): ``entry`` "fwd" (K13/K16: a = x (G, M, K), b =
+    w; rows = M, L = K, cols = N), "dx" (K14/K17: a = g (G, M, N), b = w;
+    rows = M, L = N, cols = K) or "dw" (K15/K18: a = x (G, M, K), b = g (G,
+    M, N); rows = K, L = M, cols = N); w and mask (G, K, N)."""
+    bm, bn, n_split = plan or _fwd_plan_for(rows, L, cols, G, a.dtype, bn_limit,
                                             a.device.index, entry)
-    if (bm, bn) not in FWD_TILES or not 1 <= n_split <= -(-L // FWD_SLAB):
+    tiles = DW_TILES if entry == "dw" else FWD_TILES
+    if (bm, bn) not in tiles or not 1 <= n_split <= -(-L // FWD_SLAB):
         raise ValueError(f"{what}: plan {(bm, bn, n_split)} is not a built tile "
-                         f"{FWD_TILES} with 1 <= n_split <= ceil({L} / {FWD_SLAB})")
-    out = torch.empty(G, M, cols, dtype=a.dtype, device=a.device)
-    part = (torch.empty(n_split, G, M, cols, dtype=torch.float32, device=a.device)
+                         f"{tiles} with 1 <= n_split <= ceil({L} / {FWD_SLAB})")
+    out = torch.empty(G, rows, cols, dtype=a.dtype, device=a.device)
+    part = (torch.empty(n_split, G, rows, cols, dtype=torch.float32, device=a.device)
             if n_split > 1 else None)
-    K, N = (L, cols) if entry == "fwd" else (cols, L)
+    # the C entries take (G, M, K, N)
+    dims = {"fwd": (rows, L, cols), "dx": (rows, cols, L), "dw": (L, rows, cols)}[entry]
     lib, fn = _fn(f"masked_{entry}_{s}", [_P] * 5 + [_I] * 7 + [_P])
     with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(), G, M, K, N, bm, bn, n_split,
+        rc = fn(a.data_ptr(), b.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                None if part is None else part.data_ptr(), G, *dims, bm, bn, n_split,
                 _stream(a))
     _build.check(lib, rc, f"{what} launch")
     if part is not None:
-        (fwd_merge if entry == "fwd" else dx_merge)(part, out)
+        if entry == "dw":
+            dw_merge(part, mask.view(out.shape), out)
+        else:
+            (fwd_merge if entry == "fwd" else dx_merge)(part, out)
     return out
 
 
@@ -586,9 +652,12 @@ def grouped_masked_dx(g, w, mask, *, bm: int, bk: int, plan=None):
     return dx
 
 
-def grouped_masked_dw(x, g, mask, *, bn: int, bk: int):
-    """K18: dw (G, K, N) = (x[g]^T @ g[g]) * mask[g] in x.dtype; x (G, M,
-    K), g (G, M, N), M a multiple of 16 (``kernels/ops.py`` pads rows)."""
+def grouped_masked_dw(x, g, mask, *, bn: int, bk: int, plan=None):
+    """K18: dw (G, K, N) = (x[g]^T @ g[g]) * mask[g] in x.dtype, every group
+    in one launch; x (G, M, K), g (G, M, N), M a multiple of 16
+    (``kernels/ops.py`` pads rows); ``bn`` and ``plan`` as for
+    ``masked_dw``.  CUDA tensors run the kernel or raise; CPU tensors run
+    the plain version."""
     global gdw_launches
     if x.device.type == "cpu":
         return grouped_masked_dw_plain(x, g, mask)
@@ -598,12 +667,7 @@ def grouped_masked_dw(x, g, mask, *, bn: int, bk: int):
     s = _check_cuda("grouped_masked_dw", (x, g), (mask,), {"bn": bn, "bk": bk},
                     [(M, 16), (K, bk), (N, bn)],
                     [(g.shape[1], M), (mask.shape, (G, K, N))])
-    lib, fn = _fn(f"masked_dw_grouped_{s}", [_P] * 4 + [_I] * 6 + [_P])
-    dw = torch.empty(G, K, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), mask.data_ptr(), dw.data_ptr(),
-                G, M, K, N, bn, bk, _stream(x))
-    _build.check(lib, rc, "masked_dw_grouped launch")
+    dw = _gemm("dw", "masked_dw_grouped", s, x, g, mask, G, K, M, N, bn, plan)
     gdw_launches += 1
     return dw
 
@@ -615,23 +679,22 @@ def _dw_checks(what, x, g, masks, bn, bk):
                        [(g.shape[0], M)] + [(m.shape, (K, N)) for m in masks])
 
 
-def masked_dw(x, g, mask, *, bn: int, bk: int):
+def masked_dw(x, g, mask, *, bn: int, bk: int, plan=None):
     """K15: dw (K, N) = (x^T @ g) * mask in x.dtype; x (M, K), g (M, N), M
-    a multiple of 16 (``kernels/ops.py`` pads rows)."""
+    a multiple of 16 (``kernels/ops.py`` pads rows), K a multiple of
+    ``bk``; ``bn`` caps the column tile (``fwd_tile``).  ``fwd_plan`` picks
+    the launch (rows K, contraction M, columns N), or ``plan`` = (bm, bn,
+    n_split) forces one (one of ``DW_TILES``).  CUDA tensors run the
+    kernel or raise; CPU tensors run the plain version."""
     global dw_launches
     if x.device.type == "cpu":
         return masked_dw_plain(x, g, mask)
     _device("masked_dw", x)
     (M, K), N = x.shape, g.shape[1]
     s = _dw_checks("masked_dw", x, g, (mask,), bn, bk)
-    lib, fn = _fn(f"masked_dw_{s}", [_P] * 4 + [_I] * 5 + [_P])
-    dw = torch.empty(K, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), mask.data_ptr(), dw.data_ptr(),
-                M, K, N, bn, bk, _stream(x))
-    _build.check(lib, rc, "masked_dw launch")
+    dw = _gemm("dw", "masked_dw", s, x, g, mask, 1, K, M, N, bn, plan)
     dw_launches += 1
-    return dw
+    return dw[0]
 
 
 def masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float, sr: bool,

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
-K18 (K13, K14, K16 and K17 under every plan their sweeps force, with the
-split merge), the fused epilogue K19 and the |x| histogram K21, training steps,
+K18 (each under every plan its sweep forces, with the split merge), the
+fused epilogue K19 and the |x| histogram K21, training steps,
 paged serving, MoE serving and MoE training through them.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
@@ -564,6 +564,148 @@ def test_cuda_masked_dx_f32_keeps_f32_digits():
     assert got <= 8 * rms(tmm.masked_dx_plain(g, w, m)), got
 
 
+# (G, M, K, N) of the wgrad x (G, M, K)^T @ g (G, M, N) -> dw (G, K, N):
+# rows K = 64 (the 16 x 64 tile) with M off the 32-row slabs and N off the
+# 64-column tile; K and N off the 128 tile with M 8.5 slabs; a grouped bank
+# at 96 rows with K and N off the tile; a grouped bank at 16 rows
+DW_SHAPES = [(1, 48, 64, 160), (1, 272, 400, 384), (4, 96, 208, 272), (3, 16, 256, 384)]
+
+
+def _dw_plans(G, M, K, N, dtype):
+    """Every plan the sweeps force at this wgrad shape (``fwd_candidates``
+    on rows K, contraction M, columns N and the wgrad kernel's slots) and
+    every built tile unsplit and split in 3 where M has 3 slabs."""
+    bm, bn = tmm.fwd_tile(K, entry="dw")
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * tmm.fwd_launch_info(dtype, bm, bn, "dw")["ctas_per_sm"])
+    plans = set(tmm.fwd_candidates(K, M, N, G, dtype, slots, entry="dw"))
+    plans |= {(tbm, tbn, n) for tbm, tbn in tmm.DW_TILES for n in (1, 3)
+              if n <= -(-M // tmm.FWD_SLAB)}
+    return sorted(plans)
+
+
+def _dw(x, g, m, plan):
+    if x.dim() == 3:
+        return tmm.grouped_masked_dw(x, g, m, bn=16, bk=16, plan=plan)
+    return tmm.masked_dw(x, g, m, bn=16, bk=16, plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_cuda_masked_dw_every_plan_matches_plain(shape, dtype):
+    """K15 (G = 1) and K18 under every forced plan (tile, split) element by
+    element within ``matmul_error_bound`` of the plain version, exact zeros
+    off the mask; a split counts one K15/K18 launch and one dw merge (and
+    no forward or dgrad merge); two launches of one plan give the same
+    bits."""
+    dev = _cuda()
+    G, M, K, N = shape
+    rng = np.random.default_rng(37)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    x = f(rng.standard_normal((G, M, K)))
+    g = f(rng.standard_normal((G, M, N)) / np.sqrt(M))
+    mk = rng.random((G, K, N)) < 0.3
+    mk[:, 3, :] = False
+    mk[:, :, 5] = False
+    m = torch.from_numpy(mk).to(dev)
+    if G == 1:
+        x, g, m = x[0], g[0], m[0]
+    want = (tmm.masked_dw_plain if G == 1 else tmm.grouped_masked_dw_plain)(x, g, m)
+    absp = (x.float().abs().transpose(-1, -2) @ g.float().abs()) * m
+    read = lambda: [tmm.dw_launches, tmm.gdw_launches, tmm.dw_merge_launches,
+                    tmm.fwd_merge_launches + tmm.dx_merge_launches]
+    for plan in _dw_plans(G, M, K, N, dtype):
+        n = read()
+        got = _dw(x, g, m, plan)
+        again = _dw(x, g, m, plan)
+        torch.cuda.synchronize()
+        k = 2 if plan[2] > 1 else 0
+        assert read() == ([n[0] + 2, n[1], n[2] + k, n[3]] if G == 1
+                          else [n[0], n[1] + 2, n[2] + k, n[3]]), plan
+        assert got.dtype == dtype and got.shape == want.shape
+        _assert_within(got, want, absp, M)
+        assert not got[~m].any(), plan
+        iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(iv), again.view(iv)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_masked_dw_inf_under_zero_mask_is_nan(dtype):
+    """The wgrad's mask multiplies the f32 sum (never selects): an inf in x
+    (row 37, column 5) gives NaN in the plain version's places -- dw's row 5
+    wherever the mask is 0 -- and a NaN in g NaN down dw's column, through
+    K15 and K18, split (the merge masks after the ordered sum) and unsplit:
+    NaN and +-inf in exactly the plain version's places, in bf16 and in f32
+    (3xTF32 splits an inf into hi = 0 and lo = inf, so it meets only the
+    other operand's hi)."""
+    dev = _cuda()
+    x, _, g, _, b = _masked_problem((96, 256, 128), dtype, dev)
+    x[37, 5] = float("inf")
+    g[60, 30] = float("nan")
+    plain = tmm.masked_dw_plain(x, g, b)
+    want = torch.isnan(plain)
+    assert torch.equal(want[5], ~b[5] | (torch.arange(128, device=dev) == 30))
+    assert bool(want[:, 30].all())
+
+    def held(got, plan):
+        assert torch.equal(torch.isnan(got), want), plan
+        assert torch.equal(torch.isinf(got), torch.isinf(plain)), plan
+        inf = torch.isinf(plain)
+        assert torch.equal(got[inf].float(), plain[inf].float()), plan
+
+    for plan in ((128, 64, 1), (128, 64, 2), (128, 128, 1), (128, 128, 2), (128, 64, 3)):
+        held(tmm.masked_dw(x, g, b, bn=128, bk=128, plan=plan), plan)
+        held(tmm.grouped_masked_dw(x[None], g[None], b[None], bn=128, bk=128, plan=plan)[0],
+             plan)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_dw_has_no_spill():
+    """No instantiation of the wgrad spills a register (``-Xptxas=-v``'s
+    count, read back from the runtime), each holds at least as many CTAs an
+    SM as the forward's instantiation of the same tile, and its shared
+    bytes are a ring of at least two ColsA and dense B stages (no mask
+    slabs) and the output tile's mask, rows padded by 16 bytes.  The
+    16-row tile is not built for the wgrad: its launch info and a plan
+    that forces it raise."""
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        e = torch.finfo(dtype).bits // 8
+        with pytest.raises(RuntimeError):
+            tmm.fwd_launch_info(dtype, 16, 64, "dw")
+        x = torch.zeros(32, 64, device=dev, dtype=dtype)
+        m = torch.ones(64, 64, device=dev, dtype=torch.bool)
+        with pytest.raises(ValueError, match="built tile"):
+            tmm.masked_dw(x, x, m, bn=64, bk=64, plan=(16, 64, 1))
+        for bm, bn in tmm.DW_TILES:
+            info = tmm.fwd_launch_info(dtype, bm, bn, "dw")
+            fwd = tmm.fwd_launch_info(dtype, bm, bn)
+            assert info["spill_bytes"] == 0 and info["registers"] <= 255, (dtype, bm, bn, info)
+            assert info["ctas_per_sm"] >= fwd["ctas_per_sm"], (dtype, bm, bn, info, fwd)
+            stage, ring = 32 * ((bm + 8) + (bn + 8)) * e, info["smem_bytes"] - bm * (bn + 16)
+            assert ring % stage == 0 and ring >= 2 * stage, (dtype, bm, bn, info)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_dw_f32_keeps_f32_digits():
+    """3xTF32 keeps f32's digits in the wgrad too: at 2048 rows (danube's
+    wi, 2560 x 6912, a superset of density 0.25: x^T @ g contracts over the
+    2048 rows) the kernel's RMS error against a float64 product is at most
+    8x the plain f32 product's (one-pass TF32 would be ~1000x)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(2048, 2560, device=dev, generator=gen)
+    g = torch.randn(2048, 6912, device=dev, generator=gen) / 2048 ** 0.5
+    m = torch.rand(2560, 6912, device=dev, generator=gen) < 0.25
+    ref = (x.double().T @ g.double()) * m
+    rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+    got = rms(tmm.masked_dw(x, g, m, bn=128, bk=128))
+    assert got <= 8 * rms(tmm.masked_dw_plain(x, g, m)), got
+
+
 @pytest.mark.cuda
 def test_cuda_masked_wrappers_raise_instead_of_falling_back():
     """A CUDA tensor the masked kernels do not take raises (f16, mixed
@@ -573,7 +715,8 @@ def test_cuda_masked_wrappers_raise_instead_of_falling_back():
     x = torch.zeros(16, 64, device=dev, dtype=torch.float16)
     w = torch.zeros(64, 64, device=dev, dtype=torch.float16)
     m = torch.ones(64, 64, device=dev, dtype=torch.bool)
-    n = [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches]
+    n = [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.gdw_launches,
+         tmm.fused_launches, tmm.dw_merge_launches]
     with pytest.raises(TypeError, match="bf16 or f32"):
         masked_linear(x, w, m, block=(16, 16, 16))
     with pytest.raises(TypeError, match="bf16 or f32"):
@@ -586,7 +729,16 @@ def test_cuda_masked_wrappers_raise_instead_of_falling_back():
     with pytest.raises(TypeError, match="mom"):
         tmm.masked_dw_fused(x.float(), x.float(), m, w.float(), w.double(), 0, mu=0.9,
                             wd=0.0, sr=False, bn=16, bk=16)
-    assert [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches] == n
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tmm.grouped_masked_dw(x[None], x[None], m[None], bn=16, bk=16)
+    # a split past the 16 rows' one slab, a tile that is not built
+    with pytest.raises(ValueError, match="plan"):
+        tmm.masked_dw(x.float(), x.float(), m, bn=16, bk=16, plan=(128, 128, 2))
+    with pytest.raises(ValueError, match="plan"):
+        tmm.grouped_masked_dw(x[None].float(), x[None].float(), m[None], bn=16, bk=16,
+                              plan=(64, 64, 1))
+    assert [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.gdw_launches,
+            tmm.fused_launches, tmm.dw_merge_launches] == n
 
 
 @pytest.mark.cuda
@@ -594,9 +746,10 @@ def test_cuda_masked_wrappers_raise_instead_of_falling_back():
 def test_cuda_masked_training_step_runs_the_kernels(fused):
     """A danube SMOKE train step under kernel='masked' (RigL with the
     superset carrier; bf16 attention, f32 MLP) on the card launches K13,
-    K14 and K15, or with the fused SGD epilogue (bf16 state, sr) K13, K14
-    and K19 and no K15; it agrees with the same step on the CPU (plain
-    versions) within bf16 tolerance."""
+    K14 and K15 with K15's planned split merges, or with the fused SGD
+    epilogue (bf16 state, sr) K13, K14 and K19 and no K15 or dw merge; it
+    agrees with the same step on the CPU (plain versions) within bf16
+    tolerance."""
     import dataclasses
 
     from repro_torch.configs import SparseConfig, get_config
@@ -614,7 +767,8 @@ def test_cuda_masked_training_step_runs_the_kernels(fused):
     lr = LRSchedule(kind="constant", base_lr=1e-3, warmup_steps=0)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 32)))
     batch = {"tokens": toks, "targets": (toks * 3 + 7) % 128}
-    read = lambda: [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches]
+    read = lambda: [tmm.launches, tmm.dx_launches, tmm.dw_launches, tmm.fused_launches,
+                    tmm.dw_merge_launches]
     losses, states = [], []
     for device in ("cpu", dev):
         st, _ = steps.init_train_state(cfg, opt, seed=0, device="cpu")
@@ -627,11 +781,29 @@ def test_cuda_masked_training_step_runs_the_kernels(fused):
         after = read()
     n_proj = 7 * cfg.n_layers
     delta = [b - a for a, b in zip(before, after)]
-    assert delta == ([n_proj, n_proj, 0, n_proj] if fused else [n_proj, n_proj, n_proj, 0])
+    merges = 0 if fused else cfg.n_layers * _dw_merges(cfg, st["params"]["layers"][0], 64, dev)
+    assert delta == ([n_proj, n_proj, 0, n_proj, 0] if fused
+                     else [n_proj, n_proj, n_proj, 0, merges])
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0])
     if fused:
         assert all(t.dtype == torch.bfloat16 for t in _leaves(st["opt"]["momentum"]))
         _fused_state_agrees(states[0], st, lr.base_lr)
+
+
+def _dw_merges(cfg, layer, tokens, dev):
+    """K15's split merges of one layer's 7 projections at ``tokens`` rows
+    (the wgrad's plan: rows K, contraction the padded rows, columns N; the
+    attention in the compute dtype, the MLP in f32, as the model calls
+    them)."""
+    from repro_torch.kernels.ops import _row_tile
+    from repro_torch.models.layers import compute_dtype
+
+    _, Mp = _row_tile(tokens, cfg.sparse.kernel_block[0])
+    shapes = ([(layer["attn"][n]["w"].shape, compute_dtype(cfg)) for n in ("wq", "wk", "wv", "wo")]
+              + [(layer["mlp"][n]["w"].shape, torch.float32) for n in ("wi", "wg", "wo")])
+    bn = cfg.sparse.kernel_block[1]
+    return sum(tmm._fwd_plan_for(K, Mp, N, 1, dt, bn, dev.index or 0, "dw")[2] > 1
+               for (K, N), dt in shapes)
 
 
 def _leaves(tree):

@@ -117,15 +117,34 @@ FWD_PICKS = {
 }
 
 
+# K14/K17's picks, (Mp, K, N, G, bn_limit): (bf16 plan, f32 plan), taken
+# before the plan served the wgrad too
+DX_PICKS = {
+    (2048, 2560, 2560, 1, 128): ((128, 128, 2), (128, 128, 2)),
+    (2048, 2560, 640, 1, 128): ((128, 128, 1), (128, 128, 1)),
+    (2048, 2560, 6912, 1, 128): ((128, 128, 2), (128, 128, 2)),
+    (2048, 6912, 2560, 1, 128): ((128, 128, 1), (128, 128, 1)),
+    (2048, 2048, 2048, 1, 128): ((128, 128, 1), (128, 128, 1)),
+    (2048, 2048, 5632, 1, 128): ((128, 128, 1), (128, 128, 1)),
+    (2048, 5632, 2048, 1, 128): ((128, 128, 1), (128, 128, 1)),
+    (256, 2048, 1408, 60, 128): ((128, 128, 1), (128, 128, 1)),
+    (16, 2048, 1408, 60, 128): ((16, 64, 1), (16, 64, 1)),
+    (256, 1408, 2048, 60, 16): ((128, 64, 1), (128, 64, 1)),
+}
+
+
 @pytest.mark.parametrize("dt", [BF, F32])
 def test_fwd_picks_are_unchanged(dt):
-    """The plan that now serves both directions picks for K13 and K16
-    exactly what it picked before, at every forward shape."""
+    """The plan that now serves the three directions picks for K13 and K16
+    exactly what it picked before, at every forward shape, and for K14 and
+    K17 what it picked before it served the wgrad."""
     col = 0 if dt == BF else 1
     for (Mp, K, N, G, bn_limit), picks in FWD_PICKS.items():
         if picks[col] is not None:
             got = tmm.fwd_plan(Mp, K, N, G, dt, _slots(dt, Mp), bn_limit=bn_limit)
             assert got == picks[col], (Mp, K, N, G, bn_limit)
+    for (Mp, K, N, G, bn_limit), picks in DX_PICKS.items():
+        assert _dx_plan(Mp, K, N, G, dt, bk=bn_limit) == picks[col], (Mp, K, N, G, bn_limit)
 
 
 def _inputs(rng, G, M, K, N, dtype, rows=None):

@@ -33,11 +33,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 versions and timed (TFLOP/s, share of the bound, SDPA's
                 backward masked and, where purely causal, is_causal; each
                 launch's plan, CTAs, occupancy, registers, shared and spill
-                bytes, longest walk; every candidate plan timed); the step-0
+                bytes, longest walk; every candidate plan timed; K3 on the
+                GEMM core under every candidate plan on the pack's live
+                blocks, its f32 cases against a float64 product, and the
+                merge of each split pick, bit for bit); the step-0
                 loss and two weight gradients
                 against the plain dense path on the same weights; then
                 ``train_loop``: finite losses, the exact launch counts of
-                every kernel per step, and after the update unchanged block
+                every kernel per step (168 K3 a microbatch and the split
+                merges each pack entry's plan makes), and after the update unchanged block
                 counts, a valid, fresh pack and B ⊇ A; wall and device time
                 per step, tokens per second, peak memory
   6. masked serve -- serve the same model under kernel='masked' (ERK 0.8
@@ -112,12 +116,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 batch 8 x 1024 in the config's 4 microbatches, 6 steps, a
                 drop/grow at step 2): first K5 and K6 against their plain
                 versions (layer 0's ERK packs and supersets, a uniform and a
-                dead-expert topology; 171 and 16 rows; f32 and bf16), timed;
+                dead-expert topology; 171 and 16 rows; f32 and bf16), timed,
+                K6 under every candidate plan of the GEMM core, its f32
+                cases against a float64 product;
                 the step-0 loss and the gradients of a bank, the shared MLP
                 and the router against the plain dense path with routing
                 pinned; then ``train_loop``: finite losses, the exact
                 launches of every kernel in every step (K4 72, K5 and K6 36
-                per train step), after the update counts kept, B ⊇ A and the
+                per train step, K3 84, with K3's and K6's planned split
+                merges), after the update counts kept, B ⊇ A and the
                 pack fresh; wall and device time per step, tokens per
                 second, the peak memory of the steady and the update step,
                 the busy share of the profiled step and K4-K6's share of it
@@ -157,7 +164,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 h2o-danube-1.8b at full width and depth, 2 x 1024 tokens in
                 one microbatch, 4 steps, Adam: set, snfs and topkast under
                 block_sparse (128x128, flash_tight, ERK 0.8, a drop/grow at
-                step 2; exactly 336 K1, 168 K2, 168 K3, 48/24/24 K9-K11 per
+                step 2; exactly 336 K1, 168 K2, 168 K3 and their planned
+                merges, 48/24/24 K9-K11 per
                 step, set's update step K9-K11 alone (no superset: the
                 dense gradient); after the update block counts kept, grown
                 = dropped, the pack fresh, B ⊇ A, snfs's dense momentum
@@ -168,8 +176,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 prune, snip's per-layer density the ERK map's); wall s per
                 step, tok/s, peak GiB, the update step's s
  17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
-                K13/K16's split merge and, where a timed K14/K17 or K15/K18
-                case splits, theirs), the card line, and last {"ok": true,
+                K13/K16's split merge and, where a timed K14/K17, K15/K18 or
+                K3/K6 case splits, theirs), the card line, and last {"ok": true,
                 "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -611,8 +619,15 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     (one microbatch of 2 x 1024), bf16 for attention and f32 for the MLP as
     the path runs them; plus a uniform-20% bf16 case with an empty column
     and a 10% superset.  Each output element by element within
-    ``bsm.matmul_error_bound``."""
+    ``bsm.matmul_error_bound``.  K3 runs on the GEMM core with its plan on
+    the pack's live blocks (the entry's bnnz, as the path passes it): every
+    candidate plan forced and timed (``fwd_sweep``, entry "bs_dw", each held
+    to the bound first), the f32 cases against a float64 product
+    (``f64_fidelity``), and the merge of a split pick (``bs_merge_case``).
+    Returns (K2 cases, K3 cases, merge cases)."""
     import numpy as np
+
+    from repro_torch.kernels import masked_matmul as mm
 
     blk, M = cfg.sparse.kernel_block[2], 2048
     items = []
@@ -629,8 +644,9 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     t = lambda a: torch.from_numpy(a).cuda()
     (ridx, rcnt), (bidx, bcnt) = pack_np(bm.T), pack_np(sup)
     items.append(("uniform 20% + 10% superset", w,
-                  {"ridx": t(ridx), "rcnt": t(rcnt), "bidx": t(bidx), "bcnt": t(bcnt)}))
-    k2, k3 = [], []
+                  {"ridx": t(ridx), "rcnt": t(rcnt), "bidx": t(bidx), "bcnt": t(bcnt),
+                   "bnnz": int(sup.sum())}))
+    k2, k3, merges = [], [], []
     for label, w, e in items:
         K, N = w.shape
         dt, es, peak = w.dtype, w.element_size(), peak_of(torch, w.dtype)
@@ -644,6 +660,8 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
         if not ok:
             raise AssertionError(f"K2 {label}: exceeds its bound ({ratio:.3g}x)")
         nnz, bnnz = int(rcnt.sum()), int(bcnt.sum())
+        if bnnz != e["bnnz"]:
+            raise AssertionError(f"K3 {label}: the entry's bnnz {e['bnnz']}, bcnt sums {bnnz}")
         b_ms, by = bound_ms(es * (M * N + nnz * blk * blk + M * K)
                             + 4 * (ridx.numel() + rcnt.numel()),
                             2.0 * M * nnz * blk * blk, peak)
@@ -656,25 +674,98 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
                 "library_ms": timer(lambda: g @ w.T), "bound_ms": b_ms, "bound_by": by}
         print("K2", json.dumps(case))
         k2.append(case)
-        dw = bsm.block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk)
+        run = lambda plan=None: bsm.block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk, plan=plan,
+                                                    live=bnnz)
         want = bsm.block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk)
         absp = bsm.block_sparse_dw_plain(x.abs().float(), g.abs().float(), bidx, bcnt, blk, blk)
-        ok, ratio, tol = within(torch, dw, want, bsm.matmul_error_bound(want, absp, M))
-        if not ok:
-            raise AssertionError(f"K3 {label}: exceeds its bound ({ratio:.3g}x)")
+        bound = bsm.matmul_error_bound(want, absp, M)
+
+        def check(got):
+            ok, ratio, tol = within(torch, got, want, bound)
+            if not ok:
+                raise AssertionError(f"K3 {label}: exceeds its bound ({ratio:.3g}x)")
+            return (got.float() - want.float()).abs().max().item(), ratio, tol
+
+        tag = (f"{label} {str(dt)[6:]} M={M} K={K} N={N} superset blocks={bnnz}/"
+               f"{K // blk * N // blk}")
         # the function's output is the dense (K, N) dw: written once
-        b_ms, by = bound_ms(es * (M * K + M * N + K * N) + 4 * (bidx.numel() + bcnt.numel()),
-                            2.0 * M * bnnz * blk * blk, peak)
-        case = {"case": f"{label} {str(dt)[6:]} M={M} K={K} N={N} superset blocks="
-                        f"{bnnz}/{K // blk * N // blk}",
-                "max_abs_err": (dw.float() - want.float()).abs().max().item(),
-                "err_over_tol": ratio, "mean_tol": tol,
-                "ms": timer(lambda: bsm.block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk)),
-                "plain_ms": timer(lambda: bsm.block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk), reps=3),
-                "library_ms": timer(lambda: x.T @ g), "bound_ms": b_ms, "bound_by": by}
-        print("K3", json.dumps(case))
+        case = kernel_case(
+            torch, timer, "K3", tag, run,
+            lambda: bsm.block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk), lambda: x.T @ g,
+            lambda: check(run()),
+            es * (M * K + M * N + K * N) + 4 * (bidx.numel() + bcnt.numel()),
+            2.0 * M * bnnz * blk * blk, dt)
+        case.update(fwd_sweep(torch, timer, mm, run, K, M, N, 1, dt, case, entry="bs_dw",
+                              check=check, bn_limit=blk, live=bnnz))
+        case["dense_tflop_s"] = 2.0 * M * bnnz * blk * blk / case["ms"] / 1e9
+        del want, absp, bound
+        if dt == torch.float32:
+            case["f64_rms_over_plain"] = f64_fidelity(
+                torch, f"K3 {tag}", run,
+                lambda: bsm.block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk),
+                lambda: torch.where(bsm._dense_mask(bidx, bcnt, K // blk, blk, blk),
+                                    x.double().T @ g.double(), 0.0))
+        print("K3 plans", json.dumps(case))
         k3.append(case)
-    return k2, k3
+        if case["plan"][2] > 1:
+            merges.append(bs_merge_case(torch, timer, bsm, case["plan"][2], bidx, bcnt, K, N,
+                                        dt, blk, tag))
+    return k2, k3, merges
+
+
+def bs_merge_case(torch, timer, bsm, n_split, idx, cnt, K, N, dt, blk, tag):
+    """The split merge of K3 (a 2-D pack) or K6 (a stacked one) at a split
+    pick's shape: random packed partials (n_split, G, N/bn, width, bk, bn)
+    summed in order into a zeroed dw's live blocks, bit for bit
+    ``bs_dw_merge_plain`` (every element off the pack left at 0), timed
+    beside its byte bound (the live blocks' partials read once, dw's live
+    blocks written once, the pack); no one PyTorch call computes it."""
+    ix, cn = (idx, cnt) if idx.dim() == 3 else (idx[None], cnt[None])
+    G, nnb, width = ix.shape
+    live = int(cn.sum())
+    part = torch.randn(n_split, G, nnb, width, blk, blk, device="cuda")
+    shape = (G, K, N) if idx.dim() == 3 else (K, N)
+    out = torch.zeros(shape, dtype=dt, device="cuda")
+    merge = lambda: bsm.bs_dw_merge(part, idx, cnt, out)
+    plain = lambda: bsm.bs_dw_merge_plain(part, idx, cnt, torch.zeros_like(out))
+
+    def check():
+        out.zero_()
+        if not torch.equal(merge().float(), plain().float()):
+            raise AssertionError(f"K3/K6 merge {tag}: differs from the ordered plain sum")
+        return 0.0, 0.0, 0.0
+
+    n_bytes = ((4 * n_split + out.element_size()) * live * blk * blk
+               + 4 * (idx.numel() + cnt.numel()))
+    return kernel_case(torch, timer, "bs dw merge", f"{tag} n_split={n_split}", merge, plain,
+                       None, check, n_bytes, 0.0, dt)
+
+
+def bs_dw_merges(torch, mm, cfg, state, tokens):
+    """The K3/K6 split merges of one backward pass over ``tokens`` tokens on
+    ``state``'s pack: each entry's plan (``fwd_plan``, entry "bs_dw") on its
+    live blocks (bnnz where it carries a superset, else nnz), the attention
+    in the compute dtype and the MLP, the shared MLP and the expert banks
+    in f32 (as the model calls them), a bank's rows its capacity; rows
+    padded to the row tile."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.core.pack import pack_entries
+    from repro_torch.kernels.ops import _row_tile
+    from repro_torch.models.layers import compute_dtype
+    from repro_torch.models.moe import capacity
+
+    params = tree_paths(state["params"])
+    bm, bn, _ = cfg.sparse.kernel_block
+    dev = torch.cuda.current_device()
+    n = 0
+    for name, e in pack_entries(state["pack"]):
+        w = params[name]
+        G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
+        _, Mp = _row_tile(capacity(tokens, cfg) if w.dim() == 3 else tokens, bm)
+        dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
+        live = e["bnnz"] if "bidx" in e else e["nnz"]
+        n += mm._fwd_plan_for(K, Mp, N, G, dt, min(bn, N), dev, "bs_dw", live)[2] > 1
+    return n
 
 
 DANUBE_FLASH_BWD = (("S=1024 window=4096 (main-path shape)", 64, 1024, 4096, 0.0),
@@ -884,28 +975,36 @@ def train_dense_check(torch, cfg, state, names=("layers/0/mlp/wi/w", "layers/0/a
     return out
 
 
-def train_path(torch, bsm, fa, cfg):
+def train_path(torch, bsm, fa, mm, cfg, merges):
     """``train_loop`` at full width and depth, with the launch counters set
-    to 0 just before it and read after every step."""
+    to 0 just before it and read after every step.  ``merges``: the K3
+    split merges of the initial pack, (a microbatch's, the full batch's)
+    (``bs_dw_merges``); each step's own come from the pack it ran on."""
     from repro_torch.core.masks import block_mask_of, tree_paths
     from repro_torch.core.pack import pack_mismatch, validate_pack
     from repro_torch.launch.train import train_loop
 
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
-                ("block_sparse_dw", bsm, "dw_launches"), ("flash_fwd", fa, "launches"),
+                ("block_sparse_dw", bsm, "dw_launches"),
+                ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
+                ("flash_fwd", fa, "launches"),
                 ("flash_dq", fa, "dq_launches"), ("flash_dkv", fa, "dkv_launches"))
     read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
     mb, n_proj, n_attn = cfg.microbatches, 7 * cfg.n_layers, cfg.n_layers
-    # remat reruns each block's forward in the backward: K1 and K9 twice
-    expect = {False: {"block_sparse_fwd": 2 * n_proj * mb, "block_sparse_dx": n_proj * mb,
-                      "block_sparse_dw": n_proj * mb, "flash_fwd": 2 * n_attn * mb,
-                      "flash_dq": n_attn * mb, "flash_dkv": n_attn * mb},
-              # the update step's gradient is one pass over the full batch
-              True: {"block_sparse_fwd": 2 * n_proj, "block_sparse_dx": n_proj,
-                     "block_sparse_dw": n_proj, "flash_fwd": 2 * n_attn,
-                     "flash_dq": n_attn, "flash_dkv": n_attn}}
+
+    def expect(is_update, n_merges):
+        # remat reruns each block's forward in the backward: K1 and K9
+        # twice; the update step's gradient is one pass over the full batch
+        k = 1 if is_update else mb
+        return {"block_sparse_fwd": 2 * n_proj * k, "block_sparse_dx": n_proj * k,
+                "block_sparse_dw": n_proj * k,
+                "block_sparse_dw_merge": n_merges[1] if is_update else n_merges[0] * mb,
+                "flash_fwd": 2 * n_attn * k, "flash_dq": n_attn * k, "flash_dkv": n_attn * k}
+
+    tokens = (TRAIN_BATCH * TRAIN_SEQ // mb, TRAIN_BATCH * TRAIN_SEQ)
     blk = cfg.sparse.block_shape
-    log, seen = [], {"counts": None, "t": None, "ev": None, "blocks": None, "prof": None}
+    log, seen = [], {"counts": None, "t": None, "ev": None, "blocks": None, "prof": None,
+                     "merges": merges}
 
     def blocks_of(masks):
         return {n: block_mask_of(m, blk).cpu() for n, m in tree_paths(masks).items()}
@@ -921,11 +1020,15 @@ def train_path(torch, bsm, fa, cfg):
         if seen["t"] is not None:
             rec["wall_s"] = t - seen["t"]
             rec["device_span_ms"] = seen["ev"].elapsed_time(ev)
-        if rec["launches"] != expect[is_update]:
+        # the step ran on the pack it left unless it updated the topology
+        now = seen["merges"] if is_update else tuple(
+            bs_dw_merges(torch, mm, cfg, state, n) for n in tokens)
+        if rec["launches"] != expect(is_update, now):
             raise AssertionError(f"train step {step}: launches {rec['launches']}, "
-                                 f"expected {expect[is_update]}")
+                                 f"expected {expect(is_update, now)}")
         if not math.isfinite(rec["loss"]):
             raise AssertionError(f"train step {step}: loss {rec['loss']}")
+        seen["merges"] = tuple(bs_dw_merges(torch, mm, cfg, state, n) for n in tokens)
         if step == 1:
             seen["blocks"] = blocks_of(state["masks"])
         if step == 4:  # step 5, a plain step after the update, is profiled
@@ -1194,12 +1297,14 @@ def masked_cases(torch, timer, mm, params, masks):
 
 
 def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", check=None,
-              bn_limit=128):
+              bn_limit=128, live=None):
     """The GEMM core's plan at one case of ``entry`` ("fwd": K13/K16, L = K
     and cols = N; "dx": K14/K17, L = N and cols = K; "dw": K15/K18, Mp = K,
-    L = M and cols = N) and every candidate plan (``mm.fwd_candidates`` on
-    the card's slots for that kernel) timed with the plan forced, each
-    first held to ``check`` (raises) where one is given: the pick, whether
+    L = M and cols = N; "bs_dw": K3/K6 as "dw" on ``live`` blocks of
+    ``bn_limit`` columns) and every candidate plan (``mm.fwd_candidates``
+    on the card's slots for that kernel) timed with the plan forced, each
+    first held to ``check`` (raises) where one is given, and to the same
+    bits from a second launch; raises on a spill in the pick's launch: the pick, whether
     it was the fastest, the launch of the pick's tile (CTAs an SM,
     registers, shared and spill bytes), and the case's achieved rate
     (TFLOP/s of the products its bound counts, TB/s of its bytes) and share
@@ -1207,12 +1312,20 @@ def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", chec
     bm, bn = mm.fwd_tile(Mp, bn_limit, entry)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     slots = sms * mm.fwd_launch_info(dt, bm, bn, entry)["ctas_per_sm"]
-    pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, torch.cuda.current_device(), entry)
+    pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, torch.cuda.current_device(), entry,
+                            live)
     info = mm.fwd_launch_info(dt, pick[0], pick[1], entry)
+    if info["spill_bytes"]:
+        raise AssertionError(f"{entry} tile {pick[:2]} {dt}: {info['spill_bytes']} spill bytes")
     plans = {}
-    for p in mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry):
+    for p in mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry,
+                               live=live):
         if check is not None:
-            check(run(p))
+            got = run(p)
+            check(got)
+            if not torch.equal(got, run(p)):
+                raise AssertionError(f"{entry} plan {p}: two launches differ")
+            del got
         plans[str(p)] = timer(lambda: run(p), reps=5)
     return {"plan": list(pick), "slots": slots, "launch": info, "plans_ms": plans,
             "plan_is_fastest": plans[str(pick)] == min(plans.values()),
@@ -1746,8 +1859,8 @@ def k7_cases(torch, timer, bsm, state, cfg, proj=K7_PROJ, rows=(2048, 16),
                         x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
                         out_dtype=torch.float32, **kw)
                     unfused = lambda: (FUSED_MU * mom.float() + bsm.block_sparse_dw(
-                        x, g, bidx, bcnt, bn=blk, bk=blk).float() + FUSED_WD * w.float()
-                    ).to(dt)
+                        x, g, bidx, bcnt, bn=blk, bk=blk, live=bnnz).float()
+                        + FUSED_WD * w.float()).to(dt)
                     bound = lambda want: mm.fused_error_bound(
                         want, absp, M, FUSED_MU, FUSED_WD, mom, w, acc, sup)
                     check = lambda: fused_checks(torch, tag, run, plain, raw,
@@ -1814,8 +1927,10 @@ def fused_bs_config():
 def fused_bs_train(torch, timer, bsm, fa):
     """K7 against its plain version on the path's layer 0 (``k7_cases``),
     then 2 fused steps of h2o-danube-1.8b under block_sparse beside unfused
-    ones (``fused_steps``): exactly 336 K1, 168 K2, 168 K7, no K3 and
-    48/24/24 K9-K11 launches per fused step."""
+    ones (``fused_steps``): exactly 336 K1, 168 K2, 168 K7, no K3 or K3
+    merge and 48/24/24 K9-K11 launches per fused step (the unfused step:
+    168 K3 and their planned merges in K7's place)."""
+    from repro_torch.kernels import masked_matmul as mm
     from repro_torch.training.steps import init_train_state
 
     cfg = fused_bs_config()
@@ -1823,15 +1938,20 @@ def fused_bs_train(torch, timer, bsm, fa):
     cases = k7_cases(torch, timer, bsm, state, cfg)
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
                 ("block_sparse_dw", bsm, "dw_launches"),
+                ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("block_sparse_dw_fused", bsm, "fused_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
     # remat reruns each block's forward in the backward: K1 and K9 twice
     want = {"block_sparse_fwd": 2 * n_proj, "block_sparse_dx": n_proj, "block_sparse_dw": 0,
-            "block_sparse_dw_fused": n_proj, "flash_fwd": 2 * n_attn, "flash_dq": n_attn,
-            "flash_dkv": n_attn}
-    stats, launches = fused_steps(torch, cfg, state, counters, want, "fused block-sparse train")
+            "block_sparse_dw_merge": 0, "block_sparse_dw_fused": n_proj,
+            "flash_fwd": 2 * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn}
+    # K3's planned split merges, in the unfused step only
+    unfused = {"block_sparse_dw_merge": bs_dw_merges(torch, mm, cfg, state,
+                                                     MASKED_BATCH * TRAIN_SEQ)}
+    stats, launches = fused_steps(torch, cfg, state, counters, want, "fused block-sparse train",
+                                  unfused_merges=unfused)
     return stats, launches, cases
 
 
@@ -2607,14 +2727,18 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
     and the dense dw once (K6); operations 2 C bk bn per active (K5) or
     superset (K6) block; the padded rows are zeros and count in neither.
     Library: torch.bmm on the C rows and the zero-filled dense bank (TF32
-    off): g @ w^T and x^T @ g."""
+    off): g @ w^T and x^T @ g.  K6 also under every candidate plan of the
+    GEMM core (``fwd_sweep``, entry "bs_dw" on the live blocks), its f32
+    cases against a float64 product, and the merge of a split pick."""
     import numpy as np
+
+    from repro_torch.kernels import masked_matmul as mm
 
     rng = np.random.default_rng(5)
     blk = cfg.sparse.kernel_block[2]
     lay = state["params"]["layers"][0]["moe"]
     pk = state["pack"]["layers"][0]["moe"]
-    out = {"K5": [], "K6": []}
+    out = {"K5": [], "K6": [], "merge": []}
     for bank in ("wi", "wo"):
         G, K, N = lay[bank]["w"].shape
         dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk,
@@ -2642,8 +2766,11 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
                             raise AssertionError(f"K5 {tag}: a dead expert's dx is not zero")
                         return res
 
-                    def check_dw():
-                        got = bsm.grouped_block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk)
+                    run_dw = lambda plan=None: bsm.grouped_block_sparse_dw(
+                        x, g, bidx, bcnt, bn=blk, bk=blk, plan=plan, live=bnnz)
+
+                    def check_dw(got=None):
+                        got = run_dw() if got is None else got
                         want = bsm.grouped_block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk)
                         absp = bsm.grouped_block_sparse_dw_plain(
                             x.abs().float(), g.abs().float(), bidx, bcnt, blk, blk)
@@ -2651,6 +2778,8 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
                         outside = ~sup.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
                         if got[outside].float().abs().max().item() != 0:
                             raise AssertionError(f"K6 {tag}: dw outside the superset")
+                        if "dead" in tname and got[dead_ids].float().abs().max().item() != 0:
+                            raise AssertionError(f"K6 {tag}: a dead expert's dw is not zero")
                         return res
 
                     out["K5"].append(kernel_case(
@@ -2664,16 +2793,33 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
                         es * (G * C * N + nnz * blk * blk + G * C * K)
                         + 4 * (ridx.numel() + rcnt.numel()),
                         2.0 * C * nnz * blk * blk, dt))
-                    out["K6"].append(kernel_case(
-                        torch, timer, "K6",
-                        f"{tag} superset blocks={bnnz}/{G * (K // blk) * (N // blk)} "
-                        f"width={bidx.shape[-1]}",
-                        lambda: bsm.grouped_block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk),
+                    dw_tag = (f"{tag} superset blocks={bnnz}/{G * (K // blk) * (N // blk)} "
+                              f"width={bidx.shape[-1]}")
+                    case = kernel_case(
+                        torch, timer, "K6", dw_tag, run_dw,
                         lambda: bsm.grouped_block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk),
                         lambda: torch.bmm(x_c.transpose(1, 2), g_c), check_dw,
                         es * (G * C * K + G * C * N + G * K * N)
                         + 4 * (bidx.numel() + bcnt.numel()),
-                        2.0 * C * bnnz * blk * blk, dt))
+                        2.0 * C * bnnz * blk * blk, dt)
+                    case.update(fwd_sweep(torch, timer, mm, run_dw, K, Mp, N, G, dt, case,
+                                          entry="bs_dw", check=check_dw, bn_limit=blk,
+                                          live=bnnz))
+                    case["dense_tflop_s"] = 2.0 * C * bnnz * blk * blk / case["ms"] / 1e9
+                    if dt == torch.float32:
+                        live = sup.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+                        case["f64_rms_over_plain"] = f64_fidelity(
+                            torch, f"K6 {dw_tag}", run_dw,
+                            lambda: bsm.grouped_block_sparse_dw_plain(x, g, bidx, bcnt, blk,
+                                                                      blk),
+                            lambda: torch.where(live, torch.bmm(x.double().transpose(1, 2),
+                                                                g.double()), 0.0))
+                        del live
+                    print("K6 plans", json.dumps(case))
+                    out["K6"].append(case)
+                    if case["plan"][2] > 1:
+                        out["merge"].append(bs_merge_case(torch, timer, bsm, case["plan"][2],
+                                                          bidx, bcnt, K, N, dt, blk, dw_tag))
     return out
 
 
@@ -2824,6 +2970,12 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         planned_merges(torch, mm, cfg, layer0, tokens, "dw")
         + bank_merges(torch, mm, cfg, layer0, tokens, "dw"))
     del layer0
+    # K3's and K6's split merges on the pack a step runs on, (a
+    # microbatch's, the full batch's); the initial pack's here
+    bs_tokens = (tokens, batch * TRAIN_SEQ)
+    bs_count = lambda st: tuple(bs_dw_merges(torch, mm, cfg, st, n) if bs else 0
+                                for n in bs_tokens)
+    bs_merges0 = bs_count(state)
     dense_check = train_dense_check(
         torch, cfg, state, label=label,
         names=("layers/0/moe/wi/w", "layers/0/moe/shared/wi/w", "layers/0/moe/router/w"))
@@ -2842,27 +2994,30 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                 ("masked_fwd_merge", mm, "fwd_merge_launches"),
                 ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("masked_dw_merge", mm, "dw_merge_launches"),
+                ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     read = lambda: {n: getattr(mod, a) for n, mod, a in counters}
     L, B = cfg.n_layers, len(MOE_BANKS)
     fam, gfam = ("block_sparse", "grouped_block_sparse") if bs else ("masked", "grouped_masked")
 
-    def expected(mb):
+    def expected(is_update, n_bs):
         # remat reruns each block's forward in the backward: the forward
-        # kernels launch twice per microbatch
+        # kernels launch twice per microbatch; the update step's gradient
+        # is one pass over the full batch
+        mb = 1 if is_update else cfg.microbatches
         e = {n: 0 for n, _, _ in counters}
         e.update({f"{fam}_fwd": 2 * MOE_PROJ * L * mb, f"{fam}_dx": MOE_PROJ * L * mb,
                   f"{fam}_dw": MOE_PROJ * L * mb, f"{gfam}_fwd": 2 * B * L * mb,
                   f"{gfam}_dx": B * L * mb, f"{gfam}_dw": B * L * mb,
                   "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb,
                   "masked_fwd_merge": 2 * merges * mb, "masked_dx_merge": dx_merges * mb,
-                  "masked_dw_merge": dw_merges * mb})
+                  "masked_dw_merge": dw_merges * mb,
+                  "block_sparse_dw_merge": n_bs[1] if is_update else n_bs[0] * mb})
         return e
 
-    # the update step's gradient is one pass over the full batch
-    expect = {False: expected(cfg.microbatches), True: expected(1)}
-    log, seen = [], {"counts": None, "t": None, "ev": None, "prof": None, "units": None}
+    log, seen = [], {"counts": None, "t": None, "ev": None, "prof": None, "units": None,
+                     "bs_merges": bs_merges0}
 
     def units(masks):
         """Active blocks (block_sparse) or weights (masked) of every leaf."""
@@ -2881,11 +3036,14 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         if seen["t"] is not None:
             rec["wall_s"] = t - seen["t"]
             rec["device_span_ms"] = seen["ev"].elapsed_time(ev)
-        if rec["launches"] != expect[is_update]:
+        # the step ran on the pack it left unless it updated the topology
+        want = expected(is_update, seen["bs_merges"] if is_update else bs_count(state))
+        if rec["launches"] != want:
             raise AssertionError(f"{label} step {step}: launches {rec['launches']}, "
-                                 f"expected {expect[is_update]}")
+                                 f"expected {want}")
         if not math.isfinite(rec["loss"]):
             raise AssertionError(f"{label} step {step}: loss {rec['loss']}")
+        seen["bs_merges"] = bs_count(state)
         if step == 1:
             seen["units"] = {n: u.cpu() for n, u in units(state["masks"]).items()}
         if step == steps - 1:  # the last step, a plain one after the update
@@ -3037,8 +3195,8 @@ def k8_cases(torch, timer, bsm, state, cfg):
                             x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
                             out_dtype=torch.float32, **kw)
                         unfused = lambda: (FUSED_MU * mom.float() + bsm.grouped_block_sparse_dw(
-                            x, g, bidx, bcnt, bn=blk, bk=blk).float() + FUSED_WD * w.float()
-                        ).to(dt)
+                            x, g, bidx, bcnt, bn=blk, bk=blk, live=bnnz).float()
+                            + FUSED_WD * w.float()).to(dt)
                         bound = lambda want: mm.fused_error_bound(
                             want, absp, Mp, FUSED_MU, FUSED_WD, mom, w, acc, sup)
 
@@ -3166,7 +3324,12 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
                 ("flash_dkv", fa, "dkv_launches"))
     L, B = cfg.n_layers, len(MOE_BANKS)
     dx_merge, dw_merge = {}, None
-    if not bs:  # K14's and K17's planned split merges (one microbatch); K15's and
+    if bs:  # K3's and K6's planned split merges, in the unfused step only
+        counters += (("block_sparse_dw_merge", bsm, "dw_merge_launches"),)
+        dx_merge = {"block_sparse_dw_merge": 0}
+        dw_merge = {"block_sparse_dw_merge": bs_dw_merges(torch, mm, cfg, state,
+                                                          MASKED_BATCH * TRAIN_SEQ)}
+    else:  # K14's and K17's planned split merges (one microbatch); K15's and
         # K18's in the unfused step only
         tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
         counters += (("masked_dx_merge", mm, "dx_merge_launches"),
@@ -3364,8 +3527,9 @@ def method_train(torch, bsm, mm, fa, tk, method):
     method at full size, 4 steps of 2 x 1024 tokens, the launch counters set
     to 0 just before it and read after every step, each step's launches
     exact: per step 2 * 168 forward launches (remat), 168 dgrad, 168 wgrad
-    (K1/K2/K3 under block_sparse, K13/K14/K15 under masked, with K14's and
-    K15's planned split merges), 48/24/24 K9-K11, no K21.  SET carries no
+    (K1/K2/K3 under block_sparse, with K3's planned split merges,
+    K13/K14/K15 under masked, with K14's and K15's), 48/24/24 K9-K11, no
+    K21.  SET carries no
     superset, so its update step takes the dense gradient of the masked
     weights (the reference's path): K9-K11 only.  SNIP's one-shot gradient
     runs before step 0 and adds its attention launches (48/24/24 K9-K11) to
@@ -3396,17 +3560,20 @@ def method_train(torch, bsm, mm, fa, tk, method):
     if masked:  # K14's and K15's planned split merges, set from the weights' shapes at step 1
         counters += (("masked_dx_merge", mm, "dx_merge_launches"),
                      ("masked_dw_merge", mm, "dw_merge_launches"))
+    else:  # K3's planned split merges, on the pack each step runs on
+        counters += (("block_sparse_dw_merge", bsm, "dw_merge_launches"),)
     read = lambda: {n: getattr(m, a) for n, m, a in counters}
     # set carries no superset: its update step takes the dense gradient on
     # the masked weights (the reference's legacy path), attention alone on
     # the kernels
-    update = dict(expect, **({fwd: 0, dx: 0, dw: 0} if method == "set" else {}))
+    update = dict(expect, **({fwd: 0, dx: 0, dw: 0, "block_sparse_dw_merge": 0}
+                             if method == "set" else {}))
     first = dict(expect)
     if method == "snip":
         first.update(flash_fwd=4 * n_attn, flash_dq=2 * n_attn, flash_dkv=2 * n_attn)
     blk = cfg.sparse.block_shape
     units = (lambda m: m) if masked else (lambda m: block_mask_of(m, blk))
-    log, seen = [], {"counts": None, "t": None, "before": None, "checks": {}}
+    log, seen = [], {"counts": None, "t": None, "before": None, "checks": {}, "bs_merges": None}
     # train_loop's schedule; its one prune (step 0) goes to the target at step 1
     prune_target = PruningSchedule(cfg.sparse.sparsity, METHOD_STEPS // 8,
                                    int(METHOD_STEPS * 0.75), max(DELTA_T * 10, 1)).target(1)
@@ -3455,6 +3622,11 @@ def method_train(torch, bsm, mm, fa, tk, method):
             for d in (expect, update, first):
                 d["masked_dx_merge"], d["masked_dw_merge"] = n_merges["dx"], n_merges["dw"]
         want = first if step == 1 else update if is_update else expect
+        if not masked:  # the pack the step ran on: the one it left, unless it updated
+            now = bs_dw_merges(torch, mm, cfg, state, MASKED_BATCH * TRAIN_SEQ)
+            want = dict(want, block_sparse_dw_merge=want.get(
+                "block_sparse_dw_merge", seen["bs_merges"] if is_update else now))
+            seen["bs_merges"] = now
         if rec["launches"] != want or not math.isfinite(rec["loss"]):
             raise AssertionError(f"{method} step {step}: {rec}, expected {want}")
         masks = tree_paths(state["masks"])
@@ -3585,13 +3757,15 @@ def main() -> int:
     # the run's own initial weights, masks, supersets and packs (seed 0;
     # the draws do not depend on the optimizer, so sgd keeps this copy small)
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
-    k2, k3 = bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg)
+    k2, k3, bs_merges = bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg)
     k10, k11 = flash_bwd_cases(torch, timer, fa)
     done("parity K2, K3, K10, K11")
     dense_check = train_dense_check(torch, cfg, state)
+    merges0 = tuple(bs_dw_merges(torch, mm, cfg, state, n) for n in (
+        TRAIN_BATCH * TRAIN_SEQ // cfg.microbatches, TRAIN_BATCH * TRAIN_SEQ))
     del state
     done("train step-0 check")
-    train_stats, train_launches = train_path(torch, bsm, fa, cfg)
+    train_stats, train_launches = train_path(torch, bsm, fa, mm, cfg, merges0)
     train_stats["step0_vs_dense"] = dense_check
     done("train")
 
@@ -3679,6 +3853,7 @@ def main() -> int:
     csrc, kern = "src/repro_torch/csrc/", "src/repro/kernels/"
     dx_merges = mcases["dx_merge"] + k1718["dx_merge"]
     dw_merges = mcases["dw_merge"] + k1718["dw_merge"]
+    bs_dw_merge_cases = bs_merges + k56["merge"]
     report = {"kernels": [
         summary("block_sparse_fwd", csrc + "block_sparse_fwd.cu",
                 kern + "block_sparse_matmul.py:223", k1),
@@ -3686,6 +3861,12 @@ def main() -> int:
                 kern + "block_sparse_matmul.py:243", k2),
         summary("block_sparse_dw", csrc + "block_sparse_bwd.cu",
                 kern + "block_sparse_matmul.py:265", k3),
+        # K3's and K6's split merge (block_sparse_dw_merge_kernel: the
+        # packed partials summed in order into dw's live blocks), where a
+        # timed case's plan splits
+        *([summary("block_sparse_dw_merge", csrc + "block_sparse_bwd.cu",
+                   kern + "block_sparse_matmul.py:265", bs_dw_merge_cases)]
+          if bs_dw_merge_cases else []),
         summary("flash_fwd", csrc + "flash_fwd.cu", kern + "flash_attention.py:103", k9),
         summary("flash_dq", csrc + "flash_bwd.cu", kern + "flash_attention.py:161", k10),
         summary("flash_dkv", csrc + "flash_bwd.cu", kern + "flash_attention.py:207", k11),
@@ -3733,7 +3914,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "phase_s": phase_s, "k1": k1, "k2": k2, "k3": k3, "k9": k9,
+        {"card": card, "phase_s": phase_s, "k1": k1, "k2": k2, "k3": k3,
+         "bs_dw_merge": bs_dw_merge_cases, "k9": k9,
          "k10": k10, "k11": k11, "engine": serve_stats, "train": train_stats,
          "masked_cases": mcases, "masked_engine": masked_serve_stats,
          "masked_train": masked_train_stats, "fused_train": fused_stats,

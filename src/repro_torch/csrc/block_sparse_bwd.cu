@@ -14,7 +14,8 @@
 // stochastically rounded to the bf16 grid), so the raw dw never reaches
 // memory.  The kernels, their design, their traps and their bound are in
 // block_sparse_bwd.cuh, shared with the grouped K5/K6/K8: K2/K3/K7 are
-// their bank of one group.
+// their bank of one group.  K3 runs on the GEMM core (gemm_core.cuh), K2
+// and K7 on the tile layer (tile_mma.cuh).
 #include "block_sparse_bwd.cuh"
 
 // K2: g (Mp, N), w (K, N), dx (Mp, K) row-major in the entry's element
@@ -34,20 +35,34 @@ extern "C" int block_sparse_dx_f32(const void* g, const void* w, const void* rid
 }
 
 // K3: x (Mp, K), g (Mp, N), dw (K, N) zero-filled by the caller; idx
-// (N/bn, width), cnt (N/bn,) int32.  Mp % 16 == 0.
-extern "C" int block_sparse_dw_bf16(const void* x, const void* g, const void* idx,
-                                    const void* cnt, void* dw, int Mp, int K, int N,
-                                    int width, int bn, int bk, void* stream) {
-  return launch_block_sparse_dw<__nv_bfloat16>(x, g, idx, cnt, dw, 1, Mp, K, N, width,
-                                               bn, bk, stream);
-}
+// (N/bn, width), cnt (N/bn,) int32.  Mp % 16 == 0; (tm, tn) a built wgrad
+// tile that holds the (bk, bn) block; with n_split > 1, part is the f32
+// workspace (n_split, 1, N/bn, width, bk, bn) and block_sparse_dw_merge_<S>
+// must follow.
+// block_sparse_dw_merge_<S> (after K3 and K6): the ordered sum of the
+// packed partials of a bank of G groups (G = 1 after K3) into dw's live
+// blocks.  block_sparse_dw_info_<S>: the launch of the wgrad on (tm, tn).
+#define DW_ENTRIES(S, T)                                                                 \
+  extern "C" int block_sparse_dw_##S(const void* x, const void* g, const void* idx,     \
+                                     const void* cnt, void* dw, void* part, int Mp,     \
+                                     int K, int N, int width, int bk, int bn, int tm,   \
+                                     int tn, int n_split, void* stream) {               \
+    return launch_block_sparse_dw<T>(x, g, idx, cnt, dw, part, 1, Mp, K, N, width, bk,  \
+                                     bn, tm, tn, n_split, stream);                      \
+  }                                                                                      \
+  extern "C" int block_sparse_dw_merge_##S(const void* part, const void* idx,           \
+                                           const void* cnt, void* dw, int G, int K,     \
+                                           int N, int width, int bk, int bn,            \
+                                           int n_split, void* stream) {                 \
+    return launch_block_sparse_dw_merge<T>(part, idx, cnt, dw, G, K, N, width, bk, bn,  \
+                                           n_split, stream);                            \
+  }                                                                                      \
+  extern "C" int block_sparse_dw_info_##S(int tm, int tn, int* out) {                   \
+    return block_sparse_dw_info<T>(tm, tn, out);                                         \
+  }
 
-extern "C" int block_sparse_dw_f32(const void* x, const void* g, const void* idx,
-                                   const void* cnt, void* dw, int Mp, int K, int N,
-                                   int width, int bn, int bk, void* stream) {
-  return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, 1, Mp, K, N, width, bn, bk,
-                                       stream);
-}
+DW_ENTRIES(bf16, __nv_bfloat16)
+DW_ENTRIES(f32, float)
 
 // K7: block_sparse_dw_fused_<x/g/w type>_<mom type>_<output type>; x (Mp,
 // K), g (Mp, N), w and mom (K, N), out (K, N) zero-filled by the caller;

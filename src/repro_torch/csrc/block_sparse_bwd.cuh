@@ -6,7 +6,8 @@
 // the new momentum mu * mom + x^T g + wd * w (epilogue.cuh), optionally
 // stochastically rounded to the bf16 grid, for every group g of the bank
 // (K2/K3/K7 are the bank of one).  The grid's third dimension is the
-// group, as K4 runs K1's kernel (block_sparse_fwd.cuh).
+// group (times the wgrad's split), as K4 runs K1's kernel
+// (block_sparse_fwd.cuh).
 //
 // Packs (core/pack.py), stacked over the groups at one shared width each:
 // the CSR ridx[g, k, :rcnt[g, k]] lists the active N-blocks of K-block row
@@ -16,21 +17,41 @@
 // in jnp (_scatter_packed_dw); here each block is written straight into the
 // zeroed dense dw (the wrapper allocates it with torch.zeros), which is the
 // same function: every live block is written once and padded slots write
-// nothing.
+// nothing, so dw is +0.0 off the pack whatever x and g hold.
 //
 // Design (no atomics; every sum in a fixed order, so results repeat run to
 // run): the TPU kernels carry their accumulators across a sequential grid
-// axis; here a loop inside one CTA takes its place.
+// axis; here a loop inside one CTA takes its place, and the wgrad may split
+// it into parts that a second kernel sums in order.
 //  * dgrad: one CTA of 8 warps per (K-block row k, m-tile of bm rows, group
 //    g), walking ridx[g, k, :rcnt[g, k]]; A = the g tile (bm x slab), B =
 //    the slab of W^T (slab x bk, staged transposed).  A row with rcnt = 0
 //    still writes its zero dx tile (dx comes from torch.empty), so a dead
 //    expert's dx rows are zeros.
-//  * wgrad: one CTA per (j, s, g) slot, looping over the M rows in slabs of
-//    32; A = x^T (bk x slab, staged transposed), B = the g slab (slab x bn).
-//    Slots s >= cnt[g, j] return at once: a dead expert's dw stays zero and
-//    no empty sum is taken.
-//  * fused wgrad (K7/K8): the wgrad's CTA, whose store reads the block's w
+//  * wgrad (K3/K6), on the GEMM core (gemm_core.cuh, as the masked wgrad
+//    K15/K18): one CTA per packed slot (s, j, g), grid dim x the slot so
+//    that the CTAs of one block column, which read the same g columns, run
+//    side by side.  The CTA owns the dw tile of its block, k0 = idx[g, j,
+//    s] * bk, n0 = j * bn, and walks the M rows in a cp.async ring of
+//    32-row slabs: A = x^T staged as x lies (gemm::ColsA, x's row stride K),
+//    B = g's slab (gemm::DenseRowsB, row stride N); mma.sync with
+//    register accumulators, bf16 on m16n8k16, f32 as 3xTF32 with the exact
+//    re-walk of a tile whose sums hold a NaN (an inf in x or g gives the
+//    plain version's +-inf).  A block smaller than the CTA tile (bk, bn
+//    multiples of 16 up to 128) runs in the smallest built tile that holds
+//    it (128 x 64 for bn <= 64, else 128 x 128): the block's edges k0 + bk
+//    and n0 + bn are the extents the copies zero-fill past and the store
+//    clips at, apart from the row strides.  No mask at the store: the block
+//    is live by construction.  Slots s >= cnt[g, j] return before any copy:
+//    a dead expert's dw stays zero and no empty sum is taken.  The host plan
+//    (kernels/masked_matmul.py::fwd_plan, entry "bs_dw", on the live CTAs)
+//    may split the M walk in n_split parts: each stores its f32 partial in
+//    the reference's packed layout (n_split, G, N/bn, width, bk, bn), padded
+//    slots writing nothing, and block_sparse_dw_merge_kernel sums each live
+//    slot's parts in order, rounds once and writes the block into dw: the
+//    merge moves the live blocks only.
+//  * fused wgrad (K7/K8): the old wgrad CTA on the tile layer, whose store
+//    reads the block's w
 //    and mom tiles and writes m_new in the output type (w's on the
 //    training path, f32 for a check before the rounding).  The reference
 //    wrote every slot of a packed array, zeroed the padded ones before sr
@@ -43,24 +64,27 @@
 // Each CTA loops to its own group's count, never to the shared width, so a
 // lopsided expert that widens the pack costs the others nothing but the
 // early return of their padded wgrad slots.
-// Products accumulate in f32 (tile_mma.cuh): bf16 on the tensor cores
-// (wmma), f32 in full-precision FFMA (the reference's f32 MLP and MoE
-// banks); each output is rounded once to the element type (dx: x's, dw:
-// w's, which the wrappers hand in alike).
+// K2, K5, K7 and K8 accumulate in f32 on the tile layer (tile_mma.cuh):
+// bf16 on the tensor cores (wmma), f32 in full-precision FFMA (the
+// reference's f32 MLP and MoE banks); K3/K6 as the GEMM core does.  Each
+// output is rounded once to the element type (dx: x's, dw: w's, which the
+// wrappers hand in alike).
 //
 // Bound on the H100: at the training shapes (M = 2048 rows, or an MoE
 // bank's capacity of ~176 rows per expert, 128x128 blocks) both do 2 * M *
 // 128 * 128 flops per active block and move the active weight/gradient
 // blocks plus x and g once: below the ~295 flop/byte ridge in bf16, so
 // bytes bound them there; in f32 the FFMA peak (67 TFLOP/s) bounds them at
-// M = 2048, bytes at an expert's few hundred rows.  K7/K8 add the reads of
-// the superset blocks' w and mom tiles (and write m_new there instead of
-// dw): a few percent more bytes, the same flops.  This first version uses
-// synchronous loads and wmma/FFMA (no cp.async/TMA, no wgmma); its times
-// against the bound are in PERF.md.
+// M = 2048, bytes at an expert's few hundred rows (K3/K6's f32 runs as
+// 3xTF32 on the tensor cores, 495 TFLOP/s of TF32 for three products a
+// multiply-add).  K7/K8 add the reads of the superset blocks' w and mom
+// tiles (and write m_new there instead of dw): a few percent more bytes, the
+// same flops.  K2, K5, K7 and K8 use synchronous loads and wmma/FFMA (no
+// cp.async/TMA, no wgmma); the times against the bound are in PERF.md.
 #pragma once
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "gemm_launch.cuh"
 
 namespace {
 
@@ -106,35 +130,99 @@ block_sparse_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
   });
 }
 
-// x (G, Mp, K), g (G, Mp, N), idx (G, N/bn, width), cnt (G, N/bn), dw (G,
-// K, N) zero-filled by the caller.
-template <typename T>
-__global__ void __launch_bounds__(tile::kThreads)
-block_sparse_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                       const int* __restrict__ idx, const int* __restrict__ cnt,
-                       T* __restrict__ dw, int Mp, int K, int N, int width,
-                       int bn, int bk) {
-  const int j = blockIdx.x, s = blockIdx.y;
-  const size_t grp = blockIdx.z, nnb = N / bn;
-  if (s >= cnt[grp * nnb + j]) return;  // padded slot: dw stays zero there
+// K3/K6 on the GEMM core.  x (G, Mp, K), g (G, Mp, N), idx (G, N/bn,
+// width), cnt (G, N/bn), dw (G, K, N) zero-filled by the caller; C a
+// wgrad configuration (A = x^T by ColsA, B = g by DenseRowsB) whose tile
+// holds a (bk, bn) block; blockIdx = (slot s, block column j, group *
+// n_split + split).  Split sp walks the slabs [sp n / n_split, (sp + 1) n /
+// n_split) of the n = ceil(Mp / 32) and, when n_split > 1, stores its f32
+// partial into the packed part (n_split, G, N/bn, width, bk, bn) in place
+// of dw.
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::MIN_CTAS)
+block_sparse_dw_gemm_kernel(const typename C::Type* __restrict__ x,
+                            const typename C::Type* __restrict__ g,
+                            const int* __restrict__ idx, const int* __restrict__ cnt,
+                            typename C::Type* __restrict__ dw, float* __restrict__ part,
+                            int G, int Mp, int K, int N, int width, int bk, int bn,
+                            int n_split) {
+  using T = typename C::Type;
+  const int s = blockIdx.x, j = blockIdx.y;
+  const int grp = blockIdx.z / n_split, sp = blockIdx.z % n_split;
+  const size_t col = (size_t)grp * (N / bn) + j;  // the group's block column
+  if (s >= cnt[col]) return;  // a padded slot: dw stays zero there, part unwritten
   extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);               // bk x (kSlab + pad): x^T slab
-  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());  // kSlab x (bn + pad)
-  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
-
-  T* dwg = dw + grp * K * N;
-  const int k0 = idx[(grp * nnb + j) * width + s] * bk;
-  const int n0 = j * bn;
-
-  tile::Acc<T> acc;
-  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
-  acc.store(scratch, bk, bn, [&](int r, int c, float v) {
-    dwg[(size_t)(k0 + r) * N + n0 + c] = tile::from_float<T>(v);
-  });
+  const int k0 = idx[col * width + s] * bk, n0 = j * bn;
+  const T* xg = x + (size_t)grp * Mp * K;
+  const T* gg = g + (size_t)grp * Mp * N;
+  const int n_slabs = (Mp + gemm::kSlab - 1) / gemm::kSlab;
+  const int s0 = sp * n_slabs / n_split, s1 = (sp + 1) * n_slabs / n_split;
+  // A = x^T: x's columns k0.. (row stride K), B: g's columns n0.. (row
+  // stride N); the block's own edges k0 + bk and n0 + bn are the extents
+  // the copies zero-fill past and the store clips at
+  gemm::Warp<C> warp;
+  warp.zero();
+  gemm::walk<C>(warp, xg, K, gg, N, nullptr, k0 + bk, n0 + bn, Mp, k0, n0, s0, s1, smem);
+  if constexpr (sizeof(T) == 4) {
+    // a NaN in f32's sums: an inf or NaN input; walk again with the exact
+    // split, which keeps an inf operand's products inf (gemm_core.cuh)
+    if (__syncthreads_or(warp.any_nan())) {
+      warp.zero();
+      gemm::walk<C, true>(warp, xg, K, gg, N, nullptr, k0 + bk, n0 + bn, Mp, k0, n0, s0, s1,
+                          smem);
+    }
+  }
+  if (n_split == 1) {
+    T* o = dw + (size_t)grp * K * N;
+    gemm::store(warp, k0 + bk, n0 + bn, k0, n0, [&](int r, int c, float v0, float v1) {
+      gemm::store2(o + (size_t)r * N + c, v0, v1);
+    });
+  } else {
+    float* p = part + (((size_t)sp * G * (N / bn) + col) * width + s) * bk * bn;
+    gemm::store(warp, k0 + bk, n0 + bn, k0, n0, [&](int r, int c, float v0, float v1) {
+      gemm::store2(p + (r - k0) * bn + c - n0, v0, v1);
+    });
+  }
 }
 
-// K7/K8: x, g and w in T, mom in TM, the new momentum in TO; out (G, K, N)
-// zero-filled by the caller.
+// The split merge of K3/K6: for every live slot (s, j, group), the sum over
+// sp of part[sp] at the slot (sp = 0, 1, ... in order), rounded once to dw's
+// type and written into the block's place in dw.  Padded slots are neither
+// read nor written; the merge moves the live blocks only.  A block's
+// float4s are spread over kMergeChunks CTAs (blockIdx.z = group *
+// kMergeChunks + chunk) and each thread's loads are unrolled: one CTA a
+// block kept too few loads in flight (a 70-block merge took 19 µs for 12
+// MB on an H100, PERF.md).
+constexpr int kMergeChunks = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+block_sparse_dw_merge_kernel(const float* __restrict__ part, const int* __restrict__ idx,
+                             const int* __restrict__ cnt, T* __restrict__ dw, int G, int K,
+                             int N, int width, int bk, int bn, int n_split) {
+  const int s = blockIdx.x, grp = blockIdx.z / kMergeChunks;
+  const size_t col = (size_t)grp * (N / bn) + blockIdx.y;
+  if (s >= cnt[col]) return;
+  const int k0 = idx[col * width + s] * bk, n0 = blockIdx.y * bn;
+  const size_t area = (size_t)bk * bn, plane4 = (size_t)G * (N / bn) * width * area / 4;
+  const float4* p = reinterpret_cast<const float4*>(part + (col * width + s) * area);
+  T* o = dw + ((size_t)grp * K + k0) * N + n0;
+  const int n4 = bk * bn / 4, per = (n4 + kMergeChunks - 1) / kMergeChunks;
+  const int i0 = (blockIdx.z % kMergeChunks) * per, i1 = min(n4, i0 + per);
+#pragma unroll 4
+  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+    float4 v = p[i];
+    for (int sp = 1; sp < n_split; ++sp) {
+      const float4 q = p[i + sp * plane4];
+      v.x += q.x;
+      v.y += q.y;
+      v.z += q.z;
+      v.w += q.w;
+    }
+    gemm::store4(o + (size_t)(4 * i / bn) * N + 4 * i % bn, v);
+  }
+}
+
 template <typename T, typename TM, typename TO>
 __global__ void __launch_bounds__(tile::kThreads)
 block_sparse_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -186,17 +274,47 @@ int launch_block_sparse_dx(const void* g, const void* w, const void* ridx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3/K6: the wgrad kernel on the tile (tm, tn) (a built wgrad tile that
+// holds the block: bk <= tm, bn <= tn), split in n_split; with n_split > 1
+// part is the workspace (n_split, G, N/bn, width, bk, bn) f32 and
+// launch_block_sparse_dw_merge must follow.
 template <typename T>
-int launch_block_sparse_dw(const void* x, const void* g, const void* idx,
-                           const void* cnt, void* dw, int G, int Mp, int K, int N,
-                           int width, int bn, int bk, void* stream) {
-  const dim3 grid(N / bn, width, G);
-  block_sparse_dw_kernel<T><<<grid, tile::kThreads, bwd_smem_bytes<T>(bk, bn),
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const int*>(idx), static_cast<const int*>(cnt),
-      static_cast<T*>(dw), Mp, K, N, width, bn, bk);
+int launch_block_sparse_dw(const void* x, const void* g, const void* idx, const void* cnt,
+                           void* dw, void* part, int G, int Mp, int K, int N, int width,
+                           int bk, int bn, int tm, int tn, int n_split, void* stream) {
+  if (bk > tm || bn > tn) return static_cast<int>(cudaErrorInvalidValue);
+  return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(tm, tn, [&](auto tag) {
+    using C = typename decltype(tag)::type;
+    const auto kernel = block_sparse_dw_gemm_kernel<C>;
+    cudaError_t err = gemm::prepare(kernel, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(width, N / bn, G * n_split);
+    kernel<<<grid, C::kThreads, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const int*>(idx),
+        static_cast<const int*>(cnt), static_cast<T*>(dw), static_cast<float*>(part), G, Mp,
+        K, N, width, bk, bn, n_split);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_block_sparse_dw_merge(const void* part, const void* idx, const void* cnt, void* dw,
+                                 int G, int K, int N, int width, int bk, int bn, int n_split,
+                                 void* stream) {
+  const dim3 grid(width, N / bn, G * kMergeChunks);
+  block_sparse_dw_merge_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<const int*>(idx),
+      static_cast<const int*>(cnt), static_cast<T*>(dw), G, K, N, width, bk, bn, n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out: gemm::launch_info of the wgrad kernel on the tile (tm, tn).
+template <typename T>
+int block_sparse_dw_info(int tm, int tn, int* out) {
+  return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(tm, tn, [&](auto tag) {
+    using C = typename decltype(tag)::type;
+    return gemm::launch_info(block_sparse_dw_gemm_kernel<C>, C::SMEM, C::kThreads, out);
+  });
 }
 
 template <typename T, typename TM, typename TO>

@@ -63,21 +63,24 @@ extern "C" int block_sparse_grouped_dx_f32(const void* g, const void* w,
 }
 
 // K6: x (G, Mp, K), g (G, Mp, N), dw (G, K, N) zero-filled by the caller;
-// idx (G, N/bn, width), cnt (G, N/bn) int32.  Mp % 16 == 0.
-extern "C" int block_sparse_grouped_dw_bf16(const void* x, const void* g,
-                                            const void* idx, const void* cnt, void* dw,
-                                            int G, int Mp, int K, int N, int width,
-                                            int bn, int bk, void* stream) {
-  return launch_block_sparse_dw<__nv_bfloat16>(x, g, idx, cnt, dw, G, Mp, K, N, width,
-                                               bn, bk, stream);
+// idx (G, N/bn, width), cnt (G, N/bn) int32.  Mp % 16 == 0; (tm, tn) a
+// built wgrad tile that holds the (bk, bn) block; with n_split > 1, part is
+// the f32 workspace (n_split, G, N/bn, width, bk, bn) and
+// block_sparse_bwd.cu's block_sparse_dw_merge_<S> must follow.
+extern "C" int block_sparse_grouped_dw_bf16(const void* x, const void* g, const void* idx,
+                                            const void* cnt, void* dw, void* part, int G,
+                                            int Mp, int K, int N, int width, int bk, int bn,
+                                            int tm, int tn, int n_split, void* stream) {
+  return launch_block_sparse_dw<__nv_bfloat16>(x, g, idx, cnt, dw, part, G, Mp, K, N, width,
+                                               bk, bn, tm, tn, n_split, stream);
 }
 
 extern "C" int block_sparse_grouped_dw_f32(const void* x, const void* g, const void* idx,
-                                           const void* cnt, void* dw, int G, int Mp,
-                                           int K, int N, int width, int bn, int bk,
-                                           void* stream) {
-  return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, G, Mp, K, N, width, bn, bk,
-                                       stream);
+                                           const void* cnt, void* dw, void* part, int G,
+                                           int Mp, int K, int N, int width, int bk, int bn,
+                                           int tm, int tn, int n_split, void* stream) {
+  return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, part, G, Mp, K, N, width, bk, bn,
+                                       tm, tn, n_split, stream);
 }
 
 // K8: block_sparse_grouped_dw_fused_<x/g/w type>_<mom type>_<output type>;

@@ -1,7 +1,8 @@
 // A CTA-level GEMM main loop on mma.sync with register-resident
 // accumulators: the core of the masked forward (K13, and K16 with the
-// bank's group as grid dim z), the masked dgrad (K14, and K17 likewise) and
-// the masked wgrad (K15, and K18 likewise), built so that the other matmul
+// bank's group as grid dim z), the masked dgrad (K14, and K17 likewise),
+// the masked wgrad (K15, and K18 likewise) and the block-sparse wgrad (K3,
+// and K6 likewise: block_sparse_bwd.cuh), built so that the other matmul
 // kernels can move onto it one by one.
 //
 // A CTA owns one BM x BN tile of C = A @ B, A (rows x L), and walks the
@@ -10,7 +11,7 @@
 // two policies:
 //  * RowsA (K13, K14, K16, K17): A (rows x L) row-major: a slab is BM A
 //    rows of kSlab contraction elements.
-//  * ColsA (K15, K18): A = x^T, x (L x rows) row-major: a slab is kSlab x
+//  * ColsA (K15, K18, K3, K6): A = x^T, x (L x rows) row-major: a slab is kSlab x
 //    rows of BM elements each, staged as they lie (no transpose through
 //    registers or scalar stores); ldmatrix.trans (bf16) or scalar loads
 //    (f32) read the fragments.
@@ -20,13 +21,17 @@
 //  * MaskedColsB (K14, K17): B = (w * m)^T, w (cols x L) row-major: a slab
 //    is BN w rows of kSlab contraction elements, staged as they lie -- the
 //    "n-major" B operand that mma.sync reads, so nothing is transposed.
-//  * DenseRowsB (K15, K18): B = g (L x cols) row-major, staged as
-//    MaskedRowsB stages w, with no mask (the wgrad's mask multiplies the
-//    sum at the store, outside this header).
+//  * DenseRowsB (K15, K18, K3, K6): B = g (L x cols) row-major, staged as
+//    MaskedRowsB stages w, with no mask (the masked wgrad's mask multiplies
+//    the sum at the store, outside this header).
 // Rows, columns and L past their extents are zero-filled by the copies and
 // never stored, so no extent has to be a multiple of a tile (cols, and
 // ColsA's rows, must be multiples of 16: one 16-byte mask chunk, two bf16
-// or four f32 copies; RowsA's and MaskedColsB's L likewise).
+// or four f32 copies; RowsA's and MaskedColsB's L likewise).  Each operand's
+// row stride (lda, ldb) is an argument apart from the extents: the masked
+// kernels pass their dense operands' own (the policies' dense_ld), the
+// block-sparse wgrad walks one block of a wider x and g, the block's edges
+// as the extents.
 //
 //  * The ring.  STAGES stages in shared memory, each an A tile, a B tile
 //    and, for a masked B, the B tile's mask (kSlab x BN bytes), filled by
@@ -81,9 +86,10 @@
 // on the same inputs give the same bits.
 //
 // What the later matmul kernels need and this header does not build yet:
-// the fused SGD wgrad (K19, K20) runs the same walk as K15 and K18 and
-// differs only at the store; the block-sparse kernels (K1-K8) need a walk
-// over a packed list of active blocks.
+// the fused SGD wgrad (K19, K20, and K7, K8 over the packed blocks) runs
+// the same walk as K15, K18, K3 and K6 and differs only at the store; the
+// block-sparse forward and dgrad (K1, K2, K4, K5) need a walk whose
+// contraction visits a packed list of active blocks.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -114,11 +120,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 struct RowsA {
   __host__ __device__ static constexpr int ld(int e) { return kSlab + 16 / e; }
   __host__ __device__ static constexpr int bytes(int bm, int e) { return bm * ld(e) * e; }
+  // the row stride of a dense A (rows x L)
+  __host__ __device__ static constexpr int dense_ld(int, int L) { return L; }
 
-  // Start this thread's copies of A's slab l0: rows m0.. of a (rows x L).
+  // Start this thread's copies of A's slab l0: rows m0.. of a (rows x L,
+  // row stride lda).
   template <class C>
-  __device__ __forceinline__ static void load(uint32_t st, const typename C::Type* a, int rows,
-                                              int L, int m0, int l0) {
+  __device__ __forceinline__ static void load(uint32_t st, const typename C::Type* a, int lda,
+                                              int rows, int L, int m0, int l0) {
     constexpr int per_row = kSlab / C::kPer, n = C::BM * per_row;
 #pragma unroll
     for (int i = 0; i < (n + C::kThreads - 1) / C::kThreads; ++i) {
@@ -127,7 +136,7 @@ struct RowsA {
         const int r = c / per_row, k = (c % per_row) * C::kPer;
         const bool ok = m0 + r < rows && l0 + k < L;
         ptx::cp_async16(st + (r * ld(C::E) + k) * C::E,
-                        a + (ok ? (size_t)(m0 + r) * L + l0 + k : 0), ok);
+                        a + (ok ? (size_t)(m0 + r) * lda + l0 + k : 0), ok);
       }
     }
   }
@@ -163,10 +172,13 @@ struct RowsA {
 struct ColsA {
   __host__ __device__ static constexpr int ld(int bm) { return bm + 8; }
   __host__ __device__ static constexpr int bytes(int bm, int e) { return kSlab * ld(bm) * e; }
+  // the row stride of a dense x (L x rows)
+  __host__ __device__ static constexpr int dense_ld(int rows, int) { return rows; }
 
+  // x's row stride lda; columns m0.. up to the extent rows
   template <class C>
-  __device__ __forceinline__ static void load(uint32_t st, const typename C::Type* a, int rows,
-                                              int L, int m0, int l0) {
+  __device__ __forceinline__ static void load(uint32_t st, const typename C::Type* a, int lda,
+                                              int rows, int L, int m0, int l0) {
     constexpr int per_row = C::BM / C::kPer, n = kSlab * per_row;
 #pragma unroll
     for (int i = 0; i < (n + C::kThreads - 1) / C::kThreads; ++i) {
@@ -175,7 +187,7 @@ struct ColsA {
         const int r = c / per_row, col = (c % per_row) * C::kPer;
         const bool ok = l0 + r < L && m0 + col < rows;
         ptx::cp_async16(st + (r * ld(C::BM) + col) * C::E,
-                        a + (ok ? (size_t)(l0 + r) * rows + m0 + col : 0), ok);
+                        a + (ok ? (size_t)(l0 + r) * lda + m0 + col : 0), ok);
       }
     }
   }
@@ -229,6 +241,8 @@ struct ColsA {
 struct MaskedRowsB {
   static constexpr bool kMasked = true, kRowTilesFastest = false;
   __host__ __device__ static constexpr int ld(int bn) { return bn + 8; }
+  // the row stride of a dense w (L x cols)
+  __host__ __device__ static constexpr int dense_ld(int, int cols) { return cols; }
   __host__ __device__ static constexpr int bytes(int bn, int e) { return kSlab * ld(bn) * e; }
   __host__ __device__ static constexpr int mask_bytes(int bn) { return kSlab * bn; }
   __host__ __device__ static constexpr int chunks(int bn) { return kSlab * bn / 16; }
@@ -241,14 +255,14 @@ struct MaskedRowsB {
     ms = r * C::BN + col;
     bs = r * ld(C::BN) + col;
   }
-  // Chunk c's first element in w and m for slab l0 of the tile at column
-  // n0; false past an extent.
+  // Chunk c's first element in w and m (row stride ld) for slab l0 of the
+  // tile at column n0; false past an extent.
   template <class C>
-  __device__ __forceinline__ static bool source(int c, int L, int cols, int n0, int l0,
+  __device__ __forceinline__ static bool source(int c, int ld, int L, int cols, int n0, int l0,
                                                 size_t& src) {
     const int r = c / (C::BN / 16), col = (c % (C::BN / 16)) * 16;
     const bool ok = l0 + r < L && n0 + col < cols;
-    src = ok ? (size_t)(l0 + r) * cols + n0 + col : 0;
+    src = ok ? (size_t)(l0 + r) * ld + n0 + col : 0;
     return ok;
   }
 
@@ -291,6 +305,8 @@ struct MaskedRowsB {
 struct MaskedColsB {
   static constexpr bool kMasked = true, kRowTilesFastest = true;
   __host__ __device__ static constexpr int ld(int e) { return kSlab + 16 / e; }
+  // the row stride of a dense w (cols x L)
+  __host__ __device__ static constexpr int dense_ld(int L, int) { return L; }
   __host__ __device__ static constexpr int bytes(int bn, int e) { return bn * ld(e) * e; }
   __host__ __device__ static constexpr int mask_bytes(int bn) { return bn * kSlab; }
   __host__ __device__ static constexpr int chunks(int bn) { return bn * kSlab / 16; }
@@ -302,11 +318,11 @@ struct MaskedColsB {
     bs = r * ld(C::E) + k;
   }
   template <class C>
-  __device__ __forceinline__ static bool source(int c, int L, int cols, int n0, int l0,
+  __device__ __forceinline__ static bool source(int c, int ld, int L, int cols, int n0, int l0,
                                                 size_t& src) {
     const int r = c >> 1, k = (c & 1) * 16;
     const bool ok = n0 + r < cols && l0 + k < L;
-    src = ok ? (size_t)(n0 + r) * L + l0 + k : 0;
+    src = ok ? (size_t)(n0 + r) * ld + l0 + k : 0;
     return ok;
   }
 
@@ -342,10 +358,11 @@ struct MaskedColsB {
   }
 };
 
-// K15/K18: B = g (L x cols) row-major, staged as MaskedRowsB stages w (the
-// same chunks, rows and fragments) with no mask chunk and no mask pass.
-// The grid walks the column tiles fastest: neighbouring CTAs share A's
-// tile, x's columns (row tiles fastest timed the same on an H100, PERF.md).
+// K15/K18 and K3/K6: B = g (L x cols) row-major, staged as MaskedRowsB
+// stages w (the same chunks, rows and fragments) with no mask chunk and no
+// mask pass.  The masked wgrad's grid walks the column tiles fastest:
+// neighbouring CTAs share A's tile, x's columns (row tiles fastest timed the
+// same on an H100, PERF.md).
 struct DenseRowsB : MaskedRowsB {
   static constexpr bool kMasked = false, kRowTilesFastest = false;
   __host__ __device__ static constexpr int mask_bytes(int) { return 0; }
@@ -375,10 +392,12 @@ struct Cfg {
 };
 
 // Start this thread's copies of B's slab l0 and, for a masked B, its mask
-// (the tile at column n0) into the stage at shared-window address st.
+// (the tile at column n0; row stride ldb, the mask's as B's) into the stage
+// at shared-window address st.
 template <class C>
 __device__ __forceinline__ void load_b(uint32_t st, const typename C::Type* b,
-                                       const uint8_t* m, int L, int cols, int n0, int l0) {
+                                       const uint8_t* m, int ldb, int L, int cols, int n0,
+                                       int l0) {
   using P = typename C::StageB;
   constexpr int n = P::chunks(C::BN);
 #pragma unroll
@@ -388,7 +407,7 @@ __device__ __forceinline__ void load_b(uint32_t st, const typename C::Type* b,
       int ms, bs;
       size_t src;
       P::template chunk<C>(c, ms, bs);
-      const bool ok = P::template source<C>(c, L, cols, n0, l0, src);
+      const bool ok = P::template source<C>(c, ldb, L, cols, n0, l0, src);
       if constexpr (P::kMasked) ptx::cp_async16(st + C::A_BYTES + C::B_BYTES + ms, m + src, ok);
 #pragma unroll
       for (int j = 0; j < 16 / C::kPer; ++j)
@@ -549,14 +568,15 @@ struct Warp<C, float> {
   }
 };
 
-// The CTA's walk over slabs [s0, s1) of L: A (as C::StageA lays it out)
-// tile rows m0.., B and its mask (as C::StageB lays them out; m unread for
-// a dense B) tile columns n0..; warp w owns warp tile (w / WN, w % WN).
-// smem: C::SMEM bytes of dynamic shared memory.  kExact: f32's exact split.
+// The CTA's walk over slabs [s0, s1) of L: A (as C::StageA lays it out,
+// row stride lda) tile rows m0.., B and its mask (as C::StageB lays them
+// out, row stride ldb; m unread for a dense B) tile columns n0.., rows,
+// cols and L the extents; warp w owns warp tile (w / WN, w % WN).  smem:
+// C::SMEM bytes of dynamic shared memory.  kExact: f32's exact split.
 template <class C, bool kExact = false>
-__device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a,
-                                     const typename C::Type* b, const uint8_t* m, int rows,
-                                     int cols, int L, int m0, int n0, int s0, int s1,
+__device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a, int lda,
+                                     const typename C::Type* b, int ldb, const uint8_t* m,
+                                     int rows, int cols, int L, int m0, int n0, int s0, int s1,
                                      unsigned char* smem) {
   using A = typename C::StageA;
   const uint32_t base = ptx::smem_addr(smem);
@@ -564,8 +584,8 @@ __device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a,
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
     if (s < n) {
-      A::template load<C>(base + s * C::STAGE_BYTES, a, rows, L, m0, (s0 + s) * kSlab);
-      load_b<C>(base + s * C::STAGE_BYTES, b, m, L, cols, n0, (s0 + s) * kSlab);
+      A::template load<C>(base + s * C::STAGE_BYTES, a, lda, rows, L, m0, (s0 + s) * kSlab);
+      load_b<C>(base + s * C::STAGE_BYTES, b, m, ldb, L, cols, n0, (s0 + s) * kSlab);
     }
     ptx::cp_async_commit();  // empty groups keep the count uniform
   }
@@ -577,8 +597,8 @@ __device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a,
     const int nx = t + C::STAGES - 1;
     if (nx < n) {
       const uint32_t dst = base + (nx % C::STAGES) * C::STAGE_BYTES;
-      A::template load<C>(dst, a, rows, L, m0, (s0 + nx) * kSlab);
-      load_b<C>(dst, b, m, L, cols, n0, (s0 + nx) * kSlab);
+      A::template load<C>(dst, a, lda, rows, L, m0, (s0 + nx) * kSlab);
+      load_b<C>(dst, b, m, ldb, L, cols, n0, (s0 + nx) * kSlab);
     }
     ptx::cp_async_commit();
     warp.template slab<kExact>(base + st * C::STAGE_BYTES, wm, wn);

@@ -81,11 +81,10 @@
 // 3xTF32 does three tensor-core products per f32 product.  The times
 // against the bound are in PERF.md.
 #include <algorithm>
-#include <type_traits>
 
 #include "common.cuh"
 #include "epilogue.cuh"
-#include "gemm_core.cuh"
+#include "gemm_launch.cuh"
 
 namespace {
 
@@ -138,40 +137,6 @@ int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
       static_cast<const TM*>(mom), static_cast<TO*>(out), Mp, K, N, bn, bk, seed, mu,
       wd, sr);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K13-K18 on the GEMM core.  The (BM, BN) tiles the host plan picks from
-// (kernels/masked_matmul.py::FWD_TILES): 128 x 128 for more than 64 rows
-// (128 x 64 where the caller caps the column tile or a bf16 wgrad walks
-// one slab), 16 x 64 for decode (not the wgrad's); WM x WN warps, ring
-// stages, resident CTAs an SM.  The forward (StageB = MaskedRowsB), the
-// dgrad (MaskedColsB) and the wgrad (DenseRowsB, StageA = ColsA) share the
-// numbers.
-template <typename T, int BM, int BN, class StageB, class StageA> struct TileCfg;
-template <class B, class A> struct TileCfg<__nv_bfloat16, 128, 128, B, A> {
-  using C = gemm::Cfg<__nv_bfloat16, 128, 128, 2, 4, 4, 2, B, A>;
-};
-template <class B, class A> struct TileCfg<__nv_bfloat16, 128, 64, B, A> {
-  using C = gemm::Cfg<__nv_bfloat16, 128, 64, 4, 2, 4, 2, B, A>;
-};
-template <class B, class A> struct TileCfg<__nv_bfloat16, 16, 64, B, A> {
-  using C = gemm::Cfg<__nv_bfloat16, 16, 64, 1, 4, 4, 4, B, A>;
-};
-template <class B, class A> struct TileCfg<float, 128, 128, B, A> {
-  using C = gemm::Cfg<float, 128, 128, 2, 4, 4, 1, B, A>;
-};
-template <class B, class A> struct TileCfg<float, 128, 64, B, A> {
-  using C = gemm::Cfg<float, 128, 64, 4, 2, 3, 1, B, A>;
-};
-template <class B, class A> struct TileCfg<float, 16, 64, B, A> {
-  using C = gemm::Cfg<float, 16, 64, 1, 4, 4, 4, B, A>;
-};
-
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<uint32_t*>(p) = ptx::pack_bf16(v0, v1);
 }
 
 // The wgrad's store reads the mask of its output tile: a CTA stages it
@@ -232,13 +197,14 @@ masked_gemm_kernel(const typename C::Type* __restrict__ a,
   const int s0 = s * n_slabs / n_split, s1 = (s + 1) * n_slabs / n_split;
   gemm::Warp<C> warp;
   warp.zero();
-  gemm::walk<C>(warp, ag, bg, mg, rows, cols, L, m0, n0, s0, s1, smem);
+  const int lda = C::StageA::dense_ld(rows, L), ldb = C::StageB::dense_ld(L, cols);
+  gemm::walk<C>(warp, ag, lda, bg, ldb, mg, rows, cols, L, m0, n0, s0, s1, smem);
   if constexpr (sizeof(T) == 4) {
     // a NaN in f32's sums: an inf or NaN input; walk again with the exact
     // split, which keeps an inf operand's products inf (gemm_core.cuh)
     if (__syncthreads_or(warp.any_nan())) {
       warp.zero();
-      gemm::walk<C, true>(warp, ag, bg, mg, rows, cols, L, m0, n0, s0, s1, smem);
+      gemm::walk<C, true>(warp, ag, lda, bg, ldb, mg, rows, cols, L, m0, n0, s0, s1, smem);
     }
   }
   if (n_split == 1) {
@@ -246,26 +212,20 @@ masked_gemm_kernel(const typename C::Type* __restrict__ a,
     gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float v0, float v1) {
       const size_t i = (size_t)r * cols + c;
       if constexpr (kMaskB) {
-        store2(og + i, v0, v1);
+        gemm::store2(og + i, v0, v1);
       } else {  // the pair's two mask bytes (c even), one rounding after
         const unsigned mb = *reinterpret_cast<const uint16_t*>(
             tile_mask + (r - m0) * kTileMaskLd<C> + c - n0);
-        store2(og + i, v0 * static_cast<float>(mb & 0xffu), v1 * static_cast<float>(mb >> 8));
+        gemm::store2(og + i, v0 * static_cast<float>(mb & 0xffu),
+                     v1 * static_cast<float>(mb >> 8));
       }
     });
   } else {
     float* pg = part + ((size_t)s * G + g) * rows * cols;
     gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float v0, float v1) {
-      store2(pg + (size_t)r * cols + c, v0, v1);
+      gemm::store2(pg + (size_t)r * cols + c, v0, v1);
     });
   }
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(ptx::pack_bf16(v.x, v.y), ptx::pack_bf16(v.z, v.w));
 }
 
 // The split merge of K13, K14, K16 and K17: y[i] = sum over s of
@@ -285,7 +245,7 @@ masked_merge_kernel(const float* __restrict__ part, T* __restrict__ y, size_t n4
       v.z += p.z;
       v.w += p.w;
     }
-    store4(y + 4 * i, v);
+    gemm::store4(y + 4 * i, v);
   }
 }
 
@@ -312,32 +272,8 @@ masked_dw_merge_kernel(const float* __restrict__ part, const uint8_t* __restrict
     v.y *= static_cast<float>(mb.y);
     v.z *= static_cast<float>(mb.z);
     v.w *= static_cast<float>(mb.w);
-    store4(dw + 4 * i, v);
+    gemm::store4(dw + 4 * i, v);
   }
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
-template <class C> struct Tag { using type = C; };
-
-// f(Tag<Cfg>) for the configuration of tile (bm, bn) with B staged by
-// StageB and A by StageA; cudaErrorInvalidValue for a tile the kernel is
-// not built for.  The wgrad (StageA = ColsA) has no 16-row tile: its rows
-// are K, never a decode's (kernels/masked_matmul.py::DW_TILES).
-template <typename T, class StageB, class StageA = gemm::RowsA, class F>
-int with_tile(int bm, int bn, F f) {
-  if (bm == 128 && bn == 128) return f(Tag<typename TileCfg<T, 128, 128, StageB, StageA>::C>{});
-  if (bm == 128 && bn == 64) return f(Tag<typename TileCfg<T, 128, 64, StageB, StageA>::C>{});
-  if constexpr (std::is_same<StageA, gemm::RowsA>::value)
-    if (bm == 16 && bn == 64) return f(Tag<typename TileCfg<T, 16, 64, StageB, StageA>::C>{});
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <class C>
@@ -345,7 +281,7 @@ int launch_gemm(const void* a, const void* b, const void* m, void* out, void* pa
                 int rows, int L, int cols, int n_split, void* stream) {
   using T = typename C::Type;
   const auto kernel = masked_gemm_kernel<C>;
-  cudaError_t err = prepare(kernel, smem_bytes_of<C>());
+  cudaError_t err = gemm::prepare(kernel, smem_bytes_of<C>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned row_tiles = (rows + C::BM - 1) / C::BM, col_tiles = (cols + C::BN - 1) / C::BN;
   const dim3 grid(C::StageB::kRowTilesFastest ? row_tiles : col_tiles,
@@ -379,25 +315,10 @@ int launch_dw_merge(const void* part, const void* m, void* dw, long long plane, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = {CTAs resident per SM, registers a thread, dynamic shared bytes,
-// local (spill) bytes a thread, threads a CTA} of configuration C.
+// out: gemm::launch_info of configuration C.
 template <class C>
 int gemm_info(int* out) {
-  const auto kernel = masked_gemm_kernel<C>;
-  cudaError_t err = prepare(kernel, smem_bytes_of<C>());
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, C::kThreads,
-                                                        smem_bytes_of<C>());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = ctas;
-  out[1] = attr.numRegs;
-  out[2] = smem_bytes_of<C>();
-  out[3] = static_cast<int>(attr.localSizeBytes);
-  out[4] = C::kThreads;
-  return 0;
+  return gemm::launch_info(masked_gemm_kernel<C>, smem_bytes_of<C>(), C::kThreads, out);
 }
 
 }  // namespace
@@ -415,53 +336,53 @@ int gemm_info(int* out) {
 // masked_merge_<S> (masked_dw_merge_<S> after the wgrad, with m) must
 // follow to write the output.  masked_<dir>_info_<S>: the launch of tile
 // (bm, bn).
-#define GEMM_ENTRIES(S, T)                                                         \
-  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,      \
-                                void* y, void* part, int G, int Mp, int K, int N, \
-                                int bm, int bn, int n_split, void* stream) {      \
-    return with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {                 \
-      return launch_gemm<typename decltype(tag)::type>(x, w, m, y, part, G, Mp, K, \
-                                                       N, n_split, stream);        \
-    });                                                                            \
-  }                                                                                \
-  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,       \
-                               void* dx, void* part, int G, int Mp, int K, int N, \
-                               int bm, int bn, int n_split, void* stream) {       \
-    return with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {                 \
-      return launch_gemm<typename decltype(tag)::type>(g, w, m, dx, part, G, Mp, N,\
-                                                       K, n_split, stream);        \
-    });                                                                            \
-  }                                                                                \
-  extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,       \
-                               void* dw, void* part, int G, int Mp, int K, int N, \
-                               int bm, int bn, int n_split, void* stream) {       \
-    return with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {     \
-      return launch_gemm<typename decltype(tag)::type>(x, g, m, dw, part, G, K, Mp,\
-                                                       N, n_split, stream);        \
-    });                                                                            \
-  }                                                                                \
-  extern "C" int masked_merge_##S(const void* part, void* y, long long plane,     \
-                                  int n_split, void* stream) {                     \
-    return launch_merge<T>(part, y, plane, n_split, stream);                       \
-  }                                                                                \
-  extern "C" int masked_dw_merge_##S(const void* part, const void* m, void* dw,   \
-                                     long long plane, int n_split, void* stream) { \
-    return launch_dw_merge<T>(part, m, dw, plane, n_split, stream);                \
-  }                                                                                \
-  extern "C" int masked_fwd_info_##S(int bm, int bn, int* out) {                  \
-    return with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {                 \
-      return gemm_info<typename decltype(tag)::type>(out);                         \
-    });                                                                            \
-  }                                                                                \
-  extern "C" int masked_dx_info_##S(int bm, int bn, int* out) {                   \
-    return with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {                 \
-      return gemm_info<typename decltype(tag)::type>(out);                         \
-    });                                                                            \
-  }                                                                                \
-  extern "C" int masked_dw_info_##S(int bm, int bn, int* out) {                   \
-    return with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {     \
-      return gemm_info<typename decltype(tag)::type>(out);                         \
-    });                                                                            \
+#define GEMM_ENTRIES(S, T)                                                           \
+  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,         \
+                                void* y, void* part, int G, int Mp, int K, int N,    \
+                                int bm, int bn, int n_split, void* stream) {         \
+    return gemm::with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {             \
+      return launch_gemm<typename decltype(tag)::type>(x, w, m, y, part, G, Mp, K,   \
+                                                       N, n_split, stream);          \
+    });                                                                              \
+  }                                                                                  \
+  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,          \
+                               void* dx, void* part, int G, int Mp, int K, int N,    \
+                               int bm, int bn, int n_split, void* stream) {          \
+    return gemm::with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {             \
+      return launch_gemm<typename decltype(tag)::type>(g, w, m, dx, part, G, Mp, N,  \
+                                                       K, n_split, stream);          \
+    });                                                                              \
+  }                                                                                  \
+  extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,          \
+                               void* dw, void* part, int G, int Mp, int K, int N,    \
+                               int bm, int bn, int n_split, void* stream) {          \
+    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) { \
+      return launch_gemm<typename decltype(tag)::type>(x, g, m, dw, part, G, K, Mp,  \
+                                                       N, n_split, stream);          \
+    });                                                                              \
+  }                                                                                  \
+  extern "C" int masked_merge_##S(const void* part, void* y, long long plane,        \
+                                  int n_split, void* stream) {                       \
+    return launch_merge<T>(part, y, plane, n_split, stream);                         \
+  }                                                                                  \
+  extern "C" int masked_dw_merge_##S(const void* part, const void* m, void* dw,      \
+                                     long long plane, int n_split, void* stream) {   \
+    return launch_dw_merge<T>(part, m, dw, plane, n_split, stream);                  \
+  }                                                                                  \
+  extern "C" int masked_fwd_info_##S(int bm, int bn, int* out) {                     \
+    return gemm::with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {             \
+      return gemm_info<typename decltype(tag)::type>(out);                           \
+    });                                                                              \
+  }                                                                                  \
+  extern "C" int masked_dx_info_##S(int bm, int bn, int* out) {                      \
+    return gemm::with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {             \
+      return gemm_info<typename decltype(tag)::type>(out);                           \
+    });                                                                              \
+  }                                                                                  \
+  extern "C" int masked_dw_info_##S(int bm, int bn, int* out) {                      \
+    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) { \
+      return gemm_info<typename decltype(tag)::type>(out);                           \
+    });                                                                              \
   }
 
 GEMM_ENTRIES(bf16, __nv_bfloat16)

@@ -1,6 +1,6 @@
-// Tile products shared by the block-sparse kernels (forward, dgrad, wgrad
-// and the fused wgrad epilogues) and the masked fused wgrad (the masked
-// forward, dgrad and wgrad run on gemm_core.cuh).  A CTA of 256 threads
+// Tile products shared by the block-sparse kernels (forward, dgrad and the
+// fused wgrad epilogues) and the masked fused wgrad (the masked forward,
+// dgrad and wgrad and the block-sparse wgrad run on gemm_core.cuh).  A CTA of 256 threads
 // accumulates one (R x C) tile in f32, with R and C multiples of 16 up to
 // 128, from slabs staged in shared memory as A (R x L, row-major, leading
 // dimension lda) and B (L x C, row-major, ldb).
@@ -171,8 +171,8 @@ template <> struct Acc<float> {
 };
 
 // acc = x^T @ g over all Mp rows for the (bk x bn) output tile at (k0, n0),
-// x (Mp, K) and g (Mp, N) row-major: the sum of the wgrad kernels K3, K6,
-// K7, K8, K19 and K20 (K15 and K18 walk the GEMM core's ColsA and
+// x (Mp, K) and g (Mp, N) row-major: the sum of the fused wgrad kernels K7,
+// K8, K19 and K20 (K15, K18, K3 and K6 walk the GEMM core's ColsA and
 // DenseRowsB stages), one CTA looping over the rows in slabs of 32
 // (16 when Mp is not a multiple of 32).  xs holds bk x (kSlab + pad) and gs
 // kSlab x (bn + pad) elements of shared memory.

@@ -11,6 +11,7 @@ are described in the sources:
      ``ridx[k, :rcnt[k]]``                     -> csrc/block_sparse_bwd.cu
   K3 ``_dw_kernel`` (``_dw_call``)    dw = x^T @ g on the active blocks of
      a CSC pack, zeros elsewhere               -> csrc/block_sparse_bwd.cu
+                                                (on the GEMM core, gemm_core.cuh)
   K4 ``_g_fwd_kernel`` (``_g_fwd_call``)  y[g] = x[g] @ W[g] for every group
      of a (G, K, N) weight bank over the stacked CSC ``idx[g, j, :cnt[g, j]]``
      (the MoE experts), one launch            -> csrc/block_sparse_grouped.cu
@@ -26,9 +27,20 @@ are described in the sources:
   K8 ``_g_dw_fused_kernel`` (``_g_dw_fused_call``)  K7 per group of a bank
                                                -> csrc/block_sparse_grouped.cu
 
-Each runs in bf16 (tensor cores) and in f32 (full-precision FFMA: the
-reference's MLP computes in the f32 residual's dtype), accumulating in f32
-and rounding once to the element type.
+Each runs in bf16 (tensor cores) and in f32 (the reference's MLP computes
+in the f32 residual's dtype), accumulating in f32 and rounding once to the
+element type.  K3 and K6 run on the GEMM core of the masked kernels
+(mma.sync bf16, and 3xTF32 for f32) with its plan (``masked_matmul.fwd_plan``,
+entry "bs_dw", on the pack's live blocks): one CTA a live block, the M walk
+split where the live blocks leave the card's last wave mostly idle, the
+split's packed f32 partials summed in order by ``bs_dw_merge``.  The others
+run on the tile layer (wmma bf16, full-precision FFMA f32).
+
+The plain versions select the pack's blocks (``torch.where``), never
+multiply by the expanded mask: an inf or NaN weight in an inactive block,
+or a wgrad sum off the pack, never reaches the output, and dw is +0.0 off
+the pack, as the reference (whose kernels never read an inactive block,
+and whose ``_scatter_packed_dw`` writes the blocks into zeros).
 
 Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense, 67 TFLOP/s f32
 FFMA): each kernel must at least read the active weight (or gradient)
@@ -39,7 +51,8 @@ Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``dx_launches``, ``dw_launches``, ``g_launches``, ``gdx_launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
-launches, so a run can show that its path went through the kernels.
+launches, so a run can show that its path went through the kernels;
+``dw_merge_launches`` counts the split merges after K3 and K6.
 ``BlockSparseMatmul``, ``TopkastBlockSparseMatmul``,
 ``GroupedBlockSparseMatmul`` and ``TopkastGroupedBlockSparseMatmul`` are the
 differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd``,
@@ -64,6 +77,9 @@ __all__ = [
     "block_sparse_dw_fused",
     "block_sparse_dw_fused_plain",
     "block_sparse_dw_plain",
+    "block_sparse_dw_split_plain",
+    "bs_dw_merge",
+    "bs_dw_merge_plain",
     "block_sparse_dx",
     "block_sparse_dx_plain",
     "block_sparse_matmul",
@@ -71,6 +87,7 @@ __all__ = [
     "csr_of",
     "dx_launches",
     "dw_launches",
+    "dw_merge_launches",
     "fused_launches",
     "g_fused_launches",
     "g_launches",
@@ -98,6 +115,7 @@ gdx_launches = 0  # K5
 gdw_launches = 0  # K6
 fused_launches = 0    # K7
 g_fused_launches = 0  # K8
+dw_merge_launches = 0  # the merges of split K3 and K6 launches
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
@@ -136,48 +154,86 @@ def _dense_mask(idx, cnt, n_rows: int, bk: int, bn: int) -> torch.Tensor:
 
 
 def block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
-    """Plain K1: expand the pack to a dense block mask and compute
-    ``x @ (w * mask)`` with f32 accumulation, rounded once to x.dtype."""
+    """Plain K1: expand the pack to a dense block mask, select w onto it
+    and compute ``x @ w_selected`` with f32 accumulation, rounded once to
+    x.dtype."""
     mask = _dense_mask(idx, cnt, w.shape[0] // bk, bk, bn)
-    return (x.float() @ (w.float() * mask)).to(x.dtype)
+    return (x.float() @ torch.where(mask, w.float(), 0.0)).to(x.dtype)
 
 
 def grouped_block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
-    """Plain K4: per group ``x[g] @ (w[g] * mask[g])`` with f32
-    accumulation, rounded once to x.dtype; a group whose counts are all
-    zero (a dead expert) gives zeros."""
+    """Plain K4: per group ``x[g] @ w[g]`` selected onto the stacked CSC's
+    blocks, with f32 accumulation, rounded once to x.dtype; a group whose
+    counts are all zero (a dead expert) gives zeros."""
     mask = _dense_mask(idx, cnt, w.shape[-2] // bk, bk, bn)
-    return torch.bmm(x.float(), w.float() * mask).to(x.dtype)
+    return torch.bmm(x.float(), torch.where(mask, w.float(), 0.0)).to(x.dtype)
 
 
 def grouped_block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
-    """Plain K5: per group ``g[g] @ (w[g] * mask[g])^T`` in f32 over the
-    stacked CSR's blocks, rounded once to g.dtype; a dead expert's rows
-    are zeros."""
+    """Plain K5: per group ``g[g] @ w[g]^T`` with w selected onto the
+    stacked CSR's blocks, in f32, rounded once to g.dtype; a dead expert's
+    rows are zeros."""
     mask = _dense_mask(ridx, rcnt, w.shape[-1] // bn, bn, bk).transpose(1, 2)
-    return torch.bmm(g.float(), (w.float() * mask).transpose(1, 2)).to(g.dtype)
+    return torch.bmm(g.float(), torch.where(mask, w.float(), 0.0).transpose(1, 2)).to(g.dtype)
 
 
 def grouped_block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
-    """Plain K6: per group ``(x[g]^T @ g[g]) * mask[g]`` in f32 over the
-    stacked CSC's blocks, zeros elsewhere, rounded once to x.dtype (the
+    """Plain K6: per group ``x[g]^T @ g[g]`` in f32 selected onto the
+    stacked CSC's blocks, +0.0 elsewhere, rounded once to x.dtype (the
     reference's packed slots scattered by ``_scatter_packed_dw``)."""
     mask = _dense_mask(idx, cnt, x.shape[-1] // bk, bk, bn)
-    return (torch.bmm(x.float().transpose(1, 2), g.float()) * mask).to(x.dtype)
+    return torch.where(mask, torch.bmm(x.float().transpose(1, 2), g.float()), 0.0).to(x.dtype)
 
 
 def block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
-    """Plain K2: ``g @ (w * mask)^T`` in f32 over the CSR pack's blocks,
-    rounded once to g.dtype."""
+    """Plain K2: ``g @ w^T`` with w selected onto the CSR pack's blocks,
+    in f32, rounded once to g.dtype."""
     mask = _dense_mask(ridx, rcnt, w.shape[1] // bn, bn, bk).T
-    return (g.float() @ (w.float() * mask).T).to(g.dtype)
+    return (g.float() @ torch.where(mask, w.float(), 0.0).T).to(g.dtype)
 
 
 def block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
-    """Plain K3: ``(x^T @ g) * mask`` in f32 over the CSC pack's blocks,
-    zeros elsewhere, rounded once to x.dtype."""
+    """Plain K3: ``x^T @ g`` in f32 selected onto the CSC pack's blocks,
+    +0.0 elsewhere, rounded once to x.dtype."""
     mask = _dense_mask(idx, cnt, x.shape[1] // bk, bk, bn)
-    return ((x.float().T @ g.float()) * mask).to(x.dtype)
+    return torch.where(mask, x.float().T @ g.float(), 0.0).to(x.dtype)
+
+
+def block_sparse_dw_split_plain(x, g, idx, cnt, bk: int, bn: int, n_split: int):
+    """K3 (x (M, K), g (M, N), a CSC pack) or K6 (every operand with a
+    leading group dim) as a split launch computes it: split s's f32 partial
+    ``x^T @ g`` over M's slabs ``fwd_split_ranges(M, n_split)[s]``, the
+    partials summed in the order s = 0, 1, ..., selected onto the pack's
+    blocks (+0.0 elsewhere) and rounded once to x.dtype."""
+    from .masked_matmul import fwd_split_ranges  # masked_matmul imports this module
+
+    xf, gf = x.float(), g.float()
+    acc = None
+    for m0, m1 in fwd_split_ranges(x.shape[-2], n_split):
+        part = xf[..., m0:m1, :].transpose(-1, -2) @ gf[..., m0:m1, :]
+        acc = part if acc is None else acc + part
+    mask = _dense_mask(idx, cnt, x.shape[-1] // bk, bk, bn)
+    return torch.where(mask, acc, 0.0).to(x.dtype)
+
+
+def bs_dw_merge_plain(part, idx, cnt, dw):
+    """The split merge of K3/K6 on the packed partials: part (n_split, G,
+    N/bn, width, bk, bn) f32, the stacked CSC ``idx``/``cnt`` and dw (G, K,
+    N) (or a 2-D pack and dw with G = 1).  Each live slot's partials are
+    summed in the order s = 0, 1, ..., rounded once to dw.dtype and written
+    into the block's place in dw, in place; padded slots are neither read
+    nor written, so dw keeps whatever it held off the pack.  Returns dw."""
+    bk, bn = part.shape[-2:]
+    d, ix, cn = (dw, idx, cnt) if dw.dim() == 3 else (dw[None], idx[None], cnt[None])
+    acc = part[0].clone()
+    for s in range(1, part.shape[0]):
+        acc += part[s]
+    live = torch.arange(ix.shape[-1], device=ix.device) < cn[..., None]
+    grp, j, s = live.nonzero(as_tuple=True)
+    rows = (ix[grp, j, s].long() * bk)[:, None] + torch.arange(bk, device=ix.device)
+    cols = (j * bn)[:, None] + torch.arange(bn, device=ix.device)
+    d[grp[:, None, None], rows[:, :, None], cols[:, None, :]] = acc[grp, j, s].to(d.dtype)
+    return dw
 
 
 def _fused_plain(acc, idx, cnt, w, mom, seed, mu, wd, sr, bk, bn, out_dtype):
@@ -380,10 +436,16 @@ def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
     return dx
 
 
-def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
+def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int, plan=None, live=None):
     """K3: dw (K, N) in x.dtype holding x^T @ g on the active blocks of the
     CSC pack ``idx``/``cnt`` and zeros elsewhere.  x (M, K), g (M, N); M a
-    multiple of 16 (``kernels/ops.py`` pads rows)."""
+    multiple of 16 (``kernels/ops.py`` pads rows).  ``masked_matmul.fwd_plan``
+    (entry "bs_dw") picks the launch from ``live``, the pack's live blocks
+    (a host int the caller has: the pack entry's nnz or bnnz; without one
+    every slot N/bn * width counts), or ``plan`` = (bm, bn, n_split)
+    forces one (a built wgrad tile that holds the block); a split is merged
+    by ``bs_dw_merge``.  CUDA tensors run the kernel or raise; CPU tensors
+    run the plain version."""
     global dw_launches
     if x.device.type == "cpu":
         return block_sparse_dw_plain(x, g, idx, cnt, bk, bn)
@@ -396,13 +458,71 @@ def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
     if idx.dim() != 2 or idx.shape[0] != N // bn or cnt.shape != (N // bn,):
         raise ValueError(f"block_sparse_dw: pack idx {tuple(idx.shape)} / cnt "
                          f"{tuple(cnt.shape)} does not match N/bn = {N // bn}")
-    lib, fn = _entry("block_sparse_bwd", f"block_sparse_dw_{s}", 5, 6)
-    dw = torch.zeros(K, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-                dw.data_ptr(), M, K, N, idx.shape[1], bn, bk, _stream(x))
-    _build.check(lib, rc, "block_sparse_dw launch")
+    dw = _dw_gemm("block_sparse_dw", "block_sparse_bwd", f"block_sparse_dw_{s}", x, g,
+                  idx, cnt, 1, bn, bk, plan, live)
     dw_launches += 1
+    return dw
+
+
+def _dw_gemm(what, lib_name, fn_name, x, g, idx, cnt, G, bn, bk, plan, live):
+    """One K3 (G = 1: x (M, K), g (M, N), a 2-D pack) or K6 (x (G, M, K), g
+    (G, M, N), a stacked pack) launch on the plan's tile and split, and the
+    merge after a split: dw (K, N) or (G, K, N), zero-filled, the live
+    blocks written.  The plan counts ``live`` CTAs (every slot when None);
+    no pack count is read on the host."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    M, K, N, width = x.shape[-2], x.shape[-1], g.shape[-1], idx.shape[-1]
+    live = G * (N // bn) * width if live is None else int(live)
+    tm, tn, n_split = plan or mm._fwd_plan_for(K, M, N, G, x.dtype, bn, x.device.index,
+                                               "bs_dw", live)
+    if ((tm, tn) not in mm.DW_TILES or bk > tm or bn > tn
+            or not 1 <= n_split <= -(-M // mm.FWD_SLAB)):
+        raise ValueError(f"{what}: plan {(tm, tn, n_split)} is not a built tile "
+                         f"{mm.DW_TILES} holding the ({bk}, {bn}) block with 1 <= "
+                         f"n_split <= ceil({M} / {mm.FWD_SLAB})")
+    dw = torch.zeros(*x.shape[:-2], K, N, dtype=x.dtype, device=x.device)
+    part = (torch.empty(n_split, G, N // bn, width, bk, bn, dtype=torch.float32,
+                        device=x.device) if n_split > 1 else None)
+    grouped = x.dim() == 3  # the grouped entry takes G
+    lib, fn = _entry(lib_name, fn_name, 6, 10 if grouped else 9)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), dw.data_ptr(),
+                None if part is None else part.data_ptr(), *((G,) if grouped else ()), M, K,
+                N, width, bk, bn, tm, tn, n_split, _stream(x))
+    _build.check(lib, rc, f"{what} launch")
+    if part is not None:
+        bs_dw_merge(part, idx, cnt, dw)
+    return dw
+
+
+def bs_dw_merge(part, idx, cnt, dw):
+    """The merge of a split K3/K6 launch: the packed f32 partials ``part``
+    (n_split, G, N/bn, width, bk, bn) summed in order into dw's live blocks
+    (``bs_dw_merge_plain``'s function).  CUDA tensors run the merge kernel
+    (one launch, counted in ``dw_merge_launches``) or raise; CPU tensors run
+    the plain version."""
+    global dw_merge_launches
+    if dw.device.type == "cpu":
+        return bs_dw_merge_plain(part, idx, cnt, dw)
+    if dw.device.type != "cuda":
+        raise ValueError(f"bs_dw_merge: unsupported device {dw.device}")
+    s = _suffix("bs_dw_merge", dw)
+    n_split, G, nnb, width, bk, bn = part.shape
+    K, N = dw.shape[-2:]
+    if (part.dtype != torch.float32 or not part.is_contiguous() or not dw.is_contiguous()
+            or (dw.shape[0] if dw.dim() == 3 else 1) != G or N != nnb * bn
+            or tuple(idx.shape[-2:]) != (nnb, width) or idx.dtype != torch.int32
+            or cnt.dtype != torch.int32 or any(t.device != dw.device for t in (part, idx, cnt))):
+        raise ValueError(f"bs_dw_merge: part {tuple(part.shape)} {part.dtype} does not hold "
+                         f"the packed partials of dw {tuple(dw.shape)} on the pack "
+                         f"{tuple(idx.shape)}")
+    lib, fn = _entry("block_sparse_bwd", f"block_sparse_dw_merge_{s}", 4, 7)
+    with torch.cuda.device(dw.device):
+        rc = fn(part.data_ptr(), idx.data_ptr(), cnt.data_ptr(), dw.data_ptr(), G, K, N,
+                width, bk, bn, n_split, _stream(dw))
+    _build.check(lib, rc, "bs_dw_merge launch")
+    dw_merge_launches += 1
     return dw
 
 
@@ -485,12 +605,13 @@ def grouped_block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
     return dx
 
 
-def grouped_block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
+def grouped_block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int, plan=None, live=None):
     """K6: dw (G, K, N) in x.dtype holding x[g]^T @ g[g] on the active
     blocks of the stacked CSC ``idx (G, N/bn, width)`` / ``cnt (G, N/bn)``
     (the Top-KAST superset on the training path) and zeros elsewhere.  x
     (G, M, K), g (G, M, N); M a multiple of 16 (``kernels/ops.py`` pads
-    rows)."""
+    rows); ``plan`` and ``live`` (the live blocks of the whole bank) as for
+    ``block_sparse_dw``."""
     global gdw_launches
     if x.device.type == "cpu":
         return grouped_block_sparse_dw_plain(x, g, idx, cnt, bk, bn)
@@ -501,12 +622,8 @@ def grouped_block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int):
     s = _check_cuda("grouped_block_sparse_dw", x, g, {"idx": idx, "cnt": cnt},
                     {"bn": bn, "bk": bk}, [(M, 16), (K, bk), (N, bn)],
                     [(g.shape[1], M)])
-    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_dw_{s}", 5, 7)
-    dw = torch.zeros(G, K, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-                dw.data_ptr(), G, M, K, N, idx.shape[2], bn, bk, _stream(x))
-    _build.check(lib, rc, "block_sparse_grouped_dw launch")
+    dw = _dw_gemm("grouped_block_sparse_dw", "block_sparse_grouped",
+                  f"block_sparse_grouped_dw_{s}", x, g, idx, cnt, G, bn, bk, plan, live)
     gdw_launches += 1
     return dw
 
@@ -548,18 +665,19 @@ def grouped_block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: floa
 class BlockSparseMatmul(torch.autograd.Function):
     """y = x @ W on the CSC pack; backward dx on the CSR pack (K2) and dw
     on the same CSC pack (K3), as the reference's ``_bs_fwd/_bs_bwd``.
-    ``ridx``/``rcnt`` None derives the CSR at the worst-case width."""
+    ``ridx``/``rcnt`` None derives the CSR at the worst-case width.
+    ``live``: the pack's active blocks as a host int (K3's plan), or None."""
 
     @staticmethod
-    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk):
+    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
-        ctx.blocks = (bm, bn, bk)
+        ctx.blocks, ctx.live = (bm, bn, bk), live
         return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
         x, w, idx, cnt, ridx, rcnt = ctx.saved_tensors
-        return _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, idx, cnt) + (None,) * 7
+        return _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, idx, cnt) + (None,) * 8
 
 
 class TopkastBlockSparseMatmul(torch.autograd.Function):
@@ -569,38 +687,40 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
     weight cotangent IS the new SGD momentum ``mu * mom + x^T @ g + wd * w``
     on B's blocks (K7 in K3's place), as the reference's ``_fbs_fwd/_fbs_bwd``
     (B is the forward CSC when the entry has no superset); ``mom`` and
-    ``seed`` get no gradient."""
+    ``seed`` get no gradient.  ``live``: B's active blocks as a host int
+    (K3's plan), or None."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
-                mu=0.0, wd=0.0, sr=False):
+                mu=0.0, wd=0.0, sr=False, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
-        ctx.blocks = (bm, bn, bk)
+        ctx.blocks, ctx.live = (bm, bn, bk), live
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 14
+        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 15
 
 
 class GroupedBlockSparseMatmul(torch.autograd.Function):
     """y[g] = x[g] @ W[g] over a bank's stacked CSC pack (K4); backward dx
     on the stacked CSR (K5) and dw on the same CSC (K6), as the reference's
     ``_gbs_fwd/_gbs_bwd``.  ``ridx``/``rcnt`` None derives the stacked CSR
-    at the worst-case width."""
+    at the worst-case width; ``live`` as for ``BlockSparseMatmul`` (the
+    whole bank's)."""
 
     @staticmethod
-    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk):
+    def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
-        ctx.blocks = (bm, bn, bk)
+        ctx.blocks, ctx.live = (bm, bn, bk), live
         return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
         x, w, idx, cnt, ridx, rcnt = ctx.saved_tensors
         return _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, idx, cnt,
-                         grouped=True) + (None,) * 7
+                         grouped=True) + (None,) * 8
 
 
 class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
@@ -609,19 +729,19 @@ class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
     stacked superset CSC ``bidx``/``bcnt`` (B ⊇ A).  Given ``mom``, the
     weight cotangent is the new momentum on B's blocks (K8 in K6's place),
     as the reference's ``_gfbs_fwd/_gfbs_bwd``: a group with no block gets
-    zeros."""
+    zeros.  ``live`` as for ``TopkastBlockSparseMatmul``."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
-                mu=0.0, wd=0.0, sr=False):
+                mu=0.0, wd=0.0, sr=False, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
-        ctx.blocks = (bm, bn, bk)
+        ctx.blocks, ctx.live = (bm, bn, bk), live
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 14
+        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 15
 
 
 def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=False):
@@ -640,7 +760,7 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=
         dx = dx_fn(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk)
     if ctx.needs_input_grad[1]:
         if mom is None:
-            dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk)
+            dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk, live=ctx.live)
         else:
             dw = fused_fn(x, g, didx, dcnt, w, mom, bn=bn, bk=bk, **ctx.epilogue)
     return dx, dw

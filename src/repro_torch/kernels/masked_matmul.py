@@ -32,7 +32,9 @@ mostly idle (the wgrad's, ``entry="dw"``, keeps 128 rows and halves the
 tile of a one-slab walk in bf16); a split's f32 partials are summed in
 order by a merge kernel (``fwd_merge`` after K13 and K16, ``dx_merge``
 after K14 and K17, ``dw_merge`` after K15 and K18, which then multiplies by
-the mask).  The mask multiplies the weight, or in the wgrad the f32 sum (an
+the mask; the block-sparse wgrad K3/K6 of ``block_sparse_matmul`` runs the
+wgrad's walk on the same core and takes this plan, ``entry="bs_dw"``).  The
+mask multiplies the weight, or in the wgrad the f32 sum (an
 inf or NaN under a zero mask gives NaN, as the reference's ``w *
 m.astype(w.dtype)`` and ``acc * m.astype(f32)``); it is never a select.
 
@@ -139,7 +141,7 @@ dw_merge_launches = 0  # the merges of split K15 and K18 launches
 FWD_SLAB = 32  # contraction elements of one ring stage; a split walks whole slabs
 FWD_TILES = ((128, 128), (128, 64), (16, 64))  # (bm, bn) built
 DW_TILES = FWD_TILES[:2]  # K15/K18's (their rows are K, never a decode's)
-FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the split counts the sweeps force
+FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the sweeps' split counts (all weighed for "bs_dw")
 FWD_MAX_SPLIT = 32
 FWD_MIN_SLABS = 2  # slabs a split walks at least
 # fwd_plan's model of the dense shapes: the kernel's own rate (flop/s, at
@@ -323,24 +325,33 @@ def fwd_tile(Mp: int, bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int
     most 64 rows (decode: one row tile, the weight read once; 64 columns
     give twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x
     64 where the caller's column tile ``bn_limit`` is below 128.  The
-    wgrad (``entry`` "dw", rows = K) always takes 128 rows."""
+    wgrad (``entry`` "dw", rows = K) always takes 128 rows.  The
+    block-sparse wgrad (``entry`` "bs_dw", ``bn_limit`` its blocks' columns)
+    takes the smallest built wgrad tile that holds a block: 128 x 64 for
+    blocks at most 64 wide, else 128 x 128."""
+    if entry == "bs_dw":
+        return 128, 64 if bn_limit <= 64 else 128
     bm = 16 if Mp <= 64 and entry != "dw" else 128
     return bm, 64 if bm == 16 or bn_limit < 128 else 128
 
 
 def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
-             bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int, int]:
+             bn_limit: int = 128, entry: str = "fwd",
+             live: int | None = None) -> tuple[int, int, int]:
     """A GEMM-core launch of Mp rows x L contraction -> Mp x cols on a bank
     of G groups of ``dtype`` -> (bm, bn, n_split): ``entry`` "fwd" (K13 with
     G = 1, K16) with L = K and cols = N, "dx" (K14, K17) with L = N and cols
-    = K, "dw" (K15, K18) with Mp = K, L = M and cols = N.
-    ``slots``: the CTAs the card holds at once for the tile ``fwd_tile``
-    picks (SMs times CTAs resident per SM).
+    = K, "dw" (K15, K18) with Mp = K, L = M and cols = N, "bs_dw" (K3, K6:
+    the block-sparse wgrad) as "dw" with ``bn_limit`` its blocks' columns
+    and ``live`` its CTAs, one a live block of its pack (the pack entry's
+    nnz, or bnnz for a superset).  ``slots``: the CTAs the card holds at
+    once for the tile ``fwd_tile`` picks (SMs times CTAs resident per SM).
 
-    The grid has ceil(Mp / bm) ceil(cols / bn) G tiles, and the n =
-    ceil(L / FWD_SLAB) slabs may be split into n_split whole-slab parts
-    whose f32 partials a merge sums (8 G Mp cols bytes a split, written and
-    read).
+    The grid has ceil(Mp / bm) ceil(cols / bn) G tiles (``live`` where
+    given), and the n = ceil(L / FWD_SLAB) slabs may be split into n_split
+    whole-slab parts whose f32 partials a merge sums (8 G Mp cols bytes a
+    split, written and read; 8 live bm bn where ``live`` is given: the
+    block-sparse merge moves the live tiles only).
 
     * Decode (bm = 16) reads every weight and mask byte once: the split
       fills the slots in one wave, as far as three limits allow: each split
@@ -360,12 +371,19 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
       partials' bytes at FWD_BYTES_S -- drops by FWD_MIN_GAIN or more:
       where the unsplit grid leaves most of its last wave idle (danube's
       f32 MLP at 2048 rows: the forward of wo and the dgrad of wi and wg,
-      320 CTAs on 132 slots).  The banks (660-1320 CTAs) stay whole.
+      320 CTAs on 132 slots).  The banks (660-1320 CTAs) stay whole.  The
+      block-sparse wgrad ("bs_dw") weighs every split of FWD_SPLITS that
+      walks at least FWD_MIN_SLABS slabs and takes the one of least
+      makespan, where it gains FWD_MIN_GAIN: its grid is the pack's live
+      blocks, a few dozen to a few hundred (danube's wk at 63 live blocks
+      and its f32 MLP at 289 were fastest split in 4 on an H100, PERF.md);
+      it keeps its tile at one slab (the tile must hold its block).
 
     chip_smoke.py times every candidate (``fwd_candidates``) at the paths'
     shapes and says whether this pick was the fastest."""
     bm, bn = fwd_tile(Mp, bn_limit, entry)
-    tiles = -(-Mp // bm) * -(-cols // bn) * G
+    tiles = -(-Mp // bm) * -(-cols // bn) * G if live is None else live
+    cells = G * Mp * cols if live is None else live * bm * bn  # merged elements
     n_slabs = -(-L // FWD_SLAB)
     if entry == "dw" and n_slabs == 1 and dtype == torch.bfloat16:
         return bm, 64, 1
@@ -377,51 +395,62 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
 
     def makespan(n):
         waves = -(-tiles * n // slots)
-        merge = 8.0 * n * G * Mp * cols / FWD_BYTES_S if n > 1 else 0.0
+        merge = 8.0 * n * cells / FWD_BYTES_S if n > 1 else 0.0
         return waves * -(-n_slabs // n) * slab_s + merge
 
-    split = n_slabs >= 2 * FWD_MIN_SLABS and makespan(2) <= (1 - FWD_MIN_GAIN) * makespan(1)
-    return bm, bn, 2 if split else 1
+    # the masked grids are hundreds of tiles or more: a split of 2; the
+    # block-sparse wgrad's can be a few dozen live blocks: every split
+    splits = [n for n in FWD_SPLITS[1:] if n <= n_slabs // FWD_MIN_SLABS
+              and (n == 2 or entry == "bs_dw")]
+    best = min(splits, key=makespan, default=1)
+    return bm, bn, best if splits and makespan(best) <= (1 - FWD_MIN_GAIN) * makespan(1) else 1
 
 
 def fwd_candidates(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
-                   bn_limit: int = 128, entry: str = "fwd") -> list[tuple[int, int, int]]:
+                   bn_limit: int = 128, entry: str = "fwd",
+                   live: int | None = None) -> list[tuple[int, int, int]]:
     """The plans a sweep forces at one shape (``fwd_plan``'s arguments):
     every built tile of the row tile ``fwd_tile`` picks whose columns the
-    caller allows, and each of FWD_SPLITS that walks at least FWD_MIN_SLABS
-    slabs -- at decode (bm = 16) within twice the plan's partial cap, else
-    1 and 2 -- with ``fwd_plan``'s own pick."""
+    caller allows (for "bs_dw" every built wgrad tile that holds the
+    block), and each of FWD_SPLITS that walks at least FWD_MIN_SLABS slabs
+    -- at decode (bm = 16) within twice the plan's partial cap, for "bs_dw"
+    all of them, else 1 and 2 -- with ``fwd_plan``'s own pick."""
     bm, _ = fwd_tile(Mp, bn_limit, entry)
     n_slabs = -(-L // FWD_SLAB)
-    cap = 2 * (L * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else 2
-    out = [(bm, bn, n) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)
+    cap = (2 * (L * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else
+           FWD_MAX_SPLIT if entry == "bs_dw" else 2)
+    tiles = ([t for t in DW_TILES if t[1] >= bn_limit] if entry == "bs_dw" else
+             [(bm, bn) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)])
+    out = [(tbm, tbn, n) for tbm, tbn in tiles
            for n in FWD_SPLITS if n == 1 or (n <= n_slabs // FWD_MIN_SLABS and n <= cap)]
-    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
+    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry, live=live)
     return out if pick in out else out + [pick]
 
 
 def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
     """The launch the GEMM core's kernel gets at tile (bm, bn) in ``dtype``,
-    ``entry`` "fwd" (K13/K16), "dx" (K14/K17) or "dw" (K15/K18): CTAs
-    resident per SM, registers a thread, dynamic shared bytes, local
-    (spill) bytes a thread and threads a CTA, from the CUDA runtime.  Needs
-    a card."""
+    ``entry`` "fwd" (K13/K16), "dx" (K14/K17), "dw" (K15/K18) or "bs_dw"
+    (K3/K6): CTAs resident per SM, registers a thread, dynamic shared bytes,
+    local (spill) bytes a thread and threads a CTA, from the CUDA runtime.
+    Needs a card."""
     s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
     out = (ctypes.c_int * 5)()
-    lib, fn = _fn(f"masked_{entry}_info_{s}", [_I, _I, _P])
-    _build.check(lib, fn(bm, bn, ctypes.addressof(out)), f"masked_{entry} launch info")
+    name = f"block_sparse_dw_info_{s}" if entry == "bs_dw" else f"masked_{entry}_info_{s}"
+    lib, fn = _fn(name, [_I, _I, _P],
+                  "block_sparse_bwd" if entry == "bs_dw" else "masked_matmul")
+    _build.check(lib, fn(bm, bn, ctypes.addressof(out)), f"{name} launch info")
     return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "spill_bytes", "threads"),
                     list(out)))
 
 
-@functools.lru_cache(maxsize=512)
-def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd"):
+@functools.lru_cache(maxsize=4096)
+def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd", live=None):
     """``fwd_plan`` with the card's slots (SMs times the resident CTAs of
     ``entry``'s kernel at the tile, from the runtime), memoized."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     bm, bn = fwd_tile(Mp, bn_limit, entry)
     slots = sms * fwd_launch_info(dtype, bm, bn, entry)["ctas_per_sm"]
-    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
+    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry, live=live)
 
 
 def _merge(what, part, out, mask=None):
@@ -555,8 +584,8 @@ def _check_cuda(what, dense, masks, blocks, tiles, same):
     return suffix
 
 
-def _fn(name: str, argtypes):
-    lib = _build.load("masked_matmul")
+def _fn(name: str, argtypes, lib_name: str = "masked_matmul"):
+    lib = _build.load(lib_name)
     fn = getattr(lib, name)
     fn.argtypes = argtypes
     fn.restype = _I

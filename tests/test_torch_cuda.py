@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
-K18 (each under every plan its sweep forces, with the split merge), the
+K18 and the block-sparse wgrad K3/K6 on the GEMM core (each under every
+plan its sweep forces, with the split merge), the
 fused epilogue K19 and the |x| histogram K21, training steps,
 paged serving, MoE serving and MoE training through them.
 
@@ -704,6 +705,180 @@ def test_cuda_masked_dw_f32_keeps_f32_digits():
     rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
     got = rms(tmm.masked_dw(x, g, m, bn=128, bk=128))
     assert got <= 8 * rms(tmm.masked_dw_plain(x, g, m)), got
+
+
+# (G, M, K, N, bk, bn, dead groups) of the block-sparse wgrad x (G, M, K)^T
+# @ g (G, M, N) -> dw (G, K, N) on a superset pack: 128 x 128 blocks with M
+# off the 32-row slabs (8.5 slabs); 128 x 64 blocks; 16 x 16 and 32 x 32
+# blocks (the training-step tests' 16) in the 128 x 64 tile; a 64 x 32
+# block; a grouped bank at 16 rows (one slab) and one at 96 with dead
+# groups
+BS_DW_SHAPES = [(1, 272, 384, 512, 128, 128, ()), (1, 160, 256, 384, 128, 64, ()),
+                (1, 48, 64, 96, 16, 16, ()), (1, 96, 128, 160, 32, 32, ()),
+                (1, 80, 192, 128, 64, 32, ()), (3, 16, 256, 384, 128, 128, ()),
+                (5, 96, 64, 96, 16, 16, (1, 3))]
+
+
+def _bs_dw_problem(shape, dtype, dev, seed=41):
+    """x, g in ``dtype`` on ``dev`` (2-D for G = 1), a superset block mask
+    with an empty block column (and the dead groups empty), its stacked CSC
+    on ``dev`` and the dense (G, K, N) bool of its blocks."""
+    from repro_torch.core.pack import pack_group_mask
+
+    G, M, K, N, bk, bn, dead = shape
+    rng = np.random.default_rng(seed)
+    bm = rng.random((G, K // bk, N // bn)) < 0.4
+    bm[:, :, 0] = False
+    bm[:, 0, -1] = True
+    for grp in dead:
+        bm[grp] = False
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    x = f(rng.standard_normal((G, M, K)))
+    g = f(rng.standard_normal((G, M, N)) / np.sqrt(M))
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in pack_group_mask(bm))
+    live = torch.from_numpy(np.repeat(np.repeat(bm, bk, 1), bn, 2)).to(dev)
+    if G == 1:
+        x, g, idx, cnt, live = x[0], g[0], idx[0], cnt[0], live[0]
+    return x, g, idx, cnt, live, int(bm.sum())
+
+
+def _bs_dw(x, g, idx, cnt, bk, bn, plan=None, live=None):
+    if x.dim() == 3:
+        return tbsm.grouped_block_sparse_dw(x, g, idx, cnt, bn=bn, bk=bk, plan=plan, live=live)
+    return tbsm.block_sparse_dw(x, g, idx, cnt, bn=bn, bk=bk, plan=plan, live=live)
+
+
+def _bs_dw_plans(G, M, K, N, bn, dtype, live):
+    """Every plan the sweeps force at this shape (``fwd_candidates`` with
+    entry "bs_dw" on the kernel's slots) and every built tile that holds the
+    block unsplit and split in 3 where M has 3 slabs."""
+    tm, tn = tmm.fwd_tile(K, bn, "bs_dw")
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * tmm.fwd_launch_info(dtype, tm, tn, "bs_dw")["ctas_per_sm"])
+    plans = set(tmm.fwd_candidates(K, M, N, G, dtype, slots, bn_limit=bn, entry="bs_dw",
+                                   live=live))
+    plans |= {(a, b, n) for a, b in tmm.DW_TILES if b >= bn for n in (1, 3)
+              if n <= -(-M // tmm.FWD_SLAB)}
+    return sorted(plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BS_DW_SHAPES)
+def test_cuda_bs_dw_every_plan_matches_plain(shape, dtype):
+    """K3 (G = 1) and K6 on the GEMM core under every forced plan (tile,
+    split) element by element within ``matmul_error_bound`` of the plain
+    version; exact +0.0 off the superset and for a dead group; a split
+    counts one K3/K6 launch and one merge (``dw_merge_launches``), an
+    unsplit launch none; two launches of one plan give the same bits; the
+    plan's own pick, from the live blocks or from every slot, likewise."""
+    dev = _cuda()
+    G, M, K, N, bk, bn, dead = shape
+    x, g, idx, cnt, live, nnz = _bs_dw_problem(shape, dtype, dev)
+    want = (tbsm.block_sparse_dw_plain if G == 1 else tbsm.grouped_block_sparse_dw_plain)(
+        x, g, idx, cnt, bk, bn)
+    absp = (tbsm.block_sparse_dw_plain if G == 1 else tbsm.grouped_block_sparse_dw_plain)(
+        x.float().abs(), g.float().abs(), idx, cnt, bk, bn)
+    read = lambda: [tbsm.dw_launches, tbsm.gdw_launches, tbsm.dw_merge_launches]
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for plan in _bs_dw_plans(G, M, K, N, bn, dtype, nnz) + [None]:
+        n = read()
+        got = _bs_dw(x, g, idx, cnt, bk, bn, plan, live=nnz)
+        again = _bs_dw(x, g, idx, cnt, bk, bn, plan, live=nnz)
+        torch.cuda.synchronize()
+        if plan is not None:
+            k = 2 if plan[2] > 1 else 0
+            assert read() == ([n[0] + 2, n[1], n[2] + k] if G == 1
+                              else [n[0], n[1] + 2, n[2] + k]), plan
+        assert got.dtype == dtype and got.shape == want.shape
+        _assert_within(got, want, absp, M)
+        off = got[~live].float()
+        assert not off.any() and not bool(torch.signbit(off).any()), plan
+        for grp in dead:
+            assert not got[grp].float().any(), plan
+        assert torch.equal(got.view(iv), again.view(iv)), plan
+    _assert_within(_bs_dw(x, g, idx, cnt, bk, bn), want, absp, M)  # every slot counted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bs_dw_inf_and_nan_in_the_plain_places(dtype):
+    """An inf in x (row 37, column 5) and a NaN in g (column 70): K3 and K6,
+    split (the merge sums the packed partials in order) and unsplit, give
+    NaN and +-inf in exactly the plain version's places -- +-inf on the
+    superset's blocks of dw's row 5, NaN down its column 70 -- and +0.0 off
+    the superset, in bf16 and in f32 (3xTF32 walks such a tile again with
+    the exact split)."""
+    dev = _cuda()
+    x, g, idx, cnt, live, nnz = _bs_dw_problem((1, 96, 256, 128, 32, 32, ()), dtype, dev)
+    x[37, 5] = float("inf")
+    g[60, 70] = float("nan")
+    plain = tbsm.block_sparse_dw_plain(x, g, idx, cnt, 32, 32)
+    assert bool(torch.isinf(plain[5]).any()) and bool(torch.isnan(plain[:, 70]).any())
+
+    def held(got, plan):
+        assert torch.equal(torch.isnan(got), torch.isnan(plain)), plan
+        assert torch.equal(torch.isinf(got), torch.isinf(plain)), plan
+        inf = torch.isinf(plain)
+        assert torch.equal(got[inf].float(), plain[inf].float()), plan
+        assert not got[~live].float().any(), plan
+
+    for plan in ((128, 64, 1), (128, 64, 2), (128, 128, 1), (128, 128, 3)):
+        held(tbsm.block_sparse_dw(x, g, idx, cnt, bn=32, bk=32, plan=plan), plan)
+        held(tbsm.grouped_block_sparse_dw(x[None], g[None], idx[None], cnt[None], bn=32, bk=32,
+                                          plan=plan)[0], plan)
+
+
+@pytest.mark.cuda
+def test_cuda_bs_dw_has_no_spill():
+    """No instantiation of K3/K6's kernel spills a register (``-Xptxas=-v``'s
+    count, read back from the runtime), each holds at least as many CTAs an
+    SM as the masked wgrad's on the same tile, and its shared bytes are a
+    ring of at least two ColsA and dense B stages (no mask of any kind).  A
+    plan whose tile does not hold the block, or that is not built, raises."""
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        e = torch.finfo(dtype).bits // 8
+        for bm, bn in tmm.DW_TILES:
+            info = tmm.fwd_launch_info(dtype, bm, bn, "bs_dw")
+            masked = tmm.fwd_launch_info(dtype, bm, bn, "dw")
+            assert info["spill_bytes"] == 0 and info["registers"] <= 255, (dtype, bm, bn, info)
+            assert info["ctas_per_sm"] >= masked["ctas_per_sm"], (dtype, bm, bn, info, masked)
+            stage = 32 * ((bm + 8) + (bn + 8)) * e
+            assert info["smem_bytes"] % stage == 0 and info["smem_bytes"] >= 2 * stage
+        with pytest.raises(RuntimeError):
+            tmm.fwd_launch_info(dtype, 16, 64, "bs_dw")
+        x = torch.zeros(32, 256, device=dev, dtype=dtype)
+        idx = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+        cnt = torch.ones(2, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_dw(x, x, idx, cnt, bn=128, bk=128, plan=(128, 64, 1))
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_dw(x, x, idx, cnt, bn=128, bk=128, plan=(16, 64, 1))
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_dw(x, x, idx, cnt, bn=128, bk=128, plan=(128, 128, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_bs_dw_f32_keeps_f32_digits():
+    """3xTF32 keeps f32's digits in K3: at 2048 rows on danube's MLP wi
+    shape (2560 x 6912) with a superset of density 0.26, under the plan's
+    split, the kernel's RMS error against a float64 product is at most 8x
+    the plain f32 product's (one-pass TF32 would be ~1000x)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(2048, 2560, device=dev, generator=gen)
+    g = torch.randn(2048, 6912, device=dev, generator=gen) / 2048 ** 0.5
+    bm = torch.rand(20, 54, device=dev, generator=gen) < 0.26
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in pack_np(bm.cpu().numpy()))
+    live = bm.repeat_interleave(128, 0).repeat_interleave(128, 1)
+    ref = torch.where(live, x.double().T @ g.double(), 0.0)
+    rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+    n = tbsm.dw_merge_launches
+    got = rms(tbsm.block_sparse_dw(x, g, idx, cnt, bn=128, bk=128, live=int(bm.sum())))
+    assert tbsm.dw_merge_launches == n + 1  # the plan splits ~280 blocks on 132 SMs
+    assert got <= 8 * rms(tbsm.block_sparse_dw_plain(x, g, idx, cnt, 128, 128)), got
 
 
 @pytest.mark.cuda

@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the main paths' shapes, with the stated tolerance; each case
                 timed with CUDA events (kernel, plain version, one PyTorch
                 library call as a yardstick) beside its roofline bound:
-                K1 (bf16, and f32 at the MLP shapes) and K9 (danube's,
+                K1 (bf16, and f32 at the MLP shapes; on the GEMM core's
+                packed walk, under every candidate plan, with the merge
+                of each split pick, f32 against a float64 product) and K9 (danube's,
                 mistral-large's and qwen2-moe's attention shapes; with
                 K9 and K12 the achieved TFLOP/s, the share of the bound,
                 the CTAs resident per SM and K12's n_split)
@@ -23,8 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 launched, and the kernel path's prefill and first decode
                 logits within tolerance of the plain dense path on the same
                 weights; then the decode step's device time (CUDA graph),
-                the device time of its 168 K1 launches on the served packs,
-                and K1 parity and timings on layer 0's ERK packs
+                the device time of its 168 K1 launches (and their planned
+                split merges) on the served packs, and K1 parity and
+                timings on layer 0's ERK packs, under every candidate plan
   5. train   -- train h2o-danube-1.8b at full width and depth with RigL
                 (block_sparse, flash_tight, ERK 0.8 in 128x128 blocks, Adam,
                 warmup-cosine, batch 8 x 1024 in the config's 4 microbatches,
@@ -40,8 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 loss and two weight gradients
                 against the plain dense path on the same weights; then
                 ``train_loop``: finite losses, the exact launch counts of
-                every kernel per step (168 K3 a microbatch and the split
-                merges each pack entry's plan makes), and after the update unchanged block
+                every kernel per step (336 K1 and 168 K3 a microbatch and
+                the split merges each pack entry's plans make), and after
+                the update unchanged block
                 counts, a valid, fresh pack and B ⊇ A; wall and device time
                 per step, tokens per second, peak memory
   6. masked serve -- serve the same model under kernel='masked' (ERK 0.8
@@ -75,8 +79,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 SGD update); then the same model under block_sparse (128x128
                 blocks, flash_tight, ERK 0.8, RigL with the superset) with
                 the fused SGD epilogue, 2 x 1024 tokens in one microbatch, 2
-                steps each beside an unfused step: exactly 336 K1, 168 K2,
-                168 K7, no K3 and 48/24/24 K9-K11 per fused step, the bf16
+                steps each beside an unfused step: exactly 336 K1 (and
+                their planned merges), 168 K2, 168 K7, no K3 and 48/24/24
+                K9-K11 per fused step, the bf16
                 momentum within the reference's bound of the unfused one's
   9. paged serve -- K12 (the paged-prefix flash kernel) against its plain
                 version at mistral-large's widths (Sq 16 and 128, ctx 0 to
@@ -89,19 +94,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                 books, exactly 28 K12 launches; a suffix prefill's logits
                 against the full prefill's; paged and contiguous engines'
                 greedy streams identical; K1 on layer 0's served packs
+                under every candidate plan; the decode step's device time
+                and K1's share of it
  10. moe serve -- serve qwen2-moe-a2.7b at its published widths, 12 of 24
                 layers (block_sparse, 128x128 blocks, flash_tight, ERK 0.8,
                 seed 0): the 8 requests of phase 4 through the engine (exact
                 length prefills); every request DONE, exactly 36 K4 (the 60
                 experts' banks wi/wg/wo) and 84 K1 launches per prefill and
-                decode step; active logits bit-identical under changed dead
+                decode step, and the K1/K4 split merges a decode step's
+                plans make; active logits bit-identical under changed dead
                 slots; the share of routing decisions that agree with the
                 plain dense path (at least 95%), the logits of the prompts
                 whose routing agreed everywhere, and of every prompt with
                 the dense path's routing pinned to the kernel path's; the decode step's device time and K4's
                 share; then K4 against its plain version (layer 0's ERK
                 packs, a uniform and a dead-expert topology; 4 and 84 rows;
-                f32 and bf16), timed
+                f32 and bf16), timed, under every candidate plan, f32
+                against a float64 product
  11. moe masked serve -- the same model under kernel='masked': 4 requests
                 (prompts 100/300, 16 tokens), exactly 36 K16 and 84 K13
                 launches per step and the planned split merges of a decode
@@ -123,8 +132,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and the router against the plain dense path with routing
                 pinned; then ``train_loop``: finite losses, the exact
                 launches of every kernel in every step (K4 72, K5 and K6 36
-                per train step, K3 84, with K3's and K6's planned split
-                merges), after the update counts kept, B ⊇ A and the
+                per train step, K1 168, K3 84, with K1's, K4's, K3's and
+                K6's planned split merges), after the update counts kept,
+                B ⊇ A and the
                 pack fresh; wall and device time per step, tokens per
                 second, the peak memory of the steady and the update step,
                 the busy share of the profiled step and K4-K6's share of it
@@ -143,7 +153,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 0's attn.wq (bf16) and dense shared MLP (f32) at 2048 rows,
                 sr off and on, then 2 fused steps beside unfused ones with
                 routing pinned: exactly 42 K1, 21 K2, 21 K7, 18 K4, 9 K5, 9
-                K8, no K3 or K6 and 6/3/3 K9-K11 per fused step; under
+                K8 (and K1's and K4's planned merges), no K3 or K6 and
+                6/3/3 K9-K11 per fused step; under
                 masked: K20 on layer 0's supersets and K19 on the same 2-D
                 projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
                 K20, the planned dx split merges, no K15 or K18 and no dw
@@ -164,8 +175,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 h2o-danube-1.8b at full width and depth, 2 x 1024 tokens in
                 one microbatch, 4 steps, Adam: set, snfs and topkast under
                 block_sparse (128x128, flash_tight, ERK 0.8, a drop/grow at
-                step 2; exactly 336 K1, 168 K2, 168 K3 and their planned
-                merges, 48/24/24 K9-K11 per
+                step 2; exactly 336 K1, 168 K2, 168 K3 and K1's and K3's
+                planned merges, 48/24/24 K9-K11 per
                 step, set's update step K9-K11 alone (no superset: the
                 dense gradient); after the update block counts kept, grown
                 = dropped, the pack fresh, B ⊇ A, snfs's dense momentum
@@ -176,8 +187,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 prune, snip's per-layer density the ERK map's); wall s per
                 step, tok/s, peak GiB, the update step's s
  17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
-                K13/K16's split merge and, where a timed K14/K17, K15/K18 or
-                K3/K6 case splits, theirs), the card line, and last {"ok": true,
+                K13/K16's split merge and, where a timed K14/K17, K15/K18,
+                K3/K6 or K1/K4 case splits, theirs), the card line, and last
+                {"ok": true,
                 "device": {...}}
 
 Per-case details also go to chiprun_out/chip_smoke.json.  Imports nothing of
@@ -254,46 +266,85 @@ class Timer:
 
 
 def k1_case(torch, timer, bsm, label, x, w, idx, cnt, blk):
-    """K1 on one input against its plain version, timed beside its bound.
-    The weights are zero outside their active blocks, as the served weights
-    are, so the library yardstick x @ w computes the same function."""
+    """K1 on one input against its plain version, timed beside its bound,
+    on the plan its wrapper picks from the pack's live blocks, then under
+    every candidate plan (``fwd_sweep``, entry "bs_fwd": each held to the
+    bound and to a second launch's bits first), with the pick's launch
+    (registers, shared and spill bytes, CTAs an SM); an f32 case also
+    against a float64 product under the pick and under a split
+    (``bs_fwd_fidelity``).  The weights are zero
+    outside their active blocks, as the served weights are, so the library
+    yardstick x @ w computes the same function."""
+    from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels.ops import _row_tile, block_sparse_linear
 
     M, K = x.shape
     N = w.shape[1]
+    nnz = int(cnt.sum())
     bm, Mp = _row_tile(M, 128)
     y = block_sparse_linear(x, w, pack=(idx, cnt), block=(128, blk, blk))
     xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - M))
-    ref = bsm.block_sparse_matmul_plain(xp, w, idx, cnt, blk, blk)[:M]
-    err = (y.float() - ref.float()).abs().max().item()
-    if x.dtype == torch.bfloat16:
-        # both accumulate in f32 and round once to bf16: one bf16 ulp of
-        # the largest output at most
-        tol = 2.0**-7 * ref.float().abs().max().item()
-        ok, ratio = err <= tol, err / max(tol, 1e-30)
-    else:  # f32 element by element (bsm.matmul_error_bound)
-        absp = bsm.block_sparse_matmul_plain(xp.abs(), w.abs(), idx, cnt, blk, blk)[:M]
-        ok, ratio, tol = within(torch, y, ref, bsm.matmul_error_bound(ref, absp, K))
-    if not ok:
-        raise AssertionError(f"K1 {label}: err {err} exceeds its bound ({ratio:.3g}x)")
+    ref = bsm.block_sparse_matmul_plain(xp, w, idx, cnt, blk, blk)
+    absp = bsm.block_sparse_matmul_plain(xp.abs(), w.abs(), idx, cnt, blk, blk)
+    bound = bsm.matmul_error_bound(ref, absp, K)
+    del absp
+
+    def check(got):
+        err = (got.float() - ref.float()).abs().max().item()
+        if x.dtype == torch.bfloat16:
+            # both accumulate in f32 and round once to bf16: one bf16 ulp of
+            # the largest output at most
+            tol = 2.0**-7 * ref.float().abs().max().item()
+            ok, ratio = err <= tol, err / max(tol, 1e-30)
+        else:  # f32 element by element (bsm.matmul_error_bound)
+            ok, ratio, tol = within(torch, got, ref, bound)
+        if not ok:
+            raise AssertionError(f"K1 {label}: err {err} exceeds its bound ({ratio:.3g}x)")
+        return err, ratio, tol
+
+    err, ratio, tol = check(torch.nn.functional.pad(y, (0, 0, 0, Mp - M)))
     # the served function's bytes and flops: its M rows, not the padded Mp
-    nnz = int(cnt.sum())
     es = x.element_size()
-    b_ms, by = bound_ms(
-        es * (M * K + nnz * blk * blk + M * N) + 4 * (idx.numel() + cnt.numel()),
-        2.0 * M * nnz * blk * blk, peak_of(torch, x.dtype),
-    )
+    n_bytes = es * (M * K + nnz * blk * blk + M * N) + 4 * (idx.numel() + cnt.numel())
+    flops = 2.0 * M * nnz * blk * blk
+    b_ms, by = bound_ms(n_bytes, flops, peak_of(torch, x.dtype))
+    run = lambda plan=None: bsm.block_sparse_matmul(xp, w, idx, cnt, bm=bm, bn=blk, bk=blk,
+                                                    plan=plan, live=nnz)
     case = {
         "case": f"{label} {str(x.dtype)[6:]} M={M}->{Mp} K={K} N={N} "
                 f"blocks={nnz}/{K // blk * N // blk}",
         "max_abs_err": err, "tol": tol, "err_over_tol": ratio,
-        "ms": timer(lambda: bsm.block_sparse_matmul(xp, w, idx, cnt, bm=bm, bn=blk, bk=blk)),
+        "ms": timer(run),
         "plain_ms": timer(lambda: bsm.block_sparse_matmul_plain(xp, w, idx, cnt, blk, blk), reps=5),
         "library_ms": timer(lambda: x @ w),
-        "bound_ms": b_ms, "bound_by": by,
+        "bound_ms": b_ms, "bound_by": by, "bytes": n_bytes, "flops": flops,
     }
+    case.update(fwd_sweep(torch, timer, mm, run, Mp, K, N, 1, x.dtype, case, entry="bs_fwd",
+                          check=check, bn_limit=blk, live=nnz, bk=blk))
+    if x.dtype == torch.float32:
+        case["f64_rms_over_plain"] = bs_fwd_fidelity(
+            torch, bsm, f"K1 {case['case']}", run, xp, w, idx, cnt, blk, case["plan"])
     print("K1", json.dumps(case))
+    if case["plan"][2] > 1:
+        case["merge_case"] = merge_case(torch, timer, mm, case["plan"][2], 1, Mp, N, x.dtype,
+                                        case["case"], entry="bs_fwd")
     return case, y
+
+
+def bs_fwd_fidelity(torch, bsm, tag, run, xp, w, idx, cnt, blk, pick):
+    """``f64_fidelity`` of K1 (a 2-D x and pack) or K4 (stacked) in f32
+    under the plan's pick and under a split of the pick's tile (the pick's
+    own where it splits, else 4): the RMS error against the float64 product
+    on the pack's blocks, over the plain f32 version's, at most 8 each.
+    Returns {plan: ratio}."""
+    live = bsm._dense_mask(idx, cnt, w.shape[-2] // blk, blk, blk)
+    ref = lambda: torch.matmul(xp.double(), torch.where(live, w.double(), 0.0))
+    plain = (bsm.block_sparse_matmul_plain if xp.dim() == 2
+             else bsm.grouped_block_sparse_matmul_plain)
+    plans = {tuple(pick), tuple(pick[:2]) + (pick[2] if pick[2] > 1 else 4,)}
+    return {str(p): f64_fidelity(torch, f"{tag} plan {p}", lambda p=p: run(p),
+                                 lambda: plain(xp, w, idx, cnt, blk, blk), ref)
+            for p in sorted(plans)}
 
 
 def within(torch, got, want, bound):
@@ -369,17 +420,23 @@ def k1_served_cases(torch, timer, bsm, engine, rows=(4, 1024)):
 
 def k1_decode_ms(torch, bsm, engine):
     """Device time of every K1 launch of one capacity-4 decode step, on the
-    served weights and packs of all layers: the launches are captured once
-    in a CUDA graph and replayed back to back, as the decode step's graph
-    replays them (``decode_device_ms``)."""
+    served weights and packs of all layers, each on its plan from the pack
+    entry's live blocks as the path passes them: the launches (and the
+    merges of the split ones) are captured once in a CUDA graph and replayed
+    back to back, as the decode step's graph replays them
+    (``decode_device_ms``).  Returns (ms, K1 launches, merges)."""
     blk = engine.cfg.sparse.kernel_block[2]
     calls = []
     for layer in range(engine.cfg.n_layers):
         for _, w, e in packed_projections(engine, layer):
             x = torch.randn(16, w.shape[0], device="cuda").to(w.dtype)
-            calls.append((x, w, e["idx"], e["cnt"]))
-    run = lambda: [bsm.block_sparse_matmul(*c, bm=16, bn=blk, bk=blk) for c in calls]
-    return graph_ms(torch, run), len(calls)
+            calls.append((x, w, e["idx"], e["cnt"], e["nnz"]))
+    run = lambda: [bsm.block_sparse_matmul(x, w, i, c, bm=16, bn=blk, bk=blk, live=n)
+                   for x, w, i, c, n in calls]
+    m0 = bsm.fwd_merge_launches
+    run()
+    merges = bsm.fwd_merge_launches - m0
+    return graph_ms(torch, run), len(calls), merges
 
 
 def graph_ms(torch, fn):
@@ -523,10 +580,11 @@ def main_path(torch, timer, bsm, fa):
                          masks=masks, pack=pack)
     for r in reqs:
         engine.submit(r)
-    bsm.launches = 0
+    bsm.launches = bsm.fwd_merge_launches = 0
     fa.launches = 0
     stats = engine.run()
-    launches = {"block_sparse_fwd": bsm.launches, "flash_fwd": fa.launches}
+    launches = {"block_sparse_fwd": bsm.launches, "flash_fwd": fa.launches,
+                "block_sparse_fwd_merge": bsm.fwd_merge_launches}
     stats["prefill_ms"] = 1e3 * stats["prefill_s"] / stats["prefills"]
     print("main: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "quarantined",
@@ -541,8 +599,8 @@ def main_path(torch, timer, bsm, fa):
                                  f"{len(r.generated)} tokens")
     if stats["quarantined"] or stats["failed"]:
         raise AssertionError(f"quarantined/failed slots: {stats}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("block_sparse_fwd", "flash_fwd"):
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
     # the kernel path against the plain dense path on the same weights: a
@@ -576,10 +634,10 @@ def main_path(torch, timer, bsm, fa):
         if err > tol:
             raise AssertionError(f"{what} logits differ from the dense path")
     stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode)
-    k1_ms, n_calls = k1_decode_ms(torch, bsm, engine)
-    stats["k1_decode_step_ms"] = k1_ms
-    print(f"main: K1 in one decode step: {n_calls} launches on the served "
-          f"packs, {k1_ms:.2f} ms device time (CUDA-graph replay), "
+    k1_ms, n_calls, n_merges = k1_decode_ms(torch, bsm, engine)
+    stats["k1_decode_step_ms"], stats["k1_decode_step_merges"] = k1_ms, n_merges
+    print(f"main: K1 in one decode step: {n_calls} launches and {n_merges} split merges on "
+          f"the served packs, {k1_ms:.3f} ms device time (CUDA-graph replay), "
           f"{k1_ms / stats['decode_step_device_ms']:.1%} of the step's device time")
     served = k1_served_cases(torch, timer, bsm, engine)
     return stats, launches, served
@@ -741,21 +799,24 @@ def bs_merge_case(torch, timer, bsm, n_split, idx, cnt, K, N, dt, blk, tag):
                        None, check, n_bytes, 0.0, dt)
 
 
-def bs_dw_merges(torch, mm, cfg, state, tokens):
-    """The K3/K6 split merges of one backward pass over ``tokens`` tokens on
-    ``state``'s pack: each entry's plan (``fwd_plan``, entry "bs_dw") on its
-    live blocks (bnnz where it carries a superset, else nnz), the attention
-    in the compute dtype and the MLP, the shared MLP and the expert banks
-    in f32 (as the model calls them), a bank's rows its capacity; rows
-    padded to the row tile."""
+def bs_merges(torch, mm, cfg, state, tokens, entry="bs_dw"):
+    """The split merges of one pass over ``tokens`` tokens on ``state``'s
+    pack (``state["params"]`` and ``state["pack"]``): K3/K6's of a backward
+    (``entry`` "bs_dw": each entry's plan on its wgrad pack's live blocks,
+    bnnz where it carries a superset, else nnz) or K1/K4's of a forward
+    ("bs_fwd": on the forward pack's nnz); the attention in the compute
+    dtype and the MLP, the shared MLP and the expert banks in f32 (as the
+    model calls them), a bank's rows its capacity; rows padded to the row
+    tile."""
     from repro_torch.core.masks import tree_paths
     from repro_torch.core.pack import pack_entries
+    from repro_torch.kernels import block_sparse_matmul as bsm
     from repro_torch.kernels.ops import _row_tile
     from repro_torch.models.layers import compute_dtype
     from repro_torch.models.moe import capacity
 
     params = tree_paths(state["params"])
-    bm, bn, _ = cfg.sparse.kernel_block
+    bm, bn, bk = cfg.sparse.kernel_block
     dev = torch.cuda.current_device()
     n = 0
     for name, e in pack_entries(state["pack"]):
@@ -763,8 +824,12 @@ def bs_dw_merges(torch, mm, cfg, state, tokens):
         G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
         _, Mp = _row_tile(capacity(tokens, cfg) if w.dim() == 3 else tokens, bm)
         dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
-        live = e["bnnz"] if "bidx" in e else e["nnz"]
-        n += mm._fwd_plan_for(K, Mp, N, G, dt, min(bn, N), dev, "bs_dw", live)[2] > 1
+        if entry == "bs_dw":
+            live = e["bnnz"] if "bidx" in e else e["nnz"]
+            plan = mm._fwd_plan_for(K, Mp, N, G, dt, min(bn, N), dev, "bs_dw", live)
+        else:
+            plan = bsm._fwd_plan_for(Mp, K, N, G, dt, min(bk, K), min(bn, N), e["nnz"], dev)
+        n += plan[2] > 1
     return n
 
 
@@ -977,15 +1042,17 @@ def train_dense_check(torch, cfg, state, names=("layers/0/mlp/wi/w", "layers/0/a
 
 def train_path(torch, bsm, fa, mm, cfg, merges):
     """``train_loop`` at full width and depth, with the launch counters set
-    to 0 just before it and read after every step.  ``merges``: the K3
-    split merges of the initial pack, (a microbatch's, the full batch's)
-    (``bs_dw_merges``); each step's own come from the pack it ran on."""
+    to 0 just before it and read after every step.  ``merges``: the K1 and
+    K3 split merges of the initial pack, {"bs_fwd": (a microbatch's
+    forward, the full batch's), "bs_dw": (...)} (``bs_merges``); each step's
+    own come from the pack it ran on."""
     from repro_torch.core.masks import block_mask_of, tree_paths
     from repro_torch.core.pack import pack_mismatch, validate_pack
     from repro_torch.launch.train import train_loop
 
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
                 ("block_sparse_dw", bsm, "dw_launches"),
+                ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("flash_fwd", fa, "launches"),
                 ("flash_dq", fa, "dq_launches"), ("flash_dkv", fa, "dkv_launches"))
@@ -993,12 +1060,14 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
     mb, n_proj, n_attn = cfg.microbatches, 7 * cfg.n_layers, cfg.n_layers
 
     def expect(is_update, n_merges):
-        # remat reruns each block's forward in the backward: K1 and K9
-        # twice; the update step's gradient is one pass over the full batch
+        # remat reruns each block's forward in the backward: K1 (with its
+        # merges) and K9 twice; the update step's gradient is one pass over
+        # the full batch
         k = 1 if is_update else mb
+        per = lambda e: n_merges[e][1] if is_update else n_merges[e][0] * mb
         return {"block_sparse_fwd": 2 * n_proj * k, "block_sparse_dx": n_proj * k,
-                "block_sparse_dw": n_proj * k,
-                "block_sparse_dw_merge": n_merges[1] if is_update else n_merges[0] * mb,
+                "block_sparse_dw": n_proj * k, "block_sparse_fwd_merge": 2 * per("bs_fwd"),
+                "block_sparse_dw_merge": per("bs_dw"),
                 "flash_fwd": 2 * n_attn * k, "flash_dq": n_attn * k, "flash_dkv": n_attn * k}
 
     tokens = (TRAIN_BATCH * TRAIN_SEQ // mb, TRAIN_BATCH * TRAIN_SEQ)
@@ -1021,14 +1090,15 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
             rec["wall_s"] = t - seen["t"]
             rec["device_span_ms"] = seen["ev"].elapsed_time(ev)
         # the step ran on the pack it left unless it updated the topology
-        now = seen["merges"] if is_update else tuple(
-            bs_dw_merges(torch, mm, cfg, state, n) for n in tokens)
+        count = lambda: {e: tuple(bs_merges(torch, mm, cfg, state, n, e) for n in tokens)
+                         for e in ("bs_fwd", "bs_dw")}
+        now = seen["merges"] if is_update else count()
         if rec["launches"] != expect(is_update, now):
             raise AssertionError(f"train step {step}: launches {rec['launches']}, "
                                  f"expected {expect(is_update, now)}")
         if not math.isfinite(rec["loss"]):
             raise AssertionError(f"train step {step}: loss {rec['loss']}")
-        seen["merges"] = tuple(bs_dw_merges(torch, mm, cfg, state, n) for n in tokens)
+        seen["merges"] = count()
         if step == 1:
             seen["blocks"] = blocks_of(state["masks"])
         if step == 4:  # step 5, a plain step after the update, is profiled
@@ -1297,29 +1367,40 @@ def masked_cases(torch, timer, mm, params, masks):
 
 
 def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", check=None,
-              bn_limit=128, live=None):
+              bn_limit=128, live=None, bk=None):
     """The GEMM core's plan at one case of ``entry`` ("fwd": K13/K16, L = K
     and cols = N; "dx": K14/K17, L = N and cols = K; "dw": K15/K18, Mp = K,
     L = M and cols = N; "bs_dw": K3/K6 as "dw" on ``live`` blocks of
-    ``bn_limit`` columns) and every candidate plan (``mm.fwd_candidates``
-    on the card's slots for that kernel) timed with the plan forced, each
+    ``bn_limit`` columns; "bs_fwd": K1/K4, whose plan is the block-sparse
+    module's own, as "fwd" on ``live`` blocks of ``bk`` x ``bn_limit``) and
+    every candidate plan (``fwd_candidates`` on the card's slots for that
+    kernel) timed with the plan forced, each
     first held to ``check`` (raises) where one is given, and to the same
     bits from a second launch; raises on a spill in the pick's launch: the pick, whether
     it was the fastest, the launch of the pick's tile (CTAs an SM,
     registers, shared and spill bytes), and the case's achieved rate
     (TFLOP/s of the products its bound counts, TB/s of its bytes) and share
     of the bound."""
-    bm, bn = mm.fwd_tile(Mp, bn_limit, entry)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    slots = sms * mm.fwd_launch_info(dt, bm, bn, entry)["ctas_per_sm"]
-    pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, torch.cuda.current_device(), entry,
-                            live)
-    info = mm.fwd_launch_info(dt, pick[0], pick[1], entry)
+    dev = torch.cuda.current_device()
+    if entry == "bs_fwd":  # K1/K4: the id list of L / bk blocks in shared memory
+        from repro_torch.kernels import block_sparse_matmul as bsm
+
+        info_of = lambda tm, tn: bsm.fwd_launch_info(dt, tm, tn, L // bk)
+        slots = sms * info_of(*mm.fwd_tile(Mp, bn_limit))["ctas_per_sm"]
+        pick = bsm._fwd_plan_for(Mp, L, cols, G, dt, bk, bn_limit, live, dev)
+        cands = bsm.fwd_candidates(Mp, L, cols, G, dt, slots, bk=bk, bn=bn_limit, live=live)
+    else:
+        info_of = lambda tm, tn: mm.fwd_launch_info(dt, tm, tn, entry)
+        slots = sms * info_of(*mm.fwd_tile(Mp, bn_limit, entry))["ctas_per_sm"]
+        pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, dev, entry, live)
+        cands = mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry,
+                                  live=live)
+    info = info_of(*pick[:2])
     if info["spill_bytes"]:
         raise AssertionError(f"{entry} tile {pick[:2]} {dt}: {info['spill_bytes']} spill bytes")
     plans = {}
-    for p in mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry,
-                               live=live):
+    for p in cands:
         if check is not None:
             got = run(p)
             check(got)
@@ -1352,10 +1433,12 @@ def f64_fidelity(torch, tag, run, plain, ref):
 def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=None):
     """The split merge (sum of n_split f32 partials in order, one rounding)
     at a split pick's shape (G, Mp rows, N columns), after ``entry``'s
-    kernel (``mm.fwd_merge``, ``mm.dx_merge``, or ``mm.dw_merge``, which
-    multiplies the sum by the wgrad's ``mask``): bit for bit its plain
-    version, timed beside its byte bound and torch.sum over the split axis
-    (times the mask)."""
+    kernel (``mm.fwd_merge``, ``mm.dx_merge``, ``mm.dw_merge``, which
+    multiplies the sum by the wgrad's ``mask``, or after K1/K4 ("bs_fwd")
+    ``bs_fwd_merge``): bit for bit its plain version, timed beside its byte
+    bound and torch.sum over the split axis (times the mask)."""
+    from repro_torch.kernels import block_sparse_matmul as bsm
+
     part = torch.randn(n_split, G, Mp, N, device="cuda")
     out = torch.empty(G, Mp, N, dtype=dt, device="cuda")
     if entry == "dw":
@@ -1363,7 +1446,7 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
         merge = lambda p, o: mm.dw_merge(p, mask, o)
         library = lambda: (part.sum(0) * mask).to(dt)
     else:
-        merge = mm.fwd_merge if entry == "fwd" else mm.dx_merge
+        merge = {"fwd": mm.fwd_merge, "dx": mm.dx_merge, "bs_fwd": bsm.bs_fwd_merge}[entry]
         library = lambda: part.sum(0).to(dt)
     plain = lambda: mm.fwd_merge_plain(part, dt, mask)
 
@@ -1373,7 +1456,7 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
             raise AssertionError(f"{entry} merge {tag}: differs from the ordered plain sum")
         return 0.0, 0.0, 0.0
 
-    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge"}[entry]
+    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge", "bs_fwd": "bs fwd merge"}[entry]
     n_bytes = 4 * part.numel() + out.element_size() * out.numel() + (
         0 if mask is None else mask.numel())
     return kernel_case(torch, timer, label, f"{tag} n_split={n_split}",
@@ -1927,9 +2010,10 @@ def fused_bs_config():
 def fused_bs_train(torch, timer, bsm, fa):
     """K7 against its plain version on the path's layer 0 (``k7_cases``),
     then 2 fused steps of h2o-danube-1.8b under block_sparse beside unfused
-    ones (``fused_steps``): exactly 336 K1, 168 K2, 168 K7, no K3 or K3
-    merge and 48/24/24 K9-K11 launches per fused step (the unfused step:
-    168 K3 and their planned merges in K7's place)."""
+    ones (``fused_steps``): exactly 336 K1 and their planned split merges,
+    168 K2, 168 K7, no K3 or K3 merge and 48/24/24 K9-K11 launches per
+    fused step (the unfused step: 168 K3 and their planned merges in K7's
+    place)."""
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.training.steps import init_train_state
 
@@ -1938,18 +2022,21 @@ def fused_bs_train(torch, timer, bsm, fa):
     cases = k7_cases(torch, timer, bsm, state, cfg)
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
                 ("block_sparse_dw", bsm, "dw_launches"),
+                ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("block_sparse_dw_fused", bsm, "fused_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
-    # remat reruns each block's forward in the backward: K1 and K9 twice
+    tokens = MASKED_BATCH * TRAIN_SEQ
+    # remat reruns each block's forward in the backward: K1 (with its
+    # planned split merges) and K9 twice
     want = {"block_sparse_fwd": 2 * n_proj, "block_sparse_dx": n_proj, "block_sparse_dw": 0,
+            "block_sparse_fwd_merge": 2 * bs_merges(torch, mm, cfg, state, tokens, "bs_fwd"),
             "block_sparse_dw_merge": 0, "block_sparse_dw_fused": n_proj,
             "flash_fwd": 2 * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn}
     # K3's planned split merges, in the unfused step only
-    unfused = {"block_sparse_dw_merge": bs_dw_merges(torch, mm, cfg, state,
-                                                     MASKED_BATCH * TRAIN_SEQ)}
+    unfused = {"block_sparse_dw_merge": bs_merges(torch, mm, cfg, state, tokens)}
     stats, launches = fused_steps(torch, cfg, state, counters, want, "fused block-sparse train",
                                   unfused_merges=unfused)
     return stats, launches, cases
@@ -2132,7 +2219,7 @@ def paged_serve(torch, timer, bsm, fa):
     engine = ServeEngine(cfg, params, prefix_cache=4, **kw)
     for r in reqs:
         engine.submit(r)
-    fa.paged_launches = fa.launches = bsm.launches = 0
+    fa.paged_launches = fa.launches = bsm.launches = bsm.fwd_merge_launches = 0
     stats = engine.run()
     launches = {"paged_flash_fwd": fa.paged_launches, "flash_fwd": fa.launches,
                 "block_sparse_fwd": bsm.launches}
@@ -2157,6 +2244,7 @@ def paged_serve(torch, timer, bsm, fa):
     if launches["paged_flash_fwd"] != 7 * cfg.n_layers or not all(launches.values()):
         raise AssertionError(f"paged serve: launches {launches}, expected "
                              f"{7 * cfg.n_layers} K12")
+    launches["block_sparse_fwd_merge"] = bsm.fwd_merge_launches
 
     # a suffix prefill's first-token logits against a full paged prefill of
     # the same prompt (the same prefix pages, written by the full prefill)
@@ -2214,10 +2302,10 @@ def paged_serve(torch, timer, bsm, fa):
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode,
                                                       "paged serve")
-    k1_ms, n_calls = k1_decode_ms(torch, bsm, engine)
-    stats["k1_decode_step_ms"] = k1_ms
-    print(f"paged serve: K1 in one decode step: {n_calls} launches, {k1_ms:.2f} ms "
-          f"device time (CUDA-graph replay), "
+    k1_ms, n_calls, n_merges = k1_decode_ms(torch, bsm, engine)
+    stats["k1_decode_step_ms"], stats["k1_decode_step_merges"] = k1_ms, n_merges
+    print(f"paged serve: K1 in one decode step: {n_calls} launches and {n_merges} split "
+          f"merges, {k1_ms:.3f} ms device time (CUDA-graph replay), "
           f"{k1_ms / stats['decode_step_device_ms']:.1%} of the step's device time")
     print(f"paged serve: prefill {stats['full_prefill_ms']:.2f} ms per full and "
           f"{stats['suffix_prefill_ms']:.2f} ms per suffix admission, decode "
@@ -2312,10 +2400,13 @@ def k4_cases(torch, timer, bsm, engine):
     banks (2048 -> 1408, as wi/wg, and 1408 -> 2048, as wo) at C = 4 rows
     (a capacity-4 decode step, padded to 16) and C = 84 (a 1000-token
     prefill, padded to 96), f32 (the path's dtype) and bf16, on
-    ``bank_topologies``.  Bytes: x, the active blocks and y once;
-    operations: 2 C bk bn per active block.  Library: torch.bmm on the
-    zero-filled dense bank (TF32 off)."""
+    ``bank_topologies``, on the plan from the pack's live blocks and under
+    every candidate plan (``fwd_sweep``, entry "bs_fwd"), the f32 cases
+    also against a float64 product (``bs_fwd_fidelity``).  Bytes: x, the
+    active blocks and y once; operations: 2 C bk bn per active block.
+    Library: torch.bmm on the zero-filled dense bank (TF32 off)."""
     import numpy as np
+    from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels.ops import grouped_block_sparse_linear
 
     rng = np.random.default_rng(4)
@@ -2351,16 +2442,32 @@ def k4_cases(torch, timer, bsm, engine):
                         return res
 
                     es = x.element_size()
-                    out.append(kernel_case(
+                    run = lambda plan=None: bsm.grouped_block_sparse_matmul(
+                        xp, w, idx, cnt, bm=bm, bn=blk, bk=blk, plan=plan, live=nnz)
+                    case = kernel_case(
                         torch, timer, "K4",
                         f"{tag} G={G} C={C}->{Mp} K={K} N={N} "
                         f"blocks={nnz}/{G * (K // blk) * (N // blk)} width={idx.shape[-1]}",
-                        lambda: bsm.grouped_block_sparse_matmul(xp, w, idx, cnt, bm=bm, bn=blk,
-                                                                bk=blk),
-                        plain, lambda: torch.bmm(x, w), check,
+                        run, plain, lambda: torch.bmm(x, w), check,
                         es * (G * C * K + nnz * blk * blk + G * C * N)
                         + 4 * (idx.numel() + cnt.numel()),
-                        2.0 * C * nnz * blk * blk, dt))
+                        2.0 * C * nnz * blk * blk, dt)
+                    want = plain()
+                    absp = bsm.grouped_block_sparse_matmul_plain(
+                        xp.abs().float(), w.abs().float(), idx, cnt, blk, blk)
+                    case.update(fwd_sweep(
+                        torch, timer, mm, run, Mp, K, N, G, dt, case, entry="bs_fwd",
+                        check=lambda got: _check_within(torch, tag, got, want, absp, K, dt),
+                        bn_limit=blk, live=nnz, bk=blk))
+                    del want, absp
+                    if dt == torch.float32:
+                        case["f64_rms_over_plain"] = bs_fwd_fidelity(
+                            torch, bsm, tag, run, xp, w, idx, cnt, blk, case["plan"])
+                    print("K4 plans", json.dumps(case))
+                    if case["plan"][2] > 1:
+                        case["merge_case"] = merge_case(torch, timer, mm, case["plan"][2], G,
+                                                        Mp, N, dt, case["case"], entry="bs_fwd")
+                    out.append(case)
     return out
 
 
@@ -2611,10 +2718,10 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
     engine = ServeEngine(cfg, engine.params, masks=masks, pack=pack, **MOE_ENGINE)
     for r in reqs:
         engine.submit(r)
-    fa.launches = gmod.g_launches = pmod.launches = mm.fwd_merge_launches = 0
+    fa.launches = gmod.g_launches = pmod.launches = gmod.fwd_merge_launches = 0
     stats.update(engine.run())
     launches = {gname: gmod.g_launches, pname: pmod.launches, "flash_fwd": fa.launches}
-    merges_run = mm.fwd_merge_launches
+    merges_run = gmod.fwd_merge_launches
     print(f"{label}: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "quarantined", "failed",
         "wall_s", "tok_per_s", "prefill_s", "decode_step_s")}))
@@ -2629,9 +2736,8 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
               "flash_fwd": L * stats["prefills"]}
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected {expect}")
-    if not bs:
-        launches["masked_fwd_merge"] = merges_run
-    n0, p0, m0 = gmod.g_launches, pmod.launches, mm.fwd_merge_launches
+    launches[f"{pname}_merge"] = merges_run
+    n0, p0, m0 = gmod.g_launches, pmod.launches, gmod.fwd_merge_launches
     step = lambda: lm_decode(engine.params, cfg, engine.caches,
                              torch.from_numpy(engine.cur_tok[:, None]).cuda(),
                              torch.from_numpy(engine.pos).cuda(), masks=masks, pack=pack)
@@ -2643,17 +2749,19 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
         raise AssertionError(f"{label}: one decode step launched {gname} "
                              f"{stats['grouped_launches_per_decode_step']} and {pname} "
                              f"{stats['proj_launches_per_decode_step']} times")
-    if not bs:
-        # K16's banks never split (fwd_plan); K13's projections as planned
-        stats["merges_per_decode_step"] = mm.fwd_merge_launches - m0
-        want = L * planned_merges(torch, mm, cfg, engine.params["layers"][0], 16)
-        print(f"{label}: one decode step: {stats['grouped_launches_per_decode_step']} K16 and "
-              f"{stats['proj_launches_per_decode_step']} K13 launches, "
-              f"{stats['merges_per_decode_step']} split merges (plans: {want}); "
-              f"{merges_run} merges in the run")
-        if stats["merges_per_decode_step"] != want:
-            raise AssertionError(f"{label}: {stats['merges_per_decode_step']} merges in one "
-                                 f"decode step, the plans say {want}")
+    # K16's banks never split (fwd_plan); K13's projections as planned;
+    # K1's and K4's on the pack entries' live blocks
+    stats["merges_per_decode_step"] = gmod.fwd_merge_launches - m0
+    want = (bs_merges(torch, mm, cfg, {"params": engine.params, "pack": pack},
+                      MOE_ENGINE["capacity"], "bs_fwd") if bs else
+            L * planned_merges(torch, mm, cfg, engine.params["layers"][0], 16))
+    print(f"{label}: one decode step: {stats['grouped_launches_per_decode_step']} "
+          f"{gname} and {stats['proj_launches_per_decode_step']} {pname} launches, "
+          f"{stats['merges_per_decode_step']} split merges (plans: {want}); "
+          f"{merges_run} merges in the run")
+    if stats["merges_per_decode_step"] != want:
+        raise AssertionError(f"{label}: {stats['merges_per_decode_step']} merges in one "
+                             f"decode step, the plans say {want}")
     stats["prefill_ms"] = 1e3 * stats["prefill_s"] / stats["prefills"]
     stats["decode_step_ms"] = 1e3 * stats["decode_step_s"]
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2674,11 +2782,12 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
             x = torch.randn(w.shape[0], 16, w.shape[1], device="cuda")
             if bs:
                 e = pack["layers"][layer]["moe"][b]["w"]
-                calls.append((x, w, e["idx"], e["cnt"]))
+                calls.append((x, w, e["idx"], e["cnt"], e["nnz"]))
             else:
                 calls.append((x, w, masks["layers"][layer]["moe"][b]["w"]))
     blk = cfg.sparse.kernel_block[2]
-    run = (lambda: [bsm.grouped_block_sparse_matmul(*c, bm=16, bn=blk, bk=blk) for c in calls]) \
+    run = (lambda: [bsm.grouped_block_sparse_matmul(x, w, i, c, bm=16, bn=blk, bk=blk, live=n)
+                    for x, w, i, c, n in calls]) \
         if bs else (lambda: [mm.grouped_masked_matmul(*c, bm=16, bn=blk) for c in calls])
     stats["grouped_decode_step_ms"] = graph_ms(torch, run)
     share = stats["grouped_decode_step_ms"] / stats["decode_step_device_ms"]
@@ -2970,11 +3079,11 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         planned_merges(torch, mm, cfg, layer0, tokens, "dw")
         + bank_merges(torch, mm, cfg, layer0, tokens, "dw"))
     del layer0
-    # K3's and K6's split merges on the pack a step runs on, (a
-    # microbatch's, the full batch's); the initial pack's here
+    # K1's and K4's, and K3's and K6's, split merges on the pack a step runs
+    # on, (a microbatch's, the full batch's); the initial pack's here
     bs_tokens = (tokens, batch * TRAIN_SEQ)
-    bs_count = lambda st: tuple(bs_dw_merges(torch, mm, cfg, st, n) if bs else 0
-                                for n in bs_tokens)
+    bs_count = lambda st: {e: tuple(bs_merges(torch, mm, cfg, st, n, e) if bs else 0
+                                    for n in bs_tokens) for e in ("bs_fwd", "bs_dw")}
     bs_merges0 = bs_count(state)
     dense_check = train_dense_check(
         torch, cfg, state, label=label,
@@ -2994,6 +3103,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                 ("masked_fwd_merge", mm, "fwd_merge_launches"),
                 ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("masked_dw_merge", mm, "dw_merge_launches"),
+                ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
@@ -3006,6 +3116,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         # kernels launch twice per microbatch; the update step's gradient
         # is one pass over the full batch
         mb = 1 if is_update else cfg.microbatches
+        per = lambda k: n_bs[k][1] if is_update else n_bs[k][0] * mb
         e = {n: 0 for n, _, _ in counters}
         e.update({f"{fam}_fwd": 2 * MOE_PROJ * L * mb, f"{fam}_dx": MOE_PROJ * L * mb,
                   f"{fam}_dw": MOE_PROJ * L * mb, f"{gfam}_fwd": 2 * B * L * mb,
@@ -3013,7 +3124,8 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                   "flash_fwd": 2 * L * mb, "flash_dq": L * mb, "flash_dkv": L * mb,
                   "masked_fwd_merge": 2 * merges * mb, "masked_dx_merge": dx_merges * mb,
                   "masked_dw_merge": dw_merges * mb,
-                  "block_sparse_dw_merge": n_bs[1] if is_update else n_bs[0] * mb})
+                  "block_sparse_fwd_merge": 2 * per("bs_fwd"),
+                  "block_sparse_dw_merge": per("bs_dw")})
         return e
 
     log, seen = [], {"counts": None, "t": None, "ev": None, "prof": None, "units": None,
@@ -3324,11 +3436,15 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
                 ("flash_dkv", fa, "dkv_launches"))
     L, B = cfg.n_layers, len(MOE_BANKS)
     dx_merge, dw_merge = {}, None
-    if bs:  # K3's and K6's planned split merges, in the unfused step only
-        counters += (("block_sparse_dw_merge", bsm, "dw_merge_launches"),)
-        dx_merge = {"block_sparse_dw_merge": 0}
-        dw_merge = {"block_sparse_dw_merge": bs_dw_merges(torch, mm, cfg, state,
-                                                          MASKED_BATCH * TRAIN_SEQ)}
+    if bs:  # K1's and K4's planned split merges (twice: remat) in both steps,
+        # K3's and K6's in the unfused step only
+        tokens = MASKED_BATCH * TRAIN_SEQ
+        counters += (("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                     ("block_sparse_dw_merge", bsm, "dw_merge_launches"))
+        dx_merge = {"block_sparse_fwd_merge": 2 * bs_merges(torch, mm, cfg, state, tokens,
+                                                            "bs_fwd"),
+                    "block_sparse_dw_merge": 0}
+        dw_merge = {"block_sparse_dw_merge": bs_merges(torch, mm, cfg, state, tokens)}
     else:  # K14's and K17's planned split merges (one microbatch); K15's and
         # K18's in the unfused step only
         tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
@@ -3560,14 +3676,15 @@ def method_train(torch, bsm, mm, fa, tk, method):
     if masked:  # K14's and K15's planned split merges, set from the weights' shapes at step 1
         counters += (("masked_dx_merge", mm, "dx_merge_launches"),
                      ("masked_dw_merge", mm, "dw_merge_launches"))
-    else:  # K3's planned split merges, on the pack each step runs on
-        counters += (("block_sparse_dw_merge", bsm, "dw_merge_launches"),)
+    else:  # K1's and K3's planned split merges, on the pack each step runs on
+        counters += (("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                     ("block_sparse_dw_merge", bsm, "dw_merge_launches"))
     read = lambda: {n: getattr(m, a) for n, m, a in counters}
     # set carries no superset: its update step takes the dense gradient on
     # the masked weights (the reference's legacy path), attention alone on
     # the kernels
-    update = dict(expect, **({fwd: 0, dx: 0, dw: 0, "block_sparse_dw_merge": 0}
-                             if method == "set" else {}))
+    update = dict(expect, **({fwd: 0, dx: 0, dw: 0, "block_sparse_fwd_merge": 0,
+                              "block_sparse_dw_merge": 0} if method == "set" else {}))
     first = dict(expect)
     if method == "snip":
         first.update(flash_fwd=4 * n_attn, flash_dq=2 * n_attn, flash_dkv=2 * n_attn)
@@ -3623,9 +3740,13 @@ def method_train(torch, bsm, mm, fa, tk, method):
                 d["masked_dx_merge"], d["masked_dw_merge"] = n_merges["dx"], n_merges["dw"]
         want = first if step == 1 else update if is_update else expect
         if not masked:  # the pack the step ran on: the one it left, unless it updated
-            now = bs_dw_merges(torch, mm, cfg, state, MASKED_BATCH * TRAIN_SEQ)
-            want = dict(want, block_sparse_dw_merge=want.get(
-                "block_sparse_dw_merge", seen["bs_merges"] if is_update else now))
+            now = {e: bs_merges(torch, mm, cfg, state, MASKED_BATCH * TRAIN_SEQ, e)
+                   for e in ("bs_fwd", "bs_dw")}
+            ran = seen["bs_merges"] if is_update else now
+            # remat: K1 and its merges twice
+            want = dict(want, block_sparse_fwd_merge=want.get(
+                "block_sparse_fwd_merge", 2 * ran["bs_fwd"]),
+                block_sparse_dw_merge=want.get("block_sparse_dw_merge", ran["bs_dw"]))
             seen["bs_merges"] = now
         if rec["launches"] != want or not math.isfinite(rec["loss"]):
             raise AssertionError(f"{method} step {step}: {rec}, expected {want}")
@@ -3757,12 +3878,13 @@ def main() -> int:
     # the run's own initial weights, masks, supersets and packs (seed 0;
     # the draws do not depend on the optimizer, so sgd keeps this copy small)
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
-    k2, k3, bs_merges = bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg)
+    k2, k3, k3_merges = bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg)
     k10, k11 = flash_bwd_cases(torch, timer, fa)
     done("parity K2, K3, K10, K11")
     dense_check = train_dense_check(torch, cfg, state)
-    merges0 = tuple(bs_dw_merges(torch, mm, cfg, state, n) for n in (
+    merges0 = {e: tuple(bs_merges(torch, mm, cfg, state, n, e) for n in (
         TRAIN_BATCH * TRAIN_SEQ // cfg.microbatches, TRAIN_BATCH * TRAIN_SEQ))
+        for e in ("bs_fwd", "bs_dw")}
     del state
     done("train step-0 check")
     train_stats, train_launches = train_path(torch, bsm, fa, mm, cfg, merges0)
@@ -3853,10 +3975,16 @@ def main() -> int:
     csrc, kern = "src/repro_torch/csrc/", "src/repro/kernels/"
     dx_merges = mcases["dx_merge"] + k1718["dx_merge"]
     dw_merges = mcases["dw_merge"] + k1718["dw_merge"]
-    bs_dw_merge_cases = bs_merges + k56["merge"]
+    bs_dw_merge_cases = k3_merges + k56["merge"]
+    bs_fwd_merge_cases = [c["merge_case"] for c in k1 + k4 if "merge_case" in c]
     report = {"kernels": [
         summary("block_sparse_fwd", csrc + "block_sparse_fwd.cu",
                 kern + "block_sparse_matmul.py:223", k1),
+        # K1's and K4's split merge (the masked forward's masked_merge_kernel,
+        # counted on its own), where a timed case's plan splits
+        *([summary("block_sparse_fwd_merge", csrc + "masked_matmul.cu",
+                   kern + "block_sparse_matmul.py:223", bs_fwd_merge_cases)]
+          if bs_fwd_merge_cases else []),
         summary("block_sparse_dx", csrc + "block_sparse_bwd.cu",
                 kern + "block_sparse_matmul.py:243", k2),
         summary("block_sparse_dw", csrc + "block_sparse_bwd.cu",
@@ -3915,7 +4043,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "phase_s": phase_s, "k1": k1, "k2": k2, "k3": k3,
-         "bs_dw_merge": bs_dw_merge_cases, "k9": k9,
+         "bs_dw_merge": bs_dw_merge_cases, "bs_fwd_merge": bs_fwd_merge_cases, "k9": k9,
          "k10": k10, "k11": k11, "engine": serve_stats, "train": train_stats,
          "masked_cases": mcases, "masked_engine": masked_serve_stats,
          "masked_train": masked_train_stats, "fused_train": fused_stats,

@@ -7,7 +7,7 @@
 // stochastically rounded to the bf16 grid, for every group g of the bank
 // (K2/K3/K7 are the bank of one).  The grid's third dimension is the
 // group (times the wgrad's split), as K4 runs K1's kernel
-// (block_sparse_fwd.cuh).
+// (block_sparse_fwd.cuh, on the GEMM core with the packed walk).
 //
 // Packs (core/pack.py), stacked over the groups at one shared width each:
 // the CSR ridx[g, k, :rcnt[g, k]] lists the active N-blocks of K-block row

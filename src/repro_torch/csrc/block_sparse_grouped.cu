@@ -16,9 +16,11 @@
 //
 // The TPU kernels' grids (G, ..., width) walked every padded slot of the
 // shared width with a pl.when skip; here the group is the CTA grid's third
-// dimension and each CTA loops over exactly its own group's count (a
-// lopsided expert widens only the packed arrays, not the other groups'
-// loops).  K4 is K1's kernel (block_sparse_fwd.cuh), K5/K6/K8 are
+// dimension (times a split of K4's and K6's walks) and each CTA loops over
+// exactly its own group's count (a lopsided expert widens only the packed
+// arrays, not the other groups' loops).  K4 is K1's kernel on the GEMM
+// core with the packed walk (block_sparse_fwd.cuh; a split is merged by
+// masked_matmul.cu's masked_merge_<S>), K5/K6/K8 are
 // K2/K3/K7's (block_sparse_bwd.cuh); the designs, their traps (a dead expert
 // writes zero outputs, zero dx rows and a zero dw; a group with no active
 // block a zero m_new) and their bounds are there.
@@ -26,21 +28,23 @@
 #include "block_sparse_fwd.cuh"
 
 // K4: x (G, Mp, K), w (G, K, N) row-major in the entry's element type; idx
-// (G, N/bn, width), cnt (G, N/bn) int32; y (G, Mp, N) like x.
-extern "C" int block_sparse_grouped_fwd_bf16(const void* x, const void* w,
-                                             const void* idx, const void* cnt, void* y,
-                                             int G, int Mp, int K, int N, int width,
-                                             int bm, int bn, int bk, void* stream) {
-  return launch_block_sparse_fwd<__nv_bfloat16>(x, w, idx, cnt, y, G, Mp, K, N,
-                                                width, bm, bn, bk, stream);
+// (G, N/bn, width), cnt (G, N/bn) int32; y (G, Mp, N) like x.  (tm, tn) a
+// built tile; with n_split > 1, part is the f32 workspace (n_split, G, Mp,
+// N) and masked_matmul.cu's masked_merge_<S> must follow.
+extern "C" int block_sparse_grouped_fwd_bf16(const void* x, const void* w, const void* idx,
+                                             const void* cnt, void* y, void* part, int G,
+                                             int Mp, int K, int N, int width, int bk, int bn,
+                                             int tm, int tn, int n_split, void* stream) {
+  return launch_block_sparse_fwd<__nv_bfloat16>(x, w, idx, cnt, y, part, G, Mp, K, N, width,
+                                                bk, bn, tm, tn, n_split, stream);
 }
 
-extern "C" int block_sparse_grouped_fwd_f32(const void* x, const void* w,
-                                            const void* idx, const void* cnt, void* y,
-                                            int G, int Mp, int K, int N, int width,
-                                            int bm, int bn, int bk, void* stream) {
-  return launch_block_sparse_fwd<float>(x, w, idx, cnt, y, G, Mp, K, N, width, bm,
-                                        bn, bk, stream);
+extern "C" int block_sparse_grouped_fwd_f32(const void* x, const void* w, const void* idx,
+                                            const void* cnt, void* y, void* part, int G,
+                                            int Mp, int K, int N, int width, int bk, int bn,
+                                            int tm, int tn, int n_split, void* stream) {
+  return launch_block_sparse_fwd<float>(x, w, idx, cnt, y, part, G, Mp, K, N, width, bk, bn,
+                                        tm, tn, n_split, stream);
 }
 
 // K5: g (G, Mp, N), w (G, K, N), dx (G, Mp, K) in the entry's element type;

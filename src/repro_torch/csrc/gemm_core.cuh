@@ -1,18 +1,28 @@
 // A CTA-level GEMM main loop on mma.sync with register-resident
 // accumulators: the core of the masked forward (K13, and K16 with the
 // bank's group as grid dim z), the masked dgrad (K14, and K17 likewise),
-// the masked wgrad (K15, and K18 likewise) and the block-sparse wgrad (K3,
-// and K6 likewise: block_sparse_bwd.cuh), built so that the other matmul
+// the masked wgrad (K15, and K18 likewise), the block-sparse wgrad (K3,
+// and K6 likewise: block_sparse_bwd.cuh) and the block-sparse forward (K1,
+// and K4 likewise: block_sparse_fwd.cuh), built so that the other matmul
 // kernels can move onto it one by one.
 //
 // A CTA owns one BM x BN tile of C = A @ B, A (rows x L), and walks the
-// contraction dim L in slabs of kSlab = 32 from slab s0 to slab s1 (a split
-// walks a part of L; the caller merges the parts).  A is staged by one of
-// two policies:
-//  * RowsA (K13, K14, K16, K17): A (rows x L) row-major: a slab is BM A
-//    rows of kSlab contraction elements.
-//  * ColsA (K15, K18, K3, K6): A = x^T, x (L x rows) row-major: a slab is kSlab x
-//    rows of BM elements each, staged as they lie (no transpose through
+// contraction dim L in slabs of kSlab = 32.  A slab map gives slab t's
+// contraction offset and the end of its extent:
+//  * DenseMap (every kernel but the block-sparse forward): slab t is L's
+//    slab s0 + t, its extent L; a split walks the slabs [s0, s1) of L and
+//    the caller merges the parts.
+//  * PackedMap (K1, K4): the contraction visits a packed list of active
+//    K-blocks of bk rows, the CTA's own list in shared memory: slab t (of
+//    the walk from s0) is sub-slab (s0 + t) % spb of block ids[(s0 + t) /
+//    spb], spb = ceil(bk / kSlab), and its extent ends where its block
+//    does, so a slab of a block whose bk is not a multiple of 32 is
+//    zero-filled past the block and never reads the next one.
+// A is staged by one of two policies:
+//  * RowsA (K13, K14, K16, K17, K1, K4): A (rows x L) row-major: a slab is
+//    BM A rows of kSlab contraction elements.
+//  * ColsA (K15, K18, K3, K6): A = x^T, x (L x rows) row-major: a slab is
+//    kSlab x rows of BM elements each, staged as they lie (no transpose through
 //    registers or scalar stores); ldmatrix.trans (bf16) or scalar loads
 //    (f32) read the fragments.
 // B by one of three:
@@ -21,9 +31,10 @@
 //  * MaskedColsB (K14, K17): B = (w * m)^T, w (cols x L) row-major: a slab
 //    is BN w rows of kSlab contraction elements, staged as they lie -- the
 //    "n-major" B operand that mma.sync reads, so nothing is transposed.
-//  * DenseRowsB (K15, K18, K3, K6): B = g (L x cols) row-major, staged as
-//    MaskedRowsB stages w, with no mask (the masked wgrad's mask multiplies
-//    the sum at the store, outside this header).
+//  * DenseRowsB (K15, K18, K3, K6; K1, K4 with B = w): B = g (L x cols)
+//    row-major, staged as MaskedRowsB stages w, with no mask (the masked
+//    wgrad's mask multiplies the sum at the store, outside this header; the
+//    block-sparse forward's pack decides which rows of w are read).
 // Rows, columns and L past their extents are zero-filled by the copies and
 // never stored, so no extent has to be a multiple of a tile (cols, and
 // ColsA's rows, must be multiples of 16: one 16-byte mask chunk, two bf16
@@ -31,7 +42,8 @@
 // row stride (lda, ldb) is an argument apart from the extents: the masked
 // kernels pass their dense operands' own (the policies' dense_ld), the
 // block-sparse wgrad walks one block of a wider x and g, the block's edges
-// as the extents.
+// as the extents, and the block-sparse forward one block column of w, its
+// end the column extent.
 //
 //  * The ring.  STAGES stages in shared memory, each an A tile, a B tile
 //    and, for a masked B, the B tile's mask (kSlab x BN bytes), filled by
@@ -88,8 +100,7 @@
 // What the later matmul kernels need and this header does not build yet:
 // the fused SGD wgrad (K19, K20, and K7, K8 over the packed blocks) runs
 // the same walk as K15, K18, K3 and K6 and differs only at the store; the
-// block-sparse forward and dgrad (K1, K2, K4, K5) need a walk whose
-// contraction visits a packed list of active blocks.
+// block-sparse dgrad (K2, K5) can walk its CSR list with the packed map.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -115,8 +126,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 // layout), and ah[i] the float bits of {(m = g, k = t), (g + 8, t), (g, t +
 // 4), (g + 8, t + 4)} of block i (mma1688_tf32's).
 
-// K13, K14, K16, K17: A (rows x L) row-major.  A stage holds the tile's BM
-// A rows, each a run of kSlab contraction elements, padded by 16 bytes.
+// K13, K14, K16, K17, K1, K4: A (rows x L) row-major.  A stage holds the
+// tile's BM A rows, each a run of kSlab contraction elements, padded by 16
+// bytes.
 struct RowsA {
   __host__ __device__ static constexpr int ld(int e) { return kSlab + 16 / e; }
   __host__ __device__ static constexpr int bytes(int bm, int e) { return bm * ld(e) * e; }
@@ -360,7 +372,7 @@ struct MaskedColsB {
 
 // K15/K18 and K3/K6: B = g (L x cols) row-major, staged as MaskedRowsB
 // stages w (the same chunks, rows and fragments) with no mask chunk and no
-// mask pass.  The masked wgrad's grid walks the column tiles fastest:
+// mask pass; K1/K4 stage w (L x cols) by it, the rows the pack names.  The masked wgrad's grid walks the column tiles fastest:
 // neighbouring CTAs share A's tile, x's columns (row tiles fastest timed the
 // same on an H100, PERF.md).
 struct DenseRowsB : MaskedRowsB {
@@ -568,24 +580,46 @@ struct Warp<C, float> {
   }
 };
 
-// The CTA's walk over slabs [s0, s1) of L: A (as C::StageA lays it out,
-// row stride lda) tile rows m0.., B and its mask (as C::StageB lays them
-// out, row stride ldb; m unread for a dense B) tile columns n0.., rows,
-// cols and L the extents; warp w owns warp tile (w / WN, w % WN).  smem:
-// C::SMEM bytes of dynamic shared memory.  kExact: f32's exact split.
-template <class C, bool kExact = false>
-__device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a, int lda,
-                                     const typename C::Type* b, int ldb, const uint8_t* m,
-                                     int rows, int cols, int L, int m0, int n0, int s0, int s1,
-                                     unsigned char* smem) {
+// Slab maps (the header says which kernel takes which): map(t, l0, end)
+// sets slab t's first contraction element l0 and the end of its extent.
+struct DenseMap {
+  int s0, L;
+  __device__ __forceinline__ void operator()(int t, int& l0, int& end) const {
+    l0 = (s0 + t) * kSlab;
+    end = L;
+  }
+};
+
+struct PackedMap {
+  const int* ids;   // the CTA's active K-blocks, in shared memory
+  int bk, spb, s0;  // block rows, slabs a block (ceil(bk / kSlab)), first slab
+  __device__ __forceinline__ void operator()(int t, int& l0, int& end) const {
+    const int u = s0 + t, k0 = ids[u / spb] * bk;
+    l0 = k0 + (u % spb) * kSlab;
+    end = k0 + bk;
+  }
+};
+
+// The CTA's walk over the n slabs that ``map`` gives: A (as C::StageA lays
+// it out, row stride lda) tile rows m0.., B and its mask (as C::StageB lays
+// them out, row stride ldb; m unread for a dense B) tile columns n0..,
+// rows and cols the extents; warp w owns warp tile (w / WN, w % WN).
+// smem: C::SMEM bytes of dynamic shared memory.  kExact: f32's exact split.
+template <class C, bool kExact = false, class Map>
+__device__ __forceinline__ void walk_map(Warp<C>& warp, const typename C::Type* a, int lda,
+                                         const typename C::Type* b, int ldb, const uint8_t* m,
+                                         int rows, int cols, const Map& map, int m0, int n0,
+                                         int n, unsigned char* smem) {
   using A = typename C::StageA;
   const uint32_t base = ptx::smem_addr(smem);
-  const int n = s1 - s0, w = threadIdx.x >> 5, wm = w / C::WN, wn = w % C::WN;
+  const int w = threadIdx.x >> 5, wm = w / C::WN, wn = w % C::WN;
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
     if (s < n) {
-      A::template load<C>(base + s * C::STAGE_BYTES, a, lda, rows, L, m0, (s0 + s) * kSlab);
-      load_b<C>(base + s * C::STAGE_BYTES, b, m, ldb, L, cols, n0, (s0 + s) * kSlab);
+      int l0, end;
+      map(s, l0, end);
+      A::template load<C>(base + s * C::STAGE_BYTES, a, lda, rows, end, m0, l0);
+      load_b<C>(base + s * C::STAGE_BYTES, b, m, ldb, end, cols, n0, l0);
     }
     ptx::cp_async_commit();  // empty groups keep the count uniform
   }
@@ -597,13 +631,25 @@ __device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a, i
     const int nx = t + C::STAGES - 1;
     if (nx < n) {
       const uint32_t dst = base + (nx % C::STAGES) * C::STAGE_BYTES;
-      A::template load<C>(dst, a, lda, rows, L, m0, (s0 + nx) * kSlab);
-      load_b<C>(dst, b, m, ldb, L, cols, n0, (s0 + nx) * kSlab);
+      int l0, end;
+      map(nx, l0, end);
+      A::template load<C>(dst, a, lda, rows, end, m0, l0);
+      load_b<C>(dst, b, m, ldb, end, cols, n0, l0);
     }
     ptx::cp_async_commit();
     warp.template slab<kExact>(base + st * C::STAGE_BYTES, wm, wn);
   }
   ptx::cp_async_wait_all();
+}
+
+// The dense walk over slabs [s0, s1) of L (L the contraction's extent).
+template <class C, bool kExact = false>
+__device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a, int lda,
+                                     const typename C::Type* b, int ldb, const uint8_t* m,
+                                     int rows, int cols, int L, int m0, int n0, int s0, int s1,
+                                     unsigned char* smem) {
+  walk_map<C, kExact>(warp, a, lda, b, ldb, m, rows, cols, DenseMap{s0, L}, m0, n0, s1 - s0,
+                      smem);
 }
 
 // st(row, col, v0, v1) for this thread's fragment pairs (col even; v1 at

@@ -1,7 +1,8 @@
 // The launch side of the GEMM core (gemm_core.cuh), shared by the kernels
-// built on it: the masked matmuls K13-K18 (masked_matmul.cu) and the
+// built on it: the masked matmuls K13-K18 (masked_matmul.cu), the
 // block-sparse wgrad K3/K6 (block_sparse_bwd.cuh, in block_sparse_bwd.cu and
-// block_sparse_grouped.cu).  The CTA configurations of each built tile,
+// block_sparse_grouped.cu) and the block-sparse forward K1/K4
+// (block_sparse_fwd.cuh, in block_sparse_fwd.cu and block_sparse_grouped.cu).  The CTA configurations of each built tile,
 // the dispatch from a host plan's tile to its configuration, the paired
 // stores of the epilogues, the kernel attributes set before a launch, and
 // the launch's resources read back from the runtime.
@@ -20,8 +21,8 @@ namespace gemm {
 // slab, or a block-sparse wgrad's blocks are at most 64 wide), 16 x 64 for
 // decode (not the wgrads': their rows are K); WM x WN warps, ring stages,
 // resident CTAs an SM.  The forward (StageB = MaskedRowsB), the dgrad
-// (MaskedColsB) and the wgrads (DenseRowsB, StageA = ColsA) share the
-// numbers.
+// (MaskedColsB), the wgrads (DenseRowsB, StageA = ColsA) and the
+// block-sparse forward (DenseRowsB, RowsA) share the numbers.
 template <typename T, int BM, int BN, class StageB, class StageA> struct TileCfg;
 template <class B, class A> struct TileCfg<__nv_bfloat16, 128, 128, B, A> {
   using C = Cfg<__nv_bfloat16, 128, 128, 2, 4, 4, 2, B, A>;

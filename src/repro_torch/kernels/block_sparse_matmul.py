@@ -7,6 +7,7 @@ are described in the sources:
 
   K1 ``_fwd_kernel`` (``_fwd_call``)  y = x @ W over the CSC pack
      ``idx[j, :cnt[j]]``                       -> csrc/block_sparse_fwd.cu
+                                                (on the GEMM core, gemm_core.cuh)
   K2 ``_dx_kernel`` (``_dx_call``)    dx = g @ W^T over the CSR pack
      ``ridx[k, :rcnt[k]]``                     -> csrc/block_sparse_bwd.cu
   K3 ``_dw_kernel`` (``_dw_call``)    dw = x^T @ g on the active blocks of
@@ -15,7 +16,8 @@ are described in the sources:
   K4 ``_g_fwd_kernel`` (``_g_fwd_call``)  y[g] = x[g] @ W[g] for every group
      of a (G, K, N) weight bank over the stacked CSC ``idx[g, j, :cnt[g, j]]``
      (the MoE experts), one launch            -> csrc/block_sparse_grouped.cu
-                                                (K1's kernel, block_sparse_fwd.cuh)
+                                                (K1's kernel, block_sparse_fwd.cuh,
+                                                on the GEMM core)
   K5 ``_g_dx_kernel`` (``_g_dx_call``)  dx[g] = g[g] @ W[g]^T over the
      stacked CSR ``ridx[g, k, :rcnt[g, k]]``   -> csrc/block_sparse_grouped.cu
   K6 ``_g_dw_kernel`` (``_g_dw_call``)  dw[g] = x[g]^T @ g[g] on the active
@@ -29,18 +31,24 @@ are described in the sources:
 
 Each runs in bf16 (tensor cores) and in f32 (the reference's MLP computes
 in the f32 residual's dtype), accumulating in f32 and rounding once to the
-element type.  K3 and K6 run on the GEMM core of the masked kernels
-(mma.sync bf16, and 3xTF32 for f32) with its plan (``masked_matmul.fwd_plan``,
-entry "bs_dw", on the pack's live blocks): one CTA a live block, the M walk
-split where the live blocks leave the card's last wave mostly idle, the
-split's packed f32 partials summed in order by ``bs_dw_merge``.  The others
-run on the tile layer (wmma bf16, full-precision FFMA f32).
+element type.  K1, K3, K4 and K6 run on the GEMM core of the masked
+kernels (mma.sync bf16, and 3xTF32 for f32) with its split rule
+(``masked_matmul.fwd_split``, on the pack's live blocks).  K3/K6
+(``masked_matmul.fwd_plan``, entry "bs_dw"): one CTA a live block, the M
+walk split where the live blocks leave the card's last wave mostly idle,
+the split's packed f32 partials summed in order by ``bs_dw_merge``.  K1/K4
+(``fwd_plan`` here): one CTA a (column tile, row tile) of y, walking its
+block column's packed list of active K-blocks, the list split where the
+grid leaves the card's slots empty (decode) or its last wave idle, the f32
+partials summed in order by ``bs_fwd_merge``.  The others run on the tile layer (wmma bf16, full-precision FFMA f32).
 
 The plain versions select the pack's blocks (``torch.where``), never
-multiply by the expanded mask: an inf or NaN weight in an inactive block,
-or a wgrad sum off the pack, never reaches the output, and dw is +0.0 off
-the pack, as the reference (whose kernels never read an inactive block,
-and whose ``_scatter_packed_dw`` writes the blocks into zeros).
+multiply by the expanded mask, and sum each product over the pack's active
+blocks only: an inf or NaN weight in an inactive block, an inf or NaN in x
+(K1, K4) or g (K2, K5) that only inactive blocks read, or a wgrad sum off
+the pack, never reaches the output, and dw is +0.0 off the pack, as the
+reference (whose kernels never read an inactive block, and whose
+``_scatter_packed_dw`` writes the blocks into zeros).
 
 Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense, 67 TFLOP/s f32
 FFMA): each kernel must at least read the active weight (or gradient)
@@ -52,7 +60,8 @@ PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``dx_launches``, ``dw_launches``, ``g_launches``, ``gdx_launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
 launches, so a run can show that its path went through the kernels;
-``dw_merge_launches`` counts the split merges after K3 and K6.
+``fwd_merge_launches`` counts the split merges after K1 and K4,
+``dw_merge_launches`` those after K3 and K6.
 ``BlockSparseMatmul``, ``TopkastBlockSparseMatmul``,
 ``GroupedBlockSparseMatmul`` and ``TopkastGroupedBlockSparseMatmul`` are the
 differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd``,
@@ -63,6 +72,8 @@ two Top-KAST forms given a momentum are also the reference's fused
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -84,11 +95,17 @@ __all__ = [
     "block_sparse_dx_plain",
     "block_sparse_matmul",
     "block_sparse_matmul_plain",
+    "block_sparse_matmul_split_plain",
+    "bs_fwd_merge",
     "csr_of",
     "dx_launches",
     "dw_launches",
     "dw_merge_launches",
     "fused_launches",
+    "fwd_candidates",
+    "fwd_launch_info",
+    "fwd_merge_launches",
+    "fwd_plan",
     "g_fused_launches",
     "g_launches",
     "gdw_launches",
@@ -116,6 +133,7 @@ gdw_launches = 0  # K6
 fused_launches = 0    # K7
 g_fused_launches = 0  # K8
 dw_merge_launches = 0  # the merges of split K3 and K6 launches
+fwd_merge_launches = 0  # the merges of split K1 and K4 launches
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
@@ -149,32 +167,63 @@ def csr_of(idx: torch.Tensor, cnt: torch.Tensor, n_rows: int):
 
 
 def _dense_mask(idx, cnt, n_rows: int, bk: int, bn: int) -> torch.Tensor:
-    mask = unpack_block_mask(idx, cnt, n_rows)
-    return mask.repeat_interleave(bk, -2).repeat_interleave(bn, -1)
+    return _expand(unpack_block_mask(idx, cnt, n_rows), bk, bn)
+
+
+def _on_blocks(a, b, live, rb: int, cb: int):
+    """``a (..., R, L) @ b (..., L, C)`` in f32, summed over b's live (rb,
+    cb) blocks only: ``live (..., L/rb, C/cb)`` bool, b zero off them.  The
+    dense product, except that the rows of a that hold an inf or NaN are
+    summed block by block (a batched product over each group that has
+    them), so that such a value reaches only the outputs whose blocks read
+    it: the dense product would meet an inactive block's zero with it and
+    give NaN, where the reference's kernels never read that block."""
+    af, bf = a.float(), b.float()
+    out = af @ bf
+    bad = ~torch.isfinite(af).all(-1)
+    if not bool(bad.any()):
+        return out
+    a3, b3, o3, l3, bad3 = (t if a.dim() == 3 else t[None] for t in (af, bf, out, live, bad))
+    nl = a3.shape[-1] // rb
+    for g in bad3.any(-1).nonzero().flatten().tolist():
+        rows = bad3[g].nonzero().flatten()
+        part = torch.bmm(a3[g, rows].unflatten(-1, (nl, rb)).transpose(0, 1),
+                         b3[g].unflatten(0, (nl, rb)))  # (L/rb, rows, C)
+        keep = l3[g].repeat_interleave(cb, -1)[:, None, :]
+        o3[g, rows] = torch.where(keep, part, 0.0).sum(0)
+    return out
+
+
+def _expand(live, rb: int, cb: int):
+    return live.repeat_interleave(rb, -2).repeat_interleave(cb, -1)
 
 
 def block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
-    """Plain K1: expand the pack to a dense block mask, select w onto it
-    and compute ``x @ w_selected`` with f32 accumulation, rounded once to
-    x.dtype."""
-    mask = _dense_mask(idx, cnt, w.shape[0] // bk, bk, bn)
-    return (x.float() @ torch.where(mask, w.float(), 0.0)).to(x.dtype)
+    """Plain K1: select w onto the pack's blocks and compute ``x @
+    w_selected`` over the active blocks only (``_on_blocks``), with f32
+    accumulation, rounded once to x.dtype."""
+    live = unpack_block_mask(idx, cnt, w.shape[0] // bk)
+    wsel = torch.where(_expand(live, bk, bn), w.float(), 0.0)
+    return _on_blocks(x, wsel, live, bk, bn).to(x.dtype)
 
 
 def grouped_block_sparse_matmul_plain(x, w, idx, cnt, bk: int, bn: int):
     """Plain K4: per group ``x[g] @ w[g]`` selected onto the stacked CSC's
-    blocks, with f32 accumulation, rounded once to x.dtype; a group whose
-    counts are all zero (a dead expert) gives zeros."""
-    mask = _dense_mask(idx, cnt, w.shape[-2] // bk, bk, bn)
-    return torch.bmm(x.float(), torch.where(mask, w.float(), 0.0)).to(x.dtype)
+    blocks, summed over the active blocks only, with f32 accumulation,
+    rounded once to x.dtype; a group whose counts are all zero (a dead
+    expert) gives zeros."""
+    live = unpack_block_mask(idx, cnt, w.shape[-2] // bk)
+    wsel = torch.where(_expand(live, bk, bn), w.float(), 0.0)
+    return _on_blocks(x, wsel, live, bk, bn).to(x.dtype)
 
 
 def grouped_block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
     """Plain K5: per group ``g[g] @ w[g]^T`` with w selected onto the
-    stacked CSR's blocks, in f32, rounded once to g.dtype; a dead expert's
-    rows are zeros."""
-    mask = _dense_mask(ridx, rcnt, w.shape[-1] // bn, bn, bk).transpose(1, 2)
-    return torch.bmm(g.float(), torch.where(mask, w.float(), 0.0).transpose(1, 2)).to(g.dtype)
+    stacked CSR's blocks, summed over the active blocks only, in f32,
+    rounded once to g.dtype; a dead expert's rows are zeros."""
+    live = unpack_block_mask(ridx, rcnt, w.shape[-1] // bn)  # (G, N/bn, K/bk)
+    wsel_t = torch.where(_expand(live, bn, bk), w.float().transpose(1, 2), 0.0)
+    return _on_blocks(g, wsel_t, live, bn, bk).to(g.dtype)
 
 
 def grouped_block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
@@ -187,9 +236,10 @@ def grouped_block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
 
 def block_sparse_dx_plain(g, w, ridx, rcnt, bk: int, bn: int):
     """Plain K2: ``g @ w^T`` with w selected onto the CSR pack's blocks,
-    in f32, rounded once to g.dtype."""
-    mask = _dense_mask(ridx, rcnt, w.shape[1] // bn, bn, bk).T
-    return (g.float() @ torch.where(mask, w.float(), 0.0).T).to(g.dtype)
+    summed over the active blocks only, in f32, rounded once to g.dtype."""
+    live = unpack_block_mask(ridx, rcnt, w.shape[1] // bn)  # (N/bn, K/bk)
+    wsel_t = torch.where(_expand(live, bn, bk), w.float().T, 0.0)
+    return _on_blocks(g, wsel_t, live, bn, bk).to(g.dtype)
 
 
 def block_sparse_dw_plain(x, g, idx, cnt, bk: int, bn: int):
@@ -214,6 +264,43 @@ def block_sparse_dw_split_plain(x, g, idx, cnt, bk: int, bn: int, n_split: int):
         acc = part if acc is None else acc + part
     mask = _dense_mask(idx, cnt, x.shape[-1] // bk, bk, bn)
     return torch.where(mask, acc, 0.0).to(x.dtype)
+
+
+def block_sparse_matmul_split_plain(x, w, idx, cnt, bk: int, bn: int, n_split: int):
+    """K1 (x (M, K), w (K, N), a CSC pack) or K4 (every operand with a
+    leading group dim) as a split launch computes it: column j's walk is
+    the n = cnt[j] * spb slabs of its list ``idx[j, :cnt[j]]`` (in the
+    list's order; spb = ceil(bk / FWD_SLAB) slabs a block, each ending at
+    most where its block does), split s takes slabs [s n // n_split, (s + 1)
+    n // n_split) and its f32 partial is x's product with the w rows of
+    those slabs over them only (``_on_blocks``); the partials are summed in
+    the order s = 0, 1, ... and rounded once to x.dtype."""
+    from .masked_matmul import FWD_SLAB  # masked_matmul imports this module
+
+    x3, w3, ix, cn = (x, w, idx, cnt) if x.dim() == 3 else (x[None], w[None], idx[None],
+                                                             cnt[None])
+    G, (K, N), width = x3.shape[0], w3.shape[-2:], ix.shape[-1]
+    nkb, nnb, spb = K // bk, N // bn, -(-bk // FWD_SLAB)
+    rb = math.gcd(bk, FWD_SLAB)  # rows on which a slab's split is constant
+    # pos[g, j, k]: block k's place in column j's list, -1 where inactive
+    slot = torch.arange(width, device=ix.device)
+    on = slot < cn[..., None]
+    pos = torch.full((G, nnb, nkb + 1), -1, dtype=torch.long, device=ix.device)
+    pos.scatter_(-1, torch.where(on, ix.long(), nkb), slot.expand_as(ix).clone())
+    pos = pos[..., :nkb].transpose(1, 2)  # (G, K/bk, N/bn)
+    # each rb-row piece's slab in its column's walk, and that slab's split
+    sub = (torch.arange(K // rb, device=ix.device) * rb % bk) // FWD_SLAB
+    t = pos.repeat_interleave(bk // rb, 1) * spb + sub[None, :, None]  # (G, K/rb, N/bn)
+    n = (cn.long() * spb)[:, None, :]
+    split = sum((t >= (s * n) // n_split).long() for s in range(1, n_split))
+    live = pos.repeat_interleave(bk // rb, 1) >= 0
+    wf = w3.float()
+    acc = None
+    for s in range(n_split):
+        piece = live & (split == s)
+        part = _on_blocks(x3, torch.where(_expand(piece, rb, bn), wf, 0.0), piece, rb, bn)
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype) if x.dim() == 3 else acc[0].to(x.dtype)
 
 
 def bs_dw_merge_plain(part, idx, cnt, dw):
@@ -350,11 +437,87 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int):
+def _fwd_grid(Mp, K, N, G, dtype, bk, bn, live):
+    """K1/K4's grid at one launch: (tile rows, tile columns, CTAs, merged
+    f32 elements of a split, the mean slabs a column's list walks, the
+    decode split's cap).  Each of the G N/bn block columns has its own list,
+    so its ceil(bn / tile columns) column tiles are its own (a tile never
+    spans two block columns); a column walks live ceil(bk / FWD_SLAB) / (G
+    N/bn) slabs on the mean; the partials stay within a quarter of the live
+    blocks' bytes (live bk bn e)."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    tm, tn = mm.fwd_tile(Mp, bn)
+    n_cols = G * (N // bn)
+    tiles = -(-Mp // tm) * -(-bn // tn) * n_cols
+    n_slabs = live * -(-bk // mm.FWD_SLAB) // max(n_cols, 1)
+    cap = live * bk * bn * dtype.itemsize // (32 * G * Mp * N)
+    return tm, tn, tiles, G * Mp * N, n_slabs, cap
+
+
+def fwd_plan(Mp: int, K: int, N: int, G: int, dtype, slots: int, *, bk: int, bn: int,
+             live: int) -> tuple[int, int, int]:
+    """K1/K4's launch of x (G, Mp, K) @ w (G, K, N) (G = 1 for K1) on
+    ``live`` active (bk, bn) blocks (the forward pack's nnz) -> (tile rows,
+    tile columns, n_split): the masked forward's tile (``fwd_tile`` at bn:
+    16 x 64 at decode, 128 x 64 for blocks under 128 columns, else 128 x
+    128) and ``masked_matmul.fwd_split`` on ``_fwd_grid``, weighing every
+    split at 128 rows (the walks are a column's few blocks).  ``slots``:
+    the CTAs the card holds at once at the tile."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    tm, tn, tiles, cells, n_slabs, cap = _fwd_grid(Mp, K, N, G, dtype, bk, bn, live)
+    return tm, tn, mm.fwd_split(tm, tn, tiles, cells, n_slabs, cap, dtype, slots, every=True)
+
+
+def fwd_candidates(Mp: int, K: int, N: int, G: int, dtype, slots: int, *, bk: int, bn: int,
+                   live: int) -> list[tuple[int, int, int]]:
+    """The plans a sweep forces at one K1/K4 shape (``fwd_plan``'s
+    arguments): every built tile of the pick's rows no wider than
+    max(bn, 64), each with every split of
+    ``masked_matmul.fwd_split_candidates``, and ``fwd_plan``'s pick."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    tm, _, _, _, n_slabs, cap = _fwd_grid(Mp, K, N, G, dtype, bk, bn, live)
+    out = [(a, b, n) for a, b in mm.FWD_TILES if a == tm and b <= max(bn, 64)
+           for n in mm.fwd_split_candidates(tm, n_slabs, cap, every=True)]
+    pick = fwd_plan(Mp, K, N, G, dtype, slots, bk=bk, bn=bn, live=live)
+    return out if pick in out else out + [pick]
+
+
+def fwd_launch_info(dtype, tm: int, tn: int, width: int) -> dict:
+    """``masked_matmul.launch_info`` of K1/K4's kernel at tile (tm, tn) in
+    ``dtype`` with a list of ``width`` block ids in shared memory.  Needs a
+    card."""
+    from .masked_matmul import launch_info  # masked_matmul imports this module
+
+    return launch_info(f"block_sparse_fwd_info_{_SUFFIX[dtype]}", "block_sparse_fwd", tm, tn,
+                       width)
+
+
+@functools.lru_cache(maxsize=4096)
+def _fwd_plan_for(Mp, K, N, G, dtype, bk, bn, live, device_index):
+    """``fwd_plan`` with the card's slots (SMs times the resident CTAs of
+    K1/K4's kernel at the tile with the longest list a column of K/bk
+    blocks can hold, from the runtime), memoized."""
+    from .masked_matmul import fwd_tile  # masked_matmul imports this module
+
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    slots = sms * fwd_launch_info(dtype, *fwd_tile(Mp, bn), K // bk)["ctas_per_sm"]
+    return fwd_plan(Mp, K, N, G, dtype, slots, bk=bk, bn=bn, live=live)
+
+
+def block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int, plan=None,
+                        live=None):
     """K1: x (M, K) @ block-sparse w (K, N) -> (M, N) in x.dtype.
 
-    M must be a multiple of ``bm`` (``kernels/ops.py`` pads rows).  CUDA
-    tensors run the kernel or raise; CPU tensors run the plain version.
+    M must be a multiple of ``bm``, the caller's row padding
+    (``kernels/ops.py`` pads rows); the plan's tile decides the launch.
+    ``fwd_plan`` picks it from ``live``, the forward pack's live blocks (a
+    host int the caller has: the pack entry's nnz; without one every slot
+    N/bn * width counts), or ``plan`` = (bm, bn, n_split) forces one (one of
+    ``masked_matmul.FWD_TILES``); a split is merged by ``bs_fwd_merge``.
+    CUDA tensors run the kernel or raise; CPU tensors run the plain version.
     """
     global launches
     if x.device.type == "cpu":
@@ -368,22 +531,21 @@ def block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int):
     if idx.dim() != 2 or idx.shape[0] != N // bn or cnt.shape != (N // bn,):
         raise ValueError(f"block_sparse_matmul: pack idx {tuple(idx.shape)} / cnt "
                          f"{tuple(cnt.shape)} does not match N/bn = {N // bn}")
-    lib, fn = _entry("block_sparse_fwd", f"block_sparse_fwd_{s}", 5, 7)
-    y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-                y.data_ptr(), M, K, N, idx.shape[1], bm, bn, bk, _stream(x))
-    _build.check(lib, rc, "block_sparse_fwd launch")
+    y = _fwd_gemm("block_sparse_matmul", "block_sparse_fwd", f"block_sparse_fwd_{s}", x, w,
+                  idx, cnt, 1, bn, bk, plan, live)
     launches += 1
     return y
 
 
-def grouped_block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int):
+def grouped_block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int, plan=None,
+                                live=None):
     """K4: x (G, M, K) @ block-sparse w (G, K, N) -> (G, M, N) in x.dtype,
     every group in one launch, over the stacked CSC pack ``idx (G, N/bn,
-    width)`` / ``cnt (G, N/bn)``.  M must be a multiple of ``bm``
-    (``kernels/ops.py`` pads rows).  CUDA tensors run the kernel or raise;
-    CPU tensors run the plain version."""
+    width)`` / ``cnt (G, N/bn)``.  M must be a multiple of ``bm``, the
+    caller's row padding (``kernels/ops.py`` pads rows); ``plan`` and
+    ``live`` (the live blocks of the whole bank) as for
+    ``block_sparse_matmul``.  CUDA tensors run
+    the kernel or raise; CPU tensors run the plain version."""
     global g_launches
     if x.device.type == "cpu":
         return grouped_block_sparse_matmul_plain(x, w, idx, cnt, bk, bn)
@@ -400,14 +562,55 @@ def grouped_block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int):
         raise ValueError(f"grouped_block_sparse_matmul: pack idx {tuple(idx.shape)} / "
                          f"cnt {tuple(cnt.shape)} does not match (G, N/bn) = "
                          f"({G}, {N // bn})")
-    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_fwd_{s}", 5, 8)
-    y = torch.empty(G, M, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-                y.data_ptr(), G, M, K, N, idx.shape[2], bm, bn, bk, _stream(x))
-    _build.check(lib, rc, "block_sparse_grouped_fwd launch")
+    y = _fwd_gemm("grouped_block_sparse_matmul", "block_sparse_grouped",
+                  f"block_sparse_grouped_fwd_{s}", x, w, idx, cnt, G, bn, bk, plan, live)
     g_launches += 1
     return y
+
+
+def _fwd_gemm(what, lib_name, fn_name, x, w, idx, cnt, G, bn, bk, plan, live):
+    """One K1 (G = 1: x (M, K), w (K, N), a 2-D pack) or K4 (x (G, M, K), w
+    (G, K, N), a stacked pack) launch on the plan's tile and split, and the
+    merge after a split: y (M, N) or (G, M, N).  The plan counts ``live``
+    blocks (every slot when None); no pack count is read on the host."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    M, K, N, width = x.shape[-2], x.shape[-1], w.shape[-1], idx.shape[-1]
+    live = G * (N // bn) * width if live is None else int(live)
+    tm, tn, n_split = plan or _fwd_plan_for(M, K, N, G, x.dtype, bk, bn, live,
+                                            x.device.index)
+    if (tm, tn) not in mm.FWD_TILES or not 1 <= n_split <= mm.FWD_MAX_SPLIT:
+        raise ValueError(f"{what}: plan {(tm, tn, n_split)} is not a built tile "
+                         f"{mm.FWD_TILES} with 1 <= n_split <= {mm.FWD_MAX_SPLIT}")
+    y = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
+    part = (torch.empty(n_split, G, M, N, dtype=torch.float32, device=x.device)
+            if n_split > 1 else None)
+    grouped = x.dim() == 3  # the grouped entry takes G
+    lib, fn = _entry(lib_name, fn_name, 6, 10 if grouped else 9)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(), cnt.data_ptr(), y.data_ptr(),
+                None if part is None else part.data_ptr(), *((G,) if grouped else ()), M, K,
+                N, width, bk, bn, tm, tn, n_split, _stream(x))
+    _build.check(lib, rc, f"{what} launch")
+    if part is not None:
+        bs_fwd_merge(part, y)
+    return y
+
+
+def bs_fwd_merge(part, out):
+    """The merge of a split K1/K4 launch: out = part[0] + part[1] + ... in
+    that order, in f32, rounded once to out.dtype; part (n_split, G, M, N)
+    f32, out (M, N) (G = 1) or (G, M, N).  The masked forward's merge
+    (``masked_matmul._merge``: ``masked_merge_kernel``) on CUDA tensors,
+    one launch counted in ``fwd_merge_launches``; its plain version on CPU
+    tensors."""
+    global fwd_merge_launches
+    from .masked_matmul import _merge  # masked_matmul imports this module
+
+    _merge("bs_fwd_merge", part, out.view(part.shape[1:]))
+    if out.device.type != "cpu":
+        fwd_merge_launches += 1
+    return out
 
 
 def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
@@ -666,13 +869,14 @@ class BlockSparseMatmul(torch.autograd.Function):
     """y = x @ W on the CSC pack; backward dx on the CSR pack (K2) and dw
     on the same CSC pack (K3), as the reference's ``_bs_fwd/_bs_bwd``.
     ``ridx``/``rcnt`` None derives the CSR at the worst-case width.
-    ``live``: the pack's active blocks as a host int (K3's plan), or None."""
+    ``live``: the pack's active blocks as a host int (K1's and K3's plans),
+    or None."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
         ctx.blocks, ctx.live = (bm, bn, bk), live
-        return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
+        return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
 
     @staticmethod
     def backward(ctx, g):
@@ -688,19 +892,19 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
     on B's blocks (K7 in K3's place), as the reference's ``_fbs_fwd/_fbs_bwd``
     (B is the forward CSC when the entry has no superset); ``mom`` and
     ``seed`` get no gradient.  ``live``: B's active blocks as a host int
-    (K3's plan), or None."""
+    (K3's plan), or None; ``nnz``: A's (K1's plan), or None."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
-                mu=0.0, wd=0.0, sr=False, live=None):
+                mu=0.0, wd=0.0, sr=False, live=None, nnz=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
         ctx.blocks, ctx.live = (bm, bn, bk), live
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
-        return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
+        return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 15
+        return _backward(ctx, g, *ctx.saved_tensors) + (None,) * 16
 
 
 class GroupedBlockSparseMatmul(torch.autograd.Function):
@@ -714,7 +918,7 @@ class GroupedBlockSparseMatmul(torch.autograd.Function):
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
         ctx.blocks, ctx.live = (bm, bn, bk), live
-        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
+        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
 
     @staticmethod
     def backward(ctx, g):
@@ -729,19 +933,19 @@ class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
     stacked superset CSC ``bidx``/``bcnt`` (B ⊇ A).  Given ``mom``, the
     weight cotangent is the new momentum on B's blocks (K8 in K6's place),
     as the reference's ``_gfbs_fwd/_gfbs_bwd``: a group with no block gets
-    zeros.  ``live`` as for ``TopkastBlockSparseMatmul``."""
+    zeros.  ``live`` and ``nnz`` as for ``TopkastBlockSparseMatmul``."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
-                mu=0.0, wd=0.0, sr=False, live=None):
+                mu=0.0, wd=0.0, sr=False, live=None, nnz=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
         ctx.blocks, ctx.live = (bm, bn, bk), live
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
-        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk)
+        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 15
+        return _backward(ctx, g, *ctx.saved_tensors, grouped=True) + (None,) * 16
 
 
 def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=False):

@@ -33,7 +33,9 @@ tile of a one-slab walk in bf16); a split's f32 partials are summed in
 order by a merge kernel (``fwd_merge`` after K13 and K16, ``dx_merge``
 after K14 and K17, ``dw_merge`` after K15 and K18, which then multiplies by
 the mask; the block-sparse wgrad K3/K6 of ``block_sparse_matmul`` runs the
-wgrad's walk on the same core and takes this plan, ``entry="bs_dw"``).  The
+wgrad's walk on the same core and takes this plan, ``entry="bs_dw"``; its
+forward K1/K4 counts its own grid and takes the same split rule,
+``fwd_split``).  The
 mask multiplies the weight, or in the wgrad the f32 sum (an
 inf or NaN under a zero mask gives NaN, as the reference's ``w *
 m.astype(w.dtype)`` and ``acc * m.astype(f32)``); it is never a select.
@@ -93,6 +95,8 @@ __all__ = [
     "fwd_merge_launches",
     "fwd_merge_plain",
     "fwd_plan",
+    "fwd_split",
+    "fwd_split_candidates",
     "fwd_split_ranges",
     "fwd_tile",
     "g_fused_launches",
@@ -107,6 +111,7 @@ __all__ = [
     "grouped_masked_dx_plain",
     "grouped_masked_matmul",
     "grouped_masked_matmul_plain",
+    "launch_info",
     "launches",
     "masked_dw",
     "masked_dw_fused",
@@ -141,7 +146,7 @@ dw_merge_launches = 0  # the merges of split K15 and K18 launches
 FWD_SLAB = 32  # contraction elements of one ring stage; a split walks whole slabs
 FWD_TILES = ((128, 128), (128, 64), (16, 64))  # (bm, bn) built
 DW_TILES = FWD_TILES[:2]  # K15/K18's (their rows are K, never a decode's)
-FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the sweeps' split counts (all weighed for "bs_dw")
+FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the sweeps' split counts (all weighed by K1/K3/K4/K6)
 FWD_MAX_SPLIT = 32
 FWD_MIN_SLABS = 2  # slabs a split walks at least
 # fwd_plan's model of the dense shapes: the kernel's own rate (flop/s, at
@@ -335,6 +340,51 @@ def fwd_tile(Mp: int, bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int
     return bm, 64 if bm == 16 or bn_limit < 128 else 128
 
 
+def fwd_split(bm: int, bn: int, tiles: int, cells: int, n_slabs: int, cap: int, dtype,
+              slots: int, every: bool = False) -> int:
+    """The split of a GEMM-core launch of ``tiles`` CTAs of bm x bn in
+    ``dtype``, each walking ``n_slabs`` slabs, on ``slots`` resident CTAs;
+    a split's f32 partials are ``cells`` elements, written and read by the
+    merge (8 bytes each a split).  Each caller counts its own grid
+    (``fwd_plan`` for K13-K18 and K3/K6, ``block_sparse_matmul.fwd_plan``
+    for K1/K4).
+
+    * Decode (bm = 16) reads every weight byte once: the split fills the
+      slots in one wave, as far as three limits allow: each split walks at
+      least FWD_MIN_SLABS slabs, at most FWD_MAX_SPLIT splits, and at most
+      ``cap`` (the caller's bound on the partials' bytes).
+    * Larger row counts do the dense work (bm = 128): a split is taken only
+      where the modelled makespan -- waves of ``slots`` CTAs, each walking
+      its slabs at the kernel's own rate ``FWD_RATE``, plus the partials'
+      bytes at FWD_BYTES_S -- drops by FWD_MIN_GAIN or more; the split
+      weighed is 2 (the masked grids: hundreds of tiles or more) or, with
+      ``every`` (the block-sparse grids: a few dozen live blocks, or short
+      walks), every split of FWD_SPLITS that walks at least FWD_MIN_SLABS
+      slabs, the one of least makespan."""
+    if bm == 16:
+        return max(1, min(slots // max(tiles, 1), n_slabs // FWD_MIN_SLABS, cap,
+                          FWD_MAX_SPLIT))
+    slab_s = 2.0 * bm * bn * FWD_SLAB * slots / FWD_RATE[dtype]  # one CTA's slab
+
+    def makespan(n):
+        waves = -(-tiles * n // slots)
+        merge = 8.0 * n * cells / FWD_BYTES_S if n > 1 else 0.0
+        return waves * -(-n_slabs // n) * slab_s + merge
+
+    splits = [n for n in FWD_SPLITS[1:] if n <= n_slabs // FWD_MIN_SLABS and (n == 2 or every)]
+    best = min(splits, key=makespan, default=1)
+    return best if splits and makespan(best) <= (1 - FWD_MIN_GAIN) * makespan(1) else 1
+
+
+def fwd_split_candidates(bm: int, n_slabs: int, cap: int, every: bool = False) -> list[int]:
+    """The split counts a sweep forces beside ``fwd_split``'s pick: 1, and
+    each of FWD_SPLITS that walks at least FWD_MIN_SLABS slabs -- at decode
+    (bm = 16) within twice ``cap``, else all of them with ``every``, else
+    2."""
+    cap = 2 * cap if bm == 16 else FWD_MAX_SPLIT if every else 2
+    return [n for n in FWD_SPLITS if n == 1 or (n <= n_slabs // FWD_MIN_SLABS and n <= cap)]
+
+
 def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
              bn_limit: int = 128, entry: str = "fwd",
              live: int | None = None) -> tuple[int, int, int]:
@@ -351,13 +401,10 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
     given), and the n = ceil(L / FWD_SLAB) slabs may be split into n_split
     whole-slab parts whose f32 partials a merge sums (8 G Mp cols bytes a
     split, written and read; 8 live bm bn where ``live`` is given: the
-    block-sparse merge moves the live tiles only).
+    block-sparse merge moves the live tiles only); ``fwd_split`` picks it.
 
-    * Decode (bm = 16) reads every weight and mask byte once: the split
-      fills the slots in one wave, as far as three limits allow: each split
-      walks at least FWD_MIN_SLABS slabs, at most FWD_MAX_SPLIT splits, and
-      the partials stay within a quarter of the weight and mask bytes (G L
-      cols (e + 1)), so n_split <= L (e + 1) / (32 Mp).
+    * Decode (bm = 16): the partials stay within a quarter of the weight
+      and mask bytes (G L cols (e + 1)), so n_split <= L (e + 1) / (32 Mp).
     * A wgrad walk of one slab (M <= FWD_SLAB: qwen2-moe's 16-row expert
       banks) in bf16 takes the 128 x 64 tile.  Such a CTA is only its
       copies, one slab and the store; the half tile shortens that chain
@@ -365,19 +412,14 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
       against 0.368 at the two banks on an H100, while f32's 128 x 64 (one
       CTA an SM, as its 128 x 128) took 0.653 against 0.514 (chip_smoke.py;
       PERF.md).
-    * Larger row counts do the dense work (bm = 128): a split of 2 is taken
-      only where the modelled makespan -- waves of ``slots`` CTAs, each
-      walking its slabs at the kernel's own rate ``FWD_RATE``, plus the
-      partials' bytes at FWD_BYTES_S -- drops by FWD_MIN_GAIN or more:
-      where the unsplit grid leaves most of its last wave idle (danube's
-      f32 MLP at 2048 rows: the forward of wo and the dgrad of wi and wg,
-      320 CTAs on 132 slots).  The banks (660-1320 CTAs) stay whole.  The
-      block-sparse wgrad ("bs_dw") weighs every split of FWD_SPLITS that
-      walks at least FWD_MIN_SLABS slabs and takes the one of least
-      makespan, where it gains FWD_MIN_GAIN: its grid is the pack's live
-      blocks, a few dozen to a few hundred (danube's wk at 63 live blocks
-      and its f32 MLP at 289 were fastest split in 4 on an H100, PERF.md);
-      it keeps its tile at one slab (the tile must hold its block).
+    * Larger row counts weigh a split of 2: it pays where the unsplit grid
+      leaves most of its last wave idle (danube's f32 MLP at 2048 rows: the
+      forward of wo and the dgrad of wi and wg, 320 CTAs on 132 slots).  The
+      banks (660-1320 CTAs) stay whole.  The block-sparse wgrad ("bs_dw")
+      weighs every split: its grid is the pack's live blocks, a few dozen to
+      a few hundred (danube's wk at 63 live blocks and its f32 MLP at 289
+      were fastest split in 4 on an H100, PERF.md); it keeps its tile at one
+      slab (the tile must hold its block).
 
     chip_smoke.py times every candidate (``fwd_candidates``) at the paths'
     shapes and says whether this pick was the fastest."""
@@ -387,23 +429,9 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
     n_slabs = -(-L // FWD_SLAB)
     if entry == "dw" and n_slabs == 1 and dtype == torch.bfloat16:
         return bm, 64, 1
-    if bm == 16:
-        cap = L * (_ELEMENT[dtype] + 1) // (32 * Mp)
-        n_split = min(slots // max(tiles, 1), n_slabs // FWD_MIN_SLABS, cap, FWD_MAX_SPLIT)
-        return bm, bn, max(1, n_split)
-    slab_s = 2.0 * bm * bn * FWD_SLAB * slots / FWD_RATE[dtype]  # one CTA's slab
-
-    def makespan(n):
-        waves = -(-tiles * n // slots)
-        merge = 8.0 * n * cells / FWD_BYTES_S if n > 1 else 0.0
-        return waves * -(-n_slabs // n) * slab_s + merge
-
-    # the masked grids are hundreds of tiles or more: a split of 2; the
-    # block-sparse wgrad's can be a few dozen live blocks: every split
-    splits = [n for n in FWD_SPLITS[1:] if n <= n_slabs // FWD_MIN_SLABS
-              and (n == 2 or entry == "bs_dw")]
-    best = min(splits, key=makespan, default=1)
-    return bm, bn, best if splits and makespan(best) <= (1 - FWD_MIN_GAIN) * makespan(1) else 1
+    cap = L * (_ELEMENT[dtype] + 1) // (32 * Mp)
+    return bm, bn, fwd_split(bm, bn, tiles, cells, n_slabs, cap, dtype, slots,
+                             every=entry == "bs_dw")
 
 
 def fwd_candidates(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
@@ -412,35 +440,38 @@ def fwd_candidates(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
     """The plans a sweep forces at one shape (``fwd_plan``'s arguments):
     every built tile of the row tile ``fwd_tile`` picks whose columns the
     caller allows (for "bs_dw" every built wgrad tile that holds the
-    block), and each of FWD_SPLITS that walks at least FWD_MIN_SLABS slabs
-    -- at decode (bm = 16) within twice the plan's partial cap, for "bs_dw"
-    all of them, else 1 and 2 -- with ``fwd_plan``'s own pick."""
+    block), each with every split of ``fwd_split_candidates``, and
+    ``fwd_plan``'s own pick."""
     bm, _ = fwd_tile(Mp, bn_limit, entry)
-    n_slabs = -(-L // FWD_SLAB)
-    cap = (2 * (L * (_ELEMENT[dtype] + 1) // (32 * Mp)) if bm == 16 else
-           FWD_MAX_SPLIT if entry == "bs_dw" else 2)
+    splits = fwd_split_candidates(bm, -(-L // FWD_SLAB), L * (_ELEMENT[dtype] + 1) // (32 * Mp),
+                                  every=entry == "bs_dw")
     tiles = ([t for t in DW_TILES if t[1] >= bn_limit] if entry == "bs_dw" else
              [(bm, bn) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)])
-    out = [(tbm, tbn, n) for tbm, tbn in tiles
-           for n in FWD_SPLITS if n == 1 or (n <= n_slabs // FWD_MIN_SLABS and n <= cap)]
+    out = [(tbm, tbn, n) for tbm, tbn in tiles for n in splits]
     pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry, live=live)
     return out if pick in out else out + [pick]
 
 
-def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
-    """The launch the GEMM core's kernel gets at tile (bm, bn) in ``dtype``,
-    ``entry`` "fwd" (K13/K16), "dx" (K14/K17), "dw" (K15/K18) or "bs_dw"
-    (K3/K6): CTAs resident per SM, registers a thread, dynamic shared bytes,
-    local (spill) bytes a thread and threads a CTA, from the CUDA runtime.
-    Needs a card."""
-    s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+def launch_info(name: str, lib_name: str, *args: int) -> dict:
+    """The launch a GEMM-core kernel gets, from its C entry ``name(*args,
+    int out[5])`` in ``lib_name``: CTAs resident per SM, registers a thread,
+    dynamic shared bytes, local (spill) bytes a thread and threads a CTA,
+    from the CUDA runtime.  Needs a card."""
     out = (ctypes.c_int * 5)()
-    name = f"block_sparse_dw_info_{s}" if entry == "bs_dw" else f"masked_{entry}_info_{s}"
-    lib, fn = _fn(name, [_I, _I, _P],
-                  "block_sparse_bwd" if entry == "bs_dw" else "masked_matmul")
-    _build.check(lib, fn(bm, bn, ctypes.addressof(out)), f"{name} launch info")
+    lib, fn = _fn(name, [_I] * len(args) + [_P], lib_name)
+    _build.check(lib, fn(*args, ctypes.addressof(out)), f"{name} launch info")
     return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "spill_bytes", "threads"),
                     list(out)))
+
+
+def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
+    """``launch_info`` of the GEMM core's kernel at tile (bm, bn) in
+    ``dtype``, ``entry`` "fwd" (K13/K16), "dx" (K14/K17), "dw" (K15/K18) or
+    "bs_dw" (K3/K6).  Needs a card."""
+    s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    if entry == "bs_dw":
+        return launch_info(f"block_sparse_dw_info_{s}", "block_sparse_bwd", bm, bn)
+    return launch_info(f"masked_{entry}_info_{s}", "masked_matmul", bm, bn)
 
 
 @functools.lru_cache(maxsize=4096)

@@ -94,7 +94,7 @@ def block_sparse_linear(x, w, *, pack, block=(128, 128, 128), mom=None, seed: in
     N = w.shape[1]
     bk, bn = min(bk, K), min(bn, N)
     idx, cnt, ridx, rcnt, bidx, bcnt = _pack_views(pack)
-    live = _live_blocks(pack)
+    nnz, live = _live_blocks(pack)
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
     bm_eff, Mp = _row_tile(M, bm)
@@ -102,7 +102,7 @@ def block_sparse_linear(x, w, *, pack, block=(128, 128, 128), mom=None, seed: in
     if bidx is not None or mom is not None:
         didx, dcnt = (idx, cnt) if bidx is None else (bidx, bcnt)
         out = TopkastBlockSparseMatmul.apply(x2, w, idx, cnt, ridx, rcnt, didx, dcnt,
-                                             bm_eff, bn, bk, mom, seed, mu, wd, sr, live)
+                                             bm_eff, bn, bk, mom, seed, mu, wd, sr, live, nnz)
     else:
         out = BlockSparseMatmul.apply(x2, w, idx, cnt, ridx, rcnt, bm_eff, bn, bk, live)
     return out[:M].reshape(*lead, N)
@@ -119,13 +119,15 @@ def _pack_views(pack):
 
 
 def _live_blocks(pack):
-    """The active blocks of the wgrad's pack as a host int, for K3/K6's
-    plan: a PackState entry's ``bnnz`` (its superset) or ``nnz``; None for a
-    bare tuple or an entry without them (the plan then counts every slot).
-    Read from the entry, never from the device's counts."""
+    """(the forward pack's active blocks, the wgrad pack's) as host ints,
+    for K1/K4's and K3/K6's plans: a PackState entry's ``nnz``, and its
+    ``bnnz`` (the superset) or ``nnz``; None for a bare tuple or an entry
+    without them (a plan then counts every slot).  Read from the entry,
+    never from the device's counts."""
     if not isinstance(pack, dict):
-        return None
-    return pack.get("bnnz") if "bidx" in pack else pack.get("nnz")
+        return None, None
+    nnz = pack.get("nnz")
+    return nnz, (pack.get("bnnz") if "bidx" in pack else nnz)
 
 
 def fused_block_sparse_linear(x, w, mom, seed: int, *, mu: float, wd: float, sr: bool,
@@ -218,7 +220,7 @@ def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128), mom=None,
     N = w.shape[2]
     bk, bn = min(bk, K), min(bn, N)
     idx, cnt, ridx, rcnt, bidx, bcnt = _pack_views(pack)
-    live = _live_blocks(pack)
+    nnz, live = _live_blocks(pack)
     bm_eff, Mp = _row_tile(M, bm)
     if Mp != M:
         x = F.pad(x, (0, 0, 0, Mp - M))
@@ -226,7 +228,7 @@ def grouped_block_sparse_linear(x, w, *, pack, block=(128, 128, 128), mom=None,
         didx, dcnt = (idx, cnt) if bidx is None else (bidx, bcnt)
         out = TopkastGroupedBlockSparseMatmul.apply(
             x.contiguous(), w, idx, cnt, ridx, rcnt, didx, dcnt, bm_eff, bn, bk, mom, seed,
-            mu, wd, sr, live)
+            mu, wd, sr, live, nnz)
     else:
         out = GroupedBlockSparseMatmul.apply(x.contiguous(), w, idx, cnt, ridx, rcnt,
                                              bm_eff, bn, bk, live)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
-K18 and the block-sparse wgrad K3/K6 on the GEMM core (each under every
-plan its sweep forces, with the split merge), the
+K18 and the block-sparse wgrad K3/K6 and forward K1/K4 on the GEMM core
+(each under every plan its sweep forces, with the split merge), the
 fused epilogue K19 and the |x| histogram K21, training steps,
 paged serving, MoE serving and MoE training through them.
 
@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.pack import pack_np  # noqa: E402
+from repro_torch.core.pack import pack_group_mask, pack_np  # noqa: E402
 from repro_torch.kernels import block_sparse_matmul as tbsm  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import masked_matmul as tmm  # noqa: E402
@@ -723,8 +723,6 @@ def _bs_dw_problem(shape, dtype, dev, seed=41):
     """x, g in ``dtype`` on ``dev`` (2-D for G = 1), a superset block mask
     with an empty block column (and the dead groups empty), its stacked CSC
     on ``dev`` and the dense (G, K, N) bool of its blocks."""
-    from repro_torch.core.pack import pack_group_mask
-
     G, M, K, N, bk, bn, dead = shape
     rng = np.random.default_rng(seed)
     bm = rng.random((G, K // bk, N // bn)) < 0.4
@@ -879,6 +877,224 @@ def test_cuda_bs_dw_f32_keeps_f32_digits():
     got = rms(tbsm.block_sparse_dw(x, g, idx, cnt, bn=128, bk=128, live=int(bm.sum())))
     assert tbsm.dw_merge_launches == n + 1  # the plan splits ~280 blocks on 132 SMs
     assert got <= 8 * rms(tbsm.block_sparse_dw_plain(x, g, idx, cnt, 128, 128)), got
+
+
+BS_FWD_SHAPES = [(1, 16, 512, 384, 128, 128, ()), (1, 200, 512, 256, 128, 128, ()),
+                 (1, 48, 96, 64, 16, 16, ()), (1, 96, 160, 96, 32, 32, ()),
+                 (1, 80, 192, 128, 64, 32, ()), (3, 16, 256, 384, 128, 128, ()),
+                 (5, 96, 64, 96, 16, 16, (1, 3)), (1, 16, 12288, 1024, 128, 128, ())]
+
+
+def _bs_fwd_problem(shape, dtype, dev, seed=43):
+    """x (G, Mp, K) (rows zero-padded to 16) and w (G, K, N), zero off a
+    block mask with an empty block column, uneven counts and the dead
+    groups empty, in ``dtype`` on ``dev`` (2-D for G = 1); its stacked CSC,
+    the dense (G, K, N) bool of its blocks and the live blocks."""
+    G, M, K, N, bk, bn, dead = shape
+    rng = np.random.default_rng(seed)
+    bm = rng.random((G, K // bk, N // bn)) < 0.4
+    bm[:, :, 0] = False
+    bm[:, :, -1] = True
+    for grp in dead:
+        bm[grp] = False
+    live = np.repeat(np.repeat(bm, bk, 1), bn, 2)
+    Mp = -(-M // 16) * 16
+    x = np.zeros((G, Mp, K), np.float32)
+    x[:, :M] = rng.standard_normal((G, M, K))
+    w = rng.standard_normal((G, K, N)) * live / np.sqrt(K)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in pack_group_mask(bm))
+    x, w, live = f(x), f(w), torch.from_numpy(live).to(dev)
+    if G == 1:
+        x, w, idx, cnt, live = x[0], w[0], idx[0], cnt[0], live[0]
+    return x, w, idx, cnt, live, int(bm.sum())
+
+
+def _bs_fwd(x, w, idx, cnt, bk, bn, plan=None, live=None):
+    kw = dict(bm=16, bn=bn, bk=bk, plan=plan, live=live)
+    if x.dim() == 3:
+        return tbsm.grouped_block_sparse_matmul(x, w, idx, cnt, **kw)
+    return tbsm.block_sparse_matmul(x, w, idx, cnt, **kw)
+
+
+def _bs_fwd_plain(x, w, idx, cnt, bk, bn):
+    fn = tbsm.grouped_block_sparse_matmul_plain if x.dim() == 3 else tbsm.block_sparse_matmul_plain
+    return fn(x, w, idx, cnt, bk, bn)
+
+
+def _bs_fwd_plans(G, Mp, K, N, bk, bn, dtype, live):
+    """Every plan the sweeps force at this shape (K1/K4's
+    ``fwd_candidates`` on the kernel's slots) and every built tile unsplit
+    and split in 3 (odd splits: uneven and empty parts)."""
+    tm, tn = tmm.fwd_tile(Mp, bn)
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * tbsm.fwd_launch_info(dtype, tm, tn, K // bk)["ctas_per_sm"])
+    plans = set(tbsm.fwd_candidates(Mp, K, N, G, dtype, slots, bk=bk, bn=bn, live=live))
+    plans |= {(a, b, n) for a, b in tmm.FWD_TILES for n in (1, 3)}
+    return sorted(plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BS_FWD_SHAPES)
+def test_cuda_bs_fwd_every_plan_matches_plain(shape, dtype):
+    """K1 (G = 1) and K4 on the GEMM core's packed walk under every forced
+    plan (tile, split) element by element within ``matmul_error_bound`` of
+    the plain version (bf16 also within one ulp of the largest output), a
+    split also of the plain version that follows it
+    (``block_sparse_matmul_split_plain``); exact zeros in the empty block
+    column and for a dead group; a split counts one K1/K4 launch and one
+    merge (``fwd_merge_launches``), an unsplit launch none; two launches of
+    one plan give the same bits; the plan's own pick, from the live blocks
+    or from every slot, likewise."""
+    dev = _cuda()
+    G, M, K, N, bk, bn, dead = shape
+    x, w, idx, cnt, live, nnz = _bs_fwd_problem(shape, dtype, dev)
+    want = _bs_fwd_plain(x, w, idx, cnt, bk, bn)
+    absp = _bs_fwd_plain(x.float().abs(), w.float().abs(), idx, cnt, bk, bn)
+    read = lambda: [tbsm.launches, tbsm.g_launches, tbsm.fwd_merge_launches]
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for plan in _bs_fwd_plans(G, x.shape[-2], K, N, bk, bn, dtype, nnz) + [None]:
+        n = read()
+        got = _bs_fwd(x, w, idx, cnt, bk, bn, plan, live=nnz)
+        again = _bs_fwd(x, w, idx, cnt, bk, bn, plan, live=nnz)
+        torch.cuda.synchronize()
+        if plan is not None:
+            k = 2 if plan[2] > 1 else 0
+            assert read() == ([n[0] + 2, n[1], n[2] + k] if G == 1
+                              else [n[0], n[1] + 2, n[2] + k]), plan
+        assert got.dtype == dtype and got.shape == want.shape
+        splits = [want]
+        if plan is not None and plan[2] > 1:
+            splits.append(tbsm.block_sparse_matmul_split_plain(x, w, idx, cnt, bk, bn, plan[2]))
+        for ref in splits:
+            _assert_within(got, ref, absp, K)
+            if dtype == torch.bfloat16:
+                err = (got.float() - ref.float()).abs().max().item()
+                assert err <= 2.0 ** -7 * ref.float().abs().max().item(), plan
+        assert not got[..., :bn].float().any(), plan  # the empty block column
+        for grp in dead:
+            assert not got[grp].float().any(), plan
+        assert torch.equal(got.view(iv), again.view(iv)), plan
+    _assert_within(_bs_fwd(x, w, idx, cnt, bk, bn), want, absp, K)  # every slot counted
+
+
+@pytest.mark.cuda
+def test_cuda_bs_fwd_f32_keeps_f32_digits():
+    """3xTF32 keeps f32's digits in K1 and K4: on danube's MLP wo shape
+    (6912 -> 2560, density 0.26) at a decode step's 16 rows and at 1024
+    rows, and on a bank of 8 (1408 -> 2048, 16 rows), each unsplit and
+    split in 4, the kernel's RMS error against a float64 product on the
+    pack's blocks is at most 8x the plain f32 version's (one-pass TF32 would
+    be ~1000x)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(47)
+    for G, M, K, N in ((1, 16, 6912, 2560), (1, 1024, 6912, 2560), (8, 16, 1408, 2048)):
+        bm = torch.rand(G, K // 128, N // 128, device=dev, generator=gen) < 0.26
+        live = bm.repeat_interleave(128, 1).repeat_interleave(128, 2)
+        x = torch.randn(G, M, K, device=dev, generator=gen)
+        w = torch.randn(G, K, N, device=dev, generator=gen) / K ** 0.5 * live
+        idx, cnt = (torch.from_numpy(a).to(dev) for a in pack_group_mask(bm.cpu().numpy()))
+        if G == 1:
+            x, w, idx, cnt, live = x[0], w[0], idx[0], cnt[0], live[0]
+        ref = torch.matmul(x.double(), torch.where(live, w.double(), 0.0))
+        rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+        base = rms(_bs_fwd_plain(x, w, idx, cnt, 128, 128))
+        for plan in (tmm.fwd_tile(M, 128) + (1,), tmm.fwd_tile(M, 128) + (4,)):
+            got = rms(_bs_fwd(x, w, idx, cnt, 128, 128, plan, live=int(bm.sum())))
+            assert got <= 8 * base, (G, M, plan, got, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bs_fwd_nonfinite_x_reaches_only_the_blocks_that_read_it(dtype):
+    """A -inf in x (row 9) in a K-block row that some block columns do not
+    read (block column 0 reads none): K1 and K4, split and unsplit, leave
+    those columns and every other row finite, as the plain version (the
+    pack decides which rows of w are read; nothing multiplies an inactive
+    block's zero); in f32 they give the plain version's +-inf and NaN in
+    exactly its places: 3xTF32 walks such a tile again with the exact
+    split."""
+    dev = _cuda()
+    x, w, idx, cnt, live, nnz = _bs_fwd_problem((1, 48, 256, 128, 32, 32, ()), dtype, dev)
+    bm = live[::32, ::32]
+    kb = int((bm.sum(1) < bm.shape[1] - 1).nonzero().flatten()[0])
+    x[9, kb * 32 + 5] = float("-inf")
+    plain = tbsm.block_sparse_matmul_plain(x, w, idx, cnt, 32, 32)
+    reads = bm[kb].repeat_interleave(32)
+    assert bool(torch.isinf(plain[9]).any())
+    assert bool(torch.isfinite(plain[9][~reads]).all()) and (~reads).sum() >= 64
+    for plan in ((16, 64, 1), (16, 64, 3), (128, 64, 1), (128, 128, 2)):
+        for got in (tbsm.block_sparse_matmul(x, w, idx, cnt, bm=16, bn=32, bk=32, plan=plan),
+                    tbsm.grouped_block_sparse_matmul(x[None], w[None], idx[None], cnt[None],
+                                                     bm=16, bn=32, bk=32, plan=plan)[0]):
+            assert torch.equal(torch.isfinite(got), torch.isfinite(plain)), plan
+            if dtype == torch.float32:
+                assert torch.equal(torch.isnan(got), torch.isnan(plain)), plan
+                inf = torch.isinf(plain)
+                assert torch.equal(got[inf], plain[inf]), plan
+
+
+@pytest.mark.cuda
+def test_cuda_bs_fwd_split_replays_in_a_cuda_graph():
+    """A split K1 (its launch and its merge) captured in a CUDA graph and
+    replayed gives the eager launch's bits; the counts are read on the
+    device at each replay: with a column's count set to 0 in place (and x
+    changed) the replay gives that column zeros and the eager result on the
+    new inputs, bit for bit."""
+    dev = _cuda()
+    x, w, idx, cnt, live, nnz = _bs_fwd_problem((1, 16, 2048, 512, 128, 128, ()),
+                                               torch.bfloat16, dev)
+    run = lambda: tbsm.block_sparse_matmul(x, w, idx, cnt, bm=16, bn=128, bk=128,
+                                           plan=(16, 64, 4), live=nnz)
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+    x.copy_(torch.randn_like(x))
+    cnt[2] = 0
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), run().view(torch.int16))
+    assert not out[:, 256:384].float().any()
+
+
+@pytest.mark.cuda
+def test_cuda_bs_fwd_has_no_spill():
+    """No instantiation of K1/K4's kernel spills a register (read back from
+    the runtime), each holds at least as many CTAs an SM as the masked
+    forward's on the same tile (no mask stage), and its shared bytes are a
+    ring of at least two RowsA and dense B stages plus the id list.  A plan
+    that is not built, or splits past FWD_MAX_SPLIT, raises."""
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        e = torch.finfo(dtype).bits // 8
+        for bm, bn in tmm.FWD_TILES:
+            info = tbsm.fwd_launch_info(dtype, bm, bn, 96)
+            masked = tmm.fwd_launch_info(dtype, bm, bn, "fwd")
+            assert info["spill_bytes"] == 0 and info["registers"] <= 255, (dtype, bm, bn, info)
+            assert info["ctas_per_sm"] >= masked["ctas_per_sm"], (dtype, bm, bn, info, masked)
+            stage = bm * (32 + 16 // e) * e + 32 * (bn + 8) * e
+            ring = info["smem_bytes"] - 4 * 96
+            assert ring % stage == 0 and ring >= 2 * stage, (dtype, bm, bn, info)
+        x = torch.zeros(16, 256, device=dev, dtype=dtype)
+        w = torch.zeros(256, 256, device=dev, dtype=dtype)
+        idx = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+        cnt = torch.ones(2, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_matmul(x, w, idx, cnt, bm=16, bn=128, bk=128, plan=(64, 64, 1))
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_matmul(x, w, idx, cnt, bm=16, bn=128, bk=128,
+                                     plan=(16, 64, tmm.FWD_MAX_SPLIT + 1))
 
 
 @pytest.mark.cuda

@@ -36,18 +36,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                 versions and timed (TFLOP/s, share of the bound, SDPA's
                 backward masked and, where purely causal, is_causal; each
                 launch's plan, CTAs, occupancy, registers, shared and spill
-                bytes, longest walk; every candidate plan timed; K3 on the
-                GEMM core under every candidate plan on the pack's live
-                blocks, its f32 cases against a float64 product, and the
-                merge of each split pick, bit for bit); the step-0
+                bytes, longest walk; every candidate plan timed; K2 and K3
+                on the GEMM core under every candidate plan on the pack's
+                live blocks, their f32 cases against a float64 product, and
+                the merge of each split pick, bit for bit); the step-0
                 loss and two weight gradients
                 against the plain dense path on the same weights; then
                 ``train_loop``: finite losses, the exact launch counts of
-                every kernel per step (336 K1 and 168 K3 a microbatch and
-                the split merges each pack entry's plans make), and after
-                the update unchanged block
+                every kernel per step (336 K1, 168 K2 and 168 K3 a
+                microbatch and the split merges each pack entry's plans
+                make), and after the update unchanged block
                 counts, a valid, fresh pack and B ⊇ A; wall and device time
-                per step, tokens per second, peak memory
+                per step, tokens per second, peak memory, the profiled
+                step's busy time and the block-sparse kernels' share of it
   6. masked serve -- serve the same model under kernel='masked' (ERK 0.8
                 elementwise masks, flash_tight): the same 8 requests, every
                 request DONE, logits against the plain dense path, exactly
@@ -79,8 +80,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 SGD update); then the same model under block_sparse (128x128
                 blocks, flash_tight, ERK 0.8, RigL with the superset) with
                 the fused SGD epilogue, 2 x 1024 tokens in one microbatch, 2
-                steps each beside an unfused step: exactly 336 K1 (and
-                their planned merges), 168 K2, 168 K7, no K3 and 48/24/24
+                steps each beside an unfused step: exactly 336 K1 and 168
+                K2 (and their planned merges), 168 K7, no K3 and 48/24/24
                 K9-K11 per fused step, the bf16
                 momentum within the reference's bound of the unfused one's
   9. paged serve -- K12 (the paged-prefix flash kernel) against its plain
@@ -126,14 +127,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                 drop/grow at step 2): first K5 and K6 against their plain
                 versions (layer 0's ERK packs and supersets, a uniform and a
                 dead-expert topology; 171 and 16 rows; f32 and bf16), timed,
-                K6 under every candidate plan of the GEMM core, its f32
+                each under every candidate plan of the GEMM core, their f32
                 cases against a float64 product;
                 the step-0 loss and the gradients of a bank, the shared MLP
                 and the router against the plain dense path with routing
                 pinned; then ``train_loop``: finite losses, the exact
                 launches of every kernel in every step (K4 72, K5 and K6 36
-                per train step, K1 168, K3 84, with K1's, K4's, K3's and
-                K6's planned split merges), after the update counts kept,
+                per train step, K1 168, K2 and K3 84, with the planned
+                split merges of K1-K6), after the update counts kept,
                 B ⊇ A and the
                 pack fresh; wall and device time per step, tokens per
                 second, the peak memory of the steady and the update step,
@@ -153,7 +154,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 0's attn.wq (bf16) and dense shared MLP (f32) at 2048 rows,
                 sr off and on, then 2 fused steps beside unfused ones with
                 routing pinned: exactly 42 K1, 21 K2, 21 K7, 18 K4, 9 K5, 9
-                K8 (and K1's and K4's planned merges), no K3 or K6 and
+                K8 (and K1's, K4's, K2's and K5's planned merges), no K3 or
+                K6 and
                 6/3/3 K9-K11 per fused step; under
                 masked: K20 on layer 0's supersets and K19 on the same 2-D
                 projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
@@ -175,8 +177,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 h2o-danube-1.8b at full width and depth, 2 x 1024 tokens in
                 one microbatch, 4 steps, Adam: set, snfs and topkast under
                 block_sparse (128x128, flash_tight, ERK 0.8, a drop/grow at
-                step 2; exactly 336 K1, 168 K2, 168 K3 and K1's and K3's
-                planned merges, 48/24/24 K9-K11 per
+                step 2; exactly 336 K1, 168 K2, 168 K3 and their planned
+                merges, 48/24/24 K9-K11 per
                 step, set's update step K9-K11 alone (no superset: the
                 dense gradient); after the update block counts kept, grown
                 = dropped, the pack fresh, B ⊇ A, snfs's dense momentum
@@ -188,7 +190,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step, tok/s, peak GiB, the update step's s
  17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
-                K3/K6 or K1/K4 case splits, theirs), the card line, and last
+                K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
+                and last
                 {"ok": true,
                 "device": {...}}
 
@@ -677,12 +680,14 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     (one microbatch of 2 x 1024), bf16 for attention and f32 for the MLP as
     the path runs them; plus a uniform-20% bf16 case with an empty column
     and a 10% superset.  Each output element by element within
-    ``bsm.matmul_error_bound``.  K3 runs on the GEMM core with its plan on
-    the pack's live blocks (the entry's bnnz, as the path passes it): every
-    candidate plan forced and timed (``fwd_sweep``, entry "bs_dw", each held
-    to the bound first), the f32 cases against a float64 product
-    (``f64_fidelity``), and the merge of a split pick (``bs_merge_case``).
-    Returns (K2 cases, K3 cases, merge cases)."""
+    ``bsm.matmul_error_bound``.  Both run on the GEMM core, each with its
+    plan on the pack's live blocks as the path passes them (K2 the entry's
+    nnz, K3 its bnnz): every candidate plan forced and timed
+    (``fwd_sweep``, entries "bs_dx" and "bs_dw", each held to the bound and
+    to a second launch's bits first), the f32 cases against a float64
+    product (``bs_fwd_fidelity`` on w^T, ``f64_fidelity``), and the merge of
+    a split pick (``merge_case``, ``bs_merge_case``).  Returns (K2 cases,
+    K3 cases, K3's merge cases, K2's merge cases)."""
     import numpy as np
 
     from repro_torch.kernels import masked_matmul as mm
@@ -703,35 +708,48 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     (ridx, rcnt), (bidx, bcnt) = pack_np(bm.T), pack_np(sup)
     items.append(("uniform 20% + 10% superset", w,
                   {"ridx": t(ridx), "rcnt": t(rcnt), "bidx": t(bidx), "bcnt": t(bcnt),
-                   "bnnz": int(sup.sum())}))
-    k2, k3, merges = [], [], []
+                   "nnz": int(bm.sum()), "bnnz": int(sup.sum())}))
+    k2, k3, merges, dx_merges = [], [], [], []
     for label, w, e in items:
         K, N = w.shape
-        dt, es, peak = w.dtype, w.element_size(), peak_of(torch, w.dtype)
+        dt, es = w.dtype, w.element_size()
         x = torch.randn(M, K, device="cuda").to(dt)
         g = torch.randn(M, N, device="cuda").to(dt)
         ridx, rcnt, bidx, bcnt = e["ridx"], e["rcnt"], e["bidx"], e["bcnt"]
-        dx = bsm.block_sparse_dx(g, w, ridx, rcnt, bm=128, bn=blk, bk=blk)
-        want = bsm.block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk)
-        absp = bsm.block_sparse_dx_plain(g.abs().float(), w.abs().float(), ridx, rcnt, blk, blk)
-        ok, ratio, tol = within(torch, dx, want, bsm.matmul_error_bound(want, absp, N))
-        if not ok:
-            raise AssertionError(f"K2 {label}: exceeds its bound ({ratio:.3g}x)")
         nnz, bnnz = int(rcnt.sum()), int(bcnt.sum())
-        if bnnz != e["bnnz"]:
-            raise AssertionError(f"K3 {label}: the entry's bnnz {e['bnnz']}, bcnt sums {bnnz}")
-        b_ms, by = bound_ms(es * (M * N + nnz * blk * blk + M * K)
-                            + 4 * (ridx.numel() + rcnt.numel()),
-                            2.0 * M * nnz * blk * blk, peak)
-        case = {"case": f"{label} {str(dt)[6:]} M={M} K={K} N={N} blocks={nnz}/"
-                        f"{K // blk * N // blk}",
-                "max_abs_err": (dx.float() - want.float()).abs().max().item(),
-                "err_over_tol": ratio, "mean_tol": tol,
-                "ms": timer(lambda: bsm.block_sparse_dx(g, w, ridx, rcnt, bm=128, bn=blk, bk=blk)),
-                "plain_ms": timer(lambda: bsm.block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk), reps=3),
-                "library_ms": timer(lambda: g @ w.T), "bound_ms": b_ms, "bound_by": by}
-        print("K2", json.dumps(case))
+        if (nnz, bnnz) != (e["nnz"], e["bnnz"]):
+            raise AssertionError(f"K2/K3 {label}: the entry's nnz, bnnz {e['nnz']}, "
+                                 f"{e['bnnz']}; rcnt, bcnt sum {nnz}, {bnnz}")
+        run = lambda plan=None: bsm.block_sparse_dx(g, w, ridx, rcnt, bm=128, bn=blk, bk=blk,
+                                                    plan=plan, live=nnz)
+        want = bsm.block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk)
+        bound = bsm.matmul_error_bound(want, bsm.block_sparse_dx_plain(
+            g.abs().float(), w.abs().float(), ridx, rcnt, blk, blk), N)
+
+        def check_dx(got):
+            ok, ratio, tol = within(torch, got, want, bound)
+            if not ok:
+                raise AssertionError(f"K2 {label}: exceeds its bound ({ratio:.3g}x)")
+            return (got.float() - want.float()).abs().max().item(), ratio, tol
+
+        tag = f"{label} {str(dt)[6:]} M={M} K={K} N={N} blocks={nnz}/{K // blk * N // blk}"
+        case = kernel_case(
+            torch, timer, "K2", tag, run,
+            lambda: bsm.block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk), lambda: g @ w.T,
+            lambda: check_dx(run()),
+            es * (M * N + nnz * blk * blk + M * K) + 4 * (ridx.numel() + rcnt.numel()),
+            2.0 * M * nnz * blk * blk, dt)
+        case.update(fwd_sweep(torch, timer, mm, run, M, N, K, 1, dt, case, entry="bs_dx",
+                              check=check_dx, bn_limit=blk, live=nnz, bk=blk))
+        del want, bound
+        if dt == torch.float32:
+            case["f64_rms_over_plain"] = bs_fwd_fidelity(
+                torch, bsm, f"K2 {tag}", run, g, w.T, ridx, rcnt, blk, case["plan"])
+        print("K2 plans", json.dumps(case))
         k2.append(case)
+        if case["plan"][2] > 1:
+            dx_merges.append(merge_case(torch, timer, mm, case["plan"][2], 1, M, K, dt, tag,
+                                        entry="bs_dx"))
         run = lambda plan=None: bsm.block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk, plan=plan,
                                                     live=bnnz)
         want = bsm.block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk)
@@ -768,7 +786,7 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
         if case["plan"][2] > 1:
             merges.append(bs_merge_case(torch, timer, bsm, case["plan"][2], bidx, bcnt, K, N,
                                         dt, blk, tag))
-    return k2, k3, merges
+    return k2, k3, merges, dx_merges
 
 
 def bs_merge_case(torch, timer, bsm, n_split, idx, cnt, K, N, dt, blk, tag):
@@ -799,15 +817,15 @@ def bs_merge_case(torch, timer, bsm, n_split, idx, cnt, K, N, dt, blk, tag):
                        None, check, n_bytes, 0.0, dt)
 
 
-def bs_merges(torch, mm, cfg, state, tokens, entry="bs_dw"):
+def bs_merges(torch, cfg, state, tokens, entry="bs_dw"):
     """The split merges of one pass over ``tokens`` tokens on ``state``'s
     pack (``state["params"]`` and ``state["pack"]``): K3/K6's of a backward
     (``entry`` "bs_dw": each entry's plan on its wgrad pack's live blocks,
-    bnnz where it carries a superset, else nnz) or K1/K4's of a forward
-    ("bs_fwd": on the forward pack's nnz); the attention in the compute
-    dtype and the MLP, the shared MLP and the expert banks in f32 (as the
-    model calls them), a bank's rows its capacity; rows padded to the row
-    tile."""
+    bnnz where it carries a superset, else nnz), K2/K5's ("bs_dx": on the
+    forward pack's nnz) or K1/K4's of a forward ("bs_fwd": likewise); the
+    attention in the compute dtype and the MLP, the shared MLP and the
+    expert banks in f32 (as the model calls them), a bank's rows its
+    capacity; rows padded to the row tile."""
     from repro_torch.core.masks import tree_paths
     from repro_torch.core.pack import pack_entries
     from repro_torch.kernels import block_sparse_matmul as bsm
@@ -826,11 +844,29 @@ def bs_merges(torch, mm, cfg, state, tokens, entry="bs_dw"):
         dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
         if entry == "bs_dw":
             live = e["bnnz"] if "bidx" in e else e["nnz"]
-            plan = mm._fwd_plan_for(K, Mp, N, G, dt, min(bn, N), dev, "bs_dw", live)
+            plan = bsm._dw_plan_for(Mp, K, N, G, dt, min(bn, N), live, dev)
+        elif entry == "bs_dx":
+            plan = bsm._dx_plan_for(Mp, K, N, G, dt, min(bk, K), min(bn, N), e["nnz"], dev)
         else:
             plan = bsm._fwd_plan_for(Mp, K, N, G, dt, min(bk, K), min(bn, N), e["nnz"], dev)
         n += plan[2] > 1
     return n
+
+
+BS_ENTRIES = ("bs_fwd", "bs_dx", "bs_dw")  # the block-sparse plans that may split
+
+
+def block_sparse_ms(prof):
+    """Device ms of K1/K4, K2/K5 and K3/K6 in a profiler's CUDA events (the
+    grouped twins run the same kernels), and of the merges of their splits
+    (K1's and K2's on the masked forward's merge kernel)."""
+    names = {"block_sparse_fwd": "block_sparse_fwd_gemm_kernel",
+             "block_sparse_dx": "block_sparse_dx_gemm_kernel",
+             "block_sparse_dw": "block_sparse_dw_gemm_kernel",
+             "block_sparse_dw_merge": "block_sparse_dw_merge_kernel",
+             "fwd_dx_merge": "masked_merge_kernel"}
+    return {n: sum(e.self_device_time_total for e in prof if k in e.key) / 1e3
+            for n, k in names.items()}
 
 
 DANUBE_FLASH_BWD = (("S=1024 window=4096 (main-path shape)", 64, 1024, 4096, 0.0),
@@ -1042,10 +1078,10 @@ def train_dense_check(torch, cfg, state, names=("layers/0/mlp/wi/w", "layers/0/a
 
 def train_path(torch, bsm, fa, mm, cfg, merges):
     """``train_loop`` at full width and depth, with the launch counters set
-    to 0 just before it and read after every step.  ``merges``: the K1 and
-    K3 split merges of the initial pack, {"bs_fwd": (a microbatch's
-    forward, the full batch's), "bs_dw": (...)} (``bs_merges``); each step's
-    own come from the pack it ran on."""
+    to 0 just before it and read after every step.  ``merges``: the K1, K2
+    and K3 split merges of the initial pack, {"bs_fwd": (a microbatch's
+    forward, the full batch's), "bs_dx": (...), "bs_dw": (...)}
+    (``bs_merges``); each step's own come from the pack it ran on."""
     from repro_torch.core.masks import block_mask_of, tree_paths
     from repro_torch.core.pack import pack_mismatch, validate_pack
     from repro_torch.launch.train import train_loop
@@ -1053,6 +1089,7 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
                 ("block_sparse_dw", bsm, "dw_launches"),
                 ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("flash_fwd", fa, "launches"),
                 ("flash_dq", fa, "dq_launches"), ("flash_dkv", fa, "dkv_launches"))
@@ -1067,7 +1104,7 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
         per = lambda e: n_merges[e][1] if is_update else n_merges[e][0] * mb
         return {"block_sparse_fwd": 2 * n_proj * k, "block_sparse_dx": n_proj * k,
                 "block_sparse_dw": n_proj * k, "block_sparse_fwd_merge": 2 * per("bs_fwd"),
-                "block_sparse_dw_merge": per("bs_dw"),
+                "block_sparse_dx_merge": per("bs_dx"), "block_sparse_dw_merge": per("bs_dw"),
                 "flash_fwd": 2 * n_attn * k, "flash_dq": n_attn * k, "flash_dkv": n_attn * k}
 
     tokens = (TRAIN_BATCH * TRAIN_SEQ // mb, TRAIN_BATCH * TRAIN_SEQ)
@@ -1090,8 +1127,8 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
             rec["wall_s"] = t - seen["t"]
             rec["device_span_ms"] = seen["ev"].elapsed_time(ev)
         # the step ran on the pack it left unless it updated the topology
-        count = lambda: {e: tuple(bs_merges(torch, mm, cfg, state, n, e) for n in tokens)
-                         for e in ("bs_fwd", "bs_dw")}
+        count = lambda: {e: tuple(bs_merges(torch, cfg, state, n, e) for n in tokens)
+                         for e in BS_ENTRIES}
         now = seen["merges"] if is_update else count()
         if rec["launches"] != expect(is_update, now):
             raise AssertionError(f"train step {step}: launches {rec['launches']}, "
@@ -1171,13 +1208,17 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
                 for n in ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_merge")}
     stats["profiled_step_flash_ms"] = flash_ms
     stats["profiled_step_flash_share"] = sum(flash_ms.values()) / busy_ms if busy_ms else None
+    bs_ms = block_sparse_ms(prof)
+    stats["profiled_step_block_sparse_ms"] = bs_ms
+    stats["profiled_step_k2_share"] = bs_ms["block_sparse_dx"] / busy_ms if busy_ms else None
     (ROOT / "chiprun_out" / "train_profile.txt").write_text(
         seen["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
     print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
           f"{total_s:.1f} s; train step {wall:.3f} s wall = {stats['tok_per_s']:.0f} tok/s; "
           f"device busy {busy_ms:.1f} ms of the profiled step's "
           f"{profiled['wall_s']:.3f} s (flash K9-K11 {sum(flash_ms.values()):.1f} ms "
-          f"{flash_ms}); peak {peak_gib:.1f} GiB; "
+          f"{flash_ms}; block-sparse {bs_ms}, K2 "
+          f"{stats['profiled_step_k2_share'] or 0:.1%} of the busy time); peak {peak_gib:.1f} GiB; "
           f"{moved} blocks moved by the drop/grow; launches {launches}")
     return stats, launches
 
@@ -1370,32 +1411,44 @@ def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", chec
               bn_limit=128, live=None, bk=None):
     """The GEMM core's plan at one case of ``entry`` ("fwd": K13/K16, L = K
     and cols = N; "dx": K14/K17, L = N and cols = K; "dw": K15/K18, Mp = K,
-    L = M and cols = N; "bs_dw": K3/K6 as "dw" on ``live`` blocks of
-    ``bn_limit`` columns; "bs_fwd": K1/K4, whose plan is the block-sparse
-    module's own, as "fwd" on ``live`` blocks of ``bk`` x ``bn_limit``) and
-    every candidate plan (``fwd_candidates`` on the card's slots for that
-    kernel) timed with the plan forced, each
+    L = M and cols = N; the block-sparse kernels, whose plans are the
+    block-sparse module's own, on ``live`` blocks: "bs_fwd": K1/K4 as "fwd"
+    with blocks of ``bk`` (the contraction's) x ``bn_limit`` (the
+    columns'), "bs_dx": K2/K5 as "dx" with blocks of ``bn_limit`` (dx's
+    columns, w's rows) x ``bk`` (the contraction's), "bs_dw": K3/K6 as "dw"
+    with blocks of ``bn_limit`` columns) and every candidate plan (the
+    module's candidates on the card's slots for that kernel) timed with the
+    plan forced, each
     first held to ``check`` (raises) where one is given, and to the same
     bits from a second launch; raises on a spill in the pick's launch: the pick, whether
     it was the fastest, the launch of the pick's tile (CTAs an SM,
     registers, shared and spill bytes), and the case's achieved rate
     (TFLOP/s of the products its bound counts, TB/s of its bytes) and share
     of the bound."""
+    from repro_torch.kernels import block_sparse_matmul as bsm
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.cuda.current_device()
     if entry == "bs_fwd":  # K1/K4: the id list of L / bk blocks in shared memory
-        from repro_torch.kernels import block_sparse_matmul as bsm
-
         info_of = lambda tm, tn: bsm.fwd_launch_info(dt, tm, tn, L // bk)
         slots = sms * info_of(*mm.fwd_tile(Mp, bn_limit))["ctas_per_sm"]
         pick = bsm._fwd_plan_for(Mp, L, cols, G, dt, bk, bn_limit, live, dev)
         cands = bsm.fwd_candidates(Mp, L, cols, G, dt, slots, bk=bk, bn=bn_limit, live=live)
+    elif entry == "bs_dx":  # K2/K5 (w (cols, L)): likewise, a list of L / bk blocks
+        info_of = lambda tm, tn: bsm.dx_launch_info(dt, tm, tn, L // bk)
+        slots = sms * info_of(*mm.fwd_tile(Mp, bn_limit))["ctas_per_sm"]
+        pick = bsm._dx_plan_for(Mp, cols, L, G, dt, bn_limit, bk, live, dev)
+        cands = bsm.dx_candidates(Mp, cols, L, G, dt, slots, bk=bn_limit, bn=bk, live=live)
+    elif entry == "bs_dw":  # K3/K6: rows Mp = K, contraction L = M
+        info_of = lambda tm, tn: bsm.dw_launch_info(dt, tm, tn)
+        slots = sms * info_of(*bsm.dw_tile(bn_limit))["ctas_per_sm"]
+        pick = bsm._dw_plan_for(L, Mp, cols, G, dt, bn_limit, live, dev)
+        cands = bsm.dw_candidates(L, Mp, cols, G, dt, slots, bn=bn_limit, live=live)
     else:
         info_of = lambda tm, tn: mm.fwd_launch_info(dt, tm, tn, entry)
         slots = sms * info_of(*mm.fwd_tile(Mp, bn_limit, entry))["ctas_per_sm"]
-        pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, dev, entry, live)
-        cands = mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry,
-                                  live=live)
+        pick = mm._fwd_plan_for(Mp, L, cols, G, dt, bn_limit, dev, entry)
+        cands = mm.fwd_candidates(Mp, L, cols, G, dt, slots, bn_limit=bn_limit, entry=entry)
     info = info_of(*pick[:2])
     if info["spill_bytes"]:
         raise AssertionError(f"{entry} tile {pick[:2]} {dt}: {info['spill_bytes']} spill bytes")
@@ -1434,8 +1487,9 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
     """The split merge (sum of n_split f32 partials in order, one rounding)
     at a split pick's shape (G, Mp rows, N columns), after ``entry``'s
     kernel (``mm.fwd_merge``, ``mm.dx_merge``, ``mm.dw_merge``, which
-    multiplies the sum by the wgrad's ``mask``, or after K1/K4 ("bs_fwd")
-    ``bs_fwd_merge``): bit for bit its plain version, timed beside its byte
+    multiplies the sum by the wgrad's ``mask``, after K1/K4 ("bs_fwd")
+    ``bs_fwd_merge``, after K2/K5 ("bs_dx") ``bs_dx_merge``): bit for bit
+    its plain version, timed beside its byte
     bound and torch.sum over the split axis (times the mask)."""
     from repro_torch.kernels import block_sparse_matmul as bsm
 
@@ -1446,7 +1500,8 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
         merge = lambda p, o: mm.dw_merge(p, mask, o)
         library = lambda: (part.sum(0) * mask).to(dt)
     else:
-        merge = {"fwd": mm.fwd_merge, "dx": mm.dx_merge, "bs_fwd": bsm.bs_fwd_merge}[entry]
+        merge = {"fwd": mm.fwd_merge, "dx": mm.dx_merge, "bs_fwd": bsm.bs_fwd_merge,
+                 "bs_dx": bsm.bs_dx_merge}[entry]
         library = lambda: part.sum(0).to(dt)
     plain = lambda: mm.fwd_merge_plain(part, dt, mask)
 
@@ -1456,7 +1511,8 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
             raise AssertionError(f"{entry} merge {tag}: differs from the ordered plain sum")
         return 0.0, 0.0, 0.0
 
-    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge", "bs_fwd": "bs fwd merge"}[entry]
+    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge", "bs_fwd": "bs fwd merge",
+             "bs_dx": "bs dx merge"}[entry]
     n_bytes = 4 * part.numel() + out.element_size() * out.numel() + (
         0 if mask is None else mask.numel())
     return kernel_case(torch, timer, label, f"{tag} n_split={n_split}",
@@ -2011,9 +2067,9 @@ def fused_bs_train(torch, timer, bsm, fa):
     """K7 against its plain version on the path's layer 0 (``k7_cases``),
     then 2 fused steps of h2o-danube-1.8b under block_sparse beside unfused
     ones (``fused_steps``): exactly 336 K1 and their planned split merges,
-    168 K2, 168 K7, no K3 or K3 merge and 48/24/24 K9-K11 launches per
-    fused step (the unfused step: 168 K3 and their planned merges in K7's
-    place)."""
+    168 K2 and theirs, 168 K7, no K3 or K3 merge and 48/24/24 K9-K11
+    launches per fused step (the unfused step: 168 K3 and their planned
+    merges in K7's place)."""
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.training.steps import init_train_state
 
@@ -2023,6 +2079,7 @@ def fused_bs_train(torch, timer, bsm, fa):
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
                 ("block_sparse_dw", bsm, "dw_launches"),
                 ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("block_sparse_dw_fused", bsm, "fused_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
@@ -2032,11 +2089,12 @@ def fused_bs_train(torch, timer, bsm, fa):
     # remat reruns each block's forward in the backward: K1 (with its
     # planned split merges) and K9 twice
     want = {"block_sparse_fwd": 2 * n_proj, "block_sparse_dx": n_proj, "block_sparse_dw": 0,
-            "block_sparse_fwd_merge": 2 * bs_merges(torch, mm, cfg, state, tokens, "bs_fwd"),
+            "block_sparse_fwd_merge": 2 * bs_merges(torch, cfg, state, tokens, "bs_fwd"),
+            "block_sparse_dx_merge": bs_merges(torch, cfg, state, tokens, "bs_dx"),
             "block_sparse_dw_merge": 0, "block_sparse_dw_fused": n_proj,
             "flash_fwd": 2 * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn}
     # K3's planned split merges, in the unfused step only
-    unfused = {"block_sparse_dw_merge": bs_merges(torch, mm, cfg, state, tokens)}
+    unfused = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens)}
     stats, launches = fused_steps(torch, cfg, state, counters, want, "fused block-sparse train",
                                   unfused_merges=unfused)
     return stats, launches, cases
@@ -2752,7 +2810,7 @@ def moe_serve(torch, timer, bsm, mm, fa, kernel):
     # K16's banks never split (fwd_plan); K13's projections as planned;
     # K1's and K4's on the pack entries' live blocks
     stats["merges_per_decode_step"] = gmod.fwd_merge_launches - m0
-    want = (bs_merges(torch, mm, cfg, {"params": engine.params, "pack": pack},
+    want = (bs_merges(torch, cfg, {"params": engine.params, "pack": pack},
                       MOE_ENGINE["capacity"], "bs_fwd") if bs else
             L * planned_merges(torch, mm, cfg, engine.params["layers"][0], 16))
     print(f"{label}: one decode step: {stats['grouped_launches_per_decode_step']} "
@@ -2836,9 +2894,10 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
     and the dense dw once (K6); operations 2 C bk bn per active (K5) or
     superset (K6) block; the padded rows are zeros and count in neither.
     Library: torch.bmm on the C rows and the zero-filled dense bank (TF32
-    off): g @ w^T and x^T @ g.  K6 also under every candidate plan of the
-    GEMM core (``fwd_sweep``, entry "bs_dw" on the live blocks), its f32
-    cases against a float64 product, and the merge of a split pick."""
+    off): g @ w^T and x^T @ g.  Both also under every candidate plan of the
+    GEMM core (``fwd_sweep``, entries "bs_dx" and "bs_dw", on the live
+    blocks: K5 the forward pack's, K6 the superset's), their f32 cases
+    against a float64 product, and the merge of a split pick."""
     import numpy as np
 
     from repro_torch.kernels import masked_matmul as mm
@@ -2847,7 +2906,7 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
     blk = cfg.sparse.kernel_block[2]
     lay = state["params"]["layers"][0]["moe"]
     pk = state["pack"]["layers"][0]["moe"]
-    out = {"K5": [], "K6": [], "merge": []}
+    out = {"K5": [], "K6": [], "merge": [], "dx_merge": []}
     for bank in ("wi", "wo"):
         G, K, N = lay[bank]["w"].shape
         dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk,
@@ -2864,13 +2923,15 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
                     _, _, x_c, x = grouped_rows(torch, G, C, K, dt)
                     tag = f"{bank} {tname} {str(dt)[6:]} G={G} C={C}->{Mp} K={K} N={N}"
 
-                    def check_dx():
-                        got = bsm.grouped_block_sparse_dx(g, w, ridx, rcnt, bm=bm, bn=blk,
-                                                          bk=blk)
-                        want = bsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk)
-                        absp = bsm.grouped_block_sparse_dx_plain(
-                            g.abs().float(), w.abs().float(), ridx, rcnt, blk, blk)
-                        res = _check_within(torch, f"K5 {tag}", got, want, absp, N, dt)
+                    run_dx = lambda plan=None: bsm.grouped_block_sparse_dx(
+                        g, w, ridx, rcnt, bm=bm, bn=blk, bk=blk, plan=plan, live=nnz)
+                    want_dx = bsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk)
+                    absp_dx = bsm.grouped_block_sparse_dx_plain(
+                        g.abs().float(), w.abs().float(), ridx, rcnt, blk, blk)
+
+                    def check_dx(got=None):
+                        got = run_dx() if got is None else got
+                        res = _check_within(torch, f"K5 {tag}", got, want_dx, absp_dx, N, dt)
                         if "dead" in tname and got[dead_ids].float().abs().max().item() != 0:
                             raise AssertionError(f"K5 {tag}: a dead expert's dx is not zero")
                         return res
@@ -2891,17 +2952,28 @@ def k5_k6_cases(torch, timer, bsm, state, cfg):
                             raise AssertionError(f"K6 {tag}: a dead expert's dw is not zero")
                         return res
 
-                    out["K5"].append(kernel_case(
-                        torch, timer, "K5",
-                        f"{tag} blocks={nnz}/{G * (K // blk) * (N // blk)} "
-                        f"row_width={ridx.shape[-1]}",
-                        lambda: bsm.grouped_block_sparse_dx(g, w, ridx, rcnt, bm=bm, bn=blk,
-                                                            bk=blk),
+                    dx_tag = (f"{tag} blocks={nnz}/{G * (K // blk) * (N // blk)} "
+                              f"row_width={ridx.shape[-1]}")
+                    case = kernel_case(
+                        torch, timer, "K5", dx_tag, run_dx,
                         lambda: bsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk),
                         lambda: torch.bmm(g_c, w.transpose(1, 2)), check_dx,
                         es * (G * C * N + nnz * blk * blk + G * C * K)
                         + 4 * (ridx.numel() + rcnt.numel()),
-                        2.0 * C * nnz * blk * blk, dt))
+                        2.0 * C * nnz * blk * blk, dt)
+                    case.update(fwd_sweep(torch, timer, mm, run_dx, Mp, N, K, G, dt, case,
+                                          entry="bs_dx", check=check_dx, bn_limit=blk,
+                                          live=nnz, bk=blk))
+                    del want_dx, absp_dx
+                    if dt == torch.float32:
+                        case["f64_rms_over_plain"] = bs_fwd_fidelity(
+                            torch, bsm, f"K5 {dx_tag}", run_dx, g, w.transpose(1, 2), ridx,
+                            rcnt, blk, case["plan"])
+                    print("K5 plans", json.dumps(case))
+                    out["K5"].append(case)
+                    if case["plan"][2] > 1:
+                        out["dx_merge"].append(merge_case(torch, timer, mm, case["plan"][2], G,
+                                                          Mp, K, dt, dx_tag, entry="bs_dx"))
                     dw_tag = (f"{tag} superset blocks={bnnz}/{G * (K // blk) * (N // blk)} "
                               f"width={bidx.shape[-1]}")
                     case = kernel_case(
@@ -3079,11 +3151,12 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         planned_merges(torch, mm, cfg, layer0, tokens, "dw")
         + bank_merges(torch, mm, cfg, layer0, tokens, "dw"))
     del layer0
-    # K1's and K4's, and K3's and K6's, split merges on the pack a step runs
-    # on, (a microbatch's, the full batch's); the initial pack's here
+    # K1's and K4's, K2's and K5's, and K3's and K6's split merges on the
+    # pack a step runs on, (a microbatch's, the full batch's); the initial
+    # pack's here
     bs_tokens = (tokens, batch * TRAIN_SEQ)
-    bs_count = lambda st: {e: tuple(bs_merges(torch, mm, cfg, st, n, e) if bs else 0
-                                    for n in bs_tokens) for e in ("bs_fwd", "bs_dw")}
+    bs_count = lambda st: {e: tuple(bs_merges(torch, cfg, st, n, e) if bs else 0
+                                    for n in bs_tokens) for e in BS_ENTRIES}
     bs_merges0 = bs_count(state)
     dense_check = train_dense_check(
         torch, cfg, state, label=label,
@@ -3104,6 +3177,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                 ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("masked_dw_merge", mm, "dw_merge_launches"),
                 ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
@@ -3125,7 +3199,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
                   "masked_fwd_merge": 2 * merges * mb, "masked_dx_merge": dx_merges * mb,
                   "masked_dw_merge": dw_merges * mb,
                   "block_sparse_fwd_merge": 2 * per("bs_fwd"),
-                  "block_sparse_dw_merge": per("bs_dw")})
+                  "block_sparse_dx_merge": per("bs_dx"), "block_sparse_dw_merge": per("bs_dw")})
         return e
 
     log, seen = [], {"counts": None, "t": None, "ev": None, "prof": None, "units": None,
@@ -3240,6 +3314,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
         "profiled_step_busy_share": busy_ms / 1e3 / profiled["wall_s"] if busy_ms else None,
         "profiled_step_grouped_ms": grouped_ms,
         "profiled_step_grouped_share": grouped_ms / busy_ms if grouped_ms and busy_ms else None,
+        "profiled_step_block_sparse_ms": block_sparse_ms(prof),
         "profiled_step_top": [(e.key, dev_ms(e), e.count) for e in
                               sorted(prof, key=dev_ms, reverse=True)[:25]],
         "losses": [r["loss"] for r in log], "launches_per_step": [r["launches"] for r in log],
@@ -3406,7 +3481,8 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     (``k7_cases``) or K19 (``k19_moe_cases``) on its 2-D projections there
     (attn.wq in bf16, the shared MLP in f32, 2048 rows), then 2 fused steps
     beside unfused ones with routing pinned (``fused_steps``): exactly 42
-    K1, 21 K2, 21 K7, 18 K4, 9 K5, 9 K8, no K3 or K6 (block_sparse), or 42
+    K1, 21 K2, 21 K7, 18 K4, 9 K5, 9 K8 (and the planned split merges of
+    K1/K4 and K2/K5), no K3 or K6 (block_sparse), or 42
     K13, 21 K14, 21 K19, 18 K16, 9 K17, 9 K20, no K15 or K18 (masked), and
     6/3/3 K9-K11 per fused step.  Returns (stats, launches, the bank
     kernel's cases, the 2-D kernel's cases)."""
@@ -3436,15 +3512,17 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
                 ("flash_dkv", fa, "dkv_launches"))
     L, B = cfg.n_layers, len(MOE_BANKS)
     dx_merge, dw_merge = {}, None
-    if bs:  # K1's and K4's planned split merges (twice: remat) in both steps,
-        # K3's and K6's in the unfused step only
+    if bs:  # K1's and K4's planned split merges (twice: remat) and K2's and
+        # K5's in both steps, K3's and K6's in the unfused step only
         tokens = MASKED_BATCH * TRAIN_SEQ
         counters += (("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                     ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
                      ("block_sparse_dw_merge", bsm, "dw_merge_launches"))
-        dx_merge = {"block_sparse_fwd_merge": 2 * bs_merges(torch, mm, cfg, state, tokens,
+        dx_merge = {"block_sparse_fwd_merge": 2 * bs_merges(torch, cfg, state, tokens,
                                                             "bs_fwd"),
+                    "block_sparse_dx_merge": bs_merges(torch, cfg, state, tokens, "bs_dx"),
                     "block_sparse_dw_merge": 0}
-        dw_merge = {"block_sparse_dw_merge": bs_merges(torch, mm, cfg, state, tokens)}
+        dw_merge = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens)}
     else:  # K14's and K17's planned split merges (one microbatch); K15's and
         # K18's in the unfused step only
         tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
@@ -3643,7 +3721,7 @@ def method_train(torch, bsm, mm, fa, tk, method):
     method at full size, 4 steps of 2 x 1024 tokens, the launch counters set
     to 0 just before it and read after every step, each step's launches
     exact: per step 2 * 168 forward launches (remat), 168 dgrad, 168 wgrad
-    (K1/K2/K3 under block_sparse, with K3's planned split merges,
+    (K1/K2/K3 under block_sparse, with their planned split merges,
     K13/K14/K15 under masked, with K14's and K15's), 48/24/24 K9-K11, no
     K21.  SET carries no
     superset, so its update step takes the dense gradient of the masked
@@ -3676,15 +3754,17 @@ def method_train(torch, bsm, mm, fa, tk, method):
     if masked:  # K14's and K15's planned split merges, set from the weights' shapes at step 1
         counters += (("masked_dx_merge", mm, "dx_merge_launches"),
                      ("masked_dw_merge", mm, "dw_merge_launches"))
-    else:  # K1's and K3's planned split merges, on the pack each step runs on
+    else:  # K1's, K2's and K3's planned split merges, on the pack each step runs on
         counters += (("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
+                     ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
                      ("block_sparse_dw_merge", bsm, "dw_merge_launches"))
     read = lambda: {n: getattr(m, a) for n, m, a in counters}
     # set carries no superset: its update step takes the dense gradient on
     # the masked weights (the reference's legacy path), attention alone on
     # the kernels
     update = dict(expect, **({fwd: 0, dx: 0, dw: 0, "block_sparse_fwd_merge": 0,
-                              "block_sparse_dw_merge": 0} if method == "set" else {}))
+                              "block_sparse_dx_merge": 0, "block_sparse_dw_merge": 0}
+                             if method == "set" else {}))
     first = dict(expect)
     if method == "snip":
         first.update(flash_fwd=4 * n_attn, flash_dq=2 * n_attn, flash_dkv=2 * n_attn)
@@ -3740,12 +3820,13 @@ def method_train(torch, bsm, mm, fa, tk, method):
                 d["masked_dx_merge"], d["masked_dw_merge"] = n_merges["dx"], n_merges["dw"]
         want = first if step == 1 else update if is_update else expect
         if not masked:  # the pack the step ran on: the one it left, unless it updated
-            now = {e: bs_merges(torch, mm, cfg, state, MASKED_BATCH * TRAIN_SEQ, e)
-                   for e in ("bs_fwd", "bs_dw")}
+            now = {e: bs_merges(torch, cfg, state, MASKED_BATCH * TRAIN_SEQ, e)
+                   for e in BS_ENTRIES}
             ran = seen["bs_merges"] if is_update else now
             # remat: K1 and its merges twice
             want = dict(want, block_sparse_fwd_merge=want.get(
                 "block_sparse_fwd_merge", 2 * ran["bs_fwd"]),
+                block_sparse_dx_merge=want.get("block_sparse_dx_merge", ran["bs_dx"]),
                 block_sparse_dw_merge=want.get("block_sparse_dw_merge", ran["bs_dw"]))
             seen["bs_merges"] = now
         if rec["launches"] != want or not math.isfinite(rec["loss"]):
@@ -3878,13 +3959,13 @@ def main() -> int:
     # the run's own initial weights, masks, supersets and packs (seed 0;
     # the draws do not depend on the optimizer, so sgd keeps this copy small)
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
-    k2, k3, k3_merges = bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg)
+    k2, k3, k3_merges, k2_merges = bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg)
     k10, k11 = flash_bwd_cases(torch, timer, fa)
     done("parity K2, K3, K10, K11")
     dense_check = train_dense_check(torch, cfg, state)
-    merges0 = {e: tuple(bs_merges(torch, mm, cfg, state, n, e) for n in (
+    merges0 = {e: tuple(bs_merges(torch, cfg, state, n, e) for n in (
         TRAIN_BATCH * TRAIN_SEQ // cfg.microbatches, TRAIN_BATCH * TRAIN_SEQ))
-        for e in ("bs_fwd", "bs_dw")}
+        for e in BS_ENTRIES}
     del state
     done("train step-0 check")
     train_stats, train_launches = train_path(torch, bsm, fa, mm, cfg, merges0)
@@ -3976,6 +4057,7 @@ def main() -> int:
     dx_merges = mcases["dx_merge"] + k1718["dx_merge"]
     dw_merges = mcases["dw_merge"] + k1718["dw_merge"]
     bs_dw_merge_cases = k3_merges + k56["merge"]
+    bs_dx_merge_cases = k2_merges + k56["dx_merge"]
     bs_fwd_merge_cases = [c["merge_case"] for c in k1 + k4 if "merge_case" in c]
     report = {"kernels": [
         summary("block_sparse_fwd", csrc + "block_sparse_fwd.cu",
@@ -3987,6 +4069,11 @@ def main() -> int:
           if bs_fwd_merge_cases else []),
         summary("block_sparse_dx", csrc + "block_sparse_bwd.cu",
                 kern + "block_sparse_matmul.py:243", k2),
+        # K2's and K5's split merge (the masked forward's masked_merge_kernel,
+        # counted on its own), where a timed case's plan splits
+        *([summary("block_sparse_dx_merge", csrc + "masked_matmul.cu",
+                   kern + "block_sparse_matmul.py:243", bs_dx_merge_cases)]
+          if bs_dx_merge_cases else []),
         summary("block_sparse_dw", csrc + "block_sparse_bwd.cu",
                 kern + "block_sparse_matmul.py:265", k3),
         # K3's and K6's split merge (block_sparse_dw_merge_kernel: the
@@ -4043,7 +4130,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "phase_s": phase_s, "k1": k1, "k2": k2, "k3": k3,
-         "bs_dw_merge": bs_dw_merge_cases, "bs_fwd_merge": bs_fwd_merge_cases, "k9": k9,
+         "bs_dw_merge": bs_dw_merge_cases, "bs_fwd_merge": bs_fwd_merge_cases,
+         "bs_dx_merge": bs_dx_merge_cases, "k9": k9,
          "k10": k10, "k11": k11, "engine": serve_stats, "train": train_stats,
          "masked_cases": mcases, "masked_engine": masked_serve_stats,
          "masked_train": masked_train_stats, "fused_train": fused_stats,

@@ -14,25 +14,31 @@
 // stochastically rounded to the bf16 grid), so the raw dw never reaches
 // memory.  The kernels, their design, their traps and their bound are in
 // block_sparse_bwd.cuh, shared with the grouped K5/K6/K8: K2/K3/K7 are
-// their bank of one group.  K3 runs on the GEMM core (gemm_core.cuh), K2
-// and K7 on the tile layer (tile_mma.cuh).
+// their bank of one group.  K2 and K3 run on the GEMM core (gemm_core.cuh),
+// K7 on the tile layer (tile_mma.cuh).
 #include "block_sparse_bwd.cuh"
 
-// K2: g (Mp, N), w (K, N), dx (Mp, K) row-major in the entry's element
-// type; ridx (K/bk, row_width), rcnt (K/bk,) int32.
-extern "C" int block_sparse_dx_bf16(const void* g, const void* w, const void* ridx,
-                                    const void* rcnt, void* dx, int Mp, int K, int N,
-                                    int row_width, int bm, int bn, int bk, void* stream) {
-  return launch_block_sparse_dx<__nv_bfloat16>(g, w, ridx, rcnt, dx, 1, Mp, K, N,
-                                               row_width, bm, bn, bk, stream);
-}
+// block_sparse_dx_<S> (K2): g (Mp, N), w (K, N), dx (Mp, K) row-major in
+// the entry's element type; ridx (K/bk, width), rcnt (K/bk,) int32.  (tm,
+// tn) a built tile; with n_split > 1, part is the f32 workspace (n_split,
+// 1, Mp, K) and the masked forward's merge (masked_matmul.cu's
+// masked_merge_<S>) must follow.  block_sparse_dx_info_<S>: the launch of
+// the kernel on (tm, tn) with a list of ``width`` ids (K5's is the same
+// kernel).
+#define DX_ENTRIES(S, T)                                                                   \
+  extern "C" int block_sparse_dx_##S(const void* g, const void* w, const void* ridx,      \
+                                     const void* rcnt, void* dx, void* part, int Mp, int K, \
+                                     int N, int width, int bk, int bn, int tm, int tn,     \
+                                     int n_split, void* stream) {                          \
+    return launch_block_sparse_dx<T>(g, w, ridx, rcnt, dx, part, 1, Mp, K, N, width, bk,  \
+                                     bn, tm, tn, n_split, stream);                         \
+  }                                                                                        \
+  extern "C" int block_sparse_dx_info_##S(int tm, int tn, int width, int* out) {          \
+    return block_sparse_dx_info<T>(tm, tn, width, out);                                    \
+  }
 
-extern "C" int block_sparse_dx_f32(const void* g, const void* w, const void* ridx,
-                                   const void* rcnt, void* dx, int Mp, int K, int N,
-                                   int row_width, int bm, int bn, int bk, void* stream) {
-  return launch_block_sparse_dx<float>(g, w, ridx, rcnt, dx, 1, Mp, K, N, row_width,
-                                       bm, bn, bk, stream);
-}
+DX_ENTRIES(bf16, __nv_bfloat16)
+DX_ENTRIES(f32, float)
 
 // K3: x (Mp, K), g (Mp, N), dw (K, N) zero-filled by the caller; idx
 // (N/bn, width), cnt (N/bn,) int32.  Mp % 16 == 0; (tm, tn) a built wgrad

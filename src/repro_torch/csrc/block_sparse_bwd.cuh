@@ -6,7 +6,7 @@
 // the new momentum mu * mom + x^T g + wd * w (epilogue.cuh), optionally
 // stochastically rounded to the bf16 grid, for every group g of the bank
 // (K2/K3/K7 are the bank of one).  The grid's third dimension is the
-// group (times the wgrad's split), as K4 runs K1's kernel
+// group (times the dgrad's and the wgrad's split), as K4 runs K1's kernel
 // (block_sparse_fwd.cuh, on the GEMM core with the packed walk).
 //
 // Packs (core/pack.py), stacked over the groups at one shared width each:
@@ -21,13 +21,35 @@
 //
 // Design (no atomics; every sum in a fixed order, so results repeat run to
 // run): the TPU kernels carry their accumulators across a sequential grid
-// axis; here a loop inside one CTA takes its place, and the wgrad may split
-// it into parts that a second kernel sums in order.
-//  * dgrad: one CTA of 8 warps per (K-block row k, m-tile of bm rows, group
-//    g), walking ridx[g, k, :rcnt[g, k]]; A = the g tile (bm x slab), B =
-//    the slab of W^T (slab x bk, staged transposed).  A row with rcnt = 0
-//    still writes its zero dx tile (dx comes from torch.empty), so a dead
-//    expert's dx rows are zeros.
+// axis; here a loop inside one CTA takes its place, and the dgrad and the
+// wgrad may split it into parts that a second kernel sums in order.
+//  * dgrad (K2/K5), on the GEMM core (gemm_core.cuh) with the packed slab
+//    map, as the block-sparse forward K1/K4 walks its CSC lists: one CTA per
+//    (row tile, column tile of dx, group x split), ceil(bk / BN) column
+//    tiles in each K-block row kb, so that a tile never spans two block
+//    rows (each has its own list) and the column extent is the row's own
+//    end kb * bk + bk, where the copies zero-fill and the store clips.  The
+//    CTA reads rcnt[g, kb] on the device (no count is read on the host: the
+//    training step does not sync), stages its split's part of the list
+//    ridx[g, kb, :rcnt] into shared memory after the ring, and walks it:
+//    A = g's rows (gemm::RowsA, row stride N), B = w's rows of the column
+//    tile as they lie in w (gemm::DenseColsB, row stride N: n-major, read
+//    by ldmatrix without a transpose), each slab a 32-column piece of one
+//    active N-block, its extent the block's end (bn, any multiple of 16 up
+//    to 128).  Nothing reads an inactive block, so an inf or NaN in g or w
+//    outside the active blocks never reaches dx; f32 runs as 3xTF32 with
+//    the exact re-walk of a tile whose sums hold a NaN, so an inf in g
+//    inside an active block gives the plain version's +-inf.  A row with
+//    rcnt = 0 still stores its zero tile (dx comes from torch.empty), so a
+//    dead expert's dx is zeros.  The grid walks the row tiles fastest
+//    (DenseColsB), so the CTAs that read one block row of w run side by
+//    side.  The host plan (kernels/block_sparse_matmul.py::dx_plan, the
+//    core's split rule on the forward pack's live blocks) may split each
+//    row's walk of n = rcnt * ceil(bn / 32) slabs in n_split parts: split
+//    s walks slabs [s n / n_split, (s + 1) n / n_split) and stores its f32
+//    partial, zeros for an empty part, into part (n_split, G, Mp, K); the
+//    masked forward's merge (masked_merge_kernel, masked_matmul.cu), whose
+//    layout this is, sums them in split order and rounds once.
 //  * wgrad (K3/K6), on the GEMM core (gemm_core.cuh, as the masked wgrad
 //    K15/K18): one CTA per packed slot (s, j, g), grid dim x the slot so
 //    that the CTAs of one block column, which read the same g columns, run
@@ -44,7 +66,7 @@
 //    clips at, apart from the row strides.  No mask at the store: the block
 //    is live by construction.  Slots s >= cnt[g, j] return before any copy:
 //    a dead expert's dw stays zero and no empty sum is taken.  The host plan
-//    (kernels/masked_matmul.py::fwd_plan, entry "bs_dw", on the live CTAs)
+//    (kernels/block_sparse_matmul.py::dw_plan, on the live CTAs)
 //    may split the M walk in n_split parts: each stores its f32 partial in
 //    the reference's packed layout (n_split, G, N/bn, width, bk, bn), padded
 //    slots writing nothing, and block_sparse_dw_merge_kernel sums each live
@@ -64,23 +86,24 @@
 // Each CTA loops to its own group's count, never to the shared width, so a
 // lopsided expert that widens the pack costs the others nothing but the
 // early return of their padded wgrad slots.
-// K2, K5, K7 and K8 accumulate in f32 on the tile layer (tile_mma.cuh):
-// bf16 on the tensor cores (wmma), f32 in full-precision FFMA (the
-// reference's f32 MLP and MoE banks); K3/K6 as the GEMM core does.  Each
-// output is rounded once to the element type (dx: x's, dw: w's, which the
+// K7 and K8 accumulate in f32 on the tile layer (tile_mma.cuh): bf16 on
+// the tensor cores (wmma), f32 in full-precision FFMA (the reference's f32
+// MLP and MoE banks); K2/K5 and K3/K6 as the GEMM core does.  Each output
+// is rounded once to the element type (dx: g's, dw: w's, which the
 // wrappers hand in alike).
 //
 // Bound on the H100: at the training shapes (M = 2048 rows, or an MoE
-// bank's capacity of ~176 rows per expert, 128x128 blocks) both do 2 * M *
-// 128 * 128 flops per active block and move the active weight/gradient
+// bank's capacity of ~176 rows per expert, 128x128 blocks) each does 2 * M
+// * 128 * 128 flops per active block and moves the active weight/gradient
 // blocks plus x and g once: below the ~295 flop/byte ridge in bf16, so
-// bytes bound them there; in f32 the FFMA peak (67 TFLOP/s) bounds them at
-// M = 2048, bytes at an expert's few hundred rows (K3/K6's f32 runs as
-// 3xTF32 on the tensor cores, 495 TFLOP/s of TF32 for three products a
-// multiply-add).  K7/K8 add the reads of the superset blocks' w and mom
-// tiles (and write m_new there instead of dw): a few percent more bytes, the
-// same flops.  K2, K5, K7 and K8 use synchronous loads and wmma/FFMA (no
-// cp.async/TMA, no wgmma); the times against the bound are in PERF.md.
+// bytes bound them there; in f32 the FFMA peak (67 TFLOP/s, the bound
+// chip_smoke.py states) bounds them at M = 2048, bytes at an expert's few
+// hundred rows (the GEMM core's f32 runs as 3xTF32 on the tensor cores,
+// 495 TFLOP/s of TF32 for three products a multiply-add).  K7/K8 add the
+// reads of the superset blocks' w and mom tiles (and write m_new there
+// instead of dw): a few percent more bytes, the same flops; they use
+// synchronous loads and wmma/FFMA (no cp.async/TMA, no wgmma).  The times
+// against the bound are in PERF.md.
 #pragma once
 #include "common.cuh"
 #include "epilogue.cuh"
@@ -88,46 +111,62 @@
 
 namespace {
 
-// g (G, Mp, N), w (G, K, N), ridx (G, K/bk, row_width), rcnt (G, K/bk),
-// dx (G, Mp, K).
-template <typename T>
-__global__ void __launch_bounds__(tile::kThreads)
-block_sparse_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                       const int* __restrict__ ridx, const int* __restrict__ rcnt,
-                       T* __restrict__ dx, int Mp, int K, int N, int row_width,
-                       int bm, int bn, int bk) {
+// K2/K5 on the GEMM core.  g (G, Mp, N), w (G, K, N), ridx (G, K/bk,
+// width), rcnt (G, K/bk), dx (G, Mp, K); C a configuration with A = g by
+// RowsA and B = w by DenseColsB; blockIdx = (row tile, column tile, group *
+// n_split + split), x and y swapped where C::StageB walks the column tiles
+// fastest.  With n_split > 1 the split's f32 partial goes into part
+// (n_split, G, Mp, K) in place of dx.
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::MIN_CTAS)
+block_sparse_dx_gemm_kernel(const typename C::Type* __restrict__ g,
+                            const typename C::Type* __restrict__ w,
+                            const int* __restrict__ ridx, const int* __restrict__ rcnt,
+                            typename C::Type* __restrict__ dx, float* __restrict__ part, int G,
+                            int Mp, int K, int N, int width, int bk, int bn, int n_split) {
+  using T = typename C::Type;
+  constexpr bool kRowsFastest = C::StageB::kRowTilesFastest;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int gld = tile::kSlab + tile::pad<T>(), wld = bk + tile::pad<T>();
-  T* gs = reinterpret_cast<T*>(smem);  // bm x gld
-  T* ws = gs + bm * gld;               // kSlab x wld: W^T slab
-  float* scratch = reinterpret_cast<float*>(ws + tile::kSlab * wld);
-
-  const int kb = blockIdx.x;
-  const int m0 = blockIdx.y * bm;
-  const size_t grp = blockIdx.z, nkb = K / bk;
-  const T* gg = g + grp * Mp * N;
-  const T* wg = w + grp * K * N;
-  const int* rg = ridx + (grp * nkb + kb) * row_width;
-  T* dxg = dx + grp * Mp * K;
-  const int slab = (bn % tile::kSlab == 0) ? tile::kSlab : 16;
-  const int count = rcnt[grp * nkb + kb];
-
-  tile::Acc<T> acc;
-  acc.zero();
-  for (int s = 0; s < count; ++s) {
-    const int n0 = rg[s] * bn;
-    for (int nc = 0; nc < bn; nc += slab) {
-      __syncthreads();
-      tile::stage_rows(gs, gld, gg + (size_t)m0 * N + n0 + nc, N, bm, slab);
-      // ws[l][c] = w[kb*bk + c][n0 + nc + l]
-      tile::stage_cols(ws, wld, wg + (size_t)kb * bk * N + n0 + nc, N, bk, slab);
-      __syncthreads();
-      acc.mma(gs, gld, ws, wld, bm, bk, slab);
+  int* ids = reinterpret_cast<int*>(smem + C::SMEM);
+  const int per_row = (bk + C::BN - 1) / C::BN;  // column tiles a block row
+  const int ct = kRowsFastest ? blockIdx.y : blockIdx.x;
+  const int kb = ct / per_row;
+  const int n0 = kb * bk + (ct % per_row) * C::BN, n1 = kb * bk + bk;
+  const int m0 = (kRowsFastest ? blockIdx.x : blockIdx.y) * C::BM;
+  const int grp = blockIdx.z / n_split, sp = blockIdx.z % n_split;
+  const size_t row = (size_t)grp * (K / bk) + kb;  // the group's block row
+  const int spb = (bn + gemm::kSlab - 1) / gemm::kSlab;
+  const int n = rcnt[row] * spb;
+  const int s0 = sp * n / n_split, s1 = (sp + 1) * n / n_split;
+  // this split's blocks of the list, at their own positions
+  for (int i = s0 / spb + threadIdx.x; i < (s1 + spb - 1) / spb; i += C::kThreads)
+    ids[i] = ridx[row * width + i];
+  __syncthreads();
+  const T* gg = g + (size_t)grp * Mp * N;
+  const T* wg = w + (size_t)grp * K * N;
+  const gemm::PackedMap map{ids, bn, spb, s0};
+  gemm::Warp<C> warp;
+  warp.zero();
+  gemm::walk_map<C>(warp, gg, N, wg, N, nullptr, Mp, n1, map, m0, n0, s1 - s0, smem);
+  if constexpr (sizeof(T) == 4) {
+    // a NaN in f32's sums: an inf or NaN input; walk again with the exact
+    // split, which keeps an inf operand's products inf (gemm_core.cuh)
+    if (__syncthreads_or(warp.any_nan())) {
+      warp.zero();
+      gemm::walk_map<C, true>(warp, gg, N, wg, N, nullptr, Mp, n1, map, m0, n0, s1 - s0, smem);
     }
   }
-  acc.store(scratch, bm, bk, [&](int r, int c, float v) {
-    dxg[(size_t)(m0 + r) * K + kb * bk + c] = tile::from_float<T>(v);
-  });
+  if (n_split == 1) {
+    T* o = dx + (size_t)grp * Mp * K;
+    gemm::store(warp, Mp, n1, m0, n0, [&](int r, int c, float v0, float v1) {
+      gemm::store2(o + (size_t)r * K + c, v0, v1);
+    });
+  } else {
+    float* p = part + ((size_t)sp * G + grp) * Mp * K;
+    gemm::store(warp, Mp, n1, m0, n0, [&](int r, int c, float v0, float v1) {
+      gemm::store2(p + (size_t)r * K + c, v0, v1);
+    });
+  }
 }
 
 // K3/K6 on the GEMM core.  x (G, Mp, K), g (G, Mp, N), idx (G, N/bn,
@@ -251,27 +290,44 @@ block_sparse_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
   });
 }
 
+// g (G, Mp, N), w (G, K, N) row-major in the element type; ridx (G, K/bk,
+// width), rcnt (G, K/bk) int32; dx (G, Mp, K) like g.  The wrappers check
+// K % bk == 0, N % bn == 0, bk and bn multiples of 16 up to 128, 16-byte
+// alignment.  (tm, tn) a built tile; with n_split > 1, part is the f32
+// workspace (n_split, G, Mp, K) and the masked forward's merge
+// (masked_matmul.cu's masked_merge_<S>) must follow.
 template <typename T>
-size_t bwd_smem_bytes(int rows, int cols) {
-  return sizeof(T) * (rows * (tile::kSlab + tile::pad<T>()) +
-                      tile::kSlab * (cols + tile::pad<T>())) +
-         tile::epilogue_bytes<T>();
+int launch_block_sparse_dx(const void* g, const void* w, const void* ridx, const void* rcnt,
+                           void* dx, void* part, int G, int Mp, int K, int N, int width,
+                           int bk, int bn, int tm, int tn, int n_split, void* stream) {
+  return gemm::with_tile<T, gemm::DenseColsB>(tm, tn, [&](auto tag) {
+    using C = typename decltype(tag)::type;
+    const auto kernel = block_sparse_dx_gemm_kernel<C>;
+    const int smem = gemm::packed_smem_bytes<C>(width);
+    cudaError_t err = gemm::prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned row_tiles = (Mp + C::BM - 1) / C::BM;
+    const unsigned col_tiles = (K / bk) * ((bk + C::BN - 1) / C::BN);
+    const bool rows_fastest = C::StageB::kRowTilesFastest;
+    const dim3 grid(rows_fastest ? row_tiles : col_tiles, rows_fastest ? col_tiles : row_tiles,
+                    G * n_split);
+    kernel<<<grid, C::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(g), static_cast<const T*>(w), static_cast<const int*>(ridx),
+        static_cast<const int*>(rcnt), static_cast<T*>(dx), static_cast<float*>(part), G, Mp,
+        K, N, width, bk, bn, n_split);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-// The wrappers check Mp % bm == 0 (dgrad) or Mp % 16 == 0 (wgrad), K % bk
-// == 0, N % bn == 0, bm, bn, bk multiples of 16 up to 128, 16-byte
-// alignment.
+// out: gemm::launch_info of the dgrad kernel on the tile (tm, tn) with a
+// list of ``width`` ids.
 template <typename T>
-int launch_block_sparse_dx(const void* g, const void* w, const void* ridx,
-                           const void* rcnt, void* dx, int G, int Mp, int K, int N,
-                           int row_width, int bm, int bn, int bk, void* stream) {
-  const dim3 grid(K / bk, Mp / bm, G);
-  block_sparse_dx_kernel<T><<<grid, tile::kThreads, bwd_smem_bytes<T>(bm, bk),
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const T*>(w),
-      static_cast<const int*>(ridx), static_cast<const int*>(rcnt),
-      static_cast<T*>(dx), Mp, K, N, row_width, bm, bn, bk);
-  return static_cast<int>(cudaGetLastError());
+int block_sparse_dx_info(int tm, int tn, int width, int* out) {
+  return gemm::with_tile<T, gemm::DenseColsB>(tm, tn, [&](auto tag) {
+    using C = typename decltype(tag)::type;
+    return gemm::launch_info(block_sparse_dx_gemm_kernel<C>, gemm::packed_smem_bytes<C>(width),
+                             C::kThreads, out);
+  });
 }
 
 // K3/K6: the wgrad kernel on the tile (tm, tn) (a built wgrad tile that
@@ -317,6 +373,16 @@ int block_sparse_dw_info(int tm, int tn, int* out) {
   });
 }
 
+// K7/K8's shared bytes: the x^T and g slabs and the bf16 epilogue's staging.
+template <typename T>
+size_t fused_smem_bytes(int rows, int cols) {
+  return sizeof(T) * (rows * (tile::kSlab + tile::pad<T>()) +
+                      tile::kSlab * (cols + tile::pad<T>())) +
+         tile::epilogue_bytes<T>();
+}
+
+// The wrappers check Mp % 16 == 0, K % bk == 0, N % bn == 0, bk and bn
+// multiples of 16 up to 128, 16-byte alignment.
 template <typename T, typename TM, typename TO>
 int launch_block_sparse_dw_fused(const void* x, const void* g, const void* idx,
                                  const void* cnt, const void* w, const void* mom, void* out,
@@ -324,7 +390,7 @@ int launch_block_sparse_dw_fused(const void* x, const void* g, const void* idx,
                                  unsigned seed, float mu, float wd, int sr, void* stream) {
   const dim3 grid(N / bn, width, G);
   block_sparse_dw_fused_kernel<T, TM, TO>
-      <<<grid, tile::kThreads, bwd_smem_bytes<T>(bk, bn),
+      <<<grid, tile::kThreads, fused_smem_bytes<T>(bk, bn),
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const int*>(idx),
           static_cast<const int*>(cnt), static_cast<const T*>(w),

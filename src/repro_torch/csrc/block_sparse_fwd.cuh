@@ -56,12 +56,6 @@
 
 namespace {
 
-// The dynamic shared bytes of configuration C with a list of ``width`` ids.
-template <class C>
-int fwd_smem_bytes(int width) {
-  return C::SMEM + 4 * ((width + 3) / 4 * 4);
-}
-
 // x (G, Mp, K), w (G, K, N), idx (G, N/bn, width), cnt (G, N/bn), y (G, Mp,
 // N); C a configuration with A = x by RowsA and B = w by DenseRowsB;
 // blockIdx = (column tile, row tile, group * n_split + split).  With
@@ -130,7 +124,7 @@ int launch_block_sparse_fwd(const void* x, const void* w, const void* idx, const
   return gemm::with_tile<T, gemm::DenseRowsB>(tm, tn, [&](auto tag) {
     using C = typename decltype(tag)::type;
     const auto kernel = block_sparse_fwd_gemm_kernel<C>;
-    const int smem = fwd_smem_bytes<C>(width);
+    const int smem = gemm::packed_smem_bytes<C>(width);
     cudaError_t err = gemm::prepare(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((N / bn) * ((bn + C::BN - 1) / C::BN), (Mp + C::BM - 1) / C::BM,
@@ -149,7 +143,7 @@ template <typename T>
 int block_sparse_fwd_info(int tm, int tn, int width, int* out) {
   return gemm::with_tile<T, gemm::DenseRowsB>(tm, tn, [&](auto tag) {
     using C = typename decltype(tag)::type;
-    return gemm::launch_info(block_sparse_fwd_gemm_kernel<C>, fwd_smem_bytes<C>(width),
+    return gemm::launch_info(block_sparse_fwd_gemm_kernel<C>, gemm::packed_smem_bytes<C>(width),
                              C::kThreads, out);
   });
 }

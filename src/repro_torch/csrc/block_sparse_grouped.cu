@@ -16,14 +16,15 @@
 //
 // The TPU kernels' grids (G, ..., width) walked every padded slot of the
 // shared width with a pl.when skip; here the group is the CTA grid's third
-// dimension (times a split of K4's and K6's walks) and each CTA loops over
-// exactly its own group's count (a lopsided expert widens only the packed
-// arrays, not the other groups' loops).  K4 is K1's kernel on the GEMM
-// core with the packed walk (block_sparse_fwd.cuh; a split is merged by
-// masked_matmul.cu's masked_merge_<S>), K5/K6/K8 are
-// K2/K3/K7's (block_sparse_bwd.cuh); the designs, their traps (a dead expert
-// writes zero outputs, zero dx rows and a zero dw; a group with no active
-// block a zero m_new) and their bounds are there.
+// dimension (times a split of K4's, K5's and K6's walks) and each CTA
+// loops over exactly its own group's count (a lopsided expert widens only
+// the packed arrays, not the other groups' loops).  K4 is K1's kernel on
+// the GEMM core with the packed walk (block_sparse_fwd.cuh), K5/K6/K8 are
+// K2/K3/K7's (block_sparse_bwd.cuh; K5 on the GEMM core with the packed
+// walk, a split of K4 or K5 merged by masked_matmul.cu's masked_merge_<S>);
+// the designs, their traps (a dead expert writes zero outputs, zero dx
+// rows and a zero dw; a group with no active block a zero m_new) and their
+// bounds are there.
 #include "block_sparse_bwd.cuh"
 #include "block_sparse_fwd.cuh"
 
@@ -48,22 +49,23 @@ extern "C" int block_sparse_grouped_fwd_f32(const void* x, const void* w, const 
 }
 
 // K5: g (G, Mp, N), w (G, K, N), dx (G, Mp, K) in the entry's element type;
-// ridx (G, K/bk, row_width), rcnt (G, K/bk) int32.
-extern "C" int block_sparse_grouped_dx_bf16(const void* g, const void* w,
-                                            const void* ridx, const void* rcnt,
-                                            void* dx, int G, int Mp, int K, int N,
-                                            int row_width, int bm, int bn, int bk,
-                                            void* stream) {
-  return launch_block_sparse_dx<__nv_bfloat16>(g, w, ridx, rcnt, dx, G, Mp, K, N,
-                                               row_width, bm, bn, bk, stream);
+// ridx (G, K/bk, width), rcnt (G, K/bk) int32.  (tm, tn) a built tile; with
+// n_split > 1, part is the f32 workspace (n_split, G, Mp, K) and
+// masked_matmul.cu's masked_merge_<S> must follow.
+extern "C" int block_sparse_grouped_dx_bf16(const void* g, const void* w, const void* ridx,
+                                            const void* rcnt, void* dx, void* part, int G,
+                                            int Mp, int K, int N, int width, int bk, int bn,
+                                            int tm, int tn, int n_split, void* stream) {
+  return launch_block_sparse_dx<__nv_bfloat16>(g, w, ridx, rcnt, dx, part, G, Mp, K, N, width,
+                                               bk, bn, tm, tn, n_split, stream);
 }
 
-extern "C" int block_sparse_grouped_dx_f32(const void* g, const void* w,
-                                           const void* ridx, const void* rcnt, void* dx,
-                                           int G, int Mp, int K, int N, int row_width,
-                                           int bm, int bn, int bk, void* stream) {
-  return launch_block_sparse_dx<float>(g, w, ridx, rcnt, dx, G, Mp, K, N, row_width,
-                                       bm, bn, bk, stream);
+extern "C" int block_sparse_grouped_dx_f32(const void* g, const void* w, const void* ridx,
+                                           const void* rcnt, void* dx, void* part, int G,
+                                           int Mp, int K, int N, int width, int bk, int bn,
+                                           int tm, int tn, int n_split, void* stream) {
+  return launch_block_sparse_dx<float>(g, w, ridx, rcnt, dx, part, G, Mp, K, N, width, bk, bn,
+                                       tm, tn, n_split, stream);
 }
 
 // K6: x (G, Mp, K), g (G, Mp, N), dw (G, K, N) zero-filled by the caller;

@@ -2,35 +2,41 @@
 // accumulators: the core of the masked forward (K13, and K16 with the
 // bank's group as grid dim z), the masked dgrad (K14, and K17 likewise),
 // the masked wgrad (K15, and K18 likewise), the block-sparse wgrad (K3,
-// and K6 likewise: block_sparse_bwd.cuh) and the block-sparse forward (K1,
-// and K4 likewise: block_sparse_fwd.cuh), built so that the other matmul
+// and K6 likewise: block_sparse_bwd.cuh), the block-sparse forward (K1,
+// and K4 likewise: block_sparse_fwd.cuh) and the block-sparse dgrad (K2,
+// and K5 likewise: block_sparse_bwd.cuh), built so that the other matmul
 // kernels can move onto it one by one.
 //
 // A CTA owns one BM x BN tile of C = A @ B, A (rows x L), and walks the
 // contraction dim L in slabs of kSlab = 32.  A slab map gives slab t's
 // contraction offset and the end of its extent:
-//  * DenseMap (every kernel but the block-sparse forward): slab t is L's
-//    slab s0 + t, its extent L; a split walks the slabs [s0, s1) of L and
-//    the caller merges the parts.
-//  * PackedMap (K1, K4): the contraction visits a packed list of active
-//    K-blocks of bk rows, the CTA's own list in shared memory: slab t (of
-//    the walk from s0) is sub-slab (s0 + t) % spb of block ids[(s0 + t) /
-//    spb], spb = ceil(bk / kSlab), and its extent ends where its block
-//    does, so a slab of a block whose bk is not a multiple of 32 is
-//    zero-filled past the block and never reads the next one.
+//  * DenseMap (every kernel but the block-sparse forward and dgrad): slab
+//    t is L's slab s0 + t, its extent L; a split walks the slabs [s0, s1)
+//    of L and the caller merges the parts.
+//  * PackedMap (K1, K4, K2, K5): the contraction visits a packed list of
+//    active blocks of bk contraction elements (K1/K4: K-blocks of a block
+//    column's CSC list; K2/K5: N-blocks of a block row's CSR list, the
+//    extent bn), the CTA's own list in shared memory: slab t (of the walk
+//    from s0) is sub-slab (s0 + t) % spb of block ids[(s0 + t) / spb], spb
+//    = ceil(bk / kSlab), and its extent ends where its block does, so a
+//    slab of a block whose extent is not a multiple of 32 is zero-filled
+//    past the block and never reads the next one.
 // A is staged by one of two policies:
-//  * RowsA (K13, K14, K16, K17, K1, K4): A (rows x L) row-major: a slab is
-//    BM A rows of kSlab contraction elements.
+//  * RowsA (K13, K14, K16, K17, K1, K4, K2, K5): A (rows x L) row-major: a
+//    slab is BM A rows of kSlab contraction elements.
 //  * ColsA (K15, K18, K3, K6): A = x^T, x (L x rows) row-major: a slab is
 //    kSlab x rows of BM elements each, staged as they lie (no transpose through
 //    registers or scalar stores); ldmatrix.trans (bf16) or scalar loads
 //    (f32) read the fragments.
-// B by one of three:
+// B by one of four:
 //  * MaskedRowsB (K13, K16): B = w * m, w (L x cols) row-major: a slab is
 //    kSlab w rows of BN columns.
 //  * MaskedColsB (K14, K17): B = (w * m)^T, w (cols x L) row-major: a slab
 //    is BN w rows of kSlab contraction elements, staged as they lie -- the
 //    "n-major" B operand that mma.sync reads, so nothing is transposed.
+//  * DenseColsB (K2, K5): B = w^T, w (cols x L) row-major, staged as
+//    MaskedColsB stages it with no mask (the block-sparse dgrad's CSR list
+//    decides which N-blocks of w's rows are read).
 //  * DenseRowsB (K15, K18, K3, K6; K1, K4 with B = w): B = g (L x cols)
 //    row-major, staged as MaskedRowsB stages w, with no mask (the masked
 //    wgrad's mask multiplies the sum at the store, outside this header; the
@@ -38,12 +44,13 @@
 // Rows, columns and L past their extents are zero-filled by the copies and
 // never stored, so no extent has to be a multiple of a tile (cols, and
 // ColsA's rows, must be multiples of 16: one 16-byte mask chunk, two bf16
-// or four f32 copies; RowsA's and MaskedColsB's L likewise).  Each operand's
+// or four f32 copies; RowsA's and the n-major B's L likewise).  Each operand's
 // row stride (lda, ldb) is an argument apart from the extents: the masked
 // kernels pass their dense operands' own (the policies' dense_ld), the
 // block-sparse wgrad walks one block of a wider x and g, the block's edges
-// as the extents, and the block-sparse forward one block column of w, its
-// end the column extent.
+// as the extents, the block-sparse forward one block column of w, its end
+// the column extent, and the block-sparse dgrad one block row of w, its end
+// the column extent.
 //
 //  * The ring.  STAGES stages in shared memory, each an A tile, a B tile
 //    and, for a masked B, the B tile's mask (kSlab x BN bytes), filled by
@@ -69,7 +76,7 @@
 //  * bf16: mma.sync m16n8k16, A by ldmatrix (RowsA: m rows, k contiguous)
 //    or ldmatrix.trans (ColsA: k rows, m contiguous), B by ldmatrix.trans
 //    (MaskedRowsB, DenseRowsB: k rows, n contiguous) or by ldmatrix
-//    (MaskedColsB: n rows, k contiguous), f32 accumulation.
+//    (MaskedColsB, DenseColsB: n rows, k contiguous), f32 accumulation.
 //  * f32: 3xTF32 on mma.sync m16n8k8.  Each operand v splits as hi =
 //    cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi) (hi + lo carries ~22 of
 //    f32's 24 bits), and the product is lo*hi + hi*lo + hi*hi (the lo*lo
@@ -88,7 +95,7 @@
 //    a split, on every fragment, so only tiles with an inf or NaN input
 //    pay it.  RowsA's A comes by ldmatrix on 32-bit pairs (an 8 x 8 b16
 //    matrix is 8 rows of 4 floats; thread (g, t) receives row g, float t:
-//    the tf32 A layout), and so does MaskedColsB's B (row n = g, float k
+//    the tf32 A layout), and so does the n-major B's (row n = g, float k
 //    = t: the tf32 B layout); ColsA's A and the row-major B's by scalar
 //    ld.shared.
 //  * The epilogue rounds the register fragments once and stores them with
@@ -99,8 +106,7 @@
 //
 // What the later matmul kernels need and this header does not build yet:
 // the fused SGD wgrad (K19, K20, and K7, K8 over the packed blocks) runs
-// the same walk as K15, K18, K3 and K6 and differs only at the store; the
-// block-sparse dgrad (K2, K5) can walk its CSR list with the packed map.
+// the same walk as K15, K18, K3 and K6 and differs only at the store.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -380,6 +386,17 @@ struct DenseRowsB : MaskedRowsB {
   __host__ __device__ static constexpr int mask_bytes(int) { return 0; }
 };
 
+// K2/K5: B = w^T, w (cols x L) row-major, staged as MaskedColsB stages it
+// (the same rows, chunks and ldmatrix fragments, nothing transposed) with
+// no mask chunk and no mask pass: a CTA stages the rows of w that its dx
+// column tile reads, 32 contraction elements of one active N-block at a
+// time.  The grid walks the row tiles fastest, as MaskedColsB's: the CTAs
+// that read one block row of w run side by side.
+struct DenseColsB : MaskedColsB {
+  static constexpr bool kMasked = false, kRowTilesFastest = true;
+  __host__ __device__ static constexpr int mask_bytes(int) { return 0; }
+};
+
 // One CTA configuration: element type T, CTA tile BM x BN, WM x WN warps,
 // STAGES ring stages, at least MIN_CTAS resident per SM (the launch bound),
 // B staged by the policy StageB, A by StageA.
@@ -591,8 +608,8 @@ struct DenseMap {
 };
 
 struct PackedMap {
-  const int* ids;   // the CTA's active K-blocks, in shared memory
-  int bk, spb, s0;  // block rows, slabs a block (ceil(bk / kSlab)), first slab
+  const int* ids;   // the CTA's active blocks, in shared memory
+  int bk, spb, s0;  // a block's contraction extent, slabs a block (ceil(bk / kSlab)), first slab
   __device__ __forceinline__ void operator()(int t, int& l0, int& end) const {
     const int u = s0 + t, k0 = ids[u / spb] * bk;
     l0 = k0 + (u % spb) * kSlab;

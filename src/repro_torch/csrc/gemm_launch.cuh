@@ -1,11 +1,13 @@
 // The launch side of the GEMM core (gemm_core.cuh), shared by the kernels
 // built on it: the masked matmuls K13-K18 (masked_matmul.cu), the
-// block-sparse wgrad K3/K6 (block_sparse_bwd.cuh, in block_sparse_bwd.cu and
-// block_sparse_grouped.cu) and the block-sparse forward K1/K4
-// (block_sparse_fwd.cuh, in block_sparse_fwd.cu and block_sparse_grouped.cu).  The CTA configurations of each built tile,
-// the dispatch from a host plan's tile to its configuration, the paired
-// stores of the epilogues, the kernel attributes set before a launch, and
-// the launch's resources read back from the runtime.
+// block-sparse wgrad K3/K6 and dgrad K2/K5 (block_sparse_bwd.cuh, in
+// block_sparse_bwd.cu and block_sparse_grouped.cu) and the block-sparse
+// forward K1/K4 (block_sparse_fwd.cuh, in block_sparse_fwd.cu and
+// block_sparse_grouped.cu).  The CTA configurations of each built tile,
+// the dispatch from a host plan's tile to its configuration, the shared
+// bytes of a packed walk's list, the paired stores of the epilogues, the
+// kernel attributes set before a launch, and the launch's resources read
+// back from the runtime.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -21,8 +23,9 @@ namespace gemm {
 // slab, or a block-sparse wgrad's blocks are at most 64 wide), 16 x 64 for
 // decode (not the wgrads': their rows are K); WM x WN warps, ring stages,
 // resident CTAs an SM.  The forward (StageB = MaskedRowsB), the dgrad
-// (MaskedColsB), the wgrads (DenseRowsB, StageA = ColsA) and the
-// block-sparse forward (DenseRowsB, RowsA) share the numbers.
+// (MaskedColsB), the wgrads (DenseRowsB, StageA = ColsA), the block-sparse
+// forward (DenseRowsB, RowsA) and the block-sparse dgrad (DenseColsB,
+// RowsA) share the numbers.
 template <typename T, int BM, int BN, class StageB, class StageA> struct TileCfg;
 template <class B, class A> struct TileCfg<__nv_bfloat16, 128, 128, B, A> {
   using C = Cfg<__nv_bfloat16, 128, 128, 2, 4, 4, 2, B, A>;
@@ -44,6 +47,13 @@ template <class B, class A> struct TileCfg<float, 16, 64, B, A> {
 };
 
 template <class C> struct Tag { using type = C; };
+
+// The dynamic shared bytes of a packed walk's configuration C (K1/K4, K2/K5)
+// with a list of ``width`` block ids staged after the ring.
+template <class C>
+int packed_smem_bytes(int width) {
+  return C::SMEM + 4 * ((width + 3) / 4 * 4);
+}
 
 // f(Tag<Cfg>) for the configuration of tile (bm, bn) with B staged by
 // StageB and A by StageA; cudaErrorInvalidValue for a tile that is not

@@ -1,7 +1,7 @@
-// Tile products shared by the block-sparse kernels (dgrad and the fused
-// wgrad epilogues) and the masked fused wgrad (the masked forward, dgrad and
-// wgrad and the block-sparse forward and wgrad run on gemm_core.cuh).  A CTA
-// of 256 threads accumulates one (R x C) tile in f32, with R and C multiples of 16 up to
+// Tile products of the fused wgrad epilogues, block-sparse (K7/K8) and
+// masked (K19/K20), through xtg (the masked forward, dgrad and wgrad and the
+// block-sparse forward, dgrad and wgrad run on gemm_core.cuh).  A CTA of
+// 256 threads accumulates one (R x C) tile in f32, with R and C multiples of 16 up to
 // 128, from slabs staged in shared memory as A (R x L, row-major, leading
 // dimension lda) and B (L x C, row-major, ldb).
 //

@@ -10,6 +10,7 @@ are described in the sources:
                                                 (on the GEMM core, gemm_core.cuh)
   K2 ``_dx_kernel`` (``_dx_call``)    dx = g @ W^T over the CSR pack
      ``ridx[k, :rcnt[k]]``                     -> csrc/block_sparse_bwd.cu
+                                                (on the GEMM core, gemm_core.cuh)
   K3 ``_dw_kernel`` (``_dw_call``)    dw = x^T @ g on the active blocks of
      a CSC pack, zeros elsewhere               -> csrc/block_sparse_bwd.cu
                                                 (on the GEMM core, gemm_core.cuh)
@@ -22,7 +23,8 @@ are described in the sources:
      stacked CSR ``ridx[g, k, :rcnt[g, k]]``   -> csrc/block_sparse_grouped.cu
   K6 ``_g_dw_kernel`` (``_g_dw_call``)  dw[g] = x[g]^T @ g[g] on the active
      blocks of a stacked CSC, zeros elsewhere  -> csrc/block_sparse_grouped.cu
-                                                (K2/K3's kernels, block_sparse_bwd.cuh)
+                                                (K2/K3's kernels, block_sparse_bwd.cuh,
+                                                on the GEMM core)
   K7 ``_dw_fused_kernel`` (``_dw_fused_call``)  K3 whose blocks store the
      new SGD momentum mu * mom + x^T @ g + wd * w, optionally stochastically
      rounded onto the bf16 grid                -> csrc/block_sparse_bwd.cu
@@ -31,16 +33,19 @@ are described in the sources:
 
 Each runs in bf16 (tensor cores) and in f32 (the reference's MLP computes
 in the f32 residual's dtype), accumulating in f32 and rounding once to the
-element type.  K1, K3, K4 and K6 run on the GEMM core of the masked
-kernels (mma.sync bf16, and 3xTF32 for f32) with its split rule
-(``masked_matmul.fwd_split``, on the pack's live blocks).  K3/K6
-(``masked_matmul.fwd_plan``, entry "bs_dw"): one CTA a live block, the M
-walk split where the live blocks leave the card's last wave mostly idle,
-the split's packed f32 partials summed in order by ``bs_dw_merge``.  K1/K4
-(``fwd_plan`` here): one CTA a (column tile, row tile) of y, walking its
-block column's packed list of active K-blocks, the list split where the
-grid leaves the card's slots empty (decode) or its last wave idle, the f32
-partials summed in order by ``bs_fwd_merge``.  The others run on the tile layer (wmma bf16, full-precision FFMA f32).
+element type.  K1-K6 run on the GEMM core of the masked kernels (mma.sync
+bf16, and 3xTF32 for f32) with its split rule (``masked_matmul.fwd_split``,
+on the pack's live blocks), each with its plan here.  K3/K6 (``dw_plan``):
+one CTA a live block, the M walk split where the live blocks leave the
+card's last wave mostly idle, the split's packed f32 partials summed in
+order by ``bs_dw_merge``.  K1/K4 (``fwd_plan``): one CTA a (column tile,
+row tile) of y, walking its block column's packed list of active K-blocks,
+the list split where the grid leaves the card's slots empty (decode) or
+its last wave idle, the f32 partials summed in order by ``bs_fwd_merge``.
+K2/K5 (``dx_plan``): the same walk over each K-block row's CSR list of
+active N-blocks, one CTA a (row tile, column tile) of dx, the f32
+partials of a split summed in order by ``bs_dx_merge``.  K7/K8 run on the
+tile layer (wmma bf16, full-precision FFMA f32).
 
 The plain versions select the pack's blocks (``torch.where``), never
 multiply by the expanded mask, and sum each product over the pack's active
@@ -61,7 +66,8 @@ PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
 launches, so a run can show that its path went through the kernels;
 ``fwd_merge_launches`` counts the split merges after K1 and K4,
-``dw_merge_launches`` those after K3 and K6.
+``dx_merge_launches`` those after K2 and K5, ``dw_merge_launches`` those
+after K3 and K6.
 ``BlockSparseMatmul``, ``TopkastBlockSparseMatmul``,
 ``GroupedBlockSparseMatmul`` and ``TopkastGroupedBlockSparseMatmul`` are the
 differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd``,
@@ -93,14 +99,24 @@ __all__ = [
     "bs_dw_merge_plain",
     "block_sparse_dx",
     "block_sparse_dx_plain",
+    "block_sparse_dx_split_plain",
+    "bs_dx_merge",
     "block_sparse_matmul",
     "block_sparse_matmul_plain",
     "block_sparse_matmul_split_plain",
     "bs_fwd_merge",
     "csr_of",
-    "dx_launches",
+    "dw_candidates",
+    "dw_launch_info",
     "dw_launches",
     "dw_merge_launches",
+    "dw_plan",
+    "dw_tile",
+    "dx_candidates",
+    "dx_launch_info",
+    "dx_launches",
+    "dx_merge_launches",
+    "dx_plan",
     "fused_launches",
     "fwd_candidates",
     "fwd_launch_info",
@@ -134,6 +150,7 @@ fused_launches = 0    # K7
 g_fused_launches = 0  # K8
 dw_merge_launches = 0  # the merges of split K3 and K6 launches
 fwd_merge_launches = 0  # the merges of split K1 and K4 launches
+dx_merge_launches = 0  # the merges of split K2 and K5 launches
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
@@ -301,6 +318,19 @@ def block_sparse_matmul_split_plain(x, w, idx, cnt, bk: int, bn: int, n_split: i
         part = _on_blocks(x3, torch.where(_expand(piece, rb, bn), wf, 0.0), piece, rb, bn)
         acc = part if acc is None else acc + part
     return acc.to(x.dtype) if x.dim() == 3 else acc[0].to(x.dtype)
+
+
+def block_sparse_dx_split_plain(g, w, ridx, rcnt, bk: int, bn: int, n_split: int):
+    """K2 (g (M, N), w (K, N), a CSR pack) or K5 (every operand with a
+    leading group dim) as a split launch computes it: the forward's split
+    walk (``block_sparse_matmul_split_plain``) on g and w^T, whose CSC over
+    its K-block columns is w's CSR.  K-block row kb's walk is the n =
+    rcnt[kb] * ceil(bn / FWD_SLAB) slabs of its list ``ridx[kb,
+    :rcnt[kb]]``, in the list's order; split s takes slabs [s n // n_split,
+    (s + 1) n // n_split) and its f32 partial is g's product with those
+    slabs of w^T; the partials are summed in the order s = 0, 1, ... and
+    rounded once to g.dtype."""
+    return block_sparse_matmul_split_plain(g, w.transpose(-1, -2), ridx, rcnt, bn, bk, n_split)
 
 
 def bs_dw_merge_plain(part, idx, cnt, dw):
@@ -507,6 +537,112 @@ def _fwd_plan_for(Mp, K, N, G, dtype, bk, bn, live, device_index):
     return fwd_plan(Mp, K, N, G, dtype, slots, bk=bk, bn=bn, live=live)
 
 
+def dx_plan(Mp: int, K: int, N: int, G: int, dtype, slots: int, *, bk: int, bn: int,
+            live: int) -> tuple[int, int, int]:
+    """K2/K5's launch of g (G, Mp, N) @ w (G, K, N)^T (G = 1 for K2) on
+    ``live`` active (bk, bn) blocks (the forward pack's nnz: the CSR lists
+    the same blocks) -> (tile rows, tile columns, n_split).  The dgrad is
+    the forward's packed walk with the dims' roles swapped: rows Mp, the
+    contraction N visited in the active bn-wide N-blocks of each K-block
+    row's list, columns K in block rows of bk.  So ``fwd_plan`` on (Mp, N,
+    K) with the blocks (bn, bk): the tile ``fwd_tile(Mp, bk)``, ceil(Mp /
+    tm) ceil(bk / tn) G K/bk CTAs, a row's mean walk of live ceil(bn / 32) /
+    (G K/bk) slabs, and ``fwd_split``'s split of it."""
+    return fwd_plan(Mp, N, K, G, dtype, slots, bk=bn, bn=bk, live=live)
+
+
+def dx_candidates(Mp: int, K: int, N: int, G: int, dtype, slots: int, *, bk: int, bn: int,
+                  live: int) -> list[tuple[int, int, int]]:
+    """The plans a sweep forces at one K2/K5 shape (``dx_plan``'s
+    arguments): ``fwd_candidates`` with the dims' roles swapped, as
+    ``dx_plan``."""
+    return fwd_candidates(Mp, N, K, G, dtype, slots, bk=bn, bn=bk, live=live)
+
+
+def dx_launch_info(dtype, tm: int, tn: int, width: int) -> dict:
+    """``masked_matmul.launch_info`` of K2/K5's kernel at tile (tm, tn) in
+    ``dtype`` with a list of ``width`` block ids in shared memory.  Needs a
+    card."""
+    from .masked_matmul import launch_info  # masked_matmul imports this module
+
+    return launch_info(f"block_sparse_dx_info_{_SUFFIX[dtype]}", "block_sparse_bwd", tm, tn,
+                       width)
+
+
+@functools.lru_cache(maxsize=4096)
+def _dx_plan_for(Mp, K, N, G, dtype, bk, bn, live, device_index):
+    """``dx_plan`` with the card's slots (SMs times the resident CTAs of
+    K2/K5's kernel at the tile with the longest list a row of N/bn blocks
+    can hold, from the runtime), memoized."""
+    from .masked_matmul import fwd_tile  # masked_matmul imports this module
+
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    slots = sms * dx_launch_info(dtype, *fwd_tile(Mp, bk), N // bn)["ctas_per_sm"]
+    return dx_plan(Mp, K, N, G, dtype, slots, bk=bk, bn=bn, live=live)
+
+
+def dw_tile(bn: int) -> tuple[int, int]:
+    """K3/K6's CTA tile: the smallest built wgrad tile
+    (``masked_matmul.DW_TILES``) that holds a block of ``bn`` columns, 128
+    x 64 for blocks at most 64 wide, else 128 x 128 (its rows, 128, hold
+    any bk)."""
+    return 128, 64 if bn <= 64 else 128
+
+
+def dw_plan(M: int, K: int, N: int, G: int, dtype, slots: int, *, bn: int,
+            live: int | None = None) -> tuple[int, int, int]:
+    """K3/K6's launch of x (G, M, K)^T @ g (G, M, N) -> dw (G, K, N) (G = 1
+    for K3) on ``live`` blocks of ``bn`` columns (the wgrad pack's: the
+    pack entry's bnnz for a superset, else its nnz; None: every tile of the
+    (K, N) grid) -> (tile rows, tile columns, n_split).  One CTA a live
+    block in ``dw_tile``; the n = ceil(M / FWD_SLAB) slabs of the M walk may
+    be split in whole-slab parts whose packed f32 partials ``bs_dw_merge``
+    sums (8 bytes a split for each of the live tiles' elements);
+    ``masked_matmul.fwd_split`` weighs every split: the grid is the pack's
+    live blocks, a few dozen to a few hundred (danube's wk at 63 live
+    blocks and its f32 MLP at 289 were fastest split in 4 on an H100,
+    PERF.md).  ``slots``: the CTAs the card holds at once at the tile."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    tm, tn = dw_tile(bn)
+    tiles = G * -(-K // tm) * -(-N // tn) if live is None else live
+    cells = G * K * N if live is None else live * tm * tn  # merged elements
+    # the rows are K, never a decode's: the split has no cap
+    return tm, tn, mm.fwd_split(tm, tn, tiles, cells, -(-M // mm.FWD_SLAB), 0, dtype, slots,
+                                every=True)
+
+
+def dw_candidates(M: int, K: int, N: int, G: int, dtype, slots: int, *, bn: int,
+                  live: int | None = None) -> list[tuple[int, int, int]]:
+    """The plans a sweep forces at one K3/K6 shape (``dw_plan``'s
+    arguments): every built wgrad tile that holds the block, each with
+    every split of ``masked_matmul.fwd_split_candidates``, and
+    ``dw_plan``'s pick."""
+    from . import masked_matmul as mm  # masked_matmul imports this module
+
+    splits = mm.fwd_split_candidates(128, -(-M // mm.FWD_SLAB), 0, every=True)
+    out = [(tm, tn, n) for tm, tn in mm.DW_TILES if tn >= bn for n in splits]
+    pick = dw_plan(M, K, N, G, dtype, slots, bn=bn, live=live)
+    return out if pick in out else out + [pick]
+
+
+def dw_launch_info(dtype, tm: int, tn: int) -> dict:
+    """``masked_matmul.launch_info`` of K3/K6's kernel at tile (tm, tn) in
+    ``dtype``.  Needs a card."""
+    from .masked_matmul import launch_info  # masked_matmul imports this module
+
+    return launch_info(f"block_sparse_dw_info_{_SUFFIX[dtype]}", "block_sparse_bwd", tm, tn)
+
+
+@functools.lru_cache(maxsize=4096)
+def _dw_plan_for(M, K, N, G, dtype, bn, live, device_index):
+    """``dw_plan`` with the card's slots (SMs times the resident CTAs of
+    K3/K6's kernel at its tile, from the runtime), memoized."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    slots = sms * dw_launch_info(dtype, *dw_tile(bn))["ctas_per_sm"]
+    return dw_plan(M, K, N, G, dtype, slots, bn=bn, live=live)
+
+
 def block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int, plan=None,
                         live=None):
     """K1: x (M, K) @ block-sparse w (K, N) -> (M, N) in x.dtype.
@@ -531,8 +667,8 @@ def block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int, plan=None,
     if idx.dim() != 2 or idx.shape[0] != N // bn or cnt.shape != (N // bn,):
         raise ValueError(f"block_sparse_matmul: pack idx {tuple(idx.shape)} / cnt "
                          f"{tuple(cnt.shape)} does not match N/bn = {N // bn}")
-    y = _fwd_gemm("block_sparse_matmul", "block_sparse_fwd", f"block_sparse_fwd_{s}", x, w,
-                  idx, cnt, 1, bn, bk, plan, live)
+    y = _packed_gemm("block_sparse_matmul", "block_sparse_fwd", f"block_sparse_fwd_{s}", x, w,
+                     idx, cnt, 1, bk, bn, plan, live)
     launches += 1
     return y
 
@@ -562,39 +698,43 @@ def grouped_block_sparse_matmul(x, w, idx, cnt, *, bm: int, bn: int, bk: int, pl
         raise ValueError(f"grouped_block_sparse_matmul: pack idx {tuple(idx.shape)} / "
                          f"cnt {tuple(cnt.shape)} does not match (G, N/bn) = "
                          f"({G}, {N // bn})")
-    y = _fwd_gemm("grouped_block_sparse_matmul", "block_sparse_grouped",
-                  f"block_sparse_grouped_fwd_{s}", x, w, idx, cnt, G, bn, bk, plan, live)
+    y = _packed_gemm("grouped_block_sparse_matmul", "block_sparse_grouped",
+                     f"block_sparse_grouped_fwd_{s}", x, w, idx, cnt, G, bk, bn, plan, live)
     g_launches += 1
     return y
 
 
-def _fwd_gemm(what, lib_name, fn_name, x, w, idx, cnt, G, bn, bk, plan, live):
-    """One K1 (G = 1: x (M, K), w (K, N), a 2-D pack) or K4 (x (G, M, K), w
-    (G, K, N), a stacked pack) launch on the plan's tile and split, and the
-    merge after a split: y (M, N) or (G, M, N).  The plan counts ``live``
+def _packed_gemm(what, lib_name, fn_name, a, w, ids, cnt, G, bk, bn, plan, live,
+                 dgrad=False):
+    """One launch of the packed walk on the plan's tile and split, and the
+    merge after a split: K1 (G = 1: a = x (M, K), w (K, N), a 2-D CSC) or
+    K4 (a = x (G, M, K), w (G, K, N), a stacked CSC) -> y (M, N) or (G, M,
+    N); with ``dgrad`` K2 (a = g (M, N), a 2-D CSR) or K5 (a = g (G, M, N),
+    a stacked CSR) -> dx (M, K) or (G, M, K).  The plan counts ``live``
     blocks (every slot when None); no pack count is read on the host."""
     from . import masked_matmul as mm  # masked_matmul imports this module
 
-    M, K, N, width = x.shape[-2], x.shape[-1], w.shape[-1], idx.shape[-1]
-    live = G * (N // bn) * width if live is None else int(live)
-    tm, tn, n_split = plan or _fwd_plan_for(M, K, N, G, x.dtype, bk, bn, live,
-                                            x.device.index)
+    M, (K, N), width = a.shape[-2], w.shape[-2:], ids.shape[-1]
+    cols = K if dgrad else N
+    live = G * (cols // (bk if dgrad else bn)) * width if live is None else int(live)
+    plan_for = _dx_plan_for if dgrad else _fwd_plan_for
+    tm, tn, n_split = plan or plan_for(M, K, N, G, a.dtype, bk, bn, live, a.device.index)
     if (tm, tn) not in mm.FWD_TILES or not 1 <= n_split <= mm.FWD_MAX_SPLIT:
         raise ValueError(f"{what}: plan {(tm, tn, n_split)} is not a built tile "
                          f"{mm.FWD_TILES} with 1 <= n_split <= {mm.FWD_MAX_SPLIT}")
-    y = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
-    part = (torch.empty(n_split, G, M, N, dtype=torch.float32, device=x.device)
+    out = torch.empty(*a.shape[:-1], cols, dtype=a.dtype, device=a.device)
+    part = (torch.empty(n_split, G, M, cols, dtype=torch.float32, device=a.device)
             if n_split > 1 else None)
-    grouped = x.dim() == 3  # the grouped entry takes G
+    grouped = a.dim() == 3  # the grouped entry takes G
     lib, fn = _entry(lib_name, fn_name, 6, 10 if grouped else 9)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(), cnt.data_ptr(), y.data_ptr(),
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), w.data_ptr(), ids.data_ptr(), cnt.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(), *((G,) if grouped else ()), M, K,
-                N, width, bk, bn, tm, tn, n_split, _stream(x))
+                N, width, bk, bn, tm, tn, n_split, _stream(a))
     _build.check(lib, rc, f"{what} launch")
     if part is not None:
-        bs_fwd_merge(part, y)
-    return y
+        (bs_dx_merge if dgrad else bs_fwd_merge)(part, out)
+    return out
 
 
 def bs_fwd_merge(part, out):
@@ -613,10 +753,33 @@ def bs_fwd_merge(part, out):
     return out
 
 
-def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
+def bs_dx_merge(part, out):
+    """The merge of a split K2/K5 launch: out = part[0] + part[1] + ... in
+    that order, in f32, rounded once to out.dtype; part (n_split, G, M, K)
+    f32, out (M, K) (G = 1) or (G, M, K).  The masked forward's merge
+    (``masked_matmul._merge``: ``masked_merge_kernel``) on CUDA tensors,
+    one launch counted in ``dx_merge_launches``; its plain version on CPU
+    tensors."""
+    global dx_merge_launches
+    from .masked_matmul import _merge  # masked_matmul imports this module
+
+    _merge("bs_dx_merge", part, out.view(part.shape[1:]))
+    if out.device.type != "cpu":
+        dx_merge_launches += 1
+    return out
+
+
+def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int, plan=None, live=None):
     """K2: g (M, N) @ block-sparse w (K, N)^T -> dx (M, K) in g.dtype, over
     the CSR pack ``ridx (K/bk, row_width)`` / ``rcnt (K/bk,)``.  M must be a
-    multiple of ``bm``."""
+    multiple of ``bm``, the caller's row padding; the plan's tile decides
+    the launch.  ``dx_plan`` picks it from ``live``, the forward pack's live
+    blocks (a host int the caller has: the pack entry's nnz, never a
+    superset's bnnz; without one every slot K/bk * row_width counts), or
+    ``plan`` = (bm, bn, n_split) forces one (one of
+    ``masked_matmul.FWD_TILES``); a split is merged by ``bs_dx_merge``.
+    CUDA tensors run the kernel or raise; CPU tensors run the plain
+    version."""
     global dx_launches
     if g.device.type == "cpu":
         return block_sparse_dx_plain(g, w, ridx, rcnt, bk, bn)
@@ -629,12 +792,8 @@ def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
     if ridx.dim() != 2 or ridx.shape[0] != K // bk or rcnt.shape != (K // bk,):
         raise ValueError(f"block_sparse_dx: CSR ridx {tuple(ridx.shape)} / rcnt "
                          f"{tuple(rcnt.shape)} does not match K/bk = {K // bk}")
-    lib, fn = _entry("block_sparse_bwd", f"block_sparse_dx_{s}", 5, 7)
-    dx = torch.empty(M, K, dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), w.data_ptr(), ridx.data_ptr(), rcnt.data_ptr(),
-                dx.data_ptr(), M, K, N, ridx.shape[1], bm, bn, bk, _stream(g))
-    _build.check(lib, rc, "block_sparse_dx launch")
+    dx = _packed_gemm("block_sparse_dx", "block_sparse_bwd", f"block_sparse_dx_{s}", g, w,
+                      ridx, rcnt, 1, bk, bn, plan, live, dgrad=True)
     dx_launches += 1
     return dx
 
@@ -642,8 +801,8 @@ def block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
 def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int, plan=None, live=None):
     """K3: dw (K, N) in x.dtype holding x^T @ g on the active blocks of the
     CSC pack ``idx``/``cnt`` and zeros elsewhere.  x (M, K), g (M, N); M a
-    multiple of 16 (``kernels/ops.py`` pads rows).  ``masked_matmul.fwd_plan``
-    (entry "bs_dw") picks the launch from ``live``, the pack's live blocks
+    multiple of 16 (``kernels/ops.py`` pads rows).  ``dw_plan`` picks the
+    launch from ``live``, the pack's live blocks
     (a host int the caller has: the pack entry's nnz or bnnz; without one
     every slot N/bn * width counts), or ``plan`` = (bm, bn, n_split)
     forces one (a built wgrad tile that holds the block); a split is merged
@@ -677,8 +836,7 @@ def _dw_gemm(what, lib_name, fn_name, x, g, idx, cnt, G, bn, bk, plan, live):
 
     M, K, N, width = x.shape[-2], x.shape[-1], g.shape[-1], idx.shape[-1]
     live = G * (N // bn) * width if live is None else int(live)
-    tm, tn, n_split = plan or mm._fwd_plan_for(K, M, N, G, x.dtype, bn, x.device.index,
-                                               "bs_dw", live)
+    tm, tn, n_split = plan or _dw_plan_for(M, K, N, G, x.dtype, bn, live, x.device.index)
     if ((tm, tn) not in mm.DW_TILES or bk > tm or bn > tn
             or not 1 <= n_split <= -(-M // mm.FWD_SLAB)):
         raise ValueError(f"{what}: plan {(tm, tn, n_split)} is not a built tile "
@@ -782,12 +940,14 @@ def _check_grouped(what, a, b, pack, rows, blk):
                          f"not match (G, {rows}/{blk}) = ({G}, {n})")
 
 
-def grouped_block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
+def grouped_block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int, plan=None,
+                            live=None):
     """K5: g (G, M, N) @ block-sparse w (G, K, N)^T -> dx (G, M, K) in
     g.dtype, every group in one launch, over the stacked CSR ``ridx (G,
     K/bk, row_width)`` / ``rcnt (G, K/bk)``; a dead expert's rows are
-    zeros.  M must be a multiple of ``bm``.  CUDA tensors run the kernel or
-    raise; CPU tensors run the plain version."""
+    zeros.  M must be a multiple of ``bm``; ``plan`` and ``live`` (the live
+    blocks of the whole bank) as for ``block_sparse_dx``.  CUDA tensors
+    run the kernel or raise; CPU tensors run the plain version."""
     global gdx_launches
     if g.device.type == "cpu":
         return grouped_block_sparse_dx_plain(g, w, ridx, rcnt, bk, bn)
@@ -798,12 +958,9 @@ def grouped_block_sparse_dx(g, w, ridx, rcnt, *, bm: int, bn: int, bk: int):
     s = _check_cuda("grouped_block_sparse_dx", g, w, {"ridx": ridx, "rcnt": rcnt},
                     {"bm": bm, "bn": bn, "bk": bk},
                     [(M, bm), (K, bk), (N, bn)], [(w.shape[2], N)])
-    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_dx_{s}", 5, 8)
-    dx = torch.empty(G, M, K, dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), w.data_ptr(), ridx.data_ptr(), rcnt.data_ptr(),
-                dx.data_ptr(), G, M, K, N, ridx.shape[2], bm, bn, bk, _stream(g))
-    _build.check(lib, rc, "block_sparse_grouped_dx launch")
+    dx = _packed_gemm("grouped_block_sparse_dx", "block_sparse_grouped",
+                      f"block_sparse_grouped_dx_{s}", g, w, ridx, rcnt, G, bk, bn, plan, live,
+                      dgrad=True)
     gdx_launches += 1
     return dx
 
@@ -869,13 +1026,13 @@ class BlockSparseMatmul(torch.autograd.Function):
     """y = x @ W on the CSC pack; backward dx on the CSR pack (K2) and dw
     on the same CSC pack (K3), as the reference's ``_bs_fwd/_bs_bwd``.
     ``ridx``/``rcnt`` None derives the CSR at the worst-case width.
-    ``live``: the pack's active blocks as a host int (K1's and K3's plans),
-    or None."""
+    ``live``: the pack's active blocks as a host int (K1's, K2's and K3's
+    plans), or None."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
-        ctx.blocks, ctx.live = (bm, bn, bk), live
+        ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, live
         return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
 
     @staticmethod
@@ -892,13 +1049,13 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
     on B's blocks (K7 in K3's place), as the reference's ``_fbs_fwd/_fbs_bwd``
     (B is the forward CSC when the entry has no superset); ``mom`` and
     ``seed`` get no gradient.  ``live``: B's active blocks as a host int
-    (K3's plan), or None; ``nnz``: A's (K1's plan), or None."""
+    (K3's plan), or None; ``nnz``: A's (K1's and K2's plans), or None."""
 
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
                 mu=0.0, wd=0.0, sr=False, live=None, nnz=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
-        ctx.blocks, ctx.live = (bm, bn, bk), live
+        ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, nnz
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
 
@@ -917,7 +1074,7 @@ class GroupedBlockSparseMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
-        ctx.blocks, ctx.live = (bm, bn, bk), live
+        ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, live
         return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
 
     @staticmethod
@@ -939,7 +1096,7 @@ class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
                 mu=0.0, wd=0.0, sr=False, live=None, nnz=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
-        ctx.blocks, ctx.live = (bm, bn, bk), live
+        ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, nnz
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
         return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
 
@@ -949,9 +1106,11 @@ class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
 
 
 def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=False):
-    """dx on the CSR (derived from the forward CSC when None) and dw on the
-    CSC ``didx``/``dcnt``: K2/K3, or K5/K6 for a bank; with ``mom`` the
-    weight cotangent is the fused epilogue's new momentum (K7, or K8)."""
+    """dx on the CSR (derived from the forward CSC when None; its plan on
+    the forward pack's live blocks ``ctx.nnz``) and dw on the CSC
+    ``didx``/``dcnt`` (its plan on ``ctx.live``): K2/K3, or K5/K6 for a
+    bank; with ``mom`` the weight cotangent is the fused epilogue's new
+    momentum (K7, or K8)."""
     bm, bn, bk = ctx.blocks
     dx_fn, dw_fn, fused_fn = (
         (grouped_block_sparse_dx, grouped_block_sparse_dw, grouped_block_sparse_dw_fused)
@@ -961,7 +1120,7 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=
     if ctx.needs_input_grad[0]:
         if ridx is None:
             ridx, rcnt = csr_of(idx, cnt, w.shape[-2] // bk)
-        dx = dx_fn(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk)
+        dx = dx_fn(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk, live=ctx.nnz)
     if ctx.needs_input_grad[1]:
         if mom is None:
             dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk, live=ctx.live)

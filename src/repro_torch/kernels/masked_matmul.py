@@ -32,9 +32,8 @@ mostly idle (the wgrad's, ``entry="dw"``, keeps 128 rows and halves the
 tile of a one-slab walk in bf16); a split's f32 partials are summed in
 order by a merge kernel (``fwd_merge`` after K13 and K16, ``dx_merge``
 after K14 and K17, ``dw_merge`` after K15 and K18, which then multiplies by
-the mask; the block-sparse wgrad K3/K6 of ``block_sparse_matmul`` runs the
-wgrad's walk on the same core and takes this plan, ``entry="bs_dw"``; its
-forward K1/K4 counts its own grid and takes the same split rule,
+the mask; the block-sparse kernels K1-K6 of ``block_sparse_matmul`` run on
+the same core, count their own grids and take the same split rule,
 ``fwd_split``).  The
 mask multiplies the weight, or in the wgrad the f32 sum (an
 inf or NaN under a zero mask gives NaN, as the reference's ``w *
@@ -330,12 +329,7 @@ def fwd_tile(Mp: int, bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int
     most 64 rows (decode: one row tile, the weight read once; 64 columns
     give twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x
     64 where the caller's column tile ``bn_limit`` is below 128.  The
-    wgrad (``entry`` "dw", rows = K) always takes 128 rows.  The
-    block-sparse wgrad (``entry`` "bs_dw", ``bn_limit`` its blocks' columns)
-    takes the smallest built wgrad tile that holds a block: 128 x 64 for
-    blocks at most 64 wide, else 128 x 128."""
-    if entry == "bs_dw":
-        return 128, 64 if bn_limit <= 64 else 128
+    wgrad (``entry`` "dw", rows = K) always takes 128 rows."""
     bm = 16 if Mp <= 64 and entry != "dw" else 128
     return bm, 64 if bm == 16 or bn_limit < 128 else 128
 
@@ -346,8 +340,8 @@ def fwd_split(bm: int, bn: int, tiles: int, cells: int, n_slabs: int, cap: int, 
     ``dtype``, each walking ``n_slabs`` slabs, on ``slots`` resident CTAs;
     a split's f32 partials are ``cells`` elements, written and read by the
     merge (8 bytes each a split).  Each caller counts its own grid
-    (``fwd_plan`` for K13-K18 and K3/K6, ``block_sparse_matmul.fwd_plan``
-    for K1/K4).
+    (``fwd_plan`` for K13-K18; ``block_sparse_matmul``'s ``fwd_plan`` for
+    K1/K4, ``dx_plan`` for K2/K5 and ``dw_plan`` for K3/K6).
 
     * Decode (bm = 16) reads every weight byte once: the split fills the
       slots in one wave, as far as three limits allow: each split walks at
@@ -386,22 +380,18 @@ def fwd_split_candidates(bm: int, n_slabs: int, cap: int, every: bool = False) -
 
 
 def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
-             bn_limit: int = 128, entry: str = "fwd",
-             live: int | None = None) -> tuple[int, int, int]:
+             bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int, int]:
     """A GEMM-core launch of Mp rows x L contraction -> Mp x cols on a bank
     of G groups of ``dtype`` -> (bm, bn, n_split): ``entry`` "fwd" (K13 with
     G = 1, K16) with L = K and cols = N, "dx" (K14, K17) with L = N and cols
-    = K, "dw" (K15, K18) with Mp = K, L = M and cols = N, "bs_dw" (K3, K6:
-    the block-sparse wgrad) as "dw" with ``bn_limit`` its blocks' columns
-    and ``live`` its CTAs, one a live block of its pack (the pack entry's
-    nnz, or bnnz for a superset).  ``slots``: the CTAs the card holds at
-    once for the tile ``fwd_tile`` picks (SMs times CTAs resident per SM).
+    = K, "dw" (K15, K18) with Mp = K, L = M and cols = N.  ``slots``: the
+    CTAs the card holds at once for the tile ``fwd_tile`` picks (SMs times
+    CTAs resident per SM).
 
-    The grid has ceil(Mp / bm) ceil(cols / bn) G tiles (``live`` where
-    given), and the n = ceil(L / FWD_SLAB) slabs may be split into n_split
-    whole-slab parts whose f32 partials a merge sums (8 G Mp cols bytes a
-    split, written and read; 8 live bm bn where ``live`` is given: the
-    block-sparse merge moves the live tiles only); ``fwd_split`` picks it.
+    The grid has ceil(Mp / bm) ceil(cols / bn) G tiles, and the n = ceil(L
+    / FWD_SLAB) slabs may be split into n_split whole-slab parts whose f32
+    partials a merge sums (8 G Mp cols bytes a split, written and read);
+    ``fwd_split`` picks it.
 
     * Decode (bm = 16): the partials stay within a quarter of the weight
       and mask bytes (G L cols (e + 1)), so n_split <= L (e + 1) / (32 Mp).
@@ -415,40 +405,30 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
     * Larger row counts weigh a split of 2: it pays where the unsplit grid
       leaves most of its last wave idle (danube's f32 MLP at 2048 rows: the
       forward of wo and the dgrad of wi and wg, 320 CTAs on 132 slots).  The
-      banks (660-1320 CTAs) stay whole.  The block-sparse wgrad ("bs_dw")
-      weighs every split: its grid is the pack's live blocks, a few dozen to
-      a few hundred (danube's wk at 63 live blocks and its f32 MLP at 289
-      were fastest split in 4 on an H100, PERF.md); it keeps its tile at one
-      slab (the tile must hold its block).
+      banks (660-1320 CTAs) stay whole.
 
     chip_smoke.py times every candidate (``fwd_candidates``) at the paths'
     shapes and says whether this pick was the fastest."""
     bm, bn = fwd_tile(Mp, bn_limit, entry)
-    tiles = -(-Mp // bm) * -(-cols // bn) * G if live is None else live
-    cells = G * Mp * cols if live is None else live * bm * bn  # merged elements
     n_slabs = -(-L // FWD_SLAB)
     if entry == "dw" and n_slabs == 1 and dtype == torch.bfloat16:
         return bm, 64, 1
     cap = L * (_ELEMENT[dtype] + 1) // (32 * Mp)
-    return bm, bn, fwd_split(bm, bn, tiles, cells, n_slabs, cap, dtype, slots,
-                             every=entry == "bs_dw")
+    return bm, bn, fwd_split(bm, bn, -(-Mp // bm) * -(-cols // bn) * G, G * Mp * cols,
+                             n_slabs, cap, dtype, slots)
 
 
 def fwd_candidates(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
-                   bn_limit: int = 128, entry: str = "fwd",
-                   live: int | None = None) -> list[tuple[int, int, int]]:
+                   bn_limit: int = 128, entry: str = "fwd") -> list[tuple[int, int, int]]:
     """The plans a sweep forces at one shape (``fwd_plan``'s arguments):
     every built tile of the row tile ``fwd_tile`` picks whose columns the
-    caller allows (for "bs_dw" every built wgrad tile that holds the
-    block), each with every split of ``fwd_split_candidates``, and
+    caller allows, each with every split of ``fwd_split_candidates``, and
     ``fwd_plan``'s own pick."""
     bm, _ = fwd_tile(Mp, bn_limit, entry)
-    splits = fwd_split_candidates(bm, -(-L // FWD_SLAB), L * (_ELEMENT[dtype] + 1) // (32 * Mp),
-                                  every=entry == "bs_dw")
-    tiles = ([t for t in DW_TILES if t[1] >= bn_limit] if entry == "bs_dw" else
-             [(bm, bn) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)])
-    out = [(tbm, tbn, n) for tbm, tbn in tiles for n in splits]
-    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry, live=live)
+    splits = fwd_split_candidates(bm, -(-L // FWD_SLAB), L * (_ELEMENT[dtype] + 1) // (32 * Mp))
+    out = [(bm, bn, n) for tbm, bn in FWD_TILES if tbm == bm and bn <= max(bn_limit, 64)
+           for n in splits]
+    pick = fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
     return out if pick in out else out + [pick]
 
 
@@ -466,22 +446,20 @@ def launch_info(name: str, lib_name: str, *args: int) -> dict:
 
 def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
     """``launch_info`` of the GEMM core's kernel at tile (bm, bn) in
-    ``dtype``, ``entry`` "fwd" (K13/K16), "dx" (K14/K17), "dw" (K15/K18) or
-    "bs_dw" (K3/K6).  Needs a card."""
+    ``dtype``, ``entry`` "fwd" (K13/K16), "dx" (K14/K17) or "dw" (K15/K18).
+    Needs a card."""
     s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
-    if entry == "bs_dw":
-        return launch_info(f"block_sparse_dw_info_{s}", "block_sparse_bwd", bm, bn)
     return launch_info(f"masked_{entry}_info_{s}", "masked_matmul", bm, bn)
 
 
 @functools.lru_cache(maxsize=4096)
-def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd", live=None):
+def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd"):
     """``fwd_plan`` with the card's slots (SMs times the resident CTAs of
     ``entry``'s kernel at the tile, from the runtime), memoized."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     bm, bn = fwd_tile(Mp, bn_limit, entry)
     slots = sms * fwd_launch_info(dtype, bm, bn, entry)["ctas_per_sm"]
-    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry, live=live)
+    return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
 
 
 def _merge(what, part, out, mask=None):

@@ -2,9 +2,11 @@
 the CPU.
 
 The block-sparse wgrad runs on the GEMM core of the masked kernels, one CTA
-a live block of its pack, and takes their plan (``fwd_plan`` with
-``entry="bs_dw"``: rows K, contraction M, columns N, the smallest built
-wgrad tile that holds a block, the grid counted as the pack's live blocks):
+a live block of its pack, and takes its own plan
+(``block_sparse_matmul.dw_plan``: rows K, contraction M, columns N, the
+smallest built wgrad tile that holds a block, the grid counted as the
+pack's live blocks, the split chosen by the core's
+``masked_matmul.fwd_split``):
 its picks at the training paths' wgrad shapes (given as numbers), the plain
 version that follows a split (``block_sparse_dw_split_plain``: f32
 partials over whole M slabs, summed in split order, selected onto the pack,
@@ -49,7 +51,7 @@ JDT = {F32: jnp.float32, BF: jnp.bfloat16}
 def _bs_plan(M, K, N, G, dt, live, bn=128):
     """K3/K6's plan of x (G, M, K)^T @ g (G, M, N) on ``live`` blocks of
     ``bn`` columns: rows K, contraction M, columns N."""
-    return tmm.fwd_plan(K, M, N, G, dt, SMS * CTAS[dt], bn_limit=bn, entry="bs_dw", live=live)
+    return tbsm.dw_plan(M, K, N, G, dt, SMS * CTAS[dt], bn=bn, live=live)
 
 
 # the wgrad shapes of the training paths (one microbatch's M rows, padded),
@@ -94,8 +96,7 @@ def test_bs_dw_plan_at_the_training_shapes(name):
     them."""
     (M, G, K, N, dt, live), want = BS_DW[name]
     assert _bs_plan(M, K, N, G, dt, live) == want
-    cands = tmm.fwd_candidates(K, M, N, G, dt, SMS * CTAS[dt], bn_limit=128, entry="bs_dw",
-                               live=live)
+    cands = tbsm.dw_candidates(M, K, N, G, dt, SMS * CTAS[dt], bn=128, live=live)
     assert want in cands and all((bm, bn) in tmm.DW_TILES and bn == 128 for bm, bn, _ in cands)
 
 
@@ -118,10 +119,9 @@ def test_bs_dw_plan_follows_the_live_blocks(dt):
     assert _bs_plan(16, K, N, 1, dt, 40)[2] == 1  # one slab: nothing to split
     for bn, tile in ((16, (128, 64)), (32, (128, 64)), (64, (128, 64)), (80, (128, 128)),
                      (128, (128, 128))):
-        assert tmm.fwd_tile(K, bn, "bs_dw") == tile
+        assert tbsm.dw_tile(bn) == tile
         assert _bs_plan(2048, K, N, 1, dt, 40, bn=bn)[:2] == tile
-        cands = tmm.fwd_candidates(K, 2048, N, 1, dt, slots, bn_limit=bn, entry="bs_dw",
-                                   live=40)
+        cands = tbsm.dw_candidates(2048, K, N, 1, dt, slots, bn=bn, live=40)
         assert {(bm, b) for bm, b, _ in cands} == {t for t in tmm.DW_TILES if t[1] >= bn}
         assert {n for *_, n in cands} == set(tmm.FWD_SPLITS)
 

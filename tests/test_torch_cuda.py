@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
-K18 and the block-sparse wgrad K3/K6 and forward K1/K4 on the GEMM core
-(each under every plan its sweep forces, with the split merge), the
+K18 and the block-sparse wgrad K3/K6, forward K1/K4 and dgrad K2/K5 on the
+GEMM core (each under every plan its sweep forces, with the split merge), the
 fused epilogue K19 and the |x| histogram K21, training steps,
 paged serving, MoE serving and MoE training through them.
 
@@ -747,14 +747,12 @@ def _bs_dw(x, g, idx, cnt, bk, bn, plan=None, live=None):
 
 
 def _bs_dw_plans(G, M, K, N, bn, dtype, live):
-    """Every plan the sweeps force at this shape (``fwd_candidates`` with
-    entry "bs_dw" on the kernel's slots) and every built tile that holds the
-    block unsplit and split in 3 where M has 3 slabs."""
-    tm, tn = tmm.fwd_tile(K, bn, "bs_dw")
+    """Every plan the sweeps force at this shape (``dw_candidates`` on the
+    kernel's slots) and every built tile that holds the block unsplit and
+    split in 3 where M has 3 slabs."""
     slots = (torch.cuda.get_device_properties(0).multi_processor_count
-             * tmm.fwd_launch_info(dtype, tm, tn, "bs_dw")["ctas_per_sm"])
-    plans = set(tmm.fwd_candidates(K, M, N, G, dtype, slots, bn_limit=bn, entry="bs_dw",
-                                   live=live))
+             * tbsm.dw_launch_info(dtype, *tbsm.dw_tile(bn))["ctas_per_sm"])
+    plans = set(tbsm.dw_candidates(M, K, N, G, dtype, slots, bn=bn, live=live))
     plans |= {(a, b, n) for a, b in tmm.DW_TILES if b >= bn for n in (1, 3)
               if n <= -(-M // tmm.FWD_SLAB)}
     return sorted(plans)
@@ -838,14 +836,14 @@ def test_cuda_bs_dw_has_no_spill():
     for dtype in (torch.bfloat16, torch.float32):
         e = torch.finfo(dtype).bits // 8
         for bm, bn in tmm.DW_TILES:
-            info = tmm.fwd_launch_info(dtype, bm, bn, "bs_dw")
+            info = tbsm.dw_launch_info(dtype, bm, bn)
             masked = tmm.fwd_launch_info(dtype, bm, bn, "dw")
             assert info["spill_bytes"] == 0 and info["registers"] <= 255, (dtype, bm, bn, info)
             assert info["ctas_per_sm"] >= masked["ctas_per_sm"], (dtype, bm, bn, info, masked)
             stage = 32 * ((bm + 8) + (bn + 8)) * e
             assert info["smem_bytes"] % stage == 0 and info["smem_bytes"] >= 2 * stage
         with pytest.raises(RuntimeError):
-            tmm.fwd_launch_info(dtype, 16, 64, "bs_dw")
+            tbsm.dw_launch_info(dtype, 16, 64)
         x = torch.zeros(32, 256, device=dev, dtype=dtype)
         idx = torch.zeros(2, 1, dtype=torch.int32, device=dev)
         cnt = torch.ones(2, dtype=torch.int32, device=dev)
@@ -1095,6 +1093,257 @@ def test_cuda_bs_fwd_has_no_spill():
         with pytest.raises(ValueError, match="built tile"):
             tbsm.block_sparse_matmul(x, w, idx, cnt, bm=16, bn=128, bk=128,
                                      plan=(16, 64, tmm.FWD_MAX_SPLIT + 1))
+
+
+# (G, M, K, N, bk, bn, dead groups) of the block-sparse dgrad g (G, M, N) @
+# w (G, K, N)^T -> dx (G, M, K) on a CSR pack: 16 rows (the 16 x 64 tile);
+# rows off the 128-row tile; 16 x 16, 32 x 32 and 32 x 64 blocks (column
+# tiles of 64 that hold one block row each); a bank at 16 rows; a bank with
+# dead groups; long lists (16 N-blocks a row)
+BS_DX_SHAPES = [(1, 16, 384, 512, 128, 128, ()), (1, 200, 256, 512, 128, 128, ()),
+                (1, 48, 96, 64, 16, 16, ()), (1, 96, 160, 96, 32, 32, ()),
+                (1, 80, 128, 192, 32, 64, ()), (3, 16, 256, 384, 128, 128, ()),
+                (5, 96, 64, 96, 16, 16, (1, 3)), (1, 256, 512, 2048, 128, 128, ())]
+
+
+def _bs_dx_problem(shape, dtype, dev, seed=53):
+    """g (G, Mp, N) (rows zero-padded to 16) and w (G, K, N), zero off a
+    block mask with an empty block row (rcnt = 0), a full one, uneven
+    counts and the dead groups empty, in ``dtype`` on ``dev`` (2-D for G =
+    1); its stacked CSR, the dense (G, K, N) bool of its blocks and the
+    live blocks."""
+    from repro_torch.core.pack import pack_group_mask_rows
+
+    G, M, K, N, bk, bn, dead = shape
+    rng = np.random.default_rng(seed)
+    bm = rng.random((G, K // bk, N // bn)) < 0.4
+    bm[:, 0, :] = False
+    bm[:, -1, :] = True
+    for grp in dead:
+        bm[grp] = False
+    live = np.repeat(np.repeat(bm, bk, 1), bn, 2)
+    Mp = -(-M // 16) * 16
+    g = np.zeros((G, Mp, N), np.float32)
+    g[:, :M] = rng.standard_normal((G, M, N))
+    w = rng.standard_normal((G, K, N)) * live / np.sqrt(N)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    ridx, rcnt = (torch.from_numpy(a).to(dev) for a in pack_group_mask_rows(bm))
+    g, w, live = f(g), f(w), torch.from_numpy(live).to(dev)
+    if G == 1:
+        g, w, ridx, rcnt, live = g[0], w[0], ridx[0], rcnt[0], live[0]
+    return g, w, ridx, rcnt, live, int(bm.sum())
+
+
+def _bs_dx(g, w, ridx, rcnt, bk, bn, plan=None, live=None):
+    kw = dict(bm=16, bn=bn, bk=bk, plan=plan, live=live)
+    if g.dim() == 3:
+        return tbsm.grouped_block_sparse_dx(g, w, ridx, rcnt, **kw)
+    return tbsm.block_sparse_dx(g, w, ridx, rcnt, **kw)
+
+
+def _bs_dx_plain(g, w, ridx, rcnt, bk, bn):
+    fn = tbsm.grouped_block_sparse_dx_plain if g.dim() == 3 else tbsm.block_sparse_dx_plain
+    return fn(g, w, ridx, rcnt, bk, bn)
+
+
+def _bs_dx_plans(G, Mp, K, N, bk, bn, dtype, live):
+    """Every plan the sweeps force at this shape (``dx_candidates`` on the
+    kernel's slots) and every built tile unsplit and split in 3 (odd
+    splits: uneven and empty parts)."""
+    tm, tn = tmm.fwd_tile(Mp, bk)
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * tbsm.dx_launch_info(dtype, tm, tn, N // bn)["ctas_per_sm"])
+    plans = set(tbsm.dx_candidates(Mp, K, N, G, dtype, slots, bk=bk, bn=bn, live=live))
+    plans |= {(a, b, n) for a, b in tmm.FWD_TILES for n in (1, 3)}
+    return sorted(plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BS_DX_SHAPES)
+def test_cuda_bs_dx_every_plan_matches_plain(shape, dtype):
+    """K2 (G = 1) and K5 on the GEMM core's packed walk under every forced
+    plan (tile, split) element by element within ``matmul_error_bound`` of
+    the plain version (bf16 also within one ulp of the largest output), a
+    split also of the plain version that follows it
+    (``block_sparse_dx_split_plain``); a split counts one K2/K5 launch and
+    one merge (``dx_merge_launches``), an unsplit launch none; the plan's
+    own pick, from the live blocks or from every slot, likewise."""
+    dev = _cuda()
+    G, M, K, N, bk, bn, dead = shape
+    g, w, ridx, rcnt, live, nnz = _bs_dx_problem(shape, dtype, dev)
+    want = _bs_dx_plain(g, w, ridx, rcnt, bk, bn)
+    absp = _bs_dx_plain(g.float().abs(), w.float().abs(), ridx, rcnt, bk, bn)
+    read = lambda: [tbsm.dx_launches, tbsm.gdx_launches, tbsm.dx_merge_launches]
+    for plan in _bs_dx_plans(G, g.shape[-2], K, N, bk, bn, dtype, nnz) + [None]:
+        n = read()
+        got = _bs_dx(g, w, ridx, rcnt, bk, bn, plan, live=nnz)
+        torch.cuda.synchronize()
+        if plan is not None:
+            k = 1 if plan[2] > 1 else 0
+            assert read() == ([n[0] + 1, n[1], n[2] + k] if G == 1
+                              else [n[0], n[1] + 1, n[2] + k]), plan
+        assert got.dtype == dtype and got.shape == want.shape
+        splits = [want]
+        if plan is not None and plan[2] > 1:
+            splits.append(tbsm.block_sparse_dx_split_plain(g, w, ridx, rcnt, bk, bn, plan[2]))
+        for ref in splits:
+            _assert_within(got, ref, absp, N)
+            if dtype == torch.bfloat16:
+                err = (got.float() - ref.float()).abs().max().item()
+                assert err <= 2.0 ** -7 * ref.float().abs().max().item(), plan
+    _assert_within(_bs_dx(g, w, ridx, rcnt, bk, bn), want, absp, N)  # every slot counted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bs_dx_two_launches_give_the_same_bits(dtype):
+    """No atomics and a fixed order: two launches of every forced plan of
+    K2 and K5 give the same bits, split (the merge sums in order) or not."""
+    dev = _cuda()
+    for shape in (BS_DX_SHAPES[1], BS_DX_SHAPES[6]):
+        G, M, K, N, bk, bn, _ = shape
+        g, w, ridx, rcnt, _, nnz = _bs_dx_problem(shape, dtype, dev)
+        iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for plan in _bs_dx_plans(G, g.shape[-2], K, N, bk, bn, dtype, nnz):
+            a = _bs_dx(g, w, ridx, rcnt, bk, bn, plan, live=nnz)
+            b = _bs_dx(g, w, ridx, rcnt, bk, bn, plan, live=nnz)
+            assert torch.equal(a.view(iv), b.view(iv)), (shape, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bs_dx_empty_rows_store_zeros(dtype):
+    """A K-block row with rcnt = 0 stores its zero dx columns into a dx
+    that comes from torch.empty (here over memory just freed from a NaN
+    tensor of its size), under every tile, split or not; setting a row's
+    count to 0 in place zeroes its columns whatever its list holds."""
+    dev = _cuda()
+    g, w, ridx, rcnt, _, nnz = _bs_dx_problem((1, 96, 256, 384, 32, 32, ()), dtype, dev)
+    rcnt = rcnt.clone()
+    rcnt[3] = 0
+    want = tbsm.block_sparse_dx_plain(g, w, ridx, rcnt, 32, 32)
+    for plan in ((16, 64, 1), (128, 64, 1), (128, 64, 3), (128, 128, 2)):
+        torch.full((96, 256), float("nan"), device=dev, dtype=dtype)  # freed at once
+        got = tbsm.block_sparse_dx(g, w, ridx, rcnt, bm=16, bn=32, bk=32, plan=plan)
+        assert bool(torch.isfinite(got.float()).all()), plan
+        assert not got[:, :32].float().any() and not got[:, 96:128].float().any(), plan
+        absp = tbsm.block_sparse_dx_plain(g.float().abs(), w.float().abs(), ridx, rcnt, 32, 32)
+        _assert_within(got, want, absp, 384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bs_dx_dead_expert_gives_zeros(dtype):
+    """K5 on a bank whose groups 1 and 3 have no block (every count 0):
+    exact zeros in their dx under every tile, split or not, the live groups
+    within the bound of the plain version."""
+    dev = _cuda()
+    shape = (5, 96, 64, 96, 16, 16, (1, 3))
+    g, w, ridx, rcnt, _, _ = _bs_dx_problem(shape, dtype, dev)
+    want = tbsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, 16, 16)
+    absp = tbsm.grouped_block_sparse_dx_plain(g.float().abs(), w.float().abs(), ridx, rcnt,
+                                              16, 16)
+    for plan in ((16, 64, 1), (128, 64, 1), (128, 64, 2), (128, 128, 3)):
+        got = tbsm.grouped_block_sparse_dx(g, w, ridx, rcnt, bm=16, bn=16, bk=16, plan=plan)
+        for grp in shape[-1]:
+            assert not got[grp].float().any(), (plan, grp)
+        _assert_within(got, want, absp, 96)
+
+
+@pytest.mark.cuda
+def test_cuda_bs_dx_f32_keeps_f32_digits():
+    """3xTF32 keeps f32's digits in K2 and K5: on danube's MLP wi shape (w
+    2560 x 6912, density 0.26, dx of 2048 rows) and on a bank of 8 (w 2048
+    x 1408, 256 rows), each unsplit and split in 2 and 4, the kernel's RMS
+    error against a float64 product on the pack's blocks is at most 8x the
+    plain f32 version's (one-pass TF32 would be ~1000x)."""
+    from repro_torch.core.pack import pack_group_mask_rows
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(59)
+    for G, M, K, N in ((1, 2048, 2560, 6912), (8, 256, 2048, 1408)):
+        bm = torch.rand(G, K // 128, N // 128, device=dev, generator=gen) < 0.26
+        live = bm.repeat_interleave(128, 1).repeat_interleave(128, 2)
+        g = torch.randn(G, M, N, device=dev, generator=gen)
+        w = torch.randn(G, K, N, device=dev, generator=gen) / N ** 0.5 * live
+        ridx, rcnt = (torch.from_numpy(a).to(dev)
+                      for a in pack_group_mask_rows(bm.cpu().numpy()))
+        if G == 1:
+            g, w, ridx, rcnt, live = g[0], w[0], ridx[0], rcnt[0], live[0]
+        ref = torch.matmul(g.double(), torch.where(live, w.double(), 0.0).transpose(-1, -2))
+        rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+        base = rms(_bs_dx_plain(g, w, ridx, rcnt, 128, 128))
+        for n_split in (1, 2, 4):
+            got = rms(_bs_dx(g, w, ridx, rcnt, 128, 128, (128, 128, n_split),
+                             live=int(bm.sum())))
+            assert got <= 8 * base, (G, M, n_split, got, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bs_dx_nonfinite_g_reaches_only_the_blocks_that_read_it(dtype):
+    """An inf in g (row 9) inside an active N-block that some K-block rows
+    do not read, and a NaN in g's columns of an N-block no row reads (an
+    empty block column of w): K2 and K5, split and unsplit, leave every
+    dx element the plain version leaves finite finite (nothing reads an
+    inactive block, nothing multiplies its zero); in f32 they give the
+    plain version's +-inf and NaN in exactly its places: 3xTF32 walks such
+    a tile again with the exact split."""
+    from repro_torch.core.pack import pack_group_mask_rows
+
+    dev = _cuda()
+    g, w, _, _, live, _ = _bs_dx_problem((1, 48, 128, 256, 32, 32, ()), dtype, dev)
+    bm = live[::32, ::32].clone()
+    bm[:, 1] = False  # N-block 1: no K-block row reads it
+    w[:, 32:64] = 0
+    ridx, rcnt = (torch.from_numpy(a[0]).to(dev)
+                  for a in pack_group_mask_rows(bm[None].cpu().numpy()))
+    nb = int((bm.any(0) & (bm.sum(0) < bm.shape[0])).nonzero().flatten()[0])
+    g[9, nb * 32 + 5] = float("inf")
+    g[20, 32 + 3] = float("nan")
+    plain = tbsm.block_sparse_dx_plain(g, w, ridx, rcnt, 32, 32)
+    assert bool(torch.isinf(plain[9]).any()) and bool(torch.isfinite(plain[20]).all())
+    assert bool(torch.isfinite(plain[9][~bm[:, nb].repeat_interleave(32)]).all())
+    for plan in ((16, 64, 1), (16, 64, 3), (128, 64, 1), (128, 128, 2)):
+        for got in (tbsm.block_sparse_dx(g, w, ridx, rcnt, bm=16, bn=32, bk=32, plan=plan),
+                    tbsm.grouped_block_sparse_dx(g[None], w[None], ridx[None], rcnt[None],
+                                                 bm=16, bn=32, bk=32, plan=plan)[0]):
+            assert torch.equal(torch.isfinite(got), torch.isfinite(plain)), plan
+            if dtype == torch.float32:
+                assert torch.equal(torch.isnan(got), torch.isnan(plain)), plan
+                inf = torch.isinf(plain)
+                assert torch.equal(got[inf], plain[inf]), plan
+
+
+@pytest.mark.cuda
+def test_cuda_bs_dx_has_no_spill():
+    """No instantiation of K2/K5's kernel spills a register (read back from
+    the runtime), each holds at least as many CTAs an SM as the masked
+    dgrad's on the same tile (no mask stage), and its shared bytes are a
+    ring of at least two RowsA and n-major B stages plus the id list.  A
+    plan that is not built, or splits past FWD_MAX_SPLIT, raises."""
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        e = torch.finfo(dtype).bits // 8
+        for bm, bn in tmm.FWD_TILES:
+            info = tbsm.dx_launch_info(dtype, bm, bn, 54)
+            masked = tmm.fwd_launch_info(dtype, bm, bn, "dx")
+            assert info["spill_bytes"] == 0 and info["registers"] <= 255, (dtype, bm, bn, info)
+            assert info["ctas_per_sm"] >= masked["ctas_per_sm"], (dtype, bm, bn, info, masked)
+            stage = (bm + bn) * (32 + 16 // e) * e
+            ring = info["smem_bytes"] - 4 * 56
+            assert ring % stage == 0 and ring >= 2 * stage, (dtype, bm, bn, info)
+        g = torch.zeros(16, 256, device=dev, dtype=dtype)
+        w = torch.zeros(256, 256, device=dev, dtype=dtype)
+        ridx = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+        rcnt = torch.ones(2, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_dx(g, w, ridx, rcnt, bm=16, bn=128, bk=128, plan=(64, 64, 1))
+        with pytest.raises(ValueError, match="built tile"):
+            tbsm.block_sparse_dx(g, w, ridx, rcnt, bm=16, bn=128, bk=128,
+                                 plan=(16, 64, tmm.FWD_MAX_SPLIT + 1))
 
 
 @pytest.mark.cuda

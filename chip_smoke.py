@@ -357,6 +357,15 @@ def within(torch, got, want, bound):
     return bool((diff <= bound).all()), ratio, bound.float().mean().item()
 
 
+def within_tol(torch, tag, got, want, bound):
+    """``within``, raising where an element exceeds its bound: (max |got -
+    want|, the worst err/tol, the mean tolerance)."""
+    ok, ratio, tol = within(torch, got, want, bound)
+    if not ok:
+        raise AssertionError(f"{tag}: exceeds its bound ({ratio:.3g}x)")
+    return (got.float() - want.float()).abs().max().item(), ratio, tol
+
+
 def uniform_blocks(rng, K, N, blk, density=0.2):
     """A random block mask at ``density`` with column 1 empty."""
     import numpy as np
@@ -1270,15 +1279,18 @@ def masked_cases(torch, timer, mm, params, masks):
     within the bound, then timed), the f32 cases at 2048 rows against a
     float64 product (``f64_fidelity``), and the split merge of each split
     pick (``merge_case``); K15 likewise (its plan on rows K, contraction M,
-    columns N; its merge masks the ordered sum).  Bytes
-    count every input once (w and its 1-byte mask included) and every
-    output once; operations count the active weights' products (2 per
-    multiply-add).  Library: cuBLAS on the pre-masked weight (TF32 off)."""
+    columns N; its merge masks the ordered sum), and K19 with sr off (its
+    plan on the fused kernel's slots; its merge applies the momentum
+    epilogue to the ordered sum; the float64 reference the epilogue on a
+    float64 product).  Bytes count every input once (w and its 1-byte mask
+    included) and every output once; operations count the active weights'
+    products (2 per multiply-add).  Library: cuBLAS on the pre-masked
+    weight (TF32 off); K19's yardstick K15 then the SGD update."""
     from repro_torch.kernels.ops import _row_tile
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": [], "dx_merge": [],
-           "dw_merge": []}
+           "dw_merge": [], "dw_fused_merge": []}
     for label, sub, name in MASKED_PROJ:
         w = params["layers"][0][sub][name]["w"]
         m = masks["layers"][0][sub][name]["w"]
@@ -1290,11 +1302,7 @@ def masked_cases(torch, timer, mm, params, masks):
         awm = wm.float().abs()
         tag = f"layer0 {label} {str(dt)[6:]} K={K} N={N} density={nnz / (K * N):.3f}"
 
-        def within_(got, want, bound):
-            ok, ratio, tol = within(torch, got, want, bound)
-            if not ok:
-                raise AssertionError(f"{tag}: exceeds its bound ({ratio:.3g}x)")
-            return (got.float() - want.float()).abs().max().item(), ratio, tol
+        within_ = lambda got, want, bound: within_tol(torch, tag, got, want, bound)
 
         for M in (4, 2048):
             x = torch.randn(M, K, device="cuda").to(dt)
@@ -1380,6 +1388,8 @@ def masked_cases(torch, timer, mm, params, masks):
         acc = x.float().T @ g.float()
         kw = dict(mu=0.9, wd=1e-4, bn=128, bk=128)
         seed = 0x9E3779B9
+        unfused = lambda: (0.9 * mom.float() + mm.masked_dw(x, g, b, bn=128, bk=128).float()
+                           + 1e-4 * w.float()).to(dt)
         for sr in (False, True):
             fused = lambda: mm.masked_dw_fused(x, g, b, w, mom, seed, sr=sr, **kw)
             plain = lambda: mm.masked_dw_fused_plain(x, g, b, w, mom, seed, mu=0.9, wd=1e-4,
@@ -1400,10 +1410,14 @@ def masked_cases(torch, timer, mm, params, masks):
                                          "the kernel's own m_new, or off the bf16 grid")
                 return (got.float() - want.float()).abs().max().item(), 0.0, 0.0
 
-            out["K19"].append(kernel_case(
-                torch, timer, "K19", f"{tag} M={M} sr={sr} mom bf16",
-                fused, plain, None, check,
-                es * (M * K + M * N) + K * N * (1 + 2 * es + 2), 2.0 * M * bnnz, dt))
+            case = fused_case(torch, timer, "K19", f"{tag} M={M} sr={sr} mom bf16", fused,
+                              plain, unfused, check,
+                              es * (M * K + M * N) + K * N * (1 + 2 * es + 2),
+                              2.0 * M * bnnz, dt)
+            if not sr:
+                out["dw_fused_merge"] += fused_sweep(
+                    torch, timer, mm, case, x, g, b, w, mom, seed, acc, absp, dt, "K19 " + tag)
+            out["K19"].append(case)
     return out
 
 
@@ -1483,19 +1497,34 @@ def f64_fidelity(torch, tag, run, plain, ref):
     return got / base
 
 
-def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=None):
+def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=None,
+               fused=None):
     """The split merge (sum of n_split f32 partials in order, one rounding)
     at a split pick's shape (G, Mp rows, N columns), after ``entry``'s
     kernel (``mm.fwd_merge``, ``mm.dx_merge``, ``mm.dw_merge``, which
-    multiplies the sum by the wgrad's ``mask``, after K1/K4 ("bs_fwd")
-    ``bs_fwd_merge``, after K2/K5 ("bs_dx") ``bs_dx_merge``): bit for bit
-    its plain version, timed beside its byte
-    bound and torch.sum over the split axis (times the mask)."""
+    multiplies the sum by the wgrad's ``mask``, ``mm.dw_fused_merge``
+    after K19/K20 ("dw_fused"), which applies the momentum epilogue with
+    ``fused`` = (w, mom, seed, mu, wd, sr) and the wgrad ``mask``, after
+    K1/K4 ("bs_fwd") ``bs_fwd_merge``, after K2/K5 ("bs_dx")
+    ``bs_dx_merge``): bit for bit its plain version, timed beside its byte
+    bound and torch.sum over the split axis (then the mask, or the
+    epilogue without sr)."""
     from repro_torch.kernels import block_sparse_matmul as bsm
 
     part = torch.randn(n_split, G, Mp, N, device="cuda")
     out = torch.empty(G, Mp, N, dtype=dt, device="cuda")
-    if entry == "dw":
+    plain = lambda: mm.fwd_merge_plain(part, dt, mask)
+    extra = 0
+    if entry == "dw_fused":
+        mask = mask.reshape(G, Mp, N)
+        w, mom, seed, mu, wd, sr = fused
+        w, mom = w.reshape(G, Mp, N), mom.reshape(G, Mp, N)
+        merge = lambda p, o: mm.dw_fused_merge(p, mask, w, mom, o, seed, mu=mu, wd=wd, sr=sr)
+        plain = lambda: mm.masked_dw_fused_merge_plain(part, mask, w, mom, seed, mu=mu, wd=wd,
+                                                       sr=sr, out_dtype=dt)
+        library = lambda: ((mu * mom.float() + part.sum(0) + wd * w.float()) * mask).to(dt)
+        extra = w.numel() * (w.element_size() + mom.element_size())
+    elif entry == "dw":
         mask = mask.reshape(G, Mp, N)
         merge = lambda p, o: mm.dw_merge(p, mask, o)
         library = lambda: (part.sum(0) * mask).to(dt)
@@ -1503,7 +1532,6 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
         merge = {"fwd": mm.fwd_merge, "dx": mm.dx_merge, "bs_fwd": bsm.bs_fwd_merge,
                  "bs_dx": bsm.bs_dx_merge}[entry]
         library = lambda: part.sum(0).to(dt)
-    plain = lambda: mm.fwd_merge_plain(part, dt, mask)
 
     def check():
         got, want = merge(part, out), plain()
@@ -1511,19 +1539,19 @@ def merge_case(torch, timer, mm, n_split, G, Mp, N, dt, tag, entry="fwd", mask=N
             raise AssertionError(f"{entry} merge {tag}: differs from the ordered plain sum")
         return 0.0, 0.0, 0.0
 
-    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge", "bs_fwd": "bs fwd merge",
-             "bs_dx": "bs dx merge"}[entry]
+    label = {"fwd": "merge", "dx": "dx merge", "dw": "dw merge", "dw_fused": "dw fused merge",
+             "bs_fwd": "bs fwd merge", "bs_dx": "bs dx merge"}[entry]
     n_bytes = 4 * part.numel() + out.element_size() * out.numel() + (
-        0 if mask is None else mask.numel())
+        0 if mask is None else mask.numel()) + extra
     return kernel_case(torch, timer, label, f"{tag} n_split={n_split}",
                        lambda: merge(part, out), plain, library, check, n_bytes, 0.0, dt)
 
 
 def planned_merges(torch, mm, cfg, layer, Mp, entry="fwd"):
-    """Split merges of one layer's 7 K13 (``entry`` "fwd"), K14 ("dx") or
-    K15 ("dw") launches at Mp padded rows: each projection's plan
-    (attention in the compute dtype, the MLP or shared MLP in f32, as the
-    model calls them) splits or not."""
+    """Split merges of one layer's 7 K13 (``entry`` "fwd"), K14 ("dx"), K15
+    ("dw") or K19 ("dw_fused") launches at Mp padded rows: each
+    projection's plan (attention in the compute dtype, the MLP or shared
+    MLP in f32, as the model calls them) splits or not."""
     from repro_torch.models.layers import compute_dtype
 
     mlp = layer["mlp"] if "mlp" in layer else layer["moe"]["shared"]
@@ -1533,16 +1561,16 @@ def planned_merges(torch, mm, cfg, layer, Mp, entry="fwd"):
     _, bn, bk = cfg.sparse.kernel_block
     if entry == "fwd":
         return sum(mm._fwd_plan_for(Mp, K, N, 1, dt, bn, dev)[2] > 1 for (K, N), dt in shapes)
-    if entry == "dw":
-        return sum(mm._fwd_plan_for(K, Mp, N, 1, dt, bn, dev, "dw")[2] > 1
+    if entry in mm.WGRADS:
+        return sum(mm._fwd_plan_for(K, Mp, N, 1, dt, bn, dev, entry)[2] > 1
                    for (K, N), dt in shapes)
     return sum(mm._fwd_plan_for(Mp, N, K, 1, dt, bk, dev, "dx")[2] > 1 for (K, N), dt in shapes)
 
 
 def bank_merges(torch, mm, cfg, layer, tokens, entry="dx"):
-    """Split merges of one MoE layer's 3 K17 (``entry`` "dx") or K18 ("dw")
-    launches (wi, wg, wo) on a microbatch of ``tokens`` tokens: each bank's
-    plan at the capacity's padded rows."""
+    """Split merges of one MoE layer's 3 K17 (``entry`` "dx"), K18 ("dw")
+    or K20 ("dw_fused") launches (wi, wg, wo) on a microbatch of ``tokens``
+    tokens: each bank's plan at the capacity's padded rows."""
     from repro_torch.kernels.ops import _row_tile
     from repro_torch.models.moe import capacity
 
@@ -1550,8 +1578,8 @@ def bank_merges(torch, mm, cfg, layer, tokens, entry="dx"):
     dev = torch.cuda.current_device()
     _, bn, bk = cfg.sparse.kernel_block
     banks = [(w.shape, w.dtype) for w in (layer["moe"][b]["w"] for b in MOE_BANKS)]
-    if entry == "dw":
-        return sum(mm._fwd_plan_for(K, Mp, N, G, dt, bn, dev, "dw")[2] > 1
+    if entry in mm.WGRADS:
+        return sum(mm._fwd_plan_for(K, Mp, N, G, dt, bn, dev, entry)[2] > 1
                    for (G, K, N), dt in banks)
     return sum(mm._fwd_plan_for(Mp, N, K, G, dt, bk, dev, "dx")[2] > 1 for (G, K, N), dt in banks)
 
@@ -1877,7 +1905,8 @@ def fused_train(torch, mm):
     state (in-kernel stochastic rounding), ``sparse.fused_epilogue``,
     masked RigL, batch 2 x 1024 in one microbatch, 2 steps beside unfused
     ones (``fused_steps``): 336 K13, 168 K14 and their planned dx merges,
-    168 K19 and no K15 launch or dw merge per fused step."""
+    168 K19 and their planned fused merges, and no K15 launch or dw merge
+    per fused step."""
     from repro_torch.training.steps import init_train_state
 
     cfg = masked_config(fused_epilogue=True)
@@ -1885,16 +1914,18 @@ def fused_train(torch, mm):
     counters = (("masked_fwd", mm, "launches"), ("masked_dx", mm, "dx_launches"),
                 ("masked_dx_merge", mm, "dx_merge_launches"),
                 ("masked_dw", mm, "dw_launches"), ("masked_dw_merge", mm, "dw_merge_launches"),
-                ("masked_dw_fused", mm, "fused_launches"))
+                ("masked_dw_fused", mm, "fused_launches"),
+                ("masked_dw_fused_merge", mm, "dw_fused_merge_launches"))
     n_proj = 7 * cfg.n_layers
-    dx_merges = cfg.n_layers * planned_merges(torch, mm, cfg, state["params"]["layers"][0],
-                                              MASKED_BATCH * TRAIN_SEQ, "dx")
-    dw_merges = cfg.n_layers * planned_merges(torch, mm, cfg, state["params"]["layers"][0],
-                                              MASKED_BATCH * TRAIN_SEQ, "dw")
-    want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dx_merge": dx_merges,
-            "masked_dw": 0, "masked_dw_merge": 0, "masked_dw_fused": n_proj}
+    merges = {e: cfg.n_layers * planned_merges(torch, mm, cfg, state["params"]["layers"][0],
+                                               MASKED_BATCH * TRAIN_SEQ, e)
+              for e in ("dx", "dw", "dw_fused")}
+    want = {"masked_fwd": 2 * n_proj, "masked_dx": n_proj, "masked_dx_merge": merges["dx"],
+            "masked_dw": 0, "masked_dw_merge": 0, "masked_dw_fused": n_proj,
+            "masked_dw_fused_merge": merges["dw_fused"]}
     return fused_steps(torch, cfg, state, counters, want, "fused train",
-                       unfused_merges={"masked_dw_merge": dw_merges})
+                       unfused_merges={"masked_dw_merge": merges["dw"],
+                                       "masked_dw_fused_merge": 0})
 
 
 def fused_case(torch, timer, kernel, label, run, plain, unfused, check, n_bytes, flops,
@@ -1908,6 +1939,41 @@ def fused_case(torch, timer, kernel, label, run, plain, unfused, check, n_bytes,
     case["unfused_ms"] = timer(unfused)
     print(kernel, "unfused", json.dumps({"case": label, "unfused_ms": case["unfused_ms"]}))
     return case
+
+
+def fused_sweep(torch, timer, mm, case, x, g, wgm, w, mom, seed, acc, absp, dt, tag,
+                bn=128, bk=128):
+    """K19 (x (M, K)) or K20 (x (G, M, K)) with sr off under every candidate
+    plan (``fwd_sweep`` with ``entry="dw_fused"``: each plan within
+    ``mm.fused_error_bound`` of the plain version, then timed), added to
+    ``case``; the f32 cases' RMS error against the epilogue on a float64
+    product over the plain version's (``f64_fidelity``); returns the fused
+    merge's case (``merge_case``) where the pick splits."""
+    grouped = x.dim() == 3
+    M, K, N = x.shape[-2], x.shape[-1], g.shape[-1]
+    G = x.shape[0] if grouped else 1
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD, sr=False, bn=bn, bk=bk)
+    fn = mm.grouped_masked_dw_fused if grouped else mm.masked_dw_fused
+    plain = lambda: mm.masked_dw_fused_plain(x, g, wgm, w, mom, seed, mu=FUSED_MU,
+                                             wd=FUSED_WD, sr=False)
+    want = plain()
+    bound = mm.fused_error_bound(want, absp, M, FUSED_MU, FUSED_WD, mom, w, acc, wgm)
+    case.update(fwd_sweep(torch, timer, mm, lambda plan: fn(x, g, wgm, w, mom, seed, plan=plan,
+                                                            **kw),
+                          K, M, N, G, dt, case, entry="dw_fused", bn_limit=bn,
+                          check=lambda got: within_tol(torch, tag, got, want, bound)))
+    case["dense_tflop_s"] = 2.0 * G * M * K * N / case["ms"] / 1e9
+    del want, bound
+    if dt == torch.float32:
+        case["f64_rms_over_plain"] = f64_fidelity(
+            torch, tag, lambda: fn(x, g, wgm, w, mom, seed, **kw), plain,
+            lambda: (FUSED_MU * mom.double() + x.double().transpose(-1, -2) @ g.double()
+                     + FUSED_WD * w.double()) * wgm)
+    print(tag, "plans", json.dumps(case))
+    if case["plan"][2] == 1:
+        return []
+    return [merge_case(torch, timer, mm, case["plan"][2], G, K, N, dt, tag, entry="dw_fused",
+                       mask=wgm, fused=(w, mom, seed, FUSED_MU, FUSED_WD, True))]
 
 
 def fused_checks(torch, tag, run, plain, raw, gid, support, bound):
@@ -2016,14 +2082,16 @@ def k19_moe_cases(torch, timer, mm, state, cfg, M=2048):
     """K19 against its plain version on the fused masked MoE path's own
     layer 0 (``MOE_FUSED_PROJ``: attn.wq in bf16, the shared MLP's wi and wo
     in f32) on their Top-KAST supersets, at the microbatch's 2048 rows, sr
-    off and on, bf16 mom; checks in ``fused_checks``.  Bytes and
-    operations as ``masked_cases``' K19; yardstick K15 then the SGD
-    update."""
+    off and on, bf16 mom; checks in ``fused_checks``; sr off also under
+    every candidate plan, with the f32 cases' float64 fidelity
+    (``fused_sweep``).  Bytes and operations as ``masked_cases``' K19;
+    yardstick K15 then the SGD update.  Returns (the cases, the fused
+    merges of split picks)."""
     blk = cfg.sparse.kernel_block[2]
     gen = torch.Generator(device="cuda").manual_seed(19)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     kw = dict(mu=FUSED_MU, wd=FUSED_WD, bn=blk, bk=blk)
-    out = []
+    out, merges = [], []
     for label, path, dname in MOE_FUSED_PROJ:
         dt = getattr(torch, dname)
         w = leaf(state["params"]["layers"][0], path)["w"].to(dt)
@@ -2051,7 +2119,10 @@ def k19_moe_cases(torch, timer, mm, state, cfg, M=2048):
             out.append(fused_case(
                 torch, timer, "K19", tag, run, plain, unfused, check,
                 es * (M * K + M * N) + K * N * (1 + 2 * es + 2), 2.0 * M * bnnz, dt))
-    return out
+            if not sr:
+                merges += fused_sweep(torch, timer, mm, out[-1], x, g, b, w, mom, FUSED_SEED,
+                                      acc, absp, dt, tag, bn=blk, bk=blk)
+    return out, merges
 
 
 def fused_bs_config():
@@ -3406,12 +3477,14 @@ def k20_cases(torch, timer, bsm, mm, state, cfg):
     """K20 against its plain version on the fused masked path's banks:
     layer 0's elementwise ERK masks' Top-KAST supersets, wi and wo, C = 171
     (-> 256) and 16 rows, f32 and bf16, sr off and on, bf16 mom; checks in
-    ``fused_checks``.  Bytes on the C rows as K19's: x and g once, and per
-    weight its 1-byte mask, w, mom and m_new; operations 2 C per superset
-    weight.  Yardstick: K18 then the SGD update."""
+    ``fused_checks``; sr off also under every candidate plan, with the f32
+    cases' float64 fidelity (``fused_sweep``).  Bytes on the C rows as
+    K19's: x and g once, and per weight its 1-byte mask, w, mom and m_new;
+    operations 2 C per superset weight.  Yardstick: K18 then the SGD
+    update.  Returns (the cases, the fused merges of split picks)."""
     blk = cfg.sparse.kernel_block[2]
     kw = dict(mu=FUSED_MU, wd=FUSED_WD)
-    out = []
+    out, merges = [], []
     for bank in ("wi", "wo"):
         w32 = state["params"]["layers"][0]["moe"][bank]["w"]
         b = state["bwd_masks"]["layers"][0]["moe"][bank]["w"]
@@ -3446,30 +3519,55 @@ def k20_cases(torch, timer, bsm, mm, state, cfg):
                         torch, timer, "K20", tag, run, plain, unfused, check,
                         es * (G * C * K + G * C * N) + G * K * N * (1 + 2 * es + 2),
                         2.0 * C * bnnz, dt))
-    return out
+                    if not sr:
+                        merges += fused_sweep(
+                            torch, timer, mm, out[-1], x, g, b, w, mom, FUSED_SEED, acc, absp,
+                            dt, tag, bn=blk, bk=blk)
+    return out, merges
 
 
 def k8_equals_k20(torch, bsm, mm, state, cfg):
-    """K8 and K20 bit for bit on one block-aligned mask with sr on: layer
-    0's wi bank superset (the block-sparse path's masks are block-aligned),
-    f32, C = 171 -> 256 rows; K20 multiplies by its mask, so a negative
-    m_new off the support is -0.0 there (+ 0.0 maps it to 0.0)."""
+    """K8 and K20 on one block-aligned mask, the same inputs: layer 0's wi
+    bank superset (the block-sparse path's masks are block-aligned), f32, C
+    = 171 -> 256 rows.  K8 sums in FFMA on the tile layer and K20 in 3xTF32
+    on the GEMM core, so their bits may differ: each is held, sr off,
+    within ``mm.fused_error_bound`` of the same plain version and, sr on,
+    bit for bit ``sr_to_bf16`` of its own f32 m_new; both have the same
+    zeros (sr on); max |K8 - K20| is printed.  Returns the comparison."""
     blk = cfg.sparse.kernel_block[2]
     w = state["params"]["layers"][0]["moe"]["wi"]["w"]
     b = state["bwd_masks"]["layers"][0]["moe"]["wi"]["w"]
     e = state["pack"]["layers"][0]["moe"]["wi"]["w"]
     G, K, N = w.shape
-    _, _, _, g = grouped_rows(torch, G, MOE_ROWS[0], N, w.dtype)
+    _, Mp, _, g = grouped_rows(torch, G, MOE_ROWS[0], N, w.dtype)
     _, _, _, x = grouped_rows(torch, G, MOE_ROWS[0], K, w.dtype)
     mom = (0.01 * torch.randn(G, K, N, device="cuda") * b).to(torch.bfloat16)
-    kw = dict(mu=FUSED_MU, wd=FUSED_WD, sr=True, bn=blk, bk=blk)
-    k8 = bsm.grouped_block_sparse_dw_fused(x, g, e["bidx"], e["bcnt"], w, mom, FUSED_SEED, **kw)
-    k20 = mm.grouped_masked_dw_fused(x, g, b, w, mom, FUSED_SEED, **kw)
-    same = torch.equal(k8.view(torch.int32), (k20 + 0.0).view(torch.int32))
-    print(f"moe fused train: K8 and K20 on layer 0's wi superset (sr on): bit for bit "
-          f"{same}; {int(b.sum())} weights, {int((k8 != 0).sum())} nonzero")
-    if not same:
-        raise AssertionError("K8 and K20 differ on a block-aligned mask")
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD, bn=blk, bk=blk)
+    runs = {"K8": lambda sr, o=None: bsm.grouped_block_sparse_dw_fused(
+                x, g, e["bidx"], e["bcnt"], w, mom, FUSED_SEED, sr=sr, out_dtype=o, **kw),
+            "K20": lambda sr, o=None: mm.grouped_masked_dw_fused(
+                x, g, b, w, mom, FUSED_SEED, sr=sr, out_dtype=o, **kw)}
+    want = mm.grouped_masked_dw_fused_plain(x, g, b, w, mom, FUSED_SEED, mu=FUSED_MU,
+                                            wd=FUSED_WD, sr=False)
+    xt = x.float().transpose(1, 2)
+    bound = mm.fused_error_bound(want, torch.bmm(xt.abs(), g.float().abs()), Mp, FUSED_MU,
+                                 FUSED_WD, mom, w, torch.bmm(xt, g.float()), b)
+    gid = mm._gid(K, N, "cuda", G=G)
+    res, sr_out = {}, {}
+    for name, run in runs.items():
+        ok, ratio, _ = within(torch, run(False), want, bound)
+        sr_out[name] = run(True)
+        bits = torch.equal(sr_out[name].float(),
+                           mm.sr_to_bf16(run(False, torch.float32), FUSED_SEED, gid))
+        res[name] = {"within_bound": ok, "err_over_tol": ratio, "sr_bit_for_bit": bits}
+    res["same_zeros"] = torch.equal(sr_out["K8"] == 0, sr_out["K20"] == 0)
+    res["max_abs_k8_minus_k20"] = (sr_out["K8"].float() - sr_out["K20"].float()).abs().max().item()
+    res["nonzero"] = int((sr_out["K8"] != 0).sum())
+    print("moe fused train: K8 and K20 on layer 0's wi superset:", json.dumps(res))
+    if not (all(res[k]["within_bound"] and res[k]["sr_bit_for_bit"] for k in runs)
+            and res["same_zeros"]):
+        raise AssertionError(f"K8 and K20 on a block-aligned mask: {res}")
+    return res
 
 
 def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
@@ -3484,8 +3582,9 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     K1, 21 K2, 21 K7, 18 K4, 9 K5, 9 K8 (and the planned split merges of
     K1/K4 and K2/K5), no K3 or K6 (block_sparse), or 42
     K13, 21 K14, 21 K19, 18 K16, 9 K17, 9 K20, no K15 or K18 (masked), and
-    6/3/3 K9-K11 per fused step.  Returns (stats, launches, the bank
-    kernel's cases, the 2-D kernel's cases)."""
+    6/3/3 K9-K11 per fused step, and the planned fused merges of K19/K20
+    (masked).  Returns (stats, launches, the bank kernel's cases, the 2-D
+    kernel's cases, the fused merges' cases)."""
     from repro_torch.training.steps import init_train_state
 
     bs = kernel == "block_sparse"
@@ -3493,14 +3592,16 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     cfg = dataclasses.replace(cfg, microbatches=1, sparse=dataclasses.replace(
         cfg.sparse, fused_epilogue=True))
     state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
+    merges = []
     if bs:
         cases = k8_cases(torch, timer, bsm, state, cfg)
-        k8_equals_k20(torch, bsm, mm, state, cfg)
+        k8_k20 = k8_equals_k20(torch, bsm, mm, state, cfg)
         cases_2d = k7_cases(torch, timer, bsm, state, cfg, proj=MOE_FUSED_PROJ, rows=(2048,),
                             moms=("bfloat16",), model="qwen2-moe")
     else:
-        cases = k20_cases(torch, timer, bsm, mm, state, cfg)
-        cases_2d = k19_moe_cases(torch, timer, mm, state, cfg)
+        cases, merges = k20_cases(torch, timer, bsm, mm, state, cfg)
+        cases_2d, merges_2d = k19_moe_cases(torch, timer, mm, state, cfg)
+        merges += merges_2d
     mod, fam = (bsm, "block_sparse") if bs else (mm, "masked")
     counters = ((f"{fam}_fwd", mod, "launches"), (f"{fam}_dx", mod, "dx_launches"),
                 (f"{fam}_dw", mod, "dw_launches"), (f"{fam}_dw_fused", mod, "fused_launches"),
@@ -3523,16 +3624,18 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
                     "block_sparse_dx_merge": bs_merges(torch, cfg, state, tokens, "bs_dx"),
                     "block_sparse_dw_merge": 0}
         dw_merge = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens)}
-    else:  # K14's and K17's planned split merges (one microbatch); K15's and
-        # K18's in the unfused step only
+    else:  # K14's and K17's planned split merges (one microbatch), K19's and
+        # K20's in the fused step only, K15's and K18's in the unfused step only
         tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
         counters += (("masked_dx_merge", mm, "dx_merge_launches"),
-                     ("masked_dw_merge", mm, "dw_merge_launches"))
-        dx_merge = {"masked_dx_merge": L * (planned_merges(torch, mm, cfg, layer0, tokens, "dx")
-                                            + bank_merges(torch, mm, cfg, layer0, tokens)),
-                    "masked_dw_merge": 0}
-        dw_merge = {"masked_dw_merge": L * (planned_merges(torch, mm, cfg, layer0, tokens, "dw")
-                                            + bank_merges(torch, mm, cfg, layer0, tokens, "dw"))}
+                     ("masked_dw_merge", mm, "dw_merge_launches"),
+                     ("masked_dw_fused_merge", mm, "dw_fused_merge_launches"))
+        n = {e: L * (planned_merges(torch, mm, cfg, layer0, tokens, e)
+                     + bank_merges(torch, mm, cfg, layer0, tokens, e))
+             for e in ("dx", "dw", "dw_fused")}
+        dx_merge = {"masked_dx_merge": n["dx"], "masked_dw_merge": 0,
+                    "masked_dw_fused_merge": n["dw_fused"]}
+        dw_merge = {"masked_dw_merge": n["dw"], "masked_dw_fused_merge": 0}
         del layer0
     # remat reruns each block's forward in the backward: the forward
     # kernels launch twice
@@ -3547,7 +3650,9 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     stats["layers"] = L
     stats["peak_gib"] = max(r[f"{k}_peak_gib"] for r in stats["steps"]
                             for k in ("fused", "unfused"))
-    return stats, launches, cases, cases_2d
+    if bs:
+        stats["k8_vs_k20"] = k8_k20
+    return stats, launches, cases, cases_2d, merges
 
 
 # ---------------------------------------------------------------------------
@@ -3999,13 +4104,14 @@ def main() -> int:
     moe_mtrain_stats, moe_mtrain_launches, k1718 = moe_train(torch, timer, bsm, mm, fa,
                                                              "masked")
     done("moe masked train, parity K17, K18")
-    moe_fused_stats, moe_fused_launches, k8, k7_moe = moe_fused_train(
+    moe_fused_stats, moe_fused_launches, k8, k7_moe, _ = moe_fused_train(
         torch, timer, bsm, mm, fa, "block_sparse")
     k7 += k7_moe
-    done("moe fused train, parity K8, K8 = K20, K7")
-    moe_mfused_stats, moe_mfused_launches, k20, k19_moe = moe_fused_train(
+    done("moe fused train, parity K8, K8 vs K20, K7")
+    moe_mfused_stats, moe_mfused_launches, k20, k19_moe, k20_merges = moe_fused_train(
         torch, timer, bsm, mm, fa, "masked")
     mcases["K19"] += k19_moe
+    mcases["dw_fused_merge"] += k20_merges
     done("moe masked fused train, parity K20, K19")
     from repro_torch.kernels import ops
     from repro_torch.kernels import topk_threshold as tk
@@ -4103,6 +4209,11 @@ def main() -> int:
                    kern + "masked_matmul.py:115", dw_merges)] if dw_merges else []),
         summary("masked_dw_fused", csrc + "masked_matmul.cu", kern + "masked_matmul.py:498",
                 mcases["K19"]),
+        # K19's and K20's split merge (masked_merge_kernel with the momentum
+        # epilogue), where a timed case's plan splits
+        *([summary("masked_dw_fused_merge", csrc + "masked_matmul.cu",
+                   kern + "masked_matmul.py:498", mcases["dw_fused_merge"])]
+          if mcases["dw_fused_merge"] else []),
         summary("paged_flash_fwd", csrc + "flash_paged.cu", kern + "flash_attention.py:317",
                 k12),
         summary("grouped_block_sparse_fwd", csrc + "block_sparse_grouped.cu",

@@ -108,6 +108,7 @@
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm_launch.cuh"
+#include "tile_mma.cuh"  // K7/K8 (the fused wgrad) only
 
 namespace {
 

@@ -1,11 +1,12 @@
 // A CTA-level GEMM main loop on mma.sync with register-resident
 // accumulators: the core of the masked forward (K13, and K16 with the
 // bank's group as grid dim z), the masked dgrad (K14, and K17 likewise),
-// the masked wgrad (K15, and K18 likewise), the block-sparse wgrad (K3,
-// and K6 likewise: block_sparse_bwd.cuh), the block-sparse forward (K1,
-// and K4 likewise: block_sparse_fwd.cuh) and the block-sparse dgrad (K2,
-// and K5 likewise: block_sparse_bwd.cuh), built so that the other matmul
-// kernels can move onto it one by one.
+// the masked wgrad (K15, and K18 likewise) and its fused SGD epilogue (K19,
+// and K20 likewise: masked_matmul.cu), the block-sparse wgrad (K3, and K6
+// likewise: block_sparse_bwd.cuh), the block-sparse forward (K1, and K4
+// likewise: block_sparse_fwd.cuh) and the block-sparse dgrad (K2, and K5
+// likewise: block_sparse_bwd.cuh), built so that the other matmul kernels
+// can move onto it one by one.
 //
 // A CTA owns one BM x BN tile of C = A @ B, A (rows x L), and walks the
 // contraction dim L in slabs of kSlab = 32.  A slab map gives slab t's
@@ -24,10 +25,10 @@
 // A is staged by one of two policies:
 //  * RowsA (K13, K14, K16, K17, K1, K4, K2, K5): A (rows x L) row-major: a
 //    slab is BM A rows of kSlab contraction elements.
-//  * ColsA (K15, K18, K3, K6): A = x^T, x (L x rows) row-major: a slab is
-//    kSlab x rows of BM elements each, staged as they lie (no transpose through
-//    registers or scalar stores); ldmatrix.trans (bf16) or scalar loads
-//    (f32) read the fragments.
+//  * ColsA (K15, K18, K19, K20, K3, K6): A = x^T, x (L x rows) row-major: a
+//    slab is kSlab x rows of BM elements each, staged as they lie (no
+//    transpose through registers or scalar stores); ldmatrix.trans (bf16)
+//    or scalar loads (f32) read the fragments.
 // B by one of four:
 //  * MaskedRowsB (K13, K16): B = w * m, w (L x cols) row-major: a slab is
 //    kSlab w rows of BN columns.
@@ -37,9 +38,9 @@
 //  * DenseColsB (K2, K5): B = w^T, w (cols x L) row-major, staged as
 //    MaskedColsB stages it with no mask (the block-sparse dgrad's CSR list
 //    decides which N-blocks of w's rows are read).
-//  * DenseRowsB (K15, K18, K3, K6; K1, K4 with B = w): B = g (L x cols)
-//    row-major, staged as MaskedRowsB stages w, with no mask (the masked
-//    wgrad's mask multiplies the sum at the store, outside this header; the
+//  * DenseRowsB (K15, K18, K19, K20, K3, K6; K1, K4 with B = w): B = g (L x
+//    cols) row-major, staged as MaskedRowsB stages w, with no mask (the
+//    masked wgrads apply their mask at the store, outside this header; the
 //    block-sparse forward's pack decides which rows of w are read).
 // Rows, columns and L past their extents are zero-filled by the copies and
 // never stored, so no extent has to be a multiple of a tile (cols, and
@@ -105,8 +106,9 @@
 // on the same inputs give the same bits.
 //
 // What the later matmul kernels need and this header does not build yet:
-// the fused SGD wgrad (K19, K20, and K7, K8 over the packed blocks) runs
-// the same walk as K15, K18, K3 and K6 and differs only at the store.
+// the block-sparse fused SGD wgrad (K7, K8) runs the same walk as K3 and
+// K6 and differs only at the store, as K19/K20 differ from K15/K18 (an
+// epilogue policy of masked_matmul.cu's kernel).
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -670,9 +672,11 @@ __device__ __forceinline__ void walk(Warp<C>& warp, const typename C::Type* a, i
 }
 
 // st(row, col, v0, v1) for this thread's fragment pairs (col even; v1 at
-// col + 1) inside rows x cols, the CTA tile at (m0, n0).
+// col + 1) inside rows x cols, the CTA tile at (m0, n0); v0 and v1 are the
+// accumulators themselves where st takes them by reference (K19/K20 fold
+// the momentum into them before their store).
 template <class C, class Store>
-__device__ __forceinline__ void store(const Warp<C>& warp, int rows, int cols, int m0, int n0,
+__device__ __forceinline__ void store(Warp<C>& warp, int rows, int cols, int m0, int n0,
                                       Store st) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;

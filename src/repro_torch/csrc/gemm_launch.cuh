@@ -1,5 +1,5 @@
 // The launch side of the GEMM core (gemm_core.cuh), shared by the kernels
-// built on it: the masked matmuls K13-K18 (masked_matmul.cu), the
+// built on it: the masked matmuls K13-K20 (masked_matmul.cu), the
 // block-sparse wgrad K3/K6 and dgrad K2/K5 (block_sparse_bwd.cuh, in
 // block_sparse_bwd.cu and block_sparse_grouped.cu) and the block-sparse
 // forward K1/K4 (block_sparse_fwd.cuh, in block_sparse_fwd.cu and

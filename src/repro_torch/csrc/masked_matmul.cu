@@ -22,64 +22,69 @@
 //                                                   bank, one launch
 // m is a bool (one byte, 0 or 1) mask of w's shape (K, N): any pattern.
 //
-// Design.  The masked weight never exists in device memory: each kernel
-// stages a slab of w and the same slab of m and multiplies them in shared
-// memory (v * float(m), as the reference's w * m.astype(w.dtype): an inf or
-// NaN weight under a zero mask gives NaN).  No atomics, every sum in a
-// fixed order.
-//  * K13, K14, K15 and their grouped twins K16, K17, K18 run one kernel
-//    body, masked_gemm_kernel, on the register-resident GEMM core
-//    (gemm_core.cuh): a cp.async ring of (A, B, mask) slabs of 32,
-//    mma.sync m16n8k16 for bf16 and 3xTF32 m16n8k8 for f32 (f32's digits
-//    on the tensor cores), accumulators in registers, one rounding at the
-//    store.  The forward (A = x, L = K, cols = N) stages w's rows as B
-//    (gemm::MaskedRowsB); the dgrad (A = g, L = N, cols = K) stages the w
-//    rows of dx's columns as they lie (gemm::MaskedColsB): w's contiguous
-//    axis is the contraction, so the slab is already mma.sync's n-major B
-//    operand, read by ldmatrix without .trans (f32: on 32-bit pairs), and
-//    nothing is transposed.  Both apply the mask in place, in shared
-//    memory, by the thread that copied the chunk.  The wgrad (A = x^T,
-//    rows = K, L = Mp, cols = N) stages x's rows as they lie
+// Design.  The masked weight never exists in device memory: the forward and
+// the dgrad stage a slab of w and the same slab of m and multiply them in
+// shared memory (v * float(m), as the reference's w * m.astype(w.dtype): an
+// inf or NaN weight under a zero mask gives NaN).  No atomics, every sum in
+// a fixed order.
+//  * All eight run one kernel body, masked_gemm_kernel, on the
+//    register-resident GEMM core (gemm_core.cuh): a cp.async ring of (A, B,
+//    mask) slabs of 32, mma.sync m16n8k16 for bf16 and 3xTF32 m16n8k8 for
+//    f32 (f32's digits on the tensor cores), accumulators in registers, one
+//    rounding at the store.  The forward (A = x, L = K, cols = N) stages w's
+//    rows as B (gemm::MaskedRowsB); the dgrad (A = g, L = N, cols = K)
+//    stages the w rows of dx's columns as they lie (gemm::MaskedColsB): w's
+//    contiguous axis is the contraction, so the slab is already mma.sync's
+//    n-major B operand, read by ldmatrix without .trans (f32: on 32-bit
+//    pairs), and nothing is transposed.  Both apply the mask in place, in
+//    shared memory, by the thread that copied the chunk.  The wgrads (A =
+//    x^T, rows = K, L = Mp, cols = N) stage x's rows as they lie
 //    (gemm::ColsA: ldmatrix.trans reads A) and g's rows as a dense B
-//    (gemm::DenseRowsB), and multiplies the f32 sum by the mask at the
-//    store (acc * float(m), as the reference's acc * m.astype(f32): an inf
-//    or NaN sum under a zero mask gives NaN), from the tile's mask bytes
-//    that the CTA copies into shared memory ahead of its walk (read at the
-//    store they add a memory round trip after the walk: 0.95 against 0.52
-//    ms at qwen2-moe's 16-row banks on an H100, PERF.md).  One CTA per
-//    (BM-row tile, BN-column tile, group x split), the forward's and the
-//    wgrad's grids
-//    walking column tiles fastest, the dgrad's row tiles (the row tiles
-//    that read one w tile run side by side: a bank's tile comes from HBM
-//    about once).  The host plan (kernels/masked_matmul.py::fwd_plan, one
-//    plan for the three directions on (rows, contraction, cols)) picks the
-//    tile and splits the contraction into n_split whole-slab parts where
-//    the grid alone would leave the SMs' resident slots empty (decode) or
-//    its last wave mostly idle; a split stores f32 partials into a
-//    workspace (n_split, G, rows, cols), unmasked for the wgrad, and
-//    masked_merge_kernel (masked_dw_merge_kernel: then times the mask
-//    byte) sums them in split order and rounds once.  K16, K17 and K18 are
-//    K13, K14 and K15 with the bank's group in grid dim z (K13-K15 are the
-//    bank of one).
-//  * K19 and its grouped twin K20 still run on the tile layer
-//    (tile_mma.cuh: wmma for bf16, full-precision FFMA for f32) and apply
-//    the mask at the store: one CTA per (bk x bn) tile of m_new, looping
-//    over all M rows in one CTA (the TPU kernel carried the sum across its
-//    innermost grid axis); K20 is K19 with the bank's group as the grid's
-//    third dimension.  A fully masked expert reads its zero mask like any
-//    other: zero dx rows and a zero dw or m_new, no empty sum.
-// K19/K20's epilogue (epilogue.cuh, shared with K7/K8) reads mom and w at
-// the store; with sr it hashes the element's id gid = (g * K + row) * N +
-// col (wrapping uint32; K and N are the padded extents the wrapper hands
-// in) with the seed, as the reference's sr_to_bf16.
+//    (gemm::DenseRowsB), and apply the mask at the store, from the tile's
+//    mask bytes that the CTA copies into shared memory ahead of its walk
+//    (read at the store they add a memory round trip after the walk: 0.95
+//    against 0.52 ms at qwen2-moe's 16-row banks on an H100, PERF.md).
+//    One CTA per (BM-row tile, BN-column tile, group x split), the
+//    forward's and the wgrads' grids walking column tiles fastest, the
+//    dgrad's row tiles (the row tiles that read one w tile run side by
+//    side: a bank's tile comes from HBM about once).
+//  * The store is an epilogue policy of the kernel (Out, MaskedOut,
+//    Momentum below): the forward and the dgrad round the sum once; K15
+//    and K18 multiply it by the mask byte (acc * float(m), as the
+//    reference's acc * m.astype(f32): an inf or NaN sum under a zero mask
+//    gives NaN); K19 and K20 store the new momentum (mu * mom + acc + wd *
+//    w) * float(m) of epilogue.cuh (the reference's order of f32
+//    operations, no contraction), reading the pair's mom and w with one
+//    paired load each, and with sr round it by sr_to_bf16 on the element's
+//    id gid = (g * K + row) * N + col (wrapping uint32; K and N are the
+//    padded extents the wrapper hands in), into the output type (w's on
+//    the training path, f32 for a check before the rounding).  After its
+//    walk a K19/K20 CTA copies its tile's w and mom rows into the ring's
+//    shared memory, free by then, where both tiles fit there, and folds the
+//    momentum from shared memory; where they do not fit (bf16 w with f32
+//    mom, on both wgrad tiles) it reads them from global memory at the fold.
+//  * The host plan (kernels/masked_matmul.py::fwd_plan, one plan for the
+//    directions on (rows, contraction, cols); K19/K20 on the fused
+//    kernel's own resident CTAs) picks the tile and splits the contraction
+//    into n_split whole-slab parts where the grid alone would leave the
+//    SMs' resident slots empty (decode) or its last wave mostly idle; a
+//    split stores f32 partials, unmasked for the wgrads, into a workspace
+//    (n_split, G, rows, cols), and masked_merge_kernel sums them in split
+//    order and applies the same epilogue (the mask after the ordered sum;
+//    for K19/K20 the momentum, the mask and sr), rounding once.  K16, K17,
+//    K18 and K20 are K13, K14, K15 and K19 with the bank's group in grid
+//    dim z (K13-K15 and K19 are the bank of one).  A fully masked expert
+//    reads its zero mask like any other: zero dx rows and a zero dw or
+//    m_new, no empty sum.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 495 TF32, 67 f32 FFMA):
 // decode (16 padded rows) reads every weight and its mask byte once, far
 // below the ridge: bytes bound it, and split-K keeps enough copies in
 // flight.  The training shapes (M = 2048) do the dense work, 2 * M * K * N
 // flops per call: in bf16 near the ridge; in f32 (the reference's MLP)
-// 3xTF32 does three tensor-core products per f32 product.  The times
-// against the bound are in PERF.md.
+// 3xTF32 does three tensor-core products per f32 product.  K19/K20 add the
+// reads of mom and w and the write of m_new: about 6 bytes a weight more
+// than K15/K18.  The times against the bound are in PERF.md.
 #include <algorithm>
 
 #include "common.cuh"
@@ -88,58 +93,142 @@
 
 namespace {
 
-// K19 and K20: group g = blockIdx.z of x (G, Mp, K), g (G, Mp, N), wgm, w,
-// mom and out (G, K, N); x, g and w in T, mom in TM, the new momentum in TO
-// (w's type on the training path; f32 lets a check read the value before
-// its rounding).
-template <typename T, typename TM, typename TO>
-__global__ void __launch_bounds__(tile::kThreads)
-masked_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                       const uint8_t* __restrict__ wgm, const T* __restrict__ w,
-                       const TM* __restrict__ mom, TO* __restrict__ out, int Mp,
-                       int K, int N, int bn, int bk, unsigned seed, float mu,
-                       float wd, int sr) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());
-  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
-  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
-  const size_t grp = blockIdx.z, off = grp * K * N;
-
-  tile::Acc<T> acc;
-  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
-  acc.store(scratch, bk, bn, [&](int r, int c, float v) {
-    const size_t i = off + (size_t)(k0 + r) * N + n0 + c;
-    // (mu * mom + acc + wd * w) * m, each step rounded on its own
-    float mn = __fmul_rn(epi::momentum(mu, mom[i], v, wd, w[i]),
-                         static_cast<float>(wgm[i]));
-    if (sr) mn = epi::sr_to_bf16(mn, seed, epi::element_id(grp, K, N, k0 + r, n0 + c));
-    out[i] = tile::from_float<TO>(mn);
-  });
+// Copy rows m0.. (BM of them, up to rows) and columns n0.. (BN, up to cols)
+// of src (rows x cols from element plane0) into the shared-window address
+// dst, rows LD elements apart, 16 bytes a copy; zeros past the extents.
+template <class C, int LD, typename E>
+__device__ __forceinline__ void stage_tile(uint32_t dst, const E* src, size_t plane0, int rows,
+                                           int cols, int m0, int n0) {
+  constexpr int kPer = 16 / sizeof(E), per_row = C::BN / kPer, n = C::BM * per_row;
+  for (int c = threadIdx.x; c < n; c += C::kThreads) {
+    const int r = c / per_row, col = (c % per_row) * kPer;
+    const bool ok = m0 + r < rows && n0 + col < cols;
+    ptx::cp_async16(dst + (r * LD + col) * sizeof(E),
+                    src + (ok ? plane0 + (size_t)(m0 + r) * cols + n0 + col : 0), ok);
+  }
 }
+
+// Epilogue policies: how a launch's f32 sums become its outputs, element i
+// the flat index into (G, rows, cols).  pair(i, v0, v1, mb) stores i and i
+// + 1 (i even) from a CTA's sums, mb the pair's two staged mask bytes (low
+// byte at i; 0 where the mask multiplied B); quad(i, v) stores i..i + 3 (i
+// a multiple of 4) from a split merge's ordered sums, reading the mask
+// bytes itself; before an unsplit CTA's store, fold<C>(warp, plane0, rows,
+// cols, m0, n0, smem) runs after its walk of the tile at (m0, n0) of the
+// group whose outputs start at plane0, the ring's shared memory free.
+template <typename T>
+struct Out {  // K13, K14, K16, K17: the sum, rounded once
+  T* out;
+  template <class C>
+  __device__ __forceinline__ void fold(gemm::Warp<C>&, size_t, int, int, int, int,
+                                       unsigned char*) const {}
+  __device__ __forceinline__ void pair(size_t i, float v0, float v1, unsigned) const {
+    gemm::store2(out + i, v0, v1);
+  }
+  __device__ __forceinline__ void quad(size_t i, float4 v) const { gemm::store4(out + i, v); }
+};
 
 template <typename T>
-size_t smem_bytes(int rows, int cols) {
-  return sizeof(T) * (rows * (tile::kSlab + tile::pad<T>()) +
-                      tile::kSlab * (cols + tile::pad<T>())) +
-         tile::epilogue_bytes<T>();
-}
+struct MaskedOut {  // K15, K18: the sum times the mask byte, rounded once
+  T* out;
+  const uint8_t* m;
+  template <class C>
+  __device__ __forceinline__ void fold(gemm::Warp<C>&, size_t, int, int, int, int,
+                                       unsigned char*) const {}
+  __device__ __forceinline__ void pair(size_t i, float v0, float v1, unsigned mb) const {
+    gemm::store2(out + i, v0 * static_cast<float>(mb & 0xffu),
+                 v1 * static_cast<float>(mb >> 8));
+  }
+  __device__ __forceinline__ void quad(size_t i, float4 v) const {
+    const uchar4 mb = *reinterpret_cast<const uchar4*>(m + i);
+    v.x *= static_cast<float>(mb.x);
+    v.y *= static_cast<float>(mb.y);
+    v.z *= static_cast<float>(mb.z);
+    v.w *= static_cast<float>(mb.w);
+    gemm::store4(out + i, v);
+  }
+};
+
+// K19, K20: m_new = (mu * mom + acc + wd * w) * m, with sr rounded onto the
+// bf16 grid on the id i (= (g * K + row) * N + col in wrapping uint32),
+// stored in TO; w in T, mom in TM.
+template <typename T, typename TM, typename TO>
+struct Momentum {
+  TO* out;
+  const uint8_t* m;
+  const T* w;
+  const TM* mom;
+  float mu, wd;
+  unsigned seed;
+  int sr;
+
+  // The momentum mu * mom + acc + wd * w folded into the CTA's sums before
+  // the store: reads only, so that every pair's reads can be in flight
+  // together (a store between them might alias the next pair's mom or w).
+  // Where both tiles fit in the ring's shared memory, the CTA copies them
+  // there by 16-byte cp.async and the fold reads shared memory, not a
+  // latency-bound pair of global loads per fragment (PERF.md has both
+  // times); their rows LD = BN + 8 elements apart, so that a warp's pairs
+  // (rows g, columns 2t) fall in distinct banks.  bf16 w with f32 mom does
+  // not fit on either wgrad tile and reads global memory.
+  template <class C>
+  __device__ __forceinline__ void fold(gemm::Warp<C>& warp, size_t plane0, int rows, int cols,
+                                       int m0, int n0, unsigned char* smem) const {
+    constexpr int LD = C::BN + 8;
+    constexpr int W_BYTES = C::BM * LD * sizeof(T), MOM_BYTES = C::BM * LD * sizeof(TM);
+    if constexpr (W_BYTES + MOM_BYTES <= C::SMEM) {
+      __syncthreads();  // every warp is done with the ring
+      const uint32_t base = ptx::smem_addr(smem);
+      stage_tile<C, LD>(base, w, plane0, rows, cols, m0, n0);
+      stage_tile<C, LD>(base + W_BYTES, mom, plane0, rows, cols, m0, n0);
+      ptx::cp_async_commit();
+      ptx::cp_async_wait_all();
+      __syncthreads();
+      const T* ws = reinterpret_cast<const T*>(smem);
+      const TM* ms = reinterpret_cast<const TM*>(smem + W_BYTES);
+      gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float& v0, float& v1) {
+        const int j = (r - m0) * LD + c - n0;
+        const float2 wv = epi::load2(ws + j), mv = epi::load2(ms + j);
+        v0 = epi::momentum(mu, mv.x, v0, wd, wv.x);
+        v1 = epi::momentum(mu, mv.y, v1, wd, wv.y);
+      });
+    } else {
+      gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float& v0, float& v1) {
+        const size_t i = plane0 + (size_t)r * cols + c;
+        const float2 wv = epi::load2(w + i), mv = epi::load2(mom + i);
+        v0 = epi::momentum(mu, mv.x, v0, wd, wv.x);
+        v1 = epi::momentum(mu, mv.y, v1, wd, wv.y);
+      });
+    }
+  }
+  // the folded pair: the mask, sr, one rounding
+  __device__ __forceinline__ void pair(size_t i, float v0, float v1, unsigned mb) const {
+    gemm::store2(out + i, epi::mask_sr(v0, mb & 0xffu, seed, static_cast<unsigned>(i), sr),
+                 epi::mask_sr(v1, mb >> 8, seed, static_cast<unsigned>(i + 1), sr));
+  }
+  __device__ __forceinline__ float at(size_t i, float acc, float wv, float mv,
+                                      unsigned mask) const {
+    return epi::mask_sr(epi::momentum(mu, mv, acc, wd, wv), mask, seed,
+                        static_cast<unsigned>(i), sr);
+  }
+  __device__ __forceinline__ void quad(size_t i, float4 v) const {
+    const uchar4 mb = *reinterpret_cast<const uchar4*>(m + i);
+    const float4 wv = epi::load4(w + i), mv = epi::load4(mom + i);
+    gemm::store4(out + i, make_float4(at(i, v.x, wv.x, mv.x, mb.x),
+                                      at(i + 1, v.y, wv.y, mv.y, mb.y),
+                                      at(i + 2, v.z, wv.z, mv.z, mb.z),
+                                      at(i + 3, v.w, wv.w, mv.w, mb.w)));
+  }
+};
 
 template <typename T, typename TM, typename TO>
-int launch_fused(const void* x, const void* g, const void* wgm, const void* w,
-                 const void* mom, void* out, int G, int Mp, int K, int N, int bn, int bk,
-                 unsigned seed, float mu, float wd, int sr, void* stream) {
-  const dim3 grid(N / bn, K / bk, G);
-  masked_dw_fused_kernel<T, TM, TO><<<grid, tile::kThreads, smem_bytes<T>(bk, bn),
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const uint8_t*>(wgm), static_cast<const T*>(w),
-      static_cast<const TM*>(mom), static_cast<TO*>(out), Mp, K, N, bn, bk, seed, mu,
-      wd, sr);
-  return static_cast<int>(cudaGetLastError());
+Momentum<T, TM, TO> momentum_epi(const void* m, const void* w, const void* mom, void* out,
+                                 unsigned seed, float mu, float wd, int sr) {
+  return {static_cast<TO*>(out), static_cast<const uint8_t*>(m), static_cast<const T*>(w),
+          static_cast<const TM*>(mom), mu, wd, seed, sr};
 }
 
-// The wgrad's store reads the mask of its output tile: a CTA stages it
+// The wgrads' store reads the mask of its output tile: a CTA stages it
 // beside the ring (BM rows of BN bytes, padded by 16 so that a warp's
 // reads at the store, rows g and byte pairs 2t, fall in distinct banks), in
 // a cp.async group of its own ahead of the walk's, so that its latency
@@ -169,28 +258,30 @@ __device__ __forceinline__ void load_tile_mask(uint32_t dst, const uint8_t* m, i
 
 // K13/K16 (C::StageB = MaskedRowsB: a = x (G, rows = Mp, L = K), b = w
 // and m (G, L, cols = N)), K14/K17 (MaskedColsB: a = g (G, rows = Mp, L =
-// N), b = w and m (G, cols = K, L)) and K15/K18 (DenseRowsB, ColsA: a = x
-// (G, L = Mp, rows = K), b = g (G, L, cols = N), m (G, rows, cols)); out
-// (G, rows, cols); blockIdx.z = group * n_split + s.  Split s walks L's
-// slabs [s n / n_split, (s + 1) n / n_split) of n = ceil(L / 32) and, when
-// n_split > 1, stores its f32 partial (for the wgrad unmasked) into part
-// (n_split, G, rows, cols) in place of out.
-template <class C>
+// N), b = w and m (G, cols = K, L)) and K15/K18, K19/K20 (DenseRowsB,
+// ColsA: a = x (G, L = Mp, rows = K), b = g (G, L, cols = N), m (G, rows,
+// cols)); the outputs (G, rows, cols) by the epilogue policy Epi;
+// blockIdx.z = group * n_split + s.  Split s walks L's slabs [s n /
+// n_split, (s + 1) n / n_split) of n = ceil(L / 32) and, when n_split > 1,
+// stores its f32 partial (for the wgrads unmasked) into part (n_split, G,
+// rows, cols) in place of the epilogue's store.
+template <class C, class Epi>
 __global__ void __launch_bounds__(C::kThreads, C::MIN_CTAS)
 masked_gemm_kernel(const typename C::Type* __restrict__ a,
                    const typename C::Type* __restrict__ b, const uint8_t* __restrict__ m,
-                   typename C::Type* __restrict__ out, float* __restrict__ part, int G,
-                   int rows, int L, int cols, int n_split) {
+                   const Epi epi, float* __restrict__ part, int G, int rows, int L, int cols,
+                   int n_split) {
   using T = typename C::Type;
-  constexpr bool kMaskB = C::StageB::kMasked;  // else the mask multiplies the sum
+  constexpr bool kMaskB = C::StageB::kMasked;  // else the mask is applied at the store
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.z / n_split, s = blockIdx.z % n_split;
   const int n_slabs = (L + gemm::kSlab - 1) / gemm::kSlab;
   const bool rows_fastest = C::StageB::kRowTilesFastest;
   const int m0 = (rows_fastest ? blockIdx.x : blockIdx.y) * C::BM;
   const int n0 = (rows_fastest ? blockIdx.y : blockIdx.x) * C::BN;
+  const size_t plane0 = (size_t)g * rows * cols;
   const uint8_t* mg = m + (size_t)g * (kMaskB ? L : rows) * cols;
-  unsigned char* tile_mask = smem + C::SMEM;  // the wgrad's (kTileMaskLd)
+  unsigned char* tile_mask = smem + C::SMEM;  // the wgrads' (kTileMaskLd)
   if constexpr (!kMaskB) load_tile_mask<C>(ptx::smem_addr(tile_mask), mg, rows, cols, m0, n0);
   const T* ag = a + (size_t)g * rows * L;
   const T* bg = b + (size_t)g * L * cols;
@@ -208,17 +299,12 @@ masked_gemm_kernel(const typename C::Type* __restrict__ a,
     }
   }
   if (n_split == 1) {
-    T* og = out + (size_t)g * rows * cols;
+    epi.template fold<C>(warp, plane0, rows, cols, m0, n0, smem);
     gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float v0, float v1) {
-      const size_t i = (size_t)r * cols + c;
-      if constexpr (kMaskB) {
-        gemm::store2(og + i, v0, v1);
-      } else {  // the pair's two mask bytes (c even), one rounding after
-        const unsigned mb = *reinterpret_cast<const uint16_t*>(
-            tile_mask + (r - m0) * kTileMaskLd<C> + c - n0);
-        gemm::store2(og + i, v0 * static_cast<float>(mb & 0xffu),
-                     v1 * static_cast<float>(mb >> 8));
-      }
+      unsigned mb = 0;  // the pair's two mask bytes (c even)
+      if constexpr (!kMaskB)
+        mb = *reinterpret_cast<const uint16_t*>(tile_mask + (r - m0) * kTileMaskLd<C> + c - n0);
+      epi.pair(plane0 + (size_t)r * cols + c, v0, v1, mb);
     });
   } else {
     float* pg = part + ((size_t)s * G + g) * rows * cols;
@@ -228,13 +314,17 @@ masked_gemm_kernel(const typename C::Type* __restrict__ a,
   }
 }
 
-// The split merge of K13, K14, K16 and K17: y[i] = sum over s of
-// part[s][i], s = 0, 1, ... in order, rounded once to y's type; plane = G *
-// rows * cols (a multiple of 4), n4 = plane / 4.
-template <typename T>
-__global__ void __launch_bounds__(256)
-masked_merge_kernel(const float* __restrict__ part, T* __restrict__ y, size_t n4,
-                    size_t plane, int n_split) {
+// The split merge: out[i] = Epi's store of (sum over s of part[s][i], s =
+// 0, 1, ... in order), rounded once -- the sum for K13, K14, K16, K17, times
+// the mask for K15, K18 (an overflowed sum under a zero mask gives NaN, as
+// in the unsplit kernel), the momentum epilogue for K19, K20; plane = G *
+// rows * cols (a multiple of 4), n4 = plane / 4, the mask 4-byte aligned.
+// At most 64 registers a thread (4 CTAs an SM): left to itself ptxas held
+// the momentum merges of a bf16 w to 32 and spilled.
+template <class Epi>
+__global__ void __launch_bounds__(256, 4)
+masked_merge_kernel(const float* __restrict__ part, const Epi epi, size_t n4, size_t plane,
+                    int n_split) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     float4 v = reinterpret_cast<const float4*>(part)[i];
@@ -245,80 +335,39 @@ masked_merge_kernel(const float* __restrict__ part, T* __restrict__ y, size_t n4
       v.z += p.z;
       v.w += p.w;
     }
-    gemm::store4(y + 4 * i, v);
+    epi.quad(4 * i, v);
   }
 }
 
-// The split merge of K15 and K18: dw[i] = (sum over s of part[s][i], in
-// order) * float(m[i]), rounded once to dw's type.  The partials are summed
-// before the mask multiplies (an overflowed sum under a zero mask gives
-// NaN, as in the unsplit kernel); m 4-byte aligned.
-template <typename T>
-__global__ void __launch_bounds__(256)
-masked_dw_merge_kernel(const float* __restrict__ part, const uint8_t* __restrict__ m,
-                       T* __restrict__ dw, size_t n4, size_t plane, int n_split) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float4 v = reinterpret_cast<const float4*>(part)[i];
-    for (int s = 1; s < n_split; ++s) {
-      const float4 p = reinterpret_cast<const float4*>(part + s * plane)[i];
-      v.x += p.x;
-      v.y += p.y;
-      v.z += p.z;
-      v.w += p.w;
-    }
-    const uchar4 mb = reinterpret_cast<const uchar4*>(m)[i];
-    v.x *= static_cast<float>(mb.x);
-    v.y *= static_cast<float>(mb.y);
-    v.z *= static_cast<float>(mb.z);
-    v.w *= static_cast<float>(mb.w);
-    gemm::store4(dw + 4 * i, v);
-  }
-}
-
-template <class C>
-int launch_gemm(const void* a, const void* b, const void* m, void* out, void* part, int G,
+template <class C, class Epi>
+int launch_gemm(const void* a, const void* b, const void* m, const Epi& epi, void* part, int G,
                 int rows, int L, int cols, int n_split, void* stream) {
   using T = typename C::Type;
-  const auto kernel = masked_gemm_kernel<C>;
+  const auto kernel = masked_gemm_kernel<C, Epi>;
   cudaError_t err = gemm::prepare(kernel, smem_bytes_of<C>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned row_tiles = (rows + C::BM - 1) / C::BM, col_tiles = (cols + C::BN - 1) / C::BN;
   const dim3 grid(C::StageB::kRowTilesFastest ? row_tiles : col_tiles,
                   C::StageB::kRowTilesFastest ? col_tiles : row_tiles, G * n_split);
   kernel<<<grid, C::kThreads, smem_bytes_of<C>(), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const uint8_t*>(m),
-      static_cast<T*>(out), static_cast<float*>(part), G, rows, L, cols, n_split);
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const uint8_t*>(m), epi,
+      static_cast<float*>(part), G, rows, L, cols, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int merge_blocks(size_t n4) {
-  return static_cast<int>(std::min<size_t>((n4 + 255) / 256, 132 * 8));
-}
-
-template <typename T>
-int launch_merge(const void* part, void* y, long long plane, int n_split, void* stream) {
+template <class Epi>
+int launch_merge(const void* part, const Epi& epi, long long plane, int n_split, void* stream) {
   const size_t n4 = static_cast<size_t>(plane) / 4;
-  masked_merge_kernel<T><<<merge_blocks(n4), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<T*>(y), n4, static_cast<size_t>(plane),
-      n_split);
+  const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 132 * 8));
+  masked_merge_kernel<Epi><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), epi, n4, static_cast<size_t>(plane), n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dw_merge(const void* part, const void* m, void* dw, long long plane, int n_split,
-                    void* stream) {
-  const size_t n4 = static_cast<size_t>(plane) / 4;
-  masked_dw_merge_kernel<T><<<merge_blocks(n4), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<const uint8_t*>(m), static_cast<T*>(dw), n4,
-      static_cast<size_t>(plane), n_split);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out: gemm::launch_info of configuration C.
-template <class C>
+// out: gemm::launch_info of configuration C with the epilogue Epi.
+template <class C, class Epi>
 int gemm_info(int* out) {
-  return gemm::launch_info(masked_gemm_kernel<C>, smem_bytes_of<C>(), C::kThreads, out);
+  return gemm::launch_info(masked_gemm_kernel<C, Epi>, smem_bytes_of<C>(), C::kThreads, out);
 }
 
 }  // namespace
@@ -336,74 +385,90 @@ int gemm_info(int* out) {
 // masked_merge_<S> (masked_dw_merge_<S> after the wgrad, with m) must
 // follow to write the output.  masked_<dir>_info_<S>: the launch of tile
 // (bm, bn).
-#define GEMM_ENTRIES(S, T)                                                           \
-  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,         \
-                                void* y, void* part, int G, int Mp, int K, int N,    \
-                                int bm, int bn, int n_split, void* stream) {         \
-    return gemm::with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {             \
-      return launch_gemm<typename decltype(tag)::type>(x, w, m, y, part, G, Mp, K,   \
-                                                       N, n_split, stream);          \
-    });                                                                              \
-  }                                                                                  \
-  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,          \
-                               void* dx, void* part, int G, int Mp, int K, int N,    \
-                               int bm, int bn, int n_split, void* stream) {          \
-    return gemm::with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {             \
-      return launch_gemm<typename decltype(tag)::type>(g, w, m, dx, part, G, Mp, N,  \
-                                                       K, n_split, stream);          \
-    });                                                                              \
-  }                                                                                  \
-  extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,          \
-                               void* dw, void* part, int G, int Mp, int K, int N,    \
-                               int bm, int bn, int n_split, void* stream) {          \
-    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) { \
-      return launch_gemm<typename decltype(tag)::type>(x, g, m, dw, part, G, K, Mp,  \
-                                                       N, n_split, stream);          \
-    });                                                                              \
-  }                                                                                  \
-  extern "C" int masked_merge_##S(const void* part, void* y, long long plane,        \
-                                  int n_split, void* stream) {                       \
-    return launch_merge<T>(part, y, plane, n_split, stream);                         \
-  }                                                                                  \
-  extern "C" int masked_dw_merge_##S(const void* part, const void* m, void* dw,      \
-                                     long long plane, int n_split, void* stream) {   \
-    return launch_dw_merge<T>(part, m, dw, plane, n_split, stream);                  \
-  }                                                                                  \
-  extern "C" int masked_fwd_info_##S(int bm, int bn, int* out) {                     \
-    return gemm::with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {             \
-      return gemm_info<typename decltype(tag)::type>(out);                           \
-    });                                                                              \
-  }                                                                                  \
-  extern "C" int masked_dx_info_##S(int bm, int bn, int* out) {                      \
-    return gemm::with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {             \
-      return gemm_info<typename decltype(tag)::type>(out);                           \
-    });                                                                              \
-  }                                                                                  \
-  extern "C" int masked_dw_info_##S(int bm, int bn, int* out) {                      \
-    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) { \
-      return gemm_info<typename decltype(tag)::type>(out);                           \
-    });                                                                              \
+#define GEMM_ENTRIES(S, T)                                                             \
+  extern "C" int masked_fwd_##S(const void* x, const void* w, const void* m,           \
+                                void* y, void* part, int G, int Mp, int K, int N,      \
+                                int bm, int bn, int n_split, void* stream) {           \
+    return gemm::with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {               \
+      return launch_gemm<typename decltype(tag)::type>(x, w, m, Out<T>{(T*)y}, part, G, \
+                                                       Mp, K, N, n_split, stream);     \
+    });                                                                                \
+  }                                                                                    \
+  extern "C" int masked_dx_##S(const void* g, const void* w, const void* m,            \
+                               void* dx, void* part, int G, int Mp, int K, int N,      \
+                               int bm, int bn, int n_split, void* stream) {            \
+    return gemm::with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {               \
+      return launch_gemm<typename decltype(tag)::type>(g, w, m, Out<T>{(T*)dx}, part,  \
+                                                       G, Mp, N, K, n_split, stream);  \
+    });                                                                                \
+  }                                                                                    \
+  extern "C" int masked_dw_##S(const void* x, const void* g, const void* m,            \
+                               void* dw, void* part, int G, int Mp, int K, int N,      \
+                               int bm, int bn, int n_split, void* stream) {            \
+    const MaskedOut<T> epi{(T*)dw, (const uint8_t*)m};                                 \
+    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {   \
+      return launch_gemm<typename decltype(tag)::type>(x, g, m, epi, part, G, K, Mp,   \
+                                                       N, n_split, stream);            \
+    });                                                                                \
+  }                                                                                    \
+  extern "C" int masked_merge_##S(const void* part, void* y, long long plane,          \
+                                  int n_split, void* stream) {                         \
+    return launch_merge(part, Out<T>{(T*)y}, plane, n_split, stream);                  \
+  }                                                                                    \
+  extern "C" int masked_dw_merge_##S(const void* part, const void* m, void* dw,        \
+                                     long long plane, int n_split, void* stream) {     \
+    return launch_merge(part, MaskedOut<T>{(T*)dw, (const uint8_t*)m}, plane, n_split, \
+                        stream);                                                       \
+  }                                                                                    \
+  extern "C" int masked_fwd_info_##S(int bm, int bn, int* out) {                       \
+    return gemm::with_tile<T, gemm::MaskedRowsB>(bm, bn, [&](auto tag) {               \
+      return gemm_info<typename decltype(tag)::type, Out<T>>(out);                     \
+    });                                                                                \
+  }                                                                                    \
+  extern "C" int masked_dx_info_##S(int bm, int bn, int* out) {                        \
+    return gemm::with_tile<T, gemm::MaskedColsB>(bm, bn, [&](auto tag) {               \
+      return gemm_info<typename decltype(tag)::type, Out<T>>(out);                     \
+    });                                                                                \
+  }                                                                                    \
+  extern "C" int masked_dw_info_##S(int bm, int bn, int* out) {                        \
+    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {   \
+      return gemm_info<typename decltype(tag)::type, MaskedOut<T>>(out);               \
+    });                                                                                \
   }
 
 GEMM_ENTRIES(bf16, __nv_bfloat16)
 GEMM_ENTRIES(f32, float)
 
-// K19: masked_dw_fused_<x/g/w type>_<mom type>_<output type>; K20:
-// masked_dw_fused_grouped_<...>, every operand with a leading group dim.
-#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                           \
-  extern "C" int masked_dw_fused_##S##_##SM##_##SO(                                 \
-      const void* x, const void* g, const void* wgm, const void* w,                 \
-      const void* mom, void* out, int Mp, int K, int N, int bn, int bk,             \
-      unsigned seed, float mu, float wd, int sr, void* stream) {                    \
-    return launch_fused<T, TM, TO>(x, g, wgm, w, mom, out, 1, Mp, K, N, bn, bk,     \
-                                   seed, mu, wd, sr, stream);                       \
-  }                                                                                 \
-  extern "C" int masked_dw_fused_grouped_##S##_##SM##_##SO(                         \
-      const void* x, const void* g, const void* wgm, const void* w,                 \
-      const void* mom, void* out, int G, int Mp, int K, int N, int bn, int bk,      \
-      unsigned seed, float mu, float wd, int sr, void* stream) {                    \
-    return launch_fused<T, TM, TO>(x, g, wgm, w, mom, out, G, Mp, K, N, bn, bk,     \
-                                   seed, mu, wd, sr, stream);                       \
+// K19 and K20: masked_dw_fused_<x/g/w type>_<mom type>_<output type> takes
+// x (G, Mp, K), g (G, Mp, N), wgm, w and mom (G, K, N) (K19 passes G = 1)
+// and writes the new momentum out (G, K, N), on the wgrad's walk (its
+// tiles, bm over K and bn over N); with n_split > 1 part is the f32
+// workspace (n_split, G, K, N) and masked_dw_fused_merge_<...> (the
+// ordered sum, then the same epilogue) must follow to write out, which
+// it takes with plane = G K N.  masked_dw_fused_info_<...>: the launch of
+// tile (bm, bn).
+#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                              \
+  extern "C" int masked_dw_fused_##S##_##SM##_##SO(                                    \
+      const void* x, const void* g, const void* wgm, const void* w, const void* mom,   \
+      void* out, void* part, int G, int Mp, int K, int N, int bm, int bn, int n_split, \
+      unsigned seed, float mu, float wd, int sr, void* stream) {                       \
+    const auto epi = momentum_epi<T, TM, TO>(wgm, w, mom, out, seed, mu, wd, sr);      \
+    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {   \
+      return launch_gemm<typename decltype(tag)::type>(x, g, wgm, epi, part, G, K, Mp, \
+                                                       N, n_split, stream);            \
+    });                                                                                \
+  }                                                                                    \
+  extern "C" int masked_dw_fused_merge_##S##_##SM##_##SO(                              \
+      const void* part, const void* wgm, const void* w, const void* mom, void* out,    \
+      long long plane, int n_split, unsigned seed, float mu, float wd, int sr,         \
+      void* stream) {                                                                  \
+    return launch_merge(part, momentum_epi<T, TM, TO>(wgm, w, mom, out, seed, mu, wd, sr), \
+                        plane, n_split, stream);                                       \
+  }                                                                                    \
+  extern "C" int masked_dw_fused_info_##S##_##SM##_##SO(int bm, int bn, int* out) {    \
+    return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {   \
+      return gemm_info<typename decltype(tag)::type, Momentum<T, TM, TO>>(out);        \
+    });                                                                                \
   }
 
 FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, bf16, __nv_bfloat16)

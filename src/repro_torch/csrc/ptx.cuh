@@ -1,5 +1,6 @@
 // Inline-PTX wrappers shared by the register-resident cores: the flash core
-// (flash_core.cuh: K9-K12) and the GEMM core (gemm_core.cuh: K13-K18).
+// (flash_core.cuh: K9-K12) and the GEMM core (gemm_core.cuh: K1-K6,
+// K13-K20).
 // One copy of each wrapper; both cores include this header.
 #pragma once
 #include <cuda_bf16.h>

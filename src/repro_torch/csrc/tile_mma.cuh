@@ -1,6 +1,6 @@
-// Tile products of the fused wgrad epilogues, block-sparse (K7/K8) and
-// masked (K19/K20), through xtg (the masked forward, dgrad and wgrad and the
-// block-sparse forward, dgrad and wgrad run on gemm_core.cuh).  A CTA of
+// Tile products of the block-sparse fused wgrad epilogue (K7/K8) through
+// xtg, its only user (every other matmul kernel, the masked fused wgrad
+// K19/K20 included, runs on gemm_core.cuh).  A CTA of
 // 256 threads accumulates one (R x C) tile in f32, with R and C multiples of 16 up to
 // 128, from slabs staged in shared memory as A (R x L, row-major, leading
 // dimension lda) and B (L x C, row-major, ldb).
@@ -171,11 +171,11 @@ template <> struct Acc<float> {
 };
 
 // acc = x^T @ g over all Mp rows for the (bk x bn) output tile at (k0, n0),
-// x (Mp, K) and g (Mp, N) row-major: the sum of the fused wgrad kernels K7,
-// K8, K19 and K20 (K15, K18, K3 and K6 walk the GEMM core's ColsA and
-// DenseRowsB stages), one CTA looping over the rows in slabs of 32
-// (16 when Mp is not a multiple of 32).  xs holds bk x (kSlab + pad) and gs
-// kSlab x (bn + pad) elements of shared memory.
+// x (Mp, K) and g (Mp, N) row-major: the sum of the block-sparse fused
+// wgrad kernels K7 and K8 (K15, K18, K19, K20, K3 and K6 walk the GEMM
+// core's ColsA and DenseRowsB stages), one CTA looping over the rows in
+// slabs of 32 (16 when Mp is not a multiple of 32).  xs holds bk x (kSlab +
+// pad) and gs kSlab x (bn + pad) elements of shared memory.
 template <typename T>
 __device__ inline void xtg(Acc<T>& acc, T* xs, T* gs, const T* x, const T* g, int Mp,
                            int K, int N, int k0, int n0, int bn, int bk) {

@@ -20,24 +20,25 @@ csrc/masked_matmul.cu (the design and its bound are described there):
 
 Each runs in bf16 and in f32 (the reference's MLP computes in the f32
 residual's dtype), accumulating in f32 and rounding once to the output
-type.  K13-K15 and their grouped twins K16-K18 run on the register-resident
-GEMM core (csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32 for f32, which
-keeps f32's digits on the tensor cores); K19 and K20 on the tile layer
-(wmma bf16, full-precision FFMA f32).  One plan serves the three directions
-of the core: ``fwd_plan`` sees a launch as rows x contraction -> rows x
-cols (the forward: L = K, cols = N; the dgrad: L = N, cols = K; the wgrad:
-rows = K, L = M, cols = N), picks the tile and splits the contraction where
-the grid alone would leave the SMs' slots empty (decode) or its last wave
-mostly idle (the wgrad's, ``entry="dw"``, keeps 128 rows and halves the
-tile of a one-slab walk in bf16); a split's f32 partials are summed in
-order by a merge kernel (``fwd_merge`` after K13 and K16, ``dx_merge``
-after K14 and K17, ``dw_merge`` after K15 and K18, which then multiplies by
-the mask; the block-sparse kernels K1-K6 of ``block_sparse_matmul`` run on
-the same core, count their own grids and take the same split rule,
-``fwd_split``).  The
-mask multiplies the weight, or in the wgrad the f32 sum (an
-inf or NaN under a zero mask gives NaN, as the reference's ``w *
-m.astype(w.dtype)`` and ``acc * m.astype(f32)``); it is never a select.
+type.  All eight run on the register-resident GEMM core
+(csrc/gemm_core.cuh: mma.sync bf16, and 3xTF32 for f32, which keeps f32's
+digits on the tensor cores); K19 and K20 are the wgrad's walk with the
+momentum epilogue at the store.  One plan serves the directions of the
+core: ``fwd_plan`` sees a launch as rows x contraction -> rows x cols (the
+forward: L = K, cols = N; the dgrad: L = N, cols = K; the wgrads: rows =
+K, L = M, cols = N), picks the tile and splits the contraction where the
+grid alone would leave the SMs' slots empty (decode) or its last wave
+mostly idle (the wgrads', ``entry="dw"`` and ``"dw_fused"``, keep 128
+rows; K15/K18's halves the tile of a one-slab walk in bf16); a split's f32
+partials are summed in order by a merge kernel (``fwd_merge`` after K13 and K16,
+``dx_merge`` after K14 and K17, ``dw_merge`` after K15 and K18, which then
+multiplies by the mask, ``dw_fused_merge`` after K19 and K20, which then
+applies the momentum epilogue; the block-sparse kernels K1-K6 of
+``block_sparse_matmul`` run on the same core, count their own grids and
+take the same split rule, ``fwd_split``).  The mask multiplies the weight,
+or in the wgrads the f32 sum (an inf or NaN under a zero mask gives NaN,
+as the reference's ``w * m.astype(w.dtype)``, ``acc * m.astype(f32)`` and
+``(...) * mk``); it is never a select.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
@@ -45,7 +46,8 @@ PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 ``gdw_launches``, ``fused_launches`` and ``g_fused_launches`` count kernel
 launches, one per call; ``fwd_merge_launches`` counts the split merges of
 K13 and K16 on their own, ``dx_merge_launches`` those of K14 and K17,
-``dw_merge_launches`` those of K15 and K18.
+``dw_merge_launches`` those of K15 and K18, ``dw_fused_merge_launches``
+those of K19 and K20.
 ``MaskedMatmul``, ``TopkastMaskedMatmul``, ``FusedMaskedMatmul``,
 ``GroupedMaskedMatmul``, ``TopkastGroupedMaskedMatmul`` and
 ``FusedGroupedMaskedMatmul`` are the differentiable forms (the
@@ -80,6 +82,9 @@ __all__ = [
     "MaskedMatmul",
     "TopkastGroupedMaskedMatmul",
     "TopkastMaskedMatmul",
+    "WGRADS",
+    "dw_fused_merge",
+    "dw_fused_merge_launches",
     "dw_launches",
     "dw_merge",
     "dw_merge_launches",
@@ -114,7 +119,9 @@ __all__ = [
     "launches",
     "masked_dw",
     "masked_dw_fused",
+    "masked_dw_fused_merge_plain",
     "masked_dw_fused_plain",
+    "masked_dw_fused_split_plain",
     "masked_dw_plain",
     "masked_dw_split_plain",
     "masked_dx",
@@ -139,12 +146,14 @@ g_fused_launches = 0  # K20
 fwd_merge_launches = 0  # the merges of split K13 and K16 launches
 dx_merge_launches = 0  # the merges of split K14 and K17 launches
 dw_merge_launches = 0  # the merges of split K15 and K18 launches
+dw_fused_merge_launches = 0  # the merges of split K19 and K20 launches
 
-# the GEMM core's plan, K13/K16, K14/K17 and K15/K18 (csrc/masked_matmul.cu,
-# csrc/gemm_core.cuh)
+# the GEMM core's plan, K13/K16, K14/K17, K15/K18 and K19/K20
+# (csrc/masked_matmul.cu, csrc/gemm_core.cuh)
 FWD_SLAB = 32  # contraction elements of one ring stage; a split walks whole slabs
 FWD_TILES = ((128, 128), (128, 64), (16, 64))  # (bm, bn) built
-DW_TILES = FWD_TILES[:2]  # K15/K18's (their rows are K, never a decode's)
+DW_TILES = FWD_TILES[:2]  # K15/K18's and K19/K20's (their rows are K, never a decode's)
+WGRADS = ("dw", "dw_fused")  # the plan entries of the wgrads: K15/K18, K19/K20
 FWD_SPLITS = (1, 2, 4, 8, 16, 32)  # the sweeps' split counts (all weighed by K1/K3/K4/K6)
 FWD_MAX_SPLIT = 32
 FWD_MIN_SLABS = 2  # slabs a split walks at least
@@ -155,6 +164,7 @@ FWD_RATE = {torch.bfloat16: 2.6e14, torch.float32: 4.2e13}
 FWD_BYTES_S = 3.35e12
 FWD_MIN_GAIN = 0.05
 _ELEMENT = {torch.bfloat16: 2, torch.float32: 4}
+_SFX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _M32 = 0xFFFFFFFF
@@ -242,20 +252,26 @@ def grouped_masked_dw_plain(x, g, mask):
     return (torch.bmm(x.float().transpose(1, 2), g.float()) * mask.float()).to(x.dtype)
 
 
-def masked_dw_fused_plain(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
-                          sr: bool, out_dtype=None):
-    """Plain K19 (and K20 on a (G, K, N) bank, per group): ``m_new = (mu *
-    mom + x^T @ g + wd * w) * wgm`` in f32, left to right as the reference;
-    ``sr`` rounds it with ``sr_to_bf16`` on the element ids (g * K + row) *
-    N + col (g = 0 for a 2-D weight); rounded once to ``out_dtype``
-    (default w.dtype)."""
-    acc = x.float().transpose(-1, -2) @ g.float()
+def _momentum(acc, wgm, w, mom, seed: int, mu: float, wd: float, sr: bool, out_dtype):
+    """K19/K20's epilogue on the f32 sum ``acc`` of x^T @ g, (K, N) or (G, K,
+    N): ``m_new = (mu * mom + acc + wd * w) * wgm`` in f32, left to right as
+    the reference; ``sr`` rounds it with ``sr_to_bf16`` on the element ids
+    (g * K + row) * N + col (g = 0 for a 2-D weight); rounded once to
+    ``out_dtype`` (default w.dtype)."""
     m_new = (mu * mom.float() + acc + wd * w.float()) * wgm.float()
     if sr:
         K, N = m_new.shape[-2:]
         m_new = sr_to_bf16(m_new, seed, _gid(K, N, m_new.device,
                                              G=m_new.shape[0] if m_new.dim() == 3 else None))
     return m_new.to(out_dtype or w.dtype)
+
+
+def masked_dw_fused_plain(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
+                          sr: bool, out_dtype=None):
+    """Plain K19 (and K20 on a (G, K, N) bank, per group): ``m_new = (mu *
+    mom + x^T @ g + wd * w) * wgm`` (``_momentum`` on the f32 sum)."""
+    return _momentum(x.float().transpose(-1, -2) @ g.float(), wgm, w, mom, seed, mu, wd, sr,
+                     out_dtype)
 
 
 grouped_masked_dw_fused_plain = masked_dw_fused_plain  # plain K20
@@ -289,18 +305,34 @@ def masked_dx_split_plain(g, w, mask, n_split: int):
     return acc.to(g.dtype)
 
 
-def masked_dw_split_plain(x, g, mask, n_split: int):
-    """K15 (x (M, K), g (M, N), mask (K, N)) or K18 (every operand with a
-    leading group dim) as a split launch computes it: split s's f32 partial
-    ``x^T @ g`` over M's slabs ``fwd_split_ranges(M, n_split)[s]``, the
-    partials summed in the order s = 0, 1, ..., then multiplied by the mask
-    and rounded once to x.dtype."""
+def _split_xtg(x, g, n_split: int):
+    """x^T @ g as a split wgrad launch sums it: split s's f32 partial over
+    M's slabs ``fwd_split_ranges(M, n_split)[s]``, the partials summed in
+    the order s = 0, 1, ... (2-D, or with a leading group dim)."""
     xf, gf = x.float(), g.float()
     acc = None
     for m0, m1 in fwd_split_ranges(x.shape[-2], n_split):
         part = xf[..., m0:m1, :].transpose(-1, -2) @ gf[..., m0:m1, :]
         acc = part if acc is None else acc + part
-    return (acc * mask.float()).to(x.dtype)
+    return acc
+
+
+def masked_dw_split_plain(x, g, mask, n_split: int):
+    """K15 (x (M, K), g (M, N), mask (K, N)) or K18 (every operand with a
+    leading group dim) as a split launch computes it: the ordered sum of the
+    split's partials (``_split_xtg``), then multiplied by the mask and
+    rounded once to x.dtype."""
+    return (_split_xtg(x, g, n_split) * mask.float()).to(x.dtype)
+
+
+def masked_dw_fused_split_plain(x, g, wgm, w, mom, seed: int, n_split: int, *, mu: float,
+                                wd: float, sr: bool, out_dtype=None):
+    """K19 or K20 (every operand with a leading group dim) as a split launch
+    computes it: the ordered sum of the split's f32 partials over whole M
+    slabs (``_split_xtg``), then the momentum epilogue (``_momentum``: the
+    mask, sr), rounded once; at n_split = 1 bit for bit
+    ``masked_dw_fused_plain``."""
+    return _momentum(_split_xtg(x, g, n_split), wgm, w, mom, seed, mu, wd, sr, out_dtype)
 
 
 def fwd_split_ranges(L: int, n_split: int) -> list[tuple[int, int]]:
@@ -313,15 +345,28 @@ def fwd_split_ranges(L: int, n_split: int) -> list[tuple[int, int]]:
             for s in range(n_split)]
 
 
-def fwd_merge_plain(part, dtype, mask=None):
-    """The split merge: part[0] + part[1] + ... in that order (f32), times
-    ``mask`` where one is given (the wgrad's), rounded once to ``dtype``."""
+def _ordered_sum(part):
+    """part[0] + part[1] + ... in that order, in f32."""
     acc = part[0].clone()
     for s in range(1, part.shape[0]):
         acc += part[s]
+    return acc
+
+
+def fwd_merge_plain(part, dtype, mask=None):
+    """The split merge: the ordered sum of the partials (f32), times
+    ``mask`` where one is given (the wgrad's), rounded once to ``dtype``."""
+    acc = _ordered_sum(part)
     if mask is not None:
         acc *= mask.float()
     return acc.to(dtype)
+
+
+def masked_dw_fused_merge_plain(part, wgm, w, mom, seed: int, *, mu: float, wd: float,
+                                sr: bool, out_dtype=None):
+    """The merge of a split K19/K20 launch: the ordered sum of the partials
+    (f32), then the momentum epilogue (``_momentum``), rounded once."""
+    return _momentum(_ordered_sum(part), wgm, w, mom, seed, mu, wd, sr, out_dtype)
 
 
 def fwd_tile(Mp: int, bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int]:
@@ -329,8 +374,8 @@ def fwd_tile(Mp: int, bn_limit: int = 128, entry: str = "fwd") -> tuple[int, int
     most 64 rows (decode: one row tile, the weight read once; 64 columns
     give twice the CTAs of 128, so fewer splits), else 128 x 128, or 128 x
     64 where the caller's column tile ``bn_limit`` is below 128.  The
-    wgrad (``entry`` "dw", rows = K) always takes 128 rows."""
-    bm = 16 if Mp <= 64 and entry != "dw" else 128
+    wgrads (``entry`` "dw" or "dw_fused", rows = K) always take 128 rows."""
+    bm = 16 if Mp <= 64 and entry not in WGRADS else 128
     return bm, 64 if bm == 16 or bn_limit < 128 else 128
 
 
@@ -384,9 +429,11 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
     """A GEMM-core launch of Mp rows x L contraction -> Mp x cols on a bank
     of G groups of ``dtype`` -> (bm, bn, n_split): ``entry`` "fwd" (K13 with
     G = 1, K16) with L = K and cols = N, "dx" (K14, K17) with L = N and cols
-    = K, "dw" (K15, K18) with Mp = K, L = M and cols = N.  ``slots``: the
-    CTAs the card holds at once for the tile ``fwd_tile`` picks (SMs times
-    CTAs resident per SM).
+    = K, "dw" (K15, K18) or "dw_fused" (K19, K20: the same walk; their
+    merge applies the epilogue after the ordered sum) with Mp = K, L = M and
+    cols = N.  ``slots``: the CTAs the card holds at once for the tile
+    ``fwd_tile`` picks (SMs times CTAs resident per SM of the entry's own
+    kernel).
 
     The grid has ceil(Mp / bm) ceil(cols / bn) G tiles, and the n = ceil(L
     / FWD_SLAB) slabs may be split into n_split whole-slab parts whose f32
@@ -395,13 +442,16 @@ def fwd_plan(Mp: int, L: int, cols: int, G: int, dtype, slots: int, *,
 
     * Decode (bm = 16): the partials stay within a quarter of the weight
       and mask bytes (G L cols (e + 1)), so n_split <= L (e + 1) / (32 Mp).
-    * A wgrad walk of one slab (M <= FWD_SLAB: qwen2-moe's 16-row expert
+    * A K15/K18 walk of one slab (M <= FWD_SLAB: qwen2-moe's 16-row expert
       banks) in bf16 takes the 128 x 64 tile.  Such a CTA is only its
       copies, one slab and the store; the half tile shortens that chain
       and keeps bf16's two CTAs an SM: 0.337 against 0.356 ms and 0.357
       against 0.368 at the two banks on an H100, while f32's 128 x 64 (one
       CTA an SM, as its 128 x 128) took 0.653 against 0.514 (chip_smoke.py;
-      PERF.md).
+      PERF.md).  K19/K20's store moves 4 more bytes a weight (mom and w,
+      staged by 16-byte copies), which the 128 x 128 tile streams better:
+      0.510 against 0.586 and 0.497 against 0.573 ms at the same banks, so
+      the fused wgrad keeps it.
     * Larger row counts weigh a split of 2: it pays where the unsplit grid
       leaves most of its last wave idle (danube's f32 MLP at 2048 rows: the
       forward of wo and the dgrad of wi and wg, 320 CTAs on 132 slots).  The
@@ -444,31 +494,44 @@ def launch_info(name: str, lib_name: str, *args: int) -> dict:
                     list(out)))
 
 
-def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd") -> dict:
+def fwd_launch_info(dtype, bm: int, bn: int, entry: str = "fwd",
+                    mom_dtype=torch.bfloat16, out_dtype=None) -> dict:
     """``launch_info`` of the GEMM core's kernel at tile (bm, bn) in
-    ``dtype``, ``entry`` "fwd" (K13/K16), "dx" (K14/K17) or "dw" (K15/K18).
-    Needs a card."""
-    s = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    ``dtype``, ``entry`` "fwd" (K13/K16), "dx" (K14/K17), "dw" (K15/K18)
+    or "dw_fused" (K19/K20 with mom in ``mom_dtype`` and the output in
+    ``out_dtype``, default ``dtype``: by default the fused path's own
+    launch).  Needs a card."""
+    s = _SFX[dtype]
+    if entry == "dw_fused":
+        s = f"{s}_{_SFX[mom_dtype]}_{_SFX[out_dtype or dtype]}"
     return launch_info(f"masked_{entry}_info_{s}", "masked_matmul", bm, bn)
 
 
 @functools.lru_cache(maxsize=4096)
-def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd"):
+def _fwd_plan_for(Mp, L, cols, G, dtype, bn_limit, device_index, entry="fwd",
+                  mom_dtype=torch.bfloat16, out_dtype=None):
     """``fwd_plan`` with the card's slots (SMs times the resident CTAs of
-    ``entry``'s kernel at the tile, from the runtime), memoized."""
+    ``entry``'s kernel at the tile, from the runtime; for "dw_fused" the
+    instantiation of ``mom_dtype`` and ``out_dtype``), memoized."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     bm, bn = fwd_tile(Mp, bn_limit, entry)
-    slots = sms * fwd_launch_info(dtype, bm, bn, entry)["ctas_per_sm"]
+    slots = sms * fwd_launch_info(dtype, bm, bn, entry, mom_dtype, out_dtype)["ctas_per_sm"]
     return fwd_plan(Mp, L, cols, G, dtype, slots, bn_limit=bn_limit, entry=entry)
 
 
-def _merge(what, part, out, mask=None):
+def _merge(what, part, out, mask=None, fused=None):
     """``out`` = part[0] + part[1] + ... in order, in f32, times ``mask``
-    where one is given (bool, out's shape: the wgrad's merge), rounded once
-    to out.dtype; part (n_split, *out.shape) f32.  CUDA tensors run the
+    where one is given (bool, out's shape: the wgrad's merge), or with
+    ``fused`` = (w, mom, seed, mu, wd, sr) (w and mom of out's shape) the
+    momentum epilogue on the wgrad mask ``mask`` (K19/K20's merge), rounded
+    once to out.dtype; part (n_split, *out.shape) f32.  CUDA tensors run the
     merge kernel (one launch) or raise; CPU tensors the plain version."""
     if out.device.type == "cpu":
-        return out.copy_(fwd_merge_plain(part, out.dtype, mask))
+        if fused is None:
+            return out.copy_(fwd_merge_plain(part, out.dtype, mask))
+        w, mom, seed, mu, wd, sr = fused
+        return out.copy_(masked_dw_fused_merge_plain(part, mask, w, mom, seed, mu=mu, wd=wd,
+                                                     sr=sr, out_dtype=out.dtype))
     _device(what, out)
     s = _suffix(what, out)
     if (part.dtype != torch.float32 or part.device != out.device
@@ -476,6 +539,7 @@ def _merge(what, part, out, mask=None):
             or not (part.is_contiguous() and out.is_contiguous())):
         raise ValueError(f"{what}: part {tuple(part.shape)} {part.dtype} does not "
                          f"hold f32 partials of out {tuple(out.shape)}")
+    tail = ()
     if mask is None:
         lib, fn = _fn(f"masked_merge_{s}", [_P, _P, ctypes.c_longlong, _I, _P])
         args = (part.data_ptr(), out.data_ptr())
@@ -485,10 +549,20 @@ def _merge(what, part, out, mask=None):
                 or mask.data_ptr() % 4):
             raise ValueError(f"{what}: mask {tuple(mask.shape)} {mask.dtype} is not a "
                              f"contiguous, aligned bool mask of out {tuple(out.shape)}")
-        lib, fn = _fn(f"masked_dw_merge_{s}", [_P, _P, _P, ctypes.c_longlong, _I, _P])
-        args = (part.data_ptr(), mask.data_ptr(), out.data_ptr())
+        if fused is None:
+            lib, fn = _fn(f"masked_dw_merge_{s}", [_P, _P, _P, ctypes.c_longlong, _I, _P])
+            args = (part.data_ptr(), mask.data_ptr(), out.data_ptr())
+        else:
+            w, mom, seed, mu, wd, sr = fused
+            e = _fused_entry_name(what, _suffix(what, w), tuple(out.shape), w, w, mom,
+                                  out.dtype)
+            lib, fn = _fn(f"masked_dw_fused_merge_{e}",
+                          [_P] * 5 + [ctypes.c_longlong, _I] + list(_FUSED_TAIL) + [_P])
+            args = (part.data_ptr(), mask.data_ptr(), w.data_ptr(), mom.data_ptr(),
+                    out.data_ptr())
+            tail = (int(seed) & _M32, float(mu), float(wd), int(bool(sr)))
     with torch.cuda.device(out.device):
-        rc = fn(*args, out.numel(), part.shape[0], _stream(out))
+        rc = fn(*args, out.numel(), part.shape[0], *tail, _stream(out))
     _build.check(lib, rc, f"{what} launch")
     return out
 
@@ -524,31 +598,57 @@ def dw_merge(part, mask, out):
     return out
 
 
-def _gemm(entry, what, s, a, b, mask, G, rows, L, cols, bn_limit, plan):
-    """One GEMM-core launch, out (G, rows, cols), with the merge after a
-    split (G = 1 for K13-K15): ``entry`` "fwd" (K13/K16: a = x (G, M, K), b =
-    w; rows = M, L = K, cols = N), "dx" (K14/K17: a = g (G, M, N), b = w;
-    rows = M, L = N, cols = K) or "dw" (K15/K18: a = x (G, M, K), b = g (G,
-    M, N); rows = K, L = M, cols = N); w and mask (G, K, N)."""
+def dw_fused_merge(part, wgm, w, mom, out, seed: int, *, mu: float, wd: float, sr: bool):
+    """The merge of a split K19/K20 launch (``_merge`` with the momentum
+    epilogue: the ordered sum, then ``(mu * mom + sum + wd * w) * wgm``, sr
+    on the element ids of out's shape, one rounding to out.dtype); a launch
+    counts in ``dw_fused_merge_launches``."""
+    global dw_fused_merge_launches
+    _merge("dw_fused_merge", part, out, wgm, (w, mom, seed, mu, wd, sr))
+    if out.device.type != "cpu":
+        dw_fused_merge_launches += 1
+    return out
+
+
+def _gemm(entry, what, s, a, b, mask, G, rows, L, cols, bn_limit, plan, fused=None,
+          out_dtype=None):
+    """One GEMM-core launch, out (G, rows, cols) in ``out_dtype`` (default
+    a.dtype), with the merge after a split (G = 1 for K13-K15, K19):
+    ``entry`` "fwd" (K13/K16: a = x (G, M, K), b = w; rows = M, L = K, cols
+    = N), "dx" (K14/K17: a = g (G, M, N), b = w; rows = M, L = N, cols =
+    K), "dw" (K15/K18: a = x (G, M, K), b = g (G, M, N); rows = K, L = M,
+    cols = N) or "dw_fused" (K19/K20: as "dw", with ``fused`` = (w, mom,
+    seed, mu, wd, sr) the new momentum, ``s`` the entry's <T>_<mom>_<out>
+    suffix); w and mask (G, K, N)."""
+    kinds = () if fused is None else (fused[1].dtype, out_dtype or a.dtype)
     bm, bn, n_split = plan or _fwd_plan_for(rows, L, cols, G, a.dtype, bn_limit,
-                                            a.device.index, entry)
-    tiles = DW_TILES if entry == "dw" else FWD_TILES
+                                            a.device.index, entry, *kinds)
+    tiles = DW_TILES if entry in WGRADS else FWD_TILES
     if (bm, bn) not in tiles or not 1 <= n_split <= -(-L // FWD_SLAB):
         raise ValueError(f"{what}: plan {(bm, bn, n_split)} is not a built tile "
                          f"{tiles} with 1 <= n_split <= ceil({L} / {FWD_SLAB})")
-    out = torch.empty(G, rows, cols, dtype=a.dtype, device=a.device)
+    out = torch.empty(G, rows, cols, dtype=out_dtype or a.dtype, device=a.device)
     part = (torch.empty(n_split, G, rows, cols, dtype=torch.float32, device=a.device)
             if n_split > 1 else None)
     # the C entries take (G, M, K, N)
-    dims = {"fwd": (rows, L, cols), "dx": (rows, cols, L), "dw": (L, rows, cols)}[entry]
-    lib, fn = _fn(f"masked_{entry}_{s}", [_P] * 5 + [_I] * 7 + [_P])
+    dims = (L, rows, cols) if entry in WGRADS else {"fwd": (rows, L, cols),
+                                                    "dx": (rows, cols, L)}[entry]
+    ptrs, tail = [a.data_ptr(), b.data_ptr(), mask.data_ptr()], ()
+    if fused is not None:
+        w, mom, seed, mu, wd, sr = fused
+        ptrs += [w.data_ptr(), mom.data_ptr()]
+        tail = (int(seed) & _M32, float(mu), float(wd), int(bool(sr)))
+    lib, fn = _fn(f"masked_{entry}_{s}", [_P] * (len(ptrs) + 2) + [_I] * 7
+                  + (list(_FUSED_TAIL) if tail else []) + [_P])
     with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), b.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(), G, *dims, bm, bn, n_split,
-                _stream(a))
+        rc = fn(*ptrs, out.data_ptr(), None if part is None else part.data_ptr(), G, *dims,
+                bm, bn, n_split, *tail, _stream(a))
     _build.check(lib, rc, f"{what} launch")
     if part is not None:
-        if entry == "dw":
+        if entry == "dw_fused":
+            dw_fused_merge(part, mask.view(out.shape), w.view(out.shape), mom.view(out.shape),
+                           out, seed, mu=mu, wd=wd, sr=sr)
+        elif entry == "dw":
             dw_merge(part, mask.view(out.shape), out)
         else:
             (fwd_merge if entry == "fwd" else dx_merge)(part, out)
@@ -736,11 +836,16 @@ def masked_dw(x, g, mask, *, bn: int, bk: int, plan=None):
 
 
 def masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float, sr: bool,
-                    bn: int, bk: int, out_dtype=None):
+                    bn: int, bk: int, out_dtype=None, plan=None):
     """K19: the new SGD momentum ``(mu * mom + x^T @ g + wd * w) * wgm``
     (K, N) in ``out_dtype`` (default w.dtype), stochastically rounded onto
-    the bf16 grid when ``sr`` with the uint32 ``seed``.  x, g, w of one
-    dtype; mom bf16 or f32."""
+    the bf16 grid when ``sr`` with the uint32 ``seed``.  x (M, K), g (M,
+    N), w (K, N) of one dtype; mom bf16 or f32; M a multiple of 16, K of
+    ``bk``; ``bn`` caps the column tile.  ``fwd_plan`` picks the launch on
+    the fused kernel's own slots (rows K, contraction M, columns N), or
+    ``plan`` = (bm, bn, n_split) forces one (one of ``DW_TILES``); a split
+    is merged by ``dw_fused_merge``.  CUDA tensors run the kernel or raise;
+    CPU tensors run the plain version."""
     global fused_launches
     out_dtype = out_dtype or w.dtype
     if x.device.type == "cpu":
@@ -750,23 +855,20 @@ def masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float, sr: b
     (M, K), N = x.shape, g.shape[1]
     s = _dw_checks("masked_dw_fused", x, g, (wgm,), bn, bk)
     e = _fused_entry_name("masked_dw_fused", s, (K, N), x, w, mom, out_dtype)
-    lib, fn = _fn(f"masked_dw_fused_{e}", [_P] * 6 + [_I] * 5 + list(_FUSED_TAIL) + [_P])
-    out = torch.empty(K, N, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), wgm.data_ptr(), w.data_ptr(),
-                mom.data_ptr(), out.data_ptr(), M, K, N, bn, bk,
-                int(seed) & _M32, float(mu), float(wd), int(bool(sr)), _stream(x))
-    _build.check(lib, rc, "masked_dw_fused launch")
+    out = _gemm("dw_fused", "masked_dw_fused", e, x, g, wgm, 1, K, M, N, bn, plan,
+                (w, mom, seed, mu, wd, sr), out_dtype)
     fused_launches += 1
-    return out
+    return out[0]
 
 
 def grouped_masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: float,
-                            sr: bool, bn: int, bk: int, out_dtype=None):
+                            sr: bool, bn: int, bk: int, out_dtype=None, plan=None):
     """K20: K19 for every group of a bank in one launch: the new momentum
     ``(mu * mom + x^T @ g + wd * w) * wgm`` (G, K, N) in ``out_dtype``
     (default w.dtype), sr ids (g * K + row) * N + col.  x (G, M, K), g (G,
-    M, N), wgm, w and mom (G, K, N); M a multiple of 16."""
+    M, N), wgm, w and mom (G, K, N); M a multiple of 16; ``bn`` and
+    ``plan`` as for ``masked_dw_fused``.  CUDA tensors run the kernel or
+    raise; CPU tensors run the plain version."""
     global g_fused_launches
     out_dtype = out_dtype or w.dtype
     if x.device.type == "cpu":
@@ -779,14 +881,8 @@ def grouped_masked_dw_fused(x, g, wgm, w, mom, seed: int, *, mu: float, wd: floa
                     [(M, 16), (K, bk), (N, bn)],
                     [(g.shape[1], M), (wgm.shape, (G, K, N))])
     e = _fused_entry_name("grouped_masked_dw_fused", s, (G, K, N), x, w, mom, out_dtype)
-    lib, fn = _fn(f"masked_dw_fused_grouped_{e}",
-                  [_P] * 6 + [_I] * 6 + list(_FUSED_TAIL) + [_P])
-    out = torch.empty(G, K, N, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), wgm.data_ptr(), w.data_ptr(), mom.data_ptr(),
-                out.data_ptr(), G, M, K, N, bn, bk, int(seed) & _M32, float(mu),
-                float(wd), int(bool(sr)), _stream(x))
-    _build.check(lib, rc, "masked_dw_fused_grouped launch")
+    out = _gemm("dw_fused", "masked_dw_fused_grouped", e, x, g, wgm, G, K, M, N, bn, plan,
+                (w, mom, seed, mu, wd, sr), out_dtype)
     g_fused_launches += 1
     return out
 

@@ -77,11 +77,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ERK packs and Top-KAST supersets (mlp.wi, mlp.wo f32,
                 attn.wq bf16; 2048 and 16 rows, sr off and on, mom bf16 and
                 f32), timed beside the unfused work it replaces (K3 and the
-                SGD update); then the same model under block_sparse (128x128
+                SGD update), each case under every candidate plan (sr on
+                bit for bit sr_to_bf16 of the same plan's f32 m_new), the
+                f32 cases against a float64 epilogue, the fused merge of a
+                split pick bit for bit; then the same model under
+                block_sparse (128x128
                 blocks, flash_tight, ERK 0.8, RigL with the superset) with
                 the fused SGD epilogue, 2 x 1024 tokens in one microbatch, 2
                 steps each beside an unfused step: exactly 336 K1 and 168
-                K2 (and their planned merges), 168 K7, no K3 and 48/24/24
+                K2 (and their planned merges), 168 K7 (and their planned
+                fused merges), no K3 and 48/24/24
                 K9-K11 per fused step, the bf16
                 momentum within the reference's bound of the unfused one's
   9. paged serve -- K12 (the paged-prefix flash kernel) against its plain
@@ -149,13 +154,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                 epilogue, 2 x 1024 tokens in one microbatch (C = 171), under
                 block_sparse: K8 against its plain version (layer 0's ERK
                 banks and supersets, a uniform topology, two groups with no
-                block; 171 and 16 rows; f32 and bf16; sr off and on) and
-                against K20 bit for bit on a block-aligned mask, K7 on layer
+                block; 171 and 16 rows; f32 and bf16; sr off and on; each
+                under every candidate plan) and against K20 bit for bit on
+                a block-aligned mask (the same tile and split), K7 on layer
                 0's attn.wq (bf16) and dense shared MLP (f32) at 2048 rows,
                 sr off and on, then 2 fused steps beside unfused ones with
                 routing pinned: exactly 42 K1, 21 K2, 21 K7, 18 K4, 9 K5, 9
-                K8 (and K1's, K4's, K2's and K5's planned merges), no K3 or
-                K6 and
+                K8 (and K1's, K4's, K2's, K5's, K7's and K8's planned
+                merges), no K3 or K6 and
                 6/3/3 K9-K11 per fused step; under
                 masked: K20 on layer 0's supersets and K19 on the same 2-D
                 projections, then 42 K13, 21 K14, 21 K19, 18 K16, 9 K17, 9
@@ -826,11 +832,90 @@ def bs_merge_case(torch, timer, bsm, n_split, idx, cnt, K, N, dt, blk, tag):
                        None, check, n_bytes, 0.0, dt)
 
 
+def bs_fused_merge_case(torch, timer, bsm, n_split, idx, cnt, w, mom, blk, tag):
+    """The split merge of K7 (a 2-D pack) or K8 (a stacked one) at a split
+    pick's shape, sr on (the path's): random packed partials (n_split, G,
+    N/bn, width, bk, bn) summed in order, the momentum folded, sr, one
+    rounding, into a zeroed output's live blocks, bit for bit
+    ``bs_dw_fused_merge_plain`` (every element off the pack left at 0),
+    timed beside its byte bound (the live blocks' partials, w and mom read
+    once, the output's live blocks written once, the pack); no one PyTorch
+    call computes it."""
+    ix, cn = (idx, cnt) if idx.dim() == 3 else (idx[None], cnt[None])
+    G, nnb, width = ix.shape
+    live = int(cn.sum())
+    part = torch.randn(n_split, G, nnb, width, blk, blk, device="cuda")
+    out = torch.zeros(w.shape, dtype=w.dtype, device="cuda")
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD, sr=True)
+    merge = lambda: bsm.bs_dw_fused_merge(part, idx, cnt, w, mom, out, FUSED_SEED, **kw)
+    plain = lambda: bsm.bs_dw_fused_merge_plain(part, idx, cnt, w, mom, torch.zeros_like(out),
+                                                FUSED_SEED, **kw)
+
+    def check():
+        out.zero_()
+        if not torch.equal(merge().float(), plain().float()):
+            raise AssertionError(f"K7/K8 merge {tag}: differs from its plain version")
+        return 0.0, 0.0, 0.0
+
+    n_bytes = ((4 * n_split + 2 * w.element_size() + mom.element_size()) * live * blk * blk
+               + 4 * (idx.numel() + cnt.numel()))
+    return kernel_case(torch, timer, "bs dw fused merge", f"{tag} n_split={n_split}", merge,
+                       plain, None, check, n_bytes, 0.0, w.dtype)
+
+
+def bs_fused_sweep(torch, timer, bsm, case, x, g, bidx, bcnt, w, mom, sr, blk, sup, absp, acc,
+                   tag):
+    """K7 (x (M, K)) or K8 (x (G, M, K)) under every candidate plan on the
+    fused kernel's own slots (``fwd_sweep``, entry "bs_dw" with the case's
+    mom and output types), added to ``case``: sr off each plan's m_new
+    within ``mm.fused_error_bound`` of the plain version, sr on bit for bit
+    ``sr_to_bf16`` of the same plan's own f32 m_new and on the bf16 grid,
+    zeros off the superset (``fused_checks``); the f32 cases' RMS error
+    against the epilogue on a float64 product over the plain version's
+    (``f64_fidelity``, sr off).  Returns the fused merge's case
+    (``bs_fused_merge_case``) where the pick splits, sr on."""
+    from repro_torch.kernels import masked_matmul as mm
+
+    grouped = x.dim() == 3
+    M, K, N = x.shape[-2], x.shape[-1], g.shape[-1]
+    G = x.shape[0] if grouped else 1
+    live = int(bcnt.sum())
+    fn, plain_fn = ((bsm.grouped_block_sparse_dw_fused, bsm.grouped_block_sparse_dw_fused_plain)
+                    if grouped else (bsm.block_sparse_dw_fused, bsm.block_sparse_dw_fused_plain))
+    kw = dict(mu=FUSED_MU, wd=FUSED_WD, bn=blk, bk=blk)
+    run = lambda p, s=sr, o=None: fn(x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=s, out_dtype=o,
+                                     plan=p, live=live, **kw)
+    plain = lambda: plain_fn(x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, **kw)
+    want = None if sr else plain()
+    bound = lambda want: mm.fused_error_bound(want, absp, M, FUSED_MU, FUSED_WD, mom, w, acc,
+                                              sup)
+    gid = mm._gid(K, N, "cuda", G=G if grouped else None)
+    check_plan = lambda got, p: fused_checks(
+        torch, f"{tag} plan {list(p)}", lambda: got, lambda: want,
+        (lambda: run(p, False, torch.float32)) if sr else None, lambda: gid, sup, bound)
+    case.update(fwd_sweep(torch, timer, mm, run, K, M, N, G, x.dtype, case, entry="bs_dw",
+                          bn_limit=blk, live=live, kinds=(mom.dtype, w.dtype),
+                          check_plan=check_plan))
+    case["dense_tflop_s"] = 2.0 * G * M * K * N / case["ms"] / 1e9
+    del want
+    if x.dtype == torch.float32 and not sr:
+        case["f64_rms_over_plain"] = f64_fidelity(
+            torch, tag, lambda: run(None), plain,
+            lambda: torch.where(sup, FUSED_MU * mom.double() + x.double().transpose(-1, -2)
+                                @ g.double() + FUSED_WD * w.double(), 0.0))
+    print(tag, "plans", json.dumps(case))
+    if case["plan"][2] == 1 or not sr:
+        return []
+    return [bs_fused_merge_case(torch, timer, bsm, case["plan"][2], bidx, bcnt, w, mom, blk,
+                                tag)]
+
+
 def bs_merges(torch, cfg, state, tokens, entry="bs_dw"):
     """The split merges of one pass over ``tokens`` tokens on ``state``'s
     pack (``state["params"]`` and ``state["pack"]``): K3/K6's of a backward
     (``entry`` "bs_dw": each entry's plan on its wgrad pack's live blocks,
-    bnnz where it carries a superset, else nnz), K2/K5's ("bs_dx": on the
+    bnnz where it carries a superset, else nnz), K7/K8's of a fused backward
+    ("bs_dw_fused": the same, on the fused kernel's slots), K2/K5's ("bs_dx": on the
     forward pack's nnz) or K1/K4's of a forward ("bs_fwd": likewise); the
     attention in the compute dtype and the MLP, the shared MLP and the
     expert banks in f32 (as the model calls them), a bank's rows its
@@ -851,9 +936,12 @@ def bs_merges(torch, cfg, state, tokens, entry="bs_dw"):
         G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
         _, Mp = _row_tile(capacity(tokens, cfg) if w.dim() == 3 else tokens, bm)
         dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
-        if entry == "bs_dw":
+        if entry in ("bs_dw", "bs_dw_fused"):
             live = e["bnnz"] if "bidx" in e else e["nnz"]
-            plan = bsm._dw_plan_for(Mp, K, N, G, dt, min(bn, N), live, dev)
+            # K7/K8 on the fused kernel's slots: the fused path's bf16 momentum
+            # (fused_opt), m_new in the weight's dtype
+            kinds = (torch.bfloat16, dt) if entry == "bs_dw_fused" else ()
+            plan = bsm._dw_plan_for(Mp, K, N, G, dt, min(bn, N), live, dev, *kinds)
         elif entry == "bs_dx":
             plan = bsm._dx_plan_for(Mp, K, N, G, dt, min(bk, K), min(bn, N), e["nnz"], dev)
         else:
@@ -1422,7 +1510,7 @@ def masked_cases(torch, timer, mm, params, masks):
 
 
 def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", check=None,
-              bn_limit=128, live=None, bk=None):
+              bn_limit=128, live=None, bk=None, kinds=(), check_plan=None):
     """The GEMM core's plan at one case of ``entry`` ("fwd": K13/K16, L = K
     and cols = N; "dx": K14/K17, L = N and cols = K; "dw": K15/K18, Mp = K,
     L = M and cols = N; the block-sparse kernels, whose plans are the
@@ -1430,10 +1518,12 @@ def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", chec
     with blocks of ``bk`` (the contraction's) x ``bn_limit`` (the
     columns'), "bs_dx": K2/K5 as "dx" with blocks of ``bn_limit`` (dx's
     columns, w's rows) x ``bk`` (the contraction's), "bs_dw": K3/K6 as "dw"
-    with blocks of ``bn_limit`` columns) and every candidate plan (the
-    module's candidates on the card's slots for that kernel) timed with the
-    plan forced, each
-    first held to ``check`` (raises) where one is given, and to the same
+    with blocks of ``bn_limit`` columns, or with ``kinds`` = (mom dtype,
+    output dtype) K7/K8, on the fused kernel's own slots) and every
+    candidate plan (the module's candidates on the card's slots for that
+    kernel) timed with the plan forced, each
+    first held to ``check`` (raises) where one is given, or to
+    ``check_plan(got, plan)``, and to the same
     bits from a second launch; raises on a spill in the pick's launch: the pick, whether
     it was the fastest, the launch of the pick's tile (CTAs an SM,
     registers, shared and spill bytes), and the case's achieved rate
@@ -1453,10 +1543,10 @@ def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", chec
         slots = sms * info_of(*mm.fwd_tile(Mp, bn_limit))["ctas_per_sm"]
         pick = bsm._dx_plan_for(Mp, cols, L, G, dt, bn_limit, bk, live, dev)
         cands = bsm.dx_candidates(Mp, cols, L, G, dt, slots, bk=bn_limit, bn=bk, live=live)
-    elif entry == "bs_dw":  # K3/K6: rows Mp = K, contraction L = M
-        info_of = lambda tm, tn: bsm.dw_launch_info(dt, tm, tn)
+    elif entry == "bs_dw":  # K3/K6 (K7/K8 with kinds): rows Mp = K, contraction L = M
+        info_of = lambda tm, tn: bsm.dw_launch_info(dt, tm, tn, *kinds)
         slots = sms * info_of(*bsm.dw_tile(bn_limit))["ctas_per_sm"]
-        pick = bsm._dw_plan_for(L, Mp, cols, G, dt, bn_limit, live, dev)
+        pick = bsm._dw_plan_for(L, Mp, cols, G, dt, bn_limit, live, dev, *kinds)
         cands = bsm.dw_candidates(L, Mp, cols, G, dt, slots, bn=bn_limit, live=live)
     else:
         info_of = lambda tm, tn: mm.fwd_launch_info(dt, tm, tn, entry)
@@ -1468,9 +1558,9 @@ def fwd_sweep(torch, timer, mm, run, Mp, L, cols, G, dt, case, entry="fwd", chec
         raise AssertionError(f"{entry} tile {pick[:2]} {dt}: {info['spill_bytes']} spill bytes")
     plans = {}
     for p in cands:
-        if check is not None:
+        if check is not None or check_plan is not None:
             got = run(p)
-            check(got)
+            check(got) if check_plan is None else check_plan(got, p)
             if not torch.equal(got, run(p)):
                 raise AssertionError(f"{entry} plan {p}: two launches differ")
             del got
@@ -2026,17 +2116,20 @@ def k7_cases(torch, timer, bsm, state, cfg, proj=K7_PROJ, rows=(2048, 16),
     bf16 (the dtypes the path runs them in) on their Top-KAST superset
     packs (the path's wgrad packs), at 2048 rows (one microbatch of 2 x
     1024) and 16, sr off and on, mom in bf16 (the path's) and f32; checks
-    in ``fused_checks``, the bound ``mm.fused_error_bound``.  Bytes: x and
+    in ``fused_checks``, the bound ``mm.fused_error_bound``; each case
+    also under every candidate plan (``bs_fused_sweep``, with the f32
+    cases' float64 fidelity).  Bytes: x and
     g once, w and mom read and m_new written on the superset blocks, the
     zero fill of the rest of the dense (K, N) output; operations 2 M bk bn
-    per superset block."""
+    per superset block.  Returns (the cases, the fused merges of split
+    picks)."""
     from repro_torch.kernels import masked_matmul as mm
 
     blk = cfg.sparse.kernel_block[2]
     gen = torch.Generator(device="cuda").manual_seed(7)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     kw = dict(mu=FUSED_MU, wd=FUSED_WD)
-    out = []
+    out, merges = [], []
     for label, path, dname in proj:
         dt = getattr(torch, dname)
         w = leaf(state["params"]["layers"][0], path)["w"].to(dt)
@@ -2057,12 +2150,13 @@ def k7_cases(torch, timer, bsm, state, cfg, proj=K7_PROJ, rows=(2048, 16),
                            f"blocks={bnnz}/{K // blk * N // blk} mom {str(mdt)[6:]} sr={sr}")
                     # each case runs and is timed before the loop moves on
                     run = lambda: bsm.block_sparse_dw_fused(
-                        x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk, **kw)
+                        x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk,
+                        live=bnnz, **kw)
                     plain = lambda: bsm.block_sparse_dw_fused_plain(
                         x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bk=blk, bn=blk, **kw)
                     raw = None if not sr else lambda: bsm.block_sparse_dw_fused(
                         x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
-                        out_dtype=torch.float32, **kw)
+                        out_dtype=torch.float32, live=bnnz, **kw)
                     unfused = lambda: (FUSED_MU * mom.float() + bsm.block_sparse_dw(
                         x, g, bidx, bcnt, bn=blk, bk=blk, live=bnnz).float()
                         + FUSED_WD * w.float()).to(dt)
@@ -2075,7 +2169,9 @@ def k7_cases(torch, timer, bsm, state, cfg, proj=K7_PROJ, rows=(2048, 16),
                         es * (M * K + M * N + K * N) + (es + mom.element_size()) * bnnz * blk * blk
                         + 4 * (bidx.numel() + bcnt.numel()),
                         2.0 * M * bnnz * blk * blk, dt))
-    return out
+                    merges += bs_fused_sweep(torch, timer, bsm, out[-1], x, g, bidx, bcnt, w,
+                                             mom, sr, blk, sup, absp, acc, tag)
+    return out, merges
 
 
 def k19_moe_cases(torch, timer, mm, state, cfg, M=2048):
@@ -2138,21 +2234,23 @@ def fused_bs_train(torch, timer, bsm, fa):
     """K7 against its plain version on the path's layer 0 (``k7_cases``),
     then 2 fused steps of h2o-danube-1.8b under block_sparse beside unfused
     ones (``fused_steps``): exactly 336 K1 and their planned split merges,
-    168 K2 and theirs, 168 K7, no K3 or K3 merge and 48/24/24 K9-K11
-    launches per fused step (the unfused step: 168 K3 and their planned
-    merges in K7's place)."""
+    168 K2 and theirs, 168 K7 and their planned fused merges, no K3 or K3
+    merge and 48/24/24 K9-K11 launches per fused step (the unfused step:
+    168 K3 and their planned merges in K7's place).  Returns (stats,
+    launches, K7's cases, the fused merges' cases)."""
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.training.steps import init_train_state
 
     cfg = fused_bs_config()
     state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
-    cases = k7_cases(torch, timer, bsm, state, cfg)
+    cases, merges = k7_cases(torch, timer, bsm, state, cfg)
     counters = (("block_sparse_fwd", bsm, "launches"), ("block_sparse_dx", bsm, "dx_launches"),
                 ("block_sparse_dw", bsm, "dw_launches"),
                 ("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
                 ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
                 ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
                 ("block_sparse_dw_fused", bsm, "fused_launches"),
+                ("block_sparse_dw_fused_merge", bsm, "dw_fused_merge_launches"),
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
@@ -2163,12 +2261,14 @@ def fused_bs_train(torch, timer, bsm, fa):
             "block_sparse_fwd_merge": 2 * bs_merges(torch, cfg, state, tokens, "bs_fwd"),
             "block_sparse_dx_merge": bs_merges(torch, cfg, state, tokens, "bs_dx"),
             "block_sparse_dw_merge": 0, "block_sparse_dw_fused": n_proj,
+            "block_sparse_dw_fused_merge": bs_merges(torch, cfg, state, tokens, "bs_dw_fused"),
             "flash_fwd": 2 * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn}
-    # K3's planned split merges, in the unfused step only
-    unfused = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens)}
+    # K3's planned split merges in the unfused step only, K7's in the fused
+    unfused = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens),
+               "block_sparse_dw_fused_merge": 0}
     stats, launches = fused_steps(torch, cfg, state, counters, want, "fused block-sparse train",
                                   unfused_merges=unfused)
-    return stats, launches, cases
+    return stats, launches, cases, merges
 
 
 # ---------------------------------------------------------------------------
@@ -3411,10 +3511,13 @@ def k8_cases(torch, timer, bsm, state, cfg):
     (-> 256) and 16, f32 (the path's dtype) and bf16, sr off and on, bf16
     mom, on ``bank_topologies`` with supersets (layer 0's ERK banks, a
     uniform 20% mask, two experts with no block); checks in
-    ``fused_checks``.  Bytes on the C rows: x and g once, w and mom read
+    ``fused_checks``; each case also under every candidate plan
+    (``bs_fused_sweep``, with the f32 cases' float64 fidelity).  Bytes on
+    the C rows: x and g once, w and mom read
     and m_new written on the superset blocks, the zero fill of the rest of
     the dense (G, K, N) output; operations 2 C bk bn per superset block.
-    Yardstick: K6 then the SGD update."""
+    Yardstick: K6 then the SGD update.  Returns (the cases, the fused
+    merges of split picks)."""
     import numpy as np
     from repro_torch.kernels import masked_matmul as mm
 
@@ -3422,7 +3525,7 @@ def k8_cases(torch, timer, bsm, state, cfg):
     blk = cfg.sparse.kernel_block[2]
     lay, pk = state["params"]["layers"][0]["moe"], state["pack"]["layers"][0]["moe"]
     kw = dict(mu=FUSED_MU, wd=FUSED_WD)
-    out = []
+    out, merges = [], []
     for bank in ("wi", "wo"):
         G, K, N = lay[bank]["w"].shape
         dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk,
@@ -3446,12 +3549,13 @@ def k8_cases(torch, timer, bsm, state, cfg):
                                f"N={N} superset blocks={bnnz}/{G * (K // blk) * (N // blk)} "
                                f"width={bidx.shape[-1]} sr={sr}")
                         run = lambda: bsm.grouped_block_sparse_dw_fused(
-                            x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk, **kw)
+                            x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bn=blk, bk=blk,
+                            live=bnnz, **kw)
                         plain = lambda: bsm.grouped_block_sparse_dw_fused_plain(
                             x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=sr, bk=blk, bn=blk, **kw)
                         raw = None if not sr else lambda: bsm.grouped_block_sparse_dw_fused(
                             x, g, bidx, bcnt, w, mom, FUSED_SEED, sr=False, bn=blk, bk=blk,
-                            out_dtype=torch.float32, **kw)
+                            out_dtype=torch.float32, live=bnnz, **kw)
                         unfused = lambda: (FUSED_MU * mom.float() + bsm.grouped_block_sparse_dw(
                             x, g, bidx, bcnt, bn=blk, bk=blk, live=bnnz).float()
                             + FUSED_WD * w.float()).to(dt)
@@ -3470,7 +3574,9 @@ def k8_cases(torch, timer, bsm, state, cfg):
                             es * (G * C * K + G * C * N + G * K * N) + (es + 2) * bnnz * blk * blk
                             + 4 * (bidx.numel() + bcnt.numel()),
                             2.0 * C * bnnz * blk * blk, dt))
-    return out
+                        merges += bs_fused_sweep(torch, timer, bsm, out[-1], x, g, bidx, bcnt,
+                                                 w, mom, sr, blk, sup, absp, acc, tag)
+    return out, merges
 
 
 def k20_cases(torch, timer, bsm, mm, state, cfg):
@@ -3529,11 +3635,15 @@ def k20_cases(torch, timer, bsm, mm, state, cfg):
 def k8_equals_k20(torch, bsm, mm, state, cfg):
     """K8 and K20 on one block-aligned mask, the same inputs: layer 0's wi
     bank superset (the block-sparse path's masks are block-aligned), f32, C
-    = 171 -> 256 rows.  K8 sums in FFMA on the tile layer and K20 in 3xTF32
-    on the GEMM core, so their bits may differ: each is held, sr off,
-    within ``mm.fused_error_bound`` of the same plain version and, sr on,
-    bit for bit ``sr_to_bf16`` of its own f32 m_new; both have the same
-    zeros (sr on); max |K8 - K20| is printed.  Returns the comparison."""
+    = 171 -> 256 rows, bf16 mom.  Both run one GEMM-core walk with the same
+    momentum epilogue, so on the same tile and split they agree bit for
+    bit: each at its own pick (qwen2-moe's picks are both unsplit 128 x
+    128 here; where they differ both are forced to K20's), sr off (f32
+    m_new) and on, every element of the support bit for bit, both zero off
+    it (K20 multiplies by the mask byte, so its zeros may carry a sign;
+    K8's are +0.0).  Each is also held, sr off, within
+    ``mm.fused_error_bound`` of the same plain version.  Returns the
+    comparison."""
     blk = cfg.sparse.kernel_block[2]
     w = state["params"]["layers"][0]["moe"]["wi"]["w"]
     b = state["bwd_masks"]["layers"][0]["moe"]["wi"]["w"]
@@ -3542,30 +3652,41 @@ def k8_equals_k20(torch, bsm, mm, state, cfg):
     _, Mp, _, g = grouped_rows(torch, G, MOE_ROWS[0], N, w.dtype)
     _, _, _, x = grouped_rows(torch, G, MOE_ROWS[0], K, w.dtype)
     mom = (0.01 * torch.randn(G, K, N, device="cuda") * b).to(torch.bfloat16)
+    bnnz, dev = int(e["bcnt"].sum()), torch.cuda.current_device()
     kw = dict(mu=FUSED_MU, wd=FUSED_WD, bn=blk, bk=blk)
+    picks = {"K8": list(bsm._dw_plan_for(Mp, K, N, G, w.dtype, blk, bnnz, dev, mom.dtype,
+                                         w.dtype)),
+             "K20": list(mm._fwd_plan_for(K, Mp, N, G, w.dtype, blk, dev, "dw_fused",
+                                          mom.dtype, w.dtype))}
+    plan = None if picks["K8"] == picks["K20"] else tuple(picks["K20"])
     runs = {"K8": lambda sr, o=None: bsm.grouped_block_sparse_dw_fused(
-                x, g, e["bidx"], e["bcnt"], w, mom, FUSED_SEED, sr=sr, out_dtype=o, **kw),
+                x, g, e["bidx"], e["bcnt"], w, mom, FUSED_SEED, sr=sr, out_dtype=o, plan=plan,
+                live=bnnz, **kw),
             "K20": lambda sr, o=None: mm.grouped_masked_dw_fused(
-                x, g, b, w, mom, FUSED_SEED, sr=sr, out_dtype=o, **kw)}
+                x, g, b, w, mom, FUSED_SEED, sr=sr, out_dtype=o, plan=plan, **kw)}
     want = mm.grouped_masked_dw_fused_plain(x, g, b, w, mom, FUSED_SEED, mu=FUSED_MU,
                                             wd=FUSED_WD, sr=False)
     xt = x.float().transpose(1, 2)
     bound = mm.fused_error_bound(want, torch.bmm(xt.abs(), g.float().abs()), Mp, FUSED_MU,
                                  FUSED_WD, mom, w, torch.bmm(xt, g.float()), b)
-    gid = mm._gid(K, N, "cuda", G=G)
-    res, sr_out = {}, {}
+    res = {"picks": picks, "forced": None if plan is None else list(plan)}
+    out = {}
     for name, run in runs.items():
         ok, ratio, _ = within(torch, run(False), want, bound)
-        sr_out[name] = run(True)
-        bits = torch.equal(sr_out[name].float(),
-                           mm.sr_to_bf16(run(False, torch.float32), FUSED_SEED, gid))
-        res[name] = {"within_bound": ok, "err_over_tol": ratio, "sr_bit_for_bit": bits}
-    res["same_zeros"] = torch.equal(sr_out["K8"] == 0, sr_out["K20"] == 0)
-    res["max_abs_k8_minus_k20"] = (sr_out["K8"].float() - sr_out["K20"].float()).abs().max().item()
-    res["nonzero"] = int((sr_out["K8"] != 0).sum())
+        out[name] = {sr: run(sr, torch.float32 if not sr else None) for sr in (False, True)}
+        res[name] = {"within_bound": ok, "err_over_tol": ratio}
+    for sr in (False, True):
+        k8, k20 = out["K8"][sr].float(), out["K20"][sr].float()
+        res[f"bit_for_bit_sr_{sr}"] = torch.equal(k8[b].view(torch.int32),
+                                                  k20[b].view(torch.int32))
+        res[f"zero_off_support_sr_{sr}"] = not (k8[~b].any() or k20[~b].any()
+                                                or torch.signbit(k8[~b]).any())
+    res["max_abs_k8_minus_k20"] = (out["K8"][False] - out["K20"][False]).abs().max().item()
+    res["nonzero"] = int((out["K8"][True] != 0).sum())
     print("moe fused train: K8 and K20 on layer 0's wi superset:", json.dumps(res))
-    if not (all(res[k]["within_bound"] and res[k]["sr_bit_for_bit"] for k in runs)
-            and res["same_zeros"]):
+    if not (all(res[k]["within_bound"] for k in runs)
+            and all(res[f"{c}_sr_{sr}"] for c in ("bit_for_bit", "zero_off_support")
+                    for sr in (False, True))):
         raise AssertionError(f"K8 and K20 on a block-aligned mask: {res}")
     return res
 
@@ -3582,9 +3703,9 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     K1, 21 K2, 21 K7, 18 K4, 9 K5, 9 K8 (and the planned split merges of
     K1/K4 and K2/K5), no K3 or K6 (block_sparse), or 42
     K13, 21 K14, 21 K19, 18 K16, 9 K17, 9 K20, no K15 or K18 (masked), and
-    6/3/3 K9-K11 per fused step, and the planned fused merges of K19/K20
-    (masked).  Returns (stats, launches, the bank kernel's cases, the 2-D
-    kernel's cases, the fused merges' cases)."""
+    6/3/3 K9-K11 per fused step, and the planned fused merges of K7/K8
+    (block_sparse) or K19/K20 (masked).  Returns (stats, launches, the bank
+    kernel's cases, the 2-D kernel's cases, the fused merges' cases)."""
     from repro_torch.training.steps import init_train_state
 
     bs = kernel == "block_sparse"
@@ -3594,10 +3715,11 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     state, _ = init_train_state(cfg, fused_opt()[0], seed=0, device="cuda")
     merges = []
     if bs:
-        cases = k8_cases(torch, timer, bsm, state, cfg)
+        cases, merges = k8_cases(torch, timer, bsm, state, cfg)
         k8_k20 = k8_equals_k20(torch, bsm, mm, state, cfg)
-        cases_2d = k7_cases(torch, timer, bsm, state, cfg, proj=MOE_FUSED_PROJ, rows=(2048,),
-                            moms=("bfloat16",), model="qwen2-moe")
+        cases_2d, merges_2d = k7_cases(torch, timer, bsm, state, cfg, proj=MOE_FUSED_PROJ,
+                                       rows=(2048,), moms=("bfloat16",), model="qwen2-moe")
+        merges += merges_2d
     else:
         cases, merges = k20_cases(torch, timer, bsm, mm, state, cfg)
         cases_2d, merges_2d = k19_moe_cases(torch, timer, mm, state, cfg)
@@ -3614,16 +3736,21 @@ def moe_fused_train(torch, timer, bsm, mm, fa, kernel):
     L, B = cfg.n_layers, len(MOE_BANKS)
     dx_merge, dw_merge = {}, None
     if bs:  # K1's and K4's planned split merges (twice: remat) and K2's and
-        # K5's in both steps, K3's and K6's in the unfused step only
+        # K5's in both steps, K3's and K6's in the unfused step only, K7's
+        # and K8's in the fused step only
         tokens = MASKED_BATCH * TRAIN_SEQ
         counters += (("block_sparse_fwd_merge", bsm, "fwd_merge_launches"),
                      ("block_sparse_dx_merge", bsm, "dx_merge_launches"),
-                     ("block_sparse_dw_merge", bsm, "dw_merge_launches"))
+                     ("block_sparse_dw_merge", bsm, "dw_merge_launches"),
+                     ("block_sparse_dw_fused_merge", bsm, "dw_fused_merge_launches"))
         dx_merge = {"block_sparse_fwd_merge": 2 * bs_merges(torch, cfg, state, tokens,
                                                             "bs_fwd"),
                     "block_sparse_dx_merge": bs_merges(torch, cfg, state, tokens, "bs_dx"),
-                    "block_sparse_dw_merge": 0}
-        dw_merge = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens)}
+                    "block_sparse_dw_merge": 0,
+                    "block_sparse_dw_fused_merge": bs_merges(torch, cfg, state, tokens,
+                                                             "bs_dw_fused")}
+        dw_merge = {"block_sparse_dw_merge": bs_merges(torch, cfg, state, tokens),
+                    "block_sparse_dw_fused_merge": 0}
     else:  # K14's and K17's planned split merges (one microbatch), K19's and
         # K20's in the fused step only, K15's and K18's in the unfused step only
         tokens, layer0 = MASKED_BATCH * TRAIN_SEQ, state["params"]["layers"][0]
@@ -4083,7 +4210,7 @@ def main() -> int:
     done("masked train")
     fused_stats, fused_launches = fused_train(torch, mm)
     done("fused train")
-    fused_bs_stats, fused_bs_launches, k7 = fused_bs_train(torch, timer, bsm, fa)
+    fused_bs_stats, fused_bs_launches, k7, k7_merges = fused_bs_train(torch, timer, bsm, fa)
     done("fused block-sparse train, parity K7")
     k12 = k12_cases(torch, timer, fa)
     done("parity K12")
@@ -4104,9 +4231,10 @@ def main() -> int:
     moe_mtrain_stats, moe_mtrain_launches, k1718 = moe_train(torch, timer, bsm, mm, fa,
                                                              "masked")
     done("moe masked train, parity K17, K18")
-    moe_fused_stats, moe_fused_launches, k8, k7_moe, _ = moe_fused_train(
+    moe_fused_stats, moe_fused_launches, k8, k7_moe, k78_merges = moe_fused_train(
         torch, timer, bsm, mm, fa, "block_sparse")
     k7 += k7_moe
+    k7_merges += k78_merges
     done("moe fused train, parity K8, K8 vs K20, K7")
     moe_mfused_stats, moe_mfused_launches, k20, k19_moe, k20_merges = moe_fused_train(
         torch, timer, bsm, mm, fa, "masked")
@@ -4232,6 +4360,10 @@ def main() -> int:
                 kern + "block_sparse_matmul.py:900", k7),
         summary("grouped_block_sparse_dw_fused", csrc + "block_sparse_grouped.cu",
                 kern + "block_sparse_matmul.py:1078", k8),
+        # K7's and K8's split merge (block_sparse_dw_fused_merge_kernel: K3's
+        # merge with the momentum epilogue), where a timed case's plan splits
+        *([summary("block_sparse_dw_fused_merge", csrc + "block_sparse_bwd.cu",
+                   kern + "block_sparse_matmul.py:900", k7_merges)] if k7_merges else []),
         summary("grouped_masked_dw_fused", csrc + "masked_matmul.cu",
                 kern + "masked_matmul.py:616", k20),
         summary("histogram_abs", csrc + "topk_threshold.cu", kern + "topk_threshold.py:29",
@@ -4250,7 +4382,8 @@ def main() -> int:
          "moe_engine": moe_stats, "moe_masked_engine": moe_m_stats,
          "k10_g1": k10_g1, "k11_g1": k11_g1, "k5_k6": k56, "k17_k18": k1718,
          "moe_train": moe_train_stats, "moe_masked_train": moe_mtrain_stats,
-         "fused_block_sparse_train": fused_bs_stats, "k7": k7, "k8": k8, "k20": k20,
+         "fused_block_sparse_train": fused_bs_stats, "k7": k7, "k8": k8,
+         "bs_dw_fused_merge": k7_merges, "k20": k20,
          "moe_fused_train": moe_fused_stats, "moe_masked_fused_train": moe_mfused_stats,
          "k21": k21, "topk_threshold": topk_thr, "methods": methods,
          "launches": by_path, "report": report}, indent=1))

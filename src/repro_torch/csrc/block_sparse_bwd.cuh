@@ -72,25 +72,30 @@
 //    slots writing nothing, and block_sparse_dw_merge_kernel sums each live
 //    slot's parts in order, rounds once and writes the block into dw: the
 //    merge moves the live blocks only.
-//  * fused wgrad (K7/K8): the old wgrad CTA on the tile layer, whose store
-//    reads the block's w
-//    and mom tiles and writes m_new in the output type (w's on the
-//    training path, f32 for a check before the rounding).  The reference
-//    wrote every slot of a packed array, zeroed the padded ones before sr
-//    and scattered them with .add into a zero (K, N); here a padded slot
-//    returns before any store into the zero-filled dense output, which is
-//    the same function.  The sr id is the element's (g * K + row) * N +
-//    col in wrapping uint32, as the reference's.  A group with no active
-//    block writes nothing (exact zeros); a dead expert whose blocks are
-//    active but which got no rows stores mu * mom + wd * w there.
+//  * fused wgrad (K7/K8): K3/K6's kernel with another epilogue policy
+//    (epilogue.cuh's Momentum without a mask, the policy K19/K20 take with
+//    theirs), not a second walk.  After the walk (and the exact re-walk) an
+//    unsplit CTA stages its block's w and mom tiles into the ring's free
+//    shared memory by cp.async where both fit (else the fold reads them
+//    from global memory), folds mu * mom + acc + wd * w into its sums in
+//    epi::momentum's order, and stores m_new in the output type (w's on
+//    the training path, f32 for a check before the rounding), with sr
+//    rounded onto the bf16 grid on the element's id (g * K + row) * N +
+//    col in wrapping uint32, as the reference's.  A split stores the same
+//    unfused f32 partials as K3's, and block_sparse_dw_fused_merge_kernel
+//    (K3's merge with the Momentum policy) sums each live slot's parts in
+//    order, then folds the momentum, applies sr and rounds once.  The reference wrote every
+//    slot of a packed array, zeroed the padded ones before sr and scattered
+//    them with .add into a zero (K, N); here a padded slot returns before
+//    any copy into the zero-filled dense output, which is the same
+//    function.  A group with no active block writes nothing (exact zeros);
+//    a dead expert whose blocks are active but which got no rows stores mu
+//    * mom + wd * w there.
 // Each CTA loops to its own group's count, never to the shared width, so a
 // lopsided expert that widens the pack costs the others nothing but the
-// early return of their padded wgrad slots.
-// K7 and K8 accumulate in f32 on the tile layer (tile_mma.cuh): bf16 on
-// the tensor cores (wmma), f32 in full-precision FFMA (the reference's f32
-// MLP and MoE banks); K2/K5 and K3/K6 as the GEMM core does.  Each output
-// is rounded once to the element type (dx: g's, dw: w's, which the
-// wrappers hand in alike).
+// early return of their padded wgrad slots.  Each output is rounded once to
+// the element type (dx: g's, dw: w's, which the wrappers hand in alike;
+// m_new: the output type).
 //
 // Bound on the H100: at the training shapes (M = 2048 rows, or an MoE
 // bank's capacity of ~176 rows per expert, 128x128 blocks) each does 2 * M
@@ -101,14 +106,12 @@
 // hundred rows (the GEMM core's f32 runs as 3xTF32 on the tensor cores,
 // 495 TFLOP/s of TF32 for three products a multiply-add).  K7/K8 add the
 // reads of the superset blocks' w and mom tiles (and write m_new there
-// instead of dw): a few percent more bytes, the same flops; they use
-// synchronous loads and wmma/FFMA (no cp.async/TMA, no wgmma).  The times
+// instead of dw): a few percent more bytes, the same flops.  The times
 // against the bound are in PERF.md.
 #pragma once
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm_launch.cuh"
-#include "tile_mma.cuh"  // K7/K8 (the fused wgrad) only
 
 namespace {
 
@@ -170,27 +173,28 @@ block_sparse_dx_gemm_kernel(const typename C::Type* __restrict__ g,
   }
 }
 
-// K3/K6 on the GEMM core.  x (G, Mp, K), g (G, Mp, N), idx (G, N/bn,
-// width), cnt (G, N/bn), dw (G, K, N) zero-filled by the caller; C a
-// wgrad configuration (A = x^T by ColsA, B = g by DenseRowsB) whose tile
-// holds a (bk, bn) block; blockIdx = (slot s, block column j, group *
-// n_split + split).  Split sp walks the slabs [sp n / n_split, (sp + 1) n /
-// n_split) of the n = ceil(Mp / 32) and, when n_split > 1, stores its f32
-// partial into the packed part (n_split, G, N/bn, width, bk, bn) in place
-// of dw.
-template <class C>
+// K3/K6 (Epi = epi::Out) and K7/K8 (Epi = epi::Momentum without a mask) on
+// the GEMM core.  x (G, Mp, K), g (G, Mp, N), idx (G, N/bn, width), cnt
+// (G, N/bn); the output (G, K, N), zero-filled by the caller, written by
+// Epi on the live blocks; C a wgrad configuration (A = x^T by ColsA, B = g
+// by DenseRowsB) whose tile holds a (bk, bn) block; blockIdx = (slot s,
+// block column j, group * n_split + split).  Split sp walks the slabs [sp
+// n / n_split, (sp + 1) n / n_split) of the n = ceil(Mp / 32) and, when
+// n_split > 1, stores its f32 partial (the sum alone, whatever Epi) into
+// the packed part (n_split, G, N/bn, width, bk, bn) in place of Epi's
+// store.
+template <class C, class Epi>
 __global__ void __launch_bounds__(C::kThreads, C::MIN_CTAS)
 block_sparse_dw_gemm_kernel(const typename C::Type* __restrict__ x,
                             const typename C::Type* __restrict__ g,
                             const int* __restrict__ idx, const int* __restrict__ cnt,
-                            typename C::Type* __restrict__ dw, float* __restrict__ part,
-                            int G, int Mp, int K, int N, int width, int bk, int bn,
-                            int n_split) {
+                            const Epi epi, float* __restrict__ part, int G, int Mp, int K,
+                            int N, int width, int bk, int bn, int n_split) {
   using T = typename C::Type;
   const int s = blockIdx.x, j = blockIdx.y;
   const int grp = blockIdx.z / n_split, sp = blockIdx.z % n_split;
   const size_t col = (size_t)grp * (N / bn) + j;  // the group's block column
-  if (s >= cnt[col]) return;  // a padded slot: dw stays zero there, part unwritten
+  if (s >= cnt[col]) return;  // a padded slot: the output stays zero there, part unwritten
   extern __shared__ __align__(128) unsigned char smem[];
   const int k0 = idx[col * width + s] * bk, n0 = j * bn;
   const T* xg = x + (size_t)grp * Mp * K;
@@ -213,9 +217,10 @@ block_sparse_dw_gemm_kernel(const typename C::Type* __restrict__ x,
     }
   }
   if (n_split == 1) {
-    T* o = dw + (size_t)grp * K * N;
+    const size_t plane0 = (size_t)grp * K * N;
+    epi.template fold<C>(warp, plane0, N, k0 + bk, n0 + bn, k0, n0, smem);
     gemm::store(warp, k0 + bk, n0 + bn, k0, n0, [&](int r, int c, float v0, float v1) {
-      gemm::store2(o + (size_t)r * N + c, v0, v1);
+      epi.pair(plane0 + (size_t)r * N + c, v0, v1, 0u);
     });
   } else {
     float* p = part + (((size_t)sp * G * (N / bn) + col) * width + s) * bk * bn;
@@ -225,28 +230,30 @@ block_sparse_dw_gemm_kernel(const typename C::Type* __restrict__ x,
   }
 }
 
-// The split merge of K3/K6: for every live slot (s, j, group), the sum over
-// sp of part[sp] at the slot (sp = 0, 1, ... in order), rounded once to dw's
-// type and written into the block's place in dw.  Padded slots are neither
-// read nor written; the merge moves the live blocks only.  A block's
-// float4s are spread over kMergeChunks CTAs (blockIdx.z = group *
+// The split merge of K3/K6 and K7/K8: for every live slot (s, j, group),
+// the sum over sp of part[sp] at the slot (sp = 0, 1, ... in order), then
+// Epi's store into the block's place in the output: rounded once (K3/K6),
+// or the momentum folded, sr, rounded once (K7/K8).  Padded slots are
+// neither read nor written; the merge moves the live blocks only.  A
+// block's float4s are spread over kMergeChunks CTAs (blockIdx.z = group *
 // kMergeChunks + chunk) and each thread's loads are unrolled: one CTA a
 // block kept too few loads in flight (a 70-block merge took 19 µs for 12
 // MB on an H100, PERF.md).
 constexpr int kMergeChunks = 4;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-block_sparse_dw_merge_kernel(const float* __restrict__ part, const int* __restrict__ idx,
-                             const int* __restrict__ cnt, T* __restrict__ dw, int G, int K,
-                             int N, int width, int bk, int bn, int n_split) {
+template <class Epi>
+__device__ __forceinline__ void merge_blocks(const float* __restrict__ part,
+                                             const int* __restrict__ idx,
+                                             const int* __restrict__ cnt, const Epi& epi, int G,
+                                             int K, int N, int width, int bk, int bn,
+                                             int n_split) {
   const int s = blockIdx.x, grp = blockIdx.z / kMergeChunks;
   const size_t col = (size_t)grp * (N / bn) + blockIdx.y;
   if (s >= cnt[col]) return;
   const int k0 = idx[col * width + s] * bk, n0 = blockIdx.y * bn;
   const size_t area = (size_t)bk * bn, plane4 = (size_t)G * (N / bn) * width * area / 4;
   const float4* p = reinterpret_cast<const float4*>(part + (col * width + s) * area);
-  T* o = dw + ((size_t)grp * K + k0) * N + n0;
+  const size_t o = ((size_t)grp * K + k0) * N + n0;  // the block's first element
   const int n4 = bk * bn / 4, per = (n4 + kMergeChunks - 1) / kMergeChunks;
   const int i0 = (blockIdx.z % kMergeChunks) * per, i1 = min(n4, i0 + per);
 #pragma unroll 4
@@ -259,36 +266,30 @@ block_sparse_dw_merge_kernel(const float* __restrict__ part, const int* __restri
       v.z += q.z;
       v.w += q.w;
     }
-    gemm::store4(o + (size_t)(4 * i / bn) * N + 4 * i % bn, v);
+    epi.quad(o + (size_t)(4 * i / bn) * N + 4 * i % bn, v);
   }
 }
 
-template <typename T, typename TM, typename TO>
-__global__ void __launch_bounds__(tile::kThreads)
-block_sparse_dw_fused_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                             const int* __restrict__ idx, const int* __restrict__ cnt,
-                             const T* __restrict__ w, const TM* __restrict__ mom,
-                             TO* __restrict__ out, int Mp, int K, int N, int width,
-                             int bn, int bk, unsigned seed, float mu, float wd, int sr) {
-  const int j = blockIdx.x, s = blockIdx.y;
-  const size_t grp = blockIdx.z, nnb = N / bn;
-  if (s >= cnt[grp * nnb + j]) return;  // padded slot: out stays zero there
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);               // bk x (kSlab + pad): x^T slab
-  T* gs = xs + bk * (tile::kSlab + tile::pad<T>());  // kSlab x (bn + pad)
-  float* scratch = reinterpret_cast<float*>(gs + tile::kSlab * (bn + tile::pad<T>()));
-  const size_t off = grp * K * N;
-  const int k0 = idx[(grp * nnb + j) * width + s] * bk;
-  const int n0 = j * bn;
+// K3/K6's merge keeps ptxas's own register count (40 on an H100): held to
+// 64 its 4-split merge at 286 f32 blocks took 45 µs against 43, and with a
+// minimum of one CTA an SM it took 118 registers and 52 µs (PERF.md).
+template <class Epi>
+__global__ void __launch_bounds__(256)
+block_sparse_dw_merge_kernel(const float* __restrict__ part, const int* __restrict__ idx,
+                             const int* __restrict__ cnt, const Epi epi, int G, int K, int N,
+                             int width, int bk, int bn, int n_split) {
+  merge_blocks(part, idx, cnt, epi, G, K, N, width, bk, bn, n_split);
+}
 
-  tile::Acc<T> acc;
-  tile::xtg(acc, xs, gs, x + grp * Mp * K, g + grp * Mp * N, Mp, K, N, k0, n0, bn, bk);
-  acc.store(scratch, bk, bn, [&](int r, int c, float v) {
-    const size_t i = off + (size_t)(k0 + r) * N + n0 + c;
-    float mn = epi::momentum(mu, mom[i], v, wd, w[i]);
-    if (sr) mn = epi::sr_to_bf16(mn, seed, epi::element_id(grp, K, N, k0 + r, n0 + c));
-    out[i] = tile::from_float<TO>(mn);
-  });
+// K7/K8's holds at most 64 registers a thread (4 CTAs an SM), as the
+// masked merges: ptxas had held a momentum merge of a bf16 w to 32 and
+// spilled.
+template <class Epi>
+__global__ void __launch_bounds__(256, 4)
+block_sparse_dw_fused_merge_kernel(const float* __restrict__ part, const int* __restrict__ idx,
+                                   const int* __restrict__ cnt, const Epi epi, int G, int K,
+                                   int N, int width, int bk, int bn, int n_split) {
+  merge_blocks(part, idx, cnt, epi, G, K, N, width, bk, bn, n_split);
 }
 
 // g (G, Mp, N), w (G, K, N) row-major in the element type; ridx (G, K/bk,
@@ -331,73 +332,53 @@ int block_sparse_dx_info(int tm, int tn, int width, int* out) {
   });
 }
 
-// K3/K6: the wgrad kernel on the tile (tm, tn) (a built wgrad tile that
-// holds the block: bk <= tm, bn <= tn), split in n_split; with n_split > 1
-// part is the workspace (n_split, G, N/bn, width, bk, bn) f32 and
-// launch_block_sparse_dw_merge must follow.
-template <typename T>
+// K3/K6 (Epi = epi::Out<T>) and K7/K8 (Epi = epi::Momentum<T, TM, TO,
+// false>): the wgrad kernel on the tile (tm, tn) (a built wgrad tile that
+// holds the block: bk <= tm, bn <= tn), split in n_split; with n_split >
+// 1 part is the workspace (n_split, G, N/bn, width, bk, bn) f32 and
+// launch_block_sparse_dw_merge with the same policy must follow.  The
+// wrappers check Mp % 16 == 0, K % bk == 0, N % bn == 0, bk and bn
+// multiples of 16 up to 128, 16-byte alignment.
+template <typename T, class Epi>
 int launch_block_sparse_dw(const void* x, const void* g, const void* idx, const void* cnt,
-                           void* dw, void* part, int G, int Mp, int K, int N, int width,
+                           const Epi& epi, void* part, int G, int Mp, int K, int N, int width,
                            int bk, int bn, int tm, int tn, int n_split, void* stream) {
   if (bk > tm || bn > tn) return static_cast<int>(cudaErrorInvalidValue);
   return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(tm, tn, [&](auto tag) {
     using C = typename decltype(tag)::type;
-    const auto kernel = block_sparse_dw_gemm_kernel<C>;
+    const auto kernel = block_sparse_dw_gemm_kernel<C, Epi>;
     cudaError_t err = gemm::prepare(kernel, C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(width, N / bn, G * n_split);
     kernel<<<grid, C::kThreads, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const int*>(idx),
-        static_cast<const int*>(cnt), static_cast<T*>(dw), static_cast<float*>(part), G, Mp,
-        K, N, width, bk, bn, n_split);
+        static_cast<const int*>(cnt), epi, static_cast<float*>(part), G, Mp, K, N, width, bk,
+        bn, n_split);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-template <typename T>
-int launch_block_sparse_dw_merge(const void* part, const void* idx, const void* cnt, void* dw,
-                                 int G, int K, int N, int width, int bk, int bn, int n_split,
-                                 void* stream) {
+// kernel: block_sparse_dw_merge_kernel<Epi> (K3/K6) or
+// block_sparse_dw_fused_merge_kernel<Epi> (K7/K8).
+template <class Kernel, class Epi>
+int launch_block_sparse_dw_merge(Kernel kernel, const void* part, const void* idx,
+                                 const void* cnt, const Epi& epi, int G, int K, int N, int width,
+                                 int bk, int bn, int n_split, void* stream) {
   const dim3 grid(width, N / bn, G * kMergeChunks);
-  block_sparse_dw_merge_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<const int*>(idx),
-      static_cast<const int*>(cnt), static_cast<T*>(dw), G, K, N, width, bk, bn, n_split);
+      static_cast<const int*>(cnt), epi, G, K, N, width, bk, bn, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: gemm::launch_info of the wgrad kernel on the tile (tm, tn).
-template <typename T>
+// out: gemm::launch_info of the wgrad kernel with the policy Epi on the
+// tile (tm, tn).
+template <typename T, class Epi>
 int block_sparse_dw_info(int tm, int tn, int* out) {
   return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(tm, tn, [&](auto tag) {
     using C = typename decltype(tag)::type;
-    return gemm::launch_info(block_sparse_dw_gemm_kernel<C>, C::SMEM, C::kThreads, out);
+    return gemm::launch_info(block_sparse_dw_gemm_kernel<C, Epi>, C::SMEM, C::kThreads, out);
   });
-}
-
-// K7/K8's shared bytes: the x^T and g slabs and the bf16 epilogue's staging.
-template <typename T>
-size_t fused_smem_bytes(int rows, int cols) {
-  return sizeof(T) * (rows * (tile::kSlab + tile::pad<T>()) +
-                      tile::kSlab * (cols + tile::pad<T>())) +
-         tile::epilogue_bytes<T>();
-}
-
-// The wrappers check Mp % 16 == 0, K % bk == 0, N % bn == 0, bk and bn
-// multiples of 16 up to 128, 16-byte alignment.
-template <typename T, typename TM, typename TO>
-int launch_block_sparse_dw_fused(const void* x, const void* g, const void* idx,
-                                 const void* cnt, const void* w, const void* mom, void* out,
-                                 int G, int Mp, int K, int N, int width, int bn, int bk,
-                                 unsigned seed, float mu, float wd, int sr, void* stream) {
-  const dim3 grid(N / bn, width, G);
-  block_sparse_dw_fused_kernel<T, TM, TO>
-      <<<grid, tile::kThreads, fused_smem_bytes<T>(bk, bn),
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const int*>(idx),
-          static_cast<const int*>(cnt), static_cast<const T*>(w),
-          static_cast<const TM*>(mom), static_cast<TO*>(out), Mp, K, N, width, bn, bk,
-          seed, mu, wd, sr);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

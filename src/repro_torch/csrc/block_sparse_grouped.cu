@@ -20,8 +20,10 @@
 // loops over exactly its own group's count (a lopsided expert widens only
 // the packed arrays, not the other groups' loops).  K4 is K1's kernel on
 // the GEMM core with the packed walk (block_sparse_fwd.cuh), K5/K6/K8 are
-// K2/K3/K7's (block_sparse_bwd.cuh; K5 on the GEMM core with the packed
-// walk, a split of K4 or K5 merged by masked_matmul.cu's masked_merge_<S>);
+// K2/K3/K7's (block_sparse_bwd.cuh, on the GEMM core; a split of K4 or K5
+// merged by masked_matmul.cu's masked_merge_<S>, of K6 or K8 by
+// block_sparse_bwd.cu's block_sparse_dw_merge_<S> or
+// block_sparse_dw_fused_merge_<...>);
 // the designs, their traps (a dead expert writes zero outputs, zero dx
 // rows and a zero dw; a group with no active block a zero m_new) and their
 // bounds are there.
@@ -77,29 +79,36 @@ extern "C" int block_sparse_grouped_dw_bf16(const void* x, const void* g, const 
                                             const void* cnt, void* dw, void* part, int G,
                                             int Mp, int K, int N, int width, int bk, int bn,
                                             int tm, int tn, int n_split, void* stream) {
-  return launch_block_sparse_dw<__nv_bfloat16>(x, g, idx, cnt, dw, part, G, Mp, K, N, width,
-                                               bk, bn, tm, tn, n_split, stream);
+  return launch_block_sparse_dw<__nv_bfloat16>(x, g, idx, cnt,
+                                               epi::Out<__nv_bfloat16>{(__nv_bfloat16*)dw},
+                                               part, G, Mp, K, N, width, bk, bn, tm, tn,
+                                               n_split, stream);
 }
 
 extern "C" int block_sparse_grouped_dw_f32(const void* x, const void* g, const void* idx,
                                            const void* cnt, void* dw, void* part, int G,
                                            int Mp, int K, int N, int width, int bk, int bn,
                                            int tm, int tn, int n_split, void* stream) {
-  return launch_block_sparse_dw<float>(x, g, idx, cnt, dw, part, G, Mp, K, N, width, bk, bn,
-                                       tm, tn, n_split, stream);
+  return launch_block_sparse_dw<float>(x, g, idx, cnt, epi::Out<float>{(float*)dw}, part, G,
+                                       Mp, K, N, width, bk, bn, tm, tn, n_split, stream);
 }
 
 // K8: block_sparse_grouped_dw_fused_<x/g/w type>_<mom type>_<output type>;
 // x (G, Mp, K), g (G, Mp, N), w and mom (G, K, N), out (G, K, N) zero-filled
-// by the caller; idx (G, N/bn, width), cnt (G, N/bn) int32.  Mp % 16 == 0.
-#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                            \
-  extern "C" int block_sparse_grouped_dw_fused_##S##_##SM##_##SO(                    \
-      const void* x, const void* g, const void* idx, const void* cnt, const void* w, \
-      const void* mom, void* out, int G, int Mp, int K, int N, int width, int bn,    \
-      int bk, unsigned seed, float mu, float wd, int sr, void* stream) {             \
-    return launch_block_sparse_dw_fused<T, TM, TO>(x, g, idx, cnt, w, mom, out, G,   \
-                                                   Mp, K, N, width, bn, bk, seed,    \
-                                                   mu, wd, sr, stream);              \
+// by the caller; idx (G, N/bn, width), cnt (G, N/bn) int32.  Mp % 16 == 0;
+// (tm, tn) a built wgrad tile that holds the (bk, bn) block; with n_split >
+// 1, part is the f32 workspace (n_split, G, N/bn, width, bk, bn) and
+// block_sparse_bwd.cu's block_sparse_dw_fused_merge_<...> must follow.
+#define FUSED_ENTRY(S, T, SM, TM, SO, TO)                                              \
+  extern "C" int block_sparse_grouped_dw_fused_##S##_##SM##_##SO(                      \
+      const void* x, const void* g, const void* idx, const void* cnt, const void* w,   \
+      const void* mom, void* out, void* part, int G, int Mp, int K, int N, int width,  \
+      int bk, int bn, int tm, int tn, int n_split, unsigned seed, float mu, float wd,  \
+      int sr, void* stream) {                                                          \
+    return launch_block_sparse_dw<T>(                                                  \
+        x, g, idx, cnt,                                                                \
+        epi::momentum_epi<T, TM, TO, false>(nullptr, w, mom, out, seed, mu, wd, sr),   \
+        part, G, Mp, K, N, width, bk, bn, tm, tn, n_split, stream);                    \
   }
 
 FUSED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16, bf16, __nv_bfloat16)

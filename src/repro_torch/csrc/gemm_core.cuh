@@ -3,10 +3,11 @@
 // bank's group as grid dim z), the masked dgrad (K14, and K17 likewise),
 // the masked wgrad (K15, and K18 likewise) and its fused SGD epilogue (K19,
 // and K20 likewise: masked_matmul.cu), the block-sparse wgrad (K3, and K6
-// likewise: block_sparse_bwd.cuh), the block-sparse forward (K1, and K4
-// likewise: block_sparse_fwd.cuh) and the block-sparse dgrad (K2, and K5
-// likewise: block_sparse_bwd.cuh), built so that the other matmul kernels
-// can move onto it one by one.
+// likewise) and its fused SGD epilogue (K7, and K8 likewise:
+// block_sparse_bwd.cuh), the block-sparse forward (K1, and K4 likewise:
+// block_sparse_fwd.cuh) and the block-sparse dgrad (K2, and K5 likewise:
+// block_sparse_bwd.cuh).  How the sums become outputs (rounded, masked, the
+// fused momentum) is an epilogue policy of each kernel (epilogue.cuh).
 //
 // A CTA owns one BM x BN tile of C = A @ B, A (rows x L), and walks the
 // contraction dim L in slabs of kSlab = 32.  A slab map gives slab t's
@@ -25,7 +26,7 @@
 // A is staged by one of two policies:
 //  * RowsA (K13, K14, K16, K17, K1, K4, K2, K5): A (rows x L) row-major: a
 //    slab is BM A rows of kSlab contraction elements.
-//  * ColsA (K15, K18, K19, K20, K3, K6): A = x^T, x (L x rows) row-major: a
+//  * ColsA (K15, K18, K19, K20, K3, K6, K7, K8): A = x^T, x (L x rows) row-major: a
 //    slab is kSlab x rows of BM elements each, staged as they lie (no
 //    transpose through registers or scalar stores); ldmatrix.trans (bf16)
 //    or scalar loads (f32) read the fragments.
@@ -38,7 +39,7 @@
 //  * DenseColsB (K2, K5): B = w^T, w (cols x L) row-major, staged as
 //    MaskedColsB stages it with no mask (the block-sparse dgrad's CSR list
 //    decides which N-blocks of w's rows are read).
-//  * DenseRowsB (K15, K18, K19, K20, K3, K6; K1, K4 with B = w): B = g (L x
+//  * DenseRowsB (K15, K18, K19, K20, K3, K6, K7, K8; K1, K4 with B = w): B = g (L x
 //    cols) row-major, staged as MaskedRowsB stages w, with no mask (the
 //    masked wgrads apply their mask at the store, outside this header; the
 //    block-sparse forward's pack decides which rows of w are read).
@@ -104,11 +105,7 @@
 //
 // The order of every sum is fixed and there are no atomics: two launches
 // on the same inputs give the same bits.
-//
-// What the later matmul kernels need and this header does not build yet:
-// the block-sparse fused SGD wgrad (K7, K8) runs the same walk as K3 and
-// K6 and differs only at the store, as K19/K20 differ from K15/K18 (an
-// epilogue policy of masked_matmul.cu's kernel).
+
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>

@@ -1,8 +1,9 @@
 // The launch side of the GEMM core (gemm_core.cuh), shared by the kernels
 // built on it: the masked matmuls K13-K20 (masked_matmul.cu), the
-// block-sparse wgrad K3/K6 and dgrad K2/K5 (block_sparse_bwd.cuh, in
-// block_sparse_bwd.cu and block_sparse_grouped.cu) and the block-sparse
-// forward K1/K4 (block_sparse_fwd.cuh, in block_sparse_fwd.cu and
+// block-sparse wgrad K3/K6, its fused K7/K8 and the dgrad K2/K5
+// (block_sparse_bwd.cuh, in block_sparse_bwd.cu and
+// block_sparse_grouped.cu) and the block-sparse forward K1/K4
+// (block_sparse_fwd.cuh, in block_sparse_fwd.cu and
 // block_sparse_grouped.cu).  The CTA configurations of each built tile,
 // the dispatch from a host plan's tile to its configuration, the shared
 // bytes of a packed walk's list, the paired stores of the epilogues, the

@@ -48,12 +48,14 @@
 //    forward's and the wgrads' grids walking column tiles fastest, the
 //    dgrad's row tiles (the row tiles that read one w tile run side by
 //    side: a bank's tile comes from HBM about once).
-//  * The store is an epilogue policy of the kernel (Out, MaskedOut,
-//    Momentum below): the forward and the dgrad round the sum once; K15
+//  * The store is an epilogue policy of the kernel (Out, MaskedOut and
+//    Momentum with the mask, in epilogue.cuh, whose Out and unmasked
+//    Momentum the block-sparse wgrads K3/K6 and K7/K8 take): the forward
+//    and the dgrad round the sum once; K15
 //    and K18 multiply it by the mask byte (acc * float(m), as the
 //    reference's acc * m.astype(f32): an inf or NaN sum under a zero mask
 //    gives NaN); K19 and K20 store the new momentum (mu * mom + acc + wd *
-//    w) * float(m) of epilogue.cuh (the reference's order of f32
+//    w) * float(m) (the reference's order of f32
 //    operations, no contraction), reading the pair's mom and w with one
 //    paired load each, and with sr round it by sr_to_bf16 on the element's
 //    id gid = (g * K + row) * N + col (wrapping uint32; K and N are the
@@ -93,140 +95,8 @@
 
 namespace {
 
-// Copy rows m0.. (BM of them, up to rows) and columns n0.. (BN, up to cols)
-// of src (rows x cols from element plane0) into the shared-window address
-// dst, rows LD elements apart, 16 bytes a copy; zeros past the extents.
-template <class C, int LD, typename E>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const E* src, size_t plane0, int rows,
-                                           int cols, int m0, int n0) {
-  constexpr int kPer = 16 / sizeof(E), per_row = C::BN / kPer, n = C::BM * per_row;
-  for (int c = threadIdx.x; c < n; c += C::kThreads) {
-    const int r = c / per_row, col = (c % per_row) * kPer;
-    const bool ok = m0 + r < rows && n0 + col < cols;
-    ptx::cp_async16(dst + (r * LD + col) * sizeof(E),
-                    src + (ok ? plane0 + (size_t)(m0 + r) * cols + n0 + col : 0), ok);
-  }
-}
-
-// Epilogue policies: how a launch's f32 sums become its outputs, element i
-// the flat index into (G, rows, cols).  pair(i, v0, v1, mb) stores i and i
-// + 1 (i even) from a CTA's sums, mb the pair's two staged mask bytes (low
-// byte at i; 0 where the mask multiplied B); quad(i, v) stores i..i + 3 (i
-// a multiple of 4) from a split merge's ordered sums, reading the mask
-// bytes itself; before an unsplit CTA's store, fold<C>(warp, plane0, rows,
-// cols, m0, n0, smem) runs after its walk of the tile at (m0, n0) of the
-// group whose outputs start at plane0, the ring's shared memory free.
-template <typename T>
-struct Out {  // K13, K14, K16, K17: the sum, rounded once
-  T* out;
-  template <class C>
-  __device__ __forceinline__ void fold(gemm::Warp<C>&, size_t, int, int, int, int,
-                                       unsigned char*) const {}
-  __device__ __forceinline__ void pair(size_t i, float v0, float v1, unsigned) const {
-    gemm::store2(out + i, v0, v1);
-  }
-  __device__ __forceinline__ void quad(size_t i, float4 v) const { gemm::store4(out + i, v); }
-};
-
-template <typename T>
-struct MaskedOut {  // K15, K18: the sum times the mask byte, rounded once
-  T* out;
-  const uint8_t* m;
-  template <class C>
-  __device__ __forceinline__ void fold(gemm::Warp<C>&, size_t, int, int, int, int,
-                                       unsigned char*) const {}
-  __device__ __forceinline__ void pair(size_t i, float v0, float v1, unsigned mb) const {
-    gemm::store2(out + i, v0 * static_cast<float>(mb & 0xffu),
-                 v1 * static_cast<float>(mb >> 8));
-  }
-  __device__ __forceinline__ void quad(size_t i, float4 v) const {
-    const uchar4 mb = *reinterpret_cast<const uchar4*>(m + i);
-    v.x *= static_cast<float>(mb.x);
-    v.y *= static_cast<float>(mb.y);
-    v.z *= static_cast<float>(mb.z);
-    v.w *= static_cast<float>(mb.w);
-    gemm::store4(out + i, v);
-  }
-};
-
-// K19, K20: m_new = (mu * mom + acc + wd * w) * m, with sr rounded onto the
-// bf16 grid on the id i (= (g * K + row) * N + col in wrapping uint32),
-// stored in TO; w in T, mom in TM.
-template <typename T, typename TM, typename TO>
-struct Momentum {
-  TO* out;
-  const uint8_t* m;
-  const T* w;
-  const TM* mom;
-  float mu, wd;
-  unsigned seed;
-  int sr;
-
-  // The momentum mu * mom + acc + wd * w folded into the CTA's sums before
-  // the store: reads only, so that every pair's reads can be in flight
-  // together (a store between them might alias the next pair's mom or w).
-  // Where both tiles fit in the ring's shared memory, the CTA copies them
-  // there by 16-byte cp.async and the fold reads shared memory, not a
-  // latency-bound pair of global loads per fragment (PERF.md has both
-  // times); their rows LD = BN + 8 elements apart, so that a warp's pairs
-  // (rows g, columns 2t) fall in distinct banks.  bf16 w with f32 mom does
-  // not fit on either wgrad tile and reads global memory.
-  template <class C>
-  __device__ __forceinline__ void fold(gemm::Warp<C>& warp, size_t plane0, int rows, int cols,
-                                       int m0, int n0, unsigned char* smem) const {
-    constexpr int LD = C::BN + 8;
-    constexpr int W_BYTES = C::BM * LD * sizeof(T), MOM_BYTES = C::BM * LD * sizeof(TM);
-    if constexpr (W_BYTES + MOM_BYTES <= C::SMEM) {
-      __syncthreads();  // every warp is done with the ring
-      const uint32_t base = ptx::smem_addr(smem);
-      stage_tile<C, LD>(base, w, plane0, rows, cols, m0, n0);
-      stage_tile<C, LD>(base + W_BYTES, mom, plane0, rows, cols, m0, n0);
-      ptx::cp_async_commit();
-      ptx::cp_async_wait_all();
-      __syncthreads();
-      const T* ws = reinterpret_cast<const T*>(smem);
-      const TM* ms = reinterpret_cast<const TM*>(smem + W_BYTES);
-      gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float& v0, float& v1) {
-        const int j = (r - m0) * LD + c - n0;
-        const float2 wv = epi::load2(ws + j), mv = epi::load2(ms + j);
-        v0 = epi::momentum(mu, mv.x, v0, wd, wv.x);
-        v1 = epi::momentum(mu, mv.y, v1, wd, wv.y);
-      });
-    } else {
-      gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float& v0, float& v1) {
-        const size_t i = plane0 + (size_t)r * cols + c;
-        const float2 wv = epi::load2(w + i), mv = epi::load2(mom + i);
-        v0 = epi::momentum(mu, mv.x, v0, wd, wv.x);
-        v1 = epi::momentum(mu, mv.y, v1, wd, wv.y);
-      });
-    }
-  }
-  // the folded pair: the mask, sr, one rounding
-  __device__ __forceinline__ void pair(size_t i, float v0, float v1, unsigned mb) const {
-    gemm::store2(out + i, epi::mask_sr(v0, mb & 0xffu, seed, static_cast<unsigned>(i), sr),
-                 epi::mask_sr(v1, mb >> 8, seed, static_cast<unsigned>(i + 1), sr));
-  }
-  __device__ __forceinline__ float at(size_t i, float acc, float wv, float mv,
-                                      unsigned mask) const {
-    return epi::mask_sr(epi::momentum(mu, mv, acc, wd, wv), mask, seed,
-                        static_cast<unsigned>(i), sr);
-  }
-  __device__ __forceinline__ void quad(size_t i, float4 v) const {
-    const uchar4 mb = *reinterpret_cast<const uchar4*>(m + i);
-    const float4 wv = epi::load4(w + i), mv = epi::load4(mom + i);
-    gemm::store4(out + i, make_float4(at(i, v.x, wv.x, mv.x, mb.x),
-                                      at(i + 1, v.y, wv.y, mv.y, mb.y),
-                                      at(i + 2, v.z, wv.z, mv.z, mb.z),
-                                      at(i + 3, v.w, wv.w, mv.w, mb.w)));
-  }
-};
-
-template <typename T, typename TM, typename TO>
-Momentum<T, TM, TO> momentum_epi(const void* m, const void* w, const void* mom, void* out,
-                                 unsigned seed, float mu, float wd, int sr) {
-  return {static_cast<TO*>(out), static_cast<const uint8_t*>(m), static_cast<const T*>(w),
-          static_cast<const TM*>(mom), mu, wd, seed, sr};
-}
+using epi::MaskedOut;
+using epi::Out;
 
 // The wgrads' store reads the mask of its output tile: a CTA stages it
 // beside the ring (BM rows of BN bytes, padded by 16 so that a warp's
@@ -299,7 +169,7 @@ masked_gemm_kernel(const typename C::Type* __restrict__ a,
     }
   }
   if (n_split == 1) {
-    epi.template fold<C>(warp, plane0, rows, cols, m0, n0, smem);
+    epi.template fold<C>(warp, plane0, cols, rows, cols, m0, n0, smem);
     gemm::store(warp, rows, cols, m0, n0, [&](int r, int c, float v0, float v1) {
       unsigned mb = 0;  // the pair's two mask bytes (c even)
       if constexpr (!kMaskB)
@@ -452,22 +322,25 @@ GEMM_ENTRIES(f32, float)
       const void* x, const void* g, const void* wgm, const void* w, const void* mom,   \
       void* out, void* part, int G, int Mp, int K, int N, int bm, int bn, int n_split, \
       unsigned seed, float mu, float wd, int sr, void* stream) {                       \
-    const auto epi = momentum_epi<T, TM, TO>(wgm, w, mom, out, seed, mu, wd, sr);      \
+    const auto policy =                                                                \
+        epi::momentum_epi<T, TM, TO, true>(wgm, w, mom, out, seed, mu, wd, sr);        \
     return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {   \
-      return launch_gemm<typename decltype(tag)::type>(x, g, wgm, epi, part, G, K, Mp, \
-                                                       N, n_split, stream);            \
+      return launch_gemm<typename decltype(tag)::type>(x, g, wgm, policy, part, G, K,  \
+                                                       Mp, N, n_split, stream);        \
     });                                                                                \
   }                                                                                    \
   extern "C" int masked_dw_fused_merge_##S##_##SM##_##SO(                              \
       const void* part, const void* wgm, const void* w, const void* mom, void* out,    \
       long long plane, int n_split, unsigned seed, float mu, float wd, int sr,         \
       void* stream) {                                                                  \
-    return launch_merge(part, momentum_epi<T, TM, TO>(wgm, w, mom, out, seed, mu, wd, sr), \
-                        plane, n_split, stream);                                       \
+    return launch_merge(                                                               \
+        part, epi::momentum_epi<T, TM, TO, true>(wgm, w, mom, out, seed, mu, wd, sr),  \
+        plane, n_split, stream);                                                       \
   }                                                                                    \
   extern "C" int masked_dw_fused_info_##S##_##SM##_##SO(int bm, int bn, int* out) {    \
     return gemm::with_tile<T, gemm::DenseRowsB, gemm::ColsA>(bm, bn, [&](auto tag) {   \
-      return gemm_info<typename decltype(tag)::type, Momentum<T, TM, TO>>(out);        \
+      return gemm_info<typename decltype(tag)::type,                                   \
+                       epi::Momentum<T, TM, TO, true>>(out);                           \
     });                                                                                \
   }
 

@@ -30,6 +30,8 @@ are described in the sources:
      rounded onto the bf16 grid                -> csrc/block_sparse_bwd.cu
   K8 ``_g_dw_fused_kernel`` (``_g_dw_fused_call``)  K7 per group of a bank
                                                -> csrc/block_sparse_grouped.cu
+                                                (K3/K6's kernel with the momentum
+                                                epilogue policy, epilogue.cuh)
 
 Each runs in bf16 (tensor cores) and in f32 (the reference's MLP computes
 in the f32 residual's dtype), accumulating in f32 and rounding once to the
@@ -44,8 +46,11 @@ the list split where the grid leaves the card's slots empty (decode) or
 its last wave idle, the f32 partials summed in order by ``bs_fwd_merge``.
 K2/K5 (``dx_plan``): the same walk over each K-block row's CSR list of
 active N-blocks, one CTA a (row tile, column tile) of dx, the f32
-partials of a split summed in order by ``bs_dx_merge``.  K7/K8 run on the
-tile layer (wmma bf16, full-precision FFMA f32).
+partials of a split summed in order by ``bs_dx_merge``.  K7/K8 are K3/K6's
+kernel with the momentum epilogue at the store (``dw_plan`` on the fused
+kernel's own resident CTAs), a split's unfused partials summed in order by
+``bs_dw_fused_merge``, which then folds the momentum, applies sr and
+rounds once.
 
 The plain versions select the pack's blocks (``torch.where``), never
 multiply by the expanded mask, and sum each product over the pack's active
@@ -67,7 +72,7 @@ PyTorch version (``*_plain``) only for CPU tensors.  ``launches``,
 launches, so a run can show that its path went through the kernels;
 ``fwd_merge_launches`` counts the split merges after K1 and K4,
 ``dx_merge_launches`` those after K2 and K5, ``dw_merge_launches`` those
-after K3 and K6.
+after K3 and K6, ``dw_fused_merge_launches`` those after K7 and K8.
 ``BlockSparseMatmul``, ``TopkastBlockSparseMatmul``,
 ``GroupedBlockSparseMatmul`` and ``TopkastGroupedBlockSparseMatmul`` are the
 differentiable forms (the reference's custom VJPs ``_bs_fwd/_bs_bwd``,
@@ -93,8 +98,11 @@ __all__ = [
     "block_sparse_dw",
     "block_sparse_dw_fused",
     "block_sparse_dw_fused_plain",
+    "block_sparse_dw_fused_split_plain",
     "block_sparse_dw_plain",
     "block_sparse_dw_split_plain",
+    "bs_dw_fused_merge",
+    "bs_dw_fused_merge_plain",
     "bs_dw_merge",
     "bs_dw_merge_plain",
     "block_sparse_dx",
@@ -107,6 +115,7 @@ __all__ = [
     "bs_fwd_merge",
     "csr_of",
     "dw_candidates",
+    "dw_fused_merge_launches",
     "dw_launch_info",
     "dw_launches",
     "dw_merge_launches",
@@ -151,10 +160,13 @@ g_fused_launches = 0  # K8
 dw_merge_launches = 0  # the merges of split K3 and K6 launches
 fwd_merge_launches = 0  # the merges of split K1 and K4 launches
 dx_merge_launches = 0  # the merges of split K2 and K5 launches
+dw_fused_merge_launches = 0  # the merges of split K7 and K8 launches
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# a fused-epilogue entry's trailing arguments: seed, mu, wd, sr
+_FUSED_TAIL = (ctypes.c_uint32, ctypes.c_float, ctypes.c_float, _I)
 
 
 def unpack_block_mask(idx: torch.Tensor, cnt: torch.Tensor,
@@ -272,15 +284,10 @@ def block_sparse_dw_split_plain(x, g, idx, cnt, bk: int, bn: int, n_split: int):
     ``x^T @ g`` over M's slabs ``fwd_split_ranges(M, n_split)[s]``, the
     partials summed in the order s = 0, 1, ..., selected onto the pack's
     blocks (+0.0 elsewhere) and rounded once to x.dtype."""
-    from .masked_matmul import fwd_split_ranges  # masked_matmul imports this module
+    from .masked_matmul import _split_xtg  # masked_matmul imports this module
 
-    xf, gf = x.float(), g.float()
-    acc = None
-    for m0, m1 in fwd_split_ranges(x.shape[-2], n_split):
-        part = xf[..., m0:m1, :].transpose(-1, -2) @ gf[..., m0:m1, :]
-        acc = part if acc is None else acc + part
     mask = _dense_mask(idx, cnt, x.shape[-1] // bk, bk, bn)
-    return torch.where(mask, acc, 0.0).to(x.dtype)
+    return torch.where(mask, _split_xtg(x, g, n_split), 0.0).to(x.dtype)
 
 
 def block_sparse_matmul_split_plain(x, w, idx, cnt, bk: int, bn: int, n_split: int):
@@ -386,6 +393,40 @@ def grouped_block_sparse_dw_fused_plain(x, g, idx, cnt, w, mom, seed: int, *, mu
     (G, K, N); a group with no block gives zeros."""
     acc = torch.bmm(x.float().transpose(1, 2), g.float())
     return _fused_plain(acc, idx, cnt, w, mom, seed, mu, wd, sr, bk, bn, out_dtype)
+
+
+def block_sparse_dw_fused_split_plain(x, g, idx, cnt, w, mom, seed: int, n_split: int, *,
+                                      mu: float, wd: float, sr: bool, bk: int, bn: int,
+                                      out_dtype=None):
+    """K7 (x (M, K), g (M, N), w and mom (K, N), a CSC pack) or K8 (every
+    operand with a leading group dim) as a split launch computes it: split
+    s's f32 partial ``x^T @ g`` over M's slabs ``fwd_split_ranges(M,
+    n_split)[s]``, the partials summed in the order s = 0, 1, ..., then the
+    fused epilogue once on the pack's blocks (``_fused_plain``: the
+    momentum, sr, one rounding), exactly zero elsewhere; at n_split = 1 bit
+    for bit the unsplit plain version."""
+    from .masked_matmul import _split_xtg  # masked_matmul imports this module
+
+    return _fused_plain(_split_xtg(x, g, n_split), idx, cnt, w, mom, seed, mu, wd, sr, bk, bn,
+                        out_dtype)
+
+
+def bs_dw_fused_merge_plain(part, idx, cnt, w, mom, out, seed: int, *, mu: float, wd: float,
+                            sr: bool):
+    """The split merge of K7/K8 on the packed partials: part (n_split, G,
+    N/bn, width, bk, bn) f32, the stacked CSC ``idx``/``cnt``, w, mom and
+    out (G, K, N) (or a 2-D pack and (K, N) with G = 1).  Each live slot's
+    partials are summed in the order s = 0, 1, ..., then the fused epilogue
+    (``_fused_plain``: mu * mom + sum + wd * w, sr on the element ids of
+    out's shape), rounded once to out.dtype and written into the block's
+    place in out, in place; padded slots are neither read nor written, so
+    out keeps whatever it held off the pack.  Returns out."""
+    bk, bn = part.shape[-2:]
+    acc = bs_dw_merge_plain(part, idx, cnt, torch.zeros(out.shape, device=out.device))
+    live = _dense_mask(idx, cnt, out.shape[-2] // bk, bk, bn)
+    m_new = _fused_plain(acc, idx, cnt, w, mom, seed, mu, wd, sr, bk, bn, out.dtype)
+    out[live] = m_new[live]
+    return out
 
 
 def matmul_error_bound(out_plain, abs_prod, n: int):
@@ -601,7 +642,9 @@ def dw_plan(M: int, K: int, N: int, G: int, dtype, slots: int, *, bn: int,
     ``masked_matmul.fwd_split`` weighs every split: the grid is the pack's
     live blocks, a few dozen to a few hundred (danube's wk at 63 live
     blocks and its f32 MLP at 289 were fastest split in 4 on an H100,
-    PERF.md).  ``slots``: the CTAs the card holds at once at the tile."""
+    PERF.md).  ``slots``: the CTAs the card holds at once at the tile (for
+    K7/K8, the fused kernel's own: ``_dw_plan_for`` with the mom and output
+    types)."""
     from . import masked_matmul as mm  # masked_matmul imports this module
 
     tm, tn = dw_tile(bn)
@@ -626,20 +669,27 @@ def dw_candidates(M: int, K: int, N: int, G: int, dtype, slots: int, *, bn: int,
     return out if pick in out else out + [pick]
 
 
-def dw_launch_info(dtype, tm: int, tn: int) -> dict:
+def dw_launch_info(dtype, tm: int, tn: int, mom_dtype=None, out_dtype=None) -> dict:
     """``masked_matmul.launch_info`` of K3/K6's kernel at tile (tm, tn) in
-    ``dtype``.  Needs a card."""
+    ``dtype``, or with ``mom_dtype`` K7/K8's (the same kernel with the
+    momentum epilogue, mom in ``mom_dtype`` and the output in ``out_dtype``,
+    default ``dtype``).  Needs a card."""
     from .masked_matmul import launch_info  # masked_matmul imports this module
 
-    return launch_info(f"block_sparse_dw_info_{_SUFFIX[dtype]}", "block_sparse_bwd", tm, tn)
+    s = _SUFFIX[dtype]
+    if mom_dtype is None:
+        return launch_info(f"block_sparse_dw_info_{s}", "block_sparse_bwd", tm, tn)
+    return launch_info(f"block_sparse_dw_fused_info_{s}_{_SUFFIX[mom_dtype]}_"
+                       f"{_SUFFIX[out_dtype or dtype]}", "block_sparse_bwd", tm, tn)
 
 
 @functools.lru_cache(maxsize=4096)
-def _dw_plan_for(M, K, N, G, dtype, bn, live, device_index):
+def _dw_plan_for(M, K, N, G, dtype, bn, live, device_index, mom_dtype=None, out_dtype=None):
     """``dw_plan`` with the card's slots (SMs times the resident CTAs of
-    K3/K6's kernel at its tile, from the runtime), memoized."""
+    K3/K6's kernel at its tile, or with ``mom_dtype`` of K7/K8's
+    instantiation, from the runtime), memoized."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    slots = sms * dw_launch_info(dtype, *dw_tile(bn))["ctas_per_sm"]
+    slots = sms * dw_launch_info(dtype, *dw_tile(bn), mom_dtype, out_dtype)["ctas_per_sm"]
     return dw_plan(M, K, N, G, dtype, slots, bn=bn, live=live)
 
 
@@ -826,35 +876,69 @@ def block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int, plan=None, live=None):
     return dw
 
 
-def _dw_gemm(what, lib_name, fn_name, x, g, idx, cnt, G, bn, bk, plan, live):
+def _dw_gemm(what, lib_name, fn_name, x, g, idx, cnt, G, bn, bk, plan, live, fused=None,
+             out_dtype=None):
     """One K3 (G = 1: x (M, K), g (M, N), a 2-D pack) or K6 (x (G, M, K), g
     (G, M, N), a stacked pack) launch on the plan's tile and split, and the
     merge after a split: dw (K, N) or (G, K, N), zero-filled, the live
-    blocks written.  The plan counts ``live`` CTAs (every slot when None);
-    no pack count is read on the host."""
+    blocks written.  With ``fused`` = (w, mom, seed, mu, wd, sr) K7 or K8
+    (``fn_name`` the entry with its <T>_<mom>_<out> suffix): the new
+    momentum in ``out_dtype`` on the live blocks, the plan on the fused
+    kernel's own slots, a split merged by ``bs_dw_fused_merge``.  The plan
+    counts ``live`` CTAs (every slot when None); no pack count is read on
+    the host."""
     from . import masked_matmul as mm  # masked_matmul imports this module
 
     M, K, N, width = x.shape[-2], x.shape[-1], g.shape[-1], idx.shape[-1]
     live = G * (N // bn) * width if live is None else int(live)
-    tm, tn, n_split = plan or _dw_plan_for(M, K, N, G, x.dtype, bn, live, x.device.index)
+    kinds = () if fused is None else (fused[1].dtype, out_dtype)
+    tm, tn, n_split = plan or _dw_plan_for(M, K, N, G, x.dtype, bn, live, x.device.index,
+                                           *kinds)
     if ((tm, tn) not in mm.DW_TILES or bk > tm or bn > tn
             or not 1 <= n_split <= -(-M // mm.FWD_SLAB)):
         raise ValueError(f"{what}: plan {(tm, tn, n_split)} is not a built tile "
                          f"{mm.DW_TILES} holding the ({bk}, {bn}) block with 1 <= "
                          f"n_split <= ceil({M} / {mm.FWD_SLAB})")
-    dw = torch.zeros(*x.shape[:-2], K, N, dtype=x.dtype, device=x.device)
+    out = torch.zeros(*x.shape[:-2], K, N, dtype=out_dtype or x.dtype, device=x.device)
     part = (torch.empty(n_split, G, N // bn, width, bk, bn, dtype=torch.float32,
                         device=x.device) if n_split > 1 else None)
+    ptrs, tail = [x, g, idx, cnt], ()
+    if fused is not None:
+        w, mom, seed, mu, wd, sr = fused
+        ptrs += [w, mom]
+        tail = (int(seed) & 0xFFFFFFFF, float(mu), float(wd), int(bool(sr)))
     grouped = x.dim() == 3  # the grouped entry takes G
-    lib, fn = _entry(lib_name, fn_name, 6, 10 if grouped else 9)
+    lib, fn = _entry(lib_name, fn_name, len(ptrs) + 2, 10 if grouped else 9,
+                     _FUSED_TAIL if tail else ())
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), dw.data_ptr(),
+        rc = fn(*(t.data_ptr() for t in ptrs), out.data_ptr(),
                 None if part is None else part.data_ptr(), *((G,) if grouped else ()), M, K,
-                N, width, bk, bn, tm, tn, n_split, _stream(x))
+                N, width, bk, bn, tm, tn, n_split, *tail, _stream(x))
     _build.check(lib, rc, f"{what} launch")
     if part is not None:
-        bs_dw_merge(part, idx, cnt, dw)
-    return dw
+        if fused is None:
+            bs_dw_merge(part, idx, cnt, out)
+        else:
+            bs_dw_fused_merge(part, idx, cnt, w, mom, out, seed, mu=mu, wd=wd, sr=sr)
+    return out
+
+
+def _packed_dims(what, part, idx, cnt, out):
+    """The merge entries' (G, K, N, width, bk, bn, n_split) of the packed
+    f32 partials ``part`` (n_split, G, N/bn, width, bk, bn) of ``out`` (G,
+    K, N) or (K, N) on the pack ``idx``/``cnt``; raises where they do not
+    match."""
+    n_split, G, nnb, width, bk, bn = part.shape
+    K, N = out.shape[-2:]
+    if (part.dtype != torch.float32 or not part.is_contiguous() or not out.is_contiguous()
+            or out.dim() != idx.dim() or (out.shape[0] if out.dim() == 3 else 1) != G
+            or N != nnb * bn or tuple(idx.shape[-2:]) != (nnb, width)
+            or idx.dtype != torch.int32 or cnt.dtype != torch.int32
+            or any(t.device != out.device for t in (part, idx, cnt))):
+        raise ValueError(f"{what}: part {tuple(part.shape)} {part.dtype} does not hold "
+                         f"the packed partials of {tuple(out.shape)} on the pack "
+                         f"{tuple(idx.shape)}")
+    return G, K, N, width, bk, bn, n_split
 
 
 def bs_dw_merge(part, idx, cnt, dw):
@@ -869,37 +953,57 @@ def bs_dw_merge(part, idx, cnt, dw):
     if dw.device.type != "cuda":
         raise ValueError(f"bs_dw_merge: unsupported device {dw.device}")
     s = _suffix("bs_dw_merge", dw)
-    n_split, G, nnb, width, bk, bn = part.shape
-    K, N = dw.shape[-2:]
-    if (part.dtype != torch.float32 or not part.is_contiguous() or not dw.is_contiguous()
-            or (dw.shape[0] if dw.dim() == 3 else 1) != G or N != nnb * bn
-            or tuple(idx.shape[-2:]) != (nnb, width) or idx.dtype != torch.int32
-            or cnt.dtype != torch.int32 or any(t.device != dw.device for t in (part, idx, cnt))):
-        raise ValueError(f"bs_dw_merge: part {tuple(part.shape)} {part.dtype} does not hold "
-                         f"the packed partials of dw {tuple(dw.shape)} on the pack "
-                         f"{tuple(idx.shape)}")
+    dims = _packed_dims("bs_dw_merge", part, idx, cnt, dw)
     lib, fn = _entry("block_sparse_bwd", f"block_sparse_dw_merge_{s}", 4, 7)
     with torch.cuda.device(dw.device):
-        rc = fn(part.data_ptr(), idx.data_ptr(), cnt.data_ptr(), dw.data_ptr(), G, K, N,
-                width, bk, bn, n_split, _stream(dw))
+        rc = fn(part.data_ptr(), idx.data_ptr(), cnt.data_ptr(), dw.data_ptr(), *dims,
+                _stream(dw))
     _build.check(lib, rc, "bs_dw_merge launch")
     dw_merge_launches += 1
     return dw
 
 
-# a fused-epilogue entry's trailing arguments: seed, mu, wd, sr
-_FUSED_TAIL = (ctypes.c_uint32, ctypes.c_float, ctypes.c_float, _I)
+def bs_dw_fused_merge(part, idx, cnt, w, mom, out, seed: int, *, mu: float, wd: float,
+                      sr: bool):
+    """The merge of a split K7/K8 launch: the packed f32 partials ``part``
+    (n_split, G, N/bn, width, bk, bn) summed in order, then the momentum
+    epilogue (sr on the element ids of out's shape, one rounding), into
+    out's live blocks (``bs_dw_fused_merge_plain``'s function).  CUDA
+    tensors run the merge kernel (one launch, counted in
+    ``dw_fused_merge_launches``) or raise; CPU tensors run the plain
+    version."""
+    global dw_fused_merge_launches
+    if out.device.type == "cpu":
+        return bs_dw_fused_merge_plain(part, idx, cnt, w, mom, out, seed, mu=mu, wd=wd, sr=sr)
+    if out.device.type != "cuda":
+        raise ValueError(f"bs_dw_fused_merge: unsupported device {out.device}")
+    dims = _packed_dims("bs_dw_fused_merge", part, idx, cnt, out)
+    e = _fused_entry_name("bs_dw_fused_merge", _suffix("bs_dw_fused_merge", w),
+                          tuple(out.shape), w, w, mom, out.dtype)
+    lib, fn = _entry("block_sparse_bwd", f"block_sparse_dw_fused_merge_{e}", 6, 7, _FUSED_TAIL)
+    with torch.cuda.device(out.device):
+        rc = fn(part.data_ptr(), idx.data_ptr(), cnt.data_ptr(), w.data_ptr(), mom.data_ptr(),
+                out.data_ptr(), *dims, int(seed) & 0xFFFFFFFF, float(mu), float(wd),
+                int(bool(sr)), _stream(out))
+    _build.check(lib, rc, "bs_dw_fused_merge launch")
+    dw_fused_merge_launches += 1
+    return out
 
 
 def block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: float, wd: float,
-                          sr: bool, bn: int, bk: int, out_dtype=None):
+                          sr: bool, bn: int, bk: int, out_dtype=None, plan=None, live=None):
     """K7: the new SGD momentum ``mu * mom + x^T @ g + wd * w`` (K, N) on the
     active blocks of the CSC pack ``idx``/``cnt`` (the Top-KAST superset on
     the training path) and zeros elsewhere, in ``out_dtype`` (default
     w.dtype), stochastically rounded onto the bf16 grid when ``sr``, with
     the uint32 ``seed``.  x (M, K), g (M, N) and w (K, N) of one dtype, mom
-    (K, N) bf16 or f32; M a multiple of 16.  CUDA tensors run the kernel or
-    raise; CPU tensors run the plain version."""
+    (K, N) bf16 or f32; M a multiple of 16.  K3's launch with the momentum
+    epilogue: ``dw_plan`` picks it from ``live`` (the pack's live blocks, a
+    host int: the entry's bnnz or nnz; without one every slot counts) on
+    the fused kernel's own slots, or ``plan`` = (bm, bn, n_split) forces one
+    (a built wgrad tile that holds the block); a split is merged by
+    ``bs_dw_fused_merge``.  CUDA tensors run the kernel or raise; CPU
+    tensors run the plain version."""
     global fused_launches
     out_dtype = out_dtype or w.dtype
     if x.device.type == "cpu":
@@ -915,13 +1019,9 @@ def block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: float, wd: f
         raise ValueError(f"block_sparse_dw_fused: pack idx {tuple(idx.shape)} / cnt "
                          f"{tuple(cnt.shape)} does not match N/bn = {N // bn}")
     e = _fused_entry_name("block_sparse_dw_fused", s, (K, N), x, w, mom, out_dtype)
-    lib, fn = _entry("block_sparse_bwd", f"block_sparse_dw_fused_{e}", 7, 6, _FUSED_TAIL)
-    out = torch.zeros(K, N, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), w.data_ptr(),
-                mom.data_ptr(), out.data_ptr(), M, K, N, idx.shape[1], bn, bk,
-                int(seed) & 0xFFFFFFFF, float(mu), float(wd), int(bool(sr)), _stream(x))
-    _build.check(lib, rc, "block_sparse_dw_fused launch")
+    out = _dw_gemm("block_sparse_dw_fused", "block_sparse_bwd", f"block_sparse_dw_fused_{e}",
+                   x, g, idx, cnt, 1, bn, bk, plan, live, (w, mom, seed, mu, wd, sr),
+                   out_dtype)
     fused_launches += 1
     return out
 
@@ -989,12 +1089,14 @@ def grouped_block_sparse_dw(x, g, idx, cnt, *, bn: int, bk: int, plan=None, live
 
 
 def grouped_block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: float,
-                                  wd: float, sr: bool, bn: int, bk: int, out_dtype=None):
+                                  wd: float, sr: bool, bn: int, bk: int, out_dtype=None,
+                                  plan=None, live=None):
     """K8: K7 for every group of a bank in one launch: the new momentum (G,
     K, N) on the active blocks of the stacked CSC ``idx (G, N/bn, width)`` /
     ``cnt (G, N/bn)``, zeros elsewhere (a group with no block: all zeros);
     sr ids (g * K + row) * N + col.  x (G, M, K), g (G, M, N), w and mom
-    (G, K, N); M a multiple of 16."""
+    (G, K, N); M a multiple of 16; ``plan`` and ``live`` (the live blocks
+    of the whole bank) as for ``block_sparse_dw_fused``."""
     global g_fused_launches
     out_dtype = out_dtype or w.dtype
     if x.device.type == "cpu":
@@ -1010,14 +1112,9 @@ def grouped_block_sparse_dw_fused(x, g, idx, cnt, w, mom, seed: int, *, mu: floa
                     [(g.shape[1], M)])
     e = _fused_entry_name("grouped_block_sparse_dw_fused", s, (G, K, N), x, w, mom,
                           out_dtype)
-    lib, fn = _entry("block_sparse_grouped", f"block_sparse_grouped_dw_fused_{e}", 7, 7,
-                     _FUSED_TAIL)
-    out = torch.zeros(G, K, N, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), w.data_ptr(),
-                mom.data_ptr(), out.data_ptr(), G, M, K, N, idx.shape[2], bn, bk,
-                int(seed) & 0xFFFFFFFF, float(mu), float(wd), int(bool(sr)), _stream(x))
-    _build.check(lib, rc, "block_sparse_grouped_dw_fused launch")
+    out = _dw_gemm("grouped_block_sparse_dw_fused", "block_sparse_grouped",
+                   f"block_sparse_grouped_dw_fused_{e}", x, g, idx, cnt, G, bn, bk, plan, live,
+                   (w, mom, seed, mu, wd, sr), out_dtype)
     g_fused_launches += 1
     return out
 
@@ -1110,7 +1207,7 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=
     the forward pack's live blocks ``ctx.nnz``) and dw on the CSC
     ``didx``/``dcnt`` (its plan on ``ctx.live``): K2/K3, or K5/K6 for a
     bank; with ``mom`` the weight cotangent is the fused epilogue's new
-    momentum (K7, or K8)."""
+    momentum (K7, or K8, its plan on ``ctx.live`` too)."""
     bm, bn, bk = ctx.blocks
     dx_fn, dw_fn, fused_fn = (
         (grouped_block_sparse_dx, grouped_block_sparse_dw, grouped_block_sparse_dw_fused)
@@ -1125,5 +1222,6 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=
         if mom is None:
             dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk, live=ctx.live)
         else:
-            dw = fused_fn(x, g, didx, dcnt, w, mom, bn=bn, bk=bk, **ctx.epilogue)
+            dw = fused_fn(x, g, didx, dcnt, w, mom, bn=bn, bk=bk, live=ctx.live,
+                          **ctx.epilogue)
     return dx, dw

@@ -3,7 +3,7 @@ K1 (bf16 and f32), K2, K3, the grouped K4, K5, K6, K9, K10, K11, the
 paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
 K18 and the block-sparse wgrad K3/K6, forward K1/K4 and dgrad K2/K5 on the
 GEMM core (each under every plan its sweep forces, with the split merge), the
-fused epilogues K19/K20 (likewise, with their fused merge) and K7/K8, the
+fused epilogues K19/K20 and K7/K8 (likewise, with their fused merges), the
 |x| histogram K21, training steps, paged serving, MoE serving and MoE
 training through them.
 
@@ -1074,6 +1074,138 @@ def test_cuda_bs_dw_f32_keeps_f32_digits():
     got = rms(tbsm.block_sparse_dw(x, g, idx, cnt, bn=128, bk=128, live=int(bm.sum())))
     assert tbsm.dw_merge_launches == n + 1  # the plan splits ~280 blocks on 132 SMs
     assert got <= 8 * rms(tbsm.block_sparse_dw_plain(x, g, idx, cnt, 128, 128)), got
+
+
+def _bs_fused(x, g, idx, cnt, w, mom, bk, bn, plan, sr, out_dtype=None, live=None):
+    fn = tbsm.grouped_block_sparse_dw_fused if x.dim() == 3 else tbsm.block_sparse_dw_fused
+    return fn(x, g, idx, cnt, w, mom, 0x9E3779B9, mu=0.9, wd=1e-4, sr=sr, bn=bn, bk=bk,
+              out_dtype=out_dtype, plan=plan, live=live)
+
+
+def _bs_fused_plans(G, M, K, N, bn, types, live):
+    """Every plan the sweeps force at this K7/K8 shape (``dw_candidates`` on
+    the fused kernel's slots for these mom and output types) and every
+    built tile that holds the block unsplit and split in 3 where M has 3
+    slabs."""
+    dtype, mdt, odt = types
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * tbsm.dw_launch_info(dtype, *tbsm.dw_tile(bn), mdt, odt)["ctas_per_sm"])
+    plans = set(tbsm.dw_candidates(M, K, N, G, dtype, slots, bn=bn, live=live))
+    plans |= {(a, b, n) for a, b in tmm.DW_TILES if b >= bn for n in (1, 3)
+              if n <= -(-M // tmm.FWD_SLAB)}
+    return sorted(plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", FUSED_TYPES)
+@pytest.mark.parametrize("shape", BS_DW_SHAPES)
+def test_cuda_bs_dw_fused_every_plan_matches_plain(shape, types):
+    """K7 (G = 1) and K8, K3/K6's kernel with the momentum epilogue, under
+    every forced plan (tile, split) and the plan's own pick: sr off element
+    by element within ``fused_error_bound`` of the plain version, exact
+    +0.0 off the superset (where w holds an inf) and for a dead group; sr
+    on bit for bit ``sr_to_bf16`` of the same plan's own f32 m_new and on
+    the bf16 grid; two launches of one plan the same bits; each call one
+    K7/K8 launch and, for a split, one fused merge (no K3/K6 merge)."""
+    dev = _cuda()
+    dtype, mdt, odt = types
+    G, M, K, N, bk, bn, dead = shape
+    x, g, idx, cnt, live, nnz = _bs_dw_problem(shape, dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(G + M + K)
+    w = (torch.randn(live.shape, device=dev, generator=gen) / K ** 0.5).to(dtype)
+    mom = (0.1 * torch.randn(live.shape, device=dev, generator=gen)).to(mdt)
+    w[..., 3, 5] = float("inf")  # block column 0 is empty: off the superset
+    assert not bool(live[..., 3, 5].any())
+    plain = (tbsm.block_sparse_dw_fused_plain if G == 1
+             else tbsm.grouped_block_sparse_dw_fused_plain)
+    want = plain(x, g, idx, cnt, w, mom, 0x9E3779B9, mu=0.9, wd=1e-4, sr=False, bk=bk, bn=bn,
+                 out_dtype=odt)
+    xt = x.float().transpose(-1, -2)
+    acc, absp = xt @ g.float(), xt.abs() @ g.float().abs()
+    bound = tmm.fused_error_bound(want, absp, M, 0.9, 1e-4, mom, torch.where(live, w, 0),
+                                  acc, live)
+    gid = tmm._gid(K, N, dev, G=G if G > 1 else None)
+    read = lambda: [tbsm.fused_launches, tbsm.g_fused_launches, tbsm.dw_fused_merge_launches,
+                    tbsm.dw_merge_launches]
+    iv = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for plan in _bs_fused_plans(G, M, K, N, bn, types, nnz) + [None]:
+        n = read()
+        got = _bs_fused(x, g, idx, cnt, w, mom, bk, bn, plan, False, odt, nnz)
+        again = _bs_fused(x, g, idx, cnt, w, mom, bk, bn, plan, False, odt, nnz)
+        raw = _bs_fused(x, g, idx, cnt, w, mom, bk, bn, plan, False, torch.float32, nnz)
+        sr = _bs_fused(x, g, idx, cnt, w, mom, bk, bn, plan, True, odt, nnz)
+        torch.cuda.synchronize()
+        if plan is not None:
+            k = 4 if plan[2] > 1 else 0
+            assert read() == ([n[0] + 4, n[1], n[2] + k, n[3]] if G == 1
+                              else [n[0], n[1] + 4, n[2] + k, n[3]]), plan
+        assert got.dtype == odt and got.shape == want.shape
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= bound).all()), (plan, float((diff / bound.clamp_min(1e-30)).max()))
+        assert torch.equal(got.view(iv[odt]), again.view(iv[odt])), plan
+        assert torch.equal(sr.float(), tmm.sr_to_bf16(raw, 0x9E3779B9, gid).to(odt).float())
+        assert torch.equal(sr.float(), sr.to(torch.bfloat16).float()), plan
+        for t in (got, sr):
+            off = t[~live].float()
+            assert not off.any() and not bool(torch.signbit(off).any()), plan
+            for grp in dead:
+                assert not t[grp].float().any(), plan
+
+
+@pytest.mark.cuda
+def test_cuda_bs_dw_fused_has_no_spill():
+    """No instantiation of K7/K8's kernel (six type combinations, the two
+    wgrad tiles) spills a register, each holds at least as many CTAs an SM
+    as K19/K20's on the tile and K3/K6's shared bytes (the momentum tiles
+    are staged into the ring); no kernel of the library, the merges
+    included, spills (ptxas's report in the build log)."""
+    from repro_torch.kernels import _build
+
+    _cuda()
+    _build.load("block_sparse_bwd")
+    log = _build.lib_path("block_sparse_bwd").with_suffix(".log").read_text()
+    reports = [ln.strip() for ln in log.splitlines() if "spill stores" in ln]
+    spills = [ln for ln in reports if ", 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    assert reports and not spills, spills
+    for dtype, mdt, odt in FUSED_TYPES:
+        for bm, bn in tmm.DW_TILES:
+            info = tbsm.dw_launch_info(dtype, bm, bn, mdt, odt)
+            k3 = tbsm.dw_launch_info(dtype, bm, bn)
+            k19 = tmm.fwd_launch_info(dtype, bm, bn, "dw_fused", mdt, odt)
+            assert info["spill_bytes"] == 0 and info["registers"] <= 255, (dtype, mdt, odt, info)
+            assert info["smem_bytes"] == k3["smem_bytes"], (dtype, mdt, odt, bm, bn, info, k3)
+            assert info["ctas_per_sm"] >= k19["ctas_per_sm"], (dtype, mdt, odt, bm, bn, info)
+
+
+@pytest.mark.cuda
+def test_cuda_bs_dw_fused_f32_keeps_f32_digits():
+    """3xTF32 keeps f32's digits in K7 and K8: K7 at 2048 rows on danube's
+    MLP wi shape (2560 x 6912, a superset of density 0.26, under the plan's
+    split) and K8 on a bank of 8 of qwen2-moe's wi (2048 x 1408) at C = 256
+    rows: the RMS error of the f32 new momentum (sr off, f32 state) against
+    a float64 epilogue on a float64 product is at most 8x the plain f32
+    version's."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(37)
+    kw = dict(mu=0.9, wd=1e-4, sr=False, bn=128, bk=128)
+    for G, M, K, N in ((0, 2048, 2560, 6912), (8, 256, 2048, 1408)):
+        lead = (G,) if G else ()
+        x = torch.randn(*lead, M, K, device=dev, generator=gen)
+        g = torch.randn(*lead, M, N, device=dev, generator=gen) / M ** 0.5
+        bm = torch.rand(*lead, K // 128, N // 128, device=dev, generator=gen) < 0.26
+        idx, cnt = (torch.from_numpy(a).to(dev) for a in (
+            pack_group_mask(bm.cpu().numpy()) if G else pack_np(bm.cpu().numpy())))
+        live = bm.repeat_interleave(128, -2).repeat_interleave(128, -1)
+        w = torch.randn(*lead, K, N, device=dev, generator=gen) / K ** 0.5
+        mom = 0.1 * torch.randn(*lead, K, N, device=dev, generator=gen)
+        ref = torch.where(live, 0.9 * mom.double() + x.double().transpose(-1, -2) @ g.double()
+                          + 1e-4 * w.double(), 0.0)
+        rms = lambda t: float(((t.double() - ref) ** 2).mean().sqrt())
+        fn, plain = ((tbsm.grouped_block_sparse_dw_fused, tbsm.grouped_block_sparse_dw_fused_plain)
+                     if G else (tbsm.block_sparse_dw_fused, tbsm.block_sparse_dw_fused_plain))
+        got = rms(fn(x, g, idx, cnt, w, mom, 0, live=int(bm.sum()), **kw))
+        assert got <= 8 * rms(plain(x, g, idx, cnt, w, mom, 0, **kw)), (G, got)
 
 
 BS_FWD_SHAPES = [(1, 16, 512, 384, 128, 128, ()), (1, 200, 512, 256, 128, 128, ()),
@@ -2379,9 +2511,10 @@ def test_cuda_grouped_masked_fused_dw_matches_plain(shape, types):
     """K20 against its plain version on an elementwise superset (two fully
     masked groups): without sr within ``fused_error_bound``, with sr bit
     for bit ``sr_to_bf16`` of its own f32 m_new; and on a block-aligned
-    mask K8 and K20 each as that against the same plain version (K8 sums
-    in FFMA on the tile layer, K20 in 3xTF32 on the GEMM core, so their
-    bits may differ), with the same zeros."""
+    mask K8 and K20 each as that against the same plain version, and, run
+    on the same tile and split (one GEMM-core walk, the same momentum
+    epilogue), bit for bit one another on the support, sr off (f32 m_new)
+    and on, both zero off it (K20's zeros may carry a sign, K8's are +0.0)."""
     dev = _cuda()
     dt, mdt = (getattr(torch, t) for t in types)
     G, M, K, N, blk, dead = shape
@@ -2410,10 +2543,10 @@ def test_cuda_grouped_masked_fused_dw_matches_plain(shape, types):
     want = tmm.grouped_masked_dw_fused_plain(x, g, dense, w, mom, seed, mu=0.9, wd=1e-4,
                                              sr=False)
     bound = tmm.fused_error_bound(want, absp, M, 0.9, 1e-4, mom, w, acc, dense)
-    k20 = lambda sr, o=None: tmm.grouped_masked_dw_fused(x, g, dense, w, mom, seed, sr=sr,
-                                                         out_dtype=o, **kw)
-    k8 = lambda sr, o=None: tbsm.grouped_block_sparse_dw_fused(
-        x, g, e["bidx"], e["bcnt"], w, mom, seed, sr=sr, out_dtype=o, **kw)
+    k20 = lambda sr, o=None, p=None: tmm.grouped_masked_dw_fused(
+        x, g, dense, w, mom, seed, sr=sr, out_dtype=o, plan=p, **kw)
+    k8 = lambda sr, o=None, p=None: tbsm.grouped_block_sparse_dw_fused(
+        x, g, e["bidx"], e["bcnt"], w, mom, seed, sr=sr, out_dtype=o, plan=p, **kw)
     for run in (k20, k8):
         diff = (run(False).float() - want.float()).abs()
         assert bool((diff <= bound).all()), float((diff / bound.clamp_min(1e-30)).max())
@@ -2421,6 +2554,14 @@ def test_cuda_grouped_masked_fused_dw_matches_plain(shape, types):
         assert torch.equal(run(True).float(), want_sr.to(dt).float())
     torch.cuda.synchronize()
     assert torch.equal(k20(True) != 0, k8(True) != 0)
+    plans = [(128, 128, 1)] + ([(128, 128, 2)] if M >= 2 * tmm.FWD_SLAB else [])
+    for plan in plans:
+        for sr, o in ((False, torch.float32), (True, None)):
+            a = k8(sr, o, plan).float()
+            b = k20(sr, o, plan).float()
+            assert torch.equal(a[dense].view(torch.int32), b[dense].view(torch.int32)), (plan, sr)
+            assert not a[~dense].any() and not bool(torch.signbit(a[~dense]).any())
+            assert not b[~dense].any(), (plan, sr)
 
 
 @pytest.mark.cuda

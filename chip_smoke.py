@@ -194,7 +194,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                 monotone and at the schedule's target density after its
                 prune, snip's per-layer density the ERK map's); wall s per
                 step, tok/s, peak GiB, the update step's s
- 17. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 17. resume  -- h2o-danube-1.8b at full width, 4 of 24 layers, with the train
+                phase's settings (block_sparse 128x128, flash_tight, ERK
+                0.8, RigL with the Top-KAST superset, Adam, warmup-cosine,
+                8 x 1024 tokens in 4 microbatches, delta_t 2, 6 steps,
+                updates after steps 2 and 4): ``run_with_restarts`` with a
+                preemption at step 3 (``ckpt_every=0``: the forced saves at
+                the preemption and at the end) against an uninterrupted
+                ``train_loop`` from the same seed: every leaf of params,
+                masks, supersets, Adam state, pack and the non-finite
+                counter bit for bit equal, the losses of steps 4-6 equal,
+                the pack valid and fresh after the restore; the checkpoint's
+                bytes on disk (reckoned from the state beforehand), the
+                masks' packed bytes against their bool bytes, the snapshot,
+                background write, wait and restore seconds, the step times
+                before and after the restart; the workdirs deleted
+ 18. chaos + obs serve -- the serve phase's model and requests with
+                ``obs=Observability()``, ``max_retries=1`` and a
+                ``FaultInjector(0)`` that poisons two active decode rows
+                (NaN at step 2, inf at step 5) and every prefill of rid 6:
+                rid 6 FAILED after its retry, the other 7 DONE with the
+                serve phase's tokens (the retried ones included); the
+                trace's quarantine instants equal ``quarantine_log``, each
+                joined to a fired injection; the metrics text
+                (chiprun_out/chaos_metrics.prom) parses to 7 DONE and 1
+                FAILED, the trace (chiprun_out/chaos_trace.json) loads as
+                Chrome JSON; the same run with ``obs=None`` and no faults
+                gives the same tokens; the host decode step with obs on and
+                off
+ 19. lockstep -- ``serve_session`` on the same model (batch 4, prompt 48,
+                gen 32, the CLI defaults): finite tokens, exactly 168 K1
+                and 24 K9 in the prefill and 168 K1 and no K9 in each decode
+                step, the prefill's last logits within the serve phase's
+                tolerance of the plain dense path; prefill s, decode s per
+                token and tok/s beside the engine's
+ 20. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -604,6 +638,7 @@ def main_path(torch, timer, bsm, fa):
     launches = {"block_sparse_fwd": bsm.launches, "flash_fwd": fa.launches,
                 "block_sparse_fwd_merge": bsm.fwd_merge_launches}
     stats["prefill_ms"] = 1e3 * stats["prefill_s"] / stats["prefills"]
+    stats["generated"] = {r.rid: list(r.generated) for r in reqs}
     print("main: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "quarantined",
         "failed", "wall_s", "tok_per_s", "prefill_s", "decode_step_s")}))
@@ -1253,7 +1288,7 @@ def train_path(torch, bsm, fa, mm, cfg, merges):
     t0 = time.perf_counter()
     state, _ = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                           workdir=str(ROOT / "chiprun_out" / "train"), device="cuda",
-                          on_step=on_step, log_every=TRAIN_STEPS)
+                          on_step=on_step, log_every=TRAIN_STEPS, ckpt_every=None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read()
@@ -1837,7 +1872,8 @@ def masked_train(torch, mm, fa, bsm):
     t0 = time.perf_counter()
     state, _ = train_loop(cfg, steps=MASKED_TRAIN_STEPS, batch=MASKED_BATCH, seq=TRAIN_SEQ,
                           workdir=str(ROOT / "chiprun_out" / "masked_train"), device="cuda",
-                          on_step=on_step, log_every=MASKED_TRAIN_STEPS)
+                          on_step=on_step, log_every=MASKED_TRAIN_STEPS,
+                          ckpt_every=None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read()
@@ -3423,7 +3459,7 @@ def moe_train(torch, timer, bsm, mm, fa, kernel):
     t0 = time.perf_counter()
     state, _ = train_loop(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
                           workdir=str(ROOT / "chiprun_out" / f"moe_train_{kernel}"),
-                          device="cuda", on_step=on_step, log_every=steps)
+                          device="cuda", on_step=on_step, log_every=steps, ckpt_every=None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read()
@@ -4099,7 +4135,8 @@ def method_train(torch, bsm, mm, fa, tk, method):
     t0 = time.perf_counter()
     state, _ = train_loop(cfg, steps=METHOD_STEPS, batch=MASKED_BATCH, seq=TRAIN_SEQ,
                           workdir=str(ROOT / "chiprun_out" / f"methods_{method}"),
-                          device="cuda", on_step=on_step, log_every=METHOD_STEPS)
+                          device="cuda", on_step=on_step, log_every=METHOD_STEPS,
+                          ckpt_every=None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read()
@@ -4127,6 +4164,432 @@ def method_train(torch, bsm, mm, fa, tk, method):
           f"{TRAIN_SEQ} tokens in {total_s:.1f} s; train step {wall:.3f} s wall = "
           f"{stats['tok_per_s']:.0f} tok/s; update step {stats['update_step_wall_s']}; "
           f"peak {stats['peak_mem_gib']:.1f} GiB; {seen['checks']}; launches {launches}")
+    return stats, launches
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and restarts, the fault injector with observability, lockstep
+# ---------------------------------------------------------------------------
+
+RESUME_LAYERS, RESUME_PREEMPT = 4, 3
+BS_TRAIN_COUNTERS = (
+    ("block_sparse_fwd", "bsm", "launches"), ("block_sparse_dx", "bsm", "dx_launches"),
+    ("block_sparse_dw", "bsm", "dw_launches"),
+    ("block_sparse_fwd_merge", "bsm", "fwd_merge_launches"),
+    ("block_sparse_dx_merge", "bsm", "dx_merge_launches"),
+    ("block_sparse_dw_merge", "bsm", "dw_merge_launches"),
+    ("flash_fwd", "fa", "launches"), ("flash_dq", "fa", "dq_launches"),
+    ("flash_dkv", "fa", "dkv_launches"))
+
+
+def read_counters(mods, counters=BS_TRAIN_COUNTERS):
+    return {n: getattr(mods[m], a) for n, m, a in counters}
+
+
+def zero_counters(mods, counters=BS_TRAIN_COUNTERS):
+    for _, m, a in counters:
+        setattr(mods[m], a, 0)
+
+
+def resume_config():
+    """The train phase's danube (block_sparse 128x128, flash_tight, ERK 0.8,
+    RigL with the Top-KAST superset, delta_t 2) at full width, 4 of 24
+    layers, with updates until the end of the run (steps 2 and 4)."""
+    cfg = train_config()
+    return dataclasses.replace(cfg, n_layers=RESUME_LAYERS, sparse=dataclasses.replace(
+        cfg.sparse, t_end_fraction=1.0))
+
+
+def state_bytes(torch, state):
+    """Bytes of every leaf of a train state as it lies (host ints 4)."""
+    from repro_torch.core.masks import tree_map
+
+    out = []
+    tree_map(lambda _, v: out.append(
+        0 if v is None else v.numel() * v.element_size() if torch.is_tensor(v) else 4),
+        state)
+    return sum(out)
+
+
+def same_state(torch, a, b):
+    """[names of the leaves that differ] between two train states, bit for
+    bit (floats compared as their bits, so NaNs and signed zeros count)."""
+    from repro_torch.core.masks import tree_map
+
+    bad = []
+
+    def cmp(name, x, y):
+        if x is None or not torch.is_tensor(x):
+            if x != y:
+                bad.append(name)
+            return
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(name)
+            return
+        if x.is_floating_point():
+            x, y = (t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                    for t in (x, y))
+        if not torch.equal(x, y):
+            bad.append(name)
+
+    tree_map(cmp, a, b)
+    return bad
+
+
+def resume_phase(torch, bsm, fa):
+    """``run_with_restarts(preempt_at=3, ckpt_every=0)`` against an
+    uninterrupted 6-step ``train_loop`` from the same seed, at full width
+    (4 of 24 layers): every leaf of params, masks, supersets, Adam state,
+    pack and the non-finite counter bit for bit equal; the losses after
+    the restart equal; the pack valid and fresh after the restore; the
+    checkpoint's bytes, the snapshot, write, wait and restore seconds, and
+    the step times before and after the restart."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.masks import tree_map, tree_paths
+    from repro_torch.core.pack import pack_mismatch, validate_pack
+    from repro_torch.launch import train as tl
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state
+
+    cfg = resume_config()
+    mods = {"bsm": bsm, "fa": fa}
+    work = ROOT / "build" / "resume"
+    shutil.rmtree(work, ignore_errors=True)
+    probe, _ = init_train_state(cfg, OptConfig(kind="adam", weight_decay=0.0,
+                                                grad_clip=1.0), seed=0, device="cuda")
+    reckoned = state_bytes(torch, probe)
+    mask_elems = sum(m.numel() for m in tree_paths(probe["masks"]).values())
+    del probe
+    torch.cuda.empty_cache()
+    free = shutil.disk_usage(ROOT).free
+    print(f"resume: danube {cfg.n_layers} layers at full width; the train state "
+          f"reckons {reckoned / 2**30:.2f} GiB ({mask_elems / 1e6:.1f} M mask "
+          f"elements: {mask_elems / 2**30:.2f} GiB as bool, "
+          f"{mask_elems / 8 / 2**30:.3f} GiB bit-packed); {free / 2**30:.0f} GiB "
+          f"free on disk")
+
+    saves, restores = [], []
+
+    class Timed(tl.Checkpointer):
+        """The loop's checkpointer, recording each save's timings."""
+
+        def wait(self):
+            pending = self._thread is not None
+            super().wait()
+            if pending:
+                saves.append(dict(self.timings))
+
+        def restore_or_none(self, like):
+            t0 = time.perf_counter()
+            got = super().restore_or_none(like)
+            torch.cuda.synchronize()
+            if got[0] is not None:
+                restores.append(time.perf_counter() - t0)
+            return got
+
+    def recorder(log, check_pack=False):
+        last = [None]
+
+        def on_step(step, is_update, state, m):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            rec = {"step": step, "update": is_update, "loss": float(m["loss"]),
+                   "launches": read_counters(mods)}
+            if last[0] is not None:
+                rec["wall_s"] = now - last[0]
+            if check_pack and step == RESUME_PREEMPT + 1:
+                # the first step after the restore ran on the re-packed state
+                validate_pack(state["pack"], where="chip_smoke resume")
+                rec["pack_stale"] = int(pack_mismatch(
+                    state["masks"], state["pack"], cfg.sparse.block_shape,
+                    bwd_masks=state["bwd_masks"]))
+            log.append(rec)
+            torch.cuda.synchronize()
+            last[0] = time.perf_counter()
+
+        return on_step
+
+    kw = dict(cfg=cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              log_every=TRAIN_STEPS, device="cuda")
+    tl.Checkpointer, plain_ckpt = Timed, tl.Checkpointer
+    try:
+        zero_counters(mods)
+        log_r = []
+        t0 = time.perf_counter()
+        resumed, _ = tl.run_with_restarts(
+            workdir=str(work / "resumed"), preempt_at=RESUME_PREEMPT, ckpt_every=0,
+            on_step=recorder(log_r, check_pack=True), **kw)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        launches = read_counters(mods)
+        log_s = []
+        straight, _ = tl.train_loop(workdir=str(work / "straight"), ckpt_every=None,
+                                    on_step=recorder(log_s), **kw)
+        torch.cuda.synchronize()
+    finally:
+        tl.Checkpointer = plain_ckpt
+    ckpt_dir = work / "resumed" / "ckpt"
+    disk = {}
+    for d in sorted(ckpt_dir.glob("step-*")):
+        blob = d / "arrays.npz"
+        with np.load(blob) as z:
+            packed = sum(z[k].nbytes for k in z.files if k.startswith("__packedmask__"))
+        disk[d.name] = {"bytes": blob.stat().st_size, "mask_packed_bytes": packed}
+    bad = same_state(torch, resumed, straight)
+    shutil.rmtree(work, ignore_errors=True)
+
+    steps_r = [r["step"] for r in log_r]
+    if steps_r != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError(f"resume: the restarted run stepped {steps_r}")
+    if [r["update"] for r in log_s] != [s in (3, 5) for s in range(1, TRAIN_STEPS + 1)]:
+        raise AssertionError(f"resume: updates at {[r['step'] for r in log_s if r['update']]}, "
+                             "expected after steps 2 and 4")
+    if bad:
+        raise AssertionError(f"resume: {len(bad)} leaves differ from the uninterrupted "
+                             f"run, first {bad[:8]}")
+    losses_r = [r["loss"] for r in log_r][RESUME_PREEMPT:]
+    losses_s = [r["loss"] for r in log_s][RESUME_PREEMPT:]
+    if losses_r != losses_s or not all(math.isfinite(x) for x in losses_s):
+        raise AssertionError(f"resume: losses after the restart {losses_r} vs {losses_s}")
+    after = log_r[RESUME_PREEMPT]
+    if after.get("pack_stale") != 0:
+        raise AssertionError(f"resume: pack stale after the restore: {after}")
+    if len(saves) != 2 or len(restores) != 1 or len(disk) != 2:
+        raise AssertionError(f"resume: {len(saves)} saves, {len(restores)} restores, "
+                             f"checkpoints {sorted(disk)}")
+    for name in ("block_sparse_fwd", "block_sparse_dx", "block_sparse_dw", "flash_fwd",
+                 "flash_dq", "flash_dkv"):
+        if launches[name] == 0:
+            raise AssertionError(f"resume: kernel {name} was not launched")
+    wall = lambda log, lo, hi: [round(r["wall_s"], 4) for r in log
+                                if "wall_s" in r and lo < r["step"] <= hi]
+    stats = {
+        "layers": cfg.n_layers, "state_bytes_reckoned": reckoned,
+        "mask_elements": mask_elems, "checkpoints": disk, "saves": saves,
+        "restore_s": restores[0], "resumed_run_s": resumed_s,
+        "losses": losses_s, "losses_resumed": [r["loss"] for r in log_r],
+        "step_wall_s_before_restart": wall(log_r, 0, RESUME_PREEMPT),
+        "step_wall_s_after_restart": wall(log_r, RESUME_PREEMPT + 1, TRAIN_STEPS),
+        "step_wall_s_uninterrupted": wall(log_s, 0, TRAIN_STEPS),
+    }
+    n_leaves = []
+    tree_map(lambda *_: n_leaves.append(1), straight)
+    stats["leaves_compared"] = len(n_leaves)
+    for name, d in disk.items():
+        print(f"resume: {name}: {d['bytes'] / 2**30:.3f} GiB on disk (reckoned "
+              f"{reckoned / 2**30:.3f}); masks {d['mask_packed_bytes'] / 2**20:.1f} MiB "
+              f"bit-packed against {mask_elems / 2**20:.1f} MiB as bool")
+    for i, s in enumerate(saves):
+        print(f"resume: save {i}: snapshot {s['snapshot_s']:.3f} s, background write "
+              f"{s['write_s']:.3f} s, wait {s['wait_s']:.3f} s")
+    print(f"resume: restore {restores[0]:.3f} s; {len(n_leaves)} leaves bit for bit equal "
+          f"to the uninterrupted run's; losses after the restart {losses_r}; step wall "
+          f"s before the restart {stats['step_wall_s_before_restart']}, after "
+          f"{stats['step_wall_s_after_restart']}, uninterrupted "
+          f"{stats['step_wall_s_uninterrupted']}; launches {launches}")
+    return stats, launches
+
+
+SERVE_COUNTERS = (("block_sparse_fwd", "bsm", "launches"),
+                  ("block_sparse_fwd_merge", "bsm", "fwd_merge_launches"),
+                  ("flash_fwd", "fa", "launches"))
+CHAOS_PREFILL_RID = 6
+CHAOS_DECODE = ((2, 1, float("nan")), (5, 3, float("inf")))  # (step, slot, value)
+
+
+def chaos_serve(torch, bsm, fa, fault_free):
+    """The serve phase's model and 8 requests with ``obs`` and a
+    ``FaultInjector``: two decode rows of active slots poisoned (NaN, inf)
+    and one request's every prefill; ``max_retries=1``.  The poisoned
+    prefill FAILED after its retry, the other 7 DONE with the fault-free
+    tokens (``fault_free``: {rid: tokens} of the serve phase); quarantine
+    instants = ``quarantine_log``, each joined to a fired injector entry;
+    the metrics text and the Chrome trace written and read back; then the
+    same requests with ``obs=None`` and no faults.  Returns (stats,
+    launches, (cfg, params, masks, pack))."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (
+        configure_kernel,
+        init_serving_state,
+        staggered_requests,
+    )
+    from repro_torch.obs import MetricsRegistry, Observability, parse_prometheus_text
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.queue import Status
+
+    mods = {"bsm": bsm, "fa": fa}
+    cfg = configure_kernel(get_config("h2o-danube-1.8b"), kernel="block_sparse",
+                           block=128, attn_kernel="flash_tight")
+    params, masks, pack = init_serving_state(cfg, seed=0, device="cuda")
+    out_dir = ROOT / "chiprun_out"
+    trace_path, metrics_path = out_dir / "chaos_trace.json", out_dir / "chaos_metrics.prom"
+
+    def serve(obs, faults):
+        engine = ServeEngine(cfg, params, capacity=4, max_len=2048, masks=masks,
+                             pack=pack, obs=obs, faults=faults, max_retries=1)
+        reqs = staggered_requests(cfg, 8, prompt_lens=(100, 300, 1000), gen_lens=(32,),
+                                  seed=0)
+        for r in reqs:
+            engine.submit(r)
+        stats = engine.run()
+        return engine, reqs, stats
+
+    warm = ServeEngine(cfg, params, capacity=4, max_len=2048, masks=masks, pack=pack)
+    for r in staggered_requests(cfg, 2, prompt_lens=(100,), gen_lens=(2,), seed=1):
+        warm.submit(r)
+    warm.run()
+    serve_params = warm.params
+    del warm
+
+    obs = Observability(metrics=MetricsRegistry(), process_name="serve")
+    injector = FaultInjector(0).poison_prefill(CHAOS_PREFILL_RID)
+    for step, slot, value in CHAOS_DECODE:
+        injector.poison_logits(step, slot, value)
+    zero_counters(mods, SERVE_COUNTERS)
+    engine, reqs, stats = serve(obs, injector)
+    launches = read_counters(mods, SERVE_COUNTERS)
+    obs.flusher(metrics_path=metrics_path, trace_path=trace_path).close(stats["wall_s"])
+    plain_engine, plain_reqs, plain_stats = serve(None, None)
+
+    failed = [r for r in reqs if r.status is Status.FAILED]
+    if [r.rid for r in failed] != [CHAOS_PREFILL_RID] or failed[0].n_retries != 1:
+        raise AssertionError(f"chaos: failed {[(r.rid, r.n_retries) for r in failed]}")
+    for r in reqs:
+        if r.rid != CHAOS_PREFILL_RID and (r.status is not Status.DONE
+                                           or r.generated != fault_free[r.rid]):
+            raise AssertionError(f"chaos: request {r.rid} {r.status} with tokens "
+                                 "other than the fault-free run's")
+    for r in plain_reqs:
+        if r.status is not Status.DONE or r.generated != fault_free[r.rid]:
+            raise AssertionError(f"chaos: obs=None, no faults: request {r.rid} differs")
+    log = engine.quarantine_log
+    decode_hits = {(s, sl) for s, sl, _ in CHAOS_DECODE}
+    if sorted((q.step, q.slot) for q in log if q.where == "decode") != sorted(decode_hits):
+        raise AssertionError(f"chaos: decode quarantines {log}")
+    quar = obs.trace.find("quarantine")
+    traced = [(e["args"]["step"], e["args"]["rid"], e["args"]["slot"],
+               e["args"]["attempt"], e["args"]["where"]) for e in quar]
+    if traced != [tuple(q) for q in log]:
+        raise AssertionError(f"chaos: trace {traced} vs quarantine log {log}")
+    fired_decode = {(e[1], s) for e in injector.log if e[0] == "decode" for s in e[2]}
+    fired_prefill = {(e[1], e[2]) for e in injector.log if e[0] == "prefill"}
+    for q in log:
+        key = (q.step, q.slot) if q.where == "decode" else (q.rid, q.attempt)
+        if key not in (fired_decode if q.where == "decode" else fired_prefill):
+            raise AssertionError(f"chaos: quarantine {q} joins no fired injection")
+    if len(fired_prefill) != 2 or len(log) != 4:
+        raise AssertionError(f"chaos: injector log {injector.log}, quarantines {log}")
+    parsed = parse_prometheus_text(metrics_path.read_text())
+    by = {s: parsed["serve_requests_total"][frozenset({("status", s)})]
+          for s in ("DONE", "FAILED")}
+    if by != {"DONE": 7, "FAILED": 1}:
+        raise AssertionError(f"chaos: metrics {by}")
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    if not events or any(e["ph"] not in "XiCM" for e in events):
+        raise AssertionError("chaos: the trace is not Chrome JSON")
+    for name in ("block_sparse_fwd", "flash_fwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"chaos: kernel {name} was not launched")
+    out = {"stats": stats, "stats_obs_off": plain_stats,
+           "decode_step_s_obs_on": stats["decode_step_s"],
+           "decode_step_s_obs_off": plain_stats["decode_step_s"],
+           "quarantine_log": [tuple(q) for q in log], "injector_log": [
+               [x if not isinstance(x, float) else repr(x) for x in e] for e in injector.log],
+           "trace_events": len(events), "trace_dropped": obs.trace.n_dropped,
+           "metrics_bytes": metrics_path.stat().st_size}
+    print(f"chaos: {stats['requests']} DONE with the fault-free tokens, "
+          f"{stats['failed']} FAILED (rid {CHAOS_PREFILL_RID}, after its retry); "
+          f"quarantines {out['quarantine_log']} = the trace's instants, each joined "
+          f"to the injector's log {out['injector_log']}; metrics {by}; "
+          f"{len(events)} trace events; host decode step "
+          f"{1e3 * stats['decode_step_s']:.2f} ms with obs and faults, "
+          f"{1e3 * plain_stats['decode_step_s']:.2f} ms without; tok/s "
+          f"{stats['tok_per_s']:.1f} / {plain_stats['tok_per_s']:.1f}; launches {launches}")
+    return out, launches, (cfg, serve_params, masks, pack)
+
+
+LOCK_BATCH, LOCK_PROMPT, LOCK_GEN = 4, 48, 32
+
+
+def lockstep_phase(torch, bsm, fa, model, engine_tok_s):
+    """``serve_session`` (the CLI's defaults: batch 4, prompt 48, gen 32)
+    on the serve phase's model: finite tokens, exactly 7 K1 launches a
+    layer and one K9 a layer in the prefill and 7 K1 and no K9 in each
+    decode step, and the prefill's last logits within the serve phase's
+    tolerance of the plain dense path."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import lm_prefill
+
+    cfg, params, masks, pack = model
+    mods = {"bsm": bsm, "fa": fa}
+    calls = []
+
+    def counted(fn, kind):
+        def run(*a, **k):
+            before = read_counters(mods, SERVE_COUNTERS)
+            out = fn(*a, **k)
+            now = read_counters(mods, SERVE_COUNTERS)
+            calls.append((kind, {n: now[n] - before[n] for n in now}))
+            return out
+        return run
+
+    # warm-up (allocator, cuBLAS handles) before the counted run
+    serve_mod.serve_session(cfg, params, batch=LOCK_BATCH, prompt_len=LOCK_PROMPT,
+                            gen=2, masks=masks, pack=pack)
+    prefill, decode = serve_mod.lm_prefill, serve_mod.lm_decode
+    serve_mod.lm_prefill = counted(prefill, "prefill")
+    serve_mod.lm_decode = counted(decode, "decode")
+    try:
+        zero_counters(mods, SERVE_COUNTERS)
+        toks, stats = serve_mod.serve_session(cfg, params, batch=LOCK_BATCH,
+                                              prompt_len=LOCK_PROMPT, gen=LOCK_GEN,
+                                              masks=masks, pack=pack)
+        launches = read_counters(mods, SERVE_COUNTERS)
+    finally:
+        serve_mod.lm_prefill, serve_mod.lm_decode = prefill, decode
+    L = cfg.n_layers
+    want = {"prefill": (7 * L, L), "decode": (7 * L, 0)}
+    if [k for k, _ in calls] != ["prefill"] + ["decode"] * (LOCK_GEN - 1):
+        raise AssertionError(f"lockstep: calls {[k for k, _ in calls]}")
+    for i, (kind, got) in enumerate(calls):
+        if (got["block_sparse_fwd"], got["flash_fwd"]) != want[kind]:
+            raise AssertionError(f"lockstep: call {i} ({kind}) launched {got}, "
+                                 f"expected K1, K9 = {want[kind]}")
+    if tuple(toks.shape) != (LOCK_BATCH, LOCK_GEN) or int(toks.min()) < 0 or int(
+            toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"lockstep: tokens {tuple(toks.shape)} out of range")
+    # the prefill's last logits against the plain dense path on the prompt
+    from repro_torch.data.synthetic import batch_for
+
+    prompt = batch_for(cfg, 0, LOCK_BATCH, LOCK_PROMPT + 1, learnable=True,
+                       device="cuda")["tokens"][:, :LOCK_PROMPT]
+    dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
+        cfg.sparse, kernel="dense", attn_kernel="dense"))
+    logits = {}
+    for name, c in (("kernel", cfg), ("dense", dense)):
+        lg, _ = lm_prefill(params, c, {"tokens": prompt}, LOCK_PROMPT + LOCK_GEN,
+                           masks=masks, pack=pack)
+        logits[name] = lg.float()[..., :cfg.vocab_size]
+    a, b = logits["kernel"], logits["dense"]
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("lockstep: prefill logits not finite")
+    err = (a - b).abs().max().item()
+    tol = 2e-2 * b.abs().max().item()
+    if err > tol:
+        raise AssertionError(f"lockstep: prefill logits err {err} > {tol}")
+    agree = float((toks[:, 0].cpu() == b[:, -1].argmax(-1).cpu()).float().mean())
+    stats.update({"logits_max_err": err, "logits_tol": tol, "calls": len(calls),
+                  "first_token_agreement_with_dense": agree,
+                  "engine_tok_per_s": engine_tok_s})
+    print(f"lockstep: batch {LOCK_BATCH}, prompt {LOCK_PROMPT}, gen {LOCK_GEN}: prefill "
+          f"{stats['prefill_s']:.4f} s, decode {1e3 * stats['decode_s_per_tok']:.2f} "
+          f"ms/token, {stats['tok_per_s']:.1f} tok/s (the engine's "
+          f"{engine_tok_s:.1f}); prefill logits max err {err:.4g} (tol {tol:.4g}); "
+          f"K1 {want['prefill'][0]} and K9 {L} in the prefill, K1 {want['decode'][0]} "
+          f"a decode step, exactly; launches {launches}")
     return stats, launches
 
 
@@ -4251,6 +4714,15 @@ def main() -> int:
         methods[method], methods_launches[f"methods_{method}"] = method_train(
             torch, bsm, mm, fa, tk, method)
         done(f"methods train: {method}")
+    resume_stats, resume_launches = resume_phase(torch, bsm, fa)
+    done("resume")
+    chaos_stats, chaos_launches, served = chaos_serve(
+        torch, bsm, fa, serve_stats["generated"])
+    done("chaos + obs serve")
+    lockstep_stats, lockstep_launches = lockstep_phase(
+        torch, bsm, fa, served, chaos_stats["stats_obs_off"]["tok_per_s"])
+    del served
+    done("lockstep")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
@@ -4260,7 +4732,8 @@ def main() -> int:
              "fused_block_sparse_train": fused_bs_launches,
              "moe_fused_train": moe_fused_launches,
              "moe_masked_fused_train": moe_mfused_launches, "topk": topk_launches,
-             **methods_launches}
+             **methods_launches, "resume": resume_launches,
+             "chaos_serve": chaos_launches, "lockstep": lockstep_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -4386,6 +4859,7 @@ def main() -> int:
          "bs_dw_fused_merge": k7_merges, "k20": k20,
          "moe_fused_train": moe_fused_stats, "moe_masked_fused_train": moe_mfused_stats,
          "k21": k21, "topk_threshold": topk_thr, "methods": methods,
+         "resume": resume_stats, "chaos_serve": chaos_stats, "lockstep": lockstep_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

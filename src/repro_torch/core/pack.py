@@ -56,6 +56,7 @@ __all__ = [
     "pack_group_mask_rows",
     "pack_np",
     "pack_stats",
+    "publish_pack_gauges",
     "refresh_pack_state",
     "slack_width",
     "validate_pack",
@@ -320,6 +321,34 @@ def pack_stats(pack) -> dict:
     out["density"] = nnz_total / cells_total if cells_total else 0.0
     out["superset_density"] = bnnz_total / bcells_total if bcells_total else None
     return out
+
+
+def publish_pack_gauges(metrics, pack) -> None:
+    """Set the ``kernel_*`` gauges on a metrics registry (``obs``
+    duck-typed: core stays obs-free) from ``pack_stats``: the grid fraction
+    and the forward and superset block densities, per layer and under the
+    ``_total`` label, as the reference's ``publish_pack_gauges``.  The
+    engine publishes once at construction (its pack is constant), the
+    trainer after every ``refresh_pack``.  No-op without a pack."""
+    if pack is None:
+        return
+    st = pack_stats(pack)
+    gf = metrics.gauge("kernel_grid_fraction",
+                       "packed grid width / padded worst case", labels=("layer",))
+    dn = metrics.gauge("kernel_block_density",
+                       "live forward blocks / full block grid", labels=("layer",))
+    sd = metrics.gauge("kernel_superset_density",
+                       "Top-KAST backward-superset blocks / full block grid",
+                       labels=("layer",))
+    gf.labels("_total").set(st["grid_fraction"])
+    dn.labels("_total").set(st["density"])
+    if st["superset_density"] is not None:
+        sd.labels("_total").set(st["superset_density"])
+    for name, ls in st["layers"].items():
+        gf.labels(name).set(ls["grid_fraction"])
+        dn.labels(name).set(ls["density"])
+        if ls["superset_density"] is not None:
+            sd.labels(name).set(ls["superset_density"])
 
 
 def validate_pack(pack, *, where: str = "pack") -> int:

@@ -1,4 +1,5 @@
-"""Serving driver of the port: the continuous-batching engine on the GPU.
+"""Serving driver of the port: the continuous-batching engine (default) or
+the lockstep baseline, on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --kernel block_sparse --block 128 --attn-kernel flash_tight
@@ -17,11 +18,18 @@ prefill attention runs the flash CUDA kernel on the prompt's AttnSchedule.
 prefixes (a hit's suffix prefill runs the paged flash kernel K12), as in
 the reference.  Sampling is reached through the ``Request`` fields
 (``staggered_requests(temperature=, top_k=)``), as in the reference CLI.
+``--max-retries`` bounds the engine's quarantine retries; ``--trace-out``
+and ``--metrics-out`` write the engine's Chrome trace and Prometheus
+metrics after the run (``obs/``).  ``--lockstep`` runs ``serve_session``
+instead: one fixed batch (``--batch``, ``--prompt-len``, ``--gen``) with
+one shared position, every row decoding until the last is done — the
+baseline the engine is measured against.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -30,12 +38,63 @@ from ..configs import get_config, validate_sparse_kernel
 from ..core.distributions import sparsity_map
 from ..core.masks import apply_masks, init_masks, tree_paths
 from ..core.pack import build_pack_state
+from ..data.synthetic import batch_for
 from ..device import resolve_device
-from ..models.model import init_lm
+from ..models.model import init_lm, lm_decode, lm_prefill, serving_weights
+from ..obs import Observability
 from ..serving.engine import ServeEngine
 from ..serving.queue import Request, poisson_arrivals
 
-__all__ = ["configure_kernel", "staggered_requests", "init_serving_state", "main"]
+__all__ = ["serve_session", "configure_kernel", "staggered_requests",
+           "init_serving_state", "main"]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_session(cfg, params, *, batch: int, prompt_len: int, gen: int,
+                  max_len: int | None = None, masks=None, pack=None, prompt=None):
+    """Greedy lockstep generation -> (tokens (B, gen), stats), the
+    reference's ``serve_session``: one prefill of the whole batch, then
+    ``gen - 1`` decode steps at one shared scalar position.
+
+    ``params`` are the f32 masters (or ``serving_weights`` of them); masks
+    and pack follow the kernel-dispatch contract of ``ServeEngine``.
+    ``prompt``: (B, prompt_len) int tokens; by default the port's
+    ``batch_for(cfg, 0, batch, prompt_len + 1, learnable=True)`` cut to
+    ``prompt_len``, as the reference builds its prompt from its own
+    stream.  ``tok_per_s`` counts all ``batch * gen`` tokens over the
+    prefill and decode time (the first token comes from the prefill)."""
+    max_len = max_len or (prompt_len + gen)
+    w = serving_weights(params, cfg)
+    dev = w["embed"]["table"].device
+    if prompt is None:
+        prompt = batch_for(cfg, 0, batch, prompt_len + 1, learnable=True,
+                           device=dev)["tokens"][:, :prompt_len]
+    prompt = prompt.to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = lm_prefill(w, cfg, {"tokens": prompt}, max_len,
+                                masks=masks, pack=pack)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = lm_decode(w, cfg, caches, tok, prompt_len + i,
+                                   masks=masks, pack=pack)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return torch.cat(out, dim=1), {
+        "prefill_s": t_prefill,
+        "decode_s_per_tok": t_decode / max(gen - 1, 1),
+        "tok_per_s": batch * gen / max(t_prefill + t_decode, 1e-9),
+    }
 
 
 def staggered_requests(cfg, n: int, *, prompt_lens=(16, 32),
@@ -151,7 +210,8 @@ def main(argv=None):
                    help="max LRU-registered shared prefixes for copy-on-write "
                    "prefix reuse (0 = off; needs --paged and an all-global "
                    "config)")
-    p.add_argument("--lockstep", action="store_true", help="not ported yet")
+    p.add_argument("--lockstep", action="store_true",
+                   help="run the fixed-batch serve_session baseline instead")
     p.add_argument("--batch", type=int, default=4, help="lockstep only")
     p.add_argument("--prompt-len", type=int, default=48, help="lockstep only")
     p.add_argument("--gen", type=int, default=32, help="lockstep only")
@@ -163,24 +223,36 @@ def main(argv=None):
     p.add_argument("--attn-kernel", default=None,
                    choices=["dense", "flash", "flash_tight"],
                    help="override cfg.sparse.attn_kernel")
-    p.add_argument("--trace-out", default=None, help="not ported yet")
-    p.add_argument("--metrics-out", default=None, help="not ported yet")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write the engine's Chrome-trace JSON here (Perfetto / "
+                   "chrome://tracing)")
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write Prometheus text-exposition metrics here after the run")
     args = p.parse_args(argv)
-    if args.lockstep:
-        raise NotImplementedError("--lockstep (serve_session) is not ported yet")
-    if args.trace_out or args.metrics_out:
-        raise NotImplementedError("--trace-out/--metrics-out are not ported yet")
     cfg = configure_kernel(
         get_config(args.arch, smoke=args.smoke), kernel=args.kernel,
         block=args.block, attn_kernel=args.attn_kernel,
     )
     params, masks, pack = init_serving_state(cfg, device=args.device)
+    if args.lockstep:
+        toks, stats = serve_session(cfg, params, batch=args.batch,
+                                    prompt_len=args.prompt_len, gen=args.gen,
+                                    masks=masks, pack=pack)
+        print(f"lockstep  kernel={cfg.sparse.kernel}  "
+              f"attn_kernel={cfg.sparse.attn_kernel}  generated shape: "
+              f"{tuple(toks.shape)}  device={toks.device}")
+        for k, v in stats.items():
+            print(f"  {k}: {v:.4f}")
+        return toks, stats
+    obs = None
+    if args.trace_out or args.metrics_out:
+        obs = Observability(process_name="serve")
     engine = ServeEngine(
         cfg, params, capacity=args.capacity, max_len=args.max_len,
         masks=masks, pack=pack, queue_limit=args.queue_limit,
         deadline=args.deadline, max_retries=args.max_retries,
         paged=args.paged, page_size=args.page_size, n_blocks=args.n_blocks,
-        prefix_cache=args.prefix_cache,
+        prefix_cache=args.prefix_cache, obs=obs,
     )
     n_shed = sum(
         not engine.submit(r)
@@ -191,6 +263,12 @@ def main(argv=None):
         print(f"backpressure: {n_shed} requests shed at submit "
               f"(--queue-limit {args.queue_limit})")
     stats = engine.run()
+    if obs is not None:
+        obs.flusher(metrics_path=args.metrics_out,
+                    trace_path=args.trace_out).close(stats["wall_s"])
+        for what, path in (("trace", args.trace_out), ("metrics", args.metrics_out)):
+            if path:
+                print(f"{what} written to {path}")
     print(f"engine  kernel={cfg.sparse.kernel}  "
           f"attn_kernel={cfg.sparse.attn_kernel}  capacity={args.capacity}  "
           f"paged={args.paged}  device={engine.device}")

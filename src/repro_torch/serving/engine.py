@@ -38,8 +38,22 @@ parameters) and the block tables have device copies that advance on the
 device and are re-uploaded only when an admission or release changes the
 host mirrors: a host-to-device copy synchronises the stream.
 
-Not ported yet (raise ``NotImplementedError``): the fault injector and
-observability hooks.
+Chaos and observability, as the reference's:
+
+  * ``faults=`` (``serving/faults.py::FaultInjector``): a planned decode
+    fault's values are written into the chosen logits rows on the device
+    before the finite flag and the sampler; a prefill fault replaces the
+    prefill's last logits row; a prefill delay sleeps the host (wall-clock
+    runs).  Without an injector the engine runs exactly the path it runs
+    with none.
+  * ``obs=`` (``obs.Observability``): the reference's serve_* metric
+    catalog (names, kinds, labels), spans on the engine track (tid 0) and
+    on each slot's (tid s + 1), and quarantine, retry, shed and
+    fault_injected instants keyed by (step, rid, slot, attempt), so a trace
+    joins ``quarantine_log`` and the injector's ``log`` exactly.  All of it
+    is host-side: streams are identical with and without ``obs``.
+  * ``stats()["n_retraces"]``: launch plans and schedules built during the
+    engine's lifetime (``obs.jit_retraces``; the port has no jit).
 """
 from __future__ import annotations
 
@@ -50,7 +64,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.pack import validate_pack
+from ..core.pack import publish_pack_gauges, validate_pack
 from ..models.model import (
     cache_group,
     init_caches,
@@ -61,8 +75,10 @@ from ..models.model import (
     logits_all_finite,
     serving_weights,
 )
+from ..obs import jit_retraces, kernels_plan_caches
+from ..obs.stats_util import percentile
 from .block_pool import BlockPool
-from .queue import Request, RequestQueue, Status, percentile
+from .queue import Request, RequestQueue, Status
 from .sampler import request_key, sample_tokens, step_keys
 
 __all__ = ["ServeEngine", "QuarantineRecord"]
@@ -129,7 +145,8 @@ class ServeEngine:
     masks/pack follow the kernel-dispatch contract: with masks, every
     projection dispatches through ``cfg.sparse.kernel`` and ``pack``
     carries the block-sparse topology.  queue_limit, deadline and
-    max_retries are the reference's fault-tolerance knobs.
+    max_retries are the reference's fault-tolerance knobs; ``faults`` an
+    optional ``FaultInjector``, ``obs`` an optional ``Observability``.
 
     Paged knobs, as the reference: ``paged`` (page pools and block tables),
     ``page_size`` (must divide max_len and each local ring length),
@@ -145,10 +162,6 @@ class ServeEngine:
                  faults=None, paged: bool = False, page_size: int = 16,
                  n_blocks: Optional[int] = None, prefix_cache: int = 0,
                  obs=None):
-        if faults is not None:
-            raise _not_ported("fault injection (faults=)")
-        if obs is not None:
-            raise _not_ported("observability (obs=)")
         if not cfg.causal:
             raise ValueError("ServeEngine needs a causal config")
         self.cfg = cfg
@@ -163,6 +176,7 @@ class ServeEngine:
         self.max_len = max_len
         self.deadline = deadline
         self.max_retries = max_retries
+        self.faults = faults
         self.queue = RequestQueue(max_depth=queue_limit)
         self.paged = paged
         self.page_size = page_size
@@ -236,6 +250,99 @@ class ServeEngine:
         self.decode_s = 0.0
         self.suffix_prefill_s = 0.0
         self.n_suffix_prefills = 0
+        # plans built during THIS engine's lifetime (the caches are shared
+        # by every engine in the process, hence the baseline)
+        self._plans = kernels_plan_caches()
+        self._retrace_base = jit_retraces(*self._plans)
+        self.obs = obs
+        self._init_obs()
+
+    # -- observability -----------------------------------------------------
+
+    def _init_obs(self) -> None:
+        """Bind one metric-series handle per event kind, once: an enabled
+        engine pays an attribute add per event.  Trace tids: 0 is the
+        engine track, slot ``s`` traces on tid ``s + 1``."""
+        if self.obs is None:
+            self._m = None
+            return
+        m = self.obs.metrics
+        tr = self.obs.trace
+        tr.thread_name(0, "engine")
+        for s in range(self.capacity):
+            tr.thread_name(s + 1, f"slot{s}")
+        req = m.counter("serve_requests_total",
+                        "terminal requests by status", labels=("status",))
+        pre = m.counter("serve_prefills_total",
+                        "admissions by prefill variant", labels=("variant",))
+        quar = m.counter("serve_quarantine_total",
+                         "non-finite quarantines by phase", labels=("where",))
+        self._m = {
+            "done": req.labels("DONE"),
+            "shed": req.labels("SHED"),
+            "failed": req.labels("FAILED"),
+            "tokens": m.counter("serve_tokens_total",
+                                "tokens generated by DONE requests"),
+            "steps": m.counter("serve_decode_steps_total",
+                               "engine decode steps dispatched"),
+            "prefill_full": pre.labels("full"),
+            "prefill_suffix": pre.labels("suffix"),
+            "quar_decode": quar.labels("decode"),
+            "quar_prefill": quar.labels("prefill"),
+            "retries": m.counter("serve_retries_total",
+                                 "quarantine retries re-queued"),
+            "queue_wait": m.histogram("serve_queue_wait_seconds",
+                                      "ready -> admission wait"),
+            "prefill_s": m.histogram("serve_prefill_seconds",
+                                     "prefill dispatch wall time"),
+            "step_s": m.histogram("serve_decode_step_seconds",
+                                  "decode-step dispatch wall time"),
+            "latency": m.histogram("serve_request_latency_seconds",
+                                   "arrival -> DONE latency"),
+            "slots": m.gauge("serve_slots_active", "active decode slots"),
+            "depth": m.gauge("serve_queue_depth",
+                             "waiting (un-admitted) requests"),
+            "hit_rate": m.gauge("serve_prefix_hit_rate",
+                                "prefix-cache hit fraction of probes"),
+            "retraces": m.gauge(
+                "serve_retraces",
+                "launch plans built during this engine's lifetime"),
+        }
+        if self.paged:
+            for nm, help_ in (("free", "free pages"), ("live", "live pages"),
+                              ("forks", "copy-on-write page forks")):
+                fam = m.gauge(f"serve_pool_pages_{nm}" if nm != "forks"
+                              else "serve_pool_forks",
+                              f"block-pool {help_}", labels=("group",))
+                for g in self.pools:
+                    self._m[f"pool_{nm}_{g}"] = fam.labels(g)
+        # the pack is constant for the engine's lifetime: set once
+        publish_pack_gauges(m, self.pack)
+
+    def _obs_gauges(self) -> None:
+        """Per-step gauge refresh: occupancy, queue depth, pool pages,
+        prefix hit rate, retraces."""
+        mm = self._m
+        mm["slots"].set(int(self.active.sum()))
+        mm["depth"].set(len(self.queue))
+        probes = self.n_prefix_hits + self.n_prefix_misses
+        if probes:
+            mm["hit_rate"].set(self.n_prefix_hits / probes)
+        mm["retraces"].set(jit_retraces(*self._plans) - self._retrace_base)
+        for g, pool in self.pools.items():
+            mm[f"pool_free_{g}"].set(pool.n_free)
+            mm[f"pool_live_{g}"].set(pool.n_live)
+            mm[f"pool_forks_{g}"].set(pool.n_forks)
+
+    def _obs_shed(self, reqs, now: float) -> None:
+        """Shed annotations (instant + counter) for queue-expired or
+        backpressure-dropped requests."""
+        if self._m is None or not reqs:
+            return
+        for r in reqs:
+            self._m["shed"].inc()
+            self.obs.trace.instant("shed", now, tid=0, cat="serve",
+                                   args={"rid": r.rid, "reason": r.error})
 
     # -- admission ---------------------------------------------------------
 
@@ -271,7 +378,11 @@ class ServeEngine:
             raise _not_ported("patch prompts")
         if req.ttl is None:
             req.ttl = self.deadline
-        return self.queue.submit(req)
+        ok = self.queue.submit(req)
+        if not ok:
+            # a backpressure shed has no clock: annotate at its arrival
+            self._obs_shed([req], req.arrival)
+        return ok
 
     # -- paged-pool bookkeeping (host-side; serving/block_pool.py) ---------
 
@@ -402,10 +513,12 @@ class ServeEngine:
                     refs.extend(e.pages)
             pool.check(refs)
 
-    def _prefill(self, req: Request, s: int, ctx: int):
+    def _prefill(self, req: Request, s: int, ctx: int, fval=None):
         """Run the admission prefill of ``req`` into slot ``s`` -> (first
         token, finite) on the host.  ctx > 0: only the suffix after the
-        cached prefix runs (``lm_prefill_suffix``)."""
+        cached prefix runs (``lm_prefill_suffix``).  ``fval``: an injected
+        prefill fault, written over the last logits row before the finite
+        flag and the pick."""
         dev = self.device
         slen = req.prompt_len - ctx
         padded = self._padded_len(slen)
@@ -423,6 +536,8 @@ class ServeEngine:
                 self.params, self.cfg, self.caches, batch, s, self.max_len,
                 masks=self.masks, pack=self.pack, n_valid=slen, tables=tables)
         last = logits[:, -1]
+        if fval is not None:
+            last = torch.full_like(last, fval)
         greedy = req.temperature <= 0.0
         keys = None if greedy else step_keys(
             torch.from_numpy(request_key(req.seed)[None].astype(np.int64)).to(dev),
@@ -452,8 +567,16 @@ class ServeEngine:
                     self.queue.requeue(req)
                     return
                 ctx = got
+            fval = None
+            if self.faults is not None:
+                fval = self.faults.prefill_fault(req.rid, req.n_retries)
+                if clock is not None:
+                    delay = self.faults.prefill_delay(req.rid)
+                    if delay > 0:
+                        time.sleep(delay)  # wall-clock chaos only (run())
+            ts = clock() if clock is not None else now
             t0 = time.perf_counter()
-            tok, fin = self._prefill(req, s, ctx)
+            tok, fin = self._prefill(req, s, ctx, fval)
             dt = time.perf_counter() - t0
             self.prefill_s += dt
             self.n_prefills += 1
@@ -461,6 +584,20 @@ class ServeEngine:
                 self.suffix_prefill_s += dt
                 self.n_suffix_prefills += 1
             t = clock() if clock is not None else now
+            if self._m is not None:
+                tid = s + 1
+                self.obs.trace.span(
+                    "queue_wait", req.ready_at, ts, tid=tid, cat="serve",
+                    args={"rid": req.rid, "attempt": req.n_retries})
+                self.obs.trace.span(
+                    "prefill", ts, t, tid=tid, cat="serve",
+                    args={"rid": req.rid, "attempt": req.n_retries,
+                          "variant": "suffix" if ctx else "full",
+                          "padded_len": self._padded_len(req.prompt_len - ctx),
+                          "slot": s})
+                self._m["queue_wait"].observe(max(ts - req.ready_at, 0.0))
+                self._m["prefill_s"].observe(max(t - ts, 0.0))
+                self._m["prefill_suffix" if ctx else "prefill_full"].inc()
             if not fin:
                 self._quarantine(req, s, t, finished, where="prefill")
                 continue
@@ -498,6 +635,15 @@ class ServeEngine:
         self.active[s] = False
         self.slot_req[s] = None
         self._device_state = None
+        if self._m is not None:
+            self._m["done"].inc()
+            self._m["tokens"].inc(len(req.generated))
+            if req.latency is not None:
+                self._m["latency"].observe(req.latency)
+            # the request's decode residency on its slot's track
+            self.obs.trace.span(
+                "decode", req.t_admitted, now, tid=s + 1, cat="serve",
+                args={"rid": req.rid, "n_tokens": len(req.generated)})
 
     def _quarantine(self, req: Request, slot: int, now: float,
                     finished: list, *, where: str) -> None:
@@ -508,6 +654,12 @@ class ServeEngine:
         self.quarantine_log.append(
             QuarantineRecord(self.n_steps, req.rid, slot, req.n_retries, where)
         )
+        if self._m is not None:
+            self._m["quar_decode" if where == "decode" else "quar_prefill"].inc()
+            self.obs.trace.instant(
+                "quarantine", now, tid=slot + 1, cat="chaos",
+                args={"step": self.n_steps, "rid": req.rid, "slot": slot,
+                      "attempt": req.n_retries, "where": where})
         if self.paged:
             self._free_slot_pages(slot)
         self.active[slot] = False
@@ -522,6 +674,12 @@ class ServeEngine:
             req.t_admitted = None
             req.retry_at = now + req.retry_backoff * (2 ** (req.n_retries - 1))
             self.queue.requeue(req)
+            if self._m is not None:
+                self._m["retries"].inc()
+                self.obs.trace.instant(
+                    "retry", now, tid=0, cat="chaos",
+                    args={"rid": req.rid, "attempt": req.n_retries,
+                          "retry_at": req.retry_at})
         else:
             self.queue.fail(
                 req, now,
@@ -529,6 +687,8 @@ class ServeEngine:
                 f"(after {req.n_retries} retries)",
             )
             finished.append(req)
+            if self._m is not None:
+                self._m["failed"].inc()
 
     # -- stepping ----------------------------------------------------------
 
@@ -555,11 +715,29 @@ class ServeEngine:
         token on every active slot.  Returns the requests that reached a
         terminal status during this step."""
         finished: list[Request] = []
-        finished.extend(self.queue.shed_expired(now))
+        shed = self.queue.shed_expired(now)
+        finished.extend(shed)
+        self._obs_shed(shed, now)
         self._admit(now, finished, clock)
         if not self.active.any():
+            if self._m is not None:
+                self._obs_gauges()
             return finished
+        ts = clock() if clock is not None else now
         t0 = time.perf_counter()
+        fault = (self.faults.decode_fault(self.n_steps, self.capacity)
+                 if self.faults is not None else None)
+        if fault is not None and self._m is not None:
+            # the TARGETED slots that are active (with the request each
+            # holds): the exact expected-quarantine set of this step
+            hit = [{"slot": int(s2), "rid": self.slot_req[s2].rid,
+                    "attempt": self.slot_req[s2].n_retries}
+                   for s2 in np.nonzero(fault[0])[0] if self.active[s2]]
+            self.obs.trace.instant(
+                "fault_injected", now, tid=0, cat="chaos",
+                args={"step": self.n_steps,
+                      "targeted": [int(x) for x in np.nonzero(fault[0])[0]],
+                      "active": hit})
         st = self._device_carry()
         logits, self.caches = lm_decode(
             self.params, self.cfg, self.caches, st["tok"], st["pos"],
@@ -567,6 +745,9 @@ class ServeEngine:
             tables=self._device_tables if self.paged else None,
         )
         last = logits[:, -1]
+        if fault is not None:
+            fmask, fval = (torch.from_numpy(a).to(self.device) for a in fault)
+            last = torch.where(fmask[:, None], fval[:, None].to(last.dtype), last)
         # all-greedy steps skip the sampler (no (B, V) sort, no noise)
         greedy = not bool(np.any(self.temp[self.active] > 0.0))
         keys = None if greedy else step_keys(st["keys"], st["gen"])
@@ -579,6 +760,13 @@ class ServeEngine:
         nxt, finite = out[0].numpy(), out[1].numpy().astype(bool)
         self.decode_s += time.perf_counter() - t0
         t = clock() if clock is not None else now
+        if self._m is not None:
+            self.obs.trace.span(
+                "decode_step", ts, t, tid=0, cat="serve",
+                args={"step": self.n_steps, "n_active": int(self.active.sum()),
+                      "greedy": bool(greedy)})
+            self._m["step_s"].observe(max(t - ts, 0.0))
+            self._m["steps"].inc()
         for s in np.nonzero(self.active)[0]:
             req = self.slot_req[s]
             if not finite[s]:
@@ -592,7 +780,11 @@ class ServeEngine:
             if self._is_finished(req, tok):
                 self._release(req, t)
                 finished.append(req)
+        # counted AFTER the host loop, so quarantine_log records the step
+        # index the injector keyed this step's fault on
         self.n_steps += 1
+        if self._m is not None:
+            self._obs_gauges()
         return finished
 
     def run(self) -> dict:
@@ -611,10 +803,10 @@ class ServeEngine:
         return self.stats(clock())
 
     def stats(self, wall_s: float) -> dict:
-        """Aggregate summary: the reference's keys, minus its jit retrace
-        count (the port compiles nothing per shape), plus the host-clock
-        prefill totals (all, and suffix-only admissions) and the mean
-        decode-step time."""
+        """Aggregate summary: the reference's keys (``n_retraces`` counts
+        the launch plans built during the engine's lifetime), plus the
+        host-clock prefill totals (all, and suffix-only admissions) and the
+        mean decode-step time."""
         by = lambda st: [r for r in self.queue.done if r.status is st]
         done = by(Status.DONE)
         toks = sum(len(r.generated) for r in done)
@@ -640,6 +832,7 @@ class ServeEngine:
             "queue_wait_p95_s": percentile(waits, 95),
             "suffix_prefills": self.n_suffix_prefills,
             "suffix_prefill_s": self.suffix_prefill_s,
+            "n_retraces": jit_retraces(*self._plans) - self._retrace_base,
         }
         if self.paged:
             out["prefix_hits"] = self.n_prefix_hits

@@ -1,7 +1,7 @@
 """Request lifecycle + arrival queue for the continuous-batching engine.
 
-Own copy of the JAX package's ``serving/queue.py`` (plain Python and numpy),
-plus ``percentile`` from its ``obs/stats_util.py``.
+Own copy of the JAX package's ``serving/queue.py`` (plain Python and
+numpy); ``percentile`` is re-exported from ``obs/stats_util.py``.
 
 A ``Request`` moves through a small state machine with explicit failure
 edges (docs/serving.md#failure-model):
@@ -38,9 +38,11 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import enum
-from typing import Optional, Sequence
+from typing import Optional
 
 import numpy as np
+
+from ..obs.stats_util import percentile
 
 __all__ = ["Status", "Request", "RequestQueue", "percentile", "poisson_arrivals"]
 
@@ -223,10 +225,3 @@ def poisson_arrivals(n: int, rate: float, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return np.cumsum(rng.exponential(1.0 / rate, size=n))
 
-
-def percentile(values: Sequence[float], q: float) -> float:
-    """q-th percentile (0..100) of ``values``; 0.0 for an empty population."""
-    vals = np.asarray(values, dtype=np.float64)
-    if vals.size == 0:
-        return 0.0
-    return float(np.percentile(vals, q))

@@ -95,6 +95,7 @@ __all__ = [
     "init_train_state",
     "refresh_superset",
     "refresh_pack",
+    "repack",
     "make_train_step",
     "make_rigl_step",
     "fused_seed",
@@ -287,10 +288,19 @@ def refresh_superset(state, cfg):
 
 
 def refresh_pack(state, cfg):
-    """Refresh the superset, then re-pack ``state["pack"]`` from the masks
-    (widths never shrink) and validate it, or under kernel='masked' rebuild
-    the superset carrier.  No-op without a pack."""
-    state = refresh_superset(state, cfg)
+    """Refresh the superset, then ``repack``.  Right after every topology
+    update.  No-op without a pack (and, for the superset, without
+    ``bwd_masks``)."""
+    return repack(refresh_superset(state, cfg), cfg)
+
+
+def repack(state, cfg):
+    """Re-pack ``state["pack"]`` from the masks and supersets as they are
+    (widths never shrink: the current pack is ``prev``) and validate it, or
+    under kernel='masked' rebuild the superset carrier.  A restored state
+    goes through this alone: its supersets are the saved ones, so a resumed
+    run draws nothing the uninterrupted run did not.  No-op without a
+    pack."""
     if "pack" not in state:
         return state
     if cfg.sparse.kernel == "masked":

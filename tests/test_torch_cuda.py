@@ -5,7 +5,8 @@ K18 and the block-sparse wgrad K3/K6, forward K1/K4 and dgrad K2/K5 on the
 GEMM core (each under every plan its sweep forces, with the split merge), the
 fused epilogues K19/K20 and K7/K8 (likewise, with their fused merges), the
 |x| histogram K21, training steps, paged serving, MoE serving and MoE
-training through them.
+training through them; checkpoints of card tensors (the round trip and the
+async snapshot) and the engine's quarantine of injected faults.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode.  The file imports no JAX, so it runs on a machine that has
@@ -2721,3 +2722,123 @@ def test_cuda_histogram_abs_matches_plain(shape, density, dtype):
         assert ttk.launches - before == n_launch
         want = topk_threshold(clean, k, refine=refine, histogram=ttk.histogram_abs_plain)
         assert got.view(torch.int32).item() == want.view(torch.int32).item()
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of card tensors, and the engine's quarantine on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_state(dev):
+    """A smoke train state on the card with every kind of leaf: f32 params,
+    bf16 SGD momentum, bool masks, int32 packs, host ints."""
+    import dataclasses
+
+    from repro_torch.configs import SparseConfig, get_config
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b", smoke=True), sparse=SparseConfig(
+        sparsity=0.8, method="rigl", kernel="block_sparse", block_shape=(16, 16),
+        kernel_block=(128, 16, 16)))
+    st, _ = init_train_state(cfg, OptConfig(kind="sgd", state_dtype="bfloat16"),
+                             seed=1, device=dev)
+    from repro_torch.core.masks import tree_map
+
+    tree_map(lambda _, m: m.normal_(), st["opt"]["momentum"])
+    return st
+
+
+def _same_tree(a, b):
+    from repro_torch.core.masks import tree_map
+
+    out = []
+    tree_map(lambda n, x, y: out.append((n, x, y)), a, b)
+    for n, x, y in out:
+        if not torch.is_tensor(x):
+            assert x == y, n
+            continue
+        assert x.dtype == y.dtype and x.device == y.device and x.shape == y.shape, n
+        if x.is_floating_point():
+            x, y = (t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                    for t in (x, y))
+        assert torch.equal(x, y), n
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trips_card_tensors(tmp_path):
+    """Card tensors (f32, bf16, bool, int32) and host ints round-trip bit
+    for bit and restore onto the card, as the template lies."""
+    from repro_torch.checkpoint import restore, save
+
+    dev = _cuda()
+    st = _card_state(dev)
+    save(st, tmp_path, 3)
+    got, step = restore(st, tmp_path)
+    assert step == 3 and got["params"]["embed"]["table"].is_cuda
+    _same_tree(got, st)
+
+
+@pytest.mark.cuda
+def test_cuda_async_snapshot_isolated_from_inplace_updates(tmp_path):
+    """``maybe_save`` returns with an owned host copy of the card state:
+    in-place updates on the card right after it never reach the file."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.masks import tree_map
+
+    dev = _cuda()
+    st = _card_state(dev)
+    want = tree_map(lambda _, v: v.clone() if torch.is_tensor(v) else v, st)
+    ck = Checkpointer(tmp_path, every=1)
+    ck.maybe_save(st, 5)
+    tree_map(lambda _, v: v.add_(1.0), st["params"])
+    tree_map(lambda _, v: v.zero_(), st["opt"]["momentum"])
+    ck.wait()
+    got, step = ck.restore_or_none(st)
+    assert step == 5
+    _same_tree(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_quarantines_injected_faults():
+    """A ``FaultInjector`` on the card: a NaN written into one active slot's
+    logits row quarantines that request alone (retried to the fault-free
+    stream), a poisoned prefill exhausts its retry to FAILED, and the
+    trace's quarantine instants join the engine's log."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_lm
+    from repro_torch.obs import MetricsRegistry, Observability
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.faults import FaultInjector, burst_storm
+    from repro_torch.serving.queue import Status
+
+    dev = _cuda()
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b", smoke=True), dtype="float32")
+    params, _ = init_lm(cfg, 0, device=dev)
+
+    def serve(faults, obs=None):
+        eng = ServeEngine(cfg, params, capacity=3, max_len=32, faults=faults,
+                          obs=obs, max_retries=1)
+        for r in burst_storm(cfg, 6, prompt_len=8, max_new_tokens=6):
+            eng.submit(r)
+        now = 0.0
+        while len(eng.queue) or eng.active.any():
+            eng.step(now)
+            now += 1.0
+        return eng
+
+    clean = {r.rid: r.generated for r in serve(None).queue.done}
+    obs = Observability(metrics=MetricsRegistry())
+    eng = serve(FaultInjector().poison_logits(2, 0).poison_prefill(4), obs)
+    status = {r.rid: r.status for r in eng.queue.done}
+    assert status[4] is Status.FAILED
+    assert all(status[r] is Status.DONE for r in (0, 1, 2, 3, 5))
+    assert {r.rid: r.generated for r in eng.queue.done if r.rid != 4} == {
+        r: clean[r] for r in (0, 1, 2, 3, 5)}
+    assert eng.quarantine_log[0] == (2, 0, 0, 0, "decode")
+    quar = obs.trace.find("quarantine")
+    assert [(e["args"]["step"], e["args"]["rid"], e["args"]["slot"],
+             e["args"]["attempt"], e["args"]["where"]) for e in quar] == [
+        tuple(q) for q in eng.quarantine_log]

@@ -122,13 +122,19 @@ def test_engine_eos_matches_jax(engines_state):
 
 def test_engine_rejects_unported_features(engines_state):
     """Paged caches, the prefix cache and sampling are ported
-    (tests/test_torch_paged.py, tests/test_torch_sampler.py); the fault
-    injector, observability and patch prompts still raise."""
+    (tests/test_torch_paged.py, tests/test_torch_sampler.py), and so are
+    the fault injector and observability (tests/test_torch_faults.py,
+    tests/test_torch_obs.py): an engine takes both.  Patch prompts still
+    raise."""
+    from repro_torch.obs import MetricsRegistry, Observability
+    from repro_torch.serving.faults import FaultInjector
+
     _, (cfg, params, masks, pack) = engines_state
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TEngine(cfg, params, capacity=1, max_len=16, faults=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TEngine(cfg, params, capacity=1, max_len=16, obs=object())
+    obs = Observability(metrics=MetricsRegistry())
+    faulty = TEngine(cfg, params, capacity=1, max_len=16, masks=masks, pack=pack,
+                     faults=FaultInjector(), obs=obs)
+    assert faulty.faults is not None and faulty.obs is obs
+    assert obs.metrics.get("serve_requests_total") is not None
     engine = TEngine(cfg, params, capacity=1, max_len=16, masks=masks, pack=pack)
     req = t_requests(cfg, 1, prompt_lens=(4,), gen_lens=(2,))[0]
     req.patches = np.zeros((1, 1), np.float32)

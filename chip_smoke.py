@@ -228,7 +228,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step, the prefill's last logits within the serve phase's
                 tolerance of the plain dense path; prefill s, decode s per
                 token and tok/s beside the engine's
- 20. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 20. gru     -- the paper's §4.2 char LM (embed 128, GRU 512, readouts
+                256/128, vocab 256) on the card: the repo's byte corpus
+                (batch 8, seq 96), uniform 75% masks, RigL with Adam, 30
+                steps with drop/grow at steps 10 and 20: step ms, the loss
+                falling, nnz kept across the updates; one planted-teacher
+                batch (shapes, determinism, noise).  No kernel: plain
+                matmuls, as the reference
+ 21. xlstm serve -- xlstm-1.3b at full width and depth (48 layers, 1.136 B
+                parameters, tied embeddings, ERK 0.8, seed 0) through the
+                engine, block_sparse (128x128: the 8 requests of phase 4)
+                and masked (4 requests): every request DONE; exactly 222 K1
+                (K13) a prefill and a decode step, 6 K4 (K16) a decode step
+                and 6 a prompt token, with the planned split merges; an
+                inactive slot frozen bit for bit; the greedy tokens' agreement
+                with the plain dense path (4 requests) and two prompts'
+                prefill logits within 2e-3;
+                prefill ms, the decode step's host and device (CUDA graph) ms
+ 22. xlstm train -- 8 of 48 layers at full width (7 mLSTM + 1 sLSTM, 275 M
+                parameters), RigL with the superset, Adam, 2 x 1024 tokens, 6
+                steps, a drop/grow at step 2, in both modes: first K4-K6
+                (K16-K18) at sLSTM's recurrent bank's shapes (G 4, K 512, N
+                2048; C = 1, 8, 16; f32) against their plain versions, timed
+                beside their bound and torch.bmm; the step-0 loss and the
+                gradients of wq, w_in, r and the tied table against the
+                plain dense path; then the exact launches of K1-K6 (K13-K18)
+                and their merges in every step, counts kept, B ⊇ A and the
+                pack fresh; step s, tok/s, peak GiB, the busy share
+ 23. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -4593,6 +4620,629 @@ def lockstep_phase(torch, bsm, fa, model, engine_tok_s):
     return stats, launches
 
 
+# ---------------------------------------------------------------------------
+# The paper's char-LM GRU on the byte corpus, and the planted teacher
+# ---------------------------------------------------------------------------
+
+GRU_STEPS, GRU_BATCH, GRU_SEQ, GRU_DELTA_T = 30, 8, 96, 10  # updates at steps 10, 20
+
+
+def gru_phase(torch):
+    """The paper's §4.2 char LM at its exact widths (embed 128, GRU 512,
+    readouts 256/128, vocab 256) on the card: the repo's byte corpus
+    (``text_batch``, batch 8, seq 96, as ``benchmarks/char_lm.py``), uniform
+    75% masks on the sparsifiable leaves, RigL with Adam (weight decay
+    5e-4, grad clip 10, lr 7e-4), drop/grow every 10 steps, 30 steps.
+    Checks: finite losses, the mean of the last 5 below the first 5's,
+    every layer's nnz unchanged across the updates, and the grown
+    connections' Adam state zero.  Then one planted-teacher batch on the
+    card: shapes, finiteness, determinism in (seed, step), the targets'
+    noise against the teacher's function.  No kernel: the model runs plain
+    matmuls, as the reference."""
+    from repro_torch.core.distributions import LayerSpec, get_distribution
+    from repro_torch.core.masks import apply_masks, init_masks, tree_map, tree_paths
+    from repro_torch.core.rigl import SparseAlgo, dense_to_sparse_grad, rigl_update
+    from repro_torch.core.schedules import UpdateSchedule
+    from repro_torch.data.teacher import make_teacher, teacher_batch, teacher_targets
+    from repro_torch.data.text import byte_corpus, text_batch
+    from repro_torch.models.gru import gru_lm_apply, gru_lm_init
+    from repro_torch.optim.optimizers import (
+        OptConfig,
+        apply_opt,
+        init_opt,
+        reset_new_connections,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, flags = gru_lm_init(gen)
+    flat_p, flat_f = tree_paths(params), tree_paths(flags)
+    smap = get_distribution("uniform", [LayerSpec(n, tuple(flat_p[n].shape))
+                                        for n, f in flat_f.items() if f], 0.75,
+                            dense_first=False)
+    masks = init_masks(gen, params, smap)
+    params = apply_masks(params, masks)
+    opt_cfg = OptConfig(kind="adam", weight_decay=5e-4, grad_clip=10.0)
+    opt = init_opt(opt_cfg, params)
+    algo = SparseAlgo(method="rigl", schedule=UpdateSchedule(
+        delta_t=GRU_DELTA_T, t_end=GRU_STEPS, alpha=0.3))
+    corpus = byte_corpus(str(ROOT))
+    nnz = lambda m: {n: int(v.sum()) for n, v in tree_paths(m).items()}
+    nnz0 = nnz(masks)
+
+    def loss_and_grads(w, b):
+        w = tree_map(lambda _, t: t.detach().requires_grad_(True), w)
+        logits = gru_lm_apply(w, b["tokens"])
+        lse = torch.logsumexp(logits, -1)
+        loss = (lse - logits.gather(-1, b["targets"][..., None])[..., 0]).mean()
+        leaves = tree_paths(w)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), tree_map(lambda n, _: dict(zip(leaves, grads))[n], w)
+
+    log, times, updates = [], [], []
+    for t in range(GRU_STEPS):
+        nb = text_batch(t, GRU_BATCH, GRU_SEQ, corpus=corpus)
+        b = {k: torch.from_numpy(v).long().cuda() for k, v in nb.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = loss_and_grads(apply_masks(params, masks), b)
+        if algo.schedule.is_update_step(t):
+            params, masks, grown = rigl_update(params, masks, g, t, algo, gen)
+            opt = reset_new_connections(opt, grown)
+            n_grown = sum(int(v.sum()) for v in tree_paths(grown).values())
+            if nnz(masks) != nnz0:
+                raise AssertionError(f"gru: step {t}: nnz {nnz(masks)} != {nnz0}")
+            stale = [n for n, m in tree_paths(grown).items()
+                     if float(tree_paths(opt["m"])[n][m].abs().max() if m.any() else 0) != 0]
+            if stale:
+                raise AssertionError(f"gru: step {t}: Adam state not reset on {stale}")
+            updates.append({"step": t, "grown": n_grown})
+        else:
+            params, opt = apply_opt(opt_cfg, dense_to_sparse_grad(g, masks), opt, params,
+                                    7e-4)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        log.append(float(loss))
+    if not all(math.isfinite(x) for x in log):
+        raise AssertionError(f"gru: losses {log}")
+    first, last = sum(log[:5]) / 5, sum(log[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"gru: loss did not fall: first 5 {first}, last 5 {last}")
+    if not updates or any(u["grown"] == 0 for u in updates):
+        raise AssertionError(f"gru: the drop/grow moved nothing: {updates}")
+    steady = [s for t, s in enumerate(times) if t > 1 and not algo.schedule.is_update_step(t)]
+    stats = {"steps": GRU_STEPS, "batch": GRU_BATCH, "seq": GRU_SEQ,
+             "corpus_bytes": int(len(corpus)), "losses": log,
+             "loss_first5": first, "loss_last5": last, "updates": updates,
+             "nnz": nnz0, "step_ms": 1e3 * sum(steady) / len(steady),
+             "update_step_ms": [1e3 * times[u["step"]] for u in updates]}
+
+    # one planted-teacher batch on the card
+    tgen = torch.Generator(device="cuda").manual_seed(0)
+    teacher = make_teacher(tgen, sparsity=0.9)
+    x, y = teacher_batch(teacher, 3)
+    x2, y2 = teacher_batch(teacher, 3)
+    noise = float((y - teacher_targets(teacher, x)).std())
+    if (tuple(x.shape), tuple(y.shape)) != ((256, 32), (256, 16)) or \
+            not bool(torch.isfinite(y).all()) or not (torch.equal(x, x2) and torch.equal(y, y2)) \
+            or not 0.0 < noise < 0.02:
+        raise AssertionError(f"gru: teacher batch {tuple(x.shape)} {tuple(y.shape)}, "
+                             f"noise {noise}")
+    stats["teacher"] = {"x": list(x.shape), "y": list(y.shape), "noise_std": noise,
+                        "w1_density": float((teacher["w1"] != 0).float().mean()),
+                        "w2_density": float((teacher["w2"] != 0).float().mean())}
+    print(f"gru: char LM (embed 128, GRU 512, 256/128, vocab 256), uniform 75%, RigL + "
+          f"Adam, {GRU_STEPS} steps of {GRU_BATCH} x {GRU_SEQ} bytes of a "
+          f"{len(corpus)}-byte corpus: {stats['step_ms']:.2f} ms a step, loss "
+          f"{first:.4f} (first 5) -> {last:.4f} (last 5), nnz {sum(nnz0.values())} kept "
+          f"across updates {updates}; teacher", json.dumps(stats["teacher"]))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# xLSTM (xlstm-1.3b): mLSTM + sLSTM, tied embeddings; K1/K4 (K13/K16) serve,
+# K1-K6 (K13-K18) train, sLSTM's recurrent bank r through the grouped kernels
+# once per time step
+# ---------------------------------------------------------------------------
+
+XLSTM_ENGINE = dict(capacity=4, max_len=2048)
+XLSTM_TRAIN_LAYERS = 8  # one 7:1 period: 7 mLSTM and the sLSTM at layer 7
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH = 6, 2  # 2 x 1024 in one microbatch
+XLSTM_PROJ = {"mlstm": 5, "slstm": 2}  # K1/K13 launches a layer a pass
+R_ROWS = (1, 8, 16)  # the r bank's rows: a request's step, and C = 8, 16
+
+
+def trace_busy(prof, path):
+    """(busy ms, the 8 longest kernels as (name, ms, count)) of a profiled
+    window, from its chrome trace: the profiler writes it on its C++ side,
+    while ``key_averages`` builds a Python record of each of the ~10^5
+    events of an xLSTM step (tens of seconds).  Busy time counts kernels,
+    copies and sets on the device; the trace file is deleted."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    by = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms, n = by.get(e["name"], (0.0, 0))
+            by[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    top = sorted(((k, ms, n) for k, (ms, n) in by.items()), key=lambda t: -t[1])[:8]
+    return sum(ms for ms, _ in by.values()), top
+
+
+def xlstm_config(kernel, n_layers=None):
+    """xlstm-1.3b at its published widths (full depth unless ``n_layers``),
+    ERK 0.8; block_sparse in 128x128 blocks or masked; RigL with the
+    Top-KAST superset every ``DELTA_T`` steps in one microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("xlstm-1.3b"), kernel=kernel,
+                           block=128 if kernel == "block_sparse" else None)
+    return dataclasses.replace(
+        cfg, n_layers=n_layers or cfg.n_layers, microbatches=1,
+        sparse=dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T))
+
+
+def xlstm_merges(torch, cfg, state, rows, bank_rows, entry):
+    """Split merges of one pass over the xLSTM stack's dispatched leaves,
+    (2-D projections at ``rows`` rows, the r banks at ``bank_rows`` rows,
+    each call): ``entry`` "fwd" (K1/K4, K13/K16), "dx" (K2/K5, K14/K17) or
+    "dw" (K3/K6 on the superset's live blocks, K15/K18), each on its plan
+    from the shapes, the f32 dtype and (block-sparse) the pack entry's live
+    blocks, as the wrappers pick it."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.core.pack import pack_entries
+    from repro_torch.kernels import block_sparse_matmul as bsm
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels.ops import _row_tile
+
+    params = tree_paths(state["params"])
+    bm, bn, bk = cfg.sparse.kernel_block
+    dev = torch.cuda.current_device()
+    dt = torch.float32
+    bs = cfg.sparse.kernel == "block_sparse"
+    leaves = (dict(pack_entries(state["pack"])) if bs
+              else {n: None for n in tree_paths(state["masks"])})
+    n2 = nr = 0
+    for name, e in leaves.items():
+        w = params[name]
+        G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
+        _, Mp = _row_tile(bank_rows if w.dim() == 3 else rows, bm)
+        if bs and entry == "dw":
+            plan = bsm._dw_plan_for(Mp, K, N, G, dt, bn, e["bnnz"] if "bidx" in e
+                                    else e["nnz"], dev)
+        elif bs and entry == "dx":
+            plan = bsm._dx_plan_for(Mp, K, N, G, dt, bk, bn, e["nnz"], dev)
+        elif bs:
+            plan = bsm._fwd_plan_for(Mp, K, N, G, dt, bk, bn, e["nnz"], dev)
+        elif entry == "dw":
+            plan = mm._fwd_plan_for(K, Mp, N, G, dt, bn, dev, "dw")
+        elif entry == "dx":
+            plan = mm._fwd_plan_for(Mp, N, K, G, dt, bk, dev, "dx")
+        else:
+            plan = mm._fwd_plan_for(Mp, K, N, G, dt, bn, dev)
+        if w.dim() == 3:
+            nr += plan[2] > 1
+        else:
+            n2 += plan[2] > 1
+    return n2, nr
+
+
+def xlstm_serve(torch, bsm, mm, kernel):
+    """Serve xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6
+    sLSTM; tied embeddings; ERK 0.8, seed 0) under ``kernel``: the serve
+    phase's 8 staggered greedy requests (prompts 100/300/1000, 32 tokens,
+    capacity 4) under block_sparse (128x128 blocks: K1, and K4 for r), 4
+    (prompts 100/300, 16 tokens) under masked (K13, K16).  Exact-length
+    prefills.  Checks: every request DONE, nothing quarantined; exactly
+    222 K1 (K13) a prefill and a decode step (42 x 5 + 6 x 2), 6 K4 (K16)
+    a decode step and 6 a prompt token, and the split merges the plans
+    make; an inactive slot's states bit for bit unchanged by a decode
+    step; the greedy streams of the first 4 requests (every prompt length)
+    against the plain dense path's on the same weights (the share of
+    tokens that agree, at least 90%) and the 100- and 300-token prompts'
+    prefill logits within 2e-3 of the largest.  Prefill ms per request,
+    the decode step's host ms and its device ms (CUDA graph)."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.launch.serve import init_serving_state, staggered_requests
+    from repro_torch.models.model import lm_decode, lm_prefill
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    bs = kernel == "block_sparse"
+    label = f"xlstm serve {kernel}"
+    cfg = xlstm_config(kernel)
+    fam, mod = ("block_sparse", bsm) if bs else ("masked", mm)
+    k1, k4, merge = f"{fam}_fwd", f"grouped_{fam}_fwd", f"{fam}_fwd_merge"
+    counters = ((k1, "launches"), (k4, "g_launches"), (merge, "fwd_merge_launches"))
+    read = lambda: {n: getattr(mod, a) for n, a in counters}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_paths(params).values())
+    engine = ServeEngine(cfg, params, masks=masks, pack=pack, **XLSTM_ENGINE)
+    torch.cuda.synchronize()
+    print(f"{label}: xlstm-1.3b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {n_params / 1e9:.3f} B parameters, "
+          f"{4 * n_params / 1e9:.2f} GB f32) initialised in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    for r in staggered_requests(cfg, 2, prompt_lens=(20,), gen_lens=(2,), seed=1):
+        engine.submit(r)
+    engine.run()
+
+    n_req, lens, gen = (8, (100, 300, 1000), 32) if bs else (4, (100, 300), 16)
+    reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    engine = ServeEngine(cfg, engine.params, masks=masks, pack=pack, **XLSTM_ENGINE)
+    for r in reqs:
+        engine.submit(r)
+    for _, a in counters:
+        setattr(mod, a, 0)
+    stats = engine.run()
+    launches = read()
+    for r in reqs:
+        if r.status is not Status.DONE or len(r.generated) != gen:
+            raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
+                                 f"{len(r.generated)} tokens")
+    if stats["quarantined"] or stats["failed"]:
+        raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
+    n_s = sum(cfg.is_slstm(i) for i in range(cfg.n_layers))
+    per_call = sum(XLSTM_PROJ["slstm" if cfg.is_slstm(i) else "mlstm"]
+                   for i in range(cfg.n_layers))
+    calls = stats["decode_steps"] + stats["prefills"]
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    st = {"params": engine.params, "pack": pack, "masks": masks}
+    dec = xlstm_merges(torch, cfg, st, XLSTM_ENGINE["capacity"], XLSTM_ENGINE["capacity"],
+                       "fwd")
+    pre = {r.prompt_len: xlstm_merges(torch, cfg, st, r.prompt_len, 1, "fwd") for r in reqs}
+    expect = {k1: per_call * calls, k4: n_s * (stats["decode_steps"] + prompt_tokens),
+              merge: stats["decode_steps"] * sum(dec)
+              + sum(pre[r.prompt_len][0] + r.prompt_len * pre[r.prompt_len][1]
+                    for r in reqs)}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+
+    # one decode step at capacity, slot 0 inactive: exact launches, and the
+    # inactive slot's states bit for bit
+    tok = torch.from_numpy(engine.cur_tok[:, None]).cuda()
+    pos = torch.from_numpy(engine.pos).cuda()
+    active = torch.tensor([False, True, True, True], device="cuda")
+    before = [{k: v[0].clone() for k, v in next(iter(c.values())).items()}
+              for c in engine.caches]
+    c0 = read()
+    lm_decode(engine.params, cfg, engine.caches, tok, pos, masks=masks, pack=pack,
+              active=active)
+    step = {n: v - c0[n] for n, v in read().items()}
+    want_step = {k1: per_call, k4: n_s, merge: sum(dec)}
+    if step != want_step:
+        raise AssertionError(f"{label}: one decode step launched {step}, expected {want_step}")
+    frozen = all(torch.equal(next(iter(c.values()))[k][0], v)
+                 for c, b in zip(engine.caches, before) for k, v in b.items())
+    if not frozen:
+        raise AssertionError(f"{label}: an inactive slot's state changed in a decode step")
+    del before
+    stats.update({"prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
+                  "decode_step_ms": 1e3 * stats["decode_step_s"],
+                  "launches_per_decode_step": step, "merges_per_prefill": {
+                      str(p): list(m) for p, m in pre.items()},
+                  "parameters": n_params, "inactive_slot_frozen": frozen,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    # the plain dense path on the same weights: the same requests' greedy
+    # streams, and each prompt's prefill logits
+    dense = dataclasses.replace(cfg, sparse=dataclasses.replace(cfg.sparse, kernel="dense"))
+    # (a request's stream does not depend on the others': the first 4,
+    # every prompt length among them)
+    dreqs = staggered_requests(cfg, 4, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    dengine = ServeEngine(dense, engine.params, **XLSTM_ENGINE)
+    for r in dreqs:
+        dengine.submit(r)
+    dengine.run()
+    same = sum(a == b for r, d in zip(reqs, dreqs) for a, b in zip(r.generated, d.generated))
+    agree = same / sum(len(d.generated) for d in dreqs)
+    errs, gaps = [], []
+    V = cfg.vocab_size
+    for r in reqs[:2]:  # the 100- and 300-token prompts
+        toks = torch.from_numpy(r.tokens).long().cuda()[None]
+        a = lm_prefill(engine.params, cfg, {"tokens": toks}, 0, masks=masks,
+                       pack=pack)[0].float()[..., :V]
+        b = lm_prefill(engine.params, dense, {"tokens": toks}, 0)[0].float()[..., :V]
+        if not bool(torch.isfinite(a).all()) or a.shape != (1, 1, V):
+            raise AssertionError(f"{label}: prefill logits not finite or of the wrong shape")
+        errs.append((a - b).abs().max().item() / b.abs().max().item())
+        top = b.flatten().topk(2).values
+        gaps.append((top[0] - top[1]).item())
+    stats["vs_dense"] = {"token_agreement": agree, "streams_equal": sum(
+        r.generated == d.generated for r, d in zip(reqs, dreqs)), "requests": len(dreqs),
+        "prefill_logits_rel_err_max": max(errs), "logits_tol": 2e-3,
+        "dense_top2_gap_min": min(gaps)}
+    print(f"{label}: vs the plain dense path:", json.dumps(stats["vs_dense"]))
+    if max(errs) > 2e-3 or agree < 0.9:
+        raise AssertionError(f"{label}: kernel path vs dense path: {stats['vs_dense']}")
+    del dengine
+    stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode, label)
+    print(f"{label}: engine", json.dumps({k: stats[k] for k in (
+        "requests", "tokens", "decode_steps", "prefills", "wall_s", "tok_per_s",
+        "prefill_ms", "decode_step_ms", "decode_step_device_ms", "peak_gib")}),
+          f"launches {launches}; a decode step {step}")
+    return stats, launches
+
+
+def r_bank_cases(torch, timer, bsm, mm, state, cfg):
+    """The grouped kernels at sLSTM's recurrent bank's shapes (G 4 heads,
+    K 512, N 2048; layer 7's ERK topology and Top-KAST superset from the
+    training state), f32, at C = 1, 8 and 16 rows (a request's step, a
+    decode step and the training batch's padded rows): block-sparse K4,
+    K5, K6 or masked K16, K17, K18, each against its plain version and
+    timed on the wrapper's plan.  Bytes: the inputs, the active (K4/K5) or
+    superset (K6) blocks, or the bank and its 1-byte mask (K16-K18), and
+    the output once; operations 2 C per active (superset) weight.
+    Library: torch.bmm on the zero-filled (pre-masked) bank."""
+    bs = cfg.sparse.kernel == "block_sparse"
+    blk = cfg.sparse.kernel_block[2]
+    name = [i for i in range(cfg.n_layers) if cfg.is_slstm(i)][0]
+    w = state["params"]["layers"][name]["slstm"]["r"]
+    m = state["masks"]["layers"][name]["slstm"]["r"]
+    b = state["bwd_masks"]["layers"][name]["slstm"]["r"]
+    G, K, N = w.shape
+    wm, nnz, bnnz, es = w * m, int(m.sum()), int(b.sum()), 4
+    out = {"fwd": [], "dx": [], "dw": []}
+    for C in R_ROWS:
+        bm, Mp, x_c, x = grouped_rows(torch, G, C, K, torch.float32)
+        _, _, g_c, g = grouped_rows(torch, G, C, N, torch.float32)
+        tag = f"r bank layer{name} G={G} C={C}->{Mp} K={K} N={N}"
+
+        def chk(kern, got, want, absp, n):
+            return _check_within(torch, f"{kern} {tag}", got, want, absp, n, torch.float32)
+
+        if bs:
+            e = state["pack"]["layers"][name]["slstm"]["r"]
+            idx, cnt, ridx, rcnt = e["idx"], e["cnt"], e["ridx"], e["rcnt"]
+            bidx, bcnt = e["bidx"], e["bcnt"]
+            live, blive = e["nnz"], e["bnnz"]
+            nb = blk * blk
+            fwd = lambda: bsm.grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=blk,
+                                                          bk=blk, live=live)
+            fwd_p = lambda: bsm.grouped_block_sparse_matmul_plain(x, w, idx, cnt, blk, blk)
+            dx = lambda: bsm.grouped_block_sparse_dx(g, w, ridx, rcnt, bm=bm, bn=blk, bk=blk,
+                                                     live=live)
+            dx_p = lambda: bsm.grouped_block_sparse_dx_plain(g, w, ridx, rcnt, blk, blk)
+            dw = lambda: bsm.grouped_block_sparse_dw(x, g, bidx, bcnt, bn=blk, bk=blk,
+                                                     live=blive)
+            dw_p = lambda: bsm.grouped_block_sparse_dw_plain(x, g, bidx, bcnt, blk, blk)
+            absps = (bsm.grouped_block_sparse_matmul_plain(x.abs(), w.abs(), idx, cnt, blk, blk),
+                     bsm.grouped_block_sparse_dx_plain(g.abs(), w.abs(), ridx, rcnt, blk, blk),
+                     bsm.grouped_block_sparse_dw_plain(x.abs(), g.abs(), bidx, bcnt, blk, blk))
+            names = ("K4", "K5", "K6")
+            w_bytes = (es * live * nb + 4 * (idx.numel() + cnt.numel()),
+                       es * live * nb + 4 * (ridx.numel() + rcnt.numel()),
+                       es * G * K * N + 4 * (bidx.numel() + bcnt.numel()))
+            flops = (2.0 * C * live * nb, 2.0 * C * live * nb, 2.0 * C * blive * nb)
+        else:
+            fwd = lambda: mm.grouped_masked_matmul(x, w, m, bm=bm, bn=blk)
+            fwd_p = lambda: mm.grouped_masked_matmul_plain(x, w, m)
+            dx = lambda: mm.grouped_masked_dx(g, w, m, bm=bm, bk=blk)
+            dx_p = lambda: mm.grouped_masked_dx_plain(g, w, m)
+            dw = lambda: mm.grouped_masked_dw(x, g, b, bn=blk, bk=blk)
+            dw_p = lambda: mm.grouped_masked_dw_plain(x, g, b)
+            absps = (mm.grouped_masked_matmul_plain(x.abs(), w.abs(), m),
+                     mm.grouped_masked_dx_plain(g.abs(), w.abs(), m),
+                     mm.grouped_masked_dw_plain(x.abs(), g.abs(), b))
+            names = ("K16", "K17", "K18")
+            w_bytes = ((es + 1) * G * K * N, (es + 1) * G * K * N, (es + 1) * G * K * N)
+            flops = (2.0 * C * nnz, 2.0 * C * nnz, 2.0 * C * bnnz)
+        want = (fwd_p(), dx_p(), dw_p())
+        checks = (lambda: chk(names[0], fwd()[:, :C], want[0][:, :C], absps[0][:, :C], K),
+                  lambda: chk(names[1], dx()[:, :C], want[1][:, :C], absps[1][:, :C], N),
+                  lambda: chk(names[2], dw(), want[2], absps[2], Mp))
+        libs = (lambda: torch.bmm(x_c, wm), lambda: torch.bmm(g_c, wm.transpose(1, 2)),
+                lambda: torch.bmm(x_c.transpose(1, 2), g_c) * b)
+        io = (es * G * C * (K + N), es * G * C * (N + K), es * G * C * (K + N))
+        for key, kern, run, plain, check, lib, wb, fl, o in zip(
+                ("fwd", "dx", "dw"), names, (fwd, dx, dw), (fwd_p, dx_p, dw_p), checks, libs,
+                w_bytes, flops, io):
+            case = kernel_case(torch, timer, kern, f"{tag} density={nnz / m.numel():.4f}"
+                               f" superset={bnnz / b.numel():.4f}", run, plain, lib, check,
+                               o + wb, fl, torch.float32)
+            if kern in ("K6", "K18"):
+                got = run()
+                if float(got[~b].abs().max()) != 0.0:
+                    raise AssertionError(f"{kern} {tag}: dw outside the superset")
+            out[key].append(case)
+        del want, absps
+    return out
+
+
+def xlstm_train(torch, timer, bsm, mm, kernel):
+    """Train xlstm-1.3b at full width, 8 of 48 layers (one 7:1 period: 7
+    mLSTM, the sLSTM at layer 7; 275 M parameters with the tied table),
+    ERK 0.8, RigL with the Top-KAST superset (Δ = 10%), Adam,
+    warmup-cosine, seed 0, under ``kernel`` (block_sparse in 128x128
+    blocks, or masked), 2 x 1024 tokens in one microbatch, 6 steps, a
+    drop/grow at step 2.  First the grouped kernels at the r bank's shapes
+    (``r_bank_cases``) and the step-0 loss and the gradients of
+    layers/0/mlstm/wq, layers/7/slstm/w_in, layers/7/slstm/r and the tied
+    table against the plain dense path; then ``train_loop`` with every
+    counter set to 0 just before it: finite losses and the exact launches
+    of every step (remat reruns each block's forward: 2 x 37 K1 and 2 x
+    1024 K4; 37 K2 and K3; 1023 K5 (no dgrad into the sLSTM's zero
+    initial state) and 1024 K6; the planned split merges of each), and
+    after the update the counts kept, B ⊇ A and the pack (carrier) fresh.
+    Reports step s, tok/s, peak GiB, the profiled step's busy share."""
+    from repro_torch.core.masks import block_mask_of, tree_paths
+    from repro_torch.core.pack import pack_entries, pack_mismatch, validate_pack
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state
+
+    bs = kernel == "block_sparse"
+    label = f"xlstm train {kernel}"
+    cfg = xlstm_config(kernel, XLSTM_TRAIN_LAYERS)
+    steps, batch, S = XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, TRAIN_SEQ
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_paths(state["params"]).values())
+    part("init_s")
+    cases = r_bank_cases(torch, timer, bsm, mm, state, cfg)
+    part("r_bank_cases_s")
+    dense_check = train_dense_check(
+        torch, cfg, state, label=label,
+        names=("layers/0/mlstm/wq/w", "layers/7/slstm/w_in/w", "layers/7/slstm/r",
+               "embed/table"))
+    part("dense_check_s")
+    fam, gfam = ("block_sparse", "grouped_block_sparse") if bs else ("masked",
+                                                                      "grouped_masked")
+    mod = bsm if bs else mm
+
+    # remat reruns each block's forward in the backward
+    fw = 2 if cfg.remat else 1
+
+    def merges_of(st):
+        """(fwd, dx, dw) split merges of one step on ``st``'s pack."""
+        out = []
+        for entry, n_r in (("fwd", fw * S), ("dx", S - 1), ("dw", S)):
+            n2, nr = xlstm_merges(torch, cfg, st, batch * S, batch, entry)
+            out.append((fw if entry == "fwd" else 1) * n2 + n_r * nr)
+        return tuple(out)
+
+    seen = {"merges": merges_of(state)}
+    del state
+    torch.cuda.empty_cache()
+    counters = ((f"{fam}_fwd", mod, "launches"), (f"{fam}_dx", mod, "dx_launches"),
+                (f"{fam}_dw", mod, "dw_launches"), (f"{gfam}_fwd", mod, "g_launches"),
+                (f"{gfam}_dx", mod, "gdx_launches"), (f"{gfam}_dw", mod, "gdw_launches"),
+                (f"{fam}_fwd_merge", mod, "fwd_merge_launches"),
+                (f"{fam}_dx_merge", mod, "dx_merge_launches"),
+                (f"{fam}_dw_merge", mod, "dw_merge_launches"))
+    read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+    n_s = sum(cfg.is_slstm(i) for i in range(cfg.n_layers))
+    proj = sum(XLSTM_PROJ["slstm" if cfg.is_slstm(i) else "mlstm"]
+               for i in range(cfg.n_layers))
+
+    def expected(m):
+        return {f"{fam}_fwd": fw * proj, f"{fam}_dx": proj, f"{fam}_dw": proj,
+                f"{gfam}_fwd": fw * S * n_s, f"{gfam}_dx": (S - 1) * n_s,
+                f"{gfam}_dw": S * n_s, f"{fam}_fwd_merge": m[0], f"{fam}_dx_merge": m[1],
+                f"{fam}_dw_merge": m[2]}
+
+    log = []
+    mark = {"counts": None, "t": None, "units": None, "prof": None}
+
+    def units(masks):
+        return {n: (block_mask_of(m, cfg.sparse.block_shape) if bs else m)
+                for n, m in tree_paths(masks).items()}
+
+    def on_step(step, is_update, st, met):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        counts = read()
+        prev = mark["counts"] or {n: 0 for n in counts}
+        rec = {"step": step, "update": is_update, "loss": float(met["loss"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {n: counts[n] - prev[n] for n in counts}}
+        if mark["t"] is not None:
+            rec["wall_s"] = t - mark["t"]
+        # the step ran on the pack it left unless it updated the topology
+        want = expected(mark["merges"] if is_update else merges_of(st))
+        if rec["launches"] != want:
+            raise AssertionError(f"{label} step {step}: launches {rec['launches']}, "
+                                 f"expected {want}")
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{label} step {step}: loss {rec['loss']}")
+        mark["merges"] = merges_of(st)
+        if step == 1:
+            mark["units"] = {n: u.cpu() for n, u in units(st["masks"]).items()}
+        if step == steps - 1:
+            # the device's kernels only: the step runs ~10^5 host ops, whose
+            # records would cost more to gather than the step takes
+            mark["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            mark["prof"].__enter__()
+        elif step == steps:
+            mark["prof"].__exit__(None, None, None)
+        print(f"{label}:", json.dumps(rec))
+        log.append(rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark.update(counts=counts, t=time.perf_counter())
+
+    mark["merges"] = seen["merges"]
+    for _, m_, a in counters:
+        setattr(m_, a, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = train_loop(cfg, steps=steps, batch=batch, seq=S,
+                          workdir=str(ROOT / "chiprun_out" / f"xlstm_train_{kernel}"),
+                          device="cuda", on_step=on_step, log_every=steps, ckpt_every=None)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    part("train_loop_s")
+    launches = read()
+    after, bwd = units(state["masks"]), units(state["bwd_masks"])
+    moved = 0
+    for n, u in after.items():
+        before = mark["units"][n]
+        if int(u.sum()) != int(before.sum()):
+            raise AssertionError(f"{label}: {n}: {int(before.sum())} active units before "
+                                 f"the update, {int(u.sum())} after")
+        if (u & ~bwd[n]).any():
+            raise AssertionError(f"{label}: {n}: the superset does not contain the mask")
+        moved += int((u.cpu() & ~before).sum())
+    if moved == 0:
+        raise AssertionError(f"{label}: the drop/grow moved nothing")
+    if bs:
+        validate_pack(state["pack"], where="chip_smoke xlstm")
+        stale = int(pack_mismatch(state["masks"], state["pack"], cfg.sparse.block_shape,
+                                  bwd_masks=state["bwd_masks"]))
+        if stale:
+            raise AssertionError(f"{label}: pack stale after the update: {stale} blocks")
+    else:
+        carried = dict(pack_entries(state["pack"]))
+        bw = tree_paths(state["bwd_masks"])
+        if sorted(carried) != sorted(bw) or any(carried[n]["bwd_mask"] is not bw[n]
+                                                for n in bw):
+            raise AssertionError(f"{label}: the carrier does not hold the refreshed superset")
+    del state
+    torch.cuda.empty_cache()
+    busy_ms, top = trace_busy(mark["prof"], ROOT / "build" / f"xlstm_train_{kernel}_trace.json")
+    part("checks_and_profile_s")
+    steady = [r for r in log if "wall_s" in r and not r["update"] and r["step"] != steps]
+    wall = sum(r["wall_s"] for r in steady) / len(steady)
+    profiled = log[-1]
+    upd = [r for r in log if r["update"]]
+    stats = {
+        "layers": cfg.n_layers, "parameters": n_params, "steps": steps,
+        "tokens_per_step": batch * S, "total_s": total_s, "mean_train_step_wall_s": wall,
+        "steady_steps": [r["step"] for r in steady], "tok_per_s": batch * S / wall,
+        "update_step_wall_s": [r.get("wall_s") for r in upd],
+        "steady_step_peak_gib": max(r["peak_gib"] for r in steady),
+        "update_step_peak_gib": max(r["peak_gib"] for r in upd),
+        "profiled_step_wall_s": profiled["wall_s"],
+        "profiled_step_device_busy_ms": busy_ms or None,
+        "profiled_step_busy_share": busy_ms / 1e3 / profiled["wall_s"] if busy_ms else None,
+        "profiled_step_top": top,
+        "losses": [r["loss"] for r in log], "launches_per_step": [r["launches"] for r in log],
+        "units_moved": moved, "step0_vs_dense": dense_check, "phase_parts_s": parts,
+    }
+    share = stats["profiled_step_busy_share"]
+    print(f"{label}: xlstm-1.3b {cfg.n_layers} of 48 layers ({n_params / 1e6:.1f} M "
+          f"parameters), {steps} steps of {batch} x {S} tokens in {total_s:.1f} s; train step "
+          f"{wall:.3f} s wall (mean of {len(steady)}) = {stats['tok_per_s']:.0f} tok/s; peak "
+          f"{stats['steady_step_peak_gib']:.1f} GiB steady, "
+          f"{stats['update_step_peak_gib']:.1f} GiB in the update step; profiled step busy "
+          f"{busy_ms:.1f} ms of {profiled['wall_s']:.3f} s "
+          f"({'not measured' if share is None else f'{share:.1%}'}); {moved} "
+          f"{'blocks' if bs else 'weights'} moved by the drop/grow; launches {launches}; "
+          f"parts {json.dumps({k: round(v, 1) for k, v in parts.items()})}")
+    return stats, launches, cases
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -4723,6 +5373,21 @@ def main() -> int:
         torch, bsm, fa, served, chaos_stats["stats_obs_off"]["tok_per_s"])
     del served
     done("lockstep")
+    gru_stats = gru_phase(torch)
+    done("gru char LM, teacher")
+    xlstm = {}
+    for kernel in ("block_sparse", "masked"):
+        xlstm[f"serve {kernel}"] = xlstm_serve(torch, bsm, mm, kernel)
+        done(f"xlstm serve {kernel}")
+        xlstm[f"train {kernel}"] = xlstm_train(torch, timer, bsm, mm, kernel)
+        done(f"xlstm train {kernel}, parity at the r bank's shapes")
+    r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
+    k4 += r_bs["fwd"]
+    k56["K5"] += r_bs["dx"]
+    k56["K6"] += r_bs["dw"]
+    k16 += r_m["fwd"]
+    k1718["K17"] += r_m["dx"]
+    k1718["K18"] += r_m["dw"]
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
@@ -4733,7 +5398,11 @@ def main() -> int:
              "moe_fused_train": moe_fused_launches,
              "moe_masked_fused_train": moe_mfused_launches, "topk": topk_launches,
              **methods_launches, "resume": resume_launches,
-             "chaos_serve": chaos_launches, "lockstep": lockstep_launches}
+             "chaos_serve": chaos_launches, "lockstep": lockstep_launches,
+             "xlstm_serve": xlstm["serve block_sparse"][1],
+             "xlstm_masked_serve": xlstm["serve masked"][1],
+             "xlstm_train": xlstm["train block_sparse"][1],
+             "xlstm_masked_train": xlstm["train masked"][1]}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -4860,6 +5529,8 @@ def main() -> int:
          "moe_fused_train": moe_fused_stats, "moe_masked_fused_train": moe_mfused_stats,
          "k21": k21, "topk_threshold": topk_thr, "methods": methods,
          "resume": resume_stats, "chaos_serve": chaos_stats, "lockstep": lockstep_stats,
+         "gru": gru_stats, "xlstm": {k: v[0] for k, v in xlstm.items()},
+         "r_bank": {"block_sparse": r_bs, "masked": r_m},
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -14,6 +14,7 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mistral-large-123b": "mistral_large_123b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -10,8 +10,8 @@ over the true active blocks.  Packs are computed on the host from concrete
 masks: once for serving, and after every topology update in training
 (``refresh_pack_state``: widths never shrink).
 
-Entry layout (one per packable mask leaf under ``attn``/``mlp``/``moe``,
-``None`` elsewhere), the same keys as the reference:
+Entry layout (one per packable mask leaf under ``attn``/``mlp``/``moe``/
+``mlstm``/``slstm``, ``None`` elsewhere), the same keys as the reference:
 
   {"idx":  (N/bn, width) int32 tensor,   # CSC: forward (K1)
    "cnt":  (N/bn,) int32 tensor,
@@ -24,7 +24,8 @@ Entry layout (one per packable mask leaf under ``attn``/``mlp``/``moe``,
    "bcnt": (N/bn,) int32,
    "bnnz": int}
 
-Grouped weight banks (3-D masks: the MoE experts' (E, d, ff)) carry the
+Grouped weight banks (3-D masks: the MoE experts' (E, d, ff), sLSTM's
+recurrent bank (nh, hd, 4 hd), a bare leaf ``.../slstm/r``) carry the
 same entry with a leading group dim on idx/cnt/ridx/rcnt (and bidx/bcnt):
 per-group CSC/CSR at ONE shared width over all groups, so one grouped
 kernel launch (K4) covers the bank.  A group with no active block (a dead
@@ -62,8 +63,10 @@ __all__ = [
     "validate_pack",
 ]
 
-# Param subtrees whose weights go through layers.linear / grouped_linear.
-DISPATCHED_SUBTREES = ("attn", "mlp", "moe")
+# Param subtrees whose weights go through layers.linear / grouped_linear:
+# attention, the MLP, the MoE banks and shared experts, and the xLSTM
+# blocks (sLSTM's recurrent bank ``r`` is a grouped entry).
+DISPATCHED_SUBTREES = ("attn", "mlp", "slstm", "mlstm", "moe")
 
 
 class PackIntegrityError(ValueError):

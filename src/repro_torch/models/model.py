@@ -1,14 +1,17 @@
-"""Transformer LM of the port: init, loss, prefill and decode.
+"""The LM of the port: init, loss, prefill and decode.
 
 Port of the JAX package's ``models/model.py`` for training and serving the
-transformer family (h2o-danube-1.8b, mistral-large-123b) and serving its
-MoE family (qwen2-moe-a2.7b: ``models/moe.py`` in place of the MLP, its
-expert banks through ``layers.grouped_linear``).  Every weight matmul goes
+transformer family (h2o-danube-1.8b, mistral-large-123b), its MoE family
+(qwen2-moe-a2.7b: ``models/moe.py`` in place of the MLP, its expert banks
+through ``layers.grouped_linear``) and the xLSTM family (xlstm-1.3b:
+``models/xlstm.py``, mLSTM and sLSTM blocks with recurrent per-slot states
+in place of KV caches; tied embeddings).  Every weight matmul goes
 through ``layers.linear`` or ``grouped_linear`` (the block-sparse kernels
 under ``cfg.sparse.kernel='block_sparse'``, the masked kernels under
 ``kernel='masked'``, forward and backward), full-sequence
 attention through the flash kernels, decode attention and the LM head are
-plain PyTorch.  ``lm_loss`` is differentiable; with ``cfg.remat`` each
+plain PyTorch.  A tied head (no ``head`` leaf) is ``h @ table.T`` in h's
+dtype, as the reference.  ``lm_loss`` is differentiable; with ``cfg.remat`` each
 group of ``cfg.remat_group`` blocks is a ``torch.utils.checkpoint`` region
 (the reference's ``jax.checkpoint``): it changes memory, not numbers.
 
@@ -29,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as A
+from . import xlstm as X
 from .layers import (
     P,
     compute_dtype,
@@ -65,20 +69,19 @@ def padded_vocab(cfg) -> int:
 
 def _check_ported(cfg) -> None:
     unported = {
-        "block_type": cfg.block_type != "transformer",
+        "block_type": cfg.block_type not in ("transformer", "xlstm"),
         "frontend": cfg.frontend != "none",
         "parallel_block": cfg.parallel_block,
         "post_norms": cfg.post_norms,
         "qk_norm": cfg.qk_norm,
         "mlp_kind": cfg.mlp_kind != "swiglu",
-        "tie_embeddings": cfg.tie_embeddings,
         "causal": not cfg.causal,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
             f"config {cfg.name!r}: {', '.join(bad)} not ported yet (the port "
-            "runs the causal transformer and its MoE variant)"
+            "runs the causal transformer, its MoE variant and xLSTM)"
         )
 
 
@@ -86,7 +89,10 @@ def init_lm(cfg, seed: int = 0, *, device=None):
     """Random weights from ``seed`` -> (params, sparse_flags) trees, f32
     masters on ``device`` (default ``cuda``).  Layout as the reference's
     ``init_lm``; the draws are torch's, not ``jax.random``'s.  An MoE
-    config's layers hold ``moe`` (``models/moe.py``) in place of ``mlp``."""
+    config's layers hold ``moe`` (``models/moe.py``) in place of ``mlp``;
+    an xLSTM config's hold ``ln1`` and an ``mlstm`` or (every
+    ``cfg.slstm_every``-th) an ``slstm`` block.  Tied embeddings: no
+    ``head`` leaf."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -97,20 +103,21 @@ def init_lm(cfg, seed: int = 0, *, device=None):
             return {"moe": moe_init(gen, cfg)}
         return {"mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind)}
 
+    def layer(i):
+        if cfg.block_type == "xlstm":
+            if cfg.is_slstm(i):
+                return {"ln1": rmsnorm_init(d, dev), "slstm": X.slstm_init(gen, cfg)}
+            return {"ln1": rmsnorm_init(d, dev), "mlstm": X.mlstm_init(gen, cfg)}
+        return {"ln1": rmsnorm_init(d, dev), "attn": A.attn_init(gen, cfg),
+                "ln2": rmsnorm_init(d, dev), **ff()}
+
     tree = {
         "embed": {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))},
-        "layers": [
-            {
-                "ln1": rmsnorm_init(d, dev),
-                "attn": A.attn_init(gen, cfg),
-                "ln2": rmsnorm_init(d, dev),
-                **ff(),
-            }
-            for _ in range(cfg.n_layers)
-        ],
+        "layers": [layer(i) for i in range(cfg.n_layers)],
         "ln_f": rmsnorm_init(d, dev),
-        "head": linear_init(gen, d, pv, sparse=False),
     }
+    if not cfg.tie_embeddings:
+        tree["head"] = linear_init(gen, d, pv, sparse=False)
     return split_params(tree)
 
 
@@ -119,14 +126,17 @@ def serving_weights(params, cfg):
     the compute dtype, ONCE.  The reference casts the f32 masters inside
     every call (``layers.linear``, the embedding gather); casting once gives
     the same bits without re-reading f32 weights on every decode step.  The
-    MLP weights (an MoE's banks, router and shared MLP too), norm scales
-    and the LM head stay f32: the reference computes them in the f32
-    residual's dtype."""
+    MLP weights (an MoE's banks, router and shared MLP too), the xLSTM
+    blocks, norm scales and the LM head stay f32: the reference computes
+    them in the f32 residual's dtype.  A tied table stays f32 too: the head
+    reads it in h's dtype (the gather casts its rows)."""
     dt = compute_dtype(cfg)
     out = dict(params)
-    out["embed"] = {"table": params["embed"]["table"].to(dt)}
+    if "head" in params:
+        out["embed"] = {"table": params["embed"]["table"].to(dt)}
     out["layers"] = [
         dict(lp, attn={name: {"w": w["w"].to(dt)} for name, w in lp["attn"].items()})
+        if "attn" in lp else lp
         for lp in params["layers"]
     ]
     return out
@@ -140,8 +150,19 @@ def _per_layer(tree, cfg):
     return tree["layers"] if tree is not None else [None] * cfg.n_layers
 
 
+def _state_key(cfg, i: int) -> str:
+    """The block of an xLSTM config's layer i, and its cache's key."""
+    return "slstm" if cfg.is_slstm(i) else "mlstm"
+
+
 def _embed(params, cfg, tokens):
-    x = params["embed"]["table"].to(compute_dtype(cfg))[tokens]
+    table, dt = params["embed"]["table"], compute_dtype(cfg)
+    if table.requires_grad and torch.is_grad_enabled():
+        # the reference's cast-then-gather: its gradient is a scatter-add
+        # in the compute dtype
+        x = table.to(dt)[tokens]
+    else:  # the same bits without casting the whole table (a tied f32 one)
+        x = table[tokens].to(dt)
     return x.float() * float(np.float32(np.sqrt(cfg.d_model)))
 
 
@@ -158,10 +179,17 @@ def _ff(p, x, cfg, masks, pack, active=None):
 
 def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
            history=None):
-    """Full-sequence block (prefill).  Returns (x, (k, v), aux): aux is the
-    MoE's load-balancing loss (0.0 without experts).  ``history``: this
-    layer's paged-prefix dict for a suffix prefill
-    (``attention(history=)``)."""
+    """Full-sequence block (prefill).  Returns (x, state, aux): the state is
+    (k, v), or an xLSTM block's final recurrent state; aux is the MoE's
+    load-balancing loss (0.0 without experts).  ``history``: this layer's
+    paged-prefix dict for a suffix prefill (``attention(history=)``)."""
+    if cfg.block_type == "xlstm":
+        key = _state_key(cfg, i)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        kw = dict(masks=_sub(masks, key), pack=_sub(pack, key))
+        o, state = (X.slstm(p[key], h, cfg, **kw) if key == "slstm" else
+                    X.mlstm(p[key], h, cfg, chunk=cfg.q_chunk, **kw))
+        return x + o, state, 0.0
     kind = cfg.layer_kind(i)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, kv = A.attention(
@@ -174,7 +202,10 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
 
 
 def _logits(params, cfg, h):
-    out = linear(params["head"], h, h.dtype).float()
+    if "head" in params:
+        out = linear(params["head"], h, h.dtype).float()
+    else:  # tied: the table in h's dtype
+        out = (h @ params["embed"]["table"].to(h.dtype).T).float()
     if cfg.final_softcap:
         c = cfg.final_softcap
         out = c * torch.tanh(out / c)
@@ -187,8 +218,9 @@ def _logits(params, cfg, h):
 
 def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
                collect_states: bool = True, histories=None):
-    """Full-sequence forward -> (hidden (B, S, d), per-layer (k, v), aux):
-    aux sums the MoE layers' load-balancing losses (0.0 without experts).
+    """Full-sequence forward -> (hidden (B, S, d), per-layer states, aux):
+    a state is (k, v) or an xLSTM block's final recurrent state; aux sums
+    the MoE layers' load-balancing losses (0.0 without experts).
 
     Without ``collect_states`` (the loss) and with ``cfg.remat`` under
     autograd, each group of ``cfg.remat_group`` blocks runs as one
@@ -267,7 +299,12 @@ def lm_loss(params, cfg, batch, masks=None, pack=None):
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
-    """Per-layer KV caches in the compute dtype."""
+    """Per-layer KV caches in the compute dtype; an xLSTM config's layers
+    hold their f32 recurrent states instead (no positional axis)."""
+    if cfg.block_type == "xlstm":
+        init = {"slstm": X.init_slstm_state, "mlstm": X.init_mlstm_state}
+        return [{k: init[k](cfg, batch, device)}
+                for k in (_state_key(cfg, i) for i in range(cfg.n_layers))]
     dt = compute_dtype(cfg)
     return [
         {"kv": A.init_kv_cache(cfg, cfg.layer_kind(i), batch, max_len, dt, device)}
@@ -282,12 +319,15 @@ def cache_group(cfg, i: int) -> str:
     return "local" if (cfg.layer_kind(i) == "local" and cfg.window) else "global"
 
 
-def init_paged_caches(cfg, n_blocks: dict, page_size: int, device):
+def init_paged_caches(cfg, n_blocks: dict, page_size: int, device, *,
+                      batch: int = 0):
     """Paged ``init_caches``: each layer's KV leaves are a page pool of
     ``n_blocks[cache_group(cfg, i)]`` pages (``attention.init_kv_pool``);
-    the serving engine owns the tables.  The reference also takes the batch
-    and max_len for its recurrent families' per-slot states, which the
-    dense-family stack does not have."""
+    the serving engine owns the tables.  Recurrent per-slot states (an
+    xLSTM config's) have no positional axis to page: they stay
+    slot-batched at ``batch`` rows, as in ``init_caches``."""
+    if cfg.block_type == "xlstm":
+        return init_caches(cfg, batch, 0, device)
     dt = compute_dtype(cfg)
     return [
         {"kv": A.init_kv_pool(cfg, n_blocks[cache_group(cfg, i)], page_size,
@@ -302,12 +342,17 @@ def lm_prefill(params, cfg, batch, max_len: int, *, masks=None, pack=None,
 
     ``n_valid``: positions >= n_valid are end padding (the engine buckets
     prompt lengths): their K/V writes are dropped and the logits come from
-    position n_valid - 1.  Exact for causal attention stacks.
+    position n_valid - 1.  Exact for causal attention stacks, not for the
+    recurrent xLSTM states (they would integrate the pad steps: the engine
+    prefills those at the exact length).
     """
     h, states, _ = lm_forward(params, cfg, batch, masks=masks, pack=pack)
-    caches = init_caches(cfg, h.shape[0], max_len, h.device)
-    for c, (k, v) in zip(caches, states):
-        A.fill_kv_cache(c["kv"], k, v, 0, n_valid=n_valid)
+    if cfg.block_type == "xlstm":
+        caches = [{_state_key(cfg, i): st} for i, st in enumerate(states)]
+    else:
+        caches = init_caches(cfg, h.shape[0], max_len, h.device)
+        for c, (k, v) in zip(caches, states):
+            A.fill_kv_cache(c["kv"], k, v, 0, n_valid=n_valid)
     last = h.shape[1] if n_valid is None else n_valid
     return _logits(params, cfg, h[:, last - 1:last]), caches
 
@@ -323,9 +368,17 @@ def lm_prefill_into(params, cfg, caches, batch, slot: int, max_len: int, *,
     request's row, on the device) switches ``caches`` to the paged layout
     (``init_paged_caches``): the same B=1 prefill, then its row scatters
     page by page through the group's table (``attention.fill_kv_pool``),
-    which is what makes paged admission token-identical to contiguous."""
+    which is what makes paged admission token-identical to contiguous.
+    An xLSTM config's recurrent state rows are written at ``slot`` in
+    either layout."""
     logits, row = lm_prefill(params, cfg, batch, max_len, masks=masks,
                              pack=pack, n_valid=n_valid)
+    if cfg.block_type == "xlstm":
+        for i, (c, r) in enumerate(zip(caches, row)):
+            key = _state_key(cfg, i)
+            for name, leaf in c[key].items():
+                leaf[slot] = r[key][name][0]
+        return logits, caches
     for i, (c, r) in enumerate(zip(caches, row)):
         if tables is not None:
             A.fill_kv_pool(c["kv"], r["kv"], tables[cache_group(cfg, i)])
@@ -375,19 +428,42 @@ def logits_all_finite(logits):
     return torch.isfinite(logits).reshape(logits.shape[0], -1).all(-1)
 
 
+def _gate_rows(active, new, old) -> None:
+    """Write a recurrent state's ``new`` rows into ``old`` IN PLACE, only
+    where ``active`` (B,) bool (every row when None): the reference's
+    ``_gate_rows``, so a parked slot's state stays bit for bit.  In place,
+    the step's state tensors are the same across calls, so a decode step
+    can be captured and replayed as a CUDA graph."""
+    for name, o in old.items():
+        n = new[name]
+        if active is not None:
+            n = torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+        o.copy_(n)
+
+
 def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
               active=None, tables=None):
     """One decode step.  tokens: (B, 1) int; pos: int or (B,) tensor;
     ``active`` (B,) bool leaves inactive rows' caches untouched and keeps
     them out of an MoE's routing (a parked slot takes no expert capacity).
     ``tables`` ({group: (B, T_g) int32} on the device) switches to the
-    paged layout (``attention.attn_decode(table=)``).  Returns (logits
-    (B, 1, V), caches updated in place)."""
+    paged layout (``attention.attn_decode(table=)``).  An xLSTM config's
+    layers step their recurrent states (``pos`` and ``tables`` unused),
+    inactive rows frozen.  Returns (logits (B, 1, V), caches updated in
+    place)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
     for i, (p, m, pk, c) in enumerate(zip(
             params["layers"], _per_layer(masks, cfg), _per_layer(pack, cfg),
             caches)):
+        if cfg.block_type == "xlstm":
+            key = _state_key(cfg, i)
+            step = X.slstm_decode if key == "slstm" else X.mlstm_decode
+            o, new = step(p[key], rmsnorm(p["ln1"], x, cfg.norm_eps), c[key], cfg,
+                          masks=_sub(m, key), pack=_sub(pk, key))
+            _gate_rows(active, new, c[key])
+            x = x + o
+            continue
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         attn_out, c["kv"] = A.attn_decode(
             p["attn"], h, c["kv"], pos, cfg, kind=cfg.layer_kind(i),

@@ -9,9 +9,10 @@ Port of the JAX package's ``serving/engine.py``:
   * queued requests are admitted into free slots by a B=1 prefill written
     into the slot row (``lm_prefill_into``); prompt lengths pad to the next
     power of two (the reference's trace buckets: the same padded shapes, so
-    the same flash schedules and row tiles), except under an MoE config,
-    which prefills at the exact prompt length (pad tokens would take expert
-    capacity); the prefill logits give the request's first token, so a
+    the same flash schedules and row tiles), except under an MoE config
+    (pad tokens would take expert capacity) and an xLSTM config (its
+    recurrent states would integrate the pad steps), which prefill at the
+    exact prompt length; the prefill logits give the request's first token, so a
     gen-N request costs N-1 decode steps;
   * all active slots step together in ONE ``lm_decode`` with per-slot
     ``pos`` and an ``active`` mask;
@@ -31,7 +32,9 @@ Port of the JAX package's ``serving/engine.py``:
     new slot's table (refcount++; a partly shared boundary page is forked
     and copied) and prefills only the suffix (``lm_prefill_suffix``: the
     paged flash kernel K12 over the prefix).  All-global causal
-    transformer configs without experts only, as in the reference.
+    transformer configs without experts only, as in the reference.  An
+    xLSTM config has no KV to page: its paged engine has no pool, and its
+    recurrent states stay slot-batched.
 
 The slot state (tokens, positions, active mask, sampling keys and
 parameters) and the block tables have device copies that advance on the
@@ -183,21 +186,24 @@ class ServeEngine:
         self.prefix_cache = prefix_cache
         # prompt-length bucketing is exact only where end padding cannot
         # leak into state: MoE routing would let pad tokens take expert
-        # capacity, so MoE configs prefill at the exact prompt length
-        self._pad_prompts = not cfg.n_experts
+        # capacity and xLSTM's recurrent states would integrate pad steps,
+        # so those configs prefill at the exact prompt length
+        self._pad_prompts = cfg.block_type == "transformer" and not cfg.n_experts
         # sharing replays nothing: every layer's cache must be plain
-        # position-indexed KV with no ring wrap, and admission routing-free
-        # (no MoE capacity over suffix pads)
-        share_ok = not cfg.n_experts and all(
-            cache_group(cfg, i) == "global" for i in range(cfg.n_layers))
+        # position-indexed KV with no ring wrap (no recurrent carry), and
+        # admission routing-free (no MoE capacity over suffix pads)
+        share_ok = (cfg.block_type == "transformer" and not cfg.n_experts
+                    and all(cache_group(cfg, i) == "global"
+                            for i in range(cfg.n_layers)))
         if prefix_cache and not paged:
             raise ValueError("prefix_cache needs paged=True (sharing is a "
                              "property of the page tables)")
         if prefix_cache and not share_ok:
             raise ValueError(
-                "prefix_cache requires an all-global config without experts: a "
-                "sliding-window ring cache cannot share pages, and MoE routing "
-                f"over suffix pads is not exact (config {cfg.name!r})"
+                "prefix_cache requires an all-global transformer config without "
+                "experts: a sliding-window ring cache cannot share pages, MoE "
+                "routing over suffix pads is not exact, and a recurrent state "
+                f"cannot be shared (config {cfg.name!r})"
             )
         self._spans: dict[str, int] = {}
         self.pools: dict[str, BlockPool] = {}
@@ -207,8 +213,8 @@ class ServeEngine:
         if paged:
             # one pool and one table per cache group: global layers share a
             # page id space sized in max_len rows, local ring layers a dense
-            # ring pool
-            for i in range(cfg.n_layers):
+            # ring pool; xLSTM has no KV to page
+            for i in range(cfg.n_layers if cfg.block_type != "xlstm" else 0):
                 g = cache_group(cfg, i)
                 self._spans[g] = min(cfg.window, max_len) if g == "local" else max_len
             for g, span in self._spans.items():
@@ -221,7 +227,7 @@ class ServeEngine:
                 self.tables[g] = np.full((capacity, t), n, np.int32)
             self.caches = init_paged_caches(
                 cfg, {g: p.n_blocks for g, p in self.pools.items()}, page_size,
-                self.device)
+                self.device, batch=capacity)
         else:
             self.caches = init_caches(cfg, capacity, max_len, self.device)
         self.n_prefix_hits = 0
@@ -348,7 +354,7 @@ class ServeEngine:
 
     def _padded_len(self, prompt_len: int) -> int:
         """Next power of two, capped so the padded prompt fits a cache row;
-        the exact length for an MoE config."""
+        the exact length for an MoE or xLSTM config."""
         if not self._pad_prompts:
             return prompt_len
         return _chunk_capped_len(_bucket_len(prompt_len), self.max_len,

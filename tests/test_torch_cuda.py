@@ -4,8 +4,9 @@ paged-prefix K12, the masked K13, K14, K15, the grouped masked K16, K17,
 K18 and the block-sparse wgrad K3/K6, forward K1/K4 and dgrad K2/K5 on the
 GEMM core (each under every plan its sweep forces, with the split merge), the
 fused epilogues K19/K20 and K7/K8 (likewise, with their fused merges), the
-|x| histogram K21, training steps, paged serving, MoE serving and MoE
-training through them; checkpoints of card tensors (the round trip and the
+|x| histogram K21, the grouped kernels at xLSTM's recurrent bank's shapes,
+training steps, paged serving, MoE serving, MoE and xLSTM training through
+them; checkpoints of card tensors (the round trip and the
 async snapshot) and the engine's quarantine of injected faults.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
@@ -2842,3 +2843,113 @@ def test_cuda_engine_quarantines_injected_faults():
     assert [(e["args"]["step"], e["args"]["rid"], e["args"]["slot"],
              e["args"]["attempt"], e["args"]["where"]) for e in quar] == [
         tuple(q) for q in eng.quarantine_log]
+
+
+# sLSTM's recurrent bank r of xlstm-1.3b: 4 heads, 512 -> 2048, at a
+# request's step (C = 1), a decode step (8) and a training batch's padded
+# rows (16); f32, the path's dtype
+R_BANK = (4, 512, 2048)
+
+
+def _r_bank_problem(C, dev):
+    """x (G, C->16, K), g (G, C->16, N), a 20% 128x128-block mask with a
+    superset (10% more blocks) and its pack entry, w zero outside the
+    mask; the elementwise masks for the masked kernels."""
+    from repro_torch.core.pack import pack_entry
+
+    G, K, N = R_BANK
+    blk = 128
+    rng = np.random.default_rng(C)
+    bm = rng.random((G, K // blk, N // blk)) < 0.2
+    bm[:, 0, 0] = True
+    sup = bm | (rng.random(bm.shape) < 0.1)
+    t = lambda b: torch.from_numpy(np.repeat(np.repeat(b, blk, -2), blk, -1)).to(dev)
+    m, b = t(bm), t(sup)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 16 - C))
+    w = f(G, K, N) / K ** 0.5 * m
+    x, g = pad(f(G, C, K)), pad(f(G, C, N))
+    return x, g, w, m, b, pack_entry(m, (blk, blk), device=dev, bwd_mask=b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8, 16])
+def test_cuda_r_bank_grouped_kernels_match_plain(C):
+    """K4, K5, K6 (block-sparse, 128x128) and K16, K17, K18 (masked) at the
+    r bank's shapes against their plain versions, each within
+    ``matmul_error_bound``; the wgrads zero outside the superset."""
+    dev = _cuda()
+    x, g, w, m, b, e = _r_bank_problem(C, dev)
+    G, K, N = R_BANK
+    blk = 128
+    ab = lambda t: t.abs()
+    runs = {
+        "K4": (lambda: tbsm.grouped_block_sparse_matmul(x, w, e["idx"], e["cnt"], bm=16,
+                                                         bn=blk, bk=blk, live=e["nnz"]),
+               lambda a, c: tbsm.grouped_block_sparse_matmul_plain(a, c, e["idx"].cpu(),
+                                                                   e["cnt"].cpu(), blk, blk),
+               (x, w), K),
+        "K5": (lambda: tbsm.grouped_block_sparse_dx(g, w, e["ridx"], e["rcnt"], bm=16, bn=blk,
+                                                     bk=blk, live=e["nnz"]),
+               lambda a, c: tbsm.grouped_block_sparse_dx_plain(a, c, e["ridx"].cpu(),
+                                                               e["rcnt"].cpu(), blk, blk),
+               (g, w), N),
+        "K6": (lambda: tbsm.grouped_block_sparse_dw(x, g, e["bidx"], e["bcnt"], bn=blk, bk=blk,
+                                                     live=e["bnnz"]),
+               lambda a, c: tbsm.grouped_block_sparse_dw_plain(a, c, e["bidx"].cpu(),
+                                                               e["bcnt"].cpu(), blk, blk),
+               (x, g), 16),
+        "K16": (lambda: tmm.grouped_masked_matmul(x, w, m, bm=16, bn=blk),
+                lambda a, c: tmm.grouped_masked_matmul_plain(a, c, m.cpu()), (x, w), K),
+        "K17": (lambda: tmm.grouped_masked_dx(g, w, m, bm=16, bk=blk),
+                lambda a, c: tmm.grouped_masked_dx_plain(a, c, m.cpu()), (g, w), N),
+        "K18": (lambda: tmm.grouped_masked_dw(x, g, b, bn=blk, bk=blk),
+                lambda a, c: tmm.grouped_masked_dw_plain(a, c, b.cpu()), (x, g), 16),
+    }
+    for name, (run, plain, (a, c), n) in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        want = plain(a.cpu(), c.cpu())
+        assert _bound_ok(got, want, plain(ab(a).cpu(), ab(c).cpu()), n), name
+        if name in ("K6", "K18"):
+            assert float(got[~b].abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse", "masked"])
+def test_cuda_xlstm_training_step_runs_the_recurrent_bank(kernel):
+    """An xlstm SMOKE train step on the card (RigL with the Top-KAST
+    superset, block 16, one microbatch, no remat): a finite loss, and the
+    grouped forward, dgrad and wgrad kernels launched once per sLSTM layer
+    and time step (the dgrad one step fewer: the zero initial state takes
+    no gradient), the 2-D kernels 5 times per mLSTM and 2 per sLSTM layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state, make_train_step
+
+    dev = _cuda()
+    cfg = configure_kernel(get_config("xlstm-1.3b", smoke=True), kernel=kernel,
+                           block=16 if kernel == "block_sparse" else None)
+    cfg = dataclasses.replace(cfg, microbatches=1, remat=False,
+                              sparse=dataclasses.replace(cfg.sparse, method="rigl",
+                                                         kernel_block=(128, 16, 16)))
+    opt = OptConfig(kind="adam", weight_decay=0.0, grad_clip=1.0)
+    st, _ = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, opt, LRSchedule(kind="constant", base_lr=1e-3,
+                                                warmup_steps=0))
+    S = 24
+    tok = torch.randint(0, cfg.vocab_size, (2, S), device=dev)
+    mod = tbsm if kernel == "block_sparse" else tmm
+    counts = lambda: (mod.launches, mod.dx_launches, mod.dw_launches, mod.g_launches,
+                      mod.gdx_launches, mod.gdw_launches)
+    c0 = counts()
+    st, m = step(st, {"tokens": tok, "targets": tok.roll(-1, 1)})
+    assert np.isfinite(float(m["loss"]))
+    n_s = sum(cfg.is_slstm(i) for i in range(cfg.n_layers))
+    proj = 5 * (cfg.n_layers - n_s) + 2 * n_s
+    assert tuple(a - b for a, b in zip(counts(), c0)) == (
+        proj, proj, proj, S * n_s, (S - 1) * n_s, S * n_s)

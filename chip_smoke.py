@@ -255,7 +255,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                 plain dense path; then the exact launches of K1-K6 (K13-K18)
                 and their merges in every step, counts kept, B ⊇ A and the
                 pack fresh; step s, tok/s, peak GiB, the busy share
- 23. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 23. hymba flash -- K9, K10 and K11 at hymba's attention (25 heads over 5,
+                G = 5, head_dim 64, bf16, S = 2048, window 1024 and global)
+                on their exact d = 64 instantiations against their plain
+                versions, timed beside the generic instantiation (also held
+                to the bound), scaled_dot_product_attention (forward,
+                backward) and the bound; both instantiations' launches
+ 24. hymba serve -- hymba-1.5b at full width and depth (32 layers, 1.92 B
+                parameters, attention and the selective SSM in every block,
+                global layers 0/15/31, window 1024 elsewhere, tied; ERK 0.8,
+                seed 0) through the paged engine (a local ring pool and a
+                global pool of 16-token pages beside the slot-batched SSM
+                states), block_sparse (64x64 blocks: 8 requests, prompts
+                200/700/1500, 32 tokens) and masked (4 requests, prompts
+                200/1500, 16 tokens): every request DONE, clean pool books;
+                exactly 288 K1 (K13) a prefill and a decode step and the
+                planned split merges, 32 K9 a prompt, a profiled prefill on
+                the exact d = 64 K9 alone; an inactive slot's SSM state
+                bit for bit; the greedy tokens' agreement with the plain
+                dense path and two prompts' prefill logits within 5e-3;
+                prefill ms, the decode step's host and device (CUDA graph) ms
+ 25. hymba train -- 4 of 32 layers at full width (layer 0 global, 1-3
+                local; 285 M parameters), RigL with the superset, Adam, 1 x
+                2048 tokens, 4 steps, a drop/grow at step 2, in both modes:
+                the step-0 loss and the gradients of in_proj, out_proj, wq,
+                the dense w_dt, a_log and the tied table against the plain
+                dense path; the exact launches of K1-K3 (K13-K15), K9-K11
+                and their merges in every step, the profiled step on the
+                exact d = 64 flash kernels alone, counts kept, B ⊇ A and the
+                pack fresh; step s, tok/s, peak GiB, the busy share
+ 26. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -475,21 +504,29 @@ def k1_cases(torch, timer, bsm, pack_np):
 
 
 def packed_projections(engine, layer):
-    """(name, w, pack entry) of every block-sparse projection of a layer."""
-    for sub in ("attn", "mlp"):
+    """(name, w, pack entry) of every block-sparse projection of a layer
+    (the attention, a hymba layer's SSM projections, the MLP)."""
+    for sub in ("attn", "ssm", "mlp"):
+        if sub not in engine.pack["layers"][layer]:
+            continue
         for name, leaf in engine.pack["layers"][layer][sub].items():
+            if not isinstance(leaf, dict):  # a bare dense leaf (the SSM's a_log)
+                continue
             if leaf["w"] is not None:
                 yield (f"{sub}.{name}", engine.params["layers"][layer][sub][name]["w"],
                        leaf["w"])
 
 
-def k1_served_cases(torch, timer, bsm, engine, rows=(4, 1024)):
+def k1_served_cases(torch, timer, bsm, engine, rows=(4, 1024), names=None):
     """K1 on the served model's own ERK packs (layer 0: every projection
-    shape at its ERK density; bf16 attention, f32 MLP as served), at a
-    decode step's 4 rows and at the rows of the longest prompt bucket."""
+    shape at its ERK density, or those in ``names``; bf16 attention, f32
+    MLP as served), at a decode step's 4 rows and at the rows of the
+    longest prompt bucket."""
     blk = engine.cfg.sparse.kernel_block[2]
     out = []
     for name, w, e in packed_projections(engine, 0):
+        if names is not None and name not in names:
+            continue
         for M in rows:
             x = torch.randn(M, w.shape[0], device="cuda").to(w.dtype)
             out.append(k1_case(torch, timer, bsm, f"served layer0 {name}", x, w,
@@ -751,7 +788,7 @@ def decode_device_ms(torch, engine, lm_decode, label="main"):
     return dev_ms
 
 
-def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
+def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg, names=None, uniform=True):
     """K2 (dx on the CSR) and K3 (dw on the Top-KAST superset CSC) on the
     training path's own packs: layer 0's seven projections at M = 2048 rows
     (one microbatch of 2 x 1024), bf16 for attention and f32 for the MLP as
@@ -763,17 +800,24 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     (``fwd_sweep``, entries "bs_dx" and "bs_dw", each held to the bound and
     to a second launch's bits first), the f32 cases against a float64
     product (``bs_fwd_fidelity`` on w^T, ``f64_fidelity``), and the merge of
-    a split pick (``merge_case``, ``bs_merge_case``).  Returns (K2 cases,
-    K3 cases, K3's merge cases, K2's merge cases)."""
+    a split pick (``merge_case``, ``bs_merge_case``).  ``names`` keeps
+    those projections of layer 0 (a hymba layer's SSM projections run f32
+    as its MLP); ``uniform`` adds the uniform case.  Returns (K2 cases, K3
+    cases, K3's merge cases, K2's merge cases)."""
     import numpy as np
 
     from repro_torch.kernels import masked_matmul as mm
 
     blk, M = cfg.sparse.kernel_block[2], 2048
     items = []
-    for sub in ("attn", "mlp"):
+    for sub in ("attn", "ssm", "mlp"):
+        if sub not in state["pack"]["layers"][0]:
+            continue
         dt = torch.bfloat16 if sub == "attn" else torch.float32
         for name, leaf in state["pack"]["layers"][0][sub].items():
+            if (not isinstance(leaf, dict) or leaf["w"] is None
+                    or names is not None and f"{sub}.{name}" not in names):
+                continue
             w = state["params"]["layers"][0][sub][name]["w"].to(dt)
             items.append((f"train layer0 {sub}.{name}", w, leaf["w"]))
     rng = np.random.default_rng(1)
@@ -783,9 +827,10 @@ def bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg):
     w = (torch.randn(2560, 2560, device="cuda") / 2560**0.5 * dense).to(torch.bfloat16)
     t = lambda a: torch.from_numpy(a).cuda()
     (ridx, rcnt), (bidx, bcnt) = pack_np(bm.T), pack_np(sup)
-    items.append(("uniform 20% + 10% superset", w,
-                  {"ridx": t(ridx), "rcnt": t(rcnt), "bidx": t(bidx), "bcnt": t(bcnt),
-                   "nnz": int(bm.sum()), "bnnz": int(sup.sum())}))
+    if uniform:
+        items.append(("uniform 20% + 10% superset", w,
+                      {"ridx": t(ridx), "rcnt": t(rcnt), "bidx": t(bidx), "bcnt": t(bcnt),
+                       "nnz": int(bm.sum()), "bnnz": int(sup.sum())}))
     k2, k3, merges, dx_merges = [], [], [], []
     for label, w, e in items:
         K, N = w.shape
@@ -1174,8 +1219,9 @@ def train_config():
 
 
 def train_dense_check(torch, cfg, state, names=("layers/0/mlp/wi/w", "layers/0/attn/wq/w"),
-                      label="train"):
-    """The step-0 loss of one microbatch (2 x 1024) and the gradients of
+                      label="train", batch=2, seq=TRAIN_SEQ):
+    """The step-0 loss of one microbatch (``batch`` x ``seq``, by default
+    2 x 1024) and the gradients of
     ``names`` (by default an MLP and an attention weight of layer 0), on
     the kernel path, against the plain dense path on the same weights
     (masked dense matmuls, the plain masked softmax).  An MoE model's
@@ -1187,7 +1233,7 @@ def train_dense_check(torch, cfg, state, names=("layers/0/mlp/wi/w", "layers/0/a
     from repro_torch.data.synthetic import batch_for
     from repro_torch.models.model import lm_loss
 
-    b = batch_for(cfg, 0, 2, TRAIN_SEQ, learnable=True, device="cuda")
+    b = batch_for(cfg, 0, batch, seq, learnable=True, device="cuda")
     dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
         cfg.sparse, kernel="dense", attn_kernel="dense"))
 
@@ -1416,7 +1462,7 @@ def kernel_case(torch, timer, kernel, label, run, plain, library, check, n_bytes
     return case
 
 
-def masked_cases(torch, timer, mm, params, masks):
+def masked_cases(torch, timer, mm, params, masks, proj=MASKED_PROJ, bn=128, fused=True):
     """K13 at a decode step's 4 rows (-> 16) and at 2048 rows, K14, K15 and
     K19 (sr off and on, bf16 momentum as the fused path keeps it) at the
     training microbatch's 2048 rows, on layer 0's own weights and ERK
@@ -1435,13 +1481,16 @@ def masked_cases(torch, timer, mm, params, masks):
     float64 product).  Bytes count every input once (w and its 1-byte mask
     included) and every output once; operations count the active weights'
     products (2 per multiply-add).  Library: cuBLAS on the pre-masked
-    weight (TF32 off); K19's yardstick K15 then the SGD update."""
+    weight (TF32 off); K19's yardstick K15 then the SGD update.  ``proj``:
+    the (label, subtree, name) projections of layer 0; ``bn``: the column
+    and contraction tile cap the path passes (64 for hymba); ``fused``
+    adds K19."""
     from repro_torch.kernels.ops import _row_tile
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {"K13": [], "K14": [], "K15": [], "K19": [], "merge": [], "dx_merge": [],
            "dw_merge": [], "dw_fused_merge": []}
-    for label, sub, name in MASKED_PROJ:
+    for label, sub, name in proj:
         w = params["layers"][0][sub][name]["w"]
         m = masks["layers"][0][sub][name]["w"]
         K, N = w.shape
@@ -1460,9 +1509,9 @@ def masked_cases(torch, timer, mm, params, masks):
             xp = torch.nn.functional.pad(x, (0, 0, 0, Mp - M))
             case = kernel_case(
                 torch, timer, "K13", f"{tag} M={M}->{Mp}",
-                lambda: mm.masked_matmul(xp, w, m, bm=bm, bn=128),
+                lambda: mm.masked_matmul(xp, w, m, bm=bm, bn=bn),
                 lambda: mm.masked_matmul_plain(xp, w, m), lambda: x @ wm,
-                lambda: within_(mm.masked_matmul(xp, w, m, bm=bm, bn=128),
+                lambda: within_(mm.masked_matmul(xp, w, m, bm=bm, bn=bn),
                                 mm.masked_matmul_plain(xp, w, m),
                                 mm.matmul_error_bound(mm.masked_matmul_plain(xp, w, m),
                                                       xp.float().abs() @ awm, K)),
@@ -1470,12 +1519,12 @@ def masked_cases(torch, timer, mm, params, masks):
             want = mm.masked_matmul_plain(xp, w, m)
             bound = mm.matmul_error_bound(want, xp.float().abs() @ awm, K)
             case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_matmul(
-                xp, w, m, bm=bm, bn=128, plan=plan), Mp, K, N, 1, dt, case,
-                check=lambda got: within_(got, want, bound)))
+                xp, w, m, bm=bm, bn=bn, plan=plan), Mp, K, N, 1, dt, case,
+                check=lambda got: within_(got, want, bound), bn_limit=bn))
             del want, bound
             if dt == torch.float32 and M == 2048:
                 case["f64_rms_over_plain"] = f64_fidelity(
-                    torch, f"K13 {tag}", lambda: mm.masked_matmul(xp, w, m, bm=128, bn=128),
+                    torch, f"K13 {tag}", lambda: mm.masked_matmul(xp, w, m, bm=128, bn=bn),
                     lambda: mm.masked_matmul_plain(xp, w, m), lambda: xp.double() @ wm.double())
             print("K13 plans", json.dumps(case))
             out["K13"].append(case)
@@ -1487,21 +1536,21 @@ def masked_cases(torch, timer, mm, params, masks):
         g = torch.randn(M, N, device="cuda").to(dt)
         case = kernel_case(
             torch, timer, "K14", f"{tag} M={M}",
-            lambda: mm.masked_dx(g, w, m, bm=128, bk=128),
+            lambda: mm.masked_dx(g, w, m, bm=128, bk=bn),
             lambda: mm.masked_dx_plain(g, w, m), lambda: g @ wm.T,
-            lambda: within_(mm.masked_dx(g, w, m, bm=128, bk=128), mm.masked_dx_plain(g, w, m),
+            lambda: within_(mm.masked_dx(g, w, m, bm=128, bk=bn), mm.masked_dx_plain(g, w, m),
                             mm.matmul_error_bound(mm.masked_dx_plain(g, w, m),
                                                   g.float().abs() @ awm.T, N)),
             es * (M * N + M * K) + (es + 1) * K * N, 2.0 * M * nnz, dt)
         want = mm.masked_dx_plain(g, w, m)
         bound = mm.matmul_error_bound(want, g.float().abs() @ awm.T, N)
         case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_dx(
-            g, w, m, bm=128, bk=128, plan=plan), M, N, K, 1, dt, case, entry="dx",
-            check=lambda got: within_(got, want, bound)))
+            g, w, m, bm=128, bk=bn, plan=plan), M, N, K, 1, dt, case, entry="dx",
+            check=lambda got: within_(got, want, bound), bn_limit=bn))
         del want, bound
         if dt == torch.float32:
             case["f64_rms_over_plain"] = f64_fidelity(
-                torch, f"K14 {tag}", lambda: mm.masked_dx(g, w, m, bm=128, bk=128),
+                torch, f"K14 {tag}", lambda: mm.masked_dx(g, w, m, bm=128, bk=bn),
                 lambda: mm.masked_dx_plain(g, w, m), lambda: g.double() @ wm.double().T)
         print("K14 plans", json.dumps(case))
         out["K14"].append(case)
@@ -1512,21 +1561,21 @@ def masked_cases(torch, timer, mm, params, masks):
         dw_tag = f"{tag} M={M} superset density={bnnz / (K * N):.3f}"
         case = kernel_case(
             torch, timer, "K15", dw_tag,
-            lambda: mm.masked_dw(x, g, b, bn=128, bk=128),
+            lambda: mm.masked_dw(x, g, b, bn=bn, bk=bn),
             lambda: mm.masked_dw_plain(x, g, b), lambda: (x.T @ g) * b,
-            lambda: within_(mm.masked_dw(x, g, b, bn=128, bk=128), mm.masked_dw_plain(x, g, b),
+            lambda: within_(mm.masked_dw(x, g, b, bn=bn, bk=bn), mm.masked_dw_plain(x, g, b),
                             mm.matmul_error_bound(mm.masked_dw_plain(x, g, b), absp * b, M)),
             es * (M * K + M * N + K * N) + K * N, 2.0 * M * bnnz, dt)
         want = mm.masked_dw_plain(x, g, b)
         bound = mm.matmul_error_bound(want, absp * b, M)
         case.update(fwd_sweep(torch, timer, mm, lambda plan: mm.masked_dw(
-            x, g, b, bn=128, bk=128, plan=plan), K, M, N, 1, dt, case, entry="dw",
-            check=lambda got: within_(got, want, bound)))
+            x, g, b, bn=bn, bk=bn, plan=plan), K, M, N, 1, dt, case, entry="dw",
+            check=lambda got: within_(got, want, bound), bn_limit=bn))
         case["dense_tflop_s"] = 2.0 * M * K * N / case["ms"] / 1e9
         del want, bound
         if dt == torch.float32:
             case["f64_rms_over_plain"] = f64_fidelity(
-                torch, f"K15 {tag}", lambda: mm.masked_dw(x, g, b, bn=128, bk=128),
+                torch, f"K15 {tag}", lambda: mm.masked_dw(x, g, b, bn=bn, bk=bn),
                 lambda: mm.masked_dw_plain(x, g, b),
                 lambda: (x.double().T @ g.double()) * b)
         print("K15 plans", json.dumps(case))
@@ -1534,11 +1583,13 @@ def masked_cases(torch, timer, mm, params, masks):
         if case["plan"][2] > 1:
             out["dw_merge"].append(merge_case(torch, timer, mm, case["plan"][2], 1, K, N, dt,
                                               dw_tag, entry="dw", mask=b))
+        if not fused:
+            continue
         mom = (0.01 * torch.randn(K, N, device="cuda")).to(torch.bfloat16) * b
         acc = x.float().T @ g.float()
-        kw = dict(mu=0.9, wd=1e-4, bn=128, bk=128)
+        kw = dict(mu=0.9, wd=1e-4, bn=bn, bk=bn)
         seed = 0x9E3779B9
-        unfused = lambda: (0.9 * mom.float() + mm.masked_dw(x, g, b, bn=128, bk=128).float()
+        unfused = lambda: (0.9 * mom.float() + mm.masked_dw(x, g, b, bn=bn, bk=bn).float()
                            + 1e-4 * w.float()).to(dt)
         for sr in (False, True):
             fused = lambda: mm.masked_dw_fused(x, g, b, w, mom, seed, sr=sr, **kw)
@@ -4752,11 +4803,12 @@ R_ROWS = (1, 8, 16)  # the r bank's rows: a request's step, and C = 8, 16
 
 
 def trace_busy(prof, path):
-    """(busy ms, the 8 longest kernels as (name, ms, count)) of a profiled
-    window, from its chrome trace: the profiler writes it on its C++ side,
-    while ``key_averages`` builds a Python record of each of the ~10^5
-    events of an xLSTM step (tens of seconds).  Busy time counts kernels,
-    copies and sets on the device; the trace file is deleted."""
+    """(busy ms, the 8 longest kernels as (name, ms, count), every kernel's
+    name) of a profiled window, from its chrome trace: the profiler writes
+    it on its C++ side, while ``key_averages`` builds a Python record of
+    each of the ~10^5 events of an xLSTM step (tens of seconds).  Busy time
+    counts kernels, copies and sets on the device; the trace file is
+    deleted."""
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
@@ -4767,7 +4819,7 @@ def trace_busy(prof, path):
             ms, n = by.get(e["name"], (0.0, 0))
             by[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(((k, ms, n) for k, (ms, n) in by.items()), key=lambda t: -t[1])[:8]
-    return sum(ms for ms, _ in by.values()), top
+    return sum(ms for ms, _ in by.values()), top, set(by)
 
 
 def xlstm_config(kernel, n_layers=None):
@@ -4784,23 +4836,25 @@ def xlstm_config(kernel, n_layers=None):
         sparse=dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T))
 
 
-def xlstm_merges(torch, cfg, state, rows, bank_rows, entry):
-    """Split merges of one pass over the xLSTM stack's dispatched leaves,
-    (2-D projections at ``rows`` rows, the r banks at ``bank_rows`` rows,
-    each call): ``entry`` "fwd" (K1/K4, K13/K16), "dx" (K2/K5, K14/K17) or
-    "dw" (K3/K6 on the superset's live blocks, K15/K18), each on its plan
-    from the shapes, the f32 dtype and (block-sparse) the pack entry's live
-    blocks, as the wrappers pick it."""
+def leaf_merges(torch, cfg, state, rows, bank_rows, entry):
+    """Split merges of one pass over a stack's dispatched leaves (2-D
+    projections at ``rows`` rows, 3-D banks -- xLSTM's r -- at
+    ``bank_rows`` rows, each call) -> (2-D merges, bank merges): ``entry``
+    "fwd" (K1/K4, K13/K16), "dx" (K2/K5, K14/K17) or "dw" (K3/K6 on the
+    superset's live blocks, K15/K18), each on its plan from the shapes,
+    the dtype the model calls it in (the attention's in the compute dtype,
+    every other leaf in the residual's f32) and (block-sparse) the pack
+    entry's live blocks, as the wrappers pick it."""
     from repro_torch.core.masks import tree_paths
     from repro_torch.core.pack import pack_entries
     from repro_torch.kernels import block_sparse_matmul as bsm
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels.ops import _row_tile
+    from repro_torch.models.layers import compute_dtype
 
     params = tree_paths(state["params"])
     bm, bn, bk = cfg.sparse.kernel_block
     dev = torch.cuda.current_device()
-    dt = torch.float32
     bs = cfg.sparse.kernel == "block_sparse"
     leaves = (dict(pack_entries(state["pack"])) if bs
               else {n: None for n in tree_paths(state["masks"])})
@@ -4809,6 +4863,7 @@ def xlstm_merges(torch, cfg, state, rows, bank_rows, entry):
         w = params[name]
         G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
         _, Mp = _row_tile(bank_rows if w.dim() == 3 else rows, bm)
+        dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
         if bs and entry == "dw":
             plan = bsm._dw_plan_for(Mp, K, N, G, dt, bn, e["bnnz"] if "bidx" in e
                                     else e["nnz"], dev)
@@ -4892,9 +4947,9 @@ def xlstm_serve(torch, bsm, mm, kernel):
     calls = stats["decode_steps"] + stats["prefills"]
     prompt_tokens = sum(r.prompt_len for r in reqs)
     st = {"params": engine.params, "pack": pack, "masks": masks}
-    dec = xlstm_merges(torch, cfg, st, XLSTM_ENGINE["capacity"], XLSTM_ENGINE["capacity"],
+    dec = leaf_merges(torch, cfg, st, XLSTM_ENGINE["capacity"], XLSTM_ENGINE["capacity"],
                        "fwd")
-    pre = {r.prompt_len: xlstm_merges(torch, cfg, st, r.prompt_len, 1, "fwd") for r in reqs}
+    pre = {r.prompt_len: leaf_merges(torch, cfg, st, r.prompt_len, 1, "fwd") for r in reqs}
     expect = {k1: per_call * calls, k4: n_s * (stats["decode_steps"] + prompt_tokens),
               merge: stats["decode_steps"] * sum(dec)
               + sum(pre[r.prompt_len][0] + r.prompt_len * pre[r.prompt_len][1]
@@ -5107,7 +5162,7 @@ def xlstm_train(torch, timer, bsm, mm, kernel):
         """(fwd, dx, dw) split merges of one step on ``st``'s pack."""
         out = []
         for entry, n_r in (("fwd", fw * S), ("dx", S - 1), ("dw", S)):
-            n2, nr = xlstm_merges(torch, cfg, st, batch * S, batch, entry)
+            n2, nr = leaf_merges(torch, cfg, st, batch * S, batch, entry)
             out.append((fw if entry == "fwd" else 1) * n2 + n_r * nr)
         return tuple(out)
 
@@ -5210,7 +5265,8 @@ def xlstm_train(torch, timer, bsm, mm, kernel):
             raise AssertionError(f"{label}: the carrier does not hold the refreshed superset")
     del state
     torch.cuda.empty_cache()
-    busy_ms, top = trace_busy(mark["prof"], ROOT / "build" / f"xlstm_train_{kernel}_trace.json")
+    busy_ms, top, _ = trace_busy(mark["prof"],
+                                 ROOT / "build" / f"xlstm_train_{kernel}_trace.json")
     part("checks_and_profile_s")
     steady = [r for r in log if "wall_s" in r and not r["update"] and r["step"] != steps]
     wall = sum(r["wall_s"] for r in steady) / len(steady)
@@ -5241,6 +5297,514 @@ def xlstm_train(torch, timer, bsm, mm, kernel):
           f"{'blocks' if bs else 'weights'} moved by the drop/grow; launches {launches}; "
           f"parts {json.dumps({k: round(v, 1) for k, v in parts.items()})}")
     return stats, launches, cases
+
+
+HYMBA_ENGINE = dict(capacity=4, max_len=2048, paged=True, page_size=16)
+HYMBA_BLOCK = 64  # the largest power-of-two block dividing 1600, 320, 3200, 5504, 6400
+HYMBA_PROJ = 9  # K1/K13 a layer a pass: wq, wk, wv, wo, in_proj, out_proj, wi, wg, wo
+# (requests, prompt lengths, new tokens) a mode serves; 1500 wraps the 1024 ring
+HYMBA_REQUESTS = {"block_sparse": (8, (200, 700, 1500), 32), "masked": (4, (200, 1500), 16)}
+HYMBA_LOGITS_TOL = 5e-3  # of the largest logit: bf16 attention on both paths
+# layer 0's projections whose kernels run under every candidate plan at 64 x 64
+HYMBA_CASES = ("attn.wq", "attn.wk", "ssm.in_proj", "ssm.out_proj")
+HYMBA_TRAIN_LAYERS = 4  # layer 0 global, 1-3 local (window 1024)
+HYMBA_TRAIN_STEPS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ = 4, 1, 2048  # an update at step 2
+# the step-0 gradients held against the plain dense path
+HYMBA_GRAD_LEAVES = ("layers/0/ssm/in_proj/w", "layers/1/ssm/out_proj/w", "layers/0/attn/wq/w",
+                     "layers/1/ssm/w_dt/w", "layers/0/ssm/a_log", "embed/table")
+HYMBA_FLASH = ("flash_fwd_kernel<64, true>", "flash_dq_kernel<64, true>",
+               "flash_dkv_kernel<64, true>")
+
+
+def hymba_config(kernel, n_layers=None):
+    """hymba-1.5b at its published widths (full depth unless ``n_layers``),
+    ERK 0.8, flash_tight; block_sparse in 64x64 blocks, or masked on 64-wide
+    column and contraction tiles (128 would pad d_model 1600 and the KV
+    width 320); RigL with the Top-KAST superset every ``DELTA_T`` steps in
+    one microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("hymba-1.5b"), kernel=kernel, block=HYMBA_BLOCK,
+                           attn_kernel="flash_tight")
+    sp = dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T,
+                             kernel_block=(128, HYMBA_BLOCK, HYMBA_BLOCK))
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, microbatches=1,
+                               sparse=sp)
+
+
+def flash_kernels_of(names):
+    """The flash kernels' instantiations among a trace's kernel names."""
+    return sorted({n[n.index("flash_"):n.index(">") + 1] for n in names
+                   if "flash_" in n and "_kernel<" in n})
+
+
+def hymba_serve(torch, timer, bsm, mm, fa, kernel):
+    """Serve hymba-1.5b at full width and depth (32 layers: attention and
+    the selective SSM side by side in every block, global attention at
+    layers 0, 15 and 31 and a 1024 window elsewhere; tied embeddings; ERK
+    0.8, seed 0) through the paged engine (a local ring pool and a global
+    pool of 16-token pages beside the slot-batched SSM states; capacity 4,
+    max_len 2048) under ``kernel``: 8 staggered greedy requests (prompts
+    200/700/1500, 32 tokens) under block_sparse (64x64 blocks: K1), 4
+    (prompts 200/1500, 16 tokens) under masked (K13); the 1500-token
+    prompts wrap the local rings.  Exact-length prefills.  Checks: every
+    request DONE, nothing quarantined, the pools' books clean; exactly 288
+    K1 (K13) a prefill and a decode step (32 x 9 projections) and the split
+    merges the plans make, 32 K9 a prompt; one profiled prefill runs the
+    exact d = 64 K9 instantiation and no other flash kernel; an inactive
+    slot's SSM state bit for bit unchanged by a decode step; the greedy
+    streams of the first 4 requests against the plain dense path's on the
+    same weights (the share of tokens that agree, at least 90%) and two
+    prompts' prefill logits within 5e-3 of the largest (bf16 attention on
+    both paths).  Prefill ms per request, the decode step's host ms and its
+    device ms (CUDA graph).  Then K1 on layer 0's served packs (4 and 1500
+    rows) or K13, K14 and K15 on its weights and masks (64-wide tiles),
+    each under every candidate plan, at ``HYMBA_CASES``' projections:
+    returns (stats, launches, those cases)."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.launch.serve import init_serving_state, staggered_requests
+    from repro_torch.models.model import lm_decode, lm_prefill
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    bs = kernel == "block_sparse"
+    label = f"hymba serve {kernel}"
+    cfg = hymba_config(kernel)
+    fam, mod = ("block_sparse", bsm) if bs else ("masked", mm)
+    k1, merge = f"{fam}_fwd", f"{fam}_fwd_merge"
+    counters = ((k1, mod, "launches"), (merge, mod, "fwd_merge_launches"),
+                ("flash_fwd", fa, "launches"))
+    read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_paths(params).values())
+    engine = ServeEngine(cfg, params, masks=masks, pack=pack, **HYMBA_ENGINE)
+    torch.cuda.synchronize()
+    print(f"{label}: hymba-1.5b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, ssm {cfg.ssm_d_inner} x "
+          f"{cfg.ssm_state}, {n_params / 1e9:.3f} B parameters, {4 * n_params / 1e9:.2f} GB "
+          f"f32) initialised in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    if sorted(engine.pools) != ["global", "local"]:
+        raise AssertionError(f"{label}: page pools {sorted(engine.pools)}")
+    for r in staggered_requests(cfg, 2, prompt_lens=(20,), gen_lens=(2,), seed=1):
+        engine.submit(r)
+    engine.run()
+
+    n_req, lens, gen = HYMBA_REQUESTS[kernel]
+    reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    engine = ServeEngine(cfg, engine.params, masks=masks, pack=pack, **HYMBA_ENGINE)
+    for r in reqs:
+        engine.submit(r)
+    for _, m_, a in counters:
+        setattr(m_, a, 0)
+    stats = engine.run()
+    launches = read()
+    for r in reqs:
+        if r.status is not Status.DONE or len(r.generated) != gen:
+            raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
+                                 f"{len(r.generated)} tokens")
+    if stats["quarantined"] or stats["failed"]:
+        raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
+    engine.check_pool_accounting()
+    if any(p.n_live for p in engine.pools.values()):
+        raise AssertionError(f"{label}: pages left live after the run")
+    per_call = HYMBA_PROJ * cfg.n_layers
+    st = {"params": engine.params, "pack": pack, "masks": masks}
+    dec = leaf_merges(torch, cfg, st, HYMBA_ENGINE["capacity"], 0, "fwd")[0]
+    pre = {r.prompt_len: leaf_merges(torch, cfg, st, r.prompt_len, 0, "fwd")[0] for r in reqs}
+    expect = {k1: per_call * (stats["decode_steps"] + stats["prefills"]),
+              merge: stats["decode_steps"] * dec + sum(pre[r.prompt_len] for r in reqs),
+              "flash_fwd": cfg.n_layers * stats["prefills"]}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+
+    # one decode step at capacity, slot 0 inactive: exact launches, and the
+    # inactive slot's SSM state bit for bit (every table is the sentinel
+    # after the run, so the KV writes drop)
+    dev = engine.device
+    tok = torch.from_numpy(engine.cur_tok[:, None]).to(dev)
+    pos = torch.from_numpy(engine.pos).to(dev)
+    tables = {g: torch.from_numpy(t).to(dev) for g, t in engine.tables.items()}
+    active = torch.tensor([False, True, True, True], device=dev)
+    before = [{k: v[0].clone() for k, v in c["ssm"].items()} for c in engine.caches]
+    c0 = read()
+    lm_decode(engine.params, cfg, engine.caches, tok, pos, masks=masks, pack=pack,
+              active=active, tables=tables)
+    step = {n: v - c0[n] for n, v in read().items()}
+    want_step = {k1: per_call, merge: dec, "flash_fwd": 0}
+    if step != want_step:
+        raise AssertionError(f"{label}: one decode step launched {step}, expected {want_step}")
+    frozen = all(torch.equal(c["ssm"][k][0], v)
+                 for c, b in zip(engine.caches, before) for k, v in b.items())
+    if not frozen:
+        raise AssertionError(f"{label}: an inactive slot's SSM state changed in a decode step")
+    del before
+
+    # one prompt's prefill profiled: the flash kernels it runs
+    toks = torch.from_numpy(reqs[1].tokens).long().cuda()[None]
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        lm_prefill(engine.params, cfg, {"tokens": toks}, HYMBA_ENGINE["max_len"], masks=masks,
+                   pack=pack)
+        torch.cuda.synchronize()
+    _, _, names = trace_busy(prof, ROOT / "build" / f"hymba_serve_{kernel}_trace.json")
+    flash = flash_kernels_of(names)
+    if flash != [HYMBA_FLASH[0]]:
+        raise AssertionError(f"{label}: the prefill ran the flash kernels {flash}")
+    stats.update({"prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
+                  "decode_step_ms": 1e3 * stats["decode_step_s"],
+                  "launches_per_decode_step": step, "merges_per_prefill": {
+                      str(p): m for p, m in pre.items()}, "prefill_flash_kernels": flash,
+                  "parameters": n_params, "inactive_slot_frozen": frozen,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    # the plain dense path on the same weights: the first 4 requests'
+    # greedy streams (every prompt length among them), and two prompts'
+    # prefill logits
+    dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
+        cfg.sparse, kernel="dense", attn_kernel="dense"))
+    dreqs = staggered_requests(cfg, 4, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    dengine = ServeEngine(dense, engine.params, **HYMBA_ENGINE)
+    for r in dreqs:
+        dengine.submit(r)
+    dengine.run()
+    same = sum(a == b for r, d in zip(reqs, dreqs) for a, b in zip(r.generated, d.generated))
+    agree = same / sum(len(d.generated) for d in dreqs)
+    errs, gaps = [], []
+    V = cfg.vocab_size
+    for r in reqs[:2]:
+        toks = torch.from_numpy(r.tokens).long().cuda()[None]
+        a = lm_prefill(engine.params, cfg, {"tokens": toks}, r.prompt_len, masks=masks,
+                       pack=pack)[0].float()[..., :V]
+        b = lm_prefill(engine.params, dense, {"tokens": toks}, r.prompt_len)[0].float()[..., :V]
+        if not bool(torch.isfinite(a).all()) or a.shape != (1, 1, V):
+            raise AssertionError(f"{label}: prefill logits not finite or of the wrong shape")
+        errs.append((a - b).abs().max().item() / b.abs().max().item())
+        top = b.flatten().topk(2).values
+        gaps.append((top[0] - top[1]).item())
+    stats["vs_dense"] = {"token_agreement": agree, "streams_equal": sum(
+        r.generated == d.generated for r, d in zip(reqs, dreqs)), "requests": len(dreqs),
+        "prefill_logits_rel_err_max": max(errs), "logits_tol": HYMBA_LOGITS_TOL,
+        "dense_top2_gap_min": min(gaps)}
+    print(f"{label}: vs the plain dense path:", json.dumps(stats["vs_dense"]))
+    if max(errs) > HYMBA_LOGITS_TOL or agree < 0.9:
+        raise AssertionError(f"{label}: kernel path vs dense path: {stats['vs_dense']}")
+    del dengine
+    stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode, label)
+    print(f"{label}: engine", json.dumps({k: stats[k] for k in (
+        "requests", "tokens", "decode_steps", "prefills", "wall_s", "tok_per_s",
+        "prefill_ms", "decode_step_ms", "decode_step_device_ms", "peak_gib")}),
+          f"launches {launches}; a decode step {step}")
+    if bs:
+        cases = k1_served_cases(torch, timer, bsm, engine, rows=(4, max(lens)),
+                                names=HYMBA_CASES)
+    else:
+        proj = [(n, *n.split(".")) for n in HYMBA_CASES]
+        cases = masked_cases(torch, timer, mm, engine.params, masks, proj=proj,
+                             bn=HYMBA_BLOCK, fused=False)
+    return stats, launches, cases
+
+
+def hymba_train(torch, timer, bsm, mm, fa, kernel):
+    """Train hymba-1.5b at full width, 4 of 32 layers (layer 0 global,
+    1-3 local; ~285 M parameters with the tied table), ERK 0.8, RigL with
+    the Top-KAST superset (Δ = 10%), Adam, warmup-cosine, seed 0, under
+    ``kernel`` (block_sparse in 64x64 blocks, or masked), 1 x 2048 tokens
+    (past the window, one SSM chunk), 4 steps, a drop/grow at step 2.
+    First the step-0 loss and the gradients of layers/0/ssm/in_proj,
+    layers/1/ssm/out_proj, layers/0/attn/wq, the dense layers/1/ssm/w_dt,
+    layers/0/ssm/a_log and the tied table against the plain dense path;
+    then ``train_loop`` with every counter set to 0 just before it: finite
+    losses and the exact launches of every step (remat reruns each block's
+    forward: 2 x 36 K1 (K13), 36 K2 and K3 (K14, K15), 8 K9, 4 K10, 4 K11;
+    the planned split merges of each), the profiled step running only the
+    exact d = 64 flash instantiations, and after the update the counts
+    kept, B ⊇ A and the pack (carrier) fresh.  Reports step s, tok/s, peak
+    GiB, the profiled step's busy share.  Under block_sparse first K2 and
+    K3 on layer 0's packs and supersets at ``HYMBA_CASES``' projections
+    (``bs_bwd_cases``): returns (stats, launches, its cases or None)."""
+    from repro_torch.core.masks import block_mask_of, tree_paths
+    from repro_torch.core.pack import pack_entries, pack_mismatch, pack_np, validate_pack
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state
+
+    bs = kernel == "block_sparse"
+    label = f"hymba train {kernel}"
+    cfg = hymba_config(kernel, HYMBA_TRAIN_LAYERS)
+    steps, batch, S = HYMBA_TRAIN_STEPS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ
+    state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_paths(state["params"]).values())
+    cases = (bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg, names=HYMBA_CASES,
+                          uniform=False) if bs else None)
+    dense_check = train_dense_check(torch, cfg, state, label=label, batch=batch, seq=S,
+                                    names=HYMBA_GRAD_LEAVES)
+    fam = "block_sparse" if bs else "masked"
+    mod = bsm if bs else mm
+    fw = 2 if cfg.remat else 1  # remat reruns each block's forward in the backward
+
+    def merges_of(st):
+        """(fwd, dx, dw) split merges of one step on ``st``'s pack."""
+        return tuple((fw if e == "fwd" else 1) * leaf_merges(torch, cfg, st, batch * S, 0, e)[0]
+                     for e in ("fwd", "dx", "dw"))
+
+    first = merges_of(state)
+    del state
+    torch.cuda.empty_cache()
+    counters = ((f"{fam}_fwd", mod, "launches"), (f"{fam}_dx", mod, "dx_launches"),
+                (f"{fam}_dw", mod, "dw_launches"),
+                (f"{fam}_fwd_merge", mod, "fwd_merge_launches"),
+                (f"{fam}_dx_merge", mod, "dx_merge_launches"),
+                (f"{fam}_dw_merge", mod, "dw_merge_launches"),
+                ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
+                ("flash_dkv", fa, "dkv_launches"))
+    read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+    proj, n_l = HYMBA_PROJ * cfg.n_layers, cfg.n_layers
+
+    def expected(m):
+        return {f"{fam}_fwd": fw * proj, f"{fam}_dx": proj, f"{fam}_dw": proj,
+                f"{fam}_fwd_merge": m[0], f"{fam}_dx_merge": m[1], f"{fam}_dw_merge": m[2],
+                "flash_fwd": fw * n_l, "flash_dq": n_l, "flash_dkv": n_l}
+
+    log = []
+    mark = {"counts": None, "t": None, "units": None, "prof": None, "merges": first}
+
+    def units(masks):
+        return {n: (block_mask_of(m, cfg.sparse.block_shape) if bs else m)
+                for n, m in tree_paths(masks).items()}
+
+    def on_step(step, is_update, st, met):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        counts = read()
+        prev = mark["counts"] or {n: 0 for n in counts}
+        rec = {"step": step, "update": is_update, "loss": float(met["loss"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {n: counts[n] - prev[n] for n in counts}}
+        if mark["t"] is not None:
+            rec["wall_s"] = t - mark["t"]
+        # the step ran on the pack it left unless it updated the topology
+        want = expected(mark["merges"] if is_update else merges_of(st))
+        if rec["launches"] != want:
+            raise AssertionError(f"{label} step {step}: launches {rec['launches']}, "
+                                 f"expected {want}")
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{label} step {step}: loss {rec['loss']}")
+        mark["merges"] = merges_of(st)
+        if step == 1:
+            mark["units"] = {n: u.cpu() for n, u in units(st["masks"]).items()}
+        if step == steps - 1:
+            mark["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            mark["prof"].__enter__()
+        elif step == steps:
+            mark["prof"].__exit__(None, None, None)
+        print(f"{label}:", json.dumps(rec))
+        log.append(rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark.update(counts=counts, t=time.perf_counter())
+
+    for _, m_, a in counters:
+        setattr(m_, a, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = train_loop(cfg, steps=steps, batch=batch, seq=S,
+                          workdir=str(ROOT / "chiprun_out" / f"hymba_train_{kernel}"),
+                          device="cuda", on_step=on_step, log_every=steps, ckpt_every=None)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read()
+    after, bwd = units(state["masks"]), units(state["bwd_masks"])
+    moved = 0
+    for n, u in after.items():
+        before = mark["units"][n]
+        if int(u.sum()) != int(before.sum()):
+            raise AssertionError(f"{label}: {n}: {int(before.sum())} active units before "
+                                 f"the update, {int(u.sum())} after")
+        if (u & ~bwd[n]).any():
+            raise AssertionError(f"{label}: {n}: the superset does not contain the mask")
+        moved += int((u.cpu() & ~before).sum())
+    if moved == 0:
+        raise AssertionError(f"{label}: the drop/grow moved nothing")
+    if bs:
+        validate_pack(state["pack"], where="chip_smoke hymba")
+        stale = int(pack_mismatch(state["masks"], state["pack"], cfg.sparse.block_shape,
+                                  bwd_masks=state["bwd_masks"]))
+        if stale:
+            raise AssertionError(f"{label}: pack stale after the update: {stale} blocks")
+    else:
+        carried = dict(pack_entries(state["pack"]))
+        bw = tree_paths(state["bwd_masks"])
+        if sorted(carried) != sorted(bw) or any(carried[n]["bwd_mask"] is not bw[n]
+                                                for n in bw):
+            raise AssertionError(f"{label}: the carrier does not hold the refreshed superset")
+    del state
+    torch.cuda.empty_cache()
+    busy_ms, top, names = trace_busy(mark["prof"],
+                                     ROOT / "build" / f"hymba_train_{kernel}_trace.json")
+    flash = flash_kernels_of(names)
+    if flash != sorted(HYMBA_FLASH):
+        raise AssertionError(f"{label}: the profiled step ran the flash kernels {flash}")
+    steady = [r for r in log if "wall_s" in r and not r["update"] and r["step"] != steps]
+    wall = sum(r["wall_s"] for r in steady) / len(steady)
+    profiled = log[-1]
+    stats = {
+        "layers": cfg.n_layers, "parameters": n_params, "steps": steps,
+        "tokens_per_step": batch * S, "total_s": total_s, "mean_train_step_wall_s": wall,
+        "steady_steps": [r["step"] for r in steady], "tok_per_s": batch * S / wall,
+        "update_step_wall_s": [r.get("wall_s") for r in log if r["update"]],
+        "peak_gib": max(r["peak_gib"] for r in log),
+        "profiled_step_wall_s": profiled["wall_s"],
+        "profiled_step_device_busy_ms": busy_ms or None,
+        "profiled_step_busy_share": busy_ms / 1e3 / profiled["wall_s"] if busy_ms else None,
+        "profiled_step_top": top, "profiled_step_flash_kernels": flash,
+        "losses": [r["loss"] for r in log], "launches_per_step": [r["launches"] for r in log],
+        "units_moved": moved, "step0_vs_dense": dense_check,
+    }
+    share = stats["profiled_step_busy_share"]
+    print(f"{label}: hymba-1.5b {cfg.n_layers} of 32 layers ({n_params / 1e6:.1f} M "
+          f"parameters), {steps} steps of {batch} x {S} tokens in {total_s:.1f} s; train step "
+          f"{wall:.3f} s wall (mean of {len(steady)}) = {stats['tok_per_s']:.0f} tok/s; peak "
+          f"{stats['peak_gib']:.1f} GiB; profiled step busy {busy_ms:.1f} ms of "
+          f"{profiled['wall_s']:.3f} s ({'not measured' if share is None else f'{share:.1%}'}); "
+          f"{moved} {'blocks' if bs else 'weights'} moved by the drop/grow; launches "
+          f"{launches}")
+    return stats, launches, cases
+
+
+HYMBA_FLASH_CASES = (("S=2048 window=1024 (local layers)", 2048, 1024),
+                     ("S=2048 global (layers 0, 15, 31)", 2048, 0))
+
+
+def hymba_flash_cases(torch, timer, fa):
+    """K9, K10 and K11 at hymba's attention (25 query heads over 5 KV
+    heads, G = 5, head_dim 64, bf16, S = 2048: a local layer's window 1024
+    and a global layer), each on the exact d = 64 instantiation against its
+    plain version (element by element within ``fa.o_error_bound`` and
+    ``fa.grad_error_bound``), timed beside three yardsticks: the generic
+    instantiation it replaces (also held to the bound), PyTorch's
+    scaled_dot_product_attention with the same mask (its backward for
+    K10 and K11: dq, dk and dv together) and the bound; each with both
+    instantiations' launches (CTAs an SM, registers, shared and spill
+    bytes, warps).  The exact launches must not spill and must have the
+    warps and CTAs an SM the backward plan counts on."""
+    from repro_torch.core.attn_sched import sched_for
+
+    F = torch.nn.functional
+    BH, G, d = 25, 5, 64
+    BKV = BH // G
+    k9, k10, k11 = [], [], []
+    for kind in ("dq", "dkv"):
+        info = fa.launch_info(f"flash_{kind}", d, 8)
+        if (info["spill_bytes"] or info["ctas_per_sm"] != fa.bwd_ctas_per_sm(kind, d)
+                or info["warps"] * 16 != fa.bwd_unit_rows(kind, d)):
+            raise AssertionError(f"flash_{kind} at d = 64: launch {info} against the plan's "
+                                 f"{fa.bwd_unit_rows(kind, d)} rows, "
+                                 f"{fa.bwd_ctas_per_sm(kind, d)} CTAs an SM")
+    for name, S, window in HYMBA_FLASH_CASES:
+        r = lambda n: torch.randn(n, S, d, device="cuda").to(torch.bfloat16)
+        q, k, v, do = r(BH), r(BKV), r(BKV), r(BH)
+        bq, bk = fa.effective_blocks(S, S)
+        sched = fa._schedule_on(q.device, S, S, bq, bk, True, window, 0)
+        width = int(sched_for(S, S, bq, bk, True, window, 0)["kv_idx"].shape[1])
+        kw = dict(bq=bq, bk=bk, causal=True, window=window, q_offset=0, sk=S,
+                  scale=d**-0.5, softcap=0.0, kv_groups=G)
+        pos = torch.arange(S, device="cuda")
+        mask = pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        live = int(mask.sum())
+        tag = f"hymba {name} BH={BH} G={G} d={d}"
+        q4, k4, v4 = (t.view(1, -1, S, d).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                      enable_gqa=True)
+
+        # K9
+        fwd_args = (q, k, v, sched[0], sched[1])
+        po, plse = fa.flash_attention_plain(*fwd_args, **kw)
+        pa, _ = fa.flash_attention_plain(q, k, v.abs(), sched[0], sched[1], **kw)
+        bound = fa.o_error_bound(po, pa)
+        checks = {}
+        for inst, generic in (("exact", False), ("generic", True)):
+            o, lse = fa.flash_fwd(*fwd_args, generic=generic, **kw)
+            diff = (o.float() - po.float()).abs()
+            ratio = (diff / bound.clamp_min(1e-30)).max().item()
+            err_l = (lse - plse).abs().max().item()
+            if not (bool((diff <= bound).all()) and err_l <= 1e-3):
+                raise AssertionError(f"K9 {tag} ({inst}): o {ratio:.3g}x its bound, "
+                                     f"lse err {err_l}")
+            checks[inst] = (diff.max().item(), ratio, err_l)
+        flops = 4.0 * d * live * BH
+        b_ms, by = bound_ms(2 * (2 * BH * S * d + 2 * BKV * S * d) + 4 * BH * S, flops)
+        ms = timer(lambda: fa.flash_fwd(*fwd_args, **kw), reps=5)
+        case = {"case": tag, "max_abs_err": checks["exact"][0],
+                "err_over_tol": checks["exact"][1], "lse_err": checks["exact"][2],
+                "generic_err_over_tol": checks["generic"][1], "ms": ms,
+                "generic_ms": timer(lambda: fa.flash_fwd(*fwd_args, generic=True, **kw),
+                                    reps=5),
+                "plain_ms": timer(lambda: fa.flash_attention_plain(*fwd_args, **kw),
+                                  reps=2, warmup=1),
+                "library_ms": timer(sdpa, reps=5), "bound_ms": b_ms, "bound_by": by,
+                "tflop_s": flops / ms / 1e9, "share_of_bound": b_ms / ms,
+                "launch": fa.launch_info("flash_fwd", d, width),
+                "generic_launch": fa.launch_info("flash_fwd", d, width, generic=True)}
+        print("K9", json.dumps(case))
+        k9.append(case)
+
+        # K10, K11
+        o, lse = fa.flash_fwd(*fwd_args, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        dq_args = (q, k, v, do, lse, delta, sched[0], sched[1])
+        dkv_args = (q, k, v, do, lse, delta, sched[2], sched[3])
+        blocks = fa._schedule_mask(sched[0], sched[1], S // bk, q.device)
+        plain_args = (q, k, v, do, lse, delta, blocks)
+        want_q, want_k, want_v, rq, rk, rv, eq, ek, ev = fa.flash_bwd_plain(
+            *plain_args, with_abs=True, **kw)
+        wants = {"dq": (want_q, rq, eq), "dk": (want_k, rk, ek), "dv": (want_v, rv, ev)}
+        out4 = sdpa()
+        lib_ms = timer(lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(1, BH, S, d),
+                                                   retain_graph=True), reps=5)
+        plain_ms = timer(lambda: fa.flash_bwd_plain(*plain_args, **kw), reps=2, warmup=1)
+        for kernel, kind, fn, args, what, n_bytes, flops in (
+                ("K10", "dq", fa.flash_dq, dq_args, ("dq",),
+                 2 * (3 * BH * S * d + 2 * BKV * S * d) + 8 * BH * S, 6.0 * d * live * BH),
+                ("K11", "dkv", fa.flash_dkv, dkv_args, ("dk", "dv"),
+                 2 * (2 * BH * S * d + 4 * BKV * S * d) + 8 * BH * S, 8.0 * d * live * BH)):
+            checks = {}
+            for inst, generic in (("exact", False), ("generic", True)):
+                got = fn(*args, generic=generic, **kw)
+                got = dict(zip(what, (got,) if kind == "dq" else got))
+                worst = (0.0, 0.0)
+                for w_ in what:
+                    want, rnd, err = wants[w_]
+                    ok, ratio, _ = within(torch, got[w_], want,
+                                          fa.grad_error_bound(want, rnd, err))
+                    if not ok:
+                        raise AssertionError(f"{kernel} {tag} ({inst}) {w_}: {ratio:.3g}x "
+                                             "its bound")
+                    worst = max(worst, ((got[w_].float() - want.float()).abs().max().item(),
+                                        ratio), key=lambda t: t[1])
+                checks[inst] = worst
+            b_ms, by = bound_ms(n_bytes, flops)
+            ms = timer(lambda: fn(*args, **kw), reps=5)
+            case = {"case": tag, "max_abs_err": checks["exact"][0],
+                    "err_over_tol": checks["exact"][1],
+                    "generic_err_over_tol": checks["generic"][1], "ms": ms,
+                    "generic_ms": timer(lambda: fn(*args, generic=True, **kw), reps=5),
+                    "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+                    "library_ms": lib_ms, "library_covers": "dq, dk and dv",
+                    "bound_ms": b_ms, "bound_by": by, "tflop_s": flops / ms / 1e9,
+                    "share_of_bound": b_ms / ms,
+                    "launch": fa.launch_info(f"flash_{kind}", d, width),
+                    "generic_launch": fa.launch_info(f"flash_{kind}", d, width, generic=True)}
+            print(kernel, json.dumps(case))
+            (k10 if kernel == "K10" else k11).append(case)
+        del out4
+    return k9, k10, k11
 
 
 def tree_map_clone(tree):
@@ -5381,6 +5945,25 @@ def main() -> int:
         done(f"xlstm serve {kernel}")
         xlstm[f"train {kernel}"] = xlstm_train(torch, timer, bsm, mm, kernel)
         done(f"xlstm train {kernel}, parity at the r bank's shapes")
+    k9_h, k10_h, k11_h = hymba_flash_cases(torch, timer, fa)
+    k9 += k9_h
+    k10 += k10_h
+    k11 += k11_h
+    done("hymba flash: K9-K11 at d = 64")
+    hymba = {}
+    for kernel in ("block_sparse", "masked"):
+        hymba[f"serve {kernel}"] = hymba_serve(torch, timer, bsm, mm, fa, kernel)
+        done(f"hymba serve {kernel}, parity at 64 x 64")
+        hymba[f"train {kernel}"] = hymba_train(torch, timer, bsm, mm, fa, kernel)
+        done(f"hymba train {kernel}")
+    k1 += hymba["serve block_sparse"][2]
+    for key, cases in hymba["serve masked"][2].items():
+        mcases[key] += cases
+    k2_h, k3_h, k3_merges_h, k2_merges_h = hymba["train block_sparse"][2]
+    k2 += k2_h
+    k3 += k3_h
+    k3_merges += k3_merges_h
+    k2_merges += k2_merges_h
     r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
     k4 += r_bs["fwd"]
     k56["K5"] += r_bs["dx"]
@@ -5402,7 +5985,11 @@ def main() -> int:
              "xlstm_serve": xlstm["serve block_sparse"][1],
              "xlstm_masked_serve": xlstm["serve masked"][1],
              "xlstm_train": xlstm["train block_sparse"][1],
-             "xlstm_masked_train": xlstm["train masked"][1]}
+             "xlstm_masked_train": xlstm["train masked"][1],
+             "hymba_serve": hymba["serve block_sparse"][1],
+             "hymba_masked_serve": hymba["serve masked"][1],
+             "hymba_train": hymba["train block_sparse"][1],
+             "hymba_masked_train": hymba["train masked"][1]}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -5531,6 +6118,8 @@ def main() -> int:
          "resume": resume_stats, "chaos_serve": chaos_stats, "lockstep": lockstep_stats,
          "gru": gru_stats, "xlstm": {k: v[0] for k, v in xlstm.items()},
          "r_bank": {"block_sparse": r_bs, "masked": r_m},
+         "hymba": {k: v[0] for k, v in hymba.items()},
+         "hymba_flash": {"k9": k9_h, "k10": k10_h, "k11": k11_h},
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -14,7 +14,9 @@ the MoE experts') keep their leading group dim, and the masked kernel's
 backward supersets, pack, optimizer state, SNFS's dense momentum, step and
 the non-finite counter), an MoE model's included: 3-D expert banks with their masks,
 supersets and grouped packs (superset view ``bidx``/``bcnt``) or carriers.  ``flat_of`` and ``pack_flat_of`` go the other way, so
-the tests can round-trip a state.
+the tests can round-trip a state.  Bare leaves (no ``{"w": ...}`` bundle:
+sLSTM's ``slstm/r``, hymba's ``ssm/a_log``, ``ssm/d_skip``, ``ssm/dt_bias``)
+come across by their path names like any other.
 """
 from __future__ import annotations
 

@@ -15,6 +15,7 @@ _MODULES = {
     "mistral-large-123b": "mistral_large_123b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -10,8 +10,8 @@ over the true active blocks.  Packs are computed on the host from concrete
 masks: once for serving, and after every topology update in training
 (``refresh_pack_state``: widths never shrink).
 
-Entry layout (one per packable mask leaf under ``attn``/``mlp``/``moe``/
-``mlstm``/``slstm``, ``None`` elsewhere), the same keys as the reference:
+Entry layout (one per packable mask leaf under ``attn``/``mlp``/``ssm``/
+``moe``/``mlstm``/``slstm``, ``None`` elsewhere), the same keys as the reference:
 
   {"idx":  (N/bn, width) int32 tensor,   # CSC: forward (K1)
    "cnt":  (N/bn,) int32 tensor,
@@ -64,9 +64,11 @@ __all__ = [
 ]
 
 # Param subtrees whose weights go through layers.linear / grouped_linear:
-# attention, the MLP, the MoE banks and shared experts, and the xLSTM
-# blocks (sLSTM's recurrent bank ``r`` is a grouped entry).
-DISPATCHED_SUBTREES = ("attn", "mlp", "slstm", "mlstm", "moe")
+# attention, the MLP, hymba's SSM projections (``in_proj``, ``out_proj``;
+# its scan weights are dense and carry no mask), the MoE banks and shared
+# experts, and the xLSTM blocks (sLSTM's recurrent bank ``r`` is a
+# grouped entry).
+DISPATCHED_SUBTREES = ("attn", "mlp", "ssm", "slstm", "mlstm", "moe")
 
 
 class PackIntegrityError(ValueError):

@@ -28,8 +28,8 @@
 // its whole walk; the scores, dP, p and ds never touch shared memory
 // (WarpDq, WarpDkv).
 //  * K10: a unit is the query rows of one (bh, q-block): 128 (8 warps) at
-//    d = 80, 64 (4 warps, so a bq = 128 block is two units) at d = 128 and
-//    in the generic instantiation.  Q and dO are staged once; the CTA
+//    d = 64 and d = 80, 64 (4 warps, so a bq = 128 block is two units) at
+//    d = 128 and in the generic instantiation.  Q and dO are staged once; the CTA
 //    walks the live KV blocks as 64-key tiles through the two-stage
 //    cp.async ring of K and V (key_walk), sharing each tile among its
 //    warps.  dq stays in registers and is stored once.
@@ -58,11 +58,12 @@
 //    launch by list-scheduling each candidate's CTAs on the card's
 //    resident CTA slots.  No float atomics: two launches give the same
 //    bits.
-// head_dim is a runtime multiple of 16 up to 128; d = 80 and d = 128 run
-// their own instantiations, other d the generic one.  Resident per SM: K10
-// 2 CTAs (16 warps at d = 80 under a 128-register launch bound, 90.1 KB of
-// shared memory; 8 at d = 128, 104.5 KB), K11 3 at d = 80 (168 registers,
-// 68.7 KB) and 2 at d = 128 (105.5 KB); no spill.
+// head_dim is a runtime multiple of 16 up to 128; d = 64, d = 80 and
+// d = 128 run their own instantiations, other d the generic one.  Resident per SM: K10
+// 2 CTAs (16 warps at d = 64 and d = 80 under a 128-register launch bound,
+// 73.8 / 90.1 KB of shared memory; 8 at d = 128, 104.5 KB), K11 3 at d = 64
+// and d = 80 (161 / 168 registers, 56.4 / 68.7 KB) and 2 at d = 128 (105.5
+// KB); no spill.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -79,14 +80,15 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;
 constexpr int kMergeThreads = 256;
 
-// Warps of a K10 CTA: 8 (a 128-row unit) at d = 80, where the step fits
-// 128 registers, so two CTAs (16 warps) are resident per SM; 4 (64 rows)
-// at d = 128 and in the generic instantiation, two CTAs by shared memory.
-template <int D>
-__host__ __device__ constexpr int dq_warps() { return D == 80 ? 8 : 4; }
-
-// K11's CTAs resident per SM, by the launch bound (d = 80) or shared
+// Warps of a K10 CTA: 8 (a 128-row unit) at d = 64 and d = 80, where the
+// step fits 128 registers, so two CTAs (16 warps) are resident per SM; 4
+// (64 rows) at d = 128 and in the generic instantiation, two CTAs by shared
 // memory.
+template <int D>
+__host__ __device__ constexpr int dq_warps() { return D <= 80 ? 8 : 4; }
+
+// K11's CTAs resident per SM, by the launch bound (d = 64, d = 80) or
+// shared memory.
 template <int D>
 __host__ __device__ constexpr int dkv_ctas() { return D <= 80 ? 3 : 2; }
 
@@ -502,6 +504,10 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
                         int q_offset, int sk, int pair, int n_split, float scale,
                         float softcap, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dq<64, true>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
+                               Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
+                               pair, n_split, scale, softcap, s);
   if (d == 80)
     return launch_dq<80, true>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
                                Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
@@ -525,6 +531,10 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
                          int groups, int causal, int window, int q_offset, int sk, int pair,
                          int n_split, float scale, float softcap, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dkv<64, true>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
+                                dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
+                                window, q_offset, sk, pair, n_split, scale, softcap, s);
   if (d == 80)
     return launch_dkv<80, true>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
                                 dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
@@ -538,10 +548,38 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
                                 window, q_offset, sk, pair, n_split, scale, softcap, s);
 }
 
+// The generic instantiations at any d (the yardsticks of the exact ones).
+extern "C" int flash_dq_generic(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, const void* kv_idx,
+                                const void* kv_cnt, void* dq, void* part, int BH, int Sqp,
+                                int Skp, int d, int bq, int bk, int width, int groups,
+                                int causal, int window, int q_offset, int sk, int pair,
+                                int n_split, float scale, float softcap, void* stream) {
+  return launch_dq<128, false>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
+                               Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
+                               pair, n_split, scale, softcap, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_dkv_generic(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 const void* q_idx, const void* q_cnt, void* dk, void* dv,
+                                 void* dk_part, void* dv_part, int BH, int Sqp, int Skp, int d,
+                                 int bq, int bk, int q_width, int groups, int causal,
+                                 int window, int q_offset, int sk, int pair, int n_split,
+                                 float scale, float softcap, void* stream) {
+  return launch_dkv<128, false>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
+                                dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
+                                window, q_offset, sk, pair, n_split, scale, softcap,
+                                static_cast<cudaStream_t>(stream));
+}
+
 // The launch each instantiation for head_dim d gets at schedule width
 // `width`: out = {CTAs resident per SM, registers a thread, dynamic shared
 // bytes, local (spill) bytes a thread, warps a CTA}.
 extern "C" int flash_dq_info(int d, int width, int* out) {
+  if (d == 64)
+    return info(flash_dq_kernel<64, true>, smem_bytes<64>(16 * dq_warps<64>(), 2 * width, false),
+                dq_warps<64>(), out);
   if (d == 80)
     return info(flash_dq_kernel<80, true>, smem_bytes<80>(16 * dq_warps<80>(), 2 * width, false),
                 dq_warps<80>(), out);
@@ -551,9 +589,21 @@ extern "C" int flash_dq_info(int d, int width, int* out) {
 }
 
 extern "C" int flash_dkv_info(int d, int width, int* out) {
+  if (d == 64)
+    return info(flash_dkv_kernel<64, true>, smem_bytes<64>(kRows, 2 * width, true), kWarps, out);
   const size_t smem = d == 80 ? smem_bytes<80>(kRows, 2 * width, true)
                               : smem_bytes<128>(kRows, 2 * width, true);
   if (d == 80) return info(flash_dkv_kernel<80, true>, smem, kWarps, out);
   if (d == 128) return info(flash_dkv_kernel<128, true>, smem, kWarps, out);
   return info(flash_dkv_kernel<128, false>, smem, kWarps, out);
+}
+
+extern "C" int flash_dq_generic_info(int, int width, int* out) {
+  return info(flash_dq_kernel<128, false>,
+              smem_bytes<128>(16 * dq_warps<128>(), 2 * width, false), dq_warps<128>(), out);
+}
+
+extern "C" int flash_dkv_generic_info(int, int width, int* out) {
+  return info(flash_dkv_kernel<128, false>, smem_bytes<128>(kRows, 2 * width, true), kWarps,
+              out);
 }

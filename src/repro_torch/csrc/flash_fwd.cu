@@ -18,8 +18,9 @@
 //
 // Design (csrc/flash_core.cuh holds the warp-level core shared with K12):
 // a CTA takes the rows of one (bh, q-block): 8 warps (128 rows) at
-// d <= 80, 4 warps (64 rows, so a q-block of 128 is two CTAs) at d = 128 and
-// in the generic instantiation, each warp 16 rows.  Q is copied once into
+// d <= 80 (hymba's d = 64 and danube's d = 80), 4 warps (64 rows, so a
+// q-block of 128 is two CTAs) at d = 128 and in the generic instantiation,
+// each warp 16 rows.  Q is copied once into
 // shared memory; its ldmatrix fragments are re-read there each tile.  The
 // CTA consumes each schedule block of bk keys as 64-key tiles (a bk = 128
 // block is two) through a two-stage cp.async ring: tile t + 1's K and V
@@ -27,8 +28,9 @@
 // on the tensor cores (mma.sync m16n8k16, S, P and O in registers).  A warp
 // evaluates the element mask only on a tile that crosses the diagonal, the
 // window's edge or sk for its 16 rows.  Two CTAs are resident per SM at
-// d = 80 (16 warps: 120 registers under the launch bound's 128, 67.6 KB of
-// shared memory) and at d = 128 (8 warps: 162 registers, 87 KB); no spill.
+// d = 64 and d = 80 (16 warps: 120 registers under the launch bound's 128,
+// 55.3 / 67.6 KB of shared memory) and at d = 128 (8 warps: 162 registers,
+// 87 KB); no spill.
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): the 8 timed cases
 // sum to 1.47 ms (scaled_dot_product_attention 2.32, the first version
@@ -197,14 +199,17 @@ int info(int width, int* out) {
 // q (BH, Sqp, d), k/v (BH/groups, Skp, d) bf16; kv_idx (Sqp/bq, width),
 // kv_cnt (Sqp/bq,) int32; o (BH, Sqp, d) bf16, lse (BH, Sqp) f32.  The
 // wrapper checks d % 16 == 0 and d <= 128, bq and bk multiples of 16 up to
-// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.  d = 80 and
-// d = 128 run their own instantiations; other d the generic one.
+// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.  d = 64, d = 80
+// and d = 128 run their own instantiations; other d the generic one.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_idx, const void* kv_cnt, void* o, void* lse,
                          int BH, int Sqp, int Skp, int d, int bq, int bk, int width,
                          int groups, int causal, int window, int q_offset, int sk,
                          float scale, float softcap, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64, true>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
+                            groups, causal, window, q_offset, sk, scale, softcap, s);
   if (d == 80)
     return launch<80, true>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
                             groups, causal, window, q_offset, sk, scale, softcap, s);
@@ -215,11 +220,27 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                             groups, causal, window, q_offset, sk, scale, softcap, s);
 }
 
+// The generic instantiation at any d (the yardstick of the exact ones).
+extern "C" int flash_fwd_generic(const void* q, const void* k, const void* v,
+                                 const void* kv_idx, const void* kv_cnt, void* o, void* lse,
+                                 int BH, int Sqp, int Skp, int d, int bq, int bk, int width,
+                                 int groups, int causal, int window, int q_offset, int sk,
+                                 float scale, float softcap, void* stream) {
+  return launch<128, false>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
+                            groups, causal, window, q_offset, sk, scale, softcap,
+                            static_cast<cudaStream_t>(stream));
+}
+
 // The launch the instantiation for head_dim d gets at schedule width
 // `width`: out = {CTAs resident per SM, registers a thread, dynamic shared
 // bytes, local (spill) bytes a thread, warps a CTA}.
 extern "C" int flash_fwd_info(int d, int width, int* out) {
+  if (d == 64) return info<64, true>(width, out);
   if (d == 80) return info<80, true>(width, out);
   if (d == 128) return info<128, true>(width, out);
+  return info<128, false>(width, out);
+}
+
+extern "C" int flash_fwd_generic_info(int, int width, int* out) {
   return info<128, false>(width, out);
 }

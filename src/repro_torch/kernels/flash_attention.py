@@ -279,17 +279,19 @@ def grad_error_bound(g_plain, g_rnd, g_err) -> torch.Tensor:
 
 def bwd_unit_rows(kind: str, d: int) -> int:
     """Rows a K10 (``kind`` "dq": query rows) or K11 ("dkv": KV rows) unit
-    owns at head_dim d: one 16-row warp each, 8 warps for K10 at d = 80,
-    4 otherwise (csrc/flash_bwd.cu)."""
-    return 128 if kind == "dq" and d == 80 else BWD_ROWS
+    owns at head_dim d: one 16-row warp each, 8 warps for K10 at d = 64
+    and d = 80, 4 otherwise (csrc/flash_bwd.cu; the card tests hold these
+    to ``launch_info``)."""
+    return 128 if kind == "dq" and d in (64, 80) else BWD_ROWS
 
 
 def bwd_ctas_per_sm(kind: str, d: int) -> int:
-    """CTAs of K10 / K11 resident per SM at head_dim d: K10 2 (at d = 80
-    by its 128-register launch bound, else by shared memory), K11 3 at
-    d = 80 (its launch bound) and 2 at d = 128 and in the generic
-    instantiation (shared memory), as csrc/flash_bwd.cu builds them."""
-    return 3 if kind == "dkv" and d == 80 else 2
+    """CTAs of K10 / K11 resident per SM at head_dim d: K10 2 (at d = 64
+    and d = 80 by its 128-register launch bound, else by shared memory),
+    K11 3 at d = 64 and d = 80 (its launch bound) and 2 at d = 128 and in
+    the generic instantiation (shared memory), as csrc/flash_bwd.cu builds
+    them and ``launch_info`` reads them on the card."""
+    return 3 if kind == "dkv" and d in (64, 80) else 2
 
 
 def bwd_plan(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int,
@@ -486,9 +488,9 @@ def _check_cuda(what, q, k, v, idx, cnt, n_sched, bq, bk, kv_groups, rows=()):
         raise ValueError(f"{what}: q, k, v and do must be 16-byte aligned")
 
 
-def _entry(name: str, n_ptr: int, n_int: int):
+def _entry(name: str, n_ptr: int, n_int: int, generic: bool = False):
     lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
-    fn = getattr(lib, name)
+    fn = getattr(lib, name + ("_generic" if generic else ""))
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -512,11 +514,13 @@ def _on_device(what, q):
 
 def flash_fwd(q, k, v, kv_idx, kv_cnt, *, bq: int, bk: int, causal: bool,
               window: int, q_offset: int, sk: int, scale: float,
-              softcap: float, kv_groups: int):
+              softcap: float, kv_groups: int, generic: bool = False):
     """K9 on the padded layout: q (BH, Sqp, d), k/v (BH/G, Skp, d), kv_idx
     (Sqp/bq, width) / kv_cnt (Sqp/bq,) int32 on q's device ->
     (o (BH, Sqp, d) q.dtype, lse (BH, Sqp) f32).  CUDA tensors run the
-    kernel or raise; CPU tensors run the plain version."""
+    kernel or raise; CPU tensors run the plain version.  ``generic`` runs
+    the generic instantiation at any d (the yardstick of the d = 64, 80
+    and 128 ones)."""
     global launches
     kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=q_offset,
               sk=sk, scale=scale, softcap=softcap, kv_groups=kv_groups)
@@ -524,7 +528,7 @@ def flash_fwd(q, k, v, kv_idx, kv_cnt, *, bq: int, bk: int, causal: bool,
         return flash_attention_plain(q, k, v, kv_idx, kv_cnt, **kw)
     BH, Sqp, _ = q.shape
     _check_cuda("flash_fwd", q, k, v, kv_idx, kv_cnt, Sqp // bq, bq, bk, kv_groups)
-    lib, fn = _entry("flash_fwd", 7, 12)
+    lib, fn = _entry("flash_fwd", 7, 12, generic)
     o = torch.empty_like(q)
     lse = torch.empty(BH, Sqp, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -547,7 +551,8 @@ def _bwd_plan_for(kind, Sqp, Skp, d, n_rows, n_sm, bq, bk, causal, window, q_off
     """``bwd_plan`` on the schedule ``flash_attention`` builds for these
     shapes (Sq = sk - q_offset), memoized; (False, 1) where the shapes are
     not such a schedule's.  The plan only orders the work: any plan gives
-    the kernels' result (up to the order of f32 sums of a split)."""
+    the kernels' result (up to the order of f32 sums of a split).  d = 0
+    plans for the generic instantiation's units and CTAs."""
     Sq = sk - q_offset
     if Sq < 1 or -(-Sq // bq) * bq != Sqp or -(-sk // bk) * bk != Skp:
         return False, 1
@@ -560,11 +565,11 @@ def _bwd_plan_for(kind, Sqp, Skp, d, n_rows, n_sm, bq, bk, causal, window, q_off
                     slots=n_sm * bwd_ctas_per_sm(kind, d))
 
 
-def _bwd_launch(kind, q, k, idx, kw):
+def _bwd_launch(kind, q, k, idx, kw, generic=False):
     """n_split of one K10 / K11 launch (its plan) and the C entry's
     trailing arguments."""
     BH, Sqp, d = q.shape
-    pair, n_split = _bwd_plan_for(kind, Sqp, k.shape[1], d,
+    pair, n_split = _bwd_plan_for(kind, Sqp, k.shape[1], 0 if generic else d,
                                   BH if kind == "dq" else k.shape[0], _n_sm(q.device), **kw)
     args = _mask_args(q, k, idx, **kw)
     return n_split, args[:12] + (int(pair), int(n_split)) + args[12:]
@@ -572,11 +577,12 @@ def _bwd_launch(kind, q, k, idx, kw):
 
 def flash_dq(q, k, v, do, lse, delta, kv_idx, kv_cnt, *, bq: int, bk: int,
              causal: bool, window: int, q_offset: int, sk: int, scale: float,
-             softcap: float, kv_groups: int):
+             softcap: float, kv_groups: int, generic: bool = False):
     """K10 on the padded layout: dq (BH, Sqp, d) in q.dtype, walking the
     forward schedule ``kv_idx``/``kv_cnt`` as ``bwd_plan`` balances it.  do
     like q; lse and delta (BH, Sqp) f32.  CUDA tensors run the kernel or
-    raise; CPU tensors run the plain version."""
+    raise; CPU tensors run the plain version.  ``generic``: as
+    ``flash_fwd``'s."""
     global dq_launches
     kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=q_offset,
               sk=sk, scale=scale, softcap=softcap, kv_groups=kv_groups)
@@ -585,9 +591,9 @@ def flash_dq(q, k, v, do, lse, delta, kv_idx, kv_cnt, *, bq: int, bk: int,
         return flash_bwd_plain(q, k, v, do, lse, delta, blocks, **kw)[0]
     _check_cuda("flash_dq", q, k, v, kv_idx, kv_cnt, q.shape[1] // bq, bq, bk,
                 kv_groups, rows=(do, lse, delta))
-    lib, fn = _entry("flash_dq", 10, 14)
+    lib, fn = _entry("flash_dq", 10, 14, generic)
     BH, Sqp, d = q.shape
-    n_split, args = _bwd_launch("dq", q, k, kv_idx, kw)
+    n_split, args = _bwd_launch("dq", q, k, kv_idx, kw, generic)
     dq = torch.empty_like(q)
     part = (torch.empty(n_split, BH, Sqp, d, dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
@@ -603,11 +609,12 @@ def flash_dq(q, k, v, do, lse, delta, kv_idx, kv_cnt, *, bq: int, bk: int,
 
 def flash_dkv(q, k, v, do, lse, delta, q_idx, q_cnt, *, bq: int, bk: int,
               causal: bool, window: int, q_offset: int, sk: int, scale: float,
-              softcap: float, kv_groups: int):
+              softcap: float, kv_groups: int, generic: bool = False):
     """K11 on the padded layout: (dk, dv) (BH/G, Skp, d) in k's dtype,
     walking the transposed schedule ``q_idx``/``q_cnt`` as ``bwd_plan``
     balances it and summing each KV row's G query heads.  CUDA tensors run
-    the kernel or raise; CPU tensors run the plain version."""
+    the kernel or raise; CPU tensors run the plain version.  ``generic``:
+    as ``flash_fwd``'s."""
     global dkv_launches
     kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=q_offset,
               sk=sk, scale=scale, softcap=softcap, kv_groups=kv_groups)
@@ -616,9 +623,9 @@ def flash_dkv(q, k, v, do, lse, delta, q_idx, q_cnt, *, bq: int, bk: int,
         return flash_bwd_plain(q, k, v, do, lse, delta, blocks, **kw)[1:]
     _check_cuda("flash_dkv", q, k, v, q_idx, q_cnt, k.shape[1] // bk, bq, bk,
                 kv_groups, rows=(do, lse, delta))
-    lib, fn = _entry("flash_dkv", 12, 14)
+    lib, fn = _entry("flash_dkv", 12, 14, generic)
     BKV, Skp, d = k.shape
-    n_split, args = _bwd_launch("dkv", q, k, q_idx, kw)
+    n_split, args = _bwd_launch("dkv", q, k, q_idx, kw, generic)
     dkv = torch.empty(2, BKV, Skp, d, dtype=k.dtype, device=k.device)
     part = (torch.empty(2, n_split, BKV, Skp, d, dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
@@ -794,15 +801,16 @@ def merge_partials_plain(o_part, m_part, l_part):
     return o, lse
 
 
-def launch_info(kernel: str, d: int, width: int = 1) -> dict:
+def launch_info(kernel: str, d: int, width: int = 1, generic: bool = False) -> dict:
     """The launch a CUDA kernel gets at head_dim ``d`` (``kernel``
     "flash_fwd", "flash_dq" or "flash_dkv" at schedule width ``width``, or
     "flash_paged"): CTAs resident per SM, registers a thread, dynamic shared
     bytes, local (spill) bytes a thread and warps a CTA, from the CUDA
-    runtime.  Needs a card."""
+    runtime; ``generic``: the generic instantiation's (not K12's).  Needs a
+    card."""
     lib = _build.load("flash_bwd" if kernel in ("flash_dq", "flash_dkv") else kernel)
     out = (ctypes.c_int * 5)()
-    fn = getattr(lib, f"{kernel}_info")
+    fn = getattr(lib, f"{kernel}_generic_info" if generic else f"{kernel}_info")
     if kernel == "flash_paged":
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         args = (d, ctypes.addressof(out))

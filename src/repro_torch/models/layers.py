@@ -38,6 +38,9 @@ __all__ = [
     "dispatch_kw",
     "rmsnorm_init",
     "rmsnorm",
+    "conv1d_causal_init",
+    "conv1d_causal",
+    "conv1d_causal_step",
     "assert_total_dispatch",
 ]
 
@@ -204,6 +207,37 @@ def rmsnorm(p, x, eps: float = 1e-6):
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
+
+def conv1d_causal_init(gen: torch.Generator, d: int, width: int):
+    """Depthwise causal conv (the SSM's front conv); dense, as the
+    reference's: w (width, d) normal / sqrt(width), b zeros."""
+    w = torch.randn(width, d, generator=gen, device=gen.device) / np.sqrt(width)
+    return {"w": P(w), "b": P(torch.zeros(d, device=gen.device))}
+
+
+def conv1d_causal(p, x, compute_dtype=None):
+    """x (B, S, d) -> the depthwise causal conv along S, the reference's
+    sum of the K shifted products in tap order, plus the bias."""
+    dt = compute_dtype or x.dtype
+    w = p["w"].to(dt)
+    k, S = w.shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    y = pad[:, 0:S] * w[0]
+    for i in range(1, k):
+        y = y + pad[:, i:i + S] * w[i]
+    return y + p["b"].to(dt)
+
+
+def conv1d_causal_step(p, state, x_t, compute_dtype=None):
+    """One decode step: ``state`` (B, K-1, d) holds the last K-1 inputs,
+    x_t (B, d) -> (the new state, y (B, d)).  The window ``cat([state,
+    x_t])`` takes the wider of the two dtypes, as jnp's concatenate."""
+    dt = compute_dtype or x_t.dtype
+    w = p["w"].to(dt)
+    window = torch.cat([state, x_t[:, None, :].to(torch.promote_types(
+        state.dtype, x_t.dtype))], dim=1)  # (B, K, d)
+    y = (window * w).sum(1) + p["b"].to(dt)
+    return window[:, 1:, :], y
 
 
 def assert_total_dispatch(masks, consumed=None, *, kernel=None, where: str = "?",

@@ -3,9 +3,12 @@
 Port of the JAX package's ``models/model.py`` for training and serving the
 transformer family (h2o-danube-1.8b, mistral-large-123b), its MoE family
 (qwen2-moe-a2.7b: ``models/moe.py`` in place of the MLP, its expert banks
-through ``layers.grouped_linear``) and the xLSTM family (xlstm-1.3b:
+through ``layers.grouped_linear``), the xLSTM family (xlstm-1.3b:
 ``models/xlstm.py``, mLSTM and sLSTM blocks with recurrent per-slot states
-in place of KV caches; tied embeddings).  Every weight matmul goes
+in place of KV caches; tied embeddings) and the hybrid family (hymba-1.5b:
+``models/ssm.py``'s selective SSM beside the attention in every block,
+each normed and the two averaged; a KV cache and an SSM state per slot).
+Every weight matmul goes
 through ``layers.linear`` or ``grouped_linear`` (the block-sparse kernels
 under ``cfg.sparse.kernel='block_sparse'``, the masked kernels under
 ``kernel='masked'``, forward and backward), full-sequence
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as A
+from . import ssm as S
 from . import xlstm as X
 from .layers import (
     P,
@@ -69,7 +73,7 @@ def padded_vocab(cfg) -> int:
 
 def _check_ported(cfg) -> None:
     unported = {
-        "block_type": cfg.block_type not in ("transformer", "xlstm"),
+        "block_type": cfg.block_type not in ("transformer", "xlstm", "hymba"),
         "frontend": cfg.frontend != "none",
         "parallel_block": cfg.parallel_block,
         "post_norms": cfg.post_norms,
@@ -81,7 +85,7 @@ def _check_ported(cfg) -> None:
     if bad:
         raise NotImplementedError(
             f"config {cfg.name!r}: {', '.join(bad)} not ported yet (the port "
-            "runs the causal transformer, its MoE variant and xLSTM)"
+            "runs the causal transformer, its MoE variant, xLSTM and hymba)"
         )
 
 
@@ -91,8 +95,9 @@ def init_lm(cfg, seed: int = 0, *, device=None):
     ``init_lm``; the draws are torch's, not ``jax.random``'s.  An MoE
     config's layers hold ``moe`` (``models/moe.py``) in place of ``mlp``;
     an xLSTM config's hold ``ln1`` and an ``mlstm`` or (every
-    ``cfg.slstm_every``-th) an ``slstm`` block.  Tied embeddings: no
-    ``head`` leaf."""
+    ``cfg.slstm_every``-th) an ``slstm`` block; a hymba config's hold
+    ``ssm``, ``attn_norm`` and ``ssm_norm`` beside the attention.  Tied
+    embeddings: no ``head`` leaf."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -108,8 +113,11 @@ def init_lm(cfg, seed: int = 0, *, device=None):
             if cfg.is_slstm(i):
                 return {"ln1": rmsnorm_init(d, dev), "slstm": X.slstm_init(gen, cfg)}
             return {"ln1": rmsnorm_init(d, dev), "mlstm": X.mlstm_init(gen, cfg)}
-        return {"ln1": rmsnorm_init(d, dev), "attn": A.attn_init(gen, cfg),
-                "ln2": rmsnorm_init(d, dev), **ff()}
+        mixer = {"ln1": rmsnorm_init(d, dev), "attn": A.attn_init(gen, cfg)}
+        if cfg.block_type == "hymba":
+            mixer.update(ssm=S.ssm_init(gen, cfg), attn_norm=rmsnorm_init(d, dev),
+                         ssm_norm=rmsnorm_init(d, dev))
+        return {**mixer, "ln2": rmsnorm_init(d, dev), **ff()}
 
     tree = {
         "embed": {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))},
@@ -127,8 +135,8 @@ def serving_weights(params, cfg):
     every call (``layers.linear``, the embedding gather); casting once gives
     the same bits without re-reading f32 weights on every decode step.  The
     MLP weights (an MoE's banks, router and shared MLP too), the xLSTM
-    blocks, norm scales and the LM head stay f32: the reference computes
-    them in the f32 residual's dtype.  A tied table stays f32 too: the head
+    blocks, hymba's SSM, norm scales and the LM head stay f32: the
+    reference computes them in the f32 residual's dtype.  A tied table stays f32 too: the head
     reads it in h's dtype (the gather casts its rows)."""
     dt = compute_dtype(cfg)
     out = dict(params)
@@ -177,10 +185,18 @@ def _ff(p, x, cfg, masks, pack, active=None):
                pack=_sub(pack, "mlp")), 0.0
 
 
+def _hymba_mix(p, attn_out, ssm_out, cfg):
+    """Hymba's two heads, each normed, averaged (bf16 attention plus the
+    f32 SSM promotes to f32, as in the reference)."""
+    return 0.5 * (rmsnorm(p["attn_norm"], attn_out, cfg.norm_eps)
+                  + rmsnorm(p["ssm_norm"], ssm_out, cfg.norm_eps))
+
+
 def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
            history=None):
     """Full-sequence block (prefill).  Returns (x, state, aux): the state is
-    (k, v), or an xLSTM block's final recurrent state; aux is the MoE's
+    (k, v), an xLSTM block's final recurrent state, or a hymba block's
+    ((k, v), the SSM's final h, its pre-conv inputs u); aux is the MoE's
     load-balancing loss (0.0 without experts).  ``history``: this layer's
     paged-prefix dict for a suffix prefill (``attention(history=)``)."""
     if cfg.block_type == "xlstm":
@@ -196,9 +212,17 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
         p["attn"], h, cfg, kind=kind, positions=positions,
         masks=_sub(masks, "attn"), pack=_sub(pack, "attn"), history=history,
     )
+    state = kv
+    if cfg.block_type == "hymba":
+        # the same h feeds both heads
+        ssm_out, ssm_h, u = S.ssm(p["ssm"], h, cfg, chunk=cfg.q_chunk,
+                                  masks=_sub(masks, "ssm"), pack=_sub(pack, "ssm"),
+                                  with_u=True)
+        attn_out = _hymba_mix(p, attn_out, ssm_out, cfg)
+        state = (kv, ssm_h, u)
     x = x + attn_out
     ff_out, aux = _ff(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, masks, pack)
-    return x + ff_out, kv, aux
+    return x + ff_out, state, aux
 
 
 def _logits(params, cfg, h):
@@ -219,7 +243,7 @@ def _logits(params, cfg, h):
 def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
                collect_states: bool = True, histories=None):
     """Full-sequence forward -> (hidden (B, S, d), per-layer states, aux):
-    a state is (k, v) or an xLSTM block's final recurrent state; aux sums
+    a state is ``_block``'s (k, v), xLSTM or hymba state; aux sums
     the MoE layers' load-balancing losses (0.0 without experts).
 
     Without ``collect_states`` (the loss) and with ``cfg.remat`` under
@@ -300,16 +324,25 @@ def lm_loss(params, cfg, batch, masks=None, pack=None):
 
 def init_caches(cfg, batch: int, max_len: int, device):
     """Per-layer KV caches in the compute dtype; an xLSTM config's layers
-    hold their f32 recurrent states instead (no positional axis)."""
+    hold their f32 recurrent states instead (no positional axis), a hymba
+    config's both a KV cache and an SSM state (``ssm.init_ssm_state``)."""
     if cfg.block_type == "xlstm":
         init = {"slstm": X.init_slstm_state, "mlstm": X.init_mlstm_state}
         return [{k: init[k](cfg, batch, device)}
                 for k in (_state_key(cfg, i) for i in range(cfg.n_layers))]
     dt = compute_dtype(cfg)
     return [
-        {"kv": A.init_kv_cache(cfg, cfg.layer_kind(i), batch, max_len, dt, device)}
+        {"kv": A.init_kv_cache(cfg, cfg.layer_kind(i), batch, max_len, dt, device),
+         **_ssm_cache(cfg, batch, device)}
         for i in range(cfg.n_layers)
     ]
+
+
+def _ssm_cache(cfg, batch: int, device) -> dict:
+    """A hymba layer's slot-batched SSM state beside its KV ({} else)."""
+    if cfg.block_type != "hymba":
+        return {}
+    return {"ssm": S.init_ssm_state(cfg, batch, device)}
 
 
 def cache_group(cfg, i: int) -> str:
@@ -324,14 +357,15 @@ def init_paged_caches(cfg, n_blocks: dict, page_size: int, device, *,
     """Paged ``init_caches``: each layer's KV leaves are a page pool of
     ``n_blocks[cache_group(cfg, i)]`` pages (``attention.init_kv_pool``);
     the serving engine owns the tables.  Recurrent per-slot states (an
-    xLSTM config's) have no positional axis to page: they stay
-    slot-batched at ``batch`` rows, as in ``init_caches``."""
+    xLSTM config's, a hymba config's SSM) have no positional axis to page:
+    they stay slot-batched at ``batch`` rows, as in ``init_caches``."""
     if cfg.block_type == "xlstm":
         return init_caches(cfg, batch, 0, device)
     dt = compute_dtype(cfg)
     return [
         {"kv": A.init_kv_pool(cfg, n_blocks[cache_group(cfg, i)], page_size,
-                              dt, device)}
+                              dt, device),
+         **_ssm_cache(cfg, batch, device)}
         for i in range(cfg.n_layers)
     ]
 
@@ -343,17 +377,33 @@ def lm_prefill(params, cfg, batch, max_len: int, *, masks=None, pack=None,
     ``n_valid``: positions >= n_valid are end padding (the engine buckets
     prompt lengths): their K/V writes are dropped and the logits come from
     position n_valid - 1.  Exact for causal attention stacks, not for the
-    recurrent xLSTM states (they would integrate the pad steps: the engine
-    prefills those at the exact length).
+    recurrent xLSTM and SSM states (they would integrate the pad steps: the
+    engine prefills those at the exact length).
+
+    A hymba layer's SSM state takes the scan's final h and, as the conv
+    state, the last 3 pre-conv inputs u, rounded to the compute dtype as
+    the reference's cache rounds them.  The reference recomputes
+    ``in_proj`` on the prompt for these rows; they are the rows of the same
+    product the SSM already ran, so the port takes them from it.  A hymba
+    prompt needs at least 3 tokens (the conv state's rows).
     """
+    last = batch["tokens"].shape[1] if n_valid is None else n_valid
+    if cfg.block_type == "hymba" and last < S.CONV_WIDTH - 1:
+        raise ValueError(
+            f"lm_prefill: a hymba prompt needs at least {S.CONV_WIDTH - 1} tokens "
+            f"(the SSM's conv state holds the last {S.CONV_WIDTH - 1} inputs; got {last})")
     h, states, _ = lm_forward(params, cfg, batch, masks=masks, pack=pack)
     if cfg.block_type == "xlstm":
         caches = [{_state_key(cfg, i): st} for i, st in enumerate(states)]
     else:
         caches = init_caches(cfg, h.shape[0], max_len, h.device)
-        for c, (k, v) in zip(caches, states):
-            A.fill_kv_cache(c["kv"], k, v, 0, n_valid=n_valid)
-    last = h.shape[1] if n_valid is None else n_valid
+        for c, st in zip(caches, states):
+            if cfg.block_type == "hymba":
+                st, ssm_h, u = st
+                c["ssm"]["h"].copy_(ssm_h)
+                c["ssm"]["conv"].copy_(u[:, last - S.CONV_WIDTH + 1:last].to(
+                    compute_dtype(cfg)))
+            A.fill_kv_cache(c["kv"], *st, 0, n_valid=n_valid)
     return _logits(params, cfg, h[:, last - 1:last]), caches
 
 
@@ -369,8 +419,8 @@ def lm_prefill_into(params, cfg, caches, batch, slot: int, max_len: int, *,
     (``init_paged_caches``): the same B=1 prefill, then its row scatters
     page by page through the group's table (``attention.fill_kv_pool``),
     which is what makes paged admission token-identical to contiguous.
-    An xLSTM config's recurrent state rows are written at ``slot`` in
-    either layout."""
+    An xLSTM config's recurrent state rows, and a hymba config's SSM rows,
+    are written at ``slot`` in either layout."""
     logits, row = lm_prefill(params, cfg, batch, max_len, masks=masks,
                              pack=pack, n_valid=n_valid)
     if cfg.block_type == "xlstm":
@@ -380,6 +430,8 @@ def lm_prefill_into(params, cfg, caches, batch, slot: int, max_len: int, *,
                 leaf[slot] = r[key][name][0]
         return logits, caches
     for i, (c, r) in enumerate(zip(caches, row)):
+        for name, leaf in c.get("ssm", {}).items():
+            leaf[slot] = r["ssm"][name][0]
         if tables is not None:
             A.fill_kv_pool(c["kv"], r["kv"], tables[cache_group(cfg, i)])
             continue
@@ -449,8 +501,8 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
     ``tables`` ({group: (B, T_g) int32} on the device) switches to the
     paged layout (``attention.attn_decode(table=)``).  An xLSTM config's
     layers step their recurrent states (``pos`` and ``tables`` unused),
-    inactive rows frozen.  Returns (logits (B, 1, V), caches updated in
-    place)."""
+    a hymba config's their SSM states beside the KV; inactive rows frozen.
+    Returns (logits (B, 1, V), caches updated in place)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
     for i, (p, m, pk, c) in enumerate(zip(
@@ -470,6 +522,11 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
             masks=_sub(m, "attn"), pack=_sub(pk, "attn"), active=active,
             table=None if tables is None else tables[cache_group(cfg, i)],
         )
+        if cfg.block_type == "hymba":
+            ssm_out, new = S.ssm_decode(p["ssm"], h, c["ssm"], cfg,
+                                        masks=_sub(m, "ssm"), pack=_sub(pk, "ssm"))
+            _gate_rows(active, new, c["ssm"])
+            attn_out = _hymba_mix(p, attn_out, ssm_out, cfg)
         x = x + attn_out
         x = x + _ff(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, m, pk, active)[0]
     return _logits(params, cfg, rmsnorm(params["ln_f"], x, cfg.norm_eps)), caches

@@ -10,8 +10,8 @@ Port of the JAX package's ``serving/engine.py``:
     into the slot row (``lm_prefill_into``); prompt lengths pad to the next
     power of two (the reference's trace buckets: the same padded shapes, so
     the same flash schedules and row tiles), except under an MoE config
-    (pad tokens would take expert capacity) and an xLSTM config (its
-    recurrent states would integrate the pad steps), which prefill at the
+    (pad tokens would take expert capacity) and an xLSTM or hymba config
+    (their recurrent states would integrate the pad steps), which prefill at the
     exact prompt length; the prefill logits give the request's first token, so a
     gen-N request costs N-1 decode steps;
   * all active slots step together in ONE ``lm_decode`` with per-slot
@@ -34,7 +34,9 @@ Port of the JAX package's ``serving/engine.py``:
     paged flash kernel K12 over the prefix).  All-global causal
     transformer configs without experts only, as in the reference.  An
     xLSTM config has no KV to page: its paged engine has no pool, and its
-    recurrent states stay slot-batched.
+    recurrent states stay slot-batched.  A hymba config pages its KV (a
+    local ring pool and a global pool) and keeps its SSM states
+    slot-batched beside them.
 
 The slot state (tokens, positions, active mask, sampling keys and
 parameters) and the block tables have device copies that advance on the
@@ -68,6 +70,7 @@ import numpy as np
 import torch
 
 from ..core.pack import publish_pack_gauges, validate_pack
+from ..models.ssm import CONV_WIDTH
 from ..models.model import (
     cache_group,
     init_caches,
@@ -186,7 +189,8 @@ class ServeEngine:
         self.prefix_cache = prefix_cache
         # prompt-length bucketing is exact only where end padding cannot
         # leak into state: MoE routing would let pad tokens take expert
-        # capacity and xLSTM's recurrent states would integrate pad steps,
+        # capacity and xLSTM's and hymba's recurrent states would
+        # integrate pad steps,
         # so those configs prefill at the exact prompt length
         self._pad_prompts = cfg.block_type == "transformer" and not cfg.n_experts
         # sharing replays nothing: every layer's cache must be plain
@@ -362,8 +366,8 @@ class ServeEngine:
 
     def submit(self, req: Request) -> bool:
         """Enqueue; False (request SHED) when the queue is full.  Invalid
-        requests (oversize, more pages than the global pool, patches)
-        raise."""
+        requests (oversize, more pages than the global pool, patches, a
+        hymba prompt under 3 tokens) raise."""
         need = req.prompt_len + req.max_new_tokens
         if need > self.max_len:
             raise ValueError(
@@ -382,6 +386,11 @@ class ServeEngine:
                 )
         if req.patches is not None:
             raise _not_ported("patch prompts")
+        if self.cfg.block_type == "hymba" and req.prompt_len < CONV_WIDTH - 1:
+            # the SSM's conv state holds the prompt's last 3 inputs
+            raise ValueError(
+                f"request {req.rid}: a hymba prompt needs at least "
+                f"{CONV_WIDTH - 1} tokens (got {req.prompt_len})")
         if req.ttl is None:
             req.ttl = self.deadline
         ok = self.queue.submit(req)

@@ -48,8 +48,11 @@ def _cuda():
     return torch.device("cuda")
 
 
+# (M, K, N, block); the last two hymba-1.5b's wk at a 200-token prompt and
+# out_proj at a decode step's 16 rows, in its 64 x 64 blocks
 BS_SHAPES = [(4, 256, 384, 128), (200, 512, 256, 128), (16, 96, 64, 16),
-             (40, 64, 160, 32)]
+             (40, 64, 160, 32),
+             (200, 1600, 320, 64), (16, 3200, 1600, 64)]
 
 
 def _bs_problem(shape, seed=5):
@@ -2385,11 +2388,11 @@ def test_cuda_flash_backward_edges_match_plain(case, plan, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_cuda_flash_backward_has_no_spill(d):
-    """K10 and K11 at danube's d = 80 and qwen2-moe's d = 128 spill no
-    registers (a spill is a defect of the design) and get the warps and
-    the CTAs per SM their design and the plan count on
+    """K10 and K11 at hymba's d = 64, danube's d = 80 and qwen2-moe's
+    d = 128 spill no registers (a spill is a defect of the design) and get
+    the warps and the CTAs per SM their design and the plan count on
     (``tfa.bwd_unit_rows``, ``tfa.bwd_ctas_per_sm``)."""
     _cuda()
     for kind in ("dq", "dkv"):
@@ -2953,3 +2956,123 @@ def test_cuda_xlstm_training_step_runs_the_recurrent_bank(kernel):
     proj = 5 * (cfg.n_layers - n_s) + 2 * n_s
     assert tuple(a - b for a, b in zip(counts(), c0)) == (
         proj, proj, proj, S * n_s, (S - 1) * n_s, S * n_s)
+
+
+# hymba-1.5b's attention: 5 query heads a KV head, head_dim 64; a local
+# layer's window and a global layer, at ragged lengths
+HYMBA_FLASH = {"window G=5": (600, 256), "global G=5": (520, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HYMBA_FLASH))
+def test_cuda_flash_d64_matches_plain(case):
+    """K9, K10 and K11 at d = 64 (10 query heads over 2 KV heads) against
+    their plain versions, element by element within ``o_error_bound`` and
+    ``grad_error_bound``, on their exact d = 64 instantiations (8 warps for
+    K9 and K10, no spill); the generic instantiation gives the same within
+    the same bounds."""
+    dev = _cuda()
+    S, window = HYMBA_FLASH[case]
+    G, d, BH = 5, 64, 10
+    assert tfa.launch_info("flash_fwd", d)["warps"] == 8
+    assert tfa.launch_info("flash_fwd", d, generic=True)["warps"] == 4
+    rng = np.random.default_rng(13)
+    r = lambda n: torch.from_numpy(rng.standard_normal((n, S, d)).astype(np.float32)).to(
+        torch.bfloat16)
+    q, k, v, do = r(BH), r(BH // G), r(BH // G), r(BH)
+    bq, bk = tfa.effective_blocks(S, S)
+    Sp = -(-S // bq) * bq
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, Sp - t.shape[1]))
+    q, k, v, do = pad(q), pad(k), pad(v), pad(do)
+    sched = tfa._schedule_on(torch.device("cpu"), S, S, bq, bk, True, window, 0)
+    kw = dict(bq=bq, bk=bk, causal=True, window=window, q_offset=0, sk=S,
+              scale=d ** -0.5, softcap=0.0, kv_groups=G)
+    po, plse = tfa.flash_fwd(q, k, v, sched[0], sched[1], **kw)
+    pa, _ = tfa.flash_fwd(q, k, v.abs(), sched[0], sched[1], **kw)
+    delta = (do.float() * po.float()).sum(-1)
+    blocks = tfa._schedule_mask(sched[0], sched[1], Sp // bk, "cpu")
+    *want, dq_a, dk_a, dv_a, dq_e, dk_e, dv_e = tfa.flash_bwd_plain(
+        q, k, v, do, plse, delta, blocks, with_abs=True, **kw)
+    on = lambda *ts: [t.to(dev) for t in ts]
+    for generic in (False, True):
+        o, lse = tfa.flash_fwd(*on(q, k, v, sched[0], sched[1]), generic=generic, **kw)
+        assert bool(((o.float().cpu() - po.float()).abs() <= tfa.o_error_bound(po, pa)).all())
+        assert (lse.cpu() - plse).abs().max().item() <= 1e-3
+        args = on(q, k, v, do, plse, delta)
+        dq = tfa.flash_dq(*args, *on(sched[0], sched[1]), generic=generic, **kw)
+        dk, dv = tfa.flash_dkv(*args, *on(sched[2], sched[3]), generic=generic, **kw)
+        for name, got, w_, a, e in (("dq", dq, want[0], dq_a, dq_e),
+                                    ("dk", dk, want[1], dk_a, dk_e),
+                                    ("dv", dv, want[2], dv_a, dv_e)):
+            diff = (got.float().cpu() - w_.float()).abs()
+            assert bool((diff <= tfa.grad_error_bound(w_, a, e)).all()), (name, generic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse", "masked"])
+def test_cuda_hymba_prefill_decode_and_training_step(kernel):
+    """hymba SMOKE on the card (block 16, flash_tight): a prefill and two
+    decode steps with slot 0 parked (its SSM state bit for bit unchanged;
+    the logits within 5e-3 of the CPU's plain path on the same weights), 9
+    K1 (K13) launches a layer a call; then a RigL train step (Top-KAST
+    superset, one microbatch, no remat): a finite loss, 9 forward, dgrad
+    and wgrad launches a layer and one K9, K10 and K11 a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel, init_serving_state
+    from repro_torch.models import model as tm
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state, make_train_step
+
+    dev = _cuda()
+    cfg = configure_kernel(get_config("hymba-1.5b", smoke=True), kernel=kernel, block=16,
+                           attn_kernel="flash_tight")
+    cfg = dataclasses.replace(cfg, microbatches=1, remat=False,
+                              sparse=dataclasses.replace(cfg.sparse, method="rigl",
+                                                         kernel_block=(128, 16, 16)))
+    mod = tbsm if kernel == "block_sparse" else tmm
+    params, masks, pack = init_serving_state(cfg, seed=0, device="cpu")
+    def to(t):
+        if isinstance(t, dict):
+            return {k: to(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to(v) for v in t]
+        return t.to(dev) if torch.is_tensor(t) else t
+
+    sides = {"cpu": (torch.device("cpu"), tm.serving_weights(params, cfg), masks, pack),
+             "cuda": (dev, tm.serving_weights(to(params), cfg), to(masks), to(pack))}
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 20))).long()
+    out = {}
+    for side, (on, w, m, pk) in sides.items():
+        n0 = mod.launches
+        logits, caches = tm.lm_prefill(w, cfg, {"tokens": toks.to(on)}, 32, masks=m, pack=pk)
+        if side == "cuda":
+            assert mod.launches - n0 == 9 * cfg.n_layers
+        steps = [logits[:, -1]]
+        active = torch.tensor([False, True], device=on)
+        parked = [{k: v[0].clone() for k, v in c["ssm"].items()} for c in caches]
+        for t in range(2):
+            tok = steps[-1].argmax(-1)[:, None]
+            lg, caches = tm.lm_decode(w, cfg, caches, tok, torch.full((2,), 20 + t, device=on),
+                                      masks=m, pack=pk, active=active)
+            steps.append(lg[:, -1])
+        for c, b in zip(caches, parked):
+            assert all(torch.equal(c["ssm"][k][0], v) for k, v in b.items())
+        out[side] = [s_.float().cpu() for s_ in steps]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a[1] - b[1]).abs().max().item() <= 5e-3 * b[1].abs().max().item()
+    opt = OptConfig(kind="adam", weight_decay=0.0, grad_clip=1.0)
+    st, _ = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, opt, LRSchedule(kind="constant", base_lr=1e-3,
+                                                warmup_steps=0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), device=dev)
+    counts = lambda: (mod.launches, mod.dx_launches, mod.dw_launches, tfa.launches,
+                      tfa.dq_launches, tfa.dkv_launches)
+    c0 = counts()
+    st, met = step(st, {"tokens": tok, "targets": tok.roll(-1, 1)})
+    assert np.isfinite(float(met["loss"]))
+    n = cfg.n_layers
+    assert tuple(a - b for a, b in zip(counts(), c0)) == (9 * n, 9 * n, 9 * n, n, n, n)

@@ -284,7 +284,45 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and their merges in every step, the profiled step on the
                 exact d = 64 flash kernels alone, counts kept, B ⊇ A and the
                 pack fresh; step s, tok/s, peak GiB, the busy share
- 26. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 26. flash d = 256 -- K9, K10 and K11 at gemma3-4b's attention (8 heads
+                over 4, G = 2, head_dim 256, bf16, S = 2048, window 1024
+                and global) on their exact d = 256 instantiations against
+                their plain versions, timed beside
+                scaled_dot_product_attention (forward, backward) and the
+                bound; each launch's CTAs an SM, registers, shared and
+                spill bytes (no spill)
+ 27. gemma3 serve -- gemma3-4b at full width and depth (34 layers, ~3.9 B
+                parameters: qk-norm, sandwich norms, GeGLU, 5 local
+                (window 1024) to 1 global, tied; ERK 0.8, seed 0) through
+                the paged engine (a local ring pool and a global pool),
+                block_sparse (128x128) and masked on one init's weights: 3
+                requests (prompts 300/1400, 16 tokens; 1400 wraps the
+                rings), every request DONE, clean pool books; exactly 238
+                K1 (K13) a prefill and a decode step and the planned
+                merges, 34 K9 a prompt, a profiled prefill on the exact
+                d = 256 K9 alone; every greedy token equal to the plain
+                dense path's; prefill ms, the decode step's host and device
+                ms
+ 28. gemma3 train -- 6 of 34 layers at full width (one 5:1 period), RigL
+                with the superset, Adam, 1 x 2048 tokens, 4 steps, a
+                drop/grow at step 2, in both modes: the step-0 loss and the
+                gradients of wi, wq, a qk-norm and a post-norm scale and the
+                tied table against the plain dense path; the exact launches
+                of K1-K3 (K13-K15), K9-K11 and their merges in every step,
+                the profiled step on the d = 256 flash kernels alone
+ 29. command-r serve -- command-r-plus-104b at full width, 4 of 64
+                layers (parallel blocks, the tied 256000-row table),
+                block_sparse, as phase 11 serves mistral-large: the prefix
+                cache (K12 at d = 128) and 2 sampled requests, exact K12
+                counts, suffix against full prefill logits, paged against
+                contiguous streams, and the greedy streams equal to the
+                plain dense path's; K1 on layer 0's served packs
+ 30. command-r train -- 1 of 64 layers at full width, block_sparse, SGD
+                with momentum (bf16 state), 1 x 512 tokens, 3 steps: the
+                step-0 loss and gradients of wi, wq and ln1 against the
+                plain dense path; the exact launches a step, the profiled
+                step on the d = 128 flash kernels alone; peak GiB
+ 31. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -2519,9 +2557,11 @@ def k12_cases(torch, timer, fa):
     return out
 
 
-def paged_serve(torch, timer, bsm, fa):
+def paged_serve(torch, timer, bsm, fa, cfg=None, label="paged serve", of=88):
     """Serve mistral-large-123b (4 layers, full width, block_sparse,
-    flash_tight, ERK 0.8, seed 0) through the paged engine with the prefix
+    flash_tight, ERK 0.8, seed 0), or ``cfg`` (command-r-plus-104b: phase
+    "command-r serve", which also holds the greedy streams to the plain
+    dense path's) through the paged engine with the prefix
     cache: 8 requests on one 512-token template, 2 of them sampled; every
     request DONE with 32 tokens, 1 prefix miss and 7 hits, the pool books
     clean, exactly 28 K12 launches (7 suffix prefills x 4 layers), K9 and
@@ -2540,7 +2580,8 @@ def paged_serve(torch, timer, bsm, fa):
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.queue import Status
 
-    cfg = paged_config()
+    dense_check = cfg is not None
+    cfg = cfg or paged_config()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, masks, pack = init_serving_state(cfg, seed=0, device="cuda")
@@ -2548,10 +2589,11 @@ def paged_serve(torch, timer, bsm, fa):
     engine = ServeEngine(cfg, params, prefix_cache=4, **kw)
     del params
     torch.cuda.synchronize()
-    print(f"paged serve: mistral-large-123b ({cfg.n_layers} of 88 layers, d_model "
+    print(f"{label}: {cfg.name} ({cfg.n_layers} of {of} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}) "
           f"initialised in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     params = engine.params
     # warm-up on another template (a miss and a hit), before the counted run
     for r in prefix_requests(cfg, 2, gen=2, seed=1, sampled=(1,)):
@@ -2571,7 +2613,7 @@ def paged_serve(torch, timer, bsm, fa):
     stats["full_prefill_ms"] = 1e3 * (stats["prefill_s"] - stats["suffix_prefill_s"]) / max(n_full, 1)
     stats["suffix_prefill_ms"] = 1e3 * stats["suffix_prefill_s"] / max(stats["suffix_prefills"], 1)
     stats["decode_step_ms"] = 1e3 * stats["decode_step_s"]
-    print("paged serve: engine", json.dumps({k: stats[k] for k in (
+    print(f"{label}: engine", json.dumps({k: stats[k] for k in (
         "requests", "tokens", "decode_steps", "prefills", "suffix_prefills",
         "prefix_hits", "prefix_misses", "kv_forks", "pages_live", "quarantined",
         "failed", "wall_s", "tok_per_s")}))
@@ -2613,7 +2655,7 @@ def paged_serve(torch, timer, bsm, fa):
         raise AssertionError("suffix logits not finite, of the wrong shape, or K12 not run")
     err, tol = (a - b).abs().max().item(), 2e-2 * b.abs().max().item()
     stats["suffix_vs_full_logit_err"], stats["suffix_vs_full_logit_tol"] = err, tol
-    print(f"paged serve: suffix vs full prefill logits: max err {err:.4g} (tol "
+    print(f"{label}: suffix vs full prefill logits: max err {err:.4g} (tol "
           f"{tol:.4g}); top-1 {int(a.argmax())} vs {int(b.argmax())}")
     if err > tol:
         raise AssertionError("suffix prefill logits differ from the full prefill")
@@ -2636,21 +2678,38 @@ def paged_serve(torch, timer, bsm, fa):
     stats["sampled_streams_identical"] = all(same[i] for i in range(len(reqs)) if i not in greedy)
     stats["prefix_vs_no_prefix_identical"] = [
         reqs[i].generated == streams["paged"][i].generated for i in range(len(reqs))]
-    print(f"paged serve: paged vs contiguous engine, greedy streams identical "
+    print(f"{label}: paged vs contiguous engine, greedy streams identical "
           f"{stats['greedy_streams_identical']}, sampled "
           f"{stats['sampled_streams_identical']}; prefix-cache vs paged streams "
           f"identical {stats['prefix_vs_no_prefix_identical']}")
     if not stats["greedy_streams_identical"]:
         raise AssertionError("paged greedy streams differ from the contiguous engine's")
+    if dense_check:
+        # the plain dense path (kernel='dense', attn_kernel='dense') on the
+        # same weights, with the prefix cache: the greedy streams
+        dense = dataclasses.replace(cfg, sparse=dataclasses.replace(
+            cfg.sparse, kernel="dense", attn_kernel="dense"))
+        deng = ServeEngine(dense, params, prefix_cache=4, **PAGED_ENGINE)
+        drs = prefix_requests(cfg)
+        for r in drs:
+            deng.submit(r)
+        deng.run()
+        del deng
+        stats["greedy_streams_equal_dense"] = [reqs[i].generated == drs[i].generated
+                                               for i in greedy]
+        print(f"{label}: vs the plain dense path: greedy streams equal "
+              f"{stats['greedy_streams_equal_dense']}")
+        if not all(stats["greedy_streams_equal_dense"]):
+            raise AssertionError(f"{label}: greedy streams differ from the dense path's")
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode,
-                                                      "paged serve")
+                                                      label)
     k1_ms, n_calls, n_merges = k1_decode_ms(torch, bsm, engine)
     stats["k1_decode_step_ms"], stats["k1_decode_step_merges"] = k1_ms, n_merges
-    print(f"paged serve: K1 in one decode step: {n_calls} launches and {n_merges} split "
+    print(f"{label}: K1 in one decode step: {n_calls} launches and {n_merges} split "
           f"merges, {k1_ms:.3f} ms device time (CUDA-graph replay), "
           f"{k1_ms / stats['decode_step_device_ms']:.1%} of the step's device time")
-    print(f"paged serve: prefill {stats['full_prefill_ms']:.2f} ms per full and "
+    print(f"{label}: prefill {stats['full_prefill_ms']:.2f} ms per full and "
           f"{stats['suffix_prefill_ms']:.2f} ms per suffix admission, decode "
           f"{stats['decode_step_ms']:.2f} ms/step (capacity 4), "
           f"{stats['tok_per_s']:.2f} tok/s end to end, peak {stats['peak_gib']:.1f} GiB; "
@@ -5314,6 +5373,10 @@ HYMBA_GRAD_LEAVES = ("layers/0/ssm/in_proj/w", "layers/1/ssm/out_proj/w", "layer
                      "layers/1/ssm/w_dt/w", "layers/0/ssm/a_log", "embed/table")
 HYMBA_FLASH = ("flash_fwd_kernel<64, true>", "flash_dq_kernel<64, true>",
                "flash_dkv_kernel<64, true>")
+HYMBA_TRAIN = dict(label="hymba train", config=lambda k, n: hymba_config(k, n),
+                   layers=HYMBA_TRAIN_LAYERS, of=32, proj=HYMBA_PROJ, steps=HYMBA_TRAIN_STEPS,
+                   batch=HYMBA_TRAIN_BATCH, seq=HYMBA_TRAIN_SEQ, grads=HYMBA_GRAD_LEAVES,
+                   flash=HYMBA_FLASH, cases=HYMBA_CASES, update=True, opt=None)
 
 
 def hymba_config(kernel, n_layers=None):
@@ -5509,7 +5572,14 @@ def hymba_serve(torch, timer, bsm, mm, fa, kernel):
 
 
 def hymba_train(torch, timer, bsm, mm, fa, kernel):
-    """Train hymba-1.5b at full width, 4 of 32 layers (layer 0 global,
+    """Phase "hymba train": ``model_train`` on ``HYMBA_TRAIN``."""
+    return model_train(torch, timer, bsm, mm, fa, kernel, HYMBA_TRAIN)
+
+
+def model_train(torch, timer, bsm, mm, fa, kernel, spec):
+    """Train a model at full width and ``spec``'s depth under ``kernel``,
+    as the hymba phase does (``spec``: the same keys for gemma3 and
+    command-r).  Hymba: train hymba-1.5b at full width, 4 of 32 layers (layer 0 global,
     1-3 local; ~285 M parameters with the tied table), ERK 0.8, RigL with
     the Top-KAST superset (Δ = 10%), Adam, warmup-cosine, seed 0, under
     ``kernel`` (block_sparse in 64x64 blocks, or masked), 1 x 2048 tokens
@@ -5525,7 +5595,10 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
     kept, B ⊇ A and the pack (carrier) fresh.  Reports step s, tok/s, peak
     GiB, the profiled step's busy share.  Under block_sparse first K2 and
     K3 on layer 0's packs and supersets at ``HYMBA_CASES``' projections
-    (``bs_bwd_cases``): returns (stats, launches, its cases or None)."""
+    (``bs_bwd_cases``): returns (stats, launches, its cases or None).
+    ``spec`` without ``cases`` runs no K2/K3 cases; with ``update`` False
+    the run makes no drop/grow (its checks are left out); ``opt`` is the
+    run's optimizer (``train_loop``'s default Adam when None)."""
     from repro_torch.core.masks import block_mask_of, tree_paths
     from repro_torch.core.pack import pack_entries, pack_mismatch, pack_np, validate_pack
     from repro_torch.launch.train import train_loop
@@ -5533,15 +5606,18 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
     from repro_torch.training.steps import init_train_state
 
     bs = kernel == "block_sparse"
-    label = f"hymba train {kernel}"
-    cfg = hymba_config(kernel, HYMBA_TRAIN_LAYERS)
-    steps, batch, S = HYMBA_TRAIN_STEPS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ
+    label = f"{spec['label']} {kernel}"
+    cfg = spec["config"](kernel, spec["layers"])
+    if not spec["update"]:  # no drop/grow within the run
+        cfg = dataclasses.replace(cfg, sparse=dataclasses.replace(cfg.sparse,
+                                                                  delta_t=10 * spec["steps"]))
+    steps, batch, S = spec["steps"], spec["batch"], spec["seq"]
     state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
     n_params = sum(t.numel() for t in tree_paths(state["params"]).values())
-    cases = (bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg, names=HYMBA_CASES,
-                          uniform=False) if bs else None)
+    cases = (bs_bwd_cases(torch, timer, bsm, pack_np, state, cfg, names=spec["cases"],
+                          uniform=False) if bs and spec["cases"] else None)
     dense_check = train_dense_check(torch, cfg, state, label=label, batch=batch, seq=S,
-                                    names=HYMBA_GRAD_LEAVES)
+                                    names=spec["grads"])
     fam = "block_sparse" if bs else "masked"
     mod = bsm if bs else mm
     fw = 2 if cfg.remat else 1  # remat reruns each block's forward in the backward
@@ -5562,7 +5638,7 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
                 ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
                 ("flash_dkv", fa, "dkv_launches"))
     read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
-    proj, n_l = HYMBA_PROJ * cfg.n_layers, cfg.n_layers
+    proj, n_l = spec["proj"] * cfg.n_layers, cfg.n_layers
 
     def expected(m):
         return {f"{fam}_fwd": fw * proj, f"{fam}_dx": proj, f"{fam}_dw": proj,
@@ -5605,6 +5681,8 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
         print(f"{label}:", json.dumps(rec))
         log.append(rec)
         torch.cuda.synchronize()
+        if spec.get("empty_cache"):  # the step's freed transients, back to the card
+            torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mark.update(counts=counts, t=time.perf_counter())
 
@@ -5612,15 +5690,16 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
         setattr(m_, a, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, _ = train_loop(cfg, steps=steps, batch=batch, seq=S,
-                          workdir=str(ROOT / "chiprun_out" / f"hymba_train_{kernel}"),
+    tag = spec["label"].replace(" ", "_")
+    state, _ = train_loop(cfg, steps=steps, batch=batch, seq=S, opt_cfg=spec["opt"],
+                          workdir=str(ROOT / "chiprun_out" / f"{tag}_{kernel}"),
                           device="cuda", on_step=on_step, log_every=steps, ckpt_every=None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read()
     after, bwd = units(state["masks"]), units(state["bwd_masks"])
     moved = 0
-    for n, u in after.items():
+    for n, u in after.items() if spec["update"] else ():
         before = mark["units"][n]
         if int(u.sum()) != int(before.sum()):
             raise AssertionError(f"{label}: {n}: {int(before.sum())} active units before "
@@ -5628,10 +5707,10 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
         if (u & ~bwd[n]).any():
             raise AssertionError(f"{label}: {n}: the superset does not contain the mask")
         moved += int((u.cpu() & ~before).sum())
-    if moved == 0:
+    if moved == 0 and spec["update"]:
         raise AssertionError(f"{label}: the drop/grow moved nothing")
     if bs:
-        validate_pack(state["pack"], where="chip_smoke hymba")
+        validate_pack(state["pack"], where=f"chip_smoke {spec['label']}")
         stale = int(pack_mismatch(state["masks"], state["pack"], cfg.sparse.block_shape,
                                   bwd_masks=state["bwd_masks"]))
         if stale:
@@ -5645,9 +5724,9 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
     del state
     torch.cuda.empty_cache()
     busy_ms, top, names = trace_busy(mark["prof"],
-                                     ROOT / "build" / f"hymba_train_{kernel}_trace.json")
+                                     ROOT / "build" / f"{tag}_{kernel}_trace.json")
     flash = flash_kernels_of(names)
-    if flash != sorted(HYMBA_FLASH):
+    if flash != sorted(spec["flash"]):
         raise AssertionError(f"{label}: the profiled step ran the flash kernels {flash}")
     steady = [r for r in log if "wall_s" in r and not r["update"] and r["step"] != steps]
     wall = sum(r["wall_s"] for r in steady) / len(steady)
@@ -5666,7 +5745,7 @@ def hymba_train(torch, timer, bsm, mm, fa, kernel):
         "units_moved": moved, "step0_vs_dense": dense_check,
     }
     share = stats["profiled_step_busy_share"]
-    print(f"{label}: hymba-1.5b {cfg.n_layers} of 32 layers ({n_params / 1e6:.1f} M "
+    print(f"{label}: {cfg.name} {cfg.n_layers} of {spec['of']} layers ({n_params / 1e6:.1f} M "
           f"parameters), {steps} steps of {batch} x {S} tokens in {total_s:.1f} s; train step "
           f"{wall:.3f} s wall (mean of {len(steady)}) = {stats['tok_per_s']:.0f} tok/s; peak "
           f"{stats['peak_gib']:.1f} GiB; profiled step busy {busy_ms:.1f} ms of "
@@ -5692,20 +5771,28 @@ def hymba_flash_cases(torch, timer, fa):
     instantiations' launches (CTAs an SM, registers, shared and spill
     bytes, warps).  The exact launches must not spill and must have the
     warps and CTAs an SM the backward plan counts on."""
+    return flash_cases_at(torch, timer, fa, "hymba", 25, 5, 64, HYMBA_FLASH_CASES)
+
+
+def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True):
+    """K9, K10 and K11 of ``model``'s attention (BH query heads over
+    BH / G, head_dim d, bf16) at ``cases`` ((name, S, window): causal),
+    as ``hymba_flash_cases`` says; without ``generic`` (d = 256: no generic
+    instantiation) the generic yardstick is left out."""
     from repro_torch.core.attn_sched import sched_for
 
     F = torch.nn.functional
-    BH, G, d = 25, 5, 64
     BKV = BH // G
     k9, k10, k11 = [], [], []
     for kind in ("dq", "dkv"):
         info = fa.launch_info(f"flash_{kind}", d, 8)
         if (info["spill_bytes"] or info["ctas_per_sm"] != fa.bwd_ctas_per_sm(kind, d)
-                or info["warps"] * 16 != fa.bwd_unit_rows(kind, d)):
-            raise AssertionError(f"flash_{kind} at d = 64: launch {info} against the plan's "
-                                 f"{fa.bwd_unit_rows(kind, d)} rows, "
+                or info["warps"] != fa.bwd_warps(kind, d)):
+            raise AssertionError(f"flash_{kind} at d = {d}: launch {info} against the plan's "
+                                 f"{fa.bwd_warps(kind, d)} warps, "
                                  f"{fa.bwd_ctas_per_sm(kind, d)} CTAs an SM")
-    for name, S, window in HYMBA_FLASH_CASES:
+    insts = (("exact", False), ("generic", True)) if generic else (("exact", False),)
+    for name, S, window in cases:
         r = lambda n: torch.randn(n, S, d, device="cuda").to(torch.bfloat16)
         q, k, v, do = r(BH), r(BKV), r(BKV), r(BH)
         bq, bk = fa.effective_blocks(S, S)
@@ -5718,7 +5805,7 @@ def hymba_flash_cases(torch, timer, fa):
         if window:
             mask &= pos[None, :] > pos[:, None] - window
         live = int(mask.sum())
-        tag = f"hymba {name} BH={BH} G={G} d={d}"
+        tag = f"{model} {name} BH={BH} G={G} d={d}"
         q4, k4, v4 = (t.view(1, -1, S, d).detach().requires_grad_(True) for t in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                                       enable_gqa=True)
@@ -5729,8 +5816,8 @@ def hymba_flash_cases(torch, timer, fa):
         pa, _ = fa.flash_attention_plain(q, k, v.abs(), sched[0], sched[1], **kw)
         bound = fa.o_error_bound(po, pa)
         checks = {}
-        for inst, generic in (("exact", False), ("generic", True)):
-            o, lse = fa.flash_fwd(*fwd_args, generic=generic, **kw)
+        for inst, gen in insts:
+            o, lse = fa.flash_fwd(*fwd_args, generic=gen, **kw)
             diff = (o.float() - po.float()).abs()
             ratio = (diff / bound.clamp_min(1e-30)).max().item()
             err_l = (lse - plse).abs().max().item()
@@ -5742,16 +5829,19 @@ def hymba_flash_cases(torch, timer, fa):
         b_ms, by = bound_ms(2 * (2 * BH * S * d + 2 * BKV * S * d) + 4 * BH * S, flops)
         ms = timer(lambda: fa.flash_fwd(*fwd_args, **kw), reps=5)
         case = {"case": tag, "max_abs_err": checks["exact"][0],
-                "err_over_tol": checks["exact"][1], "lse_err": checks["exact"][2],
-                "generic_err_over_tol": checks["generic"][1], "ms": ms,
-                "generic_ms": timer(lambda: fa.flash_fwd(*fwd_args, generic=True, **kw),
-                                    reps=5),
+                "err_over_tol": checks["exact"][1], "lse_err": checks["exact"][2], "ms": ms,
                 "plain_ms": timer(lambda: fa.flash_attention_plain(*fwd_args, **kw),
                                   reps=2, warmup=1),
                 "library_ms": timer(sdpa, reps=5), "bound_ms": b_ms, "bound_by": by,
                 "tflop_s": flops / ms / 1e9, "share_of_bound": b_ms / ms,
-                "launch": fa.launch_info("flash_fwd", d, width),
-                "generic_launch": fa.launch_info("flash_fwd", d, width, generic=True)}
+                "launch": fa.launch_info("flash_fwd", d, width)}
+        if generic:
+            case.update(generic_err_over_tol=checks["generic"][1],
+                        generic_ms=timer(lambda: fa.flash_fwd(*fwd_args, generic=True, **kw),
+                                         reps=5),
+                        generic_launch=fa.launch_info("flash_fwd", d, width, generic=True))
+        if case["launch"]["spill_bytes"]:
+            raise AssertionError(f"K9 {tag}: the launch spills: {case['launch']}")
         print("K9", json.dumps(case))
         k9.append(case)
 
@@ -5775,8 +5865,8 @@ def hymba_flash_cases(torch, timer, fa):
                 ("K11", "dkv", fa.flash_dkv, dkv_args, ("dk", "dv"),
                  2 * (2 * BH * S * d + 4 * BKV * S * d) + 8 * BH * S, 8.0 * d * live * BH)):
             checks = {}
-            for inst, generic in (("exact", False), ("generic", True)):
-                got = fn(*args, generic=generic, **kw)
+            for inst, gen in insts:
+                got = fn(*args, generic=gen, **kw)
                 got = dict(zip(what, (got,) if kind == "dq" else got))
                 worst = (0.0, 0.0)
                 for w_ in what:
@@ -5792,19 +5882,282 @@ def hymba_flash_cases(torch, timer, fa):
             b_ms, by = bound_ms(n_bytes, flops)
             ms = timer(lambda: fn(*args, **kw), reps=5)
             case = {"case": tag, "max_abs_err": checks["exact"][0],
-                    "err_over_tol": checks["exact"][1],
-                    "generic_err_over_tol": checks["generic"][1], "ms": ms,
-                    "generic_ms": timer(lambda: fn(*args, generic=True, **kw), reps=5),
+                    "err_over_tol": checks["exact"][1], "ms": ms,
                     "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
                     "library_ms": lib_ms, "library_covers": "dq, dk and dv",
                     "bound_ms": b_ms, "bound_by": by, "tflop_s": flops / ms / 1e9,
                     "share_of_bound": b_ms / ms,
-                    "launch": fa.launch_info(f"flash_{kind}", d, width),
-                    "generic_launch": fa.launch_info(f"flash_{kind}", d, width, generic=True)}
+                    "launch": fa.launch_info(f"flash_{kind}", d, width)}
+            if generic:
+                case.update(generic_err_over_tol=checks["generic"][1],
+                            generic_ms=timer(lambda: fn(*args, generic=True, **kw), reps=5),
+                            generic_launch=fa.launch_info(f"flash_{kind}", d, width,
+                                                          generic=True))
             print(kernel, json.dumps(case))
             (k10 if kernel == "K10" else k11).append(case)
         del out4
     return k9, k10, k11
+
+
+GEMMA_FLASH_CASES = (("S=2048 window=1024 (local layers)", 2048, 1024),
+                     ("S=2048 global (every 6th layer)", 2048, 0))
+
+
+def gemma_flash_cases(torch, timer, fa):
+    """Phase "flash d = 256": K9, K10 and K11 at gemma3-4b's attention (8
+    query heads over 4 KV heads, G = 2, head_dim 256, bf16, S = 2048: a
+    local layer's window 1024 and a global layer) on their exact d = 256
+    instantiations, each against its plain version within
+    ``fa.o_error_bound`` / ``fa.grad_error_bound`` (the tolerances of the
+    d = 128 and d = 64 checks), timed beside PyTorch's
+    scaled_dot_product_attention (forward; forward and backward for K10 and
+    K11) and the operations bound, with each launch's CTAs an SM,
+    registers, shared and spill bytes (no spill allowed)."""
+    return flash_cases_at(torch, timer, fa, "gemma3", 8, 2, 256, GEMMA_FLASH_CASES,
+                          generic=False)
+
+
+# ---------------------------------------------------------------------------
+# gemma3-4b (qk-norm, sandwich norms, GeGLU, 5:1 local:global, head_dim 256)
+# and command-r-plus-104b (parallel blocks, tied 256000-row table)
+# ---------------------------------------------------------------------------
+
+GEMMA_ENGINE = dict(capacity=4, max_len=2048, paged=True, page_size=16)
+GEMMA_PROJ = 7  # K1/K13 a layer a pass: wq, wk, wv, wo, wi, wg, wo
+# (requests, prompt lengths, new tokens): the 1400-token prompts wrap the
+# local layers' 1024-slot rings
+GEMMA_REQUESTS = (3, (300, 1400), 16)
+GEMMA_FLASH = ("flash_fwd_kernel<256, true>", "flash_dq_kernel<256, true>",
+               "flash_dkv_kernel<256, true>")
+CMDR_FLASH = ("flash_fwd_kernel<128, true>", "flash_dq_kernel<128, true>",
+              "flash_dkv_kernel<128, true>")
+
+
+def gemma3_config(kernel, n_layers=None):
+    """gemma3-4b at its published widths (full depth unless ``n_layers``),
+    ERK 0.8, flash_tight; block_sparse in 128x128 blocks, or masked; RigL
+    with the Top-KAST superset every ``DELTA_T`` steps in one
+    microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("gemma3-4b"), kernel=kernel, block=128,
+                           attn_kernel="flash_tight")
+    sp = dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, microbatches=1,
+                               sparse=sp)
+
+
+def command_r_config(kernel="block_sparse", n_layers=PAGED_LAYERS):
+    """command-r-plus-104b at its published widths, ``n_layers`` of 64
+    deep (the f32 masters of all 64, 416 GB, fit no card), ERK 0.8,
+    block_sparse in 128x128 blocks, flash_tight; RigL with the Top-KAST
+    superset in one microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("command-r-plus-104b"), kernel=kernel, block=128,
+                           attn_kernel="flash_tight")
+    sp = dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T)
+    return dataclasses.replace(cfg, n_layers=n_layers, microbatches=1, sparse=sp)
+
+
+def gemma_serve(torch, bsm, mm, fa):
+    """Phase "gemma3 serve": serve gemma3-4b at full width and depth (34
+    layers: 5 local (window 1024) to 1 global, qk-norm, sandwich norms,
+    GeGLU, head_dim 256, the tied 262144-row table; ~3.9 B parameters, ERK
+    0.8, seed 0) through the paged engine (a local ring pool and a global
+    pool of 16-token pages; capacity 4, max_len 2048) under block_sparse
+    (128x128 blocks: K1) and masked (K13) on one init's weights and
+    block-aligned masks: 3 staggered greedy requests (prompts 300/1400, 16
+    tokens; the 1400-token prompts wrap the local rings).  Checks, per mode:
+    every request DONE, nothing quarantined, the pools' books clean; the
+    run's launches exactly 238 K1 (K13) a prefill and a decode step (34 x
+    7 projections) plus the merges the plans make and 34 K9 a prompt; one
+    prefill and one decode step counted on their own (238 K1 or K13 each,
+    34 K9 and 0); the profiled prefill runs only the exact d = 256 K9
+    instantiation; every greedy token equal to the plain dense path's on
+    the same weights (kernel='dense', attn_kernel='dense').  Reports the
+    prefill ms per request, the decode step's host and device ms."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.launch.serve import (
+        configure_kernel,
+        init_serving_state,
+        staggered_requests,
+    )
+    from repro_torch.models.model import lm_decode, lm_prefill
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    cfg_bs = gemma3_config("block_sparse")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg_bs, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_paths(params).values())
+    torch.cuda.synchronize()
+    print(f"gemma3 serve: gemma3-4b ({cfg_bs.n_layers} layers, d_model {cfg_bs.d_model}, "
+          f"{cfg_bs.n_heads}/{cfg_bs.n_kv_heads} heads of {cfg_bs.head_dim}, d_ff "
+          f"{cfg_bs.d_ff}, {n_params / 1e9:.3f} B parameters, {4 * n_params / 1e9:.2f} GB "
+          f"f32) initialised in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    n_req, lens, gen = GEMMA_REQUESTS
+    dense = dataclasses.replace(cfg_bs, sparse=dataclasses.replace(
+        cfg_bs.sparse, kernel="dense", attn_kernel="dense"))
+    dreqs = staggered_requests(dense, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    dengine = ServeEngine(dense, params, **GEMMA_ENGINE)
+    for r in dreqs:
+        dengine.submit(r)
+    dengine.run()
+    del dengine
+    out = {"parameters": n_params}
+    per_call = GEMMA_PROJ * cfg_bs.n_layers
+    for kernel in ("block_sparse", "masked"):
+        bs = kernel == "block_sparse"
+        label = f"gemma3 serve {kernel}"
+        cfg = cfg_bs if bs else configure_kernel(cfg_bs, kernel="masked")
+        pk = pack if bs else None
+        fam, mod = ("block_sparse", bsm) if bs else ("masked", mm)
+        k1, merge = f"{fam}_fwd", f"{fam}_fwd_merge"
+        counters = ((k1, mod, "launches"), (merge, mod, "fwd_merge_launches"),
+                    ("flash_fwd", fa, "launches"))
+        read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+        engine = ServeEngine(cfg, params, masks=masks, pack=pk, **GEMMA_ENGINE)
+        if sorted(engine.pools) != ["global", "local"]:
+            raise AssertionError(f"{label}: page pools {sorted(engine.pools)}")
+        for r in staggered_requests(cfg, 2, prompt_lens=(20,), gen_lens=(2,), seed=1):
+            engine.submit(r)
+        engine.run()
+        reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+        engine = ServeEngine(cfg, engine.params, masks=masks, pack=pk, **GEMMA_ENGINE)
+        for r in reqs:
+            engine.submit(r)
+        for _, m_, a in counters:
+            setattr(m_, a, 0)
+        stats = engine.run()
+        launches = read()
+        for r in reqs:
+            if r.status is not Status.DONE or len(r.generated) != gen:
+                raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
+                                     f"{len(r.generated)} tokens")
+        if stats["quarantined"] or stats["failed"]:
+            raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
+        engine.check_pool_accounting()
+        if any(p.n_live for p in engine.pools.values()):
+            raise AssertionError(f"{label}: pages left live after the run")
+        st = {"params": engine.params, "pack": pk, "masks": masks}
+        dec = leaf_merges(torch, cfg, st, GEMMA_ENGINE["capacity"], 0, "fwd")[0]
+        # the engine prefills a prompt padded to its bucket
+        pre = {L: leaf_merges(torch, cfg, st, engine._padded_len(L), 0, "fwd")[0]
+               for L in set(lens)}
+        expect = {k1: per_call * (stats["decode_steps"] + stats["prefills"]),
+                  merge: stats["decode_steps"] * dec + sum(pre[r.prompt_len] for r in reqs),
+                  "flash_fwd": cfg.n_layers * stats["prefills"]}
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+
+        # one prefill (profiled: the flash kernels it runs) and one decode
+        # step at capacity, each counted on its own
+        toks = torch.from_numpy(reqs[1].tokens).long().cuda()[None]
+        c0 = read()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            lm_prefill(engine.params, cfg, {"tokens": toks}, GEMMA_ENGINE["max_len"],
+                       masks=masks, pack=pk)
+            torch.cuda.synchronize()
+        one_prefill = {n: v - c0[n] for n, v in read().items()}
+        want_pre = {k1: per_call, merge: leaf_merges(torch, cfg, st, reqs[1].prompt_len, 0,
+                                                     "fwd")[0], "flash_fwd": cfg.n_layers}
+        if one_prefill != want_pre:
+            raise AssertionError(f"{label}: one prefill launched {one_prefill}, expected "
+                                 f"{want_pre}")
+        _, _, names = trace_busy(prof, ROOT / "build" / f"gemma3_serve_{kernel}_trace.json")
+        flash = flash_kernels_of(names)
+        if flash != [GEMMA_FLASH[0]]:
+            raise AssertionError(f"{label}: the prefill ran the flash kernels {flash}")
+        dev = engine.device
+        c0 = read()
+        lm_decode(engine.params, cfg, engine.caches,
+                  torch.from_numpy(engine.cur_tok[:, None]).to(dev),
+                  torch.from_numpy(engine.pos).to(dev), masks=masks, pack=pk,
+                  tables={g: torch.from_numpy(t).to(dev) for g, t in engine.tables.items()})
+        one_step = {n: v - c0[n] for n, v in read().items()}
+        want_step = {k1: per_call, merge: dec, "flash_fwd": 0}
+        if one_step != want_step:
+            raise AssertionError(f"{label}: one decode step launched {one_step}, expected "
+                                 f"{want_step}")
+
+        same = [r.generated == d.generated for r, d in zip(reqs, dreqs)]
+        agree = sum(a == b for r, d in zip(reqs, dreqs)
+                    for a, b in zip(r.generated, d.generated)) / (n_req * gen)
+        stats.update({"prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
+                      "decode_step_ms": 1e3 * stats["decode_step_s"],
+                      "launches_per_prefill": one_prefill,
+                      "launches_per_decode_step": one_step,
+                      "merges_per_prefill": {str(p): m for p, m in pre.items()},
+                      "prefill_flash_kernels": flash, "streams_equal_dense": same,
+                      "token_agreement_dense": agree,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        print(f"{label}: vs the plain dense path: streams equal {same}, token agreement "
+              f"{agree:.3f}")
+        if not all(same):
+            raise AssertionError(f"{label}: greedy streams differ from the dense path's: "
+                                 f"{[r.generated for r in reqs]} vs "
+                                 f"{[d.generated for d in dreqs]}")
+        stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode, label)
+        print(f"{label}: engine", json.dumps({k: stats[k] for k in (
+            "requests", "tokens", "decode_steps", "prefills", "wall_s", "tok_per_s",
+            "prefill_ms", "decode_step_ms", "decode_step_device_ms", "peak_gib")}),
+              f"launches {launches}; a prefill {one_prefill}; a decode step {one_step}")
+        out[kernel] = (stats, launches)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+GEMMA_TRAIN = dict(label="gemma3 train", config=gemma3_config, layers=6, of=34,
+                   proj=GEMMA_PROJ, steps=4, batch=1, seq=2048,
+                   grads=("layers/0/mlp/wi/w", "layers/5/attn/wq/w",
+                          "layers/0/attn/q_norm/scale", "layers/5/ln2_post/scale",
+                          "embed/table"),
+                   flash=GEMMA_FLASH, cases=None, update=True, opt=None)
+
+
+def gemma_train(torch, timer, bsm, mm, fa, kernel):
+    """Phase "gemma3 train": ``model_train`` on gemma3-4b at full width, 6
+    of 34 layers (one 5:1 period: layers 0-4 local, 5 global; ~1.2 B
+    parameters with the tied table), 1 x 2048 tokens, 4 steps with a
+    drop/grow at step 2, Adam: the step-0 loss and gradients of an MLP
+    and a global layer's wq, a qk-norm and a post-norm scale and the tied
+    table against the plain dense path; exact launches a step (remat: 2 x
+    42 K1 (K13), 42 K2 and K3 (K14, K15), 12 K9, 6 K10 and K11 and the
+    planned merges); the profiled step on the d = 256 flash kernels
+    alone."""
+    return model_train(torch, timer, bsm, mm, fa, kernel, GEMMA_TRAIN)
+
+
+def command_r_train(torch, timer, bsm, mm, fa):
+    """Phase "command-r train": ``model_train`` on command-r-plus-104b at
+    full width, 1 of 64 layers (1.57 B parameters beside the tied 256000 x
+    12288 table's 3.15 B), block_sparse, SGD with momentum 0.9 and no
+    weight decay, 1 x 512 tokens, 3 steps and no drop/grow: the step-0
+    loss and gradients of the MLP's wi, the attention's wq and ln1 against
+    the plain dense path; exact launches a step; the profiled step on the
+    d = 128 flash kernels alone.  The weights and their gradients are 2 x
+    18.9 GB; the momentum is kept in bf16 (``OptConfig.state_dtype``, as
+    grok-1's config keeps it): with an f32 momentum the first step peaked
+    at 73.9 GiB of the card's 79.2 and the second found the 11.7 GiB the
+    table's gradient takes too fragmented.  The update and the gradient
+    norm take the table in row chunks (``optimizers._row_chunks``), and
+    the cached allocator blocks go back to the card between steps."""
+    from repro_torch.optim.optimizers import OptConfig
+
+    spec = dict(label="command-r train", config=command_r_config, layers=1, of=64,
+                proj=GEMMA_PROJ, steps=3, batch=1, seq=512,
+                grads=("layers/0/mlp/wi/w", "layers/0/attn/wq/w", "layers/0/ln1/scale"),
+                flash=CMDR_FLASH, cases=None, update=False, empty_cache=True,
+                opt=OptConfig(kind="sgd", momentum=0.9, weight_decay=0.0,
+                              state_dtype="bfloat16"))
+    return model_train(torch, timer, bsm, mm, fa, "block_sparse", spec)
 
 
 def tree_map_clone(tree):
@@ -5964,6 +6317,22 @@ def main() -> int:
     k3 += k3_h
     k3_merges += k3_merges_h
     k2_merges += k2_merges_h
+    k9_g, k10_g, k11_g = gemma_flash_cases(torch, timer, fa)
+    k9 += k9_g
+    k10 += k10_g
+    k11 += k11_g
+    done("flash d = 256: K9-K11 at gemma3's attention")
+    gemma = gemma_serve(torch, bsm, mm, fa)
+    done("gemma3 serve block_sparse, masked")
+    for kernel in ("block_sparse", "masked"):
+        gemma[f"train {kernel}"] = gemma_train(torch, timer, bsm, mm, fa, kernel)
+        done(f"gemma3 train {kernel}")
+    cmdr = {"serve": paged_serve(torch, timer, bsm, fa, cfg=command_r_config(),
+                                 label="command-r serve", of=64)}
+    k1 += cmdr["serve"][2]
+    done("command-r serve")
+    cmdr["train"] = command_r_train(torch, timer, bsm, mm, fa)
+    done("command-r train")
     r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
     k4 += r_bs["fwd"]
     k56["K5"] += r_bs["dx"]
@@ -5989,7 +6358,11 @@ def main() -> int:
              "hymba_serve": hymba["serve block_sparse"][1],
              "hymba_masked_serve": hymba["serve masked"][1],
              "hymba_train": hymba["train block_sparse"][1],
-             "hymba_masked_train": hymba["train masked"][1]}
+             "hymba_masked_train": hymba["train masked"][1],
+             "gemma3_serve": gemma["block_sparse"][1], "gemma3_masked_serve": gemma["masked"][1],
+             "gemma3_train": gemma["train block_sparse"][1],
+             "gemma3_masked_train": gemma["train masked"][1],
+             "command_r_serve": cmdr["serve"][1], "command_r_train": cmdr["train"][1]}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -6120,6 +6493,9 @@ def main() -> int:
          "r_bank": {"block_sparse": r_bs, "masked": r_m},
          "hymba": {k: v[0] for k, v in hymba.items()},
          "hymba_flash": {"k9": k9_h, "k10": k10_h, "k11": k11_h},
+         "gemma3_flash": {"k9": k9_g, "k10": k10_g, "k11": k11_g},
+         "gemma3": {k: v[0] for k, v in gemma.items() if k != "parameters"},
+         "command_r": {k: v[0] for k, v in cmdr.items()},
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

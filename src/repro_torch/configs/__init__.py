@@ -16,6 +16,8 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "xlstm-1.3b": "xlstm_1_3b",
     "hymba-1.5b": "hymba_1_5b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "gemma3-4b": "gemma3_4b",
 }
 
 ARCH_IDS = tuple(_MODULES)

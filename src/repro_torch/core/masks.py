@@ -26,6 +26,7 @@ __all__ = [
     "block_mask_of",
     "init_masks",
     "apply_masks",
+    "apply_masks_",
     "mask_stats",
 ]
 
@@ -146,6 +147,14 @@ def apply_masks(params, masks):
     return tree_map(
         lambda _, w, m: w if m is None else w * m.to(w.dtype), params, masks
     )
+
+
+def apply_masks_(params, masks):
+    """``apply_masks`` in place (the same bits) on params that nothing else
+    holds (a fresh init): a full-width model has no room for a second copy
+    of its sparse weights.  Returns ``params``."""
+    tree_map(lambda _, w, m: None if m is None else w.mul_(m.to(w.dtype)), params, masks)
+    return params
 
 
 def mask_stats(masks) -> dict[str, Any]:

@@ -58,14 +58,25 @@
 //    launch by list-scheduling each candidate's CTAs on the card's
 //    resident CTA slots.  No float atomics: two launches give the same
 //    bits.
-// head_dim is a runtime multiple of 16 up to 128; d = 64, d = 80 and
-// d = 128 run their own instantiations, other d the generic one.  Resident per SM: K10
-// 2 CTAs (16 warps at d = 64 and d = 80 under a 128-register launch bound,
-// 73.8 / 90.1 KB of shared memory; 8 at d = 128, 104.5 KB), K11 3 at d = 64
-// and d = 80 (161 / 168 registers, 56.4 / 68.7 KB) and 2 at d = 128 (105.5
-// KB); no spill.
+//  * d = 256 (gemma3): a 528-byte padded row and 128 accumulator floats a
+//    thread for each of dq, dk and dv.  K10 runs 8 warps (a 128-row unit)
+//    on 32-key tiles, one CTA an SM (Q and dO 135 KB, the ring 67.6 KB)
+//    under a 255-register cap.  K11 cannot keep dk and dv of 16 KV rows in
+//    one warp (256 floats a thread): warp pairs split them
+//    (flash_core.cuh::WarpDkvPair, dv in the even warp and dk in the odd
+//    one, p handed over through shared memory), 8 warps for a 64-row unit,
+//    one CTA an SM (K and V 67.6 KB, the ring 135 KB, the pairs' buffers
+//    16 KB).
+// head_dim is a runtime multiple of 16 up to 128, or 256; d = 64, 80, 128
+// and 256 run their own instantiations, other d the generic one.  Resident
+// per SM: K10 2 CTAs (16 warps at d = 64 and d = 80 under a 128-register
+// launch bound, 73.8 / 90.1 KB of shared memory; 8 at d = 128, 104.5 KB), K11
+// 3 at d = 64 and d = 80 (161 / 168 registers, 56.4 / 68.7 KB) and 2 at
+// d = 128 (105.5 KB); K10 and K11 1 at d = 256 (8 warps each); no spill.
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "flash_core.cuh"
@@ -75,30 +86,48 @@ namespace {
 using bf16 = __nv_bfloat16;
 using flash::kTileKeys;
 
-constexpr int kWarps = 4;  // a K11 CTA: 64 KV rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;
+constexpr int kRows = 64;  // a K11 unit's KV rows
 constexpr int kMergeThreads = 256;
 
 // Warps of a K10 CTA: 8 (a 128-row unit) at d = 64 and d = 80, where the
-// step fits 128 registers, so two CTAs (16 warps) are resident per SM; 4
-// (64 rows) at d = 128 and in the generic instantiation, two CTAs by shared
-// memory.
+// step fits 128 registers, so two CTAs (16 warps) are resident per SM, and
+// at d = 256 (one CTA); 4 (64 rows) at d = 128 and in the generic
+// instantiation, two CTAs by shared memory.
 template <int D>
-__host__ __device__ constexpr int dq_warps() { return D <= 80 ? 8 : 4; }
+__host__ __device__ constexpr int dq_warps() { return D <= 80 || D > 128 ? 8 : 4; }
+
+// K10's CTAs resident per SM (its launch bound's minimum): 1 at d = 256.
+template <int D>
+__host__ __device__ constexpr int dq_ctas() { return D > 128 ? 1 : 2; }
+
+// Keys a K10 ring tile: 32 at d = 256, else 64.
+template <int D>
+__host__ __device__ constexpr int dq_keys() { return D > 128 ? 32 : kTileKeys; }
+
+// K11 at d = 256 splits a warp's dk and dv over a warp pair.
+template <int D>
+__host__ __device__ constexpr bool dkv_pair() { return D > 128; }
+
+// Warps of a K11 CTA (64 KV rows): 4, or 8 in pairs.
+template <int D>
+__host__ __device__ constexpr int dkv_warps() { return dkv_pair<D>() ? 8 : 4; }
 
 // K11's CTAs resident per SM, by the launch bound (d = 64, d = 80) or
 // shared memory.
 template <int D>
-__host__ __device__ constexpr int dkv_ctas() { return D <= 80 ? 3 : 2; }
+__host__ __device__ constexpr int dkv_ctas() { return D <= 80 ? 3 : D > 128 ? 1 : 2; }
 
 // The unit's own two operands (own_rows rows each), two ring stages of two
-// 64-row operands, for K11 two stages of 64 lse and delta, then the walk
-// list's length and entries.
+// `keys`-row operands, for K11 two stages of 64 lse and delta and the warp
+// pairs' buffers, then the walk list's length and entries.
 template <int D>
-size_t smem_bytes(int own_rows, int list_max, bool dkv) {
-  return (size_t)flash::tile_bytes<D>(2 * own_rows + 4 * kTileKeys) +
-         (dkv ? sizeof(float) * 4 * kTileKeys : 0) + sizeof(int) * (list_max + 1);
+size_t smem_bytes(int own_rows, int keys, int list_max, bool dkv) {
+  return (size_t)flash::tile_bytes<D>(2 * own_rows + 4 * keys) +
+         (dkv ? sizeof(float) * 4 * kTileKeys : 0) +
+         (dkv && dkv_pair<D>() ? (size_t)(dkv_warps<D>() / 2) *
+                                     flash::WarpDkvPair<D>::kBufBytes
+                               : 0) +
+         sizeof(int) * (list_max + 1);
 }
 
 // Warp 0 compacts the live ones of n candidates into list (in candidate
@@ -126,7 +155,7 @@ __device__ __forceinline__ int build_list(int n, int* list_n, int* list, Entry e
 // ---------------------------------------------------------------- K10: dq
 
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(dq_warps<D>() * 32, 2)
+__global__ void __launch_bounds__(dq_warps<D>() * 32, dq_ctas<D>())
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
@@ -135,7 +164,8 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 int bq, int bk, int width, int groups, int causal, int window, int q_offset,
                 int sk, int pair, int n_split, float scale, float softcap) {
   constexpr int DP = flash::row_pad<D>();
-  constexpr int kStage = flash::tile_bytes<D>(kTileKeys);
+  constexpr int KT = dq_keys<D>();
+  constexpr int kStage = flash::tile_bytes<D>(KT);
   constexpr int kDqThreads = dq_warps<D>() * 32;
   constexpr int kDqRows = dq_warps<D>() * 16;  // the unit's query rows
   extern __shared__ __align__(16) unsigned char smem[];
@@ -144,14 +174,14 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t ks = dos + flash::tile_bytes<D>(kDqRows);   // 2 K stages
   const uint32_t vs = ks + 2 * kStage;                     // 2 V stages
   int* list_n =
-      reinterpret_cast<int*>(smem + flash::tile_bytes<D>(2 * kDqRows + 4 * kTileKeys));
-  int* list = list_n + 1;  // key0 of each live 64-key tile
+      reinterpret_cast<int*>(smem + flash::tile_bytes<D>(2 * kDqRows + 4 * KT));
+  int* list = list_n + 1;  // key0 of each live KT-key tile
 
   const int d = EXACT ? D : d_rt;
   const int cpr = d / 8;  // 16-byte chunks a row
   const int parts = (bq + kDqRows - 1) / kDqRows;
   const int n_units = (Sqp / bq) * parts;
-  const int nsub = (bk + kTileKeys - 1) / kTileKeys;
+  const int nsub = (bk + KT - 1) / KT;
   const int c = blockIdx.x / n_split, split = blockIdx.x % n_split;
   const int bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -169,8 +199,8 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int* walk = kv_idx + (size_t)qb * width;
     const int n_live = build_list(kv_cnt[qb] * nsub, list_n, list, [&](int e, int& key0) {
       const int sub = e % nsub;
-      key0 = walk[e / nsub] * bk + sub * kTileKeys;
-      const int k_hi = key0 + min(kTileKeys, bk - sub * kTileKeys) - 1;
+      key0 = walk[e / nsub] * bk + sub * KT;
+      const int k_hi = key0 + min(KT, bk - sub * KT) - 1;
       return !(key0 >= sk || (causal && key0 > qpos0 + rows - 1) ||
                (window && k_hi <= qpos0 - window));
     });
@@ -186,7 +216,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     auto issue = [&](int t, int stage) {
       const int key0 = list[t];
-      const int nk = min(kTileKeys, bk - key0 % bk);
+      const int nk = min(KT, bk - key0 % bk);
       for (int x = threadIdx.x; x < nk * cpr; x += kDqThreads) {
         const int r = x / cpr, col = (x % cpr) * 8;
         const size_t g = (size_t)(kv_row0 + key0 + r) * d + col;
@@ -218,7 +248,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int key0 = list[t0 + t];
           int lo, hi;
           flash::live_groups(
-              min(kTileKeys, bk - key0 % bk) / 16,
+              min(KT, bk - key0 % bk) / 16,
               [&](int j) {
                 const int k0 = key0 + 16 * j;
                 return k0 >= sk || (causal && k0 > q_lo + 15) ||
@@ -229,7 +259,8 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int k_lo = key0 + 16 * lo, k_hi = key0 + 16 * hi - 1;
           const bool inside = k_hi < sk && (!causal || k_hi <= q_lo) &&
                               (!window || k_lo > q_lo + 15 - window);
-          acc.step(qs + warp * 16 * DP * 2, dos + warp * 16 * DP * 2, ks + stage * kStage,
+          acc.template step<KT>(qs + warp * 16 * DP * 2, dos + warp * 16 * DP * 2,
+                   ks + stage * kStage,
                    vs + stage * kStage, d, lo, hi, lse2, dlt, sc, !inside,
                    [&](int r, int cc) {
                      const int kpos = key0 + cc, qpos = q_lo + r;
@@ -253,7 +284,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------- K11: dk, dv
 
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(kThreads, dkv_ctas<D>())
+__global__ void __launch_bounds__(dkv_warps<D>() * 32, dkv_ctas<D>())
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
@@ -264,6 +295,8 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int pair, int n_split, float scale, float softcap) {
   constexpr int DP = flash::row_pad<D>();
   constexpr int kStage = flash::tile_bytes<D>(kTileKeys);
+  constexpr bool kPair = dkv_pair<D>();
+  constexpr int kThreads = dkv_warps<D>() * 32;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t ks = flash::smem_addr(smem);             // the unit's K rows
   const uint32_t vs = ks + flash::tile_bytes<D>(kRows);   // and V rows
@@ -271,7 +304,11 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t dos = qs + 2 * kStage;                   // 2 dO stages
   float* lse_s = reinterpret_cast<float*>(smem + flash::tile_bytes<D>(2 * kRows + 4 * kTileKeys));
   float* dlt_s = lse_s + 2 * kTileKeys;  // 2 stages each
-  int* list_n = reinterpret_cast<int*>(dlt_s + 2 * kTileKeys);
+  // the warp pairs' buffers (d = 256), then the walk list
+  const uint32_t pbuf = flash::smem_addr(dlt_s + 2 * kTileKeys);
+  int* list_n = reinterpret_cast<int*>(
+      dlt_s + 2 * kTileKeys +
+      (kPair ? dkv_warps<D>() / 2 * flash::WarpDkvPair<D>::kBufBytes / 4 : 0));
   int* list = list_n + 1;  // first row of each live 64-row q tile
   const uint32_t lse_a = flash::smem_addr(lse_s), dlt_a = flash::smem_addr(dlt_s);
 
@@ -282,7 +319,9 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nsub = (bq + kTileKeys - 1) / kTileKeys;
   const int c = blockIdx.x / n_split, split = blockIdx.x % n_split;
   const int b = blockIdx.y;  // row of the (B*KV, Skp, d) layout
-  const int warp = threadIdx.x / 32;
+  // the warp's 16 KV rows: warp (a pair's two warps, role 0 and 1, under kPair)
+  const int warp = kPair ? threadIdx.x / 64 : threadIdx.x / 32;
+  const int role = kPair ? (threadIdx.x / 32) & 1 : 0;
   const flash::BwdScores sc(scale, softcap);
   const int mate = n_units - 1 - c;
 
@@ -335,7 +374,7 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const bool live = warp * 16 < nkeys;
     const int kw_lo = key0 + warp * 16, kw_hi = kw_lo + 15;  // the warp's keys
-    flash::WarpDkv<D, EXACT> acc;
+    std::conditional_t<kPair, flash::WarpDkvPair<D>, flash::WarpDkv<D, EXACT>> acc;
     acc.init();
     flash::key_walk(
         t1 - t0, [&](int t, int stage) { issue(t0 + t, stage); },
@@ -356,24 +395,34 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int q_lo = qp_lo + 16 * lo, q_hi = qp_lo + 16 * hi - 1;
           const bool inside = kw_hi < sk && (!causal || kw_hi <= q_lo) &&
                               (!window || kw_lo > q_hi - window);
-          acc.step(ks + warp * 16 * DP * 2, vs + warp * 16 * DP * 2, qs + stage * kStage,
-                   dos + stage * kStage, lse_a + stage * kTileKeys * 4,
-                   dlt_a + stage * kTileKeys * 4,
-                   d, lo, hi, sc, !inside, [&](int r, int cc) {
-                     const int kpos = kw_lo + r, qpos = qp_lo + cc;
-                     return kpos < sk && (!causal || kpos <= qpos) &&
-                            (!window || kpos > qpos - window);
-                   });
+          auto keep = [&](int r, int cc) {
+            const int kpos = kw_lo + r, qpos = qp_lo + cc;
+            return kpos < sk && (!causal || kpos <= qpos) && (!window || kpos > qpos - window);
+          };
+          if constexpr (kPair)
+            acc.step(role, 1 + warp, pbuf + warp * flash::WarpDkvPair<D>::kBufBytes,
+                     ks + warp * 16 * DP * 2, vs + warp * 16 * DP * 2, qs + stage * kStage,
+                     dos + stage * kStage, lse_a + stage * kTileKeys * 4,
+                     dlt_a + stage * kTileKeys * 4, lo, hi, sc, !inside, keep);
+          else
+            acc.step(ks + warp * 16 * DP * 2, vs + warp * 16 * DP * 2, qs + stage * kStage,
+                     dos + stage * kStage, lse_a + stage * kTileKeys * 4,
+                     dlt_a + stage * kTileKeys * 4, d, lo, hi, sc, !inside, keep);
         },
         [](int) {});
 
     if (live) {
       const size_t at = (size_t)(kv_row0 + warp * 16) * d;
-      if (n_split == 1) {
+      const size_t ps = (size_t)split * gridDim.y * Skp * d;
+      if constexpr (kPair) {  // role 0 holds dv, role 1 dk
+        if (n_split == 1)
+          flash::store_rows<D, EXACT>(acc.acc, (role ? dk : dv) + at, d, 16);
+        else
+          flash::store_rows<D, EXACT>(acc.acc, (role ? dk_part : dv_part) + ps + at, d, 16);
+      } else if (n_split == 1) {
         flash::store_rows<D, EXACT>(acc.dk, dk + at, d, 16);
         flash::store_rows<D, EXACT>(acc.dv, dv + at, d, 16);
       } else {
-        const size_t ps = (size_t)split * gridDim.y * Skp * d;
         flash::store_rows<D, EXACT>(acc.dk, dk_part + ps + at, d, 16);
         flash::store_rows<D, EXACT>(acc.dv, dv_part + ps + at, d, 16);
       }
@@ -429,7 +478,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               int causal, int window, int q_offset, int sk, int pair, int n_split, float scale,
               float softcap, cudaStream_t stream) {
   constexpr int kDqRows = dq_warps<D>() * 16;
-  const size_t smem = smem_bytes<D>(kDqRows, width * ((bk + kTileKeys - 1) / kTileKeys), false);
+  constexpr int KT = dq_keys<D>();
+  const size_t smem = smem_bytes<D>(kDqRows, KT, width * ((bk + KT - 1) / KT), false);
   cudaError_t err = prepare(flash_dq_kernel<D, EXACT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_units = (Sqp / bq) * ((bq + kDqRows - 1) / kDqRows);
@@ -453,12 +503,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                void* dk_part, void* dv_part, int BH, int Sqp, int Skp, int d, int bq, int bk,
                int q_width, int groups, int causal, int window, int q_offset, int sk, int pair,
                int n_split, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(kRows, q_width * ((bq + kTileKeys - 1) / kTileKeys), true);
+  const size_t smem =
+      smem_bytes<D>(kRows, kTileKeys, q_width * ((bq + kTileKeys - 1) / kTileKeys), true);
   cudaError_t err = prepare(flash_dkv_kernel<D, EXACT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_units = (Skp / bk) * ((bk + kRows - 1) / kRows);
   const dim3 grid(unit_ctas(n_units, pair) * n_split, BH / groups);
-  flash_dkv_kernel<D, EXACT><<<grid, kThreads, smem, stream>>>(
+  flash_dkv_kernel<D, EXACT><<<grid, dkv_warps<D>() * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(q_idx),
@@ -495,8 +546,8 @@ int info(Kernel kernel, size_t smem, int warps, int* out) {
 // f32; kv_idx (Sqp/bq, width), kv_cnt (Sqp/bq,) int32; dq (BH, Sqp, d)
 // bf16.  pair and n_split from the wrapper's plan; for n_split > 1, part is
 // (n_split, BH, Sqp, d) f32 scratch (unused, may be null, for 1).  The
-// wrapper checks d % 16 == 0 and d <= 128, bq and bk multiples of 16 up to
-// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.
+// wrapper checks d % 16 == 0 and d <= 128 or d == 256, bq and bk multiples
+// of 16 up to 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, const void* kv_idx,
                         const void* kv_cnt, void* dq, void* part, int BH, int Sqp, int Skp,
@@ -514,6 +565,10 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
                                pair, n_split, scale, softcap, s);
   if (d == 128)
     return launch_dq<128, true>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
+                                Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
+                                pair, n_split, scale, softcap, s);
+  if (d == 256)
+    return launch_dq<256, true>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
                                 Skp, d, bq, bk, width, groups, causal, window, q_offset, sk,
                                 pair, n_split, scale, softcap, s);
   return launch_dq<128, false>(q, k, v, dout, lse, delta, kv_idx, kv_cnt, dq, part, BH, Sqp,
@@ -541,6 +596,10 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
                                 window, q_offset, sk, pair, n_split, scale, softcap, s);
   if (d == 128)
     return launch_dkv<128, true>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
+                                 dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
+                                 window, q_offset, sk, pair, n_split, scale, softcap, s);
+  if (d == 256)
+    return launch_dkv<256, true>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
                                  dv_part, BH, Sqp, Skp, d, bq, bk, q_width, groups, causal,
                                  window, q_offset, sk, pair, n_split, scale, softcap, s);
   return launch_dkv<128, false>(q, k, v, dout, lse, delta, q_idx, q_cnt, dk, dv, dk_part,
@@ -574,36 +633,42 @@ extern "C" int flash_dkv_generic(const void* q, const void* k, const void* v,
 }
 
 // The launch each instantiation for head_dim d gets at schedule width
-// `width`: out = {CTAs resident per SM, registers a thread, dynamic shared
-// bytes, local (spill) bytes a thread, warps a CTA}.
+// `width` (bk = bq = 128): out = {CTAs resident per SM, registers a thread,
+// dynamic shared bytes, local (spill) bytes a thread, warps a CTA}.
+template <int D, bool EXACT>
+int dq_info(int width, int* out) {
+  constexpr int KT = dq_keys<D>();
+  return info(flash_dq_kernel<D, EXACT>,
+              smem_bytes<D>(16 * dq_warps<D>(), KT, width * (128 / KT), false), dq_warps<D>(),
+              out);
+}
+
+template <int D, bool EXACT>
+int dkv_info(int width, int* out) {
+  return info(flash_dkv_kernel<D, EXACT>, smem_bytes<D>(kRows, kTileKeys, 2 * width, true),
+              dkv_warps<D>(), out);
+}
+
 extern "C" int flash_dq_info(int d, int width, int* out) {
-  if (d == 64)
-    return info(flash_dq_kernel<64, true>, smem_bytes<64>(16 * dq_warps<64>(), 2 * width, false),
-                dq_warps<64>(), out);
-  if (d == 80)
-    return info(flash_dq_kernel<80, true>, smem_bytes<80>(16 * dq_warps<80>(), 2 * width, false),
-                dq_warps<80>(), out);
-  const size_t smem = smem_bytes<128>(16 * dq_warps<128>(), 2 * width, false);
-  if (d == 128) return info(flash_dq_kernel<128, true>, smem, dq_warps<128>(), out);
-  return info(flash_dq_kernel<128, false>, smem, dq_warps<128>(), out);
+  if (d == 64) return dq_info<64, true>(width, out);
+  if (d == 80) return dq_info<80, true>(width, out);
+  if (d == 128) return dq_info<128, true>(width, out);
+  if (d == 256) return dq_info<256, true>(width, out);
+  return dq_info<128, false>(width, out);
 }
 
 extern "C" int flash_dkv_info(int d, int width, int* out) {
-  if (d == 64)
-    return info(flash_dkv_kernel<64, true>, smem_bytes<64>(kRows, 2 * width, true), kWarps, out);
-  const size_t smem = d == 80 ? smem_bytes<80>(kRows, 2 * width, true)
-                              : smem_bytes<128>(kRows, 2 * width, true);
-  if (d == 80) return info(flash_dkv_kernel<80, true>, smem, kWarps, out);
-  if (d == 128) return info(flash_dkv_kernel<128, true>, smem, kWarps, out);
-  return info(flash_dkv_kernel<128, false>, smem, kWarps, out);
+  if (d == 64) return dkv_info<64, true>(width, out);
+  if (d == 80) return dkv_info<80, true>(width, out);
+  if (d == 128) return dkv_info<128, true>(width, out);
+  if (d == 256) return dkv_info<256, true>(width, out);
+  return dkv_info<128, false>(width, out);
 }
 
 extern "C" int flash_dq_generic_info(int, int width, int* out) {
-  return info(flash_dq_kernel<128, false>,
-              smem_bytes<128>(16 * dq_warps<128>(), 2 * width, false), dq_warps<128>(), out);
+  return dq_info<128, false>(width, out);
 }
 
 extern "C" int flash_dkv_generic_info(int, int width, int* out) {
-  return info(flash_dkv_kernel<128, false>, smem_bytes<128>(kRows, 2 * width, true), kWarps,
-              out);
+  return dkv_info<128, false>(width, out);
 }

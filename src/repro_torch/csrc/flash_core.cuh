@@ -4,13 +4,15 @@
 // (WarpDq for K10, WarpDkv for K11, flash_bwd.cu; described where they are
 // defined) on the same fragments, ldmatrix operands and cp.async ring.
 //
-// One warp owns 16 query rows and walks key tiles of up to kTileKeys = 64
-// keys that the CTA stages in shared memory.  Per tile:
+// One warp owns 16 query rows and walks key tiles of up to KEYS keys
+// (kTileKeys = 64, or 32 at d = 256, where a 64-key ring would leave room
+// for one CTA an SM) that the CTA stages in shared memory.  Per tile:
 //
 //  * S = Q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate), operands
 //    loaded by ldmatrix: Q's 16 x 16 A tiles from the CTA's Q rows, K's B
 //    tiles from the key rows as they lie (a key row is a column of K^T).
-//    S stays in the accumulator registers: 8 n8 tiles, 32 floats a thread.
+//    S stays in the accumulator registers: KEYS / 8 n8 tiles (32 floats a
+//    thread at 64 keys).
 //  * Scale (with log2(e) folded in, so exp is one ex2), the optional softcap
 //    c * tanh(s / c) and the mask apply to the fragments in place; the mask
 //    only where the caller says the tile needs one.  Masked scores are
@@ -24,7 +26,7 @@
 //    m16k16 A layout.  V's B tiles come from ldmatrix.trans on the key rows,
 //    so V needs no transposed copy.
 //  * O stays in registers for the whole walk (D / 8 n8 tiles: 10 at d = 80,
-//    16 at d = 128), rescaled by exp(m_old - m_new) per row.
+//    16 at d = 128, 32 at d = 256), rescaled by exp(m_old - m_new) per row.
 //
 // S, P and O never touch shared memory; only the finish writes o and lse
 // (or, for a split key walk, the unnormalised partial o, m and l).  The
@@ -41,7 +43,7 @@
 //
 // D is a template parameter (the fragment loops unroll); EXACT = false is
 // the generic instantiation at D = 128 whose loops stop at the runtime d (a
-// multiple of 16 up to 128).
+// multiple of 16 up to 128).  d = 256 has exact instantiations only.
 #pragma once
 #include <cuda_bf16.h>
 #include <math.h>
@@ -71,6 +73,7 @@ using ptx::cp_async_commit;
 using ptx::cp_async_wait_all;
 using ptx::ldsm_x4;
 using ptx::ldsm_x4_t;
+using ptx::lds_f1;
 using ptx::lds_f2;
 using ptx::mma16816;
 using ptx::pack_bf16;
@@ -119,13 +122,13 @@ struct WarpRows {
     l[0] = l[1] = 0.0f;
   }
 
-  // One key tile.  q_s: the warp's first Q row in shared memory; k_s, v_s:
-  // the stage's first key row (shared-window addresses, rows of kDP
-  // elements).  n16: the tile's 16-key groups (1-4; the rows
-  // past them are never read and their columns never live).  keep(r, c):
-  // is key column c (0..63) visible to warp row r (0..15); called only when
-  // need_mask.
-  template <typename Keep>
+  // One key tile of up to KEYS keys.  q_s: the warp's first Q row in shared
+  // memory; k_s, v_s: the stage's first key row (shared-window addresses,
+  // rows of kDP elements).  n16: the tile's 16-key groups (1..KEYS / 16;
+  // the rows past them are never read and their columns never live).
+  // keep(r, c): is key column c (0..KEYS - 1) visible to warp row r
+  // (0..15); called only when need_mask.
+  template <int KEYS = kTileKeys, typename Keep>
   __device__ __forceinline__ void attend(uint32_t q_s, uint32_t k_s, uint32_t v_s, int d,
                                          int n16, const Scores& sc, bool need_mask,
                                          Keep keep) {
@@ -142,9 +145,10 @@ struct WarpRows {
     const uint32_t va = v_s + 2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * kDP +
                                    (lane >> 4) * 8);
 
-    float s[8][4];
+    constexpr int kJ = KEYS / 8;  // the tile's n8 score tiles
+    float s[kJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
@@ -153,7 +157,7 @@ struct WarpRows {
         uint32_t a[4];
         ldsm_x4(a, qa + kt * 32);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kJ / 2; ++jj) {
           if (jj < n16) {
             uint32_t b[4];
             ldsm_x4(b, ka + jj * 16 * kDP * 2 + kt * 32);
@@ -168,7 +172,7 @@ struct WarpRows {
     // row max over the quad
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const bool past = j >= 2 * n16;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -193,11 +197,11 @@ struct WarpRows {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
     // p = exp(s - m), summed in f32 and rounded to bf16 at once (as the TPU
-    // kernel does before p @ v) into the A fragments of P: 16 registers
-    // where S took 32
-    uint32_t pa[4][4];
+    // kernel does before p @ v) into the A fragments of P: half the
+    // registers S took
+    uint32_t pa[kJ / 2][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -210,7 +214,7 @@ struct WarpRows {
 
     // O += P V
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kJ / 2; ++kk) {
       if (kk < n16) {
         const uint32_t (&a)[4] = pa[kk];
 #pragma unroll
@@ -307,6 +311,22 @@ struct BwdScores {
       ds = p * (dp - delta) * scale;
     }
   }
+  // The same in two halves for a warp that has s but not dp (WarpDkvPair):
+  // p, and w = p (1 - t^2) under a softcap, else p; then ds from w.
+  __device__ __forceinline__ void p_part(float s, float lse2, bool live, float& p,
+                                         float& w) const {
+    if (cap_log2 != 0.0f) {
+      const float t = tanhf(s * inner);
+      p = live ? exp2f(t * cap_log2 - lse2) : 0.0f;
+      w = p * (1.0f - t * t);
+    } else {
+      p = live ? exp2f(fmaf(s, scale_log2, -lse2)) : 0.0f;
+      w = p;
+    }
+  }
+  __device__ __forceinline__ float ds_part(float w, float dp, float delta) const {
+    return w * (dp - delta) * scale;
+  }
 };
 
 // ldmatrix lane offsets (bytes) into 16-row operand tiles of kDP-element
@@ -398,8 +418,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float* 
 }
 
 // K10's register state: one warp's 16 query rows and their dq (16 x d).
-// Per 64-key tile, one 16-key group at a time (so S and dP take 16 floats
-// a thread, and the step fits 128 registers at d = 80): S = Q K^T and dP =
+// Per key tile of up to KEYS keys (64, or 32 at d = 256), one 16-key group
+// at a time (so S and dP take 16 floats a thread, and the step fits 128
+// registers at d = 80): S = Q K^T and dP =
 // dO V^T in accumulators (K and V B tiles by ldmatrix from the key rows as
 // they lie), p and ds in place, ds rounded to bf16 and repacked into A
 // fragments (the accumulator-to-A repack of WarpRows::attend), then dq +=
@@ -421,9 +442,9 @@ struct WarpDq {
 
   // q_s, do_s: the warp's first Q and dO rows; k_s, v_s: the tile's first
   // key rows (shared-window addresses).  lse2, dlt: the thread's rows g and
-  // g + 8.  keep(r, c): is key c (0..63) visible to warp row r; called only
-  // when need_mask.
-  template <typename Keep>
+  // g + 8.  keep(r, c): is key c (0..KEYS - 1) visible to warp row r;
+  // called only when need_mask.
+  template <int KEYS = kTileKeys, typename Keep>
   __device__ __forceinline__ void step(uint32_t q_s, uint32_t do_s, uint32_t k_s, uint32_t v_s,
                                        int d, int g_lo, int g_hi, const float (&lse2)[2],
                                        const float (&dlt)[2], const BwdScores& sc,
@@ -432,7 +453,7 @@ struct WarpDq {
     const int g = lane >> 2, t = lane & 3;
     const int d16 = EXACT ? D / 16 : d / 16;
 #pragma unroll
-    for (int grp = 0; grp < 4; ++grp) {
+    for (int grp = 0; grp < KEYS / 16; ++grp) {
       if (grp < g_lo || grp >= g_hi) continue;
       float s[2][4], dp[2][4];
 #pragma unroll
@@ -521,6 +542,125 @@ struct WarpDkv {
       }
       acc_product<D, EXACT>(dv, pa, do_s + off_bt<kDP>(lane), d16, grp);
       acc_product<D, EXACT>(dk, dsa, q_s + off_bt<kDP>(lane), d16, grp);
+    }
+  }
+};
+
+// Named barriers of a warp pair (64 threads; ids 1..15, 0 is __syncthreads):
+// arrive does not wait, sync waits for the pair.  Shared-memory writes
+// before the arrive are visible to the pair after its sync.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// K11's register state at d = 256, where dk and dv of 16 KV rows (2 d / 4
+// = 128 floats a thread) do not both fit one warp's 255 registers: a pair
+// of warps owns the 16 rows, the even warp (role 0) their dv and the odd
+// one (role 1) their dk, 128 floats each.  Per 64-row q tile (16-row
+// groups g_lo..g_hi - 1 live), role 0 computes S^T = K Q^T, p^T from lse
+// and w = p (1 - t^2) (p under no softcap), stores w to the pair's buffer
+// in shared memory, arrives at the pair's barrier and runs dv += P^T dO;
+// role 1 computes dP^T = V dO^T meanwhile, waits at the barrier, reads w
+// and runs ds = w (dp - delta) scale, dk += dS^T Q.  Each of K11's four
+// products runs once, two in each warp, so the pair does the work one warp
+// does at d <= 128.  The buffer takes 4 groups x 8 x 32 floats (4 KB), a
+// thread's 8 values of a group at stride 32 words (no bank conflict); the
+// CTA's __syncthreads between tiles keeps role 0's next writes after role
+// 1's reads.
+template <int D>
+struct WarpDkvPair {
+  static constexpr int kN8 = D / 8;
+  static constexpr int kDP = row_pad<D>();
+  static constexpr int kBufBytes = 4 * 8 * 32 * 4;  // a pair's buffer
+  float acc[kN8][4];  // dv (role 0) or dk (role 1)
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < kN8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+
+  // As WarpDkv::step; role 0 or 1, bar: the pair's barrier id, buf: its
+  // buffer (shared-window address).
+  template <typename Keep>
+  __device__ __forceinline__ void step(int role, int bar, uint32_t buf, uint32_t k_s,
+                                       uint32_t v_s, uint32_t q_s, uint32_t do_s,
+                                       uint32_t lse_s, uint32_t dlt_s, int g_lo, int g_hi,
+                                       const BwdScores& sc, bool need_mask, Keep keep) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    constexpr int d16 = D / 16;
+    const uint32_t mine = buf + 4 * lane;
+    if (role == 0) {
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp) {
+        if (grp < g_lo || grp >= g_hi) continue;
+        float s[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+        rows_dot<D, true>(s, k_s + off_a<kDP>(lane), q_s + off_b<kDP>(lane), d16, grp);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 16 * grp + 8 * j + 2 * t;
+          const float2 l = lds_f2(lse_s + 4 * c);
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool live = !need_mask || keep(g + (e >> 1) * 8, c + (e & 1));
+            float w;
+            sc.p_part(s[j][e], ((e & 1) ? l.y : l.x) * kLog2e, live, p[e], w);
+            asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(
+                             mine + 4 * 32 * (8 * grp + 4 * j + e)),
+                         "f"(w)
+                         : "memory");
+          }
+          pa[grp][j * 2] = pack_bf16(p[0], p[1]);
+          pa[grp][j * 2 + 1] = pack_bf16(p[2], p[3]);
+        }
+      }
+      pair_arrive(bar);
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp)
+        if (grp >= g_lo && grp < g_hi)
+          acc_product<D, true>(acc, pa[grp], do_s + off_bt<kDP>(lane), d16, grp);
+    } else {
+      float dp[4][2][4];
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[grp][j][e] = 0.0f;
+        if (grp >= g_lo && grp < g_hi)
+          rows_dot<D, true>(dp[grp], v_s + off_a<kDP>(lane), do_s + off_b<kDP>(lane), d16,
+                            grp);
+      }
+      pair_sync(bar);
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp) {
+        if (grp < g_lo || grp >= g_hi) continue;
+        uint32_t dsa[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 16 * grp + 8 * j + 2 * t;
+          const float2 dl = lds_f2(dlt_s + 4 * c);
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[e] = sc.ds_part(lds_f1(mine + 4 * 32 * (8 * grp + 4 * j + e)), dp[grp][j][e],
+                               (e & 1) ? dl.y : dl.x);
+          dsa[j * 2] = pack_bf16(ds[0], ds[1]);
+          dsa[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+        acc_product<D, true>(acc, dsa, q_s + off_bt<kDP>(lane), d16, grp);
+      }
     }
   }
 };

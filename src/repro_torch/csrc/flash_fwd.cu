@@ -18,7 +18,7 @@
 //
 // Design (csrc/flash_core.cuh holds the warp-level core shared with K12):
 // a CTA takes the rows of one (bh, q-block): 8 warps (128 rows) at
-// d <= 80 (hymba's d = 64 and danube's d = 80), 4 warps (64 rows, so a
+// d <= 80 (hymba's d = 64 and danube's d = 80) and d = 256, 4 warps (64 rows, so a
 // q-block of 128 is two CTAs) at d = 128 and in the generic instantiation,
 // each warp 16 rows.  Q is copied once into
 // shared memory; its ldmatrix fragments are re-read there each tile.  The
@@ -31,6 +31,14 @@
 // d = 64 and d = 80 (16 warps: 120 registers under the launch bound's 128,
 // 55.3 / 67.6 KB of shared memory) and at d = 128 (8 warps: 162 registers,
 // 87 KB); no spill.
+//
+// d = 256 (gemma3): O alone is 128 floats a thread (241 registers under a
+// 255 cap: one 8-warp CTA an SM), and a 528-byte padded row makes a 64-key
+// ring 135 KB.  The ring takes 32-key tiles (S and P halve too): Q's 128
+// rows 67.6 KB + the ring 67.6 KB.  Timed against 4 warps with 32-key
+// tiles (2 CTAs an SM) and 4 warps with 64-key tiles (1 CTA) by
+// scripts/flash_d256_tiles.py: 0.130 / 0.215 ms against 0.135 / 0.220 and
+// 0.203 / 0.295 at gemma3's local / global S = 2048 (PERF.md section 6).
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): the 8 timed cases
 // sum to 1.47 ms (scaled_dot_product_attention 2.32, the first version
@@ -49,17 +57,25 @@ using bf16 = __nv_bfloat16;
 using flash::kTileKeys;
 
 template <int D>
-__host__ __device__ constexpr int warps() { return D <= 80 ? 8 : 4; }
+__host__ __device__ constexpr int warps() { return D <= 80 || D > 128 ? 8 : 4; }
+
+// CTAs an SM the launch bound asks for: 1 at d = 256 (registers).
+template <int D>
+__host__ __device__ constexpr int min_ctas() { return D > 128 ? 1 : 2; }
+
+// Keys a ring tile: 32 at d = 256 (see above), else 64.
+template <int D>
+__host__ __device__ constexpr int tile_keys() { return D > 128 ? 32 : kTileKeys; }
 
 template <int D>
 size_t smem_bytes(int width) {
   // Q rows, two K and two V stages, the q-block's walk
-  return (size_t)flash::tile_bytes<D>(warps<D>() * 16 + 4 * kTileKeys) +
+  return (size_t)flash::tile_bytes<D>(warps<D>() * 16 + 4 * tile_keys<D>()) +
          sizeof(int) * (size_t)width;
 }
 
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(warps<D>() * 32, 2)
+__global__ void __launch_bounds__(warps<D>() * 32, min_ctas<D>())
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ kv_idx,
                  const int* __restrict__ kv_cnt, bf16* __restrict__ o,
@@ -69,12 +85,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kThreads = warps<D>() * 32;
   constexpr int kRows = warps<D>() * 16;
   constexpr int DP = flash::row_pad<D>();
-  constexpr int kStage = flash::tile_bytes<D>(kTileKeys);
+  constexpr int KT = tile_keys<D>();
+  constexpr int kStage = flash::tile_bytes<D>(KT);
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t qs = flash::smem_addr(smem);     // kRows Q rows
   const uint32_t ks = qs + flash::tile_bytes<D>(kRows);  // 2 K stages
   const uint32_t vs = ks + 2 * kStage;            // 2 V stages
-  int* idx_s = reinterpret_cast<int*>(smem + flash::tile_bytes<D>(kRows + 4 * kTileKeys));
+  int* idx_s = reinterpret_cast<int*>(smem + flash::tile_bytes<D>(kRows + 4 * KT));
 
   const int d = EXACT ? D : d_rt;
   const int cpr = d / 8;  // 16-byte chunks a row
@@ -91,7 +108,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_row0 = (bh / groups) * Skp;  // KV row bh / G
   const int* walk = kv_idx + (size_t)qb * width;
   const int count = kv_cnt[qb];
-  const int nsub = (bk + kTileKeys - 1) / kTileKeys;
+  const int nsub = (bk + KT - 1) / KT;
   const int n_tiles = count * nsub;
   for (int i = threadIdx.x; i < count; i += kThreads) idx_s[i] = walk[i];
 
@@ -104,8 +121,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // tile t: sub-tile t % nsub of schedule block kb = walk[t / nsub]
   auto issue_block = [&](int t, int stage, int kb) {
     const int sub = t % nsub;
-    const int key0 = kb * bk + sub * kTileKeys;
-    const int nk = min(kTileKeys, bk - sub * kTileKeys);
+    const int key0 = kb * bk + sub * KT;
+    const int nk = min(KT, bk - sub * KT);
     for (int c = threadIdx.x; c < nk * cpr; c += kThreads) {
       const int r = c / cpr, col = (c % cpr) * 8;
       const size_t g = (size_t)(kv_row0 + key0 + r) * d + col;
@@ -127,12 +144,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       [&](int t, int stage) {
         if (!live) return;
         const int sub = t % nsub;
-        const int key0 = idx_s[t / nsub] * bk + sub * kTileKeys;
-        const int nk = min(kTileKeys, bk - sub * kTileKeys);
+        const int key0 = idx_s[t / nsub] * bk + sub * KT;
+        const int nk = min(KT, bk - sub * KT);
         const int k_hi = key0 + nk - 1;
         const bool inside = k_hi < sk && (!causal || k_hi <= q_lo) &&
                             (!window || key0 > q_lo + 15 - window);
-        acc.attend(qs + warp * 16 * DP * 2, ks + stage * kStage, vs + stage * kStage, d,
+        acc.template attend<KT>(qs + warp * 16 * DP * 2, ks + stage * kStage, vs + stage * kStage, d,
                    nk / 16, sc, !inside,
                    [&](int r, int c) {
                      const int kpos = key0 + c, qpos = q_lo + r;
@@ -198,9 +215,10 @@ int info(int width, int* out) {
 
 // q (BH, Sqp, d), k/v (BH/groups, Skp, d) bf16; kv_idx (Sqp/bq, width),
 // kv_cnt (Sqp/bq,) int32; o (BH, Sqp, d) bf16, lse (BH, Sqp) f32.  The
-// wrapper checks d % 16 == 0 and d <= 128, bq and bk multiples of 16 up to
-// 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.  d = 64, d = 80
-// and d = 128 run their own instantiations; other d the generic one.
+// wrapper checks d % 16 == 0 and d <= 128 or d == 256, bq and bk multiples
+// of 16 up to 128, Sqp % bq == 0, Skp % bk == 0 and 16-byte alignment.
+// d = 64, 80, 128 and 256 run their own instantiations; other d the generic
+// one.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_idx, const void* kv_cnt, void* o, void* lse,
                          int BH, int Sqp, int Skp, int d, int bq, int bk, int width,
@@ -215,6 +233,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                             groups, causal, window, q_offset, sk, scale, softcap, s);
   if (d == 128)
     return launch<128, true>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
+                             groups, causal, window, q_offset, sk, scale, softcap, s);
+  if (d == 256)
+    return launch<256, true>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
                              groups, causal, window, q_offset, sk, scale, softcap, s);
   return launch<128, false>(q, k, v, kv_idx, kv_cnt, o, lse, BH, Sqp, Skp, d, bq, bk, width,
                             groups, causal, window, q_offset, sk, scale, softcap, s);
@@ -238,6 +259,7 @@ extern "C" int flash_fwd_info(int d, int width, int* out) {
   if (d == 64) return info<64, true>(width, out);
   if (d == 80) return info<80, true>(width, out);
   if (d == 128) return info<128, true>(width, out);
+  if (d == 256) return info<256, true>(width, out);
   return info<128, false>(width, out);
 }
 

@@ -17,10 +17,13 @@ the sources:
 
 K9, K10, K11 and K12 share their warp-level core (mma.sync with
 register-resident scores and accumulators, a two-stage cp.async ring):
-csrc/flash_core.cuh.  K10 and K11 walk units of ``bwd_unit_rows`` rows,
-paired and split as ``bwd_plan`` says from the schedule (``bwd_walks``
-lists each CTA's walk as the kernels take it; ``flash_bwd_walked_plain``
-is the plain version that follows it).
+csrc/flash_core.cuh.  K10 and K11 walk units of ``bwd_unit_rows`` rows
+over tiles of ``bwd_tile_rows``, paired and split as ``bwd_plan`` says
+from the schedule (``bwd_walks`` lists each CTA's walk as the kernels take
+it; ``flash_bwd_walked_plain`` is the plain version that follows it).
+K9-K11 take head_dim 256 (gemma3) in instantiations of their own; K12
+stops at 128 (no path runs it at 256: gemma3's local layers refuse the
+prefix cache).
 
 The walks come from a host-built AttnSchedule (``core/attn_sched.py``); the
 causal, sliding-window, ``q_offset`` and padded-key masks are applied in the
@@ -66,8 +69,10 @@ __all__ = [
     "flash_attention_plain",
     "bwd_ctas_per_sm",
     "bwd_plan",
+    "bwd_tile_rows",
     "bwd_unit_rows",
     "bwd_walks",
+    "bwd_warps",
     "flash_bwd",
     "flash_bwd_plain",
     "flash_bwd_walked_plain",
@@ -89,7 +94,7 @@ NEG_INF = -1e30
 EPS = 1e-30
 PAGED_ROWS = 64    # folded query rows a K12 CTA takes (csrc/flash_paged.cu)
 SPLIT_KEYS = 128   # the unit of a K12 split's key range
-BWD_ROWS = 64      # rows of a K10 / K11 walk's tiles, and of a K11 unit (csrc/flash_bwd.cu)
+BWD_ROWS = 64      # rows of a K10 / K11 walk's tiles (K10's at d = 256: 32), and of a K11 unit
 BWD_MAX_SPLIT = 4  # the most CTAs a K10 / K11 unit's walk is split over
 
 # kernel launches since import (or since a caller reset them)
@@ -279,23 +284,40 @@ def grad_error_bound(g_plain, g_rnd, g_err) -> torch.Tensor:
 
 def bwd_unit_rows(kind: str, d: int) -> int:
     """Rows a K10 (``kind`` "dq": query rows) or K11 ("dkv": KV rows) unit
-    owns at head_dim d: one 16-row warp each, 8 warps for K10 at d = 64
-    and d = 80, 4 otherwise (csrc/flash_bwd.cu; the card tests hold these
-    to ``launch_info``)."""
-    return 128 if kind == "dq" and d in (64, 80) else BWD_ROWS
+    owns at head_dim d: one 16-row warp each (a warp pair under K11 at
+    d = 256), 8 warps for K10 at d = 64, 80 and 256, 4 otherwise
+    (csrc/flash_bwd.cu; the card tests hold these to ``launch_info``)."""
+    return 128 if kind == "dq" and d in (64, 80, 256) else BWD_ROWS
+
+
+def bwd_tile_rows(kind: str, d: int) -> int:
+    """Rows of the tiles a K10 (key rows) or K11 (query rows) unit walks:
+    32 keys for K10 at d = 256 (its ring of two 64-key stages would leave
+    no room for the unit's 128 Q and dO rows), else ``BWD_ROWS``."""
+    return 32 if kind == "dq" and d == 256 else BWD_ROWS
+
+
+def bwd_warps(kind: str, d: int) -> int:
+    """Warps a K10 / K11 CTA runs: a 16-row warp a unit row group, two
+    (a pair) for K11 at d = 256."""
+    return bwd_unit_rows(kind, d) // 16 * (2 if kind == "dkv" and d == 256 else 1)
 
 
 def bwd_ctas_per_sm(kind: str, d: int) -> int:
     """CTAs of K10 / K11 resident per SM at head_dim d: K10 2 (at d = 64
     and d = 80 by its 128-register launch bound, else by shared memory),
     K11 3 at d = 64 and d = 80 (its launch bound) and 2 at d = 128 and in
-    the generic instantiation (shared memory), as csrc/flash_bwd.cu builds
-    them and ``launch_info`` reads them on the card."""
+    the generic instantiation (shared memory); both 1 at d = 256 (shared
+    memory), as csrc/flash_bwd.cu builds them and ``launch_info`` reads
+    them on the card."""
+    if d == 256:
+        return 1
     return 3 if kind == "dkv" and d in (64, 80) else 2
 
 
 def bwd_plan(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int,
-             q_offset: int, sk: int, groups: int, unit_rows: int, n_rows: int, slots: int):
+             q_offset: int, sk: int, groups: int, unit_rows: int, n_rows: int, slots: int,
+             tile_rows: int = BWD_ROWS):
     """How K10 (``kind`` "dq") or K11 ("dkv") balance their walks on the
     schedule ``idx``/``cnt`` (numpy) -> (pair, n_split).
 
@@ -316,7 +338,7 @@ def bwd_plan(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int
         for pair in (False, True):
             walks = bwd_walks(kind, idx, cnt, bq=bq, bk=bk, causal=causal, window=window,
                               q_offset=q_offset, sk=sk, groups=groups, unit_rows=unit_rows,
-                              pair=pair, n_split=n_split)
+                              pair=pair, n_split=n_split, tile_rows=tile_rows)
             dur = [sum(1 + len(steps) for _, _, steps in units) for _, units in walks]
             if len(dur) * n_rows <= slots:
                 span = max(dur)
@@ -332,7 +354,8 @@ def bwd_plan(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int
 
 
 def bwd_walks(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: int,
-              q_offset: int, sk: int, groups: int, unit_rows: int, pair: bool, n_split: int):
+              q_offset: int, sk: int, groups: int, unit_rows: int, pair: bool, n_split: int,
+              tile_rows: int = BWD_ROWS):
     """The walks of one grid row of K10 (``kind`` "dq", on the forward
     schedule ``idx``/``cnt``) or K11 ("dkv", on the transposed one), as the
     kernels take them -> one entry per CTA in blockIdx.x order:
@@ -340,8 +363,9 @@ def bwd_walks(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: in
 
     A K10 unit is the query rows [row0, row0 + rows) (``unit_rows``,
     ``bwd_unit_rows``, or the rest of a q-block), a K11 unit the KV rows.
-    Its candidate tiles are the 64-row sub-tiles of its schedule's live
-    blocks, in schedule order; a sub-tile
+    Its candidate tiles are the ``tile_rows``-row sub-tiles
+    (``bwd_tile_rows``) of its schedule's live blocks, in schedule order; a
+    sub-tile
     wholly dead for the unit (every (q, k) pair masked by causality, the
     window or k >= sk) is dropped.  K10's steps are (0, key0, keys) per key
     tile; K11's are (member gm, q row0, rows) over the G members in turn.
@@ -350,7 +374,7 @@ def bwd_walks(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: in
     idx, cnt = np.asarray(idx), np.asarray(cnt)
     blk, other = (bq, bk) if kind == "dq" else (bk, bq)
     parts = -(-blk // unit_rows)
-    nsub = -(-other // BWD_ROWS)
+    nsub = -(-other // tile_rows)
     n_units = idx.shape[0] * parts
 
     def unit(u, s):
@@ -360,8 +384,8 @@ def bwd_walks(kind: str, idx, cnt, *, bq: int, bk: int, causal: bool, window: in
         tiles = []
         for step in range(int(cnt[b])):
             for sub in range(nsub):
-                t0 = int(idx[b, step]) * other + sub * BWD_ROWS
-                n = min(BWD_ROWS, other - sub * BWD_ROWS)
+                t0 = int(idx[b, step]) * other + sub * tile_rows
+                n = min(tile_rows, other - sub * tile_rows)
                 q0, nq, k0, nk = (row0, rows, t0, n) if kind == "dq" else (t0, n, row0, rows)
                 q0 += q_offset
                 dead = (k0 >= sk or (causal and k0 > q0 + nq - 1)
@@ -472,8 +496,8 @@ def _check_cuda(what, q, k, v, idx, cnt, n_sched, bq, bk, kv_groups, rows=()):
         raise TypeError(f"{what}: schedule arrays must be int32")
     if not all(t.is_contiguous() for t in (q, k, v, idx, cnt, *extra)):
         raise ValueError(f"{what}: inputs must be contiguous")
-    if d % 16 or d > 128:
-        raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 up to 128")
+    if d % 16 or (d > 128 and d != 256):
+        raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 up to 128, or 256")
     for name, b in (("bq", bq), ("bk", bk)):
         if b % 16 or not 16 <= b <= 128:
             raise ValueError(f"{what}: {name}={b} must be a multiple of 16 in [16, 128]")
@@ -488,7 +512,10 @@ def _check_cuda(what, q, k, v, idx, cnt, n_sched, bq, bk, kv_groups, rows=()):
         raise ValueError(f"{what}: q, k, v and do must be 16-byte aligned")
 
 
-def _entry(name: str, n_ptr: int, n_int: int, generic: bool = False):
+def _entry(name: str, n_ptr: int, n_int: int, generic: bool = False, d: int = 0):
+    if generic and d > 128:
+        raise ValueError(f"{name}: the generic instantiation takes head_dim up to 128, "
+                         f"not {d}")
     lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
     fn = getattr(lib, name + ("_generic" if generic else ""))
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -528,7 +555,7 @@ def flash_fwd(q, k, v, kv_idx, kv_cnt, *, bq: int, bk: int, causal: bool,
         return flash_attention_plain(q, k, v, kv_idx, kv_cnt, **kw)
     BH, Sqp, _ = q.shape
     _check_cuda("flash_fwd", q, k, v, kv_idx, kv_cnt, Sqp // bq, bq, bk, kv_groups)
-    lib, fn = _entry("flash_fwd", 7, 12, generic)
+    lib, fn = _entry("flash_fwd", 7, 12, generic, q.shape[2])
     o = torch.empty_like(q)
     lse = torch.empty(BH, Sqp, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -562,7 +589,7 @@ def _bwd_plan_for(kind, Sqp, Skp, d, n_rows, n_sm, bq, bk, causal, window, q_off
     return bwd_plan(kind, idx, cnt, bq=bq, bk=bk, causal=causal, window=window,
                     q_offset=q_offset, sk=sk, groups=kv_groups,
                     unit_rows=bwd_unit_rows(kind, d), n_rows=n_rows,
-                    slots=n_sm * bwd_ctas_per_sm(kind, d))
+                    slots=n_sm * bwd_ctas_per_sm(kind, d), tile_rows=bwd_tile_rows(kind, d))
 
 
 def _bwd_launch(kind, q, k, idx, kw, generic=False):
@@ -591,7 +618,7 @@ def flash_dq(q, k, v, do, lse, delta, kv_idx, kv_cnt, *, bq: int, bk: int,
         return flash_bwd_plain(q, k, v, do, lse, delta, blocks, **kw)[0]
     _check_cuda("flash_dq", q, k, v, kv_idx, kv_cnt, q.shape[1] // bq, bq, bk,
                 kv_groups, rows=(do, lse, delta))
-    lib, fn = _entry("flash_dq", 10, 14, generic)
+    lib, fn = _entry("flash_dq", 10, 14, generic, q.shape[2])
     BH, Sqp, d = q.shape
     n_split, args = _bwd_launch("dq", q, k, kv_idx, kw, generic)
     dq = torch.empty_like(q)
@@ -623,7 +650,7 @@ def flash_dkv(q, k, v, do, lse, delta, q_idx, q_cnt, *, bq: int, bk: int,
         return flash_bwd_plain(q, k, v, do, lse, delta, blocks, **kw)[1:]
     _check_cuda("flash_dkv", q, k, v, q_idx, q_cnt, k.shape[1] // bk, bq, bk,
                 kv_groups, rows=(do, lse, delta))
-    lib, fn = _entry("flash_dkv", 12, 14, generic)
+    lib, fn = _entry("flash_dkv", 12, 14, generic, q.shape[2])
     BKV, Skp, d = k.shape
     n_split, args = _bwd_launch("dkv", q, k, q_idx, kw, generic)
     dkv = torch.empty(2, BKV, Skp, d, dtype=k.dtype, device=k.device)
@@ -862,7 +889,9 @@ def flash_attention_paged(q, pool_k, pool_v, table, ctx, *,
                          f"{tuple(pool_k.shape)}, table {tuple(table.shape)}, "
                          f"ctx {tuple(ctx.shape)} do not match")
     if d % 16 or d > 128:
-        raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 up to 128")
+        raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 up to 128 "
+                         "(K12 has no head_dim 256 instantiation: no prefix-cache path "
+                         "runs it)")
     if not all(t.is_contiguous() for t in (q, pool_k, pool_v, table, ctx)):
         raise ValueError(f"{what}: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):

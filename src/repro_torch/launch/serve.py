@@ -36,7 +36,7 @@ import torch
 
 from ..configs import get_config, validate_sparse_kernel
 from ..core.distributions import sparsity_map
-from ..core.masks import apply_masks, init_masks, tree_paths
+from ..core.masks import apply_masks_, init_masks, tree_paths
 from ..core.pack import build_pack_state
 from ..data.synthetic import batch_for
 from ..device import resolve_device
@@ -141,7 +141,7 @@ def init_serving_state(cfg, seed: int = 0, *, device=None):
     """Fresh weights ready to serve -> (params, masks, pack).
 
     ``init_lm`` -> ERK ``sparsity_map`` -> ``init_masks`` (block-aligned
-    under block_sparse) -> ``apply_masks`` -> ``build_pack_state``.
+    under block_sparse) -> ``apply_masks_`` (in place) -> ``build_pack_state``.
     Kernel-dispatch modes serve the masked weights with their masks (and
     the pack under block_sparse; ``None`` under masked, whose forward needs
     no superset carrier); dense mode serves pre-masked weights with masks
@@ -167,7 +167,7 @@ def init_serving_state(cfg, seed: int = 0, *, device=None):
                 )
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         masks = init_masks(gen, params, smap, block_shape=sp.block_shape)
-        params = apply_masks(params, masks)
+        params = apply_masks_(params, masks)
     if sp.kernel == "masked" and masks is not None:
         return params, masks, None
     if sp.kernel != "block_sparse" or masks is None:

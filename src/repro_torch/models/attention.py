@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention import flash_attention, flash_attention_paged
-from .layers import P, compute_dtype, linear
+from .layers import P, compute_dtype, linear, rmsnorm, rmsnorm_init
 
 __all__ = [
     "attn_init",
@@ -53,13 +53,19 @@ def _fan_in(gen, shape):
 
 
 def attn_init(gen, cfg, *, sparse: bool = True):
+    """The four projections; under ``cfg.qk_norm`` also the dense
+    ``q_norm``/``k_norm`` scales over head_dim."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": {"w": P(_fan_in(gen, (d, H * hd)), sparse)},
         "wk": {"w": P(_fan_in(gen, (d, KV * hd)), sparse)},
         "wv": {"w": P(_fan_in(gen, (d, KV * hd)), sparse)},
         "wo": {"w": P(_fan_in(gen, (H * hd, d)), sparse)},
     }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, gen.device)
+        p["k_norm"] = rmsnorm_init(hd, gen.device)
+    return p
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,6 +107,9 @@ def _qkv(p, x, cfg, masks=None, pack=None):
     q = linear(p["wq"], x, dt, **_linear_kw(cfg, masks, "wq", pack)).reshape(B, S, H, hd)
     k = linear(p["wk"], x, dt, **_linear_kw(cfg, masks, "wk", pack)).reshape(B, S, KV, hd)
     v = linear(p["wv"], x, dt, **_linear_kw(cfg, masks, "wv", pack)).reshape(B, S, KV, hd)
+    if cfg.qk_norm:  # over head_dim, before RoPE, at rmsnorm's own eps (1e-6)
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
     return q, k, v
 
 

@@ -7,7 +7,10 @@ through ``layers.grouped_linear``), the xLSTM family (xlstm-1.3b:
 ``models/xlstm.py``, mLSTM and sLSTM blocks with recurrent per-slot states
 in place of KV caches; tied embeddings) and the hybrid family (hymba-1.5b:
 ``models/ssm.py``'s selective SSM beside the attention in every block,
-each normed and the two averaged; a KV cache and an SSM state per slot).
+each normed and the two averaged; a KV cache and an SSM state per slot),
+parallel blocks (command-r-plus-104b: the attention and the FFN read the
+same normed input and join the residual together) and gemma3 (gemma3-4b:
+qk-norm, sandwich norms on both outputs, GeGLU, 5:1 local:global).
 Every weight matmul goes
 through ``layers.linear`` or ``grouped_linear`` (the block-sparse kernels
 under ``cfg.sparse.kernel='block_sparse'``, the masked kernels under
@@ -75,17 +78,15 @@ def _check_ported(cfg) -> None:
     unported = {
         "block_type": cfg.block_type not in ("transformer", "xlstm", "hymba"),
         "frontend": cfg.frontend != "none",
-        "parallel_block": cfg.parallel_block,
-        "post_norms": cfg.post_norms,
-        "qk_norm": cfg.qk_norm,
-        "mlp_kind": cfg.mlp_kind != "swiglu",
+        "mlp_kind": cfg.mlp_kind not in ("swiglu", "geglu"),
         "causal": not cfg.causal,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
             f"config {cfg.name!r}: {', '.join(bad)} not ported yet (the port "
-            "runs the causal transformer, its MoE variant, xLSTM and hymba)"
+            "runs the causal transformer with parallel or sandwich-normed "
+            "blocks, its MoE variant, xLSTM and hymba)"
         )
 
 
@@ -96,8 +97,9 @@ def init_lm(cfg, seed: int = 0, *, device=None):
     config's layers hold ``moe`` (``models/moe.py``) in place of ``mlp``;
     an xLSTM config's hold ``ln1`` and an ``mlstm`` or (every
     ``cfg.slstm_every``-th) an ``slstm`` block; a hymba config's hold
-    ``ssm``, ``attn_norm`` and ``ssm_norm`` beside the attention.  Tied
-    embeddings: no ``head`` leaf."""
+    ``ssm``, ``attn_norm`` and ``ssm_norm`` beside the attention.  A
+    ``parallel_block`` layer has no ``ln2``; ``post_norms`` adds
+    ``ln1_post`` and ``ln2_post``.  Tied embeddings: no ``head`` leaf."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -117,7 +119,11 @@ def init_lm(cfg, seed: int = 0, *, device=None):
         if cfg.block_type == "hymba":
             mixer.update(ssm=S.ssm_init(gen, cfg), attn_norm=rmsnorm_init(d, dev),
                          ssm_norm=rmsnorm_init(d, dev))
-        return {**mixer, "ln2": rmsnorm_init(d, dev), **ff()}
+        if not cfg.parallel_block:
+            mixer["ln2"] = rmsnorm_init(d, dev)
+        if cfg.post_norms:
+            mixer.update(ln1_post=rmsnorm_init(d, dev), ln2_post=rmsnorm_init(d, dev))
+        return {**mixer, **ff()}
 
     tree = {
         "embed": {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))},
@@ -135,15 +141,18 @@ def serving_weights(params, cfg):
     every call (``layers.linear``, the embedding gather); casting once gives
     the same bits without re-reading f32 weights on every decode step.  The
     MLP weights (an MoE's banks, router and shared MLP too), the xLSTM
-    blocks, hymba's SSM, norm scales and the LM head stay f32: the
-    reference computes them in the f32 residual's dtype.  A tied table stays f32 too: the head
-    reads it in h's dtype (the gather casts its rows)."""
+    blocks, hymba's SSM, norm scales (qk-norm's ``q_norm``/``k_norm``
+    under ``attn`` included: rmsnorm reads them in f32) and the LM head
+    stay f32: the reference computes them in the f32 residual's dtype.  A
+    tied table stays f32 too: the head reads it in h's dtype (the gather
+    casts its rows)."""
     dt = compute_dtype(cfg)
     out = dict(params)
     if "head" in params:
         out["embed"] = {"table": params["embed"]["table"].to(dt)}
     out["layers"] = [
-        dict(lp, attn={name: {"w": w["w"].to(dt)} for name, w in lp["attn"].items()})
+        dict(lp, attn={name: {"w": leaf["w"].to(dt)} if "w" in leaf else leaf
+                       for name, leaf in lp["attn"].items()})
         if "attn" in lp else lp
         for lp in params["layers"]
     ]
@@ -185,6 +194,27 @@ def _ff(p, x, cfg, masks, pack, active=None):
                pack=_sub(pack, "mlp")), 0.0
 
 
+def _join(p, x, h, attn_out, cfg, masks, pack, active=None):
+    """The block after its mixer -> (x, aux), as the reference: the
+    attention output post-normed under ``post_norms``; the FFN reads
+    ``h`` (the mixer's input) under ``parallel_block`` and joins the
+    residual beside the attention (x + attn_out + ff_out), else reads
+    rmsnorm(ln2) of x + attn_out; its output post-normed too."""
+    if cfg.post_norms:
+        attn_out = rmsnorm(p["ln1_post"], attn_out, cfg.norm_eps)
+    if cfg.parallel_block:
+        ff_in = h
+    else:
+        x = x + attn_out
+        ff_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    ff_out, aux = _ff(p, ff_in, cfg, masks, pack, active)
+    if cfg.post_norms and cfg.d_ff:
+        ff_out = rmsnorm(p["ln2_post"], ff_out, cfg.norm_eps)
+    if cfg.parallel_block:
+        return x + attn_out + ff_out, aux
+    return x + ff_out, aux
+
+
 def _hymba_mix(p, attn_out, ssm_out, cfg):
     """Hymba's two heads, each normed, averaged (bf16 attention plus the
     f32 SSM promotes to f32, as in the reference)."""
@@ -220,9 +250,8 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
                                   with_u=True)
         attn_out = _hymba_mix(p, attn_out, ssm_out, cfg)
         state = (kv, ssm_h, u)
-    x = x + attn_out
-    ff_out, aux = _ff(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, masks, pack)
-    return x + ff_out, state, aux
+    x, aux = _join(p, x, h, attn_out, cfg, masks, pack)
+    return x, state, aux
 
 
 def _logits(params, cfg, h):
@@ -527,6 +556,5 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
                                         masks=_sub(m, "ssm"), pack=_sub(pk, "ssm"))
             _gate_rows(active, new, c["ssm"])
             attn_out = _hymba_mix(p, attn_out, ssm_out, cfg)
-        x = x + attn_out
-        x = x + _ff(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, m, pk, active)[0]
+        x = _join(p, x, h, attn_out, cfg, m, pk, active)[0]
     return _logits(params, cfg, rmsnorm(params["ln_f"], x, cfg.norm_eps)), caches

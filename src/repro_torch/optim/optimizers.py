@@ -56,8 +56,11 @@ def _leaves(tree):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in f32, on the leaves' device
-    (a 0-d tensor: no host sync)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in _leaves(tree)))
+    (a 0-d tensor: no host sync).  A leaf larger than ``CHUNK`` elements
+    sums its row chunks' squares in order (its squares never exist at
+    once)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g[r].float()))
+                          for g in _leaves(tree) for r in _row_chunks(g)))
 
 
 def init_opt(cfg: OptConfig, params, *, device=None):
@@ -82,7 +85,8 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
     device.  ``gnorm``: the grads' global norm, when the caller has it (the
     grad_clip scale needs it).  In place, unlike the reference's pure
     function: a full-width model has no room for a second copy of its
-    params and moments.
+    params and moments; a large leaf is updated in row chunks
+    (``_row_chunks``) for the same reason.
     """
     scale = None
     if cfg.grad_clip:
@@ -95,9 +99,10 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
 
     if cfg.kind == "sgd":
         def upd(_, g, m, p):
-            p_new, m_new = _sgd(cfg, clipped(g), m, p, lr)
-            put(p, p_new)
-            put(m, m_new)
+            for r in _row_chunks(p):
+                p_new, m_new = _sgd(cfg, clipped(g[r]), m[r], p[r], lr)
+                put(p[r], p_new)
+                put(m[r], m_new)
 
         tree_map(upd, grads, opt_state["momentum"], params)
         return params, opt_state
@@ -108,10 +113,12 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
         b2c = 1.0 - cfg.b2 ** c
 
         def upd(_, g, m, v, p):
-            p_new, m_new, v_new = _adam(cfg, clipped(g), m, v, p, lr, b1c, b2c)
-            put(p, p_new)
-            put(m, m_new)
-            put(v, v_new)
+            for r in _row_chunks(p):
+                p_new, m_new, v_new = _adam(cfg, clipped(g[r]), m[r], v[r], p[r], lr, b1c,
+                                            b2c)
+                put(p[r], p_new)
+                put(m[r], m_new)
+                put(v[r], v_new)
 
         tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
         put(opt_state["count"], count)
@@ -121,6 +128,20 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
 
 def _put(dst, new, ok):
     dst.copy_(new if ok is None else torch.where(ok, new, dst))
+
+
+CHUNK = 1 << 27  # elements of a leaf an update step takes at a time
+
+
+def _row_chunks(p):
+    """Slices of ``p``'s leading dim, each of at most ``CHUNK`` elements
+    (one slice for a smaller leaf): the update's elementwise temporaries
+    then take a few chunks' bytes, not several copies of the largest leaf
+    (a tied 256000 x 12288 f32 table is 12.6 GB).  The same bits."""
+    if p.dim() == 0 or p.numel() <= CHUNK:
+        return (...,)
+    rows = max(1, CHUNK // (p.numel() // p.shape[0]))
+    return tuple(slice(r, r + rows) for r in range(0, p.shape[0], rows))
 
 
 def _sgd(cfg, g, m, p, lr):
@@ -153,15 +174,16 @@ def apply_opt_fused(cfg: OptConfig, grads, opt_state, params, lr, fused_flags,
         raise ValueError("apply_opt_fused: plain SGD only (no nesterov, no grad_clip)")
 
     def upd(_, g, m, p, fused):
-        g32 = g.float()
-        if fused:
-            m_new = g32
-        else:
-            g32 = g32 + cfg.weight_decay * p.float()
-            m_new = cfg.momentum * m + g32
-        p_new = (p - lr * m_new).to(p.dtype)
-        _put(p, p_new, ok)
-        _put(m, m_new.to(m.dtype), ok)
+        for r in _row_chunks(p):
+            g32 = g[r].float()
+            if fused:
+                m_new = g32
+            else:
+                g32 = g32 + cfg.weight_decay * p[r].float()
+                m_new = cfg.momentum * m[r] + g32
+            p_new = (p[r] - lr * m_new).to(p.dtype)
+            _put(p[r], p_new, ok)
+            _put(m[r], m_new.to(m.dtype), ok)
 
     tree_map(upd, grads, opt_state["momentum"], params, fused_flags)
     return params, opt_state

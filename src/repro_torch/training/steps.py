@@ -62,7 +62,7 @@ import torch
 
 from ..configs import validate_sparse_kernel
 from ..core.distributions import sparsity_map
-from ..core.masks import apply_masks, flat_index, init_masks, tree_map, tree_paths
+from ..core.masks import apply_masks, apply_masks_, flat_index, init_masks, tree_map, tree_paths
 from ..core.pruning import PruningSchedule, prune_step, snip_masks
 from ..core.pack import (
     build_bwd_carrier,
@@ -233,7 +233,7 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
                 )
         masks = init_masks(_generator(seed, 0, 0, dev), params, smap,
                            block_shape=sp.block_shape)
-        params = apply_masks(params, masks)
+        params = apply_masks_(params, masks)
     state = {
         "step": 0,
         "seed": seed,

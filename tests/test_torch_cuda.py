@@ -39,6 +39,10 @@ FLASH_CASES = {
     # window edges inside the 64-key tiles and the 128-row q-blocks
     "window edge": (400, 400, True, 100, 0.0, 4, 80),
     "window edge d128": (520, 520, True, 200, 0.0, 2, 128),
+    # gemma3's head_dim 256 (exact instantiations): the softcap and a
+    # ragged Sq < Sk
+    "softcap d256": (256, 256, True, 0, 30.0, 2, 256),
+    "ragged q_offset d256": (77, 300, True, 0, 0.0, 2, 256),
 }
 
 
@@ -2354,6 +2358,12 @@ BWD_EDGES = {
     "q_offset Sq=77 Sk=300": (8, 4, 80, 77, 300, True, 0, 0.0, None),
     "dead rows Sq=90 Sk=40": (4, 2, 80, 90, 40, True, 0, 0.0, None),
     "no mask": (4, 2, 80, 200, 200, False, 0, 0.0, None),
+    # d = 256: K10's 32-key tiles (a 112-key block is 32 + 32 + 32 + 16),
+    # K11's warp pairs (a 48-row unit runs 3 of 4 pairs), the softcap's
+    # 1 - t^2 handed over with p, dead rows
+    "S=100 bq=112 d=256": (4, 2, 256, 100, 100, True, 0, 0.0, None),
+    "softcap 30 d=256": (4, 2, 256, 260, 260, True, 0, 30.0, None),
+    "dead rows d=256": (4, 2, 256, 90, 40, True, 0, 0.0, None),
 }
 
 
@@ -2388,18 +2398,19 @@ def test_cuda_flash_backward_edges_match_plain(case, plan, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_cuda_flash_backward_has_no_spill(d):
-    """K10 and K11 at hymba's d = 64, danube's d = 80 and qwen2-moe's
-    d = 128 spill no registers (a spill is a defect of the design) and get
-    the warps and the CTAs per SM their design and the plan count on
-    (``tfa.bwd_unit_rows``, ``tfa.bwd_ctas_per_sm``)."""
+    """K10 and K11 at hymba's d = 64, danube's d = 80, qwen2-moe's d = 128
+    and gemma3's d = 256 spill no registers (a spill is a defect of the
+    design) and get the warps and the CTAs per SM their design and the plan
+    count on (``tfa.bwd_warps``: a 16-row warp a unit row group, a pair of
+    them under K11 at d = 256; ``tfa.bwd_ctas_per_sm``)."""
     _cuda()
     for kind in ("dq", "dkv"):
         info = tfa.launch_info(f"flash_{kind}", d, 8)
         assert info["spill_bytes"] == 0, (kind, info)
         assert info["ctas_per_sm"] == tfa.bwd_ctas_per_sm(kind, d), (kind, info)
-        assert info["warps"] * 16 == tfa.bwd_unit_rows(kind, d), (kind, info)
+        assert info["warps"] == tfa.bwd_warps(kind, d), (kind, info)
 
 
 @pytest.mark.cuda
@@ -3076,3 +3087,58 @@ def test_cuda_hymba_prefill_decode_and_training_step(kernel):
     assert np.isfinite(float(met["loss"]))
     n = cfg.n_layers
     assert tuple(a - b for a, b in zip(counts(), c0)) == (9 * n, 9 * n, 9 * n, n, n, n)
+
+
+# gemma3-4b's attention: 2 query heads a KV head (8 over 4), head_dim 256; a
+# local layer's window and a global layer, at odd lengths
+GEMMA_FLASH = {"window G=2 S=601": (601, 256), "global G=2 S=515": (515, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (True, 3)], ids=["planned", "paired-split3"])
+@pytest.mark.parametrize("case", sorted(GEMMA_FLASH))
+def test_cuda_flash_d256_matches_plain(monkeypatch, case, plan):
+    """K9, K10 and K11 on their exact d = 256 instantiations (8 query heads
+    over 4 KV heads, causal) against their plain versions, element by
+    element within ``o_error_bound`` and ``grad_error_bound``; under the
+    wrapper's own plan and under a forced one that pairs units and splits
+    every walk in three (the partials merged by flash_bwd_merge_kernel).
+    K9 runs 8 warps, 1 CTA an SM; none of the three spills."""
+    dev = _cuda()
+    S, window = GEMMA_FLASH[case]
+    G, d, BH = 2, 256, 8
+    info = tfa.launch_info("flash_fwd", d, 16)
+    assert (info["warps"], info["ctas_per_sm"], info["spill_bytes"]) == (8, 1, 0), info
+    if plan is not None:
+        monkeypatch.setattr(tfa, "_bwd_plan_for", lambda *a, **k: plan)
+    rng = np.random.default_rng(17)
+    r = lambda n: torch.from_numpy(rng.standard_normal((n, S, d)).astype(np.float32)).to(
+        torch.bfloat16)
+    q, k, v, do = r(BH), r(BH // G), r(BH // G), r(BH)
+    bq, bk = tfa.effective_blocks(S, S)
+    Sp = -(-S // bq) * bq
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, Sp - t.shape[1]))
+    q, k, v, do = pad(q), pad(k), pad(v), pad(do)
+    sched = tfa._schedule_on(torch.device("cpu"), S, S, bq, bk, True, window, 0)
+    kw = dict(bq=bq, bk=bk, causal=True, window=window, q_offset=0, sk=S,
+              scale=d ** -0.5, softcap=0.0, kv_groups=G)
+    po, plse = tfa.flash_fwd(q, k, v, sched[0], sched[1], **kw)
+    pa, _ = tfa.flash_fwd(q, k, v.abs(), sched[0], sched[1], **kw)
+    delta = (do.float() * po.float()).sum(-1)
+    blocks = tfa._schedule_mask(sched[0], sched[1], Sp // bk, "cpu")
+    *want, dq_a, dk_a, dv_a, dq_e, dk_e, dv_e = tfa.flash_bwd_plain(
+        q, k, v, do, plse, delta, blocks, with_abs=True, **kw)
+    on = lambda *ts: [t.to(dev) for t in ts]
+    o, lse = tfa.flash_fwd(*on(q, k, v, sched[0], sched[1]), **kw)
+    assert bool(((o.float().cpu() - po.float()).abs() <= tfa.o_error_bound(po, pa)).all())
+    assert (lse.cpu() - plse).abs().max().item() <= 1e-3
+    args = on(q, k, v, do, plse, delta)
+    dq = tfa.flash_dq(*args, *on(sched[0], sched[1]), **kw)
+    dk, dv = tfa.flash_dkv(*args, *on(sched[2], sched[3]), **kw)
+    for name, got, w_, a, e in (("dq", dq, want[0], dq_a, dq_e),
+                                ("dk", dk, want[1], dk_a, dk_e),
+                                ("dv", dv, want[2], dv_a, dv_e)):
+        diff = (got.float().cpu() - w_.float()).abs()
+        assert bool((diff <= tfa.grad_error_bound(w_, a, e)).all()), name
+    with pytest.raises(ValueError, match="generic"):
+        tfa.flash_fwd(*on(q, k, v, sched[0], sched[1]), generic=True, **kw)

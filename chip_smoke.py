@@ -322,7 +322,48 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step-0 loss and gradients of wi, wq and ln1 against the
                 plain dense path; the exact launches a step, the profiled
                 step on the d = 128 flash kernels alone; peak GiB
- 31. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 31. flash frontends -- K9, K10 and K11 at hubert-xlarge's bidirectional
+                attention (16 heads, G = 1, head_dim 80, causal=0: S = 4096
+                and S = 1000 padded to 1024, the padded case also through
+                the wrapper, whose trim must give the padded query rows
+                zero dO) with K10 and K11 under every candidate plan, and
+                at internvl2-1b's causal attention (14 heads over 2, G = 7,
+                head_dim 64, S = 2048), against their plain versions,
+                timed beside the generic instantiation, SDPA and the bound
+ 32. hubert encode -- hubert-xlarge at full width and depth (48 layers,
+                the frames frontend, plain GELU, bidirectional attention;
+                ERK 0.8, seed 0): ``lm_forward`` and the head on 1 x 4096
+                seeded frames, block_sparse (128x128) and masked on one
+                init: exactly 288 K1 (K13), their planned merges and 48 K9
+                a forward; logits within 5e-2 of the largest and the
+                frames' argmax labels agreeing at least 90% with the plain
+                dense path; the engine, serve_session and lm_prefill refuse
+                the encoder; encode wall and device ms
+ 33. hubert train -- 8 of 48 layers at full width, 1 x 4096 frames, 4
+                steps with a drop/grow at step 2, both modes: the step-0
+                loss and the gradients of wi, wq, frontend_proj and head
+                against the plain dense path; exact launches a step (2 x 48
+                K1, 48 K2, 48 K3, 16 K9, 8 K10, 8 K11 and the planned
+                merges), the profiled step on the d = 80 flash kernels alone
+ 34. internvl serve -- internvl2-1b at full width and depth (24 layers,
+                G = 7 at head_dim 64, d_model 896, the tied table) through
+                the engine, contiguous and paged, block_sparse and masked:
+                8 requests, each 256 seeded patch rows before a text prompt
+                of 100/600/1200 tokens, 16 tokens each; every request DONE,
+                clean pool books; exactly 168 K1 (K13) a prefill and a
+                decode step and the planned merges, 24 K9 a prompt, the
+                profiled prefill on the exact d = 64 K9 alone; every greedy
+                token equal to the plain dense path's; K1 on layer 0's
+                served packs (7 K-blocks) under every candidate plan at 16
+                and 2048 rows
+ 35. internvl train -- full width and depth (24 layers), 1 x 2048 rows
+                (256 patches + 1792 text tokens), 4 steps with a drop/grow
+                at step 2, both modes: the step-0 loss and the gradients of
+                wi, wq, frontend_proj and the tied table against the plain
+                dense path; exact launches a step (2 x 168 K1, 168 K2, 168
+                K3, 48 K9, 24 K10, 24 K11 and the planned merges), the
+                profiled step on the d = 64 flash kernels alone
+ 36. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -1080,7 +1121,8 @@ def bs_merges(torch, cfg, state, tokens, entry="bs_dw"):
         w = params[name]
         G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
         _, Mp = _row_tile(capacity(tokens, cfg) if w.dim() == 3 else tokens, bm)
-        dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
+        dt = (compute_dtype(cfg) if "/attn/" in f"/{name}" or cfg.frontend == "frames"
+              else torch.float32)
         if entry in ("bs_dw", "bs_dw_fused"):
             live = e["bnnz"] if "bidx" in e else e["nnz"]
             # K7/K8 on the fused kernel's slots: the fused path's bf16 momentum
@@ -4902,8 +4944,9 @@ def leaf_merges(torch, cfg, state, rows, bank_rows, entry):
     "fwd" (K1/K4, K13/K16), "dx" (K2/K5, K14/K17) or "dw" (K3/K6 on the
     superset's live blocks, K15/K18), each on its plan from the shapes,
     the dtype the model calls it in (the attention's in the compute dtype,
-    every other leaf in the residual's f32) and (block-sparse) the pack
-    entry's live blocks, as the wrappers pick it."""
+    every other leaf in the residual's dtype: f32, or the compute dtype
+    under a frames frontend) and (block-sparse) the pack entry's live
+    blocks, as the wrappers pick it."""
     from repro_torch.core.masks import tree_paths
     from repro_torch.core.pack import pack_entries
     from repro_torch.kernels import block_sparse_matmul as bsm
@@ -4922,7 +4965,8 @@ def leaf_merges(torch, cfg, state, rows, bank_rows, entry):
         w = params[name]
         G, (K, N) = (w.shape[0] if w.dim() == 3 else 1), w.shape[-2:]
         _, Mp = _row_tile(bank_rows if w.dim() == 3 else rows, bm)
-        dt = compute_dtype(cfg) if "/attn/" in f"/{name}" else torch.float32
+        dt = (compute_dtype(cfg) if "/attn/" in f"/{name}" or cfg.frontend == "frames"
+              else torch.float32)
         if bs and entry == "dw":
             plan = bsm._dw_plan_for(Mp, K, N, G, dt, bn, e["bnnz"] if "bidx" in e
                                     else e["nnz"], dev)
@@ -5774,11 +5818,22 @@ def hymba_flash_cases(torch, timer, fa):
     return flash_cases_at(torch, timer, fa, "hymba", 25, 5, 64, HYMBA_FLASH_CASES)
 
 
-def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True):
+def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True, sweep=False):
     """K9, K10 and K11 of ``model``'s attention (BH query heads over
-    BH / G, head_dim d, bf16) at ``cases`` ((name, S, window): causal),
-    as ``hymba_flash_cases`` says; without ``generic`` (d = 256: no generic
-    instantiation) the generic yardstick is left out."""
+    BH / G, head_dim d, bf16) at ``cases`` ((name, S, window): causal, or
+    (name, S, window, causal)), as ``hymba_flash_cases`` says; without
+    ``generic`` (d = 256: no generic instantiation) the generic yardstick
+    is left out.  A length S the blocks do not divide runs on the layout
+    ``flash_attention`` pads it to: zero query and key rows past S, the
+    padded keys masked (sk = S) and zero dO on the padded query rows (the
+    wrapper's trim); the wrapper itself is then run too, forward and
+    backward by autograd on the S rows, and its gradients held to the
+    plain version on the padded layout (dk and dv take nothing from the
+    padded query rows only if the trim gives them zero dO).  With
+    ``sweep`` each K10 / K11 case also times every candidate plan of
+    ``fa.bwd_plan`` (``plan_sweep``) and says whether its pick was the
+    fastest, with the launch (``bwd_launch``).  SDPA runs on the S rows
+    (no mask for a bidirectional case)."""
     from repro_torch.core.attn_sched import sched_for
 
     F = torch.nn.functional
@@ -5792,22 +5847,31 @@ def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True):
                                  f"{fa.bwd_warps(kind, d)} warps, "
                                  f"{fa.bwd_ctas_per_sm(kind, d)} CTAs an SM")
     insts = (("exact", False), ("generic", True)) if generic else (("exact", False),)
-    for name, S, window in cases:
+    for case_spec in cases:
+        name, S, window = case_spec[:3]
+        causal = case_spec[3] if len(case_spec) > 3 else True
         r = lambda n: torch.randn(n, S, d, device="cuda").to(torch.bfloat16)
-        q, k, v, do = r(BH), r(BKV), r(BKV), r(BH)
+        q_, k_, v_, do_ = r(BH), r(BKV), r(BKV), r(BH)
         bq, bk = fa.effective_blocks(S, S)
-        sched = fa._schedule_on(q.device, S, S, bq, bk, True, window, 0)
-        width = int(sched_for(S, S, bq, bk, True, window, 0)["kv_idx"].shape[1])
-        kw = dict(bq=bq, bk=bk, causal=True, window=window, q_offset=0, sk=S,
+        Sp = -(-S // bq) * bq
+        pad = lambda t: F.pad(t, (0, 0, 0, Sp - S))
+        q, k, v, do = pad(q_), pad(k_), pad(v_), pad(do_)
+        sched = fa._schedule_on(q.device, S, S, bq, bk, causal, window, 0)
+        sched_np = sched_for(S, S, bq, bk, causal, window, 0)
+        width = int(sched_np["kv_idx"].shape[1])
+        kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=0, sk=S,
                   scale=d**-0.5, softcap=0.0, kv_groups=G)
         pos = torch.arange(S, device="cuda")
-        mask = pos[None, :] <= pos[:, None]
+        mask = torch.ones(S, S, dtype=torch.bool, device="cuda")
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
         if window:
             mask &= pos[None, :] > pos[:, None] - window
         live = int(mask.sum())
         tag = f"{model} {name} BH={BH} G={G} d={d}"
-        q4, k4, v4 = (t.view(1, -1, S, d).detach().requires_grad_(True) for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+        q4, k4, v4 = (t.view(1, -1, S, d).detach().requires_grad_(True) for t in (q_, k_, v_))
+        attn_mask = mask if (causal or window) else None
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask,
                                                       enable_gqa=True)
 
         # K9
@@ -5850,13 +5914,29 @@ def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True):
         delta = (do.float() * o.float()).sum(-1)
         dq_args = (q, k, v, do, lse, delta, sched[0], sched[1])
         dkv_args = (q, k, v, do, lse, delta, sched[2], sched[3])
-        blocks = fa._schedule_mask(sched[0], sched[1], S // bk, q.device)
+        blocks = fa._schedule_mask(sched[0], sched[1], Sp // bk, q.device)
         plain_args = (q, k, v, do, lse, delta, blocks)
         want_q, want_k, want_v, rq, rk, rv, eq, ek, ev = fa.flash_bwd_plain(
             *plain_args, with_abs=True, **kw)
         wants = {"dq": (want_q, rq, eq), "dk": (want_k, rk, ek), "dv": (want_v, rv, ev)}
+        wrapper = None
+        if Sp != S:  # the wrapper pads, trims and differentiates itself
+            leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
+            o_w = fa.flash_attention(*leaves, causal=causal, window=window, kv_groups=G)
+            got_w = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(o_w, leaves, do_)))
+            wrapper = {}
+            for w_, (want, rnd, err) in wants.items():
+                ok, ratio, _ = within(torch, got_w[w_], want[:, :S],
+                                      fa.grad_error_bound(want, rnd, err)[:, :S])
+                if not ok:
+                    raise AssertionError(f"flash_attention {tag} {w_}: {ratio:.3g}x its bound")
+                wrapper[w_] = ratio
+            for w_, t in (("dk", want_k), ("dv", want_v)):  # the padded keys take nothing
+                if t[:, S:].abs().max().item() != 0.0:
+                    raise AssertionError(f"{tag}: a padded key row took a gradient in {w_}")
+            del leaves, o_w, got_w
         out4 = sdpa()
-        lib_ms = timer(lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(1, BH, S, d),
+        lib_ms = timer(lambda: torch.autograd.grad(out4, (q4, k4, v4), do_.view(1, BH, S, d),
                                                    retain_graph=True), reps=5)
         plain_ms = timer(lambda: fa.flash_bwd_plain(*plain_args, **kw), reps=2, warmup=1)
         for kernel, kind, fn, args, what, n_bytes, flops in (
@@ -5893,6 +5973,15 @@ def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True):
                             generic_ms=timer(lambda: fn(*args, generic=True, **kw), reps=5),
                             generic_launch=fa.launch_info(f"flash_{kind}", d, width,
                                                           generic=True))
+            if wrapper is not None:
+                case["wrapper_err_over_tol"] = {w_: wrapper[w_] for w_ in what}
+            if sweep:
+                plan = bwd_launch(torch, fa, kind, sched_np, kw, BH if kind == "dq" else BKV,
+                                  d, Sp)
+                plans = plan_sweep(timer, fa, fn, args, kw)
+                mine = f"pair={int(plan['pair'])} split={plan['n_split']}"
+                case.update(plan=plan, plans_ms=plans,
+                            plan_is_fastest=plans[mine] == min(plans.values()))
             print(kernel, json.dumps(case))
             (k10 if kernel == "K10" else k11).append(case)
         del out4
@@ -5922,7 +6011,7 @@ def gemma_flash_cases(torch, timer, fa):
 # and command-r-plus-104b (parallel blocks, tied 256000-row table)
 # ---------------------------------------------------------------------------
 
-GEMMA_ENGINE = dict(capacity=4, max_len=2048, paged=True, page_size=16)
+GEMMA_ENGINE = dict(capacity=4, max_len=2048, page_size=16)
 GEMMA_PROJ = 7  # K1/K13 a layer a pass: wq, wk, wv, wo, wi, wg, wo
 # (requests, prompt lengths, new tokens): the 1400-token prompts wrap the
 # local layers' 1024-slot rings
@@ -5933,15 +6022,15 @@ CMDR_FLASH = ("flash_fwd_kernel<128, true>", "flash_dq_kernel<128, true>",
               "flash_dkv_kernel<128, true>")
 
 
-def gemma3_config(kernel, n_layers=None):
-    """gemma3-4b at its published widths (full depth unless ``n_layers``),
+def full_width_config(arch, kernel, n_layers=None):
+    """``arch`` at its published widths (full depth unless ``n_layers``),
     ERK 0.8, flash_tight; block_sparse in 128x128 blocks, or masked; RigL
     with the Top-KAST superset every ``DELTA_T`` steps in one
     microbatch."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import configure_kernel
 
-    cfg = configure_kernel(get_config("gemma3-4b"), kernel=kernel, block=128,
+    cfg = configure_kernel(get_config(arch), kernel=kernel, block=128,
                            attn_kernel="flash_tight")
     sp = dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T)
     return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, microbatches=1,
@@ -5962,23 +6051,26 @@ def command_r_config(kernel="block_sparse", n_layers=PAGED_LAYERS):
     return dataclasses.replace(cfg, n_layers=n_layers, microbatches=1, sparse=sp)
 
 
-def gemma_serve(torch, bsm, mm, fa):
-    """Phase "gemma3 serve": serve gemma3-4b at full width and depth (34
-    layers: 5 local (window 1024) to 1 global, qk-norm, sandwich norms,
-    GeGLU, head_dim 256, the tied 262144-row table; ~3.9 B parameters, ERK
-    0.8, seed 0) through the paged engine (a local ring pool and a global
-    pool of 16-token pages; capacity 4, max_len 2048) under block_sparse
-    (128x128 blocks: K1) and masked (K13) on one init's weights and
-    block-aligned masks: 3 staggered greedy requests (prompts 300/1400, 16
-    tokens; the 1400-token prompts wrap the local rings).  Checks, per mode:
-    every request DONE, nothing quarantined, the pools' books clean; the
-    run's launches exactly 238 K1 (K13) a prefill and a decode step (34 x
-    7 projections) plus the merges the plans make and 34 K9 a prompt; one
-    prefill and one decode step counted on their own (238 K1 or K13 each,
-    34 K9 and 0); the profiled prefill runs only the exact d = 256 K9
-    instantiation; every greedy token equal to the plain dense path's on
-    the same weights (kernel='dense', attn_kernel='dense').  Reports the
-    prefill ms per request, the decode step's host and device ms."""
+def model_serve(torch, timer, bsm, mm, fa, spec):
+    """Serve ``spec``'s model at full width and depth (gemma3-4b,
+    internvl2-1b) through the engine under block_sparse (128x128 blocks:
+    K1) and masked (K13) on one init's weights and block-aligned masks
+    (ERK 0.8, seed 0), in each of ``spec["layouts"]`` (paged or
+    contiguous): ``spec["requests"]`` staggered greedy requests (a patch
+    config's each carry their seeded patch rows).  Checks, per mode and
+    layout: every request DONE, nothing quarantined, a paged engine's
+    pools (``spec["pools"]``) and books clean; the run's launches exactly
+    ``proj`` x layers K1 (K13) a prefill and a decode step plus the merges
+    the plans make (a prefill's at its bucket's rows plus its patch rows)
+    and a K9 a layer and prompt; one prefill and one decode step counted
+    on their own; the profiled prefill on ``spec["flash"]`` alone; every
+    greedy token equal to the plain dense path's on the same weights and
+    requests (kernel='dense', attn_kernel='dense').  With
+    ``spec["k1_cases"]`` ((names, rows)), K1 on layer 0's served packs of
+    the first block-sparse engine under every candidate plan.  Reports the
+    prefill ms per request, the decode step's host and device ms.
+    Returns ({"parameters": n, mode and layout: (stats, launches)}, K1
+    cases)."""
     from repro_torch.core.masks import tree_paths
     from repro_torch.launch.serve import (
         configure_kernel,
@@ -5989,31 +6081,33 @@ def gemma_serve(torch, bsm, mm, fa):
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.queue import Status
 
-    cfg_bs = gemma3_config("block_sparse")
+    name, eng_kw, layouts = spec["label"], spec["engine"], spec["layouts"]
+    cfg_bs = full_width_config(spec["arch"], "block_sparse")
+    P = cfg_bs.n_patches if cfg_bs.frontend == "patch" else 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, masks, pack = init_serving_state(cfg_bs, seed=0, device="cuda")
     n_params = sum(t.numel() for t in tree_paths(params).values())
     torch.cuda.synchronize()
-    print(f"gemma3 serve: gemma3-4b ({cfg_bs.n_layers} layers, d_model {cfg_bs.d_model}, "
+    print(f"{name}: {spec['arch']} ({cfg_bs.n_layers} layers, d_model {cfg_bs.d_model}, "
           f"{cfg_bs.n_heads}/{cfg_bs.n_kv_heads} heads of {cfg_bs.head_dim}, d_ff "
           f"{cfg_bs.d_ff}, {n_params / 1e9:.3f} B parameters, {4 * n_params / 1e9:.2f} GB "
           f"f32) initialised in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-    n_req, lens, gen = GEMMA_REQUESTS
+    n_req, lens, gen = spec["requests"]
     dense = dataclasses.replace(cfg_bs, sparse=dataclasses.replace(
         cfg_bs.sparse, kernel="dense", attn_kernel="dense"))
     dreqs = staggered_requests(dense, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
-    dengine = ServeEngine(dense, params, **GEMMA_ENGINE)
+    dengine = ServeEngine(dense, params, paged=layouts[0], **eng_kw)
     for r in dreqs:
         dengine.submit(r)
     dengine.run()
     del dengine
     out = {"parameters": n_params}
-    per_call = GEMMA_PROJ * cfg_bs.n_layers
+    k1_cases = []
+    per_call = spec["proj"] * cfg_bs.n_layers
     for kernel in ("block_sparse", "masked"):
         bs = kernel == "block_sparse"
-        label = f"gemma3 serve {kernel}"
         cfg = cfg_bs if bs else configure_kernel(cfg_bs, kernel="masked")
         pk = pack if bs else None
         fam, mod = ("block_sparse", bsm) if bs else ("masked", mm)
@@ -6021,100 +6115,133 @@ def gemma_serve(torch, bsm, mm, fa):
         counters = ((k1, mod, "launches"), (merge, mod, "fwd_merge_launches"),
                     ("flash_fwd", fa, "launches"))
         read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
-        engine = ServeEngine(cfg, params, masks=masks, pack=pk, **GEMMA_ENGINE)
-        if sorted(engine.pools) != ["global", "local"]:
-            raise AssertionError(f"{label}: page pools {sorted(engine.pools)}")
+        warm = ServeEngine(cfg, params, masks=masks, pack=pk, paged=layouts[0], **eng_kw)
         for r in staggered_requests(cfg, 2, prompt_lens=(20,), gen_lens=(2,), seed=1):
-            engine.submit(r)
-        engine.run()
-        reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
-        engine = ServeEngine(cfg, engine.params, masks=masks, pack=pk, **GEMMA_ENGINE)
-        for r in reqs:
-            engine.submit(r)
-        for _, m_, a in counters:
-            setattr(m_, a, 0)
-        stats = engine.run()
-        launches = read()
-        for r in reqs:
-            if r.status is not Status.DONE or len(r.generated) != gen:
-                raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
-                                     f"{len(r.generated)} tokens")
-        if stats["quarantined"] or stats["failed"]:
-            raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
-        engine.check_pool_accounting()
-        if any(p.n_live for p in engine.pools.values()):
-            raise AssertionError(f"{label}: pages left live after the run")
-        st = {"params": engine.params, "pack": pk, "masks": masks}
-        dec = leaf_merges(torch, cfg, st, GEMMA_ENGINE["capacity"], 0, "fwd")[0]
-        # the engine prefills a prompt padded to its bucket
-        pre = {L: leaf_merges(torch, cfg, st, engine._padded_len(L), 0, "fwd")[0]
-               for L in set(lens)}
-        expect = {k1: per_call * (stats["decode_steps"] + stats["prefills"]),
-                  merge: stats["decode_steps"] * dec + sum(pre[r.prompt_len] for r in reqs),
-                  "flash_fwd": cfg.n_layers * stats["prefills"]}
-        if launches != expect:
-            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+            warm.submit(r)
+        warm.run()
+        served = warm.params
+        del warm
+        for paged in layouts:
+            key = f"{kernel} paged" if paged else kernel
+            label = f"{name} {key}"
+            engine = ServeEngine(cfg, served, masks=masks, pack=pk, paged=paged, **eng_kw)
+            if paged and spec["pools"] and sorted(engine.pools) != spec["pools"]:
+                raise AssertionError(f"{label}: page pools {sorted(engine.pools)}")
+            reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+            for r in reqs:
+                engine.submit(r)
+            for _, m_, a in counters:
+                setattr(m_, a, 0)
+            stats = engine.run()
+            launches = read()
+            for r in reqs:
+                if r.status is not Status.DONE or len(r.generated) != gen:
+                    raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
+                                         f"{len(r.generated)} tokens")
+            if stats["quarantined"] or stats["failed"]:
+                raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
+            if paged:
+                engine.check_pool_accounting()
+                if any(p.n_live for p in engine.pools.values()):
+                    raise AssertionError(f"{label}: pages left live after the run")
+            st = {"params": engine.params, "pack": pk, "masks": masks}
+            dec = leaf_merges(torch, cfg, st, eng_kw["capacity"], 0, "fwd")[0]
+            # a prefill runs the prompt padded to its bucket, and its patch rows
+            pre = {L: leaf_merges(torch, cfg, st, engine._padded_len(L) + P, 0, "fwd")[0]
+                   for L in set(lens)}
+            expect = {k1: per_call * (stats["decode_steps"] + stats["prefills"]),
+                      merge: stats["decode_steps"] * dec + sum(pre[r.prompt_len]
+                                                               for r in reqs),
+                      "flash_fwd": cfg.n_layers * stats["prefills"]}
+            if launches != expect:
+                raise AssertionError(f"{label}: launches {launches}, expected {expect}")
 
-        # one prefill (profiled: the flash kernels it runs) and one decode
-        # step at capacity, each counted on its own
-        toks = torch.from_numpy(reqs[1].tokens).long().cuda()[None]
-        c0 = read()
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-        with prof:
-            lm_prefill(engine.params, cfg, {"tokens": toks}, GEMMA_ENGINE["max_len"],
-                       masks=masks, pack=pk)
-            torch.cuda.synchronize()
-        one_prefill = {n: v - c0[n] for n, v in read().items()}
-        want_pre = {k1: per_call, merge: leaf_merges(torch, cfg, st, reqs[1].prompt_len, 0,
-                                                     "fwd")[0], "flash_fwd": cfg.n_layers}
-        if one_prefill != want_pre:
-            raise AssertionError(f"{label}: one prefill launched {one_prefill}, expected "
-                                 f"{want_pre}")
-        _, _, names = trace_busy(prof, ROOT / "build" / f"gemma3_serve_{kernel}_trace.json")
-        flash = flash_kernels_of(names)
-        if flash != [GEMMA_FLASH[0]]:
-            raise AssertionError(f"{label}: the prefill ran the flash kernels {flash}")
-        dev = engine.device
-        c0 = read()
-        lm_decode(engine.params, cfg, engine.caches,
-                  torch.from_numpy(engine.cur_tok[:, None]).to(dev),
-                  torch.from_numpy(engine.pos).to(dev), masks=masks, pack=pk,
-                  tables={g: torch.from_numpy(t).to(dev) for g, t in engine.tables.items()})
-        one_step = {n: v - c0[n] for n, v in read().items()}
-        want_step = {k1: per_call, merge: dec, "flash_fwd": 0}
-        if one_step != want_step:
-            raise AssertionError(f"{label}: one decode step launched {one_step}, expected "
-                                 f"{want_step}")
+            # one prefill (profiled: the flash kernels it runs) and one decode
+            # step at capacity, each counted on its own
+            r1 = reqs[1]
+            inputs = {"tokens": torch.from_numpy(r1.tokens).long().cuda()[None]}
+            if P:
+                inputs["patches"] = torch.from_numpy(r1.patches).cuda()[None]
+            c0 = read()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                lm_prefill(engine.params, cfg, inputs, eng_kw["max_len"], masks=masks, pack=pk)
+                torch.cuda.synchronize()
+            one_prefill = {n: v - c0[n] for n, v in read().items()}
+            want_pre = {k1: per_call,
+                        merge: leaf_merges(torch, cfg, st, r1.prompt_len + P, 0, "fwd")[0],
+                        "flash_fwd": cfg.n_layers}
+            if one_prefill != want_pre:
+                raise AssertionError(f"{label}: one prefill launched {one_prefill}, "
+                                     f"expected {want_pre}")
+            tag = label.replace(" ", "_")
+            _, _, names = trace_busy(prof, ROOT / "build" / f"{tag}_trace.json")
+            flash = flash_kernels_of(names)
+            if flash != [spec["flash"]]:
+                raise AssertionError(f"{label}: the prefill ran the flash kernels {flash}")
+            dev = engine.device
+            c0 = read()
+            lm_decode(engine.params, cfg, engine.caches,
+                      torch.from_numpy(engine.cur_tok[:, None]).to(dev),
+                      torch.from_numpy(engine.pos).to(dev), masks=masks, pack=pk,
+                      tables=({g: torch.from_numpy(t).to(dev) for g, t in engine.tables.items()}
+                              if paged else None))
+            one_step = {n: v - c0[n] for n, v in read().items()}
+            want_step = {k1: per_call, merge: dec, "flash_fwd": 0}
+            if one_step != want_step:
+                raise AssertionError(f"{label}: one decode step launched {one_step}, "
+                                     f"expected {want_step}")
+            same = [r.generated == d.generated for r, d in zip(reqs, dreqs)]
+            agree = sum(a == b for r, d in zip(reqs, dreqs)
+                        for a, b in zip(r.generated, d.generated)) / (n_req * gen)
+            stats.update({"prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
+                          "decode_step_ms": 1e3 * stats["decode_step_s"],
+                          "launches_per_prefill": one_prefill,
+                          "launches_per_decode_step": one_step,
+                          "merges_per_prefill": {str(p): m for p, m in pre.items()},
+                          "prefill_flash_kernels": flash, "streams_equal_dense": same,
+                          "token_agreement_dense": agree,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+            print(f"{label}: vs the plain dense path: streams equal {same}, token agreement "
+                  f"{agree:.3f}")
+            if not all(same):
+                raise AssertionError(f"{label}: greedy streams differ from the dense path's: "
+                                     f"{[r.generated for r in reqs]} vs "
+                                     f"{[d.generated for d in dreqs]}")
+            stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode, label)
+            print(f"{label}: engine", json.dumps({k: stats[k] for k in (
+                "requests", "tokens", "decode_steps", "prefills", "wall_s", "tok_per_s",
+                "prefill_ms", "decode_step_ms", "decode_step_device_ms", "peak_gib")}),
+                  f"launches {launches}; a prefill {one_prefill}; a decode step {one_step}")
+            out[key] = (stats, launches)
+            if bs and spec["k1_cases"] and not k1_cases:
+                names_, rows = spec["k1_cases"]
+                k1_cases = k1_served_cases(torch, timer, bsm, engine, rows=rows, names=names_)
+            del engine
+            torch.cuda.empty_cache()
+    return out, k1_cases
 
-        same = [r.generated == d.generated for r, d in zip(reqs, dreqs)]
-        agree = sum(a == b for r, d in zip(reqs, dreqs)
-                    for a, b in zip(r.generated, d.generated)) / (n_req * gen)
-        stats.update({"prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
-                      "decode_step_ms": 1e3 * stats["decode_step_s"],
-                      "launches_per_prefill": one_prefill,
-                      "launches_per_decode_step": one_step,
-                      "merges_per_prefill": {str(p): m for p, m in pre.items()},
-                      "prefill_flash_kernels": flash, "streams_equal_dense": same,
-                      "token_agreement_dense": agree,
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
-        print(f"{label}: vs the plain dense path: streams equal {same}, token agreement "
-              f"{agree:.3f}")
-        if not all(same):
-            raise AssertionError(f"{label}: greedy streams differ from the dense path's: "
-                                 f"{[r.generated for r in reqs]} vs "
-                                 f"{[d.generated for d in dreqs]}")
-        stats["decode_step_device_ms"] = decode_device_ms(torch, engine, lm_decode, label)
-        print(f"{label}: engine", json.dumps({k: stats[k] for k in (
-            "requests", "tokens", "decode_steps", "prefills", "wall_s", "tok_per_s",
-            "prefill_ms", "decode_step_ms", "decode_step_device_ms", "peak_gib")}),
-              f"launches {launches}; a prefill {one_prefill}; a decode step {one_step}")
-        out[kernel] = (stats, launches)
-        del engine
-        torch.cuda.empty_cache()
-    return out
+
+GEMMA_SERVE = dict(label="gemma3 serve", arch="gemma3-4b", engine=GEMMA_ENGINE, layouts=(True,),
+                   requests=GEMMA_REQUESTS, proj=GEMMA_PROJ, flash=GEMMA_FLASH[0],
+                   pools=["global", "local"], k1_cases=None)
 
 
-GEMMA_TRAIN = dict(label="gemma3 train", config=gemma3_config, layers=6, of=34,
+def gemma_serve(torch, timer, bsm, mm, fa):
+    """Phase "gemma3 serve": ``model_serve`` on gemma3-4b at full width and
+    depth (34 layers: 5 local (window 1024) to 1 global, qk-norm, sandwich
+    norms, GeGLU, head_dim 256, the tied 262144-row table; ~3.9 B
+    parameters) through the paged engine (a local ring pool and a global
+    pool of 16-token pages; capacity 4, max_len 2048): 3 requests (prompts
+    300/1400, 16 tokens; the 1400-token prompts wrap the local rings);
+    exactly 238 K1 (K13) a prefill and a decode step (34 x 7 projections)
+    plus the planned merges, 34 K9 a prompt, the profiled prefill on the
+    exact d = 256 K9 alone, every greedy token the dense path's."""
+    return model_serve(torch, timer, bsm, mm, fa, GEMMA_SERVE)[0]
+
+
+GEMMA_TRAIN = dict(label="gemma3 train",
+                   config=lambda k, n: full_width_config("gemma3-4b", k, n), layers=6, of=34,
                    proj=GEMMA_PROJ, steps=4, batch=1, seq=2048,
                    grads=("layers/0/mlp/wi/w", "layers/5/attn/wq/w",
                           "layers/0/attn/q_norm/scale", "layers/5/ln2_post/scale",
@@ -6158,6 +6285,225 @@ def command_r_train(torch, timer, bsm, mm, fa):
                 opt=OptConfig(kind="sgd", momentum=0.9, weight_decay=0.0,
                               state_dtype="bfloat16"))
     return model_train(torch, timer, bsm, mm, fa, "block_sparse", spec)
+
+
+# ---------------------------------------------------------------------------
+# the frontend families: hubert-xlarge (an encoder on frames, bidirectional
+# attention, plain GELU) and internvl2-1b (patch prompts in the engine)
+# ---------------------------------------------------------------------------
+
+HUBERT_FRAMES = 4096  # one encode and a train microbatch: 1 x 4096 frames
+HUBERT_PROJ = 6  # K1/K13 a layer a pass: wq, wk, wv, wo, wi, wo
+HUBERT_FLASH = ("flash_fwd_kernel<80, true>", "flash_dq_kernel<80, true>",
+                "flash_dkv_kernel<80, true>")
+# the encode's kernel path against the plain dense path on the same weights,
+# both in bf16 through 48 layers: logits within this share of the largest,
+# and the frames' argmax labels agreeing at least this often
+HUBERT_LOGITS_TOL, HUBERT_ARGMAX_MIN = 5e-2, 0.9
+# K9-K11 at hubert's attention (16 heads, G = 1, d = 80, bidirectional): the
+# model's 4096 frames, and a length 128-row blocks do not divide (1000 -> 1024)
+HUBERT_FLASH_CASES = (("S=4096 bidirectional", 4096, 0, False),
+                      ("S=1000 bidirectional (padded to 1024)", 1000, 0, False))
+INTERNVL_FLASH_CASES = (("S=2048 causal (256 patches + 1792 text)", 2048, 0),)
+INTERNVL_ENGINE = dict(capacity=4, max_len=2048, page_size=16)
+INTERNVL_PROJ = 7  # K1/K13 a layer a pass: wq, wk, wv, wo, wi, wg, wo
+# (requests, text prompt lengths, new tokens); each request carries 256 patch
+# rows: 1200 text tokens bucket to the cap 2048 - 256
+INTERNVL_REQUESTS = (8, (100, 600, 1200), 16)
+INTERNVL_FLASH = ("flash_fwd_kernel<64, true>", "flash_dq_kernel<64, true>",
+                  "flash_dkv_kernel<64, true>")
+
+
+def frontend_flash_cases(torch, timer, fa):
+    """Phase "flash frontends": K9, K10 and K11 at hubert-xlarge's
+    bidirectional attention (16 heads, G = 1, head_dim 80, bf16,
+    ``causal=0``: the model's S = 4096 frames, and S = 1000 on the padded
+    1024-row layout, where the padded query rows see every real key and the
+    wrapper's trim must give them zero dO) and at internvl2-1b's causal
+    attention (14 query heads over 2, G = 7, head_dim 64, S = 2048), each on
+    its exact instantiation against its plain version within
+    ``fa.o_error_bound`` / ``fa.grad_error_bound``, timed beside the generic
+    instantiation, scaled_dot_product_attention and the bound; hubert's
+    K10 and K11 also under every candidate plan of ``fa.bwd_plan`` (its
+    non-causal walks all have one length), the padded case through the
+    wrapper too (``flash_cases_at``)."""
+    hub = flash_cases_at(torch, timer, fa, "hubert", 16, 1, 80, HUBERT_FLASH_CASES,
+                         sweep=True)
+    ivl = flash_cases_at(torch, timer, fa, "internvl", 14, 7, 64, INTERNVL_FLASH_CASES)
+    return {"hubert": dict(zip(("k9", "k10", "k11"), hub)),
+            "internvl": dict(zip(("k9", "k10", "k11"), ivl))}
+
+
+def hubert_encode(torch, bsm, mm, fa):
+    """Phase "hubert encode": the encoder's inference path (the reference
+    has no decode for it).  hubert-xlarge at full width and depth (48
+    layers, 16 heads of 80, d_ff 5120, plain GELU; the frames frontend,
+    ERK 0.8, seed 0), ``lm_forward`` and the head on 1 x 4096 seeded frames
+    (``frames_batch``), under block_sparse (128x128 blocks: K1) and masked
+    (K13) on one init's weights and block-aligned masks, with the launch
+    counters set to 0 just before each: exactly 288 K1 (K13), their planned
+    split merges and 48 bidirectional K9 a forward.  Each mode's logits
+    against the plain dense path on the same weights (kernel='dense',
+    attn_kernel='dense'; the whole encoder in bf16 on both): finite, the
+    largest difference within ``HUBERT_LOGITS_TOL`` of the largest logit,
+    the frames' argmax labels agreeing at least ``HUBERT_ARGMAX_MIN`` of the
+    time.  The engine, ``serve_session`` and ``lm_prefill`` refuse the
+    encoder.  Reports the encode's wall ms, its ms between CUDA events
+    around it (the device's work and the host's launch gaps) and frames a
+    second."""
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.data.synthetic import frames_batch
+    from repro_torch.launch.serve import configure_kernel, init_serving_state, serve_session
+    from repro_torch.models.model import _logits, lm_forward, lm_prefill, serving_weights
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg_bs = full_width_config("hubert-xlarge", "block_sparse")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg_bs, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_paths(params).values())
+    torch.cuda.synchronize()
+    print(f"hubert encode: hubert-xlarge ({cfg_bs.n_layers} layers, d_model "
+          f"{cfg_bs.d_model}, {cfg_bs.n_heads} heads of {cfg_bs.head_dim}, d_ff "
+          f"{cfg_bs.d_ff}, {n_params / 1e9:.3f} B parameters) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for what, call in (
+            ("ServeEngine", lambda: ServeEngine(cfg_bs, params, capacity=1, max_len=64,
+                                                masks=masks, pack=pack)),
+            ("serve_session", lambda: serve_session(cfg_bs, params, batch=1, prompt_len=8,
+                                                    gen=2, masks=masks, pack=pack)),
+            ("lm_prefill", lambda: lm_prefill(params, cfg_bs, {"frames": torch.zeros(
+                1, 8, cfg_bs.frontend_dim, device="cuda")}, 16, masks=masks, pack=pack))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"hubert encode: {what} refuses the encoder: {e}")
+        else:
+            raise AssertionError(f"hubert encode: {what} accepted an encoder config")
+    batch = {"frames": frames_batch(cfg_bs, 0, 1, HUBERT_FRAMES, device="cuda")["frames"]}
+    dense = dataclasses.replace(cfg_bs, sparse=dataclasses.replace(
+        cfg_bs.sparse, kernel="dense", attn_kernel="dense"))
+    w = serving_weights(params, cfg_bs)
+    V = cfg_bs.vocab_size
+
+    def encode(cfg, **kw):
+        with torch.no_grad():
+            h, _, _ = lm_forward(w, cfg, batch, collect_states=False, **kw)
+            return _logits(w, cfg, h)[..., :V]
+
+    want = encode(dense)
+    top = want.abs().max().item()
+    out = {"parameters": n_params, "frames": HUBERT_FRAMES}
+    for kernel in ("block_sparse", "masked"):
+        bs = kernel == "block_sparse"
+        label = f"hubert encode {kernel}"
+        cfg = cfg_bs if bs else configure_kernel(cfg_bs, kernel="masked")
+        kw = dict(masks=masks, pack=pack if bs else None)
+        fam, mod = ("block_sparse", bsm) if bs else ("masked", mm)
+        counters = ((f"{fam}_fwd", mod, "launches"),
+                    (f"{fam}_fwd_merge", mod, "fwd_merge_launches"),
+                    ("flash_fwd", fa, "launches"))
+        read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+        encode(cfg, **kw)  # plans and schedules built
+        torch.cuda.synchronize()
+        for _, m_, a in counters:
+            setattr(m_, a, 0)
+        t0 = time.perf_counter()
+        a_ev, b_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a_ev.record()
+        got = encode(cfg, **kw)
+        b_ev.record()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = read()
+        st = {"params": params, "pack": pack, "masks": masks}
+        expect = {f"{fam}_fwd": HUBERT_PROJ * cfg.n_layers,
+                  f"{fam}_fwd_merge": leaf_merges(torch, cfg, st, HUBERT_FRAMES, 0, "fwd")[0],
+                  "flash_fwd": cfg.n_layers}
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        err = (got - want).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        stats = {"launches": launches, "wall_ms": wall_ms,
+                 "events_ms": a_ev.elapsed_time(b_ev),
+                 "frames_per_s": HUBERT_FRAMES / wall_ms * 1e3,
+                 "logits_max_abs_err": err, "logits_max_abs": top,
+                 "logits_err_over_largest": err / top, "logits_tol": HUBERT_LOGITS_TOL,
+                 "argmax_agreement": agree, "argmax_agreement_min": HUBERT_ARGMAX_MIN,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"{label}:", json.dumps(stats))
+        if not (err <= HUBERT_LOGITS_TOL * top and agree >= HUBERT_ARGMAX_MIN):
+            raise AssertionError(f"{label}: logits {err / top:.3g} of the largest "
+                                 f"(tol {HUBERT_LOGITS_TOL}), argmax agreement {agree:.4f} "
+                                 f"(min {HUBERT_ARGMAX_MIN}) against the dense path")
+        out[kernel] = (stats, launches)
+    del w, params, masks, pack
+    torch.cuda.empty_cache()
+    return out
+
+
+HUBERT_TRAIN = dict(label="hubert train",
+                    config=lambda k, n: full_width_config("hubert-xlarge", k, n), layers=8, of=48,
+                    proj=HUBERT_PROJ, steps=4, batch=1, seq=HUBERT_FRAMES,
+                    grads=("layers/0/mlp/wi/w", "layers/7/attn/wq/w", "frontend_proj/w",
+                           "head/w"),
+                    flash=HUBERT_FLASH, cases=None, update=True, opt=None)
+
+
+def hubert_train(torch, timer, bsm, mm, fa, kernel):
+    """Phase "hubert train": ``model_train`` on hubert-xlarge at full
+    width, 8 of 48 layers (~170 M parameters), 1 x 4096 frames in one
+    microbatch, 4 steps with a drop/grow at step 2, Adam: the step-0 loss
+    and gradients of an MLP's wi, a layer's wq, the dense frontend_proj
+    and head against the plain dense path; exact launches a step (remat:
+    2 x 48 K1 (K13), 48 K2 and K3 (K14, K15), 16 bidirectional K9, 8 K10
+    and K11, and the planned merges); the profiled step on the d = 80 flash
+    kernels alone."""
+    return model_train(torch, timer, bsm, mm, fa, kernel, HUBERT_TRAIN)
+
+
+INTERNVL_SERVE = dict(label="internvl serve", arch="internvl2-1b", engine=INTERNVL_ENGINE,
+                      layouts=(False, True), requests=INTERNVL_REQUESTS, proj=INTERNVL_PROJ,
+                      flash=INTERNVL_FLASH[0], pools=["global"],
+                      k1_cases=(("attn.wq", "mlp.wi"), (16, 2048)))
+
+
+def internvl_serve(torch, timer, bsm, mm, fa):
+    """Phase "internvl serve": ``model_serve`` on internvl2-1b at full width
+    and depth (24 layers, 14 query heads over 2 KV heads of 64, d_ff 4864,
+    the tied 151808-row table), contiguous and paged (16-token pages;
+    capacity 4, max_len 2048): 8 requests, each with 256 seeded patch rows
+    in front of a text prompt of 100, 600 or 1200 tokens, 16 tokens each;
+    exactly 168 K1 (K13) a prefill and a decode step (24 x 7 projections)
+    plus the planned merges (a prefill's at its bucket's rows plus the 256
+    patch rows), 24 K9 a prompt, the profiled prefill on the exact d = 64
+    K9 alone, every greedy token the dense path's; then K1 on layer 0's
+    served packs at d_model 896 (7 K-blocks) under every candidate plan at
+    a decode step's 16 rows and a prefill's 2048."""
+    return model_serve(torch, timer, bsm, mm, fa, INTERNVL_SERVE)
+
+
+INTERNVL_TRAIN = dict(label="internvl train",
+                      config=lambda k, n: full_width_config("internvl2-1b", k, n), layers=24, of=24,
+                      proj=INTERNVL_PROJ, steps=4, batch=1, seq=2048,
+                      grads=("layers/0/mlp/wi/w", "layers/23/attn/wq/w", "frontend_proj/w",
+                             "embed/table"),
+                      flash=INTERNVL_FLASH, cases=None, update=True, opt=None)
+
+
+def internvl_train(torch, timer, bsm, mm, fa, kernel):
+    """Phase "internvl train": ``model_train`` on internvl2-1b at full width
+    and depth (24 layers, ~0.49 B parameters with the tied table), 1 x 2048
+    rows a step (256 seeded patch rows and 1792 text tokens, ``vlm_batch``;
+    the loss over the text), 4 steps with a drop/grow at step 2, Adam: the
+    step-0 loss and gradients of an MLP's wi, the last layer's wq, the
+    dense frontend_proj and the tied table against the plain dense path;
+    exact launches a step (remat: 2 x 168 K1 (K13), 168 K2 and K3 (K14,
+    K15), 48 K9, 24 K10 and K11, and the planned merges); the profiled step
+    on the d = 64 flash kernels alone."""
+    return model_train(torch, timer, bsm, mm, fa, kernel, INTERNVL_TRAIN)
 
 
 def tree_map_clone(tree):
@@ -6322,7 +6668,7 @@ def main() -> int:
     k10 += k10_g
     k11 += k11_g
     done("flash d = 256: K9-K11 at gemma3's attention")
-    gemma = gemma_serve(torch, bsm, mm, fa)
+    gemma = gemma_serve(torch, timer, bsm, mm, fa)
     done("gemma3 serve block_sparse, masked")
     for kernel in ("block_sparse", "masked"):
         gemma[f"train {kernel}"] = gemma_train(torch, timer, bsm, mm, fa, kernel)
@@ -6333,6 +6679,24 @@ def main() -> int:
     done("command-r serve")
     cmdr["train"] = command_r_train(torch, timer, bsm, mm, fa)
     done("command-r train")
+    front_flash = frontend_flash_cases(torch, timer, fa)
+    for fl in front_flash.values():
+        k9 += fl["k9"]
+        k10 += fl["k10"]
+        k11 += fl["k11"]
+    done("flash frontends: K9-K11 bidirectional at d = 80, G = 7 at d = 64")
+    hubert = {"encode": hubert_encode(torch, bsm, mm, fa)}
+    done("hubert encode block_sparse, masked")
+    for kernel in ("block_sparse", "masked"):
+        hubert[f"train {kernel}"] = hubert_train(torch, timer, bsm, mm, fa, kernel)
+        done(f"hubert train {kernel}")
+    internvl = {}
+    internvl["serve"], k1_ivl = internvl_serve(torch, timer, bsm, mm, fa)
+    k1 += k1_ivl
+    done("internvl serve block_sparse, masked, contiguous and paged")
+    for kernel in ("block_sparse", "masked"):
+        internvl[f"train {kernel}"] = internvl_train(torch, timer, bsm, mm, fa, kernel)
+        done(f"internvl train {kernel}")
     r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
     k4 += r_bs["fwd"]
     k56["K5"] += r_bs["dx"]
@@ -6359,10 +6723,19 @@ def main() -> int:
              "hymba_masked_serve": hymba["serve masked"][1],
              "hymba_train": hymba["train block_sparse"][1],
              "hymba_masked_train": hymba["train masked"][1],
-             "gemma3_serve": gemma["block_sparse"][1], "gemma3_masked_serve": gemma["masked"][1],
+             "gemma3_serve": gemma["block_sparse paged"][1],
+             "gemma3_masked_serve": gemma["masked paged"][1],
              "gemma3_train": gemma["train block_sparse"][1],
              "gemma3_masked_train": gemma["train masked"][1],
-             "command_r_serve": cmdr["serve"][1], "command_r_train": cmdr["train"][1]}
+             "command_r_serve": cmdr["serve"][1], "command_r_train": cmdr["train"][1],
+             "hubert_encode": hubert["encode"]["block_sparse"][1],
+             "hubert_masked_encode": hubert["encode"]["masked"][1],
+             "hubert_train": hubert["train block_sparse"][1],
+             "hubert_masked_train": hubert["train masked"][1],
+             **{f"internvl_{k.replace(' ', '_')}_serve": v[1]
+                for k, v in internvl["serve"].items() if k != "parameters"},
+             "internvl_train": internvl["train block_sparse"][1],
+             "internvl_masked_train": internvl["train masked"][1]}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -6496,6 +6869,13 @@ def main() -> int:
          "gemma3_flash": {"k9": k9_g, "k10": k10_g, "k11": k11_g},
          "gemma3": {k: v[0] for k, v in gemma.items() if k != "parameters"},
          "command_r": {k: v[0] for k, v in cmdr.items()},
+         "frontend_flash": front_flash,
+         "hubert": {"encode": {k: v[0] if k in ("block_sparse", "masked") else v
+                               for k, v in hubert["encode"].items()},
+                    **{k: v[0] for k, v in hubert.items() if k != "encode"}},
+         "internvl": {"serve": {k: v[0] if k != "parameters" else v
+                                for k, v in internvl["serve"].items()},
+                      **{k: v[0] for k, v in internvl.items() if k != "serve"}},
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -16,7 +16,9 @@ the non-finite counter), an MoE model's included: 3-D expert banks with their ma
 supersets and grouped packs (superset view ``bidx``/``bcnt``) or carriers.  ``flat_of`` and ``pack_flat_of`` go the other way, so
 the tests can round-trip a state.  Bare leaves (no ``{"w": ...}`` bundle:
 sLSTM's ``slstm/r``, hymba's ``ssm/a_log``, ``ssm/d_skip``, ``ssm/dt_bias``)
-come across by their path names like any other.
+come across by their path names like any other, and so do the frontend
+configs' trees: ``frontend_proj`` beside a frames config's untied
+``head`` (no ``embed``) or a patch config's tied ``embed`` (no ``head``).
 """
 from __future__ import annotations
 

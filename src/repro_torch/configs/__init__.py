@@ -1,7 +1,7 @@
 """Config registry of the port: ``get_config(arch_id, smoke=False)``.
 
-Lists only the architectures the port runs.  The JAX package knows ten; the
-others raise until the slice that ports their model family lands.
+Lists only the architectures the port runs.  The JAX package knows ten;
+grok-1-314b raises until the slice that ports it lands.
 """
 import importlib
 
@@ -18,6 +18,8 @@ _MODULES = {
     "hymba-1.5b": "hymba_1_5b",
     "command-r-plus-104b": "command_r_plus_104b",
     "gemma3-4b": "gemma3_4b",
+    "hubert-xlarge": "hubert_xlarge",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCH_IDS = tuple(_MODULES)

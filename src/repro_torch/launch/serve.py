@@ -23,7 +23,9 @@ and ``--metrics-out`` write the engine's Chrome trace and Prometheus
 metrics after the run (``obs/``).  ``--lockstep`` runs ``serve_session``
 instead: one fixed batch (``--batch``, ``--prompt-len``, ``--gen``) with
 one shared position, every row decoding until the last is done — the
-baseline the engine is measured against.
+baseline the engine is measured against.  A patch config's requests
+(``--arch internvl2-1b``) carry their prompts' patch embeddings; an
+encoder config (``--arch hubert-xlarge``) has no serve path and raises.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def _sync(device) -> None:
 
 
 def serve_session(cfg, params, *, batch: int, prompt_len: int, gen: int,
-                  max_len: int | None = None, masks=None, pack=None, prompt=None):
+                  max_len: int | None = None, masks=None, pack=None, prompt=None,
+                  patches=None):
     """Greedy lockstep generation -> (tokens (B, gen), stats), the
     reference's ``serve_session``: one prefill of the whole batch, then
     ``gen - 1`` decode steps at one shared scalar position.
@@ -66,25 +69,39 @@ def serve_session(cfg, params, *, batch: int, prompt_len: int, gen: int,
     ``batch_for(cfg, 0, batch, prompt_len + 1, learnable=True)`` cut to
     ``prompt_len``, as the reference builds its prompt from its own
     stream.  ``tok_per_s`` counts all ``batch * gen`` tokens over the
-    prefill and decode time (the first token comes from the prefill)."""
-    max_len = max_len or (prompt_len + gen)
+    prefill and decode time (the first token comes from the prefill).
+
+    A ``patch`` config's prompt carries ``patches`` (B, n_patches,
+    frontend_dim) in front of its text (by default the port's ``batch_for``
+    draws them beside a text of ``prompt_len`` tokens), so the cache holds
+    ``n_patches`` rows more and decode positions start at ``prompt_len +
+    n_patches``, as the reference's.  An encoder config (hubert's frames)
+    raises: it has no decode step, as the reference's prefill refuses it."""
+    if not cfg.causal:
+        raise ValueError(f"serve_session: config {cfg.name!r} is an encoder "
+                         "(no prefill/decode)")
+    n_patches = cfg.n_patches if cfg.frontend == "patch" else 0
+    max_len = max_len or (prompt_len + n_patches + gen)
     w = serving_weights(params, cfg)
     dev = w["embed"]["table"].device
-    if prompt is None:
-        prompt = batch_for(cfg, 0, batch, prompt_len + 1, learnable=True,
-                           device=dev)["tokens"][:, :prompt_len]
-    prompt = prompt.to(dev)
+    if prompt is None or (n_patches and patches is None):
+        drawn = batch_for(cfg, 0, batch, prompt_len + 1 + n_patches, learnable=True,
+                          device=dev)
+        prompt = drawn["tokens"][:, :prompt_len] if prompt is None else prompt
+        patches = drawn.get("patches") if patches is None else patches
+    inputs = {"tokens": prompt.to(dev)}
+    if n_patches:
+        inputs["patches"] = patches.to(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = lm_prefill(w, cfg, {"tokens": prompt}, max_len,
-                                masks=masks, pack=pack)
+    logits, caches = lm_prefill(w, cfg, inputs, max_len, masks=masks, pack=pack)
     tok = logits[:, -1].argmax(-1)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = lm_decode(w, cfg, caches, tok, prompt_len + i,
+        logits, caches = lm_decode(w, cfg, caches, tok, prompt_len + n_patches + i,
                                    masks=masks, pack=pack)
         tok = logits[:, -1].argmax(-1)[:, None]
         out.append(tok)
@@ -103,21 +120,27 @@ def staggered_requests(cfg, n: int, *, prompt_lens=(16, 32),
     """Synthetic staggered-length workload, the same requests as the
     reference's for the same arguments: request i cycles through
     ``prompt_lens``/``gen_lens`` with Poisson arrival offsets at
-    ``arrival_rate`` req/s (0 => burst at t=0)."""
+    ``arrival_rate`` req/s (0 => burst at t=0); a ``patch`` config's
+    request carries (n_patches, frontend_dim) standard normal f32 patches,
+    drawn before its tokens from the same numpy stream."""
     rng = np.random.default_rng(seed)
     arrivals = poisson_arrivals(n, arrival_rate, seed)
-    return [
-        Request(
+    reqs = []
+    for i in range(n):
+        kw = {}
+        if cfg.frontend == "patch":
+            kw["patches"] = rng.standard_normal(
+                (cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+        reqs.append(Request(
             rid=i,
             tokens=rng.integers(
                 0, cfg.vocab_size, size=int(prompt_lens[i % len(prompt_lens)])
             ).astype(np.int32),
             max_new_tokens=int(gen_lens[i % len(gen_lens)]),
             temperature=temperature, top_k=top_k, seed=seed + i,
-            arrival=float(arrivals[i]),
-        )
-        for i in range(n)
-    ]
+            arrival=float(arrivals[i]), **kw,
+        ))
+    return reqs
 
 
 def configure_kernel(cfg, *, kernel=None, block=None, attn_kernel=None):

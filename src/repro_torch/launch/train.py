@@ -22,7 +22,10 @@ the config, as the reference's tests do: the CLI has no flag for it) runs
 attention through the flash kernels K9, K10 and K11.  An MoE config
 (``--arch qwen2-moe-a2.7b``) runs its expert banks through the grouped
 kernels: K4, K5 and K6 under block_sparse, K16, K17 and K18 under masked,
-and the grouped fused epilogues K8 and K20.
+and the grouped fused epilogues K8 and K20.  The frontend configs train on
+``batch_for``'s batches: frames for ``--arch hubert-xlarge``
+(``frames_batch``), patches in front of the text for ``--arch
+internvl2-1b`` (``vlm_batch``: ``--seq`` counts both).
 
 ``--method`` takes every method of the reference's CLI: rigl, set, snfs
 and topkast (a drop/grow every ``--delta-t`` steps), static and dense, and

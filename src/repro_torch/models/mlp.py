@@ -1,7 +1,9 @@
-"""Feed-forward blocks (SwiGLU, GeGLU) of the port: ``models/mlp.py`` of
-the JAX package, with every projection through ``layers.linear`` in the
-input's dtype (the f32 residual stream's, as in the reference).  GeGLU's
-gelu is the tanh approximation, ``jax.nn.gelu``'s default."""
+"""Feed-forward blocks (SwiGLU, GeGLU, GELU, ReLU) of the port:
+``models/mlp.py`` of the JAX package, with every projection through
+``layers.linear`` in the input's dtype (the residual stream's, as in the
+reference).  Gelu is the tanh approximation, ``jax.nn.gelu``'s default;
+the gated kinds hold ``wi``, ``wg`` and ``wo``, the plain ones ``wi`` and
+``wo``."""
 from __future__ import annotations
 
 import torch.nn.functional as F
@@ -11,27 +13,36 @@ from .layers import linear, linear_init
 __all__ = ["mlp_init", "mlp"]
 
 
-_GATES = {"swiglu": F.silu, "geglu": lambda t: F.gelu(t, approximate="tanh")}
+def _gelu(t):
+    return F.gelu(t, approximate="tanh")
+
+
+_GATES = {"swiglu": F.silu, "geglu": _gelu}
+_ACTS = {"gelu": _gelu, "relu": F.relu}
+
+
+def _check(kind: str) -> None:
+    if kind not in _GATES and kind not in _ACTS:
+        raise ValueError(f"unknown mlp kind {kind!r}")
 
 
 def mlp_init(gen, d: int, d_ff: int, kind: str = "swiglu", *,
              sparse: bool = True):
-    if kind not in _GATES:
-        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
-    return {
-        "wi": linear_init(gen, d, d_ff, sparse=sparse),
-        "wg": linear_init(gen, d, d_ff, sparse=sparse),
-        "wo": linear_init(gen, d_ff, d, sparse=sparse),
-    }
+    _check(kind)
+    p = {"wi": linear_init(gen, d, d_ff, sparse=sparse)}
+    if kind in _GATES:
+        p["wg"] = linear_init(gen, d, d_ff, sparse=sparse)
+    p["wo"] = linear_init(gen, d_ff, d, sparse=sparse)
+    return p
 
 
 def mlp(p, x, kind: str = "swiglu", *, masks=None, kernel=None,
         block=(128, 128, 128), pack=None):
-    """SwiGLU wo(silu(wg x) * wi x), or GeGLU wo(gelu(wg x) * wi x).
-    ``pack`` mirrors ``masks`` and sizes the block-sparse kernel's loops to
-    the true active-block count."""
-    if kind not in _GATES:
-        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    """SwiGLU wo(silu(wg x) * wi x), GeGLU wo(gelu(wg x) * wi x), GELU
+    wo(gelu(wi x)) or ReLU wo(relu(wi x)).  ``pack`` mirrors ``masks``
+    and sizes the block-sparse kernel's loops to the true active-block
+    count."""
+    _check(kind)
 
     def kw(name):
         return dict(
@@ -41,5 +52,8 @@ def mlp(p, x, kind: str = "swiglu", *, masks=None, kernel=None,
         )
 
     h = linear(p["wi"], x, **kw("wi"))
-    h = _GATES[kind](linear(p["wg"], x, **kw("wg"))) * h
+    if kind in _GATES:
+        h = _GATES[kind](linear(p["wg"], x, **kw("wg"))) * h
+    else:
+        h = _ACTS[kind](h)
     return linear(p["wo"], h, **kw("wo"))

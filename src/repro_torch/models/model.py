@@ -9,8 +9,14 @@ in place of KV caches; tied embeddings) and the hybrid family (hymba-1.5b:
 ``models/ssm.py``'s selective SSM beside the attention in every block,
 each normed and the two averaged; a KV cache and an SSM state per slot),
 parallel blocks (command-r-plus-104b: the attention and the FFN read the
-same normed input and join the residual together) and gemma3 (gemma3-4b:
-qk-norm, sandwich norms on both outputs, GeGLU, 5:1 local:global).
+same normed input and join the residual together), gemma3 (gemma3-4b:
+qk-norm, sandwich norms on both outputs, GeGLU, 5:1 local:global) and the
+two frontend stubs: an encoder on frames (hubert-xlarge: precomputed frame
+embeddings through the dense ``frontend_proj`` in place of a token
+embedding, bidirectional attention, a plain GELU MLP, its own head; no
+prefill or decode) and a VLM (internvl2-1b: a prompt's patch embeddings
+through ``frontend_proj``, put in front of its text's token embeddings;
+the loss scores the text positions only).
 Every weight matmul goes
 through ``layers.linear`` or ``grouped_linear`` (the block-sparse kernels
 under ``cfg.sparse.kernel='block_sparse'``, the masked kernels under
@@ -23,7 +29,11 @@ group of ``cfg.remat_group`` blocks is a ``torch.utils.checkpoint`` region
 
 Dtypes follow the reference's actual flow: the embedding is gathered in the
 compute dtype and scaled by sqrt(d_model) into an f32 residual stream
-(NumPy's float64 scalar promotes it there in the reference), rmsnorm keeps
+(NumPy's float64 scalar promotes it there in the reference; a VLM's patch
+rows, projected in the compute dtype, join it promoted to f32), while a
+frames config's residual is ``frontend_proj``'s output in the compute
+dtype (no scale: under a bf16 config the whole encoder, its MLP and head
+included, runs in bf16, as in the reference), rmsnorm keeps
 the residual's dtype, the attention projections cast to ``cfg.dtype`` (and
 ``wo`` inherits the attention output's dtype), while the MLP and the LM head
 inherit the residual's f32.  Under a bf16 config the MLP's (and the MoE's
@@ -75,19 +85,18 @@ def padded_vocab(cfg) -> int:
 
 
 def _check_ported(cfg) -> None:
-    unported = {
-        "block_type": cfg.block_type not in ("transformer", "xlstm", "hymba"),
-        "frontend": cfg.frontend != "none",
-        "mlp_kind": cfg.mlp_kind not in ("swiglu", "geglu"),
-        "causal": not cfg.causal,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if cfg.block_type not in ("transformer", "xlstm", "hymba"):
         raise NotImplementedError(
-            f"config {cfg.name!r}: {', '.join(bad)} not ported yet (the port "
-            "runs the causal transformer with parallel or sandwich-normed "
-            "blocks, its MoE variant, xLSTM and hymba)"
-        )
+            f"config {cfg.name!r}: block_type {cfg.block_type!r} not ported yet "
+            "(the port runs the transformer family, xLSTM and hymba)")
+
+
+def _check_decodes(cfg, what: str) -> None:
+    """Prefill and decode exist for causal models only, as in the
+    reference (an encoder has no decode step)."""
+    if not cfg.causal:
+        raise ValueError(f"{what}: prefill/decode undefined for encoder-only models "
+                         f"(config {cfg.name!r})")
 
 
 def init_lm(cfg, seed: int = 0, *, device=None):
@@ -99,7 +108,10 @@ def init_lm(cfg, seed: int = 0, *, device=None):
     ``cfg.slstm_every``-th) an ``slstm`` block; a hymba config's hold
     ``ssm``, ``attn_norm`` and ``ssm_norm`` beside the attention.  A
     ``parallel_block`` layer has no ``ln2``; ``post_norms`` adds
-    ``ln1_post`` and ``ln2_post``.  Tied embeddings: no ``head`` leaf."""
+    ``ln1_post`` and ``ln2_post``.  Tied embeddings: no ``head`` leaf.  A
+    frontend config holds the dense ``frontend_proj`` (frontend_dim ->
+    d_model); a ``frames`` config has no ``embed`` and always a ``head``,
+    a ``patch`` config both ``frontend_proj`` and ``embed``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -125,21 +137,24 @@ def init_lm(cfg, seed: int = 0, *, device=None):
             mixer.update(ln1_post=rmsnorm_init(d, dev), ln2_post=rmsnorm_init(d, dev))
         return {**mixer, **ff()}
 
-    tree = {
-        "embed": {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))},
-        "layers": [layer(i) for i in range(cfg.n_layers)],
-        "ln_f": rmsnorm_init(d, dev),
-    }
-    if not cfg.tie_embeddings:
+    tree = {}
+    if cfg.frontend != "none":
+        tree["frontend_proj"] = linear_init(gen, cfg.frontend_dim, d, sparse=False)
+    if cfg.frontend != "frames":
+        tree["embed"] = {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))}
+    tree["layers"] = [layer(i) for i in range(cfg.n_layers)]
+    tree["ln_f"] = rmsnorm_init(d, dev)
+    if not cfg.tie_embeddings or cfg.frontend == "frames":
         tree["head"] = linear_init(gen, d, pv, sparse=False)
     return split_params(tree)
 
 
 def serving_weights(params, cfg):
-    """The params with the embedding table and the attention weights cast to
-    the compute dtype, ONCE.  The reference casts the f32 masters inside
-    every call (``layers.linear``, the embedding gather); casting once gives
-    the same bits without re-reading f32 weights on every decode step.  The
+    """The params with the embedding table, the attention weights and
+    ``frontend_proj`` cast to the compute dtype, ONCE.  The reference casts
+    the f32 masters inside every call (``layers.linear``, the embedding
+    gather); casting once gives the same bits without re-reading f32
+    weights on every decode step.  The
     MLP weights (an MoE's banks, router and shared MLP too), the xLSTM
     blocks, hymba's SSM, norm scales (qk-norm's ``q_norm``/``k_norm``
     under ``attn`` included: rmsnorm reads them in f32) and the LM head
@@ -148,8 +163,10 @@ def serving_weights(params, cfg):
     casts its rows)."""
     dt = compute_dtype(cfg)
     out = dict(params)
-    if "head" in params:
+    if "head" in params and "embed" in params:
         out["embed"] = {"table": params["embed"]["table"].to(dt)}
+    if "frontend_proj" in params:
+        out["frontend_proj"] = {"w": params["frontend_proj"]["w"].to(dt)}
     out["layers"] = [
         dict(lp, attn={name: {"w": leaf["w"].to(dt)} if "w" in leaf else leaf
                        for name, leaf in lp["attn"].items()})
@@ -172,15 +189,35 @@ def _state_key(cfg, i: int) -> str:
     return "slstm" if cfg.is_slstm(i) else "mlstm"
 
 
-def _embed(params, cfg, tokens):
-    table, dt = params["embed"]["table"], compute_dtype(cfg)
+def _embed(params, cfg, batch):
+    """The reference's ``_embed_inputs``: frames through ``frontend_proj``
+    in the compute dtype; else the scaled token embedding, a ``patch``
+    config's projected patches in front of it when the batch carries them
+    (decode steps do not: the prompt's patch K/V lie in the cache)."""
+    dt = compute_dtype(cfg)
+    if cfg.frontend == "frames":
+        return linear(params["frontend_proj"], batch["frames"].to(dt))
+    table, tokens = params["embed"]["table"], batch["tokens"]
     if table.requires_grad and torch.is_grad_enabled():
         # the reference's cast-then-gather: its gradient is a scatter-add
         # in the compute dtype
         x = table.to(dt)[tokens]
     else:  # the same bits without casting the whole table (a tied f32 one)
         x = table[tokens].to(dt)
-    return x.float() * float(np.float32(np.sqrt(cfg.d_model)))
+    x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
+    if cfg.frontend == "patch" and "patches" in batch:
+        pe = linear(params["frontend_proj"], batch["patches"].to(dt))
+        x = torch.cat([pe.float(), x], dim=1)
+    return x
+
+
+def _seq_len(cfg, batch) -> int:
+    """Rows ``_embed`` gives a batch: its tokens, and its patches in front
+    under a ``patch`` config."""
+    n = batch["tokens"].shape[1]
+    if cfg.frontend == "patch" and "patches" in batch:
+        n += batch["patches"].shape[1]
+    return n
 
 
 def _ff(p, x, cfg, masks, pack, active=None):
@@ -288,7 +325,7 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
     _check_ported(cfg)
     if histories is not None and not collect_states:
         raise ValueError("lm_forward: histories (suffix prefill) collect states")
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed(params, cfg, batch)
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -333,10 +370,13 @@ def lm_loss(params, cfg, batch, masks=None, pack=None):
     ``lm_loss``, plus 0.01 times the MoE layers' load-balancing loss (0
     without experts).  With ``masks`` the params are RAW and the topology
     is enforced inside the kernels, so autograd of this w.r.t. the params
-    yields the sparse (or superset-supported) gradient directly."""
+    yields the sparse (or superset-supported) gradient directly.  A
+    ``patch`` config scores only the last T (the text's) positions."""
     h, _, aux = lm_forward(params, cfg, batch, masks=masks, pack=pack,
                            collect_states=False)
     targets = batch["targets"]
+    if cfg.frontend == "patch":
+        h = h[:, -targets.shape[1]:]
     B, S, _ = h.shape
     n_chunks = max(1, cfg.loss_chunks)
     if S % n_chunks:
@@ -415,8 +455,13 @@ def lm_prefill(params, cfg, batch, max_len: int, *, masks=None, pack=None,
     ``in_proj`` on the prompt for these rows; they are the rows of the same
     product the SSM already ran, so the port takes them from it.  A hymba
     prompt needs at least 3 tokens (the conv state's rows).
+
+    A ``patch`` config's batch may carry ``patches`` (B, n_patches,
+    frontend_dim): their rows come first, so the K/V rows and ``n_valid``
+    count them.  An encoder config raises (no decode step).
     """
-    last = batch["tokens"].shape[1] if n_valid is None else n_valid
+    _check_decodes(cfg, "lm_prefill")
+    last = _seq_len(cfg, batch) if n_valid is None else n_valid
     if cfg.block_type == "hymba" and last < S.CONV_WIDTH - 1:
         raise ValueError(
             f"lm_prefill: a hymba prompt needs at least {S.CONV_WIDTH - 1} tokens "
@@ -531,9 +576,11 @@ def lm_decode(params, cfg, caches, tokens, pos, *, masks=None, pack=None,
     paged layout (``attention.attn_decode(table=)``).  An xLSTM config's
     layers step their recurrent states (``pos`` and ``tables`` unused),
     a hymba config's their SSM states beside the KV; inactive rows frozen.
-    Returns (logits (B, 1, V), caches updated in place)."""
+    Returns (logits (B, 1, V), caches updated in place).  An encoder
+    config raises."""
     _check_ported(cfg)
-    x = _embed(params, cfg, tokens)
+    _check_decodes(cfg, "lm_decode")
+    x = _embed(params, cfg, {"tokens": tokens})
     for i, (p, m, pk, c) in enumerate(zip(
             params["layers"], _per_layer(masks, cfg), _per_layer(pack, cfg),
             caches)):

@@ -32,11 +32,19 @@ Port of the JAX package's ``serving/engine.py``:
     new slot's table (refcount++; a partly shared boundary page is forked
     and copied) and prefills only the suffix (``lm_prefill_suffix``: the
     paged flash kernel K12 over the prefix).  All-global causal
-    transformer configs without experts only, as in the reference.  An
+    transformer configs without experts or a frontend only, as in the
+    reference.  An
     xLSTM config has no KV to page: its paged engine has no pool, and its
     recurrent states stay slot-batched.  A hymba config pages its KV (a
     local ring pool and a global pool) and keeps its SSM states
-    slot-batched beside them.
+    slot-batched beside them;
+  * a ``patch`` config's (internvl2-1b's) request carries its prompt's
+    patch embeddings (``Request.patches``, (n_patches, frontend_dim)):
+    the prefill puts their rows in front of the text, so lengths, page
+    counts and positions count ``n_patches`` rows more, and the text is
+    bucketed as any prompt (its pads are future text positions).  An
+    encoder config (``causal=False``, a ``frames`` frontend) is refused:
+    it has no decode step.
 
 The slot state (tokens, positions, active mask, sampling keys and
 parameters) and the block tables have device copies that advance on the
@@ -118,10 +126,6 @@ def _chunk_capped_len(bucket: int, cap: int, length: int, q_chunk: int) -> int:
     return cap
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"ServeEngine: {what} is not ported yet")
-
-
 class _PrefixEntry:
     """One registered shared prefix: its page-aligned token count and the
     global-pool pages the cache holds a reference on."""
@@ -147,7 +151,8 @@ class ServeEngine:
     ``params`` are the f32 masters (``init_lm``) on the serving device; the
     engine keeps a copy in the compute dtype (``serving_weights``).
     ``capacity`` is the slot count (the decode batch), ``max_len`` the
-    per-slot cache length (prompt_len + max_new_tokens <= max_len).
+    per-slot cache length (prompt_len [+ n_patches] + max_new_tokens <=
+    max_len).
     masks/pack follow the kernel-dispatch contract: with masks, every
     projection dispatches through ``cfg.sparse.kernel`` and ``pack``
     carries the block-sparse topology.  queue_limit, deadline and
@@ -169,7 +174,10 @@ class ServeEngine:
                  n_blocks: Optional[int] = None, prefix_cache: int = 0,
                  obs=None):
         if not cfg.causal:
-            raise ValueError("ServeEngine needs a causal config")
+            raise ValueError("ServeEngine needs a causal config (no decode path "
+                             "for encoder-only models)")
+        if cfg.frontend == "frames":
+            raise ValueError("frontend='frames' has no token decode loop")
         self.cfg = cfg
         self.masks = masks
         self.pack = pack
@@ -183,6 +191,7 @@ class ServeEngine:
         self.deadline = deadline
         self.max_retries = max_retries
         self.faults = faults
+        self._n_patches = cfg.n_patches if cfg.frontend == "patch" else 0
         self.queue = RequestQueue(max_depth=queue_limit)
         self.paged = paged
         self.page_size = page_size
@@ -195,8 +204,10 @@ class ServeEngine:
         self._pad_prompts = cfg.block_type == "transformer" and not cfg.n_experts
         # sharing replays nothing: every layer's cache must be plain
         # position-indexed KV with no ring wrap (no recurrent carry), and
-        # admission routing-free (no MoE capacity over suffix pads)
+        # admission routing-free (no MoE capacity over suffix pads); a
+        # frontend's rows are not keyed by the prompt's tokens
         share_ok = (cfg.block_type == "transformer" and not cfg.n_experts
+                    and cfg.frontend == "none"
                     and all(cache_group(cfg, i) == "global"
                             for i in range(cfg.n_layers)))
         if prefix_cache and not paged:
@@ -205,9 +216,10 @@ class ServeEngine:
         if prefix_cache and not share_ok:
             raise ValueError(
                 "prefix_cache requires an all-global transformer config without "
-                "experts: a sliding-window ring cache cannot share pages, MoE "
-                "routing over suffix pads is not exact, and a recurrent state "
-                f"cannot be shared (config {cfg.name!r})"
+                "experts or a frontend (frontend='none'): a sliding-window ring "
+                "cache cannot share pages, MoE routing over suffix pads is not "
+                "exact, and a recurrent state cannot be shared (config "
+                f"{cfg.name!r})"
             )
         self._spans: dict[str, int] = {}
         self.pools: dict[str, BlockPool] = {}
@@ -357,22 +369,26 @@ class ServeEngine:
     # -- admission ---------------------------------------------------------
 
     def _padded_len(self, prompt_len: int) -> int:
-        """Next power of two, capped so the padded prompt fits a cache row;
-        the exact length for an MoE or xLSTM config."""
+        """Next power of two, capped so the padded prompt (and its patch
+        rows) fits a cache row; the exact length for an MoE or xLSTM
+        config."""
         if not self._pad_prompts:
             return prompt_len
-        return _chunk_capped_len(_bucket_len(prompt_len), self.max_len,
+        return _chunk_capped_len(_bucket_len(prompt_len), self.max_len - self._n_patches,
                                  prompt_len, self.cfg.q_chunk)
 
     def submit(self, req: Request) -> bool:
         """Enqueue; False (request SHED) when the queue is full.  Invalid
-        requests (oversize, more pages than the global pool, patches, a
-        hymba prompt under 3 tokens) raise."""
-        need = req.prompt_len + req.max_new_tokens
+        requests (oversize with the patch rows, more pages than the global
+        pool, a ``patch`` config's request without patches, a hymba prompt
+        under 3 tokens) raise.  Patches given to a config without a patch
+        frontend are ignored, as the reference's model ignores them."""
+        need = req.prompt_len + self._n_patches + req.max_new_tokens
         if need > self.max_len:
             raise ValueError(
-                f"request {req.rid}: prompt {req.prompt_len} + max_new_tokens "
-                f"{req.max_new_tokens} needs {need} > max_len {self.max_len}"
+                f"request {req.rid}: prompt {req.prompt_len} (+{self._n_patches} "
+                f"patches) + max_new_tokens {req.max_new_tokens} needs "
+                f"{need} > max_len {self.max_len}"
             )
         if "global" in self.pools:
             # the paged bound is PAGES: a request the global pool could never
@@ -384,8 +400,9 @@ class ServeEngine:
                     f"(page_size {self.page_size}) but the global block "
                     f"pool only has {self.pools['global'].n_blocks}"
                 )
-        if req.patches is not None:
-            raise _not_ported("patch prompts")
+        if self.cfg.frontend == "patch" and req.patches is None:
+            raise ValueError(
+                f"request {req.rid}: frontend='patch' configs need patches")
         if self.cfg.block_type == "hymba" and req.prompt_len < CONV_WIDTH - 1:
             # the SSM's conv state holds the prompt's last 3 inputs
             raise ValueError(
@@ -449,7 +466,7 @@ class ServeEngine:
         newly allocated.
         """
         bs = self.page_size
-        need = req.prompt_len + req.max_new_tokens
+        need = req.prompt_len + self._n_patches + req.max_new_tokens
         want = {g: -(-min(span, need) // bs) for g, span in self._spans.items()}
         key, _ = self._prefix_key(req)
         entry = self._prefix_entries.get(key) if key is not None else None
@@ -540,6 +557,9 @@ class ServeEngine:
         toks = np.zeros(padded, np.int64)
         toks[:slen] = req.tokens[ctx:]
         batch = {"tokens": torch.from_numpy(toks)[None].to(dev)}
+        if self._n_patches:
+            batch["patches"] = torch.from_numpy(
+                np.asarray(req.patches, np.float32))[None].to(dev)
         tables = ({g: torch.from_numpy(t[s]).to(dev) for g, t in self.tables.items()}
                   if self.paged else None)
         if ctx:
@@ -549,7 +569,8 @@ class ServeEngine:
         else:
             logits, self.caches = lm_prefill_into(
                 self.params, self.cfg, self.caches, batch, s, self.max_len,
-                masks=self.masks, pack=self.pack, n_valid=slen, tables=tables)
+                masks=self.masks, pack=self.pack, n_valid=slen + self._n_patches,
+                tables=tables)
         last = logits[:, -1]
         if fval is not None:
             last = torch.full_like(last, fval)
@@ -626,7 +647,7 @@ class ServeEngine:
             self.slot_history.append((req.rid, s))
             self.slot_req[s] = req
             self.active[s] = True
-            self.pos[s] = req.prompt_len
+            self.pos[s] = req.prompt_len + self._n_patches
             self.cur_tok[s] = tok
             self.base_keys[s] = request_key(req.seed)
             self.gen_idx[s] = 1

@@ -383,7 +383,7 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
         fn = _loss_fn(loss_fn, state, dispatch, pack)
         if mb == 1:
             return _value_and_grad(fn, src, batch)
-        bsz = batch["tokens"].shape[0] // mb
+        bsz = batch["targets"].shape[0] // mb
         loss_acc, g_acc = torch.zeros((), dtype=torch.float32), None
         for i in range(mb):
             sub = {k: v[i * bsz:(i + 1) * bsz] for k, v in batch.items()}

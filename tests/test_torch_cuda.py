@@ -5,6 +5,8 @@ K18 and the block-sparse wgrad K3/K6, forward K1/K4 and dgrad K2/K5 on the
 GEMM core (each under every plan its sweep forces, with the split merge), the
 fused epilogues K19/K20 and K7/K8 (likewise, with their fused merges), the
 |x| histogram K21, the grouped kernels at xLSTM's recurrent bank's shapes,
+the flash wrapper at the frontend families' shapes (hubert-xlarge's
+bidirectional d = 80, internvl2-1b's G = 7 at d = 64),
 training steps, paged serving, MoE serving, MoE and xLSTM training through
 them; checkpoints of card tensors (the round trip and the
 async snapshot) and the engine's quarantine of injected faults.
@@ -2364,7 +2366,67 @@ BWD_EDGES = {
     "S=100 bq=112 d=256": (4, 2, 256, 100, 100, True, 0, 0.0, None),
     "softcap 30 d=256": (4, 2, 256, 260, 260, True, 0, 30.0, None),
     "dead rows d=256": (4, 2, 256, 90, 40, True, 0, 0.0, None),
+    # hubert-xlarge's bidirectional attention (G = 1, d = 80) at a length
+    # the 128-row blocks do not divide: every walk the same length, the
+    # padded query rows see every real key; internvl2-1b's G = 7 at d = 64
+    "bidirectional S=1000 d=80": (4, 1, 80, 1000, 1000, False, 0, 0.0, None),
+    "G=7 d=64 S=300": (14, 7, 64, 300, 300, True, 0, 0.0, None),
 }
+
+
+# (BH, G, d, S, causal): the frontend families' attention through the
+# wrapper: hubert-xlarge's bidirectional 16 heads at a length the 128-row
+# blocks do not divide, internvl2-1b's 14 heads over 2
+FRONTEND_FLASH = {
+    "hubert bidirectional S=1000": (16, 1, 80, 1000, False),
+    "internvl G=7 S=600": (14, 7, 64, 600, True),
+    "internvl G=7 bidirectional S=200": (14, 7, 64, 200, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FRONTEND_FLASH))
+def test_cuda_flash_wrapper_frontend_shapes_match_plain(case):
+    """``flash_attention`` on the card (K9, then K10 and K11 through
+    autograd) at the frontend families' shapes: o within
+    ``o_error_bound`` of the same wrapper on CPU tensors (the plain
+    version), and the gradients of the S real rows within
+    ``grad_error_bound`` of the plain backward on the padded layout with
+    zero dO on the padded query rows, which the wrapper's trim gives them
+    (otherwise dv takes p^T dO from rows that see every real key).  The
+    plain backward takes the wrapper's forward: K9's o (for delta) and
+    lse on the padded layout, as the kernels' checks do (the bound covers
+    the backward's own roundings, not another forward's)."""
+    dev = _cuda()
+    BH, G, d, S, causal = FRONTEND_FLASH[case]
+    rng = np.random.default_rng(len(case))
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+    q, do = bf(BH, S, d), bf(BH, S, d)
+    k, v = bf(BH // G, S, d), bf(BH // G, S, d)
+    kw = dict(causal=causal, window=0, kv_groups=G)
+    leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+    o = tfa.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(o, leaves, do.to(dev))
+    po, pa = tfa.flash_attention(q, k, v, **kw), tfa.flash_attention(q, k, v.abs(), **kw)
+    assert bool(((o.detach().float().cpu() - po.float()).abs()
+                 <= tfa.o_error_bound(po, pa)).all())
+    bq, bk = tfa.effective_blocks(S, S)
+    Sp = -(-S // bq) * bq
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, Sp - t.shape[1]))
+    qp, kp, vp, dop = pad(q), pad(k), pad(v), pad(do)
+    sched = tfa._schedule_on(torch.device("cpu"), S, S, bq, bk, causal, 0, 0)
+    pkw = dict(bq=bq, bk=bk, causal=causal, window=0, q_offset=0, sk=S, scale=d ** -0.5,
+               softcap=0.0, kv_groups=G)
+    op, lse = (t.cpu() for t in tfa.flash_fwd(*(t.to(dev) for t in (qp, kp, vp, *sched[:2])),
+                                              **pkw))
+    delta = (dop.float() * op.float()).sum(-1)
+    blocks = tfa._schedule_mask(sched[0], sched[1], Sp // bk, "cpu")
+    *want, dq_a, dk_a, dv_a, dq_e, dk_e, dv_e = tfa.flash_bwd_plain(
+        qp, kp, vp, dop, lse, delta, blocks, with_abs=True, **pkw)
+    for name, g, w_, a, e in zip(("dq", "dk", "dv"), got, want, (dq_a, dk_a, dv_a),
+                                 (dq_e, dk_e, dv_e)):
+        diff = (g.float().cpu() - w_[:, :S].float()).abs()
+        assert bool((diff <= tfa.grad_error_bound(w_, a, e)[:, :S]).all()), name
 
 
 @pytest.mark.cuda

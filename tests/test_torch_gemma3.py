@@ -161,9 +161,9 @@ def config_matches(arch):
 
 
 def init_layout_matches(arch, smoke):
-    """Paths, shapes and sparse flags of the reference's tree (no ``head``:
-    tied) and the same ERK map; the full config on shapes alone.  Returns
-    the reference's shapes and flags."""
+    """Paths, shapes and sparse flags of the reference's tree and the same
+    ERK map; the full config on shapes alone.  Returns the reference's
+    shapes and flags."""
     sp = SparseConfig(sparsity=0.8, distribution="erk")
     jcfg = dataclasses.replace(get_config(arch, smoke=smoke), sparse=sp)
     tcfg = t_get_config(arch, smoke=smoke)
@@ -175,7 +175,6 @@ def init_layout_matches(arch, smoke):
 
     shapes = j_tree_paths(jax.eval_shape(init, jax.random.PRNGKey(0)))
     flags = j_tree_paths(box["flags"])
-    assert "head/w" not in shapes
     if smoke:
         tp, tf = tm.init_lm(tcfg, device="cpu")
         got = tree_paths(tp)
@@ -205,6 +204,7 @@ def test_init_layout_and_erk_match_reference(smoke):
     """The qk-norm scales (head_dim wide) and both post-norms in every
     layer, dense; ``ln2`` too (a sequential block)."""
     shapes, flags = init_layout_matches(ARCH, smoke)
+    assert "head/w" not in shapes  # tied
     hd = t_get_config(ARCH, smoke=smoke).head_dim
     for leaf in ("attn/q_norm/scale", "attn/k_norm/scale", "ln1_post/scale",
                  "ln2_post/scale", "ln2/scale"):

@@ -59,6 +59,7 @@ def test_config_copy_matches_reference():
 def test_init_layout_and_erk_match_reference(smoke):
     """No ``ln2`` (and no post-norms or qk-norm scales) in any layer."""
     shapes, _ = init_layout_matches(ARCH, smoke)
+    assert "head/w" not in shapes  # tied
     assert "layers/0/ln1/scale" in shapes and "layers/0/mlp/wg/w" in shapes
     assert not [n for n in shapes if "ln2" in n or "_post" in n or "_norm" in n]
 

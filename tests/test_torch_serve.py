@@ -124,8 +124,11 @@ def test_engine_rejects_unported_features(engines_state):
     """Paged caches, the prefix cache and sampling are ported
     (tests/test_torch_paged.py, tests/test_torch_sampler.py), and so are
     the fault injector and observability (tests/test_torch_faults.py,
-    tests/test_torch_obs.py): an engine takes both.  Patch prompts still
-    raise."""
+    tests/test_torch_obs.py): an engine takes both.  Patch prompts are
+    ported (tests/test_torch_internvl.py): patches on a request to a
+    config without a patch frontend are accepted and ignored, as the
+    reference engine does with the same request (the same greedy stream
+    as each other and as the request without patches)."""
     from repro_torch.obs import MetricsRegistry, Observability
     from repro_torch.serving.faults import FaultInjector
 
@@ -135,11 +138,18 @@ def test_engine_rejects_unported_features(engines_state):
                      faults=FaultInjector(), obs=obs)
     assert faulty.faults is not None and faulty.obs is obs
     assert obs.metrics.get("serve_requests_total") is not None
-    engine = TEngine(cfg, params, capacity=1, max_len=16, masks=masks, pack=pack)
-    req = t_requests(cfg, 1, prompt_lens=(4,), gen_lens=(2,))[0]
-    req.patches = np.zeros((1, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="patch"):
-        engine.submit(req)
+    jside, tside = engines_state
+    streams = {}
+    for name, Engine, side, make in (("jax", JEngine, jside, j_requests),
+                                     ("port", TEngine, tside, t_requests)):
+        reqs = make(side[0], 2, prompt_lens=(5,), gen_lens=(6,), seed=4)
+        reqs[0].patches = np.zeros((1, 1), np.float32)
+        reqs[1].tokens = reqs[0].tokens.copy()
+        _serve(Engine, side, reqs)
+        assert all(r.status.name == "DONE" for r in reqs), name
+        streams[name] = [r.generated for r in reqs]
+    assert streams["port"] == streams["jax"]
+    assert streams["port"][0] == streams["port"][1]
 
 
 def test_engine_quarantines_non_finite_slots(engines_state):

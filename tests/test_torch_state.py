@@ -62,7 +62,7 @@ def test_config_copy_matches_reference():
         assert (dataclasses.asdict(t_get_config("h2o-danube-1.8b", smoke=smoke))
                 == dataclasses.asdict(get_config("h2o-danube-1.8b", smoke=smoke)))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_get_config("hubert-xlarge")
+        t_get_config("grok-1-314b")
 
 
 def _reference_shapes(cfg):

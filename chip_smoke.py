@@ -363,7 +363,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                 dense path; exact launches a step (2 x 168 K1, 168 K2, 168
                 K3, 48 K9, 24 K10, 24 K11 and the planned merges), the
                 profiled step on the d = 64 flash kernels alone
- 36. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 36. grok flash -- K9, K10 and K11 at grok-1-314b's attention (48 heads
+                over 8, G = 6, head_dim 128, softcap 30, causal, S = 1024
+                and 2048) against their plain versions, timed beside the
+                generic instantiation, SDPA (no softcap) and the bound
+ 37. grok banks -- K4, K5, K6 and K16, K17, K18 once each on a whole grok
+                expert bank (8 x 6144 x 32768 = 1.61 G elements, f32 as the
+                path upcasts it; the index widths) against their plain
+                versions, timed beside torch.bmm and the bound
+ 38. grok serve -- grok-1-314b at full width, 4 of 64 layers, bf16 masters,
+                block-aligned ERK 0.8 masks, paged, block_sparse and
+                masked: 8 requests (prompts 100/400/1000, 32 tokens), every
+                request DONE, clean pool books; exactly 16 K1 (K13) and 12
+                K4 (K16) a prefill and a decode step and the planned
+                merges, 4 K9 a prompt; the prefix cache refused; greedy
+                tokens and routing against the plain dense path; K1 and K4
+                without a pack entry equal to the calls with one; the
+                decode step's profiled busy ms and its bank casts' ms
+ 39. grok train -- 1 of 64 layers at full width, 16 x 1024 tokens in 16
+                microbatches accumulated in bf16, SGD with a bf16
+                momentum, 3 steps, both modes: the step-0 loss and the
+                gradients of wi, wo, the router, wq and the head against
+                the plain dense path; exact launches a step (16 x (8 K1, 4
+                K2, 4 K3, 6 K4, 3 K5, 3 K6, 2 K9, K10, K11) and the planned
+                merges); every leaf bf16 after the steps; block_sparse
+                then one drop/grow on 1 x 1024 tokens and a fresh pack
+ 40. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -5818,7 +5843,8 @@ def hymba_flash_cases(torch, timer, fa):
     return flash_cases_at(torch, timer, fa, "hymba", 25, 5, 64, HYMBA_FLASH_CASES)
 
 
-def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True, sweep=False):
+def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True, sweep=False,
+                   softcap=0.0):
     """K9, K10 and K11 of ``model``'s attention (BH query heads over
     BH / G, head_dim d, bf16) at ``cases`` ((name, S, window): causal, or
     (name, S, window, causal)), as ``hymba_flash_cases`` says; without
@@ -5833,7 +5859,9 @@ def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True, sweep
     ``sweep`` each K10 / K11 case also times every candidate plan of
     ``fa.bwd_plan`` (``plan_sweep``) and says whether its pick was the
     fastest, with the launch (``bwd_launch``).  SDPA runs on the S rows
-    (no mask for a bidirectional case)."""
+    (no mask for a bidirectional case).  ``softcap`` caps the scores in
+    the kernels and the plain versions (SDPA has no softcap: its time is
+    the same work less the tanh)."""
     from repro_torch.core.attn_sched import sched_for
 
     F = torch.nn.functional
@@ -5860,7 +5888,7 @@ def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True, sweep
         sched_np = sched_for(S, S, bq, bk, causal, window, 0)
         width = int(sched_np["kv_idx"].shape[1])
         kw = dict(bq=bq, bk=bk, causal=causal, window=window, q_offset=0, sk=S,
-                  scale=d**-0.5, softcap=0.0, kv_groups=G)
+                  scale=d**-0.5, softcap=softcap, kv_groups=G)
         pos = torch.arange(S, device="cuda")
         mask = torch.ones(S, S, dtype=torch.bool, device="cuda")
         if causal:
@@ -5868,7 +5896,7 @@ def flash_cases_at(torch, timer, fa, model, BH, G, d, cases, generic=True, sweep
         if window:
             mask &= pos[None, :] > pos[:, None] - window
         live = int(mask.sum())
-        tag = f"{model} {name} BH={BH} G={G} d={d}"
+        tag = f"{model} {name} BH={BH} G={G} d={d}" + (f" softcap={softcap}" if softcap else "")
         q4, k4, v4 = (t.view(1, -1, S, d).detach().requires_grad_(True) for t in (q_, k_, v_))
         attn_mask = mask if (causal or window) else None
         sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask,
@@ -6506,6 +6534,599 @@ def internvl_train(torch, timer, bsm, mm, fa, kernel):
     return model_train(torch, timer, bsm, mm, fa, kernel, INTERNVL_TRAIN)
 
 
+# ---------------------------------------------------------------------------
+# grok-1-314b: bf16 masters, the f32 MoE over 1.61 G-element bf16 expert
+# banks (8 experts top-2, moe_d_ff 32768), the attention and final softcaps;
+# K9-K11 at d = 128, G = 6 with softcap 30
+# ---------------------------------------------------------------------------
+
+GROK_SERVE_LAYERS = 4  # of 64: 42.6 GB of bf16 masters and 19.7 GB of masks
+GROK_TRAIN_LAYERS = 1  # of 64: with its state and one microbatch's gradients ~75 GB
+GROK_PROJ = 4  # K1/K13 a layer a pass: wq, wk, wv, wo
+GROK_BANKS = 3  # K4/K16 a layer a pass: wi, wg, wo
+GROK_ENGINE = dict(capacity=4, max_len=2048, paged=True, page_size=16)
+GROK_REQUESTS = (8, (100, 400, 1000), 32)  # requests, prompt lengths, new tokens
+GROK_FLASH_CASES = (("S=1024 causal", 1024, 0), ("S=2048 causal", 2048, 0))
+GROK_SOFTCAP = 30.0
+GROK_FLASH = ("flash_dkv_kernel<128, true>", "flash_dq_kernel<128, true>",
+              "flash_fwd_kernel<128, true>")
+# the step-0 gradients held against the plain dense path: the banks, the
+# router, an attention projection and the head, all bf16 leaves
+GROK_GRAD_LEAVES = ("layers/0/moe/wi/w", "layers/0/moe/wo/w", "layers/0/moe/router/w",
+                    "layers/0/attn/wq/w", "head/w")
+GROK_TRAIN = dict(steps=3, batch=16, seq=1024)  # 16 microbatches of 1 x 1024
+GROK_BANK_ROWS = 320  # a 1024-token microbatch's expert capacity (top-2 of 8, x1.25)
+
+
+def grok_config(kernel, n_layers, microbatches=1):
+    """grok-1-314b at its published widths, ``n_layers`` of 64 deep (its
+    bf16 masters, 628 GB at full depth, fit no card), ERK 0.8, flash_tight;
+    block_sparse in 128x128 blocks, or masked; RigL with the Top-KAST
+    superset."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import configure_kernel
+
+    cfg = configure_kernel(get_config("grok-1-314b"), kernel=kernel, block=128,
+                           attn_kernel="flash_tight")
+    sp = dataclasses.replace(cfg.sparse, method="rigl", delta_t=DELTA_T)
+    return dataclasses.replace(cfg, n_layers=n_layers, microbatches=microbatches, sparse=sp)
+
+
+def grok_flash_cases(torch, timer, fa):
+    """Phase "grok flash": K9, K10 and K11 at grok-1-314b's attention (48
+    query heads over 8, G = 6, head_dim 128, bf16, causal, the logit
+    softcap 30 applied in the kernels) at S = 1024 and 2048, on the d = 128
+    instantiation and the generic one, each against its plain version
+    within ``fa.o_error_bound`` / ``fa.grad_error_bound``, timed beside
+    SDPA (which has no softcap: its time is the same work less the tanh)
+    and the operations bound (``flash_cases_at``)."""
+    return flash_cases_at(torch, timer, fa, "grok", 48, 6, 128, GROK_FLASH_CASES,
+                          softcap=GROK_SOFTCAP)
+
+
+def grok_merges(torch, cfg, state, rows, entry):
+    """Split merges of one pass over a grok stack's dispatched leaves: the
+    attention's 2-D projections at ``rows`` rows and the expert banks at
+    their capacity for ``rows`` tokens (``leaf_merges``)."""
+    from repro_torch.models.moe import capacity
+
+    return sum(leaf_merges(torch, cfg, state, rows, capacity(rows, cfg), entry))
+
+
+def bank_casts_ms(torch, timer, params):
+    """Device time of the bf16 -> f32 casts of every expert bank of
+    ``params`` (one decode step's, or one forward's, upcasts), each copy
+    freed before the next, as in the kernels' Functions."""
+    banks = [lp["moe"][b]["w"] for lp in params["layers"] for b in ("wi", "wg", "wo")]
+
+    def casts():
+        for w in banks:
+            w.to(torch.float32)
+
+    return timer(casts, reps=3, warmup=1)
+
+
+def grok_serve(torch, timer, bsm, mm, fa):
+    """Phase "grok serve": grok-1-314b at full width, 4 of 64 layers (4.92 B
+    parameters a layer, the untied 131072-row embedding and head; 20.5 B
+    in bf16 masters), one init's masters and block-aligned masks (ERK 0.8,
+    128x128 blocks, seed 0) through the paged engine (capacity 4, max_len
+    2048, 16-token pages), under block_sparse (K1 for the attention, K4
+    for the banks) and masked (K13, K16).  Checks, per mode: 8 staggered
+    greedy requests (prompts 100/400/1000, 32 tokens) all DONE, nothing
+    quarantined, clean pool books; the run's launches exactly 4 x 4 K1
+    (K13) and 3 x 4 K4 (K16) a prefill and a decode step plus the planned
+    merges, 4 K9 a prompt; one prefill and one decode step counted on
+    their own; the profiled prefill on the d = 128 K9 alone; the greedy
+    tokens against the plain dense path on the same masters (their
+    agreement reported, at least 50%: a routing near-tie flips a stream
+    from that token on), routing and logits against it by ``moe_vs_dense``
+    (at least 95% of the (token, layer) top-2 sets agree; the agreeing
+    prompts' logits within 2e-2 of the largest).  The prefix cache is
+    refused (an MoE config).  Block-sparse also holds K1 and K4 on layer
+    0's wq and wi without a pack entry (the mask packed on the call) bit
+    for bit to the calls with the entry.  Reports prefill ms, the decode
+    step's host ms, its profiled busy ms, the bank casts' ms within it
+    and peak GiB."""
+    import numpy as np
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.launch.serve import (
+        configure_kernel,
+        init_serving_state,
+        staggered_requests,
+    )
+    from repro_torch.models.model import lm_decode, lm_prefill
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.queue import Status
+
+    cfg_bs = grok_config("block_sparse", GROK_SERVE_LAYERS)
+    L = cfg_bs.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, masks, pack = init_serving_state(cfg_bs, seed=0, device="cuda")
+    leaves = tree_paths(params)
+    n_params = sum(t.numel() for t in leaves.values())
+    dtypes = sorted({str(t.dtype) for t in leaves.values()})
+    torch.cuda.synchronize()
+    print(f"grok serve: grok-1-314b ({L} of 64 layers, d_model {cfg_bs.d_model}, "
+          f"{cfg_bs.n_heads}/{cfg_bs.n_kv_heads} heads of {cfg_bs.head_dim}, "
+          f"{cfg_bs.n_experts} experts top-{cfg_bs.top_k} of {cfg_bs.moe_d_ff}, "
+          f"{n_params / 1e9:.3f} B parameters, {dtypes}) initialised in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} "
+          "GiB on the card")
+    if dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"grok serve: masters in {dtypes}, not bf16")
+    try:
+        ServeEngine(cfg_bs, params, masks=masks, pack=pack, prefix_cache=2, **GROK_ENGINE)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("grok serve: the prefix cache was not refused for an MoE config")
+    n_req, lens, gen = GROK_REQUESTS
+    dense = dataclasses.replace(cfg_bs, sparse=dataclasses.replace(
+        cfg_bs.sparse, kernel="dense", attn_kernel="dense"))
+    dreqs = staggered_requests(dense, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+    dengine = ServeEngine(dense, params, **GROK_ENGINE)
+    for r in dreqs:
+        dengine.submit(r)
+    dengine.run()
+    del dengine
+    torch.cuda.empty_cache()
+    out = {"parameters": n_params, "prefix_cache_refused": refused}
+    per_call = {"proj": GROK_PROJ * L, "bank": GROK_BANKS * L}
+    for kernel in ("block_sparse", "masked"):
+        bs = kernel == "block_sparse"
+        label = f"grok serve {kernel}"
+        cfg = cfg_bs if bs else configure_kernel(cfg_bs, kernel="masked")
+        pk = pack if bs else None
+        fam, mod = ("block_sparse", bsm) if bs else ("masked", mm)
+        k1, k4, merge = f"{fam}_fwd", f"grouped_{fam}_fwd", f"{fam}_fwd_merge"
+        counters = ((k1, mod, "launches"), (k4, mod, "g_launches"),
+                    (merge, mod, "fwd_merge_launches"), ("flash_fwd", fa, "launches"))
+        read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+        warm = ServeEngine(cfg, params, masks=masks, pack=pk, **GROK_ENGINE)
+        for r in staggered_requests(cfg, 2, prompt_lens=(20,), gen_lens=(2,), seed=1):
+            warm.submit(r)
+        warm.run()
+        del warm
+        engine = ServeEngine(cfg, params, masks=masks, pack=pk, **GROK_ENGINE)
+        reqs = staggered_requests(cfg, n_req, prompt_lens=lens, gen_lens=(gen,), seed=0)
+        for r in reqs:
+            engine.submit(r)
+        for _, m_, a in counters:
+            setattr(m_, a, 0)
+        torch.cuda.reset_peak_memory_stats()
+        stats = engine.run()
+        launches = read()
+        for r in reqs:
+            if r.status is not Status.DONE or len(r.generated) != gen:
+                raise AssertionError(f"{label}: request {r.rid}: {r.status} with "
+                                     f"{len(r.generated)} tokens")
+        if stats["quarantined"] or stats["failed"]:
+            raise AssertionError(f"{label}: quarantined/failed slots: {stats}")
+        engine.check_pool_accounting()
+        if any(p.n_live for p in engine.pools.values()):
+            raise AssertionError(f"{label}: pages left live after the run")
+        st = {"params": engine.params, "pack": pk, "masks": masks}
+        cap = GROK_ENGINE["capacity"]
+        dec = grok_merges(torch, cfg, st, cap, "fwd")
+        pre = {n: grok_merges(torch, cfg, st, engine._padded_len(n), "fwd") for n in set(lens)}
+        calls = stats["decode_steps"] + stats["prefills"]
+        expect = {k1: per_call["proj"] * calls, k4: per_call["bank"] * calls,
+                  merge: stats["decode_steps"] * dec + sum(pre[r.prompt_len] for r in reqs),
+                  "flash_fwd": L * stats["prefills"]}
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+
+        r1 = reqs[1]
+        inputs = {"tokens": torch.from_numpy(r1.tokens).long().cuda()[None]}
+        c0 = read()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            lm_prefill(engine.params, cfg, inputs, GROK_ENGINE["max_len"], masks=masks,
+                       pack=pk)
+            torch.cuda.synchronize()
+        one_prefill = {n: v - c0[n] for n, v in read().items()}
+        want = {k1: per_call["proj"], k4: per_call["bank"],
+                merge: grok_merges(torch, cfg, st, r1.prompt_len, "fwd"), "flash_fwd": L}
+        if one_prefill != want:
+            raise AssertionError(f"{label}: one prefill launched {one_prefill}, expected {want}")
+        tag = label.replace(" ", "_")
+        _, _, names = trace_busy(prof, ROOT / "build" / f"{tag}_prefill_trace.json")
+        flash = flash_kernels_of(names)
+        if flash != [GROK_FLASH[2]]:
+            raise AssertionError(f"{label}: the prefill ran the flash kernels {flash}")
+        dev = engine.device
+        tables = {g: torch.from_numpy(t).to(dev) for g, t in engine.tables.items()}
+        tok = torch.from_numpy(engine.cur_tok[:, None]).to(dev)
+        pos = torch.from_numpy(engine.pos).to(dev)
+        step = lambda: lm_decode(engine.params, cfg, engine.caches, tok, pos, masks=masks,
+                                 pack=pk, tables=tables)
+        c0 = read()
+        step()
+        one_step = {n: v - c0[n] for n, v in read().items()}
+        want = {k1: per_call["proj"], k4: per_call["bank"], merge: dec, "flash_fwd": 0}
+        if one_step != want:
+            raise AssertionError(f"{label}: one decode step launched {one_step}, "
+                                 f"expected {want}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            step()
+            torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t1)
+        busy_ms, top, _ = trace_busy(prof, ROOT / "build" / f"{tag}_decode_trace.json")
+        casts_ms = bank_casts_ms(torch, timer, engine.params)
+        same = [r.generated == d.generated for r, d in zip(reqs, dreqs)]
+        agree = sum(a == b for r, d in zip(reqs, dreqs)
+                    for a, b in zip(r.generated, d.generated)) / (n_req * gen)
+        print(f"{label}: vs the plain dense path: streams equal {same}, token agreement "
+              f"{agree:.3f}")
+        if agree < 0.5:
+            raise AssertionError(f"{label}: greedy tokens agree {agree:.3f} with the dense "
+                                 "path's")
+        rng = np.random.default_rng(7)
+        probes = [rng.integers(0, cfg.vocab_size, 4) for _ in range(8)]
+        stats.update({
+            "prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
+            "decode_step_ms": 1e3 * stats["decode_step_s"],
+            "launches_per_prefill": one_prefill, "launches_per_decode_step": one_step,
+            "merges_per_prefill": {str(n): m for n, m in pre.items()},
+            "prefill_flash_kernels": flash, "streams_equal_dense": same,
+            "token_agreement_dense": agree, "profiled_decode_step_ms": step_ms,
+            "profiled_decode_step_busy_ms": busy_ms, "profiled_decode_step_top": top,
+            "bank_casts_ms_per_decode_step": casts_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "vs_dense": moe_vs_dense(torch, cfg, engine.params, masks, pk,
+                                     [r.tokens for r in reqs[:4]], probes, label)})
+        if bs:
+            stats["no_pack_entry"] = grok_no_pack_entry(torch, cfg, engine.params, masks, pack)
+        print(f"{label}: engine", json.dumps({k: stats[k] for k in (
+            "requests", "tokens", "decode_steps", "prefills", "wall_s", "tok_per_s",
+            "prefill_ms", "decode_step_ms", "profiled_decode_step_ms",
+            "profiled_decode_step_busy_ms", "bank_casts_ms_per_decode_step", "peak_gib")}),
+              f"launches {launches}; a prefill {one_prefill}; a decode step {one_step}")
+        out[kernel] = (stats, launches)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def grok_no_pack_entry(torch, cfg, params, masks, pack):
+    """K1 on layer 0's wq and K4 on its wi bank through ``layers.linear`` /
+    ``grouped_linear`` with the mask and no pack entry (packed on the call)
+    against the same calls with the layer's entry: equal bit for bit."""
+    from repro_torch.kernels import block_sparse_matmul as bsm
+    from repro_torch.models import layers as L_
+
+    lay, mk, pk = (t["layers"][0] for t in (params, masks, pack))
+    blk = cfg.sparse.kernel_block
+    x = torch.randn(16, cfg.d_model, device="cuda").to(torch.bfloat16)
+    xb = torch.randn(cfg.n_experts, GROK_BANK_ROWS, cfg.d_model, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for name, fn, a, w, m, e in (
+                ("K1 attn/wq", L_.linear, x, lay["attn"]["wq"], mk["attn"]["wq"]["w"],
+                 pk["attn"]["wq"]["w"]),
+                ("K4 moe/wi", L_.grouped_linear, xb, lay["moe"]["wi"]["w"],
+                 mk["moe"]["wi"]["w"], pk["moe"]["wi"]["w"])):
+            n1, g1 = bsm.launches, bsm.g_launches
+            got = fn(w, a, None, mask=m, kernel="block_sparse", block=blk)
+            ref = fn(w, a, None, mask=m, kernel="block_sparse", block=blk, pack=e)
+            launched = (bsm.launches - n1, bsm.g_launches - g1)
+            if not torch.equal(got, ref) or sum(launched) != 2:
+                raise AssertionError(f"grok serve: {name} without a pack entry: equal "
+                                     f"{torch.equal(got, ref)}, launches {launched}")
+            out[name] = {"equal": True, "launches": launched}
+    print("grok serve: no pack entry:", json.dumps(out))
+    return out
+
+
+def grok_bank_cases(torch, timer, bsm, mm):
+    """Phase "grok banks": K4, K5 and K6, and K16, K17 and K18, each once
+    on a whole grok expert bank (8 x 6144 x 32768 = 1,610,612,736
+    elements, 75% of 2^31: the index widths), f32 as the path upcasts the
+    bf16 master, at a 1024-token microbatch's capacity (320 rows, padded
+    to 384), against its plain version (``matmul_error_bound``).  The
+    block-sparse bank carries 20% of its 128x128 blocks and a 10% Top-KAST
+    superset (K6's dense dw, 6.4 GB of f32, zero outside it); the masked
+    one an elementwise 20% mask (K18 masked by it).  Timed beside
+    torch.bmm on the zero-filled (pre-masked) bank and the bound."""
+    import numpy as np
+    from repro_torch.core.pack import pack_entry
+    from repro_torch.kernels.ops import _row_tile
+
+    G, K, N, C = 8, 6144, 32768, GROK_BANK_ROWS
+    blk = 128
+    f32 = torch.float32
+    rng = np.random.default_rng(34)
+    bm_np = rng.random((G, K // blk, N // blk)) < 0.2
+    sup_np = bm_np | (rng.random(bm_np.shape) < 0.1)
+    expand = lambda b: torch.from_numpy(b).cuda().repeat_interleave(blk, 1) \
+        .repeat_interleave(blk, 2)
+    mask_b, sup_b = expand(bm_np), expand(sup_np)
+    e = pack_entry(mask_b, (blk, blk), bwd_mask=sup_b)
+    del sup_b
+    bm_, Mp = _row_tile(C, 128)
+    w = torch.randn(G, K, N, device="cuda").to(torch.bfloat16).float() / K**0.5
+    w.mul_(mask_b)
+    x = torch.nn.functional.pad(torch.randn(G, C, K, device="cuda"), (0, 0, 0, Mp - C))
+    g = torch.nn.functional.pad(torch.randn(G, C, N, device="cuda"), (0, 0, 0, Mp - C))
+    nnz, bnnz = e["nnz"], e["bnnz"]
+    out = {"K4": [], "K5": [], "K6": [], "K16": [], "K17": [], "K18": []}
+    shape = f"G={G} C={C}->{Mp} K={K} N={N} ({G * K * N} elements)"
+    es = 4
+
+    def case(kernel, label, run, plain, library, absp, n, n_bytes, flops):
+        want = plain()
+        got = run()
+        check = lambda: _check_within(torch, f"{kernel} {label}", got, want, absp(), n, f32)
+        c = kernel_case(torch, timer, kernel, f"{kernel} grok bank {label} {shape}", run,
+                        plain, library, check, n_bytes, flops, f32)
+        out[kernel].append(c)
+        del want, got
+        torch.cuda.empty_cache()
+
+    case("K4", f"blocks={nnz}",
+         lambda: bsm.grouped_block_sparse_matmul(x, w, e["idx"], e["cnt"], bm=bm_, bn=blk,
+                                                 bk=blk, live=nnz),
+         lambda: bsm.grouped_block_sparse_matmul_plain(x, w, e["idx"], e["cnt"], blk, blk),
+         lambda: torch.bmm(x, w),
+         lambda: bsm.grouped_block_sparse_matmul_plain(x.abs(), w.abs(), e["idx"], e["cnt"],
+                                                       blk, blk),
+         K, es * (G * Mp * K + nnz * blk * blk + G * Mp * N), 2.0 * Mp * nnz * blk * blk)
+    case("K5", f"blocks={nnz}",
+         lambda: bsm.grouped_block_sparse_dx(g, w, e["ridx"], e["rcnt"], bm=bm_, bn=blk,
+                                             bk=blk, live=nnz),
+         lambda: bsm.grouped_block_sparse_dx_plain(g, w, e["ridx"], e["rcnt"], blk, blk),
+         lambda: torch.bmm(g, w.transpose(1, 2)),
+         lambda: bsm.grouped_block_sparse_dx_plain(g.abs(), w.abs(), e["ridx"], e["rcnt"],
+                                                   blk, blk),
+         N, es * (G * Mp * N + nnz * blk * blk + G * Mp * K), 2.0 * Mp * nnz * blk * blk)
+    case("K6", f"superset blocks={bnnz}",
+         lambda: bsm.grouped_block_sparse_dw(x, g, e["bidx"], e["bcnt"], bn=blk, bk=blk,
+                                             live=bnnz),
+         lambda: bsm.grouped_block_sparse_dw_plain(x, g, e["bidx"], e["bcnt"], blk, blk),
+         lambda: torch.bmm(x.transpose(1, 2), g),
+         lambda: bsm.grouped_block_sparse_dw_plain(x.abs(), g.abs(), e["bidx"], e["bcnt"],
+                                                   blk, blk),
+         Mp, es * (G * Mp * K + G * Mp * N + G * K * N), 2.0 * Mp * bnnz * blk * blk)
+    del e, mask_b
+    torch.cuda.empty_cache()
+    m = torch.rand(G, K, N, device="cuda") < 0.2
+    w.copy_(torch.randn(G, K, N, device="cuda").to(torch.bfloat16).float() / K**0.5)
+    wm = w * m  # the library calls' pre-masked bank
+    nm = int(m.sum())
+    case("K16", f"elements={nm}",
+         lambda: mm.grouped_masked_matmul(x, w, m, bm=bm_, bn=blk),
+         lambda: mm.grouped_masked_matmul_plain(x, w, m),
+         lambda: torch.bmm(x, wm),
+         lambda: mm.grouped_masked_matmul_plain(x.abs(), w.abs(), m),
+         K, es * (G * Mp * K + G * K * N + G * Mp * N) + G * K * N,
+         2.0 * Mp * G * K * N)
+    case("K17", f"elements={nm}",
+         lambda: mm.grouped_masked_dx(g, w, m, bm=bm_, bk=blk),
+         lambda: mm.grouped_masked_dx_plain(g, w, m),
+         lambda: torch.bmm(g, wm.transpose(1, 2)),
+         lambda: mm.grouped_masked_dx_plain(g.abs(), w.abs(), m),
+         N, es * (G * Mp * N + G * K * N + G * Mp * K) + G * K * N,
+         2.0 * Mp * G * K * N)
+    case("K18", f"elements={nm}",
+         lambda: mm.grouped_masked_dw(x, g, m, bn=blk, bk=blk),
+         lambda: mm.grouped_masked_dw_plain(x, g, m),
+         lambda: torch.bmm(x.transpose(1, 2), g) * m,
+         lambda: mm.grouped_masked_dw_plain(x.abs(), g.abs(), m),
+         Mp, es * (G * Mp * K + G * Mp * N + G * K * N) + G * K * N,
+         2.0 * Mp * G * K * N)
+    del w, wm, m, x, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def grok_train(torch, timer, bsm, mm, fa, kernel):
+    """Phase "grok train": grok-1-314b at full width, 1 of 64 layers (4.92
+    B parameters, and 1.61 B of embedding and head; all bf16 masters),
+    ERK 0.8, RigL with the Top-KAST superset (elementwise under masked:
+    its 1.61 G-element banks rank by ``rigl.select_top``), SGD with
+    momentum 0.9 in a bf16 state and no weight decay, 16 x 1024 tokens in
+    grok's 16 microbatches accumulated in bf16, 3 steps with no drop/grow
+    inside them.  First, on the run's own initial state and before its
+    optimizer state or accumulator exist, the step-0 loss of one 1 x 1024
+    microbatch and the gradients of ``GROK_GRAD_LEAVES`` against the plain
+    dense path (routing pinned; ``train_dense_check``'s 2e-2).  Then
+    ``train_loop`` with every counter at 0: finite losses, exactly 16 x
+    (2 x 4 K1, 4 K2, 4 K3, 2 x 3 K4, 3 K5, 3 K6, 2 K9, K10, K11) a step
+    (remat reruns the forward; K13-K18 under masked) and 16 x the planned
+    merges; every param and momentum leaf bf16 after the steps; step s,
+    tok/s, peak GiB, the profiled last step's busy share.  Block-sparse
+    then makes one drop/grow on a 1 x 1024 batch (``make_rigl_step``: the
+    reference's one-pass backward, which at 16 x 1024 tokens would not fit
+    beside the state) and ``refresh_pack``: the block counts kept, B ⊇ A,
+    the pack fresh, blocks moved."""
+    from repro_torch.core.masks import block_mask_of, tree_paths
+    from repro_torch.core.pack import pack_mismatch, validate_pack
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import (
+        init_train_state,
+        make_algo,
+        make_rigl_step,
+        refresh_pack,
+    )
+
+    bs = kernel == "block_sparse"
+    label = f"grok train {kernel}"
+    steps, B, S = GROK_TRAIN["steps"], GROK_TRAIN["batch"], GROK_TRAIN["seq"]
+    cfg = grok_config(kernel, GROK_TRAIN_LAYERS, microbatches=B)
+    cfg = dataclasses.replace(cfg, sparse=dataclasses.replace(cfg.sparse,
+                                                              delta_t=10 * steps))
+    mb = cfg.microbatches
+    opt = OptConfig(kind="sgd", momentum=0.9, weight_decay=0.0, state_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = init_train_state(cfg, opt, seed=0, device="cuda")
+    del state["opt"]  # the check runs before any optimizer state exists
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_paths(state["params"]).values())
+    dense_check = train_dense_check(torch, cfg, state, names=GROK_GRAD_LEAVES, label=label,
+                                    batch=1, seq=S)
+    fam = "block_sparse" if bs else "masked"
+    mod = bsm if bs else mm
+    per_mb = S * B // mb
+
+    def merges_of(st):
+        """(fwd, dx, dw) split merges of one microbatch on ``st``'s pack."""
+        return tuple((2 if e == "fwd" else 1) * grok_merges(torch, cfg, st, per_mb, e)
+                     for e in ("fwd", "dx", "dw"))
+
+    merges = merges_of(state)
+    del state
+    torch.cuda.empty_cache()
+    counters = ((f"{fam}_fwd", mod, "launches"), (f"{fam}_dx", mod, "dx_launches"),
+                (f"{fam}_dw", mod, "dw_launches"), (f"grouped_{fam}_fwd", mod, "g_launches"),
+                (f"grouped_{fam}_dx", mod, "gdx_launches"),
+                (f"grouped_{fam}_dw", mod, "gdw_launches"),
+                (f"{fam}_fwd_merge", mod, "fwd_merge_launches"),
+                (f"{fam}_dx_merge", mod, "dx_merge_launches"),
+                (f"{fam}_dw_merge", mod, "dw_merge_launches"),
+                ("flash_fwd", fa, "launches"), ("flash_dq", fa, "dq_launches"),
+                ("flash_dkv", fa, "dkv_launches"))
+    read = lambda: {n: getattr(m_, a) for n, m_, a in counters}
+    Lr = cfg.n_layers
+    per = {f"{fam}_fwd": 2 * GROK_PROJ * Lr, f"{fam}_dx": GROK_PROJ * Lr,
+           f"{fam}_dw": GROK_PROJ * Lr, f"grouped_{fam}_fwd": 2 * GROK_BANKS * Lr,
+           f"grouped_{fam}_dx": GROK_BANKS * Lr, f"grouped_{fam}_dw": GROK_BANKS * Lr,
+           f"{fam}_fwd_merge": merges[0], f"{fam}_dx_merge": merges[1],
+           f"{fam}_dw_merge": merges[2], "flash_fwd": 2 * Lr, "flash_dq": Lr,
+           "flash_dkv": Lr}
+    want = {n: mb * v for n, v in per.items()}
+    log, mark = [], {"counts": None, "t": None, "prof": None}
+
+    def on_step(step, is_update, st, met):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        counts = read()
+        prev = mark["counts"] or {n: 0 for n in counts}
+        rec = {"step": step, "loss": float(met["loss"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {n: counts[n] - prev[n] for n in counts}}
+        if mark["t"] is not None:
+            rec["wall_s"] = t - mark["t"]
+        if is_update or rec["launches"] != want:
+            raise AssertionError(f"{label} step {step}: update {is_update}, launches "
+                                 f"{rec['launches']}, expected {want}")
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{label} step {step}: loss {rec['loss']}")
+        if step == steps - 1:
+            mark["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            mark["prof"].__enter__()
+        elif step == steps:
+            mark["prof"].__exit__(None, None, None)
+        print(f"{label}:", json.dumps(rec))
+        log.append(rec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mark.update(counts=counts, t=time.perf_counter())
+
+    for _, m_, a in counters:
+        setattr(m_, a, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tag = label.replace(" ", "_")
+    state, _ = train_loop(cfg, steps=steps, batch=B, seq=S, opt_cfg=opt,
+                          workdir=str(ROOT / "chiprun_out" / tag), device="cuda",
+                          on_step=on_step, log_every=steps, ckpt_every=None)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read()
+    bad = sorted(n for tree in (state["params"], state["opt"]["momentum"])
+                 for n, t in tree_paths(tree).items() if t.dtype != torch.bfloat16)
+    if bad:
+        raise AssertionError(f"{label}: leaves not bf16 after the steps: {bad}")
+    busy_ms, top, names = trace_busy(mark["prof"], ROOT / "build" / f"{tag}_trace.json")
+    flash = flash_kernels_of(names)
+    if flash != sorted(GROK_FLASH):
+        raise AssertionError(f"{label}: the profiled step ran the flash kernels {flash}")
+    steady = [r for r in log if "wall_s" in r and r["step"] != steps]
+    wall = sum(r["wall_s"] for r in steady) / len(steady)
+    profiled = log[-1]
+    stats = {"layers": cfg.n_layers, "parameters": n_params, "init_s": init_s,
+             "steps": steps, "microbatches": mb, "tokens_per_step": B * S,
+             "total_s": total_s, "mean_train_step_wall_s": wall,
+             "steady_steps": [r["step"] for r in steady], "tok_per_s": B * S / wall,
+             "peak_gib": max(r["peak_gib"] for r in log),
+             "profiled_step_wall_s": profiled["wall_s"],
+             "profiled_step_device_busy_ms": busy_ms,
+             "profiled_step_busy_share": busy_ms / 1e3 / profiled["wall_s"],
+             "profiled_step_top": top, "profiled_step_flash_kernels": flash,
+             "losses": [r["loss"] for r in log], "launches_per_microbatch": per,
+             "step0_vs_dense": dense_check}
+    if bs:  # one drop/grow on a 1 x 1024 batch
+        lr = LRSchedule(base_lr=1e-3, warmup_steps=1, total_steps=10 * steps)
+        units = lambda masks: {n: block_mask_of(m, cfg.sparse.block_shape)
+                               for n, m in tree_paths(masks).items()}
+        before = {n: u.cpu() for n, u in units(state["masks"]).items()}
+        state = dict(state, step=DELTA_T)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, _ = make_rigl_step(cfg, make_algo(cfg, 10 * steps), lr)(
+            state, batch_for(cfg, DELTA_T, 1, S, learnable=True, device="cuda"))
+        state = refresh_pack(state, cfg)
+        torch.cuda.synchronize()
+        stats["update_step_wall_s"] = time.perf_counter() - t1
+        stats["update_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        after, bwd = units(state["masks"]), units(state["bwd_masks"])
+        moved = 0
+        for n, u in after.items():
+            u = u.cpu()
+            if int(u.sum()) != int(before[n].sum()):
+                raise AssertionError(f"{label}: {n}: {int(before[n].sum())} active blocks "
+                                     f"before the update, {int(u.sum())} after")
+            if (u & ~bwd[n].cpu()).any():
+                raise AssertionError(f"{label}: {n}: the superset does not contain the mask")
+            moved += int((u & ~before[n]).sum())
+        validate_pack(state["pack"], where="chip_smoke grok train")
+        stale = int(pack_mismatch(state["masks"], state["pack"], cfg.sparse.block_shape,
+                                  bwd_masks=state["bwd_masks"]))
+        if stale or not moved:
+            raise AssertionError(f"{label}: after the update {stale} stale blocks, "
+                                 f"{moved} moved")
+        stats["blocks_moved"] = moved
+    del state
+    torch.cuda.empty_cache()
+    print(f"{label}: grok-1-314b {cfg.n_layers} of 64 layers ({n_params / 1e9:.3f} B "
+          f"parameters, bf16), {steps} steps of {B} x {S} tokens in {mb} microbatches in "
+          f"{total_s:.1f} s; train step {wall:.3f} s wall = {stats['tok_per_s']:.0f} tok/s; "
+          f"peak {stats['peak_gib']:.1f} GiB; profiled step busy {busy_ms:.1f} ms of "
+          f"{profiled['wall_s']:.3f} s ({stats['profiled_step_busy_share']:.1%}); "
+          f"{stats.get('blocks_moved', 'no')} blocks moved by the drop/grow; launches "
+          f"{launches}")
+    return stats, launches
+
+
+def grok_phases(torch, timer, bsm, mm, fa, done):
+    """Every grok phase, in order, each followed by ``done``: the flash
+    cases, the whole-bank kernel cases, the serve (both modes) and the
+    train (both modes).  Returns {"flash": (k9, k10, k11), "banks": cases,
+    "serve": ..., "train block_sparse": ..., "train masked": ...}."""
+    out = {"flash": grok_flash_cases(torch, timer, fa)}
+    done("grok flash: K9-K11 at d = 128, G = 6, softcap 30")
+    out["banks"] = grok_bank_cases(torch, timer, bsm, mm)
+    done("grok banks: K4-K6, K16-K18 on a 1.61 G-element bank")
+    out["serve"] = grok_serve(torch, timer, bsm, mm, fa)
+    done("grok serve block_sparse, masked")
+    for kernel in ("block_sparse", "masked"):
+        out[f"train {kernel}"] = grok_train(torch, timer, bsm, mm, fa, kernel)
+        done(f"grok train {kernel}")
+    return out
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -6697,6 +7318,9 @@ def main() -> int:
     for kernel in ("block_sparse", "masked"):
         internvl[f"train {kernel}"] = internvl_train(torch, timer, bsm, mm, fa, kernel)
         done(f"internvl train {kernel}")
+    grok = grok_phases(torch, timer, bsm, mm, fa, done)
+    for cases, more in zip((k9, k10, k11), grok["flash"]):
+        cases += more
     r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
     k4 += r_bs["fwd"]
     k56["K5"] += r_bs["dx"]
@@ -6704,6 +7328,13 @@ def main() -> int:
     k16 += r_m["fwd"]
     k1718["K17"] += r_m["dx"]
     k1718["K18"] += r_m["dw"]
+    gb = grok["banks"]
+    k4 += gb["K4"]
+    k56["K5"] += gb["K5"]
+    k56["K6"] += gb["K6"]
+    k16 += gb["K16"]
+    k1718["K17"] += gb["K17"]
+    k1718["K18"] += gb["K18"]
 
     paths = {"serve": serve_launches, "train": train_launches,
              "masked_serve": masked_serve_launches, "masked_train": masked_train_launches,
@@ -6735,7 +7366,11 @@ def main() -> int:
              **{f"internvl_{k.replace(' ', '_')}_serve": v[1]
                 for k, v in internvl["serve"].items() if k != "parameters"},
              "internvl_train": internvl["train block_sparse"][1],
-             "internvl_masked_train": internvl["train masked"][1]}
+             "internvl_masked_train": internvl["train masked"][1],
+             "grok_serve": grok["serve"]["block_sparse"][1],
+             "grok_masked_serve": grok["serve"]["masked"][1],
+             "grok_train": grok["train block_sparse"][1],
+             "grok_masked_train": grok["train masked"][1]}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -6876,6 +7511,11 @@ def main() -> int:
          "internvl": {"serve": {k: v[0] if k != "parameters" else v
                                 for k, v in internvl["serve"].items()},
                       **{k: v[0] for k, v in internvl.items() if k != "serve"}},
+         "grok": {"flash": dict(zip(("k9", "k10", "k11"), grok["flash"])),
+                  "banks": grok["banks"],
+                  "serve": {k: v[0] if k in ("block_sparse", "masked") else v
+                            for k, v in grok["serve"].items()},
+                  **{k: v[0] for k, v in grok.items() if k.startswith("train")}},
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

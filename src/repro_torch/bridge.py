@@ -19,6 +19,9 @@ sLSTM's ``slstm/r``, hymba's ``ssm/a_log``, ``ssm/d_skip``, ``ssm/dt_bias``)
 come across by their path names like any other, and so do the frontend
 configs' trees: ``frontend_proj`` beside a frames config's untied
 ``head`` (no ``embed``) or a patch config's tied ``embed`` (no ``head``).
+bf16 leaves cross in either direction with their bits (grok-1-314b's
+masters; Adam's moments, bf16 before their first update and f32 after
+it).
 """
 from __future__ import annotations
 
@@ -129,10 +132,20 @@ def train_state_from_flat(params, masks, *, pack=None, bwd_masks=None, opt,
 
 
 def flat_of(tree) -> dict[str, np.ndarray]:
-    """Tree of tensors -> {path_name: numpy array} (None leaves dropped;
-    bf16 tensors as float32 arrays, which hold their values exactly)."""
-    return {n: (t.detach().float() if t.dtype == torch.bfloat16 else t.detach())
-            .cpu().numpy() for n, t in tree_paths(tree).items()}
+    """Tree of tensors -> {path_name: numpy array} (None leaves dropped):
+    a bf16 leaf (grok's masters, Adam's moments before their first update)
+    as an ``ml_dtypes.bfloat16`` array with the same bits, so it goes back
+    to the JAX package in its own dtype (``ml_dtypes``, which ships with
+    JAX, is imported only then)."""
+    def host(t):
+        t = t.detach().cpu()
+        if t.dtype != torch.bfloat16:
+            return t.numpy()
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+    return {n: host(t) for n, t in tree_paths(tree).items()}
 
 
 def pack_flat_of(pack) -> dict[str, dict[str, Any]]:

@@ -1,7 +1,7 @@
 """Config registry of the port: ``get_config(arch_id, smoke=False)``.
 
-Lists only the architectures the port runs.  The JAX package knows ten;
-grok-1-314b raises until the slice that ports it lands.
+Every architecture of the JAX package is ported: the ten configs, each a
+copy of the reference's ``CONFIG`` and ``SMOKE``.  An unknown name raises.
 """
 import importlib
 
@@ -20,6 +20,7 @@ _MODULES = {
     "gemma3-4b": "gemma3_4b",
     "hubert-xlarge": "hubert_xlarge",
     "internvl2-1b": "internvl2_1b",
+    "grok-1-314b": "grok_1_314b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -28,7 +29,7 @@ ARCH_IDS = tuple(_MODULES)
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _MODULES:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (the PyTorch port runs "
+            f"unknown architecture {arch!r} (the PyTorch port runs "
             f"{', '.join(ARCH_IDS)})"
         )
     mod = importlib.import_module(f".{_MODULES[arch]}", __package__)

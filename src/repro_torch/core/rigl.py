@@ -17,6 +17,10 @@ descending ranks, ties broken by the lower flat index, the reference's own
 definition), so masks after an update are bit-identical to the
 reference's on the same inputs.  Block mode pools |w| and |g| (L1) over
 aligned blocks, so masks stay block-aligned for the block-sparse kernels.
+A layer of at least ``SELECT_MIN`` units (grok-1-314b's 1.61 G-element
+expert banks under elementwise masks, whose two argsorts would take some
+38 GB) takes its top n by selection instead (``select_top``): the same
+mask, bit for bit, in a few passes over an int32 key.
 
 The paper's baselines share the drop and the exact counts; they differ in
 the grow score:
@@ -82,6 +86,59 @@ def _rank_desc(x):
     return torch.argsort(order, stable=True)
 
 
+SELECT_MIN = 1 << 27  # units from which ``_top_n`` selects instead of ranking
+
+
+def _top_n(x, n):
+    """``_rank_desc(x) < n`` for a 1-D f32 ``x`` and a count ``n`` (an int
+    or a 0-d tensor): by ranks below ``SELECT_MIN`` elements, else by
+    ``select_top``."""
+    return _rank_desc(x) < n if x.numel() < SELECT_MIN else select_top(x, n)
+
+
+def select_top(x, n):
+    """The mask of the n largest elements of the 1-D f32 ``x``, ties to the
+    lower index, NaN below everything: exactly ``_rank_desc(x) < n`` (whose
+    stable sort of -x keeps equal values in index order, -0.0 equal to
+    +0.0, and puts NaN last), without sorting.  The values map onto an
+    order-preserving int32 key; a bisection over the key's range finds the
+    n-th largest key t (32 counting passes), and a bisection over the
+    index finds where the ties at t stop.  Peak memory: the key, its sign
+    pass and a bool pass (~13 bytes an element); host syncs: one a pass."""
+    total = x.numel()
+    n = int(n)
+    if n <= 0:
+        return torch.zeros(total, dtype=torch.bool, device=x.device)
+    if n >= total:
+        return torch.ones(total, dtype=torch.bool, device=x.device)
+    key = (x + 0.0).view(torch.int32)  # + 0.0: -0.0 -> +0.0
+    sign = key >> 31  # -1 on a negative value, 0 else
+    key ^= sign.bitwise_and_(0x7FFFFFFF)  # negatives: larger magnitude, smaller key
+    del sign
+    lo = -(1 << 31)
+    key.masked_fill_(torch.isnan(x), lo)
+    hi = (1 << 31) - 1
+    while lo < hi:  # the largest t with |{key >= t}| >= n
+        mid = (lo + hi + 1) // 2
+        if int((key >= mid).sum()) >= n:
+            lo = mid
+        else:
+            hi = mid - 1
+    top = key > lo
+    need = n - int(top.sum())
+    tie = key == lo
+    del key
+    a, b = need, total
+    while a < b:  # the shortest prefix holding ``need`` ties
+        mid = (a + b) // 2
+        if int(tie[:mid].sum()) >= need:
+            b = mid
+        else:
+            a = mid + 1
+    tie[a:] = False
+    return top.logical_or_(tie)
+
+
 def _pool_blocks(x, block_shape):
     """Sum |x| over (bm, bn) blocks of the last two dims -> block scores."""
     bm, bn = block_shape
@@ -131,7 +188,7 @@ def topkast_superset_layer(w, mask, extra, gen, *, block_shape=None):
     total = m_unit.numel()
     delta = int(math.ceil(float(extra) * total)) if extra else 0
     k_bwd = torch.clamp(m_unit.reshape(-1).sum() + delta, max=total)
-    bwd_unit = (_rank_desc(score.reshape(-1)) < k_bwd).reshape(m_unit.shape)
+    bwd_unit = _top_n(score.reshape(-1), k_bwd).reshape(m_unit.shape)
     if block_shape is not None:
         bwd_unit = _expand_blocks(bwd_unit, block_shape, mask.shape)
     return bwd_unit.to(mask.dtype)
@@ -156,8 +213,8 @@ def _drop_grow(mag, score, m_bool, fraction):
     k = torch.floor(fraction * n_active).to(torch.int32)
     n_keep = n_active - k
     neg_inf = torch.tensor(-math.inf, dtype=torch.float32, device=mag.device)
-    kept = _rank_desc(torch.where(m, mag, neg_inf)) < n_keep
-    grown = _rank_desc(torch.where(kept, neg_inf, score)) < k
+    kept = _top_n(torch.where(m, mag, neg_inf), n_keep)
+    grown = _top_n(torch.where(kept, neg_inf, score), k)
     return (kept | grown).reshape(shape), grown.reshape(shape)
 
 

@@ -146,6 +146,7 @@ __all__ = [
     "launches",
     "matmul_error_bound",
     "unpack_block_mask",
+    "upcast",
 ]
 
 # kernel launches since import (or since a caller reset them)
@@ -1130,7 +1131,7 @@ class BlockSparseMatmul(torch.autograd.Function):
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
         ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, live
-        return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
+        return block_sparse_matmul(x, upcast(w, x), idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
 
     @staticmethod
     def backward(ctx, g):
@@ -1154,7 +1155,7 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
         ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, nnz
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
-        return block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
+        return block_sparse_matmul(x, upcast(w, x), idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
 
     @staticmethod
     def backward(ctx, g):
@@ -1172,7 +1173,8 @@ class GroupedBlockSparseMatmul(torch.autograd.Function):
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
         ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, live
-        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=live)
+        return grouped_block_sparse_matmul(x, upcast(w, x), idx, cnt, bm=bm, bn=bn, bk=bk,
+                                           live=live)
 
     @staticmethod
     def backward(ctx, g):
@@ -1195,7 +1197,8 @@ class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
         ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, nnz
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
-        return grouped_block_sparse_matmul(x, w, idx, cnt, bm=bm, bn=bn, bk=bk, live=nnz)
+        return grouped_block_sparse_matmul(x, upcast(w, x), idx, cnt, bm=bm, bn=bn, bk=bk,
+                                           live=nnz)
 
     @staticmethod
     def backward(ctx, g):
@@ -1207,7 +1210,9 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=
     the forward pack's live blocks ``ctx.nnz``) and dw on the CSC
     ``didx``/``dcnt`` (its plan on ``ctx.live``): K2/K3, or K5/K6 for a
     bank; with ``mom`` the weight cotangent is the fused epilogue's new
-    momentum (K7, or K8, its plan on ``ctx.live`` too)."""
+    momentum (K7, or K8, its plan on ``ctx.live`` too).  A narrower w (a
+    bf16 master under f32 compute) is upcast for its launch only and its
+    cotangent rounded once to w.dtype (``upcast``)."""
     bm, bn, bk = ctx.blocks
     dx_fn, dw_fn, fused_fn = (
         (grouped_block_sparse_dx, grouped_block_sparse_dw, grouped_block_sparse_dw_fused)
@@ -1217,11 +1222,20 @@ def _backward(ctx, g, x, w, idx, cnt, ridx, rcnt, didx, dcnt, mom=None, grouped=
     if ctx.needs_input_grad[0]:
         if ridx is None:
             ridx, rcnt = csr_of(idx, cnt, w.shape[-2] // bk)
-        dx = dx_fn(g, w, ridx, rcnt, bm=bm, bn=bn, bk=bk, live=ctx.nnz)
+        dx = dx_fn(g, upcast(w, x), ridx, rcnt, bm=bm, bn=bn, bk=bk, live=ctx.nnz)
     if ctx.needs_input_grad[1]:
         if mom is None:
             dw = dw_fn(x, g, didx, dcnt, bn=bn, bk=bk, live=ctx.live)
         else:
-            dw = fused_fn(x, g, didx, dcnt, w, mom, bn=bn, bk=bk, live=ctx.live,
+            dw = fused_fn(x, g, didx, dcnt, upcast(w, x), mom, bn=bn, bk=bk, live=ctx.live,
                           **ctx.epilogue)
+        dw = dw.to(w.dtype)
     return dx, dw
+
+
+def upcast(w, x):
+    """``w`` in x's dtype for one launch: a bf16 master under f32 compute
+    (grok-1-314b's banks) is cast here, inside the kernel's Function, so
+    the f32 copy lives for that launch only and is never saved for the
+    backward (which casts again); the same tensor otherwise."""
+    return w if w.dtype == x.dtype else w.to(x.dtype)

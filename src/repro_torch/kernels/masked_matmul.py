@@ -70,6 +70,7 @@ from .block_sparse_matmul import (
     _stream,
     _suffix,
     matmul_error_bound,
+    upcast,
 )
 
 __all__ = [
@@ -895,7 +896,7 @@ class MaskedMatmul(torch.autograd.Function):
     def forward(ctx, x, w, mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask)
         ctx.blocks = (bm, bn, bk)
-        return masked_matmul(x, w, mask, bm=bm, bn=bn)
+        return masked_matmul(x, upcast(w, x), mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
@@ -912,7 +913,7 @@ class TopkastMaskedMatmul(torch.autograd.Function):
     def forward(ctx, x, w, mask, bwd_mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, bwd_mask)
         ctx.blocks = (bm, bn, bk)
-        return masked_matmul(x, w, mask, bm=bm, bn=bn)
+        return masked_matmul(x, upcast(w, x), mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
@@ -929,7 +930,7 @@ class FusedMaskedMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, w, mask, wgm, mom)
         ctx.blocks = (bm, bn, bk)
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
-        return masked_matmul(x, w, mask, bm=bm, bn=bn)
+        return masked_matmul(x, upcast(w, x), mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
@@ -946,7 +947,7 @@ class GroupedMaskedMatmul(torch.autograd.Function):
     def forward(ctx, x, w, mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask)
         ctx.blocks = (bm, bn, bk)
-        return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
+        return grouped_masked_matmul(x, upcast(w, x), mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
@@ -963,7 +964,7 @@ class TopkastGroupedMaskedMatmul(torch.autograd.Function):
     def forward(ctx, x, w, mask, bwd_mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, bwd_mask)
         ctx.blocks = (bm, bn, bk)
-        return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
+        return grouped_masked_matmul(x, upcast(w, x), mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
@@ -981,7 +982,7 @@ class FusedGroupedMaskedMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, w, mask, wgm, mom)
         ctx.blocks = (bm, bn, bk)
         ctx.epilogue = dict(seed=int(seed), mu=float(mu), wd=float(wd), sr=bool(sr))
-        return grouped_masked_matmul(x, w, mask, bm=bm, bn=bn)
+        return grouped_masked_matmul(x, upcast(w, x), mask, bm=bm, bn=bn)
 
     @staticmethod
     def backward(ctx, g):
@@ -992,15 +993,18 @@ class FusedGroupedMaskedMatmul(torch.autograd.Function):
 def _backward(ctx, g, x, w, mask, dmask, mom=None, grouped=False):
     """dx on ``mask`` and dw on ``dmask``: K14/K15, or K17/K18 for a bank;
     with ``mom`` the weight cotangent is the fused epilogue's new momentum
-    masked by ``dmask`` (K19, or K20)."""
+    masked by ``dmask`` (K19, or K20).  A narrower w (a bf16 master under
+    f32 compute) is upcast for its launch only and its cotangent rounded
+    once to w.dtype (``block_sparse_matmul.upcast``)."""
     bm, bn, bk = ctx.blocks
     dx_fn, dw_fn, fused_fn = (
         (grouped_masked_dx, grouped_masked_dw, grouped_masked_dw_fused) if grouped
         else (masked_dx, masked_dw, masked_dw_fused))
     g = g.contiguous()
-    dx = dx_fn(g, w, mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
+    dx = dx_fn(g, upcast(w, x), mask, bm=bm, bk=bk) if ctx.needs_input_grad[0] else None
     dw = None
     if ctx.needs_input_grad[1]:
         dw = (dw_fn(x, g, dmask, bn=bn, bk=bk) if mom is None
-              else fused_fn(x, g, dmask, w, mom, bn=bn, bk=bk, **ctx.epilogue))
+              else fused_fn(x, g, dmask, upcast(w, x), mom, bn=bn, bk=bk, **ctx.epilogue))
+        dw = dw.to(w.dtype)
     return dx, dw

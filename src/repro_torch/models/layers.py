@@ -94,7 +94,9 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
       kernel='block_sparse'  the block-sparse kernels on the layer's
                              PackState entry ``pack`` (the weights are zero
                              outside the mask's blocks, so whole active
-                             blocks run unmasked);
+                             blocks run unmasked); ``pack`` None packs the
+                             mask's (bk, bn) blocks on the call, as the
+                             reference's ``_block_mask`` path does;
       kernel='masked'        x @ (w * m) with the mask fused into the masked
                              kernels; ``pack`` is None or a Top-KAST carrier
                              ``{"bwd_mask": B}`` (the wgrad runs on B).
@@ -103,16 +105,17 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
     routes to the fused wrappers, whose weight cotangent is the new SGD
     momentum (K7 block-sparse, K19 masked).
     Other kernels, or ``mask=None``, compute ``x @ (w * mask)`` densely.
-    """
+
+    A bf16 master under an f32 compute dtype (grok-1-314b's head) is not
+    cast here: the kernel's Function, or ``_Upcast`` on the dense path,
+    upcasts it for the product only (the reference's ``w.astype(dt)``
+    values; its cotangent rounded once to bf16, as the cast's VJP)."""
     dt = compute_dtype or x.dtype
-    w = p["w"].to(dt)
+    w = _weight(p["w"], dt)
     fused = _epilogue(pack)
     if mask is not None and kernel == "block_sparse":
         if pack is None:
-            raise NotImplementedError(
-                "linear: block_sparse without a PackState entry (packing the "
-                "mask per call) is not ported yet; pass pack="
-            )
+            pack = _pack_on_call(mask, x.shape[-1], w.shape[-1], block)
         if fused:
             return fused_block_sparse_linear(x.to(dt), w, pack["mom"], pack["seed"],
                                              pack=pack, block=block, **fused)
@@ -127,8 +130,8 @@ def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
             return topkast_masked_linear(xc, w, mask, pack["bwd_mask"], block=block)
         return masked_linear(xc, w, mask, block=block)
     if mask is not None:
-        w = w * mask.to(dt)
-    return x.to(dt) @ w
+        w = w * mask.to(w.dtype)
+    return _matmul(x.to(dt), w)
 
 
 def grouped_linear(w, x, compute_dtype=None, *, mask=None, kernel=None,
@@ -141,17 +144,19 @@ def grouped_linear(w, x, compute_dtype=None, *, mask=None, kernel=None,
       kernel='block_sparse'  one launch over the bank on its grouped
                              PackState entry ``pack`` (K4 forward, K5 dgrad,
                              K6 wgrad on the entry's superset ``bidx`` when
-                             it carries one);
+                             it carries one); ``pack`` None packs each
+                             group's blocks on the call;
       kernel='masked'        one launch with the mask fused in (K16, K17,
                              K18); ``pack`` None or the Top-KAST carrier
                              ``{"bwd_mask": B}`` (the wgrad runs on B).
     A fused-epilogue entry (``"mom"``) routes to the grouped fused wrappers,
     whose weight cotangent is the bank's new SGD momentum (K8 block-sparse,
     K20 masked).  Other kernels, or ``mask=None``, compute the batched
-    product on ``w * mask`` densely.
+    product on ``w * mask`` densely.  A bf16 bank under f32 compute is
+    upcast per launch, as in ``linear``.
     """
     dt = compute_dtype or x.dtype
-    w = w.to(dt)
+    w = _weight(w, dt)
     fused = _epilogue(pack)
     if mask is not None and kernel in ("masked", "block_sparse"):
         xc = x.to(dt)
@@ -165,16 +170,72 @@ def grouped_linear(w, x, compute_dtype=None, *, mask=None, kernel=None,
                                                      block=block)
             return grouped_masked_linear(xc, w, mask, block=block)
         if pack is None:
-            raise NotImplementedError(
-                "grouped_linear: block_sparse without a PackState entry (packing "
-                "the mask per call) is not ported yet; pass pack=")
+            pack = _pack_on_call(mask, x.shape[-1], w.shape[-1], block)
         if fused:
             return fused_grouped_block_sparse_linear(xc, w, pack["mom"], pack["seed"],
                                                      pack=pack, block=block, **fused)
         return grouped_block_sparse_linear(xc, w, pack=pack, block=block)
     if mask is not None:
-        w = w * mask.to(dt)
-    return torch.bmm(x.to(dt), w)
+        w = w * mask.to(w.dtype)
+    return _matmul(x.to(dt), w)
+
+
+def _weight(w, dt):
+    """``w`` in the compute dtype ``dt``, except a bf16 master under f32
+    compute, which comes through as it is: its consumer upcasts it per
+    launch (``kernels.block_sparse_matmul.upcast``, ``_Upcast``), so no f32
+    copy of a bank or of the head outlives its product or is saved for the
+    backward."""
+    return w if (w.dtype, dt) == (torch.bfloat16, torch.float32) else w.to(dt)
+
+
+def _pack_on_call(mask, K: int, N: int, block):
+    """The PackState entry of ``mask``'s (bk, bn) blocks (tiles clamped to
+    small dims, as the kernels clamp them), built on the call: the
+    reference's ``_block_mask`` path, for a block-sparse call without a
+    prebuilt entry.  A host round trip per call; no train or serve path
+    takes it."""
+    from ..core.pack import pack_entry
+
+    _, bn, bk = block
+    return pack_entry(mask, (min(bk, K), min(bn, N)), name="linear")
+
+
+def _mm(a, b):
+    return torch.bmm(a, b) if a.dim() == 3 and b.dim() == 3 else a @ b
+
+
+class _Upcast(torch.autograd.Function):
+    """The dense product ``x @ w`` (``torch.bmm`` for a bank) with a
+    narrower ``w`` cast to x's dtype inside, for the product only: the
+    cast copy is freed after it and made again in the backward, never
+    saved.  w's cotangent is the f32 product rounded once to w.dtype, as
+    the VJP of the reference's ``w.astype(dt)`` rounds it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm(x, w.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm(g, w.to(g.dtype).transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            if w.dim() == 2:  # x (..., K), w (K, N): the leading dims fold
+                dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+            else:
+                dw = torch.bmm(x.transpose(1, 2), g)
+            dw = dw.to(w.dtype)
+        return dx, dw
+
+
+def _matmul(x, w):
+    """``x @ w`` (a bank: ``torch.bmm``), through ``_Upcast`` when w is
+    narrower than x."""
+    return _mm(x, w) if w.dtype == x.dtype else _Upcast.apply(x, w)
 
 
 def _epilogue(pack):

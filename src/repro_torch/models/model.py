@@ -101,7 +101,8 @@ def _check_decodes(cfg, what: str) -> None:
 
 def init_lm(cfg, seed: int = 0, *, device=None):
     """Random weights from ``seed`` -> (params, sparse_flags) trees, f32
-    masters on ``device`` (default ``cuda``).  Layout as the reference's
+    (or, under ``param_dtype='bfloat16'``, bf16) masters on ``device``
+    (default ``cuda``).  Layout as the reference's
     ``init_lm``; the draws are torch's, not ``jax.random``'s.  An MoE
     config's layers hold ``moe`` (``models/moe.py``) in place of ``mlp``;
     an xLSTM config's hold ``ln1`` and an ``mlstm`` or (every
@@ -111,11 +112,18 @@ def init_lm(cfg, seed: int = 0, *, device=None):
     ``ln1_post`` and ``ln2_post``.  Tied embeddings: no ``head`` leaf.  A
     frontend config holds the dense ``frontend_proj`` (frontend_dim ->
     d_model); a ``frames`` config has no ``embed`` and always a ``head``,
-    a ``patch`` config both ``frontend_proj`` and ``embed``."""
+    a ``patch`` config both ``frontend_proj`` and ``embed``.
+
+    Under ``param_dtype='bfloat16'`` (grok-1-314b) every f32 leaf is cast
+    to bf16 as its layer (or the embedding, or the head) is drawn: the
+    same bits as the reference's cast of the whole f32 tree after
+    ``init_lm`` (``init_train_state``), without the whole tree ever
+    existing in f32 (four full-width grok layers are 79 GB in f32)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, pv = cfg.d_model, padded_vocab(cfg)
+    masters = _masters(cfg)
 
     def ff():
         if cfg.n_experts:
@@ -139,14 +147,34 @@ def init_lm(cfg, seed: int = 0, *, device=None):
 
     tree = {}
     if cfg.frontend != "none":
-        tree["frontend_proj"] = linear_init(gen, cfg.frontend_dim, d, sparse=False)
+        tree["frontend_proj"] = masters(linear_init(gen, cfg.frontend_dim, d, sparse=False))
     if cfg.frontend != "frames":
-        tree["embed"] = {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))}
-    tree["layers"] = [layer(i) for i in range(cfg.n_layers)]
-    tree["ln_f"] = rmsnorm_init(d, dev)
+        tree["embed"] = masters(
+            {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))})
+    tree["layers"] = [masters(layer(i)) for i in range(cfg.n_layers)]
+    tree["ln_f"] = masters(rmsnorm_init(d, dev))
     if not cfg.tie_embeddings or cfg.frontend == "frames":
-        tree["head"] = linear_init(gen, d, pv, sparse=False)
+        tree["head"] = masters(linear_init(gen, d, pv, sparse=False))
     return split_params(tree)
+
+
+def _masters(cfg):
+    """The cast of a freshly drawn subtree of ``P`` bundles to the master
+    dtype: every f32 leaf to bf16 under ``param_dtype='bfloat16'`` (the
+    reference's ``init_train_state`` cast), else the identity."""
+    if cfg.param_dtype != "bfloat16":
+        return lambda t: t
+
+    def cast(t):
+        if isinstance(t, P):
+            if t.value.dtype == torch.float32:
+                t.value = t.value.to(torch.bfloat16)
+            return t
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return [cast(v) for v in t]
+
+    return cast
 
 
 def serving_weights(params, cfg):
@@ -160,7 +188,12 @@ def serving_weights(params, cfg):
     under ``attn`` included: rmsnorm reads them in f32) and the LM head
     stay f32: the reference computes them in the f32 residual's dtype.  A
     tied table stays f32 too: the head reads it in h's dtype (the gather
-    casts its rows)."""
+    casts its rows).  Under bf16 masters (grok-1-314b) the leaves already
+    in the compute dtype come through as they are (``.to`` copies
+    nothing), and the expert banks and the head stay bf16: the kernels'
+    Functions (and ``layers.linear``'s dense product) upcast them to the
+    f32 residual's dtype per call, so no f32 copy of a 6.4 GB bank stays
+    resident."""
     dt = compute_dtype(cfg)
     out = dict(params)
     if "head" in params and "embed" in params:

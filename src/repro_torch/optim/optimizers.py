@@ -87,6 +87,15 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
     function: a full-width model has no room for a second copy of its
     params and moments; a large leaf is updated in row chunks
     (``_row_chunks``) for the same reason.
+
+    Adam from a bf16 state (``state_dtype='bfloat16'``): the reference's
+    update returns f32 moments (``b1 * m`` in bf16 plus the f32 gradient
+    term promotes), which bf16 storage cannot take in place.  So the first
+    update replaces every bf16 ``m``/``v`` leaf of ``opt_state`` with an f32
+    tensor (the dict's trees are swapped, the old tensors dropped); a
+    skipped step (``ok`` False) keeps the old values promoted, as
+    ``jnp.where`` does.  SGD's momentum keeps its dtype (rounded every
+    step, as the reference's ``m_new.astype(m.dtype)``).
     """
     scale = None
     if cfg.grad_clip:
@@ -113,17 +122,29 @@ def apply_opt(cfg: OptConfig, grads, opt_state, params, lr, *, ok=None,
         b2c = 1.0 - cfg.b2 ** c
 
         def upd(_, g, m, v, p):
+            # the update reads the old leaves (a bf16 one in its own dtype,
+            # as the reference's arithmetic) and writes the f32 ones
+            m32, v32 = _f32(m), _f32(v)
             for r in _row_chunks(p):
                 p_new, m_new, v_new = _adam(cfg, clipped(g[r]), m[r], v[r], p[r], lr, b1c,
                                             b2c)
                 put(p[r], p_new)
-                put(m[r], m_new)
-                put(v[r], v_new)
+                put(m32[r], m_new)
+                put(v32[r], v_new)
+            return m32, v32
 
-        tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
+        out = tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
+        for i, k in enumerate(("m", "v")):
+            opt_state[k] = tree_map(lambda _, t: t[i], out,
+                                    is_leaf=lambda x: isinstance(x, tuple))
         put(opt_state["count"], count)
         return params, opt_state
     raise ValueError(cfg.kind)
+
+
+def _f32(t):
+    """``t`` itself when f32, else an f32 copy (the old values promoted)."""
+    return t if t.dtype == torch.float32 else t.float()
 
 
 def _put(dst, new, ok):

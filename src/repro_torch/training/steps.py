@@ -52,7 +52,14 @@ Differences from the reference, each for the card:
     reference re-runs ``init_lm`` for its flags; at full width that is a
     second copy of the weights).
 
-Not ported yet (they raise): bf16 params or gradients, bf16 Adam state.
+bf16 training (grok-1-314b), as the reference: under ``param_dtype=
+'bfloat16'`` the masters are bf16 (``init_lm`` casts them as drawn, before
+the masks are drawn and applied), so are their gradients, the masked
+gradients and the weight decay's sum; the microbatches accumulate in
+``grad_accum_dtype``; ``bf16_grads`` casts f32 masters to bf16 once,
+before the loss, so the forward reads their bf16 values and the
+cotangents come back in bf16.  Adam with a bf16 state returns f32 moments
+from its first update on (``optim.apply_opt``).
 """
 from __future__ import annotations
 
@@ -107,10 +114,6 @@ _PORTED_METHODS = ("rigl", "static", "set", "snfs", "topkast", "pruning", "snip"
 SNFS_MOMENTUM = 0.9
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"training: {what} is not ported yet")
-
-
 def _generator(seed: int, purpose: int, step: int, device) -> torch.Generator:
     """The draw stream of one (seed, purpose, step): purpose 0 = masks,
     1 = the initial superset, 2 = a refreshed superset, 3 = a topology
@@ -143,18 +146,10 @@ def needs_bwd_masks(sp) -> bool:
     return sp.method == "topkast" or (dispatch and sp.method in ("rigl", "snfs"))
 
 
-def _check_ported(cfg, opt_cfg=None):
+def _check_ported(cfg):
     sp = cfg.sparse
     if sp.method not in _PORTED_METHODS:
         raise ValueError(f"unknown sparse method {sp.method!r} (one of {_PORTED_METHODS})")
-    if cfg.param_dtype != "float32" or cfg.bf16_grads:
-        raise _not_ported("bf16 params or gradients")
-    # bf16 SGD momentum updates as the reference's (rounded to the state's
-    # dtype every step); the reference's Adam returns f32 moments from a
-    # bf16 state, which the port's in-place update cannot mirror
-    if (opt_cfg is not None and opt_cfg.state_dtype != "float32"
-            and opt_cfg.kind != "sgd"):
-        raise _not_ported(f"bf16 optimizer state with {opt_cfg.kind!r}")
 
 
 def _check_fused(cfg, opt_cfg, dispatch: bool):
@@ -208,7 +203,7 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
     view) under kernel='block_sparse'; for 'snfs' the dense momentum
     ``dense_mom``, zeros like every param.
     """
-    _check_ported(cfg, opt_cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     params, flags = init_lm(cfg, seed, device=dev)
     sp = cfg.sparse
@@ -370,7 +365,7 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
     fused = dispatch and cfg.sparse.fused_epilogue
     if cfg.sparse.fused_epilogue:
         _check_fused(cfg, opt_cfg, dispatch)
-    _check_ported(cfg, opt_cfg)
+    _check_ported(cfg)
     if dispatch:
         validate_sparse_kernel(cfg.sparse)
     mb = max(cfg.microbatches, 1)
@@ -380,6 +375,11 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
 
     def grads(state, batch, pack=None):
         src = state["params"] if dispatch else apply_masks(state["params"], state["masks"])
+        if cfg.bf16_grads:
+            # one downcast of the f32 masters: the forward reads their bf16
+            # values and the cotangents come back in bf16
+            src = tree_map(lambda _, w: w.to(torch.bfloat16) if w.dtype == torch.float32
+                           else w, src)
         fn = _loss_fn(loss_fn, state, dispatch, pack)
         if mb == 1:
             return _value_and_grad(fn, src, batch)
@@ -469,6 +469,9 @@ def make_rigl_step(cfg, algo: SparseAlgo, lr_sched):
             _generator(state["seed"], 3, state["step"], dev),
             lr=float(lr_sched.base_lr), dense_momentum=state.get("dense_mom"),
             bwd_masks=state.get("bwd_masks"))
+        # the gradients are spent: free them before the reset builds the
+        # new optimizer state (a full-width grok layer's are 13 GB)
+        del g
         opt = reset_new_connections(state["opt"], grown)
         return dict(state, step=state["step"] + 1, params=params, masks=masks,
                     opt=opt), {"loss": loss}

@@ -45,6 +45,9 @@ FLASH_CASES = {
     # ragged Sq < Sk
     "softcap d256": (256, 256, True, 0, 30.0, 2, 256),
     "ragged q_offset d256": (77, 300, True, 0, 0.0, 2, 256),
+    # grok-1-314b's attention: softcap 30 at head_dim 128, G = 6
+    "softcap d128 G=6": (256, 256, True, 0, 30.0, 6, 128),
+    "softcap d128 G=6 ragged": (300, 300, True, 0, 30.0, 6, 128),
 }
 
 
@@ -146,8 +149,9 @@ def test_cuda_flash_matches_plain(case):
     dev = _cuda()
     Sq, Sk, causal, window, softcap, G, d = FLASH_CASES[case]
     rng = np.random.default_rng(6)
+    nq = G * max(1, 8 // G)  # 8 query heads, or one group when G does not divide 8
     q, k, v = (torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32))
-               .to(torch.bfloat16) for n, s in ((8, Sq), (8 // G, Sk), (8 // G, Sk)))
+               .to(torch.bfloat16) for n, s in ((nq, Sq), (nq // G, Sk), (nq // G, Sk)))
     # o, element by element: the bound of rounding p to bf16 in the kernel
     # and o to bf16 on both sides (tfa.o_error_bound); lse: f32 in both
     kw = dict(causal=causal, window=window, softcap=softcap, kv_groups=G,
@@ -167,9 +171,10 @@ def test_cuda_flash_backward_matches_plain(case):
     dev = _cuda()
     Sq, Sk, causal, window, softcap, G, d = FLASH_CASES[case]
     rng = np.random.default_rng(7)
+    nq = G * max(1, 8 // G)  # 8 query heads, or one group when G does not divide 8
     q, k, v = (torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32))
-               .to(torch.bfloat16) for n, s in ((8, Sq), (8 // G, Sk), (8 // G, Sk)))
-    do = torch.from_numpy(rng.standard_normal((8, Sq, d)).astype(np.float32)).to(torch.bfloat16)
+               .to(torch.bfloat16) for n, s in ((nq, Sq), (nq // G, Sk), (nq // G, Sk)))
+    do = torch.from_numpy(rng.standard_normal((nq, Sq, d)).astype(np.float32)).to(torch.bfloat16)
     bq, bk = tfa.effective_blocks(Sq, Sk)
     Sqp, Skp = -(-Sq // bq) * bq, -(-Sk // bk) * bk
     pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[1]))
@@ -2371,6 +2376,9 @@ BWD_EDGES = {
     # padded query rows see every real key; internvl2-1b's G = 7 at d = 64
     "bidirectional S=1000 d=80": (4, 1, 80, 1000, 1000, False, 0, 0.0, None),
     "G=7 d=64 S=300": (14, 7, 64, 300, 300, True, 0, 0.0, None),
+    # grok-1-314b's softcap 30 at d = 128, G = 6 (48 heads over 8, cut to 2
+    # KV heads), S not a multiple of 64
+    "softcap 30 d=128 G=6": (12, 6, 128, 260, 260, True, 0, 30.0, None),
 }
 
 
@@ -3204,3 +3212,53 @@ def test_cuda_flash_d256_matches_plain(monkeypatch, case, plan):
         assert bool((diff <= tfa.grad_error_bound(w_, a, e)).all()), name
     with pytest.raises(ValueError, match="generic"):
         tfa.flash_fwd(*on(q, k, v, sched[0], sched[1]), generic=True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse", "masked"])
+def test_cuda_bf16_bank_under_f32_compute_matches_plain(kernel):
+    """grok-1-314b's banks: a bf16 master under f32 compute goes into the
+    grouped Function as it is and is upcast there for each launch (K4-K6,
+    or K16-K18).  The card's output and x's gradient within
+    ``matmul_error_bound`` of the same call on the CPU (the plain
+    versions), w's gradient bf16 and within the bound of a bf16 output
+    (each side sums in f32 and rounds once)."""
+    from repro_torch.core.pack import pack_entry
+    from repro_torch.kernels import ops as tops
+
+    dev = _cuda()
+    rng = np.random.default_rng(34)
+    G, M, K, N, blk = 3, 40, 64, 48, 16
+    bm = rng.random((G, K // blk, N // blk)) < 0.4
+    bm[:, 0, 0] = True
+    sup = bm | (rng.random(bm.shape) < 0.2)
+    dense = lambda b: torch.from_numpy(np.repeat(np.repeat(b, blk, 1), blk, 2))
+    mask, smask = dense(bm), dense(sup)
+    w = (torch.from_numpy(rng.standard_normal((G, K, N)).astype(np.float32)) * smask) \
+        .to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((G, M, K)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((G, M, N)).astype(np.float32))
+
+    def run(device):
+        xd = x.to(device).requires_grad_(True)
+        wd = w.to(device).requires_grad_(True)
+        if kernel == "block_sparse":
+            e = pack_entry(mask.to(device), (blk, blk), bwd_mask=smask.to(device))
+            y = tops.grouped_block_sparse_linear(xd, wd, pack=e, block=(128, blk, blk))
+        else:
+            y = tops.topkast_grouped_masked_linear(xd, wd, mask.to(device), smask.to(device),
+                                                   block=(128, blk, blk))
+        dx, dw = torch.autograd.grad(y, (xd, wd), g.to(device))
+        return y.detach().cpu(), dx.cpu(), dw.cpu()
+
+    y, dx, dw = run(dev)
+    py, pdx, pdw = run("cpu")
+    assert dw.dtype == pdw.dtype == torch.bfloat16 and y.dtype == torch.float32
+    wf = w.float()
+    ay = torch.bmm(x.abs(), (wf * mask).abs())
+    adx = torch.bmm(g.abs(), (wf * mask).abs().transpose(1, 2))
+    adw = torch.bmm(x.abs().transpose(1, 2), g.abs()) * smask
+    assert _bound_ok(y, py, ay, K)
+    assert _bound_ok(dx, pdx, adx, N)
+    assert _bound_ok(dw, pdw, adw, M)
+    assert not dw[~smask].float().any()

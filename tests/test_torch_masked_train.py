@@ -40,6 +40,7 @@ from repro_torch.configs import SparseConfig as TSparse  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.core.masks import flat_index, tree_paths  # noqa: E402
 from repro_torch.core.pack import pack_entries, validate_pack  # noqa: E402
+from repro_torch.data.synthetic import batch_for as t_batch_for  # noqa: E402
 from repro_torch.launch.serve import staggered_requests as t_requests  # noqa: E402
 from repro_torch.optim.lr import LRSchedule as TLR  # noqa: E402
 from repro_torch.optim.optimizers import OptConfig as TOpt  # noqa: E402
@@ -287,7 +288,10 @@ def test_fused_rejects_snfs_microbatches_dense_and_bf16_compute(what):
 def test_fused_block_sparse_and_bf16_adam_state_are_not_ported():
     """The fused epilogue under kernel='block_sparse' (K7) is ported: the
     step builds and its fused leaves' pack entries carry the epilogue's
-    operands beside the superset view; bf16 Adam state is still refused."""
+    operands beside the superset view.  bf16 Adam state is ported too:
+    the step builds from bf16 moments and its first update leaves f32
+    ones, equal bit for bit to the first moments of an f32 state (both
+    start at zero, so ``b1 * m`` is zero in either dtype)."""
     _, cfg = _cfgs({"fused_epilogue": True, **BLOCK_SPARSE})
     opt = TOpt(kind="sgd", grad_clip=0.0)
     tsteps.make_train_step(cfg, opt, TLR())
@@ -296,8 +300,19 @@ def test_fused_block_sparse_and_bf16_adam_state_are_not_ported():
     assert sorted(entries) == sorted(tree_paths(st["masks"]))
     assert all({"mom", "seed", "bidx", "ridx"} <= set(e) for e in entries.values())
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsteps.make_train_step(cfg, TOpt(kind="adam", state_dtype="bfloat16"), TLR())
+    batch = t_batch_for(cfg, 0, 2, 16, learnable=True, device="cpu")
+    moments = {}
+    for dt in ("bfloat16", "float32"):
+        adam = TOpt(kind="adam", state_dtype=dt)
+        st, _ = tsteps.init_train_state(cfg, adam, seed=0, device="cpu")
+        assert {t.dtype for t in tree_paths(st["opt"]["m"]).values()} == {
+            getattr(torch, dt)}
+        st, _ = tsteps.make_train_step(cfg, adam, TLR())(st, batch)
+        moments[dt] = {k: tree_paths(st["opt"][k]) for k in ("m", "v")}
+    for k in ("m", "v"):
+        assert {t.dtype for t in moments["bfloat16"][k].values()} == {torch.float32}
+        for n, t in moments["float32"][k].items():
+            assert torch.equal(moments["bfloat16"][k][n], t), (k, n)
 
 
 def test_masked_engine_streams_match_jax():

@@ -54,7 +54,7 @@ from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.core import pack as tpack  # noqa: E402
 from repro_torch.core.distributions import LayerSpec, get_distribution  # noqa: E402
 from repro_torch.core.distributions import sparsity_map  # noqa: E402
-from repro_torch.core.masks import block_mask_of, random_block_mask  # noqa: E402
+from repro_torch.core.masks import block_mask_of, random_block_mask, tree_paths  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch.serve import configure_kernel, init_serving_state  # noqa: E402
 from repro_torch.launch.serve import staggered_requests as t_requests  # noqa: E402
@@ -377,8 +377,11 @@ def test_grouped_linear_dispatch():
     for kernel, pack in (("block_sparse", entry), ("masked", None), ("dense", None)):
         got = tl.grouped_linear(w, x, mask=m, kernel=kernel, block=blk, pack=pack)
         _close(got, want, 1e-5, kernel)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tl.grouped_linear(w, x, mask=m, kernel="block_sparse", block=blk)
+    # without an entry the call packs the mask's blocks itself: the same
+    # product as with the prebuilt entry, bit for bit
+    got = tl.grouped_linear(w, x, mask=m, kernel="block_sparse", block=blk)
+    assert torch.equal(got, tl.grouped_linear(w, x, mask=m, kernel="block_sparse",
+                                              block=blk, pack=entry))
     # a fused-epilogue entry: the same product, the new momentum as w's
     # cotangent (K8 on the pack's blocks, K20 on the mask)
     mom = torch.randn(m.shape) * m
@@ -670,13 +673,27 @@ def test_serve_cli_runs_moe():
 def test_moe_training_refused():
     """MoE training is ported, the fused SGD epilogue on the expert banks
     (K8/K20) included (tests/test_torch_moe_train.py,
-    tests/test_torch_moe_fused.py); what it still refuses is bf16 Adam
-    state."""
+    tests/test_torch_moe_fused.py), and so is bf16 Adam state: the state
+    starts with bf16 moments and one step leaves f32 ones for every leaf,
+    the banks' included, as the reference's ``apply_opt`` returns them."""
+    from repro_torch.data.synthetic import batch_for as t_batch_for
+    from repro_torch.optim.lr import LRSchedule as TLR
     from repro_torch.optim.optimizers import OptConfig as TOpt
+    from repro_torch.training.steps import make_train_step
 
     cfg = dataclasses.replace(t_get_config(ARCH, smoke=True), sparse=TSparse(
         sparsity=0.8, method="rigl", kernel="masked", fused_epilogue=True))
     st, _ = t_init_train_state(cfg, TOpt(kind="sgd", state_dtype="bfloat16"), device="cpu")
     assert st["opt"]["momentum"]["layers"][0]["moe"]["wi"]["w"].dim() == 3
-    with pytest.raises(NotImplementedError, match="bf16 optimizer state"):
-        t_init_train_state(cfg, TOpt(kind="adam", state_dtype="bfloat16"), device="cpu")
+    cfg = dataclasses.replace(cfg, sparse=dataclasses.replace(cfg.sparse,
+                                                              fused_epilogue=False))
+    adam = TOpt(kind="adam", state_dtype="bfloat16")
+    st, _ = t_init_train_state(cfg, adam, device="cpu")
+    bank = lambda s, k: s["opt"][k]["layers"][0]["moe"]["wi"]["w"]
+    assert bank(st, "m").dtype == bank(st, "v").dtype == torch.bfloat16
+    st, met = make_train_step(cfg, adam, TLR())(
+        st, t_batch_for(cfg, 0, 2, 8, learnable=True, device="cpu"))
+    assert bool(torch.isfinite(met["loss"]))
+    for k in ("m", "v"):
+        assert bank(st, k).dtype == torch.float32 and bank(st, k).dim() == 3
+        assert {t.dtype for t in tree_paths(st["opt"][k]).values()} == {torch.float32}

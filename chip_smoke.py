@@ -246,7 +246,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 prefill logits within 2e-3;
                 prefill ms, the decode step's host and device (CUDA graph) ms
  22. xlstm train -- 8 of 48 layers at full width (7 mLSTM + 1 sLSTM, 275 M
-                parameters), RigL with the superset, Adam, 2 x 1024 tokens, 6
+                parameters), RigL with the superset, Adam, 2 x 1024 tokens, 4
                 steps, a drop/grow at step 2, in both modes: first K4-K6
                 (K16-K18) at sLSTM's recurrent bank's shapes (G 4, K 512, N
                 2048; C = 1, 8, 16; f32) against their plain versions, timed
@@ -388,7 +388,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                 K2, 4 K3, 6 K4, 3 K5, 3 K6, 2 K9, K10, K11) and the planned
                 merges); every leaf bf16 after the steps; block_sparse
                 then one drop/grow on 1 x 1024 tokens and a fresh pack
- 40. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 40. remat dots -- remat_policy='dots' against 'none' on h2o-danube-1.8b at
+                full width, 4 of 24 layers, 2 x 1024 tokens, one forward
+                and backward each: block_sparse with flash_tight, the same
+                launches under both (2 x 28 K1, 28 K2, 28 K3, 8 K9, 4 K10,
+                4 K11: the kernels opaque to the policy) and gradients
+                equal bit for bit; kernel='dense' with flash_tight and with
+                dense attention, gradients equal bit for bit and the
+                backward's mm/bmm/addmm/baddbmm as many as without remat
+                (no product recomputed; 'none' recomputes them); seconds
+                and peak GiB of each
+ 41. data parallel -- the same danube, 4 of 24 layers, block_sparse, RigL
+                with the superset, Adam: ``train_loop`` in one process (8
+                x 1024 in 4 microbatches, 4 steps, a drop/grow at step 2),
+                then two spawned ranks (gloo over 127.0.0.1,
+                ``make_local_mesh(2, 1)`` on the one card, 4 x 1024 rows
+                each in 2 microbatches) through the same steps: losses
+                within rel 2e-3 of the one process's, masks, supersets and
+                packs identical across the ranks, each rank's K1-K3 and
+                K9-K11 a train step half the one process's; step, all-reduce
+                seconds and peak GiB a rank; then one rank under NCCL
+                through the same train step, every leaf bit for bit the
+                plain step's
+ 42. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -4923,7 +4945,7 @@ def gru_phase(torch):
 
 XLSTM_ENGINE = dict(capacity=4, max_len=2048)
 XLSTM_TRAIN_LAYERS = 8  # one 7:1 period: 7 mLSTM and the sLSTM at layer 7
-XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH = 6, 2  # 2 x 1024 in one microbatch
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH = 4, 2  # 2 x 1024 in one microbatch
 XLSTM_PROJ = {"mlstm": 5, "slstm": 2}  # K1/K13 launches a layer a pass
 R_ROWS = (1, 8, 16)  # the r bank's rows: a request's step, and C = 8, 16
 
@@ -7127,6 +7149,399 @@ def grok_phases(torch, timer, bsm, mm, fa, done):
     return out
 
 
+# ---------------------------------------------------------------------------
+# remat_policy='dots' and data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+REMAT_LAYERS, REMAT_ROWS = 4, 2  # danube at full width, 4 of 24 layers; 2 x 1024 tokens
+DOT_OPS = ("mm", "bmm", "addmm", "baddbmm")
+DP_LAYERS, DP_STEPS, DP_BATCH = 4, 4, 8  # a drop/grow at step 2; 8 x 1024 global rows
+DP_KERNELS = ("block_sparse_fwd", "block_sparse_dx", "block_sparse_dw", "flash_fwd",
+              "flash_dq", "flash_dkv")
+
+
+def remat_config(kernel, attn_kernel, policy, remat=True):
+    """The train phase's danube at full width, 4 of 24 layers, one remat
+    region a layer under ``policy``."""
+    cfg = train_config()
+    return dataclasses.replace(cfg, n_layers=REMAT_LAYERS, remat=remat, remat_group=1,
+                               remat_policy=policy, sparse=dataclasses.replace(
+                                   cfg.sparse, kernel=kernel, attn_kernel=attn_kernel))
+
+
+def dot_counter(torch):
+    """A dispatch mode counting the dense products (``DOT_OPS``) run
+    under it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in DOT_OPS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def loss_grads(torch, cfg, params, batch, masks=None, pack=None, count=None):
+    """(loss, [gradient of every leaf, on the host], s, peak GiB) of one
+    ``lm_loss`` forward and backward (the gradients leave the card after
+    the peak is read, so a run's peak holds no earlier run's); ``count``
+    (a ``dot_counter``) wraps the backward alone."""
+    import contextlib
+
+    from repro_torch.core.masks import tree_map, tree_paths
+    from repro_torch.models.model import lm_loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    src = tree_map(lambda _, t: t.detach().requires_grad_(True), params)
+    loss = lm_loss(src, cfg, batch, masks=masks, pack=pack)
+    with count or contextlib.nullcontext():
+        grads = torch.autograd.grad(loss, list(tree_paths(src).values()))
+    torch.cuda.synchronize()
+    s, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    return loss.item(), [g.cpu() for g in grads], s, peak
+
+
+def remat_phase(torch, bsm, fa):
+    """``remat_policy='dots'`` against 'none' on danube at full width (4 of
+    24 layers, 2 x 1024 tokens, one forward and backward each):
+
+      block_sparse with flash_tight (K1-K3, K9-K11): the same launches
+        under both policies (the forward kernels twice, the kernels opaque
+        to the policy) and gradients equal bit for bit;
+      kernel='dense' with flash_tight (cuBLAS projections saved, K9-K11
+        recomputed) and with dense attention: gradients equal bit for bit,
+        and the backward's dense products (a dispatch mode's count of
+        mm/bmm/addmm/baddbmm) as many as without remat: no product is
+        recomputed, where 'none' recomputes the forward's;
+
+    with each run's seconds and peak GiB."""
+    from repro_torch.core.masks import apply_masks
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state
+
+    mods = {"bsm": bsm, "fa": fa}
+    cfg = remat_config("block_sparse", "flash_tight", "none")
+    state, _ = init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device="cuda")
+    batch = batch_for(cfg, 0, REMAT_ROWS, TRAIN_SEQ, learnable=True, device="cuda")
+    n_proj, n_attn = 7 * cfg.n_layers, cfg.n_layers
+    want = {"block_sparse_fwd": 2 * n_proj, "block_sparse_dx": n_proj,
+            "block_sparse_dw": n_proj, "flash_fwd": 2 * n_attn, "flash_dq": n_attn,
+            "flash_dkv": n_attn}
+    stats, launches = {}, {}
+    runs = {}
+    for policy in ("none", "dots"):
+        c = remat_config("block_sparse", "flash_tight", policy)
+        loss_grads(torch, c, state["params"], batch, state["masks"], state["pack"])  # warm
+        zero_counters(mods)
+        loss, grads, s, peak = loss_grads(torch, c, state["params"], batch, state["masks"],
+                                          state["pack"])
+        launches[policy] = read_counters(mods)
+        runs[policy] = grads
+        stats[f"block_sparse {policy}"] = {"loss": loss, "s": s, "peak_gib": peak,
+                                           "launches": launches[policy]}
+    if launches["dots"] != launches["none"]:
+        raise AssertionError(f"remat: launches under 'dots' {launches['dots']} differ "
+                             f"from 'none' {launches['none']}")
+    for name, n in want.items():
+        if launches["dots"][name] != n:
+            raise AssertionError(f"remat: {name} launched {launches['dots'][name]} times, "
+                                 f"expected {n}")
+    unequal = sum(not torch.equal(a, b) for a, b in zip(runs["none"], runs["dots"]))
+    if unequal:
+        raise AssertionError(f"remat block_sparse: {unequal} gradients differ between "
+                             "'dots' and 'none'")
+    stats["block_sparse grads equal"] = len(runs["none"])
+    del runs
+    masked = apply_masks(state["params"], state["masks"])
+    del state
+    torch.cuda.empty_cache()
+    for attn in ("flash_tight", "dense"):
+        runs, dots = {}, {}
+        for policy, remat in (("off", False), ("none", True), ("dots", True)):
+            c = remat_config("dense", attn, "none" if policy == "off" else policy, remat)
+            loss_grads(torch, c, masked, batch)  # warm
+            count = dot_counter(torch)
+            zero_counters(mods)
+            loss, grads, s, peak = loss_grads(torch, c, masked, batch, count=count)
+            runs[policy], dots[policy] = grads, count.n
+            stats[f"dense {attn} {policy}"] = {"loss": loss, "s": s, "peak_gib": peak,
+                                               "backward_dots": count.n,
+                                               "launches": read_counters(mods)}
+        if not dots["none"] > dots["off"] > 0 or dots["dots"] != dots["off"]:
+            raise AssertionError(f"remat dense {attn}: backward dense products {dots} "
+                                 "(expected dots == off < none)")
+        unequal = sum(not torch.equal(a, b) for a, b in zip(runs["none"], runs["dots"]))
+        if unequal:
+            raise AssertionError(f"remat dense {attn}: {unequal} gradients differ between "
+                                 "'dots' and 'none'")
+        stats[f"dense {attn} grads equal"] = len(runs["none"])
+        del runs
+        torch.cuda.empty_cache()
+    for k, v in stats.items():
+        print(f"remat: {k}: {json.dumps(v)}")
+    return stats, launches["dots"]
+
+
+def dp_config(microbatches):
+    """The train phase's danube (block_sparse 128 x 128, flash_tight, ERK
+    0.8, RigL with the Top-KAST superset, delta_t 2) at full width, 4 of
+    24 layers, in ``microbatches`` of 2 x 1024 rows a step."""
+    return dataclasses.replace(train_config(), n_layers=DP_LAYERS, microbatches=microbatches)
+
+
+def state_digests(torch, state):
+    """sha256 of the masks, the supersets and the pack, each over its
+    leaves in path order, on host copies."""
+    import hashlib
+
+    from repro_torch.core.masks import tree_paths
+    from repro_torch.core.pack import pack_entries
+
+    def digest(items):
+        h = hashlib.sha256()
+        for name, t in items:
+            h.update(name.encode())
+            h.update(t.cpu().numpy().tobytes() if torch.is_tensor(t) else repr(t).encode())
+        return h.hexdigest()
+
+    pack = [(f"{n}/{k}", e[k]) for n, e in pack_entries(state["pack"]) for k in sorted(e)]
+    return {"masks": digest(sorted(tree_paths(state["masks"]).items())),
+            "bwd_masks": digest(sorted(tree_paths(state["bwd_masks"]).items())),
+            "pack": digest(pack)}
+
+
+def dp_run(torch, cfg, mods, workdir, mesh=None):
+    """``train_loop`` for DP_STEPS steps of DP_BATCH x 1024 (each rank's
+    rows under ``mesh``) -> (per-step records, final state, launches)."""
+    from repro_torch.launch.train import train_loop
+
+    log, last = [], [None]
+
+    def on_step(step, is_update, state, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec = {"step": step, "update": is_update, "loss": float(m["loss"]),
+               "launches": read_counters(mods)}
+        if last[0] is not None:
+            rec["wall_s"] = now - last[0]
+        log.append(rec)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+
+    zero_counters(mods)
+    torch.cuda.reset_peak_memory_stats()
+    last[0] = time.perf_counter()
+    state, _ = train_loop(cfg, steps=DP_STEPS, batch=DP_BATCH, seq=TRAIN_SEQ,
+                          workdir=str(workdir), device="cuda", on_step=on_step,
+                          log_every=DP_STEPS, ckpt_every=None, mesh=mesh)
+    torch.cuda.synchronize()
+    return log, state, read_counters(mods)
+
+
+def dp_rank(rank, world, port, out):
+    """One data-parallel rank (a spawned process): gloo over 127.0.0.1,
+    ``make_local_mesh(world, 1)`` on the one card, ``train_loop`` on this
+    rank's rows; writes its losses, per-step launches and seconds, the
+    all-reduce's seconds, peak GiB and the state's digests to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        from repro_torch.kernels import block_sparse_matmul as bsm
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.training import steps as ts
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_local_mesh(world, 1, device_type="cuda")
+        reduce_s, real = [], ts._all_reduce_mean
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(*a, **kw)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+
+        ts._all_reduce_mean = timed
+        log, state, launches = dp_run(torch, dp_config(DP_BATCH // 2 // world), {
+            "bsm": bsm, "fa": fa}, ROOT / "chiprun_out" / "dp_train", mesh=mesh)
+        report = {"rank": rank, "log": log, "launches": launches, "allreduce_s": reduce_s,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "digests": state_digests(torch, state)}
+        Path(out).write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_one_rank(torch):
+    """One rank under NCCL (the backend a multi-card mesh runs) through the
+    data-parallel train step, against the plain step on the same state and
+    batch: every leaf of the state and the loss equal bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import shard_batch
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training.steps import init_train_state, make_train_step
+
+    cfg = dp_config(1)
+    opt = OptConfig(kind="adam", weight_decay=0.0, grad_clip=1.0)
+    lr = LRSchedule(kind="constant", base_lr=3e-3, warmup_steps=0)
+    batch = batch_for(cfg, 0, 2, TRAIN_SEQ, learnable=True, device="cuda")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        out = {}
+        for name, m in (("plain", None), ("nccl", mesh)):
+            state, _ = init_train_state(cfg, opt, seed=0, device="cuda")
+            b = batch if m is None else shard_batch(batch, m)
+            state, metrics = make_train_step(cfg, opt, lr, mesh=m)(state, b)
+            torch.cuda.synchronize()
+            out[name] = (state, float(metrics["loss"]))
+            if name == "plain":  # one state on the card at a time beside the next
+                host = tree_map_to(torch, state, "cpu")
+                del state
+                out[name] = (host, out[name][1])
+                torch.cuda.empty_cache()
+        bad = same_state(torch, out["plain"][0], tree_map_to(torch, out["nccl"][0], "cpu"))
+    finally:
+        dist.destroy_process_group()
+    if bad or out["plain"][1] != out["nccl"][1]:
+        raise AssertionError(f"dp: the one-rank NCCL step differs from the plain step: "
+                             f"{len(bad)} leaves {bad[:8]}, losses {out['plain'][1]} vs "
+                             f"{out['nccl'][1]}")
+    n = []
+    from repro_torch.core.masks import tree_map
+
+    tree_map(lambda *_: n.append(1), out["plain"][0])
+    return {"leaves_equal": len(n), "loss": out["plain"][1]}
+
+
+def tree_map_to(torch, tree, device):
+    """Every tensor of a state tree moved to ``device``; other leaves as
+    they are."""
+    from repro_torch.core.masks import tree_map
+
+    return tree_map(lambda _, t: t.to(device) if torch.is_tensor(t) else t, tree)
+
+
+def dp_phase(torch, bsm, fa):
+    """Data parallelism on one card: a single-process ``train_loop`` (4
+    microbatches of 2 x 1024 rows a step), then two spawned gloo ranks
+    (``make_local_mesh(2, 1)``, 2 microbatches of 2 x 1024 each) through
+    the same 4 steps from the same seed (two train steps, a drop/grow,
+    a train step): losses within the reference's rel 2e-3 of the single
+    process's, masks, supersets and packs identical across the ranks
+    (digests), each rank's K1-K3 and K9-K11 a train step half the single
+    process's (the update step's one pass each); each step's seconds, the
+    all-reduce's and peak GiB a rank.  Then one rank under NCCL through
+    the same step, bit for bit the plain step."""
+    import multiprocessing
+
+    mods = {"bsm": bsm, "fa": fa}
+    single, state, single_launches = dp_run(torch, dp_config(DP_BATCH // 2), mods,
+                                            ROOT / "chiprun_out" / "dp_single")
+    single_digests = state_digests(torch, state)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    port, world = free_port(), 2
+    outs = [ROOT / "chiprun_out" / f"dp_rank{r}.json" for r in range(world)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dp_rank, args=(r, world, port, str(outs[r])))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"dp: rank exit codes {codes}")
+    reports = [json.loads(o.read_text()) for o in outs]
+
+    losses = [[r["loss"] for r in rep["log"]] for rep in reports]
+    want = [r["loss"] for r in single]
+    if any(lo != losses[0] for lo in losses):
+        raise AssertionError(f"dp: the ranks' losses differ: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], want)]
+    if not max(rel) <= 2e-3:
+        raise AssertionError(f"dp: losses {losses[0]} vs one process {want} (rel {rel})")
+    digests = [rep["digests"] for rep in reports]
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"dp: masks, supersets or packs differ across ranks: {digests}")
+    updates = [r["update"] for r in single]
+    if updates != [False, False, True, False]:
+        raise AssertionError(f"dp: updates {updates}")
+
+    def per_step(log):
+        prev, out = dict.fromkeys(DP_KERNELS, 0), []
+        for r in log:
+            out.append({k: r["launches"][k] - prev[k] for k in DP_KERNELS})
+            prev = r["launches"]
+        return out
+
+    one = per_step(single)
+    for rep in reports:
+        for i, (mine, theirs) in enumerate(zip(per_step(rep["log"]), one)):
+            expect = theirs if updates[i] else {k: v // 2 for k, v in theirs.items()}
+            if mine != expect or 0 in mine.values():
+                raise AssertionError(f"dp rank {rep['rank']} step {i + 1}: launches {mine}, "
+                                     f"expected {expect}")
+    nccl = nccl_one_rank(torch)
+    wall = lambda log: [r.get("wall_s") for r in log]
+    stats = {"layers": DP_LAYERS, "global_batch": [DP_BATCH, TRAIN_SEQ],
+             "single": {"losses": want, "step_wall_s": wall(single), "peak_gib": single_peak,
+                        "digests": single_digests,
+                        "digests_equal_ranks": single_digests == digests[0]},
+             "ranks": [{"losses": losses[i], "step_wall_s": wall(rep["log"]),
+                        "allreduce_s": rep["allreduce_s"], "peak_gib": rep["peak_gib"],
+                        "launches_per_step": per_step(rep["log"])}
+                       for i, rep in enumerate(reports)],
+             "loss_rel_err": rel, "ranks_wall_s": ranks_s, "nccl_one_rank": nccl}
+    print(f"dp: one process {want}; ranks {losses[0]} (rel {max(rel):.2e}); step s one "
+          f"process {wall(single)}, rank 0 {wall(reports[0]['log'])}; all-reduce s rank 0 "
+          f"{reports[0]['allreduce_s']}; peak GiB one process {single_peak:.1f}, ranks "
+          f"{[round(r['peak_gib'], 1) for r in reports]}; digests equal across ranks, "
+          f"{'equal' if stats['single']['digests_equal_ranks'] else 'not equal'} to the one "
+          f"process's; NCCL one rank {nccl}")
+    return stats, reports[0]["launches"], single_launches
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
@@ -7319,6 +7734,10 @@ def main() -> int:
         internvl[f"train {kernel}"] = internvl_train(torch, timer, bsm, mm, fa, kernel)
         done(f"internvl train {kernel}")
     grok = grok_phases(torch, timer, bsm, mm, fa, done)
+    remat_stats, remat_launches = remat_phase(torch, bsm, fa)
+    done("remat dots: danube 4 layers, block_sparse and dense")
+    dp_stats, dp_launches, dp_single_launches = dp_phase(torch, bsm, fa)
+    done("data parallel: one process, two gloo ranks, one NCCL rank")
     for cases, more in zip((k9, k10, k11), grok["flash"]):
         cases += more
     r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
@@ -7370,7 +7789,9 @@ def main() -> int:
              "grok_serve": grok["serve"]["block_sparse"][1],
              "grok_masked_serve": grok["serve"]["masked"][1],
              "grok_train": grok["train block_sparse"][1],
-             "grok_masked_train": grok["train masked"][1]}
+             "grok_masked_train": grok["train masked"][1],
+             "remat_dots": remat_launches, "dp_single_process": dp_single_launches,
+             "dp_rank0": dp_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -7516,6 +7937,7 @@ def main() -> int:
                   "serve": {k: v[0] if k in ("block_sparse", "masked") else v
                             for k, v in grok["serve"].items()},
                   **{k: v[0] for k, v in grok.items() if k.startswith("train")}},
+         "remat": remat_stats, "data_parallel": dp_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

@@ -89,6 +89,7 @@ import math
 import torch
 
 from . import _build
+from .opaque import opaque
 
 __all__ = [
     "BlockSparseMatmul",
@@ -1128,6 +1129,7 @@ class BlockSparseMatmul(torch.autograd.Function):
     plans), or None."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
         ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, live
@@ -1150,6 +1152,7 @@ class TopkastBlockSparseMatmul(torch.autograd.Function):
     (K3's plan), or None; ``nnz``: A's (K1's and K2's plans), or None."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
                 mu=0.0, wd=0.0, sr=False, live=None, nnz=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)
@@ -1170,6 +1173,7 @@ class GroupedBlockSparseMatmul(torch.autograd.Function):
     whole bank's)."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bm, bn, bk, live=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt)
         ctx.blocks, ctx.live, ctx.nnz = (bm, bn, bk), live, live
@@ -1192,6 +1196,7 @@ class TopkastGroupedBlockSparseMatmul(torch.autograd.Function):
     zeros.  ``live`` and ``nnz`` as for ``TopkastBlockSparseMatmul``."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, idx, cnt, ridx, rcnt, bidx, bcnt, bm, bn, bk, mom=None, seed=0,
                 mu=0.0, wd=0.0, sr=False, live=None, nnz=None):
         ctx.save_for_backward(x, w, idx, cnt, ridx, rcnt, bidx, bcnt, mom)

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from ..core.attn_sched import paged_prefix_schedule, sched_for
 from . import _build
+from .opaque import opaque
 
 __all__ = [
     "FlashAttention",
@@ -689,6 +690,7 @@ class FlashAttention(torch.autograd.Function):
     backward ``flash_bwd``."""
 
     @staticmethod
+    @opaque
     def forward(ctx, q, k, v, sched, kw):
         o, lse = flash_fwd(q, k, v, sched[0], sched[1], **kw)
         ctx.save_for_backward(q, k, v, o, lse)

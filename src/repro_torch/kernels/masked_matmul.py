@@ -64,6 +64,7 @@ import math
 import torch
 
 from . import _build
+from .opaque import opaque
 from .block_sparse_matmul import (
     _FUSED_TAIL,
     _fused_entry_name,
@@ -893,6 +894,7 @@ class MaskedMatmul(torch.autograd.Function):
     the reference's ``_mm_fwd/_mm_bwd``.  The mask gets no gradient."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask)
         ctx.blocks = (bm, bn, bk)
@@ -910,6 +912,7 @@ class TopkastMaskedMatmul(torch.autograd.Function):
     gradient restricted to B."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, mask, bwd_mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, bwd_mask)
         ctx.blocks = (bm, bn, bk)
@@ -926,6 +929,7 @@ class FusedMaskedMatmul(torch.autograd.Function):
     ``_fmm_fwd/_fmm_bwd``; mom's cotangent is a discarded zero (None)."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, mask, wgm, mom, seed, mu, wd, sr, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, wgm, mom)
         ctx.blocks = (bm, bn, bk)
@@ -944,6 +948,7 @@ class GroupedMaskedMatmul(torch.autograd.Function):
     ``_gmm_fwd/_gmm_bwd``."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask)
         ctx.blocks = (bm, bn, bk)
@@ -961,6 +966,7 @@ class TopkastGroupedMaskedMatmul(torch.autograd.Function):
     superset B ⊇ A."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, mask, bwd_mask, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, bwd_mask)
         ctx.blocks = (bm, bn, bk)
@@ -978,6 +984,7 @@ class FusedGroupedMaskedMatmul(torch.autograd.Function):
     forward mask; mom's cotangent is a discarded zero (None)."""
 
     @staticmethod
+    @opaque
     def forward(ctx, x, w, mask, wgm, mom, seed, mu, wd, sr, bm, bn, bk):
         ctx.save_for_backward(x, w, mask, wgm, mom)
         ctx.blocks = (bm, bn, bk)

@@ -45,6 +45,9 @@ after a failure; ``--preempt-at N`` stops the run once at step N, after a
 forced save, so a resumed run can be held to an uninterrupted one bit for
 bit.  Data is a pure function of the step and every random draw of a
 (seed, purpose, step), so the state is all a resume needs.
+``train_loop(mesh=...)`` trains data-parallel over a ``launch/mesh.py``
+mesh (the CLI takes no mesh, as the reference's: a multi-rank run calls
+``train_loop`` from its own script after ``init_process_group``).
 ``--trace-out`` and ``--metrics-out`` turn on the observability layer
 (``obs/``): ``train_*`` spans, gauges and histograms, ``topology_update``
 instants and the ``kernel_*`` pack gauges, flushed at log cadence.
@@ -57,6 +60,8 @@ import json
 import pathlib
 import tempfile
 import time
+
+import torch.distributed as dist
 
 from ..checkpoint.checkpoint import Checkpointer
 from ..configs import SparseConfig, get_config
@@ -79,6 +84,7 @@ from ..training.steps import (
     repack,
     snip_init,
 )
+from .sharding import shard_batch
 
 __all__ = ["SimulatedPreemption", "train_loop", "run_with_restarts", "main"]
 
@@ -118,7 +124,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
                opt_cfg: OptConfig | None = None, lr_sched: LRSchedule | None = None,
                ckpt_every: int | None = 100, preempt_at: int | None = None,
                learnable: bool = True, log_every: int = 50, seed: int = 0,
-               obs=None, flusher=None, device=None, on_step=None):
+               obs=None, flusher=None, device=None, on_step=None, mesh=None):
     """One worker attempt -> (state, metrics_log).  Raises on a (simulated)
     failure; restartable: it resumes from ``<workdir>/ckpt``.
 
@@ -135,8 +141,18 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
     step (the chip smoke times steps with it).  Writes
     ``<workdir>/result.json`` with the logged metrics, the final sparsity
     and nnz, and the topology telemetry of the drop/grow updates.
+
+    ``mesh`` (a ``launch/mesh.py`` device mesh over the live process group):
+    data parallelism.  Every rank builds the same state and the same global
+    batch from the seed and keeps its rows (``shard_batch``); the steps
+    all-reduce the gradient (``training/steps.py``).  Rank 0 alone writes
+    the workdir's files (checkpoints, result.json) and every rank restores
+    the same replicated state from them, so a restore onto another world
+    size needs nothing more.  A restore onto a sharded mesh is ROADMAP
+    queue A item 9b.
     """
     dev = resolve_device(device)
+    writer = mesh is None or dist.get_rank() == 0
     workdir = pathlib.Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     opt_cfg = opt_cfg or OptConfig(kind="adam", weight_decay=0.0, grad_clip=1.0)
@@ -153,16 +169,20 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
             del state
             state = repack(restored, cfg)
             print(f"[train] restored checkpoint at step {rstep}")
-    train_step = make_train_step(cfg, opt_cfg, lr_sched)
-    rigl_step = make_rigl_step(cfg, algo, lr_sched)
+    train_step = make_train_step(cfg, opt_cfg, lr_sched, mesh=mesh)
+    rigl_step = make_rigl_step(cfg, algo, lr_sched, mesh=mesh)
     prune_sched = PruningSchedule(
         cfg.sparse.sparsity, begin_step=steps // 8, end_step=int(steps * 0.75),
         prune_every=max(cfg.sparse.delta_t * 10, 1))
     prune_fn = make_prune_fn(cfg, prune_sched) if cfg.sparse.method == "pruning" else None
     sp = cfg.sparse
+
+    def batch_at(step):
+        b = batch_for(cfg, step, batch, seq, learnable=learnable, device=dev)
+        return b if mesh is None else shard_batch(b, mesh)
+
     if sp.method == "snip" and state["step"] == 0:
-        state = snip_init(state, cfg, batch_for(cfg, 0, batch, seq, learnable=learnable,
-                                                device=dev))
+        state = snip_init(state, cfg, batch_at(0), mesh=mesh)
         state = refresh_pack(state, cfg)  # snip replaced the masks
     metrics_log = []
     topo_log = []  # per-update records, kept apart from the loss log
@@ -174,7 +194,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
     step = state["step"]
     while step < steps:
         ts0 = time.time()
-        b = batch_for(cfg, step, batch, seq, learnable=learnable, device=dev)
+        b = batch_at(step)
         is_update = (sp.method in _UPDATE_METHODS and step > 0
                      and step % sp.delta_t == 0 and step < algo.schedule.t_end)
         if is_update:
@@ -214,9 +234,11 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
             om["step_s"].observe(ts1 - ts0)
             om["steps"].inc()
         if preempt_at is not None and step == preempt_at:
-            if ckpt is not None:
+            if ckpt is not None and writer:
                 ckpt.maybe_save(state, step, force=True)
                 ckpt.wait()
+            if mesh is not None:
+                dist.barrier()  # the save lands before any rank restores it
             raise SimulatedPreemption(f"preempted at step {step}")
         if step % log_every == 0 or step == steps:
             rec = {"step": step, "loss": float(m["loss"])}
@@ -255,20 +277,22 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
                         "without refresh_pack()"
                     )
             metrics_log.append(rec)
-            print(f"[train] step {step:6d} loss {rec['loss']:.4f} "
-                  f"({time.time() - t0:.1f}s)")
-        if ckpt is not None:
+            if writer:
+                print(f"[train] step {step:6d} loss {rec['loss']:.4f} "
+                      f"({time.time() - t0:.1f}s)")
+        if ckpt is not None and writer:
             ckpt.maybe_save(state, step)
-    if ckpt is not None:
+    if ckpt is not None and writer:
         ckpt.maybe_save(state, step, force=True)
         ckpt.wait()
     if flusher is not None:
         flusher.close(time.time() - t0)
-    stats = mask_stats(state["masks"])
-    (workdir / "result.json").write_text(json.dumps({
-        "metrics": metrics_log, "sparsity": stats["sparsity"], "nnz": stats["nnz"],
-        "topology": topo_trace.summary(), "topology_updates": topo_log,
-    }))
+    if writer:
+        stats = mask_stats(state["masks"])
+        (workdir / "result.json").write_text(json.dumps({
+            "metrics": metrics_log, "sparsity": stats["sparsity"], "nnz": stats["nnz"],
+            "topology": topo_trace.summary(), "topology_updates": topo_log,
+        }))
     return state, metrics_log
 
 

@@ -57,14 +57,14 @@ def attn_init(gen, cfg, *, sparse: bool = True):
     ``q_norm``/``k_norm`` scales over head_dim."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": {"w": P(_fan_in(gen, (d, H * hd)), sparse)},
-        "wk": {"w": P(_fan_in(gen, (d, KV * hd)), sparse)},
-        "wv": {"w": P(_fan_in(gen, (d, KV * hd)), sparse)},
-        "wo": {"w": P(_fan_in(gen, (H * hd, d)), sparse)},
+        "wq": {"w": P(_fan_in(gen, (d, H * hd)), ("embed", "heads"), sparse)},
+        "wk": {"w": P(_fan_in(gen, (d, KV * hd)), ("embed", "kv_heads"), sparse)},
+        "wv": {"w": P(_fan_in(gen, (d, KV * hd)), ("embed", "kv_heads"), sparse)},
+        "wo": {"w": P(_fan_in(gen, (H * hd, d)), ("heads", "embed"), sparse)},
     }
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_init(hd, gen.device)
-        p["k_norm"] = rmsnorm_init(hd, gen.device)
+        p["q_norm"] = rmsnorm_init(hd, gen.device, ("head_dim",))
+        p["k_norm"] = rmsnorm_init(hd, gen.device, ("head_dim",))
     return p
 
 

@@ -21,14 +21,14 @@ __all__ = ["gru_init", "gru_apply", "gru_lm_init", "gru_lm_apply"]
 
 def _p(gen, shape, sparse):
     w = torch.randn(shape, generator=gen, device=gen.device) / np.sqrt(shape[0])
-    return {"w": P(w, sparse)}
+    return {"w": P(w, ("embed", "mlp"), sparse)}
 
 
 def gru_init(gen: torch.Generator, n_in: int, n_state: int, *, sparse: bool = True):
     return {
         "wx": _p(gen, (n_in, 3 * n_state), sparse),
         "wh": _p(gen, (n_state, 3 * n_state), sparse),
-        "b": P(torch.zeros(3 * n_state, device=gen.device)),
+        "b": P(torch.zeros(3 * n_state, device=gen.device), (None,)),
     }
 
 
@@ -59,13 +59,15 @@ def gru_lm_init(gen: torch.Generator, vocab: int = 256, d_embed: int = 128,
     sparse_flags), f32 on the generator's device."""
     dev = gen.device
     tree = {
-        "embed": {"table": P(0.02 * torch.randn(vocab, d_embed, generator=gen, device=dev))},
+        "embed": {"table": P(0.02 * torch.randn(vocab, d_embed, generator=gen, device=dev),
+                             ("vocab", "embed"))},
         "gru": gru_init(gen, d_embed, d_state),
-        "ro1": linear_init(gen, d_state, 256),
-        "ro2": linear_init(gen, 256, 128),
-        "head": linear_init(gen, 128, vocab),
+        "ro1": linear_init(gen, d_state, 256, ("embed", "mlp")),
+        "ro2": linear_init(gen, 256, 128, ("embed", "mlp")),
+        "head": linear_init(gen, 128, vocab, ("embed", "vocab")),
     }
-    return split_params(tree)
+    params, _, flags = split_params(tree)
+    return params, flags
 
 
 def gru_lm_apply(params, tokens):

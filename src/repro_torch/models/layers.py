@@ -3,8 +3,10 @@
 Port of the JAX package's ``models/layers.py`` for the transformer and
 MoE families (``grouped_linear`` is the weight-bank twin of ``linear``).
 Params are nested dicts of tensors; at init every leaf is a ``P`` bundle
-(value, sparsifiable) and ``split_params`` separates the two trees.  The
-reference's logical sharding axes are not ported.
+(value, logical axes, sparsifiable) and ``split_params`` separates the
+three trees.  The logical axes name each dim's role (``"embed"``,
+``"heads"``, ``"mlp"``, ...), as the reference's; ``launch/sharding.py``
+resolves them onto a mesh.
 """
 from __future__ import annotations
 
@@ -54,14 +56,17 @@ def compute_dtype(cfg) -> torch.dtype:
 
 @dataclasses.dataclass
 class P:
-    """Init-time parameter bundle (not a leaf of the final params)."""
+    """Init-time parameter bundle (not a leaf of the final params): the
+    value, its logical axes (a name or None per dim) and whether RigL
+    sparsifies it."""
 
     value: Any
+    axes: tuple
     sparse: bool = False
 
 
 def split_params(tree):
-    """Tree of P -> (params, sparse_flags) with identical structure."""
+    """Tree of P -> (params, axes, sparse_flags) with identical structure."""
     is_p = lambda x: isinstance(x, P)
 
     def walk(t, f):
@@ -71,7 +76,8 @@ def split_params(tree):
             return {k: walk(v, f) for k, v in t.items()}
         return [walk(v, f) for v in t]
 
-    return walk(tree, lambda p: p.value), walk(tree, lambda p: p.sparse)
+    return (walk(tree, lambda p: p.value), walk(tree, lambda p: p.axes),
+            walk(tree, lambda p: p.sparse))
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float):
@@ -82,8 +88,9 @@ def truncated_normal_init(gen: torch.Generator, shape, scale: float):
     return t.mul_(scale / np.sqrt(max(fan_in, 1)))
 
 
-def linear_init(gen, n_in: int, n_out: int, *, sparse: bool = True):
-    return {"w": P(truncated_normal_init(gen, (n_in, n_out), 1.0), sparse)}
+def linear_init(gen, n_in: int, n_out: int, axes=("embed", "mlp"), *,
+                sparse: bool = True):
+    return {"w": P(truncated_normal_init(gen, (n_in, n_out), 1.0), axes, sparse)}
 
 
 def linear(p, x, compute_dtype=None, *, mask=None, kernel=None,
@@ -258,8 +265,8 @@ def dispatch_kw(cfg, masks, name, pack=None):
     )
 
 
-def rmsnorm_init(d: int, device):
-    return {"scale": P(torch.ones(d, dtype=torch.float32, device=device))}
+def rmsnorm_init(d: int, device, axes=("embed",)):
+    return {"scale": P(torch.ones(d, dtype=torch.float32, device=device), axes)}
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
@@ -269,11 +276,11 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (y * p["scale"].float()).to(x.dtype)
 
 
-def conv1d_causal_init(gen: torch.Generator, d: int, width: int):
+def conv1d_causal_init(gen: torch.Generator, d: int, width: int, axes=("conv_k", "mlp")):
     """Depthwise causal conv (the SSM's front conv); dense, as the
     reference's: w (width, d) normal / sqrt(width), b zeros."""
     w = torch.randn(width, d, generator=gen, device=gen.device) / np.sqrt(width)
-    return {"w": P(w), "b": P(torch.zeros(d, device=gen.device))}
+    return {"w": P(w, axes), "b": P(torch.zeros(d, device=gen.device), (axes[-1],))}
 
 
 def conv1d_causal(p, x, compute_dtype=None):

@@ -29,10 +29,10 @@ def _check(kind: str) -> None:
 def mlp_init(gen, d: int, d_ff: int, kind: str = "swiglu", *,
              sparse: bool = True):
     _check(kind)
-    p = {"wi": linear_init(gen, d, d_ff, sparse=sparse)}
+    p = {"wi": linear_init(gen, d, d_ff, ("embed", "mlp"), sparse=sparse)}
     if kind in _GATES:
-        p["wg"] = linear_init(gen, d, d_ff, sparse=sparse)
-    p["wo"] = linear_init(gen, d_ff, d, sparse=sparse)
+        p["wg"] = linear_init(gen, d, d_ff, ("embed", "mlp"), sparse=sparse)
+    p["wo"] = linear_init(gen, d_ff, d, ("mlp", "embed"), sparse=sparse)
     return p
 
 

@@ -25,7 +25,9 @@ attention through the flash kernels, decode attention and the LM head are
 plain PyTorch.  A tied head (no ``head`` leaf) is ``h @ table.T`` in h's
 dtype, as the reference.  ``lm_loss`` is differentiable; with ``cfg.remat`` each
 group of ``cfg.remat_group`` blocks is a ``torch.utils.checkpoint`` region
-(the reference's ``jax.checkpoint``): it changes memory, not numbers.
+(the reference's ``jax.checkpoint``; under ``remat_policy='dots'`` a
+selective one that also saves the dense products' outputs): it changes
+memory, not numbers.
 
 Dtypes follow the reference's actual flow: the embedding is gathered in the
 compute dtype and scaled by sqrt(d_model) into an f32 residual stream
@@ -44,9 +46,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve_device
+from ..kernels.opaque import inside_kernel
 from . import attention as A
 from . import ssm as S
 from . import xlstm as X
@@ -65,6 +72,7 @@ from .moe import moe, moe_init
 __all__ = [
     "padded_vocab",
     "init_lm",
+    "lm_axes",
     "serving_weights",
     "lm_forward",
     "lm_loss",
@@ -118,10 +126,43 @@ def init_lm(cfg, seed: int = 0, *, device=None):
     to bf16 as its layer (or the embedding, or the head) is drawn: the
     same bits as the reference's cast of the whole f32 tree after
     ``init_lm`` (``init_train_state``), without the whole tree ever
-    existing in f32 (four full-width grok layers are 79 GB in f32)."""
+    existing in f32 (four full-width grok layers are 79 GB in f32).
+
+    The reference's ``init_lm`` returns a third tree, the logical axes;
+    here ``lm_axes`` gives it."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, _, flags = split_params(_lm_tree(cfg, torch.Generator(device=dev).manual_seed(seed)))
+    return params, flags
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: the inits draw
+    through ``generator=gen, device=gen.device``, and torch draws on the
+    meta device from a CPU generator (it has no generator of its own)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def lm_axes(cfg):
+    """The logical-axes tree of ``init_lm(cfg)`` (the reference's second
+    return value): a tuple of axis names (or None) per dim of every leaf.
+
+    ``init_lm`` keeps its two trees, which every caller of the port takes;
+    the axes come from a separate init on the ``meta`` device instead.  It
+    draws nothing and allocates nothing (grok-1-314b's tree costs no
+    memory), and the axes are a function of the config alone, as the
+    resolver (``launch/sharding.py``) needs them."""
+    _check_ported(cfg)
+    return split_params(_lm_tree(cfg, _MetaGenerator()))[1]
+
+
+def _lm_tree(cfg, gen):
+    """``init_lm``'s tree of ``P`` bundles, drawn from ``gen`` on
+    ``gen.device``."""
+    dev = gen.device
     d, pv = cfg.d_model, padded_vocab(cfg)
     masters = _masters(cfg)
 
@@ -147,15 +188,16 @@ def init_lm(cfg, seed: int = 0, *, device=None):
 
     tree = {}
     if cfg.frontend != "none":
-        tree["frontend_proj"] = masters(linear_init(gen, cfg.frontend_dim, d, sparse=False))
+        tree["frontend_proj"] = masters(linear_init(gen, cfg.frontend_dim, d,
+                                                    ("frontend", "embed"), sparse=False))
     if cfg.frontend != "frames":
-        tree["embed"] = masters(
-            {"table": P(0.02 * torch.randn(pv, d, generator=gen, device=dev))})
+        tree["embed"] = masters({"table": P(
+            0.02 * torch.randn(pv, d, generator=gen, device=dev), ("vocab", "embed"))})
     tree["layers"] = [masters(layer(i)) for i in range(cfg.n_layers)]
     tree["ln_f"] = masters(rmsnorm_init(d, dev))
     if not cfg.tie_embeddings or cfg.frontend == "frames":
-        tree["head"] = masters(linear_init(gen, d, pv, sparse=False))
-    return split_params(tree)
+        tree["head"] = masters(linear_init(gen, d, pv, ("embed", "vocab"), sparse=False))
+    return tree
 
 
 def _masters(cfg):
@@ -339,6 +381,34 @@ def _logits(params, cfg, h):
     return out
 
 
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+         torch.ops.aten.baddbmm)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective checkpoint policy of ``remat_policy='dots'``, the
+    reference's ``checkpoint_dots``: save the output of every dense product
+    (``mm``, ``bmm``, ``addmm``, ``baddbmm``: what ``dot_general`` lowers to
+    here) and recompute everything else.  A kernel's Function is opaque
+    (``kernels/opaque.py``), as a ``pallas_call`` is to the reference's
+    policy: the products its plain version runs are recomputed too."""
+    if op.overloadpacket in _DOTS and not inside_kernel():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_contexts():
+    """The forward and recompute contexts of one 'dots' region."""
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+def _remat_kw(cfg) -> dict:
+    """``checkpoint``'s extra arguments for ``cfg.remat_policy`` (any
+    value but 'dots' saves the region's input alone, as in the
+    reference)."""
+    return {"context_fn": dots_contexts} if cfg.remat_policy == "dots" else {}
+
+
 def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
                collect_states: bool = True, histories=None):
     """Full-sequence forward -> (hidden (B, S, d), per-layer states, aux):
@@ -347,9 +417,12 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
 
     Without ``collect_states`` (the loss) and with ``cfg.remat`` under
     autograd, each group of ``cfg.remat_group`` blocks runs as one
-    checkpoint region: only its input is saved and its forward reruns in
-    the backward (so the forward kernels launch twice per step).  The
-    states list is then empty, as in the reference.
+    checkpoint region: under ``remat_policy='none'`` only its input is
+    saved and its forward reruns in the backward (so the forward kernels
+    launch twice per step); under ``'dots'`` the region also saves the
+    outputs of its dense products (``dots_policy``), and the kernels still
+    rerun.  Both policies give the same gradients: only what is saved
+    changes.  The states list is then empty, as in the reference.
 
     ``positions``: absolute RoPE positions ((S,) or (B, S)), default
     arange(S).  ``histories``: per-layer paged-prefix dicts for a suffix
@@ -366,14 +439,8 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
     states = []
     aux = 0.0
     if cfg.remat and not collect_states and torch.is_grad_enabled():
-        if cfg.remat_policy == "dots":
-            # the reference saves the matmul outputs of each region
-            # (jax.checkpoint_policies.checkpoint_dots); torch's checkpoint
-            # has no such policy here yet
-            raise NotImplementedError(
-                f"config {cfg.name!r}: remat_policy='dots' (save the matmul outputs "
-                "of each remat region) is not ported yet; use remat_policy='none'")
         g = max(cfg.remat_group, 1)
+        kw = _remat_kw(cfg)
 
         def region(i0, x_):
             aux_ = 0.0
@@ -384,7 +451,7 @@ def lm_forward(params, cfg, batch, *, masks=None, pack=None, positions=None,
             return x_, aux_
 
         for i0 in range(0, cfg.n_layers, g):
-            x, a = checkpoint(region, i0, x, use_reentrant=False)
+            x, a = checkpoint(region, i0, x, use_reentrant=False, **kw)
             aux = aux + a
     else:
         hist = histories if histories is not None else [None] * cfg.n_layers

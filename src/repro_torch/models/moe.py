@@ -46,12 +46,12 @@ def moe_init(gen, cfg, *, sparse: bool = True):
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     normal = lambda shape: (torch.randn(shape, generator=gen, device=gen.device)
                             / np.sqrt(shape[-2]))
-    bank = lambda shape: {"w": P(normal(shape), sparse)}
+    bank = lambda shape, axes: {"w": P(normal(shape), axes, sparse)}
     p = {
-        "router": {"w": P(normal((d, E)), False)},
-        "wi": bank((E, d, ff)),
-        "wg": bank((E, d, ff)),
-        "wo": bank((E, ff, d)),
+        "router": {"w": P(normal((d, E)), ("embed", None), False)},
+        "wi": bank((E, d, ff), ("experts", "embed", "moe_mlp")),
+        "wg": bank((E, d, ff), ("experts", "embed", "moe_mlp")),
+        "wo": bank((E, ff, d), ("experts", "moe_mlp", "embed")),
     }
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(gen, d, ff * cfg.n_shared_experts, "swiglu",

@@ -49,20 +49,21 @@ def ssm_init(gen: torch.Generator, cfg, *, sparse: bool = True):
     d, d_in, N = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
     dev = gen.device
 
-    def lin(nin, nout, sp):
-        return {"w": P(torch.randn(nin, nout, generator=gen, device=dev) / np.sqrt(nin), sp)}
+    def lin(nin, nout, axes, sp):
+        return {"w": P(torch.randn(nin, nout, generator=gen, device=dev) / np.sqrt(nin),
+                       axes, sp)}
 
     u = torch.rand(d_in, N, generator=gen, device=dev)
     a_init = -torch.exp(np.log(0.5) + u * (np.log(8.0) - np.log(0.5)))
     return {
-        "in_proj": lin(d, 2 * d_in, sparse),
+        "in_proj": lin(d, 2 * d_in, ("embed", "mlp"), sparse),
         "conv": conv1d_causal_init(gen, d_in, CONV_WIDTH),
-        "w_bc": lin(d_in, 2 * N, False),
-        "w_dt": lin(d_in, d_in, False),
-        "a_log": P(torch.log(-a_init)),
-        "d_skip": P(torch.ones(d_in, device=dev)),
-        "dt_bias": P(torch.zeros(d_in, device=dev)),
-        "out_proj": lin(d_in, d, sparse),
+        "w_bc": lin(d_in, 2 * N, ("mlp", None), False),
+        "w_dt": lin(d_in, d_in, ("mlp", "mlp2"), False),
+        "a_log": P(torch.log(-a_init), ("mlp", "state")),
+        "d_skip": P(torch.ones(d_in, device=dev), ("mlp",)),
+        "dt_bias": P(torch.zeros(d_in, device=dev), ("mlp",)),
+        "out_proj": lin(d_in, d, ("mlp", "embed"), sparse),
     }
 
 

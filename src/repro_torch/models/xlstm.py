@@ -58,8 +58,8 @@ def _normal(gen, shape):
     return torch.randn(shape, generator=gen, device=gen.device) / np.sqrt(shape[-2])
 
 
-def _lin(gen, nin, nout, sparse):
-    return {"w": P(_normal(gen, (nin, nout)), sparse)}
+def _lin(gen, nin, nout, axes, sparse):
+    return {"w": P(_normal(gen, (nin, nout)), axes, sparse)}
 
 
 # ---------------------------------------------------------------------------
@@ -69,13 +69,13 @@ def _lin(gen, nin, nout, sparse):
 def mlstm_init(gen: torch.Generator, cfg, *, sparse: bool = True):
     d, nh = cfg.d_model, cfg.n_heads
     return {
-        "wq": _lin(gen, d, d, sparse),
-        "wk": _lin(gen, d, d, sparse),
-        "wv": _lin(gen, d, d, sparse),
-        "w_if": _lin(gen, d, 2 * nh, False),
-        "wz": _lin(gen, d, d, sparse),
-        "wo": _lin(gen, d, d, sparse),
-        "norm": rmsnorm_init(d // nh, gen.device),
+        "wq": _lin(gen, d, d, ("embed", "heads"), sparse),
+        "wk": _lin(gen, d, d, ("embed", "heads"), sparse),
+        "wv": _lin(gen, d, d, ("embed", "heads"), sparse),
+        "w_if": _lin(gen, d, 2 * nh, ("embed", None), False),
+        "wz": _lin(gen, d, d, ("embed", "heads"), sparse),
+        "wo": _lin(gen, d, d, ("heads", "embed"), sparse),
+        "norm": rmsnorm_init(d // nh, gen.device, ("head_dim",)),
     }
 
 
@@ -194,10 +194,10 @@ def slstm_init(gen: torch.Generator, cfg, *, sparse: bool = True):
     d, nh = cfg.d_model, cfg.n_heads
     hd = d // nh
     return {
-        "w_in": _lin(gen, d, 4 * d, sparse),
-        "r": P(_normal(gen, (nh, hd, 4 * hd)), sparse),
-        "wo": _lin(gen, d, d, sparse),
-        "norm": rmsnorm_init(hd, gen.device),
+        "w_in": _lin(gen, d, 4 * d, ("embed", "heads"), sparse),
+        "r": P(_normal(gen, (nh, hd, 4 * hd)), ("kv_heads", "head_dim", None), sparse),
+        "wo": _lin(gen, d, d, ("heads", "embed"), sparse),
+        "norm": rmsnorm_init(hd, gen.device, ("head_dim",)),
     }
 
 

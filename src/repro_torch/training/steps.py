@@ -52,6 +52,21 @@ Differences from the reference, each for the card:
     reference re-runs ``init_lm`` for its flags; at full width that is a
     second copy of the weights).
 
+Data parallelism (``mesh=``, a ``launch/mesh.py`` device mesh): the state
+is replicated on every rank and each rank takes the gradient of its own
+rows of the batch (``launch/sharding.py::shard_batch``).  One bucketed
+all-reduce (the mean over the data-parallel ranks, flat buffers, not one
+call per leaf) then runs after the microbatch accumulation and before
+``dense_to_sparse_grad``; the loss goes with it.  So the optimizer, the
+non-finite guard and the drop/grow all read the GLOBAL dense gradient,
+identical on every rank: the reference's "replica-sync bugs are impossible
+by construction" (the paper's Appendix M), and every random draw, from a
+(seed, purpose, step) generator, is the same everywhere, so masks,
+supersets and packs stay identical.  Tensor and expert parallelism over
+``model``, FSDP, and the fused epilogue on more than one data rank (its
+wgrad writes the momentum from the local gradient before any all-reduce
+could run) raise.
+
 bf16 training (grok-1-314b), as the reference: under ``param_dtype=
 'bfloat16'`` the masters are bf16 (``init_lm`` casts them as drawn, before
 the masks are drawn and applied), so are their gradients, the masked
@@ -66,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..configs import validate_sparse_kernel
 from ..core.distributions import sparsity_map
@@ -85,6 +101,7 @@ from ..core.rigl import (
 )
 from ..core.schedules import UpdateSchedule
 from ..device import resolve_device
+from ..launch.mesh import axis_sizes, dp_group, dp_size
 from ..models.layers import assert_total_dispatch
 from ..models.model import init_lm, lm_loss
 from ..optim.optimizers import (
@@ -308,6 +325,67 @@ def repack(state, cfg):
     return dict(state, pack=pack)
 
 
+_BUCKET_BYTES = 1 << 28  # one all-reduce's flat buffer (a larger leaf goes alone)
+
+
+def _all_reduce_mean(tensors, group, n: int) -> None:
+    """Every tensor replaced, in place, by its mean over ``group``'s ``n``
+    ranks: tensors of one dtype are packed in order into flat buffers of
+    at most ``_BUCKET_BYTES``, one SUM all-reduce a buffer, then divided
+    by n."""
+    def flush(bucket):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        o = 0
+        for t in bucket:
+            t.copy_(flat[o:o + t.numel()].view_as(t))
+            o += t.numel()
+
+    open_ = {}  # dtype -> (bucket, bytes)
+    for t in tensors:
+        bucket, size = open_.get(t.dtype, ([], 0))
+        if bucket and size + t.nbytes > _BUCKET_BYTES:
+            flush(bucket)
+            bucket, size = [], 0
+        open_[t.dtype] = (bucket + [t], size + t.nbytes)
+    for bucket, _ in open_.values():
+        flush(bucket)
+
+
+def _dp_sync(cfg, mesh, *, fused: bool = False):
+    """``sync(loss, grads) -> (loss, grads)``: their means over the
+    data-parallel ranks of ``mesh`` (``_all_reduce_mean``, the grads in
+    place); the identity without a mesh.  Refuses what data parallelism
+    alone cannot run (ROADMAP queue A item 9b: tensor and expert
+    parallelism over ``model``, FSDP) and the fused epilogue on more than
+    one data rank."""
+    if mesh is None:
+        return lambda loss, g: (loss, g)
+    n_model = axis_sizes(mesh).get("model", 1)
+    if n_model > 1:
+        raise NotImplementedError(
+            f"a mesh with model={n_model}: tensor and expert parallelism over 'model' "
+            "is ROADMAP queue A item 9b; the port's train step runs data parallelism "
+            "only (model=1)")
+    n = dp_size(mesh)
+    if cfg.fsdp and n > 1:
+        raise NotImplementedError(
+            f"config {cfg.name!r} sets fsdp=True: sharding weights over the {n} data "
+            "ranks is ROADMAP queue A item 9b; set fsdp=False for data parallelism")
+    if fused and n > 1:
+        raise ValueError(
+            f"sparse.fused_epilogue on {n} data ranks: the fused wgrad writes the "
+            "momentum from each rank's local gradient before any all-reduce could run")
+    group = dp_group(mesh)
+
+    def sync(loss, g):
+        _all_reduce_mean([loss] + _leaves(g), group, n)
+        return loss, g
+
+    return sync
+
+
 def _leaves(tree):
     out = []
     tree_map(lambda _, t: out.append(t) if t is not None else None, tree)
@@ -351,10 +429,12 @@ def _fused_pack(state, opt_cfg):
         state["masks"], pack, state["opt"]["momentum"])
 
 
-def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
+def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None, mesh=None):
     """Build ``train_step(state, batch) -> (state, metrics)``; the state's
     tensors are updated in place (see the module docstring) and the
-    metrics are device tensors: reading them is the caller's sync.
+    metrics are device tensors: reading them is the caller's sync.  Under
+    ``mesh`` the batch is this rank's rows (``shard_batch``) and the
+    gradient and loss are the data-parallel means (``_dp_sync``).
     ``loss_fn(params, batch, masks=None, pack=None)`` defaults to
     ``lm_loss``, as in the reference.  Method 'topkast' optimizes (and
     decays) the superset B; 'snfs' folds the gradient before masking (the
@@ -372,6 +452,7 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
     acc_dt = torch.bfloat16 if cfg.grad_accum_dtype == "bfloat16" else torch.float32
     opt_nowd = dataclasses.replace(opt_cfg, weight_decay=0.0)
     loss_fn = loss_fn or _default_loss(cfg)
+    sync = _dp_sync(cfg, mesh, fused=fused)
 
     def grads(state, batch, pack=None):
         src = state["params"] if dispatch else apply_masks(state["params"], state["masks"])
@@ -405,8 +486,8 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
         # fused: the dispatched leaves' gradients come back as the NEW
         # momentum m_new = mu*mom + dw + wd*w (K7, K8, K19 or K20), masked
         # to the wgrad support; the raw gradient never exists
-        loss, g_dense = grads(state, batch,
-                              _fused_pack(state, opt_cfg) if fused else None)
+        loss, g_dense = sync(*grads(state, batch,
+                                    _fused_pack(state, opt_cfg) if fused else None))
         # topkast trains the whole superset B; every other method A only
         opt_masks = state["bwd_masks"] if is_topkast else state["masks"]
         g = dense_to_sparse_grad(g_dense, opt_masks)
@@ -445,15 +526,18 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None):
     return train_step
 
 
-def make_rigl_step(cfg, algo: SparseAlgo, lr_sched):
+def make_rigl_step(cfg, algo: SparseAlgo, lr_sched, *, mesh=None):
     """Build ``rigl_step(state, batch) -> (state, metrics)``: the full-batch
     gradient (superset-restricted under dispatch), ``rigl_update`` (with
     the state's dense momentum and supersets) and the reset of the grown
     connections' optimizer state.  Follow every call with
-    ``refresh_pack``."""
+    ``refresh_pack``.  Under ``mesh`` the batch is this rank's rows and the
+    drop/grow reads the data-parallel mean gradient, the same on every
+    rank."""
     _check_ported(cfg)
     dispatch = cfg.sparse.kernel not in (None, "dense")
     loss_fn = _default_loss(cfg)
+    sync = _dp_sync(cfg, mesh)
 
     def rigl_step(state, batch):
         if dispatch and "bwd_masks" in state:
@@ -463,6 +547,7 @@ def make_rigl_step(cfg, algo: SparseAlgo, lr_sched):
             loss, g = _value_and_grad(_loss_fn(loss_fn, state, False),
                                       apply_masks(state["params"], state["masks"]),
                                       batch)
+        loss, g = sync(loss, g)
         dev = state["nonfinite_steps"].device
         params, masks, grown = rigl_update(
             state["params"], state["masks"], g, state["step"], algo,
@@ -491,15 +576,18 @@ def make_prune_fn(cfg, sched: PruningSchedule):
     return fn
 
 
-def snip_init(state, cfg, batch, *, loss_fn=None, saliency: str = "weight_times_grad"):
+def snip_init(state, cfg, batch, *, loss_fn=None, saliency: str = "weight_times_grad",
+              mesh=None):
     """Replace the masks with one-shot SNIP masks from one batch's dense
     gradient of the loss on the current params (no masks threaded, as in
     the reference), at the config's per-layer sparsities; the params are
-    masked.  The sparse layers are those the state's masks cover."""
+    masked.  The sparse layers are those the state's masks cover.  Under
+    ``mesh`` the batch is this rank's rows and the saliency reads the
+    data-parallel mean gradient."""
     loss_fn = loss_fn or (lambda p, b: lm_loss(p, cfg, b))
     flags = tree_map(lambda _, m: m is not None, state["masks"])
     smap = sparsity_map(cfg, state["params"], flags)
-    _, g = _value_and_grad(loss_fn, state["params"], batch)
+    _, g = _dp_sync(cfg, mesh)(*_value_and_grad(loss_fn, state["params"], batch))
     masks = snip_masks(state["params"], g, smap, saliency=saliency)
     del g
     return dict(state, params=apply_masks(state["params"], masks), masks=masks)

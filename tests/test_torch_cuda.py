@@ -3262,3 +3262,89 @@ def test_cuda_bf16_bank_under_f32_compute_matches_plain(kernel):
     assert _bound_ok(dx, pdx, adx, N)
     assert _bound_ok(dw, pdw, adw, M)
     assert not dw[~smask].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse", "masked"])
+def test_cuda_remat_dots_keeps_the_kernels_opaque(kernel):
+    """remat_policy='dots' around the hand-written kernels (danube SMOKE,
+    flash_tight, remat per layer): the same launches of every kernel as
+    under 'none' (each forward kernel rerun in the backward, nothing of it
+    saved) and every gradient equal bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import SparseConfig, get_config
+    from repro_torch.core.masks import tree_map, tree_paths
+    from repro_torch.models.model import lm_loss
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.training import steps
+
+    dev = _cuda()
+    sp = dict(sparsity=0.8, method="rigl", kernel=kernel, attn_kernel="flash_tight")
+    if kernel == "block_sparse":
+        sp.update(block_shape=(16, 16), kernel_block=(128, 16, 16))
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b", smoke=True), remat=True,
+                              sparse=SparseConfig(**sp))
+    st, _ = steps.init_train_state(cfg, OptConfig(kind="sgd"), seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 64))).to(dev)
+    batch = {"tokens": toks, "targets": (toks * 3 + 7) % 128}
+    mods = (tbsm, tmm, tfa)
+    names = lambda m: [a for a in vars(m) if a.endswith("launches")]
+    out = {}
+    for policy in ("none", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        before = {(m, a): getattr(m, a) for m in mods for a in names(m)}
+        src = tree_map(lambda _, t: t.detach().requires_grad_(True), st["params"])
+        loss = lm_loss(src, c, batch, masks=st["masks"], pack=st["pack"])
+        grads = torch.autograd.grad(loss, list(tree_paths(src).values()))
+        torch.cuda.synchronize()
+        counts = {(m.__name__, a): getattr(m, a) - v for (m, a), v in before.items()}
+        out[policy] = (loss.item(), grads, counts)
+    assert out["none"][2] == out["dots"][2]
+    assert sum(out["dots"][2].values()) > 0
+    assert out["none"][0] == out["dots"][0]
+    for a, b in zip(out["none"][1], out["dots"][1]):
+        assert torch.equal(a, b)
+
+
+GLOO_RANK = """
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.training import steps
+
+rank, store = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method="file://" + store, world_size=2, rank=rank)
+steps._BUCKET_BYTES = 4096  # several buckets a dtype
+g = torch.Generator().manual_seed(0)
+# quarters of small integers: b + rank and the mean b + 0.5 are exact in bf16
+base = [(torch.randint(-64, 64, (n,), generator=g) * 0.25).to(dt) for n, dt in
+        ((3000, torch.float32), (5, torch.float32), (2500, torch.bfloat16), (1, torch.float32))]
+ts = [(b + rank).cuda() for b in base]
+steps._all_reduce_mean(ts, dist.group.WORLD, 2)
+ok = all(t.is_cuda and torch.equal(t.cpu(), b + 0.5) for t, b in zip(ts, base))
+print("OK" if ok else "MISMATCH")
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_all_reduce_means_cuda_tensors(tmp_path):
+    """The train step's bucketed all-reduce on CUDA tensors over two gloo
+    ranks sharing the card (gloo stages them through the host; NCCL
+    refuses two ranks on one device): f32 and bf16 leaves across several
+    buckets come back as the exact mean, on the card."""
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", GLOO_RANK, str(r), str(tmp_path / "store")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+        assert out.strip().splitlines()[-1] == "OK"

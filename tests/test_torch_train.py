@@ -182,29 +182,33 @@ def test_rigl_step_and_refresh_match_jax():
 
 
 @pytest.mark.parametrize("policy", ["none", "dots"])
-def test_remat_policy_dots_is_refused(policy):
-    """remat_policy='dots' (the reference saves each remat region's matmul
-    outputs, jax.checkpoint_policies.checkpoint_dots) is not ported: a
-    training step under remat raises, naming the field, where 'none'
-    trains.  A forward without autograd (serving) builds no remat region
-    and runs under either."""
+def test_remat_policy_trains_with_equal_gradients(policy):
+    """Both remat policies train: a step under ``remat_policy`` (``'dots'``
+    saves each region's dense-product outputs, the reference's
+    jax.checkpoint_policies.checkpoint_dots) gives the same loss, params
+    and momentum, bit for bit, as the same step without remat (what is
+    saved changes, not the numbers).  A forward without autograd (serving)
+    builds no remat region and runs under either."""
     _, tcfg = _cfgs()
-    tcfg = dataclasses.replace(tcfg, remat=True, remat_policy=policy)
     opt = TOpt(kind="sgd", momentum=0.9, weight_decay=0.0)
-    st, _ = tsteps.init_train_state(tcfg, opt, seed=0, device="cpu")
+    lr = TLR(kind="constant", base_lr=1e-2, warmup_steps=0)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 16)))
     batch = {"tokens": toks, "targets": (toks + 1) % tcfg.vocab_size}
-    with torch.no_grad():
-        assert math.isfinite(float(t_lm_loss(st["params"], tcfg, batch, masks=st["masks"],
-                                             pack=st.get("pack"))))
-    step = tsteps.make_train_step(tcfg, opt, TLR(kind="constant", base_lr=1e-2,
-                                                 warmup_steps=0))
-    if policy == "dots":
-        with pytest.raises(NotImplementedError, match="remat_policy"):
-            step(st, batch)
-    else:
-        st, m = step(st, batch)
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat, remat_policy=policy)
+        st, _ = tsteps.init_train_state(cfg, opt, seed=0, device="cpu")
+        with torch.no_grad():
+            assert math.isfinite(float(t_lm_loss(st["params"], cfg, batch, masks=st["masks"],
+                                                 pack=st.get("pack"))))
+        st, m = tsteps.make_train_step(cfg, opt, lr)(st, batch)
         assert math.isfinite(float(m["loss"])) and st["step"] == 1
+        out[remat] = (float(m["loss"]), tree_paths(st["params"]),
+                      tree_paths(st["opt"]["momentum"]))
+    assert out[True][0] == out[False][0]
+    for i in (1, 2):
+        for n, t in out[False][i].items():
+            assert torch.equal(out[True][i][n], t), n
 
 
 def test_nonfinite_batch_leaves_state_unchanged():

@@ -2,6 +2,12 @@
 """Chip smoke of the PyTorch/CUDA port (src/repro_torch/) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only tp,ep,tp_cases   # some phases alone
+
+``--only`` builds the kernels and runs the named phases of ``ONLY`` alone,
+with the same checks, printing each phase's seconds and the card line and
+writing their numbers to chiprun_out/chip_smoke_only.json; it prints no
+report and no device line (a partial run is not the smoke).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -194,7 +200,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 monotone and at the schedule's target density after its
                 prune, snip's per-layer density the ERK map's); wall s per
                 step, tok/s, peak GiB, the update step's s
- 17. resume  -- h2o-danube-1.8b at full width, 4 of 24 layers, with the train
+ 17. resume  -- h2o-danube-1.8b at full width, 2 of 24 layers, with the train
                 phase's settings (block_sparse 128x128, flash_tight, ERK
                 0.8, RigL with the Top-KAST superset, Adam, warmup-cosine,
                 8 x 1024 tokens in 4 microbatches, delta_t 2, 6 steps,
@@ -398,7 +404,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 backward's mm/bmm/addmm/baddbmm as many as without remat
                 (no product recomputed; 'none' recomputes them); seconds
                 and peak GiB of each
- 41. data parallel -- the same danube, 4 of 24 layers, block_sparse, RigL
+ 41. data parallel -- the same danube, 2 of 24 layers, block_sparse, RigL
                 with the superset, Adam: ``train_loop`` in one process (8
                 x 1024 in 4 microbatches, 4 steps, a drop/grow at step 2),
                 then two spawned ranks (gloo over 127.0.0.1,
@@ -410,7 +416,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                 seconds and peak GiB a rank; then one rank under NCCL
                 through the same train step, every leaf bit for bit the
                 plain step's
- 42. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
+ 42. tensor parallel -- the same danube (4 of 24 layers, block_sparse
+                128 x 128, RigL with the superset) with SGD: ``train_loop``
+                in one process (8 x 1024 in 4 microbatches, 4 steps, a
+                drop/grow at step 2), then four spawned ranks on
+                (data=2, model=2) (gloo over 127.0.0.1 on the one card:
+                nothing of NVLink is measured) through the same steps:
+                losses within rel 1e-5 of the one process's and equal on
+                every rank, the whole masks and supersets the same on
+                every rank and the one process's, packs the same across data peers, each rank's
+                K1-K3 and K9-K11 a step the one process's, on local shapes
+                (2560 x 1280, 1280 x 2560, 2560 x 3456, 3456 x 2560; 16 q
+                heads over 4 kv); wk/wv held whole (a shard would split a
+                128-block); the model and data all-reduce seconds, step
+                seconds and peak GiB a rank
+ 43. expert parallel -- qwen2-moe-a2.7b at full width, 2 of 24 layers,
+                block_sparse, on (data=1, model=2): 30 of 60 experts a
+                rank through K4-K6, the losses within rel 1e-5 of one
+                process, the whole masks and supersets the one process's,
+                the routing digests the same on both ranks;
+                then K1 at 1024 rows on 2560 x 1280 and 1280 x 2560, K4 on
+                a 30-expert bank and K9 with 16 q heads over 4 kv, each
+                against its plain version
+ 44. report  -- one JSON line of per-kernel numbers (all twenty-one kernels,
                 K13/K16's split merge and, where a timed K14/K17, K15/K18,
                 K3/K6, K1/K4 or K2/K5 case splits, theirs), the card line,
                 and last
@@ -600,22 +628,24 @@ def uniform_blocks(rng, K, N, blk, density=0.2):
     return bm
 
 
-def k1_cases(torch, timer, bsm, pack_np):
+K1_SHAPES = (("bfloat16", 2560, 2560, (4, 512)), ("bfloat16", 2560, 640, (4, 512)),
+             ("bfloat16", 2560, 6912, (4, 512)), ("bfloat16", 6912, 2560, (4, 512)),
+             ("float32", 2560, 6912, (4, 1024)), ("float32", 6912, 2560, (4, 1024)))
+
+
+def k1_cases(torch, timer, bsm, pack_np, shapes=K1_SHAPES, seed=0):
     """K1 at the main paths' shapes: decode (4 rows -> 16) and prefill (512
     rows) over each danube projection shape in bf16, and decode (4 -> 16)
     and prefill (1024) at the MLP shapes in f32 (the MLP runs in the f32
-    residual's dtype), 80% block sparsity, one empty column."""
+    residual's dtype), 80% block sparsity, one empty column; ``shapes``
+    ((dtype, K, N, row counts), ...) takes others."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     blk = 128
     out = []
-    for K, N, dt, rows in ((2560, 2560, torch.bfloat16, (4, 512)),
-                           (2560, 640, torch.bfloat16, (4, 512)),
-                           (2560, 6912, torch.bfloat16, (4, 512)),
-                           (6912, 2560, torch.bfloat16, (4, 512)),
-                           (2560, 6912, torch.float32, (4, 1024)),
-                           (6912, 2560, torch.float32, (4, 1024))):
+    for dt, K, N, rows in shapes:
+        dt = getattr(torch, dt)
         bm = uniform_blocks(rng, K, N, blk)
         dense = torch.from_numpy(np.repeat(np.repeat(bm, blk, 0), blk, 1)).cuda()
         w = (torch.randn(K, N, device="cuda") / K**0.5 * dense).to(dt)
@@ -702,28 +732,31 @@ def graph_ms(torch, fn):
     return a.elapsed_time(b)
 
 
-def k9_cases(torch, timer, fa, sched_for):
+K9_CASES = (  # (name, BH, G, d, S, window, softcap)
+    ("S=512 causal", 32, 4, 80, 512, 0, 0.0),
+    ("S=1024 window=4096 (main-path bucket)", 32, 4, 80, 1024, 4096, 0.0),
+    ("S=6144 window=4096", 32, 4, 80, 6144, 4096, 0.0),
+    ("S=300 ragged causal", 32, 4, 80, 300, 0, 0.0),
+    ("S=512 causal softcap=30", 32, 4, 80, 512, 0, 30.0),
+    ("S=592 causal (paged-serve full prefill)", 96, 12, 128, 592, 0, 0.0),
+    ("S=16 causal (paged-serve suffix self phase)", 96, 12, 128, 16, 0, 0.0),
+    ("S=100 causal (moe-serve prefill)", 16, 1, 128, 100, 0, 0.0),
+    ("S=1000 causal (moe-serve prefill)", 16, 1, 128, 1000, 0, 0.0),
+)
+
+
+def k9_cases(torch, timer, fa, sched_for, cases=K9_CASES):
     """K9 at danube's attention shapes (32 query heads over 8 KV heads,
     G = 4, head_dim 80), at mistral-large's on the paged-serve path (96
     over 8, G = 12, head_dim 128: the full prefill's 592 positions and a
     suffix's 16) and at qwen2-moe-a2.7b's (16 over 16, G = 1, head_dim 128:
-    prompts of 100 and 1000), bf16.  The yardstick is PyTorch's
-    scaled_dot_product_attention with the same boolean mask (none for the
-    softcap case: that call has no softcap).  Each case also reports the
-    achieved TFLOP/s, its share of the bound and the launch the kernel gets
-    (CTAs resident per SM, registers, shared and spill bytes, warps)."""
+    prompts of 100 and 1000), bf16; ``cases`` takes others.  The yardstick
+    is PyTorch's scaled_dot_product_attention with the same boolean mask
+    (none for the softcap case: that call has no softcap).  Each case also
+    reports the achieved TFLOP/s, its share of the bound and the launch the
+    kernel gets (CTAs resident per SM, registers, shared and spill bytes,
+    warps)."""
     F = torch.nn.functional
-    cases = (  # (name, BH, G, d, S, window, softcap)
-        ("S=512 causal", 32, 4, 80, 512, 0, 0.0),
-        ("S=1024 window=4096 (main-path bucket)", 32, 4, 80, 1024, 4096, 0.0),
-        ("S=6144 window=4096", 32, 4, 80, 6144, 4096, 0.0),
-        ("S=300 ragged causal", 32, 4, 80, 300, 0, 0.0),
-        ("S=512 causal softcap=30", 32, 4, 80, 512, 0, 30.0),
-        ("S=592 causal (paged-serve full prefill)", 96, 12, 128, 592, 0, 0.0),
-        ("S=16 causal (paged-serve suffix self phase)", 96, 12, 128, 16, 0, 0.0),
-        ("S=100 causal (moe-serve prefill)", 16, 1, 128, 100, 0, 0.0),
-        ("S=1000 causal (moe-serve prefill)", 16, 1, 128, 1000, 0, 0.0),
-    )
     out = []
     for name, BH, G, d, S, window, softcap in cases:
         q = torch.randn(BH, S, d, device="cuda").to(torch.bfloat16)
@@ -2897,8 +2930,6 @@ def k4_cases(torch, timer, bsm, engine):
     active blocks and y once; operations: 2 C bk bn per active block.
     Library: torch.bmm on the zero-filled dense bank (TF32 off)."""
     import numpy as np
-    from repro_torch.kernels import masked_matmul as mm
-    from repro_torch.kernels.ops import grouped_block_sparse_linear
 
     rng = np.random.default_rng(4)
     blk = engine.cfg.sparse.kernel_block[2]
@@ -2906,60 +2937,71 @@ def k4_cases(torch, timer, bsm, engine):
     pk = engine.pack["layers"][0]["moe"]
     out = []
     for bank in ("wi", "wo"):
-        G, K, N = lay[bank]["w"].shape
         dead_ids, topo = bank_topologies(torch, rng, lay[bank]["w"], pk[bank]["w"], blk)
         for tname, w32, e in topo:
-            idx, cnt = e["idx"], e["cnt"]
-            nnz = int(cnt.sum())
             for dt in (torch.float32, torch.bfloat16):
-                w = w32.to(dt)
                 for C in (4, 84):
-                    bm, Mp, x, xp = grouped_rows(torch, G, C, K, dt)
-                    tag = f"K4 {bank} {tname} {str(dt)[6:]}"
-                    plain = lambda: bsm.grouped_block_sparse_matmul_plain(xp, w, idx, cnt,
-                                                                           blk, blk)
-
-                    def check():
-                        got = grouped_block_sparse_linear(x, w, pack=e, block=(128, blk, blk))
-                        want = plain()[:, :C]
-                        absp = bsm.grouped_block_sparse_matmul_plain(
-                            xp.abs().float(), w.abs().float(), idx, cnt, blk, blk)[:, :C]
-                        res = _check_within(torch, tag, got, want, absp, K, dt)
-                        if tname != "layer0 ERK" and \
-                                got[:, :, blk:2 * blk].float().abs().max().item() != 0:
-                            raise AssertionError(f"{tag}: the empty column is not zero")
-                        if "dead" in tname and got[dead_ids].float().abs().max().item() != 0:
-                            raise AssertionError(f"{tag}: a dead expert's output is not zero")
-                        return res
-
-                    es = x.element_size()
-                    run = lambda plan=None: bsm.grouped_block_sparse_matmul(
-                        xp, w, idx, cnt, bm=bm, bn=blk, bk=blk, plan=plan, live=nnz)
-                    case = kernel_case(
-                        torch, timer, "K4",
-                        f"{tag} G={G} C={C}->{Mp} K={K} N={N} "
-                        f"blocks={nnz}/{G * (K // blk) * (N // blk)} width={idx.shape[-1]}",
-                        run, plain, lambda: torch.bmm(x, w), check,
-                        es * (G * C * K + nnz * blk * blk + G * C * N)
-                        + 4 * (idx.numel() + cnt.numel()),
-                        2.0 * C * nnz * blk * blk, dt)
-                    want = plain()
-                    absp = bsm.grouped_block_sparse_matmul_plain(
-                        xp.abs().float(), w.abs().float(), idx, cnt, blk, blk)
-                    case.update(fwd_sweep(
-                        torch, timer, mm, run, Mp, K, N, G, dt, case, entry="bs_fwd",
-                        check=lambda got: _check_within(torch, tag, got, want, absp, K, dt),
-                        bn_limit=blk, live=nnz, bk=blk))
-                    del want, absp
-                    if dt == torch.float32:
-                        case["f64_rms_over_plain"] = bs_fwd_fidelity(
-                            torch, bsm, tag, run, xp, w, idx, cnt, blk, case["plan"])
-                    print("K4 plans", json.dumps(case))
-                    if case["plan"][2] > 1:
-                        case["merge_case"] = merge_case(torch, timer, mm, case["plan"][2], G,
-                                                        Mp, N, dt, case["case"], entry="bs_fwd")
-                    out.append(case)
+                    out.append(k4_case(torch, timer, bsm, f"K4 {bank} {tname} {str(dt)[6:]}",
+                                       w32.to(dt), e, C, blk, empty_column=tname != "layer0 ERK",
+                                       dead_ids=dead_ids if "dead" in tname else ()))
     return out
+
+
+def k4_case(torch, timer, bsm, tag, w, e, C, blk, *, empty_column=False, dead_ids=()):
+    """K4 on the bank ``w`` (G, K, N) and its pack entry ``e`` at C rows a
+    group (padded to the row tile) against its plain version, on the plan
+    from the pack's live blocks and under every candidate plan
+    (``fwd_sweep``, entry "bs_fwd"), an f32 case also against a float64
+    product; ``empty_column``: the topology's column 1 is empty, so its
+    output must be zero, as the ``dead_ids`` experts' output."""
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels.ops import grouped_block_sparse_linear
+
+    G, K, N = w.shape
+    dt = w.dtype
+    idx, cnt = e["idx"], e["cnt"]
+    nnz = int(cnt.sum())
+    bm, Mp, x, xp = grouped_rows(torch, G, C, K, dt)
+    plain = lambda: bsm.grouped_block_sparse_matmul_plain(xp, w, idx, cnt, blk, blk)
+
+    def check():
+        got = grouped_block_sparse_linear(x, w, pack=e, block=(128, blk, blk))
+        want = plain()[:, :C]
+        absp = bsm.grouped_block_sparse_matmul_plain(
+            xp.abs().float(), w.abs().float(), idx, cnt, blk, blk)[:, :C]
+        res = _check_within(torch, tag, got, want, absp, K, dt)
+        if empty_column and got[:, :, blk:2 * blk].float().abs().max().item() != 0:
+            raise AssertionError(f"{tag}: the empty column is not zero")
+        if dead_ids and got[list(dead_ids)].float().abs().max().item() != 0:
+            raise AssertionError(f"{tag}: a dead expert's output is not zero")
+        return res
+
+    es = x.element_size()
+    run = lambda plan=None: bsm.grouped_block_sparse_matmul(
+        xp, w, idx, cnt, bm=bm, bn=blk, bk=blk, plan=plan, live=nnz)
+    case = kernel_case(
+        torch, timer, "K4",
+        f"{tag} G={G} C={C}->{Mp} K={K} N={N} "
+        f"blocks={nnz}/{G * (K // blk) * (N // blk)} width={idx.shape[-1]}",
+        run, plain, lambda: torch.bmm(x, w), check,
+        es * (G * C * K + nnz * blk * blk + G * C * N) + 4 * (idx.numel() + cnt.numel()),
+        2.0 * C * nnz * blk * blk, dt)
+    want = plain()
+    absp = bsm.grouped_block_sparse_matmul_plain(
+        xp.abs().float(), w.abs().float(), idx, cnt, blk, blk)
+    case.update(fwd_sweep(
+        torch, timer, mm, run, Mp, K, N, G, dt, case, entry="bs_fwd",
+        check=lambda got: _check_within(torch, tag, got, want, absp, K, dt),
+        bn_limit=blk, live=nnz, bk=blk))
+    del want, absp
+    if dt == torch.float32:
+        case["f64_rms_over_plain"] = bs_fwd_fidelity(
+            torch, bsm, tag, run, xp, w, idx, cnt, blk, case["plan"])
+    print("K4 plans", json.dumps(case))
+    if case["plan"][2] > 1:
+        case["merge_case"] = merge_case(torch, timer, mm, case["plan"][2], G,
+                                        Mp, N, dt, case["case"], entry="bs_fwd")
+    return case
 
 
 def k16_cases(torch, timer, mm, engine):
@@ -4179,8 +4221,8 @@ def topk_cases(torch, timer, tk, ops):
                     "abs_kept_minus_k": abs(kept - k), "bracket_bin": bracket,
                     "bracket_occupancy": int(hist[bracket]),
                     "ms": timer(lambda: ops.topk_threshold(x, k)),
-                    "kthvalue_ms": timer(lambda: torch.kthvalue(a, n - k + 1), reps=2,
-                                         warmup=1)}
+                    "kthvalue_ms": timer(lambda: torch.kthvalue(a, n - k + 1), reps=1,
+                                         warmup=0)}
             print("topk_threshold", json.dumps(case))
             thr.append(case)
         del x, a
@@ -4397,7 +4439,7 @@ def method_train(torch, bsm, mm, fa, tk, method):
 # checkpoints and restarts, the fault injector with observability, lockstep
 # ---------------------------------------------------------------------------
 
-RESUME_LAYERS, RESUME_PREEMPT = 4, 3
+RESUME_LAYERS, RESUME_PREEMPT = 2, 3  # 2 of 24 layers: keeps the whole run near 900 s
 BS_TRAIN_COUNTERS = (
     ("block_sparse_fwd", "bsm", "launches"), ("block_sparse_dx", "bsm", "dx_launches"),
     ("block_sparse_dw", "bsm", "dw_launches"),
@@ -4465,7 +4507,7 @@ def same_state(torch, a, b):
 def resume_phase(torch, bsm, fa):
     """``run_with_restarts(preempt_at=3, ckpt_every=0)`` against an
     uninterrupted 6-step ``train_loop`` from the same seed, at full width
-    (4 of 24 layers): every leaf of params, masks, supersets, Adam state,
+    (2 of 24 layers): every leaf of params, masks, supersets, Adam state,
     pack and the non-finite counter bit for bit equal; the losses after
     the restart equal; the pack valid and fresh after the restore; the
     checkpoint's bytes, the snapshot, write, wait and restore seconds, and
@@ -7155,7 +7197,8 @@ def grok_phases(torch, timer, bsm, mm, fa, done):
 
 REMAT_LAYERS, REMAT_ROWS = 4, 2  # danube at full width, 4 of 24 layers; 2 x 1024 tokens
 DOT_OPS = ("mm", "bmm", "addmm", "baddbmm")
-DP_LAYERS, DP_STEPS, DP_BATCH = 4, 4, 8  # a drop/grow at step 2; 8 x 1024 global rows
+DP_LAYERS, DP_STEPS, DP_BATCH = 2, 4, 8  # a drop/grow at step 2; 8 x 1024 global rows
+# (2 of 24 layers: keeps the whole run near 900 s)
 DP_KERNELS = ("block_sparse_fwd", "block_sparse_dx", "block_sparse_dw", "flash_fwd",
               "flash_dq", "flash_dkv")
 
@@ -7542,13 +7585,395 @@ def dp_phase(torch, bsm, fa):
     return stats, reports[0]["launches"], single_launches
 
 
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+TP_MESH, TP_LAYERS, TP_STEPS, TP_BATCH = (2, 2), 4, 4, 8  # a drop/grow at step 2
+EP_MESH, EP_LAYERS, EP_STEPS, EP_BATCH = (1, 2), 2, 2, 4  # qwen2-moe, its 4 microbatches
+TP_COUNTERS = BS_TRAIN_COUNTERS + (
+    ("grouped_block_sparse_fwd", "bsm", "g_launches"),
+    ("grouped_block_sparse_dx", "bsm", "gdx_launches"),
+    ("grouped_block_sparse_dw", "bsm", "gdw_launches"))
+
+
+def tp_spec(name):
+    """(config, mesh shape, steps, global rows, the kernels a step must
+    launch) of the "tp" phase (danube, 4 of 24 layers, the train phase's
+    block_sparse 128 x 128, ERK 0.8, flash_tight, RigL with the superset)
+    or the "ep" phase (qwen2-moe, 2 of 24 layers, block_sparse)."""
+    if name == "tp":
+        return (dataclasses.replace(train_config(), n_layers=TP_LAYERS), TP_MESH, TP_STEPS,
+                TP_BATCH, DP_KERNELS)
+    cfg = dataclasses.replace(moe_train_config("block_sparse"), n_layers=EP_LAYERS)
+    return (cfg, EP_MESH, EP_STEPS, EP_BATCH,
+            DP_KERNELS + ("grouped_block_sparse_fwd", "grouped_block_sparse_dx",
+                          "grouped_block_sparse_dw"))
+
+
+def tp_train(torch, name, mods, workdir, mesh=None, hooks=None):
+    """``train_loop`` of a ``tp_spec`` with SGD momentum 0.9 (constant lr
+    1e-2) -> (per-step records, final state, launches), as ``dp_run``."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.lr import LRSchedule
+    from repro_torch.optim.optimizers import OptConfig
+
+    cfg, _, steps, rows, _ = tp_spec(name)
+    log, last = [], [None]
+
+    def on_step(step, is_update, state, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec = {"step": step, "update": is_update, "loss": float(m["loss"]),
+               "launches": read_counters(mods, TP_COUNTERS)}
+        if last[0] is not None:
+            rec["wall_s"] = now - last[0]
+        if hooks is not None:
+            rec.update(hooks.step_record())
+        log.append(rec)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+
+    zero_counters(mods, TP_COUNTERS)
+    torch.cuda.reset_peak_memory_stats()
+    last[0] = time.perf_counter()
+    state, _ = train_loop(cfg, steps=steps, batch=rows, seq=TRAIN_SEQ, workdir=str(workdir),
+                          device="cuda", on_step=on_step, log_every=steps, ckpt_every=None,
+                          mesh=mesh, opt_cfg=OptConfig(kind="sgd", momentum=0.9,
+                                                       weight_decay=0.0),
+                          lr_sched=LRSchedule(kind="constant", base_lr=1e-2, warmup_steps=0))
+    torch.cuda.synchronize()
+    return log, state, read_counters(mods, TP_COUNTERS)
+
+
+class TPHooks:
+    """A rank's instrumentation: the model group's all-reduces
+    (``tp.all_reduce_sum``: the row-parallel sums, the column-parallel
+    gradients, the vocab-parallel loss), the all-gathers
+    (``tp.gather_dim``: the drop/grow's whole leaves) and the data group's
+    all-reduces (``steps._all_reduce_mean``) timed with a sync on each
+    side; the local shapes the projections and the flash kernels run at
+    (``layers.block_sparse_linear``/``grouped_block_sparse_linear`` and
+    ``attention.flash_attention``: each forward call, whose K2/K3 and
+    K10/K11 take the same shapes); the MoE's routing decisions (a digest a
+    call of ``moe.route``)."""
+
+    def __init__(self, torch):
+        import hashlib
+
+        from repro_torch.models import tp
+        from repro_torch.models import attention, layers
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.training import steps as ts
+
+        self.shapes, self.routes, self.s = {}, [], {"model": [], "gather": [], "data": []}
+        timed = lambda fn, sink: self._timed(torch, fn, sink)
+        tp.all_reduce_sum = timed(tp.all_reduce_sum, "model")
+        tp.gather_dim = timed(tp.gather_dim, "gather")
+        ts._all_reduce_mean = timed(ts._all_reduce_mean, "data")
+
+        def shapes(fn, kind):
+            def wrapped(x, w, *a, **kw):
+                key = f"{kind} x{tuple(x.shape)} w{tuple(w.shape)} {str(x.dtype)[6:]}"
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+                return fn(x, w, *a, **kw)
+            return wrapped
+
+        layers.block_sparse_linear = shapes(layers.block_sparse_linear, "K1")
+        layers.grouped_block_sparse_linear = shapes(layers.grouped_block_sparse_linear, "K4")
+        flash = attention.flash_attention
+
+        def flash_shapes(q, k, v, **kw):
+            key = f"K9 q{tuple(q.shape)} kv{tuple(k.shape)} G={kw.get('kv_groups')}"
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return flash(q, k, v, **kw)
+
+        attention.flash_attention = flash_shapes
+        route = moe_mod.route
+
+        def routed(p, xt, cfg):
+            probs, gates, eidx = route(p, xt, cfg)
+            self.routes.append(hashlib.sha256(eidx.cpu().numpy().tobytes()).hexdigest())
+            return probs, gates, eidx
+
+        moe_mod.route = routed
+
+    def _timed(self, torch, fn, sink):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.s[sink].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def step_record(self):
+        s, self.s = self.s, {k: [] for k in self.s}
+        return {"model_allreduce_s": sum(s["model"]), "model_allreduces": len(s["model"]),
+                "gather_s": sum(s["gather"]), "gathers": len(s["gather"]),
+                "data_allreduce_s": sum(s["data"])}
+
+
+def whole_digest(torch, tree, whole=lambda n, m, s_: m, specs=None):
+    """sha256 over a mask tree's leaves (name and bytes, in tree order),
+    each made whole by ``whole(name, leaf, spec)`` first (a rank's gather)."""
+    import hashlib
+
+    from repro_torch.core.masks import tree_map
+
+    h = hashlib.sha256()
+    specs = tree_map(lambda *_: None, tree) if specs is None else specs
+    tree_map(lambda n, m, s_: None if m is None else h.update(
+        n.encode() + whole(n, m, s_).cpu().numpy().tobytes()), tree, specs)
+    return h.hexdigest()
+
+
+def tp_rank(rank, world, port, out, name):
+    """One rank of the "tp" or "ep" phase (a spawned process): gloo over
+    127.0.0.1, the (data, model) mesh on the one card, ``train_loop`` on
+    this rank's shards and rows; writes its losses, per-step launches,
+    seconds and all-reduce seconds, the local shapes, the leaves held
+    whole, peak GiB, the routing digests and the digests of its whole
+    (gathered) masks and supersets and of its own pack to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        from repro_torch.kernels import block_sparse_matmul as bsm
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.launch.sharding import gather_leaf, train_specs, whole_leaves
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg, shape, _, _, _ = tp_spec(name)
+        mesh = make_local_mesh(*shape, device_type="cuda")
+        hooks = TPHooks(torch)
+        log, state, launches = tp_train(torch, name, {"bsm": bsm, "fa": fa},
+                                        ROOT / "chiprun_out" / f"{name}_train", mesh=mesh,
+                                        hooks=hooks)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        specs = train_specs(state, cfg, mesh)
+        whole = {key: whole_digest(torch, state[key], lambda n, m, s_: gather_leaf(
+            m, s_, mesh), specs[key]) for key in ("masks", "bwd_masks")}
+        report = {"rank": rank, "coord": list(mesh.get_coordinate()), "log": log,
+                  "launches": launches, "peak_gib": peak, "shapes": hooks.shapes,
+                  "whole_leaves": whole_leaves(cfg, mesh), "routes": hooks.routes,
+                  "whole_digests": whole,
+                  "pack_digest": state_digests(torch, state)["pack"]}
+        Path(out).write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+TP_LOSS_REL = 1e-5
+
+
+def tp_phase(torch, bsm, fa, name):
+    """Tensor ("tp": danube on (data=2, model=2), 4 ranks) or expert ("ep":
+    qwen2-moe on (data=1, model=2), 30 of 60 experts a rank) parallelism
+    on one card: ``train_loop`` in one process, then the ranks spawned over
+    gloo (NCCL refuses two ranks on one device: the all-reduces are staged
+    through the host and measure nothing of NVLink) through the same steps
+    from the same seed.  Holds the losses equal on every rank; the whole masks and
+    supersets the same on every rank, each rank's pack the same as its
+    data peer's (same model coordinate); every listed kernel launched each
+    step, a rank's launches a step the one process's (each rank runs every
+    projection on its shard, in as many microbatches); "ep": the routing
+    digests the same on every rank.  The losses are held within rel
+    ``TP_LOSS_REL`` of the one process's (1e-5: f32 sums in another order;
+    the card read at most 1.5e-6), and the whole masks and supersets equal
+    the one process's.  Reports per rank the losses, launches
+    and the local shapes, the leaves held whole, the model and data
+    all-reduces' seconds, step seconds and peak GiB."""
+    import multiprocessing
+
+    cfg, shape, steps, rows, kernels = tp_spec(name)
+    mods = {"bsm": bsm, "fa": fa}
+    single, state, single_launches = tp_train(torch, name, mods,
+                                              ROOT / "chiprun_out" / f"{name}_single")
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    single_whole = {key: whole_digest(torch, state[key]) for key in ("masks", "bwd_masks")}
+    del state
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    port, world = free_port(), shape[0] * shape[1]
+    outs = [ROOT / "chiprun_out" / f"{name}_rank{r}.json" for r in range(world)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=tp_rank, args=(r, world, port, str(outs[r]), name))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=900)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{name}: rank exit codes {codes}")
+    reports = [json.loads(o.read_text()) for o in outs]
+
+    losses = [[r["loss"] for r in rep["log"]] for rep in reports]
+    want = [r["loss"] for r in single]
+    if any(lo != losses[0] for lo in losses):
+        raise AssertionError(f"{name}: the ranks' losses differ: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], want)]
+    if not max(rel) <= TP_LOSS_REL:
+        raise AssertionError(f"{name}: losses {losses[0]} vs one process {want} (rel {rel})")
+    for key in ("masks", "bwd_masks"):
+        if len({rep["whole_digests"][key] for rep in reports}) != 1:
+            raise AssertionError(f"{name}: the whole {key} differ across ranks")
+        if reports[0]["whole_digests"][key] != single_whole[key]:
+            raise AssertionError(f"{name}: the ranks' whole {key} differ from the one "
+                                 "process's")
+    for rep in reports:
+        peers = [q["pack_digest"] for q in reports if q["coord"][1] == rep["coord"][1]]
+        if len(set(peers)) != 1:
+            raise AssertionError(f"{name}: rank {rep['rank']}'s pack differs from its "
+                                 "data peers'")
+    if name == "ep" and len({json.dumps(rep["routes"]) for rep in reports}) != 1:
+        raise AssertionError("ep: routing decisions differ across ranks")
+
+    def per_step(log):
+        prev, out = dict.fromkeys(kernels, 0), []
+        for r in log:
+            out.append({k: r["launches"][k] - prev[k] for k in kernels})
+            prev = r["launches"]
+        return out
+
+    one = per_step(single)
+    for rep in reports:
+        for i, (mine, theirs) in enumerate(zip(per_step(rep["log"]), one)):
+            if mine != theirs or 0 in mine.values():
+                raise AssertionError(f"{name} rank {rep['rank']} step {i + 1}: launches "
+                                     f"{mine}, one process {theirs}")
+    wall = lambda log: [r.get("wall_s") for r in log]
+    stats = {"layers": cfg.n_layers, "mesh": dict(zip(("data", "model"), shape)),
+             "global_batch": [rows, TRAIN_SEQ], "microbatches": cfg.microbatches,
+             "single": {"losses": want, "step_wall_s": wall(single), "peak_gib": single_peak,
+                        "launches_per_step": one},
+             "ranks": [{"rank": rep["rank"], "coord": rep["coord"], "losses": losses[i],
+                        "step_wall_s": wall(rep["log"]),
+                        "model_allreduce_s": [r["model_allreduce_s"] for r in rep["log"]],
+                        "model_allreduces": [r["model_allreduces"] for r in rep["log"]],
+                        "gather_s": [r["gather_s"] for r in rep["log"]],
+                        "gathers": [r["gathers"] for r in rep["log"]],
+                        "data_allreduce_s": [r["data_allreduce_s"] for r in rep["log"]],
+                        "peak_gib": rep["peak_gib"], "shapes": rep["shapes"],
+                        "launches_per_step": per_step(rep["log"])}
+                       for i, rep in enumerate(reports)],
+             "whole_leaves": reports[0]["whole_leaves"], "loss_rel_err": rel,
+             "ranks_wall_s": ranks_s}
+    if name == "ep":
+        stats["routing_calls"] = len(reports[0]["routes"])
+    r0 = stats["ranks"][0]
+    print(f"{name}: one process {want}; ranks {losses[0]} (rel {max(rel):.2e}); step s one "
+          f"process {wall(single)}, rank 0 {r0['step_wall_s']}; model all-reduce s rank 0 "
+          f"{r0['model_allreduce_s']} ({r0['model_allreduces']} calls), gathers s "
+          f"{r0['gather_s']} ({r0['gathers']} calls), data "
+          f"{r0['data_allreduce_s']}; peak GiB one process {single_peak:.1f}, ranks "
+          f"{[round(r['peak_gib'], 1) for r in stats['ranks']]}; held whole "
+          f"{stats['whole_leaves']}; rank 0's local shapes {r0['shapes']}")
+    for rep in stats["ranks"]:
+        print(f"{name} rank {rep['rank']} {rep['coord']}: losses {rep['losses']}, launches "
+              f"a step {rep['launches_per_step']}")
+    return stats, reports[0]["launches"], single_launches
+
+
+def tp_shard_cases(torch, timer, bsm, fa, pack_np, sched_for):
+    """The kernels at the shard shapes of the "tp" and "ep" phases, each
+    against its plain version: K1 at 1024 rows (one sequence a data rank a
+    microbatch) on danube's column shard 2560 x 1280 (wq) and row shard
+    1280 x 2560 (wo) in bf16; K4 on a 30-expert bank (qwen2-moe's wi on
+    model = 2: 30 x 2048 x 1408, f32, ERK-like 20% blocks) at a 1024-token
+    microbatch's capacity; K9 with 16 q heads over 4 kv heads (danube's
+    on model = 2), S = 1024, window 4096."""
+    import numpy as np
+    from repro_torch.core.pack import pack_entry
+    from repro_torch.models.moe import capacity
+
+    k1 = k1_cases(torch, timer, bsm, pack_np, seed=1, shapes=(
+        ("bfloat16", 2560, 1280, (1024,)), ("bfloat16", 1280, 2560, (1024,))))
+    cfg = tp_spec("ep")[0]
+    blk = 128
+    rng = np.random.default_rng(5)
+    G, K, N = cfg.n_experts // EP_MESH[1], cfg.d_model, cfg.moe_d_ff
+    bm = np.stack([uniform_blocks(rng, K, N, blk) for _ in range(G)])
+    dense = torch.from_numpy(np.repeat(np.repeat(bm, blk, 1), blk, 2)).cuda()
+    w = torch.randn(G, K, N, device="cuda") / K**0.5 * dense
+    C = capacity(TRAIN_SEQ, cfg)
+    k4 = [k4_case(torch, timer, bsm, "K4 30-expert shard uniform 20% float32", w,
+                  pack_entry(dense, (blk, blk)), C, blk, empty_column=True)]
+    del w, dense
+    k9 = k9_cases(torch, timer, fa, sched_for, cases=(
+        ("S=1024 window=4096 (model = 2 shard: 16 q heads over 4 kv)", 16, 4, 80, 1024,
+         4096, 0.0),))
+    return k1, k4, k9
+
+
 def tree_map_clone(tree):
     from repro_torch.core.masks import tree_map
 
     return tree_map(lambda _, t: None if t is None else t.clone(), tree)
 
 
-def main() -> int:
+ONLY = ("grok_flash", "grok_banks", "grok_serve", "grok_train", "remat", "dp", "tp", "ep",
+        "tp_cases")
+
+
+def only_phases(torch, timer, bsm, mm, fa):
+    """{name: a thunk running that phase alone -> its numbers} for
+    ``--only``: the grok phases (K9-K11 at grok's attention, K4-K6 and
+    K16-K18 on a whole bank, the serve and the train in both modes), remat
+    dots, data, tensor and expert parallelism, and the kernels at the
+    shard shapes."""
+    from repro_torch.core.attn_sched import sched_for
+    from repro_torch.core.pack import pack_np
+
+    first = lambda out: {k: v[0] if k in ("block_sparse", "masked") else v
+                         for k, v in out.items()}
+    return {
+        "grok_flash": lambda: dict(zip(("k9", "k10", "k11"),
+                                       grok_flash_cases(torch, timer, fa))),
+        "grok_banks": lambda: grok_bank_cases(torch, timer, bsm, mm),
+        "grok_serve": lambda: first(grok_serve(torch, timer, bsm, mm, fa)),
+        "grok_train": lambda: {k: grok_train(torch, timer, bsm, mm, fa, k)[0]
+                               for k in ("block_sparse", "masked")},
+        "remat": lambda: dict(zip(("stats", "launches"), remat_phase(torch, bsm, fa))),
+        "dp": lambda: dict(zip(("stats", "rank0_launches", "single_launches"),
+                               dp_phase(torch, bsm, fa))),
+        "tp": lambda: dict(zip(("stats", "rank0_launches", "single_launches"),
+                               tp_phase(torch, bsm, fa, "tp"))),
+        "ep": lambda: dict(zip(("stats", "rank0_launches", "single_launches"),
+                               tp_phase(torch, bsm, fa, "ep"))),
+        "tp_cases": lambda: dict(zip(("k1", "k4", "k9"), tp_shard_cases(
+            torch, timer, bsm, fa, pack_np, sched_for))),
+    }
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="chip smoke of the PyTorch/CUDA port")
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help=f"run these phases alone (comma-separated, of {', '.join(ONLY)})")
+    only = ap.parse_args(argv).only
+    if only and not set(only) <= set(ONLY):
+        ap.error(f"--only: unknown phase(s) {sorted(set(only) - set(ONLY))}")
     import torch
 
     if not torch.cuda.is_available():
@@ -7587,6 +8012,19 @@ def main() -> int:
         phase_s[phase] = round(now - mark[0], 1)
         mark[0] = now
         torch.cuda.empty_cache()
+
+    if only:
+        phases, out = only_phases(torch, timer, bsm, mm, fa), {"card": card}
+        for name in only:
+            out[name] = phases[name]()
+            done(name)
+        out["phase_s"] = phase_s
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_only.json").write_text(
+            json.dumps(out, indent=1, default=str))
+        print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
+        print(card)
+        return 0
 
     k1 = k1_cases(torch, timer, bsm, pack_np)
     k9 = k9_cases(torch, timer, fa, sched_for)
@@ -7738,6 +8176,15 @@ def main() -> int:
     done("remat dots: danube 4 layers, block_sparse and dense")
     dp_stats, dp_launches, dp_single_launches = dp_phase(torch, bsm, fa)
     done("data parallel: one process, two gloo ranks, one NCCL rank")
+    tp_stats, tp_launches, tp_single_launches = tp_phase(torch, bsm, fa, "tp")
+    done("tensor parallel: danube on (data=2, model=2), four gloo ranks")
+    ep_stats, ep_launches, ep_single_launches = tp_phase(torch, bsm, fa, "ep")
+    done("expert parallel: qwen2-moe on (data=1, model=2), two gloo ranks")
+    k1_tp, k4_tp, k9_tp = tp_shard_cases(torch, timer, bsm, fa, pack_np, sched_for)
+    k1 += k1_tp
+    k4 += k4_tp
+    k9 += k9_tp
+    done("parity at the shard shapes: K1, K4, K9")
     for cases, more in zip((k9, k10, k11), grok["flash"]):
         cases += more
     r_bs, r_m = xlstm["train block_sparse"][2], xlstm["train masked"][2]
@@ -7791,7 +8238,9 @@ def main() -> int:
              "grok_train": grok["train block_sparse"][1],
              "grok_masked_train": grok["train masked"][1],
              "remat_dots": remat_launches, "dp_single_process": dp_single_launches,
-             "dp_rank0": dp_launches}
+             "dp_rank0": dp_launches, "tp_single_process": tp_single_launches,
+             "tp_rank0": tp_launches, "ep_single_process": ep_single_launches,
+             "ep_rank0": ep_launches}
     names = sorted({n for p in paths.values() for n in p})
     by_path = {n: {k: p.get(n, 0) for k, p in paths.items()} for n in names}
     launches = {n: sum(by_path[n].values()) for n in names}
@@ -7937,7 +8386,8 @@ def main() -> int:
                   "serve": {k: v[0] if k in ("block_sparse", "masked") else v
                             for k, v in grok["serve"].items()},
                   **{k: v[0] for k, v in grok.items() if k.startswith("train")}},
-         "remat": remat_stats, "data_parallel": dp_stats,
+         "remat": remat_stats, "data_parallel": dp_stats, "tensor_parallel": tp_stats,
+         "expert_parallel": ep_stats,
          "launches": by_path, "report": report}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s; phases {phase_s}")
     print(json.dumps(report))

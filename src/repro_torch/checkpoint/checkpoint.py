@@ -31,8 +31,17 @@ reference writes them:
   as 0-d int32 arrays; restored as ints where the template has an int.
 
 ``restore`` puts each leaf on the device and in the dtype of the template's
-(``like``'s) leaf: the counterpart of the reference's ``shardings=``, one
-device for now.
+(``like``'s) leaf.
+
+Sharded states (tensor parallelism over a mesh's ``model`` axis,
+``launch/sharding.py``): ``save(specs=, mesh=)`` gathers each sharded leaf
+whole, one at a time (every rank takes part in the gather; rank 0 alone
+writes), so the files of a sharded run hold the logical arrays in a
+one-process run's layout, and both cross-package restores still work.  The
+pack is derived state and per rank: a sharded save writes none (restore
+takes the template's, and the caller re-packs).  ``restore(specs=,
+mesh=)``, the reference's ``shardings=``, cuts each rank's slice from the
+logical array, so a checkpoint restores onto any (data, model) mesh.
 """
 from __future__ import annotations
 
@@ -76,19 +85,34 @@ def _host(v) -> np.ndarray:
 
 
 def save(state, ckpt_dir, step: int, *, keep_last_k: int = 3,
-         background: bool = False, timings: Optional[dict] = None):
+         background: bool = False, timings: Optional[dict] = None, specs=None,
+         mesh=None):
     """Write ``state`` as ``<ckpt_dir>/step-<step>``; with ``background``
     the host snapshot is taken here and the write runs on a thread, which is
     returned.  ``timings``, if given, receives ``snapshot_s`` and (when the
-    write ends) ``write_s``."""
+    write ends) ``write_s``.  ``specs``/``mesh``: the state is this rank's
+    shards by the spec tree ``specs`` (``train_specs``); every rank of the
+    mesh calls this, rank 0 alone writes (the others return None)."""
+    from ..launch.sharding import gather_leaf, spec_paths
+
+    sharded = specs is not None and mesh is not None
+    writer = mesh is None or torch.distributed.get_rank() == 0
+    spec_of = spec_paths(specs) if sharded else {}
     ckpt_dir = pathlib.Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    if writer:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     host: dict[str, np.ndarray] = {}
     meta = {"step": int(step), "none_leaves": [], "mask_shapes": {}}
     for name, v in _flatten(state).items():
+        if sharded and name.startswith("pack/"):
+            continue  # per rank, derived: restore re-packs
         if v is None:
             meta["none_leaves"].append(name)
+            continue
+        if name in spec_of:
+            v = gather_leaf(v, spec_of[name], mesh)
+        if not writer:
             continue
         arr = _host(v)
         if arr.dtype == np.bool_ and name.startswith("masks/"):
@@ -98,6 +122,8 @@ def save(state, ckpt_dir, step: int, *, keep_last_k: int = 3,
             host[name] = arr
     if timings is not None:
         timings["snapshot_s"] = time.perf_counter() - t0
+    if not writer:
+        return None
 
     def _write():
         t1 = time.perf_counter()
@@ -183,8 +209,13 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return None
 
 
-def restore(like, ckpt_dir, *, step: Optional[int] = None):
+def restore(like, ckpt_dir, *, step: Optional[int] = None, specs=None, mesh=None):
     """Rebuild a state shaped like ``like`` from disk -> (state, step).
+
+    ``specs``/``mesh`` (the reference's ``shardings=``): ``like`` is this
+    rank's shards by the spec tree ``specs``, and each leaf is cut from
+    the logical array on disk (a checkpoint of any mesh, or of one
+    process).
 
     With ``step=None`` this walks step dirs NEWEST-FIRST and skips any that
     are torn or unreadable (the size check, then zip/json decode errors at
@@ -196,14 +227,27 @@ def restore(like, ckpt_dir, *, step: Optional[int] = None):
     template's leaf.
     """
     ckpt_dir = pathlib.Path(ckpt_dir)
+    cut = None
+    if specs is not None and mesh is not None:
+        from ..launch.sharding import shard_index, sharded_dims, spec_paths
+
+        spec_of = spec_paths(specs)
+
+        def cut(name, arr):  # this rank's slice of a logical array
+            where = [slice(None)] * arr.ndim
+            for i, axes in sharded_dims(spec_of.get(name, ())):
+                n, index = shard_index(mesh, axes)
+                c = arr.shape[i] // n
+                where[i] = slice(index * c, (index + 1) * c)
+            return arr[tuple(where)]
     if step is not None:
-        return _restore_dir(like, ckpt_dir / f"step-{step:010d}"), step
+        return _restore_dir(like, ckpt_dir / f"step-{step:010d}", cut), step
     if ckpt_dir.exists():
         for d in sorted(ckpt_dir.glob("step-*"), reverse=True):
             if not _valid(d):
                 continue
             try:
-                got = _restore_dir(like, d)
+                got = _restore_dir(like, d, cut)
             except (zipfile.BadZipFile, json.JSONDecodeError, OSError, ValueError):
                 continue  # torn past the size check (e.g. a corrupt zip member)
             return got, int(d.name.split("-")[1])
@@ -223,7 +267,7 @@ def _leaf(arr: np.ndarray, like):
     return t.to(like.device)
 
 
-def _restore_dir(like, d: pathlib.Path):
+def _restore_dir(like, d: pathlib.Path, cut=None):
     meta = json.loads((d / "manifest.json").read_text())
     arrays: dict[str, np.ndarray] = {}
     with np.load(d / "arrays.npz") as data:
@@ -240,6 +284,8 @@ def _restore_dir(like, d: pathlib.Path):
     def leaf(name, t):
         if t is None:
             return None
+        if cut is not None and name.startswith("pack/"):
+            return t  # this rank's own pack: the caller re-packs
         arr = arrays.get(name)
         if arr is None:
             if name.startswith("pack/") or name == "nonfinite_steps":
@@ -247,6 +293,8 @@ def _restore_dir(like, d: pathlib.Path):
                 # telemetry counter that restarts at the template value
                 return t
             raise KeyError(f"checkpoint {d} is missing leaf {name!r}")
+        if cut is not None:
+            arr = cut(name, arr)
         return _leaf(arr, t)
 
     return tree_map(leaf, like)
@@ -258,20 +306,25 @@ class Checkpointer:
     ``timings`` holds the last save's ``snapshot_s`` and ``write_s`` and
     the last ``wait``'s ``wait_s``."""
 
-    def __init__(self, ckpt_dir, every: int = 500, keep_last_k: int = 3):
+    def __init__(self, ckpt_dir, every: int = 500, keep_last_k: int = 3, *, specs=None,
+                 mesh=None):
         self.dir = pathlib.Path(ckpt_dir)
         self.every = every
         self.keep = keep_last_k
+        self.specs, self.mesh = specs, mesh
         self.timings: dict = {}
         self._thread: Optional[threading.Thread] = None
 
     def maybe_save(self, state, step: int, *, force: bool = False):
+        """Every rank of a mesh calls this (a sharded save gathers); rank 0
+        writes."""
         if not force and (self.every <= 0 or step % self.every != 0):
             return
         self.wait()
         self.timings = {}
         self._thread = save(state, self.dir, step, keep_last_k=self.keep,
-                            background=True, timings=self.timings)
+                            background=True, timings=self.timings, specs=self.specs,
+                            mesh=self.mesh)
 
     def wait(self):
         if self._thread is not None:
@@ -282,6 +335,6 @@ class Checkpointer:
 
     def restore_or_none(self, like):
         try:
-            return restore(like, self.dir)
+            return restore(like, self.dir, specs=self.specs, mesh=self.mesh)
         except FileNotFoundError:
             return None, None

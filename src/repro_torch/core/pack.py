@@ -155,7 +155,7 @@ def _block_np(mask, block_shape):
 
 def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
                slack: float = 0.0, name: str = "?", device=None, bwd_mask=None,
-               min_bwd_width: int = 0) -> dict:
+               min_bwd_width: int = 0, allow_empty: bool = False) -> dict:
     """Pack ONE mask leaf into a PackState entry (CSC + CSR views, and the
     superset CSC of ``bwd_mask`` when given).
 
@@ -167,7 +167,9 @@ def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
     forward mask (wgrad would zero forward-active blocks).  Single all-zero
     COLUMNS are fine (the kernel writes zeros for them), and so is an
     all-zero GROUP: a dead expert outputs zeros.  ``min_*`` floors keep
-    refreshed widths from shrinking.
+    refreshed widths from shrinking.  ``allow_empty``: ``mask`` is one
+    rank's shard of a layer (tensor parallelism), which may hold no active
+    block, as a dead expert; its output is zeros.
     """
     if device is None and isinstance(mask, torch.Tensor):
         device = mask.device
@@ -177,7 +179,7 @@ def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
     grouped = bm.ndim == 3
     nkb, nnb = bm.shape[-2:]
     total = int(bm.sum())
-    if total == 0:
+    if total == 0 and not allow_empty:
         raise ValueError(
             f"PackState: layer {name!r} has ZERO active blocks — the "
             "block-sparse kernel would output all-zeros for it"
@@ -208,13 +210,14 @@ def pack_entry(mask, block_shape, *, min_width: int = 0, min_row_width: int = 0,
 
 
 def build_pack_state(masks, block_shape, *, slack: float = 0.0, device=None,
-                     prev=None, bwd_masks=None):
+                     prev=None, bwd_masks=None, allow_empty: bool = False):
     """Mask tree -> PackState tree (same structure; entry or None leaves).
 
     Entries live on ``device`` (default: the mask's device), where the
     kernels read them.  ``prev``: a previous PackState whose widths are
     floors (never shrink).  ``bwd_masks``: Top-KAST supersets mirroring
     ``masks``; entries then carry the superset CSC (``bidx``/``bcnt``).
+    ``allow_empty``: the masks are one rank's shards (``pack_entry``).
     """
     bk, bn = block_shape
 
@@ -225,7 +228,8 @@ def build_pack_state(masks, block_shape, *, slack: float = 0.0, device=None,
         floor = lambda k: int(pe[k].shape[-1]) if pe is not None and k in pe else 0
         return pack_entry(m, block_shape, slack=slack, name=name, device=device,
                           min_width=floor("idx"), min_row_width=floor("ridx"),
-                          bwd_mask=bw, min_bwd_width=floor("bidx"))
+                          bwd_mask=bw, min_bwd_width=floor("bidx"),
+                          allow_empty=allow_empty)
 
     none = tree_map(lambda *_: None, masks)
     return tree_map(pack, masks, none if bwd_masks is None else bwd_masks,
@@ -243,11 +247,11 @@ def build_bwd_carrier(bwd_masks):
 
 
 def refresh_pack_state(masks, block_shape, *, prev, slack: float = 0.0,
-                       bwd_masks=None, device=None):
+                       bwd_masks=None, device=None, allow_empty: bool = False):
     """Re-pack after a topology update (right after every RigL update).
     ``prev`` is required: widths never shrink, as in the reference."""
     return build_pack_state(masks, block_shape, slack=slack, device=device,
-                            prev=prev, bwd_masks=bwd_masks)
+                            prev=prev, bwd_masks=bwd_masks, allow_empty=allow_empty)
 
 
 def pack_mismatch(masks, pack, block_shape, bwd_masks=None) -> torch.Tensor:

@@ -63,32 +63,37 @@ def _prune_layer(w, m, target_sparsity):
     return kept.to(m.dtype), w * kept.to(w.dtype)
 
 
-def prune_step(params, masks, t, sched: PruningSchedule):
+def prune_step(params, masks, t, sched: PruningSchedule, *, leaf_map=tree_map):
     """Gradual pruning of every masked layer to the step's (uniform) target.
-    Returns (new_params, new_masks)."""
+    Returns (new_params, new_masks).  ``leaf_map``: ``tree_map``, or a map
+    with its signature that runs each layer on other tensors (a sharded
+    state's whole leaves)."""
     s_t = sched.target(t)
-    out = tree_map(lambda _, w, m: (w, None) if m is None else _prune_layer(w, m, s_t)[::-1],
+    out = leaf_map(lambda _, w, m: (w, None) if m is None else _prune_layer(w, m, s_t)[::-1],
                    params, masks)
     pick = lambda i: tree_map(lambda _, t_: t_[i], out,
                               is_leaf=lambda x: isinstance(x, tuple))
     return pick(0), pick(1)
 
 
-def snip_masks(params, dense_grads, sparsities, saliency: str = "weight_times_grad"):
+def snip_masks(params, dense_grads, sparsities, saliency: str = "weight_times_grad", *,
+               leaf_map=tree_map):
     """One-shot SNIP masks: per layer in ``sparsities`` ({path_name: s}),
     keep the round((1 - s) * N) highest saliencies; ``None`` elsewhere.
 
     saliency: 'weight_times_grad' (|theta * grad|, the correct one) or
-    'grad' (|grad|, the Appendix-M bug #3 variant, for the ablation)."""
+    'grad' (|grad|, the Appendix-M bug #3 variant, for the ablation).
+    ``leaf_map``: as ``prune_step``'s (a None gradient marks a layer left
+    out)."""
     if saliency not in ("weight_times_grad", "grad"):
         raise ValueError(saliency)
 
     def layer(name, w, g):
         s = sparsities.get(name)
-        if s is None:
+        if s is None or g is None:
             return None
         score = (w * g if saliency == "weight_times_grad" else g).abs().reshape(-1).float()
         n_keep = int(round((1.0 - s) * w.numel()))
         return (_rank_desc(score) < n_keep).reshape(w.shape)
 
-    return tree_map(layer, params, dense_grads)
+    return leaf_map(layer, params, dense_grads)

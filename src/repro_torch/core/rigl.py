@@ -194,11 +194,14 @@ def topkast_superset_layer(w, mask, extra, gen, *, block_shape=None):
     return bwd_unit.to(mask.dtype)
 
 
-def topkast_backward_masks(params, masks, extra, gen, *, block_shape=None):
+def topkast_backward_masks(params, masks, extra, gen, *, block_shape=None,
+                           leaf_map=tree_map):
     """Backward-superset tree mirroring ``masks`` (None leaves pass
     through): per layer B = A ∪ the Δ best exploration candidates, drawn
-    from ``gen`` in leaf order."""
-    return tree_map(
+    from ``gen`` in leaf order.  ``leaf_map``: ``tree_map``, or a map with
+    its signature that runs each layer on other tensors (a sharded
+    state's whole leaves)."""
+    return leaf_map(
         lambda _, w, m: None if m is None else topkast_superset_layer(
             w, m, extra, gen, block_shape=block_shape),
         params, masks,
@@ -291,7 +294,8 @@ def _draw(algo: SparseAlgo, w, gen):
 
 
 def rigl_update(params, masks, dense_grads, t, algo: SparseAlgo, gen=None,
-                lr: float = 0.0, *, dense_momentum=None, bwd_masks=None, draws=None):
+                lr: float = 0.0, *, dense_momentum=None, bwd_masks=None, draws=None,
+                leaf_map=tree_map):
     """Apply the connectivity update to every masked layer.
 
     Returns (new_params, new_masks, grown_masks); ``grown_masks`` tells the
@@ -304,6 +308,8 @@ def rigl_update(params, masks, dense_grads, t, algo: SparseAlgo, gen=None,
     the weight's shape, Top-KAST's tie-breaks of the unit shape); when not
     given each layer draws its own from ``gen`` as it comes (one layer's
     draws live at a time).
+    ``leaf_map``: as ``topkast_backward_masks``'s; the layers run in leaf
+    order, so the draws are the same under any map.
     """
     if algo.method == "static":
         zeros = tree_map(lambda _, m: None if m is None
@@ -345,7 +351,7 @@ def rigl_update(params, masks, dense_grads, t, algo: SparseAlgo, gen=None,
         return rigl_update_layer(w, m, score, fraction, grow_init=algo.grow_init, gen=gen,
                                  block_shape=algo.block_shape, lr=lr, grad=g)
 
-    out = tree_map(layer, params, masks, dense_grads, mom, bwd, draws)
+    out = leaf_map(layer, params, masks, dense_grads, mom, bwd, draws)
     pick = lambda i: tree_map(lambda _, t_: t_[i], out,
                               is_leaf=lambda x: isinstance(x, tuple))
     return pick(1), pick(0), pick(2)  # each layer: (mask, w, grown)

@@ -18,8 +18,9 @@ import math
 
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_local_mesh", "axis_names", "axis_sizes",
-           "dp_axes", "dp_size", "dp_group"]
+__all__ = ["make_production_mesh", "make_local_mesh", "make_mesh", "axis_names",
+           "axis_sizes", "dp_axes", "dp_size", "dp_group", "model_size", "model_rank",
+           "model_group"]
 
 
 def _mesh(device_type: str, shape: tuple, names: tuple):
@@ -50,6 +51,12 @@ def make_local_mesh(n_data: int = 1, n_model: int = 1, *, device_type: str):
     return _mesh(device_type, (n_data, n_model), ("data", "model"))
 
 
+def make_mesh(shape: dict, *, device_type: str):
+    """A mesh of any of the reference's axes (``{"pod": 2, "data": 1,
+    "model": 2}``), in the order given, over the live process group."""
+    return _mesh(device_type, tuple(shape.values()), tuple(shape))
+
+
 def axis_names(mesh) -> tuple[str, ...]:
     """The axis names of a ``DeviceMesh`` or of any mesh object with
     ``axis_names`` (the resolver's fakes)."""
@@ -75,15 +82,48 @@ def dp_size(mesh) -> int:
     return math.prod(sizes[a] for a in dp_axes(mesh))
 
 
+_DP_GROUPS: dict = {}
+
+
 def dp_group(mesh):
-    """The process group of the data-parallel ranks: the ``data`` axis's,
-    or, over ``pod`` and ``data`` with no other axis wider than 1, the
-    whole mesh's (which spans the world: ``_mesh`` checks it)."""
+    """The process group of this rank's data-parallel peers: the ``data``
+    axis's; over ``pod`` and ``data`` the whole mesh's where no other axis
+    is wider than 1 (``_mesh`` checks it spans the world), else one group
+    a model coordinate, each over the (pod, data) sub-mesh through it.
+    Building those groups is collective: every rank builds all of them, in
+    the same order, once a mesh."""
     dp = dp_axes(mesh)
     if len(dp) == 1:
         return mesh.get_group(dp[0])
-    if dp_size(mesh) != mesh.size():
-        raise NotImplementedError(
-            "data parallelism over several dp axes beside a model axis wider than 1 "
-            "is ROADMAP queue A item 9b")
-    return dist.group.WORLD
+    if dp_size(mesh) == mesh.size():
+        return dist.group.WORLD
+    names = axis_names(mesh)
+    ranks = mesh.mesh.permute(*[names.index(a) for a in names if a not in dp],
+                              *[names.index(a) for a in dp])
+    ranks = ranks.reshape(-1, dp_size(mesh))
+    key = tuple(map(tuple, ranks.tolist()))
+    if key not in _DP_GROUPS:
+        me = dist.get_rank()
+        for row in key:  # collective: every rank creates every group
+            grp = dist.new_group(list(row))
+            if me in row:
+                _DP_GROUPS[key] = grp
+    return _DP_GROUPS[key]
+
+
+def model_size(mesh) -> int:
+    """The width of the mesh's ``model`` axis (1 without one)."""
+    return axis_sizes(mesh).get("model", 1)
+
+
+def model_rank(mesh) -> int:
+    """This rank's coordinate on the ``model`` axis (0 without one)."""
+    if "model" not in axis_names(mesh):
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def model_group(mesh):
+    """The process group of this rank's ``model`` axis (its tensor- and
+    expert-parallel peers), or None without a model axis wider than 1."""
+    return mesh.get_group("model") if model_size(mesh) > 1 else None

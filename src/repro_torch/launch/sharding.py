@@ -18,10 +18,26 @@ dim, a mesh-axis name, a tuple of names (one dim over several axes, in mesh
 order) or None.  ``REPLICATED`` is ``()``.  ``placements`` turns a spec
 into ``torch.distributed.tensor`` placements over a ``DeviceMesh``.
 
-The train step (``training/steps.py``) runs data parallelism only: the
-state is replicated on every rank and each rank keeps its rows of the
-batch (``shard_batch``).  Sharding the state by these specs (tensor and
-expert parallelism, FSDP) is ROADMAP queue A item 9b.
+The train step (``training/steps.py``) applies these specs over ``model``
+(tensor and expert parallelism): ``param_specs`` resolves every param of a
+config from its logical (whole) layout, ``train_specs`` extends them to a
+train state, ``shard_state`` keeps each rank's slice of every leaf (the
+state is initialised whole on each rank and then sliced; an init at shard
+size is FSDP's work, ROADMAP queue A item 9b-ii), and ``gather_leaf`` is
+its inverse, one leaf at a time, so the peak stays one whole leaf.  The
+pack is not sharded: every rank rebuilds it from its own mask shards.
+
+One rule beside the resolver's: under ``kernel='block_sparse'`` a sparse
+leaf whose shard would split a weight block (full danube's ``wk``/``wv``,
+(2560, 640) on model = 2: 320 columns, 2.5 blocks of 128) is held whole on
+every rank and runs replicated, its gradient summed over the model ranks
+(``whole_leaves`` names them); so is an attention weight whose fused
+(heads x head_dim) dim the resolver would cut inside a head (it tests the
+fused width: danube SMOKE's two kv heads of 16 on model = 4).  That is what GSPMD does to a custom call's
+operands in the reference (gather, run replicated, slice the gradient
+back), without the per-step gather; a pack entry never spans two ranks.
+FSDP (the ``data`` axis on ``embed``) is resolved but not applied
+(9b-ii).
 """
 from __future__ import annotations
 
@@ -31,7 +47,9 @@ from ..core.masks import tree_map
 from .mesh import axis_names, axis_sizes, dp_axes, dp_size
 
 __all__ = ["REPLICATED", "resolve_spec", "param_shardings", "state_shardings",
-           "batch_shardings", "cache_axes", "placements", "shard_batch"]
+           "batch_shardings", "cache_axes", "placements", "shard_batch", "param_specs",
+           "train_specs", "whole_leaves", "spec_paths", "sharded_dims", "shard_index",
+           "shard_state", "slice_leaf", "gather_leaf"]
 
 REPLICATED = ()
 
@@ -112,7 +130,12 @@ def state_shardings(state, axes_tree, mesh, *, fsdp: bool = False):
     optimizer state).  The step, seed, counters, Adam's count and the pack
     (host-built block indices, rebuilt on every rank from the masks) are
     replicated."""
-    p_sh = param_shardings(axes_tree, state["params"], mesh, fsdp=fsdp)
+    return _state_specs(state, param_shardings(axes_tree, state["params"], mesh,
+                                               fsdp=fsdp))
+
+
+def _state_specs(state, p_sh):
+    """``state_shardings`` from the params' spec tree ``p_sh``."""
     like = lambda tree: tree_map(lambda _, m, s: None if m is None else s, tree, p_sh)
     out = {
         "step": REPLICATED,
@@ -210,3 +233,145 @@ def shard_batch(batch, mesh):
         return v[index * n:(index + 1) * n]
 
     return {k: rows(k, v) for k, v in batch.items()}
+
+
+def _blocks_split(spec, shape, block, sizes) -> bool:
+    """Does a shard by ``spec`` cut one of the trailing two dims inside a
+    (bk, bn) weight block?"""
+    nd = len(shape)
+    for i, b in ((nd - 2, block[0]), (nd - 1, block[1])):
+        if i >= 0 and spec[i] is not None:
+            n = math.prod(sizes[a] for a in _axes_of(spec[i]))
+            if (shape[i] // n) % b:
+                return True
+    return False
+
+
+def _axes_of(entry) -> tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _heads_split(spec, shape, axes, head_dim, sizes) -> bool:
+    """Does a shard by ``spec`` cut a fused (heads x head_dim) dim inside a
+    head?  The resolver tests the fused width; a rank's attention runs
+    whole heads."""
+    for i, a in enumerate(axes):
+        if a in ("heads", "kv_heads") and spec[i] is not None:
+            n = math.prod(sizes[x] for x in _axes_of(spec[i]))
+            if (shape[i] // head_dim) % n:
+                return True
+    return False
+
+
+def _param_specs_and_whole(cfg, mesh):
+    """(param specs, {leaf: why it is held whole}).  FSDP is resolved in
+    ``state_shardings`` but not applied here (ROADMAP 9b-ii)."""
+    from ..models.model import lm_layout
+
+    params, axes, flags = lm_layout(cfg)
+    specs = param_shardings(axes, params, mesh)
+    sp, sizes, whole = cfg.sparse, axis_sizes(mesh), {}
+    blocks = sp.kernel == "block_sparse" and sp.block_shape is not None
+
+    def keep(name, spec, p, ax, f):
+        shape = tuple(p.shape)
+        if cfg.block_type == "transformer" and _heads_split(spec, shape, ax, cfg.head_dim,
+                                                            sizes):
+            whole[name] = "heads"
+        elif blocks and f and _blocks_split(spec, shape, sp.block_shape, sizes):
+            whole[name] = "blocks"
+        else:
+            return spec
+        return (None,) * len(spec)
+
+    return tree_map(keep, specs, params, axes, flags, is_leaf=_is_axes), whole
+
+
+def param_specs(cfg, mesh):
+    """The spec tree of ``init_lm(cfg)``'s params on ``mesh``: the
+    resolver's, from the logical (whole) shapes, with the leaves
+    ``whole_leaves`` names replicated."""
+    return _param_specs_and_whole(cfg, mesh)[0]
+
+
+def whole_leaves(cfg, mesh) -> dict[str, str]:
+    """{leaf: "blocks" or "heads"} of the leaves the resolver would shard
+    through a weight block or inside an attention head, which every rank
+    holds whole instead and runs replicated (the module docstring)."""
+    return _param_specs_and_whole(cfg, mesh)[1]
+
+
+def train_specs(state, cfg, mesh):
+    """``state_shardings`` of a train state of ``cfg`` with ``param_specs``
+    (the state gives the structure only: it may be whole or sharded)."""
+    return _state_specs(state, param_specs(cfg, mesh))
+
+
+def spec_paths(specs) -> dict:
+    """{path_name: spec} of a spec tree (the tuples are its leaves)."""
+    out = {}
+    tree_map(lambda n, s: out.__setitem__(n, s), specs, is_leaf=_is_axes)
+    return out
+
+
+def sharded_dims(spec) -> list[tuple[int, tuple[str, ...]]]:
+    """[(dim, mesh axes)] of the dims a spec shards."""
+    if not spec:
+        return []
+    return [(i, _axes_of(e)) for i, e in enumerate(spec) if e is not None]
+
+
+def shard_index(mesh, axes) -> tuple[int, int]:
+    """(number of shards, this rank's index) of a dim over mesh ``axes``."""
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    n, index = 1, 0
+    for a in axes:
+        n, index = n * sizes[a], index * sizes[a] + coord[a]
+    return n, index
+
+
+def slice_leaf(full, spec, mesh):
+    """This rank's slice of a whole leaf by ``spec`` (an owned copy; a
+    host int, or a leaf the spec replicates, comes back as it is)."""
+    dims = sharded_dims(spec) if _is_tensor(full) else []
+    if not dims:
+        return full
+    out = full
+    for i, axes in dims:
+        n, index = shard_index(mesh, axes)
+        chunk = out.shape[i] // n
+        out = out.narrow(i, index * chunk, chunk)
+    return out.clone()
+
+
+def gather_leaf(local, spec, mesh):
+    """The whole leaf of which ``local`` is this rank's slice by ``spec``,
+    on every rank of the mesh's groups along the sharded axes (collective:
+    each of them calls it with its own slice).  One leaf at a time: the
+    peak is one whole leaf.  A replicated leaf comes back as it is."""
+    from ..models.tp import gather_dim
+
+    dims = sharded_dims(spec) if _is_tensor(local) else []
+    out = local
+    for i, axes in dims:
+        if len(axes) != 1:
+            raise NotImplementedError(f"gather over several mesh axes {axes}")
+        out = gather_dim(out, i, shard_index(mesh, axes)[0], mesh.get_group(axes[0]))
+    return out
+
+
+def _is_tensor(x) -> bool:
+    import torch
+
+    return torch.is_tensor(x)
+
+
+def shard_state(state, specs, mesh):
+    """Every leaf of ``state`` cut to this rank's slice by the spec tree
+    ``specs`` (``train_specs``); leaves the specs replicate, host ints and
+    None pass through (the same tensors, not copies)."""
+    def cut(_, leaf, spec):
+        return slice_leaf(leaf, spec, mesh) if leaf is not None else None
+
+    return {k: tree_map(cut, v, specs[k]) if k in specs else v for k, v in state.items()}

@@ -45,8 +45,9 @@ after a failure; ``--preempt-at N`` stops the run once at step N, after a
 forced save, so a resumed run can be held to an uninterrupted one bit for
 bit.  Data is a pure function of the step and every random draw of a
 (seed, purpose, step), so the state is all a resume needs.
-``train_loop(mesh=...)`` trains data-parallel over a ``launch/mesh.py``
-mesh (the CLI takes no mesh, as the reference's: a multi-rank run calls
+``train_loop(mesh=...)`` trains over a ``launch/mesh.py`` (data, model)
+mesh: data parallelism, and tensor and expert parallelism over ``model``
+(the CLI takes no mesh, as the reference's: a multi-rank run calls
 ``train_loop`` from its own script after ``init_process_group``).
 ``--trace-out`` and ``--metrics-out`` turn on the observability layer
 (``obs/``): ``train_*`` spans, gauges and histograms, ``topology_update``
@@ -74,6 +75,7 @@ from ..device import resolve_device
 from ..obs import Observability, jit_retraces, kernels_plan_caches
 from ..optim.lr import LRSchedule
 from ..optim.optimizers import OptConfig
+from ..core.masks import tree_map
 from ..training.steps import (
     init_train_state,
     make_algo,
@@ -82,9 +84,11 @@ from ..training.steps import (
     make_train_step,
     refresh_pack,
     repack,
+    shard_train_state,
     snip_init,
 )
-from .sharding import shard_batch
+from .mesh import model_size
+from .sharding import gather_leaf, train_specs
 
 __all__ = ["SimulatedPreemption", "train_loop", "run_with_restarts", "main"]
 
@@ -143,13 +147,16 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
     and nnz, and the topology telemetry of the drop/grow updates.
 
     ``mesh`` (a ``launch/mesh.py`` device mesh over the live process group):
-    data parallelism.  Every rank builds the same state and the same global
-    batch from the seed and keeps its rows (``shard_batch``); the steps
-    all-reduce the gradient (``training/steps.py``).  Rank 0 alone writes
-    the workdir's files (checkpoints, result.json) and every rank restores
-    the same replicated state from them, so a restore onto another world
-    size needs nothing more.  A restore onto a sharded mesh is ROADMAP
-    queue A item 9b.
+    every rank builds the same state and the same global batch from the
+    seed; the state is cut to the rank's shards over ``model``
+    (``shard_train_state``), the steps give each rank its rows of each
+    microbatch and all-reduce the gradient over the data ranks
+    (``training/steps.py``).  Every rank takes part in a checkpoint's
+    gathers and rank 0 alone writes the workdir's files (the logical
+    arrays: a one-process run's files), which every rank restores by
+    cutting its own slices, so a restore onto another (data, model) mesh
+    needs nothing more.  The topology telemetry and ``result.json``'s
+    sparsity read the whole masks.
     """
     dev = resolve_device(device)
     writer = mesh is None or dist.get_rank() == 0
@@ -162,28 +169,41 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
     )
     algo = make_algo(cfg, steps)
     state, _ = init_train_state(cfg, opt_cfg, seed=seed, device=dev)
-    ckpt = None if ckpt_every is None else Checkpointer(workdir / "ckpt", every=ckpt_every)
+    state = shard_train_state(state, cfg, mesh)
+    sharded = mesh is not None and model_size(mesh) > 1
+    specs = train_specs(state, cfg, mesh) if sharded else None
+    ckpt = None if ckpt_every is None else Checkpointer(
+        workdir / "ckpt", every=ckpt_every, specs=specs, mesh=mesh)
     if ckpt is not None:
         restored, rstep = ckpt.restore_or_none(state)
         if restored is not None:
             del state
-            state = repack(restored, cfg)
+            state = repack(restored, cfg, mesh)
             print(f"[train] restored checkpoint at step {rstep}")
     train_step = make_train_step(cfg, opt_cfg, lr_sched, mesh=mesh)
     rigl_step = make_rigl_step(cfg, algo, lr_sched, mesh=mesh)
     prune_sched = PruningSchedule(
         cfg.sparse.sparsity, begin_step=steps // 8, end_step=int(steps * 0.75),
         prune_every=max(cfg.sparse.delta_t * 10, 1))
-    prune_fn = make_prune_fn(cfg, prune_sched) if cfg.sparse.method == "pruning" else None
+    prune_fn = (make_prune_fn(cfg, prune_sched, mesh=mesh)
+                if cfg.sparse.method == "pruning" else None)
     sp = cfg.sparse
 
-    def batch_at(step):
-        b = batch_for(cfg, step, batch, seq, learnable=learnable, device=dev)
-        return b if mesh is None else shard_batch(b, mesh)
+    def batch_at(step):  # the global batch: the steps take each rank's rows
+        return batch_for(cfg, step, batch, seq, learnable=learnable, device=dev)
+
+    def refresh(st):  # the mesh goes along only where there is one
+        return refresh_pack(st, cfg) if mesh is None else refresh_pack(st, cfg, mesh)
+
+    def whole_masks(masks):  # the logical masks (gathered over model)
+        if not sharded:
+            return masks
+        return tree_map(lambda _, m, s_: None if m is None else gather_leaf(m, s_, mesh),
+                        masks, specs["masks"])
 
     if sp.method == "snip" and state["step"] == 0:
         state = snip_init(state, cfg, batch_at(0), mesh=mesh)
-        state = refresh_pack(state, cfg)  # snip replaced the masks
+        state = refresh(state)  # snip replaced the masks
     metrics_log = []
     topo_log = []  # per-update records, kept apart from the loss log
     topo_trace = TopologyTrace()
@@ -198,12 +218,12 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
         is_update = (sp.method in _UPDATE_METHODS and step > 0
                      and step % sp.delta_t == 0 and step < algo.schedule.t_end)
         if is_update:
-            prev_masks = topo_trace.snapshot(state["masks"])
+            prev_masks = topo_trace.snapshot(whole_masks(state["masks"]))
             state, m = rigl_step(state, b)
             # the topology changed: re-pack NOW so the next steps' kernels
             # run the new active blocks (host-side, amortized over delta_t)
-            state = refresh_pack(state, cfg)
-            rec = topo_trace.record(prev_masks, state["masks"], step=step)
+            state = refresh(state)
+            rec = topo_trace.record(prev_masks, whole_masks(state["masks"]), step=step)
             del prev_masks
             topo_log.append({"step": step, "topology": rec})
             if om is not None:
@@ -219,7 +239,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
             state, m = train_step(state, b)
         if prune_fn is not None and step % prune_sched.prune_every == 0:
             state = prune_fn(state)
-            state = refresh_pack(state, cfg)  # pruning moved the masks too
+            state = refresh(state)  # pruning moved the masks too
             if om is not None:
                 publish_pack_gauges(obs.metrics, state.get("pack"))
         step = state["step"]
@@ -234,7 +254,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
             om["step_s"].observe(ts1 - ts0)
             om["steps"].inc()
         if preempt_at is not None and step == preempt_at:
-            if ckpt is not None and writer:
+            if ckpt is not None:
                 ckpt.maybe_save(state, step, force=True)
                 ckpt.wait()
             if mesh is not None:
@@ -280,15 +300,18 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, workdir: str,
             if writer:
                 print(f"[train] step {step:6d} loss {rec['loss']:.4f} "
                       f"({time.time() - t0:.1f}s)")
-        if ckpt is not None and writer:
+        if ckpt is not None:
             ckpt.maybe_save(state, step)
-    if ckpt is not None and writer:
+    if ckpt is not None:
         ckpt.maybe_save(state, step, force=True)
         ckpt.wait()
+        if mesh is not None:
+            dist.barrier()  # the final save lands before any rank restores it
     if flusher is not None:
         flusher.close(time.time() - t0)
+    masks = whole_masks(state["masks"])
     if writer:
-        stats = mask_stats(state["masks"])
+        stats = mask_stats(masks)
         (workdir / "result.json").write_text(json.dumps({
             "metrics": metrics_log, "sparsity": stats["sparsity"], "nnz": stats["nnz"],
             "topology": topo_trace.summary(), "topology_updates": topo_log,

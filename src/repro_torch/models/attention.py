@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention import flash_attention, flash_attention_paged
+from . import tp
 from .layers import P, compute_dtype, linear, rmsnorm, rmsnorm_init
 
 __all__ = [
@@ -100,16 +101,58 @@ def _linear_kw(cfg, masks, name, pack=None):
     )
 
 
+def parallel(p, cfg) -> bool:
+    """Does this rank hold a shard of the q heads (tensor parallelism over
+    ``model``: ``models/tp.py``)?  The head counts come from the weights'
+    shapes: ``wq`` holds this rank's heads, ``wk``/``wv`` its kv heads, or
+    all of them where the kv heads do not divide the axis (or their shard
+    would split a weight block)."""
+    hd = cfg.head_dim
+    par = tp.shards(p["wq"]["w"].shape[-1] // hd, cfg.n_heads)
+    if not par and tp.shards(p["wk"]["w"].shape[-1] // hd, cfg.n_kv_heads):
+        raise NotImplementedError(
+            f"config {cfg.name!r} on model={tp.size()}: kv heads sharded with the q heads "
+            "whole")
+    return par
+
+
+def _kv_heads_read(cfg) -> tuple[int, int]:
+    """[k0, k1) of the kv heads this rank's q heads read (kv head h // G)
+    when every rank holds all of them."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = tp.local_range(cfg.n_heads)
+    if (hi - lo) % G and G % (hi - lo):
+        raise NotImplementedError(
+            f"config {cfg.name!r} on model={tp.size()}: {hi - lo} q heads a rank straddle "
+            f"groups of {G}")
+    return lo // G, (hi - 1) // G + 1
+
+
 def _qkv(p, x, cfg, masks=None, pack=None):
+    """q, k, v (B, S, heads, hd) of this rank's heads.  Under tensor
+    parallelism x enters through ``copy_to_model``; kv weights every rank
+    holds whole (and the qk-norm scales) are read inside the parallel
+    region, so they enter through it too (their gradient is summed over
+    the model ranks), and k, v keep the kv heads this rank's q heads read."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     dt = compute_dtype(cfg)
-    q = linear(p["wq"], x, dt, **_linear_kw(cfg, masks, "wq", pack)).reshape(B, S, H, hd)
-    k = linear(p["wk"], x, dt, **_linear_kw(cfg, masks, "wk", pack)).reshape(B, S, KV, hd)
-    v = linear(p["wv"], x, dt, **_linear_kw(cfg, masks, "wv", pack)).reshape(B, S, KV, hd)
+    par = parallel(p, cfg)
+    kv_whole = par and p["wk"]["w"].shape[-1] == cfg.n_kv_heads * hd
+    inner = tp.copy_to_model if par else (lambda t: t)
+    kv_w = tp.copy_to_model if kv_whole else (lambda t: t)
+    x = inner(x)
+    q = linear(p["wq"], x, dt, **_linear_kw(cfg, masks, "wq", pack)).reshape(B, S, -1, hd)
+    k = linear({"w": kv_w(p["wk"]["w"])}, x, dt,
+               **_linear_kw(cfg, masks, "wk", pack)).reshape(B, S, -1, hd)
+    v = linear({"w": kv_w(p["wv"]["w"])}, x, dt,
+               **_linear_kw(cfg, masks, "wv", pack)).reshape(B, S, -1, hd)
+    if kv_whole:
+        k0, k1 = _kv_heads_read(cfg)
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
     if cfg.qk_norm:  # over head_dim, before RoPE, at rmsnorm's own eps (1e-6)
-        q = rmsnorm(p["q_norm"], q)
-        k = rmsnorm(p["k_norm"], k)
+        q = rmsnorm({"scale": inner(p["q_norm"]["scale"])}, q)
+        k = rmsnorm({"scale": inner(p["k_norm"]["scale"])}, k)
     return q, k, v
 
 
@@ -175,11 +218,17 @@ def _flash_attend(q, k, v, cfg, *, causal, window):
 
 
 def attention(p, x, cfg, *, kind: str = "global", positions=None, masks=None,
-              pack=None, history=None):
+              pack=None, history=None, reduce: bool = True):
     """Full-sequence attention (prefill).  Returns (out, (k, v)).
 
     kind: 'global' or 'local' (sliding window ``cfg.window``).  ``masks`` /
     ``pack`` route the projections through ``layers.linear``.
+
+    Under tensor parallelism (``parallel``) this rank runs its heads (q,
+    k, v column-parallel, the flash kernels on the local heads with G
+    unchanged) and ``wo`` row-parallel: its output is summed over the model
+    ranks, unless ``reduce`` is False (a parallel block sums it with the
+    FFN's partial once).
 
     history: suffix-only prefill over a paged prefix, as the reference:
     {"pool": init_kv_pool leaves, "table": (B, T) int32 page ids, "ctx":
@@ -212,6 +261,8 @@ def attention(p, x, cfg, *, kind: str = "global", positions=None, masks=None,
             q, k, v, _make_mask(S, S, cfg.causal, window, x.device), cfg
         )
     out = linear(p["wo"], o.reshape(B, S, -1), **_linear_kw(cfg, masks, "wo", pack))
+    if reduce and parallel(p, cfg):
+        out = tp.reduce_from_model(out)
     return out, (k, v)
 
 

@@ -8,9 +8,10 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from . import tp
 from .layers import linear, linear_init
 
-__all__ = ["mlp_init", "mlp"]
+__all__ = ["mlp_init", "mlp", "parallel"]
 
 
 def _gelu(t):
@@ -36,13 +37,28 @@ def mlp_init(gen, d: int, d_ff: int, kind: str = "swiglu", *,
     return p
 
 
+def parallel(p, width) -> bool:
+    """Does this rank hold a column shard of ``wi`` (tensor parallelism
+    over ``model``), the FFN's whole width being ``width``?"""
+    return width is not None and tp.shards(p["wi"]["w"].shape[-1], width)
+
+
 def mlp(p, x, kind: str = "swiglu", *, masks=None, kernel=None,
-        block=(128, 128, 128), pack=None):
+        block=(128, 128, 128), pack=None, width=None, reduce: bool = True):
     """SwiGLU wo(silu(wg x) * wi x), GeGLU wo(gelu(wg x) * wi x), GELU
     wo(gelu(wi x)) or ReLU wo(relu(wi x)).  ``pack`` mirrors ``masks``
     and sizes the block-sparse kernel's loops to the true active-block
-    count."""
+    count.
+
+    ``width``: the FFN's whole width.  Where this rank holds a shard of it
+    (``parallel``), ``wi``/``wg`` are column-parallel (x enters through
+    ``copy_to_model``) and ``wo`` row-parallel: the output is summed over
+    the model ranks, unless ``reduce`` is False (the caller sums it with
+    another partial once)."""
     _check(kind)
+    par = parallel(p, width)
+    if par:
+        x = tp.copy_to_model(x)
 
     def kw(name):
         return dict(
@@ -56,4 +72,5 @@ def mlp(p, x, kind: str = "swiglu", *, masks=None, kernel=None,
         h = _GATES[kind](linear(p["wg"], x, **kw("wg"))) * h
     else:
         h = _ACTS[kind](h)
-    return linear(p["wo"], h, **kw("wo"))
+    out = linear(p["wo"], h, **kw("wo"))
+    return tp.reduce_from_model(out) if par and reduce else out

@@ -41,6 +41,12 @@ the residual's dtype, the attention projections cast to ``cfg.dtype`` (and
 inherit the residual's f32.  Under a bf16 config the MLP's (and the MoE's
 banks, router and shared MLP) block-sparse or masked matmuls therefore run
 in f32, as in the reference.
+
+Under tensor parallelism (``models/tp.py``, a context the train step
+opens) each rank holds its shards: the embedding table's and the head's
+run of the padded vocab (a vocab-parallel lookup and cross-entropy: a
+global max, a global sum of exp, the target's logit from the rank that
+holds it), the attention's heads, the MLP's columns, the MoE's experts.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..kernels.opaque import inside_kernel
+from . import tp
 from . import attention as A
 from . import ssm as S
 from . import xlstm as X
@@ -67,12 +74,14 @@ from .layers import (
     split_params,
 )
 from .mlp import mlp, mlp_init
+from .mlp import parallel as mlp_parallel
 from .moe import moe, moe_init
 
 __all__ = [
     "padded_vocab",
     "init_lm",
     "lm_axes",
+    "lm_layout",
     "serving_weights",
     "lm_forward",
     "lm_loss",
@@ -155,8 +164,15 @@ def lm_axes(cfg):
     draws nothing and allocates nothing (grok-1-314b's tree costs no
     memory), and the axes are a function of the config alone, as the
     resolver (``launch/sharding.py``) needs them."""
+    return lm_layout(cfg)[1]
+
+
+def lm_layout(cfg):
+    """``init_lm``'s three trees from an init on the ``meta`` device:
+    (params as meta tensors, the logical axes, the sparse flags).  The
+    shapes are the logical (whole) ones; nothing is drawn or allocated."""
     _check_ported(cfg)
-    return split_params(_lm_tree(cfg, _MetaGenerator()))[1]
+    return split_params(_lm_tree(cfg, _MetaGenerator()))
 
 
 def _lm_tree(cfg, gen):
@@ -273,12 +289,20 @@ def _embed(params, cfg, batch):
     if cfg.frontend == "frames":
         return linear(params["frontend_proj"], batch["frames"].to(dt))
     table, tokens = params["embed"]["table"], batch["tokens"]
+    pv = padded_vocab(cfg)
+    par = tp.shards(table.shape[0], pv)
+    if par:  # vocab-parallel: this rank's rows look up the ids in its range
+        lo, hi = tp.local_range(pv)
+        inside = (tokens >= lo) & (tokens < hi)
+        tokens = (tokens - lo).clamp(0, hi - lo - 1)
     if table.requires_grad and torch.is_grad_enabled():
         # the reference's cast-then-gather: its gradient is a scatter-add
         # in the compute dtype
         x = table.to(dt)[tokens]
     else:  # the same bits without casting the whole table (a tied f32 one)
         x = table[tokens].to(dt)
+    if par:
+        x = tp.reduce_from_model(torch.where(inside[..., None], x, 0))
     x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
     if cfg.frontend == "patch" and "patches" in batch:
         pe = linear(params["frontend_proj"], batch["patches"].to(dt))
@@ -295,23 +319,32 @@ def _seq_len(cfg, batch) -> int:
     return n
 
 
-def _ff(p, x, cfg, masks, pack, active=None):
+def _ff(p, x, cfg, masks, pack, active=None, reduce=True):
     """The block's feed-forward: ``moe`` for an MoE config (-> (out, aux)),
-    else the MLP (aux 0.0).  ``active`` reaches the MoE's routing."""
+    else the MLP (aux 0.0).  ``active`` reaches the MoE's routing;
+    ``reduce`` False leaves a tensor-parallel MLP's output unsummed."""
     if cfg.n_experts:
         return moe(p["moe"], x, cfg, masks=_sub(masks, "moe"),
                    pack=_sub(pack, "moe"), active=active)
     return mlp(p["mlp"], x, cfg.mlp_kind, masks=_sub(masks, "mlp"),
                kernel=cfg.sparse.kernel, block=cfg.sparse.kernel_block,
-               pack=_sub(pack, "mlp")), 0.0
+               pack=_sub(pack, "mlp"), width=cfg.d_ff, reduce=reduce), 0.0
 
 
-def _join(p, x, h, attn_out, cfg, masks, pack, active=None):
+def _defer_reduce(p, cfg) -> bool:
+    """A parallel block whose attention and MLP are both tensor-parallel
+    sums the two partial outputs over the model ranks once."""
+    return (cfg.parallel_block and not cfg.post_norms and not cfg.n_experts
+            and A.parallel(p["attn"], cfg) and mlp_parallel(p["mlp"], cfg.d_ff))
+
+
+def _join(p, x, h, attn_out, cfg, masks, pack, active=None, defer=False):
     """The block after its mixer -> (x, aux), as the reference: the
     attention output post-normed under ``post_norms``; the FFN reads
     ``h`` (the mixer's input) under ``parallel_block`` and joins the
     residual beside the attention (x + attn_out + ff_out), else reads
-    rmsnorm(ln2) of x + attn_out; its output post-normed too."""
+    rmsnorm(ln2) of x + attn_out; its output post-normed too.  ``defer``
+    (``_defer_reduce``): attn_out is a partial sum, and so is the MLP's."""
     if cfg.post_norms:
         attn_out = rmsnorm(p["ln1_post"], attn_out, cfg.norm_eps)
     if cfg.parallel_block:
@@ -319,9 +352,11 @@ def _join(p, x, h, attn_out, cfg, masks, pack, active=None):
     else:
         x = x + attn_out
         ff_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    ff_out, aux = _ff(p, ff_in, cfg, masks, pack, active)
+    ff_out, aux = _ff(p, ff_in, cfg, masks, pack, active, reduce=not defer)
     if cfg.post_norms and cfg.d_ff:
         ff_out = rmsnorm(p["ln2_post"], ff_out, cfg.norm_eps)
+    if defer:
+        return x + tp.reduce_from_model(attn_out + ff_out), aux
     if cfg.parallel_block:
         return x + attn_out + ff_out, aux
     return x + ff_out, aux
@@ -350,9 +385,11 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
         return x + o, state, 0.0
     kind = cfg.layer_kind(i)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    defer = _defer_reduce(p, cfg)
     attn_out, kv = A.attention(
         p["attn"], h, cfg, kind=kind, positions=positions,
         masks=_sub(masks, "attn"), pack=_sub(pack, "attn"), history=history,
+        reduce=not defer,
     )
     state = kv
     if cfg.block_type == "hymba":
@@ -362,23 +399,39 @@ def _block(p, x, cfg, i, *, positions=None, masks=None, pack=None,
                                   with_u=True)
         attn_out = _hymba_mix(p, attn_out, ssm_out, cfg)
         state = (kv, ssm_h, u)
-    x, aux = _join(p, x, h, attn_out, cfg, masks, pack)
+    x, aux = _join(p, x, h, attn_out, cfg, masks, pack, defer=defer)
     return x, state, aux
 
 
 def _logits(params, cfg, h):
+    return _logits_local(params, cfg, h)[0]
+
+
+def _logits_local(params, cfg, h):
+    """-> (logits f32 after the final softcap and the vocab-padding mask,
+    their first global column).  Under tensor parallelism the head (or the
+    tied table) holds this rank's run of the padded vocab: h enters
+    through ``copy_to_model`` and the logits are this rank's columns, the
+    padding (which lies on the last rank(s)) masked by global column id."""
+    w = params["head"]["w"] if "head" in params else params["embed"]["table"]
+    pv = padded_vocab(cfg)
+    par = tp.shards(w.shape[-1] if "head" in params else w.shape[0], pv)
+    lo = tp.local_range(pv)[0] if par else 0
+    if par:
+        h = tp.copy_to_model(h)
     if "head" in params:
-        out = linear(params["head"], h, h.dtype).float()
+        out = linear({"w": w}, h, h.dtype).float()
     else:  # tied: the table in h's dtype
-        out = (h @ params["embed"]["table"].to(h.dtype).T).float()
+        out = (h @ w.to(h.dtype).T).float()
     if cfg.final_softcap:
         c = cfg.final_softcap
         out = c * torch.tanh(out / c)
-    pad = out.shape[-1] - cfg.vocab_size
+    keep = min(max(cfg.vocab_size - lo, 0), out.shape[-1])
+    pad = out.shape[-1] - keep
     if pad:  # mask vocab-padding slots (out of place: autograd may need out)
-        out = torch.cat([out[..., :cfg.vocab_size],
+        out = torch.cat([out[..., :keep],
                          out.new_full((*out.shape[:-1], pad), -1e30)], dim=-1)
-    return out
+    return out, lo
 
 
 _DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
@@ -484,9 +537,19 @@ def lm_loss(params, cfg, batch, masks=None, pack=None):
     step = S // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, S, step):
-        logits = _logits(params, cfg, h[:, s:s + step])
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, targets[:, s:s + step, None].long())[..., 0]
+        logits, lo = _logits_local(params, cfg, h[:, s:s + step])
+        t = targets[:, s:s + step].long()
+        if logits.shape[-1] == padded_vocab(cfg):
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(-1, t[..., None])[..., 0]
+        else:  # vocab-parallel cross-entropy over the model ranks
+            m = tp.max_over_model(logits.amax(-1))
+            lse = m + torch.log(tp.reduce_from_model(
+                torch.exp(logits - m[..., None]).sum(-1)))
+            n = logits.shape[-1]
+            inside = (t >= lo) & (t < lo + n)
+            picked = logits.gather(-1, (t - lo).clamp(0, n - 1)[..., None])[..., 0]
+            picked = tp.reduce_from_model(torch.where(inside, picked, 0.0))
         total = total + (lse - picked).sum()
     return total / (B * S) + 0.01 * aux
 

@@ -29,8 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import tp
 from .layers import P, assert_total_dispatch, dispatch_kw, grouped_linear
 from .mlp import mlp, mlp_init
+from .mlp import parallel as mlp_parallel
 
 __all__ = ["moe_init", "moe", "route", "capacity"]
 
@@ -95,17 +97,39 @@ def moe(p, x, cfg, *, masks=None, pack=None, active=None):
     are relabelled to the sentinel expert id E before the stable rank
     sort, so they order after every real expert's run and are dropped: a
     parked slot's stale token takes no capacity from an active request.
+
+    Over a ``model`` axis (``models/tp.py``) the banks hold this rank's
+    experts where E divides the axis (expert parallelism: the rank runs
+    its run of the dispatch buffer) or this rank's slice of every
+    expert's ff dim (tensor parallelism inside each expert).  Routing,
+    capacity and the aux loss run replicated on the replicated tokens;
+    the dispatched tokens and the gates enter the local region through
+    ``copy_to_model`` (so the router gets every expert's share of the
+    gradient), and the combined output (with the shared MLP's partial) is
+    summed over the model ranks once.
+
+    On rows cut over data ranks (``tp.data_shard``) the routing is the
+    whole batch's, as the reference's under GSPMD: the capacity of all
+    the ranks' tokens, each assignment ranked after the lower ranks'
+    assignments to its expert (their per-expert counts are all-reduced),
+    and the aux loss from the whole batch's means.
     """
     assert_total_dispatch(masks, _DISPATCHED, kernel=cfg.sparse.kernel, where="moe")
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    El = p["wi"]["w"].shape[0]  # the experts of the bank this rank holds
+    ep = tp.shards(El, E)
+    par = ep or tp.shards(p["wi"]["w"].shape[-1], cfg.moe_d_ff)
+    inner = tp.copy_to_model if par else (lambda t: t)
+    e0 = tp.local_range(E)[0] if ep else 0
     T = B * S
     xt = x.reshape(T, d)
     dt = xt.dtype
     dev = x.device
 
     probs, gates, eidx = route(p, xt, cfg)
-    C = capacity(T, cfg)
+    dshard = tp.data_shard()  # rows cut over data ranks: route as the whole batch
+    C = capacity(T * (1 if dshard is None else dshard[1]), cfg)
     flat_e = eidx.reshape(-1)  # (T*K,)
     if active is not None:
         tok_act = active[:, None].expand(B, S).reshape(T)
@@ -118,13 +142,21 @@ def moe(p, x, cfg, *, masks=None, pack=None, active=None):
     rank_sorted = (torch.arange(T * K, device=dev)
                    - run_start[sorted_e.clamp(max=E - 1)])
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    if dshard is not None:
+        # the whole batch's ranks: after the lower data ranks' rows, whose
+        # assignments to each expert come first
+        grp, n, index = dshard
+        counts = torch.zeros(E + 1, dtype=torch.int64, device=dev).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))[:E]
+        every = tp.gather_dim(counts[None], 0, n, grp)  # (n, E)
+        rank = rank + every[:index].sum(0)[flat_e.clamp(max=E - 1)]
 
     keep = (rank < C) & (flat_e < E)
     dest = torch.where(keep, flat_e * C + rank, E * C)  # overflow -> scratch row
     # duplicate destinations occur only at the scratch row, which is dropped
     buf = torch.zeros(E * C + 1, d, dtype=dt, device=dev).index_copy_(
-        0, dest, xt.repeat_interleave(K, dim=0))
-    buf = buf[:E * C].reshape(E, C, d)
+        0, dest, inner(xt).repeat_interleave(K, dim=0))
+    buf = buf[e0 * C:(e0 + El) * C].reshape(El, C, d)
 
     # the three banks: ONE grouped launch each under kernel dispatch
     h = grouped_linear(p["wi"]["w"], buf, dt, **dispatch_kw(cfg, masks, "wi", pack))
@@ -132,20 +164,31 @@ def moe(p, x, cfg, *, masks=None, pack=None, active=None):
     h = F.silu(g) * h
     out_buf = grouped_linear(p["wo"]["w"], h, dt, **dispatch_kw(cfg, masks, "wo", pack))
 
-    out_flat = out_buf.reshape(E * C, d)
-    gathered = torch.where(keep[:, None], out_flat[dest.clamp(max=E * C - 1)], 0.0)
-    combined = torch.einsum("tkd,tk->td", gathered.reshape(T, K, d), gates.to(dt))
+    out_flat = out_buf.reshape(El * C, d)
+    ldest = dest - e0 * C  # the local bank's rows
+    mine = keep & (ldest >= 0) & (ldest < El * C)
+    gathered = torch.where(mine[:, None], out_flat[ldest.clamp(0, El * C - 1)], 0.0)
+    combined = torch.einsum("tkd,tk->td", gathered.reshape(T, K, d), inner(gates).to(dt))
 
     if "shared" in p:
-        combined = combined + mlp(
+        width = cfg.moe_d_ff * cfg.n_shared_experts
+        shared = mlp(
             p["shared"], xt, "swiglu",
             masks=None if masks is None else masks["shared"],
             kernel=cfg.sparse.kernel, block=cfg.sparse.kernel_block,
-            pack=None if pack is None else pack["shared"],
+            pack=None if pack is None else pack["shared"], width=width, reduce=False,
         )
+        par_s = mlp_parallel(p["shared"], width)
+        if par and par_s:
+            combined = tp.reduce_from_model(combined + shared)
+        else:
+            combined = (tp.reduce_from_model(combined) if par else combined) + (
+                tp.reduce_from_model(shared) if par_s else shared)
+    elif par:
+        combined = tp.reduce_from_model(combined)
 
     # load-balancing auxiliary loss (Switch-style), returned for training:
     # the top-k picks of a row are distinct, so their one-hot sum is a scatter
     me = torch.zeros(T, E, device=dev).scatter_(1, eidx, 1.0).mean(0)
-    aux = E * (me * probs.mean(0)).sum() / K
+    aux = E * (tp.mean_over_data(me) * tp.mean_over_data(probs.mean(0))).sum() / K
     return combined.reshape(B, S, d), aux

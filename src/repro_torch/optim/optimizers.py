@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..core.masks import tree_map
 
@@ -54,13 +55,27 @@ def _leaves(tree):
         yield tree
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, sharded=None, group=None) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in f32, on the leaves' device
     (a 0-d tensor: no host sync).  A leaf larger than ``CHUNK`` elements
     sums its row chunks' squares in order (its squares never exist at
-    once)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g[r].float()))
-                          for g in _leaves(tree) for r in _row_chunks(g)))
+    once).
+
+    Under tensor parallelism (``group``, the model ranks' process group,
+    and ``sharded``, a tree of bools mirroring ``tree``: which leaves each
+    rank holds a slice of) the sharded leaves' squares are summed over the
+    group and a replicated leaf counts once, so the norm is the whole
+    model's, the same on every rank."""
+    sq = lambda g: sum(torch.sum(torch.square(g[r].float())) for r in _row_chunks(g))
+    if group is None:
+        return torch.sqrt(sum(sq(g) for g in _leaves(tree)))
+    parts = {True: [], False: []}
+    tree_map(lambda _, g, s: None if g is None else parts[bool(s)].append(sq(g)),
+             tree, sharded)
+    dev = next(_leaves(tree)).device
+    local = sum(parts[True], torch.zeros((), dtype=torch.float32, device=dev))
+    dist.all_reduce(local, group=group)
+    return torch.sqrt(sum(parts[False], local))
 
 
 def init_opt(cfg: OptConfig, params, *, device=None):

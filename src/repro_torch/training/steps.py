@@ -52,20 +52,39 @@ Differences from the reference, each for the card:
     reference re-runs ``init_lm`` for its flags; at full width that is a
     second copy of the weights).
 
-Data parallelism (``mesh=``, a ``launch/mesh.py`` device mesh): the state
-is replicated on every rank and each rank takes the gradient of its own
-rows of the batch (``launch/sharding.py::shard_batch``).  One bucketed
-all-reduce (the mean over the data-parallel ranks, flat buffers, not one
-call per leaf) then runs after the microbatch accumulation and before
-``dense_to_sparse_grad``; the loss goes with it.  So the optimizer, the
-non-finite guard and the drop/grow all read the GLOBAL dense gradient,
-identical on every rank: the reference's "replica-sync bugs are impossible
-by construction" (the paper's Appendix M), and every random draw, from a
-(seed, purpose, step) generator, is the same everywhere, so masks,
-supersets and packs stay identical.  Tensor and expert parallelism over
-``model``, FSDP, and the fused epilogue on more than one data rank (its
-wgrad writes the momentum from the local gradient before any all-reduce
-could run) raise.
+Meshes (``mesh=``, a ``launch/mesh.py`` device mesh).  The steps take the
+GLOBAL batch (every rank builds the same one from the seed), as the
+reference's: the step cuts it into ``cfg.microbatches`` runs and gives each
+rank its rows of each run (``launch/sharding.py::shard_batch``); a run
+whose rows do not divide the data ranks is kept whole on each, as the
+reference's ``batch_shardings`` replicates it.  The loss and gradient stay
+the mean over microbatches of each microbatch's mean.
+
+Data parallelism: one bucketed all-reduce over the data ranks (the mean,
+flat buffers, not one call per leaf) runs after the microbatch
+accumulation and before ``dense_to_sparse_grad``; the loss goes with it.
+So the optimizer, the non-finite guard and the drop/grow all read the
+GLOBAL dense gradient, identical on every data rank: the reference's
+"replica-sync bugs are impossible by construction" (the paper's Appendix
+M), and every random draw, from a (seed, purpose, step) generator, is the
+same everywhere, so masks, supersets and packs stay identical.
+
+Tensor and expert parallelism over ``model`` (``models/tp.py``): the state
+is initialised whole and cut to each rank's shards (``shard_train_state``,
+by ``launch/sharding.py::train_specs``); the pack is rebuilt on every rank
+from its mask shards.  The forward and backward run under
+``tp.model_parallel`` (column- and row-parallel projections, local heads,
+expert banks, a vocab-parallel head and loss), each rank's kernels on its
+local shapes; the gradient norm sums the sharded leaves' squares over the
+model ranks; the optimizer is elementwise on the shards.  The drop/grow,
+the superset redraw, pruning and SNIP take each sparse leaf in turn whole
+(``gather_leaf``), run the unchanged update with the same generator as
+one process (the draws are of the logical shape), and keep the local
+slice.  FSDP over more than one data rank, the fused epilogue on a mesh of
+more than one rank (its wgrad writes the momentum from the local gradient
+before any all-reduce could run), the recurrent and SSM families and a
+custom ``loss_fn`` (the char-LM GRU's) under ``model > 1`` raise: ROADMAP
+queue A item 9b-ii.
 
 bf16 training (grok-1-314b), as the reference: under ``param_dtype=
 'bfloat16'`` the masters are bf16 (``init_lm`` casts them as drawn, before
@@ -101,7 +120,20 @@ from ..core.rigl import (
 )
 from ..core.schedules import UpdateSchedule
 from ..device import resolve_device
-from ..launch.mesh import axis_sizes, dp_group, dp_size
+from ..models import tp
+from ..launch.mesh import dp_axes, dp_group, dp_size, model_group, model_rank, model_size
+from ..launch.sharding import (
+    gather_leaf,
+    param_specs,
+    shard_batch,
+    shard_index,
+    shard_state,
+    sharded_dims,
+    slice_leaf,
+    spec_paths,
+    train_specs,
+    whole_leaves,
+)
 from ..models.layers import assert_total_dispatch
 from ..models.model import init_lm, lm_loss
 from ..optim.optimizers import (
@@ -125,6 +157,7 @@ __all__ = [
     "fused_seed",
     "make_prune_fn",
     "snip_init",
+    "shard_train_state",
 ]
 
 _PORTED_METHODS = ("rigl", "static", "set", "snfs", "topkast", "pruning", "snip")
@@ -258,34 +291,105 @@ def init_train_state(cfg, opt_cfg, *, seed: int = 0, device=None):
         state["bwd_masks"] = topkast_backward_masks(
             params, masks, sp.backward_extra, _generator(seed, 1, 0, dev),
             block_shape=sp.block_shape)
-    if sp.kernel == "block_sparse" and sp.block_shape is not None:
-        state["pack"] = build_pack_state(
-            masks, sp.block_shape, slack=sp.pack_width_slack, device=dev,
-            bwd_masks=state.get("bwd_masks"))
-    elif sp.kernel == "masked" and "bwd_masks" in state:
-        # the masked kernels take elementwise masks: the superset rides
-        # along as the carrier the Top-KAST masked VJP fuses
-        state["pack"] = build_bwd_carrier(state["bwd_masks"])
+    _fresh_pack(state, cfg, sharded=False)
     if sp.method == "snfs":
         state["dense_mom"] = tree_map(lambda _, p: torch.zeros_like(p), params)
     return state, flags
 
 
-def refresh_superset(state, cfg):
+def _fresh_pack(state, cfg, *, sharded: bool) -> None:
+    """Build ``state["pack"]`` from its masks and supersets, in place: the
+    PackState under block_sparse (``sharded``: of this rank's mask shards,
+    any of which may hold no active block), the superset carrier under
+    masked."""
+    sp = cfg.sparse
+    if sp.kernel == "block_sparse" and sp.block_shape is not None:
+        state["pack"] = build_pack_state(
+            state["masks"], sp.block_shape, slack=sp.pack_width_slack,
+            device=state["nonfinite_steps"].device, bwd_masks=state.get("bwd_masks"),
+            allow_empty=sharded)
+    elif sp.kernel == "masked" and "bwd_masks" in state:
+        # the masked kernels take elementwise masks: the superset rides
+        # along as the carrier the Top-KAST masked VJP fuses
+        state["pack"] = build_bwd_carrier(state["bwd_masks"])
+
+
+def shard_train_state(state, cfg, mesh):
+    """A whole train state (every rank's own ``init_train_state`` or
+    restore) -> this rank's shards by ``train_specs`` over ``mesh``'s model
+    axis, the pack rebuilt from the mask shards.  The identity without a
+    model axis wider than 1 (data parallelism keeps the state whole)."""
+    if mesh is None or model_size(mesh) == 1:
+        return state
+    out = shard_state({k: v for k, v in state.items() if k != "pack"},
+                      train_specs(state, cfg, mesh), mesh)
+    if "pack" in state:
+        _fresh_pack(out, cfg, sharded=True)
+    return out
+
+
+class _Sharding:
+    """The model axis of a mesh as the steps use it: the param specs by
+    path, which leaves each rank holds a slice of, the model group."""
+
+    def __init__(self, cfg, mesh):
+        self.mesh = mesh
+        self.n = 1 if mesh is None else model_size(mesh)
+        if self.n == 1:
+            return
+        specs = param_specs(cfg, mesh)
+        self.spec_of = spec_paths(specs)
+        self.sharded = tree_map(lambda _, s: any("model" in a for _, a in sharded_dims(s)),
+                                specs, is_leaf=lambda x: isinstance(x, tuple))
+        self.group = model_group(mesh)
+
+    def by_leaf(self, fn, params, masks, *rest):
+        """``tree_map(fn, params, masks, *rest)`` with ``fn(name, w, m,
+        ...)`` run on whole leaves where ``m`` is not None: every tensor
+        argument sharded by the leaf's spec is gathered over the model
+        ranks first, one leaf at a time, and every tensor ``fn`` returns
+        (alone or in a tuple) is cut back to this rank's slice.  Leaves in
+        ``tree_map`` order, the order one process draws in: the
+        ``leaf_map`` of ``rigl_update``, ``topkast_backward_masks``,
+        ``prune_step`` and ``snip_masks``."""
+        if self.n == 1:
+            return tree_map(fn, params, masks, *rest)
+
+        def one(name, *leaves):
+            if leaves[1] is None:
+                return fn(name, *leaves)
+            spec = self.spec_of[name]
+            whole = [None if t is None else gather_leaf(t, spec, self.mesh) for t in leaves]
+            out = fn(name, *whole)
+            del whole
+            cut = lambda o: slice_leaf(o, spec, self.mesh) if torch.is_tensor(o) else o
+            return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+        return tree_map(one, params, masks, *rest)
+
+    def norm(self, g):
+        if self.n == 1:
+            return global_norm(g)
+        return global_norm(g, sharded=self.sharded, group=self.group)
+
+
+def refresh_superset(state, cfg, mesh=None):
     """Redraw the backward supersets from the CURRENT masks and params
     (right after every topology update).  For method 'topkast' the weights
     leaving the superset (B_old \\ B_new) are zeroed (in place) and their
     optimizer state reset, so weights outside B stay exactly 0; the snfs
     dense momentum is masked to the new B (in place), so coordinates
     without a gradient channel carry no stale momentum into grow scores.
-    No-op without ``bwd_masks``."""
+    No-op without ``bwd_masks``.  On a sharded state (``mesh``) each
+    leaf's superset is drawn whole and cut to the local slice."""
     if "bwd_masks" not in state:
         return state
     sp = cfg.sparse
     dev = state["nonfinite_steps"].device
-    new_b = topkast_backward_masks(
-        state["params"], state["masks"], sp.backward_extra,
-        _generator(state["seed"], 2, state["step"], dev), block_shape=sp.block_shape)
+    gen = _generator(state["seed"], 2, state["step"], dev)
+    sh = _Sharding(cfg, mesh)
+    new_b = topkast_backward_masks(state["params"], state["masks"], sp.backward_extra, gen,
+                                   block_shape=sp.block_shape, leaf_map=sh.by_leaf)
     new_state = dict(state, bwd_masks=new_b)
     if sp.method == "topkast":
         leavers = tree_map(lambda _, o, n: None if o is None else o.bool() & ~n.bool(),
@@ -299,20 +403,20 @@ def refresh_superset(state, cfg):
     return new_state
 
 
-def refresh_pack(state, cfg):
+def refresh_pack(state, cfg, mesh=None):
     """Refresh the superset, then ``repack``.  Right after every topology
     update.  No-op without a pack (and, for the superset, without
-    ``bwd_masks``)."""
-    return repack(refresh_superset(state, cfg), cfg)
+    ``bwd_masks``).  ``mesh``: the state's mesh, where it is sharded."""
+    return repack(refresh_superset(state, cfg, mesh), cfg, mesh)
 
 
-def repack(state, cfg):
+def repack(state, cfg, mesh=None):
     """Re-pack ``state["pack"]`` from the masks and supersets as they are
     (widths never shrink: the current pack is ``prev``) and validate it, or
     under kernel='masked' rebuild the superset carrier.  A restored state
     goes through this alone: its supersets are the saved ones, so a resumed
     run draws nothing the uninterrupted run did not.  No-op without a
-    pack."""
+    pack.  ``mesh``: the state's mesh, where it holds shards."""
     if "pack" not in state:
         return state
     if cfg.sparse.kernel == "masked":
@@ -320,7 +424,8 @@ def repack(state, cfg):
     pack = refresh_pack_state(
         state["masks"], cfg.sparse.block_shape, prev=state["pack"],
         slack=cfg.sparse.pack_width_slack, bwd_masks=state.get("bwd_masks"),
-        device=state["nonfinite_steps"].device)
+        device=state["nonfinite_steps"].device,
+        allow_empty=mesh is not None and model_size(mesh) > 1)
     validate_pack(pack, where="refresh_pack")
     return dict(state, pack=pack)
 
@@ -353,30 +458,34 @@ def _all_reduce_mean(tensors, group, n: int) -> None:
         flush(bucket)
 
 
-def _dp_sync(cfg, mesh, *, fused: bool = False):
+def _dp_sync(cfg, mesh, *, fused: bool = False, custom_loss: bool = False):
     """``sync(loss, grads) -> (loss, grads)``: their means over the
     data-parallel ranks of ``mesh`` (``_all_reduce_mean``, the grads in
-    place); the identity without a mesh.  Refuses what data parallelism
-    alone cannot run (ROADMAP queue A item 9b: tensor and expert
-    parallelism over ``model``, FSDP) and the fused epilogue on more than
-    one data rank."""
+    place: a rank's local shards under tensor parallelism); the identity
+    without a mesh.  Refuses what the mesh cannot run yet (ROADMAP queue A
+    item 9b-ii): FSDP over more than one data rank, the fused epilogue on
+    a mesh of more than one rank, and under ``model > 1`` the recurrent
+    and SSM families and a custom loss (the char-LM GRU's)."""
     if mesh is None:
         return lambda loss, g: (loss, g)
-    n_model = axis_sizes(mesh).get("model", 1)
-    if n_model > 1:
-        raise NotImplementedError(
-            f"a mesh with model={n_model}: tensor and expert parallelism over 'model' "
-            "is ROADMAP queue A item 9b; the port's train step runs data parallelism "
-            "only (model=1)")
-    n = dp_size(mesh)
+    n, n_model = dp_size(mesh), model_size(mesh)
     if cfg.fsdp and n > 1:
         raise NotImplementedError(
             f"config {cfg.name!r} sets fsdp=True: sharding weights over the {n} data "
-            "ranks is ROADMAP queue A item 9b; set fsdp=False for data parallelism")
-    if fused and n > 1:
+            "ranks is ROADMAP queue A item 9b-ii; set fsdp=False for data parallelism")
+    if fused and mesh.size() > 1:
         raise ValueError(
-            f"sparse.fused_epilogue on {n} data ranks: the fused wgrad writes the "
-            "momentum from each rank's local gradient before any all-reduce could run")
+            f"sparse.fused_epilogue on a mesh of {mesh.size()} ranks: the fused wgrad "
+            "writes the momentum from each rank's local gradient before any all-reduce "
+            "could run (ROADMAP queue A item 9b-ii)")
+    if n_model > 1 and (cfg.block_type in ("xlstm", "hymba") or custom_loss):
+        what = (f"block_type {cfg.block_type!r}" if not custom_loss
+                else "a custom loss_fn (the char-LM GRU's)")
+        raise NotImplementedError(
+            f"config {cfg.name!r} on model={n_model}: tensor parallelism for {what} is "
+            "ROADMAP queue A item 9b-ii")
+    if n == 1 and n_model > 1:  # no data peers: nothing to average
+        return lambda loss, g: (loss, g)
     group = dp_group(mesh)
 
     def sync(loss, g):
@@ -384,6 +493,22 @@ def _dp_sync(cfg, mesh, *, fused: bool = False):
         return loss, g
 
     return sync
+
+
+def _on_rows(fn, src, batch, mesh):
+    """``_value_and_grad(fn, src, ...)`` on this rank's rows of a global
+    (micro)batch (``shard_batch``), under ``tp.data_parallel`` where the
+    rows are cut (the MoE routes as the whole batch does) and
+    ``tp.model_parallel``."""
+    if mesh is None:
+        return _value_and_grad(fn, src, batch)
+    rows = shard_batch(batch, mesh)
+    cut = None
+    if rows["targets"].shape[0] != batch["targets"].shape[0]:
+        cut = (dp_group(mesh), *shard_index(mesh, dp_axes(mesh)))
+    with (tp.model_parallel(model_group(mesh), model_size(mesh), model_rank(mesh)),
+          tp.data_parallel(cut)):
+        return _value_and_grad(fn, src, rows)
 
 
 def _leaves(tree):
@@ -433,9 +558,12 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None, mesh=None):
     """Build ``train_step(state, batch) -> (state, metrics)``; the state's
     tensors are updated in place (see the module docstring) and the
     metrics are device tensors: reading them is the caller's sync.  Under
-    ``mesh`` the batch is this rank's rows (``shard_batch``) and the
-    gradient and loss are the data-parallel means (``_dp_sync``).
-    ``loss_fn(params, batch, masks=None, pack=None)`` defaults to
+    ``mesh`` the batch is the GLOBAL batch, cut into microbatches and then
+    into this rank's rows of each, the state this rank's shards
+    (``shard_train_state``); the gradient and loss are the data-parallel
+    means (``_dp_sync``).  ``train_step.grads(state, batch)`` is the
+    step's (loss, dense gradient) alone, after the all-reduce (tests read
+    it).  ``loss_fn(params, batch, masks=None, pack=None)`` defaults to
     ``lm_loss``, as in the reference.  Method 'topkast' optimizes (and
     decays) the superset B; 'snfs' folds the gradient before masking (the
     superset gradient under dispatch) into ``dense_mom`` as ``0.9 * m +
@@ -451,8 +579,13 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None, mesh=None):
     mb = max(cfg.microbatches, 1)
     acc_dt = torch.bfloat16 if cfg.grad_accum_dtype == "bfloat16" else torch.float32
     opt_nowd = dataclasses.replace(opt_cfg, weight_decay=0.0)
+    sync = _dp_sync(cfg, mesh, fused=fused, custom_loss=loss_fn is not None)
     loss_fn = loss_fn or _default_loss(cfg)
-    sync = _dp_sync(cfg, mesh, fused=fused)
+    sh = _Sharding(cfg, mesh)
+    if sh.n > 1 and dist.get_rank() == 0:
+        whole = whole_leaves(cfg, mesh)
+        print(f"[train] model={sh.n}: block-sparse leaves held whole, run replicated "
+              f"(a shard would split a block): {whole or 'none'}")
 
     def grads(state, batch, pack=None):
         src = state["params"] if dispatch else apply_masks(state["params"], state["masks"])
@@ -463,12 +596,14 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None, mesh=None):
                            else w, src)
         fn = _loss_fn(loss_fn, state, dispatch, pack)
         if mb == 1:
-            return _value_and_grad(fn, src, batch)
+            return _on_rows(fn, src, batch, mesh)
+        # the reference's split: microbatches of the GLOBAL batch, each then
+        # cut into this rank's rows
         bsz = batch["targets"].shape[0] // mb
         loss_acc, g_acc = torch.zeros((), dtype=torch.float32), None
         for i in range(mb):
-            sub = {k: v[i * bsz:(i + 1) * bsz] for k, v in batch.items()}
-            li, gi = _value_and_grad(fn, src, sub)
+            li, gi = _on_rows(fn, src, {k: v[i * bsz:(i + 1) * bsz] for k, v in batch.items()},
+                              mesh)
             loss_acc = loss_acc.to(li.device) + li
             if g_acc is None:
                 g_acc = tree_map(lambda _, g: torch.zeros(g.shape, dtype=acc_dt,
@@ -508,7 +643,7 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None, mesh=None):
         lr = lr_sched(state["step"])
         # fused: the norm of the momentum update on the fused leaves (the
         # reference's too); finite iff the gradient contribution is
-        gnorm = global_norm(g)
+        gnorm = sh.norm(g)
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
         if fused:
             flags = tree_map(lambda _, m: m is not None, state["masks"])
@@ -523,6 +658,7 @@ def make_train_step(cfg, opt_cfg, lr_sched, *, loss_fn=None, mesh=None):
         return state, {"loss": loss, "lr": lr, "grad_norm": gnorm,
                        "nonfinite_steps": nonfinite}
 
+    train_step.grads = lambda state, batch: sync(*grads(state, batch))
     return train_step
 
 
@@ -531,29 +667,29 @@ def make_rigl_step(cfg, algo: SparseAlgo, lr_sched, *, mesh=None):
     gradient (superset-restricted under dispatch), ``rigl_update`` (with
     the state's dense momentum and supersets) and the reset of the grown
     connections' optimizer state.  Follow every call with
-    ``refresh_pack``.  Under ``mesh`` the batch is this rank's rows and the
-    drop/grow reads the data-parallel mean gradient, the same on every
-    rank."""
+    ``refresh_pack``.  Under ``mesh`` the batch is the global batch (this
+    rank takes its rows) and the drop/grow reads the data-parallel mean
+    gradient, the same on every data rank; on a sharded state each sparse
+    leaf is updated whole, with the one process's draws, and cut back."""
     _check_ported(cfg)
     dispatch = cfg.sparse.kernel not in (None, "dense")
     loss_fn = _default_loss(cfg)
     sync = _dp_sync(cfg, mesh)
+    sh = _Sharding(cfg, mesh)
 
     def rigl_step(state, batch):
         if dispatch and "bwd_masks" in state:
-            loss, g = _value_and_grad(_loss_fn(loss_fn, state, True),
-                                      state["params"], batch)
+            loss, g = _on_rows(_loss_fn(loss_fn, state, True), state["params"], batch, mesh)
         else:
-            loss, g = _value_and_grad(_loss_fn(loss_fn, state, False),
-                                      apply_masks(state["params"], state["masks"]),
-                                      batch)
+            loss, g = _on_rows(_loss_fn(loss_fn, state, False),
+                               apply_masks(state["params"], state["masks"]), batch, mesh)
         loss, g = sync(loss, g)
         dev = state["nonfinite_steps"].device
+        gen = _generator(state["seed"], 3, state["step"], dev)
         params, masks, grown = rigl_update(
-            state["params"], state["masks"], g, state["step"], algo,
-            _generator(state["seed"], 3, state["step"], dev),
-            lr=float(lr_sched.base_lr), dense_momentum=state.get("dense_mom"),
-            bwd_masks=state.get("bwd_masks"))
+            state["params"], state["masks"], g, state["step"], algo, gen,
+            dense_momentum=state.get("dense_mom"), bwd_masks=state.get("bwd_masks"),
+            lr=float(lr_sched.base_lr), leaf_map=sh.by_leaf)
         # the gradients are spent: free them before the reset builds the
         # new optimizer state (a full-width grok layer's are 13 GB)
         del g
@@ -564,13 +700,16 @@ def make_rigl_step(cfg, algo: SparseAlgo, lr_sched, *, mesh=None):
     return rigl_step
 
 
-def make_prune_fn(cfg, sched: PruningSchedule):
+def make_prune_fn(cfg, sched: PruningSchedule, *, mesh=None):
     """Build ``prune_fn(state) -> state``: gradual magnitude pruning of every
     masked layer to ``sched.target(state["step"])``.  Follow every call
-    with ``refresh_pack``."""
+    with ``refresh_pack``.  On a sharded state (``mesh``) each layer is
+    pruned whole and cut back."""
+    sh = _Sharding(cfg, mesh)
 
     def fn(state):
-        params, masks = prune_step(state["params"], state["masks"], state["step"], sched)
+        params, masks = prune_step(state["params"], state["masks"], state["step"], sched,
+                                   leaf_map=sh.by_leaf)
         return dict(state, params=params, masks=masks)
 
     return fn
@@ -582,12 +721,25 @@ def snip_init(state, cfg, batch, *, loss_fn=None, saliency: str = "weight_times_
     gradient of the loss on the current params (no masks threaded, as in
     the reference), at the config's per-layer sparsities; the params are
     masked.  The sparse layers are those the state's masks cover.  Under
-    ``mesh`` the batch is this rank's rows and the saliency reads the
-    data-parallel mean gradient."""
+    ``mesh`` the batch is the global batch (this rank takes its rows), the
+    saliency reads the data-parallel mean gradient, and on a sharded state
+    each layer's saliency is ranked whole and cut back."""
+    sync = _dp_sync(cfg, mesh, custom_loss=loss_fn is not None)
     loss_fn = loss_fn or (lambda p, b: lm_loss(p, cfg, b))
+    sh = _Sharding(cfg, mesh)
     flags = tree_map(lambda _, m: m is not None, state["masks"])
-    smap = sparsity_map(cfg, state["params"], flags)
-    _, g = _dp_sync(cfg, mesh)(*_value_and_grad(loss_fn, state["params"], batch))
-    masks = snip_masks(state["params"], g, smap, saliency=saliency)
+    _, g = sync(*_on_rows(loss_fn, state["params"], batch, mesh))
+    # the sparsities are a function of the logical (whole) shapes
+    smap = sparsity_map(cfg, state["params"] if sh.n == 1 else _logical_params(cfg), flags)
+    g = tree_map(lambda n, t: t if n in smap else None, g)
+    masks = snip_masks(state["params"], g, smap, saliency=saliency, leaf_map=sh.by_leaf)
     del g
     return dict(state, params=apply_masks(state["params"], masks), masks=masks)
+
+
+def _logical_params(cfg):
+    """The whole params' shapes, as meta tensors (the per-layer sparsities
+    are a function of the logical shapes)."""
+    from ..models.model import lm_layout
+
+    return lm_layout(cfg)[0]

@@ -39,6 +39,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import SparseConfig as TSparse  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.core.masks import tree_map  # noqa: E402
+from repro_torch.core.masks import tree_paths as t_tree_paths  # noqa: E402
+from repro_torch.data.synthetic import batch_for as t_batch_for  # noqa: E402
 from repro_torch.launch import sharding as t_sharding  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models.model import lm_axes  # noqa: E402
@@ -196,6 +198,9 @@ def test_placements_follow_the_spec():
 # ---------------------------------------------------------------------------
 
 DP_STEPS, DP_BATCH, DP_SEQ, DP_UPDATE = 5, 8, 64, 2
+# fault C1's (global batch, microbatches): a microbatch of 3 rows is kept
+# whole on both ranks, one of 4 split, one of 1 (8 / 8) kept whole
+C1_CASES = ((12, 4), (8, 2), (8, 8))
 
 RANK_SCRIPT = textwrap.dedent(
     """
@@ -221,22 +226,24 @@ RANK_SCRIPT = textwrap.dedent(
     step = ts.make_train_step(cfg, opt, lr, mesh=mesh)
     rigl = ts.make_rigl_step(cfg, ts.make_algo(cfg, data["steps"]), lr, mesh=mesh)
     losses = []
-    for t, b in enumerate(data["batches"]):
-        b = shard_batch(b, mesh)
+    for t, b in enumerate(data["batches"]):  # the global batch: the steps cut it
         if t == data["update"]:
             st, m = rigl(st, b)
             st = ts.refresh_pack(st, cfg)
         else:
             st, m = step(st, b)
         losses.append(float(m["loss"]))
-    out = {"rank": rank, "rows": int(b["tokens"].shape[0]), "losses": losses,
+    out = {"rank": rank, "rows": int(shard_batch(b, mesh)["tokens"].shape[0]),
+           "losses": losses,
            "masks": {n: hashlib.sha256(m.numpy().tobytes()).hexdigest()
                      for n, m in tree_paths(st["masks"]).items()}}
     refusals = {}
-    for name, kw, shape in (("n_model", {}, (1, 2)),
+    for name, kw, shape in (("xlstm", {"arch": "xlstm-1.3b"}, (1, 2)),
                             ("fsdp", {"fsdp": True}, (2, 1)),
                             ("fused", {"fused": True}, (2, 1))):
-        c = dataclasses.replace(cfg, fsdp=kw.get("fsdp", False))
+        c = cfg if "arch" not in kw else dataclasses.replace(
+            get_config(kw["arch"], smoke=True), sparse=cfg.sparse)
+        c = dataclasses.replace(c, fsdp=kw.get("fsdp", False))
         if kw.get("fused"):
             c = dataclasses.replace(c, sparse=dataclasses.replace(
                 c.sparse, kernel="masked", fused_epilogue=True))
@@ -251,6 +258,19 @@ RANK_SCRIPT = textwrap.dedent(
     _, log = train_loop(cfg, steps=3, batch=8, seq=32, workdir=work, device="cpu",
                         ckpt_every=None, log_every=1, mesh=mesh)
     out["train_loop"] = {"losses": [r["loss"] for r in log], "workdir": work}
+    # the microbatches of the GLOBAL batch (fault C1): a step's loss and
+    # every gradient leaf, and train_loop, at each (batch, microbatches)
+    out["c1"] = {}
+    fresh = torch.load(inputs, weights_only=False)["state"]  # the steps ran in place
+    for rows, n_mb in data["c1"]:
+        c = dataclasses.replace(cfg, microbatches=n_mb)
+        b = data["c1_batches"][rows]
+        loss, g = ts.make_train_step(c, opt, lr, mesh=mesh).grads(fresh, b)
+        torch.save({"loss": loss, "grads": tree_paths(g)},
+                   data["workdir"] + f"/c1_{rows}_{n_mb}_rank{rank}.pt")
+        _, log = train_loop(c, steps=2, batch=rows, seq=32, workdir=work + f"_c1_{rows}",
+                            device="cpu", ckpt_every=None, log_every=1, mesh=mesh)
+        out["c1"][f"{rows}/{n_mb}"] = [r["loss"] for r in log]
     print(json.dumps(out))
     dist.destroy_process_group()
     """
@@ -290,9 +310,12 @@ def dp_run(tmp_path_factory):
 
     jbs = [batch_for(jcfg, t, DP_BATCH, DP_SEQ, learnable=True) for t in range(DP_STEPS)]
     tbs = [{k: torch.from_numpy(np.array(v)).long() for k, v in jb.items()} for jb in jbs]
+    c1_batches = {rows: t_batch_for(tcfg, 0, rows, DP_SEQ, learnable=True)
+                  for rows, _ in C1_CASES}
+    c1_state = port_state()  # the initial state (``st`` moves on below)
     torch.save({"cfg": tcfg, "opt": topt, "state": port_state(), "batches": tbs,
-                "steps": DP_STEPS, "update": DP_UPDATE, "workdir": str(tmp)},
-               tmp / "inputs.pt")
+                "steps": DP_STEPS, "update": DP_UPDATE, "workdir": str(tmp),
+                "c1": C1_CASES, "c1_batches": c1_batches}, tmp / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     ranks = [subprocess.Popen(
         [sys.executable, "-c", RANK_SCRIPT, str(r), "2", str(tmp / "store"),
@@ -318,13 +341,21 @@ def dp_run(tmp_path_factory):
 
     _, loop_log = train_loop(tcfg, steps=3, batch=8, seq=32, workdir=str(tmp / "single"),
                              device="cpu", ckpt_every=None, log_every=1)
+    c1 = {}
+    for rows, n_mb in C1_CASES:
+        c = dataclasses.replace(tcfg, microbatches=n_mb)
+        loss, g = tsteps.make_train_step(c, topt, t_lr).grads(c1_state, c1_batches[rows])
+        _, log = train_loop(c, steps=2, batch=rows, seq=32, workdir=str(tmp / f"c1_{rows}"),
+                            device="cpu", ckpt_every=None, log_every=1)
+        c1[(rows, n_mb)] = {"loss": float(loss), "grads": t_tree_paths(g),
+                            "train_loop": [r["loss"] for r in log]}
     reports = []
     for p in ranks:
         out, err = p.communicate(timeout=300)
         assert p.returncode == 0, err[-3000:]
         reports.append(json.loads(out.strip().splitlines()[-1]))
     return {"ref": ref, "single": single, "ranks": reports,
-            "train_loop": [r["loss"] for r in loop_log]}
+            "train_loop": [r["loss"] for r in loop_log], "c1": c1, "tmp": tmp}
 
 
 def test_two_ranks_match_single_process_and_reference(dp_run):
@@ -360,16 +391,40 @@ def test_train_loop_on_two_ranks(dp_run):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("n_model", "NotImplementedError: .*model=2.*queue A item 9b"),
-    ("fsdp", "NotImplementedError: .*fsdp=True.*queue A item 9b"),
-    ("fused", "ValueError: sparse.fused_epilogue on 2 data ranks"),
+    ("xlstm", "NotImplementedError: .*xlstm.*model=2.*queue A item 9b-ii"),
+    ("fsdp", "NotImplementedError: .*fsdp=True.*queue A item 9b-ii"),
+    ("fused", "ValueError: sparse.fused_epilogue on a mesh of 2 ranks.*9b-ii"),
 ])
 def test_mesh_refusals(dp_run, what, match):
-    """On two live ranks: a model axis wider than 1, FSDP, and the fused
-    epilogue on two data ranks raise, naming queue A item 9b or the
-    reason."""
+    """On two live ranks: the xLSTM family on a model axis of 2, FSDP on
+    two data ranks, and the fused epilogue on a mesh of two ranks raise,
+    naming queue A item 9b-ii."""
     import re
 
     for report in dp_run["ranks"]:
         msg = report["refusals"][what]
         assert msg is not None and re.match(match, msg), msg
+
+
+@pytest.mark.parametrize("rows,n_mb", C1_CASES)
+def test_microbatches_of_the_global_batch(dp_run, rows, n_mb):
+    """Fault C1: the steps cut the GLOBAL batch into microbatches and give
+    each rank its rows of each (a microbatch whose rows do not divide the
+    two ranks is kept whole on both).  The step's loss and every gradient
+    leaf on each rank equal the single-process port's within rel 1e-5 (of
+    the leaf's largest value: f32 sums in another order; the fault missed
+    by 3.8e-3), and train_loop's losses too (8 rows in 8 microbatches: one
+    row each, both ranks train)."""
+    want = dp_run["c1"][(rows, n_mb)]
+    for r in range(2):
+        got = torch.load(dp_run["tmp"] / f"c1_{rows}_{n_mb}_rank{r}.pt")
+        assert float(got["loss"]) == pytest.approx(want["loss"], rel=1e-5)
+        assert set(got["grads"]) == set(want["grads"])
+        for n, g in got["grads"].items():
+            w = want["grads"][n]
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), n
+    for report in dp_run["ranks"]:
+        losses = report["c1"][f"{rows}/{n_mb}"]
+        assert len(losses) == 2
+        for a, b in zip(losses, want["train_loop"]):
+            assert a == pytest.approx(b, rel=1e-5), (losses, want["train_loop"])
